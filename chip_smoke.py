@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's segment-and-merge path (``deepmerge_tpu_torch``) once at
-the flagship S2Former-v3 widths with random seeded weights, after checking
-each hand-written CUDA kernel against its plain PyTorch version on the card:
+Drives the port (``deepmerge_tpu_torch``) at the flagship S2Former-v3
+widths with random seeded weights, after checking each hand-written CUDA
+kernel against its plain PyTorch version on the card:
 
   1. the card, and the torch, CUDA and nvcc versions;
-  2. the kernel build (nvcc, from ``deepmerge_tpu_torch/csrc``);
+  2. the kernel build (one nvcc per ``deepmerge_tpu_torch/csrc`` source, all
+     started together), with ptxas's register and spill lines;
   3. each kernel against its plain version, at the main path's shapes (and
      at batch 64 for the block kernels), with its time beside the plain
-     version's;
-  4. the slice: ``FeatureExtractor.segment_scene_device`` on a 1024² scene
-     with 2043 sample points, every kernel's launch count over that run,
-     the median time of three runs, one profiled run (the device's busy
+     version's; the w8a8 kernels (K4) with dynamic and with static scales,
+     also at the serving walk's batch of 2048;
+  4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
+     scene with 2043 sample points, every kernel's launch count over that
+     run, the median time of three runs, one profiled run (the device's busy
      share and its time by kernel), and the same slice with the plain
      versions on the card as the reference (label disagreement at most
-     0.5%).
+     0.5%);
+  5. the same slice with ``quantize="w8a8"`` (K1 and K4 launched, K2 and K3
+     not), checked the same way, its label disagreement with the bf16 slice
+     printed; then one ``w8a8-static`` run, calibrated on its first chunk;
+  6. the serving walk: ``process_folder`` with ``quantize="w8a8"`` and
+     label maps over four 2048² scenes of 8192 regions in the reference
+     folder layout, each scene's ``simi``, merged map and stored embeddings
+     checked, and the steady-state MPix/s from the gaps between completions;
+     then its first scene again through ``process_scene``, profiled (busy
+     share), and on the plain versions (its embeddings and its first-round
+     merge decisions held to theirs).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -42,13 +54,44 @@ from unittest import mock
 # version but sum each product in another order, so a rounding can differ
 # by one ulp and carry through the block; 2e-2 allows a few ulps of the
 # output scale for one block, 3e-2 for a stage of up to four.
+# The w8a8 kernels are held to the same bounds: their s32 sums are exact,
+# but an f32 LayerNorm or GELU output one ulp apart can flip an int8 code on
+# a rounding boundary (one quant step), on top of the bf16 roundings.
+# A block's output keeps its residual input x (N(0, 1) here), so max|plain|
+# is mostly x's, and those bounds let through an absolute error of about
+# 0.13, more than a whole bias term of the block. They catch a fault that
+# spoils a few rows; the RMS error of the block's own contribution (out - x)
+# over that contribution's RMS catches a term that is small everywhere. At
+# the flagship widths on an H100 the kernels show 0.003 for one block,
+# 0.005 for a stage of two and 0.013 for a w8a8 stage of four; the plain
+# version with one bias of the block left out shows 0.034 or more.
 TOL_GATHER = 0.0
 TOL_BLOCK = 2e-2
 TOL_CHAIN = 3e-2
+TOL_BLOCK_RMS = 1e-2
+TOL_CHAIN_RMS = 2.5e-2
 LABEL_DISAGREEMENT_MAX = 0.005  # BASELINE.md's parity bar
+# The serving walk's merge (absolute threshold 1.0, up to 16 rounds) joins
+# about a third of the edges of a random-weight scene in its first round,
+# close to where the clusters start to percolate, so a few edges decided
+# the other way can move a large cluster: on an H100 the bf16 kernels (K2,
+# K3) differ from their plain versions by 1.9% of the merged map on the
+# first walk scene and w8a8 (K4) by 2.3%, and the plain embeddings plus
+# noise of the kernels' RMS error move it by 1.1%. That scene is therefore
+# held where the kernels act, before the merge amplifies: the embeddings'
+# RMS error over their RMS (0.007 measured) and the share of edges whose
+# first-round merge decision differs (0.0028 measured, 0.0015 with bf16).
+TOL_SERVE_EMB_RMS = 2e-2
+EDGE_FLIPS_MAX = 0.005
 
 SCENE = dict(h=1024, w=1024, n_regions=2048, n_objects=256,
              points_per_region=1, seed=0)
+# bench.py's BENCH_SERVE defaults: 2048² scenes at 8192 regions, 256
+# objects, one point per region, deflate rasters, chunks of 2048 points
+SERVE_SCENES = 4
+SERVE_SCENE = dict(h=2048, w=2048, n_regions=8192, n_objects=256,
+                   points_per_region=1)
+SERVE_BATCH = 2048
 
 
 class SmokeFailure(RuntimeError):
@@ -91,6 +134,24 @@ def rel_err(got, want):
 
 def abs_err(got, want):
     return float((got.float() - want.float()).abs().max())
+
+
+def check_block(what, got, want, x, tol, tol_rms):
+    """A block kernel's output against its plain version on input ``x``:
+    the largest error over max|plain| (at most ``tol``) and the RMS error
+    of the block's contribution ``plain - x`` over its RMS (at most
+    ``tol_rms``). Returns the largest absolute error and a line of all
+    three."""
+    d = got.float() - want.float()
+    contrib = want.float() - x.float()
+    err = float(d.abs().max() / want.float().abs().max())
+    aerr = float(d.abs().max())
+    rms = float(d.pow(2).mean().sqrt() / contrib.pow(2).mean().sqrt())
+    require(err <= tol, f"{what} differs from plain: {err} > {tol}")
+    require(rms <= tol_rms, f"{what}: RMS error of the block's contribution "
+            f"{rms} > {tol_rms}")
+    return aerr, (f"rel err {err:.3e} (tol {tol}), max |err| {aerr:.3e}, "
+                  f"contribution RMS err {rms:.3e} (tol {tol_rms})")
 
 
 def block_inputs(b, n, depth, dev, seed):
@@ -165,13 +226,11 @@ def check_kernels(dev, ds, scene):
         x, plist, heads = block_inputs(b, 192, 1, dev, seed=b)
         got = fb.fused_block(x, plist[0], heads)
         want = fb.block_ref(x, plist[0], heads)
-        err, aerr = rel_err(got, want), abs_err(got, want)
-        require(err <= TOL_BLOCK,
-                f"fused_block (B={b}) differs from plain: {err} > {TOL_BLOCK}")
+        aerr, errs = check_block(f"fused_block (B={b})", got, want, x,
+                                 TOL_BLOCK, TOL_BLOCK_RMS)
         ms = cuda_ms(lambda: fb.fused_block(x, plist[0], heads))
         plain_ms = cuda_ms(lambda: fb.block_ref(x, plist[0], heads), reps=2)
-        print(f"K2 fused_block B={b} N=192 C=768 H=12: rel err {err:.3e} "
-              f"(tol {TOL_BLOCK}), max |err| {aerr:.3e}; {ms:.3f} ms, "
+        print(f"K2 fused_block B={b} N=192 C=768 H=12: {errs}; {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms")
         k2.append(dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms))
         del x, plist, got, want
@@ -184,14 +243,12 @@ def check_kernels(dev, ds, scene):
             x, plist, heads = block_inputs(b, n, depth, dev, seed=b + n)
             got = fb.fused_block_chain(x, plist, heads)
             want = fb.chain_ref(x, plist, heads)
-            err, aerr = rel_err(got, want), abs_err(got, want)
-            require(err <= TOL_CHAIN,
-                    f"fused_block_chain (B={b}, N={n}, depth {depth}) differs "
-                    f"from plain: {err} > {TOL_CHAIN}")
+            aerr, errs = check_block(
+                f"fused_block_chain (B={b}, N={n}, depth {depth})", got, want,
+                x, TOL_CHAIN, TOL_CHAIN_RMS)
             ms = cuda_ms(lambda: fb.fused_block_chain(x, plist, heads))
             plain_ms = cuda_ms(lambda: fb.chain_ref(x, plist, heads), reps=2)
-            print(f"K3 fused_block_chain B={b} N={n} depth {depth}: rel err "
-                  f"{err:.3e} (tol {TOL_CHAIN}), max |err| {aerr:.3e}; "
+            print(f"K3 fused_block_chain B={b} N={n} depth {depth}: {errs}; "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
             per_stage[(b, n)] = dict(max_abs_err=aerr, ms=ms,
                                      plain_ms=plain_ms)
@@ -204,16 +261,74 @@ def check_kernels(dev, ds, scene):
     return results
 
 
+def check_k4(dev):
+    """Phase 3, w8a8: K4's block (N=192) and chain (N=48 x 4, N=12 x 2) at
+    batch 64, at the slices' chunk of 1024 and at the serving walk's chunk
+    of ``SERVE_BATCH``, with dynamic scales and with static scales from
+    ``block_act_amax`` on the same input (block by block along the plain
+    chain)."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    results = {}
+    for b in (64, 1024, SERVE_BATCH):
+        for n, depth in ((192, 1), (48, 4), (12, 2)):
+            x, plist, heads = block_inputs(b, n, depth, dev, seed=b + n + 1)
+            for static in (False, True):
+                qps, h = [], x
+                for p in plist:
+                    amax = fb.block_act_amax(h, p, heads)[1] if static else None
+                    qp = fb.quantize_block_params(p, amax)
+                    h = fb.block_ref_q8(h, qp, heads).to(x.dtype)
+                    qps.append(qp)
+                if depth == 1:
+                    name, tol, tol_rms = ("fused_block_q8", TOL_BLOCK,
+                                          TOL_BLOCK_RMS)
+                    run = lambda: fb.fused_block_q8(x, qps[0], heads)
+                    plain = lambda: fb.block_ref_q8(x, qps[0], heads)
+                else:
+                    name, tol, tol_rms = ("fused_block_chain_q8", TOL_CHAIN,
+                                          TOL_CHAIN_RMS)
+                    run = lambda: fb.fused_block_chain_q8(x, qps, heads)
+                    plain = lambda: fb.chain_ref_q8(x, qps, heads)
+                got, want = run(), plain()
+                mode = "static" if static else "dynamic"
+                aerr, errs = check_block(
+                    f"{name} (B={b}, N={n}, depth {depth}, {mode})", got,
+                    want, x, tol, tol_rms)
+                ms = cuda_ms(run)
+                plain_ms = cuda_ms(plain, reps=2)
+                print(f"K4 {name} B={b} N={n} depth {depth} {mode}: {errs}; "
+                      f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+                results[(name, b, n, mode)] = dict(
+                    max_abs_err=aerr, ms=ms, plain_ms=plain_ms)
+                del got, want, qps, h
+            del x, plist
+            torch.cuda.empty_cache()
+    # the JSON line reports the main path's chunk with dynamic scales, the
+    # chain's two stages summed
+    s1 = results[("fused_block_chain_q8", 1024, 48, "dynamic")]
+    s2 = results[("fused_block_chain_q8", 1024, 12, "dynamic")]
+    return {
+        "fused_block_q8": results[("fused_block_q8", 1024, 192, "dynamic")],
+        "fused_block_chain_q8": dict(
+            max_abs_err=max(s1["max_abs_err"], s2["max_abs_err"]),
+            ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"]),
+    }
+
+
 def profile_slice(run_slice, top=8):
     """One profiled run of the slice: the device's busy share (kernel time
-    over wall time) and the kernels that take the most device time."""
+    over wall time) and the kernels that take the most device time.
+    Returns the run's result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_slice()
+        out = run_slice()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
@@ -226,6 +341,274 @@ def profile_slice(run_slice, top=8):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:8.2f} ms {ms / busy_ms:6.1%} x{e.count:<4d} "
               f"{e.key[:70]}")
+    return out
+
+
+def counters():
+    """Every kernel wrapper, by the name its launch count goes under."""
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import window_gather as wg
+
+    return {"window_gather": wg.gather_windows,
+            "fused_block": fb.fused_block,
+            "fused_block_chain": fb.fused_block_chain,
+            "fused_block_q8": fb.fused_block_q8,
+            "fused_block_chain_q8": fb.fused_block_chain_q8}
+
+
+def counted(run):
+    """``run()`` with every launch count set to 0 just before it; returns
+    its result and the counts read just after it."""
+    fns = counters()
+    for f in fns.values():
+        f.launches = 0
+    out = run()
+    return out, {k: f.launches for k, f in fns.items()}
+
+
+def require_launches(launches, wanted, unwanted, what):
+    for k in wanted:
+        require(launches[k] > 0, f"kernel {k} was not launched on {what}")
+    for k in unwanted:
+        require(launches[k] == 0, f"kernel {k} ran on {what}: {launches}")
+
+
+def plain_versions():
+    """A context in which the main path looks up every kernel wrapper's
+    plain version instead (where the path looks them up)."""
+    from deepmerge_tpu_torch.models import s2former
+    from deepmerge_tpu_torch.ops import patches
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import window_gather as wg
+
+    stack = contextlib.ExitStack()
+    for module, attr, ref in (
+            (patches, "gather_windows", wg.gather_windows_ref),
+            (s2former, "fused_block", fb.block_ref),
+            (s2former, "fused_block_chain", fb.chain_ref),
+            (s2former, "fused_block_q8", fb.block_ref_q8),
+            (s2former, "fused_block_chain_q8", fb.chain_ref_q8)):
+        stack.enter_context(mock.patch.object(module, attr, ref))
+    return stack
+
+
+def check_slice_outputs(out, r, n_edges, valid, labels_hw):
+    """Finite ``simi`` of the right shape, min-member labels over the
+    bucketed region axis, and a label map whose ids run 0..k-1."""
+    import numpy as np
+
+    from deepmerge_tpu_torch.infer.extract import region_bucket
+
+    simi, labels, rounds, label_map, n_clusters = out
+    simi_h, labels_h = simi.cpu().numpy(), labels.cpu().numpy()
+    map_h = label_map.cpu().numpy()
+    k_clusters, n_rounds = int(n_clusters), int(rounds)
+    require(simi_h.shape == valid.shape, f"simi shape {simi_h.shape}")
+    require(np.isfinite(simi_h[valid]).all(), "non-finite simi on real edges")
+    require(np.isinf(simi_h[~valid]).all(), "pad edges must score +inf")
+    r_pad = region_bucket(r)
+    require(labels_h.shape == (r_pad,)
+            and (labels_h <= np.arange(r_pad)).all(),
+            "labels must be min-member ids over the region axis")
+    require(map_h.shape == labels_hw, f"label map {map_h.shape}")
+    require(1 <= k_clusters <= r and map_h.min() == 0
+            and map_h.max() < k_clusters,
+            f"n_clusters {k_clusters} vs label map max {map_h.max()}")
+    require(0 <= n_rounds <= 8, f"rounds {n_rounds}")
+    return map_h, k_clusters, n_rounds
+
+
+def time_slice(run_slice, label, card):
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        run_slice()
+        times.append(time.perf_counter() - t)
+    med = statistics.median(times)
+    mpix = SCENE["h"] * SCENE["w"] / 1e6 / med
+    print(f"slice ({label}, kernels): median {med * 1e3:.1f} ms of "
+          f"{[round(x * 1e3, 1) for x in times]} ms -> {mpix:.3f} MPix/s on "
+          f"{card}")
+
+
+def against_plain(run_slice, embed, map_k, label):
+    """The same slice with the plain versions on the card; the label
+    disagreement with the kernels' map must stay within the parity bar.
+    ``embed()`` gives the scene's embeddings, compared too (printed)."""
+    from deepmerge_tpu.utils.parity import label_disagreement
+
+    emb_k = embed()
+    with plain_versions():
+        t = time.perf_counter()
+        _, _, rounds_p, map_p, n_p = run_slice()
+        plain_s = time.perf_counter() - t
+        emb_p = embed()
+    dis = label_disagreement(map_k, map_p.cpu().numpy())
+    print(f"slice ({label}, plain versions): {plain_s * 1e3:.1f} ms, "
+          f"{int(n_p)} clusters after {int(rounds_p)} rounds; embeddings "
+          f"rel err {rel_err(emb_k, emb_p):.3e}; label disagreement "
+          f"{dis:.5f} (max {LABEL_DISAGREEMENT_MAX})")
+    require(dis <= LABEL_DISAGREEMENT_MAX,
+            f"{label}: label disagreement {dis} > {LABEL_DISAGREEMENT_MAX}")
+
+
+def export_folder(root, n_scenes):
+    """``n_scenes`` serving scenes in the reference folder layout, each
+    with its ``<name>_labels.npy`` superpixel sidecar; returns the image
+    and shapefile folders and each scene's point and edge counts."""
+    import numpy as np
+
+    from deepmerge_tpu.geodata.ingest import export_scene
+    from deepmerge_tpu.geodata.synthetic import generate_scene
+
+    images = os.path.join(root, "images")
+    shps = os.path.join(root, "shps")
+    stage = os.path.join(root, "stage")
+    os.makedirs(images, exist_ok=True)
+    counts = {}
+    for seed in range(1, n_scenes + 1):
+        scene = generate_scene(**SERVE_SCENE, seed=seed, name=f"scene{seed}")
+        paths = export_scene(scene, stage, compression="deflate")
+        os.rename(paths["image"], os.path.join(images, f"{scene.name}.tif"))
+        os.makedirs(os.path.join(shps, scene.name), exist_ok=True)
+        for ext in (".shp", ".shx", ".dbf"):
+            os.rename(os.path.join(stage, f"{scene.name}{ext}"),
+                      os.path.join(shps, f"{scene.name}{ext}"))
+            for base in ("PointsGCS", "lines"):
+                src = os.path.join(stage, scene.name, f"{base}{ext}")
+                if os.path.exists(src):
+                    os.rename(src, os.path.join(shps, scene.name,
+                                                f"{base}{ext}"))
+        np.save(os.path.join(shps, f"{scene.name}_labels.npy"), scene.labels)
+        counts[scene.name] = (scene.regions.num_points, scene.rag.num_edges)
+    return images, shps, counts
+
+
+def serving_scene(cfg, ex, images, shps, name):
+    """One walk scene again, on its own: ``process_scene`` as the walk
+    calls it (the same batch, the fused serving path), profiled for the
+    device's busy share, then on the plain versions: its embeddings and
+    its first-round merge decisions held to theirs, the label disagreement
+    of the merged maps printed."""
+    import numpy as np
+
+    from deepmerge_tpu.geodata.ingest import load_scene
+    from deepmerge_tpu.utils.parity import label_disagreement
+    from deepmerge_tpu_torch.infer.driver import prestage_scene, process_scene
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    scene = load_scene(
+        os.path.join(images, f"{name}.tif"), os.path.join(shps, f"{name}.shp"),
+        os.path.join(shps, name, "PointsGCS.shp"),
+        os.path.join(shps, name, "lines.shp"), name=name,
+        labels=np.load(os.path.join(shps, f"{name}_labels.npy")))
+    ds = stage_scene(scene, cfg.data, ex.device)
+    prestage_scene(ex, scene, ds, cfg.data, max(cfg.merge.edge_batch, 1))
+
+    def run():
+        return process_scene(cfg, scene, extractor=ex, device_scene=ds,
+                             log_fn=lambda *_: None)
+
+    print(f"serving scene {name} ({scene.regions.num_points} points, batch "
+          f"{SERVE_BATCH}), profiled:")
+    emb_k, simi_k, res_k = profile_slice(run)
+    with plain_versions():
+        t = time.perf_counter()
+        emb_p, simi_p, res_p = run()
+        plain_s = time.perf_counter() - t
+    emb_rms = float(np.sqrt(((emb_k - emb_p) ** 2).mean() / (emb_p ** 2).mean()))
+    thr = cfg.merge.threshold
+    flips = float(((simi_k < thr) != (simi_p < thr)).mean())
+    dis = label_disagreement(res_k.label_map(scene), res_p.label_map(scene))
+    print(f"serving scene {name} (plain versions): {plain_s:.3f} s; "
+          f"embeddings RMS rel err {emb_rms:.3e} (max {TOL_SERVE_EMB_RMS}); "
+          f"first-round merge decisions (simi < {thr}) that differ: "
+          f"{flips:.5f} of {simi_p.size} edges (max {EDGE_FLIPS_MAX}); "
+          f"{res_k.num_clusters} vs {res_p.num_clusters} clusters, label "
+          "disagreement "
+          f"{dis:.5f} (printed, not gated: the walk's merge amplifies them)")
+    require(emb_rms <= TOL_SERVE_EMB_RMS, f"serving scene {name}: embeddings "
+            f"RMS rel err {emb_rms} > {TOL_SERVE_EMB_RMS}")
+    require(flips <= EDGE_FLIPS_MAX, f"serving scene {name}: {flips} of the "
+            f"merge decisions differ > {EDGE_FLIPS_MAX}")
+
+
+def serving_walk(model, dev, card):
+    """Phase 6: ``process_folder`` over the serving scenes; returns the
+    launch counts of the walk."""
+    import tempfile
+
+    import numpy as np
+
+    from deepmerge_tpu.config import Config, DataConfig, MergeConfig
+    from deepmerge_tpu.geodata.geotiff import read_geotiff
+    from deepmerge_tpu.geodata.shapefile import ShapefileTable
+    from deepmerge_tpu_torch.infer import driver, extract
+
+    cfg = Config(model=model.cfg,
+                 data=DataConfig(max_window=512, eval_batch_size=SERVE_BATCH),
+                 merge=MergeConfig(engine="device"))
+    stores = {}  # scene name -> in-memory store, where h5py is missing
+
+    def in_memory_store(path):
+        store = extract.FeatureStore(None)
+        stores[os.path.basename(os.path.dirname(path))] = store
+        return store
+
+    if extract.HAS_H5PY:
+        print("h5py: available; each scene writes its .h5")
+        store_patch = contextlib.nullcontext()
+    else:
+        print("h5py: missing on this machine; the walk keeps each scene's "
+              "embeddings in an in-memory FeatureStore")
+        store_patch = mock.patch.object(driver, "FeatureStore",
+                                        in_memory_store)
+    ex = extract.FeatureExtractor(model, batch_size=SERVE_BATCH, device=dev)
+    with tempfile.TemporaryDirectory() as root:
+        t = time.perf_counter()
+        images, shps, counts = export_folder(root, SERVE_SCENES)
+        print(f"serving folder: {SERVE_SCENES} scenes of {SERVE_SCENE} "
+              f"({sum(c[0] for c in counts.values())} points) written in "
+              f"{time.perf_counter() - t:.1f} s")
+        stats, log = {}, []
+        t0 = time.perf_counter()
+        with store_patch:
+            done, launches = counted(lambda: driver.process_folder(
+                cfg, images, shps, log_fn=log.append, write_labelmaps=True,
+                extractor=ex, stats=stats, device=dev))
+        wall = time.perf_counter() - t0
+        for line in log:
+            if line.startswith(("  walk[", "  prefetch[", "FAILED")):
+                print(line)
+        print(f"walk launches: {launches}")
+        require(done == sorted(counts), f"scenes done: {done} of "
+                f"{sorted(counts)}")
+        tag = cfg.model.name
+        for name, (n_points, n_edges) in counts.items():
+            simi = ShapefileTable.read(
+                os.path.join(shps, name, "lines.shp")).get_field("simi")
+            simi = np.asarray(simi, np.float64)
+            require(simi.shape == (n_edges,) and np.isfinite(simi).all(),
+                    f"{name}: simi {simi.shape} finite "
+                    f"{np.isfinite(simi).mean()}")
+            tif = read_geotiff(os.path.join(shps, name, f"{tag}_merged.tif"))
+            require(tif.array.shape[:2] == (SERVE_SCENE["h"], SERVE_SCENE["w"]),
+                    f"{name}: merged map {tif.array.shape}")
+            rows = (extract.FeatureStore.open(
+                os.path.join(shps, name, f"{tag}_features.h5")).shape[0]
+                if extract.HAS_H5PY else stores[name].read_all().shape[0])
+            require(rows == n_points, f"{name}: {rows} rows for "
+                    f"{n_points} points")
+        serving_scene(cfg, ex, images, shps, sorted(counts)[0])
+    ts = stats["scene_done_ts"]
+    per_scene = [ts[0] - t0] + [b - a for a, b in zip(ts, ts[1:])]
+    steady = statistics.median(per_scene[1:])
+    mpix = SERVE_SCENE["h"] * SERVE_SCENE["w"] / 1e6
+    print(f"serving walk: {len(done)}/{SERVE_SCENES} scenes in {wall:.3f} s; "
+          f"per scene {[round(x, 3) for x in per_scene]} s; steady "
+          f"{steady:.3f} s/scene -> {mpix / steady:.3f} MPix/s "
+          f"(whole walk {SERVE_SCENES * mpix / wall:.3f} MPix/s) on {card}")
+    return launches
 
 
 def main() -> int:
@@ -245,6 +628,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, repo)
 
+    import warnings
+
     import numpy as np
 
     # the scene generator and the parity metric are host-only modules of
@@ -253,15 +638,9 @@ def main() -> int:
     from deepmerge_tpu.utils.parity import label_disagreement
     from deepmerge_tpu_torch import DataConfig, ModelConfig
     from deepmerge_tpu_torch.compat.weights import init_state_dict
-    from deepmerge_tpu_torch.infer.extract import (
-        FeatureExtractor,
-        region_bucket,
-    )
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
     from deepmerge_tpu_torch.models import s2former
-    from deepmerge_tpu_torch.ops import patches
     from deepmerge_tpu_torch.ops.kernels import build
-    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
-    from deepmerge_tpu_torch.ops.kernels import window_gather as wg
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
     t_start = time.perf_counter()
@@ -277,19 +656,18 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc}, python {sys.version.split()[0]}")
 
-    # 2. the build
+    # 2. the build, one nvcc per source, in parallel
+    sources = ("window_gather", "fused_block", "fused_block_q8")
     t = time.perf_counter()
-    for k in ("window_gather", "fused_block"):
-        build.load(k, {})
-    print(f"build: window_gather.cu + fused_block.cu in "
+    build.build_all(sources)
+    print(f"build: {', '.join(k + '.cu' for k in sources)} in "
           f"{time.perf_counter() - t:.1f} s -> {build.BUILD_DIR}")
     for k, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{k}]: {line.strip()}")
 
-    # the scene of the slice (also the gather check's input)
-    mcfg = ModelConfig()  # flagship v3: bf16, fused block + stage chain
+    # the scene of the slices (also the gather check's input)
     dcfg = DataConfig(max_window=512, eval_batch_size=1024)
     t = time.perf_counter()
     scene = generate_scene(**SCENE)
@@ -309,83 +687,92 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     kernel_results = check_kernels(dev, ds, scene)
+    kernel_results.update(check_k4(dev))
 
-    # 4. the slice
-    model = s2former.S2Former(mcfg)
-    model.load_state_dict(init_state_dict(mcfg, seed=0), strict=True)
-    extractor = FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
-                                 device=dev)
+    def extractor_for(quantize):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # w8a8-static's experiment note
+            mcfg = ModelConfig(quantize=quantize)  # flagship v3, bf16
+        model = s2former.S2Former(mcfg)
+        model.load_state_dict(init_state_dict(mcfg, seed=0), strict=True)
+        return FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
+                                device=dev)
 
-    def run_slice():
-        out = extractor.segment_scene_device(
-            scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
-            device_scene=ds, region_map=region_map,
-        )
-        torch.cuda.synchronize()
-        return out
+    def slice_runner(extractor):
+        def run_slice():
+            out = extractor.segment_scene_device(
+                scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
+                device_scene=ds, region_map=region_map,
+            )
+            torch.cuda.synchronize()
+            return out
+        return run_slice
 
-    counters = {"window_gather": wg.gather_windows,
-                "fused_block": fb.fused_block,
-                "fused_block_chain": fb.fused_block_chain}
-    for f in counters.values():
-        f.launches = 0
+    def embedder(extractor):
+        return lambda: extractor.extract_scene_device(scene, dcfg,
+                                                      device_scene=ds)
+
+    bf16_kernels = ("window_gather", "fused_block", "fused_block_chain")
+    q8_kernels = ("window_gather", "fused_block_q8", "fused_block_chain_q8")
+
+    # 4. the bf16 slice
+    ex_bf16 = extractor_for("")
+    run_bf16 = slice_runner(ex_bf16)
     t = time.perf_counter()
-    simi, labels, rounds, label_map, n_clusters = run_slice()
-    first_s = time.perf_counter() - t
-    launches = {k: f.launches for k, f in counters.items()}
-    print(f"slice launches: {launches} (first run {first_s:.3f} s)")
-    for k, v in launches.items():
-        require(v > 0, f"kernel {k} was not launched on the main path")
+    out, launches = counted(run_bf16)
+    print(f"slice (bf16) launches: {launches} (first run "
+          f"{time.perf_counter() - t:.3f} s)")
+    require_launches(launches, bf16_kernels, q8_kernels[1:], "the bf16 slice")
+    map_bf16, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                                scene.labels.shape)
+    print(f"slice (bf16): {k} clusters after {n_rounds} rounds")
+    time_slice(run_bf16, "bf16", card)
+    profile_slice(run_bf16)
+    against_plain(run_bf16, embedder(ex_bf16), map_bf16, "bf16")
+    del ex_bf16, run_bf16
+    torch.cuda.empty_cache()
+    all_launches = dict(launches)
 
-    simi_h = simi.cpu().numpy()
-    labels_h = labels.cpu().numpy()
-    map_h = label_map.cpu().numpy()
-    k_clusters, n_rounds = int(n_clusters), int(rounds)
-    require(simi_h.shape == (len(edges),), f"simi shape {simi_h.shape}")
-    require(np.isfinite(simi_h[valid]).all(), "non-finite simi on real edges")
-    require(np.isinf(simi_h[~valid]).all(), "pad edges must score +inf")
-    r_pad = region_bucket(r)
-    require(labels_h.shape == (r_pad,)
-            and (labels_h <= np.arange(r_pad)).all(),
-            "labels must be min-member ids over the region axis")
-    require(map_h.shape == scene.labels.shape, f"label map {map_h.shape}")
-    require(1 <= k_clusters <= r and map_h.min() == 0
-            and map_h.max() < k_clusters,
-            f"n_clusters {k_clusters} vs label map max {map_h.max()}")
-    require(0 <= n_rounds <= 8, f"rounds {n_rounds}")
+    # 5. the w8a8 slice, then one w8a8-static run
+    ex_q8 = extractor_for("w8a8")
+    run_q8 = slice_runner(ex_q8)
+    t = time.perf_counter()
+    out, launches = counted(run_q8)
+    print(f"slice (w8a8) launches: {launches} (first run "
+          f"{time.perf_counter() - t:.3f} s)")
+    require_launches(launches, q8_kernels, bf16_kernels[1:], "the w8a8 slice")
+    map_q8, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                              scene.labels.shape)
+    print(f"slice (w8a8): {k} clusters after {n_rounds} rounds; label "
+          f"disagreement with the bf16 slice {label_disagreement(map_bf16, map_q8):.5f} "
+          "(random weights: printed, not gated)")
+    time_slice(run_q8, "w8a8", card)
+    profile_slice(run_q8)
+    against_plain(run_q8, embedder(ex_q8), map_q8, "w8a8")
+    all_launches.update({k: launches[k] for k in q8_kernels[1:]})
 
-    times = []
-    for _ in range(3):
-        t = time.perf_counter()
-        run_slice()
-        times.append(time.perf_counter() - t)
-    med = statistics.median(times)
-    mpix = SCENE["h"] * SCENE["w"] / 1e6 / med
-    print(f"slice (kernels): median {med * 1e3:.1f} ms of "
-          f"{[round(x * 1e3, 1) for x in times]} ms -> {mpix:.3f} MPix/s on "
-          f"{card}; {k_clusters} clusters after {n_rounds} rounds")
-    profile_slice(run_slice)
+    ex_static = extractor_for("w8a8-static")
+    require(ex_static.needs_calibration, "w8a8-static starts uncalibrated")
+    run_static = slice_runner(ex_static)
+    t = time.perf_counter()
+    out, launches = counted(run_static)
+    print(f"slice (w8a8-static) launches: {launches}, calibrated on the "
+          f"first chunk ({time.perf_counter() - t:.3f} s with calibration)")
+    require(not ex_static.needs_calibration, "w8a8-static did not calibrate")
+    require_launches(launches, q8_kernels, bf16_kernels[1:],
+                     "the w8a8-static slice")
+    map_static, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                                  scene.labels.shape)
+    print(f"slice (w8a8-static): {k} clusters after {n_rounds} rounds")
+    against_plain(run_static, embedder(ex_static), map_static,
+                  "w8a8-static")
+    del ex_static, run_static
+    torch.cuda.empty_cache()
 
-    # the same slice with the plain versions on the card: the reference
-    emb_k = extractor.extract_scene_device(scene, dcfg, device_scene=ds)
-    plain = ((patches, "gather_windows", wg.gather_windows_ref),
-             (s2former, "fused_block", fb.block_ref),
-             (s2former, "fused_block_chain", fb.chain_ref))
-    with contextlib.ExitStack() as stack:
-        for module, attr, ref in plain:  # where the main path looks them up
-            stack.enter_context(mock.patch.object(module, attr, ref))
-        t = time.perf_counter()
-        _, _, rounds_p, map_p, n_p = run_slice()
-        plain_s = time.perf_counter() - t
-        emb_p = extractor.extract_scene_device(scene, dcfg, device_scene=ds)
-    emb_err = rel_err(emb_k, emb_p)
-    dis = label_disagreement(map_h, map_p.cpu().numpy())
-    print(f"slice (plain versions): {plain_s * 1e3:.1f} ms, {int(n_p)} "
-          f"clusters after {int(rounds_p)} rounds; embeddings rel err "
-          f"{emb_err:.3e}; label disagreement {dis:.5f} "
-          f"(max {LABEL_DISAGREEMENT_MAX})")
-    require(dis <= LABEL_DISAGREEMENT_MAX,
-            f"label disagreement {dis} > {LABEL_DISAGREEMENT_MAX}")
+    # 6. the serving walk
+    launches = serving_walk(ex_q8.model, dev, card)
+    require_launches(launches, q8_kernels, bf16_kernels[1:],
+                     "the serving walk")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -395,10 +782,15 @@ def main() -> int:
                         "deepmerge_tpu/ops/pallas/fused_block.py:375"),
         "fused_block_chain": ("deepmerge_tpu_torch/csrc/fused_block.cu",
                               "deepmerge_tpu/ops/pallas/fused_block.py:401"),
+        "fused_block_q8": ("deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+                           "deepmerge_tpu/ops/pallas/fused_block.py:385"),
+        "fused_block_chain_q8": (
+            "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+            "deepmerge_tpu/ops/pallas/fused_block.py:401"),
     }
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=launches[k], **kernel_results[k])
+             launches=all_launches[k], **kernel_results[k])
         for k, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -5,7 +5,9 @@ of numpy arrays, e.g. ``jax.tree.map(np.asarray, variables["params"])``)
 onto the port's ``state_dict`` — the reference layout that
 ``deepmerge_tpu/compat/torch_export.py`` writes, rewritten without JAX.
 ``init_state_dict`` makes weights of the same layout from a numpy seed, for
-runs with no JAX at hand.
+runs with no JAX at hand. ``load_reference_checkpoint`` reads a reference
+``.pth``, and ``act_amax_from_flax`` carries the JAX package's calibrated
+``w8a8-static`` activation scales across.
 """
 
 from __future__ import annotations
@@ -135,3 +137,31 @@ def init_state_dict(mcfg: ModelConfig, seed: int = 0
                 w[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
             sd[key] = torch.from_numpy(w * np.float32(0.02))
     return sd
+
+
+def act_amax_from_flax(batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's calibrated ``batch_stats/blocks{s}_{k}/act_amax``
+    as the port's buffer names (``blocks{s}.{k}.act_amax``), for
+    ``S2Former.set_act_amax``."""
+    out = {}
+    for key, node in batch_stats.items():
+        if isinstance(node, Mapping) and "act_amax" in node:
+            stage, _, k = key.rpartition("_")
+            out[f"{stage}.{k}.act_amax"] = torch.from_numpy(
+                np.array(node["act_amax"], np.float32))
+    return out
+
+
+def load_reference_checkpoint(path: str, mcfg: ModelConfig):
+    """A port ``S2Former`` for ``mcfg`` with the weights of a reference
+    ``.pth``: the training dict ``{"net": state_dict, ...}`` or a bare
+    state_dict, loaded with ``strict=True``."""
+    from deepmerge_tpu_torch.models.s2former import S2Former
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    state_dict = raw.get("net", raw) if isinstance(raw, dict) else raw
+    if hasattr(state_dict, "state_dict"):  # a whole pickled nn.Module
+        state_dict = state_dict.state_dict()
+    model = S2Former(mcfg)
+    model.load_state_dict(state_dict, strict=True)
+    return model

@@ -12,7 +12,12 @@ The blocks dispatch as the JAX package's do: stage 0 runs block by block,
 one launch of the block kernel (K2) each; a later stage of more than one
 block runs as one launch of the chain kernel (K3), a single-block stage on
 K2 (``ops/kernels/fused_block.py``; CPU tensors take the plain versions
-there).
+there). ``quantize="w8a8"`` and ``"w8a8-static"`` send the same launches to
+the w8a8 kernels (K4), the weights quantized on every forward as the JAX
+package quantizes them outside its kernel. ``"w8a8-static"`` needs
+calibrated activation scales: ``calibrate`` runs the model once with every
+block through the plain ``block_act_amax`` (no chain), keeping a running
+max in each block's ``act_amax`` buffer.
 """
 
 from __future__ import annotations
@@ -26,10 +31,16 @@ from torch import nn
 from deepmerge_tpu.config import ModelConfig
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     LN_EPS,
+    block_act_amax,
     fused_block,
     fused_block_chain,
+    fused_block_chain_q8,
+    fused_block_q8,
     gelu,
+    quantize_block_params,
 )
+
+STATIC = "w8a8-static"
 
 
 def rel_pos_index(cube: Sequence[int]) -> np.ndarray:
@@ -53,10 +64,10 @@ def check_supported(cfg: ModelConfig) -> None:
             f"variant {cfg.variant!r}: the port runs v3 only so far "
             "(ROADMAP.md queue A: other backbones, with K7)"
         )
-    if cfg.quantize:
+    if cfg.quantize.endswith("+attn"):
         raise NotImplementedError(
-            f"quantize={cfg.quantize!r}: the w8a8 block kernel is the next "
-            "kernel of the port (ROADMAP.md queue B, K4)"
+            f"quantize={cfg.quantize!r}: the int8 attention core is the next "
+            "kernel of the port (ROADMAP.md queue B, K4a)"
         )
     if cfg.chain_stage0:
         raise NotImplementedError(
@@ -152,8 +163,9 @@ class Mlp(nn.Module):
 
 class CrossScaleBlock(nn.Module):
     """Pre-LN attention + MLP block. Its parameters feed the block kernels
-    as the 13-tuple of ``fused_params``; ``forward`` is the single-block
-    dispatch point (K2 on CUDA)."""
+    as the 13-tuple of ``fused_params`` (the w8a8 ones as
+    ``quant_params``); ``forward`` is the single-block dispatch point (K2,
+    or K4 when quantized, on CUDA)."""
 
     def __init__(self, cfg: ModelConfig, cube: tuple[int, int, int]):
         super().__init__()
@@ -165,10 +177,16 @@ class CrossScaleBlock(nn.Module):
             and cfg.drop_ratio == 0.0 and cfg.attn_drop_ratio == 0.0
             and cfg.drop_path_ratio == 0.0
         )
+        # as in the JAX package, quantization rides the block kernels only
+        self.quantize = cfg.quantize if self.kernel_eligible else ""
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = Attention(dim, cfg.num_heads, cube)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio))
+        if self.quantize == STATIC:
+            # calibrated abs-maxes of the seven quantized activations; not
+            # in the state_dict, so reference checkpoints load strictly
+            self.register_buffer("act_amax", torch.zeros(7), persistent=False)
 
     def fused_params(self, dtype: torch.dtype) -> tuple:
         """The block kernels' 13-tuple: LayerNorm parameters and attention
@@ -184,6 +202,12 @@ class CrossScaleBlock(nn.Module):
             w(m.fc1.weight), w(m.fc1.bias), w(m.fc2.weight), w(m.fc2.bias),
         )
 
+    def quant_params(self, dtype: torch.dtype) -> tuple:
+        """The w8a8 kernels' 17-tuple (18 with the static scales), the
+        weights quantized from their ``dtype`` values."""
+        amax = self.act_amax if self.quantize == STATIC else None
+        return quantize_block_params(self.fused_params(dtype), amax)
+
     def check_device(self, x: torch.Tensor) -> None:
         if x.device.type == "cuda" and not self.kernel_eligible:
             raise NotImplementedError(
@@ -193,10 +217,24 @@ class CrossScaleBlock(nn.Module):
                 "queue B, K7"
             )
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                calibrate: bool = False) -> torch.Tensor:
+        """One block. ``calibrate`` (``w8a8-static``) runs the plain
+        calibration forward instead and folds its abs-maxes into
+        ``act_amax``."""
         self.check_device(x)
-        return fused_block(x.to(dtype), self.fused_params(dtype),
-                           heads=self.num_heads, exact_gelu=self.exact_gelu)
+        x = x.to(dtype)
+        heads, exact = self.num_heads, self.exact_gelu
+        if not self.quantize:
+            return fused_block(x, self.fused_params(dtype), heads=heads,
+                               exact_gelu=exact)
+        if calibrate:
+            out, amax = block_act_amax(x, self.fused_params(dtype), heads,
+                                       exact)
+            self.act_amax.copy_(torch.maximum(self.act_amax, amax))
+            return out.to(dtype)
+        return fused_block_q8(x, self.quant_params(dtype), heads=heads,
+                              exact_gelu=exact)
 
 
 def _pool2x2_per_scale(x: torch.Tensor, n_scales: int, grid: int):
@@ -242,26 +280,68 @@ class S2Former(nn.Module):
             (n + 1) * dim, cfg.out_dim if designed else 100)
         if cfg.num_classes > 0:
             self.head = nn.Linear(cfg.out_dim, cfg.num_classes)
+        self.calibrating = False
+        self.act_amax_calibrated = False
 
     def _stage(self, blocks: nn.ModuleList, x: torch.Tensor,
                chain: bool) -> torch.Tensor:
         """A stage as one chain launch when ``chain`` is on and it has more
-        than one block, else block by block."""
+        than one block, else block by block (always while calibrating, so
+        that each block records its own abs-maxes)."""
         if not len(blocks):
             return x
         x = x.to(self.dtype)
-        if chain and len(blocks) > 1:
+        if chain and len(blocks) > 1 and not self.calibrating:
             blocks[0].check_device(x)
+            kw = dict(heads=self.cfg.num_heads,
+                      exact_gelu=self.cfg.exact_gelu)
+            if blocks[0].quantize:
+                return fused_block_chain_q8(
+                    x, [blk.quant_params(self.dtype) for blk in blocks], **kw)
             return fused_block_chain(
-                x, [blk.fused_params(self.dtype) for blk in blocks],
-                heads=self.cfg.num_heads, exact_gelu=self.cfg.exact_gelu,
-            )
+                x, [blk.fused_params(self.dtype) for blk in blocks], **kw)
         for blk in blocks:
-            x = blk(x, self.dtype)
+            x = blk(x, self.dtype, calibrate=self.calibrating)
         return x
+
+    def _static_blocks(self):
+        return [b for b in (*self.blocks0, *self.blocks1, *self.blocks2)
+                if b.quantize == STATIC]
+
+    @torch.inference_mode()
+    def calibrate(self, patches, designed=None) -> None:
+        """``w8a8-static`` calibration on one batch: a forward with every
+        block through ``block_act_amax``, each block's ``act_amax`` raised
+        to the batch's abs-maxes. Later forwards serve with the scales."""
+        self.calibrating = True
+        try:
+            self(patches, designed)
+        finally:
+            self.calibrating = False
+        self.act_amax_calibrated = True
+
+    def set_act_amax(self, amax: dict) -> None:
+        """Load calibrated abs-maxes, ``{"blocks0.0.act_amax": (7,), ...}``
+        (see ``compat.weights.act_amax_from_flax``), for every block."""
+        blocks = {n: m for n, m in self.named_modules()
+                  if isinstance(m, CrossScaleBlock) and m.quantize == STATIC}
+        missing = sorted(set(f"{n}.act_amax" for n in blocks) - set(amax))
+        if missing:
+            raise KeyError(f"no calibrated act_amax for {missing}")
+        for n, blk in blocks.items():
+            blk.act_amax.copy_(torch.as_tensor(amax[f"{n}.act_amax"]))
+        self.act_amax_calibrated = True
 
     def forward(self, patches, designed=None) -> torch.Tensor:
         cfg = self.cfg
+        if (self._static_blocks() and not self.calibrating
+                and not self.act_amax_calibrated):
+            raise ValueError(
+                "model.quantize='w8a8-static' needs calibrated activation "
+                "scales: run inference through FeatureExtractor (it "
+                "calibrates on the first chunk), call calibrate(), or load "
+                "them with set_act_amax()"
+            )
         n, g = cfg.n_scales, cfg.cube
         x = torch.cat(
             [pe(p.to(self.dtype))

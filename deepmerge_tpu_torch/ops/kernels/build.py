@@ -54,9 +54,46 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The cached build of ``csrc/<name>.cu``: its name hashes the source,
+    every shared header of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` whose cached build is
+    missing, one ``nvcc`` process each, all started together. Raises
+    ``RuntimeError`` with the compiler output if any build fails."""
+    with _lock:
+        missing = [(n, library_path(n)) for n in names]
+        missing = [(n, out) for n, out in missing if not out.exists()]
+        if not missing:
+            return
+        nvcc = nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for name, out in missing:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            build_logs[name] = proc.communicate()[0]
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(f"nvcc failed to build {name}.cu (exit "
+                              f"{proc.returncode}):\n{build_logs[name]}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -64,8 +101,10 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     it and declare ``signatures`` (entry point -> ctypes argument types; each
     returns a CUDA error code as ``int``). Raises ``RuntimeError`` with the
     compiler output on a failed build."""
+    if name not in _loaded:
+        build_all([name])
     with _lock:
-        lib = _loaded.get(name) or _build_and_open(name)
+        lib = _loaded.get(name) or _open(name)
         _loaded[name] = lib
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
@@ -73,27 +112,8 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
         return lib
 
 
-def _build_and_open(name: str) -> ctypes.CDLL:
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                   str(CSRC_DIR / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_logs[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {name}.cu "
-                    f"(exit {proc.returncode}):\n{build_logs[name]}"
-                )
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
+def _open(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(library_path(name)))
     lib.dm_error_string.argtypes = [ctypes.c_int]
     lib.dm_error_string.restype = ctypes.c_char_p
     return lib

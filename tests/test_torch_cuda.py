@@ -7,7 +7,14 @@ The file imports no JAX, so it also runs where JAX is not installed:
 Tolerances: the gather is a copy (bit-exact); the block kernels are held to
 2e-2 of the plain version's largest magnitude — bf16 keeps 8 significant
 bits and the two sides sum the products in other orders, so single
-roundings can differ by one ulp and carry through the block.
+roundings can differ by one ulp and carry through the block. The w8a8
+kernels are held to the same: their s32 sums are exact, but an f32
+LayerNorm or GELU output one ulp apart can flip an int8 code on a rounding
+boundary, one quant step. The output keeps the residual input, which
+dominates its largest magnitude, so the RMS error of the block's own
+contribution (out - x) over that contribution's RMS is held too: to 1e-2
+for one block and 2.5e-2 for a stage, which a bias of the block left out
+exceeds.
 """
 
 import numpy as np
@@ -15,10 +22,16 @@ import pytest
 import torch
 
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
+    block_act_amax,
     block_ref,
+    block_ref_q8,
     chain_ref,
+    chain_ref_q8,
     fused_block,
     fused_block_chain,
+    fused_block_chain_q8,
+    fused_block_q8,
+    quantize_block_params,
 )
 from deepmerge_tpu_torch.ops.kernels.window_gather import (
     gather_windows,
@@ -27,6 +40,8 @@ from deepmerge_tpu_torch.ops.kernels.window_gather import (
 
 pytestmark = pytest.mark.cuda
 BLOCK_TOL = 2e-2
+BLOCK_RMS_TOL = 1e-2
+CHAIN_RMS_TOL = 2.5e-2
 
 
 @pytest.fixture
@@ -39,6 +54,18 @@ def cuda():
 def _rel_err(got, want):
     want = want.float()
     return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _contribution_rms_err(got, want, x):
+    """RMS error of a block's contribution ``want - x`` over its RMS."""
+    d = got.float() - want.float()
+    contrib = want.float() - x.float()
+    return float(d.pow(2).mean().sqrt() / contrib.pow(2).mean().sqrt())
+
+
+def _assert_block_close(got, want, x, tol, rms_tol):
+    assert _rel_err(got, want) <= tol
+    assert _contribution_rms_err(got, want, x) <= rms_tol
 
 
 @pytest.mark.parametrize("rows,cols,align", [(160, 640, 128), (33, 71, 1)])
@@ -94,7 +121,8 @@ def test_block_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert fused_block.launches == before + 1
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
-    assert _rel_err(got, block_ref(x, params, heads)) <= BLOCK_TOL
+    _assert_block_close(got, block_ref(x, params, heads), x, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
 
 
 def test_chain_matches_plain(cuda):
@@ -107,7 +135,8 @@ def test_chain_matches_plain(cuda):
     got = fused_block_chain(x, plist, heads)
     torch.cuda.synchronize()
     torch.testing.assert_close(x, x_before, rtol=0, atol=0)  # input intact
-    assert _rel_err(got, chain_ref(x, plist, heads)) <= 1.5 * BLOCK_TOL
+    _assert_block_close(got, chain_ref(x, plist, heads), x, 1.5 * BLOCK_TOL,
+                        CHAIN_RMS_TOL)
 
 
 def test_block_rejects_what_the_kernel_does_not_take(cuda):
@@ -122,3 +151,79 @@ def test_block_rejects_what_the_kernel_does_not_take(cuda):
         fused_block(x, params, 4)  # head width 32
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block(x, params[:2] + (params[2].float(),) + params[3:], 2)
+
+
+def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512):
+    """bf16 activations and ``depth`` w8a8 parameter tuples on the card;
+    with ``static`` each block is calibrated on its own plain input."""
+    x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    qps, h = [], x
+    for _ in range(depth):
+        p = _block_params(rs, n, c, heads, hidden, cuda)
+        amax = block_act_amax(h, p, heads)[1] if static else None
+        qp = quantize_block_params(p, amax)
+        h = block_ref_q8(h, qp, heads).to(x.dtype)
+        qps.append(tuple(t.contiguous() for t in qp))
+    return x, qps, heads
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("n", [12, 49, 192])
+def test_q8_block_matches_plain(cuda, n, static):
+    rs = np.random.default_rng(n)
+    x, (qp,), heads = _q8_inputs(rs, 5, n, 1, static, cuda)
+    assert len(qp) == (18 if static else 17)
+    before = fused_block_q8.launches
+    got = fused_block_q8(x, qp, heads)
+    torch.cuda.synchronize()
+    assert fused_block_q8.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_block_close(got, block_ref_q8(x, qp, heads), x, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_q8_chain_matches_plain(cuda, static):
+    rs = np.random.default_rng(3)
+    x, qps, heads = _q8_inputs(rs, 3, 48, 3, static, cuda)
+    x_before = x.clone()
+    before = fused_block_chain_q8.launches
+    got = fused_block_chain_q8(x, qps, heads)
+    torch.cuda.synchronize()
+    assert fused_block_chain_q8.launches == before + 1
+    torch.testing.assert_close(x, x_before, rtol=0, atol=0)  # input intact
+    _assert_block_close(got, chain_ref_q8(x, qps, heads), x,
+                        1.5 * BLOCK_TOL, CHAIN_RMS_TOL)
+
+
+def test_q8_block_zero_row(cuda):
+    """A token whose LayerNorm output is all zero (constant input row, zero
+    LN bias) quantizes with row scale 1 to all-zero codes."""
+    rs = np.random.default_rng(4)
+    p = list(_block_params(rs, 12, 128, 2, 512, cuda))
+    p[1] = torch.zeros_like(p[1])
+    qp = quantize_block_params(tuple(p))
+    x = torch.from_numpy(rs.standard_normal((2, 12, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    x[0, 3] = 0.5
+    got = fused_block_q8(x, qp, 2)
+    want = block_ref_q8(x, qp, 2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _assert_block_close(got, want, x, BLOCK_TOL, BLOCK_RMS_TOL)
+
+
+def test_q8_block_rejects_what_the_kernel_does_not_take(cuda):
+    rs = np.random.default_rng(5)
+    x, (qp,), heads = _q8_inputs(rs, 2, 12, 1, False, cuda)
+    with pytest.raises(TypeError):
+        fused_block_q8(x.float(), qp, heads)
+    with pytest.raises(ValueError, match="17 or 18"):
+        fused_block_q8(x, qp[:16], heads)
+    with pytest.raises(ValueError, match="parameter 2"):
+        fused_block_q8(x, qp[:2] + (qp[2].float(),) + qp[3:], heads)
+    x64, (qp64,), h64 = _q8_inputs(rs, 2, 12, 1, False, cuda, c=64, heads=1,
+                                   hidden=256)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_block_q8(x64, qp64, h64)

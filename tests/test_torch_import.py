@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX: every module of ``deepmerge_tpu_torch``
-loads in a fresh interpreter with ``jax`` absent from ``sys.modules``."""
+"""The PyTorch port imports no JAX: every module of ``deepmerge_tpu_torch``,
+the serving driver and the CLI included, loads in a fresh interpreter with
+``jax`` absent from ``sys.modules``."""
 
 import json
 import os
@@ -29,6 +30,9 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     seen = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "deepmerge_tpu_torch.infer.extract" in seen["modules"]
-    assert len(seen["modules"]) >= 15
+    for name in ("deepmerge_tpu_torch.infer.extract",
+                 "deepmerge_tpu_torch.infer.driver",
+                 "deepmerge_tpu_torch.__main__"):
+        assert name in seen["modules"]
+    assert len(seen["modules"]) >= 20
     assert seen["jax"] == [], f"the port pulled in {seen['jax']}"

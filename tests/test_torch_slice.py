@@ -140,7 +140,7 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
 
 @pytest.mark.parametrize("change", [
     dict(variant="v1", depth=(2,)),
-    dict(quantize="w8a8"),
+    dict(quantize="w8a8+attn"),
     dict(chain_stage0=True),
 ])
 def test_unported_configs_raise(change):
