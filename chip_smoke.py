@@ -29,12 +29,25 @@ kernel against its plain PyTorch version on the card:
      checked, and the steady-state MPix/s from the gaps between completions;
      then its first scene again through ``process_scene``, profiled (busy
      share), and on the plain versions (its embeddings and its first-round
-     merge decisions held to theirs).
+     merge decisions held to theirs);
+  7. training: ``train.driver.train`` on the flagship at 120 pairs a step
+     (a forward batch of 240) for two epochs of eight steps on the 1024²
+     scene, checkpointing every epoch: K6 launched 12 times a step and K1
+     launched, no block kernel; finite losses; the last checkpoint restores
+     the parameters and Adam's moments; the median step time, pairs/s,
+     peak memory and one profiled step; and four steps from the same
+     weights and batches on the plain versions, their losses held to the
+     kernels'.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failed check raises and
+Phase 3 also holds the saved-probs training attention (K6) against its
+plain version at the training batch and every stage's sequence length,
+forward and backward. The second-to-last line is a JSON object with one
+entry per kernel (its time, its plain version's, and its bound: the least
+time the card could take for the same work, from the bytes it must move
+and the operations it must do at the H100's published peaks); the last
+line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without those lines; so does a run without CUDA
-or outside the repository. Imports nothing of JAX.
+or outside the repository. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -83,6 +96,27 @@ LABEL_DISAGREEMENT_MAX = 0.005  # BASELINE.md's parity bar
 # first-round merge decision differs (0.0028 measured, 0.0015 with bf16).
 TOL_SERVE_EMB_RMS = 2e-2
 EDGE_FLIPS_MAX = 0.005
+# K6 (saved-probs attention): its output is held like a block's (bf16
+# roundings at the same points, sums in other orders); its probabilities,
+# bf16 values in [0, 1], to 1e-2 absolute, a few bf16 ulps at 1; the
+# gradients of qkv and of the bias through the autograd function, kernel
+# forward against plain forward (the backward is the same torch code), to
+# 2e-2 of their largest magnitude: a probability one ulp apart moves the
+# products it enters by that ulp.
+TOL_K6_OUT = 2e-2
+TOL_K6_PROBS = 1e-2
+TOL_K6_GRAD = 2e-2
+# Training on the kernels against the plain versions, four steps from the
+# same weights and batches: the step-0 loss differs only by the bf16
+# roundings of K6's forward (K1 is exact), 1e-2 relative; later steps
+# carry the updates those roundings changed, 3e-2.
+TOL_TRAIN_LOSS0 = 1e-2
+TOL_TRAIN_LOSS = 3e-2
+
+# The H100 SXM's published peaks (dense, 700 W), for the kernels' bounds
+PEAK_BYTES = 3.35e12   # HBM bytes/s
+PEAK_BF16 = 989e12     # bf16 tensor-core FLOP/s
+PEAK_INT8 = 1979e12    # int8 tensor-core OP/s
 
 SCENE = dict(h=1024, w=1024, n_regions=2048, n_objects=256,
              points_per_region=1, seed=0)
@@ -92,6 +126,11 @@ SERVE_SCENES = 4
 SERVE_SCENE = dict(h=2048, w=2048, n_regions=8192, n_objects=256,
                    points_per_region=1)
 SERVE_BATCH = 2048
+# training: DataConfig().batch_size pairs a step, stacked [left; right] into
+# a forward batch of twice that; two epochs of at most eight steps
+TRAIN_PAIRS = 120
+TRAIN_EPOCHS = 2
+TRAIN_STEPS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -134,6 +173,40 @@ def rel_err(got, want):
 
 def abs_err(got, want):
     return float((got.float() - want.float()).abs().max())
+
+
+def bound(nbytes, bf16_flops=0.0, int8_ops=0.0):
+    """The least time the card could take for a function: the larger of
+    the bytes it must move (each input read once, each output written
+    once) over the memory rate and its operations over the peak rate of
+    their type. Returns ``bound_ms`` and ``bound_by``."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = bf16_flops / PEAK_BF16 + int8_ops / PEAK_INT8
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def block_work(b, n, depth, q8=False, c=768, heads=12, hidden=3072):
+    """(bytes, bf16 FLOPs, int8 ops) of ``depth`` blocks run back to back
+    on a (b, n, c) bf16 activation: the activation read and the output
+    written once, each block's weights (int8 with f32 scales when ``q8``),
+    biases, LayerNorm parameters and f32 attention bias read once; the four
+    GEMMs (int8 when ``q8``) and the attention's q·kᵀ and p·v in bf16."""
+    m = b * n
+    weights = 4 * c * c + 2 * c * hidden
+    per_block = (weights * (1 if q8 else 2) + (4 * c + hidden) * 2
+                 + 4 * c * 4 + heads * n * n * 4
+                 + ((4 * c + hidden) * 4 if q8 else 0))
+    nbytes = 2 * m * c * 2 + depth * per_block
+    gemm = 2 * m * weights
+    attn = 4 * b * n * n * c
+    if q8:
+        return nbytes, depth * attn, depth * gemm
+    return nbytes, depth * (gemm + attn), 0.0
+
+
+def add_work(*works):
+    return tuple(sum(w[i] for w in works) for i in range(3))
 
 
 def check_block(what, got, want, x, tol, tol_rms):
@@ -214,11 +287,20 @@ def check_kernels(dev, ds, scene):
     ms = cuda_ms(lambda: wg.gather_windows(scene2d, starts, rows, cols))
     plain_ms = cuda_ms(lambda: wg.gather_windows_ref(scene2d, starts, rows,
                                                      cols))
+    # the PyTorch call that computes the same gather: one advanced-indexing
+    # read with the index grids already built
+    ri = starts[:, 0:1].long() + torch.arange(rows, device=dev)
+    ci = starts[:, 1:2].long() + torch.arange(cols, device=dev)
+    library_ms = cuda_ms(lambda: scene2d[ri[:, :, None], ci[:, None, :]])
+    b1 = bound(2 * starts.shape[0] * rows * cols + starts.numel() * 4)
     print(f"K1 window_gather: {n_calls} calls (3 slots x 256-point chunks, "
           f"windows {rows}x{cols} B), max |err| {worst} (tol {TOL_GATHER}, "
-          f"bit-exact); 256 points: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+          f"bit-exact); 256 points: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"indexing call {library_ms:.4f} ms, bound {b1['bound_ms']:.4f} "
+          f"ms ({b1['bound_by']})")
     results["window_gather"] = dict(max_abs_err=worst, ms=ms,
-                                    plain_ms=plain_ms)
+                                    plain_ms=plain_ms, library_ms=library_ms,
+                                    **b1)
 
     # K2 at batch 64 and at the main path's chunk of 1024, stage-0 shapes
     k2 = []
@@ -230,9 +312,12 @@ def check_kernels(dev, ds, scene):
                                  TOL_BLOCK, TOL_BLOCK_RMS)
         ms = cuda_ms(lambda: fb.fused_block(x, plist[0], heads))
         plain_ms = cuda_ms(lambda: fb.block_ref(x, plist[0], heads), reps=2)
+        b2 = bound(*block_work(b, 192, 1))
         print(f"K2 fused_block B={b} N=192 C=768 H=12: {errs}; {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        k2.append(dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms))
+              f"plain {plain_ms:.3f} ms, bound {b2['bound_ms']:.3f} ms "
+              f"({b2['bound_by']})")
+        k2.append(dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms,
+                       library_ms=None, **b2))
         del x, plist, got, want
     results["fused_block"] = k2[-1]
 
@@ -254,9 +339,13 @@ def check_kernels(dev, ds, scene):
                                      plain_ms=plain_ms)
     # the JSON line reports the main path's chunk: both stages summed
     s1, s2 = per_stage[(1024, 48)], per_stage[(1024, 12)]
+    b3 = bound(*add_work(block_work(1024, 48, 4), block_work(1024, 12, 2)))
+    print(f"K3 at B=1024, both stages: bound {b3['bound_ms']:.3f} ms "
+          f"({b3['bound_by']})")
     results["fused_block_chain"] = dict(
         max_abs_err=max(s1["max_abs_err"], s2["max_abs_err"]),
         ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"],
+        library_ms=None, **b3,
     )
     return results
 
@@ -310,17 +399,93 @@ def check_k4(dev):
     # chain's two stages summed
     s1 = results[("fused_block_chain_q8", 1024, 48, "dynamic")]
     s2 = results[("fused_block_chain_q8", 1024, 12, "dynamic")]
+    b4 = bound(*block_work(1024, 192, 1, q8=True))
+    b4c = bound(*add_work(block_work(1024, 48, 4, q8=True),
+                          block_work(1024, 12, 2, q8=True)))
+    print(f"K4 at B=1024: block bound {b4['bound_ms']:.3f} ms "
+          f"({b4['bound_by']}), chain (both stages) bound "
+          f"{b4c['bound_ms']:.3f} ms ({b4c['bound_by']})")
     return {
-        "fused_block_q8": results[("fused_block_q8", 1024, 192, "dynamic")],
+        "fused_block_q8": dict(
+            results[("fused_block_q8", 1024, 192, "dynamic")],
+            library_ms=None, **b4),
         "fused_block_chain_q8": dict(
             max_abs_err=max(s1["max_abs_err"], s2["max_abs_err"]),
-            ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"]),
+            ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"],
+            library_ms=None, **b4c),
     }
 
 
-def profile_slice(run_slice, top=8):
-    """One profiled run of the slice: the device's busy share (kernel time
-    over wall time) and the kernels that take the most device time.
+def check_k6(dev):
+    """Phase 3, training: K6 against its plain version at the training
+    batch (``TRAIN_PAIRS`` stacked twice) and each stage's sequence length,
+    flagship widths; the backward through the autograd function on the
+    kernel's forward against the plain forward. Returns the stage-0 entry
+    of the JSON line."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+
+    b, c, heads = 2 * TRAIN_PAIRS, 768, 12
+    results = {}
+    for n in (192, 48, 12):
+        rs = np.random.default_rng(n + 7)
+        r = lambda *shape, s=1.0: torch.from_numpy(
+            (rs.standard_normal(shape) * s).astype(np.float32)).to(dev)
+        qkv = r(b, n, 3 * c).to(torch.bfloat16)
+        bias = r(heads, n, n, s=0.5)
+        g = r(b, n, c).to(torch.bfloat16)
+        out, probs = fa.attention_probs(qkv, bias, heads)
+        want_out, want_probs = fa.attention_probs_ref(qkv, bias, heads)
+        out_err, probs_err = rel_err(out, want_out), abs_err(probs, want_probs)
+        require(out_err <= TOL_K6_OUT, f"K6 out (N={n}) differs from plain: "
+                f"{out_err} > {TOL_K6_OUT}")
+        require(probs_err <= TOL_K6_PROBS, f"K6 probs (N={n}) differ from "
+                f"plain: {probs_err} > {TOL_K6_PROBS}")
+
+        def grads():
+            q = qkv.clone().requires_grad_(True)
+            bb = bias.clone().requires_grad_(True)
+            fa.fused_attention_train(q, bb, heads).backward(g)
+            return q.grad, bb.grad
+
+        got = grads()
+        with mock.patch.object(fa, "attention_probs", fa.attention_probs_ref):
+            want = grads()
+        dq_err, db_err = rel_err(got[0], want[0]), rel_err(got[1], want[1])
+        require(dq_err <= TOL_K6_GRAD and db_err <= TOL_K6_GRAD,
+                f"K6 backward (N={n}): dqkv {dq_err}, dbias {db_err} > "
+                f"{TOL_K6_GRAD}")
+        ms = cuda_ms(lambda: fa.attention_probs(qkv, bias, heads))
+        plain_ms = cuda_ms(lambda: fa.attention_probs_ref(qkv, bias, heads),
+                           reps=2)
+        nbytes = (qkv.numel() * 2 + bias.numel() * 4 + out.numel() * 2
+                  + probs.numel() * 2)
+        b6 = bound(nbytes, bf16_flops=4 * b * n * n * c)
+        print(f"K6 attention_probs B={b} N={n} C={c} H={heads}: out rel err "
+              f"{out_err:.3e} (tol {TOL_K6_OUT}), probs max |err| "
+              f"{probs_err:.3e} (tol {TOL_K6_PROBS}); backward dqkv "
+              f"{dq_err:.3e}, dbias {db_err:.3e} (tol {TOL_K6_GRAD}); "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b6['bound_ms']:.4f} ms ({b6['bound_by']})")
+        results[n] = dict(max_abs_err=abs_err(out, want_out), ms=ms,
+                          plain_ms=plain_ms, library_ms=None, **b6)
+        del qkv, bias, g, out, probs, want_out, want_probs, got, want
+        torch.cuda.empty_cache()
+    return {"fused_attention_train": results[192]}
+
+
+# the operators whose own kernels are matrix products (cuBLAS names its
+# kernels in several families, so they are counted by operator)
+PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def profile_slice(run_slice, top=8, label="slice", ops=0):
+    """One profiled run of the slice (or of ``label``): the device's busy
+    share (kernel time over wall time) and the kernels that take the most
+    device time; with ``ops``, also the PyTorch operators whose own kernels
+    take the most device time, and the matrix products' share.
     Returns the run's result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -334,18 +499,33 @@ def profile_slice(run_slice, top=8):
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"profiled slice: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} "
+    print(f"profiled {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} "
           f"ms (share {busy_ms / wall_ms:.3f}) over {len(kernels)} kernels")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in kernels[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:8.2f} ms {ms / busy_ms:6.1%} x{e.count:<4d} "
               f"{e.key[:70]}")
+    busy_ms = max(busy_ms, 1e-9)
+    if ops:
+        by_op = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CPU
+                 and e.self_device_time_total > 0]
+        by_op.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        mm_ms = sum(e.self_device_time_total for e in by_op
+                    if e.key in PRODUCT_OPS) / 1e3
+        print(f"  matrix products ({', '.join(PRODUCT_OPS)}): {mm_ms:.2f} ms "
+              f"({mm_ms / busy_ms:.1%} of busy); by operator:")
+        for e in by_op[:ops]:
+            ms = e.self_device_time_total / 1e3
+            print(f"  {ms:8.2f} ms {ms / busy_ms:6.1%} x{e.count:<5d} "
+                  f"{e.key[:60]}")
     return out
 
 
 def counters():
     """Every kernel wrapper, by the name its launch count goes under."""
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
@@ -353,7 +533,8 @@ def counters():
             "fused_block": fb.fused_block,
             "fused_block_chain": fb.fused_block_chain,
             "fused_block_q8": fb.fused_block_q8,
-            "fused_block_chain_q8": fb.fused_block_chain_q8}
+            "fused_block_chain_q8": fb.fused_block_chain_q8,
+            "fused_attention_train": fa.attention_probs}
 
 
 def counted(run):
@@ -378,12 +559,17 @@ def plain_versions():
     plain version instead (where the path looks them up)."""
     from deepmerge_tpu_torch.models import s2former
     from deepmerge_tpu_torch.ops import patches
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
+    def gather_ref(*args, trusted_origins=False):
+        return wg.gather_windows_ref(*args)
+
     stack = contextlib.ExitStack()
     for module, attr, ref in (
-            (patches, "gather_windows", wg.gather_windows_ref),
+            (patches, "gather_windows", gather_ref),
+            (fa, "attention_probs", fa.attention_probs_ref),
             (s2former, "fused_block", fb.block_ref),
             (s2former, "fused_block_chain", fb.chain_ref),
             (s2former, "fused_block_q8", fb.block_ref_q8),
@@ -435,7 +621,7 @@ def against_plain(run_slice, embed, map_k, label):
     """The same slice with the plain versions on the card; the label
     disagreement with the kernels' map must stay within the parity bar.
     ``embed()`` gives the scene's embeddings, compared too (printed)."""
-    from deepmerge_tpu.utils.parity import label_disagreement
+    from deepmerge_tpu_torch.utils.parity import label_disagreement
 
     emb_k = embed()
     with plain_versions():
@@ -458,8 +644,8 @@ def export_folder(root, n_scenes):
     and shapefile folders and each scene's point and edge counts."""
     import numpy as np
 
-    from deepmerge_tpu.geodata.ingest import export_scene
-    from deepmerge_tpu.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.geodata.ingest import export_scene
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 
     images = os.path.join(root, "images")
     shps = os.path.join(root, "shps")
@@ -492,8 +678,8 @@ def serving_scene(cfg, ex, images, shps, name):
     of the merged maps printed."""
     import numpy as np
 
-    from deepmerge_tpu.geodata.ingest import load_scene
-    from deepmerge_tpu.utils.parity import label_disagreement
+    from deepmerge_tpu_torch.geodata.ingest import load_scene
+    from deepmerge_tpu_torch.utils.parity import label_disagreement
     from deepmerge_tpu_torch.infer.driver import prestage_scene, process_scene
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
@@ -540,9 +726,9 @@ def serving_walk(model, dev, card):
 
     import numpy as np
 
-    from deepmerge_tpu.config import Config, DataConfig, MergeConfig
-    from deepmerge_tpu.geodata.geotiff import read_geotiff
-    from deepmerge_tpu.geodata.shapefile import ShapefileTable
+    from deepmerge_tpu_torch.config import Config, DataConfig, MergeConfig
+    from deepmerge_tpu_torch.geodata.geotiff import read_geotiff
+    from deepmerge_tpu_torch.geodata.shapefile import ShapefileTable
     from deepmerge_tpu_torch.infer import driver, extract
 
     cfg = Config(model=model.cfg,
@@ -611,6 +797,152 @@ def serving_walk(model, dev, card):
     return launches
 
 
+def training_phase(dev, card):
+    """Phase 7: ``train.driver.train`` on the flagship (see the module
+    docstring); returns the launch counts of the training run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.compat.weights import init_state_dict
+    from deepmerge_tpu_torch.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from deepmerge_tpu_torch.geodata.synthetic import (
+        generate_scene,
+        make_training_pairs,
+    )
+    from deepmerge_tpu_torch.models.s2former import training_model
+    from deepmerge_tpu_torch.train import checkpoint, loop
+    from deepmerge_tpu_torch.train.driver import train
+    from deepmerge_tpu_torch.train.sampler import FusedPairSampler
+
+    scene = generate_scene(**SCENE)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    cfg = Config(
+        model=ModelConfig(),  # flagship v3, bf16 compute, f32 parameters
+        data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
+        train=TrainConfig(num_epochs=TRAIN_EPOCHS, checkpoint_every=1,
+                          checkpoint_dir=os.path.join(root, "ck"),
+                          log_dir=os.path.join(root, "logs")))
+    steps = TRAIN_EPOCHS * TRAIN_STEPS
+    blocks = sum(cfg.model.depth)
+    try:
+        log = []
+        t = time.perf_counter()
+        (state, history), launches = counted(lambda: train(
+            cfg, scene=scene, max_steps_per_epoch=TRAIN_STEPS,
+            log_fn=log.append, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for line in log:
+            print(f"  {line}")
+        print(f"training: {steps} steps of {TRAIN_PAIRS} pairs in {wall:.1f} s "
+              f"(first steps, checkpoints and loss files included); "
+              f"launches {launches}")
+        require(state.step == steps, f"trained {state.step} of {steps} steps")
+        require(launches["fused_attention_train"] == blocks * steps,
+                f"K6 launched {launches['fused_attention_train']} times, "
+                f"want {blocks} a step")
+        require_launches(launches, ("window_gather", "fused_attention_train"),
+                         ("fused_block", "fused_block_chain", "fused_block_q8",
+                          "fused_block_chain_q8"), "the training run")
+        losses = np.asarray(history.train_losses)
+        require(losses.shape == (TRAIN_EPOCHS,) and np.isfinite(losses).all(),
+                f"epoch losses {losses}")
+
+        # the last checkpoint restores the parameters and Adam's moments
+        pos, neg = make_training_pairs(scene)
+        sampler = FusedPairSampler(scene, pos, neg, cfg.data, dev)
+        spe = len(sampler) // TRAIN_PAIRS
+        mgr = checkpoint.CheckpointManager(cfg.train.checkpoint_dir, cfg)
+        fresh = loop.create_train_state(cfg, spe, device=dev)
+        fresh, start, _ = mgr.restore(fresh)
+        require(start == TRAIN_EPOCHS and fresh.step == steps,
+                f"restored epoch {start}, step {fresh.step}")
+        for (k, a), b in zip(state.model.state_dict().items(),
+                             fresh.model.state_dict().values()):
+            require(torch.equal(a, b), f"restored {k} differs")
+        moments = lambda st: [t for v in st.optimizer.state.values()
+                              for t in (v["exp_avg"], v["exp_avg_sq"])]
+        require(len(moments(state)) == len(moments(fresh)) > 0
+                and all(torch.equal(a, b) for a, b in
+                        zip(moments(state), moments(fresh))),
+                "restored Adam moments differ")
+        print(f"checkpoint: {os.path.basename(mgr.latest_path())} restores "
+              f"{len(fresh.model.state_dict())} tensors and "
+              f"{len(moments(fresh))} Adam moments exactly")
+        del fresh
+        torch.cuda.empty_cache()
+
+        # step time: single steps after a warm-up step, each synchronized;
+        # then eight steps as one scanned epoch, synchronized once
+        epoch_fn = loop.make_scanned_epoch(cfg, sampler.device_scene)
+        arrays = sampler.epoch_arrays(12345, TRAIN_PAIRS)
+        step_arrays = lambda i, k=1: tuple(a[i : i + k] for a in arrays)
+        epoch_fn(state, *step_arrays(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(1, 7):
+            t = time.perf_counter()
+            epoch_fn(state, *step_arrays(i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated(dev)
+        med = statistics.median(times)
+        t = time.perf_counter()
+        epoch_fn(state, *step_arrays(7, 8))
+        torch.cuda.synchronize()
+        scanned = (time.perf_counter() - t) / 8
+        print(f"training step ({TRAIN_PAIRS} pairs, forward batch "
+              f"{2 * TRAIN_PAIRS}): median {med * 1e3:.1f} ms of "
+              f"{[round(x * 1e3, 1) for x in times]} ms -> "
+              f"{TRAIN_PAIRS / med:.1f} pairs/s; scanned epoch of 8 steps "
+              f"{scanned * 1e3:.1f} ms/step -> {TRAIN_PAIRS / scanned:.1f} "
+              f"pairs/s; peak memory {peak / 2**30:.2f} GiB on {card}")
+        profile_slice(lambda: (epoch_fn(state, *step_arrays(15)),
+                               torch.cuda.synchronize()),
+                      top=10, label="training step", ops=16)
+
+        # four steps from the same weights and batches on the plain versions
+        start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+        first = sampler.epoch_arrays(cfg.train.seed * 100003 % 2**32,
+                                     TRAIN_PAIRS)
+        first = tuple(a[:4] for a in first)
+
+        def four_steps():
+            st = loop.create_train_state(cfg, spe, state_dict=start_sd,
+                                         device=dev)
+            _, out = epoch_fn(st, *first)
+            return out.cpu().numpy().astype(np.float64)
+
+        del state
+        torch.cuda.empty_cache()
+        got = four_steps()
+        with plain_versions():
+            t = time.perf_counter()
+            want = four_steps()
+            plain_s = time.perf_counter() - t
+        rel = np.abs(got - want) / np.abs(want)
+        print(f"training on the plain versions ({plain_s:.1f} s for 4 steps):"
+              f" losses {want.tolist()}, kernels {got.tolist()}, rel diff "
+              f"{rel.tolist()} (step 0 max {TOL_TRAIN_LOSS0}, all max "
+              f"{TOL_TRAIN_LOSS})")
+        require(np.isfinite(got).all() and rel[0] <= TOL_TRAIN_LOSS0
+                and rel.max() <= TOL_TRAIN_LOSS,
+                f"training losses differ from the plain versions': {rel}")
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -632,10 +964,8 @@ def main() -> int:
 
     import numpy as np
 
-    # the scene generator and the parity metric are host-only modules of
-    # the reference package; neither imports JAX
-    from deepmerge_tpu.geodata.synthetic import generate_scene
-    from deepmerge_tpu.utils.parity import label_disagreement
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.utils.parity import label_disagreement
     from deepmerge_tpu_torch import DataConfig, ModelConfig
     from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.infer.extract import FeatureExtractor
@@ -657,7 +987,8 @@ def main() -> int:
           f"nvcc: {nvcc}, python {sys.version.split()[0]}")
 
     # 2. the build, one nvcc per source, in parallel
-    sources = ("window_gather", "fused_block", "fused_block_q8")
+    sources = ("window_gather", "fused_block", "fused_block_q8",
+               "fused_attention")
     t = time.perf_counter()
     build.build_all(sources)
     print(f"build: {', '.join(k + '.cu' for k in sources)} in "
@@ -688,6 +1019,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernel_results = check_kernels(dev, ds, scene)
     kernel_results.update(check_k4(dev))
+    kernel_results.update(check_k6(dev))
 
     def extractor_for(quantize):
         with warnings.catch_warnings():
@@ -773,6 +1105,12 @@ def main() -> int:
     launches = serving_walk(ex_q8.model, dev, card)
     require_launches(launches, q8_kernels, bf16_kernels[1:],
                      "the serving walk")
+    del ex_q8, run_q8
+    torch.cuda.empty_cache()
+
+    # 7. training
+    launches = training_phase(dev, card)
+    all_launches["fused_attention_train"] = launches["fused_attention_train"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
@@ -787,6 +1125,9 @@ def main() -> int:
         "fused_block_chain_q8": (
             "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
             "deepmerge_tpu/ops/pallas/fused_block.py:401"),
+        "fused_attention_train": (
+            "deepmerge_tpu_torch/csrc/fused_attention.cu",
+            "deepmerge_tpu/ops/pallas/fused_attention.py:311"),
     }
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep,

@@ -4,6 +4,7 @@
 The same commands, arguments and config overrides as ``python -m
 deepmerge_tpu``, with ``--device`` in place of ``--platform``:
 
+  train              train on a synthetic scene (or --scene-dir real data)
   extract            extract + score + merge one scene folder
   process-folder     walk a folder of scenes (the serving walk)
   calibrate          pick merge.threshold on a labeled validation scene
@@ -12,8 +13,9 @@ deepmerge_tpu``, with ``--device`` in place of ``--platform``:
 
 The model commands run on the CUDA card by default; without one they stop
 unless ``--device cpu`` is given. ``--checkpoint-dir`` takes a reference
-``.pth``. ``train``, ``import-ckpt`` and ``export-ckpt`` are not ported:
-they say where they live.
+``.pth``; ``train`` writes checkpoints whose ``checkpoint.pth`` is one.
+``import-ckpt`` and ``export-ckpt`` are not ported: they say where they
+live, as does ``train --mesh`` (the sharded trainer).
 """
 
 from __future__ import annotations
@@ -22,11 +24,9 @@ import argparse
 import os
 import sys
 
-from deepmerge_tpu.config import Config, apply_overrides
+from deepmerge_tpu_torch.config import Config, apply_overrides
 
 NOT_PORTED = {
-    "train": "training is the port's training slice (ROADMAP.md queue A, "
-             "Training); train with `python -m deepmerge_tpu train` for now",
     "import-ckpt": "the port reads reference .pth checkpoints directly "
                    "(--checkpoint-dir); `python -m deepmerge_tpu import-ckpt` "
                    "converts them for the JAX package",
@@ -34,6 +34,36 @@ NOT_PORTED = {
                    "checkpoint as the reference .pth that the port reads",
 }
 DEEP_PIXELS = ("error", "wrap", "shift", "clip")
+
+
+def _majority_object_per_region(labels, objects, num_regions):
+    """(R,) majority ground-truth object id per superpixel region.
+
+    Sparse mode-per-region: count unique (region, object) pixel pairs, then
+    assign in ascending-count order so each region keeps its largest. Stays
+    O(unique pairs) — a dense (R, n_objects) table would blow up on real
+    mosaics with 100k regions.
+    """
+    import numpy as np
+
+    lab = np.asarray(labels).ravel().astype(np.int64)
+    obj = np.asarray(objects).ravel()
+    # negative ids (-1 nodata conventions) would alias into other regions
+    # through the key arithmetic below — drop those pixels instead
+    keep = (lab >= 0) & (obj >= 0)
+    if not keep.all():
+        lab, obj = lab[keep], obj[keep]
+    if lab.size and lab.max() >= num_regions:
+        raise ValueError(
+            f"label map contains region id {int(lab.max())} >= "
+            f"num_regions={num_regions}"
+        )
+    uniq, inv = np.unique(obj, return_inverse=True)
+    key, counts = np.unique(lab * len(uniq) + inv, return_counts=True)
+    best = np.zeros(num_regions, np.int64)
+    order = np.argsort(counts, kind="stable")
+    best[key[order] // len(uniq)] = key[order] % len(uniq)
+    return uniq[best]
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -44,6 +74,21 @@ def _build_parser() -> argparse.ArgumentParser:
         "plain PyTorch versions)",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_train = sub.add_parser("train")
+    p_train.add_argument("--scene-dir", help="reference-layout data dir")
+    p_train.add_argument("--scene-name", help="scene name inside --scene-dir")
+    p_train.add_argument("--epochs", type=int)
+    p_train.add_argument("--max-steps", type=int)
+    p_train.add_argument("--mesh", action="store_true",
+                         help="the sharded trainer (not ported yet)")
+    p_train.add_argument("--pos-pairs",
+                         help="positive pair txt file or folder (the "
+                         "reference's PositiveData layout)")
+    p_train.add_argument("--neg-pairs",
+                         help="negative pair txt file or folder (reference "
+                         "NegativeData)")
+    p_train.add_argument("overrides", nargs="*", default=[])
 
     p_ex = sub.add_parser("extract")
     p_ex.add_argument("--image", required=True)
@@ -118,6 +163,87 @@ def _build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _load_cli_scene(scene_dir: str, name: str):
+    """A scene of ``scene_dir`` with its export-synthetic sidecars
+    (``{name}_labels.npy`` superpixel map, ``{name}_objects.npy``
+    ground-truth object map — with them a dir trains directly, no pair
+    txts)."""
+    import numpy as np
+
+    from deepmerge_tpu_torch.geodata.ingest import load_scene
+
+    labels_npy = os.path.join(scene_dir, f"{name}_labels.npy")
+    objects_npy = os.path.join(scene_dir, f"{name}_objects.npy")
+    labels = np.load(labels_npy) if os.path.exists(labels_npy) else None
+    scene = load_scene(
+        os.path.join(scene_dir, f"{name}.tif"),
+        os.path.join(scene_dir, f"{name}.shp"),
+        os.path.join(scene_dir, name, "PointsGCS.shp"),
+        os.path.join(scene_dir, name, "lines.shp"),
+        labels=labels, name=name,
+    )
+    if labels is not None and os.path.exists(objects_npy):
+        scene.object_of_region = _majority_object_per_region(
+            labels, np.load(objects_npy), scene.regions.num_regions)
+    return scene
+
+
+def _train(parser, args, cfg, device) -> int:
+    """The ``train`` command: the JAX CLI's scene and pair handling, then
+    ``train.driver.train`` on ``device``."""
+    import dataclasses
+
+    from deepmerge_tpu_torch.train.driver import train
+
+    if args.epochs is not None:
+        cfg = cfg.replace(
+            train=dataclasses.replace(cfg.train, num_epochs=args.epochs))
+    scene = None
+    if args.scene_dir:
+        if args.scene_name:
+            scene = _load_cli_scene(args.scene_dir, args.scene_name)
+        else:
+            # no --scene-name: train over EVERY scene in the dir (the
+            # reference iterates pair files over all training tiles,
+            # MyUtils1.py:236-295); each needs its ground-truth sidecars
+            if args.pos_pairs or args.neg_pairs:
+                parser.error("--pos-pairs/--neg-pairs need --scene-name: "
+                             "pair ids are per-scene")
+            names = sorted(
+                os.path.splitext(f)[0] for f in os.listdir(args.scene_dir)
+                if f.endswith(".shp") and os.path.exists(os.path.join(
+                    args.scene_dir, os.path.splitext(f)[0], "PointsGCS.shp"))
+            )
+            if not names:
+                parser.error(f"--scene-dir {args.scene_dir}: no scenes found "
+                             "(<name>.shp + <name>/PointsGCS.shp layout)")
+            scene = [_load_cli_scene(args.scene_dir, n) for n in names]
+            for s in scene:
+                if s.object_of_region is None:
+                    parser.error(
+                        f"scene '{s.name}' has no ground-truth sidecars "
+                        "({name}_labels.npy + {name}_objects.npy) — "
+                        "multi-scene training derives pairs from them")
+            print(f"training over {len(scene)} scenes: "
+                  f"{[s.name for s in scene]}")
+            if len(scene) == 1:
+                scene = scene[0]
+    pos_pairs = neg_pairs = None
+    if args.pos_pairs or args.neg_pairs:
+        if not (args.pos_pairs and args.neg_pairs):
+            parser.error("--pos-pairs and --neg-pairs go together")
+        if scene is None:
+            parser.error("--pos-pairs/--neg-pairs need --scene-dir "
+                         "(+ --scene-name): pair ids are per-scene")
+        from deepmerge_tpu_torch.geodata.pairgen import read_pair_source
+
+        pos_pairs = read_pair_source(args.pos_pairs, args.scene_name)
+        neg_pairs = read_pair_source(args.neg_pairs, args.scene_name)
+    train(cfg, scene=scene, pos_pairs=pos_pairs, neg_pairs=neg_pairs,
+          max_steps_per_epoch=args.max_steps, device=device)
+    return 0
+
+
 def main(argv=None) -> int:
     parser = _build_parser()
     args = parser.parse_args(argv)
@@ -134,8 +260,8 @@ def main(argv=None) -> int:
     if args.cmd == "export-synthetic":
         import numpy as np
 
-        from deepmerge_tpu.geodata.ingest import export_scene
-        from deepmerge_tpu.geodata.synthetic import generate_scene
+        from deepmerge_tpu_torch.geodata.ingest import export_scene
+        from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 
         scene = generate_scene(h=args.size, w=args.size,
                                n_regions=args.regions,
@@ -154,6 +280,12 @@ def main(argv=None) -> int:
 
     import torch
 
+    if args.cmd == "train" and args.mesh:
+        print("deepmerge_tpu_torch train --mesh: the sharded trainer is the "
+              "port's scale-out item (ROADMAP.md queue A, Scale-out); "
+              "`python -m deepmerge_tpu train --mesh` runs it on the JAX "
+              "package", file=sys.stderr)
+        return 2
     if getattr(args, "mesh", False):
         parser.error("--mesh: the sharded path is the port's scale-out "
                      "item (ROADMAP.md queue A, Scale-out)")
@@ -162,10 +294,13 @@ def main(argv=None) -> int:
                      "--device cpu to run their plain versions on the CPU")
     device = torch.device(args.device)
 
+    if args.cmd == "train":
+        return _train(parser, args, cfg, device)
+
     if args.cmd == "extract":
         import numpy as np
 
-        from deepmerge_tpu.geodata.ingest import load_scene
+        from deepmerge_tpu_torch.geodata.ingest import load_scene
         from deepmerge_tpu_torch.infer.driver import load_params, process_scene
         from deepmerge_tpu_torch.infer.extract import FeatureStore
 
@@ -197,7 +332,7 @@ def main(argv=None) -> int:
                                     scene.meta.get("geotransform"))
                 print(f"merged label map -> {args.out_labels}")
             if args.out_png:
-                from deepmerge_tpu.utils.viz import save_label_map
+                from deepmerge_tpu_torch.utils.viz import save_label_map
 
                 written = save_label_map(args.out_png, label_map, scene.image)
                 print(f"visualization -> {written}")
@@ -206,8 +341,7 @@ def main(argv=None) -> int:
     if args.cmd == "calibrate":
         import numpy as np
 
-        from deepmerge_tpu.__main__ import _majority_object_per_region
-        from deepmerge_tpu.geodata.ingest import load_scene
+        from deepmerge_tpu_torch.geodata.ingest import load_scene
         from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
         from deepmerge_tpu_torch.infer.driver import load_params
         from deepmerge_tpu_torch.infer.extract import FeatureExtractor

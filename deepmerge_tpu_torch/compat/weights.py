@@ -17,7 +17,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from deepmerge_tpu.config import ModelConfig
+from deepmerge_tpu_torch.config import ModelConfig
 from deepmerge_tpu_torch.models.s2former import check_supported, rel_pos_index
 
 

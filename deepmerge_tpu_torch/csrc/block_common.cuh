@@ -1,8 +1,9 @@
-// Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3) and
-// the w8a8 block kernels (fused_block_q8.cu, K4): warp reductions,
-// bf16 rounding, the tanh GELU, cp.async, and the attention core, which
-// K4 runs unchanged (the JAX package keeps the attention of its w8a8
-// block in bf16: `_attn_inner`, deepmerge_tpu/ops/pallas/fused_block.py).
+// Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3), the
+// w8a8 block kernels (fused_block_q8.cu, K4) and the saved-probs training
+// attention (fused_attention.cu, K6): warp reductions, bf16 rounding, the
+// tanh GELU, cp.async, and the attention core, which K4 runs unchanged (the
+// JAX package keeps the attention of its w8a8 block in bf16: `_attn_inner`,
+// deepmerge_tpu/ops/pallas/fused_block.py) and K6 runs with kProbs set.
 
 #pragma once
 
@@ -101,10 +102,14 @@ __host__ __device__ inline AttnLayout attn_layout(int n) {
 // region offset and row stride above is a multiple of 32 / 16 bytes, as
 // the WMMA loads and stores require. The numerators of row r (2·p_ld bytes
 // from byte 2·r·p_ld) only overwrite logits of rows <= r, which the warp
-// already holds in registers when it writes them.
+// already holds in registers when it writes them. With kProbs the kernel
+// also stores each row's normalized probabilities bf16(e · 1/Σe) to
+// probs (B, H, N, N), straight from the registers that hold e.
+template <bool kProbs>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                 bf16* __restrict__ out, int N, int C, float scale) {
+                 bf16* __restrict__ out, bf16* __restrict__ probs, int N,
+                 int C, float scale) {
   extern __shared__ __align__(128) unsigned char attn_smem[];
   const AttnLayout L = attn_layout(N);
   bf16* ks = reinterpret_cast<bf16*>(attn_smem + L.k);
@@ -216,6 +221,17 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       }
       s = warp_sum(s);  // also orders the row's reads before its writes
       if (lane == r) inv_row = 1.0f / s;
+      if (kProbs && i < N) {
+        // the TPU kernel's probs: (e · (1/Σe)) rounded to bf16, e unrounded
+        const float inv = 1.0f / s;
+        bf16* grow = probs + ((static_cast<long long>(blockIdx.y) * gridDim.x +
+                               h) * N + i) * N;
+#pragma unroll
+        for (int t = 0; t < kMaxKeysPerLane; ++t) {
+          const int j = lane + 32 * t;
+          if (j < N) grow[j] = __float2bfloat16(l[t] * inv);
+        }
+      }
       bf16* prow = ps + r * L.p_ld;
 #pragma unroll
       for (int t = 0; t < kMaxKeysPerLane; ++t) {
@@ -263,19 +279,27 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// The attention core over a packed (B·N, 3C) qkv: out (B·N, C) bf16.
-inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
-                             int B, int N, int C, int H,
-                             cudaStream_t stream) {
+// The attention core over a packed (B·N, 3C) qkv: out (B·N, C) bf16, and
+// with kProbs the normalized probabilities (B, H, N, N) bf16.
+template <bool kProbs>
+inline cudaError_t attention_launch(const bf16* qkv, const float* bias,
+                                    bf16* out, bf16* probs, int B, int N,
+                                    int C, int H, cudaStream_t stream) {
   const AttnLayout L = attn_layout(N);
   cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<kProbs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L.bytes));
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  attention_kernel<<<dim3(H, B), kAttnThreads, L.bytes, stream>>>(
-      qkv, bias, out, N, C, scale);
+  attention_kernel<kProbs><<<dim3(H, B), kAttnThreads, L.bytes, stream>>>(
+      qkv, bias, out, probs, N, C, scale);
   return cudaGetLastError();
+}
+
+inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
+                             int B, int N, int C, int H,
+                             cudaStream_t stream) {
+  return attention_launch<false>(qkv, bias, out, nullptr, B, N, C, H, stream);
 }
 
 }  // namespace

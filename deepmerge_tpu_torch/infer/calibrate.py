@@ -10,8 +10,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from deepmerge_tpu.geodata.types import Scene
-from deepmerge_tpu.utils.parity import pair_disagreement
+from deepmerge_tpu_torch.geodata.types import Scene
+from deepmerge_tpu_torch.utils.parity import pair_disagreement
 from deepmerge_tpu_torch.infer.merge import padded_edges
 
 

@@ -22,9 +22,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deepmerge_tpu.config import Config
-from deepmerge_tpu.geodata.types import Scene
-from deepmerge_tpu.utils.profiling import Timings, phase_timer
+from deepmerge_tpu_torch.config import Config
+from deepmerge_tpu_torch.geodata.types import Scene
+from deepmerge_tpu_torch.utils.profiling import Timings, phase_timer
 from deepmerge_tpu_torch.infer.extract import (
     FeatureExtractor,
     FeatureStore,
@@ -202,7 +202,7 @@ def process_scene(
                     store.append(emb)
                     store.close()
             if lines_path and os.path.exists(lines_path):
-                from deepmerge_tpu.geodata.ingest import write_simi
+                from deepmerge_tpu_torch.geodata.ingest import write_simi
 
                 with phase_timer(timings, "simi"):
                     write_simi(lines_path, simi)
@@ -242,7 +242,7 @@ def process_scene(
     with phase_timer(timings, "score"):
         simi = score_scene_edges(scene, on_device, cfg.merge.edge_batch)
     if lines_path and os.path.exists(lines_path):
-        from deepmerge_tpu.geodata.ingest import write_simi
+        from deepmerge_tpu_torch.geodata.ingest import write_simi
 
         write_simi(lines_path, simi)
 
@@ -318,7 +318,7 @@ def process_folder(
     ``{"scene_done_ts": [...]}``, the ``time.perf_counter()`` of each
     scene's completion.
     """
-    from deepmerge_tpu.geodata.ingest import load_scene
+    from deepmerge_tpu_torch.geodata.ingest import load_scene
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
     if mesh is not None:

@@ -21,8 +21,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from deepmerge_tpu.config import DataConfig
-from deepmerge_tpu.geodata.types import Scene
+from deepmerge_tpu_torch.config import DataConfig
+from deepmerge_tpu_torch.geodata.types import Scene
 from deepmerge_tpu_torch.ops.labelprop import (
     device_score_and_merge,
     merged_label_map,

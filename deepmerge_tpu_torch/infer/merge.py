@@ -2,7 +2,7 @@
 
 Two engines give the same partition. The host engine runs rounds of
 device pooling + edge scoring, then union-find over the passing edges
-(the C++ ``deepmerge_tpu.native.unionfind`` when it is built), a stable
+(the C++ ``deepmerge_tpu_torch.native.unionfind`` when it is built), a stable
 relabel and RAG contraction. The device engine (``merge_scene_device``) is
 min-label propagation on the device (``ops/labelprop.device_merge``).
 Labels follow min-member-id semantics, densified in order of the smallest
@@ -16,11 +16,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from deepmerge_tpu.geodata.types import Scene
+from deepmerge_tpu_torch.geodata.types import Scene
 from deepmerge_tpu_torch.ops.segment import edge_distances, segment_mean
 
 try:
-    from deepmerge_tpu.native import unionfind as _native_uf
+    from deepmerge_tpu_torch.native import unionfind as _native_uf
 
     if not _native_uf.available():  # toolchain missing: Python union-find
         _native_uf = None
@@ -214,7 +214,7 @@ def write_label_geotiff(path: str, label_map, geotransform=None) -> None:
     """Write an (H, W) merged label map as a GeoTIFF: ids packed into three
     little-endian uint8 planes (up to 16.7M clusters); decode with
     ``a[..., 0] | a[..., 1] << 8 | a[..., 2] << 16``."""
-    from deepmerge_tpu.geodata.geotiff import write_geotiff
+    from deepmerge_tpu_torch.geodata.geotiff import write_geotiff
 
     if isinstance(label_map, torch.Tensor):
         label_map = label_map.cpu().numpy()

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deepmerge_tpu.geodata.types import Scene
+from deepmerge_tpu_torch.geodata.types import Scene
 from deepmerge_tpu_torch.ops.segment import edge_distances, segment_mean
 
 

@@ -18,17 +18,30 @@ package quantizes them outside its kernel. ``"w8a8-static"`` needs
 calibrated activation scales: ``calibrate`` runs the model once with every
 block through the plain ``block_act_amax`` (no chain), keeping a running
 max in each block's ``act_amax`` buffer.
+
+``forward(..., train=True)`` is the training forward of the JAX package's
+unfused block path (the configuration ``training_model`` gives): per block
+flax-numerics LayerNorm, the qkv dense, the bias gathered from its table
+(differentiable, so its gradient scatter-adds into the table), the
+saved-probs attention (kernel K6, ``ops/kernels/fused_attention.py``), the
+projection, LayerNorm, the tanh-GELU MLP and the residuals. Parameters stay
+float32 and every op casts them to the compute dtype, as flax's
+``dtype=bfloat16`` layers do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from deepmerge_tpu.config import ModelConfig
+from deepmerge_tpu_torch.config import Config, ModelConfig
+from deepmerge_tpu_torch.ops.kernels.fused_attention import (
+    fused_attention_train,
+)
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     LN_EPS,
     block_act_amax,
@@ -73,6 +86,45 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "chain_stage0 is an experiment the port does not carry yet "
             "(ROADMAP.md queue B, the note on chain_stage0)"
+        )
+
+
+def training_model(cfg: Config) -> ModelConfig:
+    """The model configuration training runs (the JAX package's
+    ``train/loop._training_model``): quantization, the stage chain and
+    ``chain_stage0`` cleared, ``fused_block`` on only where both
+    ``model.fused_block`` and ``train.fused_block`` are. That last case is
+    the saved-activation block kernel, which the port does not have yet."""
+    mcfg = cfg.model
+    if mcfg.fused_block and cfg.train.fused_block:
+        raise NotImplementedError(
+            "train.fused_block: the saved-activation training block kernel "
+            "is ROADMAP.md queue B, K5 (with its hand backward "
+            "_fused_block_bwd)"
+        )
+    want = dataclasses.replace(mcfg, fused_block=False, quantize="",
+                               fused_stage_chain=False, chain_stage0=False)
+    check_trainable(want)
+    return want
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port cannot train yet:
+    the block kernel's training path (K5), and dropout, drop path or an
+    attention off the fused path, which the JAX package runs through the
+    attention-only kernel or XLA (K7)."""
+    check_supported(cfg)
+    if cfg.fused_block or cfg.quantize or cfg.fused_stage_chain:
+        raise NotImplementedError(
+            "training runs the unfused blocks (use training_model); the "
+            "saved-activation block kernel is ROADMAP.md queue B, K5"
+        )
+    rates = (cfg.drop_ratio, cfg.attn_drop_ratio, cfg.drop_path_ratio)
+    if any(rates) or not cfg.fused_attention:
+        raise NotImplementedError(
+            f"training with dropout/drop-path rates {rates} or "
+            f"fused_attention={cfg.fused_attention}: that attention path is "
+            "ROADMAP.md queue B, K7 (the port trains through K6 only)"
         )
 
 
@@ -218,10 +270,12 @@ class CrossScaleBlock(nn.Module):
             )
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
-                calibrate: bool = False) -> torch.Tensor:
+                calibrate: bool = False, train: bool = False) -> torch.Tensor:
         """One block. ``calibrate`` (``w8a8-static``) runs the plain
         calibration forward instead and folds its abs-maxes into
-        ``act_amax``."""
+        ``act_amax``; ``train`` runs the training forward."""
+        if train:
+            return self.train_forward(x, dtype)
         self.check_device(x)
         x = x.to(dtype)
         heads, exact = self.num_heads, self.exact_gelu
@@ -235,6 +289,21 @@ class CrossScaleBlock(nn.Module):
             return out.to(dtype)
         return fused_block_q8(x, self.quant_params(dtype), heads=heads,
                               exact_gelu=exact)
+
+    def train_forward(self, x: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+        """The JAX package's unfused block in training
+        (``CrossScaleBlock.__call__`` with ``deterministic=False``): every
+        dense in ``dtype`` from the float32 parameters, the attention
+        through ``fused_attention_train`` (K6 on CUDA)."""
+        x = x.to(dtype)
+        y = _flax_layer_norm(x, self.norm1)
+        qkv = _dense(y, self.attn.qkv)
+        a = fused_attention_train(qkv, self.attn.bias(), self.num_heads)
+        x = x + _dense(a, self.attn.proj)
+        y = _flax_layer_norm(x, self.norm2)
+        y = gelu(_dense(y, self.mlp.fc1), exact=self.exact_gelu)
+        return x + _dense(y, self.mlp.fc2)
 
 
 def _pool2x2_per_scale(x: torch.Tensor, n_scales: int, grid: int):
@@ -284,13 +353,17 @@ class S2Former(nn.Module):
         self.act_amax_calibrated = False
 
     def _stage(self, blocks: nn.ModuleList, x: torch.Tensor,
-               chain: bool) -> torch.Tensor:
+               chain: bool, train: bool = False) -> torch.Tensor:
         """A stage as one chain launch when ``chain`` is on and it has more
         than one block, else block by block (always while calibrating, so
-        that each block records its own abs-maxes)."""
+        that each block records its own abs-maxes, and in training)."""
         if not len(blocks):
             return x
         x = x.to(self.dtype)
+        if train:
+            for blk in blocks:
+                x = blk(x, self.dtype, train=True)
+            return x
         if chain and len(blocks) > 1 and not self.calibrating:
             blocks[0].check_device(x)
             kw = dict(heads=self.cfg.num_heads,
@@ -332,9 +405,14 @@ class S2Former(nn.Module):
             blk.act_amax.copy_(torch.as_tensor(amax[f"{n}.act_amax"]))
         self.act_amax_calibrated = True
 
-    def forward(self, patches, designed=None) -> torch.Tensor:
+    def forward(self, patches, designed=None,
+                train: bool = False) -> torch.Tensor:
+        """Embeddings (B, out_dim). ``train`` is the JAX package's ``train``
+        argument: the training forward, whose blocks run through K6."""
         cfg = self.cfg
-        if (self._static_blocks() and not self.calibrating
+        if train:
+            check_trainable(cfg)
+        elif (self._static_blocks() and not self.calibrating
                 and not self.act_amax_calibrated):
             raise ValueError(
                 "model.quantize='w8a8-static' needs calibrated activation "
@@ -349,11 +427,11 @@ class S2Former(nn.Module):
         )
         chain = cfg.fused_stage_chain
         # stage 0 runs block by block (chain_stage0 is not supported)
-        x = self._stage(self.blocks0, x, chain=False)
+        x = self._stage(self.blocks0, x, False, train)
         x = _flax_layer_norm(_pool2x2_per_scale(x, n, g), self.norm)
-        x = self._stage(self.blocks1, x, chain)
+        x = self._stage(self.blocks1, x, chain, train)
         x = _flax_layer_norm(_pool2x2_per_scale(x, n, g // 2), self.norm)
-        x = self._stage(self.blocks2, x, chain)
+        x = self._stage(self.blocks2, x, chain, train)
         x = _flax_layer_norm(x, self.norm)
         b, _, d = x.shape
         g2 = (g // 4) ** 2

@@ -75,12 +75,13 @@ def gelu(x, exact: bool = False):
     return x * (0.5 * (1.0 + torch.tanh(k * (x + 0.044715 * (x ** 3)))))
 
 
-def _attention(qkv: torch.Tensor, bias: torch.Tensor,
-               heads: int) -> torch.Tensor:
-    """The TPU kernel's ``_attn_inner`` on a (B, N, 3C) qkv in the
-    activation dtype: per head softmax(q·d^-½·kᵀ + bias) · v in f32, the
-    numerators rounded to the activation dtype for the value product and
-    1/Σe applied after it."""
+def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
+    """The TPU kernels' attention (``_attn_inner``, and the saved-probs
+    kernel's forward) on a (B, N, 3C) qkv in the activation dtype: per head
+    softmax(q·d^-½·kᵀ + bias) · v in f32, q scaled in the activation dtype,
+    the numerators rounded to it for the value product and 1/Σe applied
+    after that. Returns the output (B, N, C) in qkv's dtype, and the f32
+    numerators e (B, H, N, N) and reciprocals 1/Σe (B, H, N, 1)."""
     dt = qkv.dtype
     b, n, c3 = qkv.shape
     c = c3 // 3
@@ -96,7 +97,13 @@ def _attention(qkv: torch.Tensor, bias: torch.Tensor,
     av = torch.einsum(
         "bhnm,bmhd->bhnd", e.to(dt).to(torch.float32), v.to(torch.float32)
     )
-    return (av * recip).permute(0, 2, 1, 3).reshape(b, n, c).to(dt)
+    out = (av * recip).permute(0, 2, 1, 3).reshape(b, n, c).to(dt)
+    return out, e, recip
+
+
+def _attention(qkv: torch.Tensor, bias: torch.Tensor,
+               heads: int) -> torch.Tensor:
+    return attention_parts(qkv, bias, heads)[0]
 
 
 def block_ref(x: torch.Tensor, params, heads: int,

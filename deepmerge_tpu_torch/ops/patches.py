@@ -142,13 +142,14 @@ def window_starts(centers: torch.Tensor, cap: int, pad: int, channels: int):
 
 
 def _slot_patches(scene2d, centers, slot_scales, cap, out, pad, c,
-                  quantize_uint8, out_dtype):
+                  quantize_uint8, out_dtype, trusted_origins):
     a_px = _pixel_align(c)
     win_rows = cap + ROW_ALIGN
     win_px = cap + a_px
     b = centers.shape[0]
     starts, y0a, px0a = window_starts(centers, cap, pad, c)
-    windows = gather_windows(scene2d, starts, win_rows, win_px * c)
+    windows = gather_windows(scene2d, starts, win_rows, win_px * c,
+                             trusted_origins=trusted_origins)
 
     s = torch.clamp(slot_scales, 1, cap)
     # window index of original coord y is y - (y0a - pad)
@@ -197,6 +198,7 @@ def extract_multiscale_patches(
     quantize_uint8: bool = True,
     out_channels: int | None = None,
     out_dtype: torch.dtype = torch.float32,
+    trusted_origins: bool = False,
 ):
     """Per-point multi-scale patches.
 
@@ -212,6 +214,9 @@ def extract_multiscale_patches(
       out_channels: slice patches to the original band count; None keeps
         the staged channels.
       out_dtype: patch dtype.
+      trusted_origins: every center lies inside the scene (the caller
+        checked it); the window gather then skips its bounds check and the
+        device sync that check costs.
 
     Returns a tuple of (B, p, p, out_channels) ``out_dtype`` in [0, 1], one
     per patch size. The resize products need full float32: TF32 is turned
@@ -238,7 +243,7 @@ def extract_multiscale_patches(
         for slot in range(n_slots):
             p = _slot_patches(
                 scene2d, cen, scl[:, slot], caps[slot], patch_sizes[slot],
-                pad, c, quantize_uint8, out_dtype,
+                pad, c, quantize_uint8, out_dtype, trusted_origins,
             )
             outs[slot].append(p[..., :co])
     return tuple(

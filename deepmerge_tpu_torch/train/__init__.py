@@ -1,1 +1,2 @@
-"""train of the PyTorch port (see deepmerge_tpu_torch/__init__.py)."""
+"""Training of the port: samplers, losses, the train loop, checkpoints and
+the driver (``deepmerge_tpu/train`` in the JAX package)."""

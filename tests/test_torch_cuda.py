@@ -14,13 +14,19 @@ boundary, one quant step. The output keeps the residual input, which
 dominates its largest magnitude, so the RMS error of the block's own
 contribution (out - x) over that contribution's RMS is held too: to 1e-2
 for one block and 2.5e-2 for a stage, which a bias of the block left out
-exceeds.
+exceeds. The saved-probs attention (K6): its output to 2e-2 of max|plain|
+(the block's bound), its bf16 probabilities, which lie in [0, 1], to 1e-2
+absolute (a few bf16 ulps at 1), and the gradients of qkv and of the bias
+through the autograd function, on the kernel's forward against the plain
+one, to 2e-2 of their largest magnitude (the backward is the same code; a
+probability one bf16 ulp apart moves its products by that ulp).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     block_act_amax,
     block_ref,
@@ -42,6 +48,7 @@ pytestmark = pytest.mark.cuda
 BLOCK_TOL = 2e-2
 BLOCK_RMS_TOL = 1e-2
 CHAIN_RMS_TOL = 2.5e-2
+PROBS_TOL = 1e-2
 
 
 @pytest.fixture
@@ -227,3 +234,63 @@ def test_q8_block_rejects_what_the_kernel_does_not_take(cuda):
                                    hidden=256)
     with pytest.raises(ValueError, match="multiple of 128"):
         fused_block_q8(x64, qp64, h64)
+
+
+def _attention_inputs(rs, b, n, heads, cuda):
+    c = heads * 64
+    qkv = torch.from_numpy(rs.standard_normal((b, n, 3 * c)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy((rs.standard_normal((heads, n, n)) * 0.5).astype(
+        np.float32)).to(cuda)
+    return qkv, bias
+
+
+@pytest.mark.parametrize("n", [12, 48, 192])
+def test_attention_probs_matches_plain(cuda, n):
+    rs = np.random.default_rng(n)
+    qkv, bias = _attention_inputs(rs, 6, n, 3, cuda)
+    before = fa.attention_probs.launches
+    out, probs = fa.attention_probs(qkv, bias, 3)
+    torch.cuda.synchronize()
+    assert fa.attention_probs.launches == before + 1
+    assert out.dtype == probs.dtype == torch.bfloat16
+    assert out.shape == (6, n, 192) and probs.shape == (6, 3, n, n)
+    want_out, want_probs = fa.attention_probs_ref(qkv, bias, 3)
+    assert _rel_err(out, want_out) <= BLOCK_TOL
+    assert float((probs.float() - want_probs.float()).abs().max()) <= PROBS_TOL
+
+
+def test_attention_train_backward_matches_plain(cuda, monkeypatch):
+    """dqkv and dbias through ``fused_attention_train`` with the kernel's
+    forward, against the same function with the plain forward."""
+    rs = np.random.default_rng(7)
+    qkv, bias = _attention_inputs(rs, 4, 48, 2, cuda)
+    g = torch.from_numpy(rs.standard_normal((4, 48, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+
+    def grads():
+        q = qkv.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        fa.fused_attention_train(q, b, 2).backward(g)
+        return q.grad, b.grad
+
+    got = grads()
+    monkeypatch.setattr(fa, "attention_probs", fa.attention_probs_ref)
+    want = grads()
+    torch.cuda.synchronize()
+    for gg, w in zip(got, want):
+        assert _rel_err(gg, w) <= BLOCK_TOL
+
+
+def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
+    rs = np.random.default_rng(8)
+    qkv, bias = _attention_inputs(rs, 2, 12, 2, cuda)
+    with pytest.raises(TypeError):
+        fa.attention_probs(qkv.float(), bias, 2)
+    with pytest.raises(ValueError, match="heads"):
+        fa.attention_probs(qkv, bias, 4)  # head width 32
+    with pytest.raises(ValueError, match="bias"):
+        fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
+    q49, b49 = _attention_inputs(rs, 2, 49, 2, cuda)
+    with pytest.raises(ValueError, match="N in"):
+        fa.attention_probs(q49, b49, 2)

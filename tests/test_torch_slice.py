@@ -16,53 +16,65 @@ import numpy as np
 import pytest
 import torch
 
-from deepmerge_tpu.config import DataConfig, ModelConfig
-from deepmerge_tpu.geodata.synthetic import generate_scene
+from deepmerge_tpu import config as jconfig
+from deepmerge_tpu.geodata import synthetic as jsynthetic
 from deepmerge_tpu.infer.extract import FeatureExtractor as JaxExtractor
 from deepmerge_tpu.models.s2former import build_model, init_params
 from deepmerge_tpu_torch.compat.weights import state_dict_from_flax
+from deepmerge_tpu_torch.config import DataConfig, ModelConfig
+from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 from deepmerge_tpu_torch.infer.extract import FeatureExtractor, region_bucket
 from deepmerge_tpu_torch.models import s2former
 from deepmerge_tpu_torch.models.s2former import S2Former
 
-TINY_V3 = ModelConfig(
+TINY = dict(
     variant="v3", input_image_scales=(16, 32, 64), cube=8, embed_dim=64,
     depth=(2, 2, 2), num_heads=4, out_dim=32, dtype="float32",
 )
+TINY_V3 = ModelConfig(**TINY)
 DCFG = DataConfig(patch_sizes=(16, 32, 64), max_window=128)
+# each package gets its own config, scene and data config, built from the
+# same arguments (the synthetic scene is numpy-seeded: equal arrays)
+J_DCFG = jconfig.DataConfig(patch_sizes=(16, 32, 64), max_window=128)
+SCENE = dict(h=128, w=128, n_regions=24, n_objects=4, points_per_region=2,
+             seed=3)
 BATCH = 16  # 48 points → three chunks
+
+
+def _jax_cfg(mcfg):
+    """The JAX package's ModelConfig with the fields of the port's."""
+    return jconfig.ModelConfig(**dataclasses.asdict(mcfg))
 
 
 @pytest.fixture(scope="module")
 def scene_and_edges():
-    scene = generate_scene(h=128, w=128, n_regions=24, n_objects=4,
-                           points_per_region=2, seed=3)
+    scene = generate_scene(**SCENE)
     edges = scene.rag.edges.astype(np.int32)
     pad = (-len(edges)) % 64
     valid = np.arange(len(edges) + pad) < len(edges)
     edges = np.concatenate([edges, np.zeros((pad, 2), np.int32)])
-    return scene, edges, valid
+    return (scene, jsynthetic.generate_scene(**SCENE)), edges, valid
 
 
 @pytest.fixture(scope="module")
 def flax_params():
-    variables = init_params(build_model(TINY_V3), jax.random.key(0))
+    variables = init_params(build_model(_jax_cfg(TINY_V3)), jax.random.key(0))
     return jax.tree.map(np.asarray, variables["params"])
 
 
 def _extractors(mcfg, params):
-    jx = JaxExtractor(build_model(mcfg), params, batch_size=BATCH)
+    jx = JaxExtractor(build_model(_jax_cfg(mcfg)), params, batch_size=BATCH)
     model = S2Former(mcfg)
     model.load_state_dict(state_dict_from_flax(params, mcfg), strict=True)
     return jx, FeatureExtractor(model, batch_size=BATCH, device="cpu")
 
 
 def test_slice_f32_matches_jax(scene_and_edges, flax_params):
-    scene, edges, valid = scene_and_edges
+    (scene, jscene), edges, valid = scene_and_edges
     jx, tx = _extractors(TINY_V3, flax_params)
     r = scene.regions.num_regions
 
-    want_emb = np.asarray(jx.extract_scene_device(scene, DCFG))
+    want_emb = np.asarray(jx.extract_scene_device(jscene, J_DCFG))
     got_emb = tx.extract_scene_device(scene, DCFG).numpy()
     assert got_emb.shape == (scene.regions.num_points, TINY_V3.out_dim)
     np.testing.assert_allclose(got_emb, want_emb, rtol=1e-5, atol=1e-5)
@@ -70,7 +82,7 @@ def test_slice_f32_matches_jax(scene_and_edges, flax_params):
     # absolute threshold midway across the widest gap in the middle half of
     # the sorted valid distances: merges happen, no edge on the knife edge
     simi0 = np.asarray(jx.segment_scene_device(
-        scene, DCFG, edges, valid, num_regions=r, max_rounds=8)[0])
+        jscene, J_DCFG, edges, valid, num_regions=r, max_rounds=8)[0])
     s = np.sort(simi0[valid])
     lo, hi = len(s) // 4, 3 * len(s) // 4
     i = lo + int(np.argmax(np.diff(s[lo:hi])))
@@ -79,7 +91,7 @@ def test_slice_f32_matches_jax(scene_and_edges, flax_params):
     kw = dict(num_regions=r, max_rounds=8, region_map=scene.labels,
               threshold=thr)
     want = [np.asarray(a) for a in
-            jx.segment_scene_device(scene, DCFG, edges, valid, **kw)]
+            jx.segment_scene_device(jscene, J_DCFG, edges, valid, **kw)]
     got = [a.numpy() for a in
            tx.segment_scene_device(scene, DCFG, edges, valid, **kw)]
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
@@ -96,10 +108,10 @@ def test_slice_bf16_close_to_jax(scene_and_edges, flax_params):
     and the two sides round at the same points but sum in other orders, so
     a one-ulp difference in an early activation can flip later roundings
     through the six blocks and the head (measured: 0.0045, one ulp)."""
-    scene, _, _ = scene_and_edges
+    (scene, jscene), _, _ = scene_and_edges
     mcfg = dataclasses.replace(TINY_V3, dtype="bfloat16")
     jx, tx = _extractors(mcfg, flax_params)
-    want = np.asarray(jx.extract_scene_device(scene, DCFG))
+    want = np.asarray(jx.extract_scene_device(jscene, J_DCFG))
     got = tx.extract_scene_device(scene, DCFG).numpy()
     scale = np.abs(want).max()
     err = np.abs(got - want).max() / scale

@@ -8,13 +8,14 @@ import pytest
 import torch
 
 from deepmerge_tpu.compat.torch_export import flax_to_torch_state_dict
-from deepmerge_tpu.config import ModelConfig
+from deepmerge_tpu.config import ModelConfig as JaxModelConfig
 from deepmerge_tpu.models.s2former import build_model, init_params
 from deepmerge_tpu.models.s2former import rel_pos_index as jax_rel_pos_index
 from deepmerge_tpu_torch.compat.weights import (
     init_state_dict,
     state_dict_from_flax,
 )
+from deepmerge_tpu_torch.config import ModelConfig
 from deepmerge_tpu_torch.models.s2former import S2Former, rel_pos_index
 
 # tiny v3 with two blocks in every stage, so stages 1 and 2 reach the chain
@@ -27,16 +28,19 @@ TINY_V3 = dict(
 @pytest.fixture(scope="module", params=[True, False],
                 ids=["designed", "no-designed"])
 def tiny(request):
-    mcfg = ModelConfig(**TINY_V3, use_designed_features=request.param)
-    variables = init_params(build_model(mcfg), jax.random.key(0))
+    """The same tiny v3 as each package's own config, and JAX's initial
+    parameters."""
+    kw = dict(TINY_V3, use_designed_features=request.param)
+    jcfg = JaxModelConfig(**kw)
+    variables = init_params(build_model(jcfg), jax.random.key(0))
     params = jax.tree.map(np.asarray, variables["params"])
-    return mcfg, params
+    return ModelConfig(**kw), jcfg, params
 
 
 def test_state_dict_from_flax_equals_exporter(tiny):
-    mcfg, params = tiny
+    mcfg, jcfg, params = tiny
     ours = state_dict_from_flax(params, mcfg)
-    want = flax_to_torch_state_dict({"params": params}, mcfg)
+    want = flax_to_torch_state_dict({"params": params}, jcfg)
     assert sorted(ours) == sorted(want)
     for k, v in want.items():
         assert tuple(ours[k].shape) == v.shape, k
@@ -44,7 +48,7 @@ def test_state_dict_from_flax_equals_exporter(tiny):
 
 
 def test_port_model_loads_strict(tiny):
-    mcfg, params = tiny
+    mcfg, _, params = tiny
     model = S2Former(mcfg)
     model.load_state_dict(state_dict_from_flax(params, mcfg), strict=True)
 
