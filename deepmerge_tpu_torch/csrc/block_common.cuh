@@ -1,9 +1,11 @@
 // Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3), the
-// w8a8 block kernels (fused_block_q8.cu, K4) and the saved-probs training
-// attention (fused_attention.cu, K6): warp reductions, bf16 rounding, the
-// tanh GELU, cp.async, and the attention core, which K4 runs unchanged (the
-// JAX package keeps the attention of its w8a8 block in bf16: `_attn_inner`,
-// deepmerge_tpu/ops/pallas/fused_block.py) and K6 runs with kProbs set.
+// w8a8 block kernels (fused_block_q8.cu, K4) and the attention kernels
+// (fused_attention.cu: K6 saved-probs, K7 packed qkv, K8 (B, N, H, D)):
+// warp reductions, bf16 rounding, the tanh GELU, cp.async, and the
+// attention core, which K4 runs unchanged (the JAX package keeps the
+// attention of its w8a8 block in bf16: `_attn_inner`,
+// deepmerge_tpu/ops/pallas/fused_block.py), K6 runs with kProbs set, K7
+// as K2 does, and K8 with kNormFirst on separate q, k, v.
 
 #pragma once
 
@@ -105,11 +107,19 @@ __host__ __device__ inline AttnLayout attn_layout(int n) {
 // already holds in registers when it writes them. With kProbs the kernel
 // also stores each row's normalized probabilities bf16(e · 1/Σe) to
 // probs (B, H, N, N), straight from the registers that hold e.
-template <bool kProbs>
+//
+// q, k and v are the first rows of the three operands, each row `ld`
+// elements apart: 3C within a packed (B·N, 3C) qkv (k = q + C, v = q + 2C),
+// C for (B, N, H, 64) tensors. The output rows are C apart. With
+// kNormFirst the numerators are normalized before the value product,
+// bf16(e · (1/Σe)), and the product is the output (the (B, N, H, D) TPU
+// kernel's order); without it the product of bf16(e) is scaled by 1/Σe.
+template <bool kProbs, bool kNormFirst>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                 bf16* __restrict__ out, bf16* __restrict__ probs, int N,
-                 int C, float scale) {
+attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, long long ld,
+                 const float* __restrict__ bias, bf16* __restrict__ out,
+                 bf16* __restrict__ probs, int N, int C, float scale) {
   extern __shared__ __align__(128) unsigned char attn_smem[];
   const AttnLayout L = attn_layout(N);
   bf16* ks = reinterpret_cast<bf16*>(attn_smem + L.k);
@@ -117,7 +127,6 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 
   const int h = blockIdx.x;
   const long long row0 = static_cast<long long>(blockIdx.y) * N;
-  const long long c3 = 3LL * C;
   const int head_off = h * kHeadDim;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -127,9 +136,9 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     const int j = idx >> 3;
     const int c = (idx & 7) * 8;
     const bool in = j < N;
-    const bf16* src = in ? qkv + (row0 + j) * c3 + head_off + c : qkv;
-    cp_async16(ks + j * kHS + c, in ? src + C : qkv, in);
-    cp_async16(vs + j * kHS + c, in ? src + 2 * C : qkv, in);
+    const long long off = in ? (row0 + j) * ld + head_off + c : 0;
+    cp_async16(ks + j * kHS + c, k + off, in);
+    cp_async16(vs + j * kHS + c, v + off, in);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -150,7 +159,7 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       const int c = (idx & 7) * 8;
       const bool in = i0 + r < N;
       cp_async16(qs + r * kHS + c,
-                 in ? qkv + (row0 + i0 + r) * c3 + head_off + c : qkv, in);
+                 q + (in ? (row0 + i0 + r) * ld + head_off + c : 0), in);
     }
     cp_async_commit();
     cp_async_wait<0>();
@@ -220,10 +229,10 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
         s += l[t];
       }
       s = warp_sum(s);  // also orders the row's reads before its writes
-      if (lane == r) inv_row = 1.0f / s;
+      const float inv = 1.0f / s;
+      if (lane == r) inv_row = inv;
       if (kProbs && i < N) {
         // the TPU kernel's probs: (e · (1/Σe)) rounded to bf16, e unrounded
-        const float inv = 1.0f / s;
         bf16* grow = probs + ((static_cast<long long>(blockIdx.y) * gridDim.x +
                                h) * N + i) * N;
 #pragma unroll
@@ -236,7 +245,9 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 #pragma unroll
       for (int t = 0; t < kMaxKeysPerLane; ++t) {
         const int j = lane + 32 * t;
-        if (j < L.np) prow[j] = __float2bfloat16(l[t]);
+        // a row past N has s = 0: its numerators stay 0
+        const float e = kNormFirst ? (i < N ? l[t] * inv : 0.f) : l[t];
+        if (j < L.np) prow[j] = __float2bfloat16(e);
       }
       __syncwarp();
     }
@@ -263,11 +274,12 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                               wmma::mem_row_major);
     __syncwarp();
 
-    // out = bf16(O · 1/Σe)
+    // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
     for (int idx = lane; idx < 16 * (kHeadDim / 2); idx += 32) {
       const int r = idx / (kHeadDim / 2);
       const int p = idx % (kHeadDim / 2);
-      const float inv = __shfl_sync(0xffffffffu, inv_row, r);
+      const float inv =
+          kNormFirst ? 1.f : __shfl_sync(0xffffffffu, inv_row, r);
       if (i0 + r < N) {
         const float* orow = ss + r * L.s_ld + 2 * p;
         *reinterpret_cast<__nv_bfloat162*>(out + (row0 + i0 + r) * C +
@@ -279,27 +291,41 @@ attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   }
 }
 
-// The attention core over a packed (B·N, 3C) qkv: out (B·N, C) bf16, and
-// with kProbs the normalized probabilities (B, H, N, N) bf16.
-template <bool kProbs>
-inline cudaError_t attention_launch(const bf16* qkv, const float* bias,
-                                    bf16* out, bf16* probs, int B, int N,
-                                    int C, int H, cudaStream_t stream) {
+// The attention core: out (B·N, C) bf16 from q, k, v rows `ld` apart (see
+// attention_kernel), and with kProbs the normalized probabilities
+// (B, H, N, N) bf16.
+template <bool kProbs, bool kNormFirst>
+inline cudaError_t attention_launch(const bf16* q, const bf16* k,
+                                    const bf16* v, long long ld,
+                                    const float* bias, bf16* out, bf16* probs,
+                                    int B, int N, int C, int H,
+                                    cudaStream_t stream) {
   const AttnLayout L = attn_layout(N);
   cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<kProbs>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L.bytes));
+      attention_kernel<kProbs, kNormFirst>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.bytes));
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  attention_kernel<kProbs><<<dim3(H, B), kAttnThreads, L.bytes, stream>>>(
-      qkv, bias, out, probs, N, C, scale);
+  attention_kernel<kProbs, kNormFirst>
+      <<<dim3(H, B), kAttnThreads, L.bytes, stream>>>(q, k, v, ld, bias, out,
+                                                      probs, N, C, scale);
   return cudaGetLastError();
+}
+
+// The attention core over a packed (B·N, 3C) qkv, with or without probs.
+template <bool kProbs>
+inline cudaError_t attention_qkv(const bf16* qkv, const float* bias,
+                                 bf16* out, bf16* probs, int B, int N, int C,
+                                 int H, cudaStream_t stream) {
+  return attention_launch<kProbs, false>(qkv, qkv + C, qkv + 2 * C, 3LL * C,
+                                         bias, out, probs, B, N, C, H,
+                                         stream);
 }
 
 inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
                              int B, int N, int C, int H,
                              cudaStream_t stream) {
-  return attention_launch<false>(qkv, bias, out, nullptr, B, N, C, H, stream);
+  return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, stream);
 }
 
 }  // namespace

@@ -1,6 +1,9 @@
-// The saved-probs training attention (kernel K6), bf16, for Hopper (sm_90a).
+// The attention kernels, bf16, for Hopper (sm_90a): the saved-probs
+// training attention (K6), the inference attention on the packed qkv (K7)
+// and on separate (B, N, H, D) q, k, v (K8). All three run the attention
+// core of block_common.cuh, one CTA per (head, sample).
 //
-// Replaces the TPU kernel deepmerge_tpu/ops/pallas/fused_attention.py:311
+// K6 replaces deepmerge_tpu/ops/pallas/fused_attention.py:311
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the
 // forward of `fused_attention_qkv(..., save_probs=True)`, which every
 // training block runs). From the packed qkv projection (B, N, 3C), heads
@@ -14,16 +17,33 @@
 // `_fused_qkv_train_bwd`, XLA einsums there) is plain torch in
 // ops/kernels/fused_attention.py.
 //
-// Bound on the H100: bytes. At the stage-0 operating point (B 240, N 192,
-// C 768, H 12) the kernel must read qkv (212 MB) and write out (71 MB) and
-// p (212 MB): 0.50 GB, 0.15 ms at 3.35 TB/s; its 27 GFLOP of q·kᵀ and p·v
-// take 0.03 ms at 989 TFLOP/s. The design is K2's attention core
-// (block_common.cuh, one CTA per (head, sample), K and V of the head in
-// shared memory, tensor-core MMAs for both products, softmax in f32
-// registers) with one more store path: each lane writes the probabilities
-// of its keys from the registers that hold e, so p costs one pass of writes
-// and no extra reads. qkv is read once per (head, sample) except for the
-// query rows, which every warp reads once more.
+// K7 replaces fused_attention.py:143 `_attn_qkv_kernel` and :175
+// `_attn_qkv_kernel_packed` (call :438, the forward of
+// `fused_attention_qkv(..., save_probs=False)`, which every block off the
+// block kernel runs at inference): the same q', e and out, without p. The
+// packed TPU kernel computes the same function with two heads' value
+// products as one block-diagonal product, to fill the TPU's 128-wide lanes;
+// the H100's 16-wide MMA tiles need no such packing, so both launch this.
+//
+// K8 replaces fused_attention.py:26 `_attn_kernel` (call :117): the same
+// attention on (B, N, H, D) q, k and v, whose rows are C apart instead of
+// 3C, with the probabilities normalized before the value product,
+// out = bf16(bf16(e · (1/Σe))·v), as that kernel orders it (its softmax
+// divides by Σe; the product with the reciprocal can differ from the
+// quotient in the last float32 bit, so a bf16 rounding may go the other
+// way).
+//
+// Bound on the H100: bytes. At the stage-0 operating point of training (B
+// 240, N 192, C 768, H 12) K6 must read qkv (212 MB) and write out (71 MB)
+// and p (212 MB): 0.50 GB, 0.15 ms at 3.35 TB/s; its 27 GFLOP of q·kᵀ and
+// p·v take 0.03 ms at 989 TFLOP/s. K7 and K8 at serving's B 1024 read 906
+// MB of q, k and v and write 302 MB: 0.36 ms, against 0.12 ms of products.
+// The design is K2's attention core (K and V of the head in shared memory,
+// tensor-core MMAs for both products, softmax in f32 registers); K6 adds
+// one store path: each lane writes the probabilities of its keys from the
+// registers that hold e, so p costs one pass of writes and no extra reads.
+// q, k and v are read once per (head, sample) except for the query rows,
+// which every warp reads once more.
 
 #include "block_common.cuh"
 
@@ -33,16 +53,38 @@ const char* dm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C) bf16
-// and bias (H, N, N) f32. Requires C == H·64 and N <= 256 (checked by the
-// caller). Returns cudaGetLastError().
+// K6: out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C)
+// bf16 and bias (H, N, N) f32. Requires C == H·64 and 1 <= N <= 256
+// (checked by the caller). Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
                        cudaStream_t stream) {
-  return static_cast<int>(attention_launch<true>(
+  return static_cast<int>(attention_qkv<true>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
       static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, C, H,
       stream));
+}
+
+// K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
+// Requires C == H·64 and 1 <= N <= 256. Returns cudaGetLastError().
+int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
+                 int C, int H, cudaStream_t stream) {
+  return static_cast<int>(attention(static_cast<const bf16*>(qkv),
+                                    static_cast<const float*>(bias),
+                                    static_cast<bf16*>(out), B, N, C, H,
+                                    stream));
+}
+
+// K8: out (B, N, H, 64) bf16 from q, k, v (B, N, H, 64) bf16 and bias
+// (H, N, N) f32, C = H·64. Requires 1 <= N <= 256 and 16-byte aligned
+// tensors. Returns cudaGetLastError().
+int dm_attention_bnhd(const void* q, const void* k, const void* v,
+                      const void* bias, void* out, int B, int N, int C, int H,
+                      cudaStream_t stream) {
+  return static_cast<int>(attention_launch<false, true>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), C, static_cast<const float*>(bias),
+      static_cast<bf16*>(out), nullptr, B, N, C, H, stream));
 }
 
 }  // extern "C"

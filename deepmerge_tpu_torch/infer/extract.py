@@ -3,8 +3,9 @@ segment-and-merge path (port of ``deepmerge_tpu/infer/extract.py``).
 
 ``segment_scene_device`` runs the whole pipeline on one device: for each
 balanced chunk of sample points, window gather (K1) → crop + INTER_AREA
-resize → S2Former v3 forward (K2 for stage 0, K3 for stages 1 and 2, or K4
-for both when the model is quantized); then region pooling → edge scoring →
+resize → S2Former forward (for v3: K2 for stage 0, K3 for stages 1 and 2,
+or K4 for both when the model is quantized; K7 in every block off the block
+kernels); then region pooling → edge scoring →
 threshold → merge rounds → the dense (H, W) merged label map. The JAX
 package compiles this into one program; here it is a plain sequence of
 calls on the current stream. ``extract_scene`` embeds in fixed-size padded
@@ -171,20 +172,21 @@ class FeatureExtractor:
 
     The constructor moves the model to ``device``, casts its float weights
     to the model dtype once (the LayerNorm parameters and the bias tables
-    included, as the JAX package does; calibrated ``w8a8-static`` scales
-    stay float32, as the JAX package keeps its ``batch_stats``), and puts
-    it in eval mode. A ``w8a8-static`` model without scales calibrates on
-    the first chunk it serves.
+    included, as the JAX package does; its float buffers — calibrated
+    ``w8a8-static`` scales, the aux heads' BatchNorm statistics — stay
+    float32, as the JAX package keeps its ``batch_stats``), and puts it in
+    eval mode. A ``w8a8-static`` model without scales calibrates on the
+    first chunk it serves. The aux heads of v4 and v5 do not run here.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 2000,
                  device: torch.device | str = "cpu"):
         self.device = torch.device(device)
-        amax = {n: b for n, b in model.named_buffers()
-                if n.endswith("act_amax")}
+        stats = {n: b for n, b in model.named_buffers()
+                 if b.is_floating_point()}
         # float weights only: the int64 index buffers keep their dtype
         model = model.to(self.device, model.dtype)
-        for n, b in amax.items():
+        for n, b in stats.items():
             owner, _, attr = n.rpartition(".")
             setattr(model.get_submodule(owner), attr,
                     b.to(self.device, torch.float32))

@@ -1,46 +1,70 @@
-"""S2Former v3 in PyTorch (port of ``deepmerge_tpu/models/s2former.py``).
+"""The S2Former family, v1–v6, in PyTorch (port of
+``deepmerge_tpu/models/s2former.py``).
 
-The shipped model of the family: three scales embedded onto one 8×8 token
-grid each, a three-stage pyramid (8×8 → 4×4 → 2×2 per scale, with per-scale
-2×2 average pooling between stages), one LayerNorm shared across the model,
-and the designed-feature token joining the pooled scales before the output
-projection. Module and parameter names are the reference ``state_dict``'s
-(the names ``deepmerge_tpu/compat/torch_export.py`` writes), so an exported
-checkpoint loads with ``strict=True``.
+Every scale is embedded onto one cube×cube token grid and the blocks attend
+over the concatenated multi-scale sequence with a 3-D relative-position
+bias over the (scale, row, col) cube. The variants, as the JAX package's:
 
-The blocks dispatch as the JAX package's do: stage 0 runs block by block,
-one launch of the block kernel (K2) each; a later stage of more than one
-block runs as one launch of the chain kernel (K3), a single-block stage on
-K2 (``ops/kernels/fused_block.py``; CPU tensors take the plain versions
-there). ``quantize="w8a8"`` and ``"w8a8-static"`` send the same launches to
-the w8a8 kernels (K4), the weights quantized on every forward as the JAX
-package quantizes them outside its kernel. ``"w8a8-static"`` needs
-calibrated activation scales: ``calibrate`` runs the model once with every
-block through the plain ``block_act_amax`` (no chain), keeping a running
-max in each block's ``act_amax`` buffer.
+* v1: four fixed scales, one stage of blocks (drop path rising linearly
+  over them), per-scale mean-pool head; v2: any scales, one stage.
+* v3, the shipped model: a three-stage pyramid (8×8 → 4×4 → 2×2 per scale,
+  per-scale 2×2 average pooling between stages), one LayerNorm shared
+  across the model, the designed-feature token joining the pooled scales
+  before the output projection.
+* v4: v3 with two deep-supervision heads (``AuxBlock``) after stages 0 and
+  1, which run in training only.
+* v5: v4 with the designed-feature token appended to the sequence and
+  carried through the stages (N = 193/49/13 at the defaults), its bias
+  table extended by ``rel_pos_index_extra_token``.
+* v6: the designed features alone through an MLP (an ablation).
 
-``forward(..., train=True)`` is the training forward of the JAX package's
-unfused block path (the configuration ``training_model`` gives): per block
-flax-numerics LayerNorm, the qkv dense, the bias gathered from its table
-(differentiable, so its gradient scatter-adds into the table), the
-saved-probs attention (kernel K6, ``ops/kernels/fused_attention.py``), the
-projection, LayerNorm, the tanh-GELU MLP and the residuals. Parameters stay
-float32 and every op casts them to the compute dtype, as flax's
+Module and parameter names are the reference ``state_dict``'s (the names
+``deepmerge_tpu/compat/torch_export.py`` writes), so an exported checkpoint
+loads with ``strict=True``.
+
+Inference dispatches the blocks as the JAX package does. A block on the
+block kernel (``fused_block`` and ``fused_attention`` on, tanh GELU, no
+dropout or drop path) runs as one launch of K2, and a later stage of more
+than one such block as one launch of the chain kernel K3
+(``ops/kernels/fused_block.py``); ``quantize="w8a8"`` and
+``"w8a8-static"`` send the same launches to the w8a8 kernels (K4), the
+weights quantized on every forward as the JAX package quantizes them
+outside its kernel. ``"w8a8-static"`` needs calibrated activation scales:
+``calibrate`` runs the model once with every block through the plain
+``block_act_amax`` (no chain), keeping a running max in each block's
+``act_amax`` buffer. Any other block runs unfused: flax-numerics
+LayerNorm, the qkv dense, the attention-only kernel K7
+(``ops/kernels/fused_attention.py``), the projection, LayerNorm, the GELU
+MLP. Quantization rides the block kernels only: on a block off them it is
+a no-op, as in the JAX package (whose config warns).
+
+``forward(..., train=True)`` is the training forward of the unfused block
+path (the configuration ``training_model`` gives), with the attention
+through the saved-probs kernel K6, and returns ``(out, aux0, aux1)`` for
+v4 and v5. Dropout, drop path and the aux heads' Dropout2d draw their masks
+from the ``generator`` passed in (JAX's ``fold_in`` streams cannot be
+reproduced). The aux heads' BatchNorm normalizes with the batch statistics
+and updates its running buffers in place, with flax's numerics. Parameters
+stay float32 and every op casts them to the compute dtype, as flax's
 ``dtype=bfloat16`` layers do.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from deepmerge_tpu_torch.config import Config, ModelConfig
+from deepmerge_tpu_torch.config import KNOWN_VARIANTS, Config, ModelConfig
+from deepmerge_tpu_torch.ops.dropout import drop_path, dropout
 from deepmerge_tpu_torch.ops.kernels.fused_attention import (
+    attention_bnhd_ref,
+    fused_attention_qkv,
     fused_attention_train,
+    split_qkv,
 )
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     LN_EPS,
@@ -54,6 +78,9 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
 )
 
 STATIC = "w8a8-static"
+# flax nn.BatchNorm's defaults: running = 0.99·running + 0.01·batch
+BN_MOMENTUM = 0.99
+BN_EPS = 1e-5
 
 
 def rel_pos_index(cube: Sequence[int]) -> np.ndarray:
@@ -69,18 +96,52 @@ def rel_pos_index(cube: Sequence[int]) -> np.ndarray:
     return (rel * strides).sum(-1).astype(np.int32)
 
 
+def rel_pos_index_extra_token(cube: Sequence[int]) -> tuple[np.ndarray, int]:
+    """v5's index, one extra (designed-feature) token appended to the cube,
+    as the reference builds it: a fresh row of the table for every
+    (token → extra) entry, then one for every (extra → token) entry, and
+    ``index[-1, -1] = index[0, 0]``. Returns the (N+1, N+1) int32 index and
+    the table size (2c-1)(2h-1)(2w-1) + 2N."""
+    c, h, w = cube
+    n = c * h * w
+    base = rel_pos_index(cube).astype(np.int64)
+    idx = np.concatenate(
+        [base, base.max() + 1 + np.arange(n).reshape(n, 1)], axis=1)
+    idx = np.concatenate(
+        [idx, idx.max() + 1 + np.arange(n + 1).reshape(1, n + 1)], axis=0)
+    idx[-1, -1] = idx[0, 0]
+    table = (2 * c - 1) * (2 * h - 1) * (2 * w - 1) + 2 * n
+    return idx.astype(np.int32), int(table)
+
+
+def bias_index(cube: Sequence[int], extra_token: bool = False
+               ) -> tuple[np.ndarray, int]:
+    """The attention bias's index over a cube and its table size."""
+    if extra_token:
+        return rel_pos_index_extra_token(cube)
+    c, h, w = cube
+    return rel_pos_index(cube), (2 * c - 1) * (2 * h - 1) * (2 * w - 1)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for configurations the port cannot run
-    on any device yet (each names the ROADMAP.md item that adds it)."""
-    if cfg.variant != "v3":
+    """Raise for configurations the port cannot build: ``NotImplementedError``
+    for what it has not ported yet (each names its ROADMAP.md item),
+    ``ValueError`` for what the JAX package's ``build_model`` refuses."""
+    if cfg.variant == "vit":
         raise NotImplementedError(
-            f"variant {cfg.variant!r}: the port runs v3 only so far "
-            "(ROADMAP.md queue A: other backbones, with K7)"
+            "variant 'vit' (the ScaleEmbedTransformer) is not ported yet "
+            "(ROADMAP.md queue A: vit, with compat/vit_import.py)"
         )
+    if cfg.variant not in KNOWN_VARIANTS:
+        raise ValueError(f"unknown model.variant {cfg.variant!r} (known: "
+                         f"{sorted(KNOWN_VARIANTS)})")
+    if cfg.variant == "v1" and cfg.n_scales != 4:
+        raise ValueError(f"v1 uses 4 fixed scales, got "
+                         f"{cfg.input_image_scales}")
     if cfg.quantize.endswith("+attn"):
         raise NotImplementedError(
-            f"quantize={cfg.quantize!r}: the int8 attention core is the next "
-            "kernel of the port (ROADMAP.md queue B, K4a)"
+            f"quantize={cfg.quantize!r}: the int8 attention core is not "
+            "ported yet (ROADMAP.md queue B, K4a)"
         )
     if cfg.chain_stage0:
         raise NotImplementedError(
@@ -109,22 +170,13 @@ def training_model(cfg: Config) -> ModelConfig:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet:
-    the block kernel's training path (K5), and dropout, drop path or an
-    attention off the fused path, which the JAX package runs through the
-    attention-only kernel or XLA (K7)."""
+    """Raise ``NotImplementedError`` for a model the port cannot train: one
+    on the block kernels, whose training path (K5) is not ported yet."""
     check_supported(cfg)
     if cfg.fused_block or cfg.quantize or cfg.fused_stage_chain:
         raise NotImplementedError(
             "training runs the unfused blocks (use training_model); the "
             "saved-activation block kernel is ROADMAP.md queue B, K5"
-        )
-    rates = (cfg.drop_ratio, cfg.attn_drop_ratio, cfg.drop_path_ratio)
-    if any(rates) or not cfg.fused_attention:
-        raise NotImplementedError(
-            f"training with dropout/drop-path rates {rates} or "
-            f"fused_attention={cfg.fused_attention}: that attention path is "
-            "ROADMAP.md queue B, K7 (the port trains through K6 only)"
         )
 
 
@@ -181,27 +233,30 @@ class FeatureEmbed(nn.Module):
 
 class Attention(nn.Module):
     """Parameters of the cross-scale attention: qkv/proj projections and the
-    3-D relative-position bias table with its index buffer."""
+    3-D relative-position bias table with its index buffer (v5's with the
+    extra token)."""
 
-    def __init__(self, dim: int, num_heads: int, cube: tuple[int, int, int]):
+    def __init__(self, dim: int, num_heads: int, cube: tuple[int, int, int],
+                 extra_token: bool = False):
         super().__init__()
-        c, h, w = cube
+        idx, table = bias_index(cube, extra_token)
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
-            torch.zeros(((2 * c - 1) * (2 * h - 1) * (2 * w - 1), num_heads))
-        )
-        self.register_buffer(
-            "relative_position_index",
-            torch.from_numpy(rel_pos_index(cube).astype(np.int64)),
-        )
+            torch.zeros((table, num_heads)))
+        self.register_buffer("relative_position_index",
+                             torch.from_numpy(idx.astype(np.int64)))
 
     def bias(self) -> torch.Tensor:
-        """(H, N, N) attention bias gathered from the table."""
+        """(H, N, N) attention bias gathered from the table. ``index_select``
+        and not ``table[idx]``: its gradient (``index_add_``) sums the
+        repeated indices in a fixed order on the CPU, where advanced
+        indexing's accumulates in parallel and varies in the last bit."""
         n = self.relative_position_index.shape[0]
         idx = self.relative_position_index.reshape(-1)
-        return self.relative_position_bias_table[idx].reshape(
+        return torch.index_select(self.relative_position_bias_table, 0,
+                                  idx).reshape(
             n, n, self.num_heads
         ).permute(2, 0, 1)
 
@@ -214,25 +269,30 @@ class Mlp(nn.Module):
 
 
 class CrossScaleBlock(nn.Module):
-    """Pre-LN attention + MLP block. Its parameters feed the block kernels
-    as the 13-tuple of ``fused_params`` (the w8a8 ones as
-    ``quant_params``); ``forward`` is the single-block dispatch point (K2,
-    or K4 when quantized, on CUDA)."""
+    """Pre-LN attention + MLP block. On the block kernels its parameters
+    travel as the 13-tuple of ``fused_params`` (the w8a8 ones as
+    ``quant_params``) and ``forward`` is the single-block dispatch point
+    (K2, or K4 when quantized, on CUDA); off them ``forward`` runs
+    ``unfused``."""
 
-    def __init__(self, cfg: ModelConfig, cube: tuple[int, int, int]):
+    def __init__(self, cfg: ModelConfig, cube: tuple[int, int, int],
+                 extra_token: bool = False, drop_path: float = 0.0):
         super().__init__()
         dim = cfg.embed_dim
         self.num_heads = cfg.num_heads
         self.exact_gelu = cfg.exact_gelu
+        self.fused_attention = cfg.fused_attention
+        self.drop, self.attn_drop = cfg.drop_ratio, cfg.attn_drop_ratio
+        self.drop_path = drop_path
         self.kernel_eligible = (
             cfg.fused_block and cfg.fused_attention and not cfg.exact_gelu
-            and cfg.drop_ratio == 0.0 and cfg.attn_drop_ratio == 0.0
-            and cfg.drop_path_ratio == 0.0
+            and self.drop == 0.0 and self.attn_drop == 0.0
+            and drop_path == 0.0
         )
         # as in the JAX package, quantization rides the block kernels only
         self.quantize = cfg.quantize if self.kernel_eligible else ""
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, cfg.num_heads, cube)
+        self.attn = Attention(dim, cfg.num_heads, cube, extra_token)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio))
         if self.quantize == STATIC:
@@ -260,23 +320,14 @@ class CrossScaleBlock(nn.Module):
         amax = self.act_amax if self.quantize == STATIC else None
         return quantize_block_params(self.fused_params(dtype), amax)
 
-    def check_device(self, x: torch.Tensor) -> None:
-        if x.device.type == "cuda" and not self.kernel_eligible:
-            raise NotImplementedError(
-                "on CUDA the blocks run only through the fused block kernels "
-                "(fused_block and fused_attention on, tanh GELU, no "
-                "dropout); the attention-only kernel path is ROADMAP.md "
-                "queue B, K7"
-            )
-
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
-                calibrate: bool = False, train: bool = False) -> torch.Tensor:
+                calibrate: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One block. ``calibrate`` (``w8a8-static``) runs the plain
         calibration forward instead and folds its abs-maxes into
         ``act_amax``; ``train`` runs the training forward."""
-        if train:
-            return self.train_forward(x, dtype)
-        self.check_device(x)
+        if train or not self.kernel_eligible:
+            return self.unfused(x, dtype, train, generator)
         x = x.to(dtype)
         heads, exact = self.num_heads, self.exact_gelu
         if not self.quantize:
@@ -290,82 +341,212 @@ class CrossScaleBlock(nn.Module):
         return fused_block_q8(x, self.quant_params(dtype), heads=heads,
                               exact_gelu=exact)
 
-    def train_forward(self, x: torch.Tensor,
-                      dtype: torch.dtype) -> torch.Tensor:
-        """The JAX package's unfused block in training
-        (``CrossScaleBlock.__call__`` with ``deterministic=False``): every
-        dense in ``dtype`` from the float32 parameters, the attention
-        through ``fused_attention_train`` (K6 on CUDA)."""
+    def unfused(self, x: torch.Tensor, dtype: torch.dtype,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The JAX package's block off the block kernel
+        (``CrossScaleBlock.__call__``): flax-numerics LayerNorm, every dense
+        in ``dtype`` from the parameters, the attention through K7 (K6 in
+        training; with ``fused_attention`` off or attention dropout in
+        training, K8's plain version ``attention_bnhd_ref``, the JAX
+        package's ``CrossScaleAttention`` off its kernels), the projection,
+        LayerNorm, the GELU MLP and the residuals, with dropout and drop
+        path in training."""
+        g = generator
+        drop = (lambda t: dropout(t, self.drop, g)) if train else (lambda t: t)
+        dpath = ((lambda t: drop_path(t, self.drop_path, g)) if train
+                 else (lambda t: t))
         x = x.to(dtype)
-        y = _flax_layer_norm(x, self.norm1)
-        qkv = _dense(y, self.attn.qkv)
-        a = fused_attention_train(qkv, self.attn.bias(), self.num_heads)
-        x = x + _dense(a, self.attn.proj)
-        y = _flax_layer_norm(x, self.norm2)
-        y = gelu(_dense(y, self.mlp.fc1), exact=self.exact_gelu)
-        return x + _dense(y, self.mlp.fc2)
+        qkv = _dense(_flax_layer_norm(x, self.norm1), self.attn.qkv)
+        bias, heads = self.attn.bias(), self.num_heads
+        if not self.fused_attention or (train and self.attn_drop):
+            a = attention_bnhd_ref(*split_qkv(qkv, heads), bias,
+                                   self.attn_drop if train else 0.0, g)
+            a = a.reshape(qkv.shape[0], qkv.shape[1], -1)
+        elif train:
+            a = fused_attention_train(qkv, bias, heads)
+        else:
+            a = fused_attention_qkv(qkv, bias, heads)
+        x = x + dpath(drop(_dense(a, self.attn.proj)))
+        y = gelu(_dense(_flax_layer_norm(x, self.norm2), self.mlp.fc1),
+                 exact=self.exact_gelu)
+        return x + dpath(drop(_dense(drop(y), self.mlp.fc2)))
+
+
+class AuxBlock(nn.Module):
+    """Deep-supervision head of v4 and v5 (the JAX package's ``AuxBlock``),
+    training only. Per scale: the token grid → 2×2 VALID convolution (no
+    bias) → BatchNorm → ReLU → Dropout2d → 1×1 convolution to dim/n_scales
+    → mean over the grid; the scales concatenated (v5: with the extra
+    token), LayerNorm (v4 only: v5 constructs it and never calls it), the
+    output projection. One convolution, BatchNorm and dropout serve every
+    scale; the BatchNorm's running statistics move once per scale.
+    ``aux`` is the reference's ``nn.Sequential``, kept for its names
+    (``aux.0``, ``aux.1``, ``aux.4``); ``forward`` computes explicitly."""
+
+    def __init__(self, dim: int, out_dim: int, cube: tuple[int, int, int],
+                 extra_token: bool = False, drop: float = 0.3):
+        super().__init__()
+        c = cube[0]
+        self.cube = cube
+        self.extra_token = extra_token
+        self.aux = nn.Sequential(
+            nn.Conv2d(dim, dim, 2, bias=False),
+            nn.BatchNorm2d(dim),
+            nn.ReLU(), nn.Dropout2d(drop), nn.Conv2d(dim, dim // c, 1))
+        width = c * (dim // c)
+        self.norm = nn.LayerNorm(2 * dim if extra_token else width,
+                                 eps=LN_EPS)
+        self.out_features = nn.Linear(width + (dim if extra_token else 0),
+                                      out_dim)
+
+    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """flax ``nn.BatchNorm`` in training on NHWC: float32 batch
+        statistics over (B, H, W) with the biased fast variance E[x²] −
+        E[x]² (clipped at 0), the running buffers moved to momentum·running
+        + (1 − momentum)·batch in place, the result in x's dtype."""
+        bn = self.aux[1]
+        xf = x.to(torch.float32)
+        mu = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mu * mu, min=0.0)
+        with torch.no_grad():
+            for buf, stat in ((bn.running_mean, mu), (bn.running_var, var)):
+                buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
+        mul = torch.rsqrt(var + BN_EPS) * bn.weight.to(torch.float32)
+        return ((xf - mu) * mul + bn.bias.to(torch.float32)).to(x.dtype)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        c, h, w = self.cube
+        conv1, _, _, drop, conv2 = self.aux
+        b, d = x.shape[0], x.shape[-1]
+        # the 2×2 VALID convolution as one product over the four shifted
+        # grids, (row, col, channel) ordered as the kernel flattens
+        k1 = conv1.weight.permute(0, 2, 3, 1).reshape(d, 4 * d).to(x.dtype)
+        parts = []
+        for i in range(c):
+            xi = x[:, h * w * i : h * w * (i + 1)].reshape(b, h, w, d)
+            xi = torch.cat([xi[:, r : r + h - 1, s : s + w - 1]
+                            for r in (0, 1) for s in (0, 1)], dim=-1)
+            xi = torch.relu(self._batch_norm(torch.matmul(xi, k1.t())))
+            xi = dropout(xi, drop.p, generator, shape=(b, 1, 1, d))
+            parts.append(_dense(xi, conv2).mean(dim=(1, 2)))
+        y = torch.cat(parts, dim=-1)
+        if self.extra_token:
+            y = torch.cat([y, x[:, h * w * c :].reshape(b, -1)], dim=-1)
+        else:
+            y = _flax_layer_norm(y, self.norm)
+        return _dense(y, self.out_features)
 
 
 def _pool2x2_per_scale(x: torch.Tensor, n_scales: int, grid: int):
-    """Per-scale 2×2 average pooling of the token cube:
-    (B, n·g², D) → (B, n·(g/2)², D)."""
+    """Per-scale 2×2 average pooling of the token cube,
+    (B, n·g² [+1], D) → (B, n·(g/2)² [+1], D); a trailing extra token (v5)
+    passes through."""
     b, _, d = x.shape
     g = grid
-    x = x.reshape(b, n_scales, g // 2, 2, g // 2, 2, d).mean(dim=(3, 5))
-    return x.reshape(b, n_scales * (g // 2) ** 2, d)
+    cube = x[:, : n_scales * g * g].reshape(
+        b, n_scales, g // 2, 2, g // 2, 2, d).mean(dim=(3, 5))
+    return torch.cat([cube.reshape(b, n_scales * (g // 2) ** 2, d),
+                      x[:, n_scales * g * g :]], dim=1)
+
+
+def _mean_pool_scales(x: torch.Tensor, n_scales: int, tokens: int):
+    """Mean of each scale's ``tokens`` tokens: (B, ·, D) → (B, n·D)."""
+    b, _, d = x.shape
+    core = x[:, : n_scales * tokens].reshape(b, n_scales, tokens, d)
+    return core.mean(dim=2).reshape(b, n_scales * d)
 
 
 class S2Former(nn.Module):
-    """S2Former v3: ``forward(patches, designed)`` → (B, out_dim)."""
+    """The S2Former family: ``forward(patches, designed)`` → (B, out_dim);
+    in training v4 and v5 return ``(out, aux0, aux1)``."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        n, g, dim = cfg.n_scales, cfg.cube, cfg.embed_dim
+        v, n, g, dim = cfg.variant, cfg.n_scales, cfg.cube, cfg.embed_dim
         self.dtype = getattr(torch, cfg.dtype)
-        self.patch_embed_blocks = nn.ModuleList(
-            PatchEmbed(cfg.in_channels, s // g, dim)
-            for s in cfg.input_image_scales
-        )
-        if cfg.use_designed_features:
-            self.feature_embed = FeatureEmbed(cfg.designed_feature_dim, dim)
-        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
-        self.blocks0 = nn.ModuleList(
-            CrossScaleBlock(cfg, (n, g, g)) for _ in range(cfg.depth[0]))
-        self.blocks1 = nn.ModuleList(
-            CrossScaleBlock(cfg, (n, g // 2, g // 2))
-            for _ in range(cfg.depth[1]))
-        self.blocks2 = nn.ModuleList(
-            CrossScaleBlock(cfg, (n, g // 4, g // 4))
-            for _ in range(cfg.depth[2]))
-        # the reference constructs both output projections and a class head
-        # whatever the configuration (unused ones export as zeros); the
-        # unused projection is 100-wide, as the reference constructs it
-        designed = cfg.use_designed_features
-        self.final_features = nn.Linear(
-            n * dim, 100 if designed else cfg.out_dim)
-        self.final_features_with_design = nn.Linear(
-            (n + 1) * dim, cfg.out_dim if designed else 100)
-        if cfg.num_classes > 0:
-            self.head = nn.Linear(cfg.out_dim, cfg.num_classes)
         self.calibrating = False
         self.act_amax_calibrated = False
+        if v != "v6":
+            embeds = [PatchEmbed(cfg.in_channels, s // g, dim)
+                      for s in cfg.input_image_scales]
+            if v == "v1":
+                for i, pe in enumerate(embeds):
+                    self.add_module(f"patch_embed_scale{i}", pe)
+            else:
+                self.patch_embed_blocks = nn.ModuleList(embeds)
+        if cfg.use_designed_features or v in ("v5", "v6"):
+            self.feature_embed = FeatureEmbed(cfg.designed_feature_dim, dim)
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        if v == "v6":
+            self.final_features_with_design = nn.Linear(dim, cfg.out_dim)
+            self._add_head()
+            return
+        extra = v == "v5"
 
-    def _stage(self, blocks: nn.ModuleList, x: torch.Tensor,
-               chain: bool, train: bool = False) -> torch.Tensor:
+        def stage(depth, grid, drop_paths=None):
+            return nn.ModuleList(
+                CrossScaleBlock(cfg, (n, grid, grid), extra,
+                                float(drop_paths[i]) if drop_paths is not None
+                                else 0.0)
+                for i in range(depth))
+
+        if v in ("v1", "v2"):
+            dpr = (np.linspace(0, cfg.drop_path_ratio, cfg.depth[0])
+                   if v == "v1" else None)
+            self.blocks = stage(cfg.depth[0], g, dpr)
+        else:
+            self.blocks0 = stage(cfg.depth[0], g)
+            self.blocks1 = stage(cfg.depth[1], g // 2)
+            self.blocks2 = stage(cfg.depth[2], g // 4)
+        # the reference constructs both output projections whatever the
+        # configuration (the one never called is 100-wide and exports as
+        # zeros)
+        designed = cfg.use_designed_features
+        self.final_features = nn.Linear(
+            n * dim, 100 if designed or extra else cfg.out_dim)
+        if extra:
+            self.last_block_features = nn.Linear((n + 1) * dim, dim)
+            self.final_features_with_design = nn.Linear(2 * dim, cfg.out_dim)
+        else:
+            self.final_features_with_design = nn.Linear(
+                (n + 1) * dim, cfg.out_dim if designed else 100)
+        self._add_head()
+        if v in ("v4", "v5"):
+            self.aux0 = AuxBlock(dim, cfg.out_dim, (n, g, g), extra)
+            self.aux1 = AuxBlock(dim, cfg.out_dim, (n, g // 2, g // 2), extra)
+
+    def _add_head(self) -> None:
+        if self.cfg.num_classes > 0:  # the reference's class head, unused
+            self.head = nn.Linear(self.cfg.out_dim, self.cfg.num_classes)
+
+    def _patch_embeds(self) -> list:
+        if self.cfg.variant == "v1":
+            return [getattr(self, f"patch_embed_scale{i}")
+                    for i in range(self.cfg.n_scales)]
+        return list(self.patch_embed_blocks)
+
+    def _designed(self, designed: torch.Tensor) -> torch.Tensor:
+        """The designed-feature token: FeatureEmbed, then the shared
+        LayerNorm."""
+        return _flax_layer_norm(self.feature_embed(designed.to(self.dtype)),
+                                self.norm)
+
+    def _stage(self, blocks: nn.ModuleList, x: torch.Tensor, chain: bool,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """A stage as one chain launch when ``chain`` is on and it has more
-        than one block, else block by block (always while calibrating, so
-        that each block records its own abs-maxes, and in training)."""
+        than one block on the block kernels, else block by block (always
+        while calibrating, so that each block records its own abs-maxes,
+        and in training)."""
         if not len(blocks):
             return x
         x = x.to(self.dtype)
-        if train:
-            for blk in blocks:
-                x = blk(x, self.dtype, train=True)
-            return x
-        if chain and len(blocks) > 1 and not self.calibrating:
-            blocks[0].check_device(x)
+        if (chain and len(blocks) > 1 and blocks[0].kernel_eligible
+                and not train and not self.calibrating):
             kw = dict(heads=self.cfg.num_heads,
                       exact_gelu=self.cfg.exact_gelu)
             if blocks[0].quantize:
@@ -374,12 +555,13 @@ class S2Former(nn.Module):
             return fused_block_chain(
                 x, [blk.fused_params(self.dtype) for blk in blocks], **kw)
         for blk in blocks:
-            x = blk(x, self.dtype, calibrate=self.calibrating)
+            x = blk(x, self.dtype, calibrate=self.calibrating, train=train,
+                    generator=generator)
         return x
 
     def _static_blocks(self):
-        return [b for b in (*self.blocks0, *self.blocks1, *self.blocks2)
-                if b.quantize == STATIC]
+        return [b for b in self.modules()
+                if isinstance(b, CrossScaleBlock) and b.quantize == STATIC]
 
     @torch.inference_mode()
     def calibrate(self, patches, designed=None) -> None:
@@ -405,10 +587,11 @@ class S2Former(nn.Module):
             blk.act_amax.copy_(torch.as_tensor(amax[f"{n}.act_amax"]))
         self.act_amax_calibrated = True
 
-    def forward(self, patches, designed=None,
-                train: bool = False) -> torch.Tensor:
-        """Embeddings (B, out_dim). ``train`` is the JAX package's ``train``
-        argument: the training forward, whose blocks run through K6."""
+    def forward(self, patches, designed=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Embeddings (B, out_dim); with ``train`` (the JAX package's
+        ``train`` argument) the training forward, its masks drawn from
+        ``generator``, returning ``(out, aux0, aux1)`` for v4 and v5."""
         cfg = self.cfg
         if train:
             check_trainable(cfg)
@@ -420,25 +603,48 @@ class S2Former(nn.Module):
                 "calibrates on the first chunk), call calibrate(), or load "
                 "them with set_act_amax()"
             )
-        n, g = cfg.n_scales, cfg.cube
-        x = torch.cat(
-            [pe(p.to(self.dtype))
-             for pe, p in zip(self.patch_embed_blocks, patches)], dim=1
-        )
+        v, n, g = cfg.variant, cfg.n_scales, cfg.cube
+        if v == "v6":
+            return _dense(self._designed(designed),
+                          self.final_features_with_design)
+        x = torch.cat([pe(p.to(self.dtype))
+                       for pe, p in zip(self._patch_embeds(), patches)], dim=1)
+        if train:
+            x = dropout(x, cfg.drop_ratio, generator)
+        stage = lambda blocks, x, chain: self._stage(blocks, x, chain, train,
+                                                     generator)
+        if v in ("v1", "v2"):
+            x = _flax_layer_norm(stage(self.blocks, x, False), self.norm)
+            pooled = _mean_pool_scales(x, n, g * g)
+            if cfg.use_designed_features:
+                return _dense(torch.cat([pooled, self._designed(designed)],
+                                        dim=-1),
+                              self.final_features_with_design)
+            return _dense(pooled, self.final_features)
+
+        if v == "v5":
+            d = self._designed(designed)
+            x = torch.cat([x, d[:, None, :]], dim=1)
+        aux = v in ("v4", "v5") and train
         chain = cfg.fused_stage_chain
         # stage 0 runs block by block (chain_stage0 is not supported)
-        x = self._stage(self.blocks0, x, False, train)
+        x = stage(self.blocks0, x, False)
+        aux0 = self.aux0(x, generator) if aux else None
         x = _flax_layer_norm(_pool2x2_per_scale(x, n, g), self.norm)
-        x = self._stage(self.blocks1, x, chain, train)
+        x = stage(self.blocks1, x, chain)
+        aux1 = self.aux1(x, generator) if aux else None
         x = _flax_layer_norm(_pool2x2_per_scale(x, n, g // 2), self.norm)
-        x = self._stage(self.blocks2, x, chain, train)
-        x = _flax_layer_norm(x, self.norm)
-        b, _, d = x.shape
+        x = _flax_layer_norm(stage(self.blocks2, x, chain), self.norm)
         g2 = (g // 4) ** 2
-        pooled = x[:, : n * g2].reshape(b, n, g2, d).mean(dim=2).reshape(b, n * d)
-        if cfg.use_designed_features:
-            t = _flax_layer_norm(
-                self.feature_embed(designed.to(self.dtype)), self.norm)
-            return _dense(torch.cat([pooled, t], dim=-1),
-                          self.final_features_with_design)
-        return _dense(pooled, self.final_features)
+        pooled = _mean_pool_scales(x, n, g2)
+        if v == "v5":
+            feats = _dense(torch.cat([pooled, x[:, n * g2 :].mean(dim=1)],
+                                     dim=-1), self.last_block_features)
+            out = _dense(torch.cat([feats, d], dim=-1),
+                         self.final_features_with_design)
+        elif cfg.use_designed_features:
+            out = _dense(torch.cat([pooled, self._designed(designed)], dim=-1),
+                         self.final_features_with_design)
+        else:
+            out = _dense(pooled, self.final_features)
+        return (out, aux0, aux1) if aux else out

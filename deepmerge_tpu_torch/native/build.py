@@ -3,7 +3,9 @@
 ``ensure_built()`` compiles each .cpp into the package directory once and
 caches the result (``*.so`` is gitignored); consumers fall back to pure
 Python when the toolchain is missing. No pybind11 in the image — the
-extensions use the raw C API.
+extensions use the raw C API. Several processes may build at once (the
+test workers of a fresh checkout): each compiles to a file of its own and
+renames it into place, so no process ever sees a partly written library.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sysconfig
+import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -35,14 +38,20 @@ def ensure_built(name: str) -> str | None:
         if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
             return out
         include = sysconfig.get_paths()["include"]
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
+        os.close(fd)
         cmd = [
             "g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-            f"-I{include}", src, "-o", out,
+            f"-I{include}", src, "-o", tmp,
         ]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        except Exception:
+            os.replace(tmp, out)
+        except (OSError, subprocess.SubprocessError):
             return None
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
         return out
 
 

@@ -3,10 +3,12 @@
 The payload is the reference's own ``torch.save`` dict ``{net, optimizer,
 epoch, time, scales, depth, name}``, every 5 epochs and every epoch ≥ 90
 (``Train_SMT.py:317-343``): ``net`` is the model's ``state_dict`` under the
-reference names, so the reference and ``deepmerge_tpu.compat.torch_import``
+reference names (for v4 and v5 with the aux heads' BatchNorm running
+statistics), so the reference and ``deepmerge_tpu.compat.torch_import``
 load it as they load a reference ``.pth``; ``optimizer`` is Adam's
 ``state_dict``. Resume restores the parameters, the Adam moments and the
-step count and continues from ``epoch + 1`` (``:163-175``).
+step count (and so the dropout masks, which follow it) and the BatchNorm
+statistics, and continues from ``epoch + 1`` (``:163-175``).
 
 Each checkpoint is a directory ``{model.name}_epoch{NNNN}`` under the
 checkpoint directory, as the JAX package names them, holding

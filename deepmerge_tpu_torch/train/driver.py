@@ -5,7 +5,8 @@ A device-resident scene, fresh per-epoch sampling seeds instead of dataset
 rebuilds, checkpoints at the reference cadence, loss-history logging. One
 scene trains through the scanned epoch (``make_scanned_epoch``: patches
 extracted in every step with K1, the blocks' attention through K6); a list
-of scenes through host-materialized batches. The sharded trainer
+of scenes through host-materialized batches. Any variant trains (v4 and v5
+with their aux losses at ``train.aux_weights``). The sharded trainer
 (``use_mesh``) is the port's scale-out item.
 """
 

@@ -10,7 +10,14 @@
   ``piecewise_constant_schedule`` values in float32.
 * The model is ``training_model(cfg)``: every block unfused, its attention
   through the saved-probs kernel K6. Parameters stay float32; the forward
-  casts them to ``model.dtype`` op by op.
+  casts them to ``model.dtype`` op by op. v4 and v5 add their aux heads'
+  contrastive losses at ``train.aux_weights`` (``Train_SMT.py:285-288``),
+  and their BatchNorm running statistics move in every step's forward.
+* Dropout, drop path and the aux heads' Dropout2d draw from the state's
+  ``torch.Generator`` on the training device, reseeded before every step
+  from ``train.seed`` and the update count (the JAX package folds the step
+  into its key): the masks of a step are a function of (seed, step), also
+  after a resume, and drawing them needs no host synchronisation.
 * The JAX package's scanned epoch (``lax.scan`` over the steps) is a
   Python loop over the steps with no host synchronisation inside: the
   patches are extracted on the device in every step, the losses stay on
@@ -38,13 +45,20 @@ from deepmerge_tpu_torch.train.losses import contrastive_pair_loss
 
 @dataclass
 class TrainState:
-    """The model, its Adam optimizer, the number of updates taken, and the
-    learning-rate schedule over that count."""
+    """The model, its Adam optimizer, the number of updates taken, the
+    learning-rate schedule over that count, and the generator of the
+    dropout masks (reseeded every step from ``seed`` and the count)."""
 
     model: S2Former
     optimizer: torch.optim.Adam
     step: int
     lr: Callable[[int], float]
+    generator: torch.Generator
+    seed: int = 0
+
+    def step_generator(self) -> torch.Generator:
+        """The generator, reseeded for the step about to be taken."""
+        return self.generator.manual_seed(self.seed * 1_000_003 + self.step)
 
 
 def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -70,8 +84,8 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1,
                        state_dict: Optional[dict] = None,
                        device: torch.device | str = "cpu") -> TrainState:
     """The training model on ``device`` with ``state_dict`` (the
-    reference-named weights; default ``init_state_dict`` from
-    ``cfg.train.seed``), a fresh Adam, step 0."""
+    reference-named weights and, for v4 and v5, BatchNorm buffers; default
+    ``init_state_dict`` from ``cfg.train.seed``), a fresh Adam, step 0."""
     from deepmerge_tpu_torch.compat.weights import init_state_dict
 
     mcfg = training_model(cfg)
@@ -83,15 +97,25 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1,
     schedule = lr_schedule(cfg, steps_per_epoch)
     optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
                                  betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model=model, optimizer=optimizer, step=0, lr=schedule)
+    return TrainState(model=model, optimizer=optimizer, step=0, lr=schedule,
+                      generator=torch.Generator(device=torch.device(device)),
+                      seed=cfg.train.seed)
 
 
-def _siamese_loss(model: S2Former, patches, designed, flag, margin: float):
+def _siamese_loss(state: TrainState, cfg: Config, patches, designed, flag):
     """The training forward of the stacked [left; right] batch and the
-    contrastive loss of its halves."""
-    emb = model(patches, designed, train=True)
-    el, er = torch.chunk(emb, 2, dim=0)
-    return contrastive_pair_loss(el, er, flag, margin)
+    contrastive loss of its halves, plus ``train.aux_weights`` times the
+    aux heads' (v4, v5) losses where the weight is positive."""
+    margin = cfg.train.margin
+    out = state.model(patches, designed, train=True,
+                      generator=state.step_generator())
+    emb, *aux = out if isinstance(out, tuple) else (out,)
+    loss = contrastive_pair_loss(*torch.chunk(emb, 2, dim=0), flag, margin)
+    for a, w in zip(aux, cfg.train.aux_weights):
+        if w > 0.0:
+            loss = loss + w * contrastive_pair_loss(
+                *torch.chunk(a, 2, dim=0), flag, margin)
+    return loss
 
 
 def apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
@@ -116,7 +140,6 @@ def make_train_step(cfg: Config):
 
     ``train_step(state, batch) -> (state, {"loss": device scalar})``.
     """
-    margin = cfg.train.margin
 
     def train_step(state: TrainState, batch):
         patches = tuple(
@@ -125,8 +148,7 @@ def make_train_step(cfg: Config):
         )
         designed = torch.cat([batch["left_designed"],
                               batch["right_designed"]], dim=0)
-        loss = _siamese_loss(state.model, patches, designed, batch["flag"],
-                             margin)
+        loss = _siamese_loss(state, cfg, patches, designed, batch["flag"])
         return apply_gradients(state, loss), {"loss": loss.detach()}
 
     return train_step
@@ -137,19 +159,18 @@ def _extracting_loss(cfg: Config, device_scene):
     staged scene, inside the step (the fused step and the scanned epoch).
     The sampler checked every point against the scene, so the window gather
     runs without its bounds check's host sync."""
-    margin = cfg.train.margin
     patch_sizes = tuple(cfg.data.patch_sizes)
     quantize = cfg.data.quantize_uint8
 
-    def loss_fn(model, centers, scales, designed, flag):
+    def loss_fn(state, centers, scales, designed, flag):
         with torch.no_grad():
             patches = extract_multiscale_patches(
                 device_scene.padded, centers, scales,
                 patch_sizes=patch_sizes, caps=device_scene.caps,
                 quantize_uint8=quantize, out_channels=device_scene.channels,
-                out_dtype=model.dtype, trusted_origins=True,
+                out_dtype=state.model.dtype, trusted_origins=True,
             )
-        return _siamese_loss(model, patches, designed, flag, margin)
+        return _siamese_loss(state, cfg, patches, designed, flag)
 
     return loss_fn
 
@@ -162,7 +183,7 @@ def make_fused_train_step(cfg: Config, device_scene):
     loss_fn = _extracting_loss(cfg, device_scene)
 
     def train_step(state: TrainState, batch):
-        loss = loss_fn(state.model, batch["centers"], batch["scales"],
+        loss = loss_fn(state, batch["centers"], batch["scales"],
                        batch["designed"], batch["flag"])
         return apply_gradients(state, loss), {"loss": loss.detach()}
 
@@ -179,7 +200,7 @@ def make_scanned_epoch(cfg: Config, device_scene):
     def epoch_fn(state: TrainState, centers, scales, designed, flags):
         losses = []
         for c, s, d, f in zip(centers, scales, designed, flags):
-            loss = loss_fn(state.model, c, s, d, f)
+            loss = loss_fn(state, c, s, d, f)
             state = apply_gradients(state, loss)
             losses.append(loss.detach())
         return state, torch.stack(losses)

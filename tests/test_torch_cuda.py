@@ -19,7 +19,11 @@ exceeds. The saved-probs attention (K6): its output to 2e-2 of max|plain|
 absolute (a few bf16 ulps at 1), and the gradients of qkv and of the bias
 through the autograd function, on the kernel's forward against the plain
 one, to 2e-2 of their largest magnitude (the backward is the same code; a
-probability one bf16 ulp apart moves its products by that ulp).
+probability one bf16 ulp apart moves its products by that ulp). The
+inference attention kernels K7 and K8: their output to 2e-2 of
+max|plain|, as K6's, and K7's gradients through its autograd function
+(the float32 recompute backward, identical on both sides) on the kernel's
+forward against the plain one, the same.
 """
 
 import numpy as np
@@ -116,7 +120,7 @@ def _block_params(rs, n, c, heads, hidden, device):
     )
 
 
-@pytest.mark.parametrize("n", [12, 49, 192])
+@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256])
 def test_block_matches_plain(cuda, n):
     rs = np.random.default_rng(n)
     c, heads, hidden, b = 128, 2, 512, 5
@@ -176,7 +180,7 @@ def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512):
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-@pytest.mark.parametrize("n", [12, 49, 192])
+@pytest.mark.parametrize("n", [12, 49, 192, 193])
 def test_q8_block_matches_plain(cuda, n, static):
     rs = np.random.default_rng(n)
     x, (qp,), heads = _q8_inputs(rs, 5, n, 1, static, cuda)
@@ -245,7 +249,7 @@ def _attention_inputs(rs, b, n, heads, cuda):
     return qkv, bias
 
 
-@pytest.mark.parametrize("n", [12, 48, 192])
+@pytest.mark.parametrize("n", [12, 48, 192, 13, 193, 256])
 def test_attention_probs_matches_plain(cuda, n):
     rs = np.random.default_rng(n)
     qkv, bias = _attention_inputs(rs, 6, n, 3, cuda)
@@ -291,6 +295,67 @@ def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
         fa.attention_probs(qkv, bias, 4)  # head width 32
     with pytest.raises(ValueError, match="bias"):
         fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
-    q49, b49 = _attention_inputs(rs, 2, 49, 2, cuda)
-    with pytest.raises(ValueError, match="N in"):
-        fa.attention_probs(q49, b49, 2)
+    q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)
+    with pytest.raises(ValueError, match="tokens"):
+        fa.attention_probs(q257, b257, 2)
+
+
+@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256])
+def test_attention_qkv_matches_plain(cuda, n):
+    """K7 at v3's, v5's and v1's (256) sequence lengths."""
+    rs = np.random.default_rng(n + 1)
+    qkv, bias = _attention_inputs(rs, 5, n, 3, cuda)
+    before = fa.attention_qkv.launches
+    out = fa.attention_qkv(qkv, bias, 3)
+    torch.cuda.synchronize()
+    assert fa.attention_qkv.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (5, n, 192)
+    assert _rel_err(out, fa.attention_qkv_ref(qkv, bias, 3)) <= BLOCK_TOL
+
+
+@pytest.mark.parametrize("n", [12, 193, 256])
+def test_attention_bnhd_matches_plain(cuda, n):
+    rs = np.random.default_rng(n + 2)
+    qkv, bias = _attention_inputs(rs, 5, n, 3, cuda)
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, 3))
+    before = fa.attention_bnhd.launches
+    out = fa.attention_bnhd(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.attention_bnhd.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (5, n, 3, 64)
+    assert _rel_err(out, fa.attention_bnhd_ref(q, k, v, bias)) <= BLOCK_TOL
+
+
+def test_attention_qkv_backward_matches_plain(cuda, monkeypatch):
+    rs = np.random.default_rng(9)
+    qkv, bias = _attention_inputs(rs, 4, 49, 2, cuda)
+    g = torch.from_numpy(rs.standard_normal((4, 49, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+
+    def grads():
+        q = qkv.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        fa.fused_attention_qkv(q, b, 2).backward(g)
+        return q.grad, b.grad
+
+    got = grads()
+    monkeypatch.setattr(fa, "attention_qkv", fa.attention_qkv_ref)
+    want = grads()
+    torch.cuda.synchronize()
+    for gg, w in zip(got, want):
+        assert _rel_err(gg, w) <= BLOCK_TOL
+
+
+def test_attention_kernels_reject_what_they_do_not_take(cuda):
+    rs = np.random.default_rng(10)
+    qkv, bias = _attention_inputs(rs, 2, 12, 2, cuda)
+    with pytest.raises(TypeError):
+        fa.attention_qkv(qkv.float(), bias, 2)
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, 2))
+    with pytest.raises(TypeError):
+        fa.attention_bnhd(q, k, v.float(), bias)
+    with pytest.raises(ValueError, match="bias"):
+        fa.attention_bnhd(q, k, v, bias[:1])
+    q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)
+    with pytest.raises(ValueError, match="tokens"):
+        fa.attention_qkv(q257, b257, 2)

@@ -151,7 +151,7 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
 
 
 @pytest.mark.parametrize("change", [
-    dict(variant="v1", depth=(2,)),
+    dict(variant="vit"),
     dict(quantize="w8a8+attn"),
     dict(chain_stage0=True),
 ])

@@ -223,11 +223,16 @@ def test_training_model_rules():
                                                    fused_block=True))
         with pytest.raises(NotImplementedError, match="K5"):
             training_model(k5)
+    # dropout, drop path and the unfused attention train (off the block
+    # kernels, as the JAX package trains them); an unported variant raises
     for change in (dict(drop_ratio=0.1), dict(attn_drop_ratio=0.1),
                    dict(drop_path_ratio=0.1), dict(fused_attention=False)):
-        bad = cfg.replace(model=dataclasses.replace(cfg.model, **change))
-        with pytest.raises(NotImplementedError, match="K7"):
-            training_model(bad)
+        ok = cfg.replace(model=dataclasses.replace(cfg.model, **change))
+        assert training_model(ok) == dataclasses.replace(
+            ok.model, fused_block=False, fused_stage_chain=False)
+    bad = cfg.replace(model=dataclasses.replace(cfg.model, variant="vit"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        training_model(bad)
     # the inference model refuses a training forward: that is K5's path
     model = S2Former(cfg.model)
     patches = [torch.rand((2, s, s, 3)) for s in TINY["input_image_scales"]]
