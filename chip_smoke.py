@@ -13,7 +13,14 @@ kernel against its plain PyTorch version on the card:
   3. each kernel against its plain version, at the main path's shapes (and
      at batch 64 for the block kernels), with its time beside the plain
      version's; the w8a8 kernels (K4) with dynamic and with static scales,
-     also at the serving walk's batch of 2048;
+     also at the serving walk's batch of 2048; the int8 attention core of
+     ``w8a8+attn`` (K4a) in the w8a8 block and chain, dynamic and static, at
+     the slice's batch of 1024 and N = 192/48/12 and 193/49/13, each time
+     beside K4's at the same shape; the saved-activation training block
+     (K5) at the training batch of 240 and the same lengths, its output,
+     its four saved residuals and the gradients of x and of every
+     parameter through its autograd function; K2 and K3 beside one
+     ``torch.nn.TransformerEncoderLayer`` / ``TransformerEncoder``;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run, the median time of three runs, one profiled run (the device's busy
@@ -29,7 +36,10 @@ kernel against its plain PyTorch version on the card:
      sequence, N = 193/49/13), in w8a8 (K1 and K4, not K2, K3, K7 or K8)
      and at the reference's erf GELU in bf16 (K1 and K7, 12 launches a
      chunk, no block kernel, no K8), each timed, profiled and held to the
-     plain versions;
+     plain versions; and (5b) the v3 slice in ``w8a8+attn``: K1, then K4a in
+     12 block and 4 chain launches, no K2, K3 or K4 without it, timed,
+     profiled, held to the plain versions, its label disagreement with the
+     w8a8 slice printed;
   6. the serving walk: ``process_folder`` with ``quantize="w8a8"`` and
      label maps over four 2048² scenes of 8192 regions in the reference
      folder layout, each scene's ``simi``, merged map and stored embeddings
@@ -47,7 +57,11 @@ kernel against its plain PyTorch version on the card:
      kernels'. Then the same for v5 with its aux losses at weights
      (0.1, 0.2): K6 12 times a step at N = 193/49/13, the aux
      heads' BatchNorm statistics moved and restored exactly, the plain
-     versions' four steps drawing the same dropout masks.
+     versions' four steps drawing the same dropout masks. Then the flagship
+     again with ``train.fused_block=True``: K5 launched 12 times a step,
+     K6 not at all, timed and profiled beside the unfused run, its losses
+     held to the plain versions' and its step-0 loss to the unfused run's
+     on the same weights and batch.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -131,6 +145,20 @@ TOL_K6_GRAD = 2e-2
 # attention in float32 from the saved qkv and bias, so the check covers the
 # autograd path.
 TOL_K7 = 2e-2
+# K5 (the training block): its output and its residual r as a block's
+# (TOL_BLOCK, TOL_BLOCK_RMS), its probabilities as K6's, its saved qkv and
+# pre-GELU activation (bf16 roundings of the same sums) within 2e-2 of
+# max|plain|, and the gradients of x and of every parameter through the
+# autograd function, kernel forward against plain forward (the backward is
+# the same torch code on the residuals each forward saved), within 2e-2 of
+# their max, as K6's.
+TOL_K5_SAVED = 2e-2
+TOL_K5_GRAD = 2e-2
+# The training block against the unfused blocks: the same function with
+# other rounding points (the probabilities normalized before the value
+# product, the two-pass LayerNorm, the pre-GELU activation in float32), so
+# their step-0 losses on the same weights and batch differ by roundings.
+TOL_K5_VS_UNFUSED_LOSS0 = 1e-2
 # Training on the kernels against the plain versions, four steps from the
 # same weights and batches: the step-0 loss differs only by the bf16
 # roundings of K6's forward (K1 is exact), 1e-2 relative; later steps
@@ -211,12 +239,14 @@ def bound(nbytes, bf16_flops=0.0, int8_ops=0.0):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def block_work(b, n, depth, q8=False, c=768, heads=12, hidden=3072):
+def block_work(b, n, depth, q8=False, q8_attn=False, c=768, heads=12,
+               hidden=3072):
     """(bytes, bf16 FLOPs, int8 ops) of ``depth`` blocks run back to back
     on a (b, n, c) bf16 activation: the activation read and the output
     written once, each block's weights (int8 with f32 scales when ``q8``),
     biases, LayerNorm parameters and f32 attention bias read once; the four
-    GEMMs (int8 when ``q8``) and the attention's q·kᵀ and p·v in bf16."""
+    GEMMs (int8 when ``q8``) and the attention's q·kᵀ and p·v in bf16 (int8
+    with ``q8_attn``)."""
     m = b * n
     weights = 4 * c * c + 2 * c * hidden
     per_block = (weights * (1 if q8 else 2) + (4 * c + hidden) * 2
@@ -225,9 +255,49 @@ def block_work(b, n, depth, q8=False, c=768, heads=12, hidden=3072):
     nbytes = 2 * m * c * 2 + depth * per_block
     gemm = 2 * m * weights
     attn = 4 * b * n * n * c
+    if q8_attn:
+        return nbytes, 0.0, depth * (gemm + attn)
     if q8:
         return nbytes, depth * attn, depth * gemm
     return nbytes, depth * (gemm + attn), 0.0
+
+
+def train_block_work(b, n, c=768, heads=12, hidden=3072):
+    """K5's work: one block's (``block_work``) plus the residuals it
+    writes, bf16 qkv (b, n, 3c), probabilities (b, heads, n, n), pre-GELU
+    activation (b, n, hidden) and r (b, n, c)."""
+    nbytes, flops, _ = block_work(b, n, 1, c=c, heads=heads, hidden=hidden)
+    saved = 2 * b * n * (3 * c + heads * n + hidden + c)
+    return nbytes + saved, flops, 0.0
+
+
+def encoder_library_ms(x, depth, heads=12, hidden=3072):
+    """The time of one PyTorch call computing ``depth`` pre-LN blocks on x
+    (B, N, C) bf16 with an (H, N, N) attention bias: a
+    ``torch.nn.TransformerEncoderLayer`` (norm first, batch first, tanh
+    GELU, no dropout; a ``TransformerEncoder`` of ``depth`` of them) in
+    bf16 eval, the bias as a float (B·H, N, N) mask built before the timed
+    calls. The yardstick of K2 and K3 (the port never calls it); random
+    weights, since only its time is read."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, c = x.shape
+    layer = torch.nn.TransformerEncoderLayer(
+        c, heads, hidden, dropout=0.0,
+        activation=lambda t: F.gelu(t, approximate="tanh"),
+        batch_first=True, norm_first=True)
+    model = (layer if depth == 1 else torch.nn.TransformerEncoder(
+        layer, depth, enable_nested_tensor=False))
+    model = model.to(x.device, x.dtype).eval()
+    g = torch.Generator(device=x.device).manual_seed(0)
+    mask = (torch.randn((b * heads, n, n), generator=g, device=x.device)
+            * 0.5).to(x.dtype)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(x, mask))
+    del model, mask
+    torch.cuda.empty_cache()
+    return ms
 
 
 def add_work(*works):
@@ -337,12 +407,14 @@ def check_kernels(dev, ds, scene):
                                  TOL_BLOCK, TOL_BLOCK_RMS)
         ms = cuda_ms(lambda: fb.fused_block(x, plist[0], heads))
         plain_ms = cuda_ms(lambda: fb.block_ref(x, plist[0], heads), reps=2)
+        lib_ms = encoder_library_ms(x, 1)
         b2 = bound(*block_work(b, 192, 1))
         print(f"K2 fused_block B={b} N=192 C=768 H=12: {errs}; {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {b2['bound_ms']:.3f} ms "
+              f"plain {plain_ms:.3f} ms, TransformerEncoderLayer "
+              f"{lib_ms:.3f} ms, bound {b2['bound_ms']:.3f} ms "
               f"({b2['bound_by']})")
         k2.append(dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms,
-                       library_ms=None, **b2))
+                       library_ms=lib_ms, **b2))
         del x, plist, got, want
     results["fused_block"] = k2[-1]
 
@@ -358,10 +430,12 @@ def check_kernels(dev, ds, scene):
                 x, TOL_CHAIN, TOL_CHAIN_RMS)
             ms = cuda_ms(lambda: fb.fused_block_chain(x, plist, heads))
             plain_ms = cuda_ms(lambda: fb.chain_ref(x, plist, heads), reps=2)
+            lib_ms = encoder_library_ms(x, depth)
             print(f"K3 fused_block_chain B={b} N={n} depth {depth}: {errs}; "
-                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
+                  f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"TransformerEncoder {lib_ms:.3f} ms")
             per_stage[(b, n)] = dict(max_abs_err=aerr, ms=ms,
-                                     plain_ms=plain_ms)
+                                     plain_ms=plain_ms, library_ms=lib_ms)
     # the JSON line reports the main path's chunk: both stages summed
     s1, s2 = per_stage[(1024, 48)], per_stage[(1024, 12)]
     b3 = bound(*add_work(block_work(1024, 48, 4), block_work(1024, 12, 2)))
@@ -370,7 +444,7 @@ def check_kernels(dev, ds, scene):
     results["fused_block_chain"] = dict(
         max_abs_err=max(s1["max_abs_err"], s2["max_abs_err"]),
         ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"],
-        library_ms=None, **b3,
+        library_ms=s1["library_ms"] + s2["library_ms"], **b3,
     )
     return results
 
@@ -499,6 +573,139 @@ def check_k6(dev):
         del qkv, bias, g, out, probs, want_out, want_probs, got, want
         torch.cuda.empty_cache()
     return {"fused_attention_train": results[192]}
+
+
+def check_k4a(dev):
+    """Phase 3, ``w8a8+attn``: the w8a8 block (N = 192, 193) and chains
+    (N = 48/49 x 4, N = 12/13 x 2) with the int8 attention core (K4a),
+    dynamic and static scales (from ``block_act_amax`` along the plain
+    chain, as ``check_k4``), at the slice's chunk of 1024, against their
+    plain versions, each timed beside K4 (the bf16 attention core) on the
+    same input. Returns the JSON entries of the block (N 192) and the chain
+    (both stages summed), dynamic scales."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    b, results = 1024, {}
+    for n, depth in ((192, 1), (48, 4), (12, 2), (193, 1), (49, 4), (13, 2)):
+        x, plist, heads = block_inputs(b, n, depth, dev, seed=n + 11)
+        for static in (False, True):
+            qps, h = [], x
+            for p in plist:
+                amax = fb.block_act_amax(h, p, heads)[1] if static else None
+                qp = fb.quantize_block_params(p, amax)
+                h = fb.block_ref_q8(h, qp, heads, quant_attn=True).to(x.dtype)
+                qps.append(qp)
+            if depth == 1:
+                name, tol, tol_rms = ("fused_block_q8_attn", TOL_BLOCK,
+                                      TOL_BLOCK_RMS)
+                run = lambda: fb.fused_block_q8_attn(x, qps[0], heads)
+                k4 = lambda: fb.fused_block_q8(x, qps[0], heads)
+                plain = lambda: fb.block_ref_q8(x, qps[0], heads,
+                                                quant_attn=True)
+            else:
+                name, tol, tol_rms = ("fused_block_chain_q8_attn", TOL_CHAIN,
+                                      TOL_CHAIN_RMS)
+                run = lambda: fb.fused_block_chain_q8_attn(x, qps, heads)
+                k4 = lambda: fb.fused_block_chain_q8(x, qps, heads)
+                plain = lambda: fb.chain_ref_q8(x, qps, heads,
+                                                quant_attn=True)
+            mode = "static" if static else "dynamic"
+            aerr, errs = check_block(
+                f"{name} (B={b}, N={n}, depth {depth}, {mode})", run(),
+                plain(), x, tol, tol_rms)
+            ms, k4_ms = cuda_ms(run), cuda_ms(k4)
+            plain_ms = cuda_ms(plain, reps=2)
+            print(f"K4a {name} B={b} N={n} depth {depth} {mode}: {errs}; "
+                  f"{ms:.3f} ms (K4, bf16 attention: {k4_ms:.3f} ms), plain "
+                  f"{plain_ms:.3f} ms")
+            results[(n, mode)] = dict(max_abs_err=aerr, ms=ms,
+                                      plain_ms=plain_ms)
+            del qps, h
+        del x, plist
+        torch.cuda.empty_cache()
+    s1, s2 = results[(48, "dynamic")], results[(12, "dynamic")]
+    ba = bound(*block_work(b, 192, 1, q8=True, q8_attn=True))
+    bc = bound(*add_work(block_work(b, 48, 4, q8=True, q8_attn=True),
+                         block_work(b, 12, 2, q8=True, q8_attn=True)))
+    print(f"K4a at B={b}: block bound {ba['bound_ms']:.3f} ms "
+          f"({ba['bound_by']}), chain (both stages) bound "
+          f"{bc['bound_ms']:.3f} ms ({bc['bound_by']})")
+    return {
+        "fused_block_q8_attn": dict(results[(192, "dynamic")],
+                                    library_ms=None, **ba),
+        "fused_block_chain_q8_attn": dict(
+            max_abs_err=max(s1["max_abs_err"], s2["max_abs_err"]),
+            ms=s1["ms"] + s2["ms"], plain_ms=s1["plain_ms"] + s2["plain_ms"],
+            library_ms=None, **bc),
+    }
+
+
+def check_k5(dev):
+    """Phase 3, the training block (K5) at the training batch and the
+    lengths of v3 (192/48/12) and v5 (193/49/13): its output and its four
+    saved residuals against ``block_train_ref``, the gradients of x and of
+    every parameter through the autograd function on the kernel's forward
+    against the plain forward, its time beside the plain version's, and
+    the backward's (plain torch) time at N 192. Returns the JSON entry at
+    N 192."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    b, results = 2 * TRAIN_PAIRS, {}
+    for n in (192, 48, 12, 193, 49, 13):
+        x, plist, heads = block_inputs(b, n, 1, dev, seed=n + 21)
+        p = plist[0]
+        out, saved = fb.fused_block_train(x, p, heads)
+        want_out, want = fb.block_train_ref(x, p, heads)
+        aerr, errs = check_block(f"K5 out (N={n})", out, want_out, x,
+                                 TOL_BLOCK, TOL_BLOCK_RMS)
+        _, r_errs = check_block(f"K5 r (N={n})", saved[3], want[3], x,
+                                TOL_BLOCK, TOL_BLOCK_RMS)
+        probs_err = abs_err(saved[1], want[1])
+        qkv_err, gin_err = (rel_err(saved[i], want[i]) for i in (0, 2))
+        require(probs_err <= TOL_K6_PROBS, f"K5 probs (N={n}): {probs_err}")
+        require(max(qkv_err, gin_err) <= TOL_K5_SAVED,
+                f"K5 qkv {qkv_err}, gin {gin_err} (N={n}) > {TOL_K5_SAVED}")
+        rs = np.random.default_rng(n)
+        g = torch.from_numpy(rs.standard_normal(x.shape).astype(
+            np.float32)).to(dev, x.dtype)
+
+        def grads():
+            xs = x.clone().requires_grad_(True)
+            ps = [t.clone().requires_grad_(True) for t in p]
+            fb.fused_block(xs, ps, heads).backward(g)
+            return [xs.grad] + [t.grad for t in ps]
+
+        got_g = grads()
+        with mock.patch.object(fb, "fused_block_train", fb.block_train_ref):
+            want_g = grads()
+        g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+        require(g_err <= TOL_K5_GRAD, f"K5 gradients (N={n}): {g_err} > "
+                f"{TOL_K5_GRAD}")
+        ms = cuda_ms(lambda: fb.fused_block_train(x, p, heads))
+        plain_ms = cuda_ms(lambda: fb.block_train_ref(x, p, heads), reps=2)
+        bk = bound(*train_block_work(b, n))
+        line = (f"K5 fused_block_train B={b} N={n}: out {errs}; r {r_errs}; "
+                f"probs max |err| {probs_err:.3e} (tol {TOL_K6_PROBS}), qkv "
+                f"{qkv_err:.3e}, gin {gin_err:.3e} (tol {TOL_K5_SAVED}); "
+                f"gradients of x and the 13 parameters max rel err "
+                f"{g_err:.3e} (tol {TOL_K5_GRAD}); {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms "
+                f"({bk['bound_by']})")
+        if n == 192:
+            bwd_ms = cuda_ms(lambda: fb.block_train_bwd(x, p, saved, g,
+                                                        heads), reps=2)
+            line += f"; backward (plain torch) {bwd_ms:.3f} ms"
+        print(line)
+        results[n] = dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, **bk)
+        del x, plist, p, out, saved, want_out, want, g, got_g, want_g
+        torch.cuda.empty_cache()
+    return {"fused_block_train": results[192]}
 
 
 def attention_library_ms(q, k, v, bias):
@@ -709,6 +916,9 @@ def counters():
             "fused_block_chain": fb.fused_block_chain,
             "fused_block_q8": fb.fused_block_q8,
             "fused_block_chain_q8": fb.fused_block_chain_q8,
+            "fused_block_q8_attn": fb.fused_block_q8_attn,
+            "fused_block_chain_q8_attn": fb.fused_block_chain_q8_attn,
+            "fused_block_train": fb.fused_block_train,
             "fused_attention_train": fa.attention_probs,
             "attention_qkv": fa.attention_qkv,
             "attention_bnhd": fa.attention_bnhd}
@@ -743,13 +953,21 @@ def plain_versions():
     def gather_ref(*args, trusted_origins=False):
         return wg.gather_windows_ref(*args)
 
+    def block_plain(x, params, heads, exact_gelu=False):
+        # under autograd the block's training path, whose forward
+        # (fused_block_train) is patched below; else the inference block
+        if fb._needs_grad(x, [params]):
+            return fb.fused_block(x, params, heads, exact_gelu)
+        return fb.block_ref(x, params, heads, exact_gelu)
+
     stack = contextlib.ExitStack()
     for module, attr, ref in (
             (patches, "gather_windows", gather_ref),
             (fa, "attention_probs", fa.attention_probs_ref),
             (fa, "attention_qkv", fa.attention_qkv_ref),
             (fa, "attention_bnhd", fa.attention_bnhd_ref),
-            (s2former, "fused_block", fb.block_ref),
+            (fb, "fused_block_train", fb.block_train_ref),
+            (s2former, "fused_block", block_plain),
             (s2former, "fused_block_chain", fb.chain_ref),
             (s2former, "fused_block_q8", fb.block_ref_q8),
             (s2former, "fused_block_chain_q8", fb.chain_ref_q8)):
@@ -1004,10 +1222,13 @@ def serving_walk(model, dev, card):
     return launches
 
 
-def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0)):
+def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
+                   fused_block=False):
     """Phase 7 for ``mcfg``: ``train.driver.train`` (see the module
     docstring), the aux heads' BatchNorm statistics checked to move for v4
-    and v5. Returns the launch counts of the training run."""
+    and v5; with ``fused_block``, ``train.fused_block=True`` (every block
+    through K5, none through K6). Returns the launch counts of the training
+    run and ``(median ms a step, the kernels' four losses)``."""
     import tempfile
 
     import numpy as np
@@ -1024,15 +1245,20 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0)):
     from deepmerge_tpu_torch.train.driver import train
     from deepmerge_tpu_torch.train.sampler import FusedPairSampler
 
+    import warnings
+
     scene = generate_scene(**SCENE)
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    cfg = Config(
-        model=mcfg,  # bf16 compute, f32 parameters
-        data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
-        train=TrainConfig(num_epochs=TRAIN_EPOCHS, checkpoint_every=1,
-                          checkpoint_dir=os.path.join(root, "ck"),
-                          log_dir=os.path.join(root, "logs"),
-                          aux_weights=aux_weights))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # train.fused_block's experiment note
+        cfg = Config(
+            model=mcfg,  # bf16 compute, f32 parameters
+            data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
+            train=TrainConfig(num_epochs=TRAIN_EPOCHS, checkpoint_every=1,
+                              checkpoint_dir=os.path.join(root, "ck"),
+                              log_dir=os.path.join(root, "logs"),
+                              aux_weights=aux_weights,
+                              fused_block=fused_block))
     bn = [f"aux{i}.aux.1.running_{k}" for i in (0, 1) for k in ("mean", "var")
           if mcfg.variant in ("v4", "v5")]
     steps = TRAIN_EPOCHS * TRAIN_STEPS
@@ -1051,13 +1277,14 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0)):
               f"{wall:.1f} s (first steps, checkpoints and loss files "
               f"included); launches {launches}")
         require(state.step == steps, f"trained {state.step} of {steps} steps")
-        require(launches["fused_attention_train"] == blocks * steps,
-                f"K6 launched {launches['fused_attention_train']} times, "
-                f"want {blocks} a step")
-        require_launches(launches, ("window_gather", "fused_attention_train"),
-                         ("fused_block", "fused_block_chain", "fused_block_q8",
-                          "fused_block_chain_q8", "attention_qkv",
-                          "attention_bnhd"),
+        per_step = "fused_block_train" if fused_block else \
+            "fused_attention_train"
+        require(launches[per_step] == blocks * steps,
+                f"{per_step} launched {launches[per_step]} times, want "
+                f"{blocks} a step")
+        require_launches(launches, ("window_gather", per_step),
+                         [k for k in launches
+                          if k not in ("window_gather", per_step)],
                          "the training run")
         losses = np.asarray(history.train_losses)
         require(losses.shape == (TRAIN_EPOCHS,) and np.isfinite(losses).all(),
@@ -1155,7 +1382,7 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0)):
         import shutil
 
         shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return launches, (med * 1e3, got)
 
 
 def main() -> int:
@@ -1234,6 +1461,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernel_results = check_kernels(dev, ds, scene)
     kernel_results.update(check_k4(dev))
+    kernel_results.update(check_k4a(dev))
+    kernel_results.update(check_k5(dev))
     kernel_results.update(check_k6(dev))
     kernel_results.update(check_wide_tokens(dev))
 
@@ -1263,8 +1492,12 @@ def main() -> int:
 
     bf16_kernels = ("window_gather", "fused_block", "fused_block_chain")
     q8_kernels = ("window_gather", "fused_block_q8", "fused_block_chain_q8")
-    block_kernels = bf16_kernels[1:] + q8_kernels[1:]
-    attention = ("attention_qkv", "attention_bnhd")  # K7, K8
+    q8a_kernels = ("window_gather", "fused_block_q8_attn",
+                   "fused_block_chain_q8_attn")  # K4a
+    # K5 and K6 run in training only; K7, K8 on blocks off the kernels
+    attention = ("attention_qkv", "attention_bnhd", "fused_block_train",
+                 "fused_attention_train")
+    block_kernels = bf16_kernels[1:] + q8_kernels[1:] + q8a_kernels[1:]
 
     # 4. the bf16 slice
     ex_bf16 = extractor_for("")
@@ -1273,7 +1506,8 @@ def main() -> int:
     out, launches = counted(run_bf16)
     print(f"slice (bf16) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    require_launches(launches, bf16_kernels, q8_kernels[1:] + attention,
+    require_launches(launches, bf16_kernels,
+                     q8_kernels[1:] + q8a_kernels[1:] + attention,
                      "the bf16 slice")
     map_bf16, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                                 scene.labels.shape)
@@ -1293,7 +1527,8 @@ def main() -> int:
     out, launches = counted(run_q8)
     print(f"slice (w8a8) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    require_launches(launches, q8_kernels, bf16_kernels[1:] + attention,
+    require_launches(launches, q8_kernels,
+                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
                      "the w8a8 slice")
     map_q8, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                               scene.labels.shape)
@@ -1314,7 +1549,8 @@ def main() -> int:
     print(f"slice (w8a8-static) launches: {launches}, calibrated on the "
           f"first chunk ({time.perf_counter() - t:.3f} s with calibration)")
     require(not ex_static.needs_calibration, "w8a8-static did not calibrate")
-    require_launches(launches, q8_kernels, bf16_kernels[1:] + attention,
+    require_launches(launches, q8_kernels,
+                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
                      "the w8a8-static slice")
     path_runs.append(launches)
     _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
@@ -1325,17 +1561,47 @@ def main() -> int:
     del ex_static, run_static
     torch.cuda.empty_cache()
 
-    # 5b. v5 (the designed-feature token in the sequence: N = 193/49/13)
+    # 5b. w8a8+attn: the w8a8 blocks and chains with K4a's int8 attention
+    n_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
+    ex_q8a = extractor_for("w8a8+attn")
+    run_q8a = slice_runner(ex_q8a)
+    t = time.perf_counter()
+    out, launches = counted(run_q8a)
+    print(f"slice (w8a8+attn) launches: {launches} (first run "
+          f"{time.perf_counter() - t:.3f} s)")
+    require_launches(launches, q8a_kernels,
+                     bf16_kernels[1:] + q8_kernels[1:] + attention,
+                     "the w8a8+attn slice")
+    depth = ModelConfig().depth
+    want = {"fused_block_q8_attn": depth[0] * n_chunks,
+            "fused_block_chain_q8_attn": 2 * n_chunks}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"K4a launches {launches}, want {want}")
+    all_launches.update({k: launches[k] for k in q8a_kernels[1:]})
+    path_runs.append(launches)
+    _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                         scene.labels.shape)
+    map_q8a = out[3].cpu().numpy()
+    print(f"slice (w8a8+attn): {k} clusters after {n_rounds} rounds; label "
+          f"disagreement with the w8a8 slice "
+          f"{label_disagreement(map_q8, map_q8a):.5f} (random weights: "
+          "printed, not gated)")
+    time_slice(run_q8a, "w8a8+attn", card)
+    profile_slice(run_q8a, label="slice (w8a8+attn)")
+    against_plain(run_q8a, embedder(ex_q8a), out, valid, "w8a8+attn")
+    del ex_q8a, run_q8a
+    torch.cuda.empty_cache()
+
+    # 5c. v5 (the designed-feature token in the sequence: N = 193/49/13)
     # served in w8a8 through K4, then at the reference's erf GELU, whose
     # blocks leave the block kernels: K7 in each, no block kernel
-    v5_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
     v5_blocks = sum(ModelConfig().depth)
     for label, quantize, kw, on, off in (
             ("v5 w8a8", "w8a8", dict(variant="v5"), q8_kernels,
-             bf16_kernels[1:] + attention),
+             bf16_kernels[1:] + q8a_kernels[1:] + attention),
             ("v5 exact_gelu", "", dict(variant="v5", exact_gelu=True),
              ("window_gather", "attention_qkv"),
-             block_kernels + ("attention_bnhd",))):
+             block_kernels + attention[1:])):
         ex = extractor_for(quantize, **kw)
         run = slice_runner(ex)
         t = time.perf_counter()
@@ -1345,7 +1611,7 @@ def main() -> int:
         require_launches(launches, on, off, f"the {label} slice")
         path_runs.append(launches)
         if "attention_qkv" in on:
-            require(launches["attention_qkv"] == v5_blocks * v5_chunks,
+            require(launches["attention_qkv"] == v5_blocks * n_chunks,
                     f"K7 launched {launches['attention_qkv']} times, want "
                     f"{v5_blocks} a chunk")
             all_launches["attention_qkv"] = launches["attention_qkv"]
@@ -1360,18 +1626,34 @@ def main() -> int:
 
     # 6. the serving walk
     launches = serving_walk(ex_q8.model, dev, card)
-    require_launches(launches, q8_kernels, bf16_kernels[1:] + attention,
+    require_launches(launches, q8_kernels,
+                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
                      "the serving walk")
     path_runs.append(launches)
     del ex_q8, run_q8
     torch.cuda.empty_cache()
 
-    # 7. training: the flagship, then v5 with its aux losses
-    launches = training_phase(dev, card, ModelConfig(), "v3")
+    # 7. training: the flagship, v5 with its aux losses, then the flagship
+    # through the training block K5
+    launches, (v3_ms, v3_losses) = training_phase(dev, card, ModelConfig(),
+                                                  "v3")
     all_launches["fused_attention_train"] = launches["fused_attention_train"]
     path_runs.append(launches)
     path_runs.append(training_phase(dev, card, ModelConfig(variant="v5"),
-                                    "v5", aux_weights=(0.1, 0.2)))
+                                    "v5", aux_weights=(0.1, 0.2))[0])
+    launches, (k5_ms, k5_losses) = training_phase(
+        dev, card, ModelConfig(), "v3 train.fused_block", fused_block=True)
+    all_launches["fused_block_train"] = launches["fused_block_train"]
+    path_runs.append(launches)
+    rel0 = abs(k5_losses[0] - v3_losses[0]) / abs(v3_losses[0])
+    pairs_s = lambda ms: TRAIN_PAIRS / ms * 1e3
+    print(f"training step, v3 through K5 against the unfused v3 (this run, "
+          f"{card}): median {k5_ms:.1f} vs {v3_ms:.1f} ms "
+          f"({pairs_s(k5_ms):.1f} vs {pairs_s(v3_ms):.1f} pairs/s); step-0 "
+          f"loss {k5_losses[0]} vs {v3_losses[0]}, rel diff {rel0:.3e} (max "
+          f"{TOL_K5_VS_UNFUSED_LOSS0})")
+    require(rel0 <= TOL_K5_VS_UNFUSED_LOSS0,
+            f"step-0 loss through K5 differs from the unfused one: {rel0}")
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)
@@ -1389,6 +1671,14 @@ def main() -> int:
         "fused_block_chain_q8": (
             "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
             "deepmerge_tpu/ops/pallas/fused_block.py:401"),
+        "fused_block_q8_attn": (
+            "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+            "deepmerge_tpu/ops/pallas/fused_block.py:69"),
+        "fused_block_chain_q8_attn": (
+            "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+            "deepmerge_tpu/ops/pallas/fused_block.py:415"),
+        "fused_block_train": ("deepmerge_tpu_torch/csrc/fused_block.cu",
+                              "deepmerge_tpu/ops/pallas/fused_block.py:558"),
         "fused_attention_train": (
             "deepmerge_tpu_torch/csrc/fused_attention.cu",
             "deepmerge_tpu/ops/pallas/fused_attention.py:311"),

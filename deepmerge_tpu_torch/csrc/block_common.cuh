@@ -1,11 +1,14 @@
-// Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3), the
-// w8a8 block kernels (fused_block_q8.cu, K4) and the attention kernels
-// (fused_attention.cu: K6 saved-probs, K7 packed qkv, K8 (B, N, H, D)):
-// warp reductions, bf16 rounding, the tanh GELU, cp.async, and the
-// attention core, which K4 runs unchanged (the JAX package keeps the
-// attention of its w8a8 block in bf16: `_attn_inner`,
+// Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3 and the
+// training block K5), the w8a8 block kernels (fused_block_q8.cu, K4) and
+// the attention kernels (fused_attention.cu: K6 saved-probs, K7 packed qkv,
+// K8 (B, N, H, D)): warp reductions, bf16 rounding, the tanh GELU,
+// cp.async, and the bf16 attention core, which K4 runs unchanged (the JAX
+// package keeps the attention of its w8a8 block in bf16 unless `quant_attn`
+// sends it to K4a's int8 core in fused_block_q8.cu: `_attn_inner`,
 // deepmerge_tpu/ops/pallas/fused_block.py), K6 runs with kProbs set, K7
-// as K2 does, and K8 with kNormFirst on separate q, k, v.
+// as K2 does, K8 with kNormFirst on separate q, k, v, and K5 with kProbs
+// and kNormFirst together (its probabilities are the normalized ones it
+// multiplies by v).
 
 #pragma once
 

@@ -1,10 +1,13 @@
-// One pre-LN transformer block (kernel K2) and a stage of blocks run back to
-// back (kernel K3), bf16 in and out, for Hopper (sm_90a).
+// One pre-LN transformer block (kernel K2), a stage of blocks run back to
+// back (kernel K3) and the saved-activation training block (kernel K5), bf16
+// in and out, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels deepmerge_tpu/ops/pallas/fused_block.py
 // `_block_kernel` (math `_block_math`, called through
-// `_fused_block_forward`) and the bf16 branch of `_chain_kernel` (called
-// through `_fused_chain_forward`). The math, with its bf16 rounding points:
+// `_fused_block_forward`), the bf16 branch of `_chain_kernel` (called
+// through `_fused_chain_forward`) and `_block_kernel_train` (math
+// `_block_math_train`, called through `_fused_block_train_forward`). The
+// math, with its bf16 rounding points:
 //   y   = bf16(LN1(x))                              LN in f32, eps 1e-5
 //   qkv = bf16(bf16(y·Wqkv) + bq)                   f32 accumulation
 //   a   = per head: softmax(q·d^-½·kᵀ + bias[h]) · v, the 1/Σe applied
@@ -37,6 +40,19 @@
 // The chain entry point runs `depth` blocks on one activation buffer;
 // keeping the activation on chip between blocks, and wgmma/TMA GEMMs, are
 // later work.
+//
+// K5 (`dm_block_train_forward`) is K2's sequence with three changes, and
+// also writes what the backward (plain torch, the JAX package's
+// `_fused_block_bwd`) reads instead of recomputing it:
+// * qkv and r are outputs, not scratch;
+// * the attention core normalizes before the value product, as
+//   `_block_math_train` does, p = bf16(e·(1/Σe)), a = bf16(p·v), and also
+//   stores p (kProbs with kNormFirst) in K6's (B, H, N, N) layout;
+// * the up GEMM's epilogue also writes the pre-GELU gin = r'·Wup + bu,
+//   rounded to bf16 (the GELU itself takes the f32 value).
+// Its bound is K2's GEMM work plus the residuals' bytes: at B 240, N 192
+// the probabilities alone are 212 MB a block, 0.06 ms at the memory rate
+// against about 0.7 ms of GEMMs.
 //
 // The helpers and the attention core live in block_common.cuh, shared
 // with the w8a8 kernels (fused_block_q8.cu).
@@ -108,16 +124,23 @@ constexpr int kGemmThreads = 256;      // 8 warps: 2 (rows) x 4 (cols)
 constexpr size_t kGemmSmem =
     static_cast<size_t>(kStages) * 2 * kTileElems * sizeof(bf16);
 
-enum Epilogue { kBiasCast = 0, kBiasResidual = 1, kBiasGelu = 2 };
+enum Epilogue {
+  kBiasCast = 0,
+  kBiasResidual = 1,
+  kBiasGelu = 2,
+  kBiasGeluSave = 3,  // kBiasGelu that also writes bf16(acc + bias) to aux
+};
 
 // out[m, n] = epilogue(Σ_k A[m, k]·W[n, k]). A (M, K) and W (N, K) are
 // row-major bf16 (W is nn.Linear's weight); K % 64 == 0 and N % 8 == 0
-// (checked by the caller). Two CTAs of 108 KB fit one SM.
+// (checked by the caller). aux (M, N) is written by kBiasGeluSave only.
+// Two CTAs of 108 KB fit one SM.
 template <int kEpi>
 __global__ void __launch_bounds__(kGemmThreads, 2)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-            bf16* __restrict__ out, int M, int N, int K) {
+            bf16* __restrict__ out, bf16* __restrict__ aux, int M, int N,
+            int K) {
   extern __shared__ __align__(128) unsigned char gemm_smem[];
   bf16* sm = reinterpret_cast<bf16*>(gemm_smem);
 
@@ -214,13 +237,16 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         if constexpr (kEpi == kBiasResidual)
           rv = *reinterpret_cast<const uint4*>(resid + gm * N + gn);
         const bf16* rr = reinterpret_cast<const bf16*>(&rv);
-        uint4 ov;
+        uint4 ov, av;
         bf16* o = reinterpret_cast<bf16*>(&ov);
+        bf16* a = reinterpret_cast<bf16*>(&av);
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           float y;
-          if constexpr (kEpi == kBiasGelu) {
-            y = gelu_tanh(cv[t] + __bfloat162float(bb[t]));
+          if constexpr (kEpi == kBiasGelu || kEpi == kBiasGeluSave) {
+            const float g = cv[t] + __bfloat162float(bb[t]);
+            a[t] = __float2bfloat16(g);
+            y = gelu_tanh(g);
           } else {
             y = round_bf16(cv[t]) + __bfloat162float(bb[t]);
             if constexpr (kEpi == kBiasResidual)
@@ -229,6 +255,8 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
           o[t] = __float2bfloat16(y);
         }
         *reinterpret_cast<uint4*>(out + gm * N + gn) = ov;
+        if constexpr (kEpi == kBiasGeluSave)
+          *reinterpret_cast<uint4*>(aux + gm * N + gn) = av;
       }
       __syncwarp();
     }
@@ -238,14 +266,14 @@ gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 template <int kEpi>
 cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
                  const bf16* resid, bf16* out, int M, int N, int K,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, bf16* aux = nullptr) {
   cudaError_t e = cudaFuncSetAttribute(
       gemm_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kGemmSmem));
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   gemm_kernel<kEpi><<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      A, W, bias, resid, out, M, N, K);
+      A, W, bias, resid, out, aux, M, N, K);
   return cudaGetLastError();
 }
 
@@ -302,6 +330,45 @@ cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
   return gemm<kBiasResidual>(hbuf, wd, bd, r, out, M, C, hidden, stream);
 }
 
+// K5: block_forward that keeps qkv, the normalized probabilities (B, H, N,
+// N), the pre-GELU gin (B·N, hidden) and r, all bf16, for the backward.
+cudaError_t block_train_forward(const bf16* x, bf16* out, int B, int N,
+                                int C, int H, int hidden,
+                                const void* const* p, bf16* qkv, bf16* probs,
+                                bf16* gin, bf16* r, bf16* att, bf16* hbuf,
+                                cudaStream_t stream) {
+  const auto* l1s = static_cast<const float*>(p[0]);
+  const auto* l1b = static_cast<const float*>(p[1]);
+  const auto* wq = static_cast<const bf16*>(p[2]);
+  const auto* bq = static_cast<const bf16*>(p[3]);
+  const auto* bias = static_cast<const float*>(p[4]);
+  const auto* wp = static_cast<const bf16*>(p[5]);
+  const auto* bp = static_cast<const bf16*>(p[6]);
+  const auto* l2s = static_cast<const float*>(p[7]);
+  const auto* l2b = static_cast<const float*>(p[8]);
+  const auto* wu = static_cast<const bf16*>(p[9]);
+  const auto* bu = static_cast<const bf16*>(p[10]);
+  const auto* wd = static_cast<const bf16*>(p[11]);
+  const auto* bd = static_cast<const bf16*>(p[12]);
+  const int M = B * N;
+  bf16* y = att;  // as in block_forward
+  cudaError_t e;
+
+  if ((e = layer_norm(x, l1s, l1b, y, M, C, stream)) != cudaSuccess) return e;
+  e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * C, C, stream);
+  if (e != cudaSuccess) return e;
+  e = attention_launch<true, true>(qkv, qkv + C, qkv + 2 * C, 3LL * C, bias,
+                                   att, probs, B, N, C, H, stream);
+  if (e != cudaSuccess) return e;
+  e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, C, stream);
+  if (e != cudaSuccess) return e;
+  if ((e = layer_norm(r, l2s, l2b, y, M, C, stream)) != cudaSuccess) return e;
+  e = gemm<kBiasGeluSave>(y, wu, bu, nullptr, hbuf, M, hidden, C, stream,
+                          gin);
+  if (e != cudaSuccess) return e;
+  return gemm<kBiasResidual>(hbuf, wd, bd, r, out, M, C, hidden, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -341,6 +408,22 @@ int dm_chain_forward(const void* x, void* out, int B, int N, int C, int H,
     if (err != 0) return err;
   }
   return 0;
+}
+
+// K5, the training forward of one block: out = block(x) with the attention
+// normalized before its value product, and the backward's residuals: qkv
+// (B·N, 3C), probs (B, H, N, N), gin (B·N, hidden) and r (B·N, C), bf16.
+// Scratch: att (B·N, C), h (B·N, hidden), bf16. Same requirements as
+// dm_block_forward; no two buffers overlap.
+int dm_block_train_forward(const void* x, void* out, int B, int N, int C,
+                           int H, int hidden, const void* const* params,
+                           void* qkv, void* probs, void* gin, void* r,
+                           void* att, void* h, cudaStream_t stream) {
+  return static_cast<int>(block_train_forward(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
+      hidden, params, static_cast<bf16*>(qkv), static_cast<bf16*>(probs),
+      static_cast<bf16*>(gin), static_cast<bf16*>(r), static_cast<bf16*>(att),
+      static_cast<bf16*>(h), stream));
 }
 
 }  // extern "C"

@@ -9,7 +9,9 @@
 // 18th tuple entry (`w8a8-static`). The math, in its order:
 //   y   = LN1(x)                           f32, never cast to bf16
 //   qkv = bf16(bf16(dq(q(y)·Wqkv)) + bq)
-//   a   = attention(qkv)                   bf16, K2's core, unchanged
+//   a   = attention(qkv)                   bf16, K2's core, unchanged; with
+//                                          `quant_attn` (`w8a8+attn`) the
+//                                          int8 core K4a below
 //   r   = bf16(x + bf16(bf16(dq(q(a)·Wproj)) + bp))
 //   y2  = LN2(r)                           f32
 //   h1  = gelu_tanh(dq(q(y2)·Wup) + bu)    f32
@@ -385,6 +387,312 @@ cudaError_t row_quant(const T* x, const float* static_scale,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- int8 attention (K4a)
+//
+// Replaces the `quant_attn` branch of the TPU kernels above:
+// `_attn_inner_q8` (dynamic scales) and `_attn_inner_q8s` (calibrated
+// static scales, entries 4-6 of the 18th tuple entry). Per head, in its
+// order:
+//   q, k: codes per row (token) over the head's 64 lanes, scale
+//         s = max|row|·(1/127) (1 for a zero row), codes rint(t / s);
+//   v:    codes per column (lane) over the N tokens, the same way;
+//   (static: the scalars s_q, s_k, s_v, codes rint(t·(1/s)), clipped)
+//   l  = (f32(qi·kiᵀ)·(s_q[n]·d^-½))·s_k[m] + bias   (static:
+//        f32(qi·kiᵀ)·(s_q·s_k·d^-½) + bias), s32 sums on the int8 cores
+//   pq = rint(127·exp(l − max_m l)), no clip: e lies in (0, 1]
+//   out = bf16((f32(pq·vi)·(1/Σ_m pq))·s_v[lane])
+// Products and sums stay separate roundings (__fmul_rn, __fadd_rn), as the
+// JAX package computes them.
+//
+// Bound on the H100: as K2's core, the bytes of qkv, the f32 bias and the
+// output; the int8 products halve the core's tensor work, which was not its
+// limit, and the quantize passes add work on the CUDA cores. The design is
+// the bf16 core's: one CTA per (head, sample), the head's k and v codes in
+// shared memory, each warp 16 queries at a time. s8 WMMA fragments must
+// start on 32 bytes, so every int8 operand is kept in 16-byte-column slabs
+// (as the s8 GEMM's tiles): k and v as [lane slab][key][16 B], a query
+// block as [lane slab][row][16 B], the probability codes as [key tile][row]
+// [16 B]; each fragment is then one contiguous 256-byte run. Keys padded to
+// 16 get code 0 in k, v and pq, and padded rows stay out of v's column
+// abs-max.
+
+// Shared memory of one K4a CTA for n tokens (keys padded to 16): k and v
+// codes, k's row scales, v's column scales and the four partial column
+// abs-maxes; per warp a query block's codes, its probability codes and a
+// scratch block for the s32 logits, then the s32 value sums. 204 KB at
+// n = 256.
+struct AttnQ8Layout {
+  int np, s_ld;
+  size_t kq, vq, sk, sv, red, q, p, s, bytes;
+};
+
+__host__ __device__ inline AttnQ8Layout attn_q8_layout(int n) {
+  AttnQ8Layout l;
+  l.np = (n + 15) & ~15;
+  l.s_ld = (l.np > kHeadDim ? l.np : kHeadDim) + 4;  // s32 row stride
+  l.kq = 0;
+  l.vq = l.kq + static_cast<size_t>(l.np) * kHeadDim;
+  l.sk = l.vq + static_cast<size_t>(l.np) * kHeadDim;
+  l.sv = l.sk + static_cast<size_t>(l.np) * sizeof(float);
+  l.red = l.sv + kHeadDim * sizeof(float);
+  l.q = l.red + 4 * kHeadDim * sizeof(float);
+  l.p = l.q + static_cast<size_t>(kAttnWarps) * 16 * kHeadDim;
+  l.s = l.p + static_cast<size_t>(kAttnWarps) * 16 * l.np;
+  l.bytes = l.s + static_cast<size_t>(kAttnWarps) * 16 * l.s_ld * sizeof(int);
+  return l;
+}
+
+// Slab address of element (row, lane) of a [slab][row][16 B] int8 operand
+// whose slabs are `slab` bytes apart.
+__device__ __forceinline__ int slab_at(int row, int lane, int slab) {
+  return (lane >> 4) * slab + row * 16 + (lane & 15);
+}
+
+// q, k, v are the rows of a packed (B·N, 3C) bf16 qkv; out (B·N, C).
+// s_qkv: the static (s_q, s_k, s_v) with kStatic, unused otherwise.
+template <bool kStatic>
+__global__ void __launch_bounds__(kAttnThreads)
+attention_q8_kernel(const bf16* __restrict__ qkv,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ s_qkv, bf16* __restrict__ out,
+                    int N, int C, float scale) {
+  extern __shared__ __align__(128) unsigned char q8_smem[];
+  const AttnQ8Layout L = attn_q8_layout(N);
+  signed char* kq = reinterpret_cast<signed char*>(q8_smem + L.kq);
+  signed char* vq = reinterpret_cast<signed char*>(q8_smem + L.vq);
+  float* sk = reinterpret_cast<float*>(q8_smem + L.sk);
+  float* sv = reinterpret_cast<float*>(q8_smem + L.sv);
+  float* red = reinterpret_cast<float*>(q8_smem + L.red);
+
+  const int h = blockIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.y) * N;
+  const long long ld = 3LL * C;
+  const bf16* qb = qkv + h * kHeadDim;
+  const bf16* kb = qb + C;
+  const bf16* vb = qb + 2 * C;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kv_slab = L.np * 16;  // bytes between k's (or v's) lane slabs
+  const unsigned full = 0xffffffffu;
+
+  float s_q = 0.f, s_v = 0.f, inv_q = 0.f, inv_k = 0.f, inv_v = 0.f,
+        c_static = 0.f;
+  if constexpr (kStatic) {
+    s_q = s_qkv[0];
+    s_v = s_qkv[2];
+    inv_q = 1.0f / s_q;
+    inv_k = 1.0f / s_qkv[1];
+    inv_v = 1.0f / s_v;
+    c_static = __fmul_rn(__fmul_rn(s_q, s_qkv[1]), scale);
+  }
+
+  // k codes: one warp per key, lane l quantizes lanes 2l and 2l + 1
+  for (int j = warp; j < L.np; j += kAttnWarps) {
+    float2 f = make_float2(0.f, 0.f);
+    if (j < N)
+      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          kb + (row0 + j) * ld + 2 * lane));
+    float sc = 1.0f;
+    if constexpr (!kStatic) {
+      const float amax = warp_max(fmaxf(fabsf(f.x), fabsf(f.y)));
+      sc = amax > 0.f ? amax * kInv127 : 1.0f;
+    }
+    signed char* dst = kq + slab_at(j, 2 * lane, kv_slab);
+    dst[0] = code_of(kStatic ? f.x * inv_k : f.x / sc);
+    dst[1] = code_of(kStatic ? f.y * inv_k : f.y / sc);
+    if (lane == 0) sk[j] = sc;
+  }
+
+  // v's column scales: four partial abs-maxes per lane over the real keys
+  if constexpr (!kStatic) {
+    const int dd = threadIdx.x & (kHeadDim - 1);
+    const int part = threadIdx.x / kHeadDim;  // 0..3
+    float amax = 0.f;
+    for (int j = part; j < N; j += kAttnThreads / kHeadDim)
+      amax = fmaxf(amax, fabsf(__bfloat162float(vb[(row0 + j) * ld + dd])));
+    red[part * kHeadDim + dd] = amax;
+    __syncthreads();
+    if (threadIdx.x < kHeadDim) {
+      float a = red[threadIdx.x];
+#pragma unroll
+      for (int t = 1; t < kAttnThreads / kHeadDim; ++t)
+        a = fmaxf(a, red[t * kHeadDim + threadIdx.x]);
+      sv[threadIdx.x] = a > 0.f ? a * kInv127 : 1.0f;
+    }
+  }
+  __syncthreads();
+  // v codes, padded keys 0
+  for (int idx = threadIdx.x; idx < L.np * kHeadDim; idx += kAttnThreads) {
+    const int j = idx / kHeadDim;
+    const int dd = idx % kHeadDim;
+    signed char c = 0;
+    if (j < N) {
+      const float v = __bfloat162float(vb[(row0 + j) * ld + dd]);
+      c = code_of(kStatic ? v * inv_v : v / sv[dd]);
+    }
+    vq[slab_at(j, dd, kv_slab)] = c;
+  }
+  __syncthreads();
+
+  signed char* qs =
+      reinterpret_cast<signed char*>(q8_smem + L.q) + warp * 16 * kHeadDim;
+  signed char* ps =
+      reinterpret_cast<signed char*>(q8_smem + L.p) + warp * 16 * L.np;
+  int* ss = reinterpret_cast<int*>(q8_smem + L.s) + warp * 16 * L.s_ld;
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  const int tiles = L.np / 16;
+
+  for (int rb = warp; rb < tiles; rb += kAttnWarps) {
+    const int i0 = rb * 16;
+    // the query block's codes; lane r keeps row r's scale
+    float sq_row = 1.0f;
+    for (int r = 0; r < 16; ++r) {
+      const int i = i0 + r;
+      float2 f = make_float2(0.f, 0.f);
+      if (i < N)
+        f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            qb + (row0 + i) * ld + 2 * lane));
+      float sc = s_q;
+      if constexpr (!kStatic) {
+        const float amax = warp_max(fmaxf(fabsf(f.x), fabsf(f.y)));
+        sc = amax > 0.f ? amax * kInv127 : 1.0f;
+      }
+      signed char* dst = qs + slab_at(r, 2 * lane, 16 * 16);
+      dst[0] = code_of(kStatic ? f.x * inv_q : f.x / sc);
+      dst[1] = code_of(kStatic ? f.y * inv_q : f.y / sc);
+      if (lane == r) sq_row = sc;
+    }
+    __syncwarp();
+
+    // logits' s32 sums S = qi·kiᵀ (16 x np)
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
+        qa[kHeadDim / 16];
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk)
+      wmma::load_matrix_sync(qa[kk], qs + kk * 256, 16);
+    for (int jt = 0; jt < tiles; ++jt) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, int> s_acc;
+      wmma::fill_fragment(s_acc, 0);
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::col_major> kf;
+        wmma::load_matrix_sync(kf, kq + kk * kv_slab + jt * 256, 16);
+        wmma::mma_sync(s_acc, qa[kk], kf, s_acc);
+      }
+      wmma::store_matrix_sync(ss + jt * 16, s_acc, L.s_ld,
+                              wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // per row: dequantized logits, max, probability codes and their sum
+    float inv_row = 0.f;
+    for (int r = 0; r < 16; ++r) {
+      const int i = i0 + r;
+      const float cq =
+          kStatic ? c_static : __fmul_rn(__shfl_sync(full, sq_row, r), scale);
+      float l[kMaxKeysPerLane];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < kMaxKeysPerLane; ++t) {
+        const int j = lane + 32 * t;
+        l[t] = -INFINITY;
+        if (i < N && j < N) {
+          const float a = static_cast<float>(ss[r * L.s_ld + j]);
+          const float d = kStatic ? __fmul_rn(a, cq)
+                                  : __fmul_rn(__fmul_rn(a, cq), sk[j]);
+          l[t] = __fadd_rn(d, bias_h[static_cast<long long>(i) * N + j]);
+        }
+        mx = fmaxf(mx, l[t]);
+      }
+      mx = warp_max(mx);
+      int sum = 0;
+#pragma unroll
+      for (int t = 0; t < kMaxKeysPerLane; ++t) {
+        const int j = lane + 32 * t;
+        const int c = l[t] == -INFINITY
+                          ? 0
+                          : __float2int_rn(
+                                rintf(__fmul_rn(expf(l[t] - mx), 127.0f)));
+        sum += c;
+        if (j < L.np)
+          ps[(j >> 4) * 256 + r * 16 + (j & 15)] = static_cast<signed char>(c);
+      }
+      sum = __reduce_add_sync(full, sum);
+      if (lane == r) inv_row = sum > 0 ? 1.0f / static_cast<float>(sum) : 0.f;
+    }
+    __syncwarp();
+
+    // value sums O = pq·vi (16 x 64, s32), stored over the logits
+    wmma::fragment<wmma::accumulator, 16, 16, 16, int> o_acc[kHeadDim / 16];
+#pragma unroll
+    for (int dt = 0; dt < kHeadDim / 16; ++dt)
+      wmma::fill_fragment(o_acc[dt], 0);
+    for (int kt = 0; kt < tiles; ++kt) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
+                     wmma::row_major> pa;
+      wmma::load_matrix_sync(pa, ps + kt * 256, 16);
+#pragma unroll
+      for (int dt = 0; dt < kHeadDim / 16; ++dt) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
+                       wmma::row_major> vf;
+        wmma::load_matrix_sync(vf, vq + dt * kv_slab + kt * 256, 16);
+        wmma::mma_sync(o_acc[dt], pa, vf, o_acc[dt]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int dt = 0; dt < kHeadDim / 16; ++dt)
+      wmma::store_matrix_sync(ss + dt * 16, o_acc[dt], L.s_ld,
+                              wmma::mem_row_major);
+    __syncwarp();
+
+    // out = bf16((O · 1/Σpq) · s_v)
+    for (int idx = lane; idx < 16 * (kHeadDim / 2); idx += 32) {
+      const int r = idx / (kHeadDim / 2);
+      const int dd = 2 * (idx % (kHeadDim / 2));
+      const float inv = __shfl_sync(full, inv_row, r);
+      if (i0 + r < N) {
+        const int* orow = ss + r * L.s_ld + dd;
+        const float v0 = kStatic ? s_v : sv[dd];
+        const float v1 = kStatic ? s_v : sv[dd + 1];
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + i0 + r) * C +
+                                           h * kHeadDim + dd) =
+            __floats2bfloat162_rn(
+                __fmul_rn(__fmul_rn(static_cast<float>(orow[0]), inv), v0),
+                __fmul_rn(__fmul_rn(static_cast<float>(orow[1]), inv), v1));
+      }
+    }
+    __syncwarp();  // the warp's codes and scratch are reused
+  }
+}
+
+// K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales.
+cudaError_t attention_q8(const bf16* qkv, const float* bias,
+                         const float* s_qkv, bf16* out, int B, int N, int C,
+                         int H, cudaStream_t stream) {
+  const AttnQ8Layout L = attn_q8_layout(N);
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  const dim3 grid(H, B);
+  cudaError_t e;
+  if (s_qkv != nullptr) {
+    e = cudaFuncSetAttribute(attention_q8_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L.bytes));
+    if (e != cudaSuccess) return e;
+    attention_q8_kernel<true><<<grid, kAttnThreads, L.bytes, stream>>>(
+        qkv, bias, s_qkv, out, N, C, scale);
+  } else {
+    e = cudaFuncSetAttribute(attention_q8_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(L.bytes));
+    if (e != cudaSuccess) return e;
+    attention_q8_kernel<false><<<grid, kAttnThreads, L.bytes, stream>>>(
+        qkv, bias, nullptr, out, N, C, scale);
+  }
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- block
 
 // Parameter order (17 pointers, 18 with static scales), as the TPU
@@ -394,12 +702,13 @@ cudaError_t row_quant(const T* x, const float* static_scale,
 // ln2 bias, q_up (int8 [hidden, C]), s_up (f32 [hidden]), b_up (bf16
 // [hidden]), q_down (int8 [C, hidden]), s_down (f32 [C]), b_down (bf16
 // [C]) and, with static scales, s_act (f32 [7]: LN1 out, attention out,
-// LN2 out, GELU out, then three attention operands this kernel does not
-// quantize). Weights are in nn.Linear's (out, in) layout.
+// LN2 out, GELU out, then the three attention operands q, k, v, which only
+// K4a quantizes). Weights are in nn.Linear's (out, in) layout. quant_attn
+// runs the attention on K4a's int8 core instead of the bf16 one.
 cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                              int H, int hidden, const void* const* p,
-                             bool static_scales, bf16* qkv, bf16* att,
-                             bf16* r, float* h, signed char* codes,
+                             bool static_scales, bool quant_attn, bf16* qkv,
+                             bf16* att, bf16* r, float* h, signed char* codes,
                              float* rs, cudaStream_t stream) {
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
@@ -430,8 +739,9 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
   e = gemm_s8<kQBiasCast>(codes, wq, sq, rs, stat(0), bq, nullptr, qkv, M,
                           3 * C, C, stream);
   if (e != cudaSuccess) return e;
-  if ((e = attention(qkv, bias, att, B, N, C, H, stream)) != cudaSuccess)
-    return e;
+  e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, stream)
+                 : attention(qkv, bias, att, B, N, C, H, stream);
+  if (e != cudaSuccess) return e;
   if ((e = row_quant(att, stat(1), codes, rs, M, C, stream)) != cudaSuccess)
     return e;
   e = gemm_s8<kQBiasResidual>(codes, wp, sp, rs, stat(1), bp, x, r, M, C, C,
@@ -460,19 +770,21 @@ const char* dm_error_string(int err) {
 
 // One w8a8 block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. `static_scales` nonzero: each block has 18 parameters, the last
-// its static activation scales. Scratch: qkv (B·N, 3C), att (B·N, C), r
-// (B·N, C) bf16; h (B·N, hidden) f32; codes (B·N, max(C, hidden)) int8;
-// row_scale (B·N) f32. Requires C == H·64, C % 128 == 0, C <= 1024,
+// its static activation scales. `quant_attn` nonzero: the attention runs
+// int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
+// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32; codes
+// (B·N, max(C, hidden)) int8; row_scale (B·N) f32. Requires C == H·64, C % 128 == 0, C <= 1024,
 // hidden % 128 == 0 and N <= 256 (checked by the caller). Returns
 // cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, const void* const* params,
-                        int static_scales, void* qkv, void* att, void* r,
-                        void* h, void* codes, void* row_scale,
-                        cudaStream_t stream) {
+                        int static_scales, int quant_attn, void* qkv,
+                        void* att, void* r, void* h, void* codes,
+                        void* row_scale, cudaStream_t stream) {
   return static_cast<int>(block_forward_q8(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
-      hidden, params, static_scales != 0, static_cast<bf16*>(qkv),
+      hidden, params, static_scales != 0, quant_attn != 0,
+      static_cast<bf16*>(qkv),
       static_cast<bf16*>(att), static_cast<bf16*>(r), static_cast<float*>(h),
       static_cast<signed char*>(codes), static_cast<float*>(row_scale),
       stream));
@@ -485,16 +797,16 @@ int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
 // scratch as dm_block_forward_q8.
 int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, int depth, const void* const* params,
-                        int static_scales, void* qkv, void* att, void* r,
-                        void* h, void* codes, void* row_scale,
-                        cudaStream_t stream) {
+                        int static_scales, int quant_attn, void* qkv,
+                        void* att, void* r, void* h, void* codes,
+                        void* row_scale, cudaStream_t stream) {
   const int width = static_scales != 0 ? 18 : 17;
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
     const int err = dm_block_forward_q8(in, out, B, N, C, H, hidden,
                                         params + width * i, static_scales,
-                                        qkv, att, r, h, codes, row_scale,
-                                        stream);
+                                        quant_attn, qkv, att, r, h, codes,
+                                        row_scale, stream);
     if (err != 0) return err;
   }
   return 0;

@@ -40,6 +40,7 @@ from deepmerge_tpu_torch.infer.merge import (
     write_label_geotiff,
 )
 from deepmerge_tpu_torch.infer.scoring import score_scene_edges
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 MESH_TODO = ("the sharded extraction and merge are the port's scale-out item "
              "(ROADMAP.md queue A, Scale-out)")
@@ -76,13 +77,14 @@ def load_params(cfg: Config, checkpoint_path: Optional[str] = None):
 
 
 def _staged_edge_arrays(scene: Scene, edge_batch: int, ds=None,
-                        device: torch.device | str = "cpu"):
-    """The padded RAG edge arrays on the device, cached on the staged scene
+                        device: torch.device | str = "cuda"):
+    """The padded RAG edge arrays on ``device``, cached on the staged scene
     so that the prefetch thread can upload them ahead of the scene."""
     cache = ds.__dict__.setdefault("_edge_arrays_cache", {}) \
         if ds is not None else {}
     if edge_batch not in cache:
         edges, valid = padded_edges(scene, edge_batch)
+        device = resolve_device(device)
         cache[edge_batch] = (torch.from_numpy(edges).to(device),
                              torch.from_numpy(valid).to(device))
     return cache[edge_batch]

@@ -37,6 +37,7 @@ from deepmerge_tpu_torch.ops.patches import (
     staging_caps,
 )
 from deepmerge_tpu_torch.train.sampler import DeviceScene, stage_scene
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 try:
     import h5py
@@ -170,9 +171,10 @@ def unpack_serve_tail(tail, n_edges_padded: int, num_edges: int,
 class FeatureExtractor:
     """Embeds every sample point of a scene with a port ``S2Former``.
 
-    The constructor moves the model to ``device``, casts its float weights
-    to the model dtype once (the LayerNorm parameters and the bias tables
-    included, as the JAX package does; its float buffers — calibrated
+    The constructor moves the model to ``device`` (the card unless the
+    caller asks for the CPU; without a card that raises), casts its float
+    weights to the model dtype once (the LayerNorm parameters and the bias
+    tables included, as the JAX package does; its float buffers — calibrated
     ``w8a8-static`` scales, the aux heads' BatchNorm statistics — stay
     float32, as the JAX package keeps its ``batch_stats``), and puts it in
     eval mode. A ``w8a8-static`` model without scales calibrates on the
@@ -180,8 +182,8 @@ class FeatureExtractor:
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 2000,
-                 device: torch.device | str = "cpu"):
-        self.device = torch.device(device)
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         stats = {n: b for n, b in model.named_buffers()
                  if b.is_floating_point()}
         # float weights only: the int64 index buffers keep their dtype

@@ -18,6 +18,7 @@ import torch
 
 from deepmerge_tpu_torch.geodata.types import Scene
 from deepmerge_tpu_torch.ops.segment import edge_distances, segment_mean
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 try:
     from deepmerge_tpu_torch.native import unionfind as _native_uf
@@ -101,14 +102,16 @@ def _contract(labels: np.ndarray, edges: np.ndarray) -> np.ndarray:
 
 class MergeEngine:
     """Round-based merge over a scored RAG; the pooling and scoring of each
-    round run on ``device``."""
+    round run on ``device`` (the card unless the caller asks for the CPU;
+    without a card that raises)."""
 
     def __init__(self, threshold: float = 1.0, max_rounds: int = 16,
-                 edge_batch: int = 8192, device: torch.device | str = "cpu"):
+                 edge_batch: int = 8192,
+                 device: torch.device | str = "cuda"):
         self.threshold = threshold
         self.max_rounds = max_rounds
         self.edge_batch = edge_batch
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def run(self, point_embeddings, point_region: np.ndarray,
             num_regions: int, edges: np.ndarray) -> MergeResult:
@@ -167,8 +170,8 @@ class MergeEngine:
 
 def merge_scene(scene: Scene, point_embeddings, threshold: float = 1.0,
                 max_rounds: int = 16, edge_batch: int = 8192,
-                device: torch.device | str = "cpu") -> MergeResult:
-    """The host engine over a scene's RAG."""
+                device: torch.device | str = "cuda") -> MergeResult:
+    """The host engine over a scene's RAG, scoring on ``device``."""
     engine = MergeEngine(threshold, max_rounds, edge_batch, device)
     return engine.run(point_embeddings, scene.regions.point_region,
                       scene.regions.num_regions, scene.rag.edges)

@@ -29,7 +29,8 @@ than one such block as one launch of the chain kernel K3
 (``ops/kernels/fused_block.py``); ``quantize="w8a8"`` and
 ``"w8a8-static"`` send the same launches to the w8a8 kernels (K4), the
 weights quantized on every forward as the JAX package quantizes them
-outside its kernel. ``"w8a8-static"`` needs calibrated activation scales:
+outside its kernel, and ``"w8a8+attn"`` to the same kernels with the int8
+attention core (K4a). ``"w8a8-static"`` needs calibrated activation scales:
 ``calibrate`` runs the model once with every block through the plain
 ``block_act_amax`` (no chain), keeping a running max in each block's
 ``act_amax`` buffer. Any other block runs unfused: flax-numerics
@@ -38,15 +39,17 @@ LayerNorm, the qkv dense, the attention-only kernel K7
 MLP. Quantization rides the block kernels only: on a block off them it is
 a no-op, as in the JAX package (whose config warns).
 
-``forward(..., train=True)`` is the training forward of the unfused block
-path (the configuration ``training_model`` gives), with the attention
-through the saved-probs kernel K6, and returns ``(out, aux0, aux1)`` for
-v4 and v5. Dropout, drop path and the aux heads' Dropout2d draw their masks
-from the ``generator`` passed in (JAX's ``fold_in`` streams cannot be
-reproduced). The aux heads' BatchNorm normalizes with the batch statistics
-and updates its running buffers in place, with flax's numerics. Parameters
-stay float32 and every op casts them to the compute dtype, as flax's
-``dtype=bfloat16`` layers do.
+``forward(..., train=True)`` is the training forward of the configuration
+``training_model`` gives, block by block: a block on the block kernel
+through the differentiable ``fused_block`` (the saved-activation training
+block K5 and its hand backward, with ``train.fused_block``), any other
+unfused with the attention through the saved-probs kernel K6; it returns
+``(out, aux0, aux1)`` for v4 and v5. Dropout, drop path and the aux heads'
+Dropout2d draw their masks from the ``generator`` passed in (JAX's
+``fold_in`` streams cannot be reproduced). The aux heads' BatchNorm
+normalizes with the batch statistics and updates its running buffers in
+place, with flax's numerics. Parameters stay float32 and every op casts
+them to the compute dtype, as flax's ``dtype=bfloat16`` layers do.
 """
 
 from __future__ import annotations
@@ -138,11 +141,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.variant == "v1" and cfg.n_scales != 4:
         raise ValueError(f"v1 uses 4 fixed scales, got "
                          f"{cfg.input_image_scales}")
-    if cfg.quantize.endswith("+attn"):
-        raise NotImplementedError(
-            f"quantize={cfg.quantize!r}: the int8 attention core is not "
-            "ported yet (ROADMAP.md queue B, K4a)"
-        )
     if cfg.chain_stage0:
         raise NotImplementedError(
             "chain_stage0 is an experiment the port does not carry yet "
@@ -154,29 +152,26 @@ def training_model(cfg: Config) -> ModelConfig:
     """The model configuration training runs (the JAX package's
     ``train/loop._training_model``): quantization, the stage chain and
     ``chain_stage0`` cleared, ``fused_block`` on only where both
-    ``model.fused_block`` and ``train.fused_block`` are. That last case is
-    the saved-activation block kernel, which the port does not have yet."""
+    ``model.fused_block`` and ``train.fused_block`` are (the
+    saved-activation training block, K5)."""
     mcfg = cfg.model
-    if mcfg.fused_block and cfg.train.fused_block:
-        raise NotImplementedError(
-            "train.fused_block: the saved-activation training block kernel "
-            "is ROADMAP.md queue B, K5 (with its hand backward "
-            "_fused_block_bwd)"
-        )
-    want = dataclasses.replace(mcfg, fused_block=False, quantize="",
-                               fused_stage_chain=False, chain_stage0=False)
+    want = dataclasses.replace(
+        mcfg, fused_block=mcfg.fused_block and cfg.train.fused_block,
+        quantize="", fused_stage_chain=False, chain_stage0=False)
     check_trainable(want)
     return want
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot train: one
-    on the block kernels, whose training path (K5) is not ported yet."""
+    """Raise ``NotImplementedError`` for a model the port cannot train: a
+    quantized one (the w8a8 kernels are inference-only) or one on the
+    stage chain (training runs block by block); ``training_model`` clears
+    both."""
     check_supported(cfg)
-    if cfg.fused_block or cfg.quantize or cfg.fused_stage_chain:
+    if cfg.quantize or cfg.fused_stage_chain:
         raise NotImplementedError(
-            "training runs the unfused blocks (use training_model); the "
-            "saved-activation block kernel is ROADMAP.md queue B, K5"
+            "training runs without quantization and without the stage "
+            "chain: train the model of training_model(cfg)"
         )
 
 
@@ -325,8 +320,10 @@ class CrossScaleBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One block. ``calibrate`` (``w8a8-static``) runs the plain
         calibration forward instead and folds its abs-maxes into
-        ``act_amax``; ``train`` runs the training forward."""
-        if train or not self.kernel_eligible:
+        ``act_amax``; ``train`` runs the training forward (on the block
+        kernel that is ``fused_block`` under autograd: no dropout to
+        draw)."""
+        if not self.kernel_eligible:
             return self.unfused(x, dtype, train, generator)
         x = x.to(dtype)
         heads, exact = self.num_heads, self.exact_gelu
@@ -339,7 +336,8 @@ class CrossScaleBlock(nn.Module):
             self.act_amax.copy_(torch.maximum(self.act_amax, amax))
             return out.to(dtype)
         return fused_block_q8(x, self.quant_params(dtype), heads=heads,
-                              exact_gelu=exact)
+                              exact_gelu=exact,
+                              quant_attn=self.quantize.endswith("+attn"))
 
     def unfused(self, x: torch.Tensor, dtype: torch.dtype,
                 train: bool = False,
@@ -551,7 +549,8 @@ class S2Former(nn.Module):
                       exact_gelu=self.cfg.exact_gelu)
             if blocks[0].quantize:
                 return fused_block_chain_q8(
-                    x, [blk.quant_params(self.dtype) for blk in blocks], **kw)
+                    x, [blk.quant_params(self.dtype) for blk in blocks],
+                    quant_attn=blocks[0].quantize.endswith("+attn"), **kw)
             return fused_block_chain(
                 x, [blk.fused_params(self.dtype) for blk in blocks], **kw)
         for blk in blocks:

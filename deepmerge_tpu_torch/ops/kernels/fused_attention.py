@@ -43,7 +43,6 @@ Numerics, as the JAX package's (the CPU tests hold them to it):
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional
 
@@ -54,6 +53,8 @@ from deepmerge_tpu_torch.ops.kernels import build
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     HEAD_DIM,
     MAX_TOKENS,
+    _on_cuda,
+    _products_for,
     attention_parts,
 )
 
@@ -104,19 +105,6 @@ def attention_bnhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         v.to(f32)).to(q.dtype)
 
 
-@contextlib.contextmanager
-def _no_tf32():
-    """The backward's float32 products run in full float32 (cuBLAS may
-    otherwise take TF32, three decimal digits); the caller's setting is
-    restored after."""
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
 def attention_probs_bwd(qkv: torch.Tensor, probs: torch.Tensor,
                         g: torch.Tensor, heads: int):
     """The JAX package's ``_fused_qkv_train_bwd`` in torch: ``(dqkv,
@@ -132,7 +120,7 @@ def attention_probs_bwd(qkv: torch.Tensor, probs: torch.Tensor,
     q, k, v = split_qkv(qkv, heads)
     g4 = r16(g.reshape(b, n, heads, d))
     p32 = probs.to(f32)
-    with _no_tf32():
+    with _products_for(torch.float32):
         dv = torch.einsum("bhnm,bnhd->bmhd", p32, g4)
         dp = torch.einsum("bnhd,bmhd->bhnm", g4, r16(v))
         dlogits = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
@@ -154,7 +142,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32 = torch.float32
     scale = q.shape[-1] ** -0.5
     q32, k32, v32, g32 = (t.to(f32) for t in (q, k, v, g))
-    with _no_tf32():
+    with _products_for(torch.float32):
         logits = torch.einsum("bnhd,bmhd->bhnm", q32 * scale, k32) \
             + bias.to(f32)[None]
         p = torch.softmax(logits, dim=-1)
@@ -225,14 +213,6 @@ def _check_cuda_bnhd(q, k, v, bias):
 
 def _lib():
     return build.load("fused_attention", _SIGNATURES)
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """False for a CPU tensor (the plain version runs), True for a CUDA one
-    (the kernel runs); any other device raises."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type == "cuda"
 
 
 def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):

@@ -1,9 +1,12 @@
 """One pre-LN transformer block (kernel K2), a stage of blocks (kernel K3),
-their w8a8 forms (kernel K4), and their plain PyTorch versions.
+their w8a8 forms (kernel K4) with the int8 attention core of ``w8a8+attn``
+(kernel K4a), the saved-activation training block (kernel K5) with its hand
+backward, and their plain PyTorch versions.
 
 Counterpart of ``deepmerge_tpu/ops/pallas/fused_block.py`` (``fused_block``
-and ``fused_block_chain``, the bf16 path and the ``quant`` path). A block's
-parameters travel as the 13-tuple of the JAX package, in its order::
+and ``fused_block_chain``: the bf16 path, its training path and the
+``quant`` path). A block's parameters travel as the 13-tuple of the JAX
+package, in its order::
 
     (ln1_scale, ln1_bias, w_qkv, b_qkv, attn_bias, w_proj, b_proj,
      ln2_scale, ln2_bias, w_up, b_up, w_down, b_down)
@@ -13,10 +16,21 @@ and the rest in the activation dtype — but the weights in ``nn.Linear``'s
 (out, in) layout, where the JAX package's are (in, out). The w8a8 path
 takes the 17-tuple (18 with static activation scales) of
 ``quantize_block_params``.
+
+``fused_block`` and ``fused_block_chain`` are differentiable, as the JAX
+package's are: under grad mode with an input that requires grad, a block
+runs the training forward (K5 on CUDA), which also saves qkv, the
+normalized probabilities, the pre-GELU activation and the post-attention
+residual, and its backward ``block_train_bwd`` (plain torch on every
+device, as the JAX package's ``_fused_block_bwd`` is plain XLA) reuses
+them; a chain of several blocks runs K3 forward and recomputes the plain
+block under autograd in its backward (``_fused_chain_bwd``). The w8a8
+functions are inference-only.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 
@@ -38,16 +52,19 @@ _SIGNATURES = {
     # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, stream
     "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P],
+    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h, stream
+    "dm_block_train_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                               _P, _P, _P, _P],
 }
 _SIGNATURES_Q8 = {
-    # x, out, B, N, C, H, hidden, params, static, qkv, att, r, h, codes,
-    # row_scale, stream
-    "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
-                            _P, _P, _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, static, qkv, att, r, h,
-    # codes, row_scale, stream
-    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+    # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
+    # h, codes, row_scale, stream
+    "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
                             _P, _P, _P, _P, _P],
+    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
+    # att, r, h, codes, row_scale, stream
+    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                            _P, _P, _P, _P, _P, _P],
 }
 Q8_K_ALIGN = 128   # the int8 GEMM's K tile: C and the MLP width divide by it
 
@@ -131,6 +148,190 @@ def chain_ref(x: torch.Tensor, params_list, heads: int,
     return x
 
 
+# ------------------------------- saved-activation training block: plain
+
+def _attention_norm_first(qkv: torch.Tensor, bias: torch.Tensor,
+                          heads: int):
+    """The training block's attention (``_block_math_train``): as
+    ``attention_parts``, but the probabilities p = e·(1/Σe) are rounded to
+    the activation dtype before the value product, whose float32 sum is the
+    output. Returns the output (B, N, C) and p (B, H, N, N), both in qkv's
+    dtype."""
+    dt, f32 = qkv.dtype, torch.float32
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
+    k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
+    v = qkv[..., 2 * c :].reshape(b, n, heads, d)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32)) \
+        + bias.to(f32)[None]
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = (e * (1.0 / e.sum(-1, keepdim=True))).to(dt)
+    a = torch.einsum("bhnm,bmhd->bnhd", p.to(f32), v.to(f32))
+    return a.reshape(b, n, c).to(dt), p
+
+
+def block_train_ref(x: torch.Tensor, params, heads: int,
+                    exact_gelu: bool = False):
+    """Plain version of K5 (``_block_math_train``): one block's output and
+    the residuals its backward reads, ``(out, (qkv, probs, gin, r))``, all
+    in x's dtype: qkv (B, N, 3C), the normalized probabilities (B, H, N, N)
+    (K6's layout; the JAX package concatenates the heads along each query
+    row, (B, N, H·N)), the pre-GELU MLP activation gin = y2·W_up + b_up
+    (B, N, hidden), kept in float32 for the GELU and saved rounded, and the
+    post-attention residual r (B, N, C). The attention normalizes before
+    its value product (``_attention_norm_first``), unlike ``block_ref``."""
+    (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
+    dt = x.dtype
+    y = _ln(x, l1s, l1b).to(dt)
+    qkv = _mm(y, wq).to(dt) + bq
+    a, probs = _attention_norm_first(qkv, bias, heads)
+    r = x + (_mm(a, wp).to(dt) + bp)
+    y2 = _ln(r, l2s, l2b).to(dt)
+    gin = _mm(y2, wu) + bu.to(torch.float32)
+    out = r + (_mm(gelu(gin, exact_gelu).to(dt), wd).to(dt) + bd)
+    return out, (qkv, probs, gin.to(dt), r)
+
+
+def _ln_stats(x: torch.Tensor, eps: float = LN_EPS):
+    """(x̂, 1/σ) of the two-pass float32 LayerNorm statistics."""
+    m = x.to(torch.float32)
+    mu = m.mean(-1, keepdim=True)
+    rs = torch.rsqrt(((m - mu) ** 2).mean(-1, keepdim=True) + eps)
+    return (m - mu) * rs, rs
+
+
+def _ln_bwd(dy, xhat, rs, scale):
+    """LayerNorm backward from the normalized input, float32: (dx,
+    dscale, dbias)."""
+    dxh = dy * scale
+    dx = rs * (dxh - dxh.mean(-1, keepdim=True)
+               - xhat * (dxh * xhat).mean(-1, keepdim=True))
+    return dx, (dy * xhat).sum((0, 1)), dy.sum((0, 1))
+
+
+@contextlib.contextmanager
+def _products_for(dt: torch.dtype):
+    """Float32 products of operands already rounded to ``dt``. With bf16
+    operands (8 significant bits) TF32 (11) holds them exactly, so cuBLAS
+    may take its TF32 tensor cores and still return the exact products
+    summed in float32; any other dtype runs in full float32. The caller's
+    setting is restored after."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = dt == torch.bfloat16
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def block_train_bwd(x: torch.Tensor, params, saved, g: torch.Tensor,
+                    heads: int, exact_gelu: bool = False):
+    """The JAX package's ``_fused_block_bwd`` in torch: ``(dx, dparams)``
+    of one block from its input, parameters, the residuals ``saved`` of
+    ``block_train_ref`` (or K5) and the output gradient ``g``.
+
+    Its rounding points, as the JAX package's: every product takes
+    operands rounded to x's dtype and sums in float32; the GELU is
+    re-derived from the saved (rounded) gin, the two LayerNorms with the
+    two-pass statistics, the attention output as bf16(p·v); the qkv
+    gradient stays float32 for its bias and is rounded only as a product
+    operand; the bias gradient (H, N, N) sums over the batch in float32.
+    dx comes in x's dtype and each parameter's gradient in that
+    parameter's dtype."""
+    (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
+    qkv, probs, gin, r = saved
+    f32, dt = torch.float32, x.dtype
+    b, n, c = x.shape
+    d = c // heads
+    scale = d ** -0.5
+    op = lambda t: t.to(dt).to(f32)  # a product operand, rounded to dt
+    ein = torch.einsum
+    with _products_for(dt):
+        g32, gd = g.to(f32), op(g)
+        # MLP: out = r + gelu(gin)·W_dn + b_dn
+        with torch.enable_grad():
+            gin32 = gin.detach().to(f32).requires_grad_(True)
+            act = gelu(gin32, exact_gelu)
+        dwd = ein("bnc,bnf->cf", gd, op(act.detach()))
+        dact = ein("bnc,cf->bnf", gd, op(wd))
+        dgin = torch.autograd.grad(act, gin32, dact)[0]
+        del act, dact
+        xhat2, rs2 = _ln_stats(r)
+        dgin_t = op(dgin)
+        dwu = ein("bnf,bnc->fc", dgin_t, op(xhat2 * l2s + l2b))
+        dy2 = ein("bnf,fc->bnc", dgin_t, op(wu))
+        del dgin_t
+        dr_ln, dl2s, dl2b = _ln_bwd(dy2, xhat2, rs2, l2s)
+        dr = g32 + dr_ln
+        # projection: r = x + a·W_proj + b_proj
+        q, k, v = (t.reshape(b, n, heads, d).to(f32)
+                   for t in qkv.split(c, dim=-1))
+        p = probs.to(f32)
+        a = op(ein("bhnm,bmhd->bnhd", p, v)).reshape(b, n, c)
+        drt = op(dr)
+        dwp = ein("bnk,bnc->kc", drt, a)
+        da = op(ein("bnk,kc->bnc", drt, op(wp))).reshape(b, n, heads, d)
+        # attention, from the saved normalized probabilities
+        dv = ein("bhnm,bnhd->bmhd", p, da)
+        dp = ein("bnhd,bmhd->bhnm", da, v)
+        dlog = p * (dp - (dp * p).sum(-1, keepdim=True))
+        del dp
+        dlt = op(dlog)
+        dq = ein("bhnm,bmhd->bnhd", dlt, k) * scale
+        dk = ein("bhnm,bnhd->bmhd", dlt, q) * scale
+        dqkv = torch.cat([t.reshape(b, n, c) for t in (dq, dk, dv)], dim=-1)
+        # qkv projection and LN1
+        xhat1, rs1 = _ln_stats(x)
+        dqkv_t = op(dqkv)
+        dwq = ein("bnk,bnc->kc", dqkv_t, op(xhat1 * l1s + l1b))
+        dy = ein("bnk,kc->bnc", dqkv_t, op(wq))
+        dx_ln, dl1s, dl1b = _ln_bwd(dy, xhat1, rs1, l1s)
+        grads = (dl1s, dl1b, dwq, dqkv.sum((0, 1)), dlog.sum(0), dwp,
+                 dr.sum((0, 1)), dl2s, dl2b, dwu, dgin.sum((0, 1)), dwd,
+                 g32.sum((0, 1)))
+        dx = (dr + dx_ln).to(dt)
+    return dx, tuple(gr.to(t.dtype) for gr, t in zip(grads, params))
+
+
+def _block_xla(x: torch.Tensor, params, heads: int, exact_gelu: bool):
+    """The JAX package's plain-XLA block (``_xla_block``, and the forward
+    of ``block_act_amax``): the softmax normalized before the value
+    product, the up product rounded to x's dtype before the bias. Returns
+    the output and the activations ``block_act_amax`` taps: (LN1 out
+    (f32), attention out, LN2 out (f32), GELU out, qkv)."""
+    (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
+    dt = x.dtype
+    b, n, c = x.shape
+    d = c // heads
+    f32 = torch.float32
+    y = _ln(x, l1s, l1b)
+    qkv = _mm(y.to(dt), wq).to(dt) + bq
+    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
+    k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
+    v = qkv[..., 2 * c :].reshape(b, n, heads, d)
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32))
+    prob = torch.softmax(logits + bias.to(f32)[None], dim=-1)
+    a = torch.einsum("bhnm,bmhd->bnhd", prob.to(dt).to(f32), v.to(f32))
+    a = a.reshape(b, n, c).to(dt)
+    r = x + (_mm(a, wp).to(dt) + bp)
+    y2 = _ln(r, l2s, l2b)
+    h1 = gelu(_mm(y2.to(dt), wu).to(dt).to(f32) + bu.to(f32), exact_gelu)
+    o = _mm(h1.to(dt), wd).to(dt) + bd
+    return r + o, (y, a, y2, h1, qkv)
+
+
+def chain_grad_ref(x: torch.Tensor, params_list, heads: int,
+                   exact_gelu: bool = False) -> torch.Tensor:
+    """The function whose autograd gives a chain's gradients (the JAX
+    package's ``_xla_chain``, recomputed in ``_fused_chain_bwd``):
+    ``_block_xla`` block after block."""
+    for p in params_list:
+        x = _block_xla(x, p, heads, exact_gelu)[0]
+    return x
+
+
 # ------------------------------------------------- w8a8: plain version
 #
 # Per-output-channel symmetric int8 weights, int8 activations with a
@@ -186,12 +387,12 @@ def quantize_block_params(params, act_amax=None) -> tuple:
     return out + (_scale_from_amax(act_amax),)
 
 
-def _int_dot(codes: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
-    """``codes @ wq.T`` of int8 operands, exact, as float32: float64 holds
-    every partial sum (|Σ| ≤ 127²·K < 2^53), and the one rounding to
-    float32 is the int32 accumulator's own conversion."""
-    acc = torch.matmul(codes.to(torch.float64), wq.to(torch.float64).t())
-    return acc.to(torch.float32)
+def _int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An einsum of int8 codes, exact, as float32: float64 holds every
+    partial sum (|Σ| ≤ 127²·K < 2^53), and the one rounding to float32 is
+    the int32 accumulator's own conversion."""
+    return torch.einsum(eq, a.to(torch.float64),
+                        b.to(torch.float64)).to(torch.float32)
 
 
 def _qdot(y: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor):
@@ -199,27 +400,96 @@ def _qdot(y: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor):
     scale; returns the dequantized float32 (M, N), scaled left to right
     (acc · s_row · s_w) as the JAX package's ``_qdot``."""
     sr = _scale_from_amax(y.abs().amax(dim=-1, keepdim=True))
-    return _int_dot(_codes(y / sr), wq) * sr * s_w[None, :]
+    acc = _int_einsum("mk,nk->mn", _codes(y / sr), wq)
+    return acc * sr * s_w[None, :]
 
 
 def _qdot_static(y: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                  sr: torch.Tensor):
     """``_qdot`` with a calibrated static scale ``sr`` (0-d float32):
     codes = round(y · (1/sr)), dequantized as acc · (sr · s_w)."""
-    return _int_dot(_codes(y * (1.0 / sr)), wq) * (sr * s_w)[None, :]
+    acc = _int_einsum("mk,nk->mn", _codes(y * (1.0 / sr)), wq)
+    return acc * (sr * s_w)[None, :]
+
+
+# The int8 attention core of ``w8a8+attn`` (K4a): ``_attn_inner_q8`` and
+# ``_attn_inner_q8s``. q and k are quantized per row over the head's d lanes
+# (their scales separate out of the logits), v per column over the tokens
+# (its scale separates out of p·v), and the softmax numerators e ∈ (0, 1],
+# whose row maxima are exactly 1, take the fixed codes rint(127·e); the
+# denominator is the sum of those codes, so the output is an exact convex
+# combination under the quantized weights.
+
+def _q8_operands(qkv: torch.Tensor, heads: int, static=None):
+    """The int8 attention operands of a (B, N, 3C) qkv: ``(qi, sq, ki, sk,
+    vi, sv)``, codes (B, N, H, D) int8 and float32 scales — per row (B, N,
+    H, 1) for q and k, per column (B, 1, H, D) for v — or with ``static``
+    (the calibrated (s_q, s_k, s_v), 0-d float32 each) those scalars, the
+    codes then rint(t · (1/s))."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (qkv[..., i * c : (i + 1) * c].reshape(b, n, heads, -1)
+               .to(torch.float32) for i in range(3))
+    if static is not None:
+        s_q, s_k, s_v = static
+        return (_codes(q * (1.0 / s_q)), s_q, _codes(k * (1.0 / s_k)), s_k,
+                _codes(v * (1.0 / s_v)), s_v)
+    sq = _scale_from_amax(q.abs().amax(-1, keepdim=True))
+    sk = _scale_from_amax(k.abs().amax(-1, keepdim=True))
+    sv = _scale_from_amax(v.abs().amax(1, keepdim=True))
+    return _codes(q / sq), sq, _codes(k / sk), sk, _codes(v / sv), sv
+
+
+def _attention_q8_core(qkv, bias, heads, static=None):
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // heads
+    scale = d ** -0.5
+    qi, sq, ki, sk, vi, sv = _q8_operands(qkv, heads, static)
+    acc = _int_einsum("bnhd,bmhd->bhnm", qi, ki)
+    if static is None:
+        # (acc · (s_q[n]·d^-½)) · s_k[m] + bias, left to right
+        logits = acc * (sq * scale).permute(0, 2, 1, 3) \
+            * sk.permute(0, 2, 3, 1)
+    else:
+        logits = acc * (sq * sk * scale)
+    logits = logits + bias.to(torch.float32)[None]
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    pq = torch.round(e * 127.0)  # e ∈ (0, 1]: no clip
+    av = _int_einsum("bhnm,bmhd->bnhd", pq, vi)
+    recip = (1.0 / pq.sum(-1, keepdim=True)).permute(0, 2, 1, 3)
+    return (av * recip * sv).reshape(b, n, -1).to(qkv.dtype)
+
+
+def _attention_q8(qkv: torch.Tensor, bias: torch.Tensor,
+                  heads: int) -> torch.Tensor:
+    """Plain version of K4a with dynamic scales (``_attn_inner_q8``): (B,
+    N, C) in qkv's dtype from a (B, N, 3C) qkv and an (H, N, N) bias. The
+    logits are (acc · (s_q·d^-½)) · s_k + bias, the output (Σ pq·vi ·
+    (1/Σ pq)) · s_v."""
+    return _attention_q8_core(qkv, bias, heads)
+
+
+def _attention_q8s(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                   s_q, s_k, s_v) -> torch.Tensor:
+    """Plain version of K4a with calibrated static scales
+    (``_attn_inner_q8s``): codes rint(t · (1/s)) of the scalars, logits
+    acc · (s_q·s_k·d^-½) + bias, output (Σ pq·vi · (1/Σ pq)) · s_v."""
+    return _attention_q8_core(qkv, bias, heads, (s_q, s_k, s_v))
 
 
 def block_ref_q8(x: torch.Tensor, qparams, heads: int,
-                 exact_gelu: bool = False) -> torch.Tensor:
+                 exact_gelu: bool = False,
+                 quant_attn: bool = False) -> torch.Tensor:
     """Plain version of one w8a8 block (``_block_math_q8``): the four GEMMs
     int8, their inputs quantized from float32 (the LayerNorm outputs and
     the GELU output are never cast to the activation dtype), attention as
-    in ``block_ref``. ``qparams`` is the 17- or 18-tuple of
-    ``quantize_block_params``."""
+    in ``block_ref`` or, with ``quant_attn``, int8 (``_attention_q8``; with
+    the 18-tuple's static scales ``_attention_q8s`` on its entries 4–6).
+    ``qparams`` is the 17- or 18-tuple of ``quantize_block_params``."""
     (l1s, l1b, wq, sq, bq, bias, wp, sp, bp, l2s, l2b,
      wu, su, bu, wd, sd, bd) = qparams[:17]
-    if len(qparams) == 18:
-        s_act = qparams[17]
+    s_act = qparams[17] if len(qparams) == 18 else None
+    if s_act is not None:
         qd = lambda t, w, s, i: _qdot_static(t, w, s, s_act[i])
     else:
         qd = lambda t, w, s, i: _qdot(t, w, s)
@@ -227,7 +497,12 @@ def block_ref_q8(x: torch.Tensor, qparams, heads: int,
     b, n, c = x.shape
     y = _ln(x, l1s, l1b).reshape(b * n, c)
     qkv = (qd(y, wq, sq, 0).to(dt) + bq).reshape(b, n, 3 * c)
-    a = _attention(qkv, bias, heads)
+    if quant_attn and s_act is not None:
+        a = _attention_q8s(qkv, bias, heads, s_act[4], s_act[5], s_act[6])
+    elif quant_attn:
+        a = _attention_q8(qkv, bias, heads)
+    else:
+        a = _attention(qkv, bias, heads)
     p = qd(a.reshape(b * n, c).to(torch.float32), wp, sp, 1).to(dt) + bp
     r = x + p.reshape(b, n, c)
     y2 = _ln(r, l2s, l2b).reshape(b * n, c)
@@ -237,10 +512,11 @@ def block_ref_q8(x: torch.Tensor, qparams, heads: int,
 
 
 def chain_ref_q8(x: torch.Tensor, qparams_list, heads: int,
-                 exact_gelu: bool = False) -> torch.Tensor:
+                 exact_gelu: bool = False,
+                 quant_attn: bool = False) -> torch.Tensor:
     """Plain version of a w8a8 stage: ``block_ref_q8`` back to back."""
     for p in qparams_list:
-        x = block_ref_q8(x, p, heads, exact_gelu).to(x.dtype)
+        x = block_ref_q8(x, p, heads, exact_gelu, quant_attn).to(x.dtype)
     return x
 
 
@@ -255,31 +531,16 @@ def block_act_amax(x: torch.Tensor, params, heads: int,
     GEMM inputs that ``block_ref_q8`` quantizes and the three attention
     operands (unscaled slices of qkv).
     """
-    (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
-    dt = x.dtype
-    b, n, c = x.shape
-    d = c // heads
+    out, (y, a, y2, h1, qkv) = _block_xla(x, params, heads, exact_gelu)
+    c = x.shape[-1]
     f32 = torch.float32
-    y = _ln(x, l1s, l1b)
-    qkv = _mm(y.to(dt), wq).to(dt) + bq
-    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
-    k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
-    v = qkv[..., 2 * c :].reshape(b, n, heads, d)
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32))
-    prob = torch.softmax(logits + bias.to(f32)[None], dim=-1)
-    a = torch.einsum("bhnm,bmhd->bnhd", prob.to(dt).to(f32), v.to(f32))
-    a = a.reshape(b, n, c).to(dt)
-    r = x + (_mm(a, wp).to(dt) + bp)
-    y2 = _ln(r, l2s, l2b)
-    h1 = gelu(_mm(y2.to(dt), wu).to(dt).to(f32) + bu.to(f32), exact_gelu)
-    o = _mm(h1.to(dt), wd).to(dt) + bd
     amax = torch.stack([
         y.abs().max(), a.to(f32).abs().max(), y2.abs().max(), h1.abs().max(),
         qkv[..., :c].to(f32).abs().max(),
         qkv[..., c : 2 * c].to(f32).abs().max(),
         qkv[..., 2 * c :].to(f32).abs().max(),
     ])
-    return r + o, amax
+    return out, amax
 
 
 # -------------------------------------------------------------- CUDA path
@@ -333,6 +594,26 @@ def _check_cuda(x, params_list, heads):
     return b, n, c, hidden
 
 
+def _on_cuda(t: torch.Tensor) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one
+    (the kernel runs); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def _needs_grad(x: torch.Tensor, params_list) -> bool:
+    """Grad mode is on and the activation or a parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad
+        or any(t.requires_grad for p in params_list for t in p))
+
+
+def _pointers(params_list):
+    flat = [t for p in params_list for t in p]
+    return (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+
+
 def _launch(fn_name, x, params_list, heads):
     b, n, c, hidden = _check_cuda(x, params_list, heads)
     m = b * n
@@ -341,8 +622,7 @@ def _launch(fn_name, x, params_list, heads):
     att = torch.empty((m, c), dtype=x.dtype, device=x.device)
     r = torch.empty((m, c), dtype=x.dtype, device=x.device)
     h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
-    flat = [t for p in params_list for t in p]
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+    ptrs = _pointers(params_list)
     lib = build.load("fused_block", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     shape = (b, n, c, heads, hidden)
@@ -367,21 +647,109 @@ def _require_tanh_gelu(exact_gelu):
         )
 
 
+def fused_block_train(x: torch.Tensor, params, heads: int,
+                      exact_gelu: bool = False):
+    """K5, the training forward of one block: ``(out, (qkv, probs, gin,
+    r))`` as ``block_train_ref`` returns them.
+
+    CPU tensors run ``block_train_ref``. CUDA tensors (bf16) launch the
+    CUDA training block (``csrc/fused_block.cu``,
+    ``dm_block_train_forward``) and count the launch in
+    ``fused_block_train.launches``.
+    """
+    if not _on_cuda(x):
+        return block_train_ref(x, params, heads, exact_gelu)
+    _require_tanh_gelu(exact_gelu)
+    params = tuple(params)
+    b, n, c, hidden = _check_cuda(x, [params], heads)
+    empty = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    out, r, att = empty(b, n, c), empty(b, n, c), empty(b * n, c)
+    qkv, probs = empty(b, n, 3 * c), empty(b, heads, n, n)
+    gin, h = empty(b, n, hidden), empty(b * n, hidden)
+    lib = build.load("fused_block", _SIGNATURES)
+    err = lib.dm_block_train_forward(
+        x.data_ptr(), out.data_ptr(), b, n, c, heads, hidden,
+        _pointers([params]), qkv.data_ptr(), probs.data_ptr(),
+        gin.data_ptr(), r.data_ptr(), att.data_ptr(), h.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "dm_block_train_forward")
+    fused_block_train.launches += 1
+    return out, (qkv, probs, gin, r)
+
+
+class _BlockTrain(torch.autograd.Function):
+    """Forward through ``fused_block_train`` (K5 on CUDA), saving x, the
+    parameters and the four residuals; backward ``block_train_bwd`` (the
+    JAX package's ``_fused_block_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, heads, exact_gelu, *params):
+        out, saved = fused_block_train(x, params, heads, exact_gelu)
+        ctx.save_for_backward(x, *params, *saved)
+        ctx.heads, ctx.exact_gelu = heads, exact_gelu
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        dx, dparams = block_train_bwd(x, rest[:N_PARAMS], rest[N_PARAMS:], g,
+                                      ctx.heads, ctx.exact_gelu)
+        return (dx, None, None, *dparams)
+
+
+class _ChainTrain(torch.autograd.Function):
+    """Forward through the chain (K3 on CUDA), saving x and the parameters;
+    backward by autograd of ``chain_grad_ref`` recomputed from them (the
+    JAX package's ``_fused_chain_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, x, heads, exact_gelu, *flat):
+        ctx.save_for_backward(x, *flat)
+        ctx.heads, ctx.exact_gelu = heads, exact_gelu
+        return _chain_forward(x, _unflatten(flat), heads, exact_gelu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = (t.detach().requires_grad_(True)
+                    for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = chain_grad_ref(x, _unflatten(flat), ctx.heads,
+                                 ctx.exact_gelu)
+        dx, *dflat = torch.autograd.grad(out, [x, *flat], g)
+        return (dx, None, None, *dflat)
+
+
+def _unflatten(flat):
+    return [tuple(flat[i : i + N_PARAMS])
+            for i in range(0, len(flat), N_PARAMS)]
+
+
 def fused_block(x: torch.Tensor, params, heads: int,
                 exact_gelu: bool = False) -> torch.Tensor:
     """One pre-LN block, (B, N, C) → (B, N, C) in x's dtype.
 
-    CPU tensors run ``block_ref``. CUDA tensors (bf16) launch the CUDA
-    block (``csrc/fused_block.cu``, ``dm_block_forward``) and count the
-    launch in ``fused_block.launches``.
+    Under grad mode with an input that requires grad, the differentiable
+    training path (``fused_block_train`` forward, ``block_train_bwd``
+    backward). Otherwise CPU tensors run ``block_ref`` and CUDA tensors
+    (bf16) launch the CUDA block (``csrc/fused_block.cu``,
+    ``dm_block_forward``), counted in ``fused_block.launches``.
     """
-    if x.device.type == "cpu":
+    if _needs_grad(x, [params]):
+        return _BlockTrain.apply(x, heads, exact_gelu, *params)
+    if not _on_cuda(x):
         return block_ref(x, params, heads, exact_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     _require_tanh_gelu(exact_gelu)
     out = _launch("dm_block_forward", x, [tuple(params)], heads)
     fused_block.launches += 1
+    return out
+
+
+def _chain_forward(x, params_list, heads, exact_gelu):
+    if not _on_cuda(x):
+        return chain_ref(x, params_list, heads, exact_gelu)
+    _require_tanh_gelu(exact_gelu)
+    out = _launch("dm_chain_forward", x, params_list, heads)
+    fused_block_chain.launches += 1
     return out
 
 
@@ -391,23 +759,25 @@ def fused_block_chain(x: torch.Tensor, params_list, heads: int,
 
     CPU tensors run ``chain_ref``. CUDA tensors (bf16) launch the CUDA
     chain (``csrc/fused_block.cu``, ``dm_chain_forward``) and count the
-    launch in ``fused_block_chain.launches``.
+    launch in ``fused_block_chain.launches``. Under grad mode with an input
+    that requires grad, a single block takes ``fused_block``'s training
+    path, and several blocks the chain forward with a backward that
+    recomputes ``chain_grad_ref``.
     """
-    if x.device.type == "cpu":
-        return chain_ref(x, params_list, heads, exact_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _require_tanh_gelu(exact_gelu)
     params_list = [tuple(p) for p in params_list]
     if not params_list:
         raise ValueError("a chain needs at least one block")
-    out = _launch("dm_chain_forward", x, params_list, heads)
-    fused_block_chain.launches += 1
-    return out
+    if _needs_grad(x, params_list):
+        if len(params_list) == 1:
+            return _BlockTrain.apply(x, heads, exact_gelu, *params_list[0])
+        return _ChainTrain.apply(x, heads, exact_gelu,
+                                 *(t for p in params_list for t in p))
+    return _chain_forward(x, params_list, heads, exact_gelu)
 
 
 fused_block.launches = 0
 fused_block_chain.launches = 0
+fused_block_train.launches = 0
 
 
 # --------------------------------------------------------- w8a8 CUDA path
@@ -432,7 +802,7 @@ def _check_cuda_q8(x, qparams_list, heads):
     return b, n, c, hidden, width == 18
 
 
-def _launch_q8(fn_name, x, qparams_list, heads):
+def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     b, n, c, hidden, static = _check_cuda_q8(x, qparams_list, heads)
     m = b * n
     dev = x.device
@@ -443,63 +813,93 @@ def _launch_q8(fn_name, x, qparams_list, heads):
     h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
     codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
-    flat = [t for p in qparams_list for t in p]
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+    ptrs = _pointers(qparams_list)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     shape = (b, n, c, heads, hidden)
+    flags = (int(static), int(quant_attn))
     scratch = (qkv.data_ptr(), att.data_ptr(), r.data_ptr(), h.data_ptr(),
                codes.data_ptr(), row_scale.data_ptr())
     if fn_name == "dm_block_forward_q8":
         err = lib.dm_block_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
-                                      ptrs, int(static), *scratch, stream)
+                                      ptrs, *flags, *scratch, stream)
     else:
         err = lib.dm_chain_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
-                                      len(qparams_list), ptrs, int(static),
+                                      len(qparams_list), ptrs, *flags,
                                       *scratch, stream)
     build.check(lib, err, fn_name)
     return out
 
 
+def _refuse_grad(x, qparams_list):
+    if _needs_grad(x, qparams_list):
+        raise RuntimeError(
+            "the w8a8 block kernels are inference-only (as the JAX "
+            "package's quant path): run them under torch.no_grad() or on "
+            "inputs that do not require grad")
+
+
 def fused_block_q8(x: torch.Tensor, qparams, heads: int,
-                   exact_gelu: bool = False) -> torch.Tensor:
+                   exact_gelu: bool = False,
+                   quant_attn: bool = False) -> torch.Tensor:
     """One w8a8 block, (B, N, C) → (B, N, C) in x's dtype; ``qparams`` from
-    ``quantize_block_params`` (17 entries, or 18 with static scales).
+    ``quantize_block_params`` (17 entries, or 18 with static scales);
+    ``quant_attn`` runs the attention int8 too (K4a).
 
     CPU tensors run ``block_ref_q8``. CUDA tensors (bf16) launch the CUDA
     w8a8 block (``csrc/fused_block_q8.cu``, ``dm_block_forward_q8``) and
-    count the launch in ``fused_block_q8.launches``.
+    count the launch in ``fused_block_q8.launches``, or with
+    ``quant_attn`` in ``fused_block_q8_attn.launches``. Inference only.
     """
-    if x.device.type == "cpu":
-        return block_ref_q8(x, qparams, heads, exact_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _refuse_grad(x, [qparams])
+    if not _on_cuda(x):
+        return block_ref_q8(x, qparams, heads, exact_gelu, quant_attn)
     _require_tanh_gelu(exact_gelu)
-    out = _launch_q8("dm_block_forward_q8", x, [tuple(qparams)], heads)
-    fused_block_q8.launches += 1
+    out = _launch_q8("dm_block_forward_q8", x, [tuple(qparams)], heads,
+                     quant_attn)
+    (fused_block_q8_attn if quant_attn else fused_block_q8).launches += 1
     return out
 
 
 def fused_block_chain_q8(x: torch.Tensor, qparams_list, heads: int,
-                         exact_gelu: bool = False) -> torch.Tensor:
+                         exact_gelu: bool = False,
+                         quant_attn: bool = False) -> torch.Tensor:
     """A w8a8 stage: ``len(qparams_list)`` blocks back to back.
 
     CPU tensors run ``chain_ref_q8``. CUDA tensors (bf16) launch the CUDA
     w8a8 chain (``csrc/fused_block_q8.cu``, ``dm_chain_forward_q8``) and
-    count the launch in ``fused_block_chain_q8.launches``.
+    count the launch in ``fused_block_chain_q8.launches``, or with
+    ``quant_attn`` in ``fused_block_chain_q8_attn.launches``. Inference
+    only.
     """
-    if x.device.type == "cpu":
-        return chain_ref_q8(x, qparams_list, heads, exact_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    _require_tanh_gelu(exact_gelu)
     qparams_list = [tuple(p) for p in qparams_list]
     if not qparams_list:
         raise ValueError("a chain needs at least one block")
-    out = _launch_q8("dm_chain_forward_q8", x, qparams_list, heads)
-    fused_block_chain_q8.launches += 1
+    _refuse_grad(x, qparams_list)
+    if not _on_cuda(x):
+        return chain_ref_q8(x, qparams_list, heads, exact_gelu, quant_attn)
+    _require_tanh_gelu(exact_gelu)
+    out = _launch_q8("dm_chain_forward_q8", x, qparams_list, heads,
+                     quant_attn)
+    (fused_block_chain_q8_attn if quant_attn
+     else fused_block_chain_q8).launches += 1
     return out
+
+
+def fused_block_q8_attn(x: torch.Tensor, qparams, heads: int,
+                        exact_gelu: bool = False) -> torch.Tensor:
+    """K4a: ``fused_block_q8`` with the int8 attention core."""
+    return fused_block_q8(x, qparams, heads, exact_gelu, quant_attn=True)
+
+
+def fused_block_chain_q8_attn(x: torch.Tensor, qparams_list, heads: int,
+                              exact_gelu: bool = False) -> torch.Tensor:
+    """K4a: ``fused_block_chain_q8`` with the int8 attention core."""
+    return fused_block_chain_q8(x, qparams_list, heads, exact_gelu,
+                                quant_attn=True)
 
 
 fused_block_q8.launches = 0
 fused_block_chain_q8.launches = 0
+fused_block_q8_attn.launches = 0
+fused_block_chain_q8_attn.launches = 0

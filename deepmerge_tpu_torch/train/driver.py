@@ -41,6 +41,7 @@ from deepmerge_tpu_torch.train.sampler import (
     MultiScenePairSampler,
     PairSampler,
 )
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 
 def _start_pull(losses: Optional[torch.Tensor]):
@@ -79,7 +80,7 @@ def train(
             "linears) is the port's scale-out item (ROADMAP.md queue A, "
             "Scale-out)"
         )
-    device = torch.device(device)
+    device = resolve_device(device)
     if scene is None:
         scene = generate_scene(seed=cfg.train.seed)
 

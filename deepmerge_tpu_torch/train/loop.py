@@ -41,6 +41,7 @@ from deepmerge_tpu_torch.config import Config
 from deepmerge_tpu_torch.models.s2former import S2Former, training_model
 from deepmerge_tpu_torch.ops.patches import extract_multiscale_patches
 from deepmerge_tpu_torch.train.losses import contrastive_pair_loss
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -82,12 +83,14 @@ def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
 
 def create_train_state(cfg: Config, steps_per_epoch: int = 1,
                        state_dict: Optional[dict] = None,
-                       device: torch.device | str = "cpu") -> TrainState:
-    """The training model on ``device`` with ``state_dict`` (the
+                       device: torch.device | str = "cuda") -> TrainState:
+    """The training model on ``device`` (the card unless the caller asks
+    for the CPU; without a card that raises) with ``state_dict`` (the
     reference-named weights and, for v4 and v5, BatchNorm buffers; default
     ``init_state_dict`` from ``cfg.train.seed``), a fresh Adam, step 0."""
     from deepmerge_tpu_torch.compat.weights import init_state_dict
 
+    device = resolve_device(device)
     mcfg = training_model(cfg)
     model = S2Former(mcfg)
     if state_dict is None:
@@ -98,7 +101,7 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1,
     optimizer = torch.optim.Adam(model.parameters(), lr=schedule(0),
                                  betas=(0.9, 0.999), eps=1e-8)
     return TrainState(model=model, optimizer=optimizer, step=0, lr=schedule,
-                      generator=torch.Generator(device=torch.device(device)),
+                      generator=torch.Generator(device=device),
                       seed=cfg.train.seed)
 
 

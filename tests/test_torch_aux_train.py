@@ -122,7 +122,8 @@ def test_aux_trainer_matches_jax(variant, scenes, monkeypatch):
     want_bs = jax.tree.map(np.asarray, jstate.batch_stats)
 
     state = tloop.create_train_state(
-        cfg, 2, state_dict=state_dict_from_flax(params, cfg.model, stats0))
+        cfg, 2, state_dict=state_dict_from_flax(params, cfg.model, stats0),
+        device="cpu")
     state.lr = tloop.lr_schedule(cfg, spe)
     arrays = ours.epoch_arrays(11, DATA["batch_size"])
     arrays = tuple(torch.cat([a, a])[:STEPS] for a in arrays)
@@ -235,11 +236,12 @@ def test_training_with_dropout_is_seeded_by_step(scenes):
             scene, *make_training_pairs(scene), cfg.data)
     arrays = tuple(a[:2] for a in sampler.epoch_arrays(0, 8))
     epoch_fn = tloop.make_scanned_epoch(cfg, sampler.device_scene)
-    start = tloop.create_train_state(cfg, 2).model.state_dict()
+    start = tloop.create_train_state(cfg, 2, device="cpu").model.state_dict()
 
     def run(seed):
         c = cfg.replace(train=dataclasses.replace(cfg.train, seed=seed))
-        state = tloop.create_train_state(c, 2, state_dict=start)
+        state = tloop.create_train_state(c, 2, state_dict=start,
+                                         device="cpu")
         return epoch_fn(state, *arrays)[1]
 
     a, b, other = run(0), run(0), run(7)
@@ -257,7 +259,7 @@ def test_v4_checkpoint_crosses_to_jax_and_back(tmp_path, scenes):
     back into the port equal to the trained state."""
     cfg, jcfg = _cfgs("v4")
     ours, _ = _fused_samplers(scenes, cfg, jcfg)
-    state = tloop.create_train_state(cfg, 2)
+    state = tloop.create_train_state(cfg, 2, device="cpu")
     start = _bn_stats(state.model)
     arrays = tuple(a[:2] for a in ours.epoch_arrays(0, DATA["batch_size"]))
     state, _ = tloop.make_scanned_epoch(cfg, ours.device_scene)(state,

@@ -23,7 +23,14 @@ probability one bf16 ulp apart moves its products by that ulp). The
 inference attention kernels K7 and K8: their output to 2e-2 of
 max|plain|, as K6's, and K7's gradients through its autograd function
 (the float32 recompute backward, identical on both sides) on the kernel's
-forward against the plain one, the same.
+forward against the plain one, the same. The int8 attention core of
+``w8a8+attn`` (K4a) inside the w8a8 block and chain: as K4 (one flipped
+code on a rounding boundary, here also in the attention's q, k, v and
+probability codes, one quant step). The training block (K5): its output
+and its residual r as a block, its probabilities as K6's, its saved qkv
+and pre-GELU activation to 2e-2 of max|plain| (bf16 roundings of the same
+sums), and the gradients of x and of every parameter through its autograd
+function, kernel forward against plain forward, to 2e-2 of their max.
 """
 
 import numpy as np
@@ -31,6 +38,7 @@ import pytest
 import torch
 
 from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+from deepmerge_tpu_torch.ops.kernels import fused_block as fb
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
     block_act_amax,
     block_ref,
@@ -164,9 +172,11 @@ def test_block_rejects_what_the_kernel_does_not_take(cuda):
         fused_block(x, params[:2] + (params[2].float(),) + params[3:], 2)
 
 
-def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512):
+def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512,
+               quant_attn=False):
     """bf16 activations and ``depth`` w8a8 parameter tuples on the card;
-    with ``static`` each block is calibrated on its own plain input."""
+    with ``static`` each block is calibrated on its own plain input (along
+    the plain chain with the int8 attention when ``quant_attn``)."""
     x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(
         cuda, torch.bfloat16)
     qps, h = [], x
@@ -174,7 +184,7 @@ def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512):
         p = _block_params(rs, n, c, heads, hidden, cuda)
         amax = block_act_amax(h, p, heads)[1] if static else None
         qp = quantize_block_params(p, amax)
-        h = block_ref_q8(h, qp, heads).to(x.dtype)
+        h = block_ref_q8(h, qp, heads, quant_attn=quant_attn).to(x.dtype)
         qps.append(tuple(t.contiguous() for t in qp))
     return x, qps, heads
 
@@ -359,3 +369,80 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
     q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)
     with pytest.raises(ValueError, match="tokens"):
         fa.attention_qkv(q257, b257, 2)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("n", [12, 49, 192, 193, 256])
+def test_q8_attn_block_matches_plain(cuda, n, static):
+    """K4a in the w8a8 block, at v3's, v5's and v1's lengths."""
+    rs = np.random.default_rng(n + 40)
+    x, (qp,), _ = _q8_inputs(rs, 5, n, 1, static, cuda, quant_attn=True)
+    before = (fb.fused_block_q8_attn.launches, fused_block_q8.launches)
+    got = fb.fused_block_q8_attn(x, qp, 2)
+    torch.cuda.synchronize()
+    assert (fb.fused_block_q8_attn.launches,
+            fused_block_q8.launches) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_block_close(got, block_ref_q8(x, qp, 2, quant_attn=True), x,
+                        BLOCK_TOL, BLOCK_RMS_TOL)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+def test_q8_attn_chain_matches_plain(cuda, static):
+    rs = np.random.default_rng(41)
+    x, qps, _ = _q8_inputs(rs, 3, 49, 3, static, cuda, quant_attn=True)
+    x_before = x.clone()
+    before = fb.fused_block_chain_q8_attn.launches
+    got = fb.fused_block_chain_q8_attn(x, qps, 2)
+    torch.cuda.synchronize()
+    assert fb.fused_block_chain_q8_attn.launches == before + 1
+    torch.testing.assert_close(x, x_before, rtol=0, atol=0)  # input intact
+    _assert_block_close(got, chain_ref_q8(x, qps, 2, quant_attn=True), x,
+                        1.5 * BLOCK_TOL, CHAIN_RMS_TOL)
+
+
+@pytest.mark.parametrize("n", [12, 49, 192, 193, 256])
+def test_train_block_matches_plain(cuda, n):
+    """K5's output and its four saved residuals."""
+    rs = np.random.default_rng(n + 50)
+    params = _block_params(rs, n, 128, 2, 512, cuda)
+    x = torch.from_numpy(rs.standard_normal((5, n, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    before = fb.fused_block_train.launches
+    out, (qkv, probs, gin, r) = fb.fused_block_train(x, params, 2)
+    torch.cuda.synchronize()
+    assert fb.fused_block_train.launches == before + 1
+    want_out, (w_qkv, w_probs, w_gin, w_r) = fb.block_train_ref(x, params, 2)
+    assert probs.shape == (5, 2, n, n) and gin.shape == (5, n, 512)
+    _assert_block_close(out, want_out, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    _assert_block_close(r, w_r, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    assert float((probs.float() - w_probs.float()).abs().max()) <= PROBS_TOL
+    assert _rel_err(qkv, w_qkv) <= BLOCK_TOL
+    assert _rel_err(gin, w_gin) <= BLOCK_TOL
+
+
+def test_train_block_gradients_match_plain(cuda, monkeypatch):
+    """The gradients of x and of every parameter through the
+    differentiable block, on K5's forward against the plain one."""
+    rs = np.random.default_rng(60)
+    params = _block_params(rs, 49, 128, 2, 512, cuda)
+    x = torch.from_numpy(rs.standard_normal((4, 49, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    g = torch.from_numpy(rs.standard_normal((4, 49, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+
+    def grads():
+        xs = x.clone().requires_grad_(True)
+        ps = [t.clone().requires_grad_(True) for t in params]
+        fused_block(xs, ps, 2).backward(g)
+        return [xs.grad] + [t.grad for t in ps]
+
+    before = fb.fused_block_train.launches
+    got = grads()
+    assert fb.fused_block_train.launches == before + 1
+    monkeypatch.setattr(fb, "fused_block_train", fb.block_train_ref)
+    want = grads()
+    torch.cuda.synchronize()
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype
+        assert _rel_err(a, w) <= BLOCK_TOL, i

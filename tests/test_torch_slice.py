@@ -152,7 +152,6 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
 
 @pytest.mark.parametrize("change", [
     dict(variant="vit"),
-    dict(quantize="w8a8+attn"),
     dict(chain_stage0=True),
 ])
 def test_unported_configs_raise(change):

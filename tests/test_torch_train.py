@@ -151,7 +151,8 @@ def test_scanned_trainer_matches_jax(scenes, flax_params):
     spe, want_losses, want_params = _jax_scanned(scenes, flax_params, STEPS)
     assert spe == len(ours) // DATA["batch_size"]
     start = state_dict_from_flax(flax_params, cfg.model)
-    state = tloop.create_train_state(cfg, 2, state_dict=start)
+    state = tloop.create_train_state(cfg, 2, state_dict=start,
+                                    device="cpu")
     # JAX's schedule ran over its own steps-per-epoch; use the same
     state.lr = tloop.lr_schedule(cfg, spe)
     epoch_fn = tloop.make_scanned_epoch(cfg, ours.device_scene)
@@ -199,8 +200,10 @@ def test_fused_steps_equal_the_scanned_epoch(scenes, flax_params):
     cfg, _ = _cfgs()
     ours, _ = _samplers(scenes)
     start = state_dict_from_flax(flax_params, cfg.model)
-    a = tloop.create_train_state(cfg, 2, state_dict=start)
-    b = tloop.create_train_state(cfg, 2, state_dict=start)
+    a = tloop.create_train_state(cfg, 2, state_dict=start,
+                                    device="cpu")
+    b = tloop.create_train_state(cfg, 2, state_dict=start,
+                                    device="cpu")
     arrays = ours.epoch_arrays(5, DATA["batch_size"])
     a, want = tloop.make_scanned_epoch(cfg, ours.device_scene)(
         a, *(x[:3] for x in arrays))
@@ -225,7 +228,8 @@ def test_host_batch_steps_and_eval_match_jax(scenes, flax_params):
     jstate = jstate.replace(params=params, opt_state=jstate.tx.init(params))
     jstep = jloop.make_train_step(model, jcfg)
     state = tloop.create_train_state(
-        cfg, 2, state_dict=state_dict_from_flax(flax_params, cfg.model))
+        cfg, 2, state_dict=state_dict_from_flax(flax_params, cfg.model),
+        device="cpu")
     step = tloop.make_train_step(cfg)
     got, want = [], []
     for _, tb, jb in zip(range(3), ours.epoch_batches(9, 8),
@@ -255,7 +259,8 @@ def test_checkpoint_loads_into_jax_with_equal_embeddings(tmp_path, scenes,
     cfg, jcfg = _cfgs()
     ours, _ = _samplers(scenes)
     state = tloop.create_train_state(
-        cfg, 2, state_dict=state_dict_from_flax(flax_params, cfg.model))
+        cfg, 2, state_dict=state_dict_from_flax(flax_params, cfg.model),
+        device="cpu")
     epoch_fn = tloop.make_scanned_epoch(cfg, ours.device_scene)
     arrays = ours.epoch_arrays(0, DATA["batch_size"])
     state, _ = epoch_fn(state, *(a[:2] for a in arrays))

@@ -180,7 +180,8 @@ def test_checkpoint_roundtrip_and_resume_rules(tmp_path, scenes,
     cfg, _ = _cfgs(num_epochs=2, checkpoint_dir=str(tmp_path))
     ours, _ = _samplers(scenes)
     start = state_dict_from_flax(flax_params, cfg.model)
-    state = tloop.create_train_state(cfg, 2, state_dict=start)
+    state = tloop.create_train_state(cfg, 2, state_dict=start,
+                                    device="cpu")
     epoch_fn = tloop.make_scanned_epoch(cfg, ours.device_scene)
     arrays = ours.epoch_arrays(0, DATA["batch_size"])
     state, _ = epoch_fn(state, *(a[:2] for a in arrays))
@@ -193,7 +194,8 @@ def test_checkpoint_roundtrip_and_resume_rules(tmp_path, scenes,
                          weights_only=False)
     assert set(payload) == {"net", "optimizer", "epoch", "time", "scales",
                             "depth", "name"}
-    fresh = tloop.create_train_state(cfg, 2, state_dict=start)
+    fresh = tloop.create_train_state(cfg, 2, state_dict=start,
+                                    device="cpu")
     fresh, epoch, elapsed = mgr.restore(fresh)
     assert (epoch, elapsed, fresh.step) == (2, 2.5, 2)
     for (k, a), b in zip(state.model.state_dict().items(),
@@ -221,8 +223,9 @@ def test_training_model_rules():
                 mcfg.chain_stage0) == (False, "", False, False)
         k5 = cfg.replace(train=dataclasses.replace(cfg.train,
                                                    fused_block=True))
-        with pytest.raises(NotImplementedError, match="K5"):
-            training_model(k5)
+        # train.fused_block keeps the block kernel: the training block K5
+        assert training_model(k5) == dataclasses.replace(
+            cfg.model, fused_block=True, fused_stage_chain=False)
     # dropout, drop path and the unfused attention train (off the block
     # kernels, as the JAX package trains them); an unported variant raises
     for change in (dict(drop_ratio=0.1), dict(attn_drop_ratio=0.1),
@@ -233,8 +236,9 @@ def test_training_model_rules():
     bad = cfg.replace(model=dataclasses.replace(cfg.model, variant="vit"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         training_model(bad)
-    # the inference model refuses a training forward: that is K5's path
+    # the inference model (stage chain on) refuses a training forward:
+    # training runs the model of training_model
     model = S2Former(cfg.model)
     patches = [torch.rand((2, s, s, 3)) for s in TINY["input_image_scales"]]
-    with pytest.raises(NotImplementedError, match="K5"):
+    with pytest.raises(NotImplementedError, match="training_model"):
         model(patches, torch.rand((2, 19)), train=True)
