@@ -20,7 +20,9 @@ kernel against its plain PyTorch version on the card:
      (K5) at the training batch of 240 and the same lengths, its output,
      its four saved residuals and the gradients of x and of every
      parameter through its autograd function; K2 and K3 beside one
-     ``torch.nn.TransformerEncoderLayer`` / ``TransformerEncoder``;
+     ``torch.nn.TransformerEncoderLayer`` / ``TransformerEncoder``; K2's
+     GEMM alone on a stage-0 block's four shapes (TFLOP/s beside
+     ``torch.matmul``), and K7 under other launch plans of its core;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run, the median time of three runs, one profiled run (the device's busy
@@ -61,7 +63,16 @@ kernel against its plain PyTorch version on the card:
      again with ``train.fused_block=True``: K5 launched 12 times a step,
      K6 not at all, timed and profiled beside the unfused run, its losses
      held to the plain versions' and its step-0 loss to the unfused run's
-     on the same weights and batch.
+     on the same weights and batch;
+  8. the parity bar on trained weights: the flagship trained on the
+     slice's scene (``TRUSTED_EPOCHS`` epochs, about 120 s), an absolute
+     threshold calibrated on a second scene, then the v3 bf16 and w8a8
+     slices at that threshold on the kernels and on the plain versions,
+     the merged maps' label disagreement gated at BASELINE.md's 0.5%.
+
+``--only kernels,trained`` runs phase 3 and/or phase 8 alone (after the
+card, the build and the scene) and prints no result lines: a development
+run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -184,6 +195,9 @@ SERVE_BATCH = 2048
 TRAIN_PAIRS = 120
 TRAIN_EPOCHS = 2
 TRAIN_STEPS = 8
+# the trained-weight parity phase: whole epochs (49 steps of TRAIN_PAIRS on
+# the slice's scene), about 120 s of card time at 165-182 ms a step
+TRUSTED_EPOCHS = 14
 
 
 class SmokeFailure(RuntimeError):
@@ -201,6 +215,42 @@ def run_cmd(args):
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e.__class__.__name__})"
     return (out.stdout or out.stderr).strip()
+
+
+def demangle(names):
+    """C++ names of mangled kernel symbols (c++filt where the machine has
+    it), without the anonymous namespace and the parameter list."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        plain = out.stdout.splitlines()
+    except (OSError, subprocess.TimeoutExpired):
+        plain = []
+    if len(plain) != len(names):
+        plain = names
+    strip = lambda n: n.replace("(anonymous namespace)::", "").split("(")[0] \
+        .removeprefix("void ")
+    return [strip(n) for n in plain]
+
+
+def ptxas_summary(log):
+    """(kernel, registers, spill line) for each entry function in an nvcc
+    ``-Xptxas -v`` log, in the order ptxas compiled them."""
+    import re
+
+    rows, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            rows.append((name, int(regs), spill))
+            name = None
+    return [(n, r, sp) for n, (_, r, sp) in
+            zip(demangle([row[0] for row in rows]), rows)]
 
 
 def cuda_ms(fn, reps=5):
@@ -411,8 +461,8 @@ def check_kernels(dev, ds, scene):
         b2 = bound(*block_work(b, 192, 1))
         print(f"K2 fused_block B={b} N=192 C=768 H=12: {errs}; {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms, TransformerEncoderLayer "
-              f"{lib_ms:.3f} ms, bound {b2['bound_ms']:.3f} ms "
-              f"({b2['bound_by']})")
+              f"{lib_ms:.3f} ms (target K2 <= it: {target(ms <= lib_ms)}), "
+              f"bound {b2['bound_ms']:.3f} ms ({b2['bound_by']})")
         k2.append(dict(max_abs_err=aerr, ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, **b2))
         del x, plist, got, want
@@ -447,6 +497,60 @@ def check_kernels(dev, ds, scene):
         library_ms=s1["library_ms"] + s2["library_ms"], **b3,
     )
     return results
+
+
+# the targets of the attention core's and the GEMM's redesign, printed as
+# met or not beside the numbers they read
+TARGET_GEMM_TFLOPS = 500.0
+TARGET_K7_BOUND_FACTOR = 3.0
+
+
+def target(ok):
+    return "met" if ok else "NOT met"
+
+
+def check_gemms(dev):
+    """Phase 3: K2's GEMM alone on the four shapes of a stage-0 block at
+    B 1024, N 192 (M 196,608: qkv 2304x768, proj 768x768 with the
+    residual, up 3072x768 with the GELU, down 768x3072 with the residual),
+    each against its plain version on the first 4096 rows, its time and
+    TFLOP/s beside one ``torch.matmul`` of the same shape (the yardstick;
+    the port never calls it for these)."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    m, c, hidden = 1024 * 192, 768, 3072
+    rs = np.random.default_rng(3)
+    r = lambda *shape, s=1.0: torch.from_numpy(
+        (rs.standard_normal(shape) * s).astype(np.float32)).to(
+            dev, torch.bfloat16)
+    total_ms = 0.0
+    for what, n, k, epi in (("qkv", 3 * c, c, "bias_cast"),
+                            ("proj", c, c, "bias_residual"),
+                            ("up", hidden, c, "bias_gelu"),
+                            ("down", c, hidden, "bias_residual")):
+        a, w, bias = r(m, k), r(n, k, s=k ** -0.5), r(n, s=0.1)
+        resid = r(m, n) if epi == "bias_residual" else None
+        got = fb.gemm(a, w, bias, epi, resid)[0][:4096]
+        want = fb.gemm_ref(a[:4096], w, bias, epi,
+                           None if resid is None else resid[:4096])[0]
+        err = rel_err(got, want)
+        require(err <= TOL_BLOCK, f"GEMM {what} differs from plain: {err}")
+        ms = cuda_ms(lambda: fb.gemm(a, w, bias, epi, resid))
+        mm_ms = cuda_ms(lambda: torch.matmul(a, w.t()))
+        tf = 2 * m * n * k / ms / 1e9
+        total_ms += ms
+        print(f"GEMM {what} ({epi}) {m}x{n}x{k}: rel err {err:.3e} (tol "
+              f"{TOL_BLOCK}); {ms:.3f} ms, {tf:.0f} TFLOP/s (target >= "
+              f"{TARGET_GEMM_TFLOPS:.0f}: {target(tf >= TARGET_GEMM_TFLOPS)}"
+              f"); torch.matmul {mm_ms:.3f} ms, "
+              f"{2 * m * n * k / mm_ms / 1e9:.0f} TFLOP/s")
+        del a, w, bias, resid, got, want
+        torch.cuda.empty_cache()
+    print(f"GEMMs of one stage-0 block at B 1024: {total_ms:.3f} ms")
+    return total_ms
 
 
 def check_k4(dev):
@@ -764,10 +868,31 @@ def check_wide_tokens(dev):
                    for t in fa.split_qkv(qkv, heads))
         lib_ms = attention_library_ms(q, k, v, bias)
         bk = attention_work(b, n)
+        goals = []
+        if n >= 192:
+            goals.append(f"target <= SDPA: {target(ms <= lib_ms)}")
+        if (b, n) == (1024, 193):
+            goals.append(f"target <= {TARGET_K7_BOUND_FACTOR:.0f}x bound: "
+                         f"{target(ms <= TARGET_K7_BOUND_FACTOR * bk['bound_ms'])}")
         print(f"K7 attention_qkv B={b} N={n} C={c} H={heads}: rel err "
               f"{err:.3e} (tol {TOL_K7}); {ms:.4f} ms, plain {plain_ms:.3f} "
               f"ms, SDPA {lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms "
-              f"({bk['bound_by']})")
+              f"({bk['bound_by']}){'; ' if goals else ''}{', '.join(goals)}")
+        if n in (192, 193):
+            # other launch plans of the same core: warps a CTA (4 warps x 3
+            # query tiles or 12 x 1) and samples a CTA
+            sweep = []
+            for warps, samples in ((4, 1), (4, 4), (12, 1), (12, 4)):
+                plan = fb.attention_plan(b, n, heads, warps, samples)
+                got_p = fa.attention_qkv(qkv, bias, heads, plan=plan)
+                require(torch.equal(got_p, got), f"K7 plan {plan['ints']} "
+                        "computes other bits than the default plan")
+                sweep.append(f"{warps} warps x {samples} samples "
+                             f"{cuda_ms(lambda: fa.attention_qkv(qkv, bias, heads, plan=plan)):.4f} ms")
+            default = fb.attention_plan(b, n, heads)
+            print(f"  K7 plans at N={n} (default {default['warps']} warps x "
+                  f"{default['samples']} samples, {default['ctas_per_sm']} "
+                  f"CTAs an SM): {'; '.join(sweep)}")
         results[("K7", b, n)] = dict(max_abs_err=abs_err(got, want), ms=ms,
                                      plain_ms=plain_ms, library_ms=lib_ms,
                                      **bk)
@@ -1385,6 +1510,142 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
     return launches, (med * 1e3, got)
 
 
+def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
+                         valid, region_map):
+    """Phase 8: the parity bar on trained weights. Trains the flagship on
+    the slice's scene (``train.driver.train``, unfused blocks, bf16
+    compute, ``TRAIN_PAIRS`` pairs a step) for ``TRUSTED_EPOCHS`` epochs,
+    calibrates an absolute threshold on a second scene
+    (``calibrate_threshold``, the root eval.py's procedure), then runs the
+    v3 bf16 and w8a8 slices at that threshold on the kernels and on the
+    plain versions: the merged maps' label disagreement is gated at
+    ``LABEL_DISAGREEMENT_MAX``, beside the embeddings' RMS error and the
+    first-round decisions that differ. Prints the margin: the share of
+    valid edges whose distance lies within the embeddings' relative RMS
+    error of the threshold (|d - thr| <= err·thr)."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.models import s2former
+    from deepmerge_tpu_torch.train.driver import train
+    from deepmerge_tpu_torch.utils.parity import (
+        label_disagreement,
+        pair_disagreement,
+    )
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_trusted_")
+    never = 10 ** 6
+    cfg = Config(model=ModelConfig(),
+                 data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
+                 train=TrainConfig(num_epochs=TRUSTED_EPOCHS,
+                                   checkpoint_every=never,
+                                   checkpoint_tail_from=never,
+                                   checkpoint_dir=os.path.join(root, "ck"),
+                                   log_dir=os.path.join(root, "logs")))
+    try:
+        log = []
+        t = time.perf_counter()
+        state, history = train(cfg, scene=scene, log_fn=log.append,
+                               device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = np.asarray(history.train_losses)
+    require(np.isfinite(losses).all(), f"trained losses {losses}")
+    steps = int(state.step)
+    print(f"trained weights: {steps} steps ({TRUSTED_EPOCHS} epochs) of "
+          f"{TRAIN_PAIRS} pairs in {train_s:.1f} s "
+          f"({train_s / steps * 1e3:.1f} ms/step); epoch-mean loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    trained = {k: v.detach().clone() for k, v in
+               state.model.state_dict().items()}
+    del state
+    torch.cuda.empty_cache()
+
+    def extractor(quantize):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mcfg = ModelConfig(quantize=quantize)
+        model = s2former.S2Former(mcfg)
+        model.load_state_dict(trained, strict=True)
+        return FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
+                                device=dev)
+
+    val = generate_scene(**dict(SCENE, seed=SCENE["seed"] + 500))
+    ex = extractor("")
+    val_emb = torch.from_numpy(ex.extract_scene(val, dcfg)).to(dev)
+    cal = calibrate_threshold(val, val_emb, max_rounds=8)
+    thr = cal.threshold
+    print(f"calibrated on the scene of seed {SCENE['seed'] + 500}: "
+          f"threshold {thr:.6f} ({cal.disagreement:.5f} pair disagreement "
+          f"with its objects, {cal.clusters} clusters)")
+    del ex, val_emb
+    gt = scene.object_of_region[scene.labels]
+    r = scene.regions.num_regions
+
+    results = {}
+    for label, quantize in (("bf16", ""), ("w8a8", "w8a8")):
+        ex = extractor(quantize)
+
+        def run():
+            out = ex.segment_scene_device(
+                scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
+                device_scene=ds, region_map=region_map, threshold=thr,
+                with_embeddings=True)
+            torch.cuda.synchronize()
+            return out
+
+        out_k = run()
+        with plain_versions():
+            out_p = run()
+        n_pts = scene.regions.num_points
+        emb_rms = rms_rel_err(out_k[5][:n_pts], out_p[5][:n_pts])
+        d_k = out_k[0].cpu().numpy()[valid]
+        d_p = out_p[0].cpu().numpy()[valid]
+        flips = float(((d_k < thr) != (d_p < thr)).mean())
+        margin = float((np.abs(d_p - thr) <= emb_rms * abs(thr)).mean())
+        map_k, map_p = out_k[3].cpu().numpy(), out_p[3].cpu().numpy()
+        dis = label_disagreement(map_k, map_p)
+        print(f"trained weights, v3 {label} slice at threshold {thr:.6f}: "
+              f"{int(out_k[4])} clusters (plain {int(out_p[4])}) after "
+              f"{int(out_k[2])} rounds; embeddings RMS rel err "
+              f"{emb_rms:.3e} (max {TOL_EMB_RMS}); first-round decisions "
+              f"that differ {flips:.5f} of {int(valid.sum())} edges (max "
+              f"{EDGE_FLIPS_MAX}); margin: {margin:.5f} of the edges lie "
+              f"within the RMS error of the threshold; label disagreement "
+              f"{dis:.5f} (gate {LABEL_DISAGREEMENT_MAX}); pair "
+              f"disagreement with the scene's objects {pair_disagreement(map_k, gt):.5f} "
+              f"(plain {pair_disagreement(map_p, gt):.5f})")
+        require(emb_rms <= TOL_EMB_RMS,
+                f"trained {label}: embeddings RMS rel err {emb_rms}")
+        require(flips <= EDGE_FLIPS_MAX,
+                f"trained {label}: {flips} of the merge decisions differ")
+        require(dis <= LABEL_DISAGREEMENT_MAX,
+                f"trained {label}: label disagreement {dis} > "
+                f"{LABEL_DISAGREEMENT_MAX}")
+        results[label] = dis
+        del ex, out_k, out_p
+        torch.cuda.empty_cache()
+    print(f"trained-weight parity phase: {time.perf_counter() - t_phase:.1f} "
+          f"s on {card}")
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -1401,6 +1662,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
+    # development runs: ``--only kernels,trained`` runs those phases alone
+    # (after the card, the build and the scene) and prints no result lines
+    only = None
+    if "--only" in sys.argv[1:]:
+        only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
+        require(only <= {"kernels", "trained"}, f"unknown phases {only}")
 
     import warnings
 
@@ -1436,9 +1703,8 @@ def main() -> int:
     print(f"build: {', '.join(k + '.cu' for k in sources)} in "
           f"{time.perf_counter() - t:.1f} s -> {build.BUILD_DIR}")
     for k, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{k}]: {line.strip()}")
+        for kernel, regs, spill in ptxas_summary(log):
+            print(f"  ptxas[{k}] {kernel}: {regs} registers, {spill}")
 
     # the scene of the slices (also the gather check's input)
     dcfg = DataConfig(max_window=512, eval_batch_size=1024)
@@ -1459,12 +1725,21 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     # 3. kernels against their plain versions
-    kernel_results = check_kernels(dev, ds, scene)
-    kernel_results.update(check_k4(dev))
-    kernel_results.update(check_k4a(dev))
-    kernel_results.update(check_k5(dev))
-    kernel_results.update(check_k6(dev))
-    kernel_results.update(check_wide_tokens(dev))
+    if only is None or "kernels" in only:
+        kernel_results = check_kernels(dev, ds, scene)
+        check_gemms(dev)
+        kernel_results.update(check_k4(dev))
+        kernel_results.update(check_k4a(dev))
+        kernel_results.update(check_k5(dev))
+        kernel_results.update(check_k6(dev))
+        kernel_results.update(check_wide_tokens(dev))
+    if only is not None:
+        if "trained" in only:
+            trained_parity_phase(dev, card, scene, ds, dcfg, edges_d,
+                                 valid_d, valid, region_map)
+        print(f"partial run ({','.join(sorted(only))}) in "
+              f"{time.perf_counter() - t_start:.1f} s: no result lines")
+        return 0
 
     def extractor_for(quantize, **model_kw):
         with warnings.catch_warnings():
@@ -1654,6 +1929,9 @@ def main() -> int:
           f"{TOL_K5_VS_UNFUSED_LOSS0})")
     require(rel0 <= TOL_K5_VS_UNFUSED_LOSS0,
             f"step-0 loss through K5 differs from the unfused one: {rel0}")
+    # 8. the parity bar on trained weights
+    trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
+                         region_map)
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)

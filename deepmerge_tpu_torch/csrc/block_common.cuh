@@ -2,7 +2,8 @@
 // training block K5), the w8a8 block kernels (fused_block_q8.cu, K4) and
 // the attention kernels (fused_attention.cu: K6 saved-probs, K7 packed qkv,
 // K8 (B, N, H, D)): warp reductions, bf16 rounding, the tanh GELU,
-// cp.async, and the bf16 attention core, which K4 runs unchanged (the JAX
+// cp.async, ldmatrix and mma.sync, and the bf16 attention core, which K4
+// runs unchanged (the JAX
 // package keeps the attention of its w8a8 block in bf16 unless `quant_attn`
 // sends it to K4a's int8 core in fused_block_q8.cu: `_attn_inner`,
 // deepmerge_tpu/ops/pallas/fused_block.py), K6 runs with kProbs set, K7
@@ -15,13 +16,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr float kLnEps = 1e-5f;
 
@@ -75,260 +74,377 @@ constexpr int kLnMaxVec = 4;  // 8-element vectors per lane: C <= 1024
 // ------------------------------------------------------------- attention
 
 constexpr int kHeadDim = 64;
-constexpr int kHS = kHeadDim + 8;  // Q/K/V shared row stride (bf16): 144 B
-constexpr int kAttnWarps = 8;
-constexpr int kAttnThreads = kAttnWarps * 32;
-constexpr int kMaxKeysPerLane = 8;  // N <= 256
+constexpr int kKS = kHeadDim + 8;  // K/V shared row stride (bf16): 144 B
+constexpr int kAttnMaxWarps = 12;
+constexpr int kAttnPlanInts = 4;   // key-tile bucket, warps, samples, smem
 
-// Shared memory of one attention CTA for n tokens (keys padded to the
-// 16-wide MMA tile): K and V of the head, and per warp a 16-query Q block
-// and a scratch block that holds its f32 logits, then (in place, row by
-// row) its bf16 softmax numerators, then the f32 output of the value
-// product. 170 KB at n = 192.
-struct AttnLayout {
-  int np, s_ld, p_ld;
-  size_t k, v, q, s, bytes;
-};
-
-__host__ __device__ inline AttnLayout attn_layout(int n) {
-  AttnLayout l;
-  l.np = (n + 15) & ~15;
-  l.s_ld = (l.np > kHeadDim ? l.np : kHeadDim) + 4;  // f32 row stride
-  l.p_ld = l.np + 8;                                  // bf16 row stride
-  l.k = 0;
-  l.v = l.k + static_cast<size_t>(l.np) * kHS * sizeof(bf16);
-  l.q = l.v + static_cast<size_t>(l.np) * kHS * sizeof(bf16);
-  l.s = l.q + static_cast<size_t>(kAttnWarps) * 16 * kHS * sizeof(bf16);
-  l.bytes = l.s + static_cast<size_t>(kAttnWarps) * 16 * l.s_ld * sizeof(float);
-  return l;
+// Shared memory of one attention CTA for n tokens: K and V of one sample
+// and head, keys padded to the 16-wide MMA tile. 55,296 B at n = 192,
+// 59,904 B at n = 193, 73,728 B at n = 256. The row stride of 144 B puts
+// the eight rows of an ldmatrix 8x8 on eight different 4-bank groups.
+__host__ __device__ inline int attn_smem_bytes(int n) {
+  return 2 * ((n + 15) / 16) * 16 * kKS * static_cast<int>(sizeof(bf16));
 }
 
-// One CTA per (head, sample); each warp takes 16 queries at a time. Every
-// region offset and row stride above is a multiple of 32 / 16 bytes, as
-// the WMMA loads and stores require. The numerators of row r (2·p_ld bytes
-// from byte 2·r·p_ld) only overwrite logits of rows <= r, which the warp
-// already holds in registers when it writes them. With kProbs the kernel
-// also stores each row's normalized probabilities bf16(e · 1/Σe) to
-// probs (B, H, N, N), straight from the registers that hold e.
-//
-// q, k and v are the first rows of the three operands, each row `ld`
-// elements apart: 3C within a packed (B·N, 3C) qkv (k = q + C, v = q + 2C),
-// C for (B, N, H, 64) tensors. The output rows are C apart. With
-// kNormFirst the numerators are normalized before the value product,
-// bf16(e · (1/Σe)), and the product is the output (the (B, N, H, D) TPU
-// kernel's order); without it the product of bf16(e) is scaled by 1/Σe.
-template <bool kProbs, bool kNormFirst>
-__global__ void __launch_bounds__(kAttnThreads)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += a·b, m16n8k16, bf16 operands, f32 accumulators. Fragments (g =
+// lane/4, t = lane%4): a rows g and g+8, columns 2t, 2t+1 and those + 8;
+// b rows (k) 2t, 2t+1 and + 8, column g; d rows g and g+8, columns 2t,
+// 2t+1. The accumulator layout of a 16x16 pair of tiles is the A layout.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// q·d^-½ of one query row's column pair, rounded to bf16 as the TPU kernel
+// scales it; 0 for a row past N.
+__device__ __forceinline__ uint32_t q_pair(const bf16* q, long long row,
+                                           bool in, int col, float scale) {
+  if (!in) return 0u;
+  const float2 f = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(q + row + col));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// bias[i, j] and bias[i, j+1] of the head's (N, N) f32 bias for a logit
+// pair, the indices clamped into the matrix so that every load is in
+// bounds and none sits behind a branch (the loads of a tile's row can then
+// all be in flight together); the caller masks what lies past N. One
+// float2 load where N is even (j is even, so the pair is 8-byte aligned).
+template <bool kEven>
+__device__ __forceinline__ float2 bias_load(const float* bias_h, int i, int j,
+                                            int N) {
+  const float* row = bias_h + static_cast<long long>(min(i, N - 1)) * N;
+  if (kEven) return *reinterpret_cast<const float2*>(row + min(j, N - 2));
+  return make_float2(row[min(j, N - 1)], row[min(j + 1, N - 1)]);
+}
+
+// Adds the bias pair to a logit pair; keys past N become -inf, and a row
+// past N keeps its logits (finite; never stored).
+__device__ __forceinline__ void add_bias(float& x0, float& x1, float2 b, int i,
+                                         int j, int N) {
+  if (i < N) {
+    x0 = j < N ? x0 + b.x : -INFINITY;
+    x1 = j + 1 < N ? x1 + b.y : -INFINITY;
+  }
+}
+
+// + bias over all 2·kKT 8-key tiles of a thread's rows ra and rb
+template <int kKT, bool kEven>
+__device__ __forceinline__ void add_bias_tiles(float (&s)[2 * kKT][4],
+                                               const float* bias_h, int ra,
+                                               int rb, int tig, int N) {
+#pragma unroll
+  for (int t = 0; t < 2 * kKT; ++t) {
+    const int j = t * 8 + 2 * tig;
+    const float2 ba = bias_load<kEven>(bias_h, ra, j, N);
+    const float2 bb = bias_load<kEven>(bias_h, rb, j, N);
+    add_bias(s[t][0], s[t][1], ba, ra, j, N);
+    add_bias(s[t][2], s[t][3], bb, rb, j, N);
+  }
+}
+
+__device__ __forceinline__ void store_pair(bf16* row, int j, int N, bool even,
+                                           float v0, float v1) {
+  if (j + 1 < N && even) {
+    *reinterpret_cast<__nv_bfloat162*>(row + j) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    if (j < N) row[j] = __float2bfloat16(v0);
+    if (j + 1 < N) row[j + 1] = __float2bfloat16(v1);
+  }
+}
+
+// The bf16 attention core. A CTA of `warps` warps takes one head (blockIdx.x)
+// for `samples` consecutive samples, one after another: K and V of the
+// sample into shared memory (cp.async, rows past N zero-filled), then each
+// warp takes 16-query tiles w, w + warps, ... of it:
+//  * Q' = bf16(q·d^-½) straight from device memory into m16n8k16 A
+//    fragments;
+//  * S = Q'·Kᵀ with mma.sync, B fragments by ldmatrix from K: the 16 x np
+//    logits stay in registers (4 f32 of each 8-key tile a thread, at most
+//    128 at N 256), the f32 bias added in that layout (float2 loads where N
+//    is even);
+//  * the full-row max and Σe by quad shuffles (every key is in registers,
+//    so no online rescaling), e = exp(l − max) in f32, 1/Σe of the
+//    unrounded e;
+//  * with kProbs, bf16(e·(1/Σe)) stored to probs (B, H, N, N);
+//  * e (or, with kNormFirst, e·(1/Σe)) rounded to bf16 in registers as
+//    the A fragments of P·V (the accumulator layout is the A layout), V's
+//    B fragments by ldmatrix.trans;
+//  * out = bf16(O · 1/Σe), or bf16(O) with kNormFirst, straight from the
+//    accumulators.
+// kKT (a bucket of the 16-key tile count ceil(N/16)) sizes the register
+// arrays; tiles past ceil(N/16) are skipped. q, k and v are the first rows
+// of the three operands, each row `ld` elements apart (3C within a packed
+// (B·N, 3C) qkv, C for (B, N, H, 64) tensors); the output rows are C apart.
+template <int kKT, bool kProbs, bool kNormFirst>
+__global__ void __launch_bounds__(kAttnMaxWarps * 32)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, long long ld,
                  const float* __restrict__ bias, bf16* __restrict__ out,
-                 bf16* __restrict__ probs, int N, int C, float scale) {
-  extern __shared__ __align__(128) unsigned char attn_smem[];
-  const AttnLayout L = attn_layout(N);
-  bf16* ks = reinterpret_cast<bf16*>(attn_smem + L.k);
-  bf16* vs = reinterpret_cast<bf16*>(attn_smem + L.v);
+                 bf16* __restrict__ probs, int B, int N, int C, int samples,
+                 float scale) {
+  extern __shared__ __align__(16) unsigned char attn_smem[];
+  const int key_tiles = (N + 15) >> 4;
+  const int np = key_tiles * 16;
+  bf16* ks = reinterpret_cast<bf16*>(attn_smem);
+  bf16* vs = ks + np * kKS;
 
   const int h = blockIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.y) * N;
+  const int H = gridDim.x;
   const int head_off = h * kHeadDim;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-
-  // K and V of the head, asynchronously, rows past N zero-filled
-  for (int idx = threadIdx.x; idx < L.np * 8; idx += kAttnThreads) {
-    const int j = idx >> 3;
-    const int c = (idx & 7) * 8;
-    const bool in = j < N;
-    const long long off = in ? (row0 + j) * ld + head_off + c : 0;
-    cp_async16(ks + j * kHS + c, k + off, in);
-    cp_async16(vs + j * kHS + c, v + off, in);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  bf16* qs = reinterpret_cast<bf16*>(attn_smem + L.q) + warp * 16 * kHS;
-  float* ss = reinterpret_cast<float*>(attn_smem + L.s) + warp * 16 * L.s_ld;
-  bf16* ps = reinterpret_cast<bf16*>(ss);  // numerators, in place
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int mi = lane >> 3;  // the 8x8 matrix this lane addresses
+  const bool even = (N & 1) == 0;
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  const int key_tiles = L.np / 16;
 
-  for (int rb = warp; rb < key_tiles; rb += kAttnWarps) {
-    const int i0 = rb * 16;
-    // the query block: copied raw, then q·d^-½ rounded to bf16 in place,
-    // as the TPU kernel scales it
-    for (int idx = lane; idx < 16 * 8; idx += 32) {
-      const int r = idx >> 3;
+  for (int si = 0; si < samples; ++si) {
+    const int b = blockIdx.y * samples + si;
+    if (b >= B) break;
+    const long long row0 = static_cast<long long>(b) * N;
+    for (int idx = threadIdx.x; idx < np * 8; idx += blockDim.x) {
+      const int j = idx >> 3;
       const int c = (idx & 7) * 8;
-      const bool in = i0 + r < N;
-      cp_async16(qs + r * kHS + c,
-                 q + (in ? (row0 + i0 + r) * ld + head_off + c : 0), in);
+      const bool in = j < N;
+      const long long off = in ? (row0 + j) * ld + head_off + c : 0;
+      cp_async16(ks + j * kKS + c, k + off, in);
+      cp_async16(vs + j * kKS + c, v + off, in);
     }
     cp_async_commit();
     cp_async_wait<0>();
-    __syncwarp();
-    for (int idx = lane; idx < 16 * (kHeadDim / 2); idx += 32) {
-      const int r = idx / (kHeadDim / 2);
-      const int p = idx % (kHeadDim / 2);
-      __nv_bfloat162* q2 =
-          reinterpret_cast<__nv_bfloat162*>(qs + r * kHS + 2 * p);
-      const float2 f = __bfloat1622float2(*q2);
-      *q2 = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    __syncwarp();
+    __syncthreads();
 
-    // logits S = Q·Kᵀ (16 x np, f32)
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wmma::load_matrix_sync(qa[kk], qs + kk * 16, kHS);
-    for (int jt = 0; jt < key_tiles; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s_acc;
-      wmma::fill_fragment(s_acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, ks + jt * 16 * kHS + kk * 16, kHS);
-        wmma::mma_sync(s_acc, qa[kk], kb, s_acc);
-      }
-      wmma::store_matrix_sync(ss + jt * 16, s_acc, L.s_ld,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int qt = warp; qt < key_tiles; qt += warps) {
+      const int ra = qt * 16 + g;  // this thread's two query rows
+      const int rb = ra + 8;
+      const long long qa = (row0 + ra) * ld + head_off;
+      const long long qb = (row0 + rb) * ld + head_off;
 
-    // softmax numerators per row: e = exp(l - max) in f32, rounded to bf16
-    // for the value product; lane r keeps row r's 1/Σe (of the unrounded
-    // e). The next row's bias is fetched while this row is reduced.
-    float inv_row = 0.f;
-    float bnext[kMaxKeysPerLane];
+      // S = Q'·Kᵀ, 16 d at a time
+      float s[2 * kKT][4];
 #pragma unroll
-    for (int t = 0; t < kMaxKeysPerLane; ++t) {
-      const int j = lane + 32 * t;
-      bnext[t] = (i0 < N && j < N) ? bias_h[static_cast<long long>(i0) * N + j]
-                                   : 0.f;
-    }
-    for (int r = 0; r < 16; ++r) {
-      const int i = i0 + r;
-      float l[kMaxKeysPerLane];
-      float mx = -INFINITY;
+      for (int t = 0; t < 2 * kKT; ++t)
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        l[t] = (i < N && j < N) ? ss[r * L.s_ld + j] + bnext[t] : -INFINITY;
-        mx = fmaxf(mx, l[t]);
-      }
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        bnext[t] = (i + 1 < N && r + 1 < 16 && j < N)
-                       ? bias_h[static_cast<long long>(i + 1) * N + j]
-                       : 0.f;
-      }
-      mx = warp_max(mx);
-      float s = 0.f;
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        const int c0 = kk * 16 + 2 * tig;
+        const uint32_t a[4] = {q_pair(q, qa, ra < N, c0, scale),
+                               q_pair(q, qb, rb < N, c0, scale),
+                               q_pair(q, qa, ra < N, c0 + 8, scale),
+                               q_pair(q, qb, rb < N, c0 + 8, scale)};
 #pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        l[t] = l[t] == -INFINITY ? 0.f : expf(l[t] - mx);
-        s += l[t];
-      }
-      s = warp_sum(s);  // also orders the row's reads before its writes
-      const float inv = 1.0f / s;
-      if (lane == r) inv_row = inv;
-      if (kProbs && i < N) {
-        // the TPU kernel's probs: (e · (1/Σe)) rounded to bf16, e unrounded
-        bf16* grow = probs + ((static_cast<long long>(blockIdx.y) * gridDim.x +
-                               h) * N + i) * N;
-#pragma unroll
-        for (int t = 0; t < kMaxKeysPerLane; ++t) {
-          const int j = lane + 32 * t;
-          if (j < N) grow[j] = __float2bfloat16(l[t] * inv);
+        for (int jt = 0; jt < kKT; ++jt) {
+          if (jt < key_tiles) {
+            uint32_t bk[4];  // keys 0-7 (d lo, hi), keys 8-15 (d lo, hi)
+            ldsm_x4(bk, ks + (jt * 16 + (mi >> 1) * 8 + (lane & 7)) * kKS +
+                            kk * 16 + (mi & 1) * 8);
+            mma_bf16(s[2 * jt], a, bk[0], bk[1]);
+            mma_bf16(s[2 * jt + 1], a, bk[2], bk[3]);
+          }
         }
       }
-      bf16* prow = ps + r * L.p_ld;
-#pragma unroll
-      for (int t = 0; t < kMaxKeysPerLane; ++t) {
-        const int j = lane + 32 * t;
-        // a row past N has s = 0: its numerators stay 0
-        const float e = kNormFirst ? (i < N ? l[t] * inv : 0.f) : l[t];
-        if (j < L.np) prow[j] = __float2bfloat16(e);
-      }
-      __syncwarp();
-    }
 
-    // O = P·V (16 x 64, f32): all four column tiles in registers, then
-    // stored over the numerators
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_acc[4];
+      // + bias, keys past N masked (tiles past ceil(N/16) too: their
+      // logits are 0 and their keys past N); row max and Σe over the quad
+      if (even)
+        add_bias_tiles<kKT, true>(s, bias_h, ra, rb, tig, N);
+      else
+        add_bias_tiles<kKT, false>(s, bias_h, ra, rb, tig, N);
+      float mxa = -INFINITY, mxb = -INFINITY;
 #pragma unroll
-    for (int dt = 0; dt < 4; ++dt) wmma::fill_fragment(o_acc[dt], 0.f);
-    for (int kt = 0; kt < key_tiles; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, ps + kt * 16, L.p_ld);
-#pragma unroll
-      for (int dt = 0; dt < 4; ++dt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, vs + kt * 16 * kHS + dt * 16, kHS);
-        wmma::mma_sync(o_acc[dt], pa, vb, o_acc[dt]);
+      for (int t = 0; t < 2 * kKT; ++t) {
+        mxa = fmaxf(mxa, fmaxf(s[t][0], s[t][1]));
+        mxb = fmaxf(mxb, fmaxf(s[t][2], s[t][3]));
       }
-    }
-    __syncwarp();
 #pragma unroll
-    for (int dt = 0; dt < 4; ++dt)
-      wmma::store_matrix_sync(ss + dt * 16, o_acc[dt], L.s_ld,
-                              wmma::mem_row_major);
-    __syncwarp();
+      for (int o = 1; o <= 2; o <<= 1) {
+        mxa = fmaxf(mxa, __shfl_xor_sync(0xffffffffu, mxa, o));
+        mxb = fmaxf(mxb, __shfl_xor_sync(0xffffffffu, mxb, o));
+      }
+      float suma = 0.f, sumb = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2 * kKT; ++t) {
+        s[t][0] = expf(s[t][0] - mxa);
+        s[t][1] = expf(s[t][1] - mxa);
+        s[t][2] = expf(s[t][2] - mxb);
+        s[t][3] = expf(s[t][3] - mxb);
+        suma += s[t][0] + s[t][1];
+        sumb += s[t][2] + s[t][3];
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        suma += __shfl_xor_sync(0xffffffffu, suma, o);
+        sumb += __shfl_xor_sync(0xffffffffu, sumb, o);
+      }
+      const float inva = 1.0f / suma;
+      const float invb = 1.0f / sumb;
 
-    // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
-    for (int idx = lane; idx < 16 * (kHeadDim / 2); idx += 32) {
-      const int r = idx / (kHeadDim / 2);
-      const int p = idx % (kHeadDim / 2);
-      const float inv =
-          kNormFirst ? 1.f : __shfl_sync(0xffffffffu, inv_row, r);
-      if (i0 + r < N) {
-        const float* orow = ss + r * L.s_ld + 2 * p;
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + i0 + r) * C +
-                                           head_off + 2 * p) =
-            __floats2bfloat162_rn(orow[0] * inv, orow[1] * inv);
+      if (kProbs) {
+        // the TPU kernel's probs: (e · (1/Σe)) rounded to bf16, e unrounded
+        const long long prow = (static_cast<long long>(b) * H + h) * N;
+        bf16* pa = probs + (prow + ra) * N;
+        bf16* pb = probs + (prow + rb) * N;
+#pragma unroll
+        for (int t = 0; t < 2 * kKT; ++t) {
+          if (t * 8 < np) {
+            const int j = t * 8 + 2 * tig;
+            if (ra < N)
+              store_pair(pa, j, N, even, s[t][0] * inva, s[t][1] * inva);
+            if (rb < N)
+              store_pair(pb, j, N, even, s[t][2] * invb, s[t][3] * invb);
+          }
+        }
+      }
+
+      // P's A fragments in registers: bf16(e), or bf16(e·(1/Σe))
+      const float fa = kNormFirst ? inva : 1.f;
+      const float fb = kNormFirst ? invb : 1.f;
+      uint32_t p[kKT][4];
+#pragma unroll
+      for (int jt = 0; jt < kKT; ++jt) {
+        p[jt][0] = pack_bf16(s[2 * jt][0] * fa, s[2 * jt][1] * fa);
+        p[jt][1] = pack_bf16(s[2 * jt][2] * fb, s[2 * jt][3] * fb);
+        p[jt][2] = pack_bf16(s[2 * jt + 1][0] * fa, s[2 * jt + 1][1] * fa);
+        p[jt][3] = pack_bf16(s[2 * jt + 1][2] * fb, s[2 * jt + 1][3] * fb);
+      }
+
+      // O = P·V (16 x 64, f32)
+      float o[kHeadDim / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < kHeadDim / 8; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+#pragma unroll
+      for (int jt = 0; jt < kKT; ++jt) {
+        if (jt < key_tiles) {
+#pragma unroll
+          for (int dd = 0; dd < kHeadDim / 16; ++dd) {
+            uint32_t bv[4];  // d lo (keys 0-7, 8-15), d hi (keys 0-7, 8-15)
+            ldsm_x4_t(bv, vs + (jt * 16 + (mi & 1) * 8 + (lane & 7)) * kKS +
+                              dd * 16 + (mi >> 1) * 8);
+            mma_bf16(o[2 * dd], p[jt], bv[0], bv[1]);
+            mma_bf16(o[2 * dd + 1], p[jt], bv[2], bv[3]);
+          }
+        }
+      }
+
+      // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
+      const float oa = kNormFirst ? 1.f : inva;
+      const float ob = kNormFirst ? 1.f : invb;
+#pragma unroll
+      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+        const int col = head_off + dt * 8 + 2 * tig;
+        if (ra < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
+              __floats2bfloat162_rn(o[dt][0] * oa, o[dt][1] * oa);
+        if (rb < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
+              __floats2bfloat162_rn(o[dt][2] * ob, o[dt][3] * ob);
       }
     }
-    __syncwarp();  // the warp's Q and scratch are reused
+    __syncthreads();  // K and V are reloaded for the next sample
   }
+}
+
+template <int kKT, bool kProbs, bool kNormFirst>
+inline cudaError_t attention_run(const bf16* q, const bf16* k, const bf16* v,
+                                 long long ld, const float* bias, bf16* out,
+                                 bf16* probs, int B, int N, int C, int H,
+                                 int warps, int samples, int smem,
+                                 cudaStream_t stream) {
+  auto* kern = attention_kernel<kKT, kProbs, kNormFirst>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  const dim3 grid(H, (B + samples - 1) / samples);
+  kern<<<grid, warps * 32, smem, stream>>>(q, k, v, ld, bias, out, probs, B,
+                                           N, C, samples, scale);
+  return cudaGetLastError();
 }
 
 // The attention core: out (B·N, C) bf16 from q, k, v rows `ld` apart (see
 // attention_kernel), and with kProbs the normalized probabilities
-// (B, H, N, N) bf16.
+// (B, H, N, N) bf16. `plan` is the wrapper's launch plan
+// (ops/kernels/fused_block.py `attention_plan`): the 16-key tile bucket,
+// the warps of a CTA, the samples of a CTA and the shared bytes; a plan
+// the kernel does not take is refused with cudaErrorInvalidValue.
 template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const bf16* v, long long ld,
                                     const float* bias, bf16* out, bf16* probs,
                                     int B, int N, int C, int H,
-                                    cudaStream_t stream) {
-  const AttnLayout L = attn_layout(N);
-  cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<kProbs, kNormFirst>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.bytes));
-  if (e != cudaSuccess) return e;
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
-  attention_kernel<kProbs, kNormFirst>
-      <<<dim3(H, B), kAttnThreads, L.bytes, stream>>>(q, k, v, ld, bias, out,
-                                                      probs, N, C, scale);
-  return cudaGetLastError();
+                                    const int* plan, cudaStream_t stream) {
+  const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
+  if (N < 1 || N > 256 || kt * 16 < N || warps < 1 ||
+      warps > kAttnMaxWarps || samples < 1 || smem != attn_smem_bytes(N))
+    return cudaErrorInvalidValue;
+#define DM_ATTN_CASE(KT)                                                  \
+  case KT:                                                                \
+    return attention_run<KT, kProbs, kNormFirst>(q, k, v, ld, bias, out,  \
+                                                 probs, B, N, C, H, warps, \
+                                                 samples, smem, stream);
+  switch (kt) {
+    DM_ATTN_CASE(1)
+    DM_ATTN_CASE(3)
+    DM_ATTN_CASE(4)
+    DM_ATTN_CASE(8)
+    DM_ATTN_CASE(12)
+    DM_ATTN_CASE(13)
+    DM_ATTN_CASE(16)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DM_ATTN_CASE
 }
 
 // The attention core over a packed (B·N, 3C) qkv, with or without probs.
 template <bool kProbs>
 inline cudaError_t attention_qkv(const bf16* qkv, const float* bias,
                                  bf16* out, bf16* probs, int B, int N, int C,
-                                 int H, cudaStream_t stream) {
+                                 int H, const int* plan,
+                                 cudaStream_t stream) {
   return attention_launch<kProbs, false>(qkv, qkv + C, qkv + 2 * C, 3LL * C,
-                                         bias, out, probs, B, N, C, H,
+                                         bias, out, probs, B, N, C, H, plan,
                                          stream);
 }
 
 inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
-                             int B, int N, int C, int H,
+                             int B, int N, int C, int H, const int* plan,
                              cudaStream_t stream) {
-  return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, stream);
+  return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, plan,
+                              stream);
 }
 
 }  // namespace

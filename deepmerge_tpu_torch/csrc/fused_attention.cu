@@ -38,12 +38,16 @@
 // and p (212 MB): 0.50 GB, 0.15 ms at 3.35 TB/s; its 27 GFLOP of q·kᵀ and
 // p·v take 0.03 ms at 989 TFLOP/s. K7 and K8 at serving's B 1024 read 906
 // MB of q, k and v and write 302 MB: 0.36 ms, against 0.12 ms of products.
-// The design is K2's attention core (K and V of the head in shared memory,
-// tensor-core MMAs for both products, softmax in f32 registers); K6 adds
-// one store path: each lane writes the probabilities of its keys from the
-// registers that hold e, so p costs one pass of writes and no extra reads.
-// q, k and v are read once per (head, sample) except for the query rows,
-// which every warp reads once more.
+// The design (the core of block_common.cuh): K and V of one (sample, head)
+// in 55-74 KB of shared memory, so that three 4-warp CTAs fit an SM; each
+// warp keeps its 16 x N logits in mma.sync accumulators, takes the row max
+// and Σe by quad shuffles, adds the f32 bias from device memory in the
+// accumulator layout, and feeds P to the value product from registers (the
+// m16n8k16 accumulator layout is its A layout). K6 adds one store path:
+// each thread writes the probabilities of its keys from the registers that
+// hold e, so p costs one pass of writes and no extra reads. q is read once,
+// k and v once per (head, sample). Launch plan: the wrapper's
+// `attention_plan` (ops/kernels/fused_block.py), passed in `plan`.
 
 #include "block_common.cuh"
 
@@ -58,20 +62,20 @@ const char* dm_error_string(int err) {
 // (checked by the caller). Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
-                       cudaStream_t stream) {
+                       const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention_qkv<true>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, C, H,
+      static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, C, H, plan,
       stream));
 }
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
 // Requires C == H·64 and 1 <= N <= 256. Returns cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
-                 int C, int H, cudaStream_t stream) {
+                 int C, int H, const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention(static_cast<const bf16*>(qkv),
                                     static_cast<const float*>(bias),
-                                    static_cast<bf16*>(out), B, N, C, H,
+                                    static_cast<bf16*>(out), B, N, C, H, plan,
                                     stream));
 }
 
@@ -80,11 +84,11 @@ int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
 // tensors. Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,
-                      cudaStream_t stream) {
+                      const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention_launch<false, true>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), C, static_cast<const float*>(bias),
-      static_cast<bf16*>(out), nullptr, B, N, C, H, stream));
+      static_cast<bf16*>(out), nullptr, B, N, C, H, plan, stream));
 }
 
 }  // extern "C"

@@ -50,9 +50,19 @@
 //   (abs-max, then codes).
 // Keeping activations on chip, wgmma and TMA are later work.
 
+#include <mma.h>
+
 #include "block_common.cuh"
 
 namespace {
+
+using namespace nvcuda;
+
+// K4a's int8 attention core: one 8-warp CTA per (head, sample), each lane
+// holding up to 8 keys of a row (N <= 256)
+constexpr int kAttnWarps = 8;
+constexpr int kAttnThreads = kAttnWarps * 32;
+constexpr int kMaxKeysPerLane = 8;
 
 constexpr float kInv127 = 1.0f / 127.0f;
 
@@ -709,7 +719,7 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                              int H, int hidden, const void* const* p,
                              bool static_scales, bool quant_attn, bf16* qkv,
                              bf16* att, bf16* r, float* h, signed char* codes,
-                             float* rs, cudaStream_t stream) {
+                             float* rs, const int* plan, cudaStream_t stream) {
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
   const auto* wq = static_cast<const signed char*>(p[2]);
@@ -740,7 +750,7 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                           3 * C, C, stream);
   if (e != cudaSuccess) return e;
   e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, stream)
-                 : attention(qkv, bias, att, B, N, C, H, stream);
+                 : attention(qkv, bias, att, B, N, C, H, plan, stream);
   if (e != cudaSuccess) return e;
   if ((e = row_quant(att, stat(1), codes, rs, M, C, stream)) != cudaSuccess)
     return e;
@@ -773,20 +783,23 @@ const char* dm_error_string(int err) {
 // its static activation scales. `quant_attn` nonzero: the attention runs
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
 // (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32; codes
-// (B·N, max(C, hidden)) int8; row_scale (B·N) f32. Requires C == H·64, C % 128 == 0, C <= 1024,
-// hidden % 128 == 0 and N <= 256 (checked by the caller). Returns
-// cudaGetLastError().
+// (B·N, max(C, hidden)) int8; row_scale (B·N) f32. Requires C == H·64,
+// C % 128 == 0, C <= 1024, hidden % 128 == 0 and N <= 256 (checked by the
+// caller). `plan` is the block's launch plan (ops/kernels/fused_block.py
+// `block_plan`), of which the bf16 attention core reads the first
+// kAttnPlanInts. Returns cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, const void* const* params,
                         int static_scales, int quant_attn, void* qkv,
                         void* att, void* r, void* h, void* codes,
-                        void* row_scale, cudaStream_t stream) {
+                        void* row_scale, const int* plan,
+                        cudaStream_t stream) {
   return static_cast<int>(block_forward_q8(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
       hidden, params, static_scales != 0, quant_attn != 0,
       static_cast<bf16*>(qkv),
       static_cast<bf16*>(att), static_cast<bf16*>(r), static_cast<float*>(h),
-      static_cast<signed char*>(codes), static_cast<float*>(row_scale),
+      static_cast<signed char*>(codes), static_cast<float*>(row_scale), plan,
       stream));
 }
 
@@ -799,14 +812,15 @@ int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, int depth, const void* const* params,
                         int static_scales, int quant_attn, void* qkv,
                         void* att, void* r, void* h, void* codes,
-                        void* row_scale, cudaStream_t stream) {
+                        void* row_scale, const int* plan,
+                        cudaStream_t stream) {
   const int width = static_scales != 0 ? 18 : 17;
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
     const int err = dm_block_forward_q8(in, out, B, N, C, H, hidden,
                                         params + width * i, static_scales,
                                         quant_attn, qkv, att, r, h, codes,
-                                        row_scale, stream);
+                                        row_scale, plan, stream);
     if (err != 0) return err;
   }
   return 0;

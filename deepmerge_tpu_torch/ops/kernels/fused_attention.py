@@ -54,18 +54,20 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     HEAD_DIM,
     MAX_TOKENS,
     _on_cuda,
+    _plan_arg,
     _products_for,
     attention_parts,
+    attention_plan,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # qkv, bias, out, probs, B, N, C, H, stream
-    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # qkv, bias, out, B, N, C, H, stream
-    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, bias, out, B, N, C, H, stream
-    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # qkv, bias, out, probs, B, N, C, H, plan, stream
+    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # qkv, bias, out, B, N, C, H, plan, stream
+    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # q, k, v, bias, out, B, N, C, H, plan, stream
+    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -232,31 +234,34 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
                         device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    plan = _plan_arg(attention_plan(b, n, heads)["ints"])
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), probs.data_ptr(), b, n, c,
-                                 heads, stream)
+                                 heads, plan, stream)
     build.check(lib, err, "dm_attention_probs")
     attention_probs.launches += 1
     return out, probs
 
 
-def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor,
-                  heads: int) -> torch.Tensor:
+def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                  plan: dict | None = None) -> torch.Tensor:
     """K7: (B, N, C) in qkv's dtype.
 
     CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d = 64,
     1 <= N <= 256) launch ``csrc/fused_attention.cu`` (``dm_attention``)
-    and count the launch in ``attention_qkv.launches``; anything else
-    raises.
+    with ``plan`` (an ``attention_plan`` of these shapes, which the kernel
+    checks; the default one if None) and count the launch in
+    ``attention_qkv.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
         return attention_qkv_ref(qkv, bias, heads)
     b, n, c = _check_cuda(qkv, bias, heads)
+    plan = plan or attention_plan(b, n, heads)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     err = lib.dm_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                           b, n, c, heads, stream)
+                           b, n, c, heads, _plan_arg(plan["ints"]), stream)
     build.check(lib, err, "dm_attention")
     attention_qkv.launches += 1
     return out
@@ -279,7 +284,9 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.dm_attention_bnhd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
-                                heads * HEAD_DIM, heads, stream)
+                                heads * HEAD_DIM, heads,
+                                _plan_arg(attention_plan(b, n, heads)["ints"]),
+                                stream)
     build.check(lib, err, "dm_attention_bnhd")
     attention_bnhd.launches += 1
     return out

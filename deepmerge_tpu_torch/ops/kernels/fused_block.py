@@ -47,26 +47,147 @@ MAX_WIDTH = 1024   # the LayerNorm kernel's widest row
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # x, out, B, N, C, H, hidden, params, qkv, att, r, h, stream
-    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, stream
-    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    # x, out, B, N, C, H, hidden, params, qkv, att, r, h, plan, stream
+    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P],
-    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h, stream
+    # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, plan,
+    # stream
+    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P],
+    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h, plan,
+    # stream
     "dm_block_train_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _P],
+                               _P, _P, _P, _P, _P],
+    # a, w, bias, resid, out, aux, M, N, K, epilogue, plan, stream
+    "dm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 _SIGNATURES_Q8 = {
     # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
-    # h, codes, row_scale, stream
+    # h, codes, row_scale, plan, stream
     "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
-    # att, r, h, codes, row_scale, stream
-    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
                             _P, _P, _P, _P, _P, _P],
+    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
+    # att, r, h, codes, row_scale, plan, stream
+    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                            _P, _P, _P, _P, _P, _P, _P],
 }
 Q8_K_ALIGN = 128   # the int8 GEMM's K tile: C and the MLP width divide by it
+
+# ------------------------------------------------------------ launch plans
+#
+# Each CUDA kernel's launch plan is computed here and passed to its C entry
+# point, which refuses a plan it does not take (CUDA error "invalid
+# argument"): one source of truth, checked on the CPU against the card's
+# limits (tests/test_torch_plans.py).
+
+SM_SHARED = 233_472          # an H100 SM's shared memory (228 KB)
+CTA_SHARED_MAX = 232_448     # what one CTA may opt in to (227 KB)
+CTA_SHARED_RESERVED = 1_024  # held back by the system for each resident CTA
+SM_REGISTERS = 65_536
+SM_THREADS = 2_048
+SM_CTAS = 32
+MAX_GRID_Y = 65_535
+
+# The bf16 attention core (csrc/block_common.cuh): a CTA of `warps` warps
+# per head and `samples` samples, K and V of a sample in shared memory at a
+# row stride of 64 + 8 bf16, register arrays sized by a bucket of the
+# 16-key tile count; 168 registers a thread at most (its launch bound of 12
+# warps).
+ATTN_KEY_TILE_BUCKETS = (1, 3, 4, 8, 12, 13, 16)
+ATTN_ROW_BYTES = (HEAD_DIM + 8) * 2
+ATTN_MAX_WARPS = 12
+ATTN_REGISTERS = 168
+ATTN_WARPS = 4
+# samples a CTA: 4 from a batch of 512 on (fewer, longer CTAs: 1.60 against
+# 1.80 ms at B 1024, N 192 on an H100), else 1 (enough CTAs to fill 132 SMs)
+ATTN_SAMPLES_FROM_BATCH = 512
+
+# K2's GEMM (csrc/fused_block.cu): 128x256 tiles, 64-wide K slabs in a
+# 4-stage ring, two consumer warpgroups and a producer warp, a persistent
+# grid of one CTA an SM; 224 registers a thread at most (its launch bound of
+# one 288-thread CTA an SM).
+GEMM_BM = 128
+GEMM_BN = 256
+GEMM_BK = 64
+GEMM_STAGES = 4
+GEMM_THREADS = 2 * 128 + 32
+GEMM_SMEM = GEMM_STAGES * (GEMM_BM + GEMM_BN) * GEMM_BK * 2 + 1024 \
+    + 2 * GEMM_STAGES * 8
+GEMM_REGISTERS = 224
+GEMM_EPILOGUES = ("bias_cast", "bias_residual", "bias_gelu", "bias_gelu_save")
+
+
+def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
+    """How many CTAs of ``threads`` threads, ``smem`` bytes of shared memory
+    and ``registers`` registers a thread fit one H100 SM at once (registers
+    are granted a warp at a time in units of 256)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(SM_SHARED // (smem + CTA_SHARED_RESERVED),
+               SM_REGISTERS // (per_warp * (threads // 32)),
+               SM_THREADS // threads, SM_CTAS)
+
+
+def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
+                   samples: int | None = None) -> dict:
+    """The attention core's launch for ``b`` samples of ``n`` tokens and
+    ``heads`` heads: ``ints`` (key-tile bucket, warps, samples, shared
+    bytes) as the C entry points take them, the grid (heads, samples per
+    CTA) and the CTAs that fit an SM. ``samples`` None: 4 from a batch of
+    ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Raises ``ValueError`` for a
+    launch the kernel does not take."""
+    if samples is None:
+        samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"the attention core takes 1..{MAX_TOKENS} tokens, "
+                         f"got {n}")
+    if not 1 <= warps <= ATTN_MAX_WARPS or samples < 1:
+        raise ValueError(f"the attention core takes 1..{ATTN_MAX_WARPS} warps "
+                         f"and >= 1 samples a CTA, got {warps}, {samples}")
+    key_tiles = -(-n // 16)
+    bucket = next(t for t in ATTN_KEY_TILE_BUCKETS if t >= key_tiles)
+    smem = 2 * key_tiles * 16 * ATTN_ROW_BYTES
+    grid = (heads, -(-b // samples))
+    if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
+        raise ValueError(f"attention grid {grid} out of range")
+    return dict(ints=(bucket, warps, samples, smem), key_tiles=key_tiles,
+                bucket=bucket, warps=warps, samples=samples, smem=smem,
+                grid=grid,
+                ctas_per_sm=ctas_per_sm(warps * 32, smem, ATTN_REGISTERS))
+
+
+def gemm_plan(m: int, n: int, k: int) -> dict:
+    """K2's GEMM launch for out (m, n) = A (m, k) · W (n, k)ᵀ: ``ints``
+    (tile rows, tile columns, K slab, stages, threads, shared bytes) as
+    the C entry points take them, the grid (column tiles, row tiles) and
+    the CTAs that fit an SM. TMA reads both operands in 64-wide K slabs
+    with row strides of 2k bytes, which must be multiples of 16: raises
+    ``ValueError`` unless k % 64 == 0 and n % 8 == 0 (the epilogue's
+    column pairs and the bias's 16-byte rows)."""
+    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < 8 or n % 8:
+        raise ValueError(f"the GEMM needs K % {GEMM_BK} == 0 and N % 8 == 0, "
+                         f"got M={m}, N={n}, K={k}")
+    grid = (-(-n // GEMM_BN), -(-m // GEMM_BM))
+    if grid[1] > MAX_GRID_Y:
+        raise ValueError(f"GEMM grid {grid} out of range (M={m})")
+    return dict(ints=(GEMM_BM, GEMM_BN, GEMM_BK, GEMM_STAGES, GEMM_THREADS,
+                      GEMM_SMEM),
+                grid=grid, smem=GEMM_SMEM,
+                ctas_per_sm=ctas_per_sm(GEMM_THREADS, GEMM_SMEM,
+                                        GEMM_REGISTERS))
+
+
+def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
+    """A block's plan as its C entry points take it: the attention core's
+    ints, then the GEMM's, checked against every GEMM of the block (qkv,
+    proj, up, down at M = b·n)."""
+    m = b * n
+    for rows, depth in ((3 * c, c), (c, c), (hidden, c), (c, hidden)):
+        gemm = gemm_plan(m, rows, depth)
+    return attention_plan(b, n, heads)["ints"] + gemm["ints"]
+
+
+def _plan_arg(ints):
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 # ------------------------------------------------------------ plain version
@@ -623,18 +744,19 @@ def _launch(fn_name, x, params_list, heads):
     r = torch.empty((m, c), dtype=x.dtype, device=x.device)
     h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
     ptrs = _pointers(params_list)
+    plan = _plan_arg(block_plan(b, n, c, heads, hidden))
     lib = build.load("fused_block", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     shape = (b, n, c, heads, hidden)
     if fn_name == "dm_block_forward":
         err = lib.dm_block_forward(x.data_ptr(), out.data_ptr(), *shape, ptrs,
                                    qkv.data_ptr(), att.data_ptr(),
-                                   r.data_ptr(), h.data_ptr(), stream)
+                                   r.data_ptr(), h.data_ptr(), plan, stream)
     else:
         err = lib.dm_chain_forward(x.data_ptr(), out.data_ptr(), *shape,
                                    len(params_list), ptrs, qkv.data_ptr(),
                                    att.data_ptr(), r.data_ptr(), h.data_ptr(),
-                                   stream)
+                                   plan, stream)
     build.check(lib, err, fn_name)
     return out
 
@@ -671,6 +793,7 @@ def fused_block_train(x: torch.Tensor, params, heads: int,
         x.data_ptr(), out.data_ptr(), b, n, c, heads, hidden,
         _pointers([params]), qkv.data_ptr(), probs.data_ptr(),
         gin.data_ptr(), r.data_ptr(), att.data_ptr(), h.data_ptr(),
+        _plan_arg(block_plan(b, n, c, heads, hidden)),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_block_train_forward")
     fused_block_train.launches += 1
@@ -780,6 +903,86 @@ fused_block_chain.launches = 0
 fused_block_train.launches = 0
 
 
+# ----------------------------------------------------- K2's GEMM on its own
+
+def gemm_ref(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+             epilogue: str, resid: torch.Tensor | None = None):
+    """Plain version of K2's GEMM with one of its epilogues
+    (``GEMM_EPILOGUES``): ``(out, aux)`` from a (M, K), nn.Linear's w (N,
+    K), bias (N,) and, for ``bias_residual``, resid (M, N), all in a's
+    dtype. The sum is float32; ``bias_cast`` gives bf16(bf16(acc) + b),
+    ``bias_residual`` bf16(resid + bf16(bf16(acc) + b)), ``bias_gelu``
+    bf16(gelu_tanh(acc + b)) and ``bias_gelu_save`` that and aux =
+    bf16(acc + b) (aux is None for the others)."""
+    dt = a.dtype
+    acc = _mm(a, w)
+    if epilogue in ("bias_gelu", "bias_gelu_save"):
+        g = acc + bias.to(torch.float32)
+        aux = g.to(dt) if epilogue == "bias_gelu_save" else None
+        return gelu(g).to(dt), aux
+    if epilogue not in ("bias_cast", "bias_residual"):
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    y = acc.to(dt) + bias
+    if epilogue == "bias_residual":
+        y = resid + y
+    return y, None
+
+
+def _check_gemm(a, w, bias, epilogue, resid):
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    want_resid = epilogue == "bias_residual"
+    if want_resid != (resid is not None):
+        raise ValueError(f"{epilogue} takes {'a' if want_resid else 'no'} "
+                         "residual")
+    tensors = (a, w, bias) + ((resid,) if want_resid else ())
+    for t in tensors:
+        if (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != a.device or t.data_ptr() % 16):
+            raise TypeError("the CUDA GEMM takes contiguous bf16 tensors on "
+                            "one device, 16-byte aligned (TMA's bases)")
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"a (M, K) and w (N, K), got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[0]
+    if tuple(bias.shape) != (n,) or (want_resid
+                                     and tuple(resid.shape) != (m, n)):
+        raise ValueError("bias must be (N,) and resid (M, N)")
+    return m, n, k, gemm_plan(m, n, k)
+
+
+def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+         epilogue: str, resid: torch.Tensor | None = None):
+    """K2's GEMM with one of its epilogues, on its own: ``(out, aux)`` as
+    ``gemm_ref`` returns them. The blocks launch it from C; this entry
+    serves its measurement and tests.
+
+    CPU tensors run ``gemm_ref``. CUDA tensors (bf16, K % 64 == 0, N % 8
+    == 0, 16-byte aligned) launch ``csrc/fused_block.cu`` (``dm_gemm``)
+    and count the launch in ``gemm.launches``; anything else raises.
+    """
+    if not _on_cuda(a):
+        return gemm_ref(a, w, bias, epilogue, resid)
+    m, n, k, plan = _check_gemm(a, w, bias, epilogue, resid)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    aux = (torch.empty_like(out) if epilogue == "bias_gelu_save" else None)
+    lib = build.load("fused_block", _SIGNATURES)
+    err = lib.dm_gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                      resid.data_ptr() if resid is not None else None,
+                      out.data_ptr(),
+                      aux.data_ptr() if aux is not None else None,
+                      m, n, k, GEMM_EPILOGUES.index(epilogue),
+                      _plan_arg(plan["ints"]),
+                      torch.cuda.current_stream(a.device).cuda_stream)
+    build.check(lib, err, "dm_gemm")
+    gemm.launches += 1
+    return out, aux
+
+
+gemm.launches = 0
+
+
 # --------------------------------------------------------- w8a8 CUDA path
 
 def _check_cuda_q8(x, qparams_list, heads):
@@ -814,6 +1017,7 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
     ptrs = _pointers(qparams_list)
+    plan = _plan_arg(block_plan(b, n, c, heads, hidden))
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     shape = (b, n, c, heads, hidden)
@@ -822,11 +1026,11 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
                codes.data_ptr(), row_scale.data_ptr())
     if fn_name == "dm_block_forward_q8":
         err = lib.dm_block_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
-                                      ptrs, *flags, *scratch, stream)
+                                      ptrs, *flags, *scratch, plan, stream)
     else:
         err = lib.dm_chain_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
                                       len(qparams_list), ptrs, *flags,
-                                      *scratch, stream)
+                                      *scratch, plan, stream)
     build.check(lib, err, fn_name)
     return out
 

@@ -446,3 +446,97 @@ def test_train_block_gradients_match_plain(cuda, monkeypatch):
     for i, (a, w) in enumerate(zip(got, want)):
         assert a.dtype == w.dtype
         assert _rel_err(a, w) <= BLOCK_TOL, i
+
+
+# ------------------------------------------- the attention core's four forms
+
+@pytest.mark.parametrize("n", [1, 13, 49, 192, 193, 256])
+@pytest.mark.parametrize("form", ["k7", "probs", "norm_first",
+                                  "probs_norm_first"])
+def test_attention_core_forms_match_plain(cuda, n, form):
+    """The core of block_common.cuh in each (kProbs, kNormFirst) form: K7
+    (neither), K6 (kProbs), K8 (kNormFirst) and K5's attention (both, seen
+    through its saved probabilities and output), at every length class."""
+    rs = np.random.default_rng(n + 40)
+    if form == "probs_norm_first":
+        c, heads = 128, 2
+        params = _block_params(rs, n, c, heads, 256, cuda)
+        x = torch.from_numpy(rs.standard_normal((3, n, c)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        out, saved = fb.fused_block_train(x, params, heads)
+        want_out, want = fb.block_train_ref(x, params, heads)
+        torch.cuda.synchronize()
+        _assert_block_close(out, want_out, x, BLOCK_TOL, BLOCK_RMS_TOL)
+        assert float((saved[1].float() - want[1].float()).abs().max()) \
+            <= PROBS_TOL
+        return
+    qkv, bias = _attention_inputs(rs, 7, n, 3, cuda)
+    if form == "k7":
+        got, want = (fa.attention_qkv(qkv, bias, 3),
+                     fa.attention_qkv_ref(qkv, bias, 3))
+    elif form == "probs":
+        (got, probs), (want, want_probs) = (
+            fa.attention_probs(qkv, bias, 3),
+            fa.attention_probs_ref(qkv, bias, 3))
+        assert float((probs.float() - want_probs.float()).abs().max()) \
+            <= PROBS_TOL
+    else:
+        q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, 3))
+        got, want = (fa.attention_bnhd(q, k, v, bias),
+                     fa.attention_bnhd_ref(q, k, v, bias))
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= BLOCK_TOL
+
+
+@pytest.mark.parametrize("warps,samples", [(4, 1), (12, 1), (4, 3), (8, 2)])
+def test_attention_core_plans_agree(cuda, warps, samples):
+    """K7 under other launch plans (warps a CTA, samples a CTA, a batch not
+    divisible by the samples) computes the same bits as the default plan."""
+    rs = np.random.default_rng(warps * 10 + samples)
+    qkv, bias = _attention_inputs(rs, 7, 193, 3, cuda)
+    plan = fb.attention_plan(7, 193, 3, warps=warps, samples=samples)
+    got = fa.attention_qkv(qkv, bias, 3, plan=plan)
+    want = fa.attention_qkv(qkv, bias, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------ K2's GEMM
+
+@pytest.mark.parametrize("epilogue", fb.GEMM_EPILOGUES)
+def test_gemm_epilogues_match_plain(cuda, epilogue):
+    """The wgmma GEMM with each epilogue at a ragged M (rows past the last
+    128-row tile masked), against its plain version: the bf16 roundings at
+    the same points, the f32 sums in another order."""
+    rs = np.random.default_rng(len(epilogue))
+    m, n, k = 197, 384, 192
+    r = lambda *shape, s=1.0: torch.from_numpy(
+        (rs.standard_normal(shape) * s).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    a, w, bias = r(m, k), r(n, k, s=0.1), r(n, s=0.1)
+    resid = r(m, n) if epilogue == "bias_residual" else None
+    before = fb.gemm.launches
+    out, aux = fb.gemm(a, w, bias, epilogue, resid)
+    torch.cuda.synchronize()
+    assert fb.gemm.launches == before + 1
+    want, want_aux = fb.gemm_ref(a, w, bias, epilogue, resid)
+    assert out.shape == (m, n) and _rel_err(out, want) <= BLOCK_TOL
+    if epilogue == "bias_gelu_save":
+        assert _rel_err(aux, want_aux) <= BLOCK_TOL
+    else:
+        assert aux is None
+
+
+def test_gemm_rejects_what_the_kernel_does_not_take(cuda):
+    a = torch.zeros((64, 96), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((128, 96), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros((128,), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="K % 64"):
+        fb.gemm(a, w, bias, "bias_cast")
+    a = torch.zeros((64 * 128 + 1,), dtype=torch.bfloat16,
+                    device=cuda)[1:].view(64, 128)  # 2 bytes off: no TMA base
+    w = torch.zeros((128, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(TypeError):
+        fb.gemm(a, w, bias, "bias_cast")
+    with pytest.raises(ValueError, match="residual"):
+        fb.gemm(a.clone(), w, bias, "bias_residual")
