@@ -22,7 +22,11 @@ kernel against its plain PyTorch version on the card:
      parameter through its autograd function; K2 and K3 beside one
      ``torch.nn.TransformerEncoderLayer`` / ``TransformerEncoder``; K2's
      GEMM alone on a stage-0 block's four shapes (TFLOP/s beside
-     ``torch.matmul``), and K7 under other launch plans of its core;
+     ``torch.matmul``), K4's s8 GEMM alone on the same shapes (bit-exact
+     epilogues, s32 sums equal to ``torch._int_mm``'s, TOP/s beside
+     ``torch._int_mm`` and the bf16 GEMM), K4a's int8
+     core alone beside the bf16 core, and K7 under other launch plans of
+     its core;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run, the median time of three runs, one profiled run (the device's busy
@@ -66,9 +70,10 @@ kernel against its plain PyTorch version on the card:
      on the same weights and batch;
   8. the parity bar on trained weights: the flagship trained on the
      slice's scene (``TRUSTED_EPOCHS`` epochs, about 120 s), an absolute
-     threshold calibrated on a second scene, then the v3 bf16 and w8a8
-     slices at that threshold on the kernels and on the plain versions,
-     the merged maps' label disagreement gated at BASELINE.md's 0.5%.
+     threshold calibrated on a second scene, then the v3 bf16, w8a8 and
+     w8a8+attn slices at that threshold on the kernels and on the plain
+     versions, the merged maps' label disagreement gated at BASELINE.md's
+     0.5%.
 
 ``--only kernels,trained`` runs phase 3 and/or phase 8 alone (after the
 card, the build and the scene) and prints no result lines: a development
@@ -553,6 +558,154 @@ def check_gemms(dev):
     return total_ms
 
 
+def check_gemms_q8(dev):
+    """Phase 3: K4's s8 GEMM alone on the four shapes of a stage-0 block at
+    B 1024, N 192 (M 196,608: qkv 2304x768 cast, proj 768x768 residual, up
+    3072x768 GELU, down 768x3072 residual), with dynamic row scales and
+    with a static scale, on random codes: the cast and residual outputs
+    bit-identical to ``gemm_q8_ref`` on the same codes and scales (first
+    4096 rows); the GELU output within ``TOL_BLOCK``, its int8 codes and
+    row scales bit-identical to ``quantize_rows`` of its own float32 h1,
+    and the static codes epilogue bit-identical to ``quantize_rows`` of
+    that h1 at the static scale; one call's s32 sums equal to
+    ``torch._int_mm``'s; the same on the last 4096 rows of a ragged M
+    (B 1021, N 193: M 197,053, 61 rows in the last 128-row tile). Prints
+    each shape's ms and TOP/s beside ``torch._int_mm`` (the yardstick; the
+    port never calls it) and K2's bf16 GEMM on the same shape. Returns the
+    time of the four GEMMs."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    c, hidden, rows = 768, 3072, 4096
+    # inputs drawn on the card from a seeded generator (a 600 MB operand
+    # takes seconds through numpy)
+    g = torch.Generator(device=dev).manual_seed(4)
+    codes = lambda *shape: torch.randint(-127, 128, shape, generator=g,
+                                         device=dev, dtype=torch.int8)
+    uni = lambda n, lo, hi: torch.empty(n, device=dev).uniform_(
+        lo, hi, generator=g)
+    normal = lambda *shape, s=1.0: (torch.randn(
+        shape, generator=g, device=dev) * s).to(torch.bfloat16)
+    static = torch.tensor([0.03], dtype=torch.float32, device=dev)
+    shapes = (("qkv", 3 * c, c, "bias_cast"), ("proj", c, c, "bias_residual"),
+              ("up", hidden, c, "bias_gelu"), ("down", c, hidden,
+                                               "bias_residual"))
+    total_ms = 0.0
+    for m in (1024 * 192, 1021 * 193):
+        ragged = m % 128 != 0
+        sl = slice(m - rows, m) if ragged else slice(0, rows)
+        for what, n, k, epi in shapes:
+            a, w = codes(m, k), codes(n, k)
+            ws, sr = uni(n, 3e-4, 9e-4), uni(m, 0.01, 0.05)
+            bias = normal(n, s=0.1)
+            resid = normal(m, n) if epi == "bias_residual" else None
+            args = lambda t, rsl=slice(None): dict(
+                resid=None if resid is None else resid[rsl], **t)
+            for mode, scale in (("dynamic", dict(row_scale=sr)),
+                                ("static", dict(static_scale=static))):
+                part = dict(row_scale=sr[sl]) if mode == "dynamic" else scale
+                got, aux = fb.gemm_q8(a, w, ws, bias, epi, **args(scale))
+                want, _ = fb.gemm_q8_ref(a[sl], w, ws, bias, epi,
+                                         **args(part, sl))
+                if epi == "bias_gelu":
+                    err = rel_err(got[sl], want)
+                    require(err <= TOL_BLOCK, f"s8 GEMM {what} GELU ({mode}, "
+                            f"M {m}) differs from plain: {err}")
+                    qc, qs = fb.quantize_rows(got[sl])
+                    require(torch.equal(aux[0][sl], qc)
+                            and torch.equal(aux[1][sl], qs),
+                            f"s8 GEMM {what} ({mode}, M {m}): h1's codes or "
+                            "row scales differ from quantize_rows of its h1")
+                    out_scale = (got.abs().max() * 0.8 / 127).reshape(1)
+                    hq, _ = fb.gemm_q8(a, w, ws, bias, "bias_gelu_codes",
+                                       out_scale=out_scale, **scale)
+                    require(torch.equal(
+                        hq[sl], fb.quantize_rows(got[sl], out_scale)[0]),
+                        f"s8 GEMM {what} ({mode}, M {m}): static h1 codes "
+                        "differ from quantize_rows of its h1")
+                    check = (f"rel err {err:.3e} (tol {TOL_BLOCK}), codes "
+                             "and scales bit-identical")
+                else:
+                    require(torch.equal(got[sl], want), f"s8 GEMM {what} "
+                            f"{epi} ({mode}, M {m}) is not bit-identical to "
+                            f"plain: max |err| {abs_err(got[sl], want)}")
+                    check = "bit-identical"
+                print(f"GEMM q8 {what} ({epi}, {mode}) {m}x{n}x{k}: {check}")
+                del got, aux, want
+            acc, _ = fb.gemm_q8(a, w, ws, bias, "acc", row_scale=sr)
+            if ragged:
+                require(torch.equal(acc[sl], fb.gemm_q8_ref(
+                    a[sl], w, ws, bias, "acc", row_scale=sr[sl])[0]),
+                    f"s8 GEMM {what} (M {m}): s32 sums differ from plain")
+            else:
+                require(torch.equal(acc, torch._int_mm(a, w.t())),
+                        f"s8 GEMM {what} (M {m}): s32 sums differ from "
+                        "torch._int_mm's")
+            del acc
+            if not ragged:
+                ops = 2 * m * n * k
+                ms = cuda_ms(lambda: fb.gemm_q8(a, w, ws, bias, epi,
+                                                row_scale=sr, resid=resid))
+                int_ms = cuda_ms(lambda: torch._int_mm(a, w.t()))
+                ab, wb = normal(m, k), normal(n, k, s=k ** -0.5)
+                bf_ms = cuda_ms(lambda: fb.gemm(ab, wb, bias, epi, resid))
+                del ab, wb
+                tops = lambda t: ops / t / 1e9
+                total_ms += ms
+                print(f"GEMM q8 {what} ({epi}) {m}x{n}x{k}: {ms:.3f} ms "
+                      f"({tops(ms):.0f} TOP/s); torch._int_mm {int_ms:.3f} "
+                      f"ms ({tops(int_ms):.0f} TOP/s, s32 out); K2's bf16 "
+                      f"GEMM {bf_ms:.3f} ms ({tops(bf_ms):.0f} TFLOP/s); "
+                      f"target >= 1.5x bf16: {target(ms <= bf_ms / 1.5)}")
+            del a, w, ws, sr, bias, resid
+            torch.cuda.empty_cache()
+    print(f"s8 GEMMs of one stage-0 block at B 1024: {total_ms:.3f} ms")
+    return total_ms
+
+
+def check_k4a_core(dev):
+    """Phase 3: K4a's int8 core alone (``attention_q8``) at B 1024 and
+    N = 192, 193, 48, 12 and 256, dynamic and static scales (the abs-max of
+    each third of qkv, shrunk so that some codes saturate), against its
+    plain version within ``TOL_K7``, its time beside the bf16 core's (K7's
+    ``attention_qkv``, the same shape): how K4a's block time splits
+    between its core and the rest."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    c, heads = 768, 12
+    results = {}
+    for b, n in ((1024, 192), (1024, 193), (1024, 48), (1024, 12),
+                 (1024, 256)):
+        g = torch.Generator(device=dev).manual_seed(n + 13)
+        qkv = torch.randn((b, n, 3 * c), generator=g, device=dev).to(
+            torch.bfloat16)
+        bias = torch.randn((heads, n, n), generator=g, device=dev) * 0.5
+        static = torch.stack([qkv[..., i * c:(i + 1) * c].float().abs().max()
+                              * 0.8 / 127 for i in range(3)]).contiguous()
+        bf_ms = cuda_ms(lambda: fa.attention_qkv(qkv, bias, heads))
+        line = []
+        for mode, st in (("dynamic", None), ("static", static)):
+            got = fb.attention_q8(qkv, bias, heads, static=st)
+            want = fb.attention_q8_ref(qkv, bias, heads, st)
+            err = rel_err(got, want)
+            require(err <= TOL_K7, f"K4a core (B={b}, N={n}, {mode}) differs "
+                    f"from plain: {err} > {TOL_K7}")
+            ms = cuda_ms(lambda: fb.attention_q8(qkv, bias, heads, static=st))
+            results[(n, mode)] = ms
+            line.append(f"{mode} rel err {err:.3e} (tol {TOL_K7}), "
+                        f"{ms:.4f} ms")
+            del got, want
+        print(f"K4a core attention_q8 B={b} N={n}: {'; '.join(line)}; bf16 "
+              f"core (K7) {bf_ms:.4f} ms")
+        del qkv, bias
+        torch.cuda.empty_cache()
+    return results
+
+
 def check_k4(dev):
     """Phase 3, w8a8: K4's block (N=192) and chain (N=48 x 4, N=12 x 2) at
     batch 64, at the slices' chunk of 1024 and at the serving walk's chunk
@@ -722,7 +875,8 @@ def check_k4a(dev):
             ms, k4_ms = cuda_ms(run), cuda_ms(k4)
             plain_ms = cuda_ms(plain, reps=2)
             print(f"K4a {name} B={b} N={n} depth {depth} {mode}: {errs}; "
-                  f"{ms:.3f} ms (K4, bf16 attention: {k4_ms:.3f} ms), plain "
+                  f"{ms:.3f} ms (K4, bf16 attention: {k4_ms:.3f} ms; target "
+                  f"<= 1.2x K4: {target(ms <= 1.2 * k4_ms)}), plain "
                   f"{plain_ms:.3f} ms")
             results[(n, mode)] = dict(max_abs_err=aerr, ms=ms,
                                       plain_ms=plain_ms)
@@ -1517,7 +1671,8 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     compute, ``TRAIN_PAIRS`` pairs a step) for ``TRUSTED_EPOCHS`` epochs,
     calibrates an absolute threshold on a second scene
     (``calibrate_threshold``, the root eval.py's procedure), then runs the
-    v3 bf16 and w8a8 slices at that threshold on the kernels and on the
+    v3 bf16, w8a8 and w8a8+attn slices at that threshold on the kernels
+    and on the
     plain versions: the merged maps' label disagreement is gated at
     ``LABEL_DISAGREEMENT_MAX``, beside the embeddings' RMS error and the
     first-round decisions that differ. Prints the margin: the share of
@@ -1599,7 +1754,8 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     r = scene.regions.num_regions
 
     results = {}
-    for label, quantize in (("bf16", ""), ("w8a8", "w8a8")):
+    for label, quantize in (("bf16", ""), ("w8a8", "w8a8"),
+                            ("w8a8+attn", "w8a8+attn")):
         ex = extractor(quantize)
 
         def run():
@@ -1728,7 +1884,13 @@ def main() -> int:
     if only is None or "kernels" in only:
         kernel_results = check_kernels(dev, ds, scene)
         check_gemms(dev)
+        check_gemms_q8(dev)
         kernel_results.update(check_k4(dev))
+        k4_ms = kernel_results["fused_block_q8"]["ms"]
+        k2_ms = kernel_results["fused_block"]["ms"]
+        print(f"K4 block {k4_ms:.3f} ms against K2's {k2_ms:.3f} (B 1024, N "
+              f"192; target K4 < K2: {target(k4_ms < k2_ms)})")
+        check_k4a_core(dev)
         kernel_results.update(check_k4a(dev))
         kernel_results.update(check_k5(dev))
         kernel_results.update(check_k6(dev))
@@ -1831,6 +1993,7 @@ def main() -> int:
     _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                          scene.labels.shape)
     print(f"slice (w8a8-static): {k} clusters after {n_rounds} rounds")
+    time_slice(run_static, "w8a8-static", card)
     against_plain(run_static, embedder(ex_static), out, valid,
                   "w8a8-static")
     del ex_static, run_static

@@ -25,14 +25,15 @@
 // block at 1024 samples, well under the GEMM time):
 //   LN1 → qkv GEMM → attention core → proj GEMM (+residual) → LN2 →
 //   up GEMM (+GELU) → down GEMM (+residual).
-// * The GEMMs share one warp-specialized kernel: 128x256 output tiles,
-//   TMA loads of 64-wide K slabs (128-byte swizzle) into a 4-stage ring of
-//   mbarriers filled by one producer warp, two consumer warpgroups issuing
-//   wgmma m64n256k16 (bf16 in, f32 accumulators) straight from shared
-//   memory, and an epilogue from the accumulators that applies the bias,
-//   the casts and the GELU or residual of its call. The grid is
-//   persistent (one 193 KB CTA an SM), so the producer loads the next
-//   tile's slabs during an epilogue.
+// * The GEMMs share one warp-specialized kernel (wgmma_gemm.cuh, written
+//   once for this file and K4's s8 GEMM): 128x256 output tiles, TMA loads
+//   of 64-wide K slabs (128-byte swizzle) into a 4-stage ring of mbarriers
+//   filled by one producer warp, two consumer warpgroups issuing wgmma
+//   m64n256k16 (bf16 in, f32 accumulators) straight from shared memory,
+//   and an epilogue from the accumulators that applies the bias, the casts
+//   and the GELU or residual of its call. The grid is persistent (one
+//   193 KB CTA an SM), so the producer loads the next tile's slabs during
+//   an epilogue.
 // * LayerNorm is its own row kernel writing bf16 y. Normalizing inside the
 //   GEMM's A loads (the first design) redid the work for every column tile
 //   (18 of them for qkv, 24 for up) and cost the registers of a second CTA
@@ -59,9 +60,7 @@
 // The helpers and the attention core live in block_common.cuh, shared
 // with the w8a8 kernels (fused_block_q8.cu).
 
-#include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
-
-#include "block_common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -124,16 +123,11 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
 
 // Launch plan of the GEMM (ops/kernels/fused_block.py `gemm_plan` computes
 // the same numbers and passes them in; the entry points refuse a plan that
-// differs): 128x256 output tiles, 64-wide K slabs (128 bytes of bf16, the
-// 128-byte swizzle's row) in a 4-stage ring, two consumer warpgroups of 64
-// rows each and one producer warp; 193 KB of shared memory, one CTA an SM
-// and a persistent grid of one CTA an SM.
-constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
-constexpr int kConsumers = 2;                              // warpgroups
-constexpr int kGemmThreads = kConsumers * 128 + 32;        // + producer warp
-constexpr int kStageBytes = (kBM + kBN) * kBK * 2;         // A and W slabs
-constexpr int kGemmSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
-constexpr int kGemmCtasPerSm = 1;
+// differs): wgmma_gemm.cuh's GEMM, 128x256 output tiles, 64-wide K slabs (128 bytes of bf16, the 128-byte swizzle's row) in
+// a 4-stage ring, two consumer warpgroups of 64 rows each and one producer
+// warp; 193 KB of shared memory and a persistent grid of one CTA an SM.
+constexpr int kBK = 64, kStages = 4;
+constexpr int kGemmSmem = gemm_smem_bytes(kStages);
 
 enum Epilogue {
   kBiasCast = 0,
@@ -142,153 +136,71 @@ enum Epilogue {
   kBiasGeluSave = 3,  // kBiasGelu that also writes bf16(acc + bias) to aux
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
+// d (64 x 256 f32 over the warpgroup) += A (64 x 16) · W (256 x 16)ᵀ, bf16,
+// both K-major in shared memory.
+struct MmaBf16 {
+  using Acc = float;
+  static constexpr int kSlabK = kBK;
+  static __device__ __forceinline__ void mma(float (&d)[kGemmBN / 2],
+                                             uint64_t da, uint64_t db) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
+        "setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95,"
+        " %96, %97, %98, %99, %100, %101, %102, %103,"
+        " %104, %105, %106, %107, %108, %109, %110, %111,"
+        " %112, %113, %114, %115, %116, %117, %118, %119,"
+        " %120, %121, %122, %123, %124, %125, %126, %127},"
+        " %128, %129, p, 1, 1, 0, 0;\n"
         "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA load of a (box rows) x 64 bf16 tile at (column c0, row c1) of a
-// 2-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 B, 8-row groups 1024 B
-// apart; the tile starts on 1024 B. Advancing the start by 32 B steps K by
-// 16 within the swizzle atom.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving the accumulators across the asynchronous
-// wgmma issue and wait.
-__device__ __forceinline__ void fence_acc(float (&d)[kBN / 2]) {
-#pragma unroll
-  for (int i = 0; i < kBN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 256 f32 over the warpgroup) += A (64 x 16) · W (256 x 16)ᵀ, both
-// K-major in shared memory. Accumulator layout: warp w of the group holds
-// rows 16w + lane/4 (d[4i], d[4i+1]) and + 8 (d[4i+2], d[4i+3]), columns
-// 8i + 2·(lane%4) and + 1.
-__device__ __forceinline__ void wgmma_256(float (&d)[kBN / 2], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
 
 template <int kEpi>
 __device__ __forceinline__ void epilogue_pair(float c0, float c1, uint32_t bb,
@@ -317,113 +229,26 @@ __device__ __forceinline__ void epilogue_pair(float c0, float c1, uint32_t bb,
   *reinterpret_cast<__nv_bfloat162*>(out + off) = __floats2bfloat162_rn(y0, y1);
 }
 
-// out[m, n] = epilogue(Σ_k A[m, k]·W[n, k]). A (M, K) and W (N, K) are
-// row-major bf16 (W is nn.Linear's weight), both K-major as wgmma reads
-// them; K % 64 == 0, N % 8 == 0 and 16-byte aligned bases (checked by the
-// caller). aux (M, N) is written by kBiasGeluSave only. The producer warp's
-// first lane keeps the ring full with TMA loads of A's and W's 64-wide K
-// slabs (rows past M or N zero-filled by the TMA), each stage completing
-// on its `full` barrier; each consumer warpgroup waits for a stage, issues
-// four m64n256k16 wgmma on it, and releases the stage before last on its
-// `empty` barrier once one wgmma group is left in flight. The epilogue
-// works from the accumulators: the bias, the casts and the GELU or
-// residual of its call, rows past M masked. The grid is persistent: each
-// CTA walks output tiles, and its producer runs on into the next tile's
-// slabs while the consumers finish the last one.
+// The bf16 epilogue from the accumulators: the bias, the casts and the GELU
+// or residual of its call, an eighth of a tile's columns at a time, the
+// residual pairs loaded first so that their loads are in flight together
+// (rows past M and columns past N clamped for the loads, masked for the
+// stores). aux (M, N) is written by kBiasGeluSave only.
 template <int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, kGemmCtasPerSm)
-gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-            const __grid_constant__ CUtensorMap map_w,
-            const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-            bf16* __restrict__ out, bf16* __restrict__ aux, int M, int N,
-            int K) {
-  extern __shared__ unsigned char gemm_smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(gemm_smem_raw) + 1023) &
-      ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
-  uint64_t* empty = full + kStages;
+struct EpiBf16 {
+  const bf16* bias;
+  const bf16* resid;
+  bf16* out;
+  bf16* aux;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int k_tiles = K / kBK;
-  const int tiles_n = (N + kBN - 1) / kBN;
-  const int tiles = tiles_n * ((M + kBM - 1) / kBM);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers * 128);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // Tiles go to the CTAs round-robin, row-block major (neighbouring CTAs
-  // share A's rows); `it` counts K slabs over all of a CTA's tiles, so the
-  // ring runs on from one tile into the next.
-  if (warp == kConsumers * 4) {  // the producer warp
-    if (lane == 0) {
-      int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / tiles_n) * kBM;
-        const int n0 = (tile % tiles_n) * kBN;
-        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-          const int s = it % kStages;
-          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-          unsigned char* st = smem + s * kStageBytes;
-          mbar_expect_tx(&full[s], kStageBytes);
-          tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
-          tma_load_2d(st + kBM * kBK * 2, &map_w, &full[s], kt * kBK, n0);
-        }
-      }
-    }
-    return;
-  }
-
-  const int wg = warp >> 2;  // rows wg*64 .. +64 of a tile
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  float d[kBN / 2];
-  int it = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / tiles_n) * kBM;
-    const int n0 = (tile % tiles_n) * kBN;
-#pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) d[i] = 0.f;
-    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
-      const int s = it % kStages;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      const unsigned char* st = smem + s * kStageBytes;
-      const uint64_t da = wgmma_desc(st + wg * 64 * kBK * 2);
-      const uint64_t db = wgmma_desc(st + kBM * kBK * 2);
-      fence_acc(d);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_256(d, da + 2 * kk, db + 2 * kk);
-      wgmma_commit();
-      fence_acc(d);
-      if (kt > 0) {
-        wgmma_wait<1>();  // the previous slab's products are done
-        fence_acc(d);
-        mbar_arrive(&empty[(it - 1) % kStages]);
-      }
-    }
-    wgmma_wait<0>();
-    fence_acc(d);
-    mbar_arrive(&empty[(it - 1) % kStages]);
-
-    // the epilogue, while the producer loads the next tile's first slabs:
-    // an eighth of a tile's columns at a time, the residual pairs loaded
-    // first so that their loads are in flight together (rows past M and
-    // columns past N clamped for the loads, masked for the stores)
-    const long long row_a = m0 + wg * 64 + (warp & 3) * 16 + g;
+  __device__ __forceinline__ void store(const float (&d)[kGemmBN / 2],
+                                        long long row_a, int n0, int tig,
+                                        int M, int N) const {
     const long long la = (row_a < M ? row_a : M - 1) * N;
     const long long lb = (row_a + 8 < M ? row_a + 8 : M - 1) * N;
 #pragma unroll
     for (int part = 0; part < 8; ++part) {
-      constexpr int kCols = kBN / 64;  // column pairs per eighth
+      constexpr int kCols = kGemmBN / 64;  // column pairs per eighth
       uint32_t ra[kCols], rb[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -452,86 +277,25 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, a driver call, reached through the runtime's
-// entry-point query (no link against libcuda).
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiledFn>(nullptr);
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// The tensor map of a row-major (rows, K) bf16 matrix read in boxes of
-// `box_rows` x 64 with the 128-byte swizzle; out-of-range rows read as 0.
-inline cudaError_t tensor_map(CUtensorMap* map, const bf16* base, int rows,
-                              int K, int box_rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(bf16)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<bf16*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
+};
 
 // The GEMM part of a launch plan, as gemm_plan writes it.
 inline bool gemm_plan_ok(const int* p) {
-  return p[0] == kBM && p[1] == kBN && p[2] == kBK && p[3] == kStages &&
+  return p[0] == kGemmBM && p[1] == kGemmBN && p[2] == kBK && p[3] == kStages &&
          p[4] == kGemmThreads && p[5] == kGemmSmem;
 }
 
+// out[m, n] = epilogue(Σ_k A[m, k]·W[n, k]). A (M, K) and W (N, K) are
+// row-major bf16 (W is nn.Linear's weight); K % 64 == 0, N % 8 == 0 and
+// 16-byte aligned bases (checked by the caller).
 template <int kEpi>
 cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
                  const bf16* resid, bf16* out, int M, int N, int K,
                  cudaStream_t stream, bf16* aux = nullptr) {
-  if (K % kBK != 0 || N % 8 != 0 || M < 1) return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_w;
-  cudaError_t e = tensor_map(&map_a, A, M, K, kBM);
-  if (e != cudaSuccess) return e;
-  if ((e = tensor_map(&map_w, W, N, K, kBN)) != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(gemm_kernel<kEpi>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kGemmSmem);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(gemm_kernel<kEpi>,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return e;
-  // a persistent grid: as many CTAs as fit the card at once, or one a tile
-  int device = 0, sms = 0;
-  if ((e = cudaGetDevice(&device)) != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  const long long tiles =
-      static_cast<long long>((N + kBN - 1) / kBN) * ((M + kBM - 1) / kBM);
-  const int grid = static_cast<int>(
-      tiles < kGemmCtasPerSm * sms ? tiles : kGemmCtasPerSm * sms);
-  gemm_kernel<kEpi><<<grid, kGemmThreads, kGemmSmem, stream>>>(
-      map_a, map_w, bias, resid, out, aux, M, N, K);
-  return cudaGetLastError();
+  const EpiBf16<kEpi> epi{bias, resid, out, aux};
+  return wgmma_gemm<MmaBf16, kStages>(
+      A, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), epi, M, N, K,
+      stream);
 }
 
 cudaError_t layer_norm(const bf16* x, const float* w, const float* b, bf16* y,

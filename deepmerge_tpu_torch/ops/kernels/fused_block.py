@@ -63,15 +63,21 @@ _SIGNATURES = {
 }
 _SIGNATURES_Q8 = {
     # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
-    # h, codes, row_scale, plan, stream
+    # h, codes, row_scale, row_amax, plan, stream
     "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
-    # att, r, h, codes, row_scale, plan, stream
-    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
                             _P, _P, _P, _P, _P, _P, _P],
+    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
+    # att, r, h, codes, row_scale, row_amax, plan, stream
+    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P],
+    # a, w, w_scale, row_scale, static_scale, bias, resid, out, codes,
+    # out_row_scale, row_amax, out_scale, M, N, K, epilogue, plan, stream
+    "dm_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                   _I, _I, _P, _P],
+    # qkv, bias, s_qkv, out, B, N, C, H, plan, stream
+    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
-Q8_K_ALIGN = 128   # the int8 GEMM's K tile: C and the MLP width divide by it
+Q8_K_ALIGN = 128   # the s8 GEMM's K slab: C and the MLP width divide by it
 
 # ------------------------------------------------------------ launch plans
 #
@@ -184,6 +190,95 @@ def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
     for rows, depth in ((3 * c, c), (c, c), (hidden, c), (c, hidden)):
         gemm = gemm_plan(m, rows, depth)
     return attention_plan(b, n, heads)["ints"] + gemm["ints"]
+
+
+# K4's s8 GEMM (csrc/fused_block_q8.cu on csrc/wgmma_gemm.cuh): K2's plan
+# with 128-value K slabs (Q8_K_ALIGN: 128 bytes, as K2's 64 bf16).
+GEMM_Q8_EPILOGUES = ("bias_cast", "bias_residual", "bias_gelu",
+                     "bias_gelu_codes", "acc")
+
+
+def gemm_q8_plan(m: int, n: int, k: int) -> dict:
+    """K4's s8 GEMM launch for out (m, n) = dq(A (m, k) · W (n, k)ᵀ):
+    ``ints`` (tile rows, tile columns, K slab, stages, threads, shared
+    bytes) as the C entry points take them, the tiles and the CTAs that fit
+    an SM. TMA reads both operands in 128-byte K slabs: raises
+    ``ValueError`` unless k % 128 == 0 and n % 8 == 0."""
+    if m < 1 or k < Q8_K_ALIGN or k % Q8_K_ALIGN or n < 8 or n % 8:
+        raise ValueError(f"the s8 GEMM needs K % {Q8_K_ALIGN} == 0 and "
+                         f"N % 8 == 0, got M={m}, N={n}, K={k}")
+    return dict(ints=(GEMM_BM, GEMM_BN, Q8_K_ALIGN, GEMM_STAGES,
+                      GEMM_THREADS, GEMM_SMEM),
+                tiles=-(-n // GEMM_BN) * -(-m // GEMM_BM), smem=GEMM_SMEM,
+                ctas_per_sm=ctas_per_sm(GEMM_THREADS, GEMM_SMEM,
+                                        GEMM_REGISTERS))
+
+
+# K4a's int8 core (csrc/fused_block_q8.cu): a CTA of `warps` warps (even,
+# at most 8) per head and `samples` samples, k codes in 80-byte rows and v
+# codes transposed in shared memory, register arrays sized by a bucket of
+# the 32-key step count; 168 registers a thread at most (the bf16 core's
+# launch bound of 12 warps), 85 up to two steps (a launch bound of two
+# such CTAs an SM).
+ATTN_Q8_STEP_BUCKETS = (1, 2, 4, 6, 7, 8)
+ATTN_Q8_MAX_WARPS = 8
+ATTN_Q8_SHORT_REGISTERS = 85
+
+
+def attention_q8_smem(n: int) -> int:
+    """Shared bytes of one K4a CTA for ``n`` tokens (keys padded to 32):
+    k codes (np x 80 B), v codes transposed (64 x (np + 16) B), k's row
+    scales, v's column scales and a 64-lane partial abs-max for each eight
+    threads of the largest CTA."""
+    np_ = -(-n // 32) * 32
+    return np_ * (HEAD_DIM + 16) + HEAD_DIM * (np_ + 16) + np_ * 4 \
+        + HEAD_DIM * 4 + (ATTN_Q8_MAX_WARPS * 32 // 8) * HEAD_DIM * 4
+
+
+def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
+                      samples: int | None = None) -> dict:
+    """K4a's core launch for ``b`` samples of ``n`` tokens and ``heads``
+    heads: ``ints`` (32-key step bucket, warps, samples, shared bytes) as
+    the C entry points take them, the grid and the CTAs that fit an SM.
+    ``warps`` None: 2 where one 16-query tile holds every token (n <= 16),
+    else ``ATTN_WARPS``; ``samples`` None: as ``attention_plan``. Raises
+    ``ValueError`` for a launch the kernel does not take (even warps, at
+    most ``ATTN_Q8_MAX_WARPS``)."""
+    if warps is None:
+        warps = 2 if n <= 16 else ATTN_WARPS
+    if samples is None:
+        samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
+    if not 1 <= n <= MAX_TOKENS:
+        raise ValueError(f"the int8 attention core takes 1..{MAX_TOKENS} "
+                         f"tokens, got {n}")
+    if not 2 <= warps <= ATTN_Q8_MAX_WARPS or warps % 2 or samples < 1:
+        raise ValueError(f"the int8 attention core takes an even 2.."
+                         f"{ATTN_Q8_MAX_WARPS} warps and >= 1 samples a CTA,"
+                         f" got {warps}, {samples}")
+    steps = -(-n // 32)
+    bucket = next(t for t in ATTN_Q8_STEP_BUCKETS if t >= steps)
+    smem = attention_q8_smem(n)
+    grid = (heads, -(-b // samples))
+    if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
+        raise ValueError(f"attention grid {grid} out of range")
+    registers = ATTN_Q8_SHORT_REGISTERS if bucket <= 2 else ATTN_REGISTERS
+    return dict(ints=(bucket, warps, samples, smem), steps=steps,
+                bucket=bucket, warps=warps, samples=samples, smem=smem,
+                grid=grid,
+                ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
+
+
+def block_plan_q8(b: int, n: int, c: int, heads: int, hidden: int,
+                  quant_attn: bool = False) -> tuple:
+    """A w8a8 block's plan as its C entry points take it: the attention
+    core's ints (K2's core, or K4a's with ``quant_attn``), then each GEMM's
+    (qkv, proj, up, down at M = b·n)."""
+    m = b * n
+    attn = (attention_q8_plan if quant_attn else attention_plan)(b, n, heads)
+    gemms = (gemm_q8_plan(m, rows, depth)["ints"]
+             for rows, depth in ((3 * c, c), (c, c), (hidden, c),
+                                 (c, hidden)))
+    return attn["ints"] + tuple(i for g in gemms for i in g)
 
 
 def _plan_arg(ints):
@@ -516,21 +611,42 @@ def _int_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         b.to(torch.float64)).to(torch.float32)
 
 
+def quantize_rows(t: torch.Tensor, static_scale=None):
+    """``(codes, scale)`` of a float32 (M, K) activation as the w8a8 path
+    quantizes a GEMM input: per row, codes rint(t / s) with s = max|row| /
+    127 (1 for a zero row), scale (M,); or with ``static_scale`` (a
+    calibrated scalar) codes rint(t · (1/s)) and that scale."""
+    t = t.to(torch.float32)
+    if static_scale is not None:
+        return _codes(t * (1.0 / static_scale)), static_scale
+    sr = _scale_from_amax(t.abs().amax(dim=-1))
+    return _codes(t / sr[:, None]), sr
+
+
+def _dequant(acc, w_scale, row_scale=None, static_scale=None):
+    """Dequantized float32 s32 sums, in the JAX package's order: acc ·
+    s_row · s_w left to right (``_qdot``), or acc · (s · s_w) with a static
+    scale (``_qdot_static``)."""
+    if static_scale is not None:
+        return acc * (static_scale * w_scale)[None, :]
+    return acc * row_scale[:, None] * w_scale[None, :]
+
+
 def _qdot(y: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor):
     """float32 (M, K) × int8 (N, K)ᵀ with a dynamic per-row activation
     scale; returns the dequantized float32 (M, N), scaled left to right
     (acc · s_row · s_w) as the JAX package's ``_qdot``."""
-    sr = _scale_from_amax(y.abs().amax(dim=-1, keepdim=True))
-    acc = _int_einsum("mk,nk->mn", _codes(y / sr), wq)
-    return acc * sr * s_w[None, :]
+    codes, sr = quantize_rows(y)
+    return _dequant(_int_einsum("mk,nk->mn", codes, wq), s_w, row_scale=sr)
 
 
 def _qdot_static(y: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                  sr: torch.Tensor):
     """``_qdot`` with a calibrated static scale ``sr`` (0-d float32):
     codes = round(y · (1/sr)), dequantized as acc · (sr · s_w)."""
-    acc = _int_einsum("mk,nk->mn", _codes(y * (1.0 / sr)), wq)
-    return acc * (sr * s_w)[None, :]
+    codes, _ = quantize_rows(y, sr)
+    return _dequant(_int_einsum("mk,nk->mn", codes, wq), s_w,
+                    static_scale=sr)
 
 
 # The int8 attention core of ``w8a8+attn`` (K4a): ``_attn_inner_q8`` and
@@ -596,6 +712,52 @@ def _attention_q8s(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     (``_attn_inner_q8s``): codes rint(t · (1/s)) of the scalars, logits
     acc · (s_q·s_k·d^-½) + bias, output (Σ pq·vi · (1/Σ pq)) · s_v."""
     return _attention_q8_core(qkv, bias, heads, (s_q, s_k, s_v))
+
+
+def gemm_q8_ref(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                bias: torch.Tensor, epilogue: str, row_scale=None,
+                static_scale=None, resid=None, out_scale=None):
+    """Plain version of K4's s8 GEMM with one of its epilogues
+    (``GEMM_Q8_EPILOGUES``): ``(out, aux)`` from int8 codes a (M, K), w (N,
+    K) (nn.Linear's layout), w's scale (N,), the codes' row scales (M,)
+    ``row_scale`` or calibrated scalar ``static_scale``, bias (N,) bf16 and,
+    for ``bias_residual``, resid (M, N) bf16. dq is ``_qdot``'s (acc ·
+    s_row · s_w) or ``_qdot_static``'s (acc · (s · s_w)); ``bias_cast``
+    gives bf16(bf16(dq) + b), ``bias_residual`` bf16(resid + bf16(bf16(dq)
+    + b)), ``bias_gelu`` the float32 h1 = gelu_tanh(dq + b) with aux =
+    ``quantize_rows(h1)``, ``bias_gelu_codes`` h1's codes at the static
+    ``out_scale``, ``acc`` the int32 sums themselves (aux None for all but
+    ``bias_gelu``)."""
+    if (row_scale is None) == (static_scale is None):
+        raise ValueError("give one of row_scale and static_scale")
+    if epilogue == "acc":
+        return torch.einsum("mk,nk->mn", a.to(torch.float64),
+                            w.to(torch.float64)).to(torch.int32), None
+    y = _dequant(_int_einsum("mk,nk->mn", a, w), w_scale, row_scale,
+                 static_scale)
+    if epilogue in ("bias_gelu", "bias_gelu_codes"):
+        h1 = gelu(y + bias.to(torch.float32))
+        if epilogue == "bias_gelu":
+            return h1, quantize_rows(h1)
+        if out_scale is None:
+            raise ValueError("bias_gelu_codes takes out_scale")
+        return quantize_rows(h1, out_scale)[0], None
+    if epilogue not in ("bias_cast", "bias_residual"):
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    out = y.to(bias.dtype) + bias
+    if epilogue == "bias_residual":
+        out = resid + out
+    return out, None
+
+
+def attention_q8_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                     static=None) -> torch.Tensor:
+    """Plain version of K4a's core alone: ``_attention_q8`` on a (B, N, 3C)
+    qkv, or with ``static`` (the calibrated (s_q, s_k, s_v), a (3,) float32
+    or three scalars) ``_attention_q8s``."""
+    if static is None:
+        return _attention_q8(qkv, bias, heads)
+    return _attention_q8s(qkv, bias, heads, *static)
 
 
 def block_ref_q8(x: torch.Tensor, qparams, heads: int,
@@ -1016,14 +1178,15 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
     codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
+    row_amax = torch.empty((m,), dtype=torch.float32, device=dev)
     ptrs = _pointers(qparams_list)
-    plan = _plan_arg(block_plan(b, n, c, heads, hidden))
+    plan = _plan_arg(block_plan_q8(b, n, c, heads, hidden, quant_attn))
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     shape = (b, n, c, heads, hidden)
     flags = (int(static), int(quant_attn))
     scratch = (qkv.data_ptr(), att.data_ptr(), r.data_ptr(), h.data_ptr(),
-               codes.data_ptr(), row_scale.data_ptr())
+               codes.data_ptr(), row_scale.data_ptr(), row_amax.data_ptr())
     if fn_name == "dm_block_forward_q8":
         err = lib.dm_block_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
                                       ptrs, *flags, *scratch, plan, stream)
@@ -1107,3 +1270,135 @@ fused_block_q8.launches = 0
 fused_block_chain_q8.launches = 0
 fused_block_q8_attn.launches = 0
 fused_block_chain_q8_attn.launches = 0
+
+
+# ------------------------------------ K4's s8 GEMM and K4a's core on their own
+
+def _check_gemm_q8(a, w, w_scale, bias, epilogue, row_scale, static_scale,
+                   resid, out_scale):
+    if epilogue not in GEMM_Q8_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if (row_scale is None) == (static_scale is None):
+        raise ValueError("give one of row_scale and static_scale")
+    if (epilogue == "bias_residual") != (resid is not None):
+        raise ValueError(f"{epilogue} takes "
+                         f"{'a' if resid is None else 'no'} residual")
+    if (epilogue == "bias_gelu_codes") != (out_scale is not None):
+        raise ValueError("bias_gelu_codes, and only it, takes out_scale")
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"a (M, K) and w (N, K), got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    m, k = a.shape
+    n = w.shape[0]
+    i8, f32, bf = torch.int8, torch.float32, torch.bfloat16
+    want = [(a, i8, (m, k)), (w, i8, (n, k)), (w_scale, f32, (n,)),
+            (bias, bf, (n,))]
+    if row_scale is not None:
+        want.append((row_scale, f32, (m,)))
+    else:
+        want.append((static_scale, f32, (1,)))
+    if resid is not None:
+        want.append((resid, bf, (m, n)))
+    if out_scale is not None:
+        want.append((out_scale, f32, (1,)))
+    for t, dt, shape in want:
+        if (t.dtype != dt or tuple(t.shape) != shape
+                or t.device != a.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise TypeError(f"the s8 GEMM wants a contiguous {dt} {shape} on "
+                            f"{a.device}, 16-byte aligned (TMA's bases); got "
+                            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return m, n, k, gemm_q8_plan(m, n, k)
+
+
+def gemm_q8(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+            bias: torch.Tensor, epilogue: str, row_scale=None,
+            static_scale=None, resid=None, out_scale=None):
+    """K4's s8 GEMM with one of its epilogues, on its own: ``(out, aux)``
+    as ``gemm_q8_ref`` returns them (``static_scale`` and ``out_scale`` as
+    (1,) tensors). The blocks launch it from C; this entry serves its
+    measurement and tests.
+
+    CPU tensors run ``gemm_q8_ref``. CUDA tensors (K % 128 == 0, N % 8 ==
+    0, 16-byte aligned) launch ``csrc/fused_block_q8.cu`` (``dm_gemm_q8``;
+    ``bias_gelu`` also runs the quantize pass of its codes) and count the
+    launch in ``gemm_q8.launches``; anything else raises.
+    """
+    if not _on_cuda(a):
+        return gemm_q8_ref(a, w, w_scale, bias, epilogue, row_scale,
+                           static_scale, resid, out_scale)
+    m, n, k, plan = _check_gemm_q8(a, w, w_scale, bias, epilogue,
+                                   row_scale, static_scale, resid, out_scale)
+    dev = a.device
+    empty = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+    codes = scales = amax = None
+    if epilogue == "bias_gelu":
+        out = empty((m, n), torch.float32)
+        codes, scales = empty((m, n), torch.int8), empty((m,), torch.float32)
+        amax = torch.zeros((m,), dtype=torch.float32, device=dev)
+    elif epilogue == "bias_gelu_codes":
+        out = empty((m, n), torch.int8)
+    elif epilogue == "acc":
+        out = empty((m, n), torch.int32)
+    else:
+        out = empty((m, n), torch.bfloat16)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = build.load("fused_block_q8", _SIGNATURES_Q8)
+    err = lib.dm_gemm_q8(ptr(a), ptr(w), ptr(w_scale), ptr(row_scale),
+                         ptr(static_scale), ptr(bias), ptr(resid), ptr(out),
+                         ptr(codes), ptr(scales), ptr(amax), ptr(out_scale),
+                         m, n, k, GEMM_Q8_EPILOGUES.index(epilogue),
+                         _plan_arg(plan["ints"]),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "dm_gemm_q8")
+    gemm_q8.launches += 1
+    return out, ((codes, scales) if epilogue == "bias_gelu" else None)
+
+
+def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                 static=None, plan=None) -> torch.Tensor:
+    """K4a's int8 core on its own: (B, N, C) in qkv's dtype from a (B, N,
+    3C) qkv and an (H, N, N) float32 bias, dynamic scales or ``static``
+    (s_q, s_k, s_v) (a (3,) float32 tensor on the CUDA path).
+
+    CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d = 64, 1 <=
+    N <= 256) launch ``csrc/fused_block_q8.cu`` (``dm_attention_q8``) with
+    ``plan`` (an ``attention_q8_plan`` of these shapes; the default one if
+    None) and count the launch in ``attention_q8.launches``; anything else
+    raises.
+    """
+    if not _on_cuda(qkv):
+        return attention_q8_ref(qkv, bias, heads, static)
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3 or \
+            not qkv.is_contiguous():
+        raise TypeError(f"qkv must be a contiguous (B, N, 3C) bf16 tensor, "
+                        f"got {qkv.dtype} {tuple(qkv.shape)}")
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    if c3 % 3 or c != heads * HEAD_DIM:
+        raise ValueError(f"the int8 attention needs 3C with C == heads*"
+                         f"{HEAD_DIM}; got 3C={c3}, heads={heads}")
+    if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, n, n)
+            or bias.device != qkv.device or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous float32 ({heads}, {n}, "
+                         f"{n}) on {qkv.device}")
+    if static is not None and (
+            static.dtype != torch.float32 or tuple(static.shape) != (3,)
+            or static.device != qkv.device or not static.is_contiguous()):
+        raise ValueError("static must be a contiguous float32 (3,) tensor "
+                         f"on {qkv.device}")
+    plan = plan or attention_q8_plan(b, n, heads)
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lib = build.load("fused_block_q8", _SIGNATURES_Q8)
+    err = lib.dm_attention_q8(
+        qkv.data_ptr(), bias.data_ptr(),
+        None if static is None else static.data_ptr(), out.data_ptr(), b, n,
+        c, heads, _plan_arg(plan["ints"]),
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    build.check(lib, err, "dm_attention_q8")
+    attention_q8.launches += 1
+    return out
+
+
+gemm_q8.launches = 0
+attention_q8.launches = 0

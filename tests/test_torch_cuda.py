@@ -30,7 +30,11 @@ probability codes, one quant step). The training block (K5): its output
 and its residual r as a block, its probabilities as K6's, its saved qkv
 and pre-GELU activation to 2e-2 of max|plain| (bf16 roundings of the same
 sums), and the gradients of x and of every parameter through its autograd
-function, kernel forward against plain forward, to 2e-2 of their max.
+function, kernel forward against plain forward, to 2e-2 of their max. K4's
+s8 GEMM alone: bit-identical to its plain version on every epilogue but
+the float32 GELU (1e-5 of max|plain|: tanh in another library), whose
+int8 codes and row scales are bit-identical to those of its own output;
+K4a's core alone as K4a in the block, and bit-identical across its plans.
 """
 
 import numpy as np
@@ -540,3 +544,78 @@ def test_gemm_rejects_what_the_kernel_does_not_take(cuda):
         fb.gemm(a, w, bias, "bias_cast")
     with pytest.raises(ValueError, match="residual"):
         fb.gemm(a.clone(), w, bias, "bias_residual")
+
+
+# ---------------------------------------------- K4's s8 GEMM, K4a's core
+
+@pytest.mark.parametrize("epilogue", fb.GEMM_Q8_EPILOGUES)
+def test_gemm_q8_epilogues_match_plain(cuda, epilogue):
+    """The s8 wgmma GEMM with each epilogue at a ragged M
+    (rows past the last tile masked), dynamic row scales and a static
+    scale, against its plain version: bit-identical but for the float32
+    GELU (tanh in another library), whose codes and row scales are those
+    of its own output."""
+    rs = np.random.default_rng(len(epilogue))
+    m, n, k = 197, 384, 256
+    codes = lambda *shape: torch.from_numpy(
+        rs.integers(-127, 128, shape, dtype=np.int8)).to(cuda)
+    a, w = codes(m, k), codes(n, k)
+    ws = torch.from_numpy(rs.uniform(3e-4, 9e-4, n).astype(np.float32)).to(
+        cuda)
+    bias = torch.from_numpy(rs.standard_normal(n).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    kw = {}
+    if epilogue == "bias_residual":
+        kw["resid"] = torch.from_numpy(rs.standard_normal((m, n)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+    if epilogue == "bias_gelu_codes":
+        kw["out_scale"] = torch.tensor([0.02], device=cuda)
+    for scale in (dict(row_scale=torch.from_numpy(rs.uniform(
+            0.01, 0.05, m).astype(np.float32)).to(cuda)),
+                  dict(static_scale=torch.tensor([0.03], device=cuda))):
+        before = fb.gemm_q8.launches
+        got, aux = fb.gemm_q8(a, w, ws, bias, epilogue, **scale, **kw)
+        torch.cuda.synchronize()
+        assert fb.gemm_q8.launches == before + 1
+        want, _ = fb.gemm_q8_ref(a, w, ws, bias, epilogue, **scale, **kw)
+        if epilogue == "bias_gelu":
+            assert _rel_err(got, want) <= 1e-5
+            codes_ref, scales_ref = fb.quantize_rows(got)
+            assert torch.equal(aux[0], codes_ref)
+            assert torch.equal(aux[1], scales_ref)
+        else:
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("n", [12, 13, 48, 49, 192, 193, 256])
+def test_attention_q8_matches_plain(cuda, n, static):
+    """K4a's int8 core alone against its plain version (the block's bound:
+    a code one apart on a rounding boundary moves a row by a quant
+    step)."""
+    rs = np.random.default_rng(n + 90)
+    qkv, bias = _attention_inputs(rs, 5, n, 3, cuda)
+    st = None
+    if static:
+        st = torch.stack([qkv[..., i * 192:(i + 1) * 192].float().abs().max()
+                          * 0.8 / 127 for i in range(3)]).contiguous()
+    before = fb.attention_q8.launches
+    got = fb.attention_q8(qkv, bias, 3, static=st)
+    torch.cuda.synchronize()
+    assert fb.attention_q8.launches == before + 1
+    want = fb.attention_q8_ref(qkv, bias, 3, st)
+    assert got.dtype == torch.bfloat16 and _rel_err(got, want) <= BLOCK_TOL
+
+
+@pytest.mark.parametrize("warps,samples", [(2, 1), (4, 3), (8, 2)])
+def test_attention_q8_plans_agree(cuda, warps, samples):
+    """K4a's core under other launch plans (warps a CTA, samples a CTA, a
+    batch not divisible by the samples) computes the same bits as the
+    default plan."""
+    rs = np.random.default_rng(warps * 10 + samples)
+    qkv, bias = _attention_inputs(rs, 7, 193, 3, cuda)
+    plan = fb.attention_q8_plan(7, 193, 3, warps=warps, samples=samples)
+    got = fb.attention_q8(qkv, bias, 3, plan=plan)
+    want = fb.attention_q8(qkv, bias, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
