@@ -26,19 +26,30 @@ kernel against its plain PyTorch version on the card:
      epilogues, s32 sums equal to ``torch._int_mm``'s, TOP/s beside
      ``torch._int_mm`` and the bf16 GEMM), K4a's int8
      core alone beside the bf16 core, and K7 under other launch plans of
-     its core;
+     its core; K1, the fused patch kernel (``patch_resize``), bit-exact on
+     every slot of the slice's points and of the first walk scene's, at a
+     cap of 256 and on scenes of 1, 3, 4 and 5 bands, in bf16 and float32,
+     each slice slot timed (median of 20 launches) beside its plain version
+     and the unfused stage it replaced (K1's gather and two float32
+     products); K1's gather, which the float path keeps, bit-exact and
+     timed with trusted origins;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
-     run, the median time of three runs, one profiled run (the device's busy
-     share and its time by kernel), and the same slice with the plain
+     run (K1's fused patch kernel 3 a chunk, its gather none), the median
+     time of three runs, one profiled run (the device's busy share and its
+     time by kernel), and the same slice with the plain
      versions on the card as the reference (the embeddings' RMS error and
      the share of first-round merge decisions that differ held to their
      bounds, the label disagreement of the maps printed: on random weights
      the merge amplifies a few edges, see ``TOL_EMB_RMS``);
   5. the same slice with ``quantize="w8a8"`` (K1 and K4 launched, K2 and K3
      not), checked the same way, its label disagreement with the bf16
-     slice printed; then one ``w8a8-static`` run, calibrated on its first
-     chunk; then the same slice on v5 (the designed-feature token in the
+     slice printed, and timed and profiled again with the patch stage
+     unfused (``unfused_patch_stage``: with the gather's bounds check, and
+     timed without it), then fused again; then the float
+     path (``data.quantize_uint8=False``: K1's gather, no fused patch
+     kernel) for the slice's embeddings; then one ``w8a8-static`` run,
+     calibrated on its first chunk; then the same slice on v5 (the designed-feature token in the
      sequence, N = 193/49/13), in w8a8 (K1 and K4, not K2, K3, K7 or K8)
      and at the reference's erf GELU in bf16 (K1 and K7, 12 launches a
      chunk, no block kernel, no K8), each timed, profiled and held to the
@@ -48,16 +59,18 @@ kernel against its plain PyTorch version on the card:
      w8a8 slice printed;
   6. the serving walk: ``process_folder`` with ``quantize="w8a8"`` and
      label maps over four 2048² scenes of 8192 regions in the reference
-     folder layout, each scene's ``simi``, merged map and stored embeddings
-     checked, and the steady-state MPix/s from the gaps between completions;
-     then its first scene again through ``process_scene``, profiled (busy
+     folder layout (K1's fused patch kernel 3 a chunk), each scene's
+     ``simi``, merged map and stored embeddings checked, and the
+     steady-state MPix/s from the gaps between completions; then its first
+     scene again through ``process_scene``, profiled (busy
      share), and on the plain versions (its embeddings and its first-round
      merge decisions held to theirs);
   7. training: ``train.driver.train`` on the flagship at 120 pairs a step
      (a forward batch of 240) for two epochs of eight steps on the 1024²
-     scene, checkpointing every epoch: K6 launched 12 times a step and K1
-     launched, no block kernel; finite losses; the last checkpoint restores
-     the parameters and Adam's moments; the median step time, pairs/s,
+     scene, checkpointing every epoch: K6 launched 12 times a step and K1's
+     fused patch kernel 3 times, no block kernel and no gather; finite
+     losses; the last checkpoint restores the parameters and Adam's
+     moments; the median step time, pairs/s,
      peak memory and one profiled step; and four steps from the same
      weights and batches on the plain versions, their losses held to the
      kernels'. Then the same for v5 with its aux losses at weights
@@ -75,9 +88,9 @@ kernel against its plain PyTorch version on the card:
      versions, the merged maps' label disagreement gated at BASELINE.md's
      0.5%.
 
-``--only kernels,trained`` runs phase 3 and/or phase 8 alone (after the
-card, the build and the scene) and prints no result lines: a development
-run, not the smoke run.
+``--only patches,kernels,trained`` runs K1's fused patch check, phase 3
+and/or phase 8 alone (after the card, the build and the scene) and prints
+no result lines: a development run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -96,6 +109,7 @@ or outside the repository. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -121,7 +135,11 @@ from unittest import mock
 # the flagship widths on an H100 the kernels show 0.003 for one block,
 # 0.005 for a stage of two and 0.013 for a w8a8 stage of four; the plain
 # version with one bias of the block left out shows 0.034 or more.
+# The fused patch kernel takes the plain version's weights: its row pass
+# is integer-exact and its column pass sums the same float32 products,
+# which the rounding to uint8 steps absorbs, so it is held bit-exact too.
 TOL_GATHER = 0.0
+TOL_PATCHES = 0.0
 TOL_BLOCK = 2e-2
 TOL_CHAIN = 3e-2
 TOL_BLOCK_RMS = 1e-2
@@ -274,6 +292,23 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def cuda_median_ms(fn, reps=20):
+    """Median device time of one call of ``fn`` over ``reps`` calls, each
+    between its own pair of CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
 def rel_err(got, want):
     want = want.float()
     return float((got.float() - want).abs().max() / want.abs().max())
@@ -413,19 +448,19 @@ def check_kernels(dev, ds, scene):
 
     results = {}
 
-    # K1 at the main path's shapes: chunks of 256 points, every slot
+    # K1's gather serves the float path (caps above 256, or no uint8
+    # rounding): chunks of 256 points, every slot's window
     c = ds.padded.shape[-1]
     scene2d = ds.padded.reshape(ds.padded.shape[0], -1)
     pad = patches.scene_pad(ds.caps, c)
-    a_px = patches._pixel_align(c)
+    a_px = wg.pixel_align(c)
     centers = torch.as_tensor(scene.regions.points_yx, dtype=torch.int32,
                               device=dev)
     worst, n_calls, last = 0.0, 0, None
     for slot, cap in enumerate(ds.caps):
         rows, cols = cap + wg.ROW_ALIGN, (cap + a_px) * c
         for s in range(0, centers.shape[0], 256):
-            starts, _, _ = patches.window_starts(centers[s : s + 256], cap,
-                                                 pad, c)
+            starts, _, _ = wg.window_starts(centers[s : s + 256], cap, pad, c)
             got = wg.gather_windows(scene2d, starts, rows, cols)
             want = wg.gather_windows_ref(scene2d, starts, rows, cols)
             worst = max(worst, abs_err(got, want))
@@ -434,20 +469,25 @@ def check_kernels(dev, ds, scene):
                 last = (starts, rows, cols)
     require(worst <= TOL_GATHER, f"window gather differs from plain: {worst}")
     starts, rows, cols = last
-    ms = cuda_ms(lambda: wg.gather_windows(scene2d, starts, rows, cols))
-    plain_ms = cuda_ms(lambda: wg.gather_windows_ref(scene2d, starts, rows,
-                                                     cols))
+    # origins from window_starts of points inside the scene: aligned and in
+    # bounds, so timed without the bounds check's host round trip
+    ms = cuda_median_ms(lambda: wg.gather_windows(scene2d, starts, rows, cols,
+                                                  trusted_origins=True))
+    plain_ms = cuda_median_ms(lambda: wg.gather_windows_ref(
+        scene2d, starts, rows, cols), reps=5)
     # the PyTorch call that computes the same gather: one advanced-indexing
     # read with the index grids already built
     ri = starts[:, 0:1].long() + torch.arange(rows, device=dev)
     ci = starts[:, 1:2].long() + torch.arange(cols, device=dev)
-    library_ms = cuda_ms(lambda: scene2d[ri[:, :, None], ci[:, None, :]])
+    library_ms = cuda_median_ms(
+        lambda: scene2d[ri[:, :, None], ci[:, None, :]])
     b1 = bound(2 * starts.shape[0] * rows * cols + starts.numel() * 4)
-    print(f"K1 window_gather: {n_calls} calls (3 slots x 256-point chunks, "
-          f"windows {rows}x{cols} B), max |err| {worst} (tol {TOL_GATHER}, "
-          f"bit-exact); 256 points: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"indexing call {library_ms:.4f} ms, bound {b1['bound_ms']:.4f} "
-          f"ms ({b1['bound_by']})")
+    print(f"K1 window_gather (float path): {n_calls} calls (3 slots x "
+          f"256-point chunks, windows {rows}x{cols} B), max |err| {worst} "
+          f"(tol {TOL_GATHER}, bit-exact); 256 points, trusted origins, "
+          f"median of 20: {ms:.4f} ms, plain {plain_ms:.4f} ms, indexing "
+          f"call {library_ms:.4f} ms, bound {b1['bound_ms']:.4f} ms "
+          f"({b1['bound_by']})")
     results["window_gather"] = dict(max_abs_err=worst, ms=ms,
                                     plain_ms=plain_ms, library_ms=library_ms,
                                     **b1)
@@ -508,6 +548,163 @@ def check_kernels(dev, ds, scene):
 # met or not beside the numbers they read
 TARGET_GEMM_TFLOPS = 500.0
 TARGET_K7_BOUND_FACTOR = 3.0
+
+
+def unfused_slot(padded, centers, scales, cap, out, pad, out_channels=None,
+                 out_dtype=None, trusted_origins=False, chunk=256):
+    """One slot's exact patches as the port made them before the fused
+    patch kernel, with ``patch_resize``'s signature: per 256-point chunk,
+    K1's gather (with its bounds check's host sync unless the origins are
+    trusted), the plain version's two float32 products and rounding chain,
+    and a concatenation."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
+    from deepmerge_tpu_torch.ops.kernels import window_gather as wg
+
+    c = padded.shape[-1]
+    co = c if out_channels is None else out_channels
+    scene2d = padded.reshape(padded.shape[0], -1)
+    rows, cols = cap + wg.ROW_ALIGN, (cap + wg.pixel_align(c)) * c
+    parts = []
+    for i in range(0, centers.shape[0], chunk):
+        starts, s, off_y, off_x = pr.slot_geometry(
+            centers[i : i + chunk], scales[i : i + chunk], cap, pad, c)
+        windows = wg.gather_windows(scene2d, starts, rows, cols,
+                                    trusted_origins=trusted_origins)
+        parts.append(pr.resize_windows_exact(
+            windows, s, off_y, off_x, out, c,
+            out_dtype or torch.float32)[..., :co])
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def unfused_patch_stage(bounds_check=True):
+    """A context in which the main path's exact patch stage runs unfused
+    (``unfused_slot``): with ``bounds_check``, with the gather's bounds
+    check whatever the caller vouches for, as the port served it before
+    the fused kernel; else with the caller's ``trusted_origins``."""
+    from deepmerge_tpu_torch.ops import patches
+
+    def stage(*args, trusted_origins=False, **kwargs):
+        return unfused_slot(*args, trusted_origins=trusted_origins
+                            and not bounds_check, **kwargs)
+
+    return mock.patch.object(patches, "patch_resize", stage)
+
+
+def check_patch_resize(dev, ds, scene):
+    """Phase 3, K1's fused patch kernel (``patch_resize``) against its plain
+    version, bit-exact: every slot of the slice's points in the slice's
+    batches of 1024 and of the first walk scene's in the walk's batches of
+    2048, a cap of 256, scenes of 1, 3, 4 and 5 bands, bf16 and float32
+    patches. Then each slice slot's time at a batch of 1024 (median of 20
+    launches) beside the plain version's and the unfused stage's
+    (``unfused_slot``, as the extractor ran it: bounds check included), and
+    its bound from the bytes the slot must move: each point's s x s x C
+    window read once, its centre and side, and the patches written once."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import DataConfig
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.ops import patches
+    from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    sizes = (32, 64, 128)
+    t_phase = time.perf_counter()
+
+    def slot_args(padded, caps, pts, inner, obj, batch, co, dtype):
+        """patch_resize's arguments for every (slot, batch)."""
+        scales = patches.adaptive_scales(inner, obj, sizes + (1,),
+                                         device=dev)[0]
+        centers = torch.as_tensor(pts, dtype=torch.int32, device=dev)
+        pad = patches.scene_pad(caps, padded.shape[-1])
+        return [(slot, (padded, centers[i : i + batch],
+                        scales[i : i + batch, slot], cap, out, pad, co,
+                        dtype))
+                for slot, (cap, out) in enumerate(zip(caps, sizes))
+                for i in range(0, len(pts), batch)]
+
+    def staged(image, caps):
+        c = image.shape[-1]
+        return patches.pad_scene_device(
+            torch.from_numpy(np.ascontiguousarray(image)).to(dev),
+            patches.scene_pad(caps, c), patches.staged_channels(c))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {"slice": slot_args(ds.padded, ds.caps, ds.points_yx,
+                                ds.point_inner, ds.point_object, 1024,
+                                ds.channels, bf16)}
+    walk = generate_scene(**SERVE_SCENE, seed=1, name="scene1")
+    wds = stage_scene(walk, DataConfig(max_window=512), dev)
+    cases["walk scene 1"] = slot_args(wds.padded, wds.caps, wds.points_yx,
+                                      wds.point_inner, wds.point_object,
+                                      SERVE_BATCH, wds.channels, bf16)
+    caps256 = (256, 256, 256)
+    cases["cap 256"] = slot_args(staged(scene.image, caps256), caps256,
+                                 ds.points_yx, 2 * ds.point_inner,
+                                 2 * ds.point_object, 1024, ds.channels, f32)
+    rs = np.random.RandomState(7)
+    for bands, dtype in ((1, f32), (3, bf16), (4, f32), (5, bf16)):
+        n = 1024
+        pts = np.stack([rs.randint(0, 512, n), rs.randint(0, 512, n)], 1)
+        inner = rs.randint(2, 60, n)
+        obj = inner + rs.randint(0, 40, n)
+        image = rs.randint(0, 256, (512, 512, bands)).astype(np.uint8)
+        cases[f"{bands} bands"] = slot_args(staged(image, (128,) * 3),
+                                            (128,) * 3, pts, inner, obj, n,
+                                            bands, dtype)
+    worst, lines = 0.0, []
+    for label, args in cases.items():
+        errs = []
+        for _, a in args:
+            got = pr.patch_resize(*a, trusted_origins=True)
+            errs.append(abs_err(got, pr.patch_resize_ref(*a)))
+        worst = max(worst, *errs)
+        padded, centers, _, _, _, _, co, dtype = args[0][1]
+        caps = sorted({a[3] for _, a in args})
+        lines.append(f"{label} ({padded.shape[-1]} staged channels, "
+                     f"{co} kept, caps {caps}, {len(args)} launches, "
+                     f"{dtype}): max |err| {max(errs)}")
+    print(f"K1 patch_resize: bit-exact against its plain version (tol "
+          f"{TOL_PATCHES}):")
+    for line in lines:
+        print(f"  {line}")
+    require(worst <= TOL_PATCHES, f"patch_resize differs from its plain "
+            f"version: {worst}")
+
+    # timed at the slice's first batch of 1024 points, slot by slot
+    stage = dict(ms=0.0, plain_ms=0.0, unfused_ms=0.0, bound_ms=0.0)
+    out, first_batch = {}, {}
+    for slot, a in cases["slice"]:
+        first_batch.setdefault(slot, a)
+    for slot, a in first_batch.items():
+        padded, centers, scales, cap, size, pad, co, dtype = a
+        ms = cuda_median_ms(lambda: pr.patch_resize(*a, trusted_origins=True))
+        plain_ms = cuda_median_ms(lambda: pr.patch_resize_ref(*a), reps=5)
+        unfused_ms = cuda_median_ms(lambda: unfused_slot(*a), reps=5)
+        s = scales.clamp(1, cap).to(torch.float64)
+        nbytes = (float((s * s).sum()) * padded.shape[-1]
+                  + centers.shape[0] * 12
+                  + centers.shape[0] * size * size * co * 2)
+        b = bound(nbytes)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                     ("unfused_ms", unfused_ms), ("bound_ms", b["bound_ms"])):
+            stage[k] += v
+        print(f"  slot {slot} (out {size}, cap {cap}, {centers.shape[0]} "
+              f"points): {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+              f"(K1 + products) {unfused_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {nbytes / 1e6:.1f} "
+              f"MB); bound / time {b['bound_ms'] / ms:.1%}")
+        out = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                   library_ms=None, **b)
+    print(f"  the stage (3 launches, 1024 points): {stage['ms']:.4f} ms, "
+          f"plain {stage['plain_ms']:.4f} ms, unfused "
+          f"{stage['unfused_ms']:.4f} ms, bound {stage['bound_ms']:.4f} ms; "
+          f"phase {time.perf_counter() - t_phase:.1f} s")
+    # the row of the kernels line: the largest slot (out 128)
+    return {"patch_resize": out}
 
 
 def target(ok):
@@ -1188,9 +1385,11 @@ def counters():
     """Every kernel wrapper, by the name its launch count goes under."""
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
-    return {"window_gather": wg.gather_windows,
+    return {"patch_resize": pr.patch_resize,
+            "window_gather": wg.gather_windows,
             "fused_block": fb.fused_block,
             "fused_block_chain": fb.fused_block_chain,
             "fused_block_q8": fb.fused_block_q8,
@@ -1227,10 +1426,14 @@ def plain_versions():
     from deepmerge_tpu_torch.ops import patches
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
     def gather_ref(*args, trusted_origins=False):
         return wg.gather_windows_ref(*args)
+
+    def resize_ref(*args, trusted_origins=False, **kwargs):
+        return pr.patch_resize_ref(*args, **kwargs)
 
     def block_plain(x, params, heads, exact_gelu=False):
         # under autograd the block's training path, whose forward
@@ -1241,6 +1444,7 @@ def plain_versions():
 
     stack = contextlib.ExitStack()
     for module, attr, ref in (
+            (patches, "patch_resize", resize_ref),
             (patches, "gather_windows", gather_ref),
             (fa, "attention_probs", fa.attention_probs_ref),
             (fa, "attention_qkv", fa.attention_qkv_ref),
@@ -1471,6 +1675,10 @@ def serving_walk(model, dev, card):
             if line.startswith(("  walk[", "  prefetch[", "FAILED")):
                 print(line)
         print(f"walk launches: {launches}")
+        want = len(cfg.model.input_image_scales) * sum(
+            -(-n // SERVE_BATCH) for n, _ in counts.values())
+        require(launches["patch_resize"] == want, f"patch_resize launched "
+                f"{launches['patch_resize']} times on the walk, want {want}")
         require(done == sorted(counts), f"scenes done: {done} of "
                 f"{sorted(counts)}")
         tag = cfg.model.name
@@ -1561,9 +1769,13 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
         require(launches[per_step] == blocks * steps,
                 f"{per_step} launched {launches[per_step]} times, want "
                 f"{blocks} a step")
-        require_launches(launches, ("window_gather", per_step),
+        slots = len(cfg.data.patch_sizes)
+        require(launches["patch_resize"] == slots * steps,
+                f"patch_resize launched {launches['patch_resize']} times, "
+                f"want {slots} a step")
+        require_launches(launches, ("patch_resize", per_step),
                          [k for k in launches
-                          if k not in ("window_gather", per_step)],
+                          if k not in ("patch_resize", per_step)],
                          "the training run")
         losses = np.asarray(history.train_losses)
         require(losses.shape == (TRAIN_EPOCHS,) and np.isfinite(losses).all(),
@@ -1818,12 +2030,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    # development runs: ``--only kernels,trained`` runs those phases alone
-    # (after the card, the build and the scene) and prints no result lines
+    # development runs: ``--only patches,kernels,trained`` runs those phases
+    # alone (after the card, the build and the scene; patches: K1's fused
+    # patch kernel, a part of phase 3) and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"kernels", "trained"}, f"unknown phases {only}")
+        require(only <= {"patches", "kernels", "trained"},
+                f"unknown phases {only}")
 
     import warnings
 
@@ -1852,8 +2066,8 @@ def main() -> int:
           f"nvcc: {nvcc}, python {sys.version.split()[0]}")
 
     # 2. the build, one nvcc per source, in parallel
-    sources = ("window_gather", "fused_block", "fused_block_q8",
-               "fused_attention")
+    sources = ("patch_resize", "window_gather", "fused_block",
+               "fused_block_q8", "fused_attention")
     t = time.perf_counter()
     build.build_all(sources)
     print(f"build: {', '.join(k + '.cu' for k in sources)} in "
@@ -1881,8 +2095,11 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     # 3. kernels against their plain versions
+    if only is not None and "patches" in only:
+        check_patch_resize(dev, ds, scene)
     if only is None or "kernels" in only:
         kernel_results = check_kernels(dev, ds, scene)
+        kernel_results.update(check_patch_resize(dev, ds, scene))
         check_gemms(dev)
         check_gemms_q8(dev)
         kernel_results.update(check_k4(dev))
@@ -1927,14 +2144,23 @@ def main() -> int:
         return lambda: extractor.extract_scene_device(scene, dcfg,
                                                       device_scene=ds)
 
-    bf16_kernels = ("window_gather", "fused_block", "fused_block_chain")
-    q8_kernels = ("window_gather", "fused_block_q8", "fused_block_chain_q8")
-    q8a_kernels = ("window_gather", "fused_block_q8_attn",
+    bf16_kernels = ("patch_resize", "fused_block", "fused_block_chain")
+    q8_kernels = ("patch_resize", "fused_block_q8", "fused_block_chain_q8")
+    q8a_kernels = ("patch_resize", "fused_block_q8_attn",
                    "fused_block_chain_q8_attn")  # K4a
-    # K5 and K6 run in training only; K7, K8 on blocks off the kernels
+    # K5 and K6 run in training only; K7, K8 on blocks off the kernels; K1's
+    # gather on the float path only
     attention = ("attention_qkv", "attention_bnhd", "fused_block_train",
                  "fused_attention_train")
+    off_path = attention + ("window_gather",)
     block_kernels = bf16_kernels[1:] + q8_kernels[1:] + q8a_kernels[1:]
+    n_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
+    n_slots = len(dcfg.patch_sizes)
+
+    def require_patch_launches(launches, what, chunks=n_chunks):
+        require(launches["patch_resize"] == n_slots * chunks,
+                f"patch_resize launched {launches['patch_resize']} times on "
+                f"{what}, want {n_slots} a chunk of {chunks}")
 
     # 4. the bf16 slice
     ex_bf16 = extractor_for("")
@@ -1944,8 +2170,9 @@ def main() -> int:
     print(f"slice (bf16) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
     require_launches(launches, bf16_kernels,
-                     q8_kernels[1:] + q8a_kernels[1:] + attention,
+                     q8_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the bf16 slice")
+    require_patch_launches(launches, "the bf16 slice")
     map_bf16, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                                 scene.labels.shape)
     print(f"slice (bf16): {k} clusters after {n_rounds} rounds")
@@ -1965,8 +2192,9 @@ def main() -> int:
     print(f"slice (w8a8) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
     require_launches(launches, q8_kernels,
-                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
+                     bf16_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the w8a8 slice")
+    require_patch_launches(launches, "the w8a8 slice")
     map_q8, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                               scene.labels.shape)
     print(f"slice (w8a8): {k} clusters after {n_rounds} rounds; label "
@@ -1974,9 +2202,33 @@ def main() -> int:
           "(random weights: printed, not gated)")
     time_slice(run_q8, "w8a8", card)
     profile_slice(run_q8)
+    # the same slice with the patch stage unfused (K1's gather with its
+    # bounds check, and the two float32 products), unfused without the
+    # bounds check, then fused again
+    with unfused_patch_stage():
+        time_slice(run_q8, "w8a8, unfused patch stage", card)
+        profile_slice(run_q8, label="slice (w8a8, unfused patch stage)")
+    with unfused_patch_stage(bounds_check=False):
+        time_slice(run_q8, "w8a8, unfused patch stage, trusted origins",
+                   card)
+    time_slice(run_q8, "w8a8, fused patch stage again", card)
     against_plain(run_q8, embedder(ex_q8), out, valid, "w8a8")
     all_launches.update({k: launches[k] for k in q8_kernels[1:]})
     path_runs.append(launches)
+
+    # the float path: the slice's embeddings without the uint8 rounding
+    # take K1's gather and the float32 products, not patch_resize
+    fcfg = dataclasses.replace(dcfg, quantize_uint8=False)
+    emb, launches = counted(lambda: ex_q8.extract_scene_device(
+        scene, fcfg, device_scene=ds))
+    print(f"float path (data.quantize_uint8=False, w8a8) launches: "
+          f"{launches}")
+    require(emb.shape[0] == scene.regions.num_points
+            and bool(torch.isfinite(emb).all()),
+            f"float path embeddings {tuple(emb.shape)}")
+    require_launches(launches, ("window_gather",), ("patch_resize",),
+                     "the float path")
+    all_launches["window_gather"] = launches["window_gather"]
 
     ex_static = extractor_for("w8a8-static")
     require(ex_static.needs_calibration, "w8a8-static starts uncalibrated")
@@ -1987,8 +2239,10 @@ def main() -> int:
           f"first chunk ({time.perf_counter() - t:.3f} s with calibration)")
     require(not ex_static.needs_calibration, "w8a8-static did not calibrate")
     require_launches(launches, q8_kernels,
-                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
+                     bf16_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the w8a8-static slice")
+    # the calibration runs the first chunk once more
+    require_patch_launches(launches, "the w8a8-static slice", n_chunks + 1)
     path_runs.append(launches)
     _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
                                          scene.labels.shape)
@@ -2000,7 +2254,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. w8a8+attn: the w8a8 blocks and chains with K4a's int8 attention
-    n_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
     ex_q8a = extractor_for("w8a8+attn")
     run_q8a = slice_runner(ex_q8a)
     t = time.perf_counter()
@@ -2008,8 +2261,9 @@ def main() -> int:
     print(f"slice (w8a8+attn) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
     require_launches(launches, q8a_kernels,
-                     bf16_kernels[1:] + q8_kernels[1:] + attention,
+                     bf16_kernels[1:] + q8_kernels[1:] + off_path,
                      "the w8a8+attn slice")
+    require_patch_launches(launches, "the w8a8+attn slice")
     depth = ModelConfig().depth
     want = {"fused_block_q8_attn": depth[0] * n_chunks,
             "fused_block_chain_q8_attn": 2 * n_chunks}
@@ -2036,10 +2290,10 @@ def main() -> int:
     v5_blocks = sum(ModelConfig().depth)
     for label, quantize, kw, on, off in (
             ("v5 w8a8", "w8a8", dict(variant="v5"), q8_kernels,
-             bf16_kernels[1:] + q8a_kernels[1:] + attention),
+             bf16_kernels[1:] + q8a_kernels[1:] + off_path),
             ("v5 exact_gelu", "", dict(variant="v5", exact_gelu=True),
-             ("window_gather", "attention_qkv"),
-             block_kernels + attention[1:])):
+             ("patch_resize", "attention_qkv"),
+             block_kernels + off_path[1:])):
         ex = extractor_for(quantize, **kw)
         run = slice_runner(ex)
         t = time.perf_counter()
@@ -2047,6 +2301,7 @@ def main() -> int:
         print(f"slice ({label}) launches: {launches} (first run "
               f"{time.perf_counter() - t:.3f} s)")
         require_launches(launches, on, off, f"the {label} slice")
+        require_patch_launches(launches, f"the {label} slice")
         path_runs.append(launches)
         if "attention_qkv" in on:
             require(launches["attention_qkv"] == v5_blocks * n_chunks,
@@ -2065,7 +2320,7 @@ def main() -> int:
     # 6. the serving walk
     launches = serving_walk(ex_q8.model, dev, card)
     require_launches(launches, q8_kernels,
-                     bf16_kernels[1:] + q8a_kernels[1:] + attention,
+                     bf16_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the serving walk")
     path_runs.append(launches)
     del ex_q8, run_q8
@@ -2101,6 +2356,8 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {
+        "patch_resize": ("deepmerge_tpu_torch/csrc/patch_resize.cu",
+                         "deepmerge_tpu/ops/pallas/window_gather.py:37"),
         "window_gather": ("deepmerge_tpu_torch/csrc/window_gather.cu",
                           "deepmerge_tpu/ops/pallas/window_gather.py:37"),
         "fused_block": ("deepmerge_tpu_torch/csrc/fused_block.cu",

@@ -32,6 +32,7 @@ from deepmerge_tpu_torch.ops.patches import (
     adaptive_scales,
     extract_multiscale_patches,
     pad_scene_device,
+    points_inside,
     scene_pad,
     staged_channels,
     staging_caps,
@@ -168,6 +169,19 @@ def unpack_serve_tail(tail, n_edges_padded: int, num_edges: int,
     return simi, labels, int(tail[-1])
 
 
+def _trusted(ds: DeviceScene) -> bool:
+    """Whether every sample point of the staged scene lies inside its
+    image: checked once on the host arrays and cached on the staged scene,
+    so the patch stage of every batch runs without a device-side bounds
+    check (``trusted_origins``)."""
+    cache = ds.__dict__
+    if "_points_inside" not in cache:
+        pad = scene_pad(ds.caps, ds.padded.shape[-1])
+        h, w = (n - 2 * pad for n in ds.padded.shape[:2])
+        cache["_points_inside"] = points_inside(ds.points_yx, h, w)
+    return cache["_points_inside"]
+
+
 class FeatureExtractor:
     """Embeds every sample point of a scene with a port ``S2Former``.
 
@@ -255,14 +269,17 @@ class FeatureExtractor:
 
     # -- forward ------------------------------------------------------------
 
-    def _model_inputs(self, padded, caps, quantize_uint8, centers, scales,
-                      factors, feats):
+    def _model_inputs(self, padded, caps, quantize_uint8, trusted, centers,
+                      scales, factors, feats):
+        """Patches and designed vectors of one batch; ``trusted``: every
+        center lies inside the scene (``_trusted``), so the patch stage
+        runs without a bounds check and its host sync."""
         mcfg = self.model.cfg
         patches = extract_multiscale_patches(
             padded, centers, scales,
             patch_sizes=tuple(mcfg.input_image_scales), caps=caps,
             quantize_uint8=quantize_uint8, out_channels=mcfg.in_channels,
-            out_dtype=self.model.dtype,
+            out_dtype=self.model.dtype, trusted_origins=trusted,
         )
         return patches, torch.cat([feats, factors], dim=1)
 
@@ -273,8 +290,8 @@ class FeatureExtractor:
         return bool(m._static_blocks()) and not m.act_amax_calibrated
 
     @torch.inference_mode()
-    def _maybe_calibrate(self, padded, caps, quantize_uint8, centers, scales,
-                         factors, feats) -> None:
+    def _maybe_calibrate(self, padded, caps, quantize_uint8, trusted,
+                         centers, scales, factors, feats) -> None:
         """One-time ``w8a8-static`` calibration on the batch about to be
         served (the first chunk or batch of the first scene, as in the JAX
         package); a no-op once the model has its scales."""
@@ -283,20 +300,22 @@ class FeatureExtractor:
         logging.getLogger(__name__).info(
             "calibrating w8a8-static activation scales on the first batch")
         self.model.calibrate(*self._model_inputs(
-            padded, caps, quantize_uint8, centers, scales, factors, feats))
+            padded, caps, quantize_uint8, trusted, centers, scales, factors,
+            feats))
 
     @torch.inference_mode()
-    def _embed(self, padded, caps, quantize_uint8, centers, scales, factors,
-               feats) -> torch.Tensor:
+    def _embed(self, padded, caps, quantize_uint8, trusted, centers, scales,
+               factors, feats) -> torch.Tensor:
         """Embeddings of one batch of points, in the model dtype."""
         return self.model(*self._model_inputs(
-            padded, caps, quantize_uint8, centers, scales, factors, feats))
+            padded, caps, quantize_uint8, trusted, centers, scales, factors,
+            feats))
 
     def _embed_chunks(self, ds: DeviceScene, cfg: DataConfig,
                       args) -> torch.Tensor:
         """Embeddings of every chunk row (pad rows included), (nb·bs, D),
         in the model dtype; a ``w8a8-static`` model calibrates on chunk 0."""
-        common = (ds.padded, ds.caps, cfg.quantize_uint8)
+        common = (ds.padded, ds.caps, cfg.quantize_uint8, _trusted(ds))
         self._maybe_calibrate(*common, *(a[0] for a in args))
         return torch.cat([self._embed(*common, *chunk)
                           for chunk in zip(*args)], dim=0)
@@ -316,7 +335,7 @@ class FeatureExtractor:
             args = self._point_inputs(
                 ds.points_yx[idx], ds.point_inner[idx], ds.point_object[idx],
                 ds.point_features[idx], cfg)
-            common = (ds.padded, ds.caps, cfg.quantize_uint8)
+            common = (ds.padded, ds.caps, cfg.quantize_uint8, _trusted(ds))
             self._maybe_calibrate(*common, *args)
             emb = self._embed(*common, *args)
             yield emb[: bs - pad] if pad else emb
@@ -383,6 +402,7 @@ class FeatureExtractor:
             )
             centers = scene.regions.points_yx[g].astype(np.int32).copy()
             centers[:, 1] -= xlo
+            trusted = points_inside(centers, h, wmax)
             for start in range(0, len(g), bs):
                 idx = np.arange(start, min(start + bs, len(g)))
                 pad = bs - len(idx)
@@ -391,7 +411,7 @@ class FeatureExtractor:
                 gi = g[idx]
                 args = self._point_inputs(centers[idx], inner_all[gi],
                                           obj_all[gi], feats_all[gi], cfg)
-                common = (padded, caps, cfg.quantize_uint8)
+                common = (padded, caps, cfg.quantize_uint8, trusted)
                 self._maybe_calibrate(*common, *args)
                 emb = self._embed(*common, *args).to(torch.float32)
                 emb = emb.cpu().numpy()

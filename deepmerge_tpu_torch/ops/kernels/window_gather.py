@@ -5,13 +5,16 @@ viewed 2-D as (H, W·C) uint8 so each window row is one contiguous byte run;
 ``starts`` holds each point's (row, byte column) origin. The JAX package
 aligns origins down to the TPU's (32, 128) tile grid and gathers a slightly
 larger window, folding the residual offset into the resize weights; the port
-keeps exactly that geometry (``ops/patches.py``), so its patches are
+keeps exactly that geometry (``window_starts``), so its patches are
 bit-identical, while the CUDA kernel itself accepts any in-bounds origin.
+Since the fused patch kernel (``patch_resize``) serves the exact patch path,
+this gather serves the float path (caps above 256, or no uint8 rounding).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -19,6 +22,28 @@ from deepmerge_tpu_torch.ops.kernels import build
 
 ROW_ALIGN = 32     # row alignment of the JAX package's window origins
 LANE_ALIGN = 128   # byte-column alignment of the same
+
+
+def pixel_align(channels: int) -> int:
+    """Column alignment in pixels of the JAX package's window origins."""
+    return math.lcm(LANE_ALIGN, channels) // channels
+
+
+def window_starts(centers: torch.Tensor, cap: int, pad: int, channels: int):
+    """Aligned window origins of one slot, as the JAX package forms them.
+
+    Returns ``(starts, y0a, px0a)``: (B, 2) int32 (row, byte column) gather
+    origins, and the aligned row / pixel-column origins the resize offsets
+    are measured from.
+    """
+    a_px = pixel_align(channels)
+    y0 = centers[:, 0] + (pad - cap // 2)
+    y0a = torch.div(y0, ROW_ALIGN, rounding_mode="floor") * ROW_ALIGN
+    px0 = centers[:, 1] + (pad - cap // 2)
+    px0a = torch.div(px0, a_px, rounding_mode="floor") * a_px
+    starts = torch.stack([y0a, px0a * channels], dim=1).to(torch.int32)
+    return starts.contiguous(), y0a, px0a
+
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {

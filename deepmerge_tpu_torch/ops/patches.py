@@ -1,12 +1,15 @@
 """Multi-scale patch extraction from a device-resident scene (port of
 ``deepmerge_tpu/ops/patches.py``).
 
-The scene lives zero-padded on the device as uint8. For each sample point
-and scale slot, the window gather (kernel K1, ``ops/kernels/window_gather``)
-copies a static-cap window whose origin is aligned down exactly as the JAX
-package aligns it, and the crop + cv2 INTER_AREA resize runs as two batched
-float32 matrix products whose weights (``ops/resize.py``) encode the crop.
-The resulting patches are bit-identical to the JAX package's.
+The scene lives zero-padded on the device as uint8. For each scale slot,
+the patches come from a static-cap window per point whose origin is aligned
+down exactly as the JAX package aligns it, cropped and resized with cv2
+INTER_AREA by weights (``ops/resize.py``) that encode the crop. On the exact
+path (uint8 rounding, caps up to 256) one launch of the fused patch kernel
+(K1, ``ops/kernels/patch_resize``) does all of that for every point of the
+slot. The float path gathers the windows (``ops/kernels/window_gather``) and
+runs two batched float32 matrix products. The resulting patches are
+bit-identical to the JAX package's.
 
 Reference semantics (the JAX package's, kept exactly): window top-left
 ``int(center - scale/2)`` truncated toward zero, zero padding outside the
@@ -16,23 +19,23 @@ adaptive scale ladder.
 
 from __future__ import annotations
 
-import math
 import warnings
 
 import numpy as np
 import torch
 
+from deepmerge_tpu_torch.ops.kernels.patch_resize import (
+    INV_255,
+    MAX_CAP,
+    patch_resize,
+    slot_geometry,
+)
 from deepmerge_tpu_torch.ops.kernels.window_gather import (
-    LANE_ALIGN,
     ROW_ALIGN,
     gather_windows,
+    pixel_align,
 )
 from deepmerge_tpu_torch.ops.resize import resize_weights
-
-
-# The JAX package's compiler turns ``x / 255.0`` into ``x * (1/255)``; the
-# same float32 reciprocal keeps the patches bit-identical.
-_INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 def adaptive_scales(inner, obj, patch_targets=(32, 64, 128, 1), device=None):
@@ -89,11 +92,6 @@ def staging_caps(inner, obj, patch_sizes, max_window: int,
     return caps
 
 
-def _pixel_align(channels: int) -> int:
-    """Column alignment in pixels of the JAX package's window origins."""
-    return math.lcm(LANE_ALIGN, channels) // channels
-
-
 def staged_channels(channels: int) -> int:
     """Channel count scenes are staged with: the next power of two (a
     3-band scene stages as RGBA; the zero band is sliced off the patches)."""
@@ -105,7 +103,7 @@ def scene_pad(caps: int | tuple[int, ...], channels: int) -> int:
     origin alignment on either axis (``channels`` may be the original band
     count; alignment uses the staged count)."""
     m = caps if isinstance(caps, int) else max(caps)
-    return m // 2 + max(ROW_ALIGN, _pixel_align(staged_channels(channels)))
+    return m // 2 + max(ROW_ALIGN, pixel_align(staged_channels(channels)))
 
 
 def pad_scene_device(tile: torch.Tensor, pad: int,
@@ -119,65 +117,26 @@ def pad_scene_device(tile: torch.Tensor, pad: int,
     return out
 
 
-def _left_top(center: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Window origin ``int(center - scale/2)``, truncated toward zero."""
-    v = center.to(torch.float32) - scale.to(torch.float32) / 2.0
-    return torch.trunc(v).to(torch.int32)
+def points_inside(points_yx, h: int, w: int) -> bool:
+    """Whether every (row, col) point lies inside an ``h`` x ``w`` image,
+    checked on the host. The windows of such points lie inside the padded
+    scene, so a caller that checked this may pass ``trusted_origins``."""
+    yx = np.asarray(points_yx).reshape(-1, 2)
+    return bool(((yx >= 0) & (yx < np.array([h, w]))).all())
 
 
-def window_starts(centers: torch.Tensor, cap: int, pad: int, channels: int):
-    """Aligned window origins of one slot, as the JAX package forms them.
-
-    Returns ``(starts, y0a, px0a)``: (B, 2) int32 (row, byte column) gather
-    origins, and the aligned row / pixel-column origins the resize offsets
-    are measured from.
-    """
-    a_px = _pixel_align(channels)
-    y0 = centers[:, 0] + (pad - cap // 2)
-    y0a = torch.div(y0, ROW_ALIGN, rounding_mode="floor") * ROW_ALIGN
-    px0 = centers[:, 1] + (pad - cap // 2)
-    px0a = torch.div(px0, a_px, rounding_mode="floor") * a_px
-    starts = torch.stack([y0a, px0a * channels], dim=1).to(torch.int32)
-    return starts.contiguous(), y0a, px0a
-
-
-def _slot_patches(scene2d, centers, slot_scales, cap, out, pad, c,
-                  quantize_uint8, out_dtype, trusted_origins):
-    a_px = _pixel_align(c)
-    win_rows = cap + ROW_ALIGN
-    win_px = cap + a_px
+def _float_slot_patches(scene2d, centers, slot_scales, cap, out, pad, c,
+                        quantize_uint8, out_dtype, trusted_origins):
+    """The float path of one slot (caps above 256, or no uint8 rounding):
+    K1's gather, float32 weights on float32 windows (TF32 off), cv2
+    rounding when asked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    win_rows, win_px = cap + ROW_ALIGN, cap + pixel_align(c)
     b = centers.shape[0]
-    starts, y0a, px0a = window_starts(centers, cap, pad, c)
+    starts, s, off_y, off_x = slot_geometry(centers, slot_scales, cap, pad, c)
     windows = gather_windows(scene2d, starts, win_rows, win_px * c,
                              trusted_origins=trusted_origins)
-
-    s = torch.clamp(slot_scales, 1, cap)
-    # window index of original coord y is y - (y0a - pad)
-    off_y = _left_top(centers[:, 0], s) - y0a + pad
-    off_x = _left_top(centers[:, 1], s) - px0a + pad
-    s32 = s.to(torch.float32)[:, None, None]
-
-    if quantize_uint8 and cap <= 256:
-        # Exact path (window sides s <= 256): the weights scaled by s are
-        # small integers, bf16-exact for the row pass; uint8 pixels are
-        # integers, so every product and every sum of pass 1 is an exact
-        # float32 integer. Both passes run as float32 products (TF32 off);
-        # one divide by s² at the end, with the integer tie-correction that
-        # makes the rounding exactly floor(x2/s² + ½).
-        kr = (resize_weights(out, win_rows, s, off_y) * s32).to(torch.bfloat16)
-        kc = resize_weights(out, win_px, s, off_x) * s32
-        win = windows.to(torch.float32).reshape(b, win_rows, win_px * c)
-        x1 = torch.bmm(kr.to(torch.float32), win)  # (b, out, win_px*c)
-        x1 = x1.reshape(b, out, win_px, c)
-        x2 = torch.einsum("bpj,bojc->bopc", kc, x1)
-        s2 = s32[..., None] ** 2
-        k = torch.floor(x2 / s2 + 0.5)
-        d2 = 2.0 * (x2 - k * s2)
-        k = k + (d2 >= s2).to(torch.float32)
-        k = k - (d2 < -s2).to(torch.float32)
-        return (k * _INV_255).to(out_dtype)
-
-    # caps above 256: float32 weights on float32 windows, cv2 rounding
     win = windows.to(torch.float32).reshape(b, win_rows, win_px * c)
     wr = resize_weights(out, win_rows, s, off_y)
     wc = resize_weights(out, win_px, s, off_x)
@@ -185,7 +144,7 @@ def _slot_patches(scene2d, centers, slot_scales, cap, out, pad, c,
     x = torch.einsum("bpj,bojc->bopc", wc, x)
     if quantize_uint8:
         x = torch.floor(x + 0.5)
-    return (x * _INV_255).to(out_dtype)
+    return (x * INV_255).to(out_dtype)
 
 
 def extract_multiscale_patches(
@@ -209,43 +168,51 @@ def extract_multiscale_patches(
       scales: (B, S) int32 adaptive window sides, S >= len(patch_sizes).
       patch_sizes: per-slot output sides.
       caps: per-slot max window sides (even; scales clamp to them).
-      chunk: points per pass, bounding transient window memory.
+      chunk: points per pass of the float path and of the exact path's
+        plain version (the CPU path), bounding their window memory.
       quantize_uint8: emulate cv2-on-uint8 rounding.
       out_channels: slice patches to the original band count; None keeps
         the staged channels.
       out_dtype: patch dtype.
       trusted_origins: every center lies inside the scene (the caller
-        checked it); the window gather then skips its bounds check and the
-        device sync that check costs.
+        checked it, see ``points_inside``); the patch stage then skips its
+        bounds check and the device sync that check costs.
 
     Returns a tuple of (B, p, p, out_channels) ``out_dtype`` in [0, 1], one
-    per patch size. The resize products need full float32: TF32 is turned
-    off for them here (``torch.backends.cuda.matmul.allow_tf32`` and
-    ``torch.backends.cudnn.allow_tf32``), as the exact path requires.
+    per patch size. A slot with uint8 rounding and a cap up to 256 takes the
+    exact path: on the card one ``patch_resize`` launch for all B points.
+    Otherwise the slot takes the float path, K1's gather and two float32
+    products, chunk by chunk. The float32 products need TF32 off: the paths
+    that run them turn it off (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32``).
     """
     n_slots = len(patch_sizes)
     if isinstance(caps, int):
         caps = (caps,) * n_slots
     if any(c % 2 for c in caps):
         raise ValueError(f"caps must be even, got {caps}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     b = centers_yx.shape[0]
     c = padded_scene.shape[-1]
     pad = scene_pad(caps, c)
     co = c if out_channels is None else out_channels
     scene2d = padded_scene.reshape(padded_scene.shape[0], -1)
     centers_yx = centers_yx.to(torch.int32)
-    outs = [[] for _ in range(n_slots)]
-    for start in range(0, b, chunk):
-        cen = centers_yx[start : start + chunk]
-        scl = scales[start : start + chunk]
-        for slot in range(n_slots):
-            p = _slot_patches(
-                scene2d, cen, scl[:, slot], caps[slot], patch_sizes[slot],
-                pad, c, quantize_uint8, out_dtype, trusted_origins,
-            )
-            outs[slot].append(p[..., :co])
-    return tuple(
-        o[0] if len(o) == 1 else torch.cat(o, dim=0) for o in outs
-    )
+    scales = scales.to(torch.int32)
+    outs = []
+    for slot, (cap, out) in enumerate(zip(caps, patch_sizes)):
+        if quantize_uint8 and cap <= MAX_CAP:
+            outs.append(patch_resize(
+                padded_scene, centers_yx, scales[:, slot], cap, out, pad,
+                out_channels=co, out_dtype=out_dtype,
+                trusted_origins=trusted_origins, chunk=chunk))
+            continue
+        parts = [
+            _float_slot_patches(
+                scene2d, centers_yx[i : i + chunk],
+                scales[i : i + chunk, slot], cap, out, pad, c,
+                quantize_uint8, out_dtype, trusted_origins,
+            )[..., :co]
+            for i in range(0, b, chunk)
+        ]
+        outs.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+    return tuple(outs)

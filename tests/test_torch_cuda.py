@@ -4,7 +4,10 @@ card. Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py``.
 
-Tolerances: the gather is a copy (bit-exact); the block kernels are held to
+Tolerances: the gather is a copy (bit-exact); the fused patch kernel is
+bit-exact too (its row pass is integer-exact, its column pass takes the
+plain version's float32 weights, and the uint8 rounding absorbs the order
+of their sum); the block kernels are held to
 2e-2 of the plain version's largest magnitude — bf16 keeps 8 significant
 bits and the two sides sum the products in other orders, so single
 roundings can differ by one ulp and carry through the block. The w8a8
@@ -55,6 +58,7 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     fused_block_q8,
     quantize_block_params,
 )
+from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
 from deepmerge_tpu_torch.ops.kernels.window_gather import (
     gather_windows,
     gather_windows_ref,
@@ -114,6 +118,69 @@ def test_gather_rejects_out_of_bounds(cuda):
     starts = torch.tensor([[40, 0]], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="out of bounds"):
         gather_windows(scene, starts, 32, 128)
+
+
+def _padded_scene(bands, h, w, caps, seed):
+    from deepmerge_tpu_torch.ops import patches as tp
+
+    image = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 256, (h, w, bands)).astype(np.uint8))
+    pad = tp.scene_pad(caps, bands)
+    return tp.pad_scene_device(image, pad, tp.staged_channels(bands)), pad
+
+
+# (bands, width, cap, out, out dtype, load unit): the width sets the row
+# pitch, and so which load unit (16, 4 or 1 bytes) the wrapper picks
+@pytest.mark.parametrize("bands,w,cap,out,dtype,vec", [
+    (3, 300, 128, 128, torch.bfloat16, 16),
+    (3, 301, 128, 32, torch.float32, 4),
+    (1, 301, 128, 64, torch.bfloat16, 1),
+    (5, 200, 256, 16, torch.bfloat16, 16),
+    (4, 252, 256, 64, torch.float32, 16),
+])
+def test_patch_resize_matches_plain(cuda, bands, w, cap, out, dtype, vec):
+    padded, pad = _padded_scene(bands, 180, w, (cap,), seed=cap + out)
+    rs = np.random.RandomState(out)
+    n = 300
+    centers = np.stack([rs.randint(0, 180, n), rs.randint(0, w, n)], 1)
+    centers[:4] = [[0, 0], [179, w - 1], [0, w - 1], [179, 0]]
+    centers = torch.from_numpy(centers.astype(np.int32))
+    scales = torch.from_numpy(rs.randint(1, cap + 50, (n, 2)).astype(np.int32))
+    scene2d = padded.reshape(padded.shape[0], -1)
+    assert pr._load_width(scene2d.to(cuda), (cap + pr.pixel_align(
+        padded.shape[-1])) * padded.shape[-1]) == vec
+    before = pr.patch_resize.launches
+    got = pr.patch_resize(padded.to(cuda), centers.to(cuda),
+                          scales[:, 1].to(cuda), cap, out, pad,
+                          out_channels=bands, out_dtype=dtype,
+                          trusted_origins=True)
+    torch.cuda.synchronize()
+    assert pr.patch_resize.launches == before + 1
+    want = pr.patch_resize_ref(padded, centers, scales[:, 1], cap, out, pad,
+                               bands, dtype)
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_patch_resize_refuses(cuda, monkeypatch):
+    padded, pad = _padded_scene(3, 64, 64, (128,), seed=0)
+    centers = torch.tensor([[5, 5]], dtype=torch.int32, device=cuda)
+    scales = torch.tensor([20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="out of bounds"):
+        pr.patch_resize(padded.to(cuda), centers - 400, scales, 128, 32, pad)
+    with pytest.raises(ValueError, match="contiguous"):
+        pr.patch_resize(padded.to(cuda).transpose(0, 1), centers, scales,
+                        128, 32, pad)
+    plan = pr.patch_resize_plan
+
+    def bad_plan(cap, out, channels):
+        p = plan(cap, out, channels)
+        tile, threads, smem = p["ints"]
+        return dict(p, ints=(tile, threads, smem + 4))
+
+    monkeypatch.setattr(pr, "patch_resize_plan", bad_plan)
+    with pytest.raises(RuntimeError, match="dm_patch_resize"):
+        pr.patch_resize(padded.to(cuda), centers, scales, 128, 32, pad)
 
 
 def _block_params(rs, n, c, heads, hidden, device):
