@@ -86,11 +86,23 @@ kernel against its plain PyTorch version on the card:
      threshold calibrated on a second scene, then the v3 bf16, w8a8 and
      w8a8+attn slices at that threshold on the kernels and on the plain
      versions, the merged maps' label disagreement gated at BASELINE.md's
-     0.5%.
+     0.5%;
+  9. scale-out, on those trained weights and that threshold, the flagship
+     in w8a8: world size 1 on NCCL in this process
+     (``extract_and_merge_sharded``, ``process_scene(mesh=...)``, and
+     ``process_folder(mesh=...)`` over the walk's scenes, each partition
+     gated at 0.5% against the single-device one on the same kernels, K1
+     and K4 launched and no other kernel, times beside the single-device
+     paths), then two ranks in two processes on the one card over gloo
+     (the sharded run on two strips and ``process_scene(mesh=...)`` gated
+     the same way, each rank's strip tile and peak memory, four steps of
+     the data-parallel trainer held to one device's losses, the parameters
+     equal on both ranks).
 
-``--only patches,kernels,trained`` runs K1's fused patch check, phase 3
-and/or phase 8 alone (after the card, the build and the scene) and prints
-no result lines: a development run, not the smoke run.
+``--only patches,kernels,trained,scaleout`` runs K1's fused patch check,
+phase 3, phase 8 and/or phases 8 and 9 alone (after the card, the build
+and the scene) and prints no result lines: a development run, not the
+smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -112,9 +124,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -1627,15 +1641,30 @@ def serving_scene(cfg, ex, images, shps, name):
             f"merge decisions differ > {EDGE_FLIPS_MAX}")
 
 
-def serving_walk(model, dev, card):
-    """Phase 6: ``process_folder`` over the serving scenes; returns the
-    launch counts of the walk."""
-    import tempfile
+def feature_stores(stores):
+    """A context in which the walk keeps each scene's embeddings in an
+    in-memory ``FeatureStore`` (``stores[scene name]``) where h5py is
+    missing; each scene writes its .h5 where it is there."""
+    from deepmerge_tpu_torch.infer import driver, extract
 
+    if extract.HAS_H5PY:
+        return contextlib.nullcontext()
+
+    def in_memory_store(path):
+        store = extract.FeatureStore(None)
+        stores[os.path.basename(os.path.dirname(path))] = store
+        return store
+
+    return mock.patch.object(driver, "FeatureStore", in_memory_store)
+
+
+def serving_walk(model, dev, card, walk):
+    """Phase 6: ``process_folder`` over the serving scenes ``walk`` (the
+    image and shapefile folders and each scene's point and edge counts, from
+    ``export_folder``); returns the launch counts of the walk."""
     import numpy as np
 
     from deepmerge_tpu_torch.config import Config, DataConfig, MergeConfig
-    from deepmerge_tpu_torch.geodata.geotiff import read_geotiff
     from deepmerge_tpu_torch.geodata.shapefile import ShapefileTable
     from deepmerge_tpu_torch.infer import driver, extract
 
@@ -1643,61 +1672,45 @@ def serving_walk(model, dev, card):
                  data=DataConfig(max_window=512, eval_batch_size=SERVE_BATCH),
                  merge=MergeConfig(engine="device"))
     stores = {}  # scene name -> in-memory store, where h5py is missing
-
-    def in_memory_store(path):
-        store = extract.FeatureStore(None)
-        stores[os.path.basename(os.path.dirname(path))] = store
-        return store
-
-    if extract.HAS_H5PY:
-        print("h5py: available; each scene writes its .h5")
-        store_patch = contextlib.nullcontext()
-    else:
-        print("h5py: missing on this machine; the walk keeps each scene's "
-              "embeddings in an in-memory FeatureStore")
-        store_patch = mock.patch.object(driver, "FeatureStore",
-                                        in_memory_store)
+    print("h5py: available; each scene writes its .h5" if extract.HAS_H5PY
+          else "h5py: missing on this machine; the walk keeps each scene's "
+          "embeddings in an in-memory FeatureStore")
     ex = extract.FeatureExtractor(model, batch_size=SERVE_BATCH, device=dev)
-    with tempfile.TemporaryDirectory() as root:
-        t = time.perf_counter()
-        images, shps, counts = export_folder(root, SERVE_SCENES)
-        print(f"serving folder: {SERVE_SCENES} scenes of {SERVE_SCENE} "
-              f"({sum(c[0] for c in counts.values())} points) written in "
-              f"{time.perf_counter() - t:.1f} s")
-        stats, log = {}, []
-        t0 = time.perf_counter()
-        with store_patch:
-            done, launches = counted(lambda: driver.process_folder(
-                cfg, images, shps, log_fn=log.append, write_labelmaps=True,
-                extractor=ex, stats=stats, device=dev))
-        wall = time.perf_counter() - t0
-        for line in log:
-            if line.startswith(("  walk[", "  prefetch[", "FAILED")):
-                print(line)
-        print(f"walk launches: {launches}")
-        want = len(cfg.model.input_image_scales) * sum(
-            -(-n // SERVE_BATCH) for n, _ in counts.values())
-        require(launches["patch_resize"] == want, f"patch_resize launched "
-                f"{launches['patch_resize']} times on the walk, want {want}")
-        require(done == sorted(counts), f"scenes done: {done} of "
-                f"{sorted(counts)}")
-        tag = cfg.model.name
-        for name, (n_points, n_edges) in counts.items():
-            simi = ShapefileTable.read(
-                os.path.join(shps, name, "lines.shp")).get_field("simi")
-            simi = np.asarray(simi, np.float64)
-            require(simi.shape == (n_edges,) and np.isfinite(simi).all(),
-                    f"{name}: simi {simi.shape} finite "
-                    f"{np.isfinite(simi).mean()}")
-            tif = read_geotiff(os.path.join(shps, name, f"{tag}_merged.tif"))
-            require(tif.array.shape[:2] == (SERVE_SCENE["h"], SERVE_SCENE["w"]),
-                    f"{name}: merged map {tif.array.shape}")
-            rows = (extract.FeatureStore.open(
-                os.path.join(shps, name, f"{tag}_features.h5")).shape[0]
-                if extract.HAS_H5PY else stores[name].read_all().shape[0])
-            require(rows == n_points, f"{name}: {rows} rows for "
-                    f"{n_points} points")
-        serving_scene(cfg, ex, images, shps, sorted(counts)[0])
+    images, shps, counts = walk
+    stats, log = {}, []
+    t0 = time.perf_counter()
+    with feature_stores(stores):
+        done, launches = counted(lambda: driver.process_folder(
+            cfg, images, shps, log_fn=log.append, write_labelmaps=True,
+            extractor=ex, stats=stats, device=dev))
+    wall = time.perf_counter() - t0
+    for line in log:
+        if line.startswith(("  walk[", "  prefetch[", "FAILED")):
+            print(line)
+    print(f"walk launches: {launches}")
+    want = len(cfg.model.input_image_scales) * sum(
+        -(-n // SERVE_BATCH) for n, _ in counts.values())
+    require(launches["patch_resize"] == want, f"patch_resize launched "
+            f"{launches['patch_resize']} times on the walk, want {want}")
+    require(done == sorted(counts), f"scenes done: {done} of "
+            f"{sorted(counts)}")
+    tag = cfg.model.name
+    maps = walk_maps(shps, done, tag)
+    for name, (n_points, n_edges) in counts.items():
+        simi = ShapefileTable.read(
+            os.path.join(shps, name, "lines.shp")).get_field("simi")
+        simi = np.asarray(simi, np.float64)
+        require(simi.shape == (n_edges,) and np.isfinite(simi).all(),
+                f"{name}: simi {simi.shape} finite "
+                f"{np.isfinite(simi).mean()}")
+        require(maps[name].shape == (SERVE_SCENE["h"], SERVE_SCENE["w"]),
+                f"{name}: merged map {maps[name].shape}")
+        rows = (extract.FeatureStore.open(
+            os.path.join(shps, name, f"{tag}_features.h5")).shape[0]
+            if extract.HAS_H5PY else stores[name].read_all().shape[0])
+        require(rows == n_points, f"{name}: {rows} rows for "
+                f"{n_points} points")
+    serving_scene(cfg, ex, images, shps, sorted(counts)[0])
     ts = stats["scene_done_ts"]
     per_scene = [ts[0] - t0] + [b - a for a, b in zip(ts, ts[1:])]
     steady = statistics.median(per_scene[1:])
@@ -1707,6 +1720,21 @@ def serving_walk(model, dev, card):
           f"{steady:.3f} s/scene -> {mpix / steady:.3f} MPix/s "
           f"(whole walk {SERVE_SCENES * mpix / wall:.3f} MPix/s) on {card}")
     return launches
+
+
+def walk_maps(shps, names, tag):
+    """Each walk scene's merged label map, decoded from the three uint8
+    planes of its ``<model>_merged.tif``."""
+    import numpy as np
+
+    from deepmerge_tpu_torch.geodata.geotiff import read_geotiff
+
+    out = {}
+    for name in names:
+        a = read_geotiff(os.path.join(shps, name, f"{tag}_merged.tif"))
+        a = a.array.astype(np.int64)
+        out[name] = a[..., 0] | a[..., 1] << 8 | a[..., 2] << 16
+    return out
 
 
 def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
@@ -2011,7 +2039,445 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
         torch.cuda.empty_cache()
     print(f"trained-weight parity phase: {time.perf_counter() - t_phase:.1f} "
           f"s on {card}")
-    return results
+    return results, trained, thr
+
+
+def free_port():
+    """A free TCP port on this machine, for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def same_partition(a, b):
+    """The label disagreement of two merged maps (0 when equal: both are
+    dense ids in order of each cluster's smallest region id)."""
+    import numpy as np
+
+    from deepmerge_tpu_torch.utils.parity import label_disagreement
+
+    return 0.0 if np.array_equal(a, b) else label_disagreement(a, b)
+
+
+def trained_model(trained, quantize="w8a8"):
+    """The flagship v3 in ``quantize`` with phase 8's trained weights."""
+    import warnings
+
+    from deepmerge_tpu_torch.config import ModelConfig
+    from deepmerge_tpu_torch.models.s2former import S2Former
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model = S2Former(ModelConfig(quantize=quantize))
+    model.load_state_dict(trained, strict=True)
+    return model
+
+
+def median_s(fn, reps=3):
+    """Median host time of ``fn()`` (which synchronizes) and its times."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times), times
+
+
+def strip_capture(staged_and_emb):
+    """A context in which ``extract_and_merge_sharded`` hands each strip's
+    staging and embeddings to ``staged_and_emb`` as it makes them."""
+    from deepmerge_tpu_torch.parallel import distributed
+
+    embed = distributed._embed_strip
+
+    def capture(*args):
+        emb = embed(*args)
+        staged_and_emb.append((args[1], args[2], emb))
+        return emb
+
+    return mock.patch.object(distributed, "_embed_strip", capture)
+
+
+Q8_PATH = ("patch_resize", "fused_block_q8", "fused_block_chain_q8")
+
+
+def scale_out_rank(rank, world, root):
+    """One rank of the two-rank check, in its own process on the one card
+    (gloo, CUDA tensors): ``extract_and_merge_sharded`` on two strips,
+    ``process_scene(mesh=...)`` and four steps of the data-parallel
+    trainer; what it saw goes to ``<root>/rank<rank>.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepmerge_tpu_torch.config import Config, MergeConfig
+    from deepmerge_tpu_torch.geodata.synthetic import (
+        generate_scene,
+        make_training_pairs,
+    )
+    from deepmerge_tpu_torch.infer import driver
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.parallel import distributed
+    from deepmerge_tpu_torch.parallel.mesh import (
+        make_mesh,
+        replicate,
+        shard_rows,
+    )
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import PairSampler
+
+    from deepmerge_tpu_torch.models.s2former import S2Former
+
+    with open(os.path.join(root, "spec.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    dev = torch.device(spec["device"])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{spec['port']}", world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(devices=dev)
+        out = {}
+        scene = generate_scene(**spec["scene"])
+        model = S2Former(spec["mcfg"])
+        model.load_state_dict(torch.load(
+            os.path.join(root, "trained.pt"), map_location="cpu"))
+        dcfg, thr, tcfg = spec["dcfg"], spec["thr"], spec["tcfg"]
+        ex = FeatureExtractor(model, mesh=mesh,
+                              batch_size=dcfg.eval_batch_size)
+
+        def sharded():
+            res = distributed.extract_and_merge_sharded(
+                None, scene, dcfg, mesh, threshold=thr, max_rounds=8,
+                extractor=ex)
+            torch.cuda.synchronize()
+            return res
+
+        strips = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        with strip_capture(strips):
+            res, out["sharded_launches"] = counted(sharded)
+        staged, s, emb = strips[0]
+        out.update(sharded_labels=res.region_to_cluster,
+                   sharded_rounds=res.rounds,
+                   tile_bytes=staged.tiles[s].nbytes, points=emb.shape[0],
+                   peak_sharded=torch.cuda.max_memory_allocated(dev))
+        out["sharded_s"] = median_s(sharded)
+
+        cfg = Config(model=ex.model.cfg, data=dcfg, merge=MergeConfig(
+            engine="device", threshold=thr, max_rounds=8))
+
+        def scene_run():
+            return driver.process_scene(cfg, scene, extractor=ex, mesh=mesh,
+                                        log_fn=lambda *_: None)
+
+        (_, _, res), out["scene_launches"] = counted(scene_run)
+        out["scene_labels"] = res.region_to_cluster
+        out["scene_s"] = median_s(scene_run)
+        del ex, model
+        torch.cuda.empty_cache()
+
+        # four steps of the data-parallel trainer, this rank's half of
+        # each batch
+        pairs = tcfg.data.batch_size
+        pos, neg = make_training_pairs(scene)
+        sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
+        state = loop.create_train_state(tcfg, len(sampler) // pairs,
+                                        device=dev)
+        replicate(state.model, mesh)
+        step = loop.make_train_step(tcfg, mesh)
+        batches = sampler.epoch_batches(spec["epoch_seed"], pairs,
+                                        rows=shard_rows(pairs, mesh))
+
+        def four_steps():
+            nonlocal state
+            losses, times = [], []
+            for _, batch in zip(range(4), batches):
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t)
+            return losses, times
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (losses, times), out["train_launches"] = counted(four_steps)
+        out.update(losses=losses, step_s=times,
+                   peak_train=torch.cuda.max_memory_allocated(dev))
+        # a checksum of every parameter, rank 0's broadcast to every rank
+        mine = torch.stack([p.detach().double().sum()
+                            for p in state.model.parameters()])
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0)
+        out["params_identical"] = bool(torch.equal(mine, theirs))
+        out["checksum"] = float(mine.abs().sum())
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
+                    region_map, trained, thr, walk):
+    """Phase 9, scale-out, on phase 8's trained weights and threshold, the
+    flagship v3 in w8a8. World size 1 on NCCL, in this process:
+    ``extract_and_merge_sharded``, ``process_scene(mesh=...)`` and
+    ``process_folder(mesh=...)`` over the walk's scenes, each partition
+    held to the single-device one on the same kernels at the parity bar
+    (0 expected), K1 and K4 launched and nothing else; times beside the
+    single-device split path and the fused ``segment_scene_device``. Then
+    two ranks in two processes on the one card over gloo: the sharded
+    extract-and-merge on two strips and ``process_scene(mesh=...)`` held
+    to the same partition, each rank's strip tile and peak memory, and four
+    steps of the data-parallel trainer (60 pairs a rank) against four
+    single-device steps from the same weights and batches, its parameters
+    the same on both ranks. Returns the launch counts of its main-path
+    runs."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepmerge_tpu_torch.config import (
+        Config,
+        DataConfig,
+        MergeConfig,
+        ModelConfig,
+    )
+    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
+    from deepmerge_tpu_torch.infer import driver
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.infer.merge import merge_scene_device
+    from deepmerge_tpu_torch.parallel import distributed
+    from deepmerge_tpu_torch.parallel.mesh import make_mesh
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import PairSampler
+
+    t_phase = time.perf_counter()
+    r = scene.regions.num_regions
+    model = trained_model(trained)
+    mcfg = model.cfg
+    off = [k for k in counters() if k not in Q8_PATH]
+    runs = []
+
+    def held(launches, what):
+        require_launches(launches, Q8_PATH, off, what)
+        runs.append(launches)
+
+    # the single-device references on the same kernels
+    ex = FeatureExtractor(model, batch_size=dcfg.eval_batch_size, device=dev)
+
+    def fused():
+        out = ex.segment_scene_device(
+            scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
+            device_scene=ds, region_map=region_map, threshold=thr)
+        torch.cuda.synchronize()
+        return out
+
+    def split():
+        emb = ex.extract_scene_device(scene, dcfg, device_scene=ds)
+        res = merge_scene_device(scene, emb, threshold=thr, max_rounds=8)
+        torch.cuda.synchronize()
+        return emb, res
+
+    out = fused()
+    want_map = out[3].cpu().numpy()
+    emb_single, res_split = split()
+    require(same_partition(res_split.label_map(scene), want_map) == 0.0,
+            "the single-device split and fused paths disagree")
+    print(f"scale-out, single device (w8a8, trained weights, threshold "
+          f"{thr:.6f}): {int(out[4])} clusters after {int(out[2])} rounds")
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(devices=dev)
+        mex = FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
+                               mesh=mesh)
+
+        def sharded():
+            res = distributed.extract_and_merge_sharded(
+                None, scene, dcfg, mesh, threshold=thr, max_rounds=8,
+                extractor=mex)
+            torch.cuda.synchronize()
+            return res
+
+        strips = []
+        with strip_capture(strips):
+            res, launches = counted(sharded)
+        print(f"world 1 (NCCL), extract_and_merge_sharded launches: "
+              f"{launches}")
+        held(launches, "the world-1 sharded extract-and-merge")
+        emb = strips[0][2]
+        err = (emb - emb_single).abs()
+        dis = same_partition(res.label_map(scene), want_map)
+        print(f"world 1, extract_and_merge_sharded: {res.num_clusters} "
+              f"clusters after {res.rounds} rounds; embeddings against "
+              f"extract_scene_device: max |diff| {float(err.max()):.3e}, "
+              f"RMS rel err {rms_rel_err(emb, emb_single):.3e}; label "
+              f"disagreement with segment_scene_device {dis:.5f} (gate "
+              f"{LABEL_DISAGREEMENT_MAX}, 0 expected)")
+        require(dis <= LABEL_DISAGREEMENT_MAX,
+                f"world-1 sharded partition: label disagreement {dis}")
+        for label, fn in (("world-1 extract_and_merge_sharded", sharded),
+                          ("single-device split path (extract_scene_device "
+                           "+ merge_scene_device)", split),
+                          ("fused segment_scene_device", fused)):
+            med, times = median_s(fn)
+            print(f"scale-out time, {label}: median {med * 1e3:.1f} ms of "
+                  f"{[round(x * 1e3, 1) for x in times]} ms on {card}")
+        med, _ = median_s(lambda: distributed.stage_scene_shards(scene, dcfg,
+                                                                 1))
+        print(f"  of which the host staging of the strips "
+              f"(stage_scene_shards): {med * 1e3:.1f} ms")
+
+        cfg = Config(model=model.cfg, data=dcfg, merge=MergeConfig(
+            engine="device", threshold=thr, max_rounds=8))
+        (_, _, res), launches = counted(lambda: driver.process_scene(
+            cfg, scene, extractor=mex, mesh=mesh, log_fn=lambda *_: None))
+        held(launches, "the world-1 process_scene")
+        dis = same_partition(res.label_map(scene), want_map)
+        print(f"world 1, process_scene(mesh): {res.num_clusters} clusters, "
+              f"label disagreement {dis:.5f}; launches {launches}")
+        require(dis <= LABEL_DISAGREEMENT_MAX,
+                f"world-1 process_scene partition: label disagreement {dis}")
+
+        # the serving walk through the mesh, then on one device
+        images, shps, counts = walk
+        wcfg = Config(model=model.cfg,
+                      data=DataConfig(max_window=512,
+                                      eval_batch_size=SERVE_BATCH),
+                      merge=MergeConfig(engine="device", threshold=thr))
+        maps, stores = {}, {}
+        for label, kw in (
+                ("mesh", dict(mesh=mesh, extractor=FeatureExtractor(
+                    model, batch_size=SERVE_BATCH, mesh=mesh))),
+                ("single", dict(extractor=FeatureExtractor(
+                    model, batch_size=SERVE_BATCH, device=dev)))):
+            t = time.perf_counter()
+            with feature_stores(stores):
+                done, launches = counted(lambda: driver.process_folder(
+                    wcfg, images, shps, log_fn=lambda *_: None,
+                    write_labelmaps=True, **kw))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            require(done == sorted(counts), f"{label} walk: done {done}")
+            maps[label] = walk_maps(shps, done, wcfg.model.name)
+            print(f"world 1, process_folder ({label}): {len(done)} scenes in "
+                  f"{wall:.3f} s on {card}; launches {launches}")
+            if label == "mesh":
+                held(launches, "the world-1 process_folder")
+        for name in sorted(counts):
+            dis = same_partition(maps["mesh"][name], maps["single"][name])
+            print(f"  {name}: {int(maps['mesh'][name].max()) + 1} clusters, "
+                  f"label disagreement with the single-device walk "
+                  f"{dis:.5f}")
+            require(dis <= LABEL_DISAGREEMENT_MAX,
+                    f"world-1 walk {name}: label disagreement {dis}")
+        del mex
+    finally:
+        dist.destroy_process_group()
+    del ex, model
+    torch.cuda.empty_cache()
+
+    # two ranks on the one card over gloo: a check of the collectives
+    # across processes, not a scaling number
+    tcfg = Config(model=ModelConfig(),
+                  data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = []
+    try:
+        torch.save(trained, os.path.join(root, "trained.pt"))
+        epoch_seed = 777
+        with open(os.path.join(root, "spec.pkl"), "wb") as f:
+            pickle.dump(dict(port=free_port(), dcfg=dcfg, thr=thr,
+                             epoch_seed=epoch_seed, mcfg=mcfg, tcfg=tcfg,
+                             scene=SCENE, device=str(dev)), f)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=scale_out_rank, args=(k, 2, root))
+                 for k in range(2)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t
+        require(all(p.exitcode == 0 for p in procs),
+                f"two-rank check: exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for k in range(2):
+            with open(os.path.join(root, f"rank{k}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"two ranks on one card (two processes, gloo): {wall:.1f} s with "
+          "start-up")
+    whole = ds.padded.numel() * ds.padded.element_size()
+    for k, o in enumerate(ranks):
+        print(f"  rank {k} launches: sharded {o['sharded_launches']}; "
+              f"training {o['train_launches']}")
+        for what in ("sharded", "scene"):
+            require_launches(o[f"{what}_launches"], Q8_PATH, off,
+                             f"rank {k}'s {what} run")
+        require_launches(o["train_launches"],
+                         ("patch_resize", "fused_attention_train"),
+                         [c for c in off if c != "fused_attention_train"],
+                         f"rank {k}'s training steps")
+        for what in ("sharded", "scene"):
+            labels = o[f"{what}_labels"]
+            dis = same_partition(labels[scene.labels], want_map)
+            print(f"  rank {k}, {what}: label disagreement with the single "
+                  f"device {dis:.5f}; {o[what + '_s'][0] * 1e3:.1f} ms median "
+                  f"(two processes on one card)")
+            require(dis <= LABEL_DISAGREEMENT_MAX,
+                    f"rank {k} {what}: label disagreement {dis}")
+        print(f"  rank {k}: strip tile {o['tile_bytes']} bytes against the "
+              f"whole padded scene's {whole} ({o['points']} points); peak "
+              f"memory {o['peak_sharded'] / 2**30:.2f} GiB in the sharded "
+              f"run, {o['peak_train'] / 2**30:.2f} GiB training")
+    require(ranks[0]["params_identical"] and ranks[1]["params_identical"],
+            "the data-parallel ranks' parameters differ")
+
+    # the same four steps on one device, whole batches
+    pos, neg = make_training_pairs(scene)
+    sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
+    state = loop.create_train_state(tcfg, len(sampler) // TRAIN_PAIRS,
+                                    device=dev)
+    step = loop.make_train_step(tcfg)
+    want, times = [], []
+    for _, batch in zip(range(4), sampler.epoch_batches(epoch_seed,
+                                                        TRAIN_PAIRS)):
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        want.append(float(m["loss"]))
+        times.append(time.perf_counter() - t)
+    del state
+    torch.cuda.empty_cache()
+    want = np.asarray(want)
+    print(f"  one device, the same four steps ({TRAIN_PAIRS} pairs, host "
+          f"batches): {[round(x * 1e3, 1) for x in times]} ms on {card}")
+    for k, o in enumerate(ranks):
+        rel = np.abs(np.asarray(o["losses"]) - want) / np.abs(want)
+        print(f"  rank {k}, data-parallel trainer ({TRAIN_PAIRS // 2} pairs "
+              f"a rank): losses "
+              f"{o['losses']} against one device's {want.tolist()}, rel diff "
+              f"{rel.tolist()} (step 0 max {TOL_TRAIN_LOSS0}, all max "
+              f"{TOL_TRAIN_LOSS}); steps "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]} ms (two "
+              f"processes on one card); parameters the same on both "
+              f"ranks (checksum {o['checksum']:.6e})")
+        require(rel[0] <= TOL_TRAIN_LOSS0 and rel.max() <= TOL_TRAIN_LOSS,
+                f"rank {k}: data-parallel losses differ: {rel}")
+    print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return runs
 
 
 def main() -> int:
@@ -2036,7 +2502,7 @@ def main() -> int:
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"patches", "kernels", "trained"},
+        require(only <= {"patches", "kernels", "trained", "scaleout"},
                 f"unknown phases {only}")
 
     import warnings
@@ -2113,9 +2579,15 @@ def main() -> int:
         kernel_results.update(check_k6(dev))
         kernel_results.update(check_wide_tokens(dev))
     if only is not None:
-        if "trained" in only:
-            trained_parity_phase(dev, card, scene, ds, dcfg, edges_d,
-                                 valid_d, valid, region_map)
+        if only & {"trained", "scaleout"}:
+            _, trained, thr = trained_parity_phase(
+                dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
+                region_map)
+        if "scaleout" in only:
+            with tempfile.TemporaryDirectory() as walk_root:
+                scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
+                                region_map, trained, thr,
+                                export_folder(walk_root, SERVE_SCENES))
         print(f"partial run ({','.join(sorted(only))}) in "
               f"{time.perf_counter() - t_start:.1f} s: no result lines")
         return 0
@@ -2317,39 +2789,57 @@ def main() -> int:
         del ex, run
         torch.cuda.empty_cache()
 
-    # 6. the serving walk
-    launches = serving_walk(ex_q8.model, dev, card)
-    require_launches(launches, q8_kernels,
-                     bf16_kernels[1:] + q8a_kernels[1:] + off_path,
-                     "the serving walk")
-    path_runs.append(launches)
-    del ex_q8, run_q8
-    torch.cuda.empty_cache()
+    # the serving scenes, written once for phases 6 and 9
+    walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
+    try:
+        # 6. the serving walk
+        t = time.perf_counter()
+        walk = export_folder(walk_root, SERVE_SCENES)
+        print(f"serving folder: {SERVE_SCENES} scenes of {SERVE_SCENE} "
+              f"({sum(c[0] for c in walk[2].values())} points) written in "
+              f"{time.perf_counter() - t:.1f} s")
+        launches = serving_walk(ex_q8.model, dev, card, walk)
+        require_launches(launches, q8_kernels,
+                         bf16_kernels[1:] + q8a_kernels[1:] + off_path,
+                         "the serving walk")
+        path_runs.append(launches)
+        del ex_q8, run_q8
+        torch.cuda.empty_cache()
 
-    # 7. training: the flagship, v5 with its aux losses, then the flagship
-    # through the training block K5
-    launches, (v3_ms, v3_losses) = training_phase(dev, card, ModelConfig(),
-                                                  "v3")
-    all_launches["fused_attention_train"] = launches["fused_attention_train"]
-    path_runs.append(launches)
-    path_runs.append(training_phase(dev, card, ModelConfig(variant="v5"),
-                                    "v5", aux_weights=(0.1, 0.2))[0])
-    launches, (k5_ms, k5_losses) = training_phase(
-        dev, card, ModelConfig(), "v3 train.fused_block", fused_block=True)
-    all_launches["fused_block_train"] = launches["fused_block_train"]
-    path_runs.append(launches)
-    rel0 = abs(k5_losses[0] - v3_losses[0]) / abs(v3_losses[0])
-    pairs_s = lambda ms: TRAIN_PAIRS / ms * 1e3
-    print(f"training step, v3 through K5 against the unfused v3 (this run, "
-          f"{card}): median {k5_ms:.1f} vs {v3_ms:.1f} ms "
-          f"({pairs_s(k5_ms):.1f} vs {pairs_s(v3_ms):.1f} pairs/s); step-0 "
-          f"loss {k5_losses[0]} vs {v3_losses[0]}, rel diff {rel0:.3e} (max "
-          f"{TOL_K5_VS_UNFUSED_LOSS0})")
-    require(rel0 <= TOL_K5_VS_UNFUSED_LOSS0,
-            f"step-0 loss through K5 differs from the unfused one: {rel0}")
-    # 8. the parity bar on trained weights
-    trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
-                         region_map)
+        # 7. training: the flagship, v5 with its aux losses, then the
+        # flagship through the training block K5
+        launches, (v3_ms, v3_losses) = training_phase(
+            dev, card, ModelConfig(), "v3")
+        all_launches["fused_attention_train"] = \
+            launches["fused_attention_train"]
+        path_runs.append(launches)
+        path_runs.append(training_phase(dev, card, ModelConfig(variant="v5"),
+                                        "v5", aux_weights=(0.1, 0.2))[0])
+        launches, (k5_ms, k5_losses) = training_phase(
+            dev, card, ModelConfig(), "v3 train.fused_block", fused_block=True)
+        all_launches["fused_block_train"] = launches["fused_block_train"]
+        path_runs.append(launches)
+        rel0 = abs(k5_losses[0] - v3_losses[0]) / abs(v3_losses[0])
+        pairs_s = lambda ms: TRAIN_PAIRS / ms * 1e3
+        print(f"training step, v3 through K5 against the unfused v3 (this "
+              f"run, {card}): median {k5_ms:.1f} vs {v3_ms:.1f} ms "
+              f"({pairs_s(k5_ms):.1f} vs {pairs_s(v3_ms):.1f} pairs/s); "
+              f"step-0 loss {k5_losses[0]} vs {v3_losses[0]}, rel diff "
+              f"{rel0:.3e} (max {TOL_K5_VS_UNFUSED_LOSS0})")
+        require(rel0 <= TOL_K5_VS_UNFUSED_LOSS0,
+                f"step-0 loss through K5 differs from the unfused one: "
+                f"{rel0}")
+        # 8. the parity bar on trained weights
+        _, trained, thr = trained_parity_phase(dev, card, scene, ds, dcfg,
+                                               edges_d, valid_d, valid,
+                                               region_map)
+        # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
+        # ranks on the one card over gloo
+        path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
+                                         valid_d, region_map, trained, thr,
+                                         walk))
+    finally:
+        shutil.rmtree(walk_root, ignore_errors=True)
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)

@@ -15,7 +15,12 @@ The model commands run on the CUDA card by default; without one they stop
 unless ``--device cpu`` is given. ``--checkpoint-dir`` takes a reference
 ``.pth``; ``train`` writes checkpoints whose ``checkpoint.pth`` is one.
 ``import-ckpt`` and ``export-ckpt`` are not ported: they say where they
-live, as does ``train --mesh`` (the sharded trainer).
+live.
+
+``--mesh`` (``train``, ``extract``, ``process-folder``) runs one process
+per rank under torchrun, e.g. ``torchrun --nproc_per_node=N -m
+deepmerge_tpu_torch process-folder --mesh ...``: each rank on
+``cuda:LOCAL_RANK`` (NCCL), or on the CPU with ``--device cpu`` (gloo).
 """
 
 from __future__ import annotations
@@ -81,7 +86,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--epochs", type=int)
     p_train.add_argument("--max-steps", type=int)
     p_train.add_argument("--mesh", action="store_true",
-                         help="the sharded trainer (not ported yet)")
+                         help="data-parallel training over the torchrun "
+                         "ranks (model axis: mesh.model_parallel)")
     p_train.add_argument("--pos-pairs",
                          help="positive pair txt file or folder (the "
                          "reference's PositiveData layout)")
@@ -104,7 +110,9 @@ def _build_parser() -> argparse.ArgumentParser:
                       help="handling for >8-bit rasters (uint16 etc.): "
                       "refuse, drop low bits, or clamp")
     p_ex.add_argument("--mesh", action="store_true",
-                      help="shard over all devices (not ported yet)")
+                      help="shard extraction + merge over the torchrun "
+                      "ranks (points split over the data axis; exact "
+                      "all_reduce merge rounds)")
     p_ex.add_argument("--stream-tiles", type=int, metavar="N",
                       help="extract through N sequential column-strip tiles "
                       "(identical embeddings and partition)")
@@ -115,7 +123,8 @@ def _build_parser() -> argparse.ArgumentParser:
     p_pf.add_argument("--shapefiles", required=True)
     p_pf.add_argument("--checkpoint-dir", help="reference .pth checkpoint")
     p_pf.add_argument("--mesh", action="store_true",
-                      help="shard over all devices (not ported yet)")
+                      help="shard each scene's extraction + merge over the "
+                      "torchrun ranks (rank 0 writes the outputs)")
     p_pf.add_argument("--deep-pixels", choices=DEEP_PIXELS, default="error",
                       help="handling for >8-bit rasters (uint16 etc.)")
     p_pf.add_argument("--write-labelmaps", action="store_true",
@@ -188,7 +197,7 @@ def _load_cli_scene(scene_dir: str, name: str):
     return scene
 
 
-def _train(parser, args, cfg, device) -> int:
+def _train(parser, args, cfg, device, use_mesh=False) -> int:
     """The ``train`` command: the JAX CLI's scene and pair handling, then
     ``train.driver.train`` on ``device``."""
     import dataclasses
@@ -240,7 +249,8 @@ def _train(parser, args, cfg, device) -> int:
         pos_pairs = read_pair_source(args.pos_pairs, args.scene_name)
         neg_pairs = read_pair_source(args.neg_pairs, args.scene_name)
     train(cfg, scene=scene, pos_pairs=pos_pairs, neg_pairs=neg_pairs,
-          max_steps_per_epoch=args.max_steps, device=device)
+          use_mesh=use_mesh, max_steps_per_epoch=args.max_steps,
+          device=device)
     return 0
 
 
@@ -280,22 +290,36 @@ def main(argv=None) -> int:
 
     import torch
 
-    if args.cmd == "train" and args.mesh:
-        print("deepmerge_tpu_torch train --mesh: the sharded trainer is the "
-              "port's scale-out item (ROADMAP.md queue A, Scale-out); "
-              "`python -m deepmerge_tpu train --mesh` runs it on the JAX "
-              "package", file=sys.stderr)
-        return 2
-    if getattr(args, "mesh", False):
-        parser.error("--mesh: the sharded path is the port's scale-out "
-                     "item (ROADMAP.md queue A, Scale-out)")
+    use_mesh = getattr(args, "mesh", False)
+    if use_mesh and getattr(args, "stream_tiles", None):
+        parser.error("--mesh and --stream-tiles are exclusive: a mesh "
+                     "already spreads the scene across ranks")
+    if use_mesh:
+        import torch.distributed as dist
+
+        from deepmerge_tpu_torch.parallel.distributed import initialize
+        from deepmerge_tpu_torch.parallel.mesh import NO_GROUP, make_mesh
+
+        initialize(device=args.device)  # torchrun's group; else a no-op
+        if not dist.is_initialized():
+            print(f"deepmerge_tpu_torch {args.cmd} --mesh: {NO_GROUP}",
+                  file=sys.stderr)
+            return 2
     if args.device == "cuda" and not torch.cuda.is_available():
         parser.error("no CUDA card found: the port's kernels need one; pass "
                      "--device cpu to run their plain versions on the CPU")
     device = torch.device(args.device)
+    mesh = None
+    if use_mesh:
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+        if args.cmd != "train":
+            mesh = make_mesh(n_data=dist.get_world_size(), n_model=1,
+                             devices=device)
 
     if args.cmd == "train":
-        return _train(parser, args, cfg, device)
+        return _train(parser, args, cfg, device, use_mesh)
 
     if args.cmd == "extract":
         import numpy as np
@@ -314,14 +338,16 @@ def main(argv=None) -> int:
         scene = load_scene(args.image, args.polygons, args.points, args.lines,
                            deep_pixels=args.deep_pixels, labels=labels)
         model = load_params(cfg, args.checkpoint_dir)
+        writer = mesh is None or mesh.rank == 0
         emb, simi, result = process_scene(
             cfg, scene, model,
-            store=FeatureStore(args.h5) if args.h5 else None,
-            lines_path=args.lines,
+            store=FeatureStore(args.h5) if args.h5 and writer else None,
+            lines_path=args.lines, mesh=mesh,
             stream_tiles=args.stream_tiles, device=device,
         )
         print(f"embedded {emb.shape[0]} points; scored {len(simi)} edges")
-        if result is not None and (args.out_labels or args.out_png):
+        if writer and result is not None and (args.out_labels
+                                              or args.out_png):
             label_map = result.label_map(scene)
             if args.out_labels:
                 from deepmerge_tpu_torch.infer.merge import (
@@ -375,7 +401,7 @@ def main(argv=None) -> int:
                               stream_tiles=args.stream_tiles,
                               watch_seconds=args.watch,
                               watch_iterations=args.watch_iterations,
-                              device=device)
+                              mesh=mesh, device=device)
         print(f"processed {len(done)} scenes")
         return 0
 

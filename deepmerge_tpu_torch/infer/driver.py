@@ -42,10 +42,6 @@ from deepmerge_tpu_torch.infer.merge import (
 from deepmerge_tpu_torch.infer.scoring import score_scene_edges
 from deepmerge_tpu_torch.utils.device import resolve_device
 
-MESH_TODO = ("the sharded extraction and merge are the port's scale-out item "
-             "(ROADMAP.md queue A, Scale-out)")
-
-
 def load_params(cfg: Config, checkpoint_path: Optional[str] = None):
     """A port ``S2Former`` for ``cfg.model``: the weights of a reference
     ``.pth``, or fresh random ones from seed 0 when no checkpoint is given
@@ -156,18 +152,27 @@ def process_scene(
     ``finalize_executor`` (one worker) the host tail — the pulls, the .h5,
     the ``simi`` write — runs there and the call returns a ``Future`` of
     the usual tuple.
+
+    ``mesh`` (``parallel.make_mesh``; every rank of the mesh calls this
+    with the same scene) splits each chunk of points over the mesh's data
+    axis (a mesh ``FeatureExtractor``) and, with the device engine, merges
+    with the collective rounds of ``parallel.distributed.distributed_merge``:
+    the partition of one device. The fused path is off. Every rank returns
+    the result; rank 0 alone writes ``store`` and the ``simi`` field.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {MESH_TODO}")
     if extractor is None:
         if model is None:
             model = load_params(cfg)
         extractor = FeatureExtractor(
-            model, batch_size=cfg.data.eval_batch_size, device=device)
+            model, batch_size=cfg.data.eval_batch_size, device=device,
+            mesh=mesh)
     timings = timings or Timings()
+    if mesh is not None and mesh.rank != 0:
+        store, lines_path = None, None  # rank 0 alone writes
 
     fused = (
         (True if fused is None else fused)
+        and mesh is None
         and (stream_tiles is None or stream_tiles <= 1)
         and do_merge
         and cfg.merge.engine == "device"
@@ -256,7 +261,17 @@ def process_scene(
             thr = float(np.quantile(simi, cfg.merge.threshold_quantile,
                                     method="lower"))
         with phase_timer(timings, "merge"):
-            if cfg.merge.engine == "device":
+            if mesh is not None and cfg.merge.engine == "device":
+                from deepmerge_tpu_torch.parallel.distributed import (
+                    distributed_merge,
+                )
+
+                labels, rounds = distributed_merge(
+                    on_device, scene.regions.point_region,
+                    scene.regions.num_regions, scene.rag.edges, mesh,
+                    threshold=thr, max_rounds=cfg.merge.max_rounds)
+                result = labels_to_result(labels, rounds, scene)
+            elif cfg.merge.engine == "device":
                 result = merge_scene_device(scene, on_device, threshold=thr,
                                             max_rounds=cfg.merge.max_rounds)
             else:
@@ -319,17 +334,21 @@ def process_folder(
     extractor (its model wins over ``checkpoint_path``). ``stats`` receives
     ``{"scene_done_ts": [...]}``, the ``time.perf_counter()`` of each
     scene's completion.
+
+    With ``mesh`` every rank of the mesh walks the same folder, and each
+    scene goes through ``process_scene(mesh=...)``: rank 0 alone writes
+    the .h5, the ``simi`` field and the label maps; no scene is staged
+    ahead.
     """
     from deepmerge_tpu_torch.geodata.ingest import load_scene
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
-    if mesh is not None:
-        raise NotImplementedError(f"mesh: {MESH_TODO}")
     if extractor is None:
         extractor = FeatureExtractor(
             load_params(cfg, checkpoint_path),
-            batch_size=cfg.data.eval_batch_size, device=device)
+            batch_size=cfg.data.eval_batch_size, device=device, mesh=mesh)
     tag = cfg.model.name
+    writer = mesh is None or mesh.rank == 0
 
     def scan_jobs(skip):
         jobs = []
@@ -352,8 +371,8 @@ def process_folder(
     done: list[str] = []
     failed: list[tuple[str, str]] = []
     # the streamed path stages its own strips: a whole prefetched scene
-    # would defeat its memory bound
-    prestage = stream_tiles is None or stream_tiles <= 1
+    # would defeat its memory bound; a mesh extractor stages per scene
+    prestage = mesh is None and (stream_tiles is None or stream_tiles <= 1)
 
     def finish(entry, h5_path, scene, fut):
         try:
@@ -361,7 +380,7 @@ def process_folder(
             if stats is not None:
                 stats.setdefault("scene_done_ts", []).append(
                     time.perf_counter())
-            if write_labelmaps and result is not None:
+            if write_labelmaps and writer and result is not None:
                 if os.path.exists(os.path.join(shp_folder,
                                                f"{entry}_labels.npy")):
                     out_tif = os.path.join(shp_folder, entry,
@@ -376,7 +395,8 @@ def process_folder(
         except Exception as e:  # a bad scene must not stop the walk
             failed.append((entry, str(e)))
             log_fn(f"FAILED {entry}: {e}")
-            _remove(h5_path)
+            if writer:
+                _remove(h5_path)
 
     def walk(jobs):
         with ThreadPoolExecutor(max_workers=1) as pool, \
@@ -419,10 +439,10 @@ def process_folder(
                     t1 = time.perf_counter()
                     log_fn(f"processing {entry} "
                            f"({scene.regions.num_points} points)")
-                    store = FeatureStore(h5_path)
+                    store = FeatureStore(h5_path) if writer else None
                     fut = process_scene(
                         cfg, scene, store=store, lines_path=lines,
-                        log_fn=log_fn, extractor=extractor,
+                        log_fn=log_fn, extractor=extractor, mesh=mesh,
                         stream_tiles=stream_tiles, device_scene=ds,
                         finalize_executor=fin_pool,
                     )
@@ -432,7 +452,8 @@ def process_folder(
                     log_fn(f"FAILED {entry}: {e}")
                     if store is not None:
                         store.close()
-                    _remove(h5_path)
+                    if writer:
+                        _remove(h5_path)
                     continue
                 if pending is not None:
                     finish(*pending)

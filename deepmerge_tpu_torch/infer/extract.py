@@ -193,11 +193,22 @@ class FeatureExtractor:
     float32, as the JAX package keeps its ``batch_stats``), and puts it in
     eval mode. A ``w8a8-static`` model without scales calibrates on the
     first chunk it serves. The aux heads of v4 and v5 do not run here.
+
+    With ``mesh`` (``parallel.make_mesh``) the extractor runs on the mesh's
+    device and each batch of points is split over the data axis: every rank
+    embeds its contiguous share of the rows through the same kernels, and
+    the batch's rows are assembled on every rank by an ``all_reduce`` SUM
+    into a zero-filled buffer (adding zeros is exact). A ``w8a8-static``
+    model is calibrated once, by rank 0, and its scales broadcast. The
+    whole-scene programs (``segment_scene_device``) and the streamed strips
+    are single-device, as in the JAX package.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 2000,
-                 device: torch.device | str = "cuda"):
-        self.device = resolve_device(device)
+                 device: torch.device | str = "cuda", mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         stats = {n: b for n, b in model.named_buffers()
                  if b.is_floating_point()}
         # float weights only: the int64 index buffers keep their dtype
@@ -297,19 +308,51 @@ class FeatureExtractor:
         package); a no-op once the model has its scales."""
         if not self.needs_calibration:
             return
-        logging.getLogger(__name__).info(
-            "calibrating w8a8-static activation scales on the first batch")
-        self.model.calibrate(*self._model_inputs(
+        if self.mesh is None or self.mesh.rank == 0:
+            logging.getLogger(__name__).info(
+                "calibrating w8a8-static activation scales on the first "
+                "batch")
+            self.model.calibrate(*self._model_inputs(
+                padded, caps, quantize_uint8, trusted, centers, scales,
+                factors, feats))
+        if self.mesh is not None:
+            from deepmerge_tpu_torch.parallel.mesh import replicate
+
+            replicate([b.act_amax for b in self.model._static_blocks()],
+                      self.mesh)
+            self.model.act_amax_calibrated = True
+
+    @torch.inference_mode()
+    def _embed_local(self, padded, caps, quantize_uint8, trusted, centers,
+                     scales, factors, feats) -> torch.Tensor:
+        """Embeddings of one batch of points on this device, in the model
+        dtype."""
+        return self.model(*self._model_inputs(
             padded, caps, quantize_uint8, trusted, centers, scales, factors,
             feats))
 
     @torch.inference_mode()
     def _embed(self, padded, caps, quantize_uint8, trusted, centers, scales,
                factors, feats) -> torch.Tensor:
-        """Embeddings of one batch of points, in the model dtype."""
-        return self.model(*self._model_inputs(
-            padded, caps, quantize_uint8, trusted, centers, scales, factors,
-            feats))
+        """Embeddings of one batch of points, in the model dtype; with a
+        mesh, this rank embeds its share of the rows and every rank gets
+        the whole batch."""
+        if self.mesh is None:
+            return self._embed_local(padded, caps, quantize_uint8, trusted,
+                                     centers, scales, factors, feats)
+        from deepmerge_tpu_torch.parallel.mesh import all_reduce_
+
+        n, s = centers.shape[0], self.mesh.shape["data"]
+        d = self.mesh.coords["data"]
+        lo, hi = n * d // s, n * (d + 1) // s
+        out = torch.zeros((n, self.model.cfg.out_dim), dtype=torch.float32,
+                          device=self.device)
+        if hi > lo:
+            rows = slice(lo, hi)
+            out[rows] = self._embed_local(
+                padded, caps, quantize_uint8, trusted, centers[rows],
+                scales[rows], factors[rows], feats[rows])
+        return all_reduce_(out, self.mesh).to(self.model.dtype)
 
     def _embed_chunks(self, ds: DeviceScene, cfg: DataConfig,
                       args) -> torch.Tensor:
@@ -373,6 +416,11 @@ class FeatureExtractor:
         strips padded to one width. Embeddings come back in point-FID order
         on the host. Pass ``n_strips``, or ``hbm_budget_bytes`` to pick the
         fewest strips whose staged tile fits."""
+        if self.mesh is not None:
+            raise ValueError(
+                "extract_scene_streamed is single-device only — a mesh "
+                "already spreads the scene across ranks "
+                "(parallel.distributed.extract_and_merge_sharded)")
         n = scene.regions.num_points
         if n == 0:
             raise ValueError("scene has no sample points — nothing to extract")
@@ -457,6 +505,8 @@ class FeatureExtractor:
         ``[simi | labels | rounds]`` (``unpack_serve_tail``), two pulls to
         the host for the whole scene.
         """
+        if self.mesh is not None:
+            raise ValueError("segment_scene_device is single-device only")
         if serve_packed and region_map is not None:
             raise ValueError("serve_packed has no label-map output")
         ds = device_scene or stage_scene(scene, cfg, self.device)

@@ -79,6 +79,7 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     gelu,
     quantize_block_params,
 )
+from deepmerge_tpu_torch.parallel.mesh import BatchShard, all_reduce_sum
 
 STATIC = "w8a8-static"
 # flax nn.BatchNorm's defaults: running = 0.99·running + 0.01·batch
@@ -398,15 +399,26 @@ class AuxBlock(nn.Module):
         self.out_features = nn.Linear(width + (dim if extra_token else 0),
                                       out_dim)
 
-    def _batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _batch_norm(self, x: torch.Tensor,
+                    shard: Optional[BatchShard] = None) -> torch.Tensor:
         """flax ``nn.BatchNorm`` in training on NHWC: float32 batch
         statistics over (B, H, W) with the biased fast variance E[x²] −
         E[x]² (clipped at 0), the running buffers moved to momentum·running
-        + (1 − momentum)·batch in place, the result in x's dtype."""
+        + (1 − momentum)·batch in place, the result in x's dtype. With a
+        ``shard``, x holds this rank's rows and the moments are those of the
+        global batch: the sums travel through a differentiable
+        ``all_reduce``, as GSPMD's global program reduces them."""
         bn = self.aux[1]
         xf = x.to(torch.float32)
-        mu = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mu * mu, min=0.0)
+        if shard is None:
+            mu = xf.mean(dim=(0, 1, 2))
+            ex2 = (xf * xf).mean(dim=(0, 1, 2))
+        else:
+            sums = all_reduce_sum(torch.stack(
+                [xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]),
+                shard.mesh)
+            mu, ex2 = sums / float(shard.batch * x.shape[1] * x.shape[2])
+        var = torch.clamp(ex2 - mu * mu, min=0.0)
         with torch.no_grad():
             for buf, stat in ((bn.running_mean, mu), (bn.running_var, var)):
                 buf.copy_(BN_MOMENTUM * buf + (1 - BN_MOMENTUM) * stat)
@@ -417,6 +429,7 @@ class AuxBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c, h, w = self.cube
         conv1, _, _, drop, conv2 = self.aux
+        shard = generator if isinstance(generator, BatchShard) else None
         b, d = x.shape[0], x.shape[-1]
         # the 2×2 VALID convolution as one product over the four shifted
         # grids, (row, col, channel) ordered as the kernel flattens
@@ -426,7 +439,8 @@ class AuxBlock(nn.Module):
             xi = x[:, h * w * i : h * w * (i + 1)].reshape(b, h, w, d)
             xi = torch.cat([xi[:, r : r + h - 1, s : s + w - 1]
                             for r in (0, 1) for s in (0, 1)], dim=-1)
-            xi = torch.relu(self._batch_norm(torch.matmul(xi, k1.t())))
+            xi = torch.relu(self._batch_norm(torch.matmul(xi, k1.t()),
+                                             shard))
             xi = dropout(xi, drop.p, generator, shape=(b, 1, 1, d))
             parts.append(_dense(xi, conv2).mean(dim=(1, 2)))
         y = torch.cat(parts, dim=-1)

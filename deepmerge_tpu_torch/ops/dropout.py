@@ -1,13 +1,20 @@
 """Dropout and drop path in training, their masks drawn from an explicit
 ``torch.Generator`` (the JAX package's ``fold_in`` streams cannot be
 reproduced in torch). A rate of 0 returns the input itself and draws
-nothing."""
+nothing. A ``parallel.mesh.BatchShard`` in place of the generator draws
+the global batch's mask and keeps this rank's rows."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def _uniform(shape, generator, device) -> torch.Tensor:
+    if hasattr(generator, "rand"):  # a parallel.mesh.BatchShard
+        return generator.rand(shape)
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -19,8 +26,7 @@ def dropout(x: torch.Tensor, rate: float,
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(shape or x.shape, generator=generator,
-                      device=x.device) < keep
+    mask = _uniform(shape or x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -32,5 +38,5 @@ def drop_path(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = _uniform(shape, generator, x.device) < keep
     return x * mask.to(x.dtype) / keep

@@ -117,6 +117,17 @@ def pad_scene_device(tile: torch.Tensor, pad: int,
     return out
 
 
+def pad_scene(scene: np.ndarray, caps: int | tuple[int, ...]) -> np.ndarray:
+    """Host ``pad_scene_device``: an (H, W, C) numpy scene zero-padded by
+    ``scene_pad(caps)`` per side, channels up to ``staged_channels`` (the
+    JAX package's host layout, byte for byte)."""
+    p = scene_pad(caps, scene.shape[-1])
+    h, w, c = scene.shape
+    out = np.zeros((h + 2 * p, w + 2 * p, staged_channels(c)), scene.dtype)
+    out[p : p + h, p : p + w, :c] = scene
+    return out
+
+
 def points_inside(points_yx, h: int, w: int) -> bool:
     """Whether every (row, col) point lies inside an ``h`` x ``w`` image,
     checked on the host. The windows of such points lie inside the padded

@@ -1,0 +1,7 @@
+from deepmerge_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    replicate,
+    shard_batch,
+    shard_params,
+)

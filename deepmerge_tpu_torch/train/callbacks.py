@@ -14,10 +14,16 @@ import os
 
 
 class LossHistory:
-    def __init__(self, log_dir: str = "logs", name: str = "loss"):
+    """``write=False`` keeps the history in memory only (the ranks of a
+    data-parallel run other than rank 0)."""
+
+    def __init__(self, log_dir: str = "logs", name: str = "loss",
+                 write: bool = True):
         stamp = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
         self.save_path = os.path.join(log_dir, f"{name}_{stamp}")
-        os.makedirs(self.save_path, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.save_path, exist_ok=True)
         self.train_losses: list[float] = []
         self.val_losses: list[float] = []
         self.elapsed: list[float] = []
@@ -28,6 +34,8 @@ class LossHistory:
         self.train_losses.append(float(train_loss))
         self.val_losses.append(float(val_loss))
         self.elapsed.append(float(elapsed))
+        if not self.write:
+            return
         with open(os.path.join(self.save_path, "epoch_loss.txt"), "a") as f:
             f.write(f"{train_loss}\n")
         with open(os.path.join(self.save_path, "epoch_val_loss.txt"), "a") as f:

@@ -6,8 +6,8 @@ rebuilds, checkpoints at the reference cadence, loss-history logging. One
 scene trains through the scanned epoch (``make_scanned_epoch``: patches
 extracted in every step with K1, the blocks' attention through K6); a list
 of scenes through host-materialized batches. Any variant trains (v4 and v5
-with their aux losses at ``train.aux_weights``). The sharded trainer
-(``use_mesh``) is the port's scale-out item.
+with their aux losses at ``train.aux_weights``). ``use_mesh`` trains data
+parallel over the process group's ranks (``parallel.make_mesh``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from deepmerge_tpu_torch.geodata.synthetic import (
     make_training_pairs,
 )
 from deepmerge_tpu_torch.geodata.types import Scene
+from deepmerge_tpu_torch.parallel.mesh import make_mesh, replicate, shard_rows
 from deepmerge_tpu_torch.train.callbacks import LossHistory
 from deepmerge_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -73,14 +74,20 @@ def train(
     ``scene`` may be a list of Scenes (the reference trains over many tiles,
     ``MyUtils1.py:236-295``) — pairs are then sampled per scene and batches
     interleaved.
+
+    ``use_mesh``: every rank of the current process group calls ``train``
+    with the same arguments, ``device`` being its own. The mesh is
+    ``make_mesh(n_model=cfg.mesh.model_parallel)``; one scene then trains
+    through ``PairSampler`` (as in the JAX package), each rank
+    materializing and embedding its rows of every batch. The parameters,
+    Adam's moments and the BatchNorm buffers start replicated from rank 0,
+    every rank takes the same update, and rank 0 alone writes checkpoints
+    and the loss history.
     """
-    if use_mesh:
-        raise NotImplementedError(
-            "use_mesh: the sharded trainer (DDP with tensor-parallel "
-            "linears) is the port's scale-out item (ROADMAP.md queue A, "
-            "Scale-out)"
-        )
-    device = resolve_device(device)
+    mesh = make_mesh(n_model=cfg.mesh.model_parallel,
+                     devices=device) if use_mesh else None
+    device = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     if scene is None:
         scene = generate_scene(seed=cfg.train.seed)
 
@@ -97,15 +104,21 @@ def train(
     else:
         if pos_pairs is None or neg_pairs is None:
             pos_pairs, neg_pairs = make_training_pairs(scene)
-        # single scene: the patch pipeline runs inside the train step
-        sampler = FusedPairSampler(scene, pos_pairs, neg_pairs, cfg.data,
-                                   device)
+        if mesh is not None:
+            sampler = PairSampler(scene, pos_pairs, neg_pairs, cfg.data,
+                                  device)
+        else:
+            # single scene: the patch pipeline runs inside the train step
+            sampler = FusedPairSampler(scene, pos_pairs, neg_pairs,
+                                       cfg.data, device)
     steps_per_epoch = max(len(sampler) // cfg.data.batch_size, 1)
     state = create_train_state(cfg, steps_per_epoch, device=device)
     if isinstance(sampler, FusedPairSampler):
         epoch_fn = make_scanned_epoch(cfg, sampler.device_scene)
     else:
-        epoch_fn, step_fn = None, make_train_step(cfg)
+        epoch_fn, step_fn = None, make_train_step(cfg, mesh)
+    rows = (shard_rows(cfg.data.batch_size, mesh) if mesh is not None
+            else None)
 
     ckpt = CheckpointManager(cfg.train.checkpoint_dir, cfg)
     start_epoch, elapsed0 = 0, 0.0
@@ -115,8 +128,11 @@ def train(
             log_fn(f"resumed from epoch {start_epoch}")
         except FileNotFoundError:
             log_fn("no checkpoint found; training from scratch")
+    if mesh is not None:
+        replicate(state.model, mesh)
+        replicate(state.optimizer.state_dict()["state"], mesh)
 
-    history = LossHistory(cfg.train.log_dir, cfg.model.name)
+    history = LossHistory(cfg.train.log_dir, cfg.model.name, write=writer)
     t_start = time.time() - elapsed0
 
     # one-epoch-deep pipelining for the scanned path: the loss pull is the
@@ -162,7 +178,8 @@ def train(
             pending = (epoch, pull)
             continue
         batches = sampler.epoch_batches(epoch_seed=epoch_seed,
-                                        batch_size=cfg.data.batch_size)
+                                        batch_size=cfg.data.batch_size,
+                                        rows=rows)
         if max_steps_per_epoch is not None:
             batches = itertools.islice(batches, max_steps_per_epoch)
         state, mean_loss = train_epoch(state, step_fn, batches)
@@ -172,7 +189,7 @@ def train(
             f"loss={mean_loss:.5f} elapsed={elapsed:.1f}s"
         )
         history.append_loss(mean_loss, mean_loss, elapsed)
-        if should_checkpoint(epoch, cfg):
+        if writer and should_checkpoint(epoch, cfg):
             path = ckpt.save(state, epoch, elapsed)
             log_fn(f"  checkpoint -> {path}")
 

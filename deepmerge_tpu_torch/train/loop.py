@@ -26,6 +26,14 @@
 The state is mutable, unlike the JAX package's: every step updates the
 model's parameters and the optimizer's moments in place, and the step
 functions return the same ``TrainState``.
+
+Data parallelism (``make_train_step(cfg, mesh)``) does by hand what GSPMD's
+global program does: each rank takes its rows of the batch
+(``parallel.mesh.shard_rows``), scales its loss by 1 / n_data so that the
+``all_reduce`` SUM of the ranks' gradients is the gradient of the whole
+batch's mean loss, and takes the same Adam step. Its forward gets a
+``parallel.mesh.BatchShard``: dropout masks drawn for the global batch and
+cut to its rows, and v4/v5 BatchNorm moments summed over the ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import torch
 from deepmerge_tpu_torch.config import Config
 from deepmerge_tpu_torch.models.s2former import S2Former, training_model
 from deepmerge_tpu_torch.ops.patches import extract_multiscale_patches
+from deepmerge_tpu_torch.parallel.mesh import BatchShard, Mesh, all_reduce_
 from deepmerge_tpu_torch.train.losses import contrastive_pair_loss
 from deepmerge_tpu_torch.utils.device import resolve_device
 
@@ -105,27 +114,50 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1,
                       seed=cfg.train.seed)
 
 
-def _siamese_loss(state: TrainState, cfg: Config, patches, designed, flag):
+def _step_draws(state: TrainState, mesh: Optional[Mesh], pairs: int):
+    """The step's generator and the loss scale; with a mesh, a
+    ``BatchShard`` of this rank's ``pairs`` rows of the global [left;
+    right] batch and the scale 1 / n_data."""
+    gen = state.step_generator()
+    if mesh is None:
+        return gen, 1.0
+    n = mesh.shape["data"]
+    own = torch.arange(pairs) + mesh.coords["data"] * pairs
+    rows = torch.cat([own, own + n * pairs])
+    return BatchShard(gen, rows, 2 * n * pairs, mesh), 1.0 / n
+
+
+def _siamese_loss(state: TrainState, cfg: Config, patches, designed, flag,
+                  mesh: Optional[Mesh] = None):
     """The training forward of the stacked [left; right] batch and the
     contrastive loss of its halves, plus ``train.aux_weights`` times the
-    aux heads' (v4, v5) losses where the weight is positive."""
+    aux heads' (v4, v5) losses where the weight is positive. With a mesh,
+    this rank's part of the global batch's loss."""
     margin = cfg.train.margin
-    out = state.model(patches, designed, train=True,
-                      generator=state.step_generator())
+    draws, scale = _step_draws(state, mesh, flag.shape[0])
+    out = state.model(patches, designed, train=True, generator=draws)
     emb, *aux = out if isinstance(out, tuple) else (out,)
     loss = contrastive_pair_loss(*torch.chunk(emb, 2, dim=0), flag, margin)
     for a, w in zip(aux, cfg.train.aux_weights):
         if w > 0.0:
             loss = loss + w * contrastive_pair_loss(
                 *torch.chunk(a, 2, dim=0), flag, margin)
-    return loss
+    return loss * scale if mesh is not None else loss
 
 
-def apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
+def apply_gradients(state: TrainState, loss: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> TrainState:
     """Backward of ``loss`` and one Adam update at the learning rate of the
-    current step count."""
+    current step count; with a mesh, the gradients are summed over its data
+    axis first (one ``all_reduce`` of them all, flattened)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if mesh is not None:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
     for group in state.optimizer.param_groups:
         group["lr"] = state.lr(state.step)
     state.optimizer.step()
@@ -133,8 +165,10 @@ def apply_gradients(state: TrainState, loss: torch.Tensor) -> TrainState:
     return state
 
 
-def make_train_step(cfg: Config):
-    """The Siamese train step on a host-materialized batch.
+def make_train_step(cfg: Config, mesh: Optional[Mesh] = None):
+    """The Siamese train step on a host-materialized batch; with ``mesh``,
+    on this rank's rows of it (``PairSampler.epoch_batches(rows=...)``),
+    the loss in the metrics being the whole batch's on every rank.
 
     Batch dict:
       left_patches / right_patches: tuple of (B, s, s, C) per input scale
@@ -151,8 +185,13 @@ def make_train_step(cfg: Config):
         )
         designed = torch.cat([batch["left_designed"],
                               batch["right_designed"]], dim=0)
-        loss = _siamese_loss(state, cfg, patches, designed, batch["flag"])
-        return apply_gradients(state, loss), {"loss": loss.detach()}
+        loss = _siamese_loss(state, cfg, patches, designed, batch["flag"],
+                             mesh)
+        state = apply_gradients(state, loss, mesh)
+        loss = loss.detach()
+        if mesh is not None:
+            loss = all_reduce_(loss.clone(), mesh)
+        return state, {"loss": loss}
 
     return train_step
 

@@ -186,8 +186,12 @@ class PairSampler:
                                device=self.device_scene.padded.device)
 
     def epoch_batches(
-        self, epoch_seed: int, batch_size: int, drop_remainder: bool = True
+        self, epoch_seed: int, batch_size: int, drop_remainder: bool = True,
+        rows: slice | None = None,
     ) -> Iterator[dict]:
+        """The epoch's batches of ``batch_size`` pairs; with ``rows`` (a
+        data-parallel rank's ``parallel.mesh.shard_rows``) only those rows
+        of each batch are materialized."""
         left_pt, right_pt, perm = self._epoch_draw(epoch_seed)
         n = len(perm)
         if drop_remainder:
@@ -196,6 +200,8 @@ class PairSampler:
             take = perm[i : i + batch_size]
             if drop_remainder and len(take) < batch_size:
                 break
+            if rows is not None:
+                take = take[rows]
             lp, ld = point_batch(self.device_scene, left_pt[take], self.cfg)
             rp, rd = point_batch(self.device_scene, right_pt[take], self.cfg)
             yield {
@@ -223,11 +229,13 @@ class MultiScenePairSampler:
     def __len__(self) -> int:
         return sum(len(s) for s in self.samplers)
 
-    def epoch_batches(self, epoch_seed: int, batch_size: int):
+    def epoch_batches(self, epoch_seed: int, batch_size: int,
+                      rows: slice | None = None):
         rng = np.random.RandomState(epoch_seed)
         iters = []
         for i, s in enumerate(self.samplers):
-            it = s.epoch_batches((epoch_seed * 131 + i) % (2**32), batch_size)
+            it = s.epoch_batches((epoch_seed * 131 + i) % (2**32), batch_size,
+                                 rows=rows)
             n = len(s) // batch_size
             iters.extend([it] * n)
         rng.shuffle(iters)

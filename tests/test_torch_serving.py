@@ -522,9 +522,15 @@ def test_load_params_fresh_and_refused():
 
 
 def test_mesh_is_not_ported(scene_and_edges):
+    """A mesh needs a process group: without one ``make_mesh`` raises and
+    says how to start one (the sharded paths themselves are held by
+    tests/test_torch_sharding.py over gloo ranks)."""
+    from deepmerge_tpu_torch.parallel import make_mesh
+
     scene, _, _ = scene_and_edges
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        tdrv.process_scene(Config(model=TINY_V3), scene, mesh=object())
+    with pytest.raises(RuntimeError, match="torchrun"):
+        tdrv.process_scene(Config(model=TINY_V3), scene,
+                           mesh=make_mesh(devices="cpu"))
 
 
 # ----------------------------------------------------------------- CLI
@@ -620,8 +626,8 @@ def test_cli_needs_a_card_unless_cpu(monkeypatch, capsys):
                                   ["export-ckpt", "anything"]],
                          ids=["train", "import-ckpt", "export-ckpt"])
 def test_cli_unported_commands_say_where_they_live(argv, capsys):
-    """What the CLI does not carry yet (training is ported, its sharded
-    ``--mesh`` form is not) exits 2 and names where it lives."""
+    """What the CLI does not carry exits 2 and names where it lives; so
+    does ``--mesh`` outside torchrun, with no process group to join."""
     from deepmerge_tpu_torch.__main__ import main
 
     assert main(argv) == 2
