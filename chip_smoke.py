@@ -97,12 +97,31 @@ kernel against its plain PyTorch version on the card:
      (the sharded run on two strips and ``process_scene(mesh=...)`` gated
      the same way, each rank's strip tile and peak memory, four steps of
      the data-parallel trainer held to one device's losses, the parameters
-     equal on both ranks).
+     equal on both ranks);
+ 10. the modules ported last: K1 at the vit sides (the fused patch kernel
+     bit-exact at out 28/56/112/224 on the vit slice's caps and at a cap of
+     256, its gather at the caps above 256 and at 512, each fused slot
+     timed); the vit slice at ViT-B width (``variant="vit"``: embed 768,
+     12 blocks, 12 heads, 198 tokens, bf16) through
+     ``segment_scene_device`` (K1 launched, no other kernel: the vit's
+     blocks are plain PyTorch), timed, profiled with the attention core's
+     share of device time, held to the plain versions, then on the float
+     path (K1's gather alone); vit training (``train()``, 4 steps of 120
+     pairs, step time and peak memory, four steps held to the plain
+     versions by phase 7's bars); ``model.quantize=w8a8`` with vit warning
+     and serving the bf16 embeddings; the legacy harness (``train_mlp``,
+     ``train_gru``), one ``TripletSampler`` batch at crop 224 through
+     ``SpatiallyMemorizedNetwork`` and ``triplet_loss``, and
+     ``export_class_patches`` at window 224 read back with
+     ``load_patch_shard``, their patches bit-exact against the plain path;
+     ``python -m deepmerge_tpu_torch.eval --calibrate`` as a subprocess on
+     the card; ``utils.profiling``'s ``sync_time`` and ``rep_probe`` of one
+     K4 block beside CUDA events.
 
-``--only patches,kernels,trained,scaleout`` runs K1's fused patch check,
-phase 3, phase 8 and/or phases 8 and 9 alone (after the card, the build
-and the scene) and prints no result lines: a development run, not the
-smoke run.
+``--only patches,kernels,trained,scaleout,family`` runs K1's fused patch
+check, phase 3, phase 8, phases 8 and 9 and/or phase 10 alone (after the
+card, the build and the scene) and prints no result lines: a development
+run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -1353,12 +1372,13 @@ def check_wide_tokens(dev):
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 
 
-def profile_slice(run_slice, top=8, label="slice", ops=0):
+def profile_slice(run_slice, top=8, label="slice", ops=0, ranges=()):
     """One profiled run of the slice (or of ``label``): the device's busy
     share (kernel time over wall time) and the kernels that take the most
     device time; with ``ops``, also the PyTorch operators whose own kernels
-    take the most device time, and the matrix products' share.
-    Returns the run's result."""
+    take the most device time, and the matrix products' share; for each of
+    ``ranges`` (``record_function`` names), the device time of the kernels
+    launched inside it and its share of busy. Returns the run's result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1392,6 +1412,11 @@ def profile_slice(run_slice, top=8, label="slice", ops=0):
             ms = e.self_device_time_total / 1e3
             print(f"  {ms:8.2f} ms {ms / busy_ms:6.1%} x{e.count:<5d} "
                   f"{e.key[:60]}")
+    for name in ranges:
+        ms = sum(e.device_time_total for e in prof.key_averages()
+                 if e.key == name and e.device_type == DeviceType.CPU) / 1e3
+        print(f"  range {name}: {ms:.2f} ms of device time ({ms / busy_ms:.1%} "
+              f"of busy)")
     return out
 
 
@@ -2480,6 +2505,450 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     return runs
 
 
+# ---------------------------------------------------------------- phase 10
+
+VIT_SCALES = (28, 56, 112, 224)
+VIT_TRAIN_STEPS = 4
+TRIPLET_BATCH = 8     # triplets in the legacy batch (3 contexts each)
+TILE_POINTS = 128     # the scene's first points, exported at window 224
+TILE_SHARD = 64
+LEGACY_MIN_ACC = 0.2  # one epoch of each legacy trainer: twice chance
+
+
+def check_vit_patches(dev, scene, ds):
+    """Phase 10, K1 at the vit sides against its plain version on the card:
+    the fused patch kernel bit-exact on every slot of the vit slice's
+    points whose cap is at most 256 (out 28, 56, 112, 224; the slice's
+    chunks of 1024), and at a cap of 256 at every side; K1's gather
+    bit-exact on the slots whose cap is above 256. Each fused slot of the
+    slice's first chunk timed beside its plain version."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.ops import patches
+    from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
+    from deepmerge_tpu_torch.ops.kernels import window_gather as wg
+
+    t_phase = time.perf_counter()
+    centers = torch.as_tensor(ds.points_yx, dtype=torch.int32, device=dev)
+    c = ds.padded.shape[-1]
+
+    def fused_cases(padded, caps, inner, obj):
+        """(first chunk?, patch_resize's arguments) for every fused slot
+        and chunk of 1024 points."""
+        scales = patches.adaptive_scales(inner, obj, VIT_SCALES,
+                                         device=dev)[0]
+        pad = patches.scene_pad(caps, ds.channels)
+        return [(i == 0, (padded, centers[i : i + 1024],
+                          scales[i : i + 1024, slot], cap, out, pad,
+                          ds.channels, torch.bfloat16))
+                for slot, (cap, out) in enumerate(zip(caps, VIT_SCALES))
+                if cap <= pr.MAX_CAP
+                for i in range(0, centers.shape[0], 1024)]
+
+    caps256 = (256,) * 4
+    padded256 = patches.pad_scene_device(
+        torch.from_numpy(np.ascontiguousarray(scene.image)).to(dev),
+        patches.scene_pad(caps256, ds.channels), c)
+    cases = {"vit slice": fused_cases(ds.padded, ds.caps, ds.point_inner,
+                                      ds.point_object),
+             "cap 256": fused_cases(padded256, caps256, 2 * ds.point_inner,
+                                    2 * ds.point_object)}
+    worst = 0.0
+    for label, args in cases.items():
+        for _, a in args:
+            got = pr.patch_resize(*a, trusted_origins=True)
+            want = pr.patch_resize_ref(*a)
+            differ = int((got.float() != want.float()).sum())
+            if differ:
+                print(f"  K1 {label} out {a[4]} cap {a[3]}: {differ} of "
+                      f"{want.numel()} codes differ")
+            worst = max(worst, abs_err(got, want))
+        sides = sorted({(a[4], a[3]) for _, a in args})
+        print(f"K1 patch_resize at the vit sides, {label}: (out, cap) "
+              f"{sides}, {len(args)} launches, max |err| {worst} (tol "
+              f"{TOL_PATCHES})")
+    require(worst <= TOL_PATCHES, f"patch_resize differs from its plain "
+            f"version at the vit sides: {worst}")
+    for first, a in cases["vit slice"]:
+        if not first:
+            continue
+        plan = pr.patch_resize_plan(a[3], a[4], c)
+        ms = cuda_median_ms(lambda: pr.patch_resize(*a, trusted_origins=True))
+        plain_ms = cuda_median_ms(lambda: pr.patch_resize_ref(*a), reps=5)
+        print(f"  out {a[4]} cap {a[3]}, {a[1].shape[0]} points (tiles of "
+              f"{plan['tile_rows']} rows, {plan['tiles']} a point, the last "
+              f"{a[4] - (plan['tiles'] - 1) * plan['tile_rows']} rows): "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+    # the float path's gather on the slots whose cap is above 256, and at
+    # a cap of 512 (the slice's max_window) on every point
+    staged = [(ds.padded, ds.caps,
+               [cap for cap in ds.caps if cap > pr.MAX_CAP])]
+    caps512 = (512,) * 4
+    staged.append((patches.pad_scene_device(
+        torch.from_numpy(np.ascontiguousarray(scene.image)).to(dev),
+        patches.scene_pad(caps512, ds.channels), c), caps512, [512]))
+    worst, calls = 0.0, 0
+    for padded, caps, wide in staged:
+        scene2d = padded.reshape(padded.shape[0], -1)
+        pad = patches.scene_pad(caps, ds.channels)
+        for cap in wide:
+            rows, cols = cap + wg.ROW_ALIGN, (cap + wg.pixel_align(c)) * c
+            for s in range(0, centers.shape[0], 256):
+                starts, _, _ = wg.window_starts(centers[s : s + 256], cap,
+                                                pad, c)
+                worst = max(worst, abs_err(
+                    wg.gather_windows(scene2d, starts, rows, cols),
+                    wg.gather_windows_ref(scene2d, starts, rows, cols)))
+                calls += 1
+    print(f"K1 window_gather at the vit slice's caps above {pr.MAX_CAP} "
+          f"({staged[0][2]}) and at a cap of 512: {calls} calls, max |err| "
+          f"{worst} (tol {TOL_GATHER}); checks "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    require(worst <= TOL_GATHER, f"window gather differs at the vit caps: "
+            f"{worst}")
+
+
+def vit_training(dev, card, mcfg, scene):
+    """Phase 10, vit training: ``train()`` for ``VIT_TRAIN_STEPS`` steps of
+    ``TRAIN_PAIRS`` pairs on the slice's scene (K1 only: the vit's blocks
+    are plain PyTorch), then single steps timed with the peak memory, then
+    four steps from the same weights and batches on the plain versions,
+    held to phase 7's loss bars. Returns the training run's launches."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.compat.weights import init_state_dict
+    from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
+    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
+    from deepmerge_tpu_torch.models.s2former import training_model
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.driver import train
+    from deepmerge_tpu_torch.train.sampler import FusedPairSampler
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_vit_train_")
+    try:
+        cfg = Config(
+            model=mcfg,
+            data=DataConfig(patch_sizes=VIT_SCALES, batch_size=TRAIN_PAIRS,
+                            max_window=512),
+            train=TrainConfig(num_epochs=1, checkpoint_dir=os.path.join(
+                root, "ck"), log_dir=os.path.join(root, "logs")))
+        log = []
+        t = time.perf_counter()
+        (state, _), launches = counted(lambda: train(
+            cfg, scene=scene, max_steps_per_epoch=VIT_TRAIN_STEPS,
+            log_fn=log.append, device=dev))
+        torch.cuda.synchronize()
+        print(f"training (vit): {VIT_TRAIN_STEPS} steps of {TRAIN_PAIRS} "
+              f"pairs in {time.perf_counter() - t:.1f} s ({'; '.join(log)}); "
+              f"launches {launches}")
+        require(state.step == VIT_TRAIN_STEPS,
+                f"trained {state.step} of {VIT_TRAIN_STEPS} steps")
+        on = [k for k in ("patch_resize", "window_gather") if launches[k]]
+        require("patch_resize" in on, "patch_resize did not run in vit "
+                "training")
+        require_launches(launches, on, [k for k in launches if k not in on],
+                         "vit training")
+
+        pos, neg = make_training_pairs(scene)
+        sampler = FusedPairSampler(scene, pos, neg, cfg.data, dev)
+        epoch_fn = loop.make_scanned_epoch(cfg, sampler.device_scene)
+        arrays = sampler.epoch_arrays(12345, TRAIN_PAIRS)
+        step = lambda i: epoch_fn(state, *(a[i : i + 1] for a in arrays))
+        step(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for i in range(1, 4):
+            t = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        med = statistics.median(times)
+        print(f"training step (vit, {TRAIN_PAIRS} pairs, forward batch "
+              f"{2 * TRAIN_PAIRS}): median {med * 1e3:.1f} ms of "
+              f"{[round(x * 1e3, 1) for x in times]} ms -> "
+              f"{TRAIN_PAIRS / med:.1f} pairs/s; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on "
+              f"{card}")
+        del state
+        torch.cuda.empty_cache()
+
+        start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+        first = tuple(a[:4] for a in sampler.epoch_arrays(
+            cfg.train.seed * 100003 % 2**32, TRAIN_PAIRS))
+
+        def four_steps():
+            st = loop.create_train_state(cfg, len(sampler) // TRAIN_PAIRS,
+                                         state_dict=start_sd, device=dev)
+            return epoch_fn(st, *first)[1].cpu().numpy().astype(np.float64)
+
+        got = four_steps()
+        with plain_versions():
+            want = four_steps()
+        rel = np.abs(got - want) / np.abs(want)
+        print(f"training (vit) on the plain versions: losses "
+              f"{want.tolist()}, kernels {got.tolist()}, rel diff "
+              f"{rel.tolist()} (step 0 max {TOL_TRAIN_LOSS0}, all max "
+              f"{TOL_TRAIN_LOSS})")
+        require(np.isfinite(got).all() and rel[0] <= TOL_TRAIN_LOSS0
+                and rel.max() <= TOL_TRAIN_LOSS,
+                f"vit training losses differ from the plain versions': {rel}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def legacy_and_tiles(dev, scene):
+    """Phase 10, the legacy harness and the tiles exporter on the card:
+    ``train_mlp`` and ``train_gru`` one epoch each on ``synthetic_digits``;
+    one ``TripletSampler`` batch (crop 224), its patches bit-exact against
+    the plain path, through ``SpatiallyMemorizedNetwork``,
+    ``pool_contexts`` and ``triplet_loss``; ``export_class_patches`` of the
+    scene's first ``TILE_POINTS`` points at window 224, its shards
+    bit-exact against the plain path's and read back by
+    ``load_patch_shard``. Returns the launch counts of the triplet batch
+    and of the export."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import DataConfig
+    from deepmerge_tpu_torch.geodata import tiles
+    from deepmerge_tpu_torch.models.legacy import SpatiallyMemorizedNetwork
+    from deepmerge_tpu_torch.train.legacy_harness import train_gru, train_mlp
+    from deepmerge_tpu_torch.train.losses import triplet_loss
+    from deepmerge_tpu_torch.train.sampler import TripletSampler
+
+    quiet = lambda *_: None
+    t = time.perf_counter()
+    _, acc, losses = train_mlp(epochs=1, device=dev, log_fn=quiet)
+    mlp_s = time.perf_counter() - t
+    t = time.perf_counter()
+    _, gacc, glosses = train_gru(epochs=1, device=dev, log_fn=quiet)
+    print(f"legacy: train_mlp 1 epoch {mlp_s:.1f} s, loss {losses[0]:.4f}, "
+          f"accuracy {acc:.3f}; train_gru 1 epoch "
+          f"{time.perf_counter() - t:.1f} s, loss {glosses[0]:.4f}, "
+          f"accuracy {gacc:.3f}")
+    require(np.isfinite(losses + glosses).all(), "legacy losses")
+    require(min(acc, gacc) > LEGACY_MIN_ACC,
+            f"legacy accuracies {acc:.3f} / {gacc:.3f} after one epoch: not "
+            f"above {LEGACY_MIN_ACC} (ten classes, chance 0.1)")
+
+    sampler = TripletSampler(scene, DataConfig(max_window=512),
+                             crop_size=224, device=dev)
+    draw = lambda: next(sampler.epoch_batches(3, TRIPLET_BATCH))
+    batch, trip_launches = counted(draw)
+    with plain_versions():
+        plain = draw()
+    worst = max(abs_err(g, w) for k in batch for g, w in
+                zip(batch[k], plain[k]))
+    print(f"TripletSampler: {TRIPLET_BATCH} triplets x 3 contexts at crop "
+          f"224, cap {sampler.device_scene.caps[-1]}; launches "
+          f"{trip_launches}; patches against the plain path max |err| "
+          f"{worst} (tol {TOL_PATCHES})")
+    require(worst <= TOL_PATCHES, f"triplet patches differ: {worst}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        net = SpatiallyMemorizedNetwork().to(dev).eval()
+    with torch.inference_mode():
+        pooled = {k: net.pool_contexts(torch.stack([net(p) for p in v],
+                                                   dim=1))
+                  for k, v in batch.items()}
+        loss = triplet_loss(pooled["anchor"], pooled["positive"],
+                            pooled["negative"])
+    print(f"  SpatiallyMemorizedNetwork embeddings "
+          f"{tuple(pooled['anchor'].shape)}, triplet loss {float(loss):.5f}")
+    require(bool(torch.isfinite(loss)), "triplet loss is not finite")
+
+    pts = scene.regions.points_yx[:TILE_POINTS]
+    ids = scene.object_of_region[scene.regions.point_region[:TILE_POINTS]]
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    try:
+        export = lambda d: tiles.export_class_patches(
+            os.path.join(root, d), scene.image, pts, ids, window=224,
+            out_size=224, shard_size=TILE_SHARD, device=dev)
+        t = time.perf_counter()
+        written, tile_launches = counted(lambda: export("kernels"))
+        export_s = time.perf_counter() - t
+        with plain_versions():
+            plain_written = export("plain")
+        worst, n = 0.0, 0
+        for split, paths in written.items():
+            for a, b in zip(paths, plain_written[split]):
+                (pa, la), (pb, lb) = (tiles.load_patch_shard(a),
+                                      tiles.load_patch_shard(b))
+                require(np.array_equal(la, lb), f"{a}: labels differ")
+                worst = max(worst, float(np.abs(pa - pb).max()))
+                n += len(pa)
+        print(f"tiles: {TILE_POINTS} points at window 224 -> "
+              f"{sum(map(len, written.values()))} shards ({export_s:.1f} s, "
+              f"launches {tile_launches}); {n} patches read back, against "
+              f"the plain path max |err| {worst} (tol {TOL_PATCHES})")
+        require(n == TILE_POINTS and worst <= TOL_PATCHES,
+                f"tiles: {n} patches read back, max |err| {worst}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return trip_launches, tile_launches
+
+
+def eval_run(repo):
+    """Phase 10, ``python -m deepmerge_tpu_torch.eval --calibrate`` at its
+    smoke defaults as a subprocess on the card (its logs and checkpoints in
+    a temporary directory): exit 0 and a JSON tail that parses."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        env = dict(os.environ, PYTHONPATH=repo)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deepmerge_tpu_torch.eval", "--calibrate",
+             "--checkpoint-dir", os.path.join(root, "ck")],
+            capture_output=True, text=True, timeout=600, cwd=root, env=env)
+        wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(proc.returncode == 0, f"eval exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    tail = json.loads(proc.stdout.strip().splitlines()[-1])
+    held = [(h["seed"], h["clusters"], h["pair_disagreement"])
+            for h in tail["held_out"]]
+    print(f"eval (python -m deepmerge_tpu_torch.eval --calibrate, smoke "
+          f"defaults, {tail['device']}): exit 0 in {wall:.1f} s, trained "
+          f"{tail['epochs']} epochs in {tail['train_seconds']} s, threshold "
+          f"{tail['threshold']} (validation disagreement "
+          f"{tail['calibration']['val_disagreement']}); held out (seed, "
+          f"clusters, pair disagreement): {held}")
+
+
+def profiling_helpers(dev):
+    """Phase 10, ``utils.profiling``: ``sync_time`` and ``rep_probe`` of one
+    K4 block launch (B 1024, N 192) beside CUDA events' time of it."""
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.utils.profiling import rep_probe, sync_time
+
+    x, plist, heads = block_inputs(1024, 192, 1, dev, seed=10)
+    qp = fb.quantize_block_params(plist[0])
+    run = lambda: fb.fused_block_q8(x, qp, heads)
+    events = cuda_ms(run, reps=20)
+    wall = sync_time(run, iters=20)
+    slope = rep_probe(lambda i: run(), k=16)
+    print(f"profiling: one K4 block (B 1024, N 192): CUDA events "
+          f"{events:.3f} ms, sync_time {wall:.3f} ms, rep_probe slope "
+          f"{slope:.3f} ms")
+
+
+def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
+                 region_map):
+    """Phase 10 (see the module docstring). Returns the launch counts of
+    each of its main-path runs: the vit slice, the vit float path, vit
+    training, the triplet batch and the tiles export."""
+    import warnings
+
+    import torch
+
+    from deepmerge_tpu_torch import DataConfig, ModelConfig
+    from deepmerge_tpu_torch.compat.weights import init_state_dict
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.models.s2former import build_model
+    from deepmerge_tpu_torch.models.vit import ATTENTION_RANGE
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    t_phase = time.perf_counter()
+    r = scene.regions.num_regions
+    n_edges = int(valid.sum())
+    dcfg = DataConfig(patch_sizes=VIT_SCALES, max_window=512,
+                      eval_batch_size=1024)
+    ds = stage_scene(scene, dcfg, dev)
+    print(f"phase 10: the vit slice's caps {ds.caps} at out {VIT_SCALES}")
+    check_vit_patches(dev, scene, ds)
+
+    # the vit slice at ViT-B width: embed 768, depth sum(6, 4, 2) = 12,
+    # 12 heads, out 100, bf16
+    mcfg = ModelConfig(variant="vit", input_image_scales=VIT_SCALES)
+    t = time.perf_counter()
+    model = build_model(mcfg)
+    model.load_state_dict(init_state_dict(mcfg, seed=0), strict=True)
+    ex = FeatureExtractor(model, batch_size=dcfg.eval_batch_size, device=dev)
+    print(f"vit: {sum(p.numel() for p in model.parameters())} parameters, "
+          f"depth {len(model.blocks)}, built in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    def run_slice():
+        out = ex.segment_scene_device(
+            scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
+            device_scene=ds, region_map=region_map)
+        torch.cuda.synchronize()
+        return out
+
+    t = time.perf_counter()
+    out, launches = counted(run_slice)
+    print(f"slice (vit) launches: {launches} (first run "
+          f"{time.perf_counter() - t:.3f} s)")
+    on = ["patch_resize"] + (["window_gather"] if max(ds.caps) > 256 else [])
+    require_launches(launches, on, [k for k in launches if k not in on],
+                     "the vit slice")
+    chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
+    fused_slots = sum(cap <= 256 for cap in ds.caps)
+    require(launches["patch_resize"] == fused_slots * chunks,
+            f"patch_resize launched {launches['patch_resize']} times on the "
+            f"vit slice, want {fused_slots} a chunk of {chunks}")
+    _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                         scene.labels.shape)
+    print(f"slice (vit): {k} clusters after {n_rounds} rounds")
+    time_slice(run_slice, "vit", card)
+    profile_slice(run_slice, label="slice (vit)", ops=8,
+                  ranges=(ATTENTION_RANGE,))
+    embed = lambda: ex.extract_scene_device(scene, dcfg, device_scene=ds)
+    against_plain(run_slice, embed, out, valid, "vit")
+    emb_bf16 = embed()
+    # the float path (data.quantize_uint8=False): every slot through K1's
+    # gather and the float32 products
+    fcfg = dataclasses.replace(dcfg, quantize_uint8=False)
+    emb_f, f_launches = counted(lambda: ex.extract_scene_device(
+        scene, fcfg, device_scene=ds))
+    print(f"vit float path (data.quantize_uint8=False) launches: "
+          f"{f_launches}")
+    require(emb_f.shape == emb_bf16.shape and bool(torch.isfinite(emb_f)
+                                                   .all()),
+            f"vit float path embeddings {tuple(emb_f.shape)}")
+    require_launches(f_launches, ("window_gather",),
+                     [k for k in f_launches if k != "window_gather"],
+                     "the vit float path")
+    del ex, model, emb_f
+    torch.cuda.empty_cache()
+    runs = [launches, f_launches]
+
+    runs.append(vit_training(dev, card, mcfg, scene))
+    # model.quantize is a no-op for vit: the config warns, the model
+    # serves bf16 through no w8a8 kernel
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        qcfg = ModelConfig(variant="vit", input_image_scales=VIT_SCALES,
+                           quantize="w8a8")
+    require(any("quantize is a no-op" in str(w.message) for w in caught),
+            "model.quantize=w8a8 with vit did not warn")
+    qmodel = build_model(qcfg)
+    qmodel.load_state_dict(init_state_dict(qcfg, seed=0), strict=True)
+    qex = FeatureExtractor(qmodel, batch_size=dcfg.eval_batch_size,
+                           device=dev)
+    emb_q, q_launches = counted(lambda: qex.extract_scene_device(
+        scene, dcfg, device_scene=ds))
+    require(torch.equal(emb_q, emb_bf16), "vit with model.quantize=w8a8 "
+            "must serve the bf16 embeddings")
+    require_launches(q_launches, (), [k for k in q_launches if "q8" in k],
+                     "vit with model.quantize=w8a8")
+    print("vit with model.quantize=w8a8: warned, and served the bf16 "
+          "embeddings bit for bit through no w8a8 kernel")
+    del qex, qmodel, emb_bf16
+
+    runs.extend(legacy_and_tiles(dev, scene))
+    eval_run(repo)
+    profiling_helpers(dev)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -2496,14 +2965,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    # development runs: ``--only patches,kernels,trained`` runs those phases
-    # alone (after the card, the build and the scene; patches: K1's fused
-    # patch kernel, a part of phase 3) and prints no result lines
+    # development runs: ``--only patches,kernels,trained,scaleout,family``
+    # runs those phases alone (after the card, the build and the scene;
+    # patches: K1's fused patch kernel, a part of phase 3; family: phase 10)
+    # and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"patches", "kernels", "trained", "scaleout"},
-                f"unknown phases {only}")
+        require(only <= {"patches", "kernels", "trained", "scaleout",
+                         "family"}, f"unknown phases {only}")
 
     import warnings
 
@@ -2588,6 +3058,9 @@ def main() -> int:
                 scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
                                 region_map, trained, thr,
                                 export_folder(walk_root, SERVE_SCENES))
+        if "family" in only:
+            family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
+                         region_map)
         print(f"partial run ({','.join(sorted(only))}) in "
               f"{time.perf_counter() - t_start:.1f} s: no result lines")
         return 0
@@ -2840,6 +3313,14 @@ def main() -> int:
                                          walk))
     finally:
         shutil.rmtree(walk_root, ignore_errors=True)
+    # 10. the modules of PR 10's slice: vit, legacy, tiles, eval, profiling
+    family_runs = family_phase(dev, card, repo, scene, edges_d, valid_d,
+                               valid, region_map)
+    path_runs.extend(family_runs)
+    # K1's counts in the kernels line add phase 10's vit slice (fused
+    # patch kernel and gather) to the bf16 slice's and the float path's
+    for k in ("patch_resize", "window_gather"):
+        all_launches[k] += family_runs[0][k]
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)

@@ -1,10 +1,12 @@
-"""Weights for the port's S2Former (v1–v6).
+"""Weights for the port's backbones: S2Former v1–v6 and the ViT backbone
+(``variant="vit"``).
 
 ``state_dict_from_flax`` maps the JAX package's parameter tree (nested dicts
 of numpy arrays, e.g. ``jax.tree.map(np.asarray, variables["params"])``)
 and, for v4 and v5, its BatchNorm ``batch_stats`` onto the port's
 ``state_dict`` — the reference layout that
-``deepmerge_tpu/compat/torch_export.py`` writes, rewritten without JAX.
+``deepmerge_tpu/compat/torch_export.py`` writes (for vit the reference
+``vit_model.py``'s), rewritten without JAX.
 ``init_state_dict`` makes weights of the same layout from a numpy seed, for
 runs with no JAX at hand. ``load_reference_checkpoint`` reads a reference
 ``.pth``, and ``act_amax_from_flax`` carries the JAX package's calibrated
@@ -19,10 +21,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from deepmerge_tpu_torch.compat.vit_import import vit_state_dict_from_flax
 from deepmerge_tpu_torch.config import ModelConfig
 from deepmerge_tpu_torch.models.s2former import (
-    S2Former,
     bias_index,
+    build_model,
     check_supported,
 )
 
@@ -55,9 +58,12 @@ def state_dict_from_flax(params: Mapping, mcfg: ModelConfig,
     ``num_batches_tracked`` is 0; layers the flax tree lacks (constructed
     but never called: an output projection, the class head, v5's aux
     LayerNorm) become zeros, or ones for a LayerNorm scale; every block gets
-    its ``relative_position_index`` buffer.
+    its ``relative_position_index`` buffer. For vit, the ViT tree under
+    ``"vit"`` through ``vit_state_dict_from_flax``.
     """
     check_supported(mcfg)
+    if mcfg.variant == "vit":
+        return vit_state_dict_from_flax(params["vit"], mcfg.in_channels)
     sd: dict[str, np.ndarray] = {}
     d, n = mcfg.embed_dim, mcfg.n_scales
 
@@ -167,18 +173,19 @@ def _called_heads(mcfg: ModelConfig) -> tuple[str, ...]:
 
 def init_state_dict(mcfg: ModelConfig, seed: int = 0
                     ) -> dict[str, torch.Tensor]:
-    """Random weights of the port's layout: weight matrices, convolutions
-    and bias tables truncated normal (std 0.02, cut at ±2 std), biases
-    zero, LayerNorm and BatchNorm scales one, BatchNorm running statistics
-    flax's initial zeros and ones. The projections and the head the model
-    never calls stay zero, as in an exported checkpoint. Each tensor draws
+    """Random weights of the port's layout: weight matrices, convolutions,
+    bias tables, tokens and position embeddings truncated normal (std 0.02,
+    cut at ±2 std), biases zero, LayerNorm and BatchNorm scales one,
+    BatchNorm running statistics flax's initial zeros and ones. The
+    projections and the head the model never calls stay zero, as in an
+    exported checkpoint. Each tensor draws
     from a numpy generator seeded by (``seed``, its name), so its values do
     not depend on the order or the presence of other modules."""
     heads = ("final_features", "final_features_with_design",
              "last_block_features", "head")
     called = _called_heads(mcfg)
     sd = {}
-    for key, t in S2Former(mcfg).state_dict().items():
+    for key, t in build_model(mcfg).state_dict().items():
         module = key.rsplit(".", 1)[0]
         if key.endswith("relative_position_index"):
             sd[key] = t
@@ -213,15 +220,58 @@ def act_amax_from_flax(batch_stats: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_reference_checkpoint(path: str, mcfg: ModelConfig) -> S2Former:
-    """A port ``S2Former`` for ``mcfg`` with the weights (and, for v4 and
-    v5, the BatchNorm buffers) of a reference ``.pth``: the training dict
-    ``{"net": state_dict, ...}`` or a bare state_dict, loaded with
-    ``strict=True``."""
+def load_reference_checkpoint(path: str, mcfg: ModelConfig) -> torch.nn.Module:
+    """The port's model for ``mcfg`` (``build_model``) with the weights
+    (and, for v4 and v5, the BatchNorm buffers) of a reference ``.pth``: the
+    training dict ``{"net": state_dict, ...}`` or a bare state_dict, loaded
+    with ``strict=True``."""
     raw = torch.load(path, map_location="cpu", weights_only=False)
     state_dict = raw.get("net", raw) if isinstance(raw, dict) else raw
     if hasattr(state_dict, "state_dict"):  # a whole pickled nn.Module
         state_dict = state_dict.state_dict()
-    model = S2Former(mcfg)
+    model = build_model(mcfg)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def legacy_state_dict_from_flax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of a legacy net (``models/legacy.py``) from
+    the JAX package's parameter tree: ``MLP`` (``fc1``..``fc3``),
+    ``GRUAttention`` (``GRUCell_{2l}`` / ``GRUCell_{2l+1}``, layer l's
+    forward and backward cells, into ``nn.GRU``'s ``*_l{l}`` and
+    ``*_l{l}_reverse``: gates stacked r, z, n; ``bias_hh`` (0, 0, b_hn), as
+    flax's r and z hidden denses have no bias) or
+    ``SpatiallyMemorizedNetwork`` (HWIO convolutions to OIHW)."""
+    sd: dict[str, np.ndarray] = {}
+
+    def linear(key, node):
+        sd[key + ".weight"] = _f32(node["kernel"]).T
+        sd[key + ".bias"] = _f32(node["bias"])
+
+    def conv(key, node):
+        sd[key + ".weight"] = _f32(node["kernel"]).transpose(3, 2, 0, 1)
+        sd[key + ".bias"] = _f32(node["bias"])
+
+    cells = sorted((k for k in params if k.startswith("GRUCell_")),
+                   key=lambda k: int(k.split("_")[1]))
+    for i, key in enumerate(cells):
+        c = params[key]
+        t = f"rnn.%s_l{i // 2}" + ("_reverse" if i % 2 else "")
+        sd[t % "weight_ih"] = np.concatenate(
+            [_f32(c[g]["kernel"]).T for g in ("ir", "iz", "in")])
+        sd[t % "weight_hh"] = np.concatenate(
+            [_f32(c[g]["kernel"]).T for g in ("hr", "hz", "hn")])
+        sd[t % "bias_ih"] = np.concatenate(
+            [_f32(c[g]["bias"]) for g in ("ir", "iz", "in")])
+        b_hn = _f32(c["hn"]["bias"])
+        sd[t % "bias_hh"] = np.concatenate(
+            [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    for name in ("fc1", "fc2", "fc3", "out", "reduce"):
+        if name in params:
+            linear(name, params[name])
+    if "vgg16" in params:
+        for name, node in params["vgg16"].items():
+            conv(f"vgg16.{name}", node)
+        for name, node in params["nonlocal"].items():
+            conv(f"nonlocal.{name}", node)
+    return _tensors(sd)

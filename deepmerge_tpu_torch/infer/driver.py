@@ -43,16 +43,16 @@ from deepmerge_tpu_torch.infer.scoring import score_scene_edges
 from deepmerge_tpu_torch.utils.device import resolve_device
 
 def load_params(cfg: Config, checkpoint_path: Optional[str] = None):
-    """A port ``S2Former`` for ``cfg.model``: the weights of a reference
-    ``.pth``, or fresh random ones from seed 0 when no checkpoint is given
-    (with a warning). A ``.msgpack`` or orbax checkpoint of the JAX
-    package is converted first with ``python -m deepmerge_tpu
-    export-ckpt``."""
+    """The port's model for ``cfg.model`` (``build_model``): the weights of
+    a reference ``.pth``, or fresh random ones from seed 0 when no
+    checkpoint is given (with a warning). A ``.msgpack`` or orbax
+    checkpoint of the JAX package is converted first with ``python -m
+    deepmerge_tpu export-ckpt``."""
     from deepmerge_tpu_torch.compat.weights import (
         init_state_dict,
         load_reference_checkpoint,
     )
-    from deepmerge_tpu_torch.models.s2former import S2Former
+    from deepmerge_tpu_torch.models.s2former import build_model
 
     if not checkpoint_path:
         warnings.warn(
@@ -60,7 +60,7 @@ def load_params(cfg: Config, checkpoint_path: Optional[str] = None):
             "parameters (embeddings will be untrained)",
             stacklevel=2,
         )
-        model = S2Former(cfg.model)
+        model = build_model(cfg.model)
         model.load_state_dict(init_state_dict(cfg.model, seed=0), strict=True)
         return model
     if checkpoint_path.endswith(".pth"):
@@ -142,7 +142,7 @@ def process_scene(
     (a ``FeatureStore``: the reference's per-scene .h5, or in memory) the
     embeddings are also appended there and the store closed, and with
     ``lines_path`` the distances go into lines.shp's ``simi`` field.
-    ``model`` is a port ``S2Former`` (default: ``load_params(cfg)``);
+    ``model`` is a port backbone (default: ``load_params(cfg)``);
     ``extractor`` lets a walk reuse one ``FeatureExtractor`` (its
     ``device`` then wins over ``device``). ``stream_tiles`` extracts
     through N column strips (``extract_scene_streamed``), with the same

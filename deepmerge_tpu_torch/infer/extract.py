@@ -183,7 +183,8 @@ def _trusted(ds: DeviceScene) -> bool:
 
 
 class FeatureExtractor:
-    """Embeds every sample point of a scene with a port ``S2Former``.
+    """Embeds every sample point of a scene with a port backbone
+    (``models.s2former.build_model``: S2Former, or the ViT backbone).
 
     The constructor moves the model to ``device`` (the card unless the
     caller asks for the CPU; without a card that raises), casts its float
@@ -296,9 +297,11 @@ class FeatureExtractor:
 
     @property
     def needs_calibration(self) -> bool:
-        """True while a ``w8a8-static`` model has no activation scales."""
+        """True while a ``w8a8-static`` model has no activation scales (a
+        backbone without static blocks, as vit's, never does)."""
         m = self.model
-        return bool(m._static_blocks()) and not m.act_amax_calibrated
+        return (bool(getattr(m, "_static_blocks", list)())
+                and not m.act_amax_calibrated)
 
     @torch.inference_mode()
     def _maybe_calibrate(self, padded, caps, quantize_uint8, trusted,

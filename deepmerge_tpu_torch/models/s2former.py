@@ -127,18 +127,29 @@ def bias_index(cube: Sequence[int], extra_token: bool = False
     return rel_pos_index(cube), (2 * c - 1) * (2 * h - 1) * (2 * w - 1)
 
 
+VIT_SCALES = (28, 56, 112, 224)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configurations the port cannot build: ``NotImplementedError``
-    for what it has not ported yet (each names its ROADMAP.md item),
-    ``ValueError`` for what the JAX package's ``build_model`` refuses."""
+    """Raise for configurations the port cannot build: ``ValueError`` for
+    what the JAX package's ``build_model`` refuses, ``NotImplementedError``
+    for what it has not ported yet (naming its ROADMAP.md item)."""
     if cfg.variant == "vit":
-        raise NotImplementedError(
-            "variant 'vit' (the ScaleEmbedTransformer) is not ported yet "
-            "(ROADMAP.md queue A: vit, with compat/vit_import.py)"
-        )
+        if tuple(cfg.input_image_scales) != VIT_SCALES:
+            raise ValueError(
+                "variant='vit' uses the ScaleEmbedTransformer's FIXED "
+                "patch-embed sizes: set model.input_image_scales=28,56,112,"
+                "224 (and data.patch_sizes to match) — got "
+                f"{tuple(cfg.input_image_scales)} (vit_model.py:359-362)"
+            )
+        return
     if cfg.variant not in KNOWN_VARIANTS:
-        raise ValueError(f"unknown model.variant {cfg.variant!r} (known: "
-                         f"{sorted(KNOWN_VARIANTS)})")
+        raise ValueError(
+            f"unknown model.variant {cfg.variant!r} "
+            f"(known: {sorted(KNOWN_VARIANTS)}) — when adding a variant, "
+            "also add it to config.CROSS_SCALE_BLOCK_VARIANTS if its "
+            "backbone uses CrossScaleBlocks (megakernel/quantize eligibility)"
+        )
     if cfg.variant == "v1" and cfg.n_scales != 4:
         raise ValueError(f"v1 uses 4 fixed scales, got "
                          f"{cfg.input_image_scales}")
@@ -180,16 +191,17 @@ def _dense(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     """Linear layer in x's dtype, rounding the product before the bias add
     as the JAX package's ``nn.Dense`` does."""
     w = layer.weight.reshape(layer.weight.shape[0], -1)
-    return torch.matmul(x, w.to(x.dtype).t()) + layer.bias.to(x.dtype)
+    y = torch.matmul(x, w.to(x.dtype).t())
+    return y if layer.bias is None else y + layer.bias.to(x.dtype)
 
 
 def _flax_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     """flax ``nn.LayerNorm`` numerics: f32 statistics with the fast variance
-    E[x²] − E[x]² (clipped at 0), result in x's dtype."""
+    E[x²] − E[x]² (clipped at 0), ``norm.eps``, result in x's dtype."""
     xf = x.to(torch.float32)
     mu = xf.mean(-1, keepdim=True)
     var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    mul = torch.rsqrt(var + LN_EPS) * norm.weight.to(torch.float32)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight.to(torch.float32)
     return ((xf - mu) * mul + norm.bias.to(torch.float32)).to(x.dtype)
 
 
@@ -477,6 +489,9 @@ class S2Former(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         check_supported(cfg)
+        if cfg.variant == "vit":
+            raise ValueError("variant 'vit' is the ScaleEmbedTransformer, not "
+                             "an S2Former: build it with build_model")
         self.cfg = cfg
         v, n, g, dim = cfg.variant, cfg.n_scales, cfg.cube, cfg.embed_dim
         self.dtype = getattr(torch, cfg.dtype)
@@ -661,3 +676,21 @@ class S2Former(nn.Module):
         else:
             out = _dense(pooled, self.final_features)
         return (out, aux0, aux1) if aux else out
+
+    def classify(self, embedding: torch.Tensor) -> torch.Tensor:
+        """The optional class head over the embedding (the reference's
+        ``head``)."""
+        return _dense(embedding, self.head)
+
+
+def build_model(cfg: ModelConfig) -> nn.Module:
+    """The backbone of ``cfg``, the one place the port builds a model:
+    S2Former v1–v6, or the ScaleEmbedTransformer through its pipeline
+    adapter (``models/vit.ScaleEmbedBackbone``) for ``variant="vit"``.
+    Raises ``ValueError`` as the JAX package's ``build_model`` does."""
+    check_supported(cfg)
+    if cfg.variant == "vit":
+        from deepmerge_tpu_torch.models.vit import ScaleEmbedBackbone
+
+        return ScaleEmbedBackbone(cfg)
+    return S2Former(cfg)

@@ -61,3 +61,49 @@ def resize_weights(out_size: int, cap: int, scale: torch.Tensor,
 
     w = torch.where(r >= 1.0, w_down, w_up)
     return torch.where(in_window, w, zero)
+
+
+def _apply_resize(x: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor,
+                  quantize_uint8: bool) -> torch.Tensor:
+    """``wr @ x @ wc^T`` over an (H, W, C) image in float32 (TF32 off, as
+    the JAX package's ``Precision.HIGHEST``), rounded as cv2 rounds uint8
+    when asked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x = torch.einsum("oi,ijc->ojc", wr, x.to(torch.float32))
+    x = torch.einsum("pj,ojc->opc", wc, x)
+    return torch.floor(x + 0.5) if quantize_uint8 else x
+
+
+def crop_resize(window: torch.Tensor, scale, offset_y, offset_x,
+                out_size: int, quantize_uint8: bool = True) -> torch.Tensor:
+    """Crop the adaptive sub-window of one (cap, cap, C) window of raw pixel
+    values and resize it to (out_size, out_size, C) with cv2 INTER_AREA;
+    float32 in [0, 1].
+
+    ``scale`` is the adaptive window side, ``offset_y`` / ``offset_x`` where
+    it starts inside ``window`` per axis. The two products take float32
+    weights on both axes (not the exact patch path's bf16-rounded row
+    weights). ``quantize_uint8`` emulates the reference's cv2-on-uint8
+    rounding (``MyUtils1.py:207`` resizes the uint8 buffer, then ``/255``).
+    """
+    dev = window.device
+    as1 = lambda v: torch.as_tensor(v, device=dev).reshape(1)
+    wr = resize_weights(out_size, window.shape[0], as1(scale),
+                        as1(offset_y))[0]
+    wc = resize_weights(out_size, window.shape[1], as1(scale),
+                        as1(offset_x))[0]
+    return _apply_resize(window, wr, wc, quantize_uint8) / 255.0
+
+
+def area_resize(image: torch.Tensor, out_size: int,
+                quantize_uint8: bool = False) -> torch.Tensor:
+    """Whole-image cv2 INTER_AREA resize (no crop): (H, W, C) →
+    (out_size, out_size, C) float32, in the input's value range."""
+    h, w = image.shape[0], image.shape[1]
+    dev = image.device
+    full = lambda n: torch.tensor([n], dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    wr = resize_weights(out_size, h, full(h), zero)[0]
+    wc = resize_weights(out_size, w, full(w), zero)[0]
+    return _apply_resize(image, wr, wc, quantize_uint8)

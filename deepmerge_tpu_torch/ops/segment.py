@@ -55,3 +55,11 @@ def edge_distances(region_embeddings: torch.Tensor, edges: torch.Tensor,
     if valid is not None:
         d = torch.where(valid.bool(), d, torch.full_like(d, float("inf")))
     return d
+
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Dense squared Euclidean distance matrix (N, M), clamped at 0."""
+    x2 = torch.sum(x * x, dim=1)[:, None]
+    y2 = torch.sum(y * y, dim=1)[None, :]
+    xy = torch.matmul(x.to(torch.float32), y.to(torch.float32).t())
+    return torch.clamp(x2 + y2 - 2.0 * xy, min=0.0)

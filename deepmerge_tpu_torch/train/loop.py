@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from deepmerge_tpu_torch.config import Config
-from deepmerge_tpu_torch.models.s2former import S2Former, training_model
+from deepmerge_tpu_torch.models.s2former import build_model, training_model
 from deepmerge_tpu_torch.ops.patches import extract_multiscale_patches
 from deepmerge_tpu_torch.parallel.mesh import BatchShard, Mesh, all_reduce_
 from deepmerge_tpu_torch.train.losses import contrastive_pair_loss
@@ -59,7 +59,7 @@ class TrainState:
     learning-rate schedule over that count, and the generator of the
     dropout masks (reseeded every step from ``seed`` and the count)."""
 
-    model: S2Former
+    model: torch.nn.Module
     optimizer: torch.optim.Adam
     step: int
     lr: Callable[[int], float]
@@ -101,7 +101,7 @@ def create_train_state(cfg: Config, steps_per_epoch: int = 1,
 
     device = resolve_device(device)
     mcfg = training_model(cfg)
-    model = S2Former(mcfg)
+    model = build_model(mcfg)
     if state_dict is None:
         state_dict = init_state_dict(mcfg, seed=cfg.train.seed)
     model.load_state_dict(state_dict, strict=True)
@@ -250,7 +250,7 @@ def make_scanned_epoch(cfg: Config, device_scene):
     return epoch_fn
 
 
-def make_eval_step(model: S2Former):
+def make_eval_step(model: torch.nn.Module):
     """Single-branch embedding forward (the inference path)."""
 
     @torch.inference_mode()

@@ -14,10 +14,9 @@ Reference semantics reproduced (``MyUtils1.py:18-323``):
   * designed vector = 15 region attributes + 4 adaptive scale factors
     (``MyUtils1.py:76``);
   * only the 3 patch slots the v3 model consumes are materialized, all 4
-    factors are kept.
+    factors are kept (the vit backbone's four slots are all real).
 
-``TripletSampler`` waits for the legacy harness (ROADMAP.md, other
-backbones).
+``TripletSampler`` draws the legacy triplet batches of 3-context crops.
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ from deepmerge_tpu_torch.ops.patches import (
     staged_channels,
     staging_caps,
 )
+from deepmerge_tpu_torch.utils.device import resolve_device
 
 
 @dataclass
@@ -214,6 +214,124 @@ class PairSampler:
 
     def __len__(self) -> int:
         return len(self.pairs)
+
+
+class TripletSampler:
+    """Anchor/positive/negative triplet batches of 3-context crops, the
+    scene staged on ``device`` (the card unless the caller asks for the
+    CPU).
+
+    Device-side equivalent of the legacy triplet dataset
+    (``MyUtils.py:23-268``): each drawn point yields (inner, object, scene)
+    context crops — window sides inner, object and 2·object − inner — all
+    resized to ``crop_size`` through the last slot's window cap; anchors
+    and positives share a ground object, negatives differ
+    (``GenerateTrainDataset.py:39-68`` sampling). Draws follow the JAX
+    package's ``RandomState`` order, so the indices are its indices."""
+
+    def __init__(self, scene: Scene, cfg: DataConfig, crop_size: int = 224,
+                 device: torch.device | str = "cuda"):
+        if scene.object_of_region is None:
+            raise ValueError(f"scene '{scene.name}' has no object_of_region: "
+                             "triplets need ground objects")
+        self.scene = scene
+        self.cfg = cfg
+        self.crop_size = crop_size
+        self.device_scene = stage_scene(scene, cfg, resolve_device(device))
+        self.point_object = scene.object_of_region[scene.regions.point_region]
+
+    def _context_patches(self, point_idx: np.ndarray):
+        """(inner, object, scene) crops of the points, each (P, s, s, C)."""
+        ds = self.device_scene
+        dev = ds.padded.device
+        inner = ds.point_inner[point_idx].astype(np.int64)
+        obj = ds.point_object[point_idx].astype(np.int64)
+        scales = np.stack([inner, obj, 2 * obj - inner], 1).astype(np.int32)
+        return extract_multiscale_patches(
+            ds.padded,
+            torch.as_tensor(ds.points_yx[point_idx], device=dev),
+            torch.as_tensor(scales, device=dev),
+            patch_sizes=(self.crop_size,) * 3,
+            caps=ds.caps[-1],
+            chunk=min(256, max(len(point_idx), 8)),
+            out_channels=ds.channels,
+            quantize_uint8=self.cfg.quantize_uint8,
+        )
+
+    def epoch_batches(self, epoch_seed: int, batch_size: int):
+        """``len(points) // batch_size`` (at least one) batches of
+        ``{"anchor", "positive", "negative"}`` context crops; none when the
+        scene has fewer than two objects."""
+        rng = np.random.RandomState(epoch_seed)
+        objs = self.point_object
+        classes = np.unique(objs)
+        if len(classes) < 2:
+            return
+        by_class = {c: np.where(objs == c)[0] for c in classes}
+        n = len(objs)
+        for _ in range(max(n // batch_size, 1)):
+            anchors, positives, negatives = [], [], []
+            for _ in range(batch_size):
+                c_pos, c_neg = rng.choice(classes, 2, replace=False)
+                pool = by_class[c_pos]
+                anchors.append(pool[rng.randint(len(pool))])
+                positives.append(pool[rng.randint(len(pool))])
+                negatives.append(
+                    by_class[c_neg][rng.randint(len(by_class[c_neg]))])
+            yield {
+                "anchor": self._context_patches(np.asarray(anchors)),
+                "positive": self._context_patches(np.asarray(positives)),
+                "negative": self._context_patches(np.asarray(negatives)),
+            }
+
+    # -- test mode (reference GenerateTestDataset) --------------------------
+
+    def _stacked_contexts(self, point_idx: np.ndarray, pad_to: int | None):
+        """(P, 3, s, s, C) tensor of the points' 3-context crops and the
+        true point count; ``pad_to`` repeats the last point up to a fixed
+        count (one shape for every call, as in the JAX package)."""
+        point_idx = np.asarray(point_idx, np.int64)
+        real = len(point_idx)
+        if pad_to is not None:
+            if real > pad_to:
+                raise ValueError(f"{real} points > pad_to={pad_to}")
+            if real < pad_to:
+                point_idx = np.concatenate(
+                    [point_idx, np.full(pad_to - real, point_idx[-1])]
+                )
+        return torch.stack(self._context_patches(point_idx), dim=1), real
+
+    def test_object(self, region_index: int, pad_to: int | None = None):
+        """Per-object and per-neighbor 3-context point stacks (reference
+        ``GenerateTestDataset``, ``MyUtils.py:110-196``): the (P, 3, s, s,
+        C) stack of the region's sample points (NHWC, the reference's is
+        (P, 3, C, H, W)) and one for each RAG neighbor with points. Returns
+        ``(object_stack, neighbor_stacks, region_index, neighbor_ids)``,
+        and with ``pad_to`` the stacks fixed at ``pad_to`` points and the
+        true counts (object first) as a fifth item."""
+        pr = self.scene.regions.point_region
+        edges = np.asarray(self.scene.rag.edges)
+        neighbors = sorted(
+            set(edges[edges[:, 0] == region_index, 1].tolist())
+            | set(edges[edges[:, 1] == region_index, 0].tolist())
+        )
+        obj_pts = np.where(pr == region_index)[0]
+        if len(obj_pts) == 0:
+            raise ValueError(f"region {region_index} has no sample points")
+        object_stack, n_obj = self._stacked_contexts(obj_pts, pad_to)
+        neighbor_stacks, counts, kept = [], [n_obj], []
+        for k in neighbors:
+            pts = np.where(pr == k)[0]
+            if len(pts) == 0:
+                continue  # a point-less neighbor drops its id too
+            stack, n = self._stacked_contexts(pts, pad_to)
+            neighbor_stacks.append(stack)
+            counts.append(n)
+            kept.append(k)
+        if pad_to is not None:
+            return (object_stack, neighbor_stacks, region_index, kept,
+                    np.asarray(counts, np.int32))
+        return object_stack, neighbor_stacks, region_index, kept
 
 
 class MultiScenePairSampler:

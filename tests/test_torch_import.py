@@ -49,6 +49,12 @@ def test_port_imports_without_jax():
                  "deepmerge_tpu_torch.geodata.ingest",
                  "deepmerge_tpu_torch.native.unionfind",
                  "deepmerge_tpu_torch.utils.parity",
+                 "deepmerge_tpu_torch.models.vit",
+                 "deepmerge_tpu_torch.models.legacy",
+                 "deepmerge_tpu_torch.compat.vit_import",
+                 "deepmerge_tpu_torch.geodata.tiles",
+                 "deepmerge_tpu_torch.train.legacy_harness",
+                 "deepmerge_tpu_torch.eval",
                  "deepmerge_tpu_torch.__main__"):
         assert name in seen["modules"]
     assert len(seen["modules"]) >= 35

@@ -155,9 +155,19 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
     dict(chain_stage0=True),
 ])
 def test_unported_configs_raise(change):
-    """What the port cannot run yet raises and names its ROADMAP item."""
+    """What the port cannot build raises: the vit at scales other than its
+    fixed 28/56/112/224 (the JAX package's ``ValueError``, from
+    ``build_model`` as from ``S2Former``), and what the port has not ported
+    yet names its ROADMAP item."""
+    from deepmerge_tpu_torch.models.s2former import build_model
+
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the experimental-config warning
         mcfg = dataclasses.replace(TINY_V3, **change)
+    if mcfg.variant == "vit":
+        for build in (build_model, S2Former):
+            with pytest.raises(ValueError, match="28,56,112"):
+                build(mcfg)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         S2Former(mcfg)

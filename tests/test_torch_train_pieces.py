@@ -227,14 +227,15 @@ def test_training_model_rules():
         assert training_model(k5) == dataclasses.replace(
             cfg.model, fused_block=True, fused_stage_chain=False)
     # dropout, drop path and the unfused attention train (off the block
-    # kernels, as the JAX package trains them); an unported variant raises
+    # kernels, as the JAX package trains them); a vit at other than its
+    # fixed scales raises as the JAX package's build_model does
     for change in (dict(drop_ratio=0.1), dict(attn_drop_ratio=0.1),
                    dict(drop_path_ratio=0.1), dict(fused_attention=False)):
         ok = cfg.replace(model=dataclasses.replace(cfg.model, **change))
         assert training_model(ok) == dataclasses.replace(
             ok.model, fused_block=False, fused_stage_chain=False)
     bad = cfg.replace(model=dataclasses.replace(cfg.model, variant="vit"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="28,56,112"):
         training_model(bad)
     # the inference model (stage chain on) refuses a training forward:
     # training runs the model of training_model
