@@ -32,7 +32,14 @@ kernel against its plain PyTorch version on the card:
      each slice slot timed (median of 20 launches) beside its plain version
      and the unfused stage it replaced (K1's gather and two float32
      products); K1's gather, which the float path keeps, bit-exact and
-     timed with trusted origins;
+     timed with trusted origins; K9, the label-map lookup that expands
+     every slice's merged map, bit-exact on the slice's 1024² map (R 2048)
+     and a random 2048² one (R 8192), ids out of range included, timed by
+     device time beside ``dense[map.long()]``; K10, the int4 dot probe,
+     each variant (s8 x s8, s4 x s4, s8 x widened s4) bit-exact at M 4096,
+     K 768, N 3072, its TOP/s beside ``torch._int_mm`` and K4's s8 GEMM
+     (a refusal of the s4 ``mma`` by ptxas would be printed as the
+     probe's answer);
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -86,7 +93,10 @@ kernel against its plain PyTorch version on the card:
      threshold calibrated on a second scene, then the v3 bf16, w8a8 and
      w8a8+attn slices at that threshold on the kernels and on the plain
      versions, the merged maps' label disagreement gated at BASELINE.md's
-     0.5%;
+     0.5%; the same for the first walk scene (2048², 8192 regions, w8a8)
+     through ``process_scene`` and through ``segment_scene_device`` with
+     its region map (K9 at 2048²), and for v5, trained and calibrated the
+     same way, in a w8a8 slice;
   9. scale-out, on those trained weights and that threshold, the flagship
      in w8a8: world size 1 on NCCL in this process
      (``extract_and_merge_sharded``, ``process_scene(mesh=...)``, and
@@ -97,7 +107,12 @@ kernel against its plain PyTorch version on the card:
      (the sharded run on two strips and ``process_scene(mesh=...)`` gated
      the same way, each rank's strip tile and peak memory, four steps of
      the data-parallel trainer held to one device's losses, the parameters
-     equal on both ranks);
+     equal on both ranks); then tensor parallelism, two ranks on the one
+     card over gloo (n_model 2: the flagship's 12 heads, 6 of width 64 a
+     rank, through K7 and in training K6): the slice's embeddings held to
+     the single-device plain forward (RMS error, first-round decisions at
+     phase 8's threshold), two training steps held to one device's losses,
+     the replicated parameters equal on both ranks;
  10. the modules ported last: K1 at the vit sides (the fused patch kernel
      bit-exact at out 28/56/112/224 on the vit slice's caps and at a cap of
      256, its gather at the caps above 256 and at 512, each fused slot
@@ -340,6 +355,28 @@ def cuda_median_ms(fn, reps=20):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(start.elapsed_time(end) for start, end in events)
+
+
+def kernel_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the time of the CUDA kernels it
+    launches, under the profiler over ``reps`` calls after one warm-up,
+    over ``reps``. Unlike ``cuda_ms``, no host gap between launches counts:
+    for a kernel of a few microseconds the host's launch path is longer
+    than the kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and not e.is_user_annotation)
+    return us / 1e3 / reps
 
 
 def rel_err(got, want):
@@ -936,6 +973,135 @@ def check_k4a_core(dev):
     return results
 
 
+def check_label_lookup(dev, scene):
+    """Phase 3: K9, the label-map relabel lookup, bit-exact against its
+    plain version on the slice's own 1024² map (R 2048, the slices' region
+    bucket) and on a random 2048² map into R 8192 (the walk's scenes; the
+    TPU probe's input), with ids out of range on a copy of the first;
+    timed beside its plain version, the PyTorch call the port ran before
+    it (``dense[region_map.long()]``, the cast included) and its bound (8
+    bytes a pixel and the table, over the memory rate), each by the device
+    time of its kernels (``kernel_ms``). Returns the 1024² numbers (the
+    slices' shape)."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import label_lookup as ll
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases = (("slice map 1024², R 2048", 2048,
+              torch.from_numpy(scene.labels.astype("int32")).to(dev)),
+             ("random 2048², R 8192", 8192,
+              torch.randint(0, 8192, (2048, 2048), generator=g, device=dev,
+                            dtype=torch.int32)))
+    results = {}
+    for label, r, ids in cases:
+        table = torch.randint(0, r, (r,), generator=g, device=dev,
+                              dtype=torch.int32)
+        for what, m in (("", ids), (", ids out of range", torch.where(
+                torch.rand(ids.shape, generator=g, device=dev) < 0.01,
+                ids + (2 * r + 1) * (ids % 2 * 2 - 1), ids))):
+            got = ll.label_lookup(table, m)
+            require(torch.equal(got, ll.label_lookup_ref(table, m)),
+                    f"K9 label_lookup ({label}{what}) differs from plain")
+        call_ms = cuda_median_ms(lambda: ll.label_lookup(table, ids))
+        ms = kernel_ms(lambda: ll.label_lookup(table, ids))
+        plain_ms = kernel_ms(lambda: ll.label_lookup_ref(table, ids))
+        library_ms = kernel_ms(lambda: table[ids.long()])
+        b = bound(8 * ids.numel() + 4 * r)
+        print(f"K9 label_lookup {label}: bit-exact (also with ids out of "
+              f"range); device time of 20 launches (profiler): {ms:.4f} ms "
+              f"a launch (a call with the host's launch path, median of "
+              f"20: {call_ms:.4f} ms), plain {plain_ms:.4f} "
+              f"ms, dense[map.long()] {library_ms:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{b['bound_ms'] / ms:.2f} of it; target >= 0.5 and no slower "
+              f"than the library call: "
+              f"{target(b['bound_ms'] / ms >= 0.5 and ms <= library_ms)})")
+        results[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, **b)
+        del table, got
+    return {"label_lookup": results[cases[0][0]]}
+
+
+def check_int4_dot(dev):
+    """Phase 3: K10, the int4 dot probe, at the TPU probe's shape (M 4096,
+    K 768, N 3072; operands in its ranges, int8 in [-100, 100), int4 in
+    [-7, 7]): each variant that assembles bit-exact against its plain
+    version and timed (mean of 20) in TOP/s, beside ``torch._int_mm`` and
+    K4's s8 ``wgmma`` GEMM (its s32 ``acc`` epilogue) on the same int8
+    operands and its bound (the int32 output outweighs the operations).
+    The s4 x s4 variant is built alone: a refusal of its ``mma`` by ptxas
+    is printed as the probe's answer. Returns the w4a8 variant's numbers
+    and the probe's launches."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import build
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import int4_dot as i4
+
+    m, k, n = 4096, 768, 3072
+    g = torch.Generator(device=dev).manual_seed(41)
+    a8 = torch.randint(-100, 100, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    b8t = torch.randint(-100, 100, (n, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    a4 = torch.randint(-7, 8, (m, k), generator=g, device=dev,
+                       dtype=torch.int8)
+    b4t = torch.randint(-7, 8, (n, k), generator=g, device=dev,
+                        dtype=torch.int8)
+    ops = 2 * m * k * n
+    tops = lambda ms: ops / ms / 1e9
+    operands = {"s8s8": (a8, b8t), "s4s4": (i4.pack_int4(a4),
+                                            i4.pack_int4(b4t)),
+                "s8s4": (a8, i4.pack_int4(b4t))}
+    try:
+        build.build_all(["int4_dot_s4"])
+        s4_built = True
+    except RuntimeError as e:
+        s4_built = False
+        print(f"K10 s4 x s4 (mma.sync m16n8k64 s4) does not assemble for "
+              f"sm_90a; nvcc/ptxas said:\n{e}")
+    results, launches = {}, 0
+    for variant, (a, bt) in operands.items():
+        if variant == "s4s4" and not s4_built:
+            continue
+        got = i4.int4_dot(a, bt, variant)
+        require(torch.equal(got, i4.int4_dot_ref(a, bt, variant)),
+                f"K10 int4_dot {variant} differs from plain")
+        del got
+        i4.int4_dot.launches = 0
+        ms = cuda_ms(lambda: i4.int4_dot(a, bt, variant), reps=20)
+        launches += i4.int4_dot.launches
+        plain_ms = cuda_ms(lambda: i4.int4_dot_ref(a, bt, variant), reps=2)
+        nbytes = a.numel() + bt.numel() + 4 * m * n
+        b = bound(nbytes, int8_ops=ops)
+        results[variant] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                **b)
+        print(f"K10 int4_dot {variant} {m}x{n}x{k}: bit-exact; {ms:.4f} ms "
+              f"({tops(ms):.0f} TOP/s), plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    print("K10 s8 x s4 without widening: PTX has no mixed-operand mma "
+          "(s8 x s4), the TPU probe's third variant; s8s4 above is the "
+          "widened w4a8 form")
+    int_ms = cuda_ms(lambda: torch._int_mm(a8, b8t.t()), reps=20)
+    ws = torch.full((n,), 1e-3, device=dev)
+    sr = torch.full((m,), 1e-2, device=dev)
+    bias = torch.zeros((n,), dtype=torch.bfloat16, device=dev)
+    acc, _ = fb.gemm_q8(a8, b8t, ws, bias, "acc", row_scale=sr)
+    require(torch.equal(acc, i4.int4_dot_ref(a8, b8t, "s8s8")),
+            "K4's s8 GEMM (acc) differs from the probe's plain version")
+    k4_ms = cuda_ms(lambda: fb.gemm_q8(a8, b8t, ws, bias, "acc",
+                                       row_scale=sr), reps=20)
+    print(f"K10 beside: torch._int_mm {int_ms:.4f} ms ({tops(int_ms):.0f} "
+          f"TOP/s); K4's s8 wgmma GEMM (acc epilogue) {k4_ms:.4f} ms "
+          f"({tops(k4_ms):.0f} TOP/s); "
+          + "; ".join(f"{v} {tops(r['ms']):.0f} TOP/s, "
+                      f"{results['s8s8']['ms'] / r['ms']:.2f}x s8s8's rate"
+                      for v, r in results.items()))
+    out = dict(results["s8s4"], library_ms=int_ms)
+    return {"int4_dot": out}, launches
+
+
 def check_k4(dev):
     """Phase 3, w8a8: K4's block (N=192) and chain (N=48 x 4, N=12 x 2) at
     batch 64, at the slices' chunk of 1024 and at the serving walk's chunk
@@ -1424,6 +1590,8 @@ def counters():
     """Every kernel wrapper, by the name its launch count goes under."""
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import int4_dot as i4
+    from deepmerge_tpu_torch.ops.kernels import label_lookup as ll
     from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
@@ -1438,7 +1606,9 @@ def counters():
             "fused_block_train": fb.fused_block_train,
             "fused_attention_train": fa.attention_probs,
             "attention_qkv": fa.attention_qkv,
-            "attention_bnhd": fa.attention_bnhd}
+            "attention_bnhd": fa.attention_bnhd,
+            "label_lookup": ll.label_lookup,
+            "int4_dot": i4.int4_dot}
 
 
 def counted(run):
@@ -1462,9 +1632,10 @@ def plain_versions():
     """A context in which the main path looks up every kernel wrapper's
     plain version instead (where the path looks them up)."""
     from deepmerge_tpu_torch.models import s2former
-    from deepmerge_tpu_torch.ops import patches
+    from deepmerge_tpu_torch.ops import labelprop, patches
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+    from deepmerge_tpu_torch.ops.kernels import label_lookup as ll
     from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
     from deepmerge_tpu_torch.ops.kernels import window_gather as wg
 
@@ -1492,7 +1663,8 @@ def plain_versions():
             (s2former, "fused_block", block_plain),
             (s2former, "fused_block_chain", fb.chain_ref),
             (s2former, "fused_block_q8", fb.block_ref_q8),
-            (s2former, "fused_block_chain_q8", fb.chain_ref_q8)):
+            (s2former, "fused_block_chain_q8", fb.chain_ref_q8),
+            (labelprop, "label_lookup", ll.label_lookup_ref)):
         stack.enter_context(mock.patch.object(module, attr, ref))
     return stack
 
@@ -1929,47 +2101,22 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
     return launches, (med * 1e3, got)
 
 
-def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
-                         valid, region_map):
-    """Phase 8: the parity bar on trained weights. Trains the flagship on
-    the slice's scene (``train.driver.train``, unfused blocks, bf16
-    compute, ``TRAIN_PAIRS`` pairs a step) for ``TRUSTED_EPOCHS`` epochs,
-    calibrates an absolute threshold on a second scene
-    (``calibrate_threshold``, the root eval.py's procedure), then runs the
-    v3 bf16, w8a8 and w8a8+attn slices at that threshold on the kernels
-    and on the
-    plain versions: the merged maps' label disagreement is gated at
-    ``LABEL_DISAGREEMENT_MAX``, beside the embeddings' RMS error and the
-    first-round decisions that differ. Prints the margin: the share of
-    valid edges whose distance lies within the embeddings' relative RMS
-    error of the threshold (|d - thr| <= err·thr)."""
+def train_trusted(dev, scene, mcfg):
+    """``mcfg`` trained by ``train.driver.train`` on the slice's scene
+    (unfused blocks, bf16 compute, ``TRAIN_PAIRS`` pairs a step) for
+    ``TRUSTED_EPOCHS`` epochs; returns its state dict."""
     import shutil
     import tempfile
-    import warnings
 
     import numpy as np
     import torch
 
-    from deepmerge_tpu_torch.config import (
-        Config,
-        DataConfig,
-        ModelConfig,
-        TrainConfig,
-    )
-    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
-    from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
-    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
-    from deepmerge_tpu_torch.models import s2former
+    from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
     from deepmerge_tpu_torch.train.driver import train
-    from deepmerge_tpu_torch.utils.parity import (
-        label_disagreement,
-        pair_disagreement,
-    )
 
-    t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke_trusted_")
     never = 10 ** 6
-    cfg = Config(model=ModelConfig(),
+    cfg = Config(model=mcfg,
                  data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
                  train=TrainConfig(num_epochs=TRUSTED_EPOCHS,
                                    checkpoint_every=never,
@@ -1988,83 +2135,244 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     losses = np.asarray(history.train_losses)
     require(np.isfinite(losses).all(), f"trained losses {losses}")
     steps = int(state.step)
-    print(f"trained weights: {steps} steps ({TRUSTED_EPOCHS} epochs) of "
-          f"{TRAIN_PAIRS} pairs in {train_s:.1f} s "
-          f"({train_s / steps * 1e3:.1f} ms/step); epoch-mean loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    print(f"trained weights ({mcfg.variant}): {steps} steps "
+          f"({TRUSTED_EPOCHS} epochs) of {TRAIN_PAIRS} pairs in "
+          f"{train_s:.1f} s ({train_s / steps * 1e3:.1f} ms/step); "
+          f"epoch-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     trained = {k: v.detach().clone() for k, v in
                state.model.state_dict().items()}
     del state
     torch.cuda.empty_cache()
+    return trained
 
-    def extractor(quantize):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            mcfg = ModelConfig(quantize=quantize)
-        model = s2former.S2Former(mcfg)
-        model.load_state_dict(trained, strict=True)
-        return FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
-                                device=dev)
+
+def trained_extractor(dev, trained, batch, quantize="", **model_kw):
+    """A ``FeatureExtractor`` of the model ``ModelConfig(quantize=...,
+    **model_kw)`` with the ``trained`` weights."""
+    import warnings
+
+    from deepmerge_tpu_torch.config import ModelConfig
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.models import s2former
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mcfg = ModelConfig(quantize=quantize, **model_kw)
+    model = s2former.S2Former(mcfg)
+    model.load_state_dict(trained, strict=True)
+    return FeatureExtractor(model, batch_size=batch, device=dev)
+
+
+def calibrated_threshold(dev, trained, dcfg, **model_kw):
+    """An absolute threshold for the trained bf16 model, calibrated on a
+    second scene (``calibrate_threshold``, the root eval.py's
+    procedure)."""
+    import torch
+
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
 
     val = generate_scene(**dict(SCENE, seed=SCENE["seed"] + 500))
-    ex = extractor("")
+    ex = trained_extractor(dev, trained, dcfg.eval_batch_size, **model_kw)
     val_emb = torch.from_numpy(ex.extract_scene(val, dcfg)).to(dev)
     cal = calibrate_threshold(val, val_emb, max_rounds=8)
-    thr = cal.threshold
-    print(f"calibrated on the scene of seed {SCENE['seed'] + 500}: "
-          f"threshold {thr:.6f} ({cal.disagreement:.5f} pair disagreement "
-          f"with its objects, {cal.clusters} clusters)")
+    print(f"calibrated on the scene of seed {SCENE['seed'] + 500} "
+          f"({model_kw or 'v3'}): threshold {cal.threshold:.6f} "
+          f"({cal.disagreement:.5f} pair disagreement with its objects, "
+          f"{cal.clusters} clusters)")
     del ex, val_emb
-    gt = scene.object_of_region[scene.labels]
-    r = scene.regions.num_regions
+    torch.cuda.empty_cache()
+    return cal.threshold
 
+
+def parity_gate(label, thr, emb, d, maps, gt=None):
+    """Phase 8's bar, the kernels' run against the plain versions' on
+    trained weights: ``emb``, ``d`` (the valid edges' distances) and
+    ``maps`` (the merged label maps) as (kernels, plain) pairs. Gates the
+    label disagreement at ``LABEL_DISAGREEMENT_MAX``, beside the
+    embeddings' RMS error and the first-round decisions at ``thr`` that
+    differ; prints the margin (the share of edges whose distance lies
+    within the RMS error of the threshold). Returns the disagreement."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.utils.parity import (
+        label_disagreement,
+        pair_disagreement,
+    )
+
+    emb_rms = rms_rel_err(*(torch.as_tensor(e) for e in emb))
+    d_k, d_p = d
+    flips = float(((d_k < thr) != (d_p < thr)).mean())
+    margin = float((np.abs(d_p - thr) <= emb_rms * abs(thr)).mean())
+    dis = label_disagreement(*maps)
+    objects = ("" if gt is None else
+               f"; pair disagreement with the scene's objects "
+               f"{pair_disagreement(maps[0], gt):.5f} (plain "
+               f"{pair_disagreement(maps[1], gt):.5f})")
+    print(f"trained weights, {label} at threshold {thr:.6f}: "
+          f"{int(maps[0].max()) + 1} clusters (plain "
+          f"{int(maps[1].max()) + 1}); embeddings RMS rel err "
+          f"{emb_rms:.3e} (max {TOL_EMB_RMS}); first-round decisions that "
+          f"differ {flips:.5f} of {d_k.size} edges (max {EDGE_FLIPS_MAX}); "
+          f"margin: {margin:.5f} of the edges lie within the RMS error of "
+          f"the threshold; label disagreement {dis:.5f} (gate "
+          f"{LABEL_DISAGREEMENT_MAX}){objects}")
+    require(emb_rms <= TOL_EMB_RMS,
+            f"trained {label}: embeddings RMS rel err {emb_rms}")
+    require(flips <= EDGE_FLIPS_MAX,
+            f"trained {label}: {flips} of the merge decisions differ")
+    require(dis <= LABEL_DISAGREEMENT_MAX,
+            f"trained {label}: label disagreement {dis} > "
+            f"{LABEL_DISAGREEMENT_MAX}")
+    return dis
+
+
+def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
+                  region_map, thr, max_rounds=8, on=()):
+    """``segment_scene_device`` with the region map (the merged map through
+    K9) at ``thr``, on the kernels (``on`` required launched, K9
+    included) and on the plain versions, held by ``parity_gate``."""
+    import torch
+
+    n_pts = scene.regions.num_points
+
+    def run():
+        out = ex.segment_scene_device(
+            scene, dcfg, edges_d, valid_d,
+            num_regions=scene.regions.num_regions, max_rounds=max_rounds,
+            device_scene=ds, region_map=region_map, threshold=thr,
+            with_embeddings=True)
+        torch.cuda.synchronize()
+        return out
+
+    out_k, launches = counted(run)
+    require_launches(launches, tuple(on) + ("label_lookup",), ("int4_dot",),
+                     label)
+    with plain_versions():
+        out_p = run()
+    dis = parity_gate(
+        label, thr, (out_k[5][:n_pts], out_p[5][:n_pts]),
+        (out_k[0].cpu().numpy()[valid], out_p[0].cpu().numpy()[valid]),
+        (out_k[3].cpu().numpy(), out_p[3].cpu().numpy()),
+        None if scene.object_of_region is None
+        else scene.object_of_region[scene.labels])
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    return dis, launches
+
+
+def padded_edges(scene, dev):
+    """The scene's RAG edges padded to a multiple of 2048 rows, with the
+    mask of the real ones: as numpy and on ``dev``."""
+    import numpy as np
+    import torch
+
+    edges = scene.rag.edges.astype(np.int32)
+    pad = (-len(edges)) % 2048
+    edges = np.concatenate([edges, np.zeros((pad, 2), np.int32)])
+    valid = np.arange(len(edges)) < len(scene.rag.edges)
+    return (edges, valid, torch.from_numpy(edges).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def trained_walk_scene(dev, trained, thr, walk):
+    """The first serving-walk scene (2048², 8192 regions) with the trained
+    flagship in w8a8 at ``thr``: ``process_scene`` as the walk serves it
+    (the merged map expanded on the host), then ``segment_scene_device``
+    with the scene's region map on the same staged scene (K9 at 2048², R
+    8192), each on the kernels and on the plain versions, held by
+    ``parity_gate``. Returns the disagreements and the second run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import Config, DataConfig, MergeConfig
+    from deepmerge_tpu_torch.geodata.ingest import load_scene
+    from deepmerge_tpu_torch.infer.driver import prestage_scene, process_scene
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    images, shps, counts = walk
+    name = sorted(counts)[0]
+    scene = load_scene(
+        os.path.join(images, f"{name}.tif"), os.path.join(shps, f"{name}.shp"),
+        os.path.join(shps, name, "PointsGCS.shp"),
+        os.path.join(shps, name, "lines.shp"), name=name,
+        labels=np.load(os.path.join(shps, f"{name}_labels.npy")))
+    ex = trained_extractor(dev, trained, SERVE_BATCH, "w8a8")
+    cfg = Config(model=ex.model.cfg,
+                 data=DataConfig(max_window=512, eval_batch_size=SERVE_BATCH),
+                 merge=MergeConfig(engine="device", threshold=thr))
+    ds = stage_scene(scene, cfg.data, dev)
+    prestage_scene(ex, scene, ds, cfg.data, max(cfg.merge.edge_batch, 1))
+
+    def run():
+        return process_scene(cfg, scene, extractor=ex, device_scene=ds,
+                             log_fn=lambda *_: None)
+
+    emb_k, simi_k, res_k = run()
+    with plain_versions():
+        emb_p, simi_p, res_p = run()
+    results = {"walk scene": parity_gate(
+        f"walk {name} (process_scene, w8a8)", thr, (emb_k, emb_p),
+        (simi_k, simi_p), (res_k.label_map(scene), res_p.label_map(scene)))}
+    _, valid, edges_d, valid_d = padded_edges(scene, dev)
+    region_map = torch.from_numpy(scene.labels).to(dev)
+    results["walk scene, device map"], launches = trained_slice(
+        ex, f"walk {name} (segment_scene_device with its region map, w8a8)",
+        scene, ds, cfg.data, edges_d, valid_d, valid, region_map, thr,
+        max_rounds=cfg.merge.max_rounds, on=Q8_PATH)
+    del ex, ds
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
+                         valid, region_map, walk):
+    """Phase 8: the parity bar on trained weights. Trains the flagship on
+    the slice's scene (``train_trusted``), calibrates an absolute
+    threshold on a second scene (``calibrated_threshold``), then runs the
+    v3 bf16, w8a8 and w8a8+attn slices at that threshold, and the first
+    serving-walk scene (``trained_walk_scene``), on the kernels and on the
+    plain versions, each gated by ``parity_gate``; then v5 trained and
+    calibrated the same way, its w8a8 slice gated too. Returns the
+    disagreements, the flagship's weights and threshold, and the launches
+    of the walk scene's device-map run."""
+    import torch
+
+    from deepmerge_tpu_torch.config import ModelConfig
+
+    t_phase = time.perf_counter()
+    trained = train_trusted(dev, scene, ModelConfig())
+    thr = calibrated_threshold(dev, trained, dcfg)
+    kernels = {"": ("patch_resize", "fused_block", "fused_block_chain"),
+               "w8a8": Q8_PATH,
+               "w8a8+attn": ("patch_resize", "fused_block_q8_attn",
+                             "fused_block_chain_q8_attn")}
     results = {}
     for label, quantize in (("bf16", ""), ("w8a8", "w8a8"),
                             ("w8a8+attn", "w8a8+attn")):
-        ex = extractor(quantize)
-
-        def run():
-            out = ex.segment_scene_device(
-                scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
-                device_scene=ds, region_map=region_map, threshold=thr,
-                with_embeddings=True)
-            torch.cuda.synchronize()
-            return out
-
-        out_k = run()
-        with plain_versions():
-            out_p = run()
-        n_pts = scene.regions.num_points
-        emb_rms = rms_rel_err(out_k[5][:n_pts], out_p[5][:n_pts])
-        d_k = out_k[0].cpu().numpy()[valid]
-        d_p = out_p[0].cpu().numpy()[valid]
-        flips = float(((d_k < thr) != (d_p < thr)).mean())
-        margin = float((np.abs(d_p - thr) <= emb_rms * abs(thr)).mean())
-        map_k, map_p = out_k[3].cpu().numpy(), out_p[3].cpu().numpy()
-        dis = label_disagreement(map_k, map_p)
-        print(f"trained weights, v3 {label} slice at threshold {thr:.6f}: "
-              f"{int(out_k[4])} clusters (plain {int(out_p[4])}) after "
-              f"{int(out_k[2])} rounds; embeddings RMS rel err "
-              f"{emb_rms:.3e} (max {TOL_EMB_RMS}); first-round decisions "
-              f"that differ {flips:.5f} of {int(valid.sum())} edges (max "
-              f"{EDGE_FLIPS_MAX}); margin: {margin:.5f} of the edges lie "
-              f"within the RMS error of the threshold; label disagreement "
-              f"{dis:.5f} (gate {LABEL_DISAGREEMENT_MAX}); pair "
-              f"disagreement with the scene's objects {pair_disagreement(map_k, gt):.5f} "
-              f"(plain {pair_disagreement(map_p, gt):.5f})")
-        require(emb_rms <= TOL_EMB_RMS,
-                f"trained {label}: embeddings RMS rel err {emb_rms}")
-        require(flips <= EDGE_FLIPS_MAX,
-                f"trained {label}: {flips} of the merge decisions differ")
-        require(dis <= LABEL_DISAGREEMENT_MAX,
-                f"trained {label}: label disagreement {dis} > "
-                f"{LABEL_DISAGREEMENT_MAX}")
-        results[label] = dis
-        del ex, out_k, out_p
-        torch.cuda.empty_cache()
+        ex = trained_extractor(dev, trained, dcfg.eval_batch_size, quantize)
+        results[label], _ = trained_slice(
+            ex, f"v3 {label} slice", scene, ds, dcfg, edges_d, valid_d,
+            valid, region_map, thr, on=kernels[quantize])
+        del ex
+    walk_results, walk_launches = trained_walk_scene(dev, trained, thr, walk)
+    results.update(walk_results)
+    # v5 (the designed-feature token in the sequence) trained and
+    # calibrated the same way: its own weights and threshold
+    v5 = train_trusted(dev, scene, ModelConfig(variant="v5"))
+    thr5 = calibrated_threshold(dev, v5, dcfg, variant="v5")
+    ex = trained_extractor(dev, v5, dcfg.eval_batch_size, "w8a8",
+                           variant="v5")
+    results["v5 w8a8"], _ = trained_slice(
+        ex, "v5 w8a8 slice", scene, ds, dcfg, edges_d, valid_d, valid,
+        region_map, thr5, on=Q8_PATH)
+    del ex, v5
+    torch.cuda.empty_cache()
     print(f"trained-weight parity phase: {time.perf_counter() - t_phase:.1f} "
-          f"s on {card}")
-    return results, trained, thr
+          f"s on {card}; label disagreements {results}")
+    return results, trained, thr, walk_launches
 
 
 def free_port():
@@ -2501,8 +2809,243 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
               f"ranks (checksum {o['checksum']:.6e})")
         require(rel[0] <= TOL_TRAIN_LOSS0 and rel.max() <= TOL_TRAIN_LOSS,
                 f"rank {k}: data-parallel losses differ: {rel}")
+    runs.extend(tensor_parallel_case(dev, card, scene, ds, dcfg, trained,
+                                     thr))
     print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s on {card}")
     return runs
+
+
+TP_RANKS = 2
+TP_STEPS = 2
+
+
+def tensor_parallel_rank(rank, world, root):
+    """One rank of the tensor-parallel case, in its own process on the one
+    card (gloo, CUDA tensors), a (1, ``world``) mesh: the flagship v3 in
+    bf16 built for the mesh on its ``shard_params`` of phase 8's weights,
+    the slice's embeddings through ``extract_scene_device``, then
+    ``TP_STEPS`` steps of ``make_train_step(cfg, mesh)``; what it saw goes
+    to ``<root>/tp<rank>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from deepmerge_tpu_torch.config import ModelConfig
+    from deepmerge_tpu_torch.geodata.synthetic import (
+        generate_scene,
+        make_training_pairs,
+    )
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.models.s2former import S2Former
+    from deepmerge_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from deepmerge_tpu_torch.parallel.mesh import _tp_split
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import PairSampler
+
+    with open(os.path.join(root, "spec.pkl"), "rb") as f:
+        spec = pickle.load(f)
+    dev = torch.device(spec["device"])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{spec['port']}", world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(n_data=1, n_model=world, devices=dev)
+        trained = torch.load(os.path.join(root, "trained.pt"),
+                             map_location="cpu")
+        model = S2Former(ModelConfig(), mesh)
+        model.load_state_dict(shard_params(trained, mesh), strict=True)
+        scene = generate_scene(**spec["scene"])
+        ex = FeatureExtractor(model, batch_size=spec["dcfg"].eval_batch_size,
+                              device=dev)
+
+        def forward():
+            emb = ex.extract_scene_device(scene, spec["dcfg"])
+            torch.cuda.synchronize()
+            return emb
+
+        out = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        emb, out["forward_launches"] = counted(forward)
+        out.update(forward_s=time.perf_counter() - t, emb=emb.cpu(),
+                   peak_forward=torch.cuda.max_memory_allocated(dev))
+        del ex, model, emb
+        torch.cuda.empty_cache()
+
+        tcfg = spec["tcfg"]
+        pos, neg = make_training_pairs(scene)
+        sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
+        state = loop.create_train_state(
+            tcfg, len(sampler) // tcfg.data.batch_size, state_dict=trained,
+            device=dev, mesh=mesh)
+        step = loop.make_train_step(tcfg, mesh)
+        batches = sampler.epoch_batches(spec["epoch_seed"],
+                                        tcfg.data.batch_size)
+
+        def steps():
+            nonlocal state
+            losses, times = [], []
+            for _, batch in zip(range(TP_STEPS), batches):
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t)
+            return losses, times
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        (losses, times), out["train_launches"] = counted(steps)
+        out.update(losses=losses, step_s=times,
+                   peak_train=torch.cuda.max_memory_allocated(dev))
+        # the replicated parameters, rank 0's checksum broadcast to all
+        mine = torch.stack([p.detach().double().sum() for name, p in
+                            state.model.named_parameters()
+                            if _tp_split(name) is None])
+        theirs = mine.clone()
+        dist.broadcast(theirs, src=0)
+        out["replicated_identical"] = bool(torch.equal(mine, theirs))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"tp{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def tensor_parallel_case(dev, card, scene, ds, dcfg, trained, thr):
+    """Phase 9's tensor-parallel case: ``TP_RANKS`` ranks in as many
+    processes on the one card over gloo (``tensor_parallel_rank``), the
+    flagship v3 at full width (embed 768, 12 heads: 6 of width 64 a rank)
+    on phase 8's weights. Each rank's embeddings of the slice's points
+    against the single-device forward on the plain versions (RMS error and
+    the first-round decisions at phase 8's threshold, as the slices are
+    held), K7 launched on the local heads and no block kernel; its training
+    steps (K6 on the local heads) against one device's steps from the same
+    weights and batches, by phase 7's loss bars, its replicated parameters
+    identical on both ranks. A check of the split and its collectives, not
+    a scaling number. Returns the ranks' launch counts."""
+    import multiprocessing
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import Config, DataConfig, ModelConfig
+    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
+    from deepmerge_tpu_torch.ops.segment import edge_distances, segment_mean
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import PairSampler
+
+    tcfg = Config(model=ModelConfig(),
+                  data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512))
+    epoch_seed = 778
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    procs = []
+    try:
+        torch.save(trained, os.path.join(root, "trained.pt"))
+        with open(os.path.join(root, "spec.pkl"), "wb") as f:
+            pickle.dump(dict(port=free_port(), dcfg=dcfg, tcfg=tcfg,
+                             epoch_seed=epoch_seed, scene=SCENE,
+                             device=str(dev)), f)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tensor_parallel_rank,
+                             args=(k, TP_RANKS, root))
+                 for k in range(TP_RANKS)]
+        t = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t
+        require(all(p.exitcode == 0 for p in procs),
+                f"tensor-parallel ranks: exit codes "
+                f"{[p.exitcode for p in procs]}")
+        ranks = []
+        for k in range(TP_RANKS):
+            with open(os.path.join(root, f"tp{k}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"tensor parallelism, {TP_RANKS} ranks on one card (gloo, n_model "
+          f"{TP_RANKS}, {12 // TP_RANKS} heads of 64 a rank): {wall:.1f} s "
+          "with start-up")
+
+    # the single-device references: the forward on the plain versions,
+    # then the same steps from the same weights and batches
+    ex = trained_extractor(dev, trained, dcfg.eval_batch_size)
+    with plain_versions():
+        emb_p = ex.extract_scene_device(scene, dcfg, device_scene=ds)
+    del ex
+    r = scene.regions.num_regions
+    pr = torch.as_tensor(scene.regions.point_region, device=dev)
+    edges = torch.as_tensor(scene.rag.edges, device=dev)
+
+    def distances(emb):
+        remb = segment_mean(emb.to(dev, torch.float32), pr, r)
+        return edge_distances(remb, edges).cpu().numpy()
+
+    d_p = distances(emb_p)
+    pos, neg = make_training_pairs(scene)
+    sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
+    state = loop.create_train_state(tcfg, len(sampler) // TRAIN_PAIRS,
+                                    state_dict=trained, device=dev)
+    step = loop.make_train_step(tcfg)
+    want = []
+    for _, batch in zip(range(TP_STEPS),
+                        sampler.epoch_batches(epoch_seed, TRAIN_PAIRS)):
+        state, m = step(state, batch)
+        want.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    want = np.asarray(want)
+    blocks = sum(ModelConfig().depth)
+    chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
+    launches = []
+    for k, o in enumerate(ranks):
+        fl, tl = o["forward_launches"], o["train_launches"]
+        print(f"  rank {k} launches: forward {fl}; training {tl}")
+        require_launches(fl, ("patch_resize", "attention_qkv"),
+                         [c for c in fl if c not in ("patch_resize",
+                                                     "attention_qkv")],
+                         f"tensor-parallel rank {k}'s forward")
+        require(fl["attention_qkv"] == blocks * chunks,
+                f"rank {k}: K7 launched {fl['attention_qkv']} times, want "
+                f"{blocks} a chunk")
+        require_launches(tl, ("patch_resize", "fused_attention_train"),
+                         [c for c in tl if c not in (
+                             "patch_resize", "fused_attention_train")],
+                         f"tensor-parallel rank {k}'s training")
+        require(tl["fused_attention_train"] == blocks * TP_STEPS,
+                f"rank {k}: K6 launched {tl['fused_attention_train']} "
+                f"times, want {blocks} a step")
+        launches += [fl, tl]
+        emb_rms = rms_rel_err(o["emb"], emb_p.cpu())
+        d = distances(o["emb"])
+        flips = float(((d < thr) != (d_p < thr)).mean())
+        rel = np.abs(np.asarray(o["losses"]) - want) / np.abs(want)
+        print(f"  rank {k}: embeddings against the single-device plain "
+              f"forward: RMS rel err {emb_rms:.3e} (max {TOL_EMB_RMS}); "
+              f"first-round decisions at {thr:.6f} that differ {flips:.5f} "
+              f"of {d.size} edges (max {EDGE_FLIPS_MAX}); forward "
+              f"{o['forward_s']:.2f} s, peak {o['peak_forward'] / 2**30:.2f}"
+              f" GiB; training losses {o['losses']} against one device's "
+              f"{want.tolist()}, rel diff {rel.tolist()} (step 0 max "
+              f"{TOL_TRAIN_LOSS0}, all max {TOL_TRAIN_LOSS}); steps "
+              f"{[round(x * 1e3, 1) for x in o['step_s']]} ms, peak "
+              f"{o['peak_train'] / 2**30:.2f} GiB (two processes on one "
+              f"card, gloo); replicated parameters identical on both ranks: "
+              f"{o['replicated_identical']}")
+        require(emb_rms <= TOL_EMB_RMS,
+                f"tensor-parallel rank {k}: embeddings RMS rel err {emb_rms}")
+        require(flips <= EDGE_FLIPS_MAX,
+                f"tensor-parallel rank {k}: {flips} of the decisions differ")
+        require(rel[0] <= TOL_TRAIN_LOSS0 and rel.max() <= TOL_TRAIN_LOSS,
+                f"tensor-parallel rank {k}: losses differ: {rel}")
+        require(o["replicated_identical"], "tensor-parallel ranks' "
+                "replicated parameters differ")
+    return launches
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2885,7 +3428,8 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
     out, launches = counted(run_slice)
     print(f"slice (vit) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    on = ["patch_resize"] + (["window_gather"] if max(ds.caps) > 256 else [])
+    on = ["patch_resize", "label_lookup"] + (
+        ["window_gather"] if max(ds.caps) > 256 else [])
     require_launches(launches, on, [k for k in launches if k not in on],
                      "the vit slice")
     chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
@@ -3003,7 +3547,8 @@ def main() -> int:
 
     # 2. the build, one nvcc per source, in parallel
     sources = ("patch_resize", "window_gather", "fused_block",
-               "fused_block_q8", "fused_attention")
+               "fused_block_q8", "fused_attention", "label_lookup",
+               "int4_dot")
     t = time.perf_counter()
     build.build_all(sources)
     print(f"build: {', '.join(k + '.cu' for k in sources)} in "
@@ -3048,16 +3593,20 @@ def main() -> int:
         kernel_results.update(check_k5(dev))
         kernel_results.update(check_k6(dev))
         kernel_results.update(check_wide_tokens(dev))
+        kernel_results.update(check_label_lookup(dev, scene))
+        k10, probe_launches = check_int4_dot(dev)
+        kernel_results.update(k10)
     if only is not None:
-        if only & {"trained", "scaleout"}:
-            _, trained, thr = trained_parity_phase(
-                dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
-                region_map)
-        if "scaleout" in only:
-            with tempfile.TemporaryDirectory() as walk_root:
+        with tempfile.TemporaryDirectory() as walk_root:
+            if only & {"trained", "scaleout"}:
+                walk = export_folder(
+                    walk_root, SERVE_SCENES if "scaleout" in only else 1)
+                _, trained, thr, _ = trained_parity_phase(
+                    dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
+                    region_map, walk)
+            if "scaleout" in only:
                 scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
-                                region_map, trained, thr,
-                                export_folder(walk_root, SERVE_SCENES))
+                                region_map, trained, thr, walk)
         if "family" in only:
             family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
                          region_map)
@@ -3097,7 +3646,9 @@ def main() -> int:
     # gather on the float path only
     attention = ("attention_qkv", "attention_bnhd", "fused_block_train",
                  "fused_attention_train")
-    off_path = attention + ("window_gather",)
+    # K9 expands every slice's merged map; K10 is a probe, on no path
+    tail = ("label_lookup",)
+    off_path = attention + ("window_gather", "int4_dot")
     block_kernels = bf16_kernels[1:] + q8_kernels[1:] + q8a_kernels[1:]
     n_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
     n_slots = len(dcfg.patch_sizes)
@@ -3114,7 +3665,7 @@ def main() -> int:
     out, launches = counted(run_bf16)
     print(f"slice (bf16) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    require_launches(launches, bf16_kernels,
+    require_launches(launches, bf16_kernels + tail,
                      q8_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the bf16 slice")
     require_patch_launches(launches, "the bf16 slice")
@@ -3136,7 +3687,7 @@ def main() -> int:
     out, launches = counted(run_q8)
     print(f"slice (w8a8) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    require_launches(launches, q8_kernels,
+    require_launches(launches, q8_kernels + tail,
                      bf16_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the w8a8 slice")
     require_patch_launches(launches, "the w8a8 slice")
@@ -3183,7 +3734,7 @@ def main() -> int:
     print(f"slice (w8a8-static) launches: {launches}, calibrated on the "
           f"first chunk ({time.perf_counter() - t:.3f} s with calibration)")
     require(not ex_static.needs_calibration, "w8a8-static did not calibrate")
-    require_launches(launches, q8_kernels,
+    require_launches(launches, q8_kernels + tail,
                      bf16_kernels[1:] + q8a_kernels[1:] + off_path,
                      "the w8a8-static slice")
     # the calibration runs the first chunk once more
@@ -3205,7 +3756,7 @@ def main() -> int:
     out, launches = counted(run_q8a)
     print(f"slice (w8a8+attn) launches: {launches} (first run "
           f"{time.perf_counter() - t:.3f} s)")
-    require_launches(launches, q8a_kernels,
+    require_launches(launches, q8a_kernels + tail,
                      bf16_kernels[1:] + q8_kernels[1:] + off_path,
                      "the w8a8+attn slice")
     require_patch_launches(launches, "the w8a8+attn slice")
@@ -3245,7 +3796,7 @@ def main() -> int:
         out, launches = counted(run)
         print(f"slice ({label}) launches: {launches} (first run "
               f"{time.perf_counter() - t:.3f} s)")
-        require_launches(launches, on, off, f"the {label} slice")
+        require_launches(launches, on + tail, off, f"the {label} slice")
         require_patch_launches(launches, f"the {label} slice")
         path_runs.append(launches)
         if "attention_qkv" in on:
@@ -3303,9 +3854,10 @@ def main() -> int:
                 f"step-0 loss through K5 differs from the unfused one: "
                 f"{rel0}")
         # 8. the parity bar on trained weights
-        _, trained, thr = trained_parity_phase(dev, card, scene, ds, dcfg,
-                                               edges_d, valid_d, valid,
-                                               region_map)
+        _, trained, thr, launches = trained_parity_phase(
+            dev, card, scene, ds, dcfg, edges_d, valid_d, valid, region_map,
+            walk)
+        path_runs.append(launches)
         # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
         # ranks on the one card over gloo
         path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
@@ -3355,7 +3907,13 @@ def main() -> int:
                           "deepmerge_tpu/ops/pallas/fused_attention.py:143"),
         "attention_bnhd": ("deepmerge_tpu_torch/csrc/fused_attention.cu",
                            "deepmerge_tpu/ops/pallas/fused_attention.py:26"),
+        "label_lookup": ("deepmerge_tpu_torch/csrc/label_lookup.cu",
+                         "tools/gather_probe.py:45"),
+        "int4_dot": ("deepmerge_tpu_torch/csrc/int4_dot.cu",
+                     "tools/int4_dot_probe.py:41"),
     }
+    # K10 runs on no path of either package: its count is the probe's own
+    all_launches["int4_dot"] = probe_launches
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep,
              launches=all_launches[k], **kernel_results[k])

@@ -50,6 +50,18 @@ Dropout2d draw their masks from the ``generator`` passed in (JAX's
 normalizes with the batch statistics and updates its running buffers in
 place, with flax's numerics. Parameters stay float32 and every op casts
 them to the compute dtype, as flax's ``dtype=bfloat16`` layers do.
+
+Built for a mesh with a model axis of n > 1 (``S2Former(cfg, mesh)``),
+the model is tensor parallel, as the JAX package's ``shard_params`` makes
+it under GSPMD: each ``CrossScaleBlock`` holds H/n heads and the slices of
+``parallel.mesh.shard_params`` (which load strictly), and runs unfused
+whatever ``fused_block`` says (the block kernels take whole weights),
+its attention through K7 (K6 in training) on the local heads. proj's and
+fc2's partial products stay float32 until their SUM over the model axis,
+then round as the replicated model's products do and take the full bias.
+Dropout masks on sliced activations (the attention's, the MLP hidden's)
+are the whole model's, cut to the slice. Quantization under n > 1
+raises.
 """
 
 from __future__ import annotations
@@ -62,7 +74,7 @@ import torch
 from torch import nn
 
 from deepmerge_tpu_torch.config import KNOWN_VARIANTS, Config, ModelConfig
-from deepmerge_tpu_torch.ops.dropout import drop_path, dropout
+from deepmerge_tpu_torch.ops.dropout import _uniform, drop_path, dropout
 from deepmerge_tpu_torch.ops.kernels.fused_attention import (
     attention_bnhd_ref,
     fused_attention_qkv,
@@ -79,7 +91,13 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     gelu,
     quantize_block_params,
 )
-from deepmerge_tpu_torch.parallel.mesh import BatchShard, all_reduce_sum
+from deepmerge_tpu_torch.parallel.mesh import (
+    BatchShard,
+    Mesh,
+    all_reduce_sum,
+    copy_to_model,
+    reduce_from_model,
+)
 
 STATIC = "w8a8-static"
 # flax nn.BatchNorm's defaults: running = 0.99·running + 0.01·batch
@@ -158,6 +176,24 @@ def check_supported(cfg: ModelConfig) -> None:
             "chain_stage0 is an experiment the port does not carry yet "
             "(ROADMAP.md queue B, the note on chain_stage0)"
         )
+
+
+def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
+    """Raise ``ValueError`` for a model that cannot be split over
+    ``n_model`` ranks: a quantized one (the w8a8 kernels take whole
+    weights, ROADMAP.md B6), or heads and hidden units that do not
+    divide."""
+    if cfg.quantize:
+        raise ValueError(
+            f"model.quantize={cfg.quantize!r} under tensor parallelism "
+            f"(a model axis of {n_model}): the w8a8 kernels take whole "
+            "weights; serve a quantized model with n_model 1 (ROADMAP.md B6)")
+    hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+    if cfg.num_heads % n_model or hidden % n_model:
+        raise ValueError(
+            f"tensor parallelism over {n_model} ranks needs the heads "
+            f"({cfg.num_heads}) and the MLP's hidden units ({hidden}) to "
+            "divide")
 
 
 def training_model(cfg: Config) -> ModelConfig:
@@ -242,15 +278,17 @@ class FeatureEmbed(nn.Module):
 class Attention(nn.Module):
     """Parameters of the cross-scale attention: qkv/proj projections and the
     3-D relative-position bias table with its index buffer (v5's with the
-    extra token)."""
+    extra token). With ``shards`` > 1, one rank's ``num_heads`` of a
+    tensor-parallel model: qkv's output and proj's input are those heads'
+    (``parallel.mesh.shard_params``)."""
 
     def __init__(self, dim: int, num_heads: int, cube: tuple[int, int, int],
-                 extra_token: bool = False):
+                 extra_token: bool = False, shards: int = 1):
         super().__init__()
         idx, table = bias_index(cube, extra_token)
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = nn.Linear(dim, 3 * dim // shards)
+        self.proj = nn.Linear(dim // shards, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((table, num_heads)))
         self.register_buffer("relative_position_index",
@@ -276,18 +314,46 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
+@dataclasses.dataclass
+class _SliceDraws:
+    """Dropout draws for a tensor that holds the slice [lo, hi) of ``axis``
+    of the whole model's (a tensor-parallel rank's heads or hidden units):
+    each draw is the whole tensor's, from ``generator`` (a torch.Generator
+    or a ``BatchShard``), cut to the slice, so the ranks draw the
+    replicated model's masks in its order."""
+
+    generator: object
+    axis: int
+    full: int
+    lo: int
+    hi: int
+
+    def rand(self, shape) -> torch.Tensor:
+        shape = list(shape)
+        shape[self.axis] = self.full
+        u = _uniform(tuple(shape), self.generator,
+                     getattr(self.generator, "device", None))
+        return u.narrow(self.axis, self.lo, self.hi - self.lo)
+
+
 class CrossScaleBlock(nn.Module):
     """Pre-LN attention + MLP block. On the block kernels its parameters
     travel as the 13-tuple of ``fused_params`` (the w8a8 ones as
     ``quant_params``) and ``forward`` is the single-block dispatch point
     (K2, or K4 when quantized, on CUDA); off them ``forward`` runs
-    ``unfused``."""
+    ``unfused``. With ``tp`` (a mesh whose model axis is above 1), one
+    rank's part of a tensor-parallel block (module docstring), always
+    unfused."""
 
     def __init__(self, cfg: ModelConfig, cube: tuple[int, int, int],
-                 extra_token: bool = False, drop_path: float = 0.0):
+                 extra_token: bool = False, drop_path: float = 0.0,
+                 tp: Optional[Mesh] = None):
         super().__init__()
         dim = cfg.embed_dim
-        self.num_heads = cfg.num_heads
+        hidden = int(dim * cfg.mlp_ratio)
+        n = tp.shape["model"] if tp is not None else 1
+        self.tp = tp
+        self.num_heads = cfg.num_heads // n
         self.exact_gelu = cfg.exact_gelu
         self.fused_attention = cfg.fused_attention
         self.drop, self.attn_drop = cfg.drop_ratio, cfg.attn_drop_ratio
@@ -295,14 +361,14 @@ class CrossScaleBlock(nn.Module):
         self.kernel_eligible = (
             cfg.fused_block and cfg.fused_attention and not cfg.exact_gelu
             and self.drop == 0.0 and self.attn_drop == 0.0
-            and drop_path == 0.0
+            and drop_path == 0.0 and tp is None
         )
         # as in the JAX package, quantization rides the block kernels only
         self.quantize = cfg.quantize if self.kernel_eligible else ""
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, cfg.num_heads, cube, extra_token)
+        self.attn = Attention(dim, self.num_heads, cube, extra_token, n)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * cfg.mlp_ratio))
+        self.mlp = Mlp(dim, hidden // n)
         if self.quantize == STATIC:
             # calibrated abs-maxes of the seven quantized activations; not
             # in the state_dict, so reference checkpoints load strictly
@@ -368,20 +434,50 @@ class CrossScaleBlock(nn.Module):
         dpath = ((lambda t: drop_path(t, self.drop_path, g)) if train
                  else (lambda t: t))
         x = x.to(dtype)
-        qkv = _dense(_flax_layer_norm(x, self.norm1), self.attn.qkv)
         bias, heads = self.attn.bias(), self.num_heads
+        qkv = _dense(self._into_shard(_flax_layer_norm(x, self.norm1)),
+                     self.attn.qkv)
         if not self.fused_attention or (train and self.attn_drop):
             a = attention_bnhd_ref(*split_qkv(qkv, heads), bias,
-                                   self.attn_drop if train else 0.0, g)
+                                   self.attn_drop if train else 0.0,
+                                   self._slice_draws(g, 1, heads))
             a = a.reshape(qkv.shape[0], qkv.shape[1], -1)
         elif train:
             a = fused_attention_train(qkv, bias, heads)
         else:
             a = fused_attention_qkv(qkv, bias, heads)
-        x = x + dpath(drop(_dense(a, self.attn.proj)))
-        y = gelu(_dense(_flax_layer_norm(x, self.norm2), self.mlp.fc1),
-                 exact=self.exact_gelu)
-        return x + dpath(drop(_dense(drop(y), self.mlp.fc2)))
+        x = x + dpath(drop(self._out_of_shard(a, self.attn.proj)))
+        y = gelu(_dense(self._into_shard(_flax_layer_norm(x, self.norm2)),
+                        self.mlp.fc1), exact=self.exact_gelu)
+        if train:
+            y = dropout(y, self.drop,
+                        self._slice_draws(g, 2, self.mlp.fc1.out_features))
+        return x + dpath(drop(self._out_of_shard(y, self.mlp.fc2)))
+
+    def _into_shard(self, h: torch.Tensor) -> torch.Tensor:
+        """The input of a sliced product: under TP through Megatron's f."""
+        return h if self.tp is None else copy_to_model(h, self.tp)
+
+    def _out_of_shard(self, a: torch.Tensor, layer: nn.Linear
+                      ) -> torch.Tensor:
+        """``_dense(a, layer)``; under TP the float32 partial product, its
+        SUM over the model axis (Megatron's g) rounded to a's dtype as one
+        product would be, then the whole bias."""
+        if self.tp is None:
+            return _dense(a, layer)
+        f32 = torch.float32
+        part = torch.matmul(a.to(f32), layer.weight.to(a.dtype).to(f32).t())
+        y = reduce_from_model(part, self.tp).to(a.dtype)
+        return y + layer.bias.to(a.dtype)
+
+    def _slice_draws(self, generator, axis: int, local: int):
+        """Dropout draws for this rank's ``local`` entries of ``axis`` (its
+        heads, or its hidden units): the generator itself off TP."""
+        if self.tp is None or generator is None:
+            return generator
+        m = self.tp.coords["model"]
+        return _SliceDraws(generator, axis, local * self.tp.shape["model"],
+                           m * local, (m + 1) * local)
 
 
 class AuxBlock(nn.Module):
@@ -484,14 +580,19 @@ def _mean_pool_scales(x: torch.Tensor, n_scales: int, tokens: int):
 
 class S2Former(nn.Module):
     """The S2Former family: ``forward(patches, designed)`` → (B, out_dim);
-    in training v4 and v5 return ``(out, aux0, aux1)``."""
+    in training v4 and v5 return ``(out, aux0, aux1)``. With ``mesh`` (a
+    model axis above 1), this rank's part of the tensor-parallel model
+    (module docstring); load it with ``parallel.mesh.shard_params``."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh: Optional[Mesh] = None):
         super().__init__()
         check_supported(cfg)
         if cfg.variant == "vit":
             raise ValueError("variant 'vit' is the ScaleEmbedTransformer, not "
                              "an S2Former: build it with build_model")
+        tp = mesh if mesh is not None and mesh.shape["model"] > 1 else None
+        if tp is not None:
+            check_tensor_parallel(cfg, tp.shape["model"])
         self.cfg = cfg
         v, n, g, dim = cfg.variant, cfg.n_scales, cfg.cube, cfg.embed_dim
         self.dtype = getattr(torch, cfg.dtype)
@@ -518,7 +619,7 @@ class S2Former(nn.Module):
             return nn.ModuleList(
                 CrossScaleBlock(cfg, (n, grid, grid), extra,
                                 float(drop_paths[i]) if drop_paths is not None
-                                else 0.0)
+                                else 0.0, tp)
                 for i in range(depth))
 
         if v in ("v1", "v2"):
@@ -683,14 +784,20 @@ class S2Former(nn.Module):
         return _dense(embedding, self.head)
 
 
-def build_model(cfg: ModelConfig) -> nn.Module:
+def build_model(cfg: ModelConfig, mesh: Optional[Mesh] = None
+                ) -> nn.Module:
     """The backbone of ``cfg``, the one place the port builds a model:
     S2Former v1–v6, or the ScaleEmbedTransformer through its pipeline
     adapter (``models/vit.ScaleEmbedBackbone``) for ``variant="vit"``.
-    Raises ``ValueError`` as the JAX package's ``build_model`` does."""
+    With ``mesh``, this rank's part of the tensor-parallel S2Former when
+    its model axis is above 1. Raises ``ValueError`` as the JAX package's
+    ``build_model`` does, and for what tensor parallelism does not take."""
     check_supported(cfg)
     if cfg.variant == "vit":
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError("tensor parallelism (a model axis above 1) "
+                             "splits S2Former blocks only, not the vit")
         from deepmerge_tpu_torch.models.vit import ScaleEmbedBackbone
 
         return ScaleEmbedBackbone(cfg)
-    return S2Former(cfg)
+    return S2Former(cfg, mesh)

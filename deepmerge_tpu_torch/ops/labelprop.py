@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from deepmerge_tpu_torch.ops.kernels.label_lookup import label_lookup
 from deepmerge_tpu_torch.ops.segment import (
     clamp_index,
     edge_distances,
@@ -126,7 +127,10 @@ def merged_label_map(labels: torch.Tensor, region_map_hw: torch.Tensor,
     Dense ids are ordered by smallest member id (as ``np.unique`` would
     give). With ``num_real`` (phantom regions ``num_real..R-1`` of a
     bucketed region axis are singleton clusters sorting after every real
-    label) the cluster count covers real clusters only.
+    label) the cluster count covers real clusters only. The sort, cumsum
+    and search run over the R labels; the (H, W) expansion is the lookup
+    kernel K9 (``ops/kernels/label_lookup``), which reads the int32 map as
+    it is.
 
     Returns (map (H, W) int32, num_clusters 0-d int32 tensor).
     """
@@ -139,4 +143,5 @@ def merged_label_map(labels: torch.Tensor, region_map_hw: torch.Tensor,
         n_clusters = dense_at_sorted[-1] + 1
     else:
         n_clusters = torch.sum(first & (s < num_real)).to(torch.int32)
-    return dense[region_map_hw.long()], n_clusters
+    return (label_lookup(dense, region_map_hw.to(torch.int32).contiguous()),
+            n_clusters)

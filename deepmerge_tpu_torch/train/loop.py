@@ -34,6 +34,14 @@ global program does: each rank takes its rows of the batch
 batch's mean loss, and takes the same Adam step. Its forward gets a
 ``parallel.mesh.BatchShard``: dropout masks drawn for the global batch and
 cut to its rows, and v4/v5 BatchNorm moments summed over the ranks.
+
+Tensor parallelism (a mesh whose model axis is above 1, and the model of
+``create_train_state(cfg, ..., mesh=mesh)``): each rank holds its slices of
+the blocks (``parallel.mesh.shard_params``) and the ranks of a model group
+take the same rows. The gradients are summed over the data group only:
+sliced parameters keep their own, and the replicated ones come out equal
+on the ranks of a model group, because Megatron's f has summed the
+activations' gradients in the backward. Adam is unchanged.
 """
 
 from __future__ import annotations
@@ -48,7 +56,12 @@ import torch
 from deepmerge_tpu_torch.config import Config
 from deepmerge_tpu_torch.models.s2former import build_model, training_model
 from deepmerge_tpu_torch.ops.patches import extract_multiscale_patches
-from deepmerge_tpu_torch.parallel.mesh import BatchShard, Mesh, all_reduce_
+from deepmerge_tpu_torch.parallel.mesh import (
+    BatchShard,
+    Mesh,
+    all_reduce_,
+    shard_params,
+)
 from deepmerge_tpu_torch.train.losses import contrastive_pair_loss
 from deepmerge_tpu_torch.utils.device import resolve_device
 
@@ -92,18 +105,24 @@ def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
 
 def create_train_state(cfg: Config, steps_per_epoch: int = 1,
                        state_dict: Optional[dict] = None,
-                       device: torch.device | str = "cuda") -> TrainState:
+                       device: torch.device | str = "cuda",
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """The training model on ``device`` (the card unless the caller asks
     for the CPU; without a card that raises) with ``state_dict`` (the
     reference-named weights and, for v4 and v5, BatchNorm buffers; default
-    ``init_state_dict`` from ``cfg.train.seed``), a fresh Adam, step 0."""
+    ``init_state_dict`` from ``cfg.train.seed``), a fresh Adam, step 0.
+    With ``mesh`` and a model axis above 1, this rank's part of the
+    tensor-parallel model, loaded with its ``shard_params`` of the
+    weights."""
     from deepmerge_tpu_torch.compat.weights import init_state_dict
 
     device = resolve_device(device)
     mcfg = training_model(cfg)
-    model = build_model(mcfg)
+    model = build_model(mcfg, mesh)
     if state_dict is None:
         state_dict = init_state_dict(mcfg, seed=cfg.train.seed)
+    if mesh is not None:
+        state_dict = shard_params(state_dict, mesh)
     model.load_state_dict(state_dict, strict=True)
     model = model.to(device)
     schedule = lr_schedule(cfg, steps_per_epoch)

@@ -38,6 +38,8 @@ s8 GEMM alone: bit-identical to its plain version on every epilogue but
 the float32 GELU (1e-5 of max|plain|: tanh in another library), whose
 int8 codes and row scales are bit-identical to those of its own output;
 K4a's core alone as K4a in the block, and bit-identical across its plans.
+The label-map lookup (K9) and the int4 dot probe's variants (K10) are
+integer functions: bit-exact.
 """
 
 import numpy as np
@@ -58,6 +60,8 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     fused_block_q8,
     quantize_block_params,
 )
+from deepmerge_tpu_torch.ops.kernels import int4_dot as i4
+from deepmerge_tpu_torch.ops.kernels import label_lookup as ll
 from deepmerge_tpu_torch.ops.kernels import patch_resize as pr
 from deepmerge_tpu_torch.ops.kernels.window_gather import (
     gather_windows,
@@ -686,3 +690,44 @@ def test_attention_q8_plans_agree(cuda, warps, samples):
     want = fb.attention_q8(qkv, bias, 3)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("r,hw,offset", [(2048, (64, 61), 0),
+                                         (8192, (128, 128), 1),
+                                         (40000, (33, 17), 0)])
+def test_label_lookup_matches_plain(cuda, r, hw, offset):
+    """K9 on a table staged in shared memory and on one read through the
+    read-only cache (40000 entries), an odd pixel count (the scalar tail),
+    a map 4 bytes off 16-byte alignment (the scalar path), and
+    ids out of range on both sides."""
+    g = torch.Generator().manual_seed(r)
+    table = torch.randint(0, 10 ** 6, (r,), dtype=torch.int32, generator=g)
+    n = hw[0] * hw[1]
+    flat = torch.randint(-r - 5, 2 * r, (n + offset,), dtype=torch.int32,
+                         generator=g)
+    ids = flat[offset:].reshape(hw)
+    dev_flat = flat.to(cuda)
+    dev_ids = dev_flat[offset:].reshape(hw)
+    before = ll.label_lookup.launches
+    got = ll.label_lookup(table.to(cuda), dev_ids)
+    torch.cuda.synchronize()
+    assert ll.label_lookup.launches == before + 1
+    torch.testing.assert_close(got.cpu(), ll.label_lookup_ref(table, ids),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["s8s8", "s8s4"])
+def test_int4_dot_matches_plain(cuda, variant):
+    """K10's s8 variants at M 256, K 192, N 384 (the s4 x s4 one is built
+    alone, and chip_smoke.py reports whether it assembles)."""
+    g = torch.Generator().manual_seed(len(variant))
+    a = torch.randint(-128, 128, (256, 192), dtype=torch.int8, generator=g)
+    bt = torch.randint(-8, 8, (384, 192), dtype=torch.int8, generator=g)
+    if variant == "s8s4":
+        bt = i4.pack_int4(bt)
+    before = i4.int4_dot.launches
+    got = i4.int4_dot(a.to(cuda), bt.to(cuda), variant)
+    torch.cuda.synchronize()
+    assert i4.int4_dot.launches == before + 1
+    torch.testing.assert_close(got.cpu(), i4.int4_dot_ref(a, bt, variant),
+                               rtol=0, atol=0)

@@ -248,13 +248,6 @@ def test_train_use_mesh_end_to_end(ranks, scene):
     assert ranks[1]["e2e"]["written"] == []
 
 
-def test_shard_params_is_not_ported():
-    from deepmerge_tpu_torch.parallel import shard_params
-
-    with pytest.raises(NotImplementedError, match="A3b"):
-        shard_params({}, None)
-
-
 @pytest.mark.parametrize("cmd", ["extract", "process-folder"])
 def test_cli_mesh_refuses_stream_tiles(cmd, capsys):
     from deepmerge_tpu_torch.__main__ import main

@@ -45,6 +45,8 @@ def test_port_imports_without_jax():
                  "deepmerge_tpu_torch.infer.driver",
                  "deepmerge_tpu_torch.train.driver",
                  "deepmerge_tpu_torch.ops.kernels.fused_attention",
+                 "deepmerge_tpu_torch.ops.kernels.label_lookup",
+                 "deepmerge_tpu_torch.ops.kernels.int4_dot",
                  "deepmerge_tpu_torch.config",
                  "deepmerge_tpu_torch.geodata.ingest",
                  "deepmerge_tpu_torch.native.unionfind",

@@ -1,7 +1,7 @@
 """One rank of the PyTorch port's multi-process CPU checks (gloo).
 
-Launched once per rank by ``tests/test_torch_sharding.py`` and
-``tests/test_torch_dp_train.py``::
+Launched once per rank by ``tests/test_torch_sharding.py``,
+``tests/test_torch_dp_train.py`` and ``tests/test_torch_tp.py``::
 
     python tests/torch_dist_worker.py <job> <rank> <world> <port> <dir>
 
@@ -330,6 +330,59 @@ def job_dp(spec, mesh, out, root):
         written=sorted(os.listdir(mine)) if os.path.exists(mine) else [])
 
 
+def _torch_batch(batch):
+    return {k: (tuple(torch.from_numpy(x) for x in v) if isinstance(v, tuple)
+                else torch.from_numpy(v)) for k, v in batch.items()}
+
+
+def job_tp(spec, out):
+    """Tensor parallelism on a 1x4 and a 2x2 (data x model) mesh: the
+    forward of ``S2Former(cfg, mesh)`` on ``shard_params``' slices, each
+    rank's slices, one training step of ``make_train_step(cfg, mesh)`` per
+    case (this rank's data rows) with ``gather_params`` of the updated
+    weights, and a quantized model refused."""
+    from deepmerge_tpu_torch.parallel.mesh import (
+        gather_params,
+        shard_params,
+    )
+    from deepmerge_tpu_torch.train import loop
+
+    c = spec["tp"]
+    res = {}
+    for name, (n_data, n_model) in c["meshes"].items():
+        mesh = make_mesh(n_data=n_data, n_model=n_model, devices="cpu")
+        got = dict(coords=mesh.coords)
+        model = S2Former(c["mcfg"], mesh)
+        mine = shard_params(c["state_dict"], mesh)
+        model.load_state_dict(mine, strict=True)
+        with torch.inference_mode():
+            got["forward"] = model(tuple(torch.from_numpy(p)
+                                         for p in c["patches"]),
+                                   torch.from_numpy(c["designed"])).numpy()
+        got["slices"] = {k: v for k, v in mine.items()
+                         if k.startswith("blocks0.0.")}
+        got["gathered"] = gather_params(mine, mesh)
+        steps = {}
+        for run, cfg in c["train"].items():
+            state = loop.create_train_state(cfg, 2, c["state_dict"],
+                                            device="cpu", mesh=mesh)
+            step = loop.make_train_step(cfg, mesh)
+            batch = shard_batch(_torch_batch(c["batch"]), mesh)
+            state, m = step(state, batch)
+            sd = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+            steps[run] = dict(loss=float(m["loss"]), state=sd,
+                              gathered=gather_params(sd, mesh))
+        got["train"] = steps
+        try:
+            S2Former(dataclasses.replace(c["mcfg"], quantize="w8a8"), mesh)
+            got["quantized"] = None
+        except ValueError as e:
+            got["quantized"] = str(e)
+        res[name] = got
+    out["tp"] = res
+
+
 def main():
     job, rank, world, port, root = sys.argv[1:6]
     rank, world = int(rank), int(world)
@@ -354,6 +407,8 @@ def main():
                 job_mesh(spec, mesh, out)
             elif part == "dp":
                 job_dp(spec, mesh, out, root)
+            elif part == "tp":
+                job_tp(spec, out)
             else:
                 raise ValueError(f"unknown job {part}")
         out["modules"] = sorted(
