@@ -39,7 +39,11 @@ kernel against its plain PyTorch version on the card:
      each variant (s8 x s8, s4 x s4, s8 x widened s4) bit-exact at M 4096,
      K 768, N 3072, its TOP/s beside ``torch._int_mm`` and K4's s8 GEMM
      (a refusal of the s4 ``mma`` by ptxas would be printed as the
-     probe's answer);
+     probe's answer); and every kernel that holds an attention core (K2,
+     K3, K4, K4a, K5, K6, K7, K8) at heads of width 32 and 128 (24 and 6
+     heads at C 768; ``check_head_widths``), by the same bars, each timed
+     beside the same kernel at width 64 on the same input, K7 and K8
+     beside ``scaled_dot_product_attention`` at that width;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -63,7 +67,9 @@ kernel against its plain PyTorch version on the card:
      plain versions; and (5b) the v3 slice in ``w8a8+attn``: K1, then K4a in
      12 block and 4 chain launches, no K2, K3 or K4 without it, timed,
      profiled, held to the plain versions, its label disagreement with the
-     w8a8 slice printed;
+     w8a8 slice printed; and (5d) the v3 slice with 24 heads of 32 and
+     with 6 of 128, each in w8a8 and bf16, its launches counted, timed
+     and held to the plain versions;
   6. the serving walk: ``process_folder`` with ``quantize="w8a8"`` and
      label maps over four 2048² scenes of 8192 regions in the reference
      folder layout (K1's fused patch kernel 3 a chunk), each scene's
@@ -96,7 +102,10 @@ kernel against its plain PyTorch version on the card:
      0.5%; the same for the first walk scene (2048², 8192 regions, w8a8)
      through ``process_scene`` and through ``segment_scene_device`` with
      its region map (K9 at 2048²), and for v5, trained and calibrated the
-     same way, in a w8a8 slice;
+     same way, in a w8a8 slice; each slice (v3 bf16, w8a8, w8a8+attn, v5
+     w8a8) again with ``model.chain_stage0`` (three chain launches a
+     chunk, no block launch), gated against the same plain outputs and
+     timed beside the unchained slice;
   9. scale-out, on those trained weights and that threshold, the flagship
      in w8a8: world size 1 on NCCL in this process
      (``extract_and_merge_sharded``, ``process_scene(mesh=...)``, and
@@ -112,7 +121,8 @@ kernel against its plain PyTorch version on the card:
      rank, through K7 and in training K6): the slice's embeddings held to
      the single-device plain forward (RMS error, first-round decisions at
      phase 8's threshold), two training steps held to one device's losses,
-     the replicated parameters equal on both ranks;
+     the replicated parameters equal on both ranks (on ``TP_SCENE``, the
+     slice's scene cut to one chunk of points);
  10. the modules ported last: K1 at the vit sides (the fused patch kernel
      bit-exact at out 28/56/112/224 on the vit slice's caps and at a cap of
      256, its gather at the caps above 256 and at 512, each fused slot
@@ -130,13 +140,14 @@ kernel against its plain PyTorch version on the card:
      ``export_class_patches`` at window 224 read back with
      ``load_patch_shard``, their patches bit-exact against the plain path;
      ``python -m deepmerge_tpu_torch.eval --calibrate`` as a subprocess on
-     the card; ``utils.profiling``'s ``sync_time`` and ``rep_probe`` of one
+     the card (the root eval.py's model, 4 heads of 32: K6 at width 32 in
+     training, K2 in serving), its launch counts printed; ``utils.profiling``'s ``sync_time`` and ``rep_probe`` of one
      K4 block beside CUDA events.
 
-``--only patches,kernels,trained,scaleout,family`` runs K1's fused patch
-check, phase 3, phase 8, phases 8 and 9 and/or phase 10 alone (after the
-card, the build and the scene) and prints no result lines: a development
-run, not the smoke run.
+``--only patches,kernels,widths,trained,scaleout,family`` runs K1's fused
+patch check, phase 3, phase 3's head-width check, phase 8, phases 8 and 9
+and/or phase 10 alone (after the card, the build and the scene) and prints
+no result lines: a development run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -146,7 +157,10 @@ forward and backward, and, at the lengths v5 and v1 bring (193/49/13 and
 is a JSON object with one
 entry per kernel (its time, its plain version's, and its bound: the least
 time the card could take for the same work, from the bytes it must move
-and the operations it must do at the H100's published peaks); the last
+and the operations it must do at the H100's published peaks; a kernel
+that holds an attention core also gives the head widths it was held to
+its plain version at, with its worst error and its time at each beside
+width 64's, ``width_summary``); the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the script exits non-zero without those lines; so does a run without CUDA
 or outside the repository. Imports nothing of JAX or of the JAX package.
@@ -340,6 +354,21 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
+def cuda_once(fn):
+    """``fn()`` and its device time over that one call, between two CUDA
+    events: for the plain versions, whose passes are long enough that a
+    warm-up call changes nothing."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def cuda_median_ms(fn, reps=20):
     """Median device time of one call of ``fn`` over ``reps`` calls, each
     between its own pair of CUDA events, after one warm-up."""
@@ -482,14 +511,14 @@ def check_block(what, got, want, x, tol, tol_rms):
                   f"contribution RMS err {rms:.3e} (tol {tol_rms})")
 
 
-def block_inputs(b, n, depth, dev, seed):
+def block_inputs(b, n, depth, dev, seed, heads=12, c=768):
     """Random bf16 activations and ``depth`` blocks of flagship-width
-    parameters (C 768, 12 heads, MLP 3072) on the card."""
+    parameters (C 768, ``heads`` heads, MLP 4C) on the card."""
     import numpy as np
     import torch
 
     rs = np.random.default_rng(seed)
-    c, heads, hidden = 768, 12, 3072
+    hidden = 4 * c
 
     def r(*shape, s=0.02):
         return torch.from_numpy(
@@ -1533,6 +1562,282 @@ def check_wide_tokens(dev):
             "attention_bnhd": k8}
 
 
+# the head widths the attention cores take besides the flagship's 64, each
+# checked at the flagship's width of 768 (24 heads of 32, 6 of 128)
+HEAD_WIDTHS = (32, 128)
+
+
+def check_head_widths(dev, c=768, batch=1024):
+    """Phase 3 at heads of width 32 and 128: every kernel that holds an
+    attention core (K2, K3, K4, K4a, K5, K6, K7, K8) against its plain
+    version at C ``c`` (the flagship's 768), B ``batch`` (the slice's
+    1024) and N 192/48/12 and 193 (B 240 for K5 and K6), by the width-64
+    checks' bars, each timed beside the same kernel on the same input with
+    heads of 64 (only the bias differs), K7 and K8 beside
+    ``scaled_dot_product_attention`` at the same width. Returns, by kernel
+    name, ``{width: [{n, ms, ms_64, max_abs_err, ...}, ...]}``."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    bf = torch.bfloat16
+    out = {}
+
+    def record(name, d, **vals):
+        out.setdefault(name, {}).setdefault(d, []).append(vals)
+
+    def bias64(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((c // 64, n, n), generator=g, device=dev) * 0.5
+
+    def with_bias(p, bias, i=4):
+        return tuple(p[:i]) + (bias,) + tuple(p[i + 1:])
+
+    for d in HEAD_WIDTHS:
+        heads = c // d
+        h64 = c // 64
+        tag = f"{heads} heads of {d}"
+        # K2 (N 192, 193) and K3 (N 48 x 4, N 12 x 2), bf16
+        for n, depth in ((192, 1), (193, 1), (48, 4), (12, 2)):
+            x, plist, _ = block_inputs(batch, n, depth, dev, seed=d + n,
+                                       heads=heads, c=c)
+            p64 = [with_bias(p, bias64(n, i)) for i, p in enumerate(plist)]
+            if depth == 1:
+                name, tol, tol_rms = "fused_block", TOL_BLOCK, TOL_BLOCK_RMS
+                run = lambda: fb.fused_block(x, plist[0], heads)
+                run64 = lambda: fb.fused_block(x, p64[0], h64)
+                plain = lambda: fb.block_ref(x, plist[0], heads)
+            else:
+                name, tol, tol_rms = ("fused_block_chain", TOL_CHAIN,
+                                      TOL_CHAIN_RMS)
+                run = lambda: fb.fused_block_chain(x, plist, heads)
+                run64 = lambda: fb.fused_block_chain(x, p64, h64)
+                plain = lambda: fb.chain_ref(x, plist, heads)
+            want, plain_ms = cuda_once(plain)
+            aerr, errs = check_block(f"{name} ({tag}, N={n})", run(), want,
+                                     x, tol, tol_rms)
+            ms, ms64 = cuda_ms(run), cuda_ms(run64)
+            bk = bound(*block_work(batch, n, depth, c=c, heads=heads,
+                                   hidden=4 * c))
+            print(f"K2/K3 {name} {tag} B={batch} N={n} depth {depth}: {errs}; "
+                  f"{ms:.3f} ms ({h64} heads of 64: {ms64:.3f}), plain "
+                  f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+            record(name, d, n=n, ms=ms, ms_64=ms64, max_abs_err=aerr,
+                   plain_ms=plain_ms, **bk)
+            del x, plist, p64, want
+            torch.cuda.empty_cache()
+
+        # K4 and K4a: the w8a8 block (N 192, 193) and chains with dynamic
+        # scales, and the block at N 192 with static ones (from
+        # block_act_amax)
+        for n, depth in ((192, 1), (193, 1), (48, 4), (12, 2)):
+            x, plist, _ = block_inputs(batch, n, depth, dev, seed=d + n + 1,
+                                       heads=heads, c=c)
+            for quant_attn in (False, True):
+                for static in ((False, True) if n == 192 else (False,)):
+                    qps, h = [], x
+                    for p in plist:
+                        amax = (fb.block_act_amax(h, p, heads)[1] if static
+                                else None)
+                        qp = fb.quantize_block_params(p, amax)
+                        h = fb.block_ref_q8(h, qp, heads,
+                                            quant_attn=quant_attn).to(x.dtype)
+                        qps.append(qp)
+                    q64 = [with_bias(q, bias64(n, i), 5)
+                           for i, q in enumerate(qps)]
+                    kw = dict(quant_attn=quant_attn)
+                    if depth == 1:
+                        name, tol, tol_rms = ("fused_block_q8", TOL_BLOCK,
+                                              TOL_BLOCK_RMS)
+                        run = lambda: fb.fused_block_q8(x, qps[0], heads, **kw)
+                        run64 = lambda: fb.fused_block_q8(x, q64[0], h64,
+                                                          **kw)
+                        plain = lambda: fb.block_ref_q8(x, qps[0], heads, **kw)
+                    else:
+                        name, tol, tol_rms = ("fused_block_chain_q8",
+                                              TOL_CHAIN, TOL_CHAIN_RMS)
+                        run = lambda: fb.fused_block_chain_q8(x, qps, heads,
+                                                              **kw)
+                        run64 = lambda: fb.fused_block_chain_q8(x, q64, h64,
+                                                                **kw)
+                        plain = lambda: fb.chain_ref_q8(x, qps, heads, **kw)
+                    name += "_attn" if quant_attn else ""
+                    mode = "static" if static else "dynamic"
+                    want, plain_ms = cuda_once(plain)
+                    aerr, errs = check_block(
+                        f"{name} ({tag}, N={n}, {mode})", run(), want, x,
+                        tol, tol_rms)
+                    ms, ms64 = cuda_ms(run), cuda_ms(run64)
+                    bk = bound(*block_work(batch, n, depth, q8=True,
+                                           q8_attn=quant_attn, c=c,
+                                           heads=heads, hidden=4 * c))
+                    print(f"K4{'a' if quant_attn else ''} {name} {tag} "
+                          f"B={batch} N={n} depth {depth} {mode}: {errs}; "
+                          f"{ms:.3f} ms ({h64} heads of 64: {ms64:.3f}), "
+                          f"plain {plain_ms:.3f} ms, bound "
+                          f"{bk['bound_ms']:.3f} ms")
+                    if not static:
+                        record(name, d, n=n, ms=ms, ms_64=ms64,
+                               max_abs_err=aerr, plain_ms=plain_ms, **bk)
+                    del qps, q64, h, want
+            del x, plist
+            torch.cuda.empty_cache()
+
+        # K5, the training block, at the training batch: out, the four
+        # residuals and every gradient through its autograd function
+        b = 2 * TRAIN_PAIRS
+        for n in (192, 12):
+            x, plist, _ = block_inputs(b, n, 1, dev, seed=d + n + 2,
+                                       heads=heads, c=c)
+            p = plist[0]
+            got_out, saved = fb.fused_block_train(x, p, heads)
+            (want_out, want), plain_ms = cuda_once(
+                lambda: fb.block_train_ref(x, p, heads))
+            aerr, errs = check_block(f"K5 out ({tag}, N={n})", got_out,
+                                     want_out, x, TOL_BLOCK, TOL_BLOCK_RMS)
+            probs_err = abs_err(saved[1], want[1])
+            saved_err = max(rel_err(saved[i], want[i]) for i in (0, 2, 3))
+            require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
+                    f"K5 ({tag}, N={n}): probs {probs_err}, saved "
+                    f"{saved_err}")
+            g = torch.from_numpy(np.random.default_rng(n).standard_normal(
+                x.shape).astype(np.float32)).to(dev, x.dtype)
+
+            def grads():
+                xs = x.clone().requires_grad_(True)
+                ps = [t.clone().requires_grad_(True) for t in p]
+                fb.fused_block(xs, ps, heads).backward(g)
+                return [xs.grad] + [t.grad for t in ps]
+
+            got_g = grads()
+            with mock.patch.object(fb, "fused_block_train",
+                                   fb.block_train_ref):
+                want_g = grads()
+            g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+            require(g_err <= TOL_K5_GRAD, f"K5 gradients ({tag}, N={n}): "
+                    f"{g_err}")
+            p64 = with_bias(p, bias64(n, 0))
+            ms = cuda_ms(lambda: fb.fused_block_train(x, p, heads))
+            ms64 = cuda_ms(lambda: fb.fused_block_train(x, p64, h64))
+            bk = bound(*train_block_work(b, n, c=c, heads=heads,
+                                         hidden=4 * c))
+            print(f"K5 fused_block_train {tag} B={b} N={n}: out {errs}; "
+                  f"probs max |err| {probs_err:.3e}, saved {saved_err:.3e}, "
+                  f"gradients {g_err:.3e} (tol {TOL_K5_GRAD}); {ms:.3f} ms "
+                  f"({h64} heads of 64: {ms64:.3f}), plain {plain_ms:.3f} ms, "
+                  f"bound {bk['bound_ms']:.3f} ms")
+            record("fused_block_train", d, n=n, ms=ms, ms_64=ms64,
+                   max_abs_err=aerr, plain_ms=plain_ms, **bk)
+            del x, plist, p, p64, got_out, saved, want_out, want, got_g, \
+                want_g
+            torch.cuda.empty_cache()
+
+        def attention_inputs(bb, n, seed, h=heads):
+            rs = np.random.default_rng(seed)
+            r = lambda *shape, sd=1.0: torch.from_numpy(
+                (rs.standard_normal(shape) * sd).astype(np.float32)).to(dev)
+            return r(bb, n, 3 * c).to(bf), r(h, n, n, sd=0.5)
+
+        # K6 at the training batch, forward and backward
+        for n in (192, 48, 12):
+            qkv, bias = attention_inputs(b, n, d + n + 3)
+            bias_64 = bias64(n, 1)
+            got_o, got_p = fa.attention_probs(qkv, bias, heads)
+            (want_o, want_p), plain_ms = cuda_once(
+                lambda: fa.attention_probs_ref(qkv, bias, heads))
+            o_err, p_err = rel_err(got_o, want_o), abs_err(got_p, want_p)
+            g = attention_inputs(b, n, d + n + 4)[0][..., :c].contiguous()
+
+            def grads():
+                q = qkv.clone().requires_grad_(True)
+                bb = bias.clone().requires_grad_(True)
+                fa.fused_attention_train(q, bb, heads).backward(g)
+                return q.grad, bb.grad
+
+            got_g = grads()
+            with mock.patch.object(fa, "attention_probs",
+                                   fa.attention_probs_ref):
+                want_g = grads()
+            g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+            require(o_err <= TOL_K6_OUT and p_err <= TOL_K6_PROBS
+                    and g_err <= TOL_K6_GRAD,
+                    f"K6 ({tag}, N={n}): out {o_err}, probs {p_err}, "
+                    f"gradients {g_err}")
+            ms = cuda_ms(lambda: fa.attention_probs(qkv, bias, heads))
+            ms64 = cuda_ms(lambda: fa.attention_probs(qkv, bias_64, h64))
+            bk = bound(qkv.numel() * 2 + bias.numel() * 4
+                       + got_o.numel() * 2 + got_p.numel() * 2,
+                       bf16_flops=4 * b * n * n * c)
+            print(f"K6 attention_probs {tag} B={b} N={n}: out rel err "
+                  f"{o_err:.3e}, probs max |err| {p_err:.3e}, gradients "
+                  f"{g_err:.3e}; {ms:.4f} ms ({h64} heads of 64: {ms64:.4f}), "
+                  f"plain {plain_ms:.3f} ms, bound {bk['bound_ms']:.4f} ms")
+            record("fused_attention_train", d, n=n, ms=ms, ms_64=ms64,
+                   max_abs_err=abs_err(got_o, want_o), plain_ms=plain_ms,
+                   **bk)
+            del qkv, bias, bias_64, got_o, got_p, want_o, want_p, g, got_g, \
+                want_g
+            torch.cuda.empty_cache()
+
+        # K7 (packed qkv) and K8 ((B, N, H, D)) at the serving chunk, each
+        # beside SDPA at the same width
+        for n in (192, 193, 48, 12):
+            qkv, bias = attention_inputs(batch, n, d + n + 5)
+            bias_64 = bias64(n, 2)
+            bk = bound(batch * n * 4 * c * 2 + heads * n * n * 4,
+                       bf16_flops=4 * batch * n * n * c)
+            q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+            cases = [("attention_qkv", "K7",
+                      lambda: fa.attention_qkv(qkv, bias, heads),
+                      lambda: fa.attention_qkv(qkv, bias_64, h64),
+                      lambda: fa.attention_qkv_ref(qkv, bias, heads))]
+            if n == 192:
+                q64, k64, v64 = (t.contiguous()
+                                 for t in fa.split_qkv(qkv, h64))
+                cases.append((
+                    "attention_bnhd", "K8",
+                    lambda: fa.attention_bnhd(q, k, v, bias),
+                    lambda: fa.attention_bnhd(q64, k64, v64, bias_64),
+                    lambda: fa.attention_bnhd_ref(q, k, v, bias)))
+            lib_ms = attention_library_ms(
+                *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
+                bias)
+            for name, kn, run, run64, plain in cases:
+                (want, plain_ms), got = cuda_once(plain), run()
+                err = rel_err(got, want)
+                require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from "
+                        f"plain: {err} > {TOL_K7}")
+                ms, ms64 = cuda_ms(run), cuda_ms(run64)
+                print(f"{kn} {name} {tag} B={batch} N={n}: rel err {err:.3e} "
+                      f"(tol {TOL_K7}); {ms:.4f} ms ({h64} heads of 64: "
+                      f"{ms64:.4f}), plain {plain_ms:.3f} ms, SDPA at width "
+                      f"{d} {lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms")
+                record(name, d, n=n, ms=ms, ms_64=ms64,
+                       max_abs_err=abs_err(got, want), plain_ms=plain_ms,
+                       library_ms=lib_ms, **bk)
+                del got, want
+            del qkv, bias, bias_64, q, k, v, cases
+            torch.cuda.empty_cache()
+    return out
+
+
+def width_summary(widths, name):
+    """The ``kernels`` line's account of the head widths a kernel was held
+    to its plain version at: the widths, and for each of 32 and 128 its
+    worst error and its time at the main path's shape (the first case
+    checked) beside width 64's on the same input."""
+    cases = widths.get(name, {})
+    return dict(
+        head_widths=[32, 64, 128] if cases else [64],
+        width_max_abs_err={str(d): max(c["max_abs_err"] for c in cs)
+                           for d, cs in cases.items()},
+        width_ms={str(d): dict(n=cs[0]["n"], ms=cs[0]["ms"],
+                               ms_64=cs[0]["ms_64"])
+                  for d, cs in cases.items()})
+
+
 # the operators whose own kernels are matrix products (cuBLAS names its
 # kernels in several families, so they are counted by operator)
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
@@ -2228,14 +2533,11 @@ def parity_gate(label, thr, emb, d, maps, gt=None):
     return dis
 
 
-def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
-                  region_map, thr, max_rounds=8, on=()):
-    """``segment_scene_device`` with the region map (the merged map through
-    K9) at ``thr``, on the kernels (``on`` required launched, K9
-    included) and on the plain versions, held by ``parity_gate``."""
+def trained_run(ex, scene, ds, dcfg, edges_d, valid_d, region_map, thr,
+                max_rounds=8):
+    """``segment_scene_device`` of ``ex`` with the region map (the merged
+    map through K9) at ``thr``, synchronized, as a callable."""
     import torch
-
-    n_pts = scene.regions.num_points
 
     def run():
         out = ex.segment_scene_device(
@@ -2246,11 +2548,31 @@ def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
         torch.cuda.synchronize()
         return out
 
+    return run
+
+
+def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
+                  region_map, thr, max_rounds=8, on=(), plain=None):
+    """``trained_run`` on the kernels (``on`` required launched, K9
+    included) and on the plain versions, held by ``parity_gate``. With
+    ``plain`` (a dict), the plain run's outputs are kept there under
+    ``"out"``, or taken from there if an earlier call of the same function
+    kept them."""
+    import torch
+
+    n_pts = scene.regions.num_points
+    run = trained_run(ex, scene, ds, dcfg, edges_d, valid_d, region_map,
+                      thr, max_rounds)
     out_k, launches = counted(run)
     require_launches(launches, tuple(on) + ("label_lookup",), ("int4_dot",),
                      label)
-    with plain_versions():
-        out_p = run()
+    if plain is not None and "out" in plain:
+        out_p = plain["out"]
+    else:
+        with plain_versions():
+            out_p = run()
+        if plain is not None:
+            plain["out"] = out_p
     dis = parity_gate(
         label, thr, (out_k[5][:n_pts], out_p[5][:n_pts]),
         (out_k[0].cpu().numpy()[valid], out_p[0].cpu().numpy()[valid]),
@@ -2260,6 +2582,65 @@ def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
     del out_k, out_p
     torch.cuda.empty_cache()
     return dis, launches
+
+
+# the launches of model.chain_stage0 (every stage one chain launch a
+# chunk), by quantize: the chain kernel, and the block kernel that must
+# not run
+STAGE0_CHAINS = {"": ("fused_block_chain", "fused_block"),
+                 "w8a8": ("fused_block_chain_q8", "fused_block_q8"),
+                 "w8a8+attn": ("fused_block_chain_q8_attn",
+                               "fused_block_q8_attn")}
+
+
+def chained_stage0(dev, card, trained, label, quantize, scene, ds, dcfg,
+                   edges_d, valid_d, valid, region_map, thr, plain,
+                   **model_kw):
+    """``model.chain_stage0`` on phase 8's trained weights and threshold:
+    the slice of ``quantize`` with stage 0 as one chain launch (three chain
+    launches a chunk, no block launch), gated by ``parity_gate`` against
+    ``plain``, the plain outputs that ``trained_slice`` kept for the
+    unchained slice (the same function), and timed (median of 3, in turns
+    with the unchained slice, on the same staged scene). Returns the
+    disagreement, the launches and both medians."""
+    import torch
+
+    chain, block = STAGE0_CHAINS[quantize]
+    runs = {}
+    for stage0 in (False, True):
+        ex = trained_extractor(dev, trained, dcfg.eval_batch_size, quantize,
+                               chain_stage0=stage0, **model_kw)
+        runs[stage0] = trained_run(ex, scene, ds, dcfg, edges_d, valid_d,
+                                   region_map, thr)
+    n_chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
+    out_k, launches = counted(runs[True])
+    require(launches[chain] == 3 * n_chunks and launches[block] == 0,
+            f"chain_stage0 {label}: launches {launches}, want {chain} 3 a "
+            f"chunk of {n_chunks} and no {block}")
+    n_pts = scene.regions.num_points
+    out_p = plain["out"]
+    dis = parity_gate(
+        f"{label} with chain_stage0", thr,
+        (out_k[5][:n_pts], out_p[5][:n_pts]),
+        (out_k[0].cpu().numpy()[valid], out_p[0].cpu().numpy()[valid]),
+        (out_k[3].cpu().numpy(), out_p[3].cpu().numpy()),
+        None if scene.object_of_region is None
+        else scene.object_of_region[scene.labels])
+    times = {False: [], True: []}
+    for stage0 in (False, True, True, False, False, True):
+        t = time.perf_counter()
+        runs[stage0]()
+        times[stage0].append(time.perf_counter() - t)
+    off, on = (statistics.median(times[k]) for k in (False, True))
+    print(f"chain_stage0 {label}: stage 0 one chain launch a chunk "
+          f"({launches[chain]} chain launches, {launches[block]} block); "
+          f"median {on * 1e3:.1f} ms of "
+          f"{[round(x * 1e3, 1) for x in times[True]]} against "
+          f"{off * 1e3:.1f} ms unchained "
+          f"({[round(x * 1e3, 1) for x in times[False]]}) on {card}")
+    del runs, out_k
+    torch.cuda.empty_cache()
+    return dis, launches, (off, on)
 
 
 def padded_edges(scene, dev):
@@ -2335,9 +2716,11 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     v3 bf16, w8a8 and w8a8+attn slices at that threshold, and the first
     serving-walk scene (``trained_walk_scene``), on the kernels and on the
     plain versions, each gated by ``parity_gate``; then v5 trained and
-    calibrated the same way, its w8a8 slice gated too. Returns the
+    calibrated the same way, its w8a8 slice gated too. After each slice,
+    the same with ``model.chain_stage0`` (``chained_stage0``). Returns the
     disagreements, the flagship's weights and threshold, and the launches
-    of the walk scene's device-map run."""
+    of the walk scene's device-map run followed by those of the
+    chain_stage0 runs."""
     import torch
 
     from deepmerge_tpu_torch.config import ModelConfig
@@ -2349,30 +2732,44 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
                "w8a8": Q8_PATH,
                "w8a8+attn": ("patch_resize", "fused_block_q8_attn",
                              "fused_block_chain_q8_attn")}
-    results = {}
+    results, stage0_times, stage0_launches = {}, {}, []
+    slice_args = (scene, ds, dcfg, edges_d, valid_d, valid, region_map)
+
+    def with_stage0_chain(weights, label, quantize, threshold, **model_kw):
+        # the slice, then the same with model.chain_stage0 against the
+        # plain outputs the slice kept
+        plain = {}
+        ex = trained_extractor(dev, weights, dcfg.eval_batch_size, quantize,
+                               **model_kw)
+        results[label], _ = trained_slice(
+            ex, f"{label} slice", *slice_args, threshold,
+            on=kernels[quantize], plain=plain)
+        del ex
+        results[f"{label} chain_stage0"], launches, stage0_times[label] = \
+            chained_stage0(dev, card, weights, label, quantize, *slice_args,
+                           threshold, plain, **model_kw)
+        stage0_launches.append(launches)
+        del plain
+        torch.cuda.empty_cache()
+
     for label, quantize in (("bf16", ""), ("w8a8", "w8a8"),
                             ("w8a8+attn", "w8a8+attn")):
-        ex = trained_extractor(dev, trained, dcfg.eval_batch_size, quantize)
-        results[label], _ = trained_slice(
-            ex, f"v3 {label} slice", scene, ds, dcfg, edges_d, valid_d,
-            valid, region_map, thr, on=kernels[quantize])
-        del ex
+        with_stage0_chain(trained, f"v3 {label}", quantize, thr)
     walk_results, walk_launches = trained_walk_scene(dev, trained, thr, walk)
     results.update(walk_results)
     # v5 (the designed-feature token in the sequence) trained and
     # calibrated the same way: its own weights and threshold
     v5 = train_trusted(dev, scene, ModelConfig(variant="v5"))
     thr5 = calibrated_threshold(dev, v5, dcfg, variant="v5")
-    ex = trained_extractor(dev, v5, dcfg.eval_batch_size, "w8a8",
-                           variant="v5")
-    results["v5 w8a8"], _ = trained_slice(
-        ex, "v5 w8a8 slice", scene, ds, dcfg, edges_d, valid_d, valid,
-        region_map, thr5, on=Q8_PATH)
-    del ex, v5
+    with_stage0_chain(v5, "v5 w8a8", "w8a8", thr5, variant="v5")
+    del v5
     torch.cuda.empty_cache()
+    medians = {k: tuple(round(t * 1e3, 1) for t in v)
+               for k, v in stage0_times.items()}
     print(f"trained-weight parity phase: {time.perf_counter() - t_phase:.1f} "
-          f"s on {card}; label disagreements {results}")
-    return results, trained, thr, walk_launches
+          f"s on {card}; label disagreements {results}; chain_stage0 "
+          f"medians (unchained, chained) in ms {medians}")
+    return results, trained, thr, [walk_launches] + stage0_launches
 
 
 def free_port():
@@ -2809,21 +3206,24 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
               f"ranks (checksum {o['checksum']:.6e})")
         require(rel[0] <= TOL_TRAIN_LOSS0 and rel.max() <= TOL_TRAIN_LOSS,
                 f"rank {k}: data-parallel losses differ: {rel}")
-    runs.extend(tensor_parallel_case(dev, card, scene, ds, dcfg, trained,
-                                     thr))
+    runs.extend(tensor_parallel_case(dev, card, dcfg, trained, thr))
     print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s on {card}")
     return runs
 
 
 TP_RANKS = 2
 TP_STEPS = 2
+# the TP case's scene: the slice's, cut to half its regions, so that its
+# points fill one chunk of the slice's batch (gloo moves each float32
+# partial product through the host, and the forward's time is that)
+TP_SCENE = dict(SCENE, n_regions=SCENE["n_regions"] // 2)
 
 
 def tensor_parallel_rank(rank, world, root):
     """One rank of the tensor-parallel case, in its own process on the one
     card (gloo, CUDA tensors), a (1, ``world``) mesh: the flagship v3 in
     bf16 built for the mesh on its ``shard_params`` of phase 8's weights,
-    the slice's embeddings through ``extract_scene_device``, then
+    ``TP_SCENE``'s embeddings through ``extract_scene_device``, then
     ``TP_STEPS`` steps of ``make_train_step(cfg, mesh)``; what it saw goes
     to ``<root>/tp<rank>.pkl``."""
     import pickle
@@ -2910,14 +3310,14 @@ def tensor_parallel_rank(rank, world, root):
         pickle.dump(out, f)
 
 
-def tensor_parallel_case(dev, card, scene, ds, dcfg, trained, thr):
+def tensor_parallel_case(dev, card, dcfg, trained, thr):
     """Phase 9's tensor-parallel case: ``TP_RANKS`` ranks in as many
     processes on the one card over gloo (``tensor_parallel_rank``), the
     flagship v3 at full width (embed 768, 12 heads: 6 of width 64 a rank)
-    on phase 8's weights. Each rank's embeddings of the slice's points
-    against the single-device forward on the plain versions (RMS error and
-    the first-round decisions at phase 8's threshold, as the slices are
-    held), K7 launched on the local heads and no block kernel; its training
+    on phase 8's weights. Each rank's embeddings of ``TP_SCENE``'s points
+    (one chunk) against the single-device forward on the plain versions
+    (RMS error and the first-round decisions at phase 8's threshold, as the
+    slices are held), K7 launched on the local heads and no block kernel; its training
     steps (K6 on the local heads) against one device's steps from the same
     weights and batches, by phase 7's loss bars, its replicated parameters
     identical on both ranks. A check of the split and its collectives, not
@@ -2929,7 +3329,10 @@ def tensor_parallel_case(dev, card, scene, ds, dcfg, trained, thr):
     import torch
 
     from deepmerge_tpu_torch.config import Config, DataConfig, ModelConfig
-    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
+    from deepmerge_tpu_torch.geodata.synthetic import (
+        generate_scene,
+        make_training_pairs,
+    )
     from deepmerge_tpu_torch.ops.segment import edge_distances, segment_mean
     from deepmerge_tpu_torch.train import loop
     from deepmerge_tpu_torch.train.sampler import PairSampler
@@ -2943,7 +3346,7 @@ def tensor_parallel_case(dev, card, scene, ds, dcfg, trained, thr):
         torch.save(trained, os.path.join(root, "trained.pt"))
         with open(os.path.join(root, "spec.pkl"), "wb") as f:
             pickle.dump(dict(port=free_port(), dcfg=dcfg, tcfg=tcfg,
-                             epoch_seed=epoch_seed, scene=SCENE,
+                             epoch_seed=epoch_seed, scene=TP_SCENE,
                              device=str(dev)), f)
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=tensor_parallel_rank,
@@ -2972,11 +3375,12 @@ def tensor_parallel_case(dev, card, scene, ds, dcfg, trained, thr):
           f"{TP_RANKS}, {12 // TP_RANKS} heads of 64 a rank): {wall:.1f} s "
           "with start-up")
 
-    # the single-device references: the forward on the plain versions,
-    # then the same steps from the same weights and batches
+    # the single-device references on the same scene: the forward on the
+    # plain versions, then the same steps from the same weights and batches
+    scene = generate_scene(**TP_SCENE)
     ex = trained_extractor(dev, trained, dcfg.eval_batch_size)
     with plain_versions():
-        emb_p = ex.extract_scene_device(scene, dcfg, device_scene=ds)
+        emb_p = ex.extract_scene_device(scene, dcfg)
     del ex
     r = scene.regions.num_regions
     pr = torch.as_tensor(scene.regions.point_region, device=dev)
@@ -3336,16 +3740,28 @@ def legacy_and_tiles(dev, scene):
     return trip_launches, tile_launches
 
 
+# ``python -m deepmerge_tpu_torch.eval`` with its arguments, in a process
+# that prints every kernel's launch count after it as one JSON line
+EVAL_WITH_COUNTS = (
+    "import json, sys, runpy, chip_smoke\n"
+    "fns = chip_smoke.counters()\n"
+    "sys.argv = ['deepmerge_tpu_torch.eval'] + sys.argv[1:]\n"
+    "runpy.run_module('deepmerge_tpu_torch.eval', run_name='__main__')\n"
+    "print(json.dumps({k: f.launches for k, f in fns.items()}))\n")
+
+
 def eval_run(repo):
     """Phase 10, ``python -m deepmerge_tpu_torch.eval --calibrate`` at its
-    smoke defaults as a subprocess on the card (its logs and checkpoints in
-    a temporary directory): exit 0 and a JSON tail that parses."""
+    smoke defaults (the root eval.py's model: embed 128, 4 heads of 32) as
+    a subprocess on the card (its logs and checkpoints in a temporary
+    directory): exit 0, a JSON tail that parses, and its kernels' launch
+    counts, K6 at width 32 in training and K2 in serving among them."""
     root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
         env = dict(os.environ, PYTHONPATH=repo)
         t = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "deepmerge_tpu_torch.eval", "--calibrate",
+            [sys.executable, "-c", EVAL_WITH_COUNTS, "--calibrate",
              "--checkpoint-dir", os.path.join(root, "ck")],
             capture_output=True, text=True, timeout=600, cwd=root, env=env)
         wall = time.perf_counter() - t
@@ -3353,7 +3769,16 @@ def eval_run(repo):
         shutil.rmtree(root, ignore_errors=True)
     require(proc.returncode == 0, f"eval exited {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
-    tail = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = proc.stdout.strip().splitlines()
+    tail, launches = json.loads(lines[-2]), json.loads(lines[-1])
+    require(tail["config"]["num_heads"] == 4
+            and tail["config"]["embed_dim"] == 128,
+            f"eval's smoke model {tail['config']}")
+    print(f"eval launches (4 heads of 32): {launches}")
+    require_launches(launches, ("patch_resize", "fused_attention_train",
+                                "fused_block"),
+                     ("fused_block_q8", "fused_block_chain_q8",
+                      "attention_bnhd", "int4_dot"), "the eval run")
     held = [(h["seed"], h["clusters"], h["pair_disagreement"])
             for h in tail["held_out"]]
     print(f"eval (python -m deepmerge_tpu_torch.eval --calibrate, smoke "
@@ -3509,15 +3934,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, repo)
-    # development runs: ``--only patches,kernels,trained,scaleout,family``
-    # runs those phases alone (after the card, the build and the scene;
-    # patches: K1's fused patch kernel, a part of phase 3; family: phase 10)
-    # and prints no result lines
+    # development runs: ``--only
+    # patches,kernels,widths,trained,scaleout,family`` runs those phases
+    # alone (after the card, the build and the scene; patches: K1's fused
+    # patch kernel, widths: the head-width check, both parts of phase 3;
+    # family: phase 10) and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"patches", "kernels", "trained", "scaleout",
-                         "family"}, f"unknown phases {only}")
+        require(only <= {"patches", "kernels", "widths", "trained",
+                         "scaleout", "family"}, f"unknown phases {only}")
 
     import warnings
 
@@ -3578,6 +4004,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     if only is not None and "patches" in only:
         check_patch_resize(dev, ds, scene)
+    if only is not None and "widths" in only:
+        check_head_widths(dev)
     if only is None or "kernels" in only:
         kernel_results = check_kernels(dev, ds, scene)
         kernel_results.update(check_patch_resize(dev, ds, scene))
@@ -3593,6 +4021,7 @@ def main() -> int:
         kernel_results.update(check_k5(dev))
         kernel_results.update(check_k6(dev))
         kernel_results.update(check_wide_tokens(dev))
+        widths = check_head_widths(dev)
         kernel_results.update(check_label_lookup(dev, scene))
         k10, probe_launches = check_int4_dot(dev)
         kernel_results.update(k10)
@@ -3813,6 +4242,36 @@ def main() -> int:
         del ex, run
         torch.cuda.empty_cache()
 
+    # 5d. the flagship's width of 768 with heads of 32 and of 128 (24 and 6
+    # heads) in w8a8 and bf16: every block on the kernels at that width
+    depth = ModelConfig().depth
+    for d in HEAD_WIDTHS:
+        for quantize, on in (("w8a8", q8_kernels), ("", bf16_kernels)):
+            label = f"{768 // d} heads of {d}, {quantize or 'bf16'}"
+            ex = extractor_for(quantize, num_heads=768 // d)
+            run = slice_runner(ex)
+            t = time.perf_counter()
+            out, launches = counted(run)
+            print(f"slice ({label}) launches: {launches} (first run "
+                  f"{time.perf_counter() - t:.3f} s)")
+            require_launches(launches, on + tail,
+                             tuple(k for k in block_kernels if k not in on)
+                             + off_path, f"the {label} slice")
+            require_patch_launches(launches, f"the {label} slice")
+            want = {on[1]: depth[0] * n_chunks, on[2]: 2 * n_chunks}
+            require(all(launches[k] == v for k, v in want.items()),
+                    f"{label}: launches {launches}, want {want}")
+            for k in on[1:]:
+                all_launches[k] += launches[k]
+            path_runs.append(launches)
+            _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                                 scene.labels.shape)
+            print(f"slice ({label}): {k} clusters after {n_rounds} rounds")
+            time_slice(run, label, card)
+            against_plain(run, embedder(ex), out, valid, label)
+            del ex, run, out
+            torch.cuda.empty_cache()
+
     # the serving scenes, written once for phases 6 and 9
     walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
     try:
@@ -3853,11 +4312,14 @@ def main() -> int:
         require(rel0 <= TOL_K5_VS_UNFUSED_LOSS0,
                 f"step-0 loss through K5 differs from the unfused one: "
                 f"{rel0}")
-        # 8. the parity bar on trained weights
-        _, trained, thr, launches = trained_parity_phase(
+        # 8. the parity bar on trained weights, model.chain_stage0 on them
+        _, trained, thr, runs = trained_parity_phase(
             dev, card, scene, ds, dcfg, edges_d, valid_d, valid, region_map,
             walk)
-        path_runs.append(launches)
+        path_runs.extend(runs)
+        for launches in runs[1:]:  # the chain_stage0 runs
+            for k in block_kernels:
+                all_launches[k] += launches[k]
         # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
         # ranks on the one card over gloo
         path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
@@ -3914,9 +4376,13 @@ def main() -> int:
     }
     # K10 runs on no path of either package: its count is the probe's own
     all_launches["int4_dot"] = probe_launches
+    # the kernels that hold an attention core also report the head widths
+    # phase 3 held them to their plain versions at
+    cores = block_kernels + attention
     kernels = [
         dict(name=k, route="cuda", source=src, replaces=rep,
-             launches=all_launches[k], **kernel_results[k])
+             launches=all_launches[k], **kernel_results[k],
+             **(width_summary(widths, k) if k in cores else {}))
         for k, (src, rep) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,8 @@ from dataclasses import dataclass, field
 from typing import Any, Sequence
 
 # Variants whose backbone is a stack of CrossScaleBlocks (the reference's
-# nets/ShfitScaleFormer.py transformer stages). The Pallas megakernel — and
-# therefore w8a8 quantized serving — exists only for these; v6 is the
+# nets/ShfitScaleFormer.py transformer stages). The block kernels — and
+# therefore w8a8 quantized serving — exist only for these; v6 is the
 # designed-features-only MLP ablation and "vit" is the ScaleEmbedTransformer
 # adapter. Shared with models.s2former.build_model so the quantize no-op
 # warning can never drift from the actual model dispatch.
@@ -24,22 +24,33 @@ KNOWN_VARIANTS = frozenset(CROSS_SCALE_BLOCK_VARIANTS | {"v6", "vit"})
 
 
 class ExperimentalNegativeWarning(UserWarning):
-    """Raised when a config enables a knob that was built, parity-tested
-    and MEASURED NEGATIVE on v5e (BENCH.md has the receipts). The knobs
-    stay available as documented experiments; nobody should turn them on
-    expecting a win."""
+    """Raised where the JAX package raises it: a config turns on one of
+    its experimental knobs, which that package keeps as documented
+    experiments, not as its defaults. Each message says what the knob
+    measured on the H100 (PERF.md, with the card and its power limit),
+    faster or slower."""
 
 
-def _warn_experimental_negative(knob: str, measurement: str) -> None:
+def _warn_experimental(knob: str, measurement: str) -> None:
     import warnings
 
     warnings.warn(
-        f"{knob} is an experimental knob MEASURED NEGATIVE on v5e "
-        f"({measurement} — BENCH.md). It stays available as a documented "
-        f"experiment; the default path is faster.",
+        f"{knob} is an experimental knob, not the default ({measurement}; "
+        f"PERF.md).",
         ExperimentalNegativeWarning,
         stacklevel=3,
     )
+
+
+# The measurements the warnings quote: chip_smoke.py on one NVIDIA H100
+# 80GB HBM3 at a 700 W power limit, the flagship v3 at batch 1024 on a
+# 1024² scene of 2048 regions (the slice), or 120 pairs a training step.
+H100_SLICE = "NVIDIA H100 80GB HBM3, 700 W, v3 slice of a 1024² scene"
+CHAIN_STAGE0_MEASURED = (
+    "no faster on the H100, where a chain runs its blocks' launches one "
+    "after another: 132.7 against 130.9 ms unchained in w8a8, 142.5 against "
+    "142.3 in bf16 (NVIDIA H100 80GB HBM3, 700 W, trained v3 slice of a "
+    "1024² scene)")
 
 
 @dataclass(frozen=True)
@@ -68,41 +79,38 @@ class ModelConfig:
     drop_ratio: float = 0.0
     attn_drop_ratio: float = 0.0
     drop_path_ratio: float = 0.0
-    dtype: str = "bfloat16"                   # compute dtype on TPU (params stay f32)
-    fused_attention: bool = True              # Pallas fused attention (inference path)
-    fused_block: bool = True                  # whole-block Pallas megakernel
+    dtype: str = "bfloat16"                   # compute dtype (params stay f32)
+    fused_attention: bool = True              # attention kernel (inference path)
+    fused_block: bool = True                  # whole-block kernels
                                               # (active when fused_attention
                                               # is on and all dropouts are 0)
-    fused_stage_chain: bool = True            # whole STAGE as one Pallas kernel
-                                              # (stage-1/2: all blocks' weights
-                                              # VMEM-resident; needs fused_block)
-    chain_stage0: bool = False                # also chain stage-0 (6x N=192
-                                              # blocks ≈ 97MB VMEM — experiment)
-    fused_block_bt: int = 2                   # megakernel batch-tile (samples
-                                              # per grid step)
+    fused_stage_chain: bool = True            # a stage of blocks as one chain
+                                              # launch (stages 1 and 2; needs
+                                              # fused_block)
+    chain_stage0: bool = False                # also chain stage 0 (6 blocks
+                                              # at N 192) — experiment
+    fused_block_bt: int = 2                   # the JAX kernel's batch tile
+                                              # (no effect in the port)
     exact_gelu: bool = False                  # erf GELU (torch parity) vs tanh approx
-                                              # (~15ms/block cheaper on VPU; value
-                                              # diff <=3e-3, well inside the 0.5%
-                                              # label-parity budget)
-    quantize: str = ""                        # "" (bf16) or "w8a8": int8 MXU dots for
-                                              # the megakernel's qkv/proj/mlp GEMMs
-                                              # (1.44x/block on v5e; inference-only,
-                                              # needs the fused-block path).
+                                              # (value diff <=3e-3, well inside
+                                              # the 0.5% label-parity budget)
+    quantize: str = ""                        # "" (bf16) or "w8a8": int8 GEMMs for
+                                              # the block kernels' qkv/proj/mlp
+                                              # (inference-only, needs the
+                                              # fused-block path).
                                               # "w8a8+attn" / "w8a8-static" are
-                                              # EXPERIMENTAL, measured negative on
-                                              # v5e (warn on use; BENCH.md round 4);
+                                              # the JAX package's experiments
+                                              # (warn on use);
                                               # "w8a8-static+attn" was pruned
-                                              # (strictly dominated).
+                                              # there and is refused.
 
     def __post_init__(self):
         if self.quantize == "w8a8-static+attn":
-            # strictly dominated: measured below BOTH w8a8 (4.4258) and
-            # w8a8-static (4.3654) at 4.1265 MPix/s/chip (BENCH.md round-4
-            # static table) — pruned from the config surface
+            # pruned from the JAX package's config surface; refused as there
             raise ValueError(
-                "model.quantize='w8a8-static+attn' was removed: it measured "
-                "strictly below both 'w8a8' and 'w8a8-static' on v5e "
-                "(BENCH.md round 4). Use 'w8a8' (the serving default)."
+                "model.quantize='w8a8-static+attn' was removed from the "
+                "config surface, as in the JAX package. Use 'w8a8' (the "
+                "serving default)."
             )
         if self.quantize not in ("", "w8a8", "w8a8+attn", "w8a8-static"):
             raise ValueError(
@@ -110,23 +118,19 @@ class ModelConfig:
                 f"'w8a8-static', got {self.quantize!r}"
             )
         if self.quantize == "w8a8+attn":
-            _warn_experimental_negative(
+            _warn_experimental(
                 "model.quantize='w8a8+attn'",
-                "0.72x vs w8a8: 37.56 vs 26.91 ms/block — int8 attention "
-                "dots at d=64 lose to bf16",
+                f"slower than w8a8 on the H100: 147.9 against 139.8 ms "
+                f"({H100_SLICE})",
             )
         elif self.quantize == "w8a8-static":
-            _warn_experimental_negative(
+            _warn_experimental(
                 "model.quantize='w8a8-static'",
-                "4.3654 vs 4.4258 MPix/s/chip — the dynamic amax chain "
-                "rides free under Mosaic fusion",
+                f"faster than w8a8 on the H100: 129.3 against 139.8 ms "
+                f"({H100_SLICE}), at calibrated scales",
             )
         if self.chain_stage0:
-            _warn_experimental_negative(
-                "model.chain_stage0",
-                "3.158 vs 3.316 bf16 and 4.245 vs 4.418 w8a8 MPix/s/chip — "
-                "whole-program scheduling beats the saved HBM round-trips",
-            )
+            _warn_experimental("model.chain_stage0", CHAIN_STAGE0_MEASURED)
         if self.quantize and (
             not self.fused_block or not self.fused_attention
             or self.exact_gelu
@@ -206,22 +210,21 @@ class TrainConfig:
                                               # (Train_SMT.py:285-288);
                                               # default off to match what it
                                               # actually runs.
-    fused_block: bool = False                 # train through the Pallas
-                                              # megakernel + saved-activation
-                                              # VJP. MEASURED NEGATIVE on v5e
-                                              # at the reference batch (208.2
-                                              # vs 162.8 ms/step, BENCH.md
-                                              # round 4) — XLA autodiff stays
-                                              # the training default; the
-                                              # kernel path remains grad-
-                                              # parity-tested.
+    fused_block: bool = False                 # train through the training
+                                              # block kernel (K5) and its
+                                              # hand backward: slower on the
+                                              # H100 (238.0 against 161.9
+                                              # ms/step at 120 pairs, 700 W);
+                                              # autograd of the unfused
+                                              # blocks stays the default.
 
     def __post_init__(self):
         if self.fused_block:
-            _warn_experimental_negative(
+            _warn_experimental(
                 "train.fused_block",
-                "208.2 vs 162.8 ms/step at batch 120 — the saved-activation "
-                "kernel VJP loses to XLA autodiff",
+                "slower on the H100: 238.0 against 161.9 ms a step of 120 "
+                "pairs (NVIDIA H100 80GB HBM3, 700 W): the saved-activation "
+                "block and its hand backward lose to autograd",
             )
 
 

@@ -73,17 +73,40 @@ constexpr int kLnMaxVec = 4;  // 8-element vectors per lane: C <= 1024
 
 // ------------------------------------------------------------- attention
 
-constexpr int kHeadDim = 64;
-constexpr int kKS = kHeadDim + 8;  // K/V shared row stride (bf16): 144 B
-constexpr int kAttnMaxWarps = 12;
+// The head widths both attention cores take (the template parameter kD of
+// attention_kernel here and of fused_block_q8.cu's attention_q8_kernel):
+// the widths the S2Former family's configurations use. The C entry points
+// derive the width as C / H and refuse any other.
+__host__ __device__ constexpr bool head_dim_ok(int d) {
+  return d == 32 || d == 64 || d == 128;
+}
+
+// K/V shared row stride (bf16) at head width d: 80, 144 or 272 bytes, each
+// an odd multiple of 16, so the eight rows of an ldmatrix 8x8 fall on eight
+// different 4-bank groups.
+__host__ __device__ constexpr int attn_row(int d) { return d + 8; }
+
+// A CTA's warps at most, which is also the launch bound: 12 (168 registers
+// a thread) at widths 32 and 64; 8 (255 registers) at width 128, whose
+// O accumulators (64 f32 a thread) come on top of up to 128 logits.
+__host__ __device__ constexpr int attn_max_warps(int d) {
+  return d == 128 ? 8 : 12;
+}
 constexpr int kAttnPlanInts = 4;   // key-tile bucket, warps, samples, smem
 
-// Shared memory of one attention CTA for n tokens: K and V of one sample
-// and head, keys padded to the 16-wide MMA tile. 55,296 B at n = 192,
-// 59,904 B at n = 193, 73,728 B at n = 256. The row stride of 144 B puts
-// the eight rows of an ldmatrix 8x8 on eight different 4-bank groups.
-__host__ __device__ inline int attn_smem_bytes(int n) {
-  return 2 * ((n + 15) / 16) * 16 * kKS * static_cast<int>(sizeof(bf16));
+// Shared memory of one attention CTA for n tokens at head width d: K and V
+// of one sample and head, keys padded to the 16-wide MMA tile. At d 64:
+// 55,296 B at n = 192, 59,904 B at n = 193, 73,728 B at n = 256.
+__host__ __device__ inline int attn_smem_bytes(int n, int d) {
+  return 2 * ((n + 15) / 16) * 16 * attn_row(d) * static_cast<int>(sizeof(bf16));
+}
+
+// d^-1/2 as the TPU kernel applies it to a bf16 q: a weakly typed Python
+// float takes the array's dtype in JAX, so the factor is d^-1/2 rounded to
+// bf16 (0.125 exactly at d 64; 0.1767578125 at 32, 0.08837890625 at 128).
+inline float bf16_q_scale(int d) {
+  return __bfloat162float(
+      __float2bfloat16(static_cast<float>(1.0 / sqrt(static_cast<double>(d)))));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -196,12 +219,14 @@ __device__ __forceinline__ void store_pair(bf16* row, int j, int N, bool even,
 //    B fragments by ldmatrix.trans;
 //  * out = bf16(O · 1/Σe), or bf16(O) with kNormFirst, straight from the
 //    accumulators.
-// kKT (a bucket of the 16-key tile count ceil(N/16)) sizes the register
-// arrays; tiles past ceil(N/16) are skipped. q, k and v are the first rows
-// of the three operands, each row `ld` elements apart (3C within a packed
-// (B·N, 3C) qkv, C for (B, N, H, 64) tensors); the output rows are C apart.
-template <int kKT, bool kProbs, bool kNormFirst>
-__global__ void __launch_bounds__(kAttnMaxWarps * 32)
+// kD is the head width (32, 64 or 128): the q·kᵀ k-loop takes kD/16 steps
+// and the O accumulators are 16 x kD. kKT (a bucket of the 16-key tile
+// count ceil(N/16)) sizes the register arrays; tiles past ceil(N/16) are
+// skipped. q, k and v are the first rows of the three operands, each row
+// `ld` elements apart (3C within a packed (B·N, 3C) qkv, C for (B, N, H,
+// kD) tensors); the output rows are C apart. `scale` is bf16_q_scale(kD).
+template <int kD, int kKT, bool kProbs, bool kNormFirst>
+__global__ void __launch_bounds__(attn_max_warps(kD) * 32)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, long long ld,
                  const float* __restrict__ bias, bf16* __restrict__ out,
@@ -211,11 +236,12 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int key_tiles = (N + 15) >> 4;
   const int np = key_tiles * 16;
   bf16* ks = reinterpret_cast<bf16*>(attn_smem);
+  constexpr int kKS = attn_row(kD);
   bf16* vs = ks + np * kKS;
 
   const int h = blockIdx.x;
   const int H = gridDim.x;
-  const int head_off = h * kHeadDim;
+  const int head_off = h * kD;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -229,9 +255,9 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int b = blockIdx.y * samples + si;
     if (b >= B) break;
     const long long row0 = static_cast<long long>(b) * N;
-    for (int idx = threadIdx.x; idx < np * 8; idx += blockDim.x) {
-      const int j = idx >> 3;
-      const int c = (idx & 7) * 8;
+    for (int idx = threadIdx.x; idx < np * (kD / 8); idx += blockDim.x) {
+      const int j = idx / (kD / 8);  // 16-byte pieces of a row
+      const int c = (idx % (kD / 8)) * 8;
       const bool in = j < N;
       const long long off = in ? (row0 + j) * ld + head_off + c : 0;
       cp_async16(ks + j * kKS + c, k + off, in);
@@ -254,7 +280,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      for (int kk = 0; kk < kD / 16; ++kk) {
         const int c0 = kk * 16 + 2 * tig;
         const uint32_t a[4] = {q_pair(q, qa, ra < N, c0, scale),
                                q_pair(q, qb, rb < N, c0, scale),
@@ -336,17 +362,17 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         p[jt][3] = pack_bf16(s[2 * jt + 1][2] * fb, s[2 * jt + 1][3] * fb);
       }
 
-      // O = P·V (16 x 64, f32)
-      float o[kHeadDim / 8][4];
+      // O = P·V (16 x kD, f32)
+      float o[kD / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt)
+      for (int dt = 0; dt < kD / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 #pragma unroll
       for (int jt = 0; jt < kKT; ++jt) {
         if (jt < key_tiles) {
 #pragma unroll
-          for (int dd = 0; dd < kHeadDim / 16; ++dd) {
+          for (int dd = 0; dd < kD / 16; ++dd) {
             uint32_t bv[4];  // d lo (keys 0-7, 8-15), d hi (keys 0-7, 8-15)
             ldsm_x4_t(bv, vs + (jt * 16 + (mi & 1) * 8 + (lane & 7)) * kKS +
                               dd * 16 + (mi >> 1) * 8);
@@ -360,7 +386,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float oa = kNormFirst ? 1.f : inva;
       const float ob = kNormFirst ? 1.f : invb;
 #pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+      for (int dt = 0; dt < kD / 8; ++dt) {
         const int col = head_off + dt * 8 + 2 * tig;
         if (ra < N)
           *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
@@ -374,47 +400,38 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kKT, bool kProbs, bool kNormFirst>
+template <int kD, int kKT, bool kProbs, bool kNormFirst>
 inline cudaError_t attention_run(const bf16* q, const bf16* k, const bf16* v,
                                  long long ld, const float* bias, bf16* out,
                                  bf16* probs, int B, int N, int C, int H,
                                  int warps, int samples, int smem,
                                  cudaStream_t stream) {
-  auto* kern = attention_kernel<kKT, kProbs, kNormFirst>;
+  auto* kern = attention_kernel<kD, kKT, kProbs, kNormFirst>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
   const dim3 grid(H, (B + samples - 1) / samples);
   kern<<<grid, warps * 32, smem, stream>>>(q, k, v, ld, bias, out, probs, B,
-                                           N, C, samples, scale);
+                                           N, C, samples, bf16_q_scale(kD));
   return cudaGetLastError();
 }
 
-// The attention core: out (B·N, C) bf16 from q, k, v rows `ld` apart (see
-// attention_kernel), and with kProbs the normalized probabilities
-// (B, H, N, N) bf16. `plan` is the wrapper's launch plan
-// (ops/kernels/fused_block.py `attention_plan`): the 16-key tile bucket,
-// the warps of a CTA, the samples of a CTA and the shared bytes; a plan
-// the kernel does not take is refused with cudaErrorInvalidValue.
-template <bool kProbs, bool kNormFirst>
-inline cudaError_t attention_launch(const bf16* q, const bf16* k,
-                                    const bf16* v, long long ld,
-                                    const float* bias, bf16* out, bf16* probs,
-                                    int B, int N, int C, int H,
-                                    const int* plan, cudaStream_t stream) {
-  const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
-  if (N < 1 || N > 256 || kt * 16 < N || warps < 1 ||
-      warps > kAttnMaxWarps || samples < 1 || smem != attn_smem_bytes(N))
-    return cudaErrorInvalidValue;
-#define DM_ATTN_CASE(KT)                                                  \
-  case KT:                                                                \
-    return attention_run<KT, kProbs, kNormFirst>(q, k, v, ld, bias, out,  \
-                                                 probs, B, N, C, H, warps, \
-                                                 samples, smem, stream);
+template <int kD, bool kProbs, bool kNormFirst>
+inline cudaError_t attention_width(const bf16* q, const bf16* k,
+                                   const bf16* v, long long ld,
+                                   const float* bias, bf16* out, bf16* probs,
+                                   int B, int N, int C, int H, int kt,
+                                   int warps, int samples, int smem,
+                                   cudaStream_t stream) {
+  if (warps > attn_max_warps(kD)) return cudaErrorInvalidValue;
+#define DM_ATTN_CASE(KT)                                                     \
+  case KT:                                                                   \
+    return attention_run<kD, KT, kProbs, kNormFirst>(                        \
+        q, k, v, ld, bias, out, probs, B, N, C, H, warps, samples, smem,     \
+        stream);
   switch (kt) {
     DM_ATTN_CASE(1)
     DM_ATTN_CASE(3)
@@ -427,6 +444,40 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
       return cudaErrorInvalidValue;
   }
 #undef DM_ATTN_CASE
+}
+
+// The attention core: out (B·N, C) bf16 from q, k, v rows `ld` apart (see
+// attention_kernel), and with kProbs the normalized probabilities
+// (B, H, N, N) bf16. The head width is C / H, one of 32, 64 and 128.
+// `plan` is the wrapper's launch plan (ops/kernels/fused_block.py
+// `attention_plan` at that width): the 16-key tile bucket, the warps of a
+// CTA, the samples of a CTA and the shared bytes; a width or plan the
+// kernel does not take is refused with cudaErrorInvalidValue.
+template <bool kProbs, bool kNormFirst>
+inline cudaError_t attention_launch(const bf16* q, const bf16* k,
+                                    const bf16* v, long long ld,
+                                    const float* bias, bf16* out, bf16* probs,
+                                    int B, int N, int C, int H,
+                                    const int* plan, cudaStream_t stream) {
+  const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
+  const int d = H > 0 && C % H == 0 ? C / H : 0;
+  if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 16 < N || warps < 1 ||
+      samples < 1 || smem != attn_smem_bytes(N, d))
+    return cudaErrorInvalidValue;
+  switch (d) {
+    case 32:
+      return attention_width<32, kProbs, kNormFirst>(
+          q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
+          stream);
+    case 64:
+      return attention_width<64, kProbs, kNormFirst>(
+          q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
+          stream);
+    default:
+      return attention_width<128, kProbs, kNormFirst>(
+          q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
+          stream);
+  }
 }
 
 // The attention core over a packed (B·N, 3C) qkv, with or without probs.

@@ -7,7 +7,8 @@
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the
 // forward of `fused_attention_qkv(..., save_probs=True)`, which every
 // training block runs). From the packed qkv projection (B, N, 3C), heads
-// interleaved as (H, 64) within each C block, per head:
+// interleaved as (H, d) within each C block, d = C / H (32, 64 or
+// 128), per head:
 //   q'  = bf16(q · d^-½)                       scaled in the input dtype
 //   e   = exp(q'·kᵀ + bias[h] − max)           f32 logits and softmax
 //   out = bf16((bf16(e)·v) · (1/Σe))            f32 accumulation
@@ -34,7 +35,7 @@
 // way).
 //
 // Bound on the H100: bytes. At the stage-0 operating point of training (B
-// 240, N 192, C 768, H 12) K6 must read qkv (212 MB) and write out (71 MB)
+// 240, N 192, C 768, H 12, d 64) K6 must read qkv (212 MB) and write out (71 MB)
 // and p (212 MB): 0.50 GB, 0.15 ms at 3.35 TB/s; its 27 GFLOP of q·kᵀ and
 // p·v take 0.03 ms at 989 TFLOP/s. K7 and K8 at serving's B 1024 read 906
 // MB of q, k and v and write 302 MB: 0.36 ms, against 0.12 ms of products.
@@ -58,8 +59,9 @@ const char* dm_error_string(int err) {
 }
 
 // K6: out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C)
-// bf16 and bias (H, N, N) f32. Requires C == H·64 and 1 <= N <= 256
-// (checked by the caller). Returns cudaGetLastError().
+// bf16 and bias (H, N, N) f32. Requires C == H·d with d 32, 64 or 128
+// and 1 <= N <= 256 (checked by the caller; refused here too). Returns
+// cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
                        const int* plan, cudaStream_t stream) {
@@ -70,7 +72,8 @@ int dm_attention_probs(const void* qkv, const void* bias, void* out,
 }
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
-// Requires C == H·64 and 1 <= N <= 256. Returns cudaGetLastError().
+// Requires C == H·d with d 32, 64 or 128 and 1 <= N <= 256. Returns
+// cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
                  int C, int H, const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention(static_cast<const bf16*>(qkv),
@@ -79,9 +82,9 @@ int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
                                     stream));
 }
 
-// K8: out (B, N, H, 64) bf16 from q, k, v (B, N, H, 64) bf16 and bias
-// (H, N, N) f32, C = H·64. Requires 1 <= N <= 256 and 16-byte aligned
-// tensors. Returns cudaGetLastError().
+// K8: out (B, N, H, d) bf16 from q, k, v (B, N, H, d) bf16 and bias
+// (H, N, N) f32, C = H·d, d 32, 64 or 128. Requires 1 <= N <= 256 and
+// 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,
                       const int* plan, cudaStream_t stream) {

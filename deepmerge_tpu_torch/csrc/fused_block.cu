@@ -18,7 +18,7 @@
 //
 // Bound on the H100: the four GEMMs (about 2.7 GFLOP per 192-token sample)
 // make the block compute-bound. The TPU kernel keeps the whole block and
-// every weight in 120 MB of VMEM; a 192-token bf16 activation alone is
+// every weight in its on-chip memory; a 192-token bf16 activation alone is
 // 288 KB a sample, more than an SM's 227 KB of shared memory, so the design
 // here is a fixed sequence of seven launches from one C entry point, with
 // the intermediates in device memory (about 2.7 GB of traffic per stage-0
@@ -405,9 +405,9 @@ const char* dm_error_string(int err) {
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
-// hidden), all bf16. Requires C == H·64, C % 64 == 0, C <= 1024,
-// hidden % 64 == 0, N <= 256 and 16-byte aligned tensors (checked by the
-// caller); `plan` is the wrapper's launch plan (`block_plan`), and a plan
+// hidden), all bf16. Requires C == H·d with d 32, 64 or 128, C % 64 == 0,
+// C <= 1024, hidden % 64 == 0, N <= 256 and 16-byte aligned tensors
+// (checked by the caller); `plan` is the wrapper's launch plan (`block_plan`), and a plan
 // the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
                      int hidden, const void* const* params, void* qkv,

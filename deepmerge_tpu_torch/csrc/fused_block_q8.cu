@@ -504,7 +504,7 @@ cudaError_t amax_quant(const float* x, const float* row_amax,
 // `_attn_inner_q8` (dynamic scales) and `_attn_inner_q8s` (calibrated
 // static scales, entries 4-6 of the 18th tuple entry). Per head, in its
 // order:
-//   q, k: codes per row (token) over the head's 64 lanes, scale
+//   q, k: codes per row (token) over the head's d lanes, scale
 //         s = max|row|·(1/127) (1 for a zero row), codes rint(t / s);
 //   v:    codes per column (lane) over the N tokens, the same way;
 //   (static: the scalars s_q, s_k, s_v, codes rint(t·(1/s)), clipped)
@@ -519,16 +519,17 @@ cudaError_t amax_quant(const float* x, const float* row_amax,
 // output. The design is the bf16 core's (block_common.cuh) on mma.sync
 // m16n8k32 s8: a CTA of `warps` warps takes a head and `samples` samples,
 // one after another; per sample the head's k codes (row scales in
-// sk) go to shared memory in row order, 80-byte rows (conflict-free
-// ldmatrix), and its v codes, scaled by column (sv), transposed to
+// sk) go to shared memory in row order, rows of d + 16 bytes (48, 80 or
+// 144: conflict-free ldmatrix), and its v codes, scaled by column (sv),
+// transposed to
 // [lane][key] for the value product's B fragments, each quantized from
 // 16-byte loads issued four deep (the staging is bound by their latency:
 // one load at a time cost it twice the core's time). Each warp then takes
 // 16-query tiles:
 //  * q straight from device memory into registers, quantized there: a
-//    thread holds 16 of a row's 64 lanes, the quad the whole row, so the
+//    thread holds d/4 of a row's d lanes, the quad the whole row, so the
 //    row abs-max takes two shuffles, and the codes are the logits' A
-//    fragments;
+//    fragments (d/32 of them);
 //  * S = qi·kiᵀ in s32 accumulators that stay in registers (4 a thread
 //    for each 8-key tile), dequantized there in the JAX order with the
 //    bias loaded branch-free (clamped indices, then masked);
@@ -540,33 +541,37 @@ cudaError_t amax_quant(const float* x, const float* row_amax,
 //    stored in the order that maps one onto the other (the slot map), and
 //    the s32 sums, exact, do not care about the order;
 //  * out = bf16((f32(O)·(1/Σpq))·s_v) from the accumulators.
+// kD is the head width (32, 64 or 128; m16n8k32 needs kD % 32 == 0).
 // kSteps (a bucket of the 32-key step count ceil(N/32)) sizes the register
 // arrays; steps past ceil(N/32) are skipped. Keys past N get code 0 in k
 // and v and pq 0; rows past N are computed on zero codes and not stored.
 
-constexpr int kQ8Row = kHeadDim + 16;  // k codes' row stride: 80 B
+// k codes' row stride at head width d: 48, 80 or 144 bytes, each an odd
+// multiple of 16 (conflict-free ldmatrix)
+__host__ __device__ constexpr int q8_row(int d) { return d + 16; }
 constexpr int kAttnQ8MaxWarps = 8;
-constexpr int kAttnQ8MaxParts = kAttnQ8MaxWarps * 32 / 8;  // 8-thread groups
 
-// Shared memory of one K4a CTA for n tokens, keys padded to 32: k codes
-// (np x 80 B), v codes transposed (64 x (np + 16) B: rows an odd multiple
-// of 16 bytes apart, conflict-free for ldmatrix), k's row scales, v's
-// column scales, v's partial column abs-maxes (one row of 64 for each
-// eight threads). 37,888 B at n = 192, 47,360 B at n = 256.
+// Shared memory of one K4a CTA for n tokens at head width d, keys padded
+// to 32: k codes (np x (d + 16) B), v codes transposed (d x (np + 16) B:
+// rows an odd multiple of 16 bytes apart, conflict-free for ldmatrix), k's
+// row scales, v's column scales, v's partial column abs-maxes (one row of
+// d for each d/8 threads of the largest CTA: 8,192 B at every width). At
+// d 64: 37,888 B at n = 192, 47,360 B at n = 256.
 struct AttnQ8Layout {
   int np, v_ld, kq, vt, sk, sv, red, bytes;
 };
 
-__host__ __device__ inline AttnQ8Layout attn_q8_layout(int n) {
+__host__ __device__ inline AttnQ8Layout attn_q8_layout(int n, int d) {
   AttnQ8Layout l;
   l.np = (n + 31) & ~31;
   l.v_ld = l.np + 16;
   l.kq = 0;
-  l.vt = l.kq + l.np * kQ8Row;
-  l.sk = l.vt + kHeadDim * l.v_ld;
+  l.vt = l.kq + l.np * q8_row(d);
+  l.sk = l.vt + d * l.v_ld;
   l.sv = l.sk + l.np * static_cast<int>(sizeof(float));
-  l.red = l.sv + kHeadDim * static_cast<int>(sizeof(float));
-  l.bytes = l.red + kAttnQ8MaxParts * kHeadDim * static_cast<int>(sizeof(float));
+  l.red = l.sv + d * static_cast<int>(sizeof(float));
+  l.bytes = l.red + kAttnQ8MaxWarps * 32 / (d / 8) * d *
+                        static_cast<int>(sizeof(float));
   return l;
 }
 
@@ -575,6 +580,14 @@ __host__ __device__ inline AttnQ8Layout attn_q8_layout(int n) {
 // 16h + 4t + 2u + e, where the A fragment (positions 4t..4t+3 and
 // 16+4t..+3 of the thread's quad index t) takes it from the accumulators
 // of 8-key tiles u = 0, 1 (and 2, 3 for h = 1).
+
+// ldmatrix of two 8x8 b16 matrices (addresses from lanes 0-15)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
 
 __device__ __forceinline__ uint32_t pack_s8(int c0, int c1, int c2, int c3) {
   return (static_cast<uint32_t>(c0) & 0xffu) |
@@ -655,16 +668,22 @@ __device__ __forceinline__ int prob_code(float l, float mx) {
 // The launch bound caps the registers: 168 a thread (the bf16 core's, 12
 // warps), three 4-warp CTAs an SM; 85 up to two steps (N <= 64), where
 // the short main loop leaves the staging's latency to hide, six CTAs an
-// SM.
-template <int kSteps, bool kStatic>
-__global__ void __launch_bounds__(kAttnMaxWarps * 32, kSteps <= 2 ? 2 : 1)
+// SM. At width 128 (64 s32 O accumulators a thread on top of up to 128
+// logits) the bound is the CTA's own 8 warps: 255 registers, and 128 up
+// to two steps.
+template <int kD, int kSteps, bool kStatic>
+__global__ void __launch_bounds__(
+    (kD == 128 ? kAttnQ8MaxWarps : attn_max_warps(kD)) * 32,
+    kSteps <= 2 ? 2 : 1)
 attention_q8_kernel(const bf16* __restrict__ qkv,
                     const float* __restrict__ bias,
                     const float* __restrict__ s_qkv, bf16* __restrict__ out,
                     int B, int N, int C, int samples, float scale) {
   constexpr int kTiles = 4 * kSteps;  // 8-key tiles
+  constexpr int kOct = kD / 8;        // 16-byte pieces (8 lanes) of a row
+  constexpr int kQ8Row = q8_row(kD);
   extern __shared__ __align__(16) unsigned char q8_smem[];
-  const AttnQ8Layout L = attn_q8_layout(N);
+  const AttnQ8Layout L = attn_q8_layout(N, kD);
   signed char* kq = reinterpret_cast<signed char*>(q8_smem + L.kq);
   signed char* vt = reinterpret_cast<signed char*>(q8_smem + L.vt);
   float* sk = reinterpret_cast<float*>(q8_smem + L.sk);
@@ -673,7 +692,7 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 
   const int h = blockIdx.x;
   const long long ld = 3LL * C;
-  const int head_off = h * kHeadDim;
+  const int head_off = h * kD;
   const bf16* qb = qkv + head_off;
   const bf16* kb = qb + C;
   const bf16* vb = qb + 2 * C;
@@ -705,18 +724,19 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
     if (b >= B) break;
     const long long row0 = static_cast<long long>(b) * N;
 
-    // k codes: eight threads a key (an octet of lanes each), the row's
-    // abs-max over the eight, four keys' loads in flight at a time; keys
-    // past N code 0, scale 1
-    for (int base = threadIdx.x; base < L.np * 8; base += 4 * blockDim.x) {
+    // k codes: kOct threads a key (an octet of lanes each), the row's
+    // abs-max over them, four keys' loads in flight at a time; keys past N
+    // code 0, scale 1
+    for (int base = threadIdx.x; base < L.np * kOct;
+         base += 4 * blockDim.x) {
       float v[4][8];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int idx = base + u * blockDim.x;
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-        if (idx < L.np * 8 && (idx >> 3) < N)
-          load8(kb + (row0 + (idx >> 3)) * ld + (idx & 7) * 8, v[u]);
+        if (idx < L.np * kOct && idx / kOct < N)
+          load8(kb + (row0 + idx / kOct) * ld + (idx % kOct) * 8, v[u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -727,14 +747,14 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
           for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[u][t]));
 #pragma unroll
-          for (int o = 1; o < 8; o <<= 1)
+          for (int o = 1; o < kOct; o <<= 1)
             amax = fmaxf(amax, __shfl_xor_sync(full, amax, o));
           sc = amax > 0.f ? amax * kInv127 : 1.0f;
         }
-        if (idx < L.np * 8) {
+        if (idx < L.np * kOct) {
           store_codes8(v[u], !kStatic, sc, inv_k,
-                       kq + (idx >> 3) * kQ8Row + (idx & 7) * 8);
-          if ((idx & 7) == 0) sk[idx >> 3] = sc;
+                       kq + (idx / kOct) * kQ8Row + (idx % kOct) * 8);
+          if (idx % kOct == 0) sk[idx / kOct] = sc;
         }
       }
     }
@@ -743,9 +763,9 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
     // parts-th key, four keys' loads in flight at a time; the parts'
     // abs-maxes meet in shared memory
     if constexpr (!kStatic) {
-      const int oct = threadIdx.x & 7;
-      const int part = threadIdx.x >> 3;
-      const int parts = blockDim.x >> 3;
+      const int oct = threadIdx.x % kOct;
+      const int part = threadIdx.x / kOct;
+      const int parts = blockDim.x / kOct;
       float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       for (int j0 = part; j0 < N; j0 += 4 * parts) {
         float v[4][8];
@@ -761,15 +781,14 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
           for (int t = 0; t < 8; ++t) m[t] = fmaxf(m[t], fabsf(v[u][t]));
       }
-      float* r = red + part * kHeadDim + oct * 8;
+      float* r = red + part * kD + oct * 8;
       *reinterpret_cast<float4*>(r) = make_float4(m[0], m[1], m[2], m[3]);
       *reinterpret_cast<float4*>(r + 4) = make_float4(m[4], m[5], m[6], m[7]);
       __syncthreads();
-      if (threadIdx.x < kHeadDim) {
-        float a = red[threadIdx.x];
-        for (int t = 1; t < parts; ++t)
-          a = fmaxf(a, red[t * kHeadDim + threadIdx.x]);
-        sv[threadIdx.x] = a > 0.f ? a * kInv127 : 1.0f;
+      for (int dd = threadIdx.x; dd < kD; dd += blockDim.x) {
+        float a = red[dd];
+        for (int t = 1; t < parts; ++t) a = fmaxf(a, red[t * kD + dd]);
+        sv[dd] = a > 0.f ? a * kInv127 : 1.0f;
       }
       __syncthreads();
     }
@@ -778,9 +797,9 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
     // slots 4·grp..+3 of a 32-key step, keys 32s + 16h + 2t + {0, 1, 8, 9}
     // (the inverse of the slot map above), and writes one 4-byte word to
     // each of its eight lanes' rows
-    for (int idx = threadIdx.x; idx < 8 * (L.np / 4); idx += blockDim.x) {
-      const int oct = idx & 7;
-      const int grp = idx >> 3;
+    for (int idx = threadIdx.x; idx < kOct * (L.np / 4); idx += blockDim.x) {
+      const int oct = idx % kOct;
+      const int grp = idx / kOct;
       const int j0 = (grp >> 3) * 32 + ((grp >> 2) & 1) * 16 + (grp & 3) * 2;
       float v[4][8];
 #pragma unroll
@@ -810,10 +829,10 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
       const bf16* qb_row = qb + (row0 + rb) * ld + 4 * tig;
 
       // q codes: lanes 16c + 4t..+3 of rows ra and rb
-      float va[4][4], vbq[4][4];
+      float va[kD / 16][4], vbq[kD / 16][4];
       float ma = 0.f, mb = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < kD / 16; ++c) {
         load4(qa_row + 16 * c, ra < N, va[c]);
         load4(qb_row + 16 * c, rb < N, vbq[c]);
 #pragma unroll
@@ -832,9 +851,9 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
         sqa = ma > 0.f ? ma * kInv127 : 1.0f;
         sqb = mb > 0.f ? mb * kInv127 : 1.0f;
       }
-      uint32_t qa[2][4];  // A fragments of the two 32-lane k steps
+      uint32_t qa[kD / 32][4];  // A fragments of the 32-lane k steps
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < kD / 16; ++c) {
         int ca[4], cb[4];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
@@ -860,13 +879,23 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             const int t = 4 * st + u;
-            uint32_t bk[4];  // lanes 0-15, 16-31, 32-47, 48-63 of keys 8t..
-            ldsm_x4(bk, reinterpret_cast<const bf16*>(
-                            kq + (t * 8 + (lane & 7)) * kQ8Row + mi * 16));
+            const signed char* krow = kq + (t * 8 + (lane & 7)) * kQ8Row;
 #pragma unroll
             for (int e = 0; e < 4; ++e) s4[u][e] = 0;
-            mma_s8(s4[u], qa[0], bk[0], bk[1]);
-            mma_s8(s4[u], qa[1], bk[2], bk[3]);
+            if constexpr (kD == 32) {
+              uint32_t bk[2];  // lanes 0-15, 16-31 of keys 8t..
+              ldsm_x2(bk, krow + (mi & 1) * 16);
+              mma_s8(s4[u], qa[0], bk[0], bk[1]);
+            } else {
+#pragma unroll
+              for (int kc = 0; kc < kD / 64; ++kc) {
+                uint32_t bk[4];  // lanes 64kc + 0-15, 16-31, 32-47, 48-63
+                ldsm_x4(bk, reinterpret_cast<const bf16*>(krow + kc * 64 +
+                                                          mi * 16));
+                mma_s8(s4[u], qa[2 * kc], bk[0], bk[1]);
+                mma_s8(s4[u], qa[2 * kc + 1], bk[2], bk[3]);
+              }
+            }
           }
           if (even)
             q8_logits<true, kStatic>(s4, l4, 4 * st, sk, L.np, bias_h, ra,
@@ -929,18 +958,18 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
       const float inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
       const float invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
 
-      // O = pq·vi (16 x 64, s32), B fragments by ldmatrix from v's
+      // O = pq·vi (16 x kD, s32), B fragments by ldmatrix from v's
       // transposed rows
-      int o[kHeadDim / 8][4];
+      int o[kD / 8][4];
 #pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt)
+      for (int dt = 0; dt < kD / 8; ++dt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o[dt][e] = 0;
 #pragma unroll
       for (int st = 0; st < kSteps; ++st) {
         if (st < steps) {
 #pragma unroll
-          for (int dd = 0; dd < kHeadDim / 16; ++dd) {
+          for (int dd = 0; dd < kD / 16; ++dd) {
             uint32_t bv[4];  // lanes 16dd..+7 (keys 0-15, 16-31), +8..+15
             ldsm_x4(bv, reinterpret_cast<const bf16*>(
                             vt + (dd * 16 + (mi >> 1) * 8 + (lane & 7)) *
@@ -954,7 +983,7 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 
       // out = bf16((O · 1/Σpq) · s_v)
 #pragma unroll
-      for (int dt = 0; dt < kHeadDim / 8; ++dt) {
+      for (int dt = 0; dt < kD / 8; ++dt) {
         const int col = dt * 8 + 2 * tig;
         const float v0 = kStatic ? s_v : sv[col];
         const float v1 = kStatic ? s_v : sv[col + 1];
@@ -976,43 +1005,39 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-template <int kSteps, bool kStatic>
+template <int kD, int kSteps, bool kStatic>
 inline cudaError_t attention_q8_run(const bf16* qkv, const float* bias,
                                     const float* s_qkv, bf16* out, int B,
                                     int N, int C, int H, int warps,
                                     int samples, int smem,
                                     cudaStream_t stream) {
-  auto* kern = attention_q8_kernel<kSteps, kStatic>;
+  auto* kern = attention_q8_kernel<kD, kSteps, kStatic>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const float scale = 1.0f / sqrtf(static_cast<float>(kHeadDim));
+  // d^-1/2 in float32, as the JAX package's f32 logits take a Python float
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
   const dim3 grid(H, (B + samples - 1) / samples);
   kern<<<grid, warps * 32, smem, stream>>>(qkv, bias, s_qkv, out, B, N, C,
                                            samples, scale);
   return cudaGetLastError();
 }
 
-// K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. `plan`
-// is the wrapper's `attention_q8_plan`: the 32-key step bucket, the warps
-// of a CTA (even, at most 8), the samples of a CTA and the shared bytes;
-// a plan the kernel does not take is refused with cudaErrorInvalidValue.
-cudaError_t attention_q8(const bf16* qkv, const float* bias,
-                         const float* s_qkv, bf16* out, int B, int N, int C,
-                         int H, const int* plan, cudaStream_t stream) {
-  const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
-  if (N < 1 || N > 256 || kt * 32 < N || warps < 2 || warps % 2 ||
-      warps > kAttnQ8MaxWarps || samples < 1 ||
-      smem != attn_q8_layout(N).bytes)
-    return cudaErrorInvalidValue;
+template <int kD>
+inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
+                                      const float* s_qkv, bf16* out, int B,
+                                      int N, int C, int H, int kt, int warps,
+                                      int samples, int smem,
+                                      cudaStream_t stream) {
 #define DM_ATTN_Q8_CASE(KS)                                                  \
   case KS:                                                                   \
     return s_qkv != nullptr                                                  \
-               ? attention_q8_run<KS, true>(qkv, bias, s_qkv, out, B, N, C,  \
-                                            H, warps, samples, smem, stream) \
-               : attention_q8_run<KS, false>(qkv, bias, nullptr, out, B, N,  \
-                                             C, H, warps, samples, smem,     \
-                                             stream);
+               ? attention_q8_run<kD, KS, true>(qkv, bias, s_qkv, out, B, N, \
+                                                C, H, warps, samples, smem,  \
+                                                stream)                      \
+               : attention_q8_run<kD, KS, false>(qkv, bias, nullptr, out, B, \
+                                                 N, C, H, warps, samples,    \
+                                                 smem, stream);
   switch (kt) {
     DM_ATTN_Q8_CASE(1)
     DM_ATTN_Q8_CASE(2)
@@ -1024,6 +1049,34 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
       return cudaErrorInvalidValue;
   }
 #undef DM_ATTN_Q8_CASE
+}
+
+// K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. The head
+// width is C / H, one of 32, 64 and 128. `plan` is the wrapper's
+// `attention_q8_plan` at that width: the 32-key step bucket, the warps of
+// a CTA (even, at most 8), the samples of a CTA and the shared bytes; a
+// width or plan the kernel does not take is refused with
+// cudaErrorInvalidValue.
+cudaError_t attention_q8(const bf16* qkv, const float* bias,
+                         const float* s_qkv, bf16* out, int B, int N, int C,
+                         int H, const int* plan, cudaStream_t stream) {
+  const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
+  const int d = H > 0 && C % H == 0 ? C / H : 0;
+  if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 32 < N || warps < 2 ||
+      warps % 2 || warps > kAttnQ8MaxWarps || samples < 1 ||
+      smem != attn_q8_layout(N, d).bytes)
+    return cudaErrorInvalidValue;
+  switch (d) {
+    case 32:
+      return attention_q8_width<32>(qkv, bias, s_qkv, out, B, N, C, H, kt,
+                                    warps, samples, smem, stream);
+    case 64:
+      return attention_q8_width<64>(qkv, bias, s_qkv, out, B, N, C, H, kt,
+                                    warps, samples, smem, stream);
+    default:
+      return attention_q8_width<128>(qkv, bias, s_qkv, out, B, N, C, H, kt,
+                                     warps, samples, smem, stream);
+  }
 }
 
 // ----------------------------------------------------------------- block
@@ -1133,8 +1186,8 @@ const char* dm_error_string(int err) {
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
 // (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32; codes
 // (B·N, max(C, hidden)) int8; row_scale and row_amax (B·N) f32. Requires
-// C == H·64, C % 128 == 0, C <= 1024, hidden % 128 == 0, N <= 256 and
-// 16-byte aligned tensors (checked by the caller). `plan` is the block's
+// C == H·d with d 32, 64 or 128, C % 128 == 0, C <= 1024, hidden % 128 ==
+// 0, N <= 256 and 16-byte aligned tensors (checked by the caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
 // plan the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
@@ -1245,7 +1298,8 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // K4a's int8 core alone (its measurement and tests): out (B·N, C) bf16
 // from a packed (B·N, 3C) bf16 qkv and the (H, N, N) f32 bias, with the
 // static (s_q, s_k, s_v) (f32 [3]) or, if null, dynamic scales. `plan` is
-// the wrapper's `attention_q8_plan`. Requires C == H·64 and N <= 256
+// the wrapper's `attention_q8_plan`. Requires C == H·d with d 32, 64 or
+// 128 and N <= 256
 // (checked by the caller). Returns cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,

@@ -3,10 +3,9 @@ scenes → report (port of the repository's root ``eval.py``).
 
 Trains an S2Former (``--variant``) on one synthetic scene with the port's
 ``train``, then segments and merges DIFFERENT scenes and compares the
-partition with their ground-truth object maps. The defaults are a small
-smoke configuration (the root script's, but 2 heads of width 64 for its 4
-of 32: the port's kernels take width 64 only); ``--full`` switches to the
-flagship EVAL.md run (1024x1024 scenes, 2048 regions, 100 epochs). Runs on
+partition with their ground-truth object maps. The defaults are the root
+script's small smoke configuration (embed 128, 4 heads of width 32, depth
+2/1/1); ``--full`` switches to the flagship EVAL.md run (1024x1024 scenes, 2048 regions, 100 epochs). Runs on
 the card unless ``--device cpu``.
 
   python -m deepmerge_tpu_torch.eval                   # smoke, on the card
@@ -144,10 +143,8 @@ def main(argv=None):
         objects = args.objects if args.objects is not None else 16
         points = args.points if args.points is not None else 3
         epochs = args.epochs if args.epochs is not None else 3
-        # small-but-real model so the smoke run finishes in minutes anywhere;
-        # 2 heads where the root eval.py has 4: the port's block and
-        # attention kernels take heads of width 64 only
-        model_over = dict(embed_dim=128, num_heads=2, depth=(2, 1, 1))
+        # small-but-real model so the smoke run finishes in minutes anywhere
+        model_over = dict(embed_dim=128, num_heads=4, depth=(2, 1, 1))
 
     from deepmerge_tpu_torch.config import Config, ModelConfig, TrainConfig
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene

@@ -26,18 +26,18 @@ Inference dispatches the blocks as the JAX package does. A block on the
 block kernel (``fused_block`` and ``fused_attention`` on, tanh GELU, no
 dropout or drop path) runs as one launch of K2, and a later stage of more
 than one such block as one launch of the chain kernel K3
-(``ops/kernels/fused_block.py``); ``quantize="w8a8"`` and
-``"w8a8-static"`` send the same launches to the w8a8 kernels (K4), the
-weights quantized on every forward as the JAX package quantizes them
-outside its kernel, and ``"w8a8+attn"`` to the same kernels with the int8
-attention core (K4a). ``"w8a8-static"`` needs calibrated activation scales:
-``calibrate`` runs the model once with every block through the plain
-``block_act_amax`` (no chain), keeping a running max in each block's
-``act_amax`` buffer. Any other block runs unfused: flax-numerics
-LayerNorm, the qkv dense, the attention-only kernel K7
+(``ops/kernels/fused_block.py``), stage 0 too with ``chain_stage0``;
+``quantize="w8a8"`` and ``"w8a8-static"`` send the same launches to the
+w8a8 kernels (K4), the weights quantized on every forward as the JAX
+package quantizes them outside its kernel, and ``"w8a8+attn"`` to the same
+kernels with the int8 attention core (K4a). ``"w8a8-static"`` needs
+calibrated activation scales: ``calibrate`` runs the model once with every
+block through the plain ``block_act_amax`` (no chain), keeping a running
+max in each block's ``act_amax`` buffer. Any other block runs unfused:
+flax-numerics LayerNorm, the qkv dense, the attention-only kernel K7
 (``ops/kernels/fused_attention.py``), the projection, LayerNorm, the GELU
-MLP. Quantization rides the block kernels only: on a block off them it is
-a no-op, as in the JAX package (whose config warns).
+MLP. Quantization rides the block kernels only: on a block off them it is a
+no-op, as in the JAX package (whose config warns).
 
 ``forward(..., train=True)`` is the training forward of the configuration
 ``training_model`` gives, block by block: a block on the block kernel
@@ -171,11 +171,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.variant == "v1" and cfg.n_scales != 4:
         raise ValueError(f"v1 uses 4 fixed scales, got "
                          f"{cfg.input_image_scales}")
-    if cfg.chain_stage0:
-        raise NotImplementedError(
-            "chain_stage0 is an experiment the port does not carry yet "
-            "(ROADMAP.md queue B, the note on chain_stage0)"
-        )
 
 
 def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
@@ -756,8 +751,7 @@ class S2Former(nn.Module):
             x = torch.cat([x, d[:, None, :]], dim=1)
         aux = v in ("v4", "v5") and train
         chain = cfg.fused_stage_chain
-        # stage 0 runs block by block (chain_stage0 is not supported)
-        x = stage(self.blocks0, x, False)
+        x = stage(self.blocks0, x, chain and cfg.chain_stage0)
         aux0 = self.aux0(x, generator) if aux else None
         x = _flax_layer_norm(_pool2x2_per_scale(x, n, g), self.norm)
         x = stage(self.blocks1, x, chain)

@@ -51,13 +51,14 @@ import torch
 from deepmerge_tpu_torch.ops.dropout import dropout
 from deepmerge_tpu_torch.ops.kernels import build
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
-    HEAD_DIM,
     MAX_TOKENS,
     _on_cuda,
     _plan_arg,
     _products_for,
     attention_parts,
     attention_plan,
+    check_head_dim,
+    q_scale,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -98,7 +99,7 @@ def attention_bnhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (training), dropout on the float32 probabilities before that cast, its
     mask from ``generator``: the JAX package's attention off its kernels."""
     f32 = torch.float32
-    qs = q * q.shape[-1] ** -0.5
+    qs = q * q_scale(q.shape[-1], q.dtype)
     logits = torch.einsum("bnhd,bmhd->bhnm", qs.to(f32), k.to(f32)) \
         + bias.to(f32)[None]
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
@@ -188,12 +189,12 @@ def _check_cuda(qkv, bias, heads):
                         f"got {qkv.dtype} {tuple(qkv.shape)}")
     b, n, c3 = qkv.shape
     c = c3 // 3
-    if c3 % 3 or c != heads * HEAD_DIM:
-        raise ValueError(f"the CUDA attention needs 3C with C == heads*"
-                         f"{HEAD_DIM}; got 3C={c3}, heads={heads}")
+    if c3 % 3:
+        raise ValueError(f"the CUDA attention needs a packed 3C, got {c3}")
+    d = check_head_dim(c, heads)
     _check_tokens(b, n)
     _check_bias(bias, heads, n, qkv.device)
-    return b, n, c
+    return b, n, c, d
 
 
 def _check_cuda_bnhd(q, k, v, bias):
@@ -202,15 +203,14 @@ def _check_cuda_bnhd(q, k, v, bias):
                 or t.shape != q.shape or t.device != q.device
                 or t.data_ptr() % 16):
             raise TypeError(
-                f"q, k and v must be contiguous (B, N, H, {HEAD_DIM}) bf16 "
-                f"tensors of one shape on one device, 16-byte aligned; got "
+                f"q, k and v must be contiguous (B, N, H, D) bf16 tensors "
+                f"of one shape on one device, 16-byte aligned; got "
                 f"{[(x.dtype, tuple(x.shape)) for x in (q, k, v)]}")
     b, n, heads, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"the CUDA attention needs D == {HEAD_DIM}, got {d}")
+    check_head_dim(heads * d, heads)
     _check_tokens(b, n)
     _check_bias(bias, heads, n, q.device)
-    return b, n, heads
+    return b, n, heads, d
 
 
 def _lib():
@@ -221,20 +221,20 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     """K6: ``(out, probs)`` — out (B, N, C) in qkv's dtype, probs (B, H, N,
     N) bf16.
 
-    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d = 64,
-    1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d in
+    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
         return attention_probs_ref(qkv, bias, heads)
-    b, n, c = _check_cuda(qkv, bias, heads)
+    b, n, c, d = _check_cuda(qkv, bias, heads)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     probs = torch.empty((b, heads, n, n), dtype=torch.bfloat16,
                         device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    plan = _plan_arg(attention_plan(b, n, heads)["ints"])
+    plan = _plan_arg(attention_plan(b, n, heads, head_dim=d)["ints"])
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), probs.data_ptr(), b, n, c,
                                  heads, plan, stream)
@@ -247,16 +247,16 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                   plan: dict | None = None) -> torch.Tensor:
     """K7: (B, N, C) in qkv's dtype.
 
-    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d = 64,
-    1 <= N <= 256) launch ``csrc/fused_attention.cu`` (``dm_attention``)
-    with ``plan`` (an ``attention_plan`` of these shapes, which the kernel
-    checks; the default one if None) and count the launch in
-    ``attention_qkv.launches``; anything else raises.
+    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d in
+    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    (``dm_attention``) with ``plan`` (an ``attention_plan`` of these
+    shapes, which the kernel checks; the default one if None) and count
+    the launch in ``attention_qkv.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
         return attention_qkv_ref(qkv, bias, heads)
-    b, n, c = _check_cuda(qkv, bias, heads)
-    plan = plan or attention_plan(b, n, heads)
+    b, n, c, d = _check_cuda(qkv, bias, heads)
+    plan = plan or attention_plan(b, n, heads, head_dim=d)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -271,21 +271,21 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """K8: (B, N, H, D) in q's dtype.
 
-    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D = 64,
-    1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D in
+    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
     (``dm_attention_bnhd``) and count the launch in
     ``attention_bnhd.launches``; anything else raises.
     """
     if not _on_cuda(q):
         return attention_bnhd_ref(q, k, v, bias)
-    b, n, heads = _check_cuda_bnhd(q, k, v, bias)
+    b, n, heads, d = _check_cuda_bnhd(q, k, v, bias)
     out = torch.empty_like(q)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    plan = attention_plan(b, n, heads, head_dim=d)
     err = lib.dm_attention_bnhd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
-                                heads * HEAD_DIM, heads,
-                                _plan_arg(attention_plan(b, n, heads)["ints"]),
+                                heads * d, heads, _plan_arg(plan["ints"]),
                                 stream)
     build.check(lib, err, "dm_attention_bnhd")
     attention_bnhd.launches += 1

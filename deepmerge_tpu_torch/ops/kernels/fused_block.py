@@ -41,7 +41,7 @@ from deepmerge_tpu_torch.ops.kernels import build
 
 LN_EPS = 1e-5
 N_PARAMS = 13
-HEAD_DIM = 64      # the attention kernel's head width
+HEAD_DIMS = (32, 64, 128)  # the attention cores' head widths
 MAX_TOKENS = 256   # the attention kernel's longest sequence
 MAX_WIDTH = 1024   # the LayerNorm kernel's widest row
 
@@ -94,16 +94,34 @@ SM_THREADS = 2_048
 SM_CTAS = 32
 MAX_GRID_Y = 65_535
 
-# The bf16 attention core (csrc/block_common.cuh): a CTA of `warps` warps
-# per head and `samples` samples, K and V of a sample in shared memory at a
-# row stride of 64 + 8 bf16, register arrays sized by a bucket of the
-# 16-key tile count; 168 registers a thread at most (its launch bound of 12
-# warps).
+# The bf16 attention core (csrc/block_common.cuh), a template of the head
+# width d: a CTA of `warps` warps per head and `samples` samples, K and V of
+# a sample in shared memory at a row stride of d + 8 bf16, register arrays
+# sized by a bucket of the 16-key tile count; its launch bound is 12 warps
+# (168 registers a thread) at widths 32 and 64, and 8 warps (255
+# registers) at width 128, whose O accumulators double.
 ATTN_KEY_TILE_BUCKETS = (1, 3, 4, 8, 12, 13, 16)
-ATTN_ROW_BYTES = (HEAD_DIM + 8) * 2
-ATTN_MAX_WARPS = 12
-ATTN_REGISTERS = 168
+ATTN_MAX_WARPS = {32: 12, 64: 12, 128: 8}
+ATTN_REGISTERS = {32: 168, 64: 168, 128: 255}
 ATTN_WARPS = 4
+
+
+def check_head_dim(c: int, heads: int) -> int:
+    """The head width ``c // heads`` if the attention cores take it (one of
+    ``HEAD_DIMS``); raises ``ValueError`` otherwise."""
+    d = c // heads if heads > 0 and c % heads == 0 else 0
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"the CUDA attention cores take heads of width {HEAD_DIMS}, got "
+            f"C={c} over {heads} heads; other widths are open work "
+            "(ROADMAP.md)")
+    return d
+
+
+def attn_row_bytes(head_dim: int) -> int:
+    """The bf16 core's shared K/V row stride: d + 8 bf16, an odd multiple
+    of 16 bytes (conflict-free ldmatrix)."""
+    return (head_dim + 8) * 2
 # samples a CTA: 4 from a batch of 512 on (fewer, longer CTAs: 1.60 against
 # 1.80 ms at B 1024, N 192 on an H100), else 1 (enough CTAs to fill 132 SMs)
 ATTN_SAMPLES_FROM_BATCH = 512
@@ -134,31 +152,37 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
 
 
 def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
-                   samples: int | None = None) -> dict:
+                   samples: int | None = None, head_dim: int = 64) -> dict:
     """The attention core's launch for ``b`` samples of ``n`` tokens and
-    ``heads`` heads: ``ints`` (key-tile bucket, warps, samples, shared
-    bytes) as the C entry points take them, the grid (heads, samples per
-    CTA) and the CTAs that fit an SM. ``samples`` None: 4 from a batch of
-    ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Raises ``ValueError`` for a
-    launch the kernel does not take."""
+    ``heads`` heads of width ``head_dim``: ``ints`` (key-tile bucket,
+    warps, samples, shared bytes) as the C entry points take them, the grid
+    (heads, samples per CTA) and the CTAs that fit an SM. ``samples`` None:
+    4 from a batch of ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Raises
+    ``ValueError`` for a launch the kernel does not take."""
     if samples is None:
         samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the attention core takes heads of width "
+                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if not 1 <= n <= MAX_TOKENS:
         raise ValueError(f"the attention core takes 1..{MAX_TOKENS} tokens, "
                          f"got {n}")
-    if not 1 <= warps <= ATTN_MAX_WARPS or samples < 1:
-        raise ValueError(f"the attention core takes 1..{ATTN_MAX_WARPS} warps "
-                         f"and >= 1 samples a CTA, got {warps}, {samples}")
+    max_warps = ATTN_MAX_WARPS[head_dim]
+    if not 1 <= warps <= max_warps or samples < 1:
+        raise ValueError(f"the attention core takes 1..{max_warps} warps "
+                         f"at width {head_dim} and >= 1 samples a CTA, got "
+                         f"{warps}, {samples}")
     key_tiles = -(-n // 16)
     bucket = next(t for t in ATTN_KEY_TILE_BUCKETS if t >= key_tiles)
-    smem = 2 * key_tiles * 16 * ATTN_ROW_BYTES
+    smem = 2 * key_tiles * 16 * attn_row_bytes(head_dim)
     grid = (heads, -(-b // samples))
     if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
         raise ValueError(f"attention grid {grid} out of range")
     return dict(ints=(bucket, warps, samples, smem), key_tiles=key_tiles,
                 bucket=bucket, warps=warps, samples=samples, smem=smem,
-                grid=grid,
-                ctas_per_sm=ctas_per_sm(warps * 32, smem, ATTN_REGISTERS))
+                grid=grid, head_dim=head_dim,
+                ctas_per_sm=ctas_per_sm(warps * 32, smem,
+                                        ATTN_REGISTERS[head_dim]))
 
 
 def gemm_plan(m: int, n: int, k: int) -> dict:
@@ -189,7 +213,8 @@ def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
     m = b * n
     for rows, depth in ((3 * c, c), (c, c), (hidden, c), (c, hidden)):
         gemm = gemm_plan(m, rows, depth)
-    return attention_plan(b, n, heads)["ints"] + gemm["ints"]
+    return attention_plan(b, n, heads, head_dim=check_head_dim(c, heads)
+                          )["ints"] + gemm["ints"]
 
 
 # K4's s8 GEMM (csrc/fused_block_q8.cu on csrc/wgmma_gemm.cuh): K2's plan
@@ -214,40 +239,46 @@ def gemm_q8_plan(m: int, n: int, k: int) -> dict:
                                         GEMM_REGISTERS))
 
 
-# K4a's int8 core (csrc/fused_block_q8.cu): a CTA of `warps` warps (even,
-# at most 8) per head and `samples` samples, k codes in 80-byte rows and v
-# codes transposed in shared memory, register arrays sized by a bucket of
-# the 32-key step count; 168 registers a thread at most (the bf16 core's
-# launch bound of 12 warps), 85 up to two steps (a launch bound of two
-# such CTAs an SM).
+# K4a's int8 core (csrc/fused_block_q8.cu), a template of the head width
+# d: a CTA of `warps` warps (even, at most 8) per head and `samples`
+# samples, k codes in rows of d + 16 bytes and v codes transposed in shared
+# memory, register arrays sized by a bucket of the 32-key step count; at
+# widths 32 and 64, 168 registers a thread at most (the bf16 core's launch
+# bound of 12 warps) and 85 up to two steps (a launch bound of two such
+# CTAs an SM); at width 128, 255 (a launch bound of 8 warps) and 128.
 ATTN_Q8_STEP_BUCKETS = (1, 2, 4, 6, 7, 8)
 ATTN_Q8_MAX_WARPS = 8
-ATTN_Q8_SHORT_REGISTERS = 85
+ATTN_Q8_SHORT_REGISTERS = {32: 85, 64: 85, 128: 128}
 
 
-def attention_q8_smem(n: int) -> int:
-    """Shared bytes of one K4a CTA for ``n`` tokens (keys padded to 32):
-    k codes (np x 80 B), v codes transposed (64 x (np + 16) B), k's row
-    scales, v's column scales and a 64-lane partial abs-max for each eight
-    threads of the largest CTA."""
+def attention_q8_smem(n: int, head_dim: int = 64) -> int:
+    """Shared bytes of one K4a CTA for ``n`` tokens (keys padded to 32)
+    at head width ``head_dim`` = d: k codes (np x (d + 16) B), v codes
+    transposed (d x (np + 16) B), k's row scales, v's column scales and a
+    d-lane partial abs-max for each d/8 threads of the largest CTA."""
     np_ = -(-n // 32) * 32
-    return np_ * (HEAD_DIM + 16) + HEAD_DIM * (np_ + 16) + np_ * 4 \
-        + HEAD_DIM * 4 + (ATTN_Q8_MAX_WARPS * 32 // 8) * HEAD_DIM * 4
+    d = head_dim
+    return np_ * (d + 16) + d * (np_ + 16) + np_ * 4 + d * 4 \
+        + (ATTN_Q8_MAX_WARPS * 32 // (d // 8)) * d * 4
 
 
 def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
-                      samples: int | None = None) -> dict:
+                      samples: int | None = None,
+                      head_dim: int = 64) -> dict:
     """K4a's core launch for ``b`` samples of ``n`` tokens and ``heads``
-    heads: ``ints`` (32-key step bucket, warps, samples, shared bytes) as
-    the C entry points take them, the grid and the CTAs that fit an SM.
-    ``warps`` None: 2 where one 16-query tile holds every token (n <= 16),
-    else ``ATTN_WARPS``; ``samples`` None: as ``attention_plan``. Raises
-    ``ValueError`` for a launch the kernel does not take (even warps, at
-    most ``ATTN_Q8_MAX_WARPS``)."""
+    heads of width ``head_dim``: ``ints`` (32-key step bucket, warps,
+    samples, shared bytes) as the C entry points take them, the grid and
+    the CTAs that fit an SM. ``warps`` None: 2 where one 16-query tile
+    holds every token (n <= 16), else ``ATTN_WARPS``; ``samples`` None: as
+    ``attention_plan``. Raises ``ValueError`` for a launch the kernel does
+    not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
     if warps is None:
         warps = 2 if n <= 16 else ATTN_WARPS
     if samples is None:
         samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the int8 attention core takes heads of width "
+                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if not 1 <= n <= MAX_TOKENS:
         raise ValueError(f"the int8 attention core takes 1..{MAX_TOKENS} "
                          f"tokens, got {n}")
@@ -257,14 +288,15 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
                          f" got {warps}, {samples}")
     steps = -(-n // 32)
     bucket = next(t for t in ATTN_Q8_STEP_BUCKETS if t >= steps)
-    smem = attention_q8_smem(n)
+    smem = attention_q8_smem(n, head_dim)
     grid = (heads, -(-b // samples))
     if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
         raise ValueError(f"attention grid {grid} out of range")
-    registers = ATTN_Q8_SHORT_REGISTERS if bucket <= 2 else ATTN_REGISTERS
+    registers = (ATTN_Q8_SHORT_REGISTERS if bucket <= 2
+                 else ATTN_REGISTERS)[head_dim]
     return dict(ints=(bucket, warps, samples, smem), steps=steps,
                 bucket=bucket, warps=warps, samples=samples, smem=smem,
-                grid=grid,
+                grid=grid, head_dim=head_dim,
                 ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
@@ -274,7 +306,8 @@ def block_plan_q8(b: int, n: int, c: int, heads: int, hidden: int,
     core's ints (K2's core, or K4a's with ``quant_attn``), then each GEMM's
     (qkv, proj, up, down at M = b·n)."""
     m = b * n
-    attn = (attention_q8_plan if quant_attn else attention_plan)(b, n, heads)
+    attn = (attention_q8_plan if quant_attn else attention_plan)(
+        b, n, heads, head_dim=check_head_dim(c, heads))
     gemms = (gemm_q8_plan(m, rows, depth)["ints"]
              for rows, depth in ((3 * c, c), (c, c), (hidden, c),
                                  (c, hidden)))
@@ -308,6 +341,15 @@ def gelu(x, exact: bool = False):
     return x * (0.5 * (1.0 + torch.tanh(k * (x + 0.044715 * (x ** 3)))))
 
 
+def q_scale(d: int, dt: torch.dtype) -> float:
+    """d^-½ as the JAX package multiplies an activation of dtype ``dt`` by
+    it: a weakly typed Python float takes the array's dtype there, so a
+    bf16 q is scaled by d^-½ rounded to bf16 (0.125 exactly at d 64,
+    0.1767578125 at 32, 0.08837890625 at 128; the attention kernels use the
+    same factor)."""
+    return torch.tensor(d ** -0.5, dtype=dt).item()
+
+
 def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     """The TPU kernels' attention (``_attn_inner``, and the saved-probs
     kernel's forward) on a (B, N, 3C) qkv in the activation dtype: per head
@@ -319,7 +361,7 @@ def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
+    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)
     k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
     v = qkv[..., 2 * c :].reshape(b, n, heads, d)
     logits = torch.einsum(
@@ -377,7 +419,7 @@ def _attention_norm_first(qkv: torch.Tensor, bias: torch.Tensor,
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
+    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)
     k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
     v = qkv[..., 2 * c :].reshape(b, n, heads, d)
     logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32)) \
@@ -524,7 +566,7 @@ def _block_xla(x: torch.Tensor, params, heads: int, exact_gelu: bool):
     f32 = torch.float32
     y = _ln(x, l1s, l1b)
     qkv = _mm(y.to(dt), wq).to(dt) + bq
-    q = qkv[..., :c].reshape(b, n, heads, d) * d ** -0.5
+    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)
     k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
     v = qkv[..., 2 * c :].reshape(b, n, heads, d)
     logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32))
@@ -830,15 +872,16 @@ def block_act_amax(x: torch.Tensor, params, heads: int,
 
 def _check_x(x, heads, align):
     """(B, N, C) of an activation the CUDA blocks take: bf16, contiguous,
-    C == heads·64 <= 1024 and a multiple of ``align``."""
+    heads of a width in ``HEAD_DIMS``, C <= 1024 (the LayerNorm kernels'
+    row) and a multiple of ``align`` (the GEMMs' K slab)."""
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise TypeError(f"x must be a contiguous (B, N, C) bf16 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
     b, n, c = x.shape
-    if c != heads * HEAD_DIM or c > MAX_WIDTH or c % align:
-        raise ValueError(f"the CUDA block needs C == heads*{HEAD_DIM} <= "
-                         f"{MAX_WIDTH}, a multiple of {align}; got C={c}, "
-                         f"heads={heads}")
+    check_head_dim(c, heads)
+    if c > MAX_WIDTH or c % align:
+        raise ValueError(f"the CUDA block needs C <= {MAX_WIDTH}, a multiple "
+                         f"of {align}; got C={c}")
     if not 1 <= n <= MAX_TOKENS or not 1 <= b <= 65535:
         raise ValueError(f"the CUDA block takes 1..{MAX_TOKENS} tokens and "
                          f"1..65535 samples, got B={b}, N={n}")
@@ -864,7 +907,7 @@ def _check_params(params_list, want, device, what):
 
 
 def _check_cuda(x, params_list, heads):
-    b, n, c = _check_x(x, heads, HEAD_DIM)
+    b, n, c = _check_x(x, heads, GEMM_BK)
     hidden = params_list[0][9].shape[0]
     if hidden % 64:
         raise ValueError(f"MLP width must be a multiple of 64, got {hidden}")
@@ -1361,11 +1404,11 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     3C) qkv and an (H, N, N) float32 bias, dynamic scales or ``static``
     (s_q, s_k, s_v) (a (3,) float32 tensor on the CUDA path).
 
-    CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d = 64, 1 <=
-    N <= 256) launch ``csrc/fused_block_q8.cu`` (``dm_attention_q8``) with
-    ``plan`` (an ``attention_q8_plan`` of these shapes; the default one if
-    None) and count the launch in ``attention_q8.launches``; anything else
-    raises.
+    CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d in
+    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_block_q8.cu``
+    (``dm_attention_q8``) with ``plan`` (an ``attention_q8_plan`` of these
+    shapes; the default one if None) and count the launch in
+    ``attention_q8.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
         return attention_q8_ref(qkv, bias, heads, static)
@@ -1375,9 +1418,9 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                         f"got {qkv.dtype} {tuple(qkv.shape)}")
     b, n, c3 = qkv.shape
     c = c3 // 3
-    if c3 % 3 or c != heads * HEAD_DIM:
-        raise ValueError(f"the int8 attention needs 3C with C == heads*"
-                         f"{HEAD_DIM}; got 3C={c3}, heads={heads}")
+    if c3 % 3:
+        raise ValueError(f"the int8 attention needs a packed 3C, got {c3}")
+    d = check_head_dim(c, heads)
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, n, n)
             or bias.device != qkv.device or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous float32 ({heads}, {n}, "
@@ -1387,7 +1430,7 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
             or static.device != qkv.device or not static.is_contiguous()):
         raise ValueError("static must be a contiguous float32 (3,) tensor "
                          f"on {qkv.device}")
-    plan = plan or attention_q8_plan(b, n, heads)
+    plan = plan or attention_q8_plan(b, n, heads, head_dim=d)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     err = lib.dm_attention_q8(

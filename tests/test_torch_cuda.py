@@ -39,7 +39,8 @@ the float32 GELU (1e-5 of max|plain|: tanh in another library), whose
 int8 codes and row scales are bit-identical to those of its own output;
 K4a's core alone as K4a in the block, and bit-identical across its plans.
 The label-map lookup (K9) and the int4 dot probe's variants (K10) are
-integer functions: bit-exact.
+integer functions: bit-exact. Heads of width 32 and 128 go through every
+kernel that holds an attention core, by the same bars.
 """
 
 import numpy as np
@@ -52,12 +53,14 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     block_act_amax,
     block_ref,
     block_ref_q8,
+    block_train_ref,
     chain_ref,
     chain_ref_q8,
     fused_block,
     fused_block_chain,
     fused_block_chain_q8,
     fused_block_q8,
+    fused_block_train,
     quantize_block_params,
 )
 from deepmerge_tpu_torch.ops.kernels import int4_dot as i4
@@ -242,9 +245,49 @@ def test_block_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         fused_block(x, params, 2, exact_gelu=True)
     with pytest.raises(ValueError, match="heads"):
-        fused_block(x, params, 4)  # head width 32
+        fused_block(x, params, 8)  # head width 16
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block(x, params[:2] + (params[2].float(),) + params[3:], 2)
+
+
+@pytest.mark.parametrize("n", [13, 49, 193])
+@pytest.mark.parametrize("d", [32, 128])
+def test_head_widths_match_plain(cuda, d, n):
+    """Heads of width 32 and 128 (C 128 and 256, a multiple of the s8
+    GEMM's K slab) through the block kernel, the w8a8 block with the bf16
+    and the int8 attention, the training block and the three attention
+    kernels, each against its plain version."""
+    rs = np.random.default_rng(d + n)
+    heads, b = 256 // d, 3
+    c = heads * d
+    params = _block_params(rs, n, c, heads, 4 * c, cuda)
+    x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    _assert_block_close(fused_block(x, params, heads),
+                        block_ref(x, params, heads), x, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
+    out, saved = fused_block_train(x, params, heads)
+    want_out, want = block_train_ref(x, params, heads)
+    _assert_block_close(out, want_out, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    assert float((saved[1].float() - want[1].float()).abs().max()) \
+        <= PROBS_TOL
+    qp = quantize_block_params(params)
+    for quant_attn in (False, True):
+        _assert_block_close(
+            fused_block_q8(x, qp, heads, quant_attn=quant_attn),
+            block_ref_q8(x, qp, heads, quant_attn=quant_attn), x,
+            BLOCK_TOL, BLOCK_RMS_TOL)
+    qkv, bias = _attention_inputs(rs, b, n, heads, cuda, d)
+    assert _rel_err(fa.attention_qkv(qkv, bias, heads),
+                    fa.attention_qkv_ref(qkv, bias, heads)) <= BLOCK_TOL
+    got_o, got_p = fa.attention_probs(qkv, bias, heads)
+    want_o, want_p = fa.attention_probs_ref(qkv, bias, heads)
+    assert _rel_err(got_o, want_o) <= BLOCK_TOL
+    assert float((got_p.float() - want_p.float()).abs().max()) <= PROBS_TOL
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+    assert _rel_err(fa.attention_bnhd(q, k, v, bias),
+                    fa.attention_bnhd_ref(q, k, v, bias)) <= BLOCK_TOL
+    torch.cuda.synchronize()
 
 
 def _q8_inputs(rs, b, n, depth, static, cuda, c=128, heads=2, hidden=512,
@@ -325,8 +368,8 @@ def test_q8_block_rejects_what_the_kernel_does_not_take(cuda):
         fused_block_q8(x64, qp64, h64)
 
 
-def _attention_inputs(rs, b, n, heads, cuda):
-    c = heads * 64
+def _attention_inputs(rs, b, n, heads, cuda, d=64):
+    c = heads * d
     qkv = torch.from_numpy(rs.standard_normal((b, n, 3 * c)).astype(
         np.float32)).to(cuda, torch.bfloat16)
     bias = torch.from_numpy((rs.standard_normal((heads, n, n)) * 0.5).astype(
@@ -377,7 +420,7 @@ def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         fa.attention_probs(qkv.float(), bias, 2)
     with pytest.raises(ValueError, match="heads"):
-        fa.attention_probs(qkv, bias, 4)  # head width 32
+        fa.attention_probs(qkv, bias, 8)  # head width 16
     with pytest.raises(ValueError, match="bias"):
         fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
     q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)

@@ -105,9 +105,9 @@ def test_main_on_the_cpu(tmp_path, monkeypatch, capsys):
     teval.main(args + ["--epochs", "5"])
     tail = _tail(capsys)
     assert JAX_KEYS <= set(tail) and tail["device"] == "cpu"
-    assert tail["epochs"] == 5 and tail["config"]["num_heads"] == 2
+    assert tail["epochs"] == 5 and tail["config"]["num_heads"] == 4
     assert tail["config"] == dataclasses.asdict(
-        ModelConfig(embed_dim=128, num_heads=2, depth=(2, 1, 1))) | {
+        ModelConfig(embed_dim=128, num_heads=4, depth=(2, 1, 1))) | {
             "input_image_scales": [32, 64, 128], "depth": [2, 1, 1]}
     (held,) = tail["held_out"]
     assert held["seed"] == 7 and held["gt_objects"] == 3

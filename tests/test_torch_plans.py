@@ -32,7 +32,7 @@ def test_attention_plan_fits_the_card(n):
         assert smem == 2 * plan["key_tiles"] * 16 * 144
         assert smem <= fb.CTA_SHARED_MAX
         assert plan["ctas_per_sm"] >= (3 if n <= 193 else 2)
-        assert warps * 32 <= fb.ATTN_MAX_WARPS * 32
+        assert warps <= fb.ATTN_MAX_WARPS[C // HEADS]
         assert plan["grid"] == (HEADS, -(-b // samples))
         assert plan["grid"][1] * samples >= b
         assert plan["grid"][1] <= fb.MAX_GRID_Y

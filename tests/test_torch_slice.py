@@ -118,15 +118,30 @@ def test_slice_bf16_close_to_jax(scene_and_edges, flax_params):
     assert err <= 0.02, err
 
 
-@pytest.mark.parametrize("depth,blocks,chains", [
-    ((2, 2, 2), 2, 2),   # stage 0 block by block, stages 1 and 2 chained
-    ((2, 1, 1), 4, 0),   # single-block stages never reach the chain
-    ((3, 4, 2), 3, 2),   # the flagship's pattern at small widths
+@pytest.mark.parametrize("depth,change,blocks,chains", [
+    # chain_stage0 off: stage 0 block by block, stages 1 and 2 chained
+    pytest.param((2, 2, 2), {}, 2, 2, id="depth0-2-2"),
+    # single-block stages never reach the chain
+    pytest.param((2, 1, 1), {}, 4, 0, id="depth1-4-0"),
+    # the flagship's pattern at small widths
+    pytest.param((3, 4, 2), {}, 3, 2, id="depth2-3-2"),
+    # chain_stage0: stage 0 chains too, where it has more than one block
+    pytest.param((2, 2, 2), dict(chain_stage0=True), 0, 3,
+                 id="chain_stage0-2-2-2"),
+    pytest.param((3, 4, 2), dict(chain_stage0=True), 0, 3,
+                 id="chain_stage0-3-4-2"),
+    pytest.param((1, 2, 2), dict(chain_stage0=True), 1, 2,
+                 id="chain_stage0-1-2-2"),
+    # as in the JAX package, only together with fused_stage_chain
+    pytest.param((2, 2, 2), dict(chain_stage0=True, fused_stage_chain=False),
+                 6, 0, id="chain_stage0-no-stage-chain"),
 ])
-def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
-    """Stage 0 never chains (``chain_stage0`` is off) and a stage chains
-    only with more than one block, as ``S2Former._stage`` dispatches in the
-    JAX package."""
+def test_stage_dispatch_matches_jax(monkeypatch, depth, change, blocks,
+                                    chains):
+    """Stage 0 chains only with ``chain_stage0`` and ``fused_stage_chain``
+    both on, and a stage chains only with more than one block, as
+    ``S2Former._stage`` dispatches in the JAX package (``fused_stage_chain
+    and chain_stage0`` for stage 0)."""
     calls = {"block": 0, "chain": 0}
 
     def count(key, fn):
@@ -139,7 +154,9 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
                         count("block", s2former.fused_block))
     monkeypatch.setattr(s2former, "fused_block_chain",
                         count("chain", s2former.fused_block_chain))
-    mcfg = dataclasses.replace(TINY_V3, depth=depth)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the experimental-config warning
+        mcfg = dataclasses.replace(TINY_V3, depth=depth, **change)
     model = S2Former(mcfg).eval()
     g = torch.Generator().manual_seed(0)
     patches = [torch.rand((2, s, s, 3), generator=g)
@@ -152,22 +169,14 @@ def test_stage_dispatch_matches_jax(monkeypatch, depth, blocks, chains):
 
 @pytest.mark.parametrize("change", [
     dict(variant="vit"),
-    dict(chain_stage0=True),
 ])
 def test_unported_configs_raise(change):
     """What the port cannot build raises: the vit at scales other than its
     fixed 28/56/112/224 (the JAX package's ``ValueError``, from
-    ``build_model`` as from ``S2Former``), and what the port has not ported
-    yet names its ROADMAP item."""
+    ``build_model`` as from ``S2Former``)."""
     from deepmerge_tpu_torch.models.s2former import build_model
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the experimental-config warning
-        mcfg = dataclasses.replace(TINY_V3, **change)
-    if mcfg.variant == "vit":
-        for build in (build_model, S2Former):
-            with pytest.raises(ValueError, match="28,56,112"):
-                build(mcfg)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        S2Former(mcfg)
+    mcfg = dataclasses.replace(TINY_V3, **change)
+    for build in (build_model, S2Former):
+        with pytest.raises(ValueError, match="28,56,112"):
+            build(mcfg)
