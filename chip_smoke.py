@@ -120,9 +120,10 @@ kernel against its plain PyTorch version on the card:
      card over gloo (n_model 2: the flagship's 12 heads, 6 of width 64 a
      rank, through K7 and in training K6): the slice's embeddings held to
      the single-device plain forward (RMS error, first-round decisions at
-     phase 8's threshold), two training steps held to one device's losses,
-     the replicated parameters equal on both ranks (on ``TP_SCENE``, the
-     slice's scene cut to one chunk of points);
+     phase 8's threshold), two training steps from the seeded initial
+     weights held to one device's losses, the replicated parameters equal
+     on both ranks (on ``TP_SCENE``, the slice's scene cut to one chunk of
+     points);
  10. the modules ported last: K1 at the vit sides (the fused patch kernel
      bit-exact at out 28/56/112/224 on the vit slice's caps and at a cap of
      256, its gather at the caps above 256 and at 512, each fused slot
@@ -142,12 +143,26 @@ kernel against its plain PyTorch version on the card:
      ``python -m deepmerge_tpu_torch.eval --calibrate`` as a subprocess on
      the card (the root eval.py's model, 4 heads of 32: K6 at width 32 in
      training, K2 in serving), its launch counts printed; ``utils.profiling``'s ``sync_time`` and ``rep_probe`` of one
-     K4 block beside CUDA events.
+     K4 block beside CUDA events;
+ 11. the port's benchmark, ``deepmerge_tpu_torch/bench.py``: ``python -m
+     deepmerge_tpu_torch.bench`` as a subprocess at the root bench.py's
+     defaults (w8a8, 2048², 8192 regions, batch 2048, the density curve),
+     its one stdout line checked; then each mode in this process on its
+     own workload, each JSON line's keys and value and each run's kernel
+     launches checked: the headline's routes on the default scene (w8a8
+     fused, ``BENCH_FUSED_MAP=0``, ``BENCH_STREAM=2``, ``BENCH_QUANT=0``,
+     ``BENCH_QUANT=w8a8+attn``, ``BENCH_CHAIN=2``, ``BENCH_MODEL=vit``),
+     the bf16, w8a8+attn and stage-0 chain routes held against their plain
+     versions at batch 2048 (embeddings' RMS and first-round decisions),
+     the merged maps of the three w8a8 routes identical and equal to the
+     host expansion of the merge's labels; the serving walk over phase 6's
+     scenes (``BENCH_SERVE=4``'s workload); training for one timed epoch;
+     the mesh at N = 1 on a world of one on NCCL.
 
-``--only patches,kernels,widths,trained,scaleout,family`` runs K1's fused
-patch check, phase 3, phase 3's head-width check, phase 8, phases 8 and 9
-and/or phase 10 alone (after the card, the build and the scene) and prints
-no result lines: a development run, not the smoke run.
+``--only patches,kernels,widths,trained,scaleout,family,bench`` runs K1's
+fused patch check, phase 3, phase 3's head-width check, phase 8, phases 8
+and 9, phase 10 and/or phase 11 alone (after the card, the build and the
+scene) and prints no result lines: a development run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
 plain version at the training batch and every stage's sequence length,
@@ -292,6 +307,20 @@ class SmokeFailure(RuntimeError):
 def require(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def device_randn(dev, seed):
+    """``r(*shape, s=1.0)``: float32 standard normals of ``shape`` times
+    ``s``, drawn on ``dev`` from ``seed``. Phase 3's inputs hold up to
+    hundreds of millions of values, which a draw on the host takes
+    seconds to make."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=dev) * s
+    return r
 
 
 def run_cmd(args):
@@ -514,15 +543,13 @@ def check_block(what, got, want, x, tol, tol_rms):
 def block_inputs(b, n, depth, dev, seed, heads=12, c=768):
     """Random bf16 activations and ``depth`` blocks of flagship-width
     parameters (C 768, ``heads`` heads, MLP 4C) on the card."""
-    import numpy as np
     import torch
 
-    rs = np.random.default_rng(seed)
+    draw = device_randn(dev, seed)
     hidden = 4 * c
 
     def r(*shape, s=0.02):
-        return torch.from_numpy(
-            (rs.standard_normal(shape) * s).astype(np.float32)).to(dev)
+        return draw(*shape, s=s)
 
     bf = torch.bfloat16
     plist = [
@@ -532,9 +559,7 @@ def block_inputs(b, n, depth, dev, seed, heads=12, c=768):
          r(hidden).to(bf), r(c, hidden).to(bf), r(c).to(bf))
         for _ in range(depth)
     ]
-    x = torch.from_numpy(
-        rs.standard_normal((b, n, c)).astype(np.float32)).to(dev, bf)
-    return x, plist, heads
+    return draw(b, n, c).to(bf), plist, heads
 
 
 def check_kernels(dev, ds, scene):
@@ -817,16 +842,13 @@ def check_gemms(dev):
     each against its plain version on the first 4096 rows, its time and
     TFLOP/s beside one ``torch.matmul`` of the same shape (the yardstick;
     the port never calls it for these)."""
-    import numpy as np
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
 
     m, c, hidden = 1024 * 192, 768, 3072
-    rs = np.random.default_rng(3)
-    r = lambda *shape, s=1.0: torch.from_numpy(
-        (rs.standard_normal(shape) * s).astype(np.float32)).to(
-            dev, torch.bfloat16)
+    draw = device_randn(dev, 3)
+    r = lambda *shape, s=1.0: draw(*shape, s=s).to(torch.bfloat16)
     total_ms = 0.0
     for what, n, k, epi in (("qkv", 3 * c, c, "bias_cast"),
                             ("proj", c, c, "bias_residual"),
@@ -1203,7 +1225,6 @@ def check_k6(dev):
     flagship widths; the backward through the autograd function on the
     kernel's forward against the plain forward. Returns the stage-0 entry
     of the JSON line."""
-    import numpy as np
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
@@ -1211,9 +1232,7 @@ def check_k6(dev):
     b, c, heads = 2 * TRAIN_PAIRS, 768, 12
     results = {}
     for n in (192, 48, 12):
-        rs = np.random.default_rng(n + 7)
-        r = lambda *shape, s=1.0: torch.from_numpy(
-            (rs.standard_normal(shape) * s).astype(np.float32)).to(dev)
+        r = device_randn(dev, n + 7)
         qkv = r(b, n, 3 * c).to(torch.bfloat16)
         bias = r(heads, n, n, s=0.5)
         g = r(b, n, c).to(torch.bfloat16)
@@ -1333,7 +1352,6 @@ def check_k5(dev):
     against the plain forward, its time beside the plain version's, and
     the backward's (plain torch) time at N 192. Returns the JSON entry at
     N 192."""
-    import numpy as np
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
@@ -1353,9 +1371,7 @@ def check_k5(dev):
         require(probs_err <= TOL_K6_PROBS, f"K5 probs (N={n}): {probs_err}")
         require(max(qkv_err, gin_err) <= TOL_K5_SAVED,
                 f"K5 qkv {qkv_err}, gin {gin_err} (N={n}) > {TOL_K5_SAVED}")
-        rs = np.random.default_rng(n)
-        g = torch.from_numpy(rs.standard_normal(x.shape).astype(
-            np.float32)).to(dev, x.dtype)
+        g = device_randn(dev, n)(*x.shape).to(x.dtype)
 
         def grads():
             xs = x.clone().requires_grad_(True)
@@ -1411,7 +1427,6 @@ def check_wide_tokens(dev):
     stage-1/2 chains, dynamic scales) and K6 at v5's lengths and K6 at 256.
     Returns the JSON entries of K7 (the v5 stage-0 shape, B 1024, N 193)
     and K8 (B 1024, N 192)."""
-    import numpy as np
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
@@ -1421,9 +1436,7 @@ def check_wide_tokens(dev):
     bf = torch.bfloat16
 
     def attention_inputs(b, n, seed):
-        rs = np.random.default_rng(seed)
-        r = lambda *shape, s=1.0: torch.from_numpy(
-            (rs.standard_normal(shape) * s).astype(np.float32)).to(dev)
+        r = device_randn(dev, seed)
         return r(b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
 
     def attention_work(b, n):
@@ -1576,7 +1589,6 @@ def check_head_widths(dev, c=768, batch=1024):
     heads of 64 (only the bias differs), K7 and K8 beside
     ``scaled_dot_product_attention`` at the same width. Returns, by kernel
     name, ``{width: [{n, ms, ms_64, max_abs_err, ...}, ...]}``."""
-    import numpy as np
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
@@ -1702,8 +1714,7 @@ def check_head_widths(dev, c=768, batch=1024):
             require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
                     f"K5 ({tag}, N={n}): probs {probs_err}, saved "
                     f"{saved_err}")
-            g = torch.from_numpy(np.random.default_rng(n).standard_normal(
-                x.shape).astype(np.float32)).to(dev, x.dtype)
+            g = device_randn(dev, n)(*x.shape).to(x.dtype)
 
             def grads():
                 xs = x.clone().requires_grad_(True)
@@ -1735,10 +1746,8 @@ def check_head_widths(dev, c=768, batch=1024):
             torch.cuda.empty_cache()
 
         def attention_inputs(bb, n, seed, h=heads):
-            rs = np.random.default_rng(seed)
-            r = lambda *shape, sd=1.0: torch.from_numpy(
-                (rs.standard_normal(shape) * sd).astype(np.float32)).to(dev)
-            return r(bb, n, 3 * c).to(bf), r(h, n, n, sd=0.5)
+            r = device_randn(dev, seed)
+            return r(bb, n, 3 * c).to(bf), r(h, n, n, s=0.5)
 
         # K6 at the training batch, forward and backward
         for n in (192, 48, 12):
@@ -2068,27 +2077,13 @@ def export_folder(root, n_scenes):
     and shapefile folders and each scene's point and edge counts."""
     import numpy as np
 
-    from deepmerge_tpu_torch.geodata.ingest import export_scene
+    from deepmerge_tpu_torch.bench import export_scene_folder
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 
-    images = os.path.join(root, "images")
-    shps = os.path.join(root, "shps")
-    stage = os.path.join(root, "stage")
-    os.makedirs(images, exist_ok=True)
     counts = {}
     for seed in range(1, n_scenes + 1):
         scene = generate_scene(**SERVE_SCENE, seed=seed, name=f"scene{seed}")
-        paths = export_scene(scene, stage, compression="deflate")
-        os.rename(paths["image"], os.path.join(images, f"{scene.name}.tif"))
-        os.makedirs(os.path.join(shps, scene.name), exist_ok=True)
-        for ext in (".shp", ".shx", ".dbf"):
-            os.rename(os.path.join(stage, f"{scene.name}{ext}"),
-                      os.path.join(shps, f"{scene.name}{ext}"))
-            for base in ("PointsGCS", "lines"):
-                src = os.path.join(stage, scene.name, f"{base}{ext}")
-                if os.path.exists(src):
-                    os.rename(src, os.path.join(shps, scene.name,
-                                                f"{base}{ext}"))
+        images, shps = export_scene_folder(scene, root)
         np.save(os.path.join(shps, f"{scene.name}_labels.npy"), scene.labels)
         counts[scene.name] = (scene.regions.num_points, scene.rag.num_edges)
     return images, shps, counts
@@ -2143,23 +2138,6 @@ def serving_scene(cfg, ex, images, shps, name):
             f"merge decisions differ > {EDGE_FLIPS_MAX}")
 
 
-def feature_stores(stores):
-    """A context in which the walk keeps each scene's embeddings in an
-    in-memory ``FeatureStore`` (``stores[scene name]``) where h5py is
-    missing; each scene writes its .h5 where it is there."""
-    from deepmerge_tpu_torch.infer import driver, extract
-
-    if extract.HAS_H5PY:
-        return contextlib.nullcontext()
-
-    def in_memory_store(path):
-        store = extract.FeatureStore(None)
-        stores[os.path.basename(os.path.dirname(path))] = store
-        return store
-
-    return mock.patch.object(driver, "FeatureStore", in_memory_store)
-
-
 def serving_walk(model, dev, card, walk):
     """Phase 6: ``process_folder`` over the serving scenes ``walk`` (the
     image and shapefile folders and each scene's point and edge counts, from
@@ -2173,7 +2151,8 @@ def serving_walk(model, dev, card, walk):
     cfg = Config(model=model.cfg,
                  data=DataConfig(max_window=512, eval_batch_size=SERVE_BATCH),
                  merge=MergeConfig(engine="device"))
-    stores = {}  # scene name -> in-memory store, where h5py is missing
+    # scene name -> in-memory store, where h5py is missing
+    stores = None if extract.HAS_H5PY else {}
     print("h5py: available; each scene writes its .h5" if extract.HAS_H5PY
           else "h5py: missing on this machine; the walk keeps each scene's "
           "embeddings in an in-memory FeatureStore")
@@ -2181,10 +2160,9 @@ def serving_walk(model, dev, card, walk):
     images, shps, counts = walk
     stats, log = {}, []
     t0 = time.perf_counter()
-    with feature_stores(stores):
-        done, launches = counted(lambda: driver.process_folder(
-            cfg, images, shps, log_fn=log.append, write_labelmaps=True,
-            extractor=ex, stats=stats, device=dev))
+    done, launches = counted(lambda: driver.process_folder(
+        cfg, images, shps, log_fn=log.append, write_labelmaps=True,
+        extractor=ex, stats=stats, stores=stores, device=dev))
     wall = time.perf_counter() - t0
     for line in log:
         if line.startswith(("  walk[", "  prefetch[", "FAILED")):
@@ -2980,7 +2958,7 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     )
     from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
     from deepmerge_tpu_torch.infer import driver
-    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.infer.extract import HAS_H5PY, FeatureExtractor
     from deepmerge_tpu_torch.infer.merge import merge_scene_device
     from deepmerge_tpu_torch.parallel import distributed
     from deepmerge_tpu_torch.parallel.mesh import make_mesh
@@ -3082,17 +3060,16 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
                       data=DataConfig(max_window=512,
                                       eval_batch_size=SERVE_BATCH),
                       merge=MergeConfig(engine="device", threshold=thr))
-        maps, stores = {}, {}
+        maps, stores = {}, None if HAS_H5PY else {}
         for label, kw in (
                 ("mesh", dict(mesh=mesh, extractor=FeatureExtractor(
                     model, batch_size=SERVE_BATCH, mesh=mesh))),
                 ("single", dict(extractor=FeatureExtractor(
                     model, batch_size=SERVE_BATCH, device=dev)))):
             t = time.perf_counter()
-            with feature_stores(stores):
-                done, launches = counted(lambda: driver.process_folder(
-                    wcfg, images, shps, log_fn=lambda *_: None,
-                    write_labelmaps=True, **kw))
+            done, launches = counted(lambda: driver.process_folder(
+                wcfg, images, shps, log_fn=lambda *_: None,
+                write_labelmaps=True, stores=stores, **kw))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             require(done == sorted(counts), f"{label} walk: done {done}")
@@ -3224,8 +3201,8 @@ def tensor_parallel_rank(rank, world, root):
     card (gloo, CUDA tensors), a (1, ``world``) mesh: the flagship v3 in
     bf16 built for the mesh on its ``shard_params`` of phase 8's weights,
     ``TP_SCENE``'s embeddings through ``extract_scene_device``, then
-    ``TP_STEPS`` steps of ``make_train_step(cfg, mesh)``; what it saw goes
-    to ``<root>/tp<rank>.pkl``."""
+    ``TP_STEPS`` steps of ``make_train_step(cfg, mesh)`` from the seeded
+    initial weights; what it saw goes to ``<root>/tp<rank>.pkl``."""
     import pickle
 
     import torch
@@ -3277,8 +3254,8 @@ def tensor_parallel_rank(rank, world, root):
         pos, neg = make_training_pairs(scene)
         sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
         state = loop.create_train_state(
-            tcfg, len(sampler) // tcfg.data.batch_size, state_dict=trained,
-            device=dev, mesh=mesh)
+            tcfg, len(sampler) // tcfg.data.batch_size, device=dev,
+            mesh=mesh)
         step = loop.make_train_step(tcfg, mesh)
         batches = sampler.epoch_batches(spec["epoch_seed"],
                                         tcfg.data.batch_size)
@@ -3310,6 +3287,42 @@ def tensor_parallel_rank(rank, world, root):
         pickle.dump(out, f)
 
 
+def flat_grads(model):
+    """Every parameter's gradient in one float32 vector (zeros for a
+    parameter the step did not reach)."""
+    import torch
+
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .detach().reshape(-1).float()
+                      for p in model.parameters()])
+
+
+def first_step_grads(dev, tcfg, sampler, epoch_seed, state_dict, plain):
+    """``flat_grads`` of one device's first training step from
+    ``state_dict`` (None: the seeded initial weights), on the kernels or on
+    the plain versions."""
+    from deepmerge_tpu_torch.train import loop
+
+    kw = {} if state_dict is None else {"state_dict": state_dict}
+    state = loop.create_train_state(tcfg, len(sampler) // TRAIN_PAIRS,
+                                    device=dev, **kw)
+    batch = next(iter(sampler.epoch_batches(epoch_seed, TRAIN_PAIRS)))
+    with plain_versions() if plain else contextlib.nullcontext():
+        state, _ = loop.make_train_step(tcfg)(state, batch)
+    return flat_grads(state.model)
+
+
+def sign_noise(got, want):
+    """The share of the elements whose gradients are both nonzero and of
+    opposite signs, and the share of ``want``'s below Adam's eps (1e-8)."""
+    import torch
+
+    both = (got != 0) & (want != 0)
+    flips = (torch.sign(got) != torch.sign(want)) & both
+    return (float(flips.float().mean()),
+            float((want.abs() < 1e-8).float().mean()))
+
+
 def tensor_parallel_case(dev, card, dcfg, trained, thr):
     """Phase 9's tensor-parallel case: ``TP_RANKS`` ranks in as many
     processes on the one card over gloo (``tensor_parallel_rank``), the
@@ -3321,7 +3334,15 @@ def tensor_parallel_case(dev, card, dcfg, trained, thr):
     steps (K6 on the local heads) against one device's steps from the same
     weights and batches, by phase 7's loss bars, its replicated parameters
     identical on both ranks. A check of the split and its collectives, not
-    a scaling number. Returns the ranks' launch counts."""
+    a scaling number. Returns the ranks' launch counts.
+
+    The steps start from ``create_train_state``'s seeded initial weights,
+    as phase 7's and the data-parallel trainer's do, not from phase 8's.
+    At phase 8's loss near 0.03 a fifth of the first step's gradient
+    elements lie below Adam's eps, and one device's kernels and its plain
+    versions disagree on the sign of one element in seven (one in 285 from
+    the initial weights; H100): a fresh Adam's first update is lr times
+    those signs, so the loss after it follows rounding, not the split."""
     import multiprocessing
     import pickle
 
@@ -3394,16 +3415,32 @@ def tensor_parallel_case(dev, card, dcfg, trained, thr):
     pos, neg = make_training_pairs(scene)
     sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
     state = loop.create_train_state(tcfg, len(sampler) // TRAIN_PAIRS,
-                                    state_dict=trained, device=dev)
+                                    device=dev)
     step = loop.make_train_step(tcfg)
-    want = []
+    want, g_init = [], None
     for _, batch in zip(range(TP_STEPS),
                         sampler.epoch_batches(epoch_seed, TRAIN_PAIRS)):
         state, m = step(state, batch)
         want.append(float(m["loss"]))
+        if g_init is None:
+            g_init = flat_grads(state.model)
     del state
     torch.cuda.empty_cache()
     want = np.asarray(want)
+    # why the steps start from the initial weights: one device's kernels
+    # against its plain versions, signs of the first step's gradients
+    noise = {"the initial weights": sign_noise(
+        g_init, first_step_grads(dev, tcfg, sampler, epoch_seed, None,
+                                 plain=True))}
+    del g_init
+    noise["phase 8's weights"] = sign_noise(*(
+        first_step_grads(dev, tcfg, sampler, epoch_seed, trained, plain)
+        for plain in (False, True)))
+    torch.cuda.empty_cache()
+    print("  one device's first step, kernels against plain versions: "
+          + "; ".join(f"from {k} the gradients' signs differ on "
+                      f"{f:.4%} of the elements, {e:.4%} below Adam's eps"
+                      for k, (f, e) in noise.items()))
     blocks = sum(ModelConfig().depth)
     chunks = -(-scene.regions.num_points // dcfg.eval_batch_size)
     launches = []
@@ -3918,6 +3955,298 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
     return runs
 
 
+# ---------------------------------------------------------------- phase 11
+
+BENCH_RUNS = 2        # timed runs of each in-process headline route
+BENCH_VIT_RUNS = 1    # the vit route's (3.5 s a run at 8192 points)
+BENCH_TRAIN_EPOCHS = 1
+# the JSON keys of each bench mode: the root bench.py's without vs_baseline
+# and the TPU targets, with device (and the serving walk's store)
+BENCH_KEYS = {
+    "main": {"metric", "value", "unit", "device"},
+    "curve": {"density_curve", "density_curve_unit"},
+    "serve": {"metric", "value", "unit", "link_h2d_mbps",
+              "steady_scene_seconds", "steady_mpix_per_s", "device",
+              "store"},
+    "train": {"metric", "value", "unit", "device"},
+    "mesh": {"metric", "value", "unit", "mesh_devices", "platform",
+             "per_device_mpix_s", "weak_scaling_efficiency", "points",
+             "device"},
+}
+BENCH_METRICS = {
+    "main": "end_to_end_segment_and_merge_throughput",
+    "serve": "folder_serving_throughput",
+    "train": "training_throughput",
+    "mesh": "mesh_segment_and_merge_throughput",
+}
+
+
+def bench_line(out, mode, what, keys=None):
+    """Print a bench mode's JSON line and hold it to its mode's keys and
+    metric, a finite positive value and the card's name."""
+    import math
+
+    import torch
+
+    print(f"bench ({what}): {json.dumps(out)}")
+    keys = BENCH_KEYS[mode] if keys is None else keys
+    require(set(out) == keys, f"bench ({what}): keys {sorted(out)}, want "
+            f"{sorted(keys)}")
+    require(out["metric"] == BENCH_METRICS[mode],
+            f"bench ({what}): metric {out['metric']}")
+    require(isinstance(out["value"], (int, float))
+            and math.isfinite(out["value"]) and out["value"] > 0,
+            f"bench ({what}): value {out['value']}")
+    require(out["device"] == torch.cuda.get_device_name(0),
+            f"bench ({what}): device {out['device']}")
+
+
+def bench_against_plain(model, dcfg, scene, dev, simi_k, label):
+    """A headline route of phase 11 against the plain versions on the card,
+    on the same model, scene and batch: the embeddings' RMS error and the
+    share of first-round merge decisions that differ from the route's
+    ``simi_k``, held to ``against_plain``'s bounds."""
+    import torch
+
+    from deepmerge_tpu_torch import bench
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.ops.labelprop import device_score_and_merge
+
+    ex = FeatureExtractor(model, batch_size=dcfg.eval_batch_size, device=dev)
+    st = bench.prep_scene(scene, dcfg, dev)
+    emb_k = ex.extract_scene_device(scene, dcfg, device_scene=st.device_scene)
+    with plain_versions():
+        t = time.perf_counter()
+        emb_p = ex.extract_scene_device(scene, dcfg,
+                                        device_scene=st.device_scene)
+        simi_p, _, _ = device_score_and_merge(
+            emb_p, st.point_region, st.edges, st.edge_valid,
+            num_regions=scene.regions.num_regions,
+            max_rounds=bench.MAX_ROUNDS)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    valid = st.edge_valid.cpu().numpy()
+    emb_rms = rms_rel_err(emb_k, emb_p)
+    flips = first_round_flips(simi_k, simi_p, valid)
+    print(f"  bench {label} (plain versions, batch {dcfg.eval_batch_size}): "
+          f"{plain_s:.1f} s; embeddings RMS rel err {emb_rms:.3e} (max "
+          f"{TOL_EMB_RMS}); first-round merge decisions that differ "
+          f"{flips:.5f} of {int(valid.sum())} edges (max {EDGE_FLIPS_MAX})")
+    require(emb_rms <= TOL_EMB_RMS, f"bench {label}: embeddings RMS rel err "
+            f"{emb_rms} > {TOL_EMB_RMS}")
+    require(flips <= EDGE_FLIPS_MAX, f"bench {label}: {flips} of the merge "
+            f"decisions differ > {EDGE_FLIPS_MAX}")
+
+
+def bench_phase(dev, card, repo, walk):
+    """Phase 11, the port's benchmark (``deepmerge_tpu_torch/bench.py``):
+    ``python -m deepmerge_tpu_torch.bench`` as a subprocess at the root
+    script's defaults (w8a8, 2048², 8192 regions, batch 2048, the density
+    curve), its one stdout line checked; then each mode in this process
+    on its own workload: the headline's routes on the default scene
+    (w8a8 fused, ``BENCH_FUSED_MAP=0``, ``BENCH_STREAM=2``,
+    ``BENCH_QUANT=0``, ``BENCH_QUANT=w8a8+attn``, ``BENCH_CHAIN=2``,
+    ``BENCH_MODEL=vit``), each line's keys and its kernels' launch counts
+    checked, the bf16, w8a8+attn and stage-0 chain routes held against
+    their plain versions (``bench_against_plain``), the merged map of the
+    three w8a8 routes identical and equal to the host expansion of the
+    merge's labels; the serving walk over
+    phase 6's scenes (``BENCH_SERVE=4``'s workload); training for
+    ``BENCH_TRAIN_EPOCHS`` timed epochs; the mesh at N = 1 on a world of
+    one on NCCL. Returns the launch counts of the in-process runs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from deepmerge_tpu_torch import bench
+    from deepmerge_tpu_torch.infer import extract
+    from deepmerge_tpu_torch.ops.patches import staging_caps
+
+    t_phase = time.perf_counter()
+    runs = []
+
+    # the entry point as a user runs it
+    t = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env["BENCH_VERBOSE"] = "1"
+    p = subprocess.run([sys.executable, "-m", "deepmerge_tpu_torch.bench"],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=600)
+    for line in p.stderr.splitlines():
+        if line.startswith("[bench"):
+            print(f"  {line}")
+    require(p.returncode == 0, "python -m deepmerge_tpu_torch.bench exited "
+            f"{p.returncode}:\n{p.stderr[-4000:]}")
+    lines = p.stdout.strip().splitlines()
+    require(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+    out = json.loads(lines[0])
+    bench_line(out, "main", "python -m deepmerge_tpu_torch.bench, defaults",
+               BENCH_KEYS["main"] | BENCH_KEYS["curve"])
+    require(set(out["density_curve"]) == {"500", "1000", "2000"},
+            f"density curve {out['density_curve']}")
+    print(f"  the subprocess: {time.perf_counter() - t:.1f} s with start-up, "
+          f"the scenes and the curve, on {card}")
+
+    # the headline's routes in this process, on the default scene
+    t = time.perf_counter()
+    side = SERVE_SCENE["h"]
+    scene = bench.make_scene(side, side, bench.n_regions_for(
+        side, side, bench.DEFAULT_DENSITY))
+    require(scene.regions.num_regions == SERVE_SCENE["n_regions"],
+            f"default scene: {scene.regions.num_regions} regions")
+    print(f"bench scene: {side}x{side}, {scene.regions.num_points} points, "
+          f"made in {time.perf_counter() - t:.1f} s")
+    _, inner, obj = scene.regions.point_meta()
+    n_points = scene.regions.num_points
+    blocks = ("fused_block", "fused_block_chain", "fused_block_q8",
+              "fused_block_chain_q8", "fused_block_q8_attn",
+              "fused_block_chain_q8_attn")
+    others = ("attention_qkv", "attention_bnhd", "fused_block_train",
+              "fused_attention_train", "int4_dot")
+    q8 = ("fused_block_q8", "fused_block_chain_q8")
+    cases = (  # label, knobs, route, kernels on, timed runs
+        ("w8a8", {}, {}, q8, BENCH_RUNS),
+        ("BENCH_FUSED_MAP=0", {}, dict(fused_map=False), q8, BENCH_RUNS),
+        ("BENCH_STREAM=2", {}, dict(stream=2), q8, BENCH_RUNS),
+        ("BENCH_QUANT=0", {"BENCH_QUANT": "0"}, {},
+         ("fused_block", "fused_block_chain"), BENCH_RUNS),
+        ("BENCH_QUANT=w8a8+attn", {"BENCH_QUANT": "w8a8+attn"}, {},
+         ("fused_block_q8_attn", "fused_block_chain_q8_attn"), BENCH_RUNS),
+        ("BENCH_CHAIN=2", {"BENCH_CHAIN": "2"}, {},
+         ("fused_block_chain_q8",), BENCH_RUNS),
+        ("BENCH_MODEL=vit", {"BENCH_MODEL": "vit"}, {}, (), BENCH_VIT_RUNS),
+    )
+    # the routes whose kernels run nowhere else at these shapes: held
+    # against their plain versions on the same model, scene and batch
+    held = ("BENCH_QUANT=0", "BENCH_QUANT=w8a8+attn", "BENCH_CHAIN=2")
+    results = {}
+    # one model (random weights from seed 0) for the three w8a8 routes
+    w8a8 = bench.fresh_model(bench.config_for("main", {}).model)
+    for label, knobs, route, on, n_runs in cases:
+        cfg = bench.config_for("main", knobs)
+        dcfg = cfg.data
+        caps = staging_caps(inner, obj, dcfg.patch_sizes, dcfg.max_window)
+        model = w8a8 if not knobs else (
+            bench.fresh_model(cfg.model) if label in held else None)
+        t = time.perf_counter()
+        (out, res), launches = counted(lambda: bench.segment_and_merge_bench(
+            cfg, scene, device=dev, model=model, runs=n_runs, **route))
+        wall = time.perf_counter() - t
+        bench_line(out, "main", label)
+        # K1's fused kernel a slot and chunk, the map's lookup a run
+        calls = n_runs + 1
+        if route.get("stream"):
+            xs = scene.regions.points_yx[:, 1].astype(np.int64)
+            groups, _, _ = extract._plan_strips(
+                scene, caps, xs, np.argsort(xs, kind="stable"),
+                route["stream"])
+            chunks = sum(-(-len(g) // dcfg.eval_batch_size) for g in groups)
+        else:
+            chunks = -(-n_points // dcfg.eval_batch_size)
+        fused_slots = sum(cap <= 256 for cap in caps)
+        gather = ("window_gather",) if fused_slots < len(caps) else ()
+        require_launches(
+            launches, ("patch_resize", "label_lookup") + on + gather,
+            tuple(k for k in blocks if k not in on) + others
+            + (() if gather else ("window_gather",)), f"bench {label}")
+        want = {"patch_resize": fused_slots * chunks * calls,
+                "label_lookup": calls}
+        if label == "BENCH_CHAIN=2":
+            want["fused_block_chain_q8"] = 3 * chunks * calls
+        require(all(launches[k] == v for k, v in want.items()),
+                f"bench {label}: launches {launches}, want {want}")
+        print(f"  bench {label}: launches {launches}; {res['n_clusters']} "
+              f"clusters after {res['rounds']} rounds; {wall:.1f} s with "
+              f"the warm-up")
+        runs.append(launches)
+        results[label] = res
+        if label in held:
+            bench_against_plain(model, dcfg, scene, dev, res["simi"], label)
+    # the three routes of the w8a8 headline merge to one map, the host
+    # expansion of the merge's labels
+    maps = {k: results[k]["label_map"].cpu().numpy()
+            for k in ("w8a8", "BENCH_FUSED_MAP=0", "BENCH_STREAM=2")}
+    labels = results["BENCH_FUSED_MAP=0"]["labels"].cpu().numpy()
+    _, dense = np.unique(labels[:scene.regions.num_regions],
+                         return_inverse=True)
+    for k, m in maps.items():
+        diff = float((m != maps["w8a8"]).mean())
+        print(f"  bench {k}: merged map against the fused route's: "
+              f"{diff:.6f} of the pixels differ")
+        require(diff == 0.0, f"bench {k}: the merged map differs from the "
+                f"fused route's in {diff} of the pixels")
+    require(np.array_equal(dense[scene.labels], maps["w8a8"]),
+            "bench: the fused map is not the host expansion of the labels")
+    del results, maps, w8a8
+    torch.cuda.empty_cache()
+
+    # the serving walk over phase 6's scenes: BENCH_SERVE=4's workload
+    images, shps, counts = walk
+    cfg = bench.config_for("serve", {})
+    t = time.perf_counter()
+    (out, done), launches = counted(lambda: bench.serve_bench(
+        cfg, images, shps, len(counts), (SERVE_SCENE["h"], SERVE_SCENE["w"]),
+        device=dev))
+    bench_line(out, "serve", f"BENCH_SERVE={len(counts)}")
+    require(done == sorted(counts), f"bench serve: done {done}")
+    require(out["store"] == ("h5" if extract.HAS_H5PY else "memory"),
+            f"bench serve: store {out['store']}")
+    require_launches(launches, Q8_PATH,
+                     [k for k in launches if k not in Q8_PATH],
+                     "the bench's serving walk")
+    want = 2 * 3 * sum(-(-n // cfg.data.eval_batch_size)
+                       for n, _ in counts.values())
+    require(launches["patch_resize"] == want, f"bench serve: patch_resize "
+            f"{launches['patch_resize']}, want {want} (two walks)")
+    print(f"  bench serve: launches {launches}; "
+          f"{time.perf_counter() - t:.1f} s with the warm-up walk")
+    runs.append(launches)
+
+    # training on the root script's scene
+    t = time.perf_counter()
+    cfg = bench.config_for("train", {})
+    (out, losses), launches = counted(lambda: bench.train_bench(
+        cfg, bench.train_scene(), BENCH_TRAIN_EPOCHS, device=dev))
+    bench_line(out, "train", f"BENCH_TRAIN={BENCH_TRAIN_EPOCHS}")
+    require(bool(np.isfinite(losses).all()), f"bench train: losses {losses}")
+    train_on = ("patch_resize", "fused_attention_train")
+    require_launches(launches, train_on,
+                     [k for k in launches if k not in train_on],
+                     "the bench's training")
+    steps = 2 * len(losses)  # the warm-up epoch and the timed one
+    depth = sum(cfg.model.depth)
+    require(launches["fused_attention_train"] == depth * steps,
+            f"bench train: K6 {launches['fused_attention_train']}, want "
+            f"{depth} a step of {steps}")
+    print(f"  bench train: launches {launches}; last losses "
+          f"{[round(float(x), 4) for x in losses[-3:]]}; "
+          f"{time.perf_counter() - t:.1f} s with the scene and the warm-up")
+    runs.append(launches)
+
+    # the mesh at N = 1 on a world of one on NCCL (the one-card lease)
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        (out, merged), launches = counted(lambda: bench.mesh_bench(
+            bench.config_for("mesh", {}), 1, lambda k: scene, device=dev,
+            runs=BENCH_RUNS))
+    finally:
+        dist.destroy_process_group()
+    bench_line(out, "mesh", "BENCH_MESH=1")
+    require(out["platform"] == "gpu" and out["mesh_devices"] == 1,
+            f"bench mesh: {out}")
+    require_launches(launches, Q8_PATH,
+                     [k for k in launches if k not in Q8_PATH],
+                     "the bench's mesh")
+    print(f"  bench mesh: launches {launches}; {merged[1].num_clusters} "
+          f"clusters after {merged[1].rounds} rounds; "
+          f"{time.perf_counter() - t:.1f} s")
+    runs.append(launches)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3935,15 +4264,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, repo)
     # development runs: ``--only
-    # patches,kernels,widths,trained,scaleout,family`` runs those phases
-    # alone (after the card, the build and the scene; patches: K1's fused
-    # patch kernel, widths: the head-width check, both parts of phase 3;
-    # family: phase 10) and prints no result lines
+    # patches,kernels,widths,trained,scaleout,family,bench`` runs those
+    # phases alone (after the card, the build and the scene; patches: K1's
+    # fused patch kernel, widths: the head-width check, both parts of phase
+    # 3; family: phase 10; bench: phase 11) and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
         require(only <= {"patches", "kernels", "widths", "trained",
-                         "scaleout", "family"}, f"unknown phases {only}")
+                         "scaleout", "family", "bench"},
+                f"unknown phases {only}")
 
     import warnings
 
@@ -4027,15 +4357,19 @@ def main() -> int:
         kernel_results.update(k10)
     if only is not None:
         with tempfile.TemporaryDirectory() as walk_root:
-            if only & {"trained", "scaleout"}:
+            if only & {"trained", "scaleout", "bench"}:
                 walk = export_folder(
-                    walk_root, SERVE_SCENES if "scaleout" in only else 1)
+                    walk_root, SERVE_SCENES if only & {"scaleout", "bench"}
+                    else 1)
+            if only & {"trained", "scaleout"}:
                 _, trained, thr, _ = trained_parity_phase(
                     dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
                     region_map, walk)
             if "scaleout" in only:
                 scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
                                 region_map, trained, thr, walk)
+            if "bench" in only:
+                bench_phase(dev, card, repo, walk)
         if "family" in only:
             family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
                          region_map)
@@ -4272,7 +4606,7 @@ def main() -> int:
             del ex, run, out
             torch.cuda.empty_cache()
 
-    # the serving scenes, written once for phases 6 and 9
+    # the serving scenes, written once for phases 6, 9 and 11
     walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
     try:
         # 6. the serving walk
@@ -4325,16 +4659,23 @@ def main() -> int:
         path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
                                          valid_d, region_map, trained, thr,
                                          walk))
+        # 10. vit, the legacy harness, tiles, eval, profiling
+        family_runs = family_phase(dev, card, repo, scene, edges_d, valid_d,
+                                   valid, region_map)
+        path_runs.extend(family_runs)
+        # 11. the benchmark's modes, over phase 6's scenes among others
+        bench_runs = bench_phase(dev, card, repo, walk)
+        path_runs.extend(bench_runs)
     finally:
         shutil.rmtree(walk_root, ignore_errors=True)
-    # 10. the modules of PR 10's slice: vit, legacy, tiles, eval, profiling
-    family_runs = family_phase(dev, card, repo, scene, edges_d, valid_d,
-                               valid, region_map)
-    path_runs.extend(family_runs)
     # K1's counts in the kernels line add phase 10's vit slice (fused
-    # patch kernel and gather) to the bf16 slice's and the float path's
+    # patch kernel and gather) to the bf16 slice's and the float path's;
+    # every kernel's adds phase 11's runs
     for k in ("patch_resize", "window_gather"):
         all_launches[k] += family_runs[0][k]
+    for launches in bench_runs:
+        for k, n in launches.items():
+            all_launches[k] += n
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)

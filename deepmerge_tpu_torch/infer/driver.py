@@ -316,6 +316,7 @@ def process_folder(
     watch_iterations: Optional[int] = None,
     extractor: Optional[FeatureExtractor] = None,
     stats: Optional[dict] = None,
+    stores: Optional[dict] = None,
     device: torch.device | str = "cuda",
 ) -> list[str]:
     """Walk the per-scene folders of the reference's layout: each subfolder
@@ -333,7 +334,9 @@ def process_folder(
     ``watch_iterations`` bounds the scans. ``extractor`` reuses a warm
     extractor (its model wins over ``checkpoint_path``). ``stats`` receives
     ``{"scene_done_ts": [...]}``, the ``time.perf_counter()`` of each
-    scene's completion.
+    scene's completion. ``stores`` (a dict) keeps each scene's embeddings
+    in an in-memory ``FeatureStore`` under the scene's name instead of
+    its .h5, for a machine without h5py.
 
     With ``mesh`` every rank of the mesh walks the same folder, and each
     scene goes through ``process_scene(mesh=...)``: rank 0 alone writes
@@ -439,7 +442,12 @@ def process_folder(
                     t1 = time.perf_counter()
                     log_fn(f"processing {entry} "
                            f"({scene.regions.num_points} points)")
-                    store = FeatureStore(h5_path) if writer else None
+                    if not writer:
+                        store = None
+                    elif stores is None:
+                        store = FeatureStore(h5_path)
+                    else:
+                        store = stores[entry] = FeatureStore(None)
                     fut = process_scene(
                         cfg, scene, store=store, lines_path=lines,
                         log_fn=log_fn, extractor=extractor, mesh=mesh,

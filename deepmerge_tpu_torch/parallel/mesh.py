@@ -68,13 +68,28 @@ def _local_device(devices) -> torch.device:
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
-              devices=None) -> Mesh:
+              devices=None, ranks=None) -> Optional[Mesh]:
     """The mesh over the current process group (``n_data`` defaults to the
     world size over ``n_model``). Every rank must call it: a model axis
     above 1 creates one data-axis group per model coordinate, then one
-    model-axis group per data coordinate, in that order on every rank."""
+    model-axis group per data coordinate, in that order on every rank.
+
+    ``ranks`` gives a data-only mesh over those ranks of the world alone,
+    in a group of their own (``dist.new_group``, which every rank of the
+    world calls); a rank outside ``ranks`` gets None."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(NO_GROUP)
+    if ranks is not None:
+        ranks = list(ranks)
+        assert n_model == 1 and n_data in (None, len(ranks)), (
+            f"a mesh over ranks {ranks} is {len(ranks)}x1")
+        group = dist.new_group(ranks)
+        if dist.get_rank() not in ranks:
+            return None
+        i = ranks.index(dist.get_rank())
+        return Mesh(shape={"data": len(ranks), "model": 1}, rank=i,
+                    coords={"data": i, "model": 0}, data_group=group,
+                    device=_local_device(devices))
     world = dist.get_world_size()
     if n_data is None:
         n_data = world // n_model
@@ -119,13 +134,17 @@ def shard_batch(batch: Any, mesh: Mesh) -> Any:
 
 
 def _broadcast_(t: torch.Tensor, mesh: Mesh) -> None:
-    """Broadcast ``t`` from rank 0 in place; a tensor off the mesh's device
-    (Adam's step counts on the CPU under NCCL) travels through it."""
+    """Broadcast ``t`` from the mesh's rank 0 in place; a tensor off the
+    mesh's device (Adam's step counts on the CPU under NCCL) travels
+    through it. A data-only mesh broadcasts in its own group (the whole
+    world, unless ``make_mesh`` was given ``ranks``)."""
+    group = mesh.data_group if mesh.model_group is None else None
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     if t.device == mesh.device or dist.get_backend() == "gloo":
-        dist.broadcast(t, src=0)
+        dist.broadcast(t, src=src, group=group)
     else:
         buf = t.to(mesh.device)
-        dist.broadcast(buf, src=0)
+        dist.broadcast(buf, src=src, group=group)
         t.copy_(buf)
 
 

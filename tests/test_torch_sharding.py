@@ -74,6 +74,7 @@ STRIPS_V4 = dict(h=96, w=768, n_regions=24, n_objects=6, points_per_region=1,
                  seed=13)
 EMPTY_W = 768
 SERVE = dict(h=192, w=192, n_regions=40, n_objects=6, seed=7)
+BENCH_MESH_SIDE = 64
 ROUNDS = 8
 
 
@@ -186,11 +187,56 @@ def serving_case(flax_weights):
     return dict(cfg=cfg, state_dict=sd, scene=SERVE, ex=ex)
 
 
+def _bench_mesh_scene(k):
+    """The port bench's mesh mosaic of ``k`` strips, each
+    ``BENCH_MESH_SIDE`` pixels square, at the bench's default density."""
+    from deepmerge_tpu_torch import bench
+
+    return bench.make_scene(BENCH_MESH_SIDE, BENCH_MESH_SIDE * k,
+                            bench.n_regions_for(BENCH_MESH_SIDE,
+                                                BENCH_MESH_SIDE * k,
+                                                bench.DEFAULT_DENSITY))
+
+
 @pytest.fixture(scope="module")
-def ranks2(tmp_path_factory, sharded_cases, serving_case):
+def bench_mesh_case(flax_weights):
+    """The port bench's mesh mode at the tiny v3 (its default w8a8), sweep
+    points 1 and 2, at a threshold midway across the widest gap in the
+    middle half of the sorted edge distances of both mosaics: at least
+    1e-2 from every distance, where the two packages' w8a8 embeddings
+    differ by a quant step (below 1e-3 here)."""
+    from deepmerge_tpu_torch import bench
+
+    cfg = bench.config_for("mesh", {"BENCH_BATCH": "16"})
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(TINY_V3, quantize=cfg.model.quantize),
+        data=dataclasses.replace(cfg.data, patch_sizes=(16, 32, 64),
+                                 max_window=128))
+    sd = flax_weights["v3"][1]
+    ex = FeatureExtractor(_port_model(cfg.model, sd), batch_size=16,
+                          device="cpu")
+    ds = []
+    for k in (1, 2):
+        scene = _bench_mesh_scene(k)
+        remb = segment_mean(ex.extract_scene_device(scene, cfg.data),
+                            torch.as_tensor(scene.regions.point_region),
+                            scene.regions.num_regions)
+        ds.append(edge_distances(remb, torch.as_tensor(
+            scene.rag.edges)).numpy())
+    s = np.sort(np.concatenate(ds))
+    lo, hi = len(s) // 4, 3 * len(s) // 4
+    i = lo + int(np.argmax(np.diff(s[lo:hi])))
+    assert s[i + 1] - s[i] > 2e-2
+    return dict(cfg=cfg, state_dict=sd, thr=float((s[i] + s[i + 1]) / 2),
+                side=BENCH_MESH_SIDE, density=bench.DEFAULT_DENSITY)
+
+
+@pytest.fixture(scope="module")
+def ranks2(tmp_path_factory, sharded_cases, serving_case, bench_mesh_case):
     spec = dict(merge=_merge_cases(), sharded=sharded_cases,
-                serving={k: v for k, v in serving_case.items() if k != "ex"})
-    return run_ranks("merge+sharded+serving+mesh", 2, spec,
+                serving={k: v for k, v in serving_case.items() if k != "ex"},
+                bench_mesh=bench_mesh_case)
+    return run_ranks("merge+sharded+serving+mesh+bench_mesh", 2, spec,
                      tmp_path_factory.mktemp("ranks2"))
 
 
@@ -463,6 +509,47 @@ def test_mesh_helpers(ranks2, ranks4):
         assert m["coords"] == {"data": rank // 2, "model": rank % 2}
         # the data axis of model coordinate m: ranks m and m + 2
         assert m["data_sum"] == 2 * (rank % 2) + 2
+
+
+def test_bench_mesh_sweep(ranks2, bench_mesh_case, flax_weights):
+    """The port bench's mesh mode (``bench.mesh_bench``) on the two gloo
+    ranks, sweep points 1 and 2: rank 0's JSON line has the root
+    ``mesh_bench``'s keys (bench.py:343-359) without ``vs_baseline``,
+    with ``device``; at each point the partition is the same on every
+    rank that ran it and equal to the JAX package's single-device
+    extraction and device merge of the same mosaic on the same weights."""
+    c = bench_mesh_case
+    r0, r1 = (o["bench_mesh"] for o in ranks2)
+    line = r0["line"]
+    assert r1["line"] is None
+    assert set(line) == {
+        "metric", "value", "unit", "mesh_devices", "platform",
+        "per_device_mpix_s", "weak_scaling_efficiency", "points",
+        "host_cores", "cpu_serialized_efficiency", "device"}
+    assert line["metric"] == "mesh_segment_and_merge_throughput"
+    assert (line["mesh_devices"], line["platform"], line["device"]) == (
+        2, "cpu", "cpu")
+    assert set(line["points"]) == {"1", "2"} and line["value"] > 0
+    assert set(r0["partitions"]) == {1, 2} and set(r1["partitions"]) == {2}
+    np.testing.assert_array_equal(r0["partitions"][2], r1["partitions"][2])
+    cfg = c["cfg"]
+    variables = flax_weights["v3"][0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jx = JaxExtractor(build_model(_jax_cfg(cfg.model)),
+                          variables["params"], batch_size=16)
+        for k in (1, 2):
+            scene = _bench_mesh_scene(k)
+            jscene = jsynthetic.generate_scene(
+                h=BENCH_MESH_SIDE, w=BENCH_MESH_SIDE * k,
+                n_regions=scene.regions.num_regions,
+                n_objects=256, points_per_region=1, seed=0)
+            want = jmerge_device(jscene, jx.extract_scene(
+                jscene, _jax_dcfg(cfg.data)), threshold=c["thr"],
+                max_rounds=ROUNDS)
+            assert 1 < want.num_clusters < scene.regions.num_regions
+            np.testing.assert_array_equal(r0["partitions"][k],
+                                          want.region_to_cluster)
 
 
 def test_workers_import_neither_jax_nor_the_jax_package(ranks2, ranks4):

@@ -275,6 +275,28 @@ def job_mesh(spec, mesh, out):
     out["mesh"] = got
 
 
+def job_bench_mesh(spec, out):
+    """The port bench's mesh mode (``bench.mesh_bench``) over the whole
+    world: weak scaling at sweep points 1 and 2, rank 0 alone at point 1
+    while the other rank waits; its JSON line and each point's
+    partition."""
+    from deepmerge_tpu_torch import bench
+
+    c = spec["bench_mesh"]
+    side, density = c["side"], c["density"]
+
+    def scene_for(k):
+        return bench.make_scene(side, side * k,
+                                bench.n_regions_for(side, side * k, density))
+
+    line, merged = bench.mesh_bench(
+        c["cfg"], dist.get_world_size(), scene_for, device="cpu",
+        model=port_model(c["cfg"].model, c["state_dict"]), runs=1,
+        threshold=c["thr"])
+    out["bench_mesh"] = dict(line=line, partitions={
+        k: res.region_to_cluster for k, res in merged.items()})
+
+
 def job_dp(spec, mesh, out, root):
     """The data-parallel trainer: two steps of ``make_train_step(cfg,
     mesh)`` on this rank's rows of each batch, the dropout masks of a
@@ -405,6 +427,8 @@ def main():
                 job_serving(spec, mesh, out, root)
             elif part == "mesh":
                 job_mesh(spec, mesh, out)
+            elif part == "bench_mesh":
+                job_bench_mesh(spec, out)
             elif part == "dp":
                 job_dp(spec, mesh, out, root)
             elif part == "tp":
