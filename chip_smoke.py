@@ -43,7 +43,14 @@ kernel against its plain PyTorch version on the card:
      K3, K4, K4a, K5, K6, K7, K8) at heads of width 32 and 128 (24 and 6
      heads at C 768; ``check_head_widths``), by the same bars, each timed
      beside the same kernel at width 64 on the same input, K7 and K8
-     beside ``scaled_dot_product_attention`` at that width;
+     beside ``scaled_dot_product_attention`` at that width; and the long
+     attention route and the wide LayerNorm rows (``check_long_kernels``):
+     K7 and K8 at N 257 and 768 beside ``scaled_dot_product_attention``,
+     K6 at 768, K2 and K4 (dynamic and static) blocks at 768 and 257, K4a's
+     core and block at 768, K5 at 768 with its gradients, the long route
+     forced at N 192 (K7 within its bar, K4a bit-identical to the short
+     core), the wide LayerNorm kernels alone and K2 and K4 at C 1536, each
+     launch counted on the route its N takes and on no other;
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -69,7 +76,15 @@ kernel against its plain PyTorch version on the card:
      profiled, held to the plain versions, its label disagreement with the
      w8a8 slice printed; and (5d) the v3 slice with 24 heads of 32 and
      with 6 of 128, each in w8a8 and bf16, its launches counted, timed
-     and held to the plain versions;
+     and held to the plain versions; and (5e, ``long_configs_phase``) two
+     configurations past the short core and the one-warp LayerNorm, on a
+     512² scene: v3 with a 16x16 token cube (N 768 on the long route, 192
+     and 48 on the short one) in bf16, w8a8 and w8a8+attn, and v3 at embed
+     1536 (24 heads, every LayerNorm on the wide kernels) in bf16 and
+     w8a8, each's launches counted by wrapper and by core route, timed and
+     held to the plain versions; then v3-cube16 trains two steps through
+     K6 and two through K5, held by phase 7's loss bars, its peak memory
+     printed;
   6. the serving walk: ``process_folder`` with ``quantize="w8a8"`` and
      label maps over four 2048² scenes of 8192 regions in the reference
      folder layout (K1's fused patch kernel 3 a chunk), each scene's
@@ -159,9 +174,10 @@ kernel against its plain PyTorch version on the card:
      scenes (``BENCH_SERVE=4``'s workload); training for one timed epoch;
      the mesh at N = 1 on a world of one on NCCL.
 
-``--only patches,kernels,widths,trained,scaleout,family,bench`` runs K1's
-fused patch check, phase 3, phase 3's head-width check, phase 8, phases 8
-and 9, phase 10 and/or phase 11 alone (after the card, the build and the
+``--only patches,kernels,widths,long,trained,scaleout,family,bench`` runs
+K1's fused patch check, phase 3, phase 3's head-width check, the long
+route and wide rows (phase 3's part and phase 5e), phase 8, phases 8 and
+9, phase 10 and/or phase 11 alone (after the card, the build and the
 scene) and prints no result lines: a development run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
@@ -296,8 +312,13 @@ TRAIN_PAIRS = 120
 TRAIN_EPOCHS = 2
 TRAIN_STEPS = 8
 # the trained-weight parity phase: whole epochs (49 steps of TRAIN_PAIRS on
-# the slice's scene), about 120 s of card time at 165-182 ms a step
+# the slice's scene), about 120 s of card time at 165-182 ms a step; v5's,
+# whose weights serve its one w8a8 slice and nothing after, half of them
+# (its 14 epochs read label disagreement 0 and first-round decisions that
+# differ 0.00017, bars 0.005, in the run before the cut), so that the
+# script keeps its time limit with the long-shapes phase
 TRUSTED_EPOCHS = 14
+TRUSTED_EPOCHS_V5 = 7
 
 
 class SmokeFailure(RuntimeError):
@@ -1847,6 +1868,559 @@ def width_summary(widths, name):
                   for d, cs in cases.items()})
 
 
+# ------------------------------------------------- long sequences, wide rows
+#
+# The long attention route (N > 256: csrc/block_common.cuh
+# attention_long_kernel, csrc/fused_block_q8.cu attention_q8_long_kernel)
+# and the wide LayerNorm rows (C > 1024: layer_norm_wide_kernel,
+# ln_quant_wide_kernel), held on two full-width configurations of the
+# shipped family: v3 with a 16x16 token cube at the scales 32/64/128
+# (patches of 2/4/8 pixels: 768 tokens at stage 0, 192 and 48 after the
+# per-scale pools) and v3 at embed 1536 (24 heads of 64, MLP 6144, cube 8).
+LONG_CUBE = 16
+# v3-cube16's chunk of points: the plain versions' (B, H, N, N) logits at N
+# 768 are 3.6 GB f32 at 128 (the int8 core's plain version holds them in
+# float64 too), 29 GB at the slices' 1024
+LONG_BATCH = 128
+WIDE = dict(embed_dim=1536, num_heads=24)
+# the configurations' scene: 512² with 512 regions (about 510 points, four
+# chunks of v3-cube16 and one of v3-wide), the slices' generator
+LONG_SCENE = dict(h=512, w=512, n_regions=512, n_objects=64,
+                  points_per_region=1, seed=0)
+LONG_TRAIN_STEPS = 2
+# v3-cube16's training pairs a step, through K6 and through K5: at 120
+# pairs (a forward batch of 240 at N 768) the unfused blocks' saved
+# activations outgrow the card's 80 GB in stage 1's forward, and K5's
+# step peaks at 72.5 GiB alone and runs out of memory in the backward
+# after the script's earlier phases
+LONG_TRAIN_PAIRS = 60
+# The LayerNorm alone: bf16 outputs one ulp (2^-8) apart where the sums
+# run in another order; its int8 codes one step apart on at most a
+# thousandth of the entries, its row scales (abs-max / 127 of float32
+# outputs) within 1e-5.
+TOL_LN = 1e-2
+TOL_LN_SCALE = 1e-5
+LN_CODE_FLIPS_MAX = 1e-3
+
+
+def core_counters():
+    """The attention cores, by route, and the wide LayerNorm kernels, which
+    the wrappers launch from C: each counts apart from its wrapper
+    (``counters()``), by the name it goes under."""
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    return {"attention_short": fb.attention_short,
+            "attention_long": fb.attention_long,
+            "attention_q8_short": fb.attention_q8_short,
+            "attention_q8_long": fb.attention_q8_long,
+            "layer_norm_wide": fb.layer_norm_wide,
+            "ln_quant_wide": fb.ln_quant_wide}
+
+
+def routed(run, want, what):
+    """``run()`` with the counts of ``core_counters()`` set to 0 just
+    before it; requires each of ``want`` (name -> launches) and 0 for every
+    other, so that no route stands in for another. Returns the result."""
+    cores = core_counters()
+    for c in cores.values():
+        c.launches = 0
+    out = run()
+    got = {k: c.launches for k, c in cores.items()}
+    require(all(n == want.get(k, 0) for k, n in got.items()),
+            f"{what}: core launches {got}, want {want}")
+    return out
+
+
+def check_long_kernels(dev):
+    """Phase 3 for the long route and the wide rows: K7 and K8 at N 257 (B
+    1024) and 768 (B ``LONG_BATCH``) beside ``scaled_dot_product_attention``;
+    K6 at N 768 (the training batch); K2 and K4 (dynamic and static) blocks
+    at N 768 and 257; K4a's core and block at N 768; K5 at N 768 with its
+    gradients; the long route forced at N 192 (K7 within its bar, K4a's
+    core bit-identical to the short core, dynamic and static); the wide
+    LayerNorm kernels alone and K2 and K4 blocks at C 1536. Each by phase
+    3's bars, each launch on the route its N takes and no other. Returns
+    the ``kernels`` line's entries of the four new kernels."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    c, heads = 768, 12
+    bf = torch.bfloat16
+    results = {}
+
+    def attention_inputs(b, n, seed, cc=c, h=heads):
+        r = device_randn(dev, seed)
+        return r(b, n, 3 * cc).to(bf), r(h, n, n, s=0.5)
+
+    def attention_work(b, n):
+        return bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                     bf16_flops=4 * b * n * n * c)
+
+    long1 = {"attention_long": 1}
+    for b, n in ((1024, 257), (LONG_BATCH, 768)):
+        qkv, bias = attention_inputs(b, n, n + 31)
+        q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+        lib_ms = attention_library_ms(
+            *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)), bias)
+        bk = attention_work(b, n)
+        for kn, name, run, plain in (
+                ("K7", "attention_qkv",
+                 lambda: fa.attention_qkv(qkv, bias, heads),
+                 lambda: fa.attention_qkv_ref(qkv, bias, heads)),
+                ("K8", "attention_bnhd",
+                 lambda: fa.attention_bnhd(q, k, v, bias),
+                 lambda: fa.attention_bnhd_ref(q, k, v, bias))):
+            got = routed(run, long1, f"{kn} (N={n})")
+            want, plain_ms = cuda_once(plain)
+            err = rel_err(got, want)
+            require(err <= TOL_K7, f"{kn} long (B={b}, N={n}) differs from "
+                    f"plain: {err} > {TOL_K7}")
+            ms = cuda_ms(run)
+            print(f"{kn} {name} long route B={b} N={n}: rel err {err:.3e} "
+                  f"(tol {TOL_K7}); {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"SDPA {lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms "
+                  f"({bk['bound_by']})")
+            if kn == "K7" and n == 768:
+                results["attention_long"] = dict(
+                    max_abs_err=abs_err(got, want), ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, **bk)
+            del got, want
+        del qkv, bias, q, k, v
+        torch.cuda.empty_cache()
+
+    # K6 at the training batch, N 768: its probabilities are 3.4 GB
+    b = 2 * TRAIN_PAIRS
+    qkv, bias = attention_inputs(b, 768, 33)
+    out, probs = routed(lambda: fa.attention_probs(qkv, bias, heads), long1,
+                        "K6 (N=768)")
+    (want_out, want_probs), plain_ms = cuda_once(
+        lambda: fa.attention_probs_ref(qkv, bias, heads))
+    out_err, probs_err = rel_err(out, want_out), abs_err(probs, want_probs)
+    require(out_err <= TOL_K6_OUT and probs_err <= TOL_K6_PROBS,
+            f"K6 long (N=768): out {out_err}, probs {probs_err}")
+    ms = cuda_ms(lambda: fa.attention_probs(qkv, bias, heads))
+    bk = bound(qkv.numel() * 2 + bias.numel() * 4 + out.numel() * 2
+               + probs.numel() * 2, bf16_flops=4 * b * 768 * 768 * c)
+    print(f"K6 attention_probs long route B={b} N=768: out rel err "
+          f"{out_err:.3e}, probs max |err| {probs_err:.3e}; {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bk['bound_ms']:.4f} ms "
+          f"({bk['bound_by']})")
+    del qkv, bias, out, probs, want_out, want_probs
+    torch.cuda.empty_cache()
+
+    # the long route forced at N 192, where the short core also runs
+    b, n = 1024, 192
+    qkv, bias = attention_inputs(b, n, 34)
+    plan = fb.attention_plan(b, n, heads, route="long")
+    got = routed(lambda: fa.attention_qkv(qkv, bias, heads, plan=plan), long1,
+                 "K7 forced long (N=192)")
+    short = routed(lambda: fa.attention_qkv(qkv, bias, heads),
+                   {"attention_short": 1}, "K7 short (N=192)")
+    err = rel_err(got, fa.attention_qkv_ref(qkv, bias, heads))
+    require(err <= TOL_K7, f"K7 forced long (N=192): {err} > {TOL_K7}")
+    ms_long = cuda_ms(lambda: fa.attention_qkv(qkv, bias, heads, plan=plan))
+    ms_short = cuda_ms(lambda: fa.attention_qkv(qkv, bias, heads))
+    print(f"K7 forced long route B={b} N={n}: rel err {err:.3e} (tol "
+          f"{TOL_K7}), max |long - short| {abs_err(got, short):.3e}; "
+          f"{ms_long:.4f} ms against the short core's {ms_short:.4f}")
+    q8_plan = fb.attention_q8_plan(b, n, heads, route="long")
+    for static in (None, torch.tensor([0.021, 0.023, 0.019], device=dev)):
+        mode = "dynamic" if static is None else "static"
+        got = routed(lambda: fb.attention_q8(qkv, bias, heads, static,
+                                             plan=q8_plan),
+                     {"attention_q8_long": 1}, f"K4a forced long ({mode})")
+        short = routed(lambda: fb.attention_q8(qkv, bias, heads, static),
+                       {"attention_q8_short": 1}, f"K4a short ({mode})")
+        err = rel_err(got, fb.attention_q8_ref(qkv, bias, heads, static))
+        require(torch.equal(got, short) and err <= TOL_BLOCK,
+                f"K4a forced long (N=192, {mode}): bit-identical "
+                f"{torch.equal(got, short)}, rel err {err}")
+        ms_long = cuda_ms(lambda: fb.attention_q8(qkv, bias, heads, static,
+                                                  plan=q8_plan))
+        ms_short = cuda_ms(lambda: fb.attention_q8(qkv, bias, heads, static))
+        print(f"K4a forced long route B={b} N={n} {mode}: bit-identical to "
+              f"the short core; rel err {err:.3e} against plain; "
+              f"{ms_long:.4f} ms against the short core's {ms_short:.4f}")
+    del qkv, bias, got, short
+    torch.cuda.empty_cache()
+
+    # K4a's core alone at N 768
+    b, n = LONG_BATCH, 768
+    qkv, bias = attention_inputs(b, n, 35)
+    for static in (None, torch.tensor([0.021, 0.023, 0.019], device=dev)):
+        mode = "dynamic" if static is None else "static"
+        run = lambda: fb.attention_q8(qkv, bias, heads, static)
+        got = routed(run, {"attention_q8_long": 1}, f"K4a core ({mode})")
+        want, plain_ms = cuda_once(
+            lambda: fb.attention_q8_ref(qkv, bias, heads, static))
+        err = rel_err(got, want)
+        require(err <= TOL_BLOCK, f"K4a core long (N={n}, {mode}): {err}")
+        ms = cuda_ms(run)
+        # int8 codes of q, k, v (one byte a value) on top of the bf16 bytes;
+        # qi·kiᵀ and pq·vi on the int8 cores
+        bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                   int8_ops=4 * b * n * n * c)
+        print(f"K4a attention_q8 core long route B={b} N={n} {mode}: rel err "
+              f"{err:.3e} (tol {TOL_BLOCK}); {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.4f} ms "
+              f"({bk['bound_by']})")
+        if static is None:
+            results["attention_q8_long"] = dict(
+                max_abs_err=abs_err(got, want), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **bk)
+        del got, want
+    del qkv, bias
+    torch.cuda.empty_cache()
+
+    # the blocks at N 768 and 257: K2, K4 dynamic and static, K4a
+    for b, n in ((LONG_BATCH, 768), (1024, 257)):
+        x, plist, _ = block_inputs(b, n, 1, dev, seed=n + 36)
+        p = plist[0]
+        bk = bound(*block_work(b, n, 1))
+        got = routed(lambda: fb.fused_block(x, p, heads), long1,
+                     f"K2 (N={n})")
+        want, plain_ms = cuda_once(lambda: fb.block_ref(x, p, heads))
+        _, errs = check_block(f"K2 long (B={b}, N={n})", got, want, x,
+                              TOL_BLOCK, TOL_BLOCK_RMS)
+        ms = cuda_ms(lambda: fb.fused_block(x, p, heads))
+        print(f"K2 fused_block long route B={b} N={n}: {errs}; {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+        del got, want
+        for quant_attn in ((False, True) if n == 768 else (False,)):
+            for static in (False, True):
+                amax = fb.block_act_amax(x, p, heads)[1] if static else None
+                qp = fb.quantize_block_params(p, amax)
+                run = lambda: fb.fused_block_q8(x, qp, heads,
+                                                quant_attn=quant_attn)
+                core = "attention_q8_long" if quant_attn else "attention_long"
+                name = "K4a" if quant_attn else "K4"
+                mode = "static" if static else "dynamic"
+                got = routed(run, {core: 1}, f"{name} (N={n}, {mode})")
+                want, plain_ms = cuda_once(lambda: fb.block_ref_q8(
+                    x, qp, heads, quant_attn=quant_attn))
+                _, errs = check_block(f"{name} long (B={b}, N={n}, {mode})",
+                                      got, want, x, TOL_BLOCK, TOL_BLOCK_RMS)
+                ms = cuda_ms(run)
+                bq = bound(*block_work(b, n, 1, q8=True, q8_attn=quant_attn))
+                print(f"{name} fused_block_q8 long route B={b} N={n} {mode}: "
+                      f"{errs}; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                      f"{bq['bound_ms']:.3f} ms")
+                del got, want, qp
+        del x, plist, p
+        torch.cuda.empty_cache()
+
+    # K5 at the training batch, N 768: out, the residuals, the gradients
+    b, n = 2 * TRAIN_PAIRS, 768
+    x, plist, _ = block_inputs(b, n, 1, dev, seed=37)
+    p = plist[0]
+    out, saved = routed(lambda: fb.fused_block_train(x, p, heads), long1,
+                        "K5 (N=768)")
+    (want_out, want), plain_ms = cuda_once(
+        lambda: fb.block_train_ref(x, p, heads))
+    _, errs = check_block(f"K5 long (N={n})", out, want_out, x, TOL_BLOCK,
+                          TOL_BLOCK_RMS)
+    probs_err = abs_err(saved[1], want[1])
+    saved_err = max(rel_err(saved[i], want[i]) for i in (0, 2, 3))
+    require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
+            f"K5 long (N={n}): probs {probs_err}, saved {saved_err}")
+    del out, saved, want_out, want
+    torch.cuda.empty_cache()
+    g = device_randn(dev, 38)(*x.shape).to(x.dtype)
+
+    def grads():
+        xs = x.clone().requires_grad_(True)
+        ps = [t.clone().requires_grad_(True) for t in p]
+        fb.fused_block(xs, ps, heads).backward(g)
+        return [xs.grad] + [t.grad for t in ps]
+
+    got_g = grads()
+    torch.cuda.empty_cache()
+    with mock.patch.object(fb, "fused_block_train", fb.block_train_ref):
+        want_g = grads()
+    g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+    require(g_err <= TOL_K5_GRAD, f"K5 long gradients (N={n}): {g_err}")
+    del got_g, want_g
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: fb.fused_block_train(x, p, heads), reps=3)
+    bk = bound(*train_block_work(b, n))
+    print(f"K5 fused_block_train long route B={b} N={n}: out {errs}; probs "
+          f"max |err| {probs_err:.3e}, saved {saved_err:.3e}, gradients "
+          f"{g_err:.3e} (tol {TOL_K5_GRAD}); {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+    del x, plist, p, g
+    torch.cuda.empty_cache()
+
+    # the wide rows: the LayerNorm kernels alone at v3-wide's stage-0 rows
+    # (1024 samples of 192 tokens), then K2 and K4 blocks at C 1536
+    import torch.nn.functional as F
+
+    cw, hw = WIDE["embed_dim"], WIDE["num_heads"]
+    m = 1024 * 192
+    draw = device_randn(dev, 39)
+    x = draw(m, cw).to(bf)
+    w, bb = 1.0 + draw(cw, s=0.1), draw(cw, s=0.1)
+    run = lambda: fb.layer_norm(x, w, bb)
+    got = routed(run, {"layer_norm_wide": 1}, "the wide LayerNorm")
+    want, plain_ms = cuda_once(lambda: fb.layer_norm_ref(x, w, bb))
+    err = rel_err(got, want)
+    require(err <= TOL_LN, f"wide LayerNorm: {err} > {TOL_LN}")
+    ms = cuda_ms(run)
+    wb, bb16 = w.to(bf), bb.to(bf)
+    lib_ms = cuda_ms(lambda: F.layer_norm(x, (cw,), wb, bb16, fb.LN_EPS))
+    bk = bound(2 * m * cw * 2 + 2 * cw * 4)
+    print(f"wide LayerNorm (M={m}, C={cw}): rel err {err:.3e} (tol "
+          f"{TOL_LN}); {ms:.4f} ms, plain {plain_ms:.3f} ms, F.layer_norm "
+          f"{lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms ({bk['bound_by']})")
+    results["layer_norm_wide"] = dict(max_abs_err=abs_err(got, want), ms=ms,
+                                      plain_ms=plain_ms, library_ms=lib_ms,
+                                      **bk)
+    del got, want
+    for static in (None, torch.tensor([0.031], device=dev)):
+        mode = "dynamic" if static is None else "static"
+        run = lambda: fb.ln_quant(x, w, bb, static)
+        codes, scale = routed(run, {"ln_quant_wide": 1},
+                              f"the wide LayerNorm + quantize ({mode})")
+        (want_c, want_s), plain_ms = cuda_once(
+            lambda: fb.ln_quant_ref(x, w, bb, static))
+        diff = (codes.int() - want_c.int()).abs()
+        flips = float((diff > 0).float().mean())
+        s_err = float(((scale - want_s).abs() / want_s).max())
+        require(int(diff.max()) <= 1 and flips <= LN_CODE_FLIPS_MAX
+                and s_err <= TOL_LN_SCALE,
+                f"wide LayerNorm + quantize ({mode}): codes |diff| "
+                f"{int(diff.max())} on {flips} of them, scales {s_err}")
+        ms = cuda_ms(run)
+        bq = bound(m * cw * 2 + 2 * cw * 4 + m * cw + m * 4)
+        print(f"wide LayerNorm + quantize (M={m}, C={cw}, {mode}): codes "
+              f"one step apart on {flips:.2e} of them, scales rel err "
+              f"{s_err:.2e}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bq['bound_ms']:.4f} ms ({bq['bound_by']})")
+        if static is None:
+            results["ln_quant_wide"] = dict(max_abs_err=float(diff.max()),
+                                            ms=ms, plain_ms=plain_ms,
+                                            library_ms=None, **bq)
+        del codes, scale, want_c, want_s, diff
+    del x
+    torch.cuda.empty_cache()
+    b, n = 256, 192
+    x, plist, _ = block_inputs(b, n, 1, dev, seed=40, heads=hw, c=cw)
+    p = plist[0]
+    got = routed(lambda: fb.fused_block(x, p, hw),
+                 {"attention_short": 1, "layer_norm_wide": 2}, "K2 at C 1536")
+    _, errs = check_block(f"K2 (C={cw}, N={n})", got,
+                          fb.block_ref(x, p, hw), x, TOL_BLOCK, TOL_BLOCK_RMS)
+    print(f"K2 fused_block C={cw} B={b} N={n}: {errs}")
+    qp = fb.quantize_block_params(p)
+    got = routed(lambda: fb.fused_block_q8(x, qp, hw),
+                 {"attention_short": 1, "ln_quant_wide": 2}, "K4 at C 1536")
+    _, errs = check_block(f"K4 (C={cw}, N={n})", got,
+                          fb.block_ref_q8(x, qp, hw), x, TOL_BLOCK,
+                          TOL_BLOCK_RMS)
+    print(f"K4 fused_block_q8 C={cw} B={b} N={n} dynamic: {errs}")
+    del x, plist, p, qp, got
+    torch.cuda.empty_cache()
+    return results
+
+
+def long_configs_phase(dev, card):
+    """Phase 5e: v3-cube16 (bf16, w8a8, w8a8+attn; N 768 on the long route,
+    192 and 48 on the short one) and v3-wide (bf16, w8a8; every LayerNorm
+    on the wide kernels) through ``segment_scene_device`` on
+    ``LONG_SCENE``, random weights from seed 0 through ``init_state_dict``:
+    each run's launch counts (the wrappers' and the cores' by route), the
+    median of three runs, and the plain versions' run by the slices' bars.
+    Then v3-cube16 trains ``LONG_TRAIN_STEPS`` steps through K6 and through
+    K5. Returns the core launch counts summed over these runs."""
+    import numpy as np
+    import torch
+    import warnings
+
+    from deepmerge_tpu_torch import DataConfig, ModelConfig
+    from deepmerge_tpu_torch.compat.weights import init_state_dict
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+    from deepmerge_tpu_torch.models import s2former
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    scene = generate_scene(**LONG_SCENE)
+    r = scene.regions.num_regions
+    edges = scene.rag.edges.astype(np.int32)
+    n_edges = len(edges)
+    edges = np.concatenate([edges, np.zeros(((-n_edges) % 2048, 2),
+                                            np.int32)])
+    valid = np.arange(len(edges)) < n_edges
+    edges_d = torch.from_numpy(edges).to(dev)
+    valid_d = torch.from_numpy(valid).to(dev)
+    region_map = torch.from_numpy(scene.labels).to(dev)
+    dcfg = DataConfig(max_window=512)
+    ds = stage_scene(scene, dcfg, dev)
+    points = scene.regions.num_points
+    pixels = LONG_SCENE["h"] * LONG_SCENE["w"]
+    t0 = time.perf_counter()
+    print(f"long-shapes scene: {LONG_SCENE['h']}x{LONG_SCENE['w']}, "
+          f"{points} points, {n_edges} edges")
+    totals = dict.fromkeys(core_counters(), 0)
+    cube = dict(cube=LONG_CUBE)
+    blocks = ("fused_block", "fused_block_chain", "fused_block_q8",
+              "fused_block_chain_q8", "fused_block_q8_attn",
+              "fused_block_chain_q8_attn")
+    depth = ModelConfig().depth
+    weights = {}  # by geometry: the quantized models load the same draw
+    for label, kw, quantize, batch, on, cores in (
+            ("v3-cube16 bf16", cube, "", LONG_BATCH, blocks[:2],
+             dict(attention_long=depth[0], attention_short=sum(depth[1:]))),
+            ("v3-cube16 w8a8", cube, "w8a8", LONG_BATCH, blocks[2:4],
+             dict(attention_long=depth[0], attention_short=sum(depth[1:]))),
+            ("v3-cube16 w8a8+attn", cube, "w8a8+attn", LONG_BATCH,
+             blocks[4:], dict(attention_q8_long=depth[0],
+                              attention_q8_short=sum(depth[1:]))),
+            ("v3-wide bf16", WIDE, "", 1024, blocks[:2],
+             dict(attention_short=sum(depth),
+                  layer_norm_wide=2 * sum(depth))),
+            ("v3-wide w8a8", WIDE, "w8a8", 1024, blocks[2:4],
+             dict(attention_short=sum(depth),
+                  ln_quant_wide=2 * sum(depth)))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # w8a8+attn's experiment note
+            mcfg = ModelConfig(quantize=quantize, **kw)
+        key = tuple(sorted(kw.items()))
+        if key not in weights:
+            weights = {key: init_state_dict(mcfg, seed=0)}
+        model = s2former.S2Former(mcfg)
+        model.load_state_dict(weights[key], strict=True)
+        ex = FeatureExtractor(model, batch_size=batch, device=dev)
+        chunks = -(-points // batch)
+
+        def run_slice():
+            out = ex.segment_scene_device(
+                scene, dcfg, edges_d, valid_d, num_regions=r, max_rounds=8,
+                device_scene=ds, region_map=region_map)
+            torch.cuda.synchronize()
+            return out
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out, launches, core = counted(run_slice, cores=True)
+        first_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"slice ({label}, chunks of {batch}) launches: {launches}; "
+              f"cores {core} (first run {first_s:.3f} s, peak memory "
+              f"{peak / 2**30:.2f} GiB)")
+        want = {on[0]: depth[0] * chunks, on[1]: 2 * chunks,
+                "patch_resize": 3 * chunks, "label_lookup": 1}
+        require(all(launches[k] == n for k, n in want.items())
+                and all(n == 0 for k, n in launches.items() if k not in want),
+                f"{label}: launches {launches}, want {want}")
+        want_cores = {k: n * chunks for k, n in cores.items()}
+        require(core == dict(dict.fromkeys(core, 0), **want_cores),
+                f"{label}: core launches {core}, want {want_cores} (no "
+                "route stands in for another)")
+        for k, n in core.items():
+            totals[k] += n
+        _, k, n_rounds = check_slice_outputs(out, r, n_edges, valid,
+                                             scene.labels.shape)
+        print(f"slice ({label}): {k} clusters after {n_rounds} rounds")
+        time_slice(run_slice, label, card, pixels=pixels)
+        against_plain(run_slice, lambda: ex.extract_scene_device(
+            scene, dcfg, device_scene=ds), out, valid, label)
+        del ex, model, out
+        torch.cuda.empty_cache()
+
+    print(f"v3-cube16 and v3-wide slices in {time.perf_counter() - t0:.1f} s")
+    del weights
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        core = long_training(dev, card, fused)
+        print(f"  in {time.perf_counter() - t0:.1f} s")
+        for k, n in core.items():
+            totals[k] += n
+    return totals
+
+
+def long_training(dev, card, fused_block):
+    """v3-cube16 trained ``LONG_TRAIN_STEPS`` steps of ``LONG_TRAIN_PAIRS``
+    pairs on the slices' scene through K6, or through K5 with
+    ``fused_block``, from the seeded initial weights, and
+    the same steps on the plain versions, held by phase 7's loss bars;
+    the step time and the peak memory printed. Returns the core launch
+    counts of the kernels' run."""
+    import numpy as np
+    import torch
+    import warnings
+
+    from deepmerge_tpu_torch import ModelConfig
+    from deepmerge_tpu_torch.compat.weights import init_state_dict
+    from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
+    from deepmerge_tpu_torch.geodata.synthetic import (
+        generate_scene,
+        make_training_pairs,
+    )
+    from deepmerge_tpu_torch.models.s2former import training_model
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import FusedPairSampler
+
+    label = "v3-cube16" + (" train.fused_block" if fused_block else "")
+    pairs = LONG_TRAIN_PAIRS
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # train.fused_block's experiment note
+        cfg = Config(model=ModelConfig(cube=LONG_CUBE),
+                     data=DataConfig(batch_size=pairs, max_window=512),
+                     train=TrainConfig(fused_block=fused_block))
+    scene = generate_scene(**SCENE)
+    pos, neg = make_training_pairs(scene)
+    sampler = FusedPairSampler(scene, pos, neg, cfg.data, dev)
+    spe = len(sampler) // pairs
+    start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+    epoch_fn = loop.make_scanned_epoch(cfg, sampler.device_scene)
+    steps = LONG_TRAIN_STEPS
+    arrays = tuple(a[:steps] for a in sampler.epoch_arrays(
+        cfg.train.seed * 100003 % 2**32, pairs))
+
+    def run():
+        st = loop.create_train_state(cfg, spe, state_dict=start_sd,
+                                     device=dev)
+        _, out = epoch_fn(st, *arrays)
+        return out.cpu().numpy().astype(np.float64)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    got, launches, core = counted(run, cores=True)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(dev)
+    per_step = "fused_block_train" if fused_block else "fused_attention_train"
+    depth = cfg.model.depth
+    want = {per_step: sum(depth) * steps, "patch_resize": 3 * steps}
+    require(all(launches[k] == n for k, n in want.items())
+            and all(n == 0 for k, n in launches.items() if k not in want),
+            f"training ({label}): launches {launches}, want {want}")
+    want_cores = dict(dict.fromkeys(core, 0),
+                      attention_long=depth[0] * steps,
+                      attention_short=sum(depth[1:]) * steps)
+    require(core == want_cores, f"training ({label}): core launches {core}, "
+            f"want {want_cores}")
+    with plain_versions():
+        t = time.perf_counter()
+        want_l = run()
+        plain_s = time.perf_counter() - t
+    rel = np.abs(got - want_l) / np.abs(want_l)
+    print(f"training ({label}): {steps} steps of {pairs} pairs in "
+          f"{wall:.2f} s (first steps), peak memory {peak / 2**30:.2f} GiB "
+          f"on {card}; launches {launches}, cores {core}; plain versions "
+          f"{plain_s:.1f} s: losses {want_l.tolist()}, kernels "
+          f"{got.tolist()}, rel diff {rel.tolist()} (step 0 max "
+          f"{TOL_TRAIN_LOSS0}, all max {TOL_TRAIN_LOSS})")
+    require(np.isfinite(got).all() and rel[0] <= TOL_TRAIN_LOSS0
+            and rel.max() <= TOL_TRAIN_LOSS,
+            f"training ({label}): losses differ from the plain versions': "
+            f"{rel}")
+    del epoch_fn, sampler
+    torch.cuda.empty_cache()
+    return core
+
+
 # the operators whose own kernels are matrix products (cuBLAS names its
 # kernels in several families, so they are counted by operator)
 PRODUCT_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
@@ -1925,14 +2499,24 @@ def counters():
             "int4_dot": i4.int4_dot}
 
 
-def counted(run):
-    """``run()`` with every launch count set to 0 just before it; returns
-    its result and the counts read just after it."""
-    fns = counters()
-    for f in fns.values():
+def counted(run, cores=False):
+    """``run()`` with every launch count (``counters()`` and
+    ``core_counters()``) set to 0 just before it; returns its result and
+    the wrappers' counts read just after it, and with ``cores`` also the
+    cores' counts. Without ``cores`` the run must launch nothing on the
+    long attention route: every such path has at most 256 tokens."""
+    fns, core_fns = counters(), core_counters()
+    for f in (*fns.values(), *core_fns.values()):
         f.launches = 0
     out = run()
-    return out, {k: f.launches for k, f in fns.items()}
+    launches = {k: f.launches for k, f in fns.items()}
+    core = {k: f.launches for k, f in core_fns.items()}
+    if cores:
+        return out, launches, core
+    require(core["attention_long"] == core["attention_q8_long"] == 0,
+            f"the long attention route launched on a path of at most 256 "
+            f"tokens: {core}")
+    return out, launches
 
 
 def require_launches(launches, wanted, unwanted, what):
@@ -2009,14 +2593,14 @@ def check_slice_outputs(out, r, n_edges, valid, labels_hw):
     return map_h, k_clusters, n_rounds
 
 
-def time_slice(run_slice, label, card):
+def time_slice(run_slice, label, card, pixels=SCENE["h"] * SCENE["w"]):
     times = []
     for _ in range(3):
         t = time.perf_counter()
         run_slice()
         times.append(time.perf_counter() - t)
     med = statistics.median(times)
-    mpix = SCENE["h"] * SCENE["w"] / 1e6 / med
+    mpix = pixels / 1e6 / med
     print(f"slice ({label}, kernels): median {med * 1e3:.1f} ms of "
           f"{[round(x * 1e3, 1) for x in times]} ms -> {mpix:.3f} MPix/s on "
           f"{card}")
@@ -2080,13 +2664,22 @@ def export_folder(root, n_scenes):
     from deepmerge_tpu_torch.bench import export_scene_folder
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 
-    counts = {}
-    for seed in range(1, n_scenes + 1):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def export(seed):
         scene = generate_scene(**SERVE_SCENE, seed=seed, name=f"scene{seed}")
         images, shps = export_scene_folder(scene, root)
         np.save(os.path.join(shps, f"{scene.name}_labels.npy"), scene.labels)
-        counts[scene.name] = (scene.regions.num_points, scene.rag.num_edges)
-    return images, shps, counts
+        return images, shps, scene.name, (scene.regions.num_points,
+                                          scene.rag.num_edges)
+
+    # the scenes are independent: made and written in threads (numpy and
+    # the TIFF codec leave the interpreter lock), 15.6 s for four on the
+    # H100 host's 8 cores where one after another took 26.4
+    with ThreadPoolExecutor(min(n_scenes, 4)) as pool:
+        done = list(pool.map(export, range(1, n_scenes + 1)))
+    counts = {name: c for _, _, name, c in done}
+    return done[0][0], done[0][1], counts
 
 
 def serving_scene(cfg, ex, images, shps, name):
@@ -2384,10 +2977,10 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
     return launches, (med * 1e3, got)
 
 
-def train_trusted(dev, scene, mcfg):
+def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS):
     """``mcfg`` trained by ``train.driver.train`` on the slice's scene
     (unfused blocks, bf16 compute, ``TRAIN_PAIRS`` pairs a step) for
-    ``TRUSTED_EPOCHS`` epochs; returns its state dict."""
+    ``epochs`` epochs; returns its state dict."""
     import shutil
     import tempfile
 
@@ -2401,7 +2994,7 @@ def train_trusted(dev, scene, mcfg):
     never = 10 ** 6
     cfg = Config(model=mcfg,
                  data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
-                 train=TrainConfig(num_epochs=TRUSTED_EPOCHS,
+                 train=TrainConfig(num_epochs=epochs,
                                    checkpoint_every=never,
                                    checkpoint_tail_from=never,
                                    checkpoint_dir=os.path.join(root, "ck"),
@@ -2419,7 +3012,7 @@ def train_trusted(dev, scene, mcfg):
     require(np.isfinite(losses).all(), f"trained losses {losses}")
     steps = int(state.step)
     print(f"trained weights ({mcfg.variant}): {steps} steps "
-          f"({TRUSTED_EPOCHS} epochs) of {TRAIN_PAIRS} pairs in "
+          f"({epochs} epochs) of {TRAIN_PAIRS} pairs in "
           f"{train_s:.1f} s ({train_s / steps * 1e3:.1f} ms/step); "
           f"epoch-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     trained = {k: v.detach().clone() for k, v in
@@ -2737,7 +3330,8 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     results.update(walk_results)
     # v5 (the designed-feature token in the sequence) trained and
     # calibrated the same way: its own weights and threshold
-    v5 = train_trusted(dev, scene, ModelConfig(variant="v5"))
+    v5 = train_trusted(dev, scene, ModelConfig(variant="v5"),
+                       TRUSTED_EPOCHS_V5)
     thr5 = calibrated_threshold(dev, v5, dcfg, variant="v5")
     with_stage0_chain(v5, "v5 w8a8", "w8a8", thr5, variant="v5")
     del v5
@@ -4264,14 +4858,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, repo)
     # development runs: ``--only
-    # patches,kernels,widths,trained,scaleout,family,bench`` runs those
+    # patches,kernels,widths,long,trained,scaleout,family,bench`` runs those
     # phases alone (after the card, the build and the scene; patches: K1's
     # fused patch kernel, widths: the head-width check, both parts of phase
-    # 3; family: phase 10; bench: phase 11) and prints no result lines
+    # 3; long: the long route and wide rows, phase 3's check and phase 5e;
+    # family: phase 10; bench: phase 11) and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
-        require(only <= {"patches", "kernels", "widths", "trained",
+        require(only <= {"patches", "kernels", "widths", "long", "trained",
                          "scaleout", "family", "bench"},
                 f"unknown phases {only}")
 
@@ -4332,10 +4927,17 @@ def main() -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     # 3. kernels against their plain versions
+    clock = lambda what: print(f"{what} at {time.perf_counter() - t_start:.1f}"
+                               " s by the script's clock")
+    clock("phase 3")
     if only is not None and "patches" in only:
         check_patch_resize(dev, ds, scene)
     if only is not None and "widths" in only:
         check_head_widths(dev)
+    if only is not None and "long" in only:
+        check_long_kernels(dev)
+        clock("phase 5e")
+        long_configs_phase(dev, card)
     if only is None or "kernels" in only:
         kernel_results = check_kernels(dev, ds, scene)
         kernel_results.update(check_patch_resize(dev, ds, scene))
@@ -4351,6 +4953,9 @@ def main() -> int:
         kernel_results.update(check_k5(dev))
         kernel_results.update(check_k6(dev))
         kernel_results.update(check_wide_tokens(dev))
+        clock("phase 3, long route and wide rows")
+        kernel_results.update(check_long_kernels(dev))
+        clock("phase 3, head widths")
         widths = check_head_widths(dev)
         kernel_results.update(check_label_lookup(dev, scene))
         k10, probe_launches = check_int4_dot(dev)
@@ -4422,6 +5027,7 @@ def main() -> int:
                 f"{what}, want {n_slots} a chunk of {chunks}")
 
     # 4. the bf16 slice
+    clock("phase 4")
     ex_bf16 = extractor_for("")
     run_bf16 = slice_runner(ex_bf16)
     t = time.perf_counter()
@@ -4578,6 +5184,7 @@ def main() -> int:
 
     # 5d. the flagship's width of 768 with heads of 32 and of 128 (24 and 6
     # heads) in w8a8 and bf16: every block on the kernels at that width
+    clock("phase 5d")
     depth = ModelConfig().depth
     for d in HEAD_WIDTHS:
         for quantize, on in (("w8a8", q8_kernels), ("", bf16_kernels)):
@@ -4606,6 +5213,14 @@ def main() -> int:
             del ex, run, out
             torch.cuda.empty_cache()
 
+    # 5e. the long route and the wide rows: v3-cube16 and v3-wide slices,
+    # v3-cube16 training
+    clock("phase 5e")
+    long_cores = long_configs_phase(dev, card)
+    for k in ("attention_long", "attention_q8_long", "layer_norm_wide",
+              "ln_quant_wide"):
+        all_launches[k] = long_cores[k]
+
     # the serving scenes, written once for phases 6, 9 and 11
     walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
     try:
@@ -4615,6 +5230,7 @@ def main() -> int:
         print(f"serving folder: {SERVE_SCENES} scenes of {SERVE_SCENE} "
               f"({sum(c[0] for c in walk[2].values())} points) written in "
               f"{time.perf_counter() - t:.1f} s")
+        clock("phase 6")
         launches = serving_walk(ex_q8.model, dev, card, walk)
         require_launches(launches, q8_kernels,
                          bf16_kernels[1:] + q8a_kernels[1:] + off_path,
@@ -4625,6 +5241,7 @@ def main() -> int:
 
         # 7. training: the flagship, v5 with its aux losses, then the
         # flagship through the training block K5
+        clock("phase 7")
         launches, (v3_ms, v3_losses) = training_phase(
             dev, card, ModelConfig(), "v3")
         all_launches["fused_attention_train"] = \
@@ -4647,6 +5264,7 @@ def main() -> int:
                 f"step-0 loss through K5 differs from the unfused one: "
                 f"{rel0}")
         # 8. the parity bar on trained weights, model.chain_stage0 on them
+        clock("phase 8")
         _, trained, thr, runs = trained_parity_phase(
             dev, card, scene, ds, dcfg, edges_d, valid_d, valid, region_map,
             walk)
@@ -4656,14 +5274,17 @@ def main() -> int:
                 all_launches[k] += launches[k]
         # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
         # ranks on the one card over gloo
+        clock("phase 9")
         path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
                                          valid_d, region_map, trained, thr,
                                          walk))
         # 10. vit, the legacy harness, tiles, eval, profiling
+        clock("phase 10")
         family_runs = family_phase(dev, card, repo, scene, edges_d, valid_d,
                                    valid, region_map)
         path_runs.extend(family_runs)
         # 11. the benchmark's modes, over phase 6's scenes among others
+        clock("phase 11")
         bench_runs = bench_phase(dev, card, repo, walk)
         path_runs.extend(bench_runs)
     finally:
@@ -4714,6 +5335,17 @@ def main() -> int:
                          "tools/gather_probe.py:45"),
         "int4_dot": ("deepmerge_tpu_torch/csrc/int4_dot.cu",
                      "tools/int4_dot_probe.py:41"),
+        # the long routes of the bf16 core (K2-K8's `_attn_inner` and the
+        # attention kernels) and of K4a above 256 tokens, and the wide
+        # LayerNorm rows (`_ln`, inside K2-K5's calls) above 1024 lanes
+        "attention_long": ("deepmerge_tpu_torch/csrc/block_common.cuh",
+                           "deepmerge_tpu/ops/pallas/fused_block.py:42"),
+        "attention_q8_long": ("deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+                              "deepmerge_tpu/ops/pallas/fused_block.py:69"),
+        "layer_norm_wide": ("deepmerge_tpu_torch/csrc/fused_block.cu",
+                            "deepmerge_tpu/ops/pallas/fused_block.py:35"),
+        "ln_quant_wide": ("deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+                          "deepmerge_tpu/ops/pallas/fused_block.py:35"),
     }
     # K10 runs on no path of either package: its count is the probe's own
     all_launches["int4_dot"] = probe_launches

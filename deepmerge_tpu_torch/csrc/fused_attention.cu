@@ -1,7 +1,8 @@
 // The attention kernels, bf16, for Hopper (sm_90a): the saved-probs
 // training attention (K6), the inference attention on the packed qkv (K7)
 // and on separate (B, N, H, D) q, k, v (K8). All three run the attention
-// core of block_common.cuh, one CTA per (head, sample).
+// core of block_common.cuh, one CTA per (head, sample), or above 256
+// tokens its long route, one CTA per (64 queries, head, sample).
 //
 // K6 replaces deepmerge_tpu/ops/pallas/fused_attention.py:311
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the

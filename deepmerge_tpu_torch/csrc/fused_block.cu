@@ -34,13 +34,16 @@
 //   and the GELU or residual of its call. The grid is persistent (one
 //   193 KB CTA an SM), so the producer loads the next tile's slabs during
 //   an epilogue.
-// * LayerNorm is its own row kernel writing bf16 y. Normalizing inside the
+// * LayerNorm is its own row kernel writing bf16 y: one warp a row up to
+//   C 1024, one CTA a row above (the row staged in shared memory, up to
+//   kLnMaxWide). Normalizing inside the
 //   GEMM's A loads (the first design) redid the work for every column tile
 //   (18 of them for qkv, 24 for up) and cost the registers of a second CTA
 //   per SM: those GEMMs ran at a third of the others' rate.
 // * The attention core (block_common.cuh): a CTA of four warps per head
 //   and one to four samples, K and V in shared memory, the logits, the
-//   softmax and P in mma.sync registers.
+//   softmax and P in mma.sync registers; above 256 tokens the long route,
+//   K and V streamed in 64-key blocks, twice.
 // The chain entry point runs `depth` blocks on one activation buffer;
 // keeping the activation on chip between blocks is later work.
 //
@@ -116,6 +119,27 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
         o[t] = __float2bfloat16((v[i][t] - mu) * rs * w[k + t] + b[k + t]);
       *reinterpret_cast<uint4*>(y + row * C + k) = u;
     }
+  }
+}
+
+// y as layer_norm_kernel's for a row wider than 1024 (C <= kLnMaxWide,
+// C % 8 == 0): one CTA of kLnWideThreads a row, the row staged in shared
+// memory as f32 (ln_wide_stats).
+__global__ void __launch_bounds__(kLnWideThreads)
+layer_norm_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                       const float* __restrict__ b, bf16* __restrict__ y,
+                       int C) {
+  __shared__ __align__(16) float v[kLnMaxWide];
+  __shared__ float red[kLnWideThreads / 32];
+  const long long row = blockIdx.x;
+  const float2 st = ln_wide_stats(x + row * C, v, red, C);
+  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
+    uint4 u;
+    bf16* o = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      o[t] = __float2bfloat16((v[k + t] - st.x) * st.y * w[k + t] + b[k + t]);
+    *reinterpret_cast<uint4*>(y + row * C + k) = u;
   }
 }
 
@@ -298,10 +322,16 @@ cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
       stream);
 }
 
+// One warp a row up to C 1024, one CTA a row above (up to kLnMaxWide).
 cudaError_t layer_norm(const bf16* x, const float* w, const float* b, bf16* y,
                        int M, int C, cudaStream_t stream) {
-  layer_norm_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
-                      stream>>>(x, w, b, y, M, C);
+  if (C <= kLnMaxVec * 256)
+    layer_norm_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
+                        stream>>>(x, w, b, y, M, C);
+  else if (C <= kLnMaxWide && C % 8 == 0)
+    layer_norm_wide_kernel<<<M, kLnWideThreads, 0, stream>>>(x, w, b, y, C);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -406,9 +436,10 @@ const char* dm_error_string(int err) {
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
 // hidden), all bf16. Requires C == H·d with d 32, 64 or 128, C % 64 == 0,
-// C <= 1024, hidden % 64 == 0, N <= 256 and 16-byte aligned tensors
-// (checked by the caller); `plan` is the wrapper's launch plan (`block_plan`), and a plan
-// the kernels do not take is refused. Returns cudaGetLastError().
+// C <= 8192, hidden % 64 == 0, N <= 16384 and 16-byte aligned tensors
+// (checked by the caller); `plan` is the wrapper's launch plan
+// (`block_plan`: the short attention core up to N 256, the long route
+// above), and a plan the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
                      int hidden, const void* const* params, void* qkv,
                      void* att, void* r, void* h, const int* plan,
@@ -453,6 +484,17 @@ int dm_block_train_forward(const void* x, void* out, int B, int N, int C,
       hidden, params, static_cast<bf16*>(qkv), static_cast<bf16*>(probs),
       static_cast<bf16*>(gin), static_cast<bf16*>(r), static_cast<bf16*>(att),
       static_cast<bf16*>(h), plan, stream));
+}
+
+// The blocks' LayerNorm alone (its measurement and tests): y (M, C) bf16
+// from x (M, C) bf16 and the f32 scale w and bias b (C), one warp a row up
+// to C 1024, one CTA a row above. Requires C % 8 == 0, C <= 8192 and
+// 16-byte aligned rows (checked by the caller). Returns cudaGetLastError().
+int dm_layer_norm(const void* x, const void* w, const void* b, void* y, int M,
+                  int C, cudaStream_t stream) {
+  return static_cast<int>(layer_norm(
+      static_cast<const bf16*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<bf16*>(y), M, C, stream));
 }
 
 // K2's GEMM alone (its measurement and tests): out (M, N) = epilogue

@@ -164,6 +164,46 @@ ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ln_quant_kernel for a row wider than 1024 (C <= kLnMaxWide, C % 8 ==
+// 0): one CTA of kLnWideThreads a row, the row staged in shared memory as
+// f32 (ln_wide_stats), then the LayerNorm output in place, its abs-max over
+// the CTA and the codes.
+__global__ void __launch_bounds__(kLnWideThreads)
+ln_quant_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b,
+                     const float* __restrict__ static_scale,
+                     signed char* __restrict__ codes,
+                     float* __restrict__ row_scale, float* __restrict__ zero,
+                     int C) {
+  __shared__ __align__(16) float v[kLnMaxWide];
+  __shared__ float red[kLnWideThreads / 32];
+  const long long row = blockIdx.x;
+  const float2 st = ln_wide_stats(x + row * C, v, red, C);
+  float amax = 0.f;
+  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      v[k + t] = (v[k + t] - st.x) * st.y * w[k + t] + b[k + t];
+      amax = fmaxf(amax, fabsf(v[k + t]));
+    }
+  }
+  const bool dynamic = static_scale == nullptr;
+  float sc, inv = 0.f;
+  if (dynamic) {
+    amax = block_reduce<true>(amax, red);
+    sc = amax > 0.f ? amax * kInv127 : 1.0f;
+  } else {
+    sc = *static_scale;
+    inv = 1.0f / sc;
+  }
+  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8)
+    store_codes8(v + k, dynamic, sc, inv, codes + row * C + k);
+  if (threadIdx.x == 0) {
+    row_scale[row] = sc;
+    if (zero != nullptr) zero[row] = 0.f;
+  }
+}
+
 // ------------------------------------------------------------ row quantize
 
 // codes = q(x) per row of a bf16 (M, C) matrix, C % 8 == 0. One warp per
@@ -476,9 +516,15 @@ cudaError_t ln_quant(const bf16* x, const float* w, const float* b,
                      const float* static_scale, signed char* codes,
                      float* row_scale, float* zero, int M, int C,
                      cudaStream_t stream) {
-  ln_quant_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
-                    stream>>>(x, w, b, static_scale, codes, row_scale, zero,
-                              M, C);
+  if (C <= kLnMaxVec * 256)  // one warp a row
+    ln_quant_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
+                      stream>>>(x, w, b, static_scale, codes, row_scale,
+                                zero, M, C);
+  else if (C <= kLnMaxWide && C % 8 == 0)  // one CTA a row
+    ln_quant_wide_kernel<<<M, kLnWideThreads, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, C);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -1051,17 +1097,456 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 #undef DM_ATTN_Q8_CASE
 }
 
+// ------------------------------------------------- K4a, long route
+//
+// The int8 core for N > 256 (and any N a plan forces), on the bf16 long
+// route's grid (block_common.cuh): a CTA of four warps takes one head, one
+// sample and 64 queries, and k and v reach shared memory in 64-key blocks.
+// pq = rint(127·e) needs the row's final max and v's dynamic scales are
+// per column over all keys (`va`, `_attn_inner_q8`), so:
+//  * with dynamic scales, a pre-pass over the sample's v gives each
+//    column's abs-max, as the short core's staging does;
+//  * pass 1 quantizes each block's k (row scales) into shared memory and
+//    takes the row max of the dequantized logits + bias;
+//  * pass 2 quantizes each block's k again and its v (transposed, in the
+//    short core's slot order), and takes the codes pq against the final
+//    max, their exact integer sum and the s8 mma.sync P·V.
+// Every value goes through the short core's arithmetic: the same codes of
+// q, k and v (code_of, store_codes8, the same scales), the same logits
+// (q8_block_logits is q8_logits at a block's key offset), prob_code, an
+// exact max and exact integer sums. The codes and the output therefore
+// equal the short core's bit for bit wherever both run. The copies are
+// not double-buffered: the block's codes are made by the threads from
+// 16-byte loads (they quantize on the way), then the CTA syncs.
+
+// Shared memory of a long-route K4a CTA at head width d: a block's k codes
+// (64 x (d + 16) B), its v codes transposed (d x 80 B), k's row scales,
+// v's column scales, and the pre-pass's partial abs-maxes (a row of d for
+// each d/8 threads). 10,112 / 14,848 / 24,320 B at d 32 / 64 / 128.
+constexpr int kQ8LongVld = kAttnLongKeys + 16;  // an odd multiple of 16 B
+
+struct AttnQ8LongLayout {
+  int kq, vt, sk, sv, red, bytes;
+};
+
+__host__ __device__ inline AttnQ8LongLayout attn_q8_long_layout(int d) {
+  AttnQ8LongLayout l;
+  l.kq = 0;
+  l.vt = l.kq + kAttnLongKeys * q8_row(d);
+  l.sk = l.vt + d * kQ8LongVld;
+  l.sv = l.sk + kAttnLongKeys * static_cast<int>(sizeof(float));
+  l.red = l.sv + d * static_cast<int>(sizeof(float));
+  l.bytes = l.red + kAttnLongWarps * 32 / (d / 8) * d *
+                        static_cast<int>(sizeof(float));
+  return l;
+}
+
+// q8_logits for the four 8-key tiles from t0 of a block whose first key is
+// j0: k's row scales sk are the block's, the bias and the mask take the
+// keys' indices in the sequence.
+template <bool kEven, bool kStatic>
+__device__ __forceinline__ void q8_block_logits(
+    const int (&s)[4][4], float (&l)[4][4], int t0, const float* sk, int j0,
+    const float* bias_h, int ra, int rb, int tig, int N, float ca, float cb) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int jl = (t0 + t) * 8 + 2 * tig;
+    const int j = j0 + jl;
+    const float2 ba = bias_load<kEven>(bias_h, ra, j, N);
+    const float2 bb = bias_load<kEven>(bias_h, rb, j, N);
+    float k0 = 1.f, k1 = 1.f;
+    if constexpr (!kStatic) {
+      const float2 kv = *reinterpret_cast<const float2*>(sk + jl);
+      k0 = kv.x;
+      k1 = kv.y;
+    }
+    auto dq = [&](int acc, float c, float kk) {
+      const float a = static_cast<float>(acc);
+      return kStatic ? __fmul_rn(a, c) : __fmul_rn(__fmul_rn(a, c), kk);
+    };
+    l[t][0] = __fadd_rn(dq(s[t][0], ca, k0), ba.x);
+    l[t][1] = __fadd_rn(dq(s[t][1], ca, k1), ba.y);
+    l[t][2] = __fadd_rn(dq(s[t][2], cb, k0), bb.x);
+    l[t][3] = __fadd_rn(dq(s[t][3], cb, k1), bb.y);
+    if (ra < N) {
+      if (j >= N) l[t][0] = -INFINITY;
+      if (j + 1 >= N) l[t][1] = -INFINITY;
+    }
+    if (rb < N) {
+      if (j >= N) l[t][2] = -INFINITY;
+      if (j + 1 >= N) l[t][3] = -INFINITY;
+    }
+  }
+}
+
+template <int kD, bool kStatic>
+__global__ void __launch_bounds__(kAttnLongWarps * 32)
+attention_q8_long_kernel(const bf16* __restrict__ qkv,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ s_qkv,
+                         bf16* __restrict__ out, int N, int C, float scale) {
+  constexpr int kOct = kD / 8;  // 16-byte pieces (8 lanes) of a row
+  constexpr int kQ8Row = q8_row(kD);
+  constexpr int kKeys = kAttnLongKeys;
+  extern __shared__ __align__(16) unsigned char q8_long_smem[];
+  const AttnQ8LongLayout L = attn_q8_long_layout(kD);
+  signed char* kq = reinterpret_cast<signed char*>(q8_long_smem + L.kq);
+  signed char* vt = reinterpret_cast<signed char*>(q8_long_smem + L.vt);
+  float* sk = reinterpret_cast<float*>(q8_long_smem + L.sk);
+  float* sv = reinterpret_cast<float*>(q8_long_smem + L.sv);
+  float* red = reinterpret_cast<float*>(q8_long_smem + L.red);
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long ld = 3LL * C;
+  const int head_off = h * kD;
+  const bf16* qb = qkv + head_off;
+  const bf16* kb = qb + C;
+  const bf16* vb = qb + 2 * C;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int mi = lane >> 3;  // the 8x8 matrix this lane addresses
+  const bool even = (N & 1) == 0;
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  const unsigned full = 0xffffffffu;
+  const long long row0 = static_cast<long long>(b) * N;
+
+  float s_q = 0.f, s_v = 0.f, inv_q = 0.f, inv_k = 0.f, inv_v = 0.f,
+        c_static = 0.f;
+  if constexpr (kStatic) {
+    s_q = s_qkv[0];
+    s_v = s_qkv[2];
+    inv_q = 1.0f / s_q;
+    inv_k = 1.0f / s_qkv[1];
+    inv_v = 1.0f / s_v;
+    c_static = __fmul_rn(__fmul_rn(s_q, s_qkv[1]), scale);
+  }
+
+  // v's column scales over all N keys: a thread takes an octet of lanes
+  // over every parts-th key, four keys' loads in flight at a time
+  if constexpr (!kStatic) {
+    const int oct = threadIdx.x % kOct;
+    const int part = threadIdx.x / kOct;
+    const int parts = blockDim.x / kOct;
+    float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int j0 = part; j0 < N; j0 += 4 * parts) {
+      float v[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + u * parts;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
+        if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) m[t] = fmaxf(m[t], fabsf(v[u][t]));
+    }
+    float* r = red + part * kD + oct * 8;
+    *reinterpret_cast<float4*>(r) = make_float4(m[0], m[1], m[2], m[3]);
+    *reinterpret_cast<float4*>(r + 4) = make_float4(m[4], m[5], m[6], m[7]);
+    __syncthreads();
+    for (int dd = threadIdx.x; dd < kD; dd += blockDim.x) {
+      float a = red[dd];
+      for (int t = 1; t < parts; ++t) a = fmaxf(a, red[t * kD + dd]);
+      sv[dd] = a > 0.f ? a * kInv127 : 1.0f;
+    }
+  }
+
+  // q codes of the warp's rows ra, rb: lanes 16c + 4t..+3, as the short
+  // core's
+  const int ra = blockIdx.x * kAttnLongQueries + warp * 16 + g;
+  const int rb = ra + 8;
+  uint32_t qa[kD / 32][4];  // A fragments of the 32-lane k steps
+  float cqa, cqb;
+  {
+    const bf16* qa_row = qb + (row0 + ra) * ld + 4 * tig;
+    const bf16* qb_row = qb + (row0 + rb) * ld + 4 * tig;
+    float va[kD / 16][4], vbq[kD / 16][4];
+    float ma = 0.f, mb = 0.f;
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) {
+      load4(qa_row + 16 * c, ra < N, va[c]);
+      load4(qb_row + 16 * c, rb < N, vbq[c]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        ma = fmaxf(ma, fabsf(va[c][t]));
+        mb = fmaxf(mb, fabsf(vbq[c][t]));
+      }
+    }
+    float sqa = s_q, sqb = s_q;
+    if constexpr (!kStatic) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        ma = fmaxf(ma, __shfl_xor_sync(full, ma, o));
+        mb = fmaxf(mb, __shfl_xor_sync(full, mb, o));
+      }
+      sqa = ma > 0.f ? ma * kInv127 : 1.0f;
+      sqb = mb > 0.f ? mb * kInv127 : 1.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < kD / 16; ++c) {
+      int ca[4], cb[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        ca[t] = code_of(kStatic ? va[c][t] * inv_q : va[c][t] / sqa);
+        cb[t] = code_of(kStatic ? vbq[c][t] * inv_q : vbq[c][t] / sqb);
+      }
+      qa[c >> 1][(c & 1) * 2] = pack_s8(ca[0], ca[1], ca[2], ca[3]);
+      qa[c >> 1][(c & 1) * 2 + 1] = pack_s8(cb[0], cb[1], cb[2], cb[3]);
+    }
+    cqa = kStatic ? c_static : __fmul_rn(sqa, scale);
+    cqb = kStatic ? c_static : __fmul_rn(sqb, scale);
+  }
+
+  const int kblocks = (N + kKeys - 1) / kKeys;
+  float mxa = -INFINITY, mxb = -INFINITY;
+  int suma = 0, sumb = 0;
+  int o[kD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0;
+
+  for (int s = 0; s < 2 * kblocks; ++s) {
+    const bool second = s >= kblocks;
+    const int j0 = (s % kblocks) * kKeys;
+    __syncthreads();  // the previous block's codes are read (and sv made)
+
+    // k codes of keys j0..j0+63: kOct threads a key, the row's abs-max
+    // over them, four keys' loads in flight at a time; keys past N code 0,
+    // scale 1
+    for (int base = threadIdx.x; base < kKeys * kOct;
+         base += 4 * blockDim.x) {
+      float v[4][8];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = base + u * blockDim.x;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
+        if (idx < kKeys * kOct && j0 + idx / kOct < N)
+          load8(kb + (row0 + j0 + idx / kOct) * ld + (idx % kOct) * 8, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = base + u * blockDim.x;
+        float sc = 1.0f;
+        if constexpr (!kStatic) {
+          float amax = 0.f;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[u][t]));
+#pragma unroll
+          for (int w = 1; w < kOct; w <<= 1)
+            amax = fmaxf(amax, __shfl_xor_sync(full, amax, w));
+          sc = amax > 0.f ? amax * kInv127 : 1.0f;
+        }
+        if (idx < kKeys * kOct) {
+          store_codes8(v[u], !kStatic, sc, inv_k,
+                       kq + (idx / kOct) * kQ8Row + (idx % kOct) * 8);
+          if (idx % kOct == 0) sk[idx / kOct] = sc;
+        }
+      }
+    }
+    // pass 2: v codes, transposed, in the short core's slot order
+    if (second) {
+      for (int idx = threadIdx.x; idx < kOct * (kKeys / 4);
+           idx += blockDim.x) {
+        const int oct = idx % kOct;
+        const int grp = idx / kOct;
+        const int jl =
+            (grp >> 3) * 32 + ((grp >> 2) & 1) * 16 + (grp & 3) * 2;
+        float v[4][8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + jl + (e & 1) + (e >> 1) * 8;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) v[e][t] = 0.f;
+          if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[e]);
+        }
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int dd = oct * 8 + t;
+          int c[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            c[e] = code_of(kStatic ? v[e][t] * inv_v : v[e][t] / sv[dd]);
+          *reinterpret_cast<uint32_t*>(vt + dd * kQ8LongVld + 4 * grp) =
+              pack_s8(c[0], c[1], c[2], c[3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the logits of the block's two 32-key steps
+    float l[8][4];
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      int s4[4][4];
+      float l4[4][4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = 4 * st + u;
+        const signed char* krow = kq + (t * 8 + (lane & 7)) * kQ8Row;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s4[u][e] = 0;
+        if constexpr (kD == 32) {
+          uint32_t bk[2];  // lanes 0-15, 16-31 of keys 8t..
+          ldsm_x2(bk, krow + (mi & 1) * 16);
+          mma_s8(s4[u], qa[0], bk[0], bk[1]);
+        } else {
+#pragma unroll
+          for (int kc = 0; kc < kD / 64; ++kc) {
+            uint32_t bk[4];  // lanes 64kc + 0-15, 16-31, 32-47, 48-63
+            ldsm_x4(bk, reinterpret_cast<const bf16*>(krow + kc * 64 +
+                                                      mi * 16));
+            mma_s8(s4[u], qa[2 * kc], bk[0], bk[1]);
+            mma_s8(s4[u], qa[2 * kc + 1], bk[2], bk[3]);
+          }
+        }
+      }
+      if (even)
+        q8_block_logits<true, kStatic>(s4, l4, 4 * st, sk, j0, bias_h, ra,
+                                       rb, tig, N, cqa, cqb);
+      else
+        q8_block_logits<false, kStatic>(s4, l4, 4 * st, sk, j0, bias_h, ra,
+                                        rb, tig, N, cqa, cqb);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) l[4 * st + u][e] = l4[u][e];
+    }
+
+    if (!second) {
+      // pass 1: the row max (exact, in any order)
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        mxa = fmaxf(mxa, fmaxf(l[t][0], l[t][1]));
+        mxb = fmaxf(mxb, fmaxf(l[t][2], l[t][3]));
+      }
+      continue;
+    }
+    if (s == kblocks) {  // the max over the quad, once
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        mxa = fmaxf(mxa, __shfl_xor_sync(full, mxa, w));
+        mxb = fmaxf(mxb, __shfl_xor_sync(full, mxb, w));
+      }
+    }
+    // pass 2: pq in the A fragments of the two 32-key steps (the slot map)
+    // and its exact sum, then O += pq·vi
+    uint32_t p[2][4];
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      int ca[4][2], cb[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = 4 * st + u;
+        ca[u][0] = prob_code(l[t][0], mxa);
+        ca[u][1] = prob_code(l[t][1], mxa);
+        cb[u][0] = prob_code(l[t][2], mxb);
+        cb[u][1] = prob_code(l[t][3], mxb);
+        suma += ca[u][0] + ca[u][1];
+        sumb += cb[u][0] + cb[u][1];
+      }
+      p[st][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
+      p[st][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
+      p[st][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
+      p[st][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
+    }
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+#pragma unroll
+      for (int dd = 0; dd < kD / 16; ++dd) {
+        uint32_t bv[4];  // lanes 16dd..+7 (keys 0-15, 16-31), +8..+15
+        ldsm_x4(bv, reinterpret_cast<const bf16*>(
+                        vt + (dd * 16 + (mi >> 1) * 8 + (lane & 7)) *
+                                 kQ8LongVld +
+                        32 * st + (mi & 1) * 16));
+        mma_s8(o[2 * dd], p[st], bv[0], bv[1]);
+        mma_s8(o[2 * dd + 1], p[st], bv[2], bv[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int w = 1; w <= 2; w <<= 1) {
+    suma += __shfl_xor_sync(full, suma, w);
+    sumb += __shfl_xor_sync(full, sumb, w);
+  }
+  const float inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
+  const float invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
+
+  // out = bf16((O · 1/Σpq) · s_v)
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt) {
+    const int col = dt * 8 + 2 * tig;
+    const float v0 = kStatic ? s_v : sv[col];
+    const float v1 = kStatic ? s_v : sv[col + 1];
+    if (ra < N)
+      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + head_off +
+                                         col) =
+          __floats2bfloat162_rn(
+              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][0]), inva), v0),
+              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][1]), inva), v1));
+    if (rb < N)
+      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + head_off +
+                                         col) =
+          __floats2bfloat162_rn(
+              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][2]), invb), v0),
+              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][3]), invb), v1));
+  }
+}
+
+template <int kD>
+inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
+                                         const float* s_qkv, bf16* out, int B,
+                                         int N, int C, int H,
+                                         cudaStream_t stream) {
+  const int smem = attn_q8_long_layout(kD).bytes;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
+  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries, H, B);
+  if (s_qkv != nullptr)
+    attention_q8_long_kernel<kD, true><<<grid, kAttnLongWarps * 32, smem,
+                                         stream>>>(qkv, bias, s_qkv, out, N,
+                                                   C, scale);
+  else
+    attention_q8_long_kernel<kD, false><<<grid, kAttnLongWarps * 32, smem,
+                                          stream>>>(qkv, bias, nullptr, out,
+                                                    N, C, scale);
+  return cudaGetLastError();
+}
+
 // K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. The head
 // width is C / H, one of 32, 64 and 128. `plan` is the wrapper's
 // `attention_q8_plan` at that width: the 32-key step bucket, the warps of
-// a CTA (even, at most 8), the samples of a CTA and the shared bytes; a
-// width or plan the kernel does not take is refused with
-// cudaErrorInvalidValue.
+// a CTA (even, at most 8), the samples of a CTA and the shared bytes, or
+// the long route's plan (block_common.cuh attn_long_plan_ok, with this
+// route's shared bytes), which launches attention_q8_long_kernel; a width
+// or plan the kernels do not take is refused with cudaErrorInvalidValue.
 cudaError_t attention_q8(const bf16* qkv, const float* bias,
                          const float* s_qkv, bf16* out, int B, int N, int C,
                          int H, const int* plan, cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
+  if (kt == kAttnLongRoute) {
+    if (!attn_long_plan_ok(plan, B, N, H, d,
+                           head_dim_ok(d) ? attn_q8_long_layout(d).bytes : 0))
+      return cudaErrorInvalidValue;
+    switch (d) {
+      case 32:
+        return attention_q8_long_run<32>(qkv, bias, s_qkv, out, B, N, C, H,
+                                         stream);
+      case 64:
+        return attention_q8_long_run<64>(qkv, bias, s_qkv, out, B, N, C, H,
+                                         stream);
+      default:
+        return attention_q8_long_run<128>(qkv, bias, s_qkv, out, B, N, C, H,
+                                          stream);
+    }
+  }
   if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 32 < N || warps < 2 ||
       warps % 2 || warps > kAttnQ8MaxWarps || samples < 1 ||
       smem != attn_q8_layout(N, d).bytes)
@@ -1186,8 +1671,8 @@ const char* dm_error_string(int err) {
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
 // (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32; codes
 // (B·N, max(C, hidden)) int8; row_scale and row_amax (B·N) f32. Requires
-// C == H·d with d 32, 64 or 128, C % 128 == 0, C <= 1024, hidden % 128 ==
-// 0, N <= 256 and 16-byte aligned tensors (checked by the caller). `plan` is the block's
+// C == H·d with d 32, 64 or 128, C % 128 == 0, C <= 8192, hidden % 128 ==
+// 0, N <= 16384 and 16-byte aligned tensors (checked by the caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
 // plan the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
@@ -1225,6 +1710,22 @@ int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
     if (err != 0) return err;
   }
   return 0;
+}
+
+// The w8a8 blocks' LayerNorm + quantize alone (its measurement and tests):
+// codes (M, C) int8 and row_scale (M) f32 of q(LN(x)) from x (M, C) bf16
+// and the f32 scale w and bias b (C), with the static scale *static_scale
+// (not null) or dynamic row scales; one warp a row up to C 1024, one CTA a
+// row above. Requires C % 8 == 0, C <= 8192 and 16-byte aligned rows
+// (checked by the caller). Returns cudaGetLastError().
+int dm_ln_quant(const void* x, const void* w, const void* b,
+                const void* static_scale, void* codes, void* row_scale, int M,
+                int C, cudaStream_t stream) {
+  return static_cast<int>(ln_quant(
+      static_cast<const bf16*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(static_scale),
+      static_cast<signed char*>(codes), static_cast<float*>(row_scale),
+      nullptr, M, C, stream));
 }
 
 // K4's s8 GEMM alone (its measurement and tests): out (M, N) = epilogue
@@ -1298,9 +1799,9 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // K4a's int8 core alone (its measurement and tests): out (B·N, C) bf16
 // from a packed (B·N, 3C) bf16 qkv and the (H, N, N) f32 bias, with the
 // static (s_q, s_k, s_v) (f32 [3]) or, if null, dynamic scales. `plan` is
-// the wrapper's `attention_q8_plan`. Requires C == H·d with d 32, 64 or
-// 128 and N <= 256
-// (checked by the caller). Returns cudaGetLastError().
+// the wrapper's `attention_q8_plan` (the short core up to N 256, the long
+// route above or when the plan forces it). Requires C == H·d with d 32, 64
+// or 128 and N <= 16384 (checked by the caller). Returns cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,
                     cudaStream_t stream) {

@@ -51,13 +51,14 @@ import torch
 from deepmerge_tpu_torch.ops.dropout import dropout
 from deepmerge_tpu_torch.ops.kernels import build
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
-    MAX_TOKENS,
+    MAX_LONG_TOKENS,
     _on_cuda,
     _plan_arg,
     _products_for,
     attention_parts,
     attention_plan,
     check_head_dim,
+    count_core,
     q_scale,
 )
 
@@ -169,9 +170,12 @@ def split_qkv(qkv: torch.Tensor, heads: int):
 # -------------------------------------------------------------- CUDA path
 
 def _check_tokens(b, n):
-    if not 1 <= n <= MAX_TOKENS or not 1 <= b <= 65535:
-        raise ValueError(f"the CUDA attention takes 1..{MAX_TOKENS} tokens "
-                         f"and 1..65535 samples, got B={b}, N={n}")
+    """N within the long route's limit (the short core takes N up to
+    ``MAX_TOKENS``, the long route the rest) and B within the grid's."""
+    if not 1 <= n <= MAX_LONG_TOKENS or not 1 <= b <= 65535:
+        raise ValueError(f"the CUDA attention takes 1..{MAX_LONG_TOKENS} "
+                         f"tokens and 1..65535 samples, got B={b}, N={n} "
+                         "(ROADMAP.md)")
 
 
 def _check_bias(bias, heads, n, device):
@@ -222,7 +226,8 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     N) bf16.
 
     CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
     """
@@ -234,11 +239,12 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
                         device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    plan = _plan_arg(attention_plan(b, n, heads, head_dim=d)["ints"])
+    ints = attention_plan(b, n, heads, head_dim=d)["ints"]
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), probs.data_ptr(), b, n, c,
-                                 heads, plan, stream)
+                                 heads, _plan_arg(ints), stream)
     build.check(lib, err, "dm_attention_probs")
+    count_core(ints)
     attention_probs.launches += 1
     return out, probs
 
@@ -248,7 +254,8 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     """K7: (B, N, C) in qkv's dtype.
 
     CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention``) with ``plan`` (an ``attention_plan`` of these
     shapes, which the kernel checks; the default one if None) and count
     the launch in ``attention_qkv.launches``; anything else raises.
@@ -263,6 +270,7 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     err = lib.dm_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
                            b, n, c, heads, _plan_arg(plan["ints"]), stream)
     build.check(lib, err, "dm_attention")
+    count_core(plan["ints"])
     attention_qkv.launches += 1
     return out
 
@@ -272,7 +280,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8: (B, N, H, D) in q's dtype.
 
     CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D in
-    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_attention.cu``
+    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention_bnhd``) and count the launch in
     ``attention_bnhd.launches``; anything else raises.
     """
@@ -288,6 +297,7 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 heads * d, heads, _plan_arg(plan["ints"]),
                                 stream)
     build.check(lib, err, "dm_attention_bnhd")
+    count_core(plan["ints"])
     attention_bnhd.launches += 1
     return out
 

@@ -42,8 +42,10 @@ from deepmerge_tpu_torch.ops.kernels import build
 LN_EPS = 1e-5
 N_PARAMS = 13
 HEAD_DIMS = (32, 64, 128)  # the attention cores' head widths
-MAX_TOKENS = 256   # the attention kernel's longest sequence
-MAX_WIDTH = 1024   # the LayerNorm kernel's widest row
+MAX_TOKENS = 256   # the short (register-resident) attention cores' longest
+MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
+MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
+MAX_LONG_WIDTH = 8192  # the wide LayerNorm kernels' (one CTA a row)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -60,6 +62,8 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P],
     # a, w, bias, resid, out, aux, M, N, K, epilogue, plan, stream
     "dm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x, w, b, y, M, C, stream
+    "dm_layer_norm": [_P, _P, _P, _P, _I, _I, _P],
 }
 _SIGNATURES_Q8 = {
     # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
@@ -76,6 +80,8 @@ _SIGNATURES_Q8 = {
                    _I, _I, _P, _P],
     # qkv, bias, s_qkv, out, B, N, C, H, plan, stream
     "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # x, w, b, static_scale, codes, row_scale, M, C, stream
+    "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 Q8_K_ALIGN = 128   # the s8 GEMM's K slab: C and the MLP width divide by it
 
@@ -151,19 +157,89 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
                SM_THREADS // threads, SM_CTAS)
 
 
+# The long route of both cores (csrc/block_common.cuh attention_long_kernel,
+# csrc/fused_block_q8.cu attention_q8_long_kernel): a CTA of four warps
+# takes one head, one sample and 64 queries, K and V stream through shared
+# memory in 64-key blocks, twice (the row max and Σe, then the
+# probabilities and P·V). Its plan's first int is ATTN_LONG_ROUTE, which no
+# short plan has (their first int is a bucket >= 1). Registers a thread
+# (the launch bound of one 128-thread CTA allows 255): ptxas's most over
+# the variants of each width (nvcc 12.9, sm_90a, no spills but 8 bytes in
+# the int8 core at width 32 with dynamic scales).
+ROUTES = ("short", "long")
+ATTN_LONG_ROUTE = 0
+ATTN_LONG_WARPS = 4
+ATTN_LONG_QUERIES = 64
+ATTN_LONG_KEYS = 64
+ATTN_LONG_REGISTERS = {32: 114, 64: 140, 128: 180}
+ATTN_Q8_LONG_REGISTERS = {32: 96, 64: 133, 128: 168}
+
+
+def _route(n: int, route: str | None) -> str:
+    """The attention route of ``n`` tokens: the short core up to
+    ``MAX_TOKENS``, the long route above; ``route`` forces one."""
+    if route is None:
+        return "short" if n <= MAX_TOKENS else "long"
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    return route
+
+
+def attention_long_smem(head_dim: int) -> int:
+    """Shared bytes of a bf16 long-route CTA: two buffers of a 64-key block
+    of K and of V at the short core's row stride."""
+    return 2 * 2 * ATTN_LONG_KEYS * attn_row_bytes(head_dim)
+
+
+def attention_q8_long_smem(head_dim: int) -> int:
+    """Shared bytes of a K4a long-route CTA at head width d: a block's k
+    codes (64 x (d + 16) B), its v codes transposed (d x 80 B), k's row
+    scales, v's column scales and a d-lane partial abs-max for each d/8
+    threads."""
+    d = head_dim
+    parts = ATTN_LONG_WARPS * 32 // (d // 8)
+    return ATTN_LONG_KEYS * (d + 16) + d * (ATTN_LONG_KEYS + 16) \
+        + ATTN_LONG_KEYS * 4 + d * 4 + parts * d * 4
+
+
+def _long_plan(b: int, n: int, heads: int, head_dim: int, smem: int,
+               registers: int, what: str) -> dict:
+    if not 1 <= n <= MAX_LONG_TOKENS:
+        raise ValueError(f"{what} takes 1..{MAX_LONG_TOKENS} tokens, got "
+                         f"{n}; longer sequences are open work (ROADMAP.md)")
+    grid = (-(-n // ATTN_LONG_QUERIES), heads, b)
+    if not 1 <= heads <= MAX_GRID_Y or not 1 <= b <= MAX_GRID_Y:
+        raise ValueError(f"attention grid {grid} out of range")
+    threads = ATTN_LONG_WARPS * 32
+    return dict(ints=(ATTN_LONG_ROUTE, ATTN_LONG_WARPS, 1, smem),
+                route="long", warps=ATTN_LONG_WARPS, samples=1, smem=smem,
+                grid=grid, head_dim=head_dim,
+                key_blocks=-(-n // ATTN_LONG_KEYS),
+                ctas_per_sm=ctas_per_sm(threads, smem, registers))
+
+
 def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
-                   samples: int | None = None, head_dim: int = 64) -> dict:
+                   samples: int | None = None, head_dim: int = 64,
+                   route: str | None = None) -> dict:
     """The attention core's launch for ``b`` samples of ``n`` tokens and
     ``heads`` heads of width ``head_dim``: ``ints`` (key-tile bucket,
-    warps, samples, shared bytes) as the C entry points take them, the grid
-    (heads, samples per CTA) and the CTAs that fit an SM. ``samples`` None:
-    4 from a batch of ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Raises
-    ``ValueError`` for a launch the kernel does not take."""
-    if samples is None:
-        samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
+    warps, samples, shared bytes) as the C entry points take them, the
+    ``route`` it takes, the grid (heads, samples per CTA) and the CTAs that
+    fit an SM. ``samples`` None: 4 from a batch of
+    ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Above ``MAX_TOKENS`` (or with
+    ``route="long"``) the long route: ints (``ATTN_LONG_ROUTE``, 4 warps,
+    1 sample, shared bytes), grid (query blocks, heads, samples); ``warps``
+    and ``samples`` do not apply. Raises ``ValueError`` for a launch the
+    kernels do not take."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the attention core takes heads of width "
                          f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
+    if _route(n, route) == "long":
+        return _long_plan(b, n, heads, head_dim, attention_long_smem(head_dim),
+                          ATTN_LONG_REGISTERS[head_dim],
+                          "the long attention route")
+    if samples is None:
+        samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
     if not 1 <= n <= MAX_TOKENS:
         raise ValueError(f"the attention core takes 1..{MAX_TOKENS} tokens, "
                          f"got {n}")
@@ -178,9 +254,9 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     grid = (heads, -(-b // samples))
     if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
         raise ValueError(f"attention grid {grid} out of range")
-    return dict(ints=(bucket, warps, samples, smem), key_tiles=key_tiles,
-                bucket=bucket, warps=warps, samples=samples, smem=smem,
-                grid=grid, head_dim=head_dim,
+    return dict(ints=(bucket, warps, samples, smem), route="short",
+                key_tiles=key_tiles, bucket=bucket, warps=warps,
+                samples=samples, smem=smem, grid=grid, head_dim=head_dim,
                 ctas_per_sm=ctas_per_sm(warps * 32, smem,
                                         ATTN_REGISTERS[head_dim]))
 
@@ -208,8 +284,8 @@ def gemm_plan(m: int, n: int, k: int) -> dict:
 
 def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
     """A block's plan as its C entry points take it: the attention core's
-    ints, then the GEMM's, checked against every GEMM of the block (qkv,
-    proj, up, down at M = b·n)."""
+    ints (the route ``n`` takes), then the GEMM's, checked against every
+    GEMM of the block (qkv, proj, up, down at M = b·n)."""
     m = b * n
     for rows, depth in ((3 * c, c), (c, c), (hidden, c), (c, hidden)):
         gemm = gemm_plan(m, rows, depth)
@@ -264,21 +340,28 @@ def attention_q8_smem(n: int, head_dim: int = 64) -> int:
 
 def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
                       samples: int | None = None,
-                      head_dim: int = 64) -> dict:
+                      head_dim: int = 64, route: str | None = None) -> dict:
     """K4a's core launch for ``b`` samples of ``n`` tokens and ``heads``
     heads of width ``head_dim``: ``ints`` (32-key step bucket, warps,
-    samples, shared bytes) as the C entry points take them, the grid and
-    the CTAs that fit an SM. ``warps`` None: 2 where one 16-query tile
-    holds every token (n <= 16), else ``ATTN_WARPS``; ``samples`` None: as
-    ``attention_plan``. Raises ``ValueError`` for a launch the kernel does
-    not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
+    samples, shared bytes) as the C entry points take them, the ``route``
+    it takes, the grid and the CTAs that fit an SM. ``warps`` None: 2
+    where one 16-query tile holds every token (n <= 16), else
+    ``ATTN_WARPS``; ``samples`` None: as ``attention_plan``. Above
+    ``MAX_TOKENS`` (or with ``route="long"``) the long route, as
+    ``attention_plan``'s. Raises ``ValueError`` for a launch the kernels
+    do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the int8 attention core takes heads of width "
+                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
+    if _route(n, route) == "long":
+        return _long_plan(b, n, heads, head_dim,
+                          attention_q8_long_smem(head_dim),
+                          ATTN_Q8_LONG_REGISTERS[head_dim],
+                          "the long int8 attention route")
     if warps is None:
         warps = 2 if n <= 16 else ATTN_WARPS
     if samples is None:
         samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the int8 attention core takes heads of width "
-                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if not 1 <= n <= MAX_TOKENS:
         raise ValueError(f"the int8 attention core takes 1..{MAX_TOKENS} "
                          f"tokens, got {n}")
@@ -294,17 +377,17 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
         raise ValueError(f"attention grid {grid} out of range")
     registers = (ATTN_Q8_SHORT_REGISTERS if bucket <= 2
                  else ATTN_REGISTERS)[head_dim]
-    return dict(ints=(bucket, warps, samples, smem), steps=steps,
-                bucket=bucket, warps=warps, samples=samples, smem=smem,
-                grid=grid, head_dim=head_dim,
+    return dict(ints=(bucket, warps, samples, smem), route="short",
+                steps=steps, bucket=bucket, warps=warps, samples=samples,
+                smem=smem, grid=grid, head_dim=head_dim,
                 ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
 def block_plan_q8(b: int, n: int, c: int, heads: int, hidden: int,
                   quant_attn: bool = False) -> tuple:
     """A w8a8 block's plan as its C entry points take it: the attention
-    core's ints (K2's core, or K4a's with ``quant_attn``), then each GEMM's
-    (qkv, proj, up, down at M = b·n)."""
+    core's ints (K2's core, or K4a's with ``quant_attn``; the route ``n``
+    takes), then each GEMM's (qkv, proj, up, down at M = b·n)."""
     m = b * n
     attn = (attention_q8_plan if quant_attn else attention_plan)(
         b, n, heads, head_dim=check_head_dim(c, heads))
@@ -316,6 +399,49 @@ def block_plan_q8(b: int, n: int, c: int, heads: int, hidden: int,
 
 def _plan_arg(ints):
     return (ctypes.c_int * len(ints))(*ints)
+
+
+class CoreLaunches:
+    """The launch count of a kernel that the wrappers launch from C (an
+    attention core inside a block, a chain or an attention entry point; a
+    LayerNorm inside a block): each wrapper adds the kernel's launches of
+    its call. Read and reset as a wrapper's ``launches``."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# the bf16 core (K2, K3, K4 without quant_attn, K5, K6, K7, K8;
+# csrc/block_common.cuh attention_kernel, attention_long_kernel) and the
+# int8 core (K4a; csrc/fused_block_q8.cu attention_q8_kernel,
+# attention_q8_long_kernel), each by route
+attention_short = CoreLaunches()
+attention_long = CoreLaunches()
+attention_q8_short = CoreLaunches()
+attention_q8_long = CoreLaunches()
+
+
+# the wide LayerNorm kernels (C > MAX_WIDTH): csrc/fused_block.cu's (K2,
+# K3, K5) and csrc/fused_block_q8.cu's with the quantize (K4, K4a)
+layer_norm_wide = CoreLaunches()
+ln_quant_wide = CoreLaunches()
+
+
+def count_core(plan_ints, int8: bool = False, blocks: int = 1) -> None:
+    """Counts ``blocks`` launches of the attention core a plan (its ints,
+    an attention plan's first) selects."""
+    long = plan_ints[0] == ATTN_LONG_ROUTE
+    if int8:
+        (attention_q8_long if long else attention_q8_short).launches += blocks
+    else:
+        (attention_long if long else attention_short).launches += blocks
+
+
+def count_layer_norms(c: int, w8a8: bool, blocks: int = 1) -> None:
+    """Counts the wide LayerNorm launches of ``blocks`` blocks of width
+    ``c`` (two a block, none up to ``MAX_WIDTH``)."""
+    if c > MAX_WIDTH:
+        (ln_quant_wide if w8a8 else layer_norm_wide).launches += 2 * blocks
 
 
 # ------------------------------------------------------------ plain version
@@ -872,19 +998,25 @@ def block_act_amax(x: torch.Tensor, params, heads: int,
 
 def _check_x(x, heads, align):
     """(B, N, C) of an activation the CUDA blocks take: bf16, contiguous,
-    heads of a width in ``HEAD_DIMS``, C <= 1024 (the LayerNorm kernels'
-    row) and a multiple of ``align`` (the GEMMs' K slab)."""
+    heads of a width in ``HEAD_DIMS``, C <= ``MAX_LONG_WIDTH`` (the wide
+    LayerNorm kernels' row; one warp a row up to ``MAX_WIDTH``) and a
+    multiple of ``align`` (the GEMMs' K slab), N <= ``MAX_LONG_TOKENS``
+    (the long attention route above ``MAX_TOKENS``)."""
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise TypeError(f"x must be a contiguous (B, N, C) bf16 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
     b, n, c = x.shape
     check_head_dim(c, heads)
-    if c > MAX_WIDTH or c % align:
-        raise ValueError(f"the CUDA block needs C <= {MAX_WIDTH}, a multiple "
-                         f"of {align}; got C={c}")
-    if not 1 <= n <= MAX_TOKENS or not 1 <= b <= 65535:
-        raise ValueError(f"the CUDA block takes 1..{MAX_TOKENS} tokens and "
-                         f"1..65535 samples, got B={b}, N={n}")
+    if c % align:
+        raise ValueError(f"the CUDA block needs C a multiple of {align}; got "
+                         f"C={c}")
+    if c > MAX_LONG_WIDTH:
+        raise ValueError(f"the CUDA block takes C <= {MAX_LONG_WIDTH}, got "
+                         f"C={c}; wider rows are open work (ROADMAP.md)")
+    if not 1 <= n <= MAX_LONG_TOKENS or not 1 <= b <= 65535:
+        raise ValueError(f"the CUDA block takes 1..{MAX_LONG_TOKENS} tokens "
+                         f"and 1..65535 samples, got B={b}, N={n} "
+                         "(ROADMAP.md)")
     return b, n, c
 
 
@@ -949,7 +1081,8 @@ def _launch(fn_name, x, params_list, heads):
     r = torch.empty((m, c), dtype=x.dtype, device=x.device)
     h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
     ptrs = _pointers(params_list)
-    plan = _plan_arg(block_plan(b, n, c, heads, hidden))
+    ints = block_plan(b, n, c, heads, hidden)
+    plan = _plan_arg(ints)
     lib = build.load("fused_block", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     shape = (b, n, c, heads, hidden)
@@ -963,6 +1096,8 @@ def _launch(fn_name, x, params_list, heads):
                                    att.data_ptr(), r.data_ptr(), h.data_ptr(),
                                    plan, stream)
     build.check(lib, err, fn_name)
+    count_core(ints, blocks=len(params_list))
+    count_layer_norms(c, False, len(params_list))
     return out
 
 
@@ -994,13 +1129,15 @@ def fused_block_train(x: torch.Tensor, params, heads: int,
     qkv, probs = empty(b, n, 3 * c), empty(b, heads, n, n)
     gin, h = empty(b, n, hidden), empty(b * n, hidden)
     lib = build.load("fused_block", _SIGNATURES)
+    ints = block_plan(b, n, c, heads, hidden)
     err = lib.dm_block_train_forward(
         x.data_ptr(), out.data_ptr(), b, n, c, heads, hidden,
         _pointers([params]), qkv.data_ptr(), probs.data_ptr(),
         gin.data_ptr(), r.data_ptr(), att.data_ptr(), h.data_ptr(),
-        _plan_arg(block_plan(b, n, c, heads, hidden)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _plan_arg(ints), torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_block_train_forward")
+    count_core(ints)
+    count_layer_norms(c, False)
     fused_block_train.launches += 1
     return out, (qkv, probs, gin, r)
 
@@ -1223,7 +1360,8 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
     row_amax = torch.empty((m,), dtype=torch.float32, device=dev)
     ptrs = _pointers(qparams_list)
-    plan = _plan_arg(block_plan_q8(b, n, c, heads, hidden, quant_attn))
+    ints = block_plan_q8(b, n, c, heads, hidden, quant_attn)
+    plan = _plan_arg(ints)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
     shape = (b, n, c, heads, hidden)
@@ -1238,6 +1376,8 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
                                       len(qparams_list), ptrs, *flags,
                                       *scratch, plan, stream)
     build.check(lib, err, fn_name)
+    count_core(ints, int8=quant_attn, blocks=len(qparams_list))
+    count_layer_norms(c, True, len(qparams_list))
     return out
 
 
@@ -1405,10 +1545,11 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     (s_q, s_k, s_v) (a (3,) float32 tensor on the CUDA path).
 
     CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= 256) launch ``csrc/fused_block_q8.cu``
-    (``dm_attention_q8``) with ``plan`` (an ``attention_q8_plan`` of these
-    shapes; the default one if None) and count the launch in
-    ``attention_q8.launches``; anything else raises.
+    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``) launch
+    ``csrc/fused_block_q8.cu`` (``dm_attention_q8``) with ``plan`` (an
+    ``attention_q8_plan`` of these shapes, either route; the default one if
+    None) and count the launch in ``attention_q8.launches``; anything else
+    raises.
     """
     if not _on_cuda(qkv):
         return attention_q8_ref(qkv, bias, heads, static)
@@ -1439,9 +1580,111 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
         c, heads, _plan_arg(plan["ints"]),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8")
+    count_core(plan["ints"], int8=True)
     attention_q8.launches += 1
     return out
 
 
 gemm_q8.launches = 0
 attention_q8.launches = 0
+
+
+# ------------------------------------------- the blocks' LayerNorm alone
+
+def _check_rows(x, w, b):
+    """(M, C) of a LayerNorm input the kernels take: contiguous bf16 rows,
+    C % 8 == 0 (16-byte pieces), C <= ``MAX_LONG_WIDTH``, float32 (C,)
+    scale and bias on x's device."""
+    if (x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous()
+            or x.data_ptr() % 16):
+        raise TypeError(f"x must be a contiguous (M, C) bf16 tensor, 16-byte "
+                        f"aligned; got {x.dtype} {tuple(x.shape)}")
+    m, c = x.shape
+    if not 1 <= m < 2**31 or c % 8 or not 8 <= c <= MAX_LONG_WIDTH:
+        raise ValueError(f"the LayerNorm kernels take C % 8 == 0 up to "
+                         f"{MAX_LONG_WIDTH}, got ({m}, {c}) (ROADMAP.md)")
+    for t in (w, b):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (c,)
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"scale and bias must be contiguous float32 "
+                             f"({c},) on {x.device}")
+    return m, c
+
+
+def layer_norm_ref(x: torch.Tensor, w: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the blocks' LayerNorm: ``_ln`` (two-pass float32
+    statistics) rounded to x's dtype, as K2, K3 and K5 feed their qkv and
+    up GEMMs."""
+    return _ln(x, w, b).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The bf16 blocks' LayerNorm kernel on its own, (M, C) → (M, C) in x's
+    dtype. The blocks launch it from C; this entry serves its measurement
+    and tests.
+
+    CPU tensors run ``layer_norm_ref``. CUDA tensors (bf16, C % 8 == 0, C
+    <= ``MAX_LONG_WIDTH``) launch ``csrc/fused_block.cu``
+    (``dm_layer_norm``: one warp a row up to ``MAX_WIDTH``, one CTA a row
+    above, counted in ``layer_norm_wide``); anything else raises.
+    """
+    if not _on_cuda(x):
+        return layer_norm_ref(x, w, b)
+    m, c = _check_rows(x, w, b)
+    y = torch.empty_like(x)
+    lib = build.load("fused_block", _SIGNATURES)
+    err = lib.dm_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            y.data_ptr(), m, c,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "dm_layer_norm")
+    if c > MAX_WIDTH:
+        layer_norm_wide.launches += 1
+    return y
+
+
+def ln_quant_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 static_scale=None):
+    """Plain version of the w8a8 blocks' LayerNorm + quantize: ``(codes,
+    scale)`` of ``quantize_rows`` on the float32 ``_ln`` output, as K4 and
+    K4a feed their qkv and up GEMMs (``static_scale`` a (1,) or 0-d
+    float32 tensor, or None for dynamic row scales)."""
+    if static_scale is not None:
+        static_scale = static_scale.reshape(())
+    return quantize_rows(_ln(x, w, b), static_scale)
+
+
+def ln_quant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             static_scale=None):
+    """The w8a8 blocks' LayerNorm + quantize kernel on its own: ``(codes,
+    scale)``, int8 (M, C) and float32 (M,) row scales (with
+    ``static_scale``, a (1,) float32 tensor on the CUDA path, that scale
+    in every row). The blocks launch it from C; this entry serves its
+    measurement and tests.
+
+    CPU tensors run ``ln_quant_ref``. CUDA tensors (bf16, C % 8 == 0, C <=
+    ``MAX_LONG_WIDTH``) launch ``csrc/fused_block_q8.cu`` (``dm_ln_quant``:
+    one warp a row up to ``MAX_WIDTH``, one CTA a row above, counted in
+    ``ln_quant_wide``); anything else raises.
+    """
+    if not _on_cuda(x):
+        return ln_quant_ref(x, w, b, static_scale)
+    m, c = _check_rows(x, w, b)
+    if static_scale is not None and (
+            static_scale.dtype != torch.float32
+            or static_scale.numel() != 1 or static_scale.device != x.device):
+        raise ValueError(f"static_scale must be a (1,) float32 tensor on "
+                         f"{x.device}")
+    codes = torch.empty((m, c), dtype=torch.int8, device=x.device)
+    scale = torch.empty((m,), dtype=torch.float32, device=x.device)
+    lib = build.load("fused_block_q8", _SIGNATURES_Q8)
+    err = lib.dm_ln_quant(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        None if static_scale is None else static_scale.data_ptr(),
+        codes.data_ptr(), scale.data_ptr(), m, c,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, "dm_ln_quant")
+    if c > MAX_WIDTH:
+        ln_quant_wide.launches += 1
+    return codes, scale

@@ -206,7 +206,7 @@ def _block_params(rs, n, c, heads, hidden, device):
     )
 
 
-@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256])
+@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256, 300])
 def test_block_matches_plain(cuda, n):
     rs = np.random.default_rng(n)
     c, heads, hidden, b = 128, 2, 512, 5
@@ -377,7 +377,7 @@ def _attention_inputs(rs, b, n, heads, cuda, d=64):
     return qkv, bias
 
 
-@pytest.mark.parametrize("n", [12, 48, 192, 13, 193, 256])
+@pytest.mark.parametrize("n", [12, 48, 192, 13, 193, 256, 300])
 def test_attention_probs_matches_plain(cuda, n):
     rs = np.random.default_rng(n)
     qkv, bias = _attention_inputs(rs, 6, n, 3, cuda)
@@ -423,14 +423,18 @@ def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
         fa.attention_probs(qkv, bias, 8)  # head width 16
     with pytest.raises(ValueError, match="bias"):
         fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
-    q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)
+    # past the long route's limit (257..MAX_LONG_TOKENS take the long
+    # route); the tokens are checked before the bias
+    q_long = torch.zeros((2, fb.MAX_LONG_TOKENS + 1, 3 * 128),
+                         dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="tokens"):
-        fa.attention_probs(q257, b257, 2)
+        fa.attention_probs(q_long, bias, 2)
 
 
-@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256])
+@pytest.mark.parametrize("n", [12, 49, 192, 13, 193, 256, 300])
 def test_attention_qkv_matches_plain(cuda, n):
-    """K7 at v3's, v5's and v1's (256) sequence lengths."""
+    """K7 at v3's, v5's and v1's (256) sequence lengths, and on the long
+    route (300)."""
     rs = np.random.default_rng(n + 1)
     qkv, bias = _attention_inputs(rs, 5, n, 3, cuda)
     before = fa.attention_qkv.launches
@@ -441,7 +445,7 @@ def test_attention_qkv_matches_plain(cuda, n):
     assert _rel_err(out, fa.attention_qkv_ref(qkv, bias, 3)) <= BLOCK_TOL
 
 
-@pytest.mark.parametrize("n", [12, 193, 256])
+@pytest.mark.parametrize("n", [12, 193, 256, 300])
 def test_attention_bnhd_matches_plain(cuda, n):
     rs = np.random.default_rng(n + 2)
     qkv, bias = _attention_inputs(rs, 5, n, 3, cuda)
@@ -484,15 +488,17 @@ def test_attention_kernels_reject_what_they_do_not_take(cuda):
         fa.attention_bnhd(q, k, v.float(), bias)
     with pytest.raises(ValueError, match="bias"):
         fa.attention_bnhd(q, k, v, bias[:1])
-    q257, b257 = _attention_inputs(rs, 2, 257, 2, cuda)
+    q_long = torch.zeros((2, fb.MAX_LONG_TOKENS + 1, 3 * 128),
+                         dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="tokens"):
-        fa.attention_qkv(q257, b257, 2)
+        fa.attention_qkv(q_long, bias, 2)
 
 
 @pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
-@pytest.mark.parametrize("n", [12, 49, 192, 193, 256])
+@pytest.mark.parametrize("n", [12, 49, 192, 193, 256, 300])
 def test_q8_attn_block_matches_plain(cuda, n, static):
-    """K4a in the w8a8 block, at v3's, v5's and v1's lengths."""
+    """K4a in the w8a8 block, at v3's, v5's and v1's lengths, and on the
+    long route (300)."""
     rs = np.random.default_rng(n + 40)
     x, (qp,), _ = _q8_inputs(rs, 5, n, 1, static, cuda, quant_attn=True)
     before = (fb.fused_block_q8_attn.launches, fused_block_q8.launches)
@@ -519,7 +525,7 @@ def test_q8_attn_chain_matches_plain(cuda, static):
                         1.5 * BLOCK_TOL, CHAIN_RMS_TOL)
 
 
-@pytest.mark.parametrize("n", [12, 49, 192, 193, 256])
+@pytest.mark.parametrize("n", [12, 49, 192, 193, 256, 300])
 def test_train_block_matches_plain(cuda, n):
     """K5's output and its four saved residuals."""
     rs = np.random.default_rng(n + 50)

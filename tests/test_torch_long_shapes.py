@@ -1,0 +1,337 @@
+"""Long sequences and wide rows on the port's plain versions, on the CPU.
+
+The CUDA attention cores take N up to ``MAX_TOKENS`` (256) in registers and
+longer sequences on a second route that streams the keys in blocks of 64,
+twice; the LayerNorm kernels take a row in one warp up to ``MAX_WIDTH``
+(1024) and in one CTA above. Here, against the JAX package as its own tests
+run it (Pallas in interpret mode), on the same seeded numpy inputs and
+weights:
+
+* two whole models past 256 tokens: v5 at four scales with cube 8 (257 /
+  65 / 17 tokens) and v3 with a 16x16 cube (768 / 192 / 48), float32,
+  within 1e-5 of max|JAX| (``test_torch_variants.py``'s bound);
+* a block at C 1152 (rows past the one-warp LayerNorm), N 12: ``_ln``
+  within 1e-5, the bf16 block within 1e-5 in float32 and 2e-2 in bf16
+  (``test_torch_head_widths.py``'s bounds), the w8a8 block within 2e-2
+  with an RMS error within 1e-2 of its RMS (the bars the chip holds K4's
+  block to): the two LayerNorms sum 1152 lanes in other orders, so an
+  int8 code of qkv on a rounding boundary can flip, and through k and v
+  it moves every row of the attention by up to one quant step;
+* the long route's schedule as a key-blocked, two-pass plain twin of each
+  core against the full plain version: the int8 core's codes and output
+  bit for bit (an exact max and integer sums, each element by the same
+  arithmetic), the bf16 core within 2e-2 of max|plain| (its Σe summed
+  online in another order, the bf16 rounding of e against the same final
+  max);
+* the plans of the new routes and the new limits.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepmerge_tpu.config import ModelConfig as JaxModelConfig
+from deepmerge_tpu.models.s2former import build_model, init_params
+from deepmerge_tpu.ops.pallas import fused_block as jfb
+from deepmerge_tpu_torch.compat.weights import state_dict_from_flax
+from deepmerge_tpu_torch.config import ModelConfig
+from deepmerge_tpu_torch.models.s2former import S2Former
+from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+TOL = 1e-5
+BF16_TOL = 2e-2
+Q8_TOL, Q8_RMS_TOL = 2e-2, 1e-2
+KEYS = fb.ATTN_LONG_KEYS
+
+MODELS = {
+    # 4·8² + 1 = 257 tokens at stage 0: one past the short core
+    "v5-4scales": dict(variant="v5", input_image_scales=(8, 16, 32, 64),
+                       cube=8),
+    # patches of 1/2/4 pixels on a 16x16 cube: 768 / 192 / 48 tokens
+    "v3-cube16": dict(variant="v3", input_image_scales=(16, 32, 64),
+                      cube=16),
+}
+
+
+@pytest.mark.parametrize("model", list(MODELS))
+def test_model_past_256_tokens_matches_jax(model):
+    """The port's ``S2Former`` (plain versions) against the JAX forward
+    (Pallas in interpret mode) on ``state_dict_from_flax`` weights."""
+    kw = dict(MODELS[model], embed_dim=32, num_heads=4, depth=(1, 1, 1),
+              out_dim=16, dtype="float32")
+    mcfg, jcfg = ModelConfig(**kw), JaxModelConfig(**kw)
+    jmodel = build_model(jcfg)
+    variables = jax.tree.map(np.asarray,
+                             init_params(jmodel, jax.random.key(0)))
+    rs = np.random.default_rng(3)
+    patches = [rs.random((2, s, s, 3), dtype=np.float32)
+               for s in mcfg.input_image_scales]
+    designed = rs.standard_normal((2, 19)).astype(np.float32)
+    want = np.asarray(jmodel.apply(
+        variables, tuple(jnp.asarray(p) for p in patches),
+        jnp.asarray(designed), False))
+    port = S2Former(mcfg)
+    port.load_state_dict(state_dict_from_flax(variables["params"], mcfg),
+                         strict=True)
+    tokens = []
+    hook = port.blocks0[0].register_forward_pre_hook(
+        lambda m, args: tokens.append(args[0].shape[1]))
+    with torch.inference_mode():
+        got = port.eval()([torch.from_numpy(p) for p in patches],
+                          torch.from_numpy(designed)).numpy()
+    hook.remove()
+    assert tokens[0] > fb.MAX_TOKENS
+    assert got.shape == want.shape == (2, 16)
+    assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
+# ------------------------------------------------------- rows past 1024
+
+WIDE_C, WIDE_HEADS, WIDE_N = 1152, 18, 12   # 18 heads of 64
+DENSE = (2, 5, 9, 11)
+
+
+def _wide_params(rs, n):
+    c, h = WIDE_C, 4 * WIDE_C
+    r = lambda *shape, s=0.03: (rs.standard_normal(shape) * s).astype(
+        np.float32)
+    return (1.0 + r(c), r(c), r(c, 3 * c), r(3 * c), r(WIDE_HEADS, n, n,
+                                                       s=0.5),
+            r(c, c), r(c), 1.0 + r(c), r(c), r(c, h), r(h), r(h, c), r(c))
+
+
+def _port(p, dt=torch.float32):
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a.T if i in DENSE else a)).to(
+            dt if i not in (0, 1, 4, 7, 8) else torch.float32)
+        for i, a in enumerate(p))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_block_matches_jax(dtype):
+    """LayerNorm and one block at C 1152 > ``MAX_WIDTH``: ``_ln`` and the
+    kernels' plain versions (bf16 and w8a8) against the JAX package's."""
+    rs = np.random.default_rng(11)
+    p = _wide_params(rs, WIDE_N)
+    x = rs.standard_normal((3, WIDE_N, WIDE_C)).astype(np.float32)
+    assert WIDE_C > fb.MAX_WIDTH
+    jx = jnp.asarray(x).astype(dtype)
+    dt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(dt)
+    want_ln = np.asarray(jfb._ln(jx.astype(jnp.float32), jnp.asarray(p[0]),
+                                 jnp.asarray(p[1])))
+    got_ln = fb._ln(tx, torch.from_numpy(p[0]), torch.from_numpy(p[1]))
+    assert np.abs(got_ln.numpy() - want_ln).max() <= TOL * np.abs(
+        want_ln).max()
+    jp = tuple(jnp.asarray(a) if i in (0, 1, 4, 7, 8)
+               else jnp.asarray(a).astype(dtype) for i, a in enumerate(p))
+    want = np.asarray(jfb.fused_block(jx, jp, heads=WIDE_HEADS, block_b=2,
+                                      interpret=True).astype(jnp.float32))
+    got = fb.block_ref(tx, _port(p, dt), WIDE_HEADS).float().numpy()
+    tol = TOL if dtype == "float32" else BF16_TOL
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+    if dtype == "float32":
+        jq = jfb.quantize_block_params(jp)
+        want_q = np.asarray(jfb.fused_block(
+            jx, jq, heads=WIDE_HEADS, block_b=2, interpret=True, quant=True))
+        qp = fb.quantize_block_params(_port(p, dt))
+        got_q = fb.block_ref_q8(tx, qp, WIDE_HEADS).numpy()
+        diff = got_q - want_q
+        assert np.abs(diff).max() <= Q8_TOL * np.abs(want_q).max()
+        assert np.sqrt((diff ** 2).mean()) <= Q8_RMS_TOL * np.sqrt(
+            (want_q ** 2).mean())
+
+
+# --------------------------------- the long route's schedule, on the CPU
+
+def _attention_inputs(seed, b=2, n=200, heads=3, d=32):
+    rs = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rs.standard_normal(
+        (b, n, 3 * heads * d)).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy((rs.standard_normal((heads, n, n)) * 0.5).astype(
+        np.float32))
+    return qkv, bias, heads
+
+
+def _blocked_bf16(qkv, bias, heads):
+    """The bf16 long route's two passes over 64-key blocks: pass 1 the f32
+    row max and Σe online (Σ rescaled by exp(m_old − m_new)), pass 2 e =
+    exp(l − m) against the final max, P = bf16(e) into O, out =
+    bf16(O·(1/Σe))."""
+    f32 = torch.float32
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    q, k, v = (t.reshape(b, n, heads, d).to(f32)
+               for t in (qkv[..., :c] * fb.q_scale(d, qkv.dtype),
+                         qkv[..., c:2 * c], qkv[..., 2 * c:]))
+    blocks = [slice(j, min(j + KEYS, n)) for j in range(0, n, KEYS)]
+    logits = lambda s: torch.einsum("bnhd,bmhd->bhnm", q, k[:, s]) \
+        + bias[None, :, :, s]
+    m = torch.full((b, heads, n, 1), -math.inf)
+    total = torch.zeros((b, heads, n, 1))
+    for s in blocks:                       # pass 1
+        lg = logits(s)
+        new = torch.maximum(m, lg.amax(-1, keepdim=True))
+        total = total * torch.exp(m - new) + torch.exp(lg - new).sum(
+            -1, keepdim=True)
+        m = new
+    o = torch.zeros((b, heads, n, d))
+    for s in blocks:                       # pass 2
+        e = torch.exp(logits(s) - m)
+        o = o + torch.einsum("bhnm,bmhd->bhnd", e.to(qkv.dtype).to(f32),
+                             v[:, s])
+    return (o * (1.0 / total)).permute(0, 2, 1, 3).reshape(b, n, c).to(
+        qkv.dtype)
+
+
+def _q8_logits_codes(qkv, bias, heads, static, blocks):
+    """pq and the output of the int8 core, the keys in ``blocks`` (one
+    slice: the full plain version's order; 64-key slices: the long
+    route's two passes, with v's column scales from a pre-pass over all
+    keys, as both take them)."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // heads
+    qi, sq, ki, sk, vi, sv = fb._q8_operands(qkv, heads, static)
+    scale = d ** -0.5
+
+    def logits(s):
+        acc = fb._int_einsum("bnhd,bmhd->bhnm", qi, ki[:, s])
+        if static is None:
+            lg = acc * (sq * scale).permute(0, 2, 1, 3) \
+                * sk[:, s].permute(0, 2, 3, 1)
+        else:
+            lg = acc * (sq * sk * scale)
+        return lg + bias[None, :, :, s]
+
+    m = torch.full((b, heads, n, 1), -math.inf)
+    for s in blocks:                       # pass 1: the exact max
+        m = torch.maximum(m, logits(s).amax(-1, keepdim=True))
+    codes, av, total = [], 0, 0
+    for s in blocks:                       # pass 2
+        pq = torch.round(torch.exp(logits(s) - m) * 127.0)
+        codes.append(pq)
+        av = av + fb._int_einsum("bhnm,bmhd->bnhd", pq, vi[:, s])
+        total = total + pq.sum(-1, keepdim=True)
+    recip = (1.0 / total).permute(0, 2, 1, 3)
+    out = (av * recip * sv).reshape(b, n, -1).to(qkv.dtype)
+    return torch.cat(codes, -1), out
+
+
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("n", [200, 300])
+def test_blocked_int8_core_is_bit_identical(n, static):
+    """The int8 long route's schedule gives the full plain version's codes
+    and output bit for bit, and that output is ``attention_q8_ref``'s."""
+    qkv, bias, heads = _attention_inputs(n, n=n)
+    scales = (torch.tensor(0.03), torch.tensor(0.031), torch.tensor(0.029)) \
+        if static else None
+    blocks = [slice(j, min(j + KEYS, n)) for j in range(0, n, KEYS)]
+    codes_full, out_full = _q8_logits_codes(qkv, bias, heads, scales,
+                                            [slice(0, n)])
+    codes, out = _q8_logits_codes(qkv, bias, heads, scales, blocks)
+    assert torch.equal(codes, codes_full)
+    assert torch.equal(out, out_full)
+    assert torch.equal(out, fb.attention_q8_ref(qkv, bias, heads, scales))
+
+
+@pytest.mark.parametrize("n", [200, 300])
+def test_blocked_bf16_core_matches_plain(n):
+    """The bf16 long route's schedule against ``attention_parts``."""
+    qkv, bias, heads = _attention_inputs(n + 1, n=n)
+    want = fb.attention_parts(qkv, bias, heads)[0].float()
+    got = _blocked_bf16(qkv, bias, heads).float()
+    assert (got - want).abs().max() <= BF16_TOL * want.abs().max()
+
+
+# ---------------------------------------------------------------- plans
+
+@pytest.mark.parametrize("d", fb.HEAD_DIMS)
+def test_long_route_plans(d):
+    """Above ``MAX_TOKENS`` both cores take the long route: its marker, 4
+    warps, one sample a CTA, its shared bytes (the C side's
+    ``attn_long_smem_bytes`` and ``attn_q8_long_layout``), a grid of
+    64-query blocks x heads x samples within the card's limits; at most
+    ``MAX_TOKENS`` they return the short core's ints unless the long route
+    is forced."""
+    heads = 768 // d
+    for n in (fb.MAX_TOKENS + 1, 768, 4096, fb.MAX_LONG_TOKENS):
+        for b in (1, 240, 1024):
+            for plan, smem in (
+                    (fb.attention_plan(b, n, heads, head_dim=d),
+                     2 * 2 * 64 * (d + 8) * 2),
+                    (fb.attention_q8_plan(b, n, heads, head_dim=d),
+                     64 * (d + 16) + d * 80 + 64 * 4 + d * 4
+                     + 128 // (d // 8) * d * 4)):
+                assert plan["route"] == "long"
+                assert plan["ints"] == (fb.ATTN_LONG_ROUTE, 4, 1, smem)
+                assert plan["grid"] == (-(-n // 64), heads, b)
+                assert smem <= fb.CTA_SHARED_MAX and plan["ctas_per_sm"] >= 1
+    for n in (1, 192, fb.MAX_TOKENS):
+        short = fb.attention_plan(1024, n, heads, head_dim=d)
+        assert short["route"] == "short" and short["ints"][0] >= 1
+        forced = fb.attention_plan(1024, n, heads, head_dim=d, route="long")
+        assert forced["ints"][0] == fb.ATTN_LONG_ROUTE
+        assert fb.attention_q8_plan(1024, n, heads, head_dim=d,
+                                    route="long")["route"] == "long"
+    assert fb.block_plan(1024, 768, 768, heads, 3072)[:4] == \
+        fb.attention_plan(1024, 768, heads, head_dim=d)["ints"]
+    assert fb.block_plan_q8(128, 768, 768, heads, 3072, True)[:4] == \
+        fb.attention_q8_plan(128, 768, heads, head_dim=d)["ints"]
+
+
+def test_new_limits_and_refusals():
+    """The long route stops at ``MAX_LONG_TOKENS``, the wide rows at
+    ``MAX_LONG_WIDTH``; past them every check raises ``ValueError`` naming
+    ROADMAP.md, and a route that is not one raises too."""
+    assert fb.MAX_LONG_TOKENS >= 4096 and fb.MAX_LONG_WIDTH >= 8192
+    for plan in (fb.attention_plan, fb.attention_q8_plan):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            plan(4, fb.MAX_LONG_TOKENS + 1, 12)
+        with pytest.raises(ValueError, match="route"):
+            plan(4, 12, 12, route="medium")
+    with pytest.raises(ValueError, match="tokens"):
+        fb.attention_plan(4, fb.MAX_TOKENS + 1, 12, route="short")
+    bf = torch.bfloat16
+    assert fb._check_x(torch.zeros((2, 768, 768), dtype=bf), 12, 64) == \
+        (2, 768, 768)
+    assert fb._check_x(torch.zeros((2, 12, 1536), dtype=bf), 24, 128) == \
+        (2, 12, 1536)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fb._check_x(torch.zeros((1, 2, fb.MAX_LONG_WIDTH + 128), dtype=bf),
+                    (fb.MAX_LONG_WIDTH + 128) // 64, 128)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fb._check_x(torch.zeros((1, fb.MAX_LONG_TOKENS + 1, 64), dtype=bf),
+                    1, 64)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fa._check_tokens(1, fb.MAX_LONG_TOKENS + 1)
+    fa._check_tokens(65535, fb.MAX_LONG_TOKENS)
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        fb._check_rows(torch.zeros((2, fb.MAX_LONG_WIDTH + 8), dtype=bf),
+                       torch.zeros(fb.MAX_LONG_WIDTH + 8),
+                       torch.zeros(fb.MAX_LONG_WIDTH + 8))
+
+
+def test_layer_norm_entries_run_their_plain_versions_on_the_cpu():
+    """The LayerNorm kernels' entries on CPU tensors: ``_ln`` rounded to
+    the activation dtype, and ``quantize_rows`` of it (dynamic and
+    static), at a row wider than ``MAX_WIDTH``."""
+    rs = np.random.default_rng(5)
+    x = torch.from_numpy(rs.standard_normal((6, 1536)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(1.0 + 0.1 * rs.standard_normal(1536).astype(
+        np.float32))
+    b = torch.from_numpy(0.1 * rs.standard_normal(1536).astype(np.float32))
+    assert torch.equal(fb.layer_norm(x, w, b), fb._ln(x, w, b).to(x.dtype))
+    codes, scale = fb.ln_quant(x, w, b)
+    want_c, want_s = fb.quantize_rows(fb._ln(x, w, b))
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
+    codes, scale = fb.ln_quant(x, w, b, torch.tensor([0.05]))
+    assert torch.equal(codes, fb.quantize_rows(fb._ln(x, w, b),
+                                               torch.tensor(0.05))[0])
