@@ -1872,9 +1872,10 @@ def width_summary(widths, name):
 #
 # The long attention route (N > 256: csrc/block_common.cuh
 # attention_long_kernel, csrc/fused_block_q8.cu attention_q8_long_kernel)
-# and the wide LayerNorm rows (C > 1024: layer_norm_wide_kernel,
-# ln_quant_wide_kernel), held on two full-width configurations of the
-# shipped family: v3 with a 16x16 token cube at the scales 32/64/128
+# and the wide LayerNorm rows (C > 1024: csrc/fused_block.cu
+# layer_norm_kernel's wider forms, ln_quant_wide_kernel), held on two
+# full-width configurations of the shipped family: v3 with a 16x16 token
+# cube at the scales 32/64/128
 # (patches of 2/4/8 pixels: 768 tokens at stage 0, 192 and 48 after the
 # per-scale pools) and v3 at embed 1536 (24 heads of 64, MLP 6144, cube 8).
 LONG_CUBE = 16
@@ -1931,14 +1932,58 @@ def routed(run, want, what):
     return out
 
 
+def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
+                                         (4, 401), (4, 772))):
+    """The bf16 long route at every head width (C ``c``) and in each form
+    of its bias at the default shapes (the CTA's rows once, a slab, at N
+    257 and, at width 32, 300 and 301; TMA tiles at 300 and 772; row copies
+    at 301 and 401; K6 at width 64 and N 257 in rows, its staging leaving
+    the slab too little room): K7 and K6 against their plain versions by
+    phase 3's bars, each launch on the long route."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    long1 = {"attention_long": 1}
+    for d in fb.HEAD_DIMS:
+        h = c // d
+        worst, forms = 0.0, []
+        for b, n in shapes:
+            r = device_randn(dev, d + n)
+            qkv, bias = r(b, n, 3 * c).to(torch.bfloat16), r(h, n, n, s=0.5)
+            got = routed(lambda: fa.attention_qkv(qkv, bias, h), long1,
+                         f"K7 long (d={d}, N={n})")
+            out, probs = routed(lambda: fa.attention_probs(qkv, bias, h),
+                                long1, f"K6 long (d={d}, N={n})")
+            want_out, want_probs = fa.attention_probs_ref(qkv, bias, h)
+            errs = (rel_err(got, want_out), rel_err(out, want_out),
+                    abs_err(probs, want_probs))
+            require(errs[0] <= TOL_K7 and errs[1] <= TOL_K6_OUT
+                    and errs[2] <= TOL_K6_PROBS,
+                    f"long route (d={d}, N={n}): K7 {errs[0]}, K6 out "
+                    f"{errs[1]}, probs {errs[2]}")
+            worst = max(worst, errs[0], errs[1])
+            k7, k6 = (fb.attention_plan(b, n, h, head_dim=d, probs=p)["bias"]
+                      for p in (False, True))
+            forms.append(f"N {n} {k7}/{k6}")
+            del qkv, bias, got, out, probs, want_out, want_probs
+        print(f"long route at head width {d} ({h} heads; bias forms K7/K6 "
+              f"{', '.join(forms)}): K7/K6 out rel err <= {worst:.3e}, K6 "
+              f"probs within {TOL_K6_PROBS}")
+    torch.cuda.empty_cache()
+
+
 def check_long_kernels(dev):
     """Phase 3 for the long route and the wide rows: K7 and K8 at N 257 (B
     1024) and 768 (B ``LONG_BATCH``) beside ``scaled_dot_product_attention``;
     K6 at N 768 (the training batch); K2 and K4 (dynamic and static) blocks
     at N 768 and 257; K4a's core and block at N 768; K5 at N 768 with its
     gradients; the long route forced at N 192 (K7 within its bar, K4a's
-    core bit-identical to the short core, dynamic and static); the wide
-    LayerNorm kernels alone and K2 and K4 blocks at C 1536. Each by phase
+    core bit-identical to the short core, dynamic and static); the bf16
+    route at every head width and bias form (``check_long_forms``); the
+    wide LayerNorm kernels alone (the bf16 one also at C 3072) and K2 and
+    K4 blocks at C 1536. Each by phase
     3's bars, each launch on the route its N takes and no other. Returns
     the ``kernels`` line's entries of the four new kernels."""
     import torch
@@ -1978,10 +2023,11 @@ def check_long_kernels(dev):
             require(err <= TOL_K7, f"{kn} long (B={b}, N={n}) differs from "
                     f"plain: {err} > {TOL_K7}")
             ms = cuda_ms(run)
-            print(f"{kn} {name} long route B={b} N={n}: rel err {err:.3e} "
-                  f"(tol {TOL_K7}); {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"SDPA {lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms "
-                  f"({bk['bound_by']})")
+            form = fb.attention_plan(b, n, heads)["bias"]
+            print(f"{kn} {name} long route B={b} N={n} (bias {form}): rel "
+                  f"err {err:.3e} (tol {TOL_K7}); {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
+                  f"{bk['bound_ms']:.4f} ms ({bk['bound_by']})")
             if kn == "K7" and n == 768:
                 results["attention_long"] = dict(
                     max_abs_err=abs_err(got, want), ms=ms, plain_ms=plain_ms,
@@ -2045,6 +2091,8 @@ def check_long_kernels(dev):
               f"{ms_long:.4f} ms against the short core's {ms_short:.4f}")
     del qkv, bias, got, short
     torch.cuda.empty_cache()
+
+    check_long_forms(dev)
 
     # K4a's core alone at N 768
     b, n = LONG_BATCH, 768
@@ -2170,13 +2218,29 @@ def check_long_kernels(dev):
     wb, bb16 = w.to(bf), bb.to(bf)
     lib_ms = cuda_ms(lambda: F.layer_norm(x, (cw,), wb, bb16, fb.LN_EPS))
     bk = bound(2 * m * cw * 2 + 2 * cw * 4)
-    print(f"wide LayerNorm (M={m}, C={cw}): rel err {err:.3e} (tol "
-          f"{TOL_LN}); {ms:.4f} ms, plain {plain_ms:.3f} ms, F.layer_norm "
+    print(f"wide LayerNorm (M={m}, C={cw}, form {fb.layer_norm_form(cw)}): "
+          f"rel err {err:.3e} (tol {TOL_LN}); {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, F.layer_norm "
           f"{lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms ({bk['bound_by']})")
     results["layer_norm_wide"] = dict(max_abs_err=abs_err(got, want), ms=ms,
                                       plain_ms=plain_ms, library_ms=lib_ms,
                                       **bk)
     del got, want
+    # the same rows at twice the width (two warps a row)
+    x2 = draw(m, 2 * cw).to(bf)
+    w2, b2 = 1.0 + draw(2 * cw, s=0.1), draw(2 * cw, s=0.1)
+    got = routed(lambda: fb.layer_norm(x2, w2, b2), {"layer_norm_wide": 1},
+                 "the wide LayerNorm at twice the width")
+    err = rel_err(got, fb.layer_norm_ref(x2, w2, b2))
+    require(err <= TOL_LN, f"wide LayerNorm (C={2 * cw}): {err} > {TOL_LN}")
+    ms2 = cuda_ms(lambda: fb.layer_norm(x2, w2, b2))
+    lib2 = cuda_ms(lambda: F.layer_norm(x2, (2 * cw,), w2.to(bf), b2.to(bf),
+                                        fb.LN_EPS))
+    b2k = bound(2 * m * 2 * cw * 2 + 4 * cw * 4)
+    print(f"wide LayerNorm (M={m}, C={2 * cw}, form "
+          f"{fb.layer_norm_form(2 * cw)}): rel err {err:.3e}; {ms2:.4f} ms, "
+          f"F.layer_norm {lib2:.4f} ms, bound {b2k['bound_ms']:.4f} ms")
+    del got, x2, w2, b2
     for static in (None, torch.tensor([0.031], device=dev)):
         mode = "dynamic" if static is None else "static"
         run = lambda: fb.ln_quant(x, w, bb, static)

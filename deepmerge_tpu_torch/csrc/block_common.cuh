@@ -10,8 +10,8 @@
 // as K2 does, K8 with kNormFirst on separate q, k, v, and K5 with kProbs
 // and kNormFirst together (its probabilities are the normalized ones it
 // multiplies by v). Above 256 tokens each of them takes the core's long
-// route (attention_long_kernel), and rows wider than 1024 the wide
-// LayerNorm's helpers (ln_wide_stats).
+// route (attention_long_kernel, on hopper.cuh's TMA and wgmma), and the
+// w8a8 LayerNorm's rows wider than 1024 the wide helpers (ln_wide_stats).
 
 #pragma once
 
@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -69,13 +71,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// LayerNorm row kernels: one warp per row, 8 rows per CTA
+// LayerNorm row kernels: 8 warps a CTA, one warp a row up to C 1024
 constexpr int kLnWarps = 8;
 constexpr int kLnMaxVec = 4;  // 8-element vectors per lane: C <= 1024
 
-// Wider rows (1024 < C <= kLnMaxWide): one CTA of kLnWideThreads a row, the
-// row staged in shared memory as f32 (32 KB at the widest), the same two
-// f32 passes for the statistics.
+// Wider rows, 1024 < C <= kLnMaxWide. The bf16 LayerNorm keeps them in
+// registers (fused_block.cu layer_norm_kernel). The w8a8 one
+// (fused_block_q8.cu ln_quant_wide_kernel) takes one CTA of kLnWideThreads
+// a row, the row staged in shared memory as f32 (32 KB at the widest) by
+// ln_wide_stats, the same two f32 passes for the statistics.
 constexpr int kLnWideThreads = 256;
 constexpr int kLnMaxWide = 8192;
 
@@ -93,9 +97,11 @@ __device__ __forceinline__ float block_reduce(float v, float* red) {
   return r;
 }
 
-// Stages bf16 row xr (C % 8 == 0) as f32 into v, each thread its own
-// 8-element pieces (it alone reads them back), and returns the row's mean
-// and rsqrt(var + eps), two passes in f32 as the TPU kernel's `_ln`.
+// ln_quant_wide_kernel's statistics (the bf16 LayerNorm keeps its rows in
+// registers): stages bf16 row xr (C % 8 == 0) as f32 into v, each thread
+// its own 8-element pieces (it alone reads them back), and returns the
+// row's mean and rsqrt(var + eps), two passes in f32 as the TPU kernel's
+// `_ln`.
 __device__ __forceinline__ float2 ln_wide_stats(const bf16* xr, float* v,
                                                 float* red, int C) {
   float s = 0.f;
@@ -502,257 +508,748 @@ inline cudaError_t attention_width(const bf16* q, const bf16* k,
 // The short core above holds a query tile's logits over every key in
 // registers, and one sample's K and V in shared memory: N <= 256. The long
 // route takes any N up to kAttnMaxLongTokens (and any N at all when a plan
-// forces it). A CTA of four warps takes one head (blockIdx.y), one sample
-// (blockIdx.z) and 64 queries (blockIdx.x, 16 a warp); K and V stream
-// through shared memory in 64-key blocks, cp.async into two buffers, the
-// next block's copy in flight during the current block's products. The
-// fragments and products are the short core's: Q' = bf16(q·d^-½) in
-// m16n8k16 A fragments for the whole run, K's B fragments by ldmatrix,
-// V's by ldmatrix.trans, P's A fragments from the accumulators.
+// forces it): a CTA takes 128 queries (blockIdx.x) of one head (blockIdx.z,
+// the slowest, so that one head's bias stays in L2 while its samples pass)
+// and kSamples samples at a time, the groups blockIdx.y, blockIdx.y +
+// gridDim.y, ... one after another.
 //
 // JAX rounds e = exp(l − max) to bf16 against the row's final max before
 // the value product (`_attn_inner`); a one-pass online softmax would round
 // against a running max and rescale, moving every rounding point. So the
-// keys are streamed twice:
-//  * pass 1 (K only): the logits + bias of each block, the f32 row max and
-//    Σe online (Σ rescaled by exp(m_old − m_new) when the max grows);
+// keys are streamed twice, in blocks of 64:
+//  * pass 1 (K): the logits + bias of each block, the f32 row max and Σe
+//    online (Σ rescaled by exp(m_old − m_new) when the max grows);
 //  * pass 2 (K and V): the same logits again, e = exp(l − m) against the
 //    final max; with kProbs bf16(e·(1/Σe)) stored; P = bf16(e), or
 //    bf16(e·(1/Σe)) with kNormFirst, into O (f32); out = bf16(O·(1/Σe)),
 //    or bf16(O) with kNormFirst.
-// Keys past N are zero-filled and masked to −inf; query rows past N are
-// computed on zero q and not stored. The bias is read once a pass, through
-// the short core's clamped loads.
-constexpr int kAttnLongRoute = 0;   // plan[0] of the long route
-constexpr int kAttnLongWarps = 4;
-constexpr int kAttnLongQueries = 16 * kAttnLongWarps;
-constexpr int kAttnLongKeys = 64;   // keys of a streamed block
+// exp(x) is exp2f(x·log₂e), log₂e folded into the logits (one fused
+// multiply-add and the special-function unit's 2^x). Keys past N are
+// zero-filled and masked to −inf; query rows past N are computed and not
+// stored.
+//
+// Bound on the H100: at B 128, N 768, d 64 the products take 0.23 ms at
+// the bf16 peak (the two passes 1.5x that); the f32 (N, N) bias, read for
+// every query row of every sample in both passes, is 7.2 GB, from L2 (one
+// head's bias is 2.4 MB); the softmax's f32 work per logit is several
+// times a product's issue slots, and its chains (logits, max, exp, sum)
+// wait on the tensor cores and on each other, so what the kernel needs most
+// is warps in flight. The design:
+//  * a CTA of kSamples x 2 warpgroups, each 64 query rows (the wgmma M) of
+//    one sample: two samples at d 32 and 64 (512 threads, 128 registers a
+//    thread), one at d 128 (its O accumulators double); the two samples
+//    read one bias tile;
+//  * a ring of kStages stages in shared memory (three; two with kProbs),
+//    each a 64-key block of K (and, in pass 2, V) of each sample by TMA from
+//    3-D tensor maps over (C, N, B) (rows past N read as zeros) in the
+//    128-byte swizzle (64-byte at d 32) that wgmma reads, completing on the
+//    stage's `full` mbarrier; warp 0 refills the stage of step it + 1 at
+//    step it, once every warpgroup has released it (`empty`);
+//  * the bias in one of three forms (attn_long_bias_mode): where the CTA's
+//    128 bias rows fit the bias region, one bulk copy of them (a slab, read
+//    for every sample the CTA takes: the grid then holds fewer CTAs, each
+//    taking several sample groups); else, where a row is a multiple of 16
+//    bytes, a 128 x 64 tile a stage by TMA (two 32-column boxes in the
+//    128-byte swizzle, so a warp's reads of 8 rows hit each bank twice);
+//    else a 272-byte bulk copy a row a stage (slow: many small copies);
+//  * Q' = bf16(q·d^-½) of a warpgroup's 64 rows in wgmma A fragments in
+//    registers for a sample (the mma.sync m16n8k16 A layout, which is a
+//    warp's slice of wgmma's);
+//  * S = Q'·Kᵀ by wgmma m64n64k16, K K-major from shared memory; the
+//    accumulators are in the short core's layout, so the bias add, the
+//    mask and the softmax are the short core's;
+//  * O += P·V by wgmma m64n{d}k16 (two n64 halves at d 128), P as register
+//    A fragments made from the accumulators, V MN-major from shared memory
+//    (transposed by the instruction);
+//  * with kProbs, each warp stages its 16 x 64 bf16 probabilities in
+//    shared memory and writes them in 16-byte pieces.
+// Shared memory: kAttnLongSmem, one CTA an SM.
+constexpr int kAttnLongRoute = 0;      // plan[0] of the long route
+constexpr int kAttnLongQueries = 128;  // query rows of a CTA, 64 a warpgroup
+constexpr int kAttnLongKeys = 64;      // keys of a streamed block
 // The route's sequence limit. Every offset into q, k, v, the bias, the
-// probabilities and the output is 64-bit, and the grid takes ceil(N/64)
-// query blocks in x; what bounds N is the operands: one head's (N, N) f32
-// bias is 1 GiB at 16,384.
+// probabilities and the output is 64-bit; what bounds N is the operands:
+// one head's (N, N) f32 bias is 1 GiB at 16,384.
 constexpr int kAttnMaxLongTokens = 16384;
+// A slab-form launch's CTAs: about 16 an SM of 132, each taking
+// ceil(groups · CTAs-a-group / 2048) sample groups
+constexpr int kAttnLongSlabCtas = 2048;
+// Shared bytes of every long-route CTA (the most a CTA may take), of which
+// up to 1 KB aligns the ring to the swizzle's 1024 bytes
+constexpr int kAttnLongSmem = 232448;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one long-route CTA: two buffers of a 64-key block of K
-// and of V at the short core's row stride. 20,480 / 36,864 / 69,632 B at
-// head width 32 / 64 / 128.
-__host__ __device__ constexpr int attn_long_smem_bytes(int d) {
-  return 2 * 2 * kAttnLongKeys * attn_row(d) * static_cast<int>(sizeof(bf16));
+// Samples a CTA takes at a time, its warps, the ring's stages
+__host__ __device__ constexpr int attn_long_samples(int d) {
+  return d == 128 ? 1 : 2;
+}
+__host__ __device__ constexpr int attn_long_warps(int d) {
+  return 8 * attn_long_samples(d);
+}
+__host__ __device__ constexpr int attn_long_stages(bool probs) {
+  return probs ? 2 : 3;
+}
+// Bytes of one sample's 64-key block of K (or V)
+__host__ __device__ constexpr int attn_long_kv_bytes(int d) {
+  return kAttnLongKeys * d * static_cast<int>(sizeof(bf16));
+}
+// A stage's bias area: the TMA tile (two 128 x 32 f32 boxes, 32 KB), or the
+// row copies' tile, 128 rows of 64 keys and the up to 3 floats before them
+// in their row's first 16 bytes, at a stride of 68 floats (272 B)
+constexpr int kAttnLongBiasLd = kAttnLongKeys + 4;
+constexpr int kAttnLongBiasBytes = kAttnLongQueries * kAttnLongBiasLd * 4;
+// A warp's probability staging tile: 16 rows of 64 bf16 at a stride of 72
+constexpr int kAttnLongProbsLd = kAttnLongKeys + 8;
+constexpr int kAttnLongProbsBytes = 16 * kAttnLongProbsLd * 2;
+
+// The CTA's shared memory from its 1024-aligned start: the K/V ring (stage
+// st holds K of each sample, then V of each), the bias region (the stages'
+// bias areas, or a slab), the warps' probability staging (kProbs), the
+// barriers (each stage's full and empty, then the slab's).
+__host__ __device__ constexpr int attn_long_stage_bytes(int d) {
+  return 2 * attn_long_samples(d) * attn_long_kv_bytes(d);
+}
+__host__ __device__ constexpr int attn_long_bar_bytes(bool probs) {
+  return ((2 * attn_long_stages(probs) + 1) * 8 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int attn_long_staging_bytes(int d, bool probs) {
+  return probs ? attn_long_warps(d) * kAttnLongProbsBytes : 0;
+}
+__host__ __device__ constexpr int attn_long_region_off(int d, bool probs) {
+  return attn_long_stages(probs) * attn_long_stage_bytes(d);
+}
+// 133,056 B at d 64 (128,976 with kProbs), 182,208 at d 32 (161,744),
+// 133,056 at d 128 (147,408)
+__host__ __device__ constexpr int attn_long_region_bytes(int d, bool probs) {
+  return kAttnLongSmem - 1024 - attn_long_region_off(d, probs) -
+         attn_long_staging_bytes(d, probs) - attn_long_bar_bytes(probs);
 }
 
-// + bias over a block's eight 8-key tiles from key j0, keys past N masked
-template <bool kEven>
-__device__ __forceinline__ void add_bias_block(float (&s)[8][4],
-                                               const float* bias_h, int ra,
-                                               int rb, int j0, int tig,
-                                               int N) {
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int j = j0 + t * 8 + 2 * tig;
-    const float2 ba = bias_load<kEven>(bias_h, ra, j, N);
-    const float2 bb = bias_load<kEven>(bias_h, rb, j, N);
-    add_bias(s[t][0], s[t][1], ba, ra, j, N);
-    add_bias(s[t][2], s[t][3], bb, rb, j, N);
+enum AttnLongBias { kBiasSlab = 0, kBiasTiles = 1, kBiasRows = 2 };
+
+// The bias form of a launch (see above): the slab where 128 rows of N
+// floats and their first piece's shift fit the bias region (N <= 259 at d
+// 64 and 128; 251 at d 64 with kProbs), tiles where N % 4 == 0, rows
+// otherwise.
+__host__ __device__ inline int attn_long_bias_mode(int N, int d, bool probs) {
+  if (static_cast<long long>(kAttnLongQueries) * N * 4 + 16 <=
+      attn_long_region_bytes(d, probs))
+    return kBiasSlab;
+  return N % 4 == 0 ? kBiasTiles : kBiasRows;
+}
+
+// gridDim.y: every group of kSamples samples its own CTA, but in the slab
+// form ceil(groups · (CTAs a group) / kAttnLongSlabCtas) groups a CTA, CTA
+// y taking groups y, y + gridDim.y, ...
+__host__ __device__ inline int attn_long_sample_groups(int B, int N, int H,
+                                                       int d, bool probs) {
+  const int groups = (B + attn_long_samples(d) - 1) / attn_long_samples(d);
+  if (attn_long_bias_mode(N, d, probs) != kBiasSlab) return groups;
+  const long long ctas = static_cast<long long>(
+      (N + kAttnLongQueries - 1) / kAttnLongQueries) * H;
+  const long long per =
+      (static_cast<long long>(groups) * ctas + kAttnLongSlabCtas - 1) /
+      kAttnLongSlabCtas;
+  return static_cast<int>((groups + per - 1) / per);
+}
+
+// The index within its 16-byte piece of the bias float at p (0..3).
+__device__ __forceinline__ int bias_shift(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// d[kOff..] (m64 x n64, f32, wgmma's accumulator layout) += a (m64 x k16,
+// bf16 register fragments) · b (n64 x k16 from the descriptor); kTransB 0
+// for a K-major b, 1 for an MN-major one; kAcc false sets d to the product
+// (its old values are not read).
+template <int kTransB, bool kAcc = true, int kOff = 0, int kN>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[kN],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  static_assert(kOff + 32 <= kN, "accumulators in range");
+  if constexpr (kAcc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]),
+          "+f"(d[kOff + 3]), "+f"(d[kOff + 4]), "+f"(d[kOff + 5]),
+          "+f"(d[kOff + 6]), "+f"(d[kOff + 7]), "+f"(d[kOff + 8]),
+          "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]),
+          "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]),
+          "+f"(d[kOff + 15]), "+f"(d[kOff + 16]), "+f"(d[kOff + 17]),
+          "+f"(d[kOff + 18]), "+f"(d[kOff + 19]), "+f"(d[kOff + 20]),
+          "+f"(d[kOff + 21]), "+f"(d[kOff + 22]), "+f"(d[kOff + 23]),
+          "+f"(d[kOff + 24]), "+f"(d[kOff + 25]), "+f"(d[kOff + 26]),
+          "+f"(d[kOff + 27]), "+f"(d[kOff + 28]), "+f"(d[kOff + 29]),
+          "+f"(d[kOff + 30]), "+f"(d[kOff + 31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(static_cast<int>(kAcc)), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31},"
+        " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : "=f"(d[kOff + 0]), "=f"(d[kOff + 1]), "=f"(d[kOff + 2]),
+          "=f"(d[kOff + 3]), "=f"(d[kOff + 4]), "=f"(d[kOff + 5]),
+          "=f"(d[kOff + 6]), "=f"(d[kOff + 7]), "=f"(d[kOff + 8]),
+          "=f"(d[kOff + 9]), "=f"(d[kOff + 10]), "=f"(d[kOff + 11]),
+          "=f"(d[kOff + 12]), "=f"(d[kOff + 13]), "=f"(d[kOff + 14]),
+          "=f"(d[kOff + 15]), "=f"(d[kOff + 16]), "=f"(d[kOff + 17]),
+          "=f"(d[kOff + 18]), "=f"(d[kOff + 19]), "=f"(d[kOff + 20]),
+          "=f"(d[kOff + 21]), "=f"(d[kOff + 22]), "=f"(d[kOff + 23]),
+          "=f"(d[kOff + 24]), "=f"(d[kOff + 25]), "=f"(d[kOff + 26]),
+          "=f"(d[kOff + 27]), "=f"(d[kOff + 28]), "=f"(d[kOff + 29]),
+          "=f"(d[kOff + 30]), "=f"(d[kOff + 31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(static_cast<int>(kAcc)), "n"(kTransB));
   }
 }
 
-template <int kD, bool kProbs, bool kNormFirst>
-__global__ void __launch_bounds__(kAttnLongWarps * 32)
-attention_long_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, long long ld,
-                      const float* __restrict__ bias, bf16* __restrict__ out,
-                      bf16* __restrict__ probs, int N, int C, float scale) {
-  extern __shared__ __align__(16) unsigned char attn_long_smem[];
-  constexpr int kKS = attn_row(kD);
-  constexpr int kBuf = kAttnLongKeys * kKS;  // one buffer of K or V
-  bf16* ks = reinterpret_cast<bf16*>(attn_long_smem);
-  bf16* vs = ks + 2 * kBuf;
+// The same at n32 (the value product at head width 32).
+template <int kTransB, bool kAcc = true, int kOff = 0, int kN>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[kN],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  static_assert(kOff + 16 <= kN, "accumulators in range");
+  if constexpr (kAcc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : "+f"(d[kOff + 0]), "+f"(d[kOff + 1]), "+f"(d[kOff + 2]),
+          "+f"(d[kOff + 3]), "+f"(d[kOff + 4]), "+f"(d[kOff + 5]),
+          "+f"(d[kOff + 6]), "+f"(d[kOff + 7]), "+f"(d[kOff + 8]),
+          "+f"(d[kOff + 9]), "+f"(d[kOff + 10]), "+f"(d[kOff + 11]),
+          "+f"(d[kOff + 12]), "+f"(d[kOff + 13]), "+f"(d[kOff + 14]),
+          "+f"(d[kOff + 15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(static_cast<int>(kAcc)), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+        "}\n"
+        : "=f"(d[kOff + 0]), "=f"(d[kOff + 1]), "=f"(d[kOff + 2]),
+          "=f"(d[kOff + 3]), "=f"(d[kOff + 4]), "=f"(d[kOff + 5]),
+          "=f"(d[kOff + 6]), "=f"(d[kOff + 7]), "=f"(d[kOff + 8]),
+          "=f"(d[kOff + 9]), "=f"(d[kOff + 10]), "=f"(d[kOff + 11]),
+          "=f"(d[kOff + 12]), "=f"(d[kOff + 13]), "=f"(d[kOff + 14]),
+          "=f"(d[kOff + 15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(static_cast<int>(kAcc)), "n"(kTransB));
+  }
+}
 
-  const int h = blockIdx.y;
-  const int H = gridDim.y;
-  const int b = blockIdx.z;
-  const int head_off = h * kD;
+// O (64 x kD) += P (64 x 16 keys) · V (16 keys x kD), V's block at vt
+// (rows of kBox values, kD / kBox boxes of 64 rows), keys 16·jt on.
+template <int kD>
+__device__ __forceinline__ void long_pv(float (&o)[kD / 2],
+                                        const uint32_t (&p)[4],
+                                        const unsigned char* vt, int jt) {
+  constexpr int kBox = kD < 64 ? kD : 64;  // values of a swizzled row
+  constexpr int kRow = kBox * 2;
+  constexpr int kSlab = kAttnLongKeys * kRow;
+  const unsigned char* base = vt + jt * 16 * kRow;
+  if constexpr (kD == 32) {
+    wgmma_m64n32k16_rs<1>(o, p, wgmma_desc_sw<kRow>(base, 8 * kRow));
+  } else {
+    wgmma_m64n64k16_rs<1>(o, p, wgmma_desc_sw<kRow>(base, 8 * kRow));
+    if constexpr (kD == 128)
+      wgmma_m64n64k16_rs<1, true, 32>(
+          o, p, wgmma_desc_sw<kRow>(base + kSlab, 8 * kRow));
+  }
+}
+
+// The 3-D tensor map of k or v as (C, N, B): rows `ld` elements apart,
+// samples N rows apart, boxes of (min(d, 64), 64 keys, 1 sample) in the
+// swizzle of their row's bytes; rows past N and samples past B read as 0.
+inline cudaError_t attn_long_map(CUtensorMap* map, const bf16* base,
+                                 long long ld, int B, int N, int C, int d) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const int box = d < 64 ? d : 64;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(ld) * sizeof(bf16),
+      static_cast<cuuint64_t>(ld) * N * sizeof(bf16)};
+  const cuuint32_t boxes[3] = {static_cast<cuuint32_t>(box),
+                               static_cast<cuuint32_t>(kAttnLongKeys), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(base), dims,
+      strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      box == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+
+// The 3-D tensor map of the bias, (N, N, H) f32, read in boxes of (32
+// keys, 128 rows, 1 head) in the 128-byte swizzle (the tile form: N % 4 ==
+// 0); rows and keys past N read as 0.
+inline cudaError_t attn_long_bias_map(CUtensorMap* map, const float* bias,
+                                      int N, int H) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(H)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 4,
+                                 static_cast<cuuint64_t>(N) * N * 4};
+  const cuuint32_t boxes[3] = {32, kAttnLongQueries, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(bias), dims,
+      strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The long route (see above). map_k and map_v are 3-D tensor maps over k
+// and v as (C, N, B) with rows `ld` elements apart, boxes of (min(kD, 64),
+// 64, 1); kTiles: the bias in the tile form, map_b its map
+// (attn_long_bias_map); else `slab` picks the slab form or the row form.
+// q is read through its pointer (rows `ld` apart, as the short core reads
+// it); the output rows are C apart.
+template <int kD, bool kProbs, bool kNormFirst, bool kTiles>
+__global__ void __launch_bounds__(attn_long_warps(kD) * 32, 1)
+attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const bf16* __restrict__ q, long long ld,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      bf16* __restrict__ probs, int B, int N, int C,
+                      bool slab, float scale) {
+  constexpr int kSamples = attn_long_samples(kD);
+  constexpr int kStages = attn_long_stages(kProbs);
+  constexpr int kKV = attn_long_kv_bytes(kD);
+  constexpr int kStage = attn_long_stage_bytes(kD);
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+  constexpr int kBox = kD < 64 ? kD : 64;  // values of a swizzled row
+  constexpr int kRow = kBox * 2;
+  constexpr int kBoxes = kD / kBox;        // TMA boxes of a row (2 at d 128)
+  extern __shared__ unsigned char attn_long_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(attn_long_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  float* region =
+      reinterpret_cast<float*>(smem + attn_long_region_off(kD, kProbs));
+  bf16* pstage = reinterpret_cast<bf16*>(
+      smem + attn_long_region_off(kD, kProbs) +
+      attn_long_region_bytes(kD, kProbs));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(pstage) +
+      attn_long_staging_bytes(kD, kProbs));
+  uint64_t* empty = full + kStages;
+  uint64_t* slab_full = empty + kStages;
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int mi = lane >> 3;  // the 8x8 matrix this lane addresses
-  const bool even = (N & 1) == 0;
+  const int q0 = blockIdx.x * kAttnLongQueries;
+  const int h = blockIdx.z;
+  const int H = gridDim.z;
+  const int head_off = h * kD;
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  const long long row0 = static_cast<long long>(b) * N;
-  const int ra = blockIdx.x * kAttnLongQueries + warp * 16 + g;
-  const int rb = ra + 8;
-
-  // Q' = bf16(q·d^-½) of the warp's 16 rows, A fragments of the d steps
-  uint32_t qf[kD / 16][4];
-  {
-    const long long qa = (row0 + ra) * ld + head_off;
-    const long long qb = (row0 + rb) * ld + head_off;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c0 = kk * 16 + 2 * tig;
-      qf[kk][0] = q_pair(q, qa, ra < N, c0, scale);
-      qf[kk][1] = q_pair(q, qb, rb < N, c0, scale);
-      qf[kk][2] = q_pair(q, qa, ra < N, c0 + 8, scale);
-      qf[kk][3] = q_pair(q, qb, rb < N, c0 + 8, scale);
-    }
-  }
-
+  const float* bias_end = bias + static_cast<long long>(H) * N * N;
+  const bool rows_form = !kTiles && !slab;
   const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
-  const int steps = 2 * kblocks;  // pass 1, then pass 2
-  // the copy of step s (block s mod kblocks; V too in pass 2) into buf
-  auto stage = [&](int s, int buf) {
+  const int steps = 2 * kblocks;  // a sample group's: pass 1, then pass 2
+  const int groups = (B + kSamples - 1) / kSamples;
+  // the slab: the CTA's bias rows from the 16-byte piece that holds (q0, 0)
+  const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
+  const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA arrival, and in the row form one a lane of warp 0
+      mbar_init(&full[s], rows_form ? 1 + 32 : 1);
+      mbar_init(&empty[s], attn_long_warps(kD) * 32);
+    }
+    mbar_init(slab_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0's loads for global step g (sample group blockIdx.y + (g / steps)
+  // · gridDim.y, block (g mod steps) mod kblocks, V too in pass 2) into
+  // stage g mod kStages, once the warpgroups have released its last use.
+  auto produce = [&](int g) {
+    const int grp = blockIdx.y + (g / steps) * gridDim.y;
+    if (grp >= groups) return;
+    const int b0 = grp * kSamples;
+    const int live = min(kSamples, B - b0);
+    const int s = g % steps;
+    const int st = g % kStages;
+    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+    unsigned char* kv = smem + st * kStage;
+    float* bt = region + st * kArea;
     const int j0 = (s % kblocks) * kAttnLongKeys;
     const bool with_v = s >= kblocks;
-    bf16* kd = ks + buf * kBuf;
-    bf16* vd = vs + buf * kBuf;
-    for (int idx = threadIdx.x; idx < kAttnLongKeys * (kD / 8);
-         idx += blockDim.x) {
-      const int jj = idx / (kD / 8);  // 16-byte pieces of a row
-      const int c = (idx % (kD / 8)) * 8;
-      const bool in = j0 + jj < N;
-      const long long off = in ? (row0 + j0 + jj) * ld + head_off + c : 0;
-      cp_async16(kd + jj * kKS + c, k + off, in);
-      if (with_v) cp_async16(vd + jj * kKS + c, v + off, in);
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], live * kKV * (with_v ? 2 : 1) +
+                                    (kTiles ? 2 * kAttnLongQueries * 128 : 0));
+      for (int si = 0; si < live; ++si) {
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          const int off = si * kKV + x * (kKV / kBoxes);
+          tma_load_3d(kv + off, &map_k, &full[st], head_off + x * kBox, j0,
+                      b0 + si);
+          if (with_v)
+            tma_load_3d(kv + kSamples * kKV + off, &map_v, &full[st],
+                        head_off + x * kBox, j0, b0 + si);
+        }
+      }
+      if (kTiles) {
+        tma_load_3d(bt, &map_b, &full[st], j0, q0, h);
+        tma_load_3d(bt + kAttnLongQueries * 32, &map_b, &full[st], j0 + 32,
+                    q0, h);
+      }
     }
-    cp_async_commit();
+    if (rows_form) {
+      // rows lane + 32·r of the CTA's queries (rows past N read row N - 1),
+      // each from the 16-byte piece that holds its key j0; within the
+      // bias, its last floats past a whole piece copied by this lane
+      // before it arrives
+      const float* src[4];
+      int bytes[4], total = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = lane + 32 * r;
+        const float* a =
+            bias_h + static_cast<long long>(min(q0 + row, N - 1)) * N + j0;
+        src[r] = a - bias_shift(a);
+        const long long room = (bias_end - src[r]) * 4;
+        bytes[r] = room >= kAttnLongBiasLd * 4
+                       ? kAttnLongBiasLd * 4
+                       : static_cast<int>(room & ~15LL);
+        total += bytes[r];
+        float* dst = bt + row * kAttnLongBiasLd;
+        for (int t = bytes[r] / 4;
+             t < kAttnLongBiasLd && src[r] + t < bias_end; ++t)
+          dst[t] = src[r][t];
+      }
+      mbar_expect_tx(&full[st], total);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (bytes[r] > 0)
+          bulk_load(bt + (lane + 32 * r) * kAttnLongBiasLd, src[r], bytes[r],
+                    &full[st]);
+    }
   };
 
-  float mxa = -INFINITY, mxb = -INFINITY;  // the quad's row maxima
-  float suma = 0.f, sumb = 0.f;            // this thread's part of Σe
-  float inva = 0.f, invb = 0.f;
-  float o[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
-
-  stage(0, 0);
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      stage(s + 1, (s + 1) & 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (warp == 0) {
+    if (slab && lane == 0) {
+      // within the bias; its last floats past a whole piece copied here
+      // before the arrival
+      const long long want =
+          (static_cast<long long>(kAttnLongQueries) * N + slab_shift) * 4;
+      const long long room = (bias_end - slab_src) * 4;
+      const int bytes = static_cast<int>(
+          room >= ((want + 15) & ~15LL) ? (want + 15) & ~15LL : room & ~15LL);
+      for (long long t = bytes / 4; t * 4 < want && slab_src + t < bias_end;
+           ++t)
+        region[t] = slab_src[t];
+      mbar_expect_tx(slab_full, bytes);
+      if (bytes > 0) bulk_load(region, slab_src, bytes, slab_full);
     }
-    __syncthreads();
-    const bf16* kd = ks + (s & 1) * kBuf;
-    const bf16* vd = vs + (s & 1) * kBuf;
-    const int j0 = (s % kblocks) * kAttnLongKeys;
+    produce(0);
+    __syncwarp();
+  }
 
-    // S = Q'·Kᵀ over the block's 64 keys, + bias
-    float sc[8][4];
+  // Warpgroup wg takes rows 64·(wg & 1) of the CTA's queries of the
+  // group's sample wg >> 1; warp wq of it 16 of them, this thread rows ra
+  // and ra + 8 (g = lane / 4) and the quad's columns.
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int si = wg >> 1;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int la = (wg & 1) * 64 + wq * 16 + g;  // rows within the CTA's 128
+  const int lb = la + 8;
+  const int ra = q0 + la;
+  const int rb = q0 + lb;
+  const bool even = (N & 1) == 0;
+  // where the thread's bias rows start: in the slab, or within a stage's
+  // row-form tile
+  const int lin_a =
+      (slab ? slab_shift + la * N
+            : la * kAttnLongBiasLd +
+                  bias_shift(bias_h +
+                             static_cast<long long>(min(ra, N - 1)) * N)) +
+      2 * tig;
+  const int lin_b =
+      (slab ? slab_shift + lb * N
+            : lb * kAttnLongBiasLd +
+                  bias_shift(bias_h +
+                             static_cast<long long>(min(rb, N - 1)) * N)) +
+      2 * tig;
+  // in the tile form, the thread's pairs of row la in the first box, key
+  // tile t: 16-byte piece c = 2t + tig / 2 of a 128-byte row at piece
+  // c ^ (row mod 8), then 8·(tig mod 2) bytes; the second box 16 KB on,
+  // row lb 8 rows on (the same row mod 8)
+  int toff[4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+  for (int t = 0; t < 4; ++t)
+    toff[t] = la * 32 + (((2 * t + (tig >> 1)) ^ (la & 7)) << 2) +
+              2 * (tig & 1);
+  if (slab) mbar_wait(slab_full, 0);
+
+  uint32_t qf[kD / 16][4];  // Q' of the thread's rows, A fragments
+  float o[kD / 2];  // wgmma's layout: o[4i..4i+3] columns 8i + 2·tig, + 1
+  int it = 0;       // the global step
+  for (int grp = blockIdx.y; grp < groups; grp += gridDim.y) {
+    const int b = grp * kSamples + si;
+    const bool live = b < B;
+    const long long row0 = static_cast<long long>(b) * N;
+    {
+      const long long qa = (row0 + ra) * ld + head_off;
+      const long long qb = (row0 + rb) * ld + head_off;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int jt = 0; jt < 4; ++jt) {
-        uint32_t bk[4];  // keys 0-7 (d lo, hi), keys 8-15 (d lo, hi)
-        ldsm_x4(bk, kd + (jt * 16 + (mi >> 1) * 8 + (lane & 7)) * kKS +
-                        kk * 16 + (mi & 1) * 8);
-        mma_bf16(sc[2 * jt], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * jt + 1], qf[kk], bk[2], bk[3]);
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int c0 = kk * 16 + 2 * tig;
+        qf[kk][0] = q_pair(q, qa, live && ra < N, c0, scale);
+        qf[kk][1] = q_pair(q, qb, live && rb < N, c0, scale);
+        qf[kk][2] = q_pair(q, qa, live && ra < N, c0 + 8, scale);
+        qf[kk][3] = q_pair(q, qb, live && rb < N, c0 + 8, scale);
       }
     }
-    if (even)
-      add_bias_block<true>(sc, bias_h, ra, rb, j0, tig, N);
-    else
-      add_bias_block<false>(sc, bias_h, ra, rb, j0, tig, N);
+    float mxa = -INFINITY, mxb = -INFINITY;  // the quad's row maxima
+    float suma = 0.f, sumb = 0.f;            // this thread's part of Σe
+    float inva = 0.f, invb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
 
-    if (s < kblocks) {
-      // pass 1: the row max over the quad, Σe rescaled to it
-      float bma = -INFINITY, bmb = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        bma = fmaxf(bma, fmaxf(sc[t][0], sc[t][1]));
-        bmb = fmaxf(bmb, fmaxf(sc[t][2], sc[t][3]));
+    for (int s = 0; s < steps; ++s, ++it) {
+      if (warp == 0) {
+        produce(it + 1);
+        __syncwarp();
       }
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const unsigned char* kt = smem + st * kStage + si * kKV;
+      const int j0 = (s % kblocks) * kAttnLongKeys;
+
+      // S = Q'·Kᵀ over the block's 64 keys: k step kk reads d values 16·kk
+      // on, in TMA box 16·kk / kBox, 32 bytes a step along its rows
+      float sc[32];  // the logits of the block, the accumulator layout
+      wgmma_fence();
+      wgmma_m64n64k16_rs<0, false>(sc, qf[0], wgmma_desc_sw<kRow>(kt));
 #pragma unroll
-      for (int w = 1; w <= 2; w <<= 1) {
-        bma = fmaxf(bma, __shfl_xor_sync(0xffffffffu, bma, w));
-        bmb = fmaxf(bmb, __shfl_xor_sync(0xffffffffu, bmb, w));
+      for (int kk = 1; kk < kD / 16; ++kk)
+        wgmma_m64n64k16_rs<0>(
+            sc, qf[kk],
+            wgmma_desc_sw<kRow>(kt + kk * 16 / kBox * (kKV / kBoxes)) +
+                (kk * 16 % kBox) / 8);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+
+      // + bias; keys past N masked where the block reaches them. The
+      // bias pair of key tile t: row la at ba[off(t)], row lb 8 rows on
+      const float* ba;
+      int lbo;  // row lb's offset from row la's
+      if constexpr (kTiles) {
+        ba = region + st * kArea;
+        lbo = 8 * 32;
+      } else {
+        ba = (slab ? region + j0 : region + st * kArea) + lin_a;
+        lbo = lin_b - lin_a;
       }
-      const float na = fmaxf(mxa, bma), nb = fmaxf(mxb, bmb);
-      float ea = 0.f, eb = 0.f;
+      auto off = [&](int t) {  // t is unrolled: an immediate but in tiles
+        return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
+                      : 8 * t;
+      };
+      auto pair = [&](const float* p) {
+        return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                              : make_float2(p[0], p[1]);
+      };
+      if (j0 + kAttnLongKeys <= N) {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        ea += expf(sc[t][0] - na) + expf(sc[t][1] - na);
-        eb += expf(sc[t][2] - nb) + expf(sc[t][3] - nb);
-      }
-      suma = suma * expf(mxa - na) + ea;
-      sumb = sumb * expf(mxb - nb) + eb;
-      mxa = na;
-      mxb = nb;
-    } else {
-      if (s == kblocks) {  // Σe over the quad, once
-#pragma unroll
-        for (int w = 1; w <= 2; w <<= 1) {
-          suma += __shfl_xor_sync(0xffffffffu, suma, w);
-          sumb += __shfl_xor_sync(0xffffffffu, sumb, w);
+        for (int t = 0; t < 8; ++t) {
+          const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
+          sc[4 * t] += pa.x;
+          sc[4 * t + 1] += pa.y;
+          sc[4 * t + 2] += pb.x;
+          sc[4 * t + 3] += pb.y;
         }
-        inva = 1.0f / suma;
-        invb = 1.0f / sumb;
-      }
-      // pass 2: e against the final max
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        sc[t][0] = expf(sc[t][0] - mxa);
-        sc[t][1] = expf(sc[t][1] - mxa);
-        sc[t][2] = expf(sc[t][2] - mxb);
-        sc[t][3] = expf(sc[t][3] - mxb);
-      }
-      if (kProbs) {
-        // the TPU kernel's probs: (e · (1/Σe)) rounded to bf16
-        const long long prow = (static_cast<long long>(b) * H + h) * N;
-        bf16* pa = probs + (prow + ra) * N;
-        bf16* pb = probs + (prow + rb) * N;
+      } else {
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           const int j = j0 + t * 8 + 2 * tig;
-          if (ra < N)
-            store_pair(pa, j, N, even, sc[t][0] * inva, sc[t][1] * inva);
-          if (rb < N)
-            store_pair(pb, j, N, even, sc[t][2] * invb, sc[t][3] * invb);
+          add_bias(sc[4 * t], sc[4 * t + 1], pair(ba + off(t)), ra, j, N);
+          add_bias(sc[4 * t + 2], sc[4 * t + 3], pair(ba + off(t) + lbo), rb,
+                   j, N);
         }
       }
-      const float fa = kNormFirst ? inva : 1.f;
-      const float fb = kNormFirst ? invb : 1.f;
-#pragma unroll
-      for (int jt = 0; jt < 4; ++jt) {
-        uint32_t p[4];
-        p[0] = pack_bf16(sc[2 * jt][0] * fa, sc[2 * jt][1] * fa);
-        p[1] = pack_bf16(sc[2 * jt][2] * fb, sc[2 * jt][3] * fb);
-        p[2] = pack_bf16(sc[2 * jt + 1][0] * fa, sc[2 * jt + 1][1] * fa);
-        p[3] = pack_bf16(sc[2 * jt + 1][2] * fb, sc[2 * jt + 1][3] * fb);
-#pragma unroll
-        for (int dd = 0; dd < kD / 16; ++dd) {
-          uint32_t bv[4];  // d lo (keys 0-7, 8-15), d hi (keys 0-7, 8-15)
-          ldsm_x4_t(bv, vd + (jt * 16 + (mi & 1) * 8 + (lane & 7)) * kKS +
-                            dd * 16 + (mi >> 1) * 8);
-          mma_bf16(o[2 * dd], p, bv[0], bv[1]);
-          mma_bf16(o[2 * dd + 1], p, bv[2], bv[3]);
-        }
-      }
-    }
-    __syncthreads();  // the buffer is refilled two steps on
-  }
 
-  // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
-  const float oa = kNormFirst ? 1.f : inva;
-  const float ob = kNormFirst ? 1.f : invb;
+      if (s < kblocks) {
+        // pass 1: the row max over the quad, Σe rescaled to it
+        float bma = -INFINITY, bmb = -INFINITY;
 #pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int col = head_off + dt * 8 + 2 * tig;
-    if (ra < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
-          __floats2bfloat162_rn(o[dt][0] * oa, o[dt][1] * oa);
-    if (rb < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
-          __floats2bfloat162_rn(o[dt][2] * ob, o[dt][3] * ob);
+        for (int t = 0; t < 8; ++t) {
+          bma = fmaxf(bma, fmaxf(sc[4 * t], sc[4 * t + 1]));
+          bmb = fmaxf(bmb, fmaxf(sc[4 * t + 2], sc[4 * t + 3]));
+        }
+#pragma unroll
+        for (int w = 1; w <= 2; w <<= 1) {
+          bma = fmaxf(bma, __shfl_xor_sync(0xffffffffu, bma, w));
+          bmb = fmaxf(bmb, __shfl_xor_sync(0xffffffffu, bmb, w));
+        }
+        const float na = fmaxf(mxa, bma), nb = fmaxf(mxb, bmb);
+        const float la2 = na * kLog2e, lb2 = nb * kLog2e;
+        float ea = 0.f, eb = 0.f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          ea += exp2f(fmaf(sc[4 * t], kLog2e, -la2)) +
+                exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
+          eb += exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2)) +
+                exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
+        }
+        suma = suma * exp2f((mxa - na) * kLog2e) + ea;
+        sumb = sumb * exp2f((mxb - nb) * kLog2e) + eb;
+        mxa = na;
+        mxb = nb;
+      } else {
+        if (s == kblocks) {  // Σe over the quad, once
+#pragma unroll
+          for (int w = 1; w <= 2; w <<= 1) {
+            suma += __shfl_xor_sync(0xffffffffu, suma, w);
+            sumb += __shfl_xor_sync(0xffffffffu, sumb, w);
+          }
+          inva = 1.0f / suma;
+          invb = 1.0f / sumb;
+        }
+        // pass 2: e against the final max
+        const float la2 = mxa * kLog2e, lb2 = mxb * kLog2e;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          sc[4 * t] = exp2f(fmaf(sc[4 * t], kLog2e, -la2));
+          sc[4 * t + 1] = exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
+          sc[4 * t + 2] = exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2));
+          sc[4 * t + 3] = exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
+        }
+        if (kProbs) {
+          // the TPU kernel's probs, (e · (1/Σe)) rounded to bf16: the
+          // warp's 16 x 64 tile staged in shared memory, then rows of
+          // 16-byte pieces
+          bf16* pw = pstage + warp * (16 * kAttnLongProbsLd);
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int c = t * 8 + 2 * tig;
+            *reinterpret_cast<uint32_t*>(pw + g * kAttnLongProbsLd + c) =
+                pack_bf16(sc[4 * t] * inva, sc[4 * t + 1] * inva);
+            *reinterpret_cast<uint32_t*>(pw + (g + 8) * kAttnLongProbsLd +
+                                         c) =
+                pack_bf16(sc[4 * t + 2] * invb, sc[4 * t + 3] * invb);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int i4 = 0; i4 < 4; ++i4) {
+            const int r = i4 * 4 + (lane >> 3);  // the warp's row
+            const int c = (lane & 7) * 8;        // its 8 keys
+            const int i = q0 + la - g + r;
+            const int j = j0 + c;
+            if (live && i < N && j < N) {
+              const bf16* from = pw + r * kAttnLongProbsLd + c;
+              bf16* to =
+                  probs + ((static_cast<long long>(b) * H + h) * N + i) * N + j;
+              if ((N & 7) == 0) {
+                *reinterpret_cast<uint4*>(to) =
+                    *reinterpret_cast<const uint4*>(from);
+              } else {
+                for (int e = 0; e < 8 && j + e < N; ++e) to[e] = from[e];
+              }
+            }
+          }
+          __syncwarp();
+        }
+        // P's A fragments: bf16(e), or bf16(e·(1/Σe)); O += P·V
+        const float fa = kNormFirst ? inva : 1.f;
+        const float fb = kNormFirst ? invb : 1.f;
+        uint32_t p[4][4];
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) {
+          p[jt][0] = pack_bf16(sc[8 * jt] * fa, sc[8 * jt + 1] * fa);
+          p[jt][1] = pack_bf16(sc[8 * jt + 2] * fb, sc[8 * jt + 3] * fb);
+          p[jt][2] = pack_bf16(sc[8 * jt + 4] * fa, sc[8 * jt + 5] * fa);
+          p[jt][3] = pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb);
+        }
+        const unsigned char* vt = smem + st * kStage + (kSamples + si) * kKV;
+        wgmma_fence();
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) long_pv<kD>(o, p[jt], vt, jt);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(o);
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+
+    // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
+    const float oa = kNormFirst ? 1.f : inva;
+    const float ob = kNormFirst ? 1.f : invb;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      const int col = head_off + dt * 8 + 2 * tig;
+      if (live && ra < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
+            __floats2bfloat162_rn(o[4 * dt] * oa, o[4 * dt + 1] * oa);
+      if (live && rb < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
+            __floats2bfloat162_rn(o[4 * dt + 2] * ob, o[4 * dt + 3] * ob);
+    }
   }
+}
+
+template <int kD, bool kProbs, bool kNormFirst, bool kTiles>
+inline cudaError_t attention_long_launch(const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v,
+                                         const CUtensorMap& map_b,
+                                         const bf16* q, long long ld,
+                                         const float* bias, bf16* out,
+                                         bf16* probs, int B, int N, int C,
+                                         int H, bool slab,
+                                         cudaStream_t stream) {
+  auto* kern = attention_long_kernel<kD, kProbs, kNormFirst, kTiles>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
+                  attn_long_sample_groups(B, N, H, kD, kProbs), H);
+  kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
+      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, slab,
+      bf16_q_scale(kD));
+  return cudaGetLastError();
 }
 
 template <int kD, bool kProbs, bool kNormFirst>
@@ -761,24 +1258,30 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
                                       const float* bias, bf16* out,
                                       bf16* probs, int B, int N, int C, int H,
                                       cudaStream_t stream) {
-  auto* kern = attention_long_kernel<kD, kProbs, kNormFirst>;
-  constexpr int smem = attn_long_smem_bytes(kD);
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int mode = attn_long_bias_mode(N, kD, kProbs);
+  CUtensorMap map_k, map_v, map_b;
+  cudaError_t e = attn_long_map(&map_k, k, ld, B, N, C, kD);
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries, H, B);
-  kern<<<grid, kAttnLongWarps * 32, smem, stream>>>(q, k, v, ld, bias, out,
-                                                    probs, N, C,
-                                                    bf16_q_scale(kD));
-  return cudaGetLastError();
+  if ((e = attn_long_map(&map_v, v, ld, B, N, C, kD)) != cudaSuccess) return e;
+  if (mode == kBiasTiles) {
+    if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
+    return attention_long_launch<kD, kProbs, kNormFirst, true>(
+        map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, H, false,
+        stream);
+  }
+  return attention_long_launch<kD, kProbs, kNormFirst, false>(
+      map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H,
+      mode == kBiasSlab, stream);
 }
 
-// The long route's plan (`attention_plan` with route "long"): the route's
-// marker, its four warps, one sample a CTA and its shared bytes.
+// A long-route plan (`attention_plan` with route "long", or K4a's
+// `attention_q8_plan`): the route's marker, the warps and samples of a CTA
+// and its shared bytes as the route's kernel has them; N, B and H within
+// the route's and the grid's limits.
 inline bool attn_long_plan_ok(const int* plan, int B, int N, int H, int d,
-                              int smem_bytes) {
-  return plan[0] == kAttnLongRoute && plan[1] == kAttnLongWarps &&
-         plan[2] == 1 && plan[3] == smem_bytes && N >= 1 &&
+                              int warps, int samples, int smem_bytes) {
+  return plan[0] == kAttnLongRoute && plan[1] == warps &&
+         plan[2] == samples && plan[3] == smem_bytes && N >= 1 &&
          N <= kAttnMaxLongTokens && B >= 1 && B <= 65535 && H >= 1 &&
          H <= 65535 && head_dim_ok(d);
 }
@@ -790,8 +1293,8 @@ inline bool attn_long_plan_ok(const int* plan, int B, int N, int H, int d,
 // `attention_plan` at that width): the 16-key tile bucket, the warps of a
 // CTA, the samples of a CTA and the shared bytes of the short core, or
 // the long route's plan (attn_long_plan_ok), which launches
-// attention_long_kernel; a width or plan the kernels do not take is
-// refused with cudaErrorInvalidValue.
+// attention_long_kernel (its q, k, v and bias 16-byte aligned); a width or
+// plan the kernels do not take is refused with cudaErrorInvalidValue.
 template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const bf16* v, long long ld,
@@ -801,7 +1304,12 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   if (kt == kAttnLongRoute) {
-    if (!attn_long_plan_ok(plan, B, N, H, d, attn_long_smem_bytes(d)))
+    if (!head_dim_ok(d) ||
+        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(d),
+                           attn_long_samples(d), kAttnLongSmem) ||
+        ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(bias)) &
+         15) != 0)
       return cudaErrorInvalidValue;
     switch (d) {
       case 32:

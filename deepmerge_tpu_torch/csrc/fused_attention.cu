@@ -2,7 +2,8 @@
 // training attention (K6), the inference attention on the packed qkv (K7)
 // and on separate (B, N, H, D) q, k, v (K8). All three run the attention
 // core of block_common.cuh, one CTA per (head, sample), or above 256
-// tokens its long route, one CTA per (64 queries, head, sample).
+// tokens its long route, one CTA per (128 queries, head, two samples; one
+// at head width 128).
 //
 // K6 replaces deepmerge_tpu/ops/pallas/fused_attention.py:311
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the
@@ -60,9 +61,9 @@ const char* dm_error_string(int err) {
 }
 
 // K6: out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C)
-// bf16 and bias (H, N, N) f32. Requires C == H·d with d 32, 64 or 128
-// and 1 <= N <= 256 (checked by the caller; refused here too). Returns
-// cudaGetLastError().
+// bf16 and bias (H, N, N) f32. Requires C == H·d with d 32, 64 or 128,
+// 1 <= N <= 16384 and 16-byte aligned tensors (checked by the caller;
+// refused here too). Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
                        const int* plan, cudaStream_t stream) {
@@ -73,8 +74,8 @@ int dm_attention_probs(const void* qkv, const void* bias, void* out,
 }
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
-// Requires C == H·d with d 32, 64 or 128 and 1 <= N <= 256. Returns
-// cudaGetLastError().
+// Requires C == H·d with d 32, 64 or 128, 1 <= N <= 16384 and 16-byte
+// aligned tensors. Returns cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
                  int C, int H, const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention(static_cast<const bf16*>(qkv),
@@ -84,7 +85,7 @@ int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
 }
 
 // K8: out (B, N, H, d) bf16 from q, k, v (B, N, H, d) bf16 and bias
-// (H, N, N) f32, C = H·d, d 32, 64 or 128. Requires 1 <= N <= 256 and
+// (H, N, N) f32, C = H·d, d 32, 64 or 128. Requires 1 <= N <= 16384 and
 // 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,

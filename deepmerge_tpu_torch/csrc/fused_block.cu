@@ -34,16 +34,17 @@
 //   and the GELU or residual of its call. The grid is persistent (one
 //   193 KB CTA an SM), so the producer loads the next tile's slabs during
 //   an epilogue.
-// * LayerNorm is its own row kernel writing bf16 y: one warp a row up to
-//   C 1024, one CTA a row above (the row staged in shared memory, up to
-//   kLnMaxWide). Normalizing inside the
+// * LayerNorm is its own row kernel writing bf16 y, each row in registers:
+//   one warp a row up to C 2048, two or four warps a row up to kLnMaxWide.
+//   Normalizing inside the
 //   GEMM's A loads (the first design) redid the work for every column tile
 //   (18 of them for qkv, 24 for up) and cost the registers of a second CTA
 //   per SM: those GEMMs ran at a third of the others' rate.
 // * The attention core (block_common.cuh): a CTA of four warps per head
 //   and one to four samples, K and V in shared memory, the logits, the
 //   softmax and P in mma.sync registers; above 256 tokens the long route,
-//   K and V streamed in 64-key blocks, twice.
+//   K and V streamed twice in 64-key blocks through a TMA ring, the
+//   products by wgmma, 128 queries of two samples a CTA.
 // The chain entry point runs `depth` blocks on one activation buffer;
 // keeping the activation on chip between blocks is later work.
 //
@@ -69,22 +70,56 @@ namespace {
 
 // ------------------------------------------------------------- LayerNorm
 
+// The sum of v over the kGroup warps of the thread's row, in each of them:
+// a warp's sum, then (kGroup > 1) one float a warp through `red`, the
+// group's warps meeting at a named barrier of their own (1 + group index).
+template <int kGroup>
+__device__ __forceinline__ float group_sum(float v, float* red) {
+  v = warp_sum(v);
+  if constexpr (kGroup == 1) {
+    return v;
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / kGroup),
+                 "n"(32 * kGroup)
+                 : "memory");
+    const int first = warp - warp % kGroup;
+    float r = red[first];
+#pragma unroll
+    for (int i = 1; i < kGroup; ++i) r += red[first + i];
+    return r;
+  }
+}
+
 // y = bf16((x - mean) * rsqrt(var + eps) * w + b) per row, statistics in
-// f32 (two passes, as the TPU kernel's `_ln`). One warp per row.
+// f32 (two passes, as the TPU kernel's `_ln`), the row in registers:
+// kGroup warps a row (kLnWarps / kGroup rows a CTA), kVec 8-element
+// vectors a lane, C <= 256·kVec·kGroup; w and b in 16-byte loads.
+// Dispatch (layer_norm): one warp and 4 vectors up to C 1024, one warp and
+// 6 or 8 vectors up to 2048, two warps and 6 or 8 vectors up to 4096, four
+// warps and 8 vectors up to kLnMaxWide.
+// The rows past 1024 are memory-bound: 2·C bf16 bytes a row; the design
+// keeps each row in registers (no staging) and every lane busy.
+template <int kVec, int kGroup>
 __global__ void __launch_bounds__(kLnWarps * 32)
 layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ b, bf16* __restrict__ y, int M,
                   int C) {
+  __shared__ float red[2][kLnWarps];  // the two sums' floats (kGroup > 1)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kLnWarps + warp;
-  if (row >= M) return;
-  const bf16* xr = x + row * C;
-  float v[kLnMaxVec][8];
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kLnWarps / kGroup) + warp / kGroup;
+  if (kGroup == 1 && row >= M) return;
+  const bool in = row < M;  // a group past M still joins the sums
+  const int first = (warp % kGroup) * 32 + lane;  // the thread's first vector
+  const bf16* xr = x + (in ? row : 0) * C;
+  float v[kVec][8];
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    const int k = (lane + 32 * i) * 8;
+  for (int i = 0; i < kVec; ++i) {
+    const int k = (first + 32 * kGroup * i) * 8;
     if (k < C) {
       const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
       const bf16* e = reinterpret_cast<const bf16*>(&u);
@@ -95,11 +130,11 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  const float mu = warp_sum(s) / static_cast<float>(C);
+  const float mu = group_sum<kGroup>(s, red[0]) / static_cast<float>(C);
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    if ((lane + 32 * i) * 8 < C) {
+  for (int i = 0; i < kVec; ++i) {
+    if ((first + 32 * kGroup * i) * 8 < C) {
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const float d = v[i][t] - mu;
@@ -107,39 +142,26 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  const float rs = rsqrtf(warp_sum(q) / static_cast<float>(C) + kLnEps);
+  const float rs =
+      rsqrtf(group_sum<kGroup>(q, red[1]) / static_cast<float>(C) + kLnEps);
+  if (!in) return;
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    const int k = (lane + 32 * i) * 8;
+  for (int i = 0; i < kVec; ++i) {
+    const int k = (first + 32 * kGroup * i) * 8;
     if (k < C) {
+      const float4 w0 = *reinterpret_cast<const float4*>(w + k);
+      const float4 w1 = *reinterpret_cast<const float4*>(w + k + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(b + k);
+      const float4 b1 = *reinterpret_cast<const float4*>(b + k + 4);
+      const float ws[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
       uint4 u;
       bf16* o = reinterpret_cast<bf16*>(&u);
 #pragma unroll
       for (int t = 0; t < 8; ++t)
-        o[t] = __float2bfloat16((v[i][t] - mu) * rs * w[k + t] + b[k + t]);
+        o[t] = __float2bfloat16((v[i][t] - mu) * rs * ws[t] + bs[t]);
       *reinterpret_cast<uint4*>(y + row * C + k) = u;
     }
-  }
-}
-
-// y as layer_norm_kernel's for a row wider than 1024 (C <= kLnMaxWide,
-// C % 8 == 0): one CTA of kLnWideThreads a row, the row staged in shared
-// memory as f32 (ln_wide_stats).
-__global__ void __launch_bounds__(kLnWideThreads)
-layer_norm_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ b, bf16* __restrict__ y,
-                       int C) {
-  __shared__ __align__(16) float v[kLnMaxWide];
-  __shared__ float red[kLnWideThreads / 32];
-  const long long row = blockIdx.x;
-  const float2 st = ln_wide_stats(x + row * C, v, red, C);
-  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
-    uint4 u;
-    bf16* o = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      o[t] = __float2bfloat16((v[k + t] - st.x) * st.y * w[k + t] + b[k + t]);
-    *reinterpret_cast<uint4*>(y + row * C + k) = u;
   }
 }
 
@@ -322,16 +344,31 @@ cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
       stream);
 }
 
-// One warp a row up to C 1024, one CTA a row above (up to kLnMaxWide).
+// One warp a row up to C 2048, two up to 4096, four above (up to
+// kLnMaxWide).
 cudaError_t layer_norm(const bf16* x, const float* w, const float* b, bf16* y,
                        int M, int C, cudaStream_t stream) {
+  const int rows = (M + kLnWarps - 1) / kLnWarps;
   if (C <= kLnMaxVec * 256)
-    layer_norm_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
-                        stream>>>(x, w, b, y, M, C);
-  else if (C <= kLnMaxWide && C % 8 == 0)
-    layer_norm_wide_kernel<<<M, kLnWideThreads, 0, stream>>>(x, w, b, y, C);
-  else
+    layer_norm_kernel<kLnMaxVec, 1><<<rows, kLnWarps * 32, 0, stream>>>(
+        x, w, b, y, M, C);
+  else if (C > kLnMaxWide || C % 8 != 0)
     return cudaErrorInvalidValue;
+  else if (C <= 6 * 256)
+    layer_norm_kernel<6, 1><<<rows, kLnWarps * 32, 0, stream>>>(x, w, b, y,
+                                                               M, C);
+  else if (C <= 8 * 256)
+    layer_norm_kernel<8, 1><<<rows, kLnWarps * 32, 0, stream>>>(x, w, b, y,
+                                                               M, C);
+  else if (C <= 6 * 512)
+    layer_norm_kernel<6, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
+        x, w, b, y, M, C);
+  else if (C <= 8 * 512)
+    layer_norm_kernel<8, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
+        x, w, b, y, M, C);
+  else
+    layer_norm_kernel<8, 4><<<(M + 1) / 2, kLnWarps * 32, 0, stream>>>(
+        x, w, b, y, M, C);
   return cudaGetLastError();
 }
 
@@ -488,8 +525,9 @@ int dm_block_train_forward(const void* x, void* out, int B, int N, int C,
 
 // The blocks' LayerNorm alone (its measurement and tests): y (M, C) bf16
 // from x (M, C) bf16 and the f32 scale w and bias b (C), one warp a row up
-// to C 1024, one CTA a row above. Requires C % 8 == 0, C <= 8192 and
-// 16-byte aligned rows (checked by the caller). Returns cudaGetLastError().
+// to C 2048, two or four above. Requires C % 8 == 0, C <= 8192 and
+// 16-byte aligned rows, w and b (checked by the caller). Returns
+// cudaGetLastError().
 int dm_layer_norm(const void* x, const void* w, const void* b, void* y, int M,
                   int C, cudaStream_t stream) {
   return static_cast<int>(layer_norm(

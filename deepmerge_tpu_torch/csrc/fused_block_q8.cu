@@ -1099,8 +1099,8 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 
 // ------------------------------------------------- K4a, long route
 //
-// The int8 core for N > 256 (and any N a plan forces), on the bf16 long
-// route's grid (block_common.cuh): a CTA of four warps takes one head, one
+// The int8 core for N > 256 (and any N a plan forces), on the long route's
+// plan marker (block_common.cuh): a CTA of four warps takes one head, one
 // sample and 64 queries, and k and v reach shared memory in 64-key blocks.
 // pq = rint(127·e) needs the row's final max and v's dynamic scales are
 // per column over all keys (`va`, `_attn_inner_q8`), so:
@@ -1123,7 +1123,11 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 // (64 x (d + 16) B), its v codes transposed (d x 80 B), k's row scales,
 // v's column scales, and the pre-pass's partial abs-maxes (a row of d for
 // each d/8 threads). 10,112 / 14,848 / 24,320 B at d 32 / 64 / 128.
-constexpr int kQ8LongVld = kAttnLongKeys + 16;  // an odd multiple of 16 B
+// The route's CTA: four warps, 64 queries (16 a warp), 64-key blocks.
+constexpr int kAttnQ8LongWarps = 4;
+constexpr int kAttnQ8LongQueries = 16 * kAttnQ8LongWarps;
+constexpr int kAttnQ8LongKeys = 64;
+constexpr int kQ8LongVld = kAttnQ8LongKeys + 16;  // an odd multiple of 16 B
 
 struct AttnQ8LongLayout {
   int kq, vt, sk, sv, red, bytes;
@@ -1132,11 +1136,11 @@ struct AttnQ8LongLayout {
 __host__ __device__ inline AttnQ8LongLayout attn_q8_long_layout(int d) {
   AttnQ8LongLayout l;
   l.kq = 0;
-  l.vt = l.kq + kAttnLongKeys * q8_row(d);
+  l.vt = l.kq + kAttnQ8LongKeys * q8_row(d);
   l.sk = l.vt + d * kQ8LongVld;
-  l.sv = l.sk + kAttnLongKeys * static_cast<int>(sizeof(float));
+  l.sv = l.sk + kAttnQ8LongKeys * static_cast<int>(sizeof(float));
   l.red = l.sv + d * static_cast<int>(sizeof(float));
-  l.bytes = l.red + kAttnLongWarps * 32 / (d / 8) * d *
+  l.bytes = l.red + kAttnQ8LongWarps * 32 / (d / 8) * d *
                         static_cast<int>(sizeof(float));
   return l;
 }
@@ -1180,14 +1184,14 @@ __device__ __forceinline__ void q8_block_logits(
 }
 
 template <int kD, bool kStatic>
-__global__ void __launch_bounds__(kAttnLongWarps * 32)
+__global__ void __launch_bounds__(kAttnQ8LongWarps * 32)
 attention_q8_long_kernel(const bf16* __restrict__ qkv,
                          const float* __restrict__ bias,
                          const float* __restrict__ s_qkv,
                          bf16* __restrict__ out, int N, int C, float scale) {
   constexpr int kOct = kD / 8;  // 16-byte pieces (8 lanes) of a row
   constexpr int kQ8Row = q8_row(kD);
-  constexpr int kKeys = kAttnLongKeys;
+  constexpr int kKeys = kAttnQ8LongKeys;
   extern __shared__ __align__(16) unsigned char q8_long_smem[];
   const AttnQ8LongLayout L = attn_q8_long_layout(kD);
   signed char* kq = reinterpret_cast<signed char*>(q8_long_smem + L.kq);
@@ -1258,7 +1262,7 @@ attention_q8_long_kernel(const bf16* __restrict__ qkv,
 
   // q codes of the warp's rows ra, rb: lanes 16c + 4t..+3, as the short
   // core's
-  const int ra = blockIdx.x * kAttnLongQueries + warp * 16 + g;
+  const int ra = blockIdx.x * kAttnQ8LongQueries + warp * 16 + g;
   const int rb = ra + 8;
   uint32_t qa[kD / 32][4];  // A fragments of the 32-lane k steps
   float cqa, cqb;
@@ -1507,13 +1511,13 @@ inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
                                          cudaStream_t stream) {
   const int smem = attn_q8_long_layout(kD).bytes;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
-  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries, H, B);
+  const dim3 grid((N + kAttnQ8LongQueries - 1) / kAttnQ8LongQueries, H, B);
   if (s_qkv != nullptr)
-    attention_q8_long_kernel<kD, true><<<grid, kAttnLongWarps * 32, smem,
+    attention_q8_long_kernel<kD, true><<<grid, kAttnQ8LongWarps * 32, smem,
                                          stream>>>(qkv, bias, s_qkv, out, N,
                                                    C, scale);
   else
-    attention_q8_long_kernel<kD, false><<<grid, kAttnLongWarps * 32, smem,
+    attention_q8_long_kernel<kD, false><<<grid, kAttnQ8LongWarps * 32, smem,
                                           stream>>>(qkv, bias, nullptr, out,
                                                     N, C, scale);
   return cudaGetLastError();
@@ -1532,7 +1536,7 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   if (kt == kAttnLongRoute) {
-    if (!attn_long_plan_ok(plan, B, N, H, d,
+    if (!attn_long_plan_ok(plan, B, N, H, d, kAttnQ8LongWarps, 1,
                            head_dim_ok(d) ? attn_q8_long_layout(d).bytes : 0))
       return cudaErrorInvalidValue;
     switch (d) {

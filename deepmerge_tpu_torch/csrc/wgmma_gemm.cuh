@@ -24,9 +24,7 @@
 
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums (no link against libcuda)
-
-#include "block_common.cuh"
+#include "block_common.cuh"  // and hopper.cuh: mbarriers, TMA, wgmma
 
 namespace {
 
@@ -40,96 +38,6 @@ constexpr int kGemmThreads = kGemmConsumers * 128 + 32;  // + producer warp
 // it to the swizzle's 1024 bytes, the barriers.
 __host__ __device__ constexpr int gemm_smem_bytes(int stages) {
   return stages * (kGemmBM + kGemmBN) * kSlabBytes + 1024 + 2 * stages * 8;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One TMA load of a (box rows) x 128-byte tile at (column c0, row c1) of a
-// 2-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle
-// (TMA's CU_TENSOR_MAP_SWIZZLE_128B): rows of 128 B, 8-row groups 1024 B
-// apart; the tile starts on 1024 B. Adding 2 to the descriptor advances
-// its start by 32 B, one k step (16 bf16 or 32 int8 values) within the
-// swizzle atom.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Keeps the compiler from moving the accumulators across the asynchronous
-// wgmma issue and wait.
-__device__ __forceinline__ void fence_acc(float (&d)[kGemmBN / 2]) {
-#pragma unroll
-  for (int i = 0; i < kGemmBN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_acc(int (&d)[kGemmBN / 2]) {
-#pragma unroll
-  for (int i = 0; i < kGemmBN / 2; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The GEMM (see the head of this file). Mma supplies the accumulator type
@@ -226,28 +134,6 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     epi.store(d, m0 + row_off + (warp & 3) * 16 + (lane >> 2), n0, lane & 3,
               M, N);
   }
-}
-
-// cuTensorMapEncodeTiled, a driver call, reached through the runtime's
-// entry-point query (no link against libcuda).
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                   cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiledFn>(nullptr);
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
 }
 
 // The tensor map of a row-major (rows, K) matrix of `type` (elements of

@@ -179,11 +179,14 @@ def _check_tokens(b, n):
 
 
 def _check_bias(bias, heads, n, device):
+    """A contiguous float32 (H, N, N) bias on the device, on 16 bytes (the
+    long route copies its rows from their 16-byte pieces)."""
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, n, n)
-            or bias.device != device or not bias.is_contiguous()):
+            or bias.device != device or not bias.is_contiguous()
+            or bias.data_ptr() % 16):
         raise ValueError(f"bias must be a contiguous float32 ({heads}, {n}, "
-                         f"{n}) on {device}, got {bias.dtype} "
-                         f"{tuple(bias.shape)} on {bias.device}")
+                         f"{n}) on {device}, 16-byte aligned; got "
+                         f"{bias.dtype} {tuple(bias.shape)} on {bias.device}")
 
 
 def _check_cuda(qkv, bias, heads):
@@ -239,7 +242,7 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
                         device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    ints = attention_plan(b, n, heads, head_dim=d)["ints"]
+    ints = attention_plan(b, n, heads, head_dim=d, probs=True)["ints"]
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), probs.data_ptr(), b, n, c,
                                  heads, _plan_arg(ints), stream)

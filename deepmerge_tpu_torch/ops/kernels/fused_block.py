@@ -45,7 +45,7 @@ HEAD_DIMS = (32, 64, 128)  # the attention cores' head widths
 MAX_TOKENS = 256   # the short (register-resident) attention cores' longest
 MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
 MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
-MAX_LONG_WIDTH = 8192  # the wide LayerNorm kernels' (one CTA a row)
+MAX_LONG_WIDTH = 8192  # the wide LayerNorm kernels' widest row
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -157,21 +157,38 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
                SM_THREADS // threads, SM_CTAS)
 
 
-# The long route of both cores (csrc/block_common.cuh attention_long_kernel,
-# csrc/fused_block_q8.cu attention_q8_long_kernel): a CTA of four warps
-# takes one head, one sample and 64 queries, K and V stream through shared
-# memory in 64-key blocks, twice (the row max and Σe, then the
-# probabilities and P·V). Its plan's first int is ATTN_LONG_ROUTE, which no
-# short plan has (their first int is a bucket >= 1). Registers a thread
-# (the launch bound of one 128-thread CTA allows 255): ptxas's most over
-# the variants of each width (nvcc 12.9, sm_90a, no spills but 8 bytes in
-# the int8 core at width 32 with dynamic scales).
+# The long route of the bf16 core (csrc/block_common.cuh
+# attention_long_kernel): a CTA takes 128 queries of one head and
+# ATTN_LONG_SAMPLES samples at a time, two warpgroups a sample (64 query
+# rows each, the wgmma M); warp 0 streams K and V by TMA through a ring in
+# shared memory, in 64-key blocks, twice (the row max and Σe, then the
+# probabilities and P·V), and the f32 bias in one of three forms
+# (``attention_long_bias``): the CTA's 128 bias rows once (a slab) where
+# they fit the bias region, its CTAs then taking several sample groups each
+# (``attention_long_groups``); else a 128 x 64 tile a stage by TMA where
+# N % 4 == 0; else row copies. The grid is (query blocks, sample groups,
+# heads). Every variant takes all of a CTA's shared memory. Its plan's
+# first int is ATTN_LONG_ROUTE, which no short plan has (their first int is
+# a bucket >= 1). Registers a thread: ptxas's most over the variants of each
+# width (nvcc 12.9, sm_90a; the launch bound of one CTA an SM allows 128 at
+# 16 warps, 255 at 8; 8-16 bytes spill in the slab/row forms at width 32
+# and with probabilities at 64).
 ROUTES = ("short", "long")
 ATTN_LONG_ROUTE = 0
-ATTN_LONG_WARPS = 4
-ATTN_LONG_QUERIES = 64
+ATTN_LONG_QUERIES = 128
 ATTN_LONG_KEYS = 64
-ATTN_LONG_REGISTERS = {32: 114, 64: 140, 128: 180}
+ATTN_LONG_SAMPLES = {32: 2, 64: 2, 128: 1}
+ATTN_LONG_WARPS = {d: 8 * s for d, s in ATTN_LONG_SAMPLES.items()}
+ATTN_LONG_SMEM = CTA_SHARED_MAX
+ATTN_LONG_SLAB_CTAS = 2048
+ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223}
+# K4a's long route (csrc/fused_block_q8.cu attention_q8_long_kernel): a CTA
+# of four warps takes one head, one sample and 64 queries, k and v in
+# 64-key blocks; grid (query blocks, heads, samples). Registers as above
+# (no spills but 8 bytes at width 32 with dynamic scales).
+ATTN_Q8_LONG_WARPS = 4
+ATTN_Q8_LONG_QUERIES = 64
+ATTN_Q8_LONG_KEYS = 64
 ATTN_Q8_LONG_REGISTERS = {32: 96, 64: 133, 128: 168}
 
 
@@ -185,10 +202,44 @@ def _route(n: int, route: str | None) -> str:
     return route
 
 
-def attention_long_smem(head_dim: int) -> int:
-    """Shared bytes of a bf16 long-route CTA: two buffers of a 64-key block
-    of K and of V at the short core's row stride."""
-    return 2 * 2 * ATTN_LONG_KEYS * attn_row_bytes(head_dim)
+def _long_bias_region(head_dim: int, probs: bool) -> int:
+    """Bytes of the bf16 long route's bias region (the C side's
+    ``attn_long_region_bytes``): the CTA's shared bytes less 1 KB of
+    alignment, the K/V ring (three stages, two with probabilities, each a
+    64-key block of K and of V of each sample), the probabilities' staging
+    (16 x 72 bf16 a warp) and the barriers (two a stage and the slab's)."""
+    stages = 2 if probs else 3
+    samples = ATTN_LONG_SAMPLES[head_dim]
+    ring = stages * 2 * samples * ATTN_LONG_KEYS * head_dim * 2
+    staging = ATTN_LONG_WARPS[head_dim] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
+        if probs else 0
+    bars = -(-(2 * stages + 1) * 8 // 16) * 16
+    return ATTN_LONG_SMEM - 1024 - ring - staging - bars
+
+
+def attention_long_bias(n: int, head_dim: int, probs: bool = False) -> str:
+    """The bias form of the bf16 long route at ``n`` tokens (the C side's
+    ``attn_long_bias_mode``): "slab" where a CTA's 128 rows of n floats and
+    their shift fit the bias region, else "tiles" where n % 4 == 0, else
+    "rows". ``probs``: the saved-probabilities kernels' (K5, K6)."""
+    if ATTN_LONG_QUERIES * n * 4 + 16 <= _long_bias_region(head_dim, probs):
+        return "slab"
+    return "tiles" if n % 4 == 0 else "rows"
+
+
+def attention_long_groups(b: int, n: int, heads: int, head_dim: int,
+                          probs: bool = False) -> int:
+    """The bf16 long route's grid in y (the C side's
+    ``attn_long_sample_groups``): one CTA for each group of
+    ``ATTN_LONG_SAMPLES`` samples, but in the slab form ceil(groups · (CTAs
+    a group) / ``ATTN_LONG_SLAB_CTAS``) groups a CTA, the CTA of y taking
+    groups y, y + grid y, ..."""
+    groups = -(-b // ATTN_LONG_SAMPLES[head_dim])
+    if attention_long_bias(n, head_dim, probs) != "slab":
+        return groups
+    per = -(-groups * -(-n // ATTN_LONG_QUERIES) * heads
+            // ATTN_LONG_SLAB_CTAS)
+    return -(-groups // per)
 
 
 def attention_q8_long_smem(head_dim: int) -> int:
@@ -197,47 +248,53 @@ def attention_q8_long_smem(head_dim: int) -> int:
     scales, v's column scales and a d-lane partial abs-max for each d/8
     threads."""
     d = head_dim
-    parts = ATTN_LONG_WARPS * 32 // (d // 8)
-    return ATTN_LONG_KEYS * (d + 16) + d * (ATTN_LONG_KEYS + 16) \
-        + ATTN_LONG_KEYS * 4 + d * 4 + parts * d * 4
+    parts = ATTN_Q8_LONG_WARPS * 32 // (d // 8)
+    return ATTN_Q8_LONG_KEYS * (d + 16) + d * (ATTN_Q8_LONG_KEYS + 16) \
+        + ATTN_Q8_LONG_KEYS * 4 + d * 4 + parts * d * 4
 
 
-def _long_plan(b: int, n: int, heads: int, head_dim: int, smem: int,
-               registers: int, what: str) -> dict:
+def _long_plan(b: int, n: int, heads: int, head_dim: int, warps: int,
+               samples: int, smem: int, registers: int, grid: tuple,
+               what: str) -> dict:
     if not 1 <= n <= MAX_LONG_TOKENS:
         raise ValueError(f"{what} takes 1..{MAX_LONG_TOKENS} tokens, got "
                          f"{n}; longer sequences are open work (ROADMAP.md)")
-    grid = (-(-n // ATTN_LONG_QUERIES), heads, b)
     if not 1 <= heads <= MAX_GRID_Y or not 1 <= b <= MAX_GRID_Y:
         raise ValueError(f"attention grid {grid} out of range")
-    threads = ATTN_LONG_WARPS * 32
-    return dict(ints=(ATTN_LONG_ROUTE, ATTN_LONG_WARPS, 1, smem),
-                route="long", warps=ATTN_LONG_WARPS, samples=1, smem=smem,
-                grid=grid, head_dim=head_dim,
-                key_blocks=-(-n // ATTN_LONG_KEYS),
-                ctas_per_sm=ctas_per_sm(threads, smem, registers))
+    return dict(ints=(ATTN_LONG_ROUTE, warps, samples, smem), route="long",
+                warps=warps, samples=samples, smem=smem, grid=grid,
+                head_dim=head_dim, key_blocks=-(-n // ATTN_LONG_KEYS),
+                ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
 def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
                    samples: int | None = None, head_dim: int = 64,
-                   route: str | None = None) -> dict:
+                   route: str | None = None, probs: bool = False) -> dict:
     """The attention core's launch for ``b`` samples of ``n`` tokens and
     ``heads`` heads of width ``head_dim``: ``ints`` (key-tile bucket,
     warps, samples, shared bytes) as the C entry points take them, the
     ``route`` it takes, the grid (heads, samples per CTA) and the CTAs that
     fit an SM. ``samples`` None: 4 from a batch of
     ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Above ``MAX_TOKENS`` (or with
-    ``route="long"``) the long route: ints (``ATTN_LONG_ROUTE``, 4 warps,
-    1 sample, shared bytes), grid (query blocks, heads, samples); ``warps``
-    and ``samples`` do not apply. Raises ``ValueError`` for a launch the
+    ``route="long"``) the long route: ints (``ATTN_LONG_ROUTE``,
+    ``ATTN_LONG_WARPS``, ``ATTN_LONG_SAMPLES``, ``ATTN_LONG_SMEM``) of the
+    width, grid (128-query blocks, sample groups, heads) and ``bias`` form
+    (both of the saved-probabilities variant with ``probs``); ``warps`` and
+    ``samples`` do not apply. Raises ``ValueError`` for a launch the
     kernels do not take."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the attention core takes heads of width "
                          f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if _route(n, route) == "long":
-        return _long_plan(b, n, heads, head_dim, attention_long_smem(head_dim),
-                          ATTN_LONG_REGISTERS[head_dim],
-                          "the long attention route")
+        plan = _long_plan(
+            b, n, heads, head_dim, ATTN_LONG_WARPS[head_dim],
+            ATTN_LONG_SAMPLES[head_dim], ATTN_LONG_SMEM,
+            ATTN_LONG_REGISTERS[head_dim],
+            (-(-n // ATTN_LONG_QUERIES),
+             attention_long_groups(b, n, heads, head_dim, probs), heads),
+            "the long attention route")
+        plan["bias"] = attention_long_bias(n, head_dim, probs)
+        return plan
     if samples is None:
         samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
     if not 1 <= n <= MAX_TOKENS:
@@ -347,17 +404,19 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     it takes, the grid and the CTAs that fit an SM. ``warps`` None: 2
     where one 16-query tile holds every token (n <= 16), else
     ``ATTN_WARPS``; ``samples`` None: as ``attention_plan``. Above
-    ``MAX_TOKENS`` (or with ``route="long"``) the long route, as
-    ``attention_plan``'s. Raises ``ValueError`` for a launch the kernels
+    ``MAX_TOKENS`` (or with ``route="long"``) its long route: ints
+    (``ATTN_LONG_ROUTE``, ``ATTN_Q8_LONG_WARPS``, 1 sample, shared bytes),
+    grid (64-query blocks, heads, samples). Raises ``ValueError`` for a launch the kernels
     do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the int8 attention core takes heads of width "
                          f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if _route(n, route) == "long":
-        return _long_plan(b, n, heads, head_dim,
-                          attention_q8_long_smem(head_dim),
-                          ATTN_Q8_LONG_REGISTERS[head_dim],
-                          "the long int8 attention route")
+        return _long_plan(
+            b, n, heads, head_dim, ATTN_Q8_LONG_WARPS, 1,
+            attention_q8_long_smem(head_dim), ATTN_Q8_LONG_REGISTERS[head_dim],
+            (-(-n // ATTN_Q8_LONG_QUERIES), heads, b),
+            "the long int8 attention route")
     if warps is None:
         warps = 2 if n <= 16 else ATTN_WARPS
     if samples is None:
@@ -1591,23 +1650,45 @@ attention_q8.launches = 0
 
 # ------------------------------------------- the blocks' LayerNorm alone
 
+# The bf16 LayerNorm kernel (csrc/fused_block.cu layer_norm_kernel) keeps
+# a row in registers; its forms as the C dispatch picks them by row width:
+# (widest row, 8-element vectors a lane, warps a row).
+LN_FORMS = ((MAX_WIDTH, 4, 1), (1536, 6, 1), (2048, 8, 1), (3072, 6, 2),
+            (4096, 8, 2), (MAX_LONG_WIDTH, 8, 4))
+
+
+def layer_norm_form(c: int) -> tuple:
+    """(8-element vectors a lane, warps a row) of the bf16 LayerNorm kernel
+    at row width ``c``: one warp a row up to 2048, two up to 4096, four
+    above. Raises
+    ``ValueError`` for a width no LayerNorm kernel takes (C % 8 != 0, or
+    above ``MAX_LONG_WIDTH``)."""
+    if c % 8 or not 8 <= c <= MAX_LONG_WIDTH:
+        raise ValueError(f"the LayerNorm kernels take C % 8 == 0 up to "
+                         f"{MAX_LONG_WIDTH}, got C={c} (ROADMAP.md)")
+    return next((vec, warps) for top, vec, warps in LN_FORMS if c <= top)
+
+
 def _check_rows(x, w, b):
     """(M, C) of a LayerNorm input the kernels take: contiguous bf16 rows,
-    C % 8 == 0 (16-byte pieces), C <= ``MAX_LONG_WIDTH``, float32 (C,)
-    scale and bias on x's device."""
+    C % 8 == 0 (16-byte pieces), C <= ``MAX_LONG_WIDTH``
+    (``layer_norm_form``), float32 (C,) scale and bias on x's device
+    (16-byte aligned: the bf16 kernel reads them in 16-byte pieces)."""
     if (x.dtype != torch.bfloat16 or x.dim() != 2 or not x.is_contiguous()
             or x.data_ptr() % 16):
         raise TypeError(f"x must be a contiguous (M, C) bf16 tensor, 16-byte "
                         f"aligned; got {x.dtype} {tuple(x.shape)}")
     m, c = x.shape
-    if not 1 <= m < 2**31 or c % 8 or not 8 <= c <= MAX_LONG_WIDTH:
-        raise ValueError(f"the LayerNorm kernels take C % 8 == 0 up to "
-                         f"{MAX_LONG_WIDTH}, got ({m}, {c}) (ROADMAP.md)")
+    if not 1 <= m < 2**31:
+        raise ValueError(f"the LayerNorm kernels take 1 <= M < 2**31 rows, "
+                         f"got ({m}, {c}) (ROADMAP.md)")
+    layer_norm_form(c)
     for t in (w, b):
         if (t.dtype != torch.float32 or tuple(t.shape) != (c,)
-                or t.device != x.device or not t.is_contiguous()):
+                or t.device != x.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(f"scale and bias must be contiguous float32 "
-                             f"({c},) on {x.device}")
+                             f"({c},) on {x.device}, 16-byte aligned")
     return m, c
 
 
@@ -1627,8 +1708,9 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor,
 
     CPU tensors run ``layer_norm_ref``. CUDA tensors (bf16, C % 8 == 0, C
     <= ``MAX_LONG_WIDTH``) launch ``csrc/fused_block.cu``
-    (``dm_layer_norm``: one warp a row up to ``MAX_WIDTH``, one CTA a row
-    above, counted in ``layer_norm_wide``); anything else raises.
+    (``dm_layer_norm``: one warp a row up to 2048, two or four above, the
+    row in registers; C > ``MAX_WIDTH`` counted in
+    ``layer_norm_wide``); anything else raises.
     """
     if not _on_cuda(x):
         return layer_norm_ref(x, w, b)

@@ -3,7 +3,8 @@
 The CUDA attention cores take N up to ``MAX_TOKENS`` (256) in registers and
 longer sequences on a second route that streams the keys in blocks of 64,
 twice; the LayerNorm kernels take a row in one warp up to ``MAX_WIDTH``
-(1024) and in one CTA above. Here, against the JAX package as its own tests
+(1024) and above it in one warp (bf16, up to 2048), four warps (bf16) or
+one CTA (w8a8). Here, against the JAX package as its own tests
 run it (Pallas in interpret mode), on the same seeded numpy inputs and
 weights:
 
@@ -21,9 +22,13 @@ weights:
   core against the full plain version: the int8 core's codes and output
   bit for bit (an exact max and integer sums, each element by the same
   arithmetic), the bf16 core within 2e-2 of max|plain| (its Σe summed
-  online in another order, the bf16 rounding of e against the same final
-  max);
-* the plans of the new routes and the new limits.
+  online in another order, its exp taken as 2^(x·log₂e), the bf16
+  rounding of e against the same final max);
+* the plans of the new routes and the new limits: the bf16 long route's
+  CTA (128 queries, two samples, 16 warps; one sample and 8 warps at
+  width 128) within the card's limits at every width, its grid and bias
+  form, K4a's plan unchanged, and the bf16 LayerNorm's form at every
+  width.
 """
 
 import math
@@ -48,6 +53,7 @@ TOL = 1e-5
 BF16_TOL = 2e-2
 Q8_TOL, Q8_RMS_TOL = 2e-2, 1e-2
 KEYS = fb.ATTN_LONG_KEYS
+LOG2E = float(np.float32(math.log2(math.e)))  # the kernel's f32 log₂e
 
 MODELS = {
     # 4·8² + 1 = 257 tokens at stage 0: one past the short core
@@ -163,7 +169,8 @@ def _blocked_bf16(qkv, bias, heads):
     """The bf16 long route's two passes over 64-key blocks: pass 1 the f32
     row max and Σe online (Σ rescaled by exp(m_old − m_new)), pass 2 e =
     exp(l − m) against the final max, P = bf16(e) into O, out =
-    bf16(O·(1/Σe))."""
+    bf16(O·(1/Σe)); exp(x) as the kernel takes it, 2^(x·log₂e) with log₂e
+    folded into the logits (l·log₂e − m·log₂e)."""
     f32 = torch.float32
     b, n, c3 = qkv.shape
     c = c3 // 3
@@ -179,12 +186,12 @@ def _blocked_bf16(qkv, bias, heads):
     for s in blocks:                       # pass 1
         lg = logits(s)
         new = torch.maximum(m, lg.amax(-1, keepdim=True))
-        total = total * torch.exp(m - new) + torch.exp(lg - new).sum(
-            -1, keepdim=True)
+        total = total * torch.exp2((m - new) * LOG2E) + torch.exp2(
+            lg * LOG2E - new * LOG2E).sum(-1, keepdim=True)
         m = new
     o = torch.zeros((b, heads, n, d))
     for s in blocks:                       # pass 2
-        e = torch.exp(logits(s) - m)
+        e = torch.exp2(logits(s) * LOG2E - m * LOG2E)
         o = o + torch.einsum("bhnm,bmhd->bhnd", e.to(qkv.dtype).to(f32),
                              v[:, s])
     return (o * (1.0 / total)).permute(0, 2, 1, 3).reshape(b, n, c).to(
@@ -252,27 +259,63 @@ def test_blocked_bf16_core_matches_plain(n):
 
 # ---------------------------------------------------------------- plans
 
+def _bf16_long_region(d, probs):
+    """The bf16 long route's bias region at width d, from the C side's
+    layout: the CTA's 232,448 shared bytes less 1 KB of alignment, the K/V
+    ring (three stages, two with probabilities; each a 64-key block of K
+    and of V of each sample), the probabilities' staging (16 x 72 bf16 a
+    warp) and the barriers (two a stage and the slab's, on 16 bytes)."""
+    samples = 1 if d == 128 else 2
+    stages = 2 if probs else 3
+    staging = 8 * samples * 16 * 72 * 2 if probs else 0
+    bars = 48 if probs else 64
+    return 232_448 - 1024 - stages * 2 * samples * 64 * d * 2 - staging \
+        - bars
+
+
+def _bf16_long_grid(b, n, heads, d, probs=False):
+    """(128-query blocks, sample groups, heads): a CTA a group of two
+    samples (one at width 128), but where a CTA's 128 bias rows fit the
+    bias region (the slab form) ceil(groups · CTAs-a-group / 2048) groups
+    a CTA."""
+    groups = -(-b // (1 if d == 128 else 2))
+    qblocks = -(-n // 128)
+    if 128 * n * 4 + 16 <= _bf16_long_region(d, probs):
+        per = -(-groups * qblocks * heads // 2048)
+        groups = -(-groups // per)
+    return (qblocks, groups, heads)
+
+
 @pytest.mark.parametrize("d", fb.HEAD_DIMS)
 def test_long_route_plans(d):
-    """Above ``MAX_TOKENS`` both cores take the long route: its marker, 4
-    warps, one sample a CTA, its shared bytes (the C side's
-    ``attn_long_smem_bytes`` and ``attn_q8_long_layout``), a grid of
-    64-query blocks x heads x samples within the card's limits; at most
-    ``MAX_TOKENS`` they return the short core's ints unless the long route
-    is forced."""
+    """Above ``MAX_TOKENS`` both cores take the long route. The bf16 core:
+    its marker, 16 warps and two samples a CTA (8 and one at width 128),
+    all of a CTA's shared memory (232,448 bytes), a grid of 128-query
+    blocks x sample groups x heads (``_bf16_long_grid``). K4a's, unchanged:
+    4 warps, one sample, its shared bytes (``attn_q8_long_layout``), a grid
+    of 64-query blocks x heads x samples. Both within the card's limits; at
+    most ``MAX_TOKENS`` they return the short core's ints unless the long
+    route is forced."""
     heads = 768 // d
+    samples = 1 if d == 128 else 2
     for n in (fb.MAX_TOKENS + 1, 768, 4096, fb.MAX_LONG_TOKENS):
-        for b in (1, 240, 1024):
-            for plan, smem in (
-                    (fb.attention_plan(b, n, heads, head_dim=d),
-                     2 * 2 * 64 * (d + 8) * 2),
-                    (fb.attention_q8_plan(b, n, heads, head_dim=d),
-                     64 * (d + 16) + d * 80 + 64 * 4 + d * 4
-                     + 128 // (d // 8) * d * 4)):
+        for b in (1, 240, 1023):
+            for probs in (False, True):
+                plan = fb.attention_plan(b, n, heads, head_dim=d,
+                                         probs=probs)
                 assert plan["route"] == "long"
-                assert plan["ints"] == (fb.ATTN_LONG_ROUTE, 4, 1, smem)
-                assert plan["grid"] == (-(-n // 64), heads, b)
-                assert smem <= fb.CTA_SHARED_MAX and plan["ctas_per_sm"] >= 1
+                assert plan["ints"] == (fb.ATTN_LONG_ROUTE, 8 * samples,
+                                        samples, 232_448)
+                assert plan["grid"] == _bf16_long_grid(b, n, heads, d, probs)
+            q8 = fb.attention_q8_plan(b, n, heads, head_dim=d)
+            smem = 64 * (d + 16) + d * 80 + 64 * 4 + d * 4 \
+                + 128 // (d // 8) * d * 4
+            assert q8["route"] == "long"
+            assert q8["ints"] == (fb.ATTN_LONG_ROUTE, 4, 1, smem)
+            assert q8["grid"] == (-(-n // 64), heads, b)
+            for p in (plan, q8):
+                assert p["smem"] <= fb.CTA_SHARED_MAX
+                assert p["ctas_per_sm"] >= 1
     for n in (1, 192, fb.MAX_TOKENS):
         short = fb.attention_plan(1024, n, heads, head_dim=d)
         assert short["route"] == "short" and short["ints"][0] >= 1
@@ -284,6 +327,78 @@ def test_long_route_plans(d):
         fb.attention_plan(1024, 768, heads, head_dim=d)["ints"]
     assert fb.block_plan_q8(128, 768, 768, heads, 3072, True)[:4] == \
         fb.attention_q8_plan(128, 768, heads, head_dim=d)["ints"]
+
+
+@pytest.mark.parametrize("n", [257, 768, fb.MAX_LONG_TOKENS])
+@pytest.mark.parametrize("d", fb.HEAD_DIMS)
+def test_bf16_long_plan_fits_the_card(d, n):
+    """The bf16 long route at each width: a CTA within the shared bytes
+    one CTA may take and the registers of its launch bound (one CTA an
+    SM: 128 a thread at 16 warps, 255 at 8), a grid whose 128-query blocks
+    cover N once and whose CTAs take every sample once, and the bias form
+    of each N (the slab at 257, tiles at 768 and 16,384)."""
+    heads = 768 // d
+    for b in (1, 127, 128, 1024):
+        plan = fb.attention_plan(b, n, heads, head_dim=d)
+        warps, samples, smem = plan["ints"][1:]
+        assert warps == 8 * samples and smem == fb.CTA_SHARED_MAX
+        assert fb.ATTN_LONG_REGISTERS[d] * warps * 32 <= fb.SM_REGISTERS
+        assert plan["ctas_per_sm"] == 1
+        qblocks, groups, h = plan["grid"]
+        assert (qblocks - 1) * fb.ATTN_LONG_QUERIES < n \
+            <= qblocks * fb.ATTN_LONG_QUERIES
+        assert h == heads and 1 <= groups <= fb.MAX_GRID_Y
+        # CTA y takes sample groups y, y + groups, ...: every group once
+        total = -(-b // samples)
+        taken = sorted(g for y in range(groups)
+                       for g in range(y, total, groups))
+        assert taken == list(range(total))
+        assert plan["key_blocks"] == -(-n // fb.ATTN_LONG_KEYS)
+        assert plan["bias"] == ("slab" if n == 257 else "tiles")
+
+
+@pytest.mark.parametrize("c, form", [
+    (8, (4, 1)), (768, (4, 1)), (1024, (4, 1)), (1032, (6, 1)),
+    (1536, (6, 1)), (1544, (8, 1)), (2048, (8, 1)), (2056, (6, 2)),
+    (3072, (6, 2)), (3080, (8, 2)), (4096, (8, 2)), (4104, (8, 4)),
+    (8192, (8, 4)), (1540, None), (8200, None), (12, None)])
+def test_layer_norm_form_by_width(c, form):
+    """Which bf16 LayerNorm kernel each width takes (the row in registers):
+    one warp a row and 4 vectors of 8 a lane up to 1024, one warp and 6 or
+    8 vectors up to 2048, two warps and 6 or 8 vectors up to 4096, four
+    warps and 8 vectors up to ``MAX_LONG_WIDTH``; refused above that and at
+    C % 8 != 0, where
+    ``_check_rows`` refuses too (the entries of both LayerNorms)."""
+    bf = torch.bfloat16
+    x = torch.zeros((2, c), dtype=bf)
+    wb = (torch.zeros(c), torch.zeros(c))
+    if form is None:
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fb.layer_norm_form(c)
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fb._check_rows(x, *wb)
+        return
+    vec, warps = fb.layer_norm_form(c)
+    assert (vec, warps) == form
+    assert 256 * vec * warps >= c
+    assert fb._check_rows(x, *wb) == (2, c)
+
+
+@pytest.mark.parametrize("c", [1032, 2056, 3072])
+def test_layer_norm_entries_run_plain_versions_at_every_form(c):
+    """The LayerNorm entries on CPU tensors at widths of the wider forms
+    (one warp and 6 vectors, two warps): ``_ln`` rounded to bf16, and
+    ``quantize_rows`` of it."""
+    rs = np.random.default_rng(c)
+    x = torch.from_numpy(rs.standard_normal((5, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(1.0 + 0.1 * rs.standard_normal(c).astype(
+        np.float32))
+    b = torch.from_numpy(0.1 * rs.standard_normal(c).astype(np.float32))
+    assert torch.equal(fb.layer_norm(x, w, b), fb._ln(x, w, b).to(x.dtype))
+    codes, scale = fb.ln_quant(x, w, b)
+    want_c, want_s = fb.quantize_rows(fb._ln(x, w, b))
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
 
 
 def test_new_limits_and_refusals():
