@@ -319,6 +319,14 @@ TRAIN_STEPS = 8
 # script keeps its time limit with the long-shapes phase
 TRUSTED_EPOCHS = 14
 TRUSTED_EPOCHS_V5 = 7
+# the long-shapes gate (phase 8b): v3-cube16 trained on the long-shapes
+# scene at LONG_TRAIN_PAIRS a step (120 run out of memory through K6),
+# under deterministic algorithms, whole epochs: enough that the trained
+# embeddings separate the scene's objects and the gate has a margin to
+# read, within the script's limit: at 4 epochs the w8a8 slice's maps
+# were 1.6% apart, at 8 the bf16 slice's first-round decisions 0.62%
+# (bars 0.5%; PERF.md section 4)
+LONG_TRUSTED_EPOCHS = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -642,11 +650,10 @@ def check_kernels(dev, ds, scene):
     for b in (64, 1024):
         x, plist, heads = block_inputs(b, 192, 1, dev, seed=b)
         got = fb.fused_block(x, plist[0], heads)
-        want = fb.block_ref(x, plist[0], heads)
+        want, plain_ms = cuda_once(lambda: fb.block_ref(x, plist[0], heads))
         aerr, errs = check_block(f"fused_block (B={b})", got, want, x,
                                  TOL_BLOCK, TOL_BLOCK_RMS)
         ms = cuda_ms(lambda: fb.fused_block(x, plist[0], heads))
-        plain_ms = cuda_ms(lambda: fb.block_ref(x, plist[0], heads), reps=2)
         lib_ms = encoder_library_ms(x, 1)
         b2 = bound(*block_work(b, 192, 1))
         print(f"K2 fused_block B={b} N=192 C=768 H=12: {errs}; {ms:.3f} ms, "
@@ -664,12 +671,11 @@ def check_kernels(dev, ds, scene):
         for n, depth in ((48, 4), (12, 2)):
             x, plist, heads = block_inputs(b, n, depth, dev, seed=b + n)
             got = fb.fused_block_chain(x, plist, heads)
-            want = fb.chain_ref(x, plist, heads)
+            want, plain_ms = cuda_once(lambda: fb.chain_ref(x, plist, heads))
             aerr, errs = check_block(
                 f"fused_block_chain (B={b}, N={n}, depth {depth})", got, want,
                 x, TOL_CHAIN, TOL_CHAIN_RMS)
             ms = cuda_ms(lambda: fb.fused_block_chain(x, plist, heads))
-            plain_ms = cuda_ms(lambda: fb.chain_ref(x, plist, heads), reps=2)
             lib_ms = encoder_library_ms(x, depth)
             print(f"K3 fused_block_chain B={b} N={n} depth {depth}: {errs}; "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1098,17 +1104,14 @@ def check_label_lookup(dev, scene):
 def check_int4_dot(dev):
     """Phase 3: K10, the int4 dot probe, at the TPU probe's shape (M 4096,
     K 768, N 3072; operands in its ranges, int8 in [-100, 100), int4 in
-    [-7, 7]): each variant that assembles bit-exact against its plain
-    version and timed (mean of 20) in TOP/s, beside ``torch._int_mm`` and
-    K4's s8 ``wgmma`` GEMM (its s32 ``acc`` epilogue) on the same int8
-    operands and its bound (the int32 output outweighs the operations).
-    The s4 x s4 variant is built alone: a refusal of its ``mma`` by ptxas
-    is printed as the probe's answer. Returns the w4a8 variant's numbers
-    and the probe's launches."""
+    [-7, 7]): each variant, all three on the s8 ``wgmma`` GEMM, bit-exact
+    against its plain version and timed (mean of 20) in TOP/s, beside
+    ``torch._int_mm`` on the same values as int8 (the packed operands
+    widened) and its bound (the int32 output outweighs the operations).
+    Returns the w4a8 variant's numbers (each variant's under
+    ``variants``) and the probe's launches."""
     import torch
 
-    from deepmerge_tpu_torch.ops.kernels import build
-    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
     from deepmerge_tpu_torch.ops.kernels import int4_dot as i4
 
     m, k, n = 4096, 768, 3072
@@ -1123,20 +1126,13 @@ def check_int4_dot(dev):
                         dtype=torch.int8)
     ops = 2 * m * k * n
     tops = lambda ms: ops / ms / 1e9
-    operands = {"s8s8": (a8, b8t), "s4s4": (i4.pack_int4(a4),
-                                            i4.pack_int4(b4t)),
-                "s8s4": (a8, i4.pack_int4(b4t))}
-    try:
-        build.build_all(["int4_dot_s4"])
-        s4_built = True
-    except RuntimeError as e:
-        s4_built = False
-        print(f"K10 s4 x s4 (mma.sync m16n8k64 s4) does not assemble for "
-              f"sm_90a; nvcc/ptxas said:\n{e}")
+    # each variant's operands, packed as it takes them, and the same values
+    # as int8 for torch._int_mm
+    operands = {"s8s8": ((a8, b8t), (a8, b8t)),
+                "s4s4": ((i4.pack_int4(a4), i4.pack_int4(b4t)), (a4, b4t)),
+                "s8s4": ((a8, i4.pack_int4(b4t)), (a8, b4t))}
     results, launches = {}, 0
-    for variant, (a, bt) in operands.items():
-        if variant == "s4s4" and not s4_built:
-            continue
+    for variant, ((a, bt), (wa, wbt)) in operands.items():
         got = i4.int4_dot(a, bt, variant)
         require(torch.equal(got, i4.int4_dot_ref(a, bt, variant)),
                 f"K10 int4_dot {variant} differs from plain")
@@ -1145,32 +1141,26 @@ def check_int4_dot(dev):
         ms = cuda_ms(lambda: i4.int4_dot(a, bt, variant), reps=20)
         launches += i4.int4_dot.launches
         plain_ms = cuda_ms(lambda: i4.int4_dot_ref(a, bt, variant), reps=2)
+        lib_ms = cuda_ms(lambda: torch._int_mm(wa, wbt.t()), reps=20)
         nbytes = a.numel() + bt.numel() + 4 * m * n
         b = bound(nbytes, int8_ops=ops)
         results[variant] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                **b)
-        print(f"K10 int4_dot {variant} {m}x{n}x{k}: bit-exact; {ms:.4f} ms "
-              f"({tops(ms):.0f} TOP/s), plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    print("K10 s8 x s4 without widening: PTX has no mixed-operand mma "
+                                library_ms=lib_ms, **b)
+        print(f"K10 int4_dot {variant} {m}x{n}x{k} (wgmma s8): bit-exact; "
+              f"{ms:.4f} ms ({tops(ms):.0f} TOP/s), torch._int_mm on the "
+              f"int8 values {lib_ms:.4f} ms ({tops(lib_ms):.0f} TOP/s), "
+              f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); target <= torch._int_mm: "
+              f"{target(ms <= lib_ms)}")
+    print("K10 s8 x s4 without widening: PTX has no mixed-operand product "
           "(s8 x s4), the TPU probe's third variant; s8s4 above is the "
-          "widened w4a8 form")
-    int_ms = cuda_ms(lambda: torch._int_mm(a8, b8t.t()), reps=20)
-    ws = torch.full((n,), 1e-3, device=dev)
-    sr = torch.full((m,), 1e-2, device=dev)
-    bias = torch.zeros((n,), dtype=torch.bfloat16, device=dev)
-    acc, _ = fb.gemm_q8(a8, b8t, ws, bias, "acc", row_scale=sr)
-    require(torch.equal(acc, i4.int4_dot_ref(a8, b8t, "s8s8")),
-            "K4's s8 GEMM (acc) differs from the probe's plain version")
-    k4_ms = cuda_ms(lambda: fb.gemm_q8(a8, b8t, ws, bias, "acc",
-                                       row_scale=sr), reps=20)
-    print(f"K10 beside: torch._int_mm {int_ms:.4f} ms ({tops(int_ms):.0f} "
-          f"TOP/s); K4's s8 wgmma GEMM (acc epilogue) {k4_ms:.4f} ms "
-          f"({tops(k4_ms):.0f} TOP/s); "
-          + "; ".join(f"{v} {tops(r['ms']):.0f} TOP/s, "
-                      f"{results['s8s8']['ms'] / r['ms']:.2f}x s8s8's rate"
-                      for v, r in results.items()))
-    out = dict(results["s8s4"], library_ms=int_ms)
+          "widened w4a8 form. The probe's answer: s8s4 at "
+          f"{results['s8s8']['ms'] / results['s8s4']['ms']:.2f}x s8s8's rate "
+          f"({results['s8s4']['ms']:.4f} against {results['s8s8']['ms']:.4f}"
+          " ms)")
+    out = dict(results["s8s4"],
+               variants={v: {key: r[key] for key in ("ms", "library_ms")}
+                         for v, r in results.items()})
     return {"int4_dot": out}, launches
 
 
@@ -1205,13 +1195,13 @@ def check_k4(dev):
                                           TOL_CHAIN_RMS)
                     run = lambda: fb.fused_block_chain_q8(x, qps, heads)
                     plain = lambda: fb.chain_ref_q8(x, qps, heads)
-                got, want = run(), plain()
+                got = run()
+                want, plain_ms = cuda_once(plain)
                 mode = "static" if static else "dynamic"
                 aerr, errs = check_block(
                     f"{name} (B={b}, N={n}, depth {depth}, {mode})", got,
                     want, x, tol, tol_rms)
                 ms = cuda_ms(run)
-                plain_ms = cuda_ms(plain, reps=2)
                 print(f"K4 {name} B={b} N={n} depth {depth} {mode}: {errs}; "
                       f"{ms:.3f} ms, plain {plain_ms:.3f} ms")
                 results[(name, b, n, mode)] = dict(
@@ -1258,7 +1248,8 @@ def check_k6(dev):
         bias = r(heads, n, n, s=0.5)
         g = r(b, n, c).to(torch.bfloat16)
         out, probs = fa.attention_probs(qkv, bias, heads)
-        want_out, want_probs = fa.attention_probs_ref(qkv, bias, heads)
+        (want_out, want_probs), plain_ms = cuda_once(
+            lambda: fa.attention_probs_ref(qkv, bias, heads))
         out_err, probs_err = rel_err(out, want_out), abs_err(probs, want_probs)
         require(out_err <= TOL_K6_OUT, f"K6 out (N={n}) differs from plain: "
                 f"{out_err} > {TOL_K6_OUT}")
@@ -1279,8 +1270,6 @@ def check_k6(dev):
                 f"K6 backward (N={n}): dqkv {dq_err}, dbias {db_err} > "
                 f"{TOL_K6_GRAD}")
         ms = cuda_ms(lambda: fa.attention_probs(qkv, bias, heads))
-        plain_ms = cuda_ms(lambda: fa.attention_probs_ref(qkv, bias, heads),
-                           reps=2)
         nbytes = (qkv.numel() * 2 + bias.numel() * 4 + out.numel() * 2
                   + probs.numel() * 2)
         b6 = bound(nbytes, bf16_flops=4 * b * n * n * c)
@@ -1334,11 +1323,11 @@ def check_k4a(dev):
                 plain = lambda: fb.chain_ref_q8(x, qps, heads,
                                                 quant_attn=True)
             mode = "static" if static else "dynamic"
+            want, plain_ms = cuda_once(plain)
             aerr, errs = check_block(
                 f"{name} (B={b}, N={n}, depth {depth}, {mode})", run(),
-                plain(), x, tol, tol_rms)
+                want, x, tol, tol_rms)
             ms, k4_ms = cuda_ms(run), cuda_ms(k4)
-            plain_ms = cuda_ms(plain, reps=2)
             print(f"K4a {name} B={b} N={n} depth {depth} {mode}: {errs}; "
                   f"{ms:.3f} ms (K4, bf16 attention: {k4_ms:.3f} ms; target "
                   f"<= 1.2x K4: {target(ms <= 1.2 * k4_ms)}), plain "
@@ -1382,7 +1371,8 @@ def check_k5(dev):
         x, plist, heads = block_inputs(b, n, 1, dev, seed=n + 21)
         p = plist[0]
         out, saved = fb.fused_block_train(x, p, heads)
-        want_out, want = fb.block_train_ref(x, p, heads)
+        (want_out, want), plain_ms = cuda_once(
+            lambda: fb.block_train_ref(x, p, heads))
         aerr, errs = check_block(f"K5 out (N={n})", out, want_out, x,
                                  TOL_BLOCK, TOL_BLOCK_RMS)
         _, r_errs = check_block(f"K5 r (N={n})", saved[3], want[3], x,
@@ -1407,7 +1397,6 @@ def check_k5(dev):
         require(g_err <= TOL_K5_GRAD, f"K5 gradients (N={n}): {g_err} > "
                 f"{TOL_K5_GRAD}")
         ms = cuda_ms(lambda: fb.fused_block_train(x, p, heads))
-        plain_ms = cuda_ms(lambda: fb.block_train_ref(x, p, heads), reps=2)
         bk = bound(*train_block_work(b, n))
         line = (f"K5 fused_block_train B={b} N={n}: out {errs}; r {r_errs}; "
                 f"probs max |err| {probs_err:.3e} (tol {TOL_K6_PROBS}), qkv "
@@ -1470,13 +1459,12 @@ def check_wide_tokens(dev):
                  (1024, 49), (1024, 13), (256, 256)):
         qkv, bias = attention_inputs(b, n, b + n)
         got = fa.attention_qkv(qkv, bias, heads)
-        want = fa.attention_qkv_ref(qkv, bias, heads)
+        want, plain_ms = cuda_once(
+            lambda: fa.attention_qkv_ref(qkv, bias, heads))
         err = rel_err(got, want)
         require(err <= TOL_K7, f"K7 (B={b}, N={n}) differs from plain: "
                 f"{err} > {TOL_K7}")
         ms = cuda_ms(lambda: fa.attention_qkv(qkv, bias, heads))
-        plain_ms = cuda_ms(lambda: fa.attention_qkv_ref(qkv, bias, heads),
-                           reps=2)
         q, k, v = (t.permute(0, 2, 1, 3).contiguous()
                    for t in fa.split_qkv(qkv, heads))
         lib_ms = attention_library_ms(q, k, v, bias)
@@ -1536,11 +1524,10 @@ def check_wide_tokens(dev):
     qkv, bias = attention_inputs(1024, 192, 8)
     q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
     got = fa.attention_bnhd(q, k, v, bias)
-    want = fa.attention_bnhd_ref(q, k, v, bias)
+    want, plain_ms = cuda_once(lambda: fa.attention_bnhd_ref(q, k, v, bias))
     err = rel_err(got, want)
     require(err <= TOL_K7, f"K8 differs from plain: {err} > {TOL_K7}")
     ms = cuda_ms(lambda: fa.attention_bnhd(q, k, v, bias))
-    plain_ms = cuda_ms(lambda: fa.attention_bnhd_ref(q, k, v, bias), reps=2)
     lib_ms = attention_library_ms(*(t.permute(0, 2, 1, 3).contiguous()
                                     for t in (q, k, v)), bias)
     b8 = attention_work(1024, 192)
@@ -1914,8 +1901,13 @@ def core_counters():
             "attention_long": fb.attention_long,
             "attention_q8_short": fb.attention_q8_short,
             "attention_q8_long": fb.attention_q8_long,
+            "attention_q8_prepass": fb.attention_q8_prepass,
             "layer_norm_wide": fb.layer_norm_wide,
             "ln_quant_wide": fb.ln_quant_wide}
+
+
+# the int8 long route's launches of one call: its pre-pass and its core
+Q8_LONG1 = {"attention_q8_long": 1, "attention_q8_prepass": 1}
 
 
 def routed(run, want, what):
@@ -1934,24 +1926,40 @@ def routed(run, want, what):
 
 def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
                                          (4, 401), (4, 772))):
-    """The bf16 long route at every head width (C ``c``) and in each form
-    of its bias at the default shapes (the CTA's rows once, a slab, at N
-    257 and, at width 32, 300 and 301; TMA tiles at 300 and 772; row copies
-    at 301 and 401; K6 at width 64 and N 257 in rows, its staging leaving
-    the slab too little room): K7 and K6 against their plain versions by
-    phase 3's bars, each launch on the long route."""
+    """The long routes at every head width (C ``c``) and in each form of
+    their bias at the default shapes (the CTA's rows once, a slab, at N
+    257 and, at width 32, 300 and 301 (K4a's also at 300 and 301 at every
+    width); TMA tiles at 300 and 772; row copies at 301 and 401; K6 at
+    width 64 and N 257 in rows, its staging leaving the slab too little
+    room): K7 and K6 against their plain versions by phase 3's bars, and
+    K4a's int8 route (pre-pass and core; also at N 768), dynamic and
+    static, by its core's bar, each launch on the long route."""
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
     from deepmerge_tpu_torch.ops.kernels import fused_block as fb
 
     long1 = {"attention_long": 1}
+    static = torch.tensor([0.021, 0.023, 0.019], device=dev)
     for d in fb.HEAD_DIMS:
         h = c // d
-        worst, forms = 0.0, []
-        for b, n in shapes:
+        worst, worst_q8, forms, forms_q8 = 0.0, 0.0, [], []
+        for b, n in shapes + ((4, 768),):
             r = device_randn(dev, d + n)
             qkv, bias = r(b, n, 3 * c).to(torch.bfloat16), r(h, n, n, s=0.5)
+            for st in (None, static):
+                mode = "dynamic" if st is None else "static"
+                got = routed(lambda: fb.attention_q8(qkv, bias, h, st),
+                             Q8_LONG1, f"K4a long (d={d}, N={n}, {mode})")
+                err = rel_err(got, fb.attention_q8_ref(qkv, bias, h, st))
+                require(err <= TOL_BLOCK, f"K4a long route (d={d}, N={n}, "
+                        f"{mode}): {err} > {TOL_BLOCK}")
+                worst_q8 = max(worst_q8, err)
+                del got
+            forms_q8.append(
+                f"N {n} {fb.attention_q8_plan(b, n, h, head_dim=d)['bias']}")
+            if (b, n) not in shapes:
+                continue
             got = routed(lambda: fa.attention_qkv(qkv, bias, h), long1,
                          f"K7 long (d={d}, N={n})")
             out, probs = routed(lambda: fa.attention_probs(qkv, bias, h),
@@ -1970,7 +1978,9 @@ def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
             del qkv, bias, got, out, probs, want_out, want_probs
         print(f"long route at head width {d} ({h} heads; bias forms K7/K6 "
               f"{', '.join(forms)}): K7/K6 out rel err <= {worst:.3e}, K6 "
-              f"probs within {TOL_K6_PROBS}")
+              f"probs within {TOL_K6_PROBS}; K4a dynamic and static (bias "
+              f"{', '.join(forms_q8)}) rel err <= {worst_q8:.3e} (tol "
+              f"{TOL_BLOCK})")
     torch.cuda.empty_cache()
 
 
@@ -2076,7 +2086,7 @@ def check_long_kernels(dev):
         mode = "dynamic" if static is None else "static"
         got = routed(lambda: fb.attention_q8(qkv, bias, heads, static,
                                              plan=q8_plan),
-                     {"attention_q8_long": 1}, f"K4a forced long ({mode})")
+                     Q8_LONG1, f"K4a forced long ({mode})")
         short = routed(lambda: fb.attention_q8(qkv, bias, heads, static),
                        {"attention_q8_short": 1}, f"K4a short ({mode})")
         err = rel_err(got, fb.attention_q8_ref(qkv, bias, heads, static))
@@ -2094,13 +2104,25 @@ def check_long_kernels(dev):
 
     check_long_forms(dev)
 
-    # K4a's core alone at N 768
+    # K4a's long route alone at N 768: its pre-pass bit-exact against its
+    # plain twin, the route (pre-pass and core) against the plain version,
+    # the pre-pass's time apart from the route's
     b, n = LONG_BATCH, 768
     qkv, bias = attention_inputs(b, n, 35)
     for static in (None, torch.tensor([0.021, 0.023, 0.019], device=dev)):
         mode = "dynamic" if static is None else "static"
+        pre = lambda: fb.attention_q8_prepass(qkv, heads, static)
+        got = routed(pre, {"attention_q8_prepass": 1},
+                     f"K4a pre-pass ({mode})")
+        want, pre_plain_ms = cuda_once(lambda: fb.attention_q8_prepass_ref(
+            qkv, heads, None if static is None else tuple(static)))
+        require(all((g is None and w is None) or torch.equal(g, w)
+                    for g, w in zip(got, want)),
+                f"K4a pre-pass (N={n}, {mode}) differs from its plain twin")
+        pre_ms = cuda_ms(pre)
+        del got, want
         run = lambda: fb.attention_q8(qkv, bias, heads, static)
-        got = routed(run, {"attention_q8_long": 1}, f"K4a core ({mode})")
+        got = routed(run, Q8_LONG1, f"K4a core ({mode})")
         want, plain_ms = cuda_once(
             lambda: fb.attention_q8_ref(qkv, bias, heads, static))
         err = rel_err(got, want)
@@ -2110,14 +2132,26 @@ def check_long_kernels(dev):
         # qi·kiᵀ and pq·vi on the int8 cores
         bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
                    int8_ops=4 * b * n * n * c)
-        print(f"K4a attention_q8 core long route B={b} N={n} {mode}: rel err "
-              f"{err:.3e} (tol {TOL_BLOCK}); {ms:.4f} ms, plain "
+        # the pre-pass: k and v in (bf16), their codes and scales out
+        bp = bound(b * n * 2 * c * 2 + 2 * b * fb.q8_long_keys(n) * c
+                   + (0 if static is not None
+                      else 4 * b * heads * fb.q8_long_keys(n) + 4 * b * c))
+        print(f"K4a attention_q8 long route B={b} N={n} {mode}: rel err "
+              f"{err:.3e} (tol {TOL_BLOCK}); {ms:.4f} ms (pre-pass "
+              f"{pre_ms:.4f} ms, bit-exact against its plain twin, plain "
+              f"{pre_plain_ms:.3f} ms, bound {bp['bound_ms']:.4f} ms; core "
+              f"{ms - pre_ms:.4f} ms), plain "
               f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.4f} ms "
-              f"({bk['bound_by']})")
+              f"({bk['bound_by']}); target <= "
+              f"{2.5 if static is None else 2.0} ms: "
+              f"{target(ms <= (2.5 if static is None else 2.0))}")
         if static is None:
             results["attention_q8_long"] = dict(
                 max_abs_err=abs_err(got, want), ms=ms, plain_ms=plain_ms,
                 library_ms=None, **bk)
+            results["attention_q8_prepass"] = dict(
+                max_abs_err=0.0, ms=pre_ms, plain_ms=pre_plain_ms,
+                library_ms=None, **bp)
         del got, want
     del qkv, bias
     torch.cuda.empty_cache()
@@ -2142,10 +2176,10 @@ def check_long_kernels(dev):
                 qp = fb.quantize_block_params(p, amax)
                 run = lambda: fb.fused_block_q8(x, qp, heads,
                                                 quant_attn=quant_attn)
-                core = "attention_q8_long" if quant_attn else "attention_long"
                 name = "K4a" if quant_attn else "K4"
                 mode = "static" if static else "dynamic"
-                got = routed(run, {core: 1}, f"{name} (N={n}, {mode})")
+                got = routed(run, Q8_LONG1 if quant_attn else long1,
+                             f"{name} (N={n}, {mode})")
                 want, plain_ms = cuda_once(lambda: fb.block_ref_q8(
                     x, qp, heads, quant_attn=quant_attn))
                 _, errs = check_block(f"{name} long (B={b}, N={n}, {mode})",
@@ -2339,6 +2373,7 @@ def long_configs_phase(dev, card):
              dict(attention_long=depth[0], attention_short=sum(depth[1:]))),
             ("v3-cube16 w8a8+attn", cube, "w8a8+attn", LONG_BATCH,
              blocks[4:], dict(attention_q8_long=depth[0],
+                              attention_q8_prepass=depth[0],
                               attention_q8_short=sum(depth[1:]))),
             ("v3-wide bf16", WIDE, "", 1024, blocks[:2],
              dict(attention_short=sum(depth),
@@ -3041,15 +3076,20 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
     return launches, (med * 1e3, got)
 
 
-def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS):
-    """``mcfg`` trained by ``train.driver.train`` on the slice's scene
-    (unfused blocks, bf16 compute, ``TRAIN_PAIRS`` pairs a step) for
-    ``epochs`` epochs; returns its state dict."""
+def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS, pairs=TRAIN_PAIRS,
+                  deterministic=False):
+    """``mcfg`` trained by ``train.driver.train`` on ``scene`` (unfused
+    blocks, bf16 compute, ``pairs`` pairs a step) for ``epochs`` epochs;
+    returns its state dict. With ``deterministic``, under torch's
+    deterministic algorithms (the bias table's ``index_add_`` gradient
+    without atomics), so that one seed gives the same weights every run."""
     import shutil
     import tempfile
+    import warnings
 
     import numpy as np
     import torch
+    import torch.utils.deterministic
 
     from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
     from deepmerge_tpu_torch.train.driver import train
@@ -3057,26 +3097,38 @@ def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS):
     root = tempfile.mkdtemp(prefix="chip_smoke_trusted_")
     never = 10 ** 6
     cfg = Config(model=mcfg,
-                 data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512),
+                 data=DataConfig(batch_size=pairs, max_window=512),
                  train=TrainConfig(num_epochs=epochs,
                                    checkpoint_every=never,
                                    checkpoint_tail_from=never,
                                    checkpoint_dir=os.path.join(root, "ck"),
                                    log_dir=os.path.join(root, "logs")))
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.utils.deterministic.fill_uninitialized_memory)
     try:
+        if deterministic:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.utils.deterministic.fill_uninitialized_memory = False
         log = []
         t = time.perf_counter()
-        state, history = train(cfg, scene=scene, log_fn=log.append,
-                               device=dev)
+        with warnings.catch_warnings():
+            # cuBLAS on one stream is deterministic without a fixed
+            # workspace; the mode's warning for it says nothing here
+            warnings.filterwarnings("ignore", message=".*CuBLAS.*")
+            state, history = train(cfg, scene=scene, log_fn=log.append,
+                                   device=dev)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t
     finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.utils.deterministic.fill_uninitialized_memory = was[2]
         shutil.rmtree(root, ignore_errors=True)
     losses = np.asarray(history.train_losses)
     require(np.isfinite(losses).all(), f"trained losses {losses}")
     steps = int(state.step)
-    print(f"trained weights ({mcfg.variant}): {steps} steps "
-          f"({epochs} epochs) of {TRAIN_PAIRS} pairs in "
+    print(f"trained weights ({mcfg.variant}, cube {mcfg.cube}): {steps} "
+          f"steps ({epochs} epochs) of {pairs} pairs in "
           f"{train_s:.1f} s ({train_s / steps * 1e3:.1f} ms/step); "
           f"epoch-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     trained = {k: v.detach().clone() for k, v in
@@ -3103,20 +3155,20 @@ def trained_extractor(dev, trained, batch, quantize="", **model_kw):
     return FeatureExtractor(model, batch_size=batch, device=dev)
 
 
-def calibrated_threshold(dev, trained, dcfg, **model_kw):
+def calibrated_threshold(dev, trained, dcfg, scene_kw=SCENE, **model_kw):
     """An absolute threshold for the trained bf16 model, calibrated on a
-    second scene (``calibrate_threshold``, the root eval.py's
-    procedure)."""
+    second scene, ``scene_kw``'s of seed + 500 (``calibrate_threshold``,
+    the root eval.py's procedure)."""
     import torch
 
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
     from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
 
-    val = generate_scene(**dict(SCENE, seed=SCENE["seed"] + 500))
+    val = generate_scene(**dict(scene_kw, seed=scene_kw["seed"] + 500))
     ex = trained_extractor(dev, trained, dcfg.eval_batch_size, **model_kw)
     val_emb = torch.from_numpy(ex.extract_scene(val, dcfg)).to(dev)
     cal = calibrate_threshold(val, val_emb, max_rounds=8)
-    print(f"calibrated on the scene of seed {SCENE['seed'] + 500} "
+    print(f"calibrated on the scene of seed {scene_kw['seed'] + 500} "
           f"({model_kw or 'v3'}): threshold {cal.threshold:.6f} "
           f"({cal.disagreement:.5f} pair disagreement with its objects, "
           f"{cal.clusters} clusters)")
@@ -3187,18 +3239,26 @@ def trained_run(ex, scene, ds, dcfg, edges_d, valid_d, region_map, thr,
 
 
 def trained_slice(ex, label, scene, ds, dcfg, edges_d, valid_d, valid,
-                  region_map, thr, max_rounds=8, on=(), plain=None):
+                  region_map, thr, max_rounds=8, on=(), plain=None,
+                  cores=None):
     """``trained_run`` on the kernels (``on`` required launched, K9
     included) and on the plain versions, held by ``parity_gate``. With
     ``plain`` (a dict), the plain run's outputs are kept there under
     ``"out"``, or taken from there if an earlier call of the same function
-    kept them."""
+    kept them. With ``cores`` (name -> launches) the run's core launches
+    must be those and no other (the long routes' paths); without it, none
+    on a long route."""
     import torch
 
     n_pts = scene.regions.num_points
     run = trained_run(ex, scene, ds, dcfg, edges_d, valid_d, region_map,
                       thr, max_rounds)
-    out_k, launches = counted(run)
+    if cores is None:
+        out_k, launches = counted(run)
+    else:
+        out_k, launches, core = counted(run, cores=True)
+        want = dict(dict.fromkeys(core, 0), **cores)
+        require(core == want, f"{label}: core launches {core}, want {want}")
     require_launches(launches, tuple(on) + ("label_lookup",), ("int4_dot",),
                      label)
     if plain is not None and "out" in plain:
@@ -3406,6 +3466,72 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
           f"s on {card}; label disagreements {results}; chain_stage0 "
           f"medians (unchained, chained) in ms {medians}")
     return results, trained, thr, [walk_launches] + stage0_launches
+
+
+def long_trained_phase(dev, card):
+    """Phase 8b, the parity bar on trained weights for the long route's
+    configuration: v3-cube16 (N 768 on both cores' long routes, K4a's
+    included) trained ``LONG_TRUSTED_EPOCHS`` epochs of ``LONG_TRAIN_PAIRS``
+    pairs on ``LONG_SCENE``, an absolute threshold calibrated on that
+    scene's seed + 500, then its bf16, w8a8 and w8a8+attn slices on
+    ``LONG_SCENE`` at that threshold, kernels against the plain versions,
+    each gated by ``parity_gate`` (label disagreement <= 0.5%, the margin
+    printed) with its launches and core routes required. Returns the
+    disagreements and the core launches of the gated kernel runs."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.config import DataConfig, ModelConfig
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.train.sampler import stage_scene
+
+    t_phase = time.perf_counter()
+    scene = generate_scene(**LONG_SCENE)
+    edges = scene.rag.edges.astype(np.int32)
+    n_edges = len(edges)
+    edges = np.concatenate([edges, np.zeros(((-n_edges) % 2048, 2),
+                                            np.int32)])
+    valid = np.arange(len(edges)) < n_edges
+    edges_d = torch.from_numpy(edges).to(dev)
+    valid_d = torch.from_numpy(valid).to(dev)
+    region_map = torch.from_numpy(scene.labels).to(dev)
+    dcfg = DataConfig(max_window=512, eval_batch_size=LONG_BATCH)
+    ds = stage_scene(scene, dcfg, dev)
+    trained = train_trusted(dev, scene, ModelConfig(cube=LONG_CUBE),
+                            LONG_TRUSTED_EPOCHS, pairs=LONG_TRAIN_PAIRS,
+                            deterministic=True)
+    thr = calibrated_threshold(dev, trained, dcfg, scene_kw=LONG_SCENE,
+                               cube=LONG_CUBE)
+    depth = ModelConfig().depth
+    chunks = -(-scene.regions.num_points // LONG_BATCH)
+    short = sum(depth[1:]) * chunks
+    long_ = depth[0] * chunks
+    results, totals = {}, {}
+    for label, quantize, on, cores in (
+            ("bf16", "", ("patch_resize", "fused_block", "fused_block_chain"),
+             dict(attention_long=long_, attention_short=short)),
+            ("w8a8", "w8a8", Q8_PATH,
+             dict(attention_long=long_, attention_short=short)),
+            ("w8a8+attn", "w8a8+attn",
+             ("patch_resize", "fused_block_q8_attn",
+              "fused_block_chain_q8_attn"),
+             dict(attention_q8_long=long_, attention_q8_prepass=long_,
+                  attention_q8_short=short))):
+        ex = trained_extractor(dev, trained, LONG_BATCH, quantize,
+                               cube=LONG_CUBE)
+        results[f"v3-cube16 {label}"], _ = trained_slice(
+            ex, f"v3-cube16 {label} slice", scene, ds, dcfg, edges_d,
+            valid_d, valid, region_map, thr, on=on, cores=cores)
+        for k, n in cores.items():
+            totals[k] = totals.get(k, 0) + n
+        del ex
+        torch.cuda.empty_cache()
+    del trained
+    torch.cuda.empty_cache()
+    print(f"trained-weight parity phase, v3-cube16: "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; label "
+          f"disagreements {results}")
+    return results, totals
 
 
 def free_port():
@@ -4926,7 +5052,8 @@ def main() -> int:
     # phases alone (after the card, the build and the scene; patches: K1's
     # fused patch kernel, widths: the head-width check, both parts of phase
     # 3; long: the long route and wide rows, phase 3's check and phase 5e;
-    # family: phase 10; bench: phase 11) and prints no result lines
+    # long or trained: phase 8b; family: phase 10; bench: phase 11) and
+    # prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
@@ -4959,6 +5086,21 @@ def main() -> int:
     nvcc = run_cmd([build.nvcc_path(), "--version"]).splitlines()[-1]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"nvcc: {nvcc}, python {sys.version.split()[0]}")
+
+    # the serving scenes of phases 6, 9 and 11, made and written on the
+    # host while nvcc builds (no timing runs until phase 6 joins it)
+    if only is None:
+        import atexit
+        from concurrent.futures import ThreadPoolExecutor
+
+        walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
+        atexit.register(shutil.rmtree, walk_root, ignore_errors=True)
+        t_walk = time.perf_counter()
+        walk_pool = ThreadPoolExecutor(1)
+        walk_job = walk_pool.submit(
+            lambda: (export_folder(walk_root, SERVE_SCENES),
+                     time.perf_counter() - t_walk))
+        walk_pool.shutdown(wait=False)
 
     # 2. the build, one nvcc per source, in parallel
     sources = ("patch_resize", "window_gather", "fused_block",
@@ -5034,6 +5176,9 @@ def main() -> int:
                 _, trained, thr, _ = trained_parity_phase(
                     dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
                     region_map, walk)
+            if only & {"trained", "long"}:
+                clock("phase 8b")
+                long_trained_phase(dev, card)
             if "scaleout" in only:
                 scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
                                 region_map, trained, thr, walk)
@@ -5281,19 +5426,18 @@ def main() -> int:
     # v3-cube16 training
     clock("phase 5e")
     long_cores = long_configs_phase(dev, card)
-    for k in ("attention_long", "attention_q8_long", "layer_norm_wide",
-              "ln_quant_wide"):
+    for k in ("attention_long", "attention_q8_long", "attention_q8_prepass",
+              "layer_norm_wide", "ln_quant_wide"):
         all_launches[k] = long_cores[k]
 
-    # the serving scenes, written once for phases 6, 9 and 11
-    walk_root = tempfile.mkdtemp(prefix="chip_smoke_walk_")
     try:
-        # 6. the serving walk
+        # 6. the serving walk, on the scenes written during the build
         t = time.perf_counter()
-        walk = export_folder(walk_root, SERVE_SCENES)
+        walk, walk_s = walk_job.result()
         print(f"serving folder: {SERVE_SCENES} scenes of {SERVE_SCENE} "
               f"({sum(c[0] for c in walk[2].values())} points) written in "
-              f"{time.perf_counter() - t:.1f} s")
+              f"{walk_s:.1f} s from the build's start; phase 6 waited "
+              f"{time.perf_counter() - t:.1f} s for them")
         clock("phase 6")
         launches = serving_walk(ex_q8.model, dev, card, walk)
         require_launches(launches, q8_kernels,
@@ -5336,6 +5480,12 @@ def main() -> int:
         for launches in runs[1:]:  # the chain_stage0 runs
             for k in block_kernels:
                 all_launches[k] += launches[k]
+        # 8b. the same bar for v3-cube16 (the long routes, K4a's included)
+        clock("phase 8b")
+        _, long_trained_cores = long_trained_phase(dev, card)
+        for k in ("attention_long", "attention_q8_long",
+                  "attention_q8_prepass"):
+            all_launches[k] += long_trained_cores[k]
         # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
         # ranks on the one card over gloo
         clock("phase 9")
@@ -5406,6 +5556,11 @@ def main() -> int:
                            "deepmerge_tpu/ops/pallas/fused_block.py:42"),
         "attention_q8_long": ("deepmerge_tpu_torch/csrc/fused_block_q8.cu",
                               "deepmerge_tpu/ops/pallas/fused_block.py:69"),
+        # the int8 long route's pre-pass: the operand codes of
+        # `_attn_inner_q8` (and `_attn_inner_q8s`), once a layer call
+        "attention_q8_prepass": (
+            "deepmerge_tpu_torch/csrc/fused_block_q8.cu",
+            "deepmerge_tpu/ops/pallas/fused_block.py:69"),
         "layer_norm_wide": ("deepmerge_tpu_torch/csrc/fused_block.cu",
                             "deepmerge_tpu/ops/pallas/fused_block.py:35"),
         "ln_quant_wide": ("deepmerge_tpu_torch/csrc/fused_block_q8.cu",

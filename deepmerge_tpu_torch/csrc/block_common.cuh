@@ -627,30 +627,41 @@ __host__ __device__ constexpr int attn_long_region_bytes(int d, bool probs) {
 
 enum AttnLongBias { kBiasSlab = 0, kBiasTiles = 1, kBiasRows = 2 };
 
-// The bias form of a launch (see above): the slab where 128 rows of N
-// floats and their first piece's shift fit the bias region (N <= 259 at d
-// 64 and 128; 251 at d 64 with kProbs), tiles where N % 4 == 0, rows
-// otherwise.
-__host__ __device__ inline int attn_long_bias_mode(int N, int d, bool probs) {
-  if (static_cast<long long>(kAttnLongQueries) * N * 4 + 16 <=
-      attn_long_region_bytes(d, probs))
+// The bias form of a long-route launch whose bias region holds
+// `region_bytes`: the slab where 128 rows of N floats and their first
+// piece's shift fit it, tiles where N % 4 == 0, rows otherwise. (The bf16
+// route: N <= 259 at d 64 and 128, 251 at d 64 with kProbs; K4a's, whose
+// stages are smaller, see fused_block_q8.cu.)
+__host__ __device__ inline int long_bias_mode(int N, int region_bytes) {
+  if (static_cast<long long>(kAttnLongQueries) * N * 4 + 16 <= region_bytes)
     return kBiasSlab;
   return N % 4 == 0 ? kBiasTiles : kBiasRows;
 }
 
-// gridDim.y: every group of kSamples samples its own CTA, but in the slab
-// form ceil(groups · (CTAs a group) / kAttnLongSlabCtas) groups a CTA, CTA
-// y taking groups y, y + gridDim.y, ...
-__host__ __device__ inline int attn_long_sample_groups(int B, int N, int H,
-                                                       int d, bool probs) {
-  const int groups = (B + attn_long_samples(d) - 1) / attn_long_samples(d);
-  if (attn_long_bias_mode(N, d, probs) != kBiasSlab) return groups;
+__host__ __device__ inline int attn_long_bias_mode(int N, int d, bool probs) {
+  return long_bias_mode(N, attn_long_region_bytes(d, probs));
+}
+
+// gridDim.y of a long-route launch in bias form `mode`: every group of
+// `samples` samples its own CTA, but in the slab form ceil(groups · (CTAs
+// a group) / kAttnLongSlabCtas) groups a CTA, CTA y taking groups y, y +
+// gridDim.y, ...
+__host__ __device__ inline int long_sample_groups(int B, int N, int H,
+                                                  int samples, int mode) {
+  const int groups = (B + samples - 1) / samples;
+  if (mode != kBiasSlab) return groups;
   const long long ctas = static_cast<long long>(
       (N + kAttnLongQueries - 1) / kAttnLongQueries) * H;
   const long long per =
       (static_cast<long long>(groups) * ctas + kAttnLongSlabCtas - 1) /
       kAttnLongSlabCtas;
   return static_cast<int>((groups + per - 1) / per);
+}
+
+__host__ __device__ inline int attn_long_sample_groups(int B, int N, int H,
+                                                       int d, bool probs) {
+  return long_sample_groups(B, N, H, attn_long_samples(d),
+                            attn_long_bias_mode(N, d, probs));
 }
 
 // The index within its 16-byte piece of the bias float at p (0..3).
@@ -1060,6 +1071,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
       // S = Q'·Kᵀ over the block's 64 keys: k step kk reads d values 16·kk
       // on, in TMA box 16·kk / kBox, 32 bytes a step along its rows
       float sc[32];  // the logits of the block, the accumulator layout
+      // every register a wgmma reads is written before its fence: the
+      // compiler may not sink those writes past it
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) fence_acc(qf[kk]);
       wgmma_fence();
       wgmma_m64n64k16_rs<0, false>(sc, qf[0], wgmma_desc_sw<kRow>(kt));
 #pragma unroll
@@ -1071,6 +1086,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
+      // and read after its wait: Q''s fragments stay live to the next step
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) fence_acc(qf[kk]);
 
       // + bias; keys past N masked where the block reaches them. The
       // bias pair of key tile t: row la at ba[off(t)], row lb 8 rows on
@@ -1203,6 +1221,9 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
           p[jt][3] = pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb);
         }
         const unsigned char* vt = smem + st * kStage + (kSamples + si) * kKV;
+        fence_acc(o);
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
         wgmma_fence();
 #pragma unroll
         for (int jt = 0; jt < 4; ++jt) long_pv<kD>(o, p[jt], vt, jt);

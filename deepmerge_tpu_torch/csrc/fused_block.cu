@@ -64,6 +64,7 @@
 // The helpers and the attention core live in block_common.cuh, shared
 // with the w8a8 kernels (fused_block_q8.cu).
 
+#include "block_common.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {

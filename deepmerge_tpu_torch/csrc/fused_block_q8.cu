@@ -53,6 +53,7 @@
 // * The row-quantize kernel of the attention output takes one warp per row
 //   and reads the row twice (abs-max, then codes).
 
+#include "block_common.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -278,74 +279,6 @@ inline bool gemm_q8_plan_ok(const int* p) {
          p[3] == kQ8Stages && p[4] == kGemmThreads &&
          p[5] == gemm_smem_bytes(kQ8Stages);
 }
-
-// d (64 x 256 s32 over the warpgroup) += A (64 x 32) · W (256 x 32)ᵀ, int8,
-// both K-major in shared memory.
-struct MmaS8 {
-  using Acc = int;
-  static constexpr int kSlabK = kQ8SlabK;
-  static __device__ __forceinline__ void mma(int (&d)[kGemmBN / 2],
-                                             uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-        "{"
-        "%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31,"
-        "%32, %33, %34, %35, %36, %37, %38, %39,"
-        "%40, %41, %42, %43, %44, %45, %46, %47,"
-        "%48, %49, %50, %51, %52, %53, %54, %55,"
-        "%56, %57, %58, %59, %60, %61, %62, %63,"
-        "%64, %65, %66, %67, %68, %69, %70, %71,"
-        "%72, %73, %74, %75, %76, %77, %78, %79,"
-        "%80, %81, %82, %83, %84, %85, %86, %87,"
-        "%88, %89, %90, %91, %92, %93, %94, %95,"
-        "%96, %97, %98, %99, %100, %101, %102, %103,"
-        "%104, %105, %106, %107, %108, %109, %110, %111,"
-        "%112, %113, %114, %115, %116, %117, %118, %119,"
-        "%120, %121, %122, %123, %124, %125, %126, %127},"
-        " %128, %129, p;\n"
-        "}\n"
-        :
-          "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-          "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-          "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
-          "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-          "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-          "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-          "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-          "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-          "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-          "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-          "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
-          "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-        : "l"(da), "l"(db), "r"(1));
-  }
-};
 
 enum QEpilogue {
   kQBiasCast = 0,       // bf16(bf16(dq) + b)
@@ -1099,456 +1032,862 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 
 // ------------------------------------------------- K4a, long route
 //
-// The int8 core for N > 256 (and any N a plan forces), on the long route's
-// plan marker (block_common.cuh): a CTA of four warps takes one head, one
-// sample and 64 queries, and k and v reach shared memory in 64-key blocks.
-// pq = rint(127·e) needs the row's final max and v's dynamic scales are
-// per column over all keys (`va`, `_attn_inner_q8`), so:
-//  * with dynamic scales, a pre-pass over the sample's v gives each
-//    column's abs-max, as the short core's staging does;
-//  * pass 1 quantizes each block's k (row scales) into shared memory and
-//    takes the row max of the dequantized logits + bias;
-//  * pass 2 quantizes each block's k again and its v (transposed, in the
-//    short core's slot order), and takes the codes pq against the final
-//    max, their exact integer sum and the s8 mma.sync P·V.
-// Every value goes through the short core's arithmetic: the same codes of
-// q, k and v (code_of, store_codes8, the same scales), the same logits
-// (q8_block_logits is q8_logits at a block's key offset), prob_code, an
-// exact max and exact integer sums. The codes and the output therefore
-// equal the short core's bit for bit wherever both run. The copies are
-// not double-buffered: the block's codes are made by the threads from
-// 16-byte loads (they quantize on the way), then the CTA syncs.
+// The int8 core for N > 256 (and any N a plan forces). JAX rounds pq =
+// rint(127·exp(l − max)) against the row's final max, and v's dynamic
+// scales are per column over all N keys (`_attn_inner_q8`), so the route
+// is two launches:
+//  * a pre-pass (attention_q8_prepass_kernel), one CTA a (sample, head),
+//    quantizes each operand once: k's codes and row scales, v's column
+//    scales over the N keys, and v's codes transposed to (d, keys), keys
+//    contiguous, the K-major layout of an s8 wgmma B operand, in the slot
+//    order of pq's fragments below (the short core's slot map); into
+//    scratch, keys padded to a multiple of 64 with code 0 and scale 1;
+//  * the core (attention_q8_long_kernel) on those codes, the bf16 long
+//    route's schedule (block_common.cuh): a CTA takes 128 queries of one
+//    head and attn_long_samples(d) samples at a time (two, one at width
+//    128; at width 64 one sample a CTA took 3.29 ms against two's 2.70 at
+//    B 128, N 768 on an H100), two warpgroups of 64 rows a sample; k codes
+//    (and in pass 2 vᵀ codes) of a 64-key block of each sample, with k's
+//    64 row scales, by TMA into a three-stage ring that warp 0 refills a
+//    step ahead; the bias as TMA tiles, a slab or row copies, as that
+//    route reads it;
+//    - q's codes made in registers from the bf16 rows, as the short core
+//      makes them: they are wgmma's register A fragments (a warp's slice of
+//      m64k32 is mma.sync m16n8k32's A);
+//    - S = qi·kiᵀ by wgmma m64n64k32 s8 (s32 sums), k K-major from shared
+//      memory, each k step's 32 lanes a TMA box of its own in the 32-byte
+//      swizzle;
+//    - pass 1: the logits dequantized as the short core does (q8_logits)
+//      + bias, masked, and the row max (exact, in any order);
+//    - pass 2: the same logits, pq against the final max (prob_code), its
+//      exact integer sum, then O += pq·vi by wgmma k32 s8 with pq
+//      as register A fragments straight from the accumulator layout (the
+//      slot order of vᵀ maps one onto the other) and vᵀ K-major from
+//      shared memory (64-byte swizzle; q8_long_pv);
+//    - out = bf16((f32(O)·(1/Σpq))·s_v).
+// Every value goes through the short core's arithmetic (code_of,
+// store_codes8, the same scales, __fmul_rn/__fadd_rn in the JAX order,
+// prob_code, exact maxima and integer sums), so the codes and the output
+// equal the short core's bit for bit wherever both run.
+//
+// Bound on the H100 at B 128, N 768, d 64: the bytes of qkv, the bias and
+// the output, 0.19 ms; the three int8 products (S twice, P·V) 0.18 ms at
+// the int8 peak; the logits' f32 work (about 27 operations a logit over
+// both passes, 0.83 ms at the f32 peak) is what the kernel spends most
+// on, so it keeps the bf16 route's warps in flight (four warpgroups at 128
+// registers, two samples on each bias tile). The pre-pass moves 2·B·N·C
+// bf16 in and as many int8 codes out.
 
-// Shared memory of a long-route K4a CTA at head width d: a block's k codes
-// (64 x (d + 16) B), its v codes transposed (d x 80 B), k's row scales,
-// v's column scales, and the pre-pass's partial abs-maxes (a row of d for
-// each d/8 threads). 10,112 / 14,848 / 24,320 B at d 32 / 64 / 128.
-// The route's CTA: four warps, 64 queries (16 a warp), 64-key blocks.
-constexpr int kAttnQ8LongWarps = 4;
-constexpr int kAttnQ8LongQueries = 16 * kAttnQ8LongWarps;
-constexpr int kAttnQ8LongKeys = 64;
-constexpr int kQ8LongVld = kAttnQ8LongKeys + 16;  // an odd multiple of 16 B
+constexpr int kQ8PrepassThreads = 256;
+constexpr int kQ8LongStages = 3;
 
-struct AttnQ8LongLayout {
-  int kq, vt, sk, sv, red, bytes;
+
+// Keys of a (sample, head) in the route's scratch: N rounded up to a
+// whole 64-key block.
+__host__ __device__ inline long long q8_long_np(int N) {
+  return (static_cast<long long>(N) + kAttnLongKeys - 1) / kAttnLongKeys *
+         kAttnLongKeys;
+}
+
+// The route's scratch for B samples of N tokens, H heads of width d (the
+// wrapper's ops/kernels/fused_block.py attention_q8_long_scratch): k codes
+// (B, H, Np, d), v codes transposed (B, H, d, Np), k's row scales (B, H,
+// Np) f32, v's column scales (B, H, d) f32; the scales only with dynamic
+// scales.
+struct Q8LongScratch {
+  signed char* kc;
+  signed char* vt;
+  float* ks;
+  float* vs;
 };
 
-__host__ __device__ inline AttnQ8LongLayout attn_q8_long_layout(int d) {
-  AttnQ8LongLayout l;
-  l.kq = 0;
-  l.vt = l.kq + kAttnQ8LongKeys * q8_row(d);
-  l.sk = l.vt + d * kQ8LongVld;
-  l.sv = l.sk + kAttnQ8LongKeys * static_cast<int>(sizeof(float));
-  l.red = l.sv + d * static_cast<int>(sizeof(float));
-  l.bytes = l.red + kAttnQ8LongWarps * 32 / (d / 8) * d *
-                        static_cast<int>(sizeof(float));
-  return l;
+inline Q8LongScratch q8_long_scratch(void* base, int B, int N, int H, int d) {
+  const long long codes = static_cast<long long>(B) * H * q8_long_np(N) * d;
+  Q8LongScratch s;
+  s.kc = static_cast<signed char*>(base);
+  s.vt = s.kc + codes;
+  s.ks = reinterpret_cast<float*>(s.vt + codes);
+  s.vs = s.ks + static_cast<long long>(B) * H * q8_long_np(N);
+  return s;
 }
 
-// q8_logits for the four 8-key tiles from t0 of a block whose first key is
-// j0: k's row scales sk are the block's, the bias and the mask take the
-// keys' indices in the sequence.
-template <bool kEven, bool kStatic>
-__device__ __forceinline__ void q8_block_logits(
-    const int (&s)[4][4], float (&l)[4][4], int t0, const float* sk, int j0,
-    const float* bias_h, int ra, int rb, int tig, int N, float ca, float cb) {
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int jl = (t0 + t) * 8 + 2 * tig;
-    const int j = j0 + jl;
-    const float2 ba = bias_load<kEven>(bias_h, ra, j, N);
-    const float2 bb = bias_load<kEven>(bias_h, rb, j, N);
-    float k0 = 1.f, k1 = 1.f;
-    if constexpr (!kStatic) {
-      const float2 kv = *reinterpret_cast<const float2*>(sk + jl);
-      k0 = kv.x;
-      k1 = kv.y;
-    }
-    auto dq = [&](int acc, float c, float kk) {
-      const float a = static_cast<float>(acc);
-      return kStatic ? __fmul_rn(a, c) : __fmul_rn(__fmul_rn(a, c), kk);
-    };
-    l[t][0] = __fadd_rn(dq(s[t][0], ca, k0), ba.x);
-    l[t][1] = __fadd_rn(dq(s[t][1], ca, k1), ba.y);
-    l[t][2] = __fadd_rn(dq(s[t][2], cb, k0), bb.x);
-    l[t][3] = __fadd_rn(dq(s[t][3], cb, k1), bb.y);
-    if (ra < N) {
-      if (j >= N) l[t][0] = -INFINITY;
-      if (j + 1 >= N) l[t][1] = -INFINITY;
-    }
-    if (rb < N) {
-      if (j >= N) l[t][2] = -INFINITY;
-      if (j + 1 >= N) l[t][3] = -INFINITY;
-    }
-  }
+// The slot of key jl of a 64-key block in v's transposed rows: key 16h +
+// 8u + 2t + e of each 32-key half at 16h + 4t + 2u + e.
+__host__ __device__ constexpr int q8_slot(int jl) {
+  return (jl & ~15) | (((jl >> 1) & 3) << 2) | (((jl >> 3) & 1) << 1) |
+         (jl & 1);
 }
 
+// The pre-pass (see above) of (sample, head) blockIdx.x = b·H + h.
 template <int kD, bool kStatic>
-__global__ void __launch_bounds__(kAttnQ8LongWarps * 32)
-attention_q8_long_kernel(const bf16* __restrict__ qkv,
-                         const float* __restrict__ bias,
-                         const float* __restrict__ s_qkv,
-                         bf16* __restrict__ out, int N, int C, float scale) {
+__global__ void __launch_bounds__(kQ8PrepassThreads)
+attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
+                            const float* __restrict__ s_qkv, Q8LongScratch sc,
+                            int N, int C, int H) {
   constexpr int kOct = kD / 8;  // 16-byte pieces (8 lanes) of a row
-  constexpr int kQ8Row = q8_row(kD);
-  constexpr int kKeys = kAttnQ8LongKeys;
-  extern __shared__ __align__(16) unsigned char q8_long_smem[];
-  const AttnQ8LongLayout L = attn_q8_long_layout(kD);
-  signed char* kq = reinterpret_cast<signed char*>(q8_long_smem + L.kq);
-  signed char* vt = reinterpret_cast<signed char*>(q8_long_smem + L.vt);
-  float* sk = reinterpret_cast<float*>(q8_long_smem + L.sk);
-  float* sv = reinterpret_cast<float*>(q8_long_smem + L.sv);
-  float* red = reinterpret_cast<float*>(q8_long_smem + L.red);
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  constexpr int kParts = kQ8PrepassThreads / kOct;
+  __shared__ float red[kParts * kD];
+  __shared__ float sv[kD];
+  __shared__ __align__(16) signed char vtile[kD * kAttnLongKeys];
+  const long long bh = blockIdx.x;
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
   const long long ld = 3LL * C;
-  const int head_off = h * kD;
-  const bf16* qb = qkv + head_off;
-  const bf16* kb = qb + C;
-  const bf16* vb = qb + 2 * C;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int mi = lane >> 3;  // the 8x8 matrix this lane addresses
-  const bool even = (N & 1) == 0;
-  const float* bias_h = bias + static_cast<long long>(h) * N * N;
-  const unsigned full = 0xffffffffu;
+  const long long np = q8_long_np(N);
   const long long row0 = static_cast<long long>(b) * N;
-
-  float s_q = 0.f, s_v = 0.f, inv_q = 0.f, inv_k = 0.f, inv_v = 0.f,
-        c_static = 0.f;
+  const bf16* kb = qkv + C + h * kD;
+  const bf16* vb = qkv + 2 * C + h * kD;
+  const unsigned full = 0xffffffffu;
+  float inv_k = 0.f, inv_v = 0.f;
   if constexpr (kStatic) {
-    s_q = s_qkv[0];
-    s_v = s_qkv[2];
-    inv_q = 1.0f / s_q;
     inv_k = 1.0f / s_qkv[1];
-    inv_v = 1.0f / s_v;
-    c_static = __fmul_rn(__fmul_rn(s_q, s_qkv[1]), scale);
+    inv_v = 1.0f / s_qkv[2];
   }
 
-  // v's column scales over all N keys: a thread takes an octet of lanes
-  // over every parts-th key, four keys' loads in flight at a time
+  // k codes: kOct threads a key (an octet of lanes each), the row's
+  // abs-max over them (np·kOct is a multiple of the CTA: every thread
+  // takes each turn, as the shuffles need)
+  signed char* kc = sc.kc + bh * np * kD;
+  for (long long idx = threadIdx.x; idx < np * kOct; idx += blockDim.x) {
+    const long long j = idx / kOct;
+    const int o = static_cast<int>(idx % kOct);
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (j < N) load8(kb + (row0 + j) * ld + o * 8, v);
+    float s = 1.0f;
+    if constexpr (!kStatic) {
+      float amax = 0.f;
+#pragma unroll
+      for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[t]));
+#pragma unroll
+      for (int w = 1; w < kOct; w <<= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(full, amax, w));
+      s = amax > 0.f ? amax * kInv127 : 1.0f;
+      if (o == 0) sc.ks[bh * np + j] = s;
+    }
+    store_codes8(v, !kStatic, s, inv_k, kc + j * kD + o * 8);
+  }
+
+  // v's column scales: a thread takes an octet of lanes over every
+  // kParts-th key, four keys' loads in flight at a time
   if constexpr (!kStatic) {
-    const int oct = threadIdx.x % kOct;
+    const int o = threadIdx.x % kOct;
     const int part = threadIdx.x / kOct;
-    const int parts = blockDim.x / kOct;
     float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int j0 = part; j0 < N; j0 += 4 * parts) {
+    for (int j0 = part; j0 < N; j0 += 4 * kParts) {
       float v[4][8];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int j = j0 + u * parts;
+        const int j = j0 + u * kParts;
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-        if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[u]);
+        if (j < N) load8(vb + (row0 + j) * ld + o * 8, v[u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int t = 0; t < 8; ++t) m[t] = fmaxf(m[t], fabsf(v[u][t]));
     }
-    float* r = red + part * kD + oct * 8;
-    *reinterpret_cast<float4*>(r) = make_float4(m[0], m[1], m[2], m[3]);
-    *reinterpret_cast<float4*>(r + 4) = make_float4(m[4], m[5], m[6], m[7]);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) red[part * kD + o * 8 + t] = m[t];
     __syncthreads();
     for (int dd = threadIdx.x; dd < kD; dd += blockDim.x) {
       float a = red[dd];
-      for (int t = 1; t < parts; ++t) a = fmaxf(a, red[t * kD + dd]);
-      sv[dd] = a > 0.f ? a * kInv127 : 1.0f;
+      for (int p = 1; p < kParts; ++p) a = fmaxf(a, red[p * kD + dd]);
+      const float s = a > 0.f ? a * kInv127 : 1.0f;
+      sv[dd] = s;
+      sc.vs[bh * kD + dd] = s;
     }
+    __syncthreads();
   }
 
-  // q codes of the warp's rows ra, rb: lanes 16c + 4t..+3, as the short
-  // core's
-  const int ra = blockIdx.x * kAttnQ8LongQueries + warp * 16 + g;
-  const int rb = ra + 8;
-  uint32_t qa[kD / 32][4];  // A fragments of the 32-lane k steps
-  float cqa, cqb;
-  {
-    const bf16* qa_row = qb + (row0 + ra) * ld + 4 * tig;
-    const bf16* qb_row = qb + (row0 + rb) * ld + 4 * tig;
-    float va[kD / 16][4], vbq[kD / 16][4];
-    float ma = 0.f, mb = 0.f;
+  // v codes, transposed: a 64-key block's codes into vtile (d rows of 64
+  // slots), then the rows out in 16-byte pieces
+  signed char* vt = sc.vt + bh * kD * np;
+  for (long long j0 = 0; j0 < np; j0 += kAttnLongKeys) {
+    for (int idx = threadIdx.x; idx < kAttnLongKeys * kOct;
+         idx += blockDim.x) {
+      const int jl = idx / kOct, o = idx % kOct;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (j0 + jl < N) load8(vb + (row0 + j0 + jl) * ld + o * 8, v);
+      const int slot = q8_slot(jl);
 #pragma unroll
-    for (int c = 0; c < kD / 16; ++c) {
-      load4(qa_row + 16 * c, ra < N, va[c]);
-      load4(qb_row + 16 * c, rb < N, vbq[c]);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        ma = fmaxf(ma, fabsf(va[c][t]));
-        mb = fmaxf(mb, fabsf(vbq[c][t]));
-      }
-    }
-    float sqa = s_q, sqb = s_q;
-    if constexpr (!kStatic) {
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        ma = fmaxf(ma, __shfl_xor_sync(full, ma, o));
-        mb = fmaxf(mb, __shfl_xor_sync(full, mb, o));
-      }
-      sqa = ma > 0.f ? ma * kInv127 : 1.0f;
-      sqb = mb > 0.f ? mb * kInv127 : 1.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c) {
-      int ca[4], cb[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        ca[t] = code_of(kStatic ? va[c][t] * inv_q : va[c][t] / sqa);
-        cb[t] = code_of(kStatic ? vbq[c][t] * inv_q : vbq[c][t] / sqb);
-      }
-      qa[c >> 1][(c & 1) * 2] = pack_s8(ca[0], ca[1], ca[2], ca[3]);
-      qa[c >> 1][(c & 1) * 2 + 1] = pack_s8(cb[0], cb[1], cb[2], cb[3]);
-    }
-    cqa = kStatic ? c_static : __fmul_rn(sqa, scale);
-    cqb = kStatic ? c_static : __fmul_rn(sqb, scale);
-  }
-
-  const int kblocks = (N + kKeys - 1) / kKeys;
-  float mxa = -INFINITY, mxb = -INFINITY;
-  int suma = 0, sumb = 0;
-  int o[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dt][e] = 0;
-
-  for (int s = 0; s < 2 * kblocks; ++s) {
-    const bool second = s >= kblocks;
-    const int j0 = (s % kblocks) * kKeys;
-    __syncthreads();  // the previous block's codes are read (and sv made)
-
-    // k codes of keys j0..j0+63: kOct threads a key, the row's abs-max
-    // over them, four keys' loads in flight at a time; keys past N code 0,
-    // scale 1
-    for (int base = threadIdx.x; base < kKeys * kOct;
-         base += 4 * blockDim.x) {
-      float v[4][8];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = base + u * blockDim.x;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-        if (idx < kKeys * kOct && j0 + idx / kOct < N)
-          load8(kb + (row0 + j0 + idx / kOct) * ld + (idx % kOct) * 8, v[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = base + u * blockDim.x;
-        float sc = 1.0f;
-        if constexpr (!kStatic) {
-          float amax = 0.f;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[u][t]));
-#pragma unroll
-          for (int w = 1; w < kOct; w <<= 1)
-            amax = fmaxf(amax, __shfl_xor_sync(full, amax, w));
-          sc = amax > 0.f ? amax * kInv127 : 1.0f;
-        }
-        if (idx < kKeys * kOct) {
-          store_codes8(v[u], !kStatic, sc, inv_k,
-                       kq + (idx / kOct) * kQ8Row + (idx % kOct) * 8);
-          if (idx % kOct == 0) sk[idx / kOct] = sc;
-        }
-      }
-    }
-    // pass 2: v codes, transposed, in the short core's slot order
-    if (second) {
-      for (int idx = threadIdx.x; idx < kOct * (kKeys / 4);
-           idx += blockDim.x) {
-        const int oct = idx % kOct;
-        const int grp = idx / kOct;
-        const int jl =
-            (grp >> 3) * 32 + ((grp >> 2) & 1) * 16 + (grp & 3) * 2;
-        float v[4][8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = j0 + jl + (e & 1) + (e >> 1) * 8;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) v[e][t] = 0.f;
-          if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[e]);
-        }
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int dd = oct * 8 + t;
-          int c[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            c[e] = code_of(kStatic ? v[e][t] * inv_v : v[e][t] / sv[dd]);
-          *reinterpret_cast<uint32_t*>(vt + dd * kQ8LongVld + 4 * grp) =
-              pack_s8(c[0], c[1], c[2], c[3]);
-        }
+      for (int t = 0; t < 8; ++t) {
+        const int dd = o * 8 + t;
+        vtile[dd * kAttnLongKeys + slot] =
+            code_of(kStatic ? v[t] * inv_v : v[t] / sv[dd]);
       }
     }
     __syncthreads();
-
-    // the logits of the block's two 32-key steps
-    float l[8][4];
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-      int s4[4][4];
-      float l4[4][4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = 4 * st + u;
-        const signed char* krow = kq + (t * 8 + (lane & 7)) * kQ8Row;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s4[u][e] = 0;
-        if constexpr (kD == 32) {
-          uint32_t bk[2];  // lanes 0-15, 16-31 of keys 8t..
-          ldsm_x2(bk, krow + (mi & 1) * 16);
-          mma_s8(s4[u], qa[0], bk[0], bk[1]);
-        } else {
-#pragma unroll
-          for (int kc = 0; kc < kD / 64; ++kc) {
-            uint32_t bk[4];  // lanes 64kc + 0-15, 16-31, 32-47, 48-63
-            ldsm_x4(bk, reinterpret_cast<const bf16*>(krow + kc * 64 +
-                                                      mi * 16));
-            mma_s8(s4[u], qa[2 * kc], bk[0], bk[1]);
-            mma_s8(s4[u], qa[2 * kc + 1], bk[2], bk[3]);
-          }
-        }
-      }
-      if (even)
-        q8_block_logits<true, kStatic>(s4, l4, 4 * st, sk, j0, bias_h, ra,
-                                       rb, tig, N, cqa, cqb);
-      else
-        q8_block_logits<false, kStatic>(s4, l4, 4 * st, sk, j0, bias_h, ra,
-                                        rb, tig, N, cqa, cqb);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) l[4 * st + u][e] = l4[u][e];
+    for (int i = threadIdx.x; i < kD * kAttnLongKeys / 16; i += blockDim.x) {
+      const int dd = i / (kAttnLongKeys / 16), c = i % (kAttnLongKeys / 16);
+      *reinterpret_cast<uint4*>(vt + dd * np + j0 + c * 16) =
+          *reinterpret_cast<const uint4*>(vtile + dd * kAttnLongKeys +
+                                          c * 16);
     }
-
-    if (!second) {
-      // pass 1: the row max (exact, in any order)
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        mxa = fmaxf(mxa, fmaxf(l[t][0], l[t][1]));
-        mxb = fmaxf(mxb, fmaxf(l[t][2], l[t][3]));
-      }
-      continue;
-    }
-    if (s == kblocks) {  // the max over the quad, once
-#pragma unroll
-      for (int w = 1; w <= 2; w <<= 1) {
-        mxa = fmaxf(mxa, __shfl_xor_sync(full, mxa, w));
-        mxb = fmaxf(mxb, __shfl_xor_sync(full, mxb, w));
-      }
-    }
-    // pass 2: pq in the A fragments of the two 32-key steps (the slot map)
-    // and its exact sum, then O += pq·vi
-    uint32_t p[2][4];
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-      int ca[4][2], cb[4][2];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = 4 * st + u;
-        ca[u][0] = prob_code(l[t][0], mxa);
-        ca[u][1] = prob_code(l[t][1], mxa);
-        cb[u][0] = prob_code(l[t][2], mxb);
-        cb[u][1] = prob_code(l[t][3], mxb);
-        suma += ca[u][0] + ca[u][1];
-        sumb += cb[u][0] + cb[u][1];
-      }
-      p[st][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
-      p[st][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
-      p[st][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
-      p[st][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
-    }
-#pragma unroll
-    for (int st = 0; st < 2; ++st) {
-#pragma unroll
-      for (int dd = 0; dd < kD / 16; ++dd) {
-        uint32_t bv[4];  // lanes 16dd..+7 (keys 0-15, 16-31), +8..+15
-        ldsm_x4(bv, reinterpret_cast<const bf16*>(
-                        vt + (dd * 16 + (mi >> 1) * 8 + (lane & 7)) *
-                                 kQ8LongVld +
-                        32 * st + (mi & 1) * 16));
-        mma_s8(o[2 * dd], p[st], bv[0], bv[1]);
-        mma_s8(o[2 * dd + 1], p[st], bv[2], bv[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int w = 1; w <= 2; w <<= 1) {
-    suma += __shfl_xor_sync(full, suma, w);
-    sumb += __shfl_xor_sync(full, sumb, w);
-  }
-  const float inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
-  const float invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
-
-  // out = bf16((O · 1/Σpq) · s_v)
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int col = dt * 8 + 2 * tig;
-    const float v0 = kStatic ? s_v : sv[col];
-    const float v1 = kStatic ? s_v : sv[col + 1];
-    if (ra < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + head_off +
-                                         col) =
-          __floats2bfloat162_rn(
-              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][0]), inva), v0),
-              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][1]), inva), v1));
-    if (rb < N)
-      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + head_off +
-                                         col) =
-          __floats2bfloat162_rn(
-              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][2]), invb), v0),
-              __fmul_rn(__fmul_rn(static_cast<float>(o[dt][3]), invb), v1));
+    __syncthreads();
   }
 }
 
+// d[kOff..kOff+31] (m64 x n64, s32, wgmma's accumulator layout) += a (m64 x
+// k32 s8 register fragments, the mma.sync m16n8k32 A layout of each warp's
+// 16 rows) · b (n64 x k32 s8, K-major from the descriptor).
+template <int kOff = 0, int kN>
+__device__ __forceinline__ void wgmma_s8_m64n64k32_rs(int (&d)[kN],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  static_assert(kOff + 32 <= kN, "accumulators in range");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[kOff + 0]), "+r"(d[kOff + 1]), "+r"(d[kOff + 2]),
+        "+r"(d[kOff + 3]), "+r"(d[kOff + 4]), "+r"(d[kOff + 5]),
+        "+r"(d[kOff + 6]), "+r"(d[kOff + 7]), "+r"(d[kOff + 8]),
+        "+r"(d[kOff + 9]), "+r"(d[kOff + 10]), "+r"(d[kOff + 11]),
+        "+r"(d[kOff + 12]), "+r"(d[kOff + 13]), "+r"(d[kOff + 14]),
+        "+r"(d[kOff + 15]), "+r"(d[kOff + 16]), "+r"(d[kOff + 17]),
+        "+r"(d[kOff + 18]), "+r"(d[kOff + 19]), "+r"(d[kOff + 20]),
+        "+r"(d[kOff + 21]), "+r"(d[kOff + 22]), "+r"(d[kOff + 23]),
+        "+r"(d[kOff + 24]), "+r"(d[kOff + 25]), "+r"(d[kOff + 26]),
+        "+r"(d[kOff + 27]), "+r"(d[kOff + 28]), "+r"(d[kOff + 29]),
+        "+r"(d[kOff + 30]), "+r"(d[kOff + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// The same at n32 (the value product at head width 32).
+template <int kOff = 0, int kN>
+__device__ __forceinline__ void wgmma_s8_m64n32k32_rs(int (&d)[kN],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  static_assert(kOff + 16 <= kN, "accumulators in range");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p;\n"
+      "}\n"
+      : "+r"(d[kOff + 0]), "+r"(d[kOff + 1]), "+r"(d[kOff + 2]),
+        "+r"(d[kOff + 3]), "+r"(d[kOff + 4]), "+r"(d[kOff + 5]),
+        "+r"(d[kOff + 6]), "+r"(d[kOff + 7]), "+r"(d[kOff + 8]),
+        "+r"(d[kOff + 9]), "+r"(d[kOff + 10]), "+r"(d[kOff + 11]),
+        "+r"(d[kOff + 12]), "+r"(d[kOff + 13]), "+r"(d[kOff + 14]),
+        "+r"(d[kOff + 15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
+}
+
+// O (64 x kD, s32) += pq (64 x 32 slots of k step ks) · vi, vᵀ's block at
+// vt: kD rows of 64 slots in the 64-byte swizzle, in n32 pieces at widths
+// 32 and 64 and n64 pieces at 128, each piece's rows on from the last.
+// Not one n64 piece at width 64: there ptxas (CUDA 12.9) gave pq's
+// fragments the physical registers that still held q's, which the PTX
+// keeps live across the key loop, so every S product after the first P·V
+// read pq as q (the same IGMMA A registers in the SASS, no restore in the
+// loop; fences before and after do not change it). The n32 build keeps
+// them apart, and phase 3 holds every width bit-exact against the plain
+// twin, so a toolchain that does it again fails the check.
 template <int kD>
+__device__ __forceinline__ void q8_long_pv(int (&o)[kD / 2],
+                                           const uint32_t (&p)[4],
+                                           const unsigned char* vt, int ks) {
+  const uint64_t db = wgmma_desc_sw<kAttnLongKeys>(vt) + 2 * ks;
+  if constexpr (kD == 128) {
+    wgmma_s8_m64n64k32_rs(o, p, db);
+    wgmma_s8_m64n64k32_rs<32>(o, p, db + ((64 * kAttnLongKeys) >> 4));
+  } else {
+    wgmma_s8_m64n32k32_rs(o, p, db);
+    if constexpr (kD == 64)
+      wgmma_s8_m64n32k32_rs<16>(o, p, db + ((32 * kAttnLongKeys) >> 4));
+  }
+}
+
+// The core's shared memory from its 1024-aligned start: the ring (stage st
+// holds a 64-key block of k codes of each sample, then of vᵀ codes, then k's
+// 64 row scales of each; a stage rounded up to 1 KB), the bias region (the
+// stages' bias areas, or a slab, as the bf16 route's), the barriers (each
+// stage's full and empty, then the slab's). A stage: 9,216 B at d 32,
+// 17,408 at 64 and 128; the bias region 203,712 and 179,136 B (a slab up
+// to N 397 and 349).
+__host__ __device__ constexpr int q8_long_tile_bytes(int d) {
+  return kAttnLongKeys * d;
+}
+__host__ __device__ constexpr int q8_long_stage_bytes(int d) {
+  return (2 * attn_long_samples(d) * q8_long_tile_bytes(d) +
+          attn_long_samples(d) * kAttnLongKeys * 4 + 1023) /
+         1024 * 1024;
+}
+__host__ __device__ constexpr int q8_long_region_off(int d) {
+  return kQ8LongStages * q8_long_stage_bytes(d);
+}
+__host__ __device__ constexpr int q8_long_bar_bytes() {
+  return ((2 * kQ8LongStages + 1) * 8 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr int q8_long_region_bytes(int d) {
+  return kAttnLongSmem - 1024 - q8_long_region_off(d) - q8_long_bar_bytes();
+}
+
+// The core (see above). map_k reads k codes as (d bytes, B·H·Np rows) in
+// boxes of 32 bytes x 64 rows; map_v vᵀ codes as (Np bytes, B·H·d rows)
+// in boxes of 64 bytes x d rows; kTiles: the bias in the tile form, map_b
+// its map (attn_long_bias_map); else `slab` picks the slab form or the
+// row form.
+// q is read from the packed qkv (rows 3C apart), the output rows are C
+// apart; ks and vs are the pre-pass's scales (dynamic scales), s_qkv the
+// static (s_q, s_k, s_v).
+template <int kD, bool kStatic, bool kTiles>
+__global__ void __launch_bounds__(attn_long_warps(kD) * 32, 1)
+attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_b,
+                         const bf16* __restrict__ qkv,
+                         const float* __restrict__ ks,
+                         const float* __restrict__ vs,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ s_qkv,
+                         bf16* __restrict__ out, int B, int N, int C,
+                         bool slab, float scale) {
+  constexpr int kSamples = attn_long_samples(kD);
+  constexpr int kStages = kQ8LongStages;
+  constexpr int kTile = q8_long_tile_bytes(kD);
+  constexpr int kStage = q8_long_stage_bytes(kD);
+  constexpr int kScaleOff = 2 * kSamples * kTile;  // k's row scales
+  constexpr int kScaleBytes = kAttnLongKeys * 4;
+  constexpr int kKBox = kAttnLongKeys * 32;  // a 32-lane box of k codes
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+  extern __shared__ unsigned char q8_long_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(q8_long_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  float* region = reinterpret_cast<float*>(smem + q8_long_region_off(kD));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + q8_long_region_off(kD) + q8_long_region_bytes(kD));
+  uint64_t* empty = full + kStages;
+  uint64_t* slab_full = empty + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kAttnLongQueries;
+  const int h = blockIdx.z;
+  const int H = gridDim.z;
+  const int head_off = h * kD;
+  const long long ld = 3LL * C;
+  const long long np = q8_long_np(N);
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  const float* bias_end = bias + static_cast<long long>(H) * N * N;
+  const bool rows_form = !kTiles && !slab;
+  const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
+  const int steps = 2 * kblocks;  // a sample group's: pass 1, then pass 2
+  const int groups = (B + kSamples - 1) / kSamples;
+  // the slab: the CTA's bias rows from the 16-byte piece that holds (q0, 0)
+  const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
+  const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA arrival, and in the row form one a lane of warp 0
+      mbar_init(&full[s], rows_form ? 1 + 32 : 1);
+      mbar_init(&empty[s], attn_long_warps(kD) * 32);
+    }
+    mbar_init(slab_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0's loads for global step g (sample group blockIdx.y + (g / steps)
+  // · gridDim.y, block (g mod steps) mod kblocks, vᵀ too in pass 2) into
+  // stage g mod kStages, once the warpgroups have released its last use.
+  auto produce = [&](int g) {
+    const int grp = blockIdx.y + (g / steps) * gridDim.y;
+    if (grp >= groups) return;
+    const int b0 = grp * kSamples;
+    const int live = min(kSamples, B - b0);
+    const int s = g % steps;
+    const int st = g % kStages;
+    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+    unsigned char* kv = smem + st * kStage;
+    float* bt = region + st * kArea;
+    const int j0 = (s % kblocks) * kAttnLongKeys;
+    const bool with_v = s >= kblocks;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st],
+                     live * (kTile * (with_v ? 2 : 1) +
+                             (kStatic ? 0 : kScaleBytes)) +
+                         (kTiles ? 2 * kAttnLongQueries * 128 : 0));
+      for (int si = 0; si < live; ++si) {
+        const long long bh = static_cast<long long>(b0 + si) * H + h;
+#pragma unroll
+        for (int x = 0; x < kD / 32; ++x)
+          tma_load_2d(kv + si * kTile + x * kKBox, &map_k, &full[st], 32 * x,
+                      static_cast<int>(bh * np + j0));
+        if (with_v)
+          tma_load_2d(kv + (kSamples + si) * kTile, &map_v, &full[st], j0,
+                      static_cast<int>(bh * kD));
+        if constexpr (!kStatic)
+          bulk_load(kv + kScaleOff + si * kScaleBytes, ks + bh * np + j0,
+                    kScaleBytes, &full[st]);
+      }
+      if (kTiles) {
+        tma_load_3d(bt, &map_b, &full[st], j0, q0, h);
+        tma_load_3d(bt + kAttnLongQueries * 32, &map_b, &full[st], j0 + 32,
+                    q0, h);
+      }
+    }
+    if (rows_form) {
+      // rows lane + 32·r of the CTA's queries (rows past N read row N - 1),
+      // each from the 16-byte piece that holds its key j0; within the
+      // bias, its last floats past a whole piece copied by this lane
+      // before it arrives
+      const float* src[4];
+      int bytes[4], total = 0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = lane + 32 * r;
+        const float* a =
+            bias_h + static_cast<long long>(min(q0 + row, N - 1)) * N + j0;
+        src[r] = a - bias_shift(a);
+        const long long room = (bias_end - src[r]) * 4;
+        bytes[r] = room >= kAttnLongBiasLd * 4
+                       ? kAttnLongBiasLd * 4
+                       : static_cast<int>(room & ~15LL);
+        total += bytes[r];
+        float* dst = bt + row * kAttnLongBiasLd;
+        for (int t = bytes[r] / 4;
+             t < kAttnLongBiasLd && src[r] + t < bias_end; ++t)
+          dst[t] = src[r][t];
+      }
+      mbar_expect_tx(&full[st], total);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (bytes[r] > 0)
+          bulk_load(bt + (lane + 32 * r) * kAttnLongBiasLd, src[r], bytes[r],
+                    &full[st]);
+    }
+  };
+
+  if (warp == 0) {
+    if (slab && lane == 0) {
+      // within the bias; its last floats past a whole piece copied here
+      // before the arrival
+      const long long want =
+          (static_cast<long long>(kAttnLongQueries) * N + slab_shift) * 4;
+      const long long room = (bias_end - slab_src) * 4;
+      const int bytes = static_cast<int>(
+          room >= ((want + 15) & ~15LL) ? (want + 15) & ~15LL : room & ~15LL);
+      for (long long t = bytes / 4; t * 4 < want && slab_src + t < bias_end;
+           ++t)
+        region[t] = slab_src[t];
+      mbar_expect_tx(slab_full, bytes);
+      if (bytes > 0) bulk_load(region, slab_src, bytes, slab_full);
+    }
+    produce(0);
+    __syncwarp();
+  }
+
+  // Warpgroup wg takes rows 64·(wg & 1) of the CTA's queries of the
+  // group's sample wg >> 1; warp wq of it 16 of them, this thread rows ra
+  // and ra + 8 (g = lane / 4) and the quad's columns.
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int si = wg >> 1;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int la = (wg & 1) * 64 + wq * 16 + g;  // rows within the CTA's 128
+  const int lb = la + 8;
+  const int ra = q0 + la;
+  const int rb = q0 + lb;
+  const bool even = (N & 1) == 0;
+  const unsigned fullmask = 0xffffffffu;
+  // where the thread's bias rows start: in the slab, or within a stage's
+  // row-form tile
+  const int lin_a =
+      (slab ? slab_shift + la * N
+            : la * kAttnLongBiasLd +
+                  bias_shift(bias_h +
+                             static_cast<long long>(min(ra, N - 1)) * N)) +
+      2 * tig;
+  const int lin_b =
+      (slab ? slab_shift + lb * N
+            : lb * kAttnLongBiasLd +
+                  bias_shift(bias_h +
+                             static_cast<long long>(min(rb, N - 1)) * N)) +
+      2 * tig;
+  // in the tile form, the thread's pairs of row la in the first box, key
+  // tile t: 16-byte piece c = 2t + tig / 2 of a 128-byte row at piece
+  // c ^ (row mod 8), then 8·(tig mod 2) bytes; the second box 16 KB on,
+  // row lb 8 rows on (the same row mod 8)
+  int toff[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    toff[t] = la * 32 + (((2 * t + (tig >> 1)) ^ (la & 7)) << 2) +
+              2 * (tig & 1);
+  if (slab) mbar_wait(slab_full, 0);
+
+  float s_q = 0.f, s_v = 0.f, inv_q = 0.f, c_static = 0.f;
+  if constexpr (kStatic) {
+    s_q = s_qkv[0];
+    s_v = s_qkv[2];
+    inv_q = 1.0f / s_q;
+    c_static = __fmul_rn(__fmul_rn(s_q, s_qkv[1]), scale);
+  }
+
+  uint32_t qa[kD / 32][4];  // q codes of the thread's rows, A fragments
+  int o[kD / 2];  // wgmma's layout: o[4i..4i+3] columns 8i + 2·tig, + 1
+  int it = 0;     // the global step
+  for (int grp = blockIdx.y; grp < groups; grp += gridDim.y) {
+    const int b = grp * kSamples + si;
+    const bool live = b < B;
+    const long long row0 = static_cast<long long>(b) * N;
+    const long long bh = static_cast<long long>(b) * H + h;
+
+    // q codes: lanes 16c + 4·tig..+3 of rows ra and rb, the short core's
+    float cqa, cqb;
+    {
+      const bf16* qa_row = qkv + (row0 + ra) * ld + head_off + 4 * tig;
+      const bf16* qb_row = qkv + (row0 + rb) * ld + head_off + 4 * tig;
+      float va[kD / 16][4], vb[kD / 16][4];
+      float ma = 0.f, mb = 0.f;
+#pragma unroll
+      for (int c = 0; c < kD / 16; ++c) {
+        load4(qa_row + 16 * c, live && ra < N, va[c]);
+        load4(qb_row + 16 * c, live && rb < N, vb[c]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          ma = fmaxf(ma, fabsf(va[c][t]));
+          mb = fmaxf(mb, fabsf(vb[c][t]));
+        }
+      }
+      float sqa = s_q, sqb = s_q;
+      if constexpr (!kStatic) {
+#pragma unroll
+        for (int w = 1; w <= 2; w <<= 1) {
+          ma = fmaxf(ma, __shfl_xor_sync(fullmask, ma, w));
+          mb = fmaxf(mb, __shfl_xor_sync(fullmask, mb, w));
+        }
+        sqa = ma > 0.f ? ma * kInv127 : 1.0f;
+        sqb = mb > 0.f ? mb * kInv127 : 1.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < kD / 16; ++c) {
+        int ca[4], cb[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          ca[t] = code_of(kStatic ? va[c][t] * inv_q : va[c][t] / sqa);
+          cb[t] = code_of(kStatic ? vb[c][t] * inv_q : vb[c][t] / sqb);
+        }
+        qa[c >> 1][(c & 1) * 2] = pack_s8(ca[0], ca[1], ca[2], ca[3]);
+        qa[c >> 1][(c & 1) * 2 + 1] = pack_s8(cb[0], cb[1], cb[2], cb[3]);
+      }
+      cqa = kStatic ? c_static : __fmul_rn(sqa, scale);
+      cqb = kStatic ? c_static : __fmul_rn(sqb, scale);
+    }
+    float mxa = -INFINITY, mxb = -INFINITY;  // the thread's, then the quad's
+    int suma = 0, sumb = 0;                  // this thread's part of Σpq
+#pragma unroll
+    for (int i = 0; i < kD / 2; ++i) o[i] = 0;
+
+    for (int s = 0; s < steps; ++s, ++it) {
+      if (warp == 0) {
+        produce(it + 1);
+        __syncwarp();
+      }
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const unsigned char* stage = smem + st * kStage;
+      const unsigned char* kt = stage + si * kTile;
+      const int j0 = (s % kblocks) * kAttnLongKeys;
+
+      // S = qi·kiᵀ over the block's 64 keys, 32 lanes a k step, each from
+      // its own 32-byte box
+      int sc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0;
+      // every register a wgmma reads is written before its fence: the
+      // compiler may not sink those writes past it
+      fence_acc(sc);
+#pragma unroll
+      for (int kk = 0; kk < kD / 32; ++kk) fence_acc(qa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 32; ++kk)
+        wgmma_s8_m64n64k32_rs(sc, qa[kk],
+                              wgmma_desc_sw<32>(kt + kk * kKBox));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      // and read after its wait: q's fragments stay live to the next step
+#pragma unroll
+      for (int kk = 0; kk < kD / 32; ++kk) fence_acc(qa[kk]);
+
+      // the logits, dequantized in the JAX order, + bias; keys past N
+      // masked where the block reaches them (a row past N keeps finite
+      // logits; never stored). The bias pair of key tile t: row la at
+      // ba[off(t)], row lb lbo floats on
+      const float* skp = reinterpret_cast<const float*>(
+          stage + kScaleOff + si * kScaleBytes);
+      const float* ba;
+      int lbo;
+      if constexpr (kTiles) {
+        ba = region + st * kArea;
+        lbo = 8 * 32;
+      } else {
+        ba = (slab ? region + j0 : region + st * kArea) + lin_a;
+        lbo = lin_b - lin_a;
+      }
+      auto off = [&](int t) {  // t is unrolled: an immediate but in tiles
+        return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
+                      : 8 * t;
+      };
+      auto pair = [&](const float* p) {
+        return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                              : make_float2(p[0], p[1]);
+      };
+      auto dq = [&](int acc, float c, float kk) {
+        const float a = static_cast<float>(acc);
+        return kStatic ? __fmul_rn(a, c) : __fmul_rn(__fmul_rn(a, c), kk);
+      };
+      float l[32];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const int jl = t * 8 + 2 * tig;
+        float k0 = 1.f, k1 = 1.f;
+        if constexpr (!kStatic) {
+          const float2 kv = *reinterpret_cast<const float2*>(skp + jl);
+          k0 = kv.x;
+          k1 = kv.y;
+        }
+        const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
+        l[4 * t] = __fadd_rn(dq(sc[4 * t], cqa, k0), pa.x);
+        l[4 * t + 1] = __fadd_rn(dq(sc[4 * t + 1], cqa, k1), pa.y);
+        l[4 * t + 2] = __fadd_rn(dq(sc[4 * t + 2], cqb, k0), pb.x);
+        l[4 * t + 3] = __fadd_rn(dq(sc[4 * t + 3], cqb, k1), pb.y);
+      }
+      if (j0 + kAttnLongKeys > N) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int j = j0 + t * 8 + 2 * tig;
+          if (ra < N) {
+            if (j >= N) l[4 * t] = -INFINITY;
+            if (j + 1 >= N) l[4 * t + 1] = -INFINITY;
+          }
+          if (rb < N) {
+            if (j >= N) l[4 * t + 2] = -INFINITY;
+            if (j + 1 >= N) l[4 * t + 3] = -INFINITY;
+          }
+        }
+      }
+
+      if (s < kblocks) {
+        // pass 1: the row max (exact, in any order)
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          mxa = fmaxf(mxa, fmaxf(l[4 * t], l[4 * t + 1]));
+          mxb = fmaxf(mxb, fmaxf(l[4 * t + 2], l[4 * t + 3]));
+        }
+      } else {
+        if (s == kblocks) {  // the max over the quad, once
+#pragma unroll
+          for (int w = 1; w <= 2; w <<= 1) {
+            mxa = fmaxf(mxa, __shfl_xor_sync(fullmask, mxa, w));
+            mxb = fmaxf(mxb, __shfl_xor_sync(fullmask, mxb, w));
+          }
+        }
+        // pass 2: pq in the A fragments of the block's two k steps (the
+        // slot map) and its exact sum, then O += pq·vi
+        uint32_t p[2][4];
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          int ca[4][2], cb[4][2];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int t = 4 * k2 + u;
+            ca[u][0] = prob_code(l[4 * t], mxa);
+            ca[u][1] = prob_code(l[4 * t + 1], mxa);
+            cb[u][0] = prob_code(l[4 * t + 2], mxb);
+            cb[u][1] = prob_code(l[4 * t + 3], mxb);
+            suma += ca[u][0] + ca[u][1];
+            sumb += cb[u][0] + cb[u][1];
+          }
+          p[k2][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
+          p[k2][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
+          p[k2][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
+          p[k2][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
+        }
+        const unsigned char* vt = stage + (kSamples + si) * kTile;
+        fence_acc(o);
+        fence_acc(p[0]);
+        fence_acc(p[1]);
+        wgmma_fence();
+        q8_long_pv<kD>(o, p[0], vt, 0);
+        q8_long_pv<kD>(o, p[1], vt, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(o);
+        fence_acc(p[0]);
+        fence_acc(p[1]);
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+
+    // out = bf16((O · 1/Σpq) · s_v)
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      suma += __shfl_xor_sync(fullmask, suma, w);
+      sumb += __shfl_xor_sync(fullmask, sumb, w);
+    }
+    const float inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
+    const float invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      const int col = dt * 8 + 2 * tig;
+      float v0 = s_v, v1 = s_v;
+      if constexpr (!kStatic) {
+        if (live) {
+          const float2 sv = *reinterpret_cast<const float2*>(vs + bh * kD +
+                                                             col);
+          v0 = sv.x;
+          v1 = sv.y;
+        }
+      }
+      if (live && ra < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + head_off +
+                                           col) =
+            __floats2bfloat162_rn(
+                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt]), inva), v0),
+                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 1]), inva),
+                          v1));
+      if (live && rb < N)
+        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + head_off +
+                                           col) =
+            __floats2bfloat162_rn(
+                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 2]), invb),
+                          v0),
+                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 3]), invb),
+                          v1));
+    }
+  }
+}
+
+template <int kD, bool kStatic>
+inline cudaError_t attention_q8_prepass_run(const bf16* qkv,
+                                            const float* s_qkv,
+                                            const Q8LongScratch& sc, int B,
+                                            int N, int C, int H,
+                                            cudaStream_t stream) {
+  attention_q8_prepass_kernel<kD, kStatic>
+      <<<static_cast<unsigned>(static_cast<long long>(B) * H),
+         kQ8PrepassThreads, 0, stream>>>(qkv, s_qkv, sc, N, C, H);
+  return cudaGetLastError();
+}
+
+template <int kD, bool kStatic, bool kTiles>
+inline cudaError_t attention_q8_long_launch(
+    const CUtensorMap& map_k, const CUtensorMap& map_v,
+    const CUtensorMap& map_b, const bf16* qkv, const Q8LongScratch& sc,
+    const float* bias, const float* s_qkv, bf16* out, int B, int N, int C,
+    int H, int mode, cudaStream_t stream) {
+  auto* kern = attention_q8_long_kernel<kD, kStatic, kTiles>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(
+      (N + kAttnLongQueries - 1) / kAttnLongQueries,
+      long_sample_groups(B, N, H, attn_long_samples(kD), mode), H);
+  // d^-1/2 in float32, as the JAX package's f32 logits take a Python float
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
+  kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
+      map_k, map_v, map_b, qkv, sc.ks, sc.vs, bias, s_qkv, out, B, N, C,
+      mode == kBiasSlab, scale);
+  return cudaGetLastError();
+}
+
+// The long route: the pre-pass into `scratch`, then the core.
+template <int kD, bool kStatic>
 inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
                                          const float* s_qkv, bf16* out, int B,
-                                         int N, int C, int H,
+                                         int N, int C, int H, void* scratch,
                                          cudaStream_t stream) {
-  const int smem = attn_q8_long_layout(kD).bytes;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
-  const dim3 grid((N + kAttnQ8LongQueries - 1) / kAttnQ8LongQueries, H, B);
-  if (s_qkv != nullptr)
-    attention_q8_long_kernel<kD, true><<<grid, kAttnQ8LongWarps * 32, smem,
-                                         stream>>>(qkv, bias, s_qkv, out, N,
-                                                   C, scale);
-  else
-    attention_q8_long_kernel<kD, false><<<grid, kAttnQ8LongWarps * 32, smem,
-                                          stream>>>(qkv, bias, nullptr, out,
-                                                    N, C, scale);
-  return cudaGetLastError();
+  const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, kD);
+  cudaError_t e =
+      attention_q8_prepass_run<kD, kStatic>(qkv, s_qkv, sc, B, N, C, H,
+                                            stream);
+  if (e != cudaSuccess) return e;
+  const long long np = q8_long_np(N);
+  const long long bh = static_cast<long long>(B) * H;
+  CUtensorMap map_k, map_v, map_b;
+  e = tensor_map(&map_k, sc.kc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh * np, kD,
+                 kAttnLongKeys, 32, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e != cudaSuccess) return e;
+  e = tensor_map(&map_v, sc.vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh * kD, np,
+                 kD, kAttnLongKeys, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e != cudaSuccess) return e;
+  const int mode = long_bias_mode(N, q8_long_region_bytes(kD));
+  if (mode == kBiasTiles) {
+    if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
+    return attention_q8_long_launch<kD, kStatic, true>(
+        map_k, map_v, map_b, qkv, sc, bias, s_qkv, out, B, N, C, H, mode,
+        stream);
+  }
+  return attention_q8_long_launch<kD, kStatic, false>(
+      map_k, map_v, map_k, qkv, sc, bias, s_qkv, out, B, N, C, H, mode,
+      stream);
+}
+
+template <int kD>
+inline cudaError_t attention_q8_long_width(const bf16* qkv, const float* bias,
+                                           const float* s_qkv, bf16* out,
+                                           int B, int N, int C, int H,
+                                           void* scratch,
+                                           cudaStream_t stream) {
+  return s_qkv != nullptr
+             ? attention_q8_long_run<kD, true>(qkv, bias, s_qkv, out, B, N, C,
+                                               H, scratch, stream)
+             : attention_q8_long_run<kD, false>(qkv, bias, nullptr, out, B, N,
+                                                C, H, scratch, stream);
 }
 
 // K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. The head
 // width is C / H, one of 32, 64 and 128. `plan` is the wrapper's
 // `attention_q8_plan` at that width: the 32-key step bucket, the warps of
 // a CTA (even, at most 8), the samples of a CTA and the shared bytes, or
-// the long route's plan (block_common.cuh attn_long_plan_ok, with this
-// route's shared bytes), which launches attention_q8_long_kernel; a width
+// the long route's plan (block_common.cuh attn_long_plan_ok, with the bf16
+// route's CTA), which runs the pre-pass into `scratch` (not null, 16-byte
+// aligned, q8_long_scratch's bytes) and attention_q8_long_kernel; a width
 // or plan the kernels do not take is refused with cudaErrorInvalidValue.
 cudaError_t attention_q8(const bf16* qkv, const float* bias,
                          const float* s_qkv, bf16* out, int B, int N, int C,
-                         int H, const int* plan, cudaStream_t stream) {
+                         int H, const int* plan, void* scratch,
+                         cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   if (kt == kAttnLongRoute) {
-    if (!attn_long_plan_ok(plan, B, N, H, d, kAttnQ8LongWarps, 1,
-                           head_dim_ok(d) ? attn_q8_long_layout(d).bytes : 0))
+    if (!head_dim_ok(d) ||
+        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(d),
+                           attn_long_samples(d), kAttnLongSmem) ||
+        scratch == nullptr ||
+        ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(bias) |
+          reinterpret_cast<uintptr_t>(scratch)) &
+         15) != 0)
       return cudaErrorInvalidValue;
     switch (d) {
       case 32:
-        return attention_q8_long_run<32>(qkv, bias, s_qkv, out, B, N, C, H,
-                                         stream);
+        return attention_q8_long_width<32>(qkv, bias, s_qkv, out, B, N, C, H,
+                                           scratch, stream);
       case 64:
-        return attention_q8_long_run<64>(qkv, bias, s_qkv, out, B, N, C, H,
-                                         stream);
+        return attention_q8_long_width<64>(qkv, bias, s_qkv, out, B, N, C, H,
+                                           scratch, stream);
       default:
-        return attention_q8_long_run<128>(qkv, bias, s_qkv, out, B, N, C, H,
-                                          stream);
+        return attention_q8_long_width<128>(qkv, bias, s_qkv, out, B, N, C,
+                                            H, scratch, stream);
     }
   }
   if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 32 < N || warps < 2 ||
@@ -1565,6 +1904,40 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
     default:
       return attention_q8_width<128>(qkv, bias, s_qkv, out, B, N, C, H, kt,
                                      warps, samples, smem, stream);
+  }
+}
+
+// The long route's pre-pass alone, at head width C / H.
+cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
+                                 void* scratch, int B, int N, int C, int H,
+                                 cudaStream_t stream) {
+  const int d = H > 0 && C % H == 0 ? C / H : 0;
+  if (!head_dim_ok(d) || N < 1 || N > kAttnMaxLongTokens || B < 1 ||
+      scratch == nullptr ||
+      ((reinterpret_cast<uintptr_t>(qkv) |
+        reinterpret_cast<uintptr_t>(scratch)) &
+       15) != 0)
+    return cudaErrorInvalidValue;
+  const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, d);
+  switch (d) {
+    case 32:
+      return s_qkv != nullptr
+                 ? attention_q8_prepass_run<32, true>(qkv, s_qkv, sc, B, N,
+                                                      C, H, stream)
+                 : attention_q8_prepass_run<32, false>(qkv, s_qkv, sc, B, N,
+                                                       C, H, stream);
+    case 64:
+      return s_qkv != nullptr
+                 ? attention_q8_prepass_run<64, true>(qkv, s_qkv, sc, B, N,
+                                                      C, H, stream)
+                 : attention_q8_prepass_run<64, false>(qkv, s_qkv, sc, B, N,
+                                                       C, H, stream);
+    default:
+      return s_qkv != nullptr
+                 ? attention_q8_prepass_run<128, true>(qkv, s_qkv, sc, B, N,
+                                                       C, H, stream)
+                 : attention_q8_prepass_run<128, false>(qkv, s_qkv, sc, B, N,
+                                                        C, H, stream);
   }
 }
 
@@ -1622,9 +1995,10 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                                 nullptr},
               M, 3 * C, C, gemm_plan(0), stream);
   if (e != cudaSuccess) return e;
-  e = quant_attn
-          ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, plan, stream)
-          : attention(qkv, bias, att, B, N, C, H, plan, stream);
+  // K4a's long route takes h, unused until the up GEMM, as its scratch
+  e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, plan, h,
+                                stream)
+                 : attention(qkv, bias, att, B, N, C, H, plan, stream);
   if (e != cudaSuccess) return e;
   if ((e = row_quant(att, stat(1), codes, rs, M, C, stream)) != cudaSuccess)
     return e;
@@ -1673,8 +2047,10 @@ const char* dm_error_string(int err) {
 // overlap. `static_scales` nonzero: each block has 18 parameters, the last
 // its static activation scales. `quant_attn` nonzero: the attention runs
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
-// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32; codes
-// (B·N, max(C, hidden)) int8; row_scale and row_amax (B·N) f32. Requires
+// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32, and with
+// quant_attn on the long route at least the route's scratch
+// (attention_q8_long_scratch's bytes); codes (B·N, max(C, hidden)) int8;
+// row_scale and row_amax (B·N) f32. Requires
 // C == H·d with d 32, 64 or 128, C % 128 == 0, C <= 8192, hidden % 128 ==
 // 0, N <= 16384 and 16-byte aligned tensors (checked by the caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
@@ -1804,15 +2180,29 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // from a packed (B·N, 3C) bf16 qkv and the (H, N, N) f32 bias, with the
 // static (s_q, s_k, s_v) (f32 [3]) or, if null, dynamic scales. `plan` is
 // the wrapper's `attention_q8_plan` (the short core up to N 256, the long
-// route above or when the plan forces it). Requires C == H·d with d 32, 64
-// or 128 and N <= 16384 (checked by the caller). Returns cudaGetLastError().
+// route above or when the plan forces it: its pre-pass writes `scratch`,
+// attention_q8_long_scratch's bytes). Requires C == H·d with d 32, 64 or
+// 128 and N <= 16384 (checked by the caller). Returns cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,
-                    cudaStream_t stream) {
+                    void* scratch, cudaStream_t stream) {
   return static_cast<int>(attention_q8(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(s_qkv), static_cast<bf16*>(out), B, N, C, H,
-      plan, stream));
+      plan, scratch, stream));
+}
+
+// The long route's pre-pass alone (its measurement and tests): from a
+// packed (B·N, 3C) bf16 qkv, with the static (s_q, s_k, s_v) or, if null,
+// dynamic scales, into `scratch` (attention_q8_long_scratch's bytes): k
+// codes (B, H, Np, d), v codes transposed (B, H, d, Np) in the slot order,
+// k's row scales (B, H, Np) and v's column scales (B, H, d), f32, Np = N
+// rounded up to 64. Returns cudaGetLastError().
+int dm_attention_q8_prepass(const void* qkv, const void* s_qkv, void* scratch,
+                            int B, int N, int C, int H, cudaStream_t stream) {
+  return static_cast<int>(attention_q8_prepass(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(s_qkv),
+      scratch, B, N, C, H, stream));
 }
 
 }  // extern "C"

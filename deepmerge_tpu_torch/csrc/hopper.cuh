@@ -91,21 +91,31 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 }
 
 // wgmma shared-memory descriptor of a tile stored by TMA with the swizzle
-// of kRowBytes (128 or 64) bytes: rows of kRowBytes, 8-row groups
+// of kRowBytes (128, 64 or 32) bytes: rows of kRowBytes, 8-row groups
 // 8·kRowBytes apart, the tile on a multiple of 8·kRowBytes. Adding 2 to
-// the descriptor advances its start by 32 bytes, one k step (16 bf16
-// values) along a K-major row. `lbo` is the leading byte offset: unused by
-// a K-major tile one swizzle row deep (the GEMM's slabs), and set to the
-// 8-row stride for an MN-major tile one swizzle row wide, whose k steps
-// walk down the rows.
+// the descriptor advances its start by 32 bytes, one k step (16 bf16 or 32
+// int8 values) along a K-major row. `lbo` is the leading byte offset:
+// unused by a K-major tile one swizzle row deep (the GEMM's slabs), and
+// set to the 8-row stride for an MN-major tile one swizzle row wide, whose
+// k steps walk down the rows.
 template <int kRowBytes>
 __device__ __forceinline__ uint64_t wgmma_desc_sw(const void* p,
                                                   uint32_t lbo = 16) {
-  static_assert(kRowBytes == 128 || kRowBytes == 64, "128B or 64B swizzle");
+  static_assert(kRowBytes == 128 || kRowBytes == 64 || kRowBytes == 32,
+                "128B, 64B or 32B swizzle");
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(8 * kRowBytes >> 4) << 32) |
-         (static_cast<uint64_t>(kRowBytes == 128 ? 1 : 2) << 62);
+         (static_cast<uint64_t>(kRowBytes == 128 ? 1
+                                : kRowBytes == 64 ? 2
+                                                  : 3)
+          << 62);
+}
+
+// Orders this thread's generic-proxy writes to shared memory before the
+// async proxy's later reads of them (wgmma's operands, a TMA store).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // The K-major 128-byte-swizzle descriptor of the GEMM's slabs.

@@ -1,7 +1,6 @@
-// The int4 dot probe's s8 variants (kernel K10; int4_dot.cuh): s8 x s8 and
-// s8 x (s4 widened to s8), both on mma.sync m16n8k32 s8. The s4 x s4
-// variant is built on its own (int4_dot_s4.cu), so that these two stand
-// whether or not ptxas takes its instruction for sm_90a.
+// The int4 dot probe (kernel K10; int4_dot.cuh): s8 x s8, s8 x s4 and
+// s4 x s4, all on the s8 wgmma GEMM (the packed operands widened to s8 on
+// their way into shared memory).
 
 #include "int4_dot.cuh"
 
@@ -12,17 +11,24 @@ const char* dm_error_string(int err) {
 }
 
 // C (m, n) int32 = A (m, k) s8 · Bᵀ (n, k) s8.
-int dm_int_dot_s8s8(const int8_t* a, const int8_t* bt, int* c, int m, int n,
+int dm_int_dot_s8s8(const void* a, const void* bt, int* c, int m, int n,
                     int k, cudaStream_t stream) {
   return static_cast<int>(
       int_dot::launch<int_dot::kS8S8>(a, bt, c, m, n, k, stream));
 }
 
 // C (m, n) int32 = A (m, k) s8 · Bᵀ (n, k) s4, Bᵀ packed (n, k / 2).
-int dm_int_dot_s8s4(const int8_t* a, const int8_t* bt, int* c, int m, int n,
+int dm_int_dot_s8s4(const void* a, const void* bt, int* c, int m, int n,
                     int k, cudaStream_t stream) {
   return static_cast<int>(
-      int_dot::launch<int_dot::kS8S4W>(a, bt, c, m, n, k, stream));
+      int_dot::launch<int_dot::kS8S4>(a, bt, c, m, n, k, stream));
+}
+
+// C (m, n) int32 = A (m, k) s4 · Bᵀ (n, k) s4, packed (m, k / 2), (n, k / 2).
+int dm_int_dot_s4s4(const void* a, const void* bt, int* c, int m, int n,
+                    int k, cudaStream_t stream) {
+  return static_cast<int>(
+      int_dot::launch<int_dot::kS4S4>(a, bt, c, m, n, k, stream));
 }
 
 }  // extern "C"

@@ -78,8 +78,10 @@ _SIGNATURES_Q8 = {
     # out_row_scale, row_amax, out_scale, M, N, K, epilogue, plan, stream
     "dm_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _P, _P],
-    # qkv, bias, s_qkv, out, B, N, C, H, plan, stream
-    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # qkv, bias, s_qkv, out, B, N, C, H, plan, scratch, stream
+    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # qkv, s_qkv, scratch, B, N, C, H, stream
+    "dm_attention_q8_prepass": [_P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, b, static_scale, codes, row_scale, M, C, stream
     "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
@@ -182,14 +184,18 @@ ATTN_LONG_WARPS = {d: 8 * s for d, s in ATTN_LONG_SAMPLES.items()}
 ATTN_LONG_SMEM = CTA_SHARED_MAX
 ATTN_LONG_SLAB_CTAS = 2048
 ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223}
-# K4a's long route (csrc/fused_block_q8.cu attention_q8_long_kernel): a CTA
-# of four warps takes one head, one sample and 64 queries, k and v in
-# 64-key blocks; grid (query blocks, heads, samples). Registers as above
-# (no spills but 8 bytes at width 32 with dynamic scales).
-ATTN_Q8_LONG_WARPS = 4
-ATTN_Q8_LONG_QUERIES = 64
-ATTN_Q8_LONG_KEYS = 64
-ATTN_Q8_LONG_REGISTERS = {32: 96, 64: 133, 128: 168}
+# K4a's long route (csrc/fused_block_q8.cu): a pre-pass, one CTA of
+# ATTN_Q8_PREPASS_THREADS a (sample, head), quantizes k and v once into
+# scratch (``attention_q8_long_scratch``); then attention_q8_long_kernel
+# runs the bf16 route's CTA (128 queries, two warpgroups a sample, all of a
+# CTA's shared memory) on s8 wgmma, two samples a CTA (one at width 128),
+# with a ring of three stages of 64-key blocks of k and vᵀ codes and k's
+# scales. Registers a thread: ptxas's most over the variants of each width
+# (nvcc 12.9, sm_90a; 12 bytes spill at width 64 with dynamic scales and
+# bias rows or a slab).
+ATTN_Q8_PREPASS_THREADS = 256
+ATTN_Q8_LONG_STAGES = 3
+ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226}
 
 
 def _route(n: int, route: str | None) -> str:
@@ -200,6 +206,16 @@ def _route(n: int, route: str | None) -> str:
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     return route
+
+
+def _long_bias_form(n: int, region: int) -> str:
+    """The bias form of a long-route launch whose bias region holds
+    ``region`` bytes (the C side's ``long_bias_mode``): "slab" where a
+    CTA's 128 rows of n floats and their shift fit it, else "tiles" where
+    n % 4 == 0, else "rows"."""
+    if ATTN_LONG_QUERIES * n * 4 + 16 <= region:
+        return "slab"
+    return "tiles" if n % 4 == 0 else "rows"
 
 
 def _long_bias_region(head_dim: int, probs: bool) -> int:
@@ -217,40 +233,57 @@ def _long_bias_region(head_dim: int, probs: bool) -> int:
     return ATTN_LONG_SMEM - 1024 - ring - staging - bars
 
 
-def attention_long_bias(n: int, head_dim: int, probs: bool = False) -> str:
-    """The bias form of the bf16 long route at ``n`` tokens (the C side's
-    ``attn_long_bias_mode``): "slab" where a CTA's 128 rows of n floats and
-    their shift fit the bias region, else "tiles" where n % 4 == 0, else
-    "rows". ``probs``: the saved-probabilities kernels' (K5, K6)."""
-    if ATTN_LONG_QUERIES * n * 4 + 16 <= _long_bias_region(head_dim, probs):
-        return "slab"
-    return "tiles" if n % 4 == 0 else "rows"
+def _q8_long_region(head_dim: int) -> int:
+    """Bytes of K4a's long-route bias region (the C side's
+    ``q8_long_region_bytes``): the CTA's shared bytes less 1 KB of
+    alignment, the ring (three stages, each a 64-key block of k codes and
+    of vᵀ codes of each sample and k's 64 row scales of each, rounded up
+    to 1 KB) and the barriers (two a stage and the slab's)."""
+    samples = ATTN_LONG_SAMPLES[head_dim]
+    stage = -(-(2 * samples * ATTN_LONG_KEYS * head_dim
+                + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
+    bars = -(-(2 * ATTN_Q8_LONG_STAGES + 1) * 8 // 16) * 16
+    return ATTN_LONG_SMEM - 1024 - ATTN_Q8_LONG_STAGES * stage - bars
+
+
+def attention_long_bias(n: int, head_dim: int, probs: bool = False,
+                        int8: bool = False) -> str:
+    """The bias form of the long route at ``n`` tokens (``_long_bias_form``
+    of its bias region): the bf16 core's, with ``probs`` that of the
+    saved-probabilities kernels (K5, K6), with ``int8`` K4a's."""
+    region = _q8_long_region(head_dim) if int8 else \
+        _long_bias_region(head_dim, probs)
+    return _long_bias_form(n, region)
 
 
 def attention_long_groups(b: int, n: int, heads: int, head_dim: int,
-                          probs: bool = False) -> int:
-    """The bf16 long route's grid in y (the C side's
-    ``attn_long_sample_groups``): one CTA for each group of
-    ``ATTN_LONG_SAMPLES`` samples, but in the slab form ceil(groups · (CTAs
-    a group) / ``ATTN_LONG_SLAB_CTAS``) groups a CTA, the CTA of y taking
-    groups y, y + grid y, ..."""
+                          probs: bool = False, int8: bool = False) -> int:
+    """The long route's grid in y (the C side's ``long_sample_groups``):
+    one CTA for each group of ``ATTN_LONG_SAMPLES`` samples, but in the
+    slab form ceil(groups · (CTAs a group) / ``ATTN_LONG_SLAB_CTAS``)
+    groups a CTA, the CTA of y taking groups y, y + grid y, ..."""
     groups = -(-b // ATTN_LONG_SAMPLES[head_dim])
-    if attention_long_bias(n, head_dim, probs) != "slab":
+    if attention_long_bias(n, head_dim, probs, int8) != "slab":
         return groups
     per = -(-groups * -(-n // ATTN_LONG_QUERIES) * heads
             // ATTN_LONG_SLAB_CTAS)
     return -(-groups // per)
 
 
-def attention_q8_long_smem(head_dim: int) -> int:
-    """Shared bytes of a K4a long-route CTA at head width d: a block's k
-    codes (64 x (d + 16) B), its v codes transposed (d x 80 B), k's row
-    scales, v's column scales and a d-lane partial abs-max for each d/8
-    threads."""
-    d = head_dim
-    parts = ATTN_Q8_LONG_WARPS * 32 // (d // 8)
-    return ATTN_Q8_LONG_KEYS * (d + 16) + d * (ATTN_Q8_LONG_KEYS + 16) \
-        + ATTN_Q8_LONG_KEYS * 4 + d * 4 + parts * d * 4
+def q8_long_keys(n: int) -> int:
+    """Keys of a (sample, head) in K4a's long-route scratch: n rounded up
+    to whole 64-key blocks."""
+    return -(-n // ATTN_LONG_KEYS) * ATTN_LONG_KEYS
+
+
+def attention_q8_long_scratch(b: int, n: int, c: int, heads: int) -> int:
+    """Bytes of K4a's long-route scratch (the C side's ``q8_long_scratch``)
+    for b samples of n tokens and C = heads x d: k codes (b, heads, Np, d)
+    and v codes transposed (b, heads, d, Np), int8; k's row scales (b,
+    heads, Np) and v's column scales (b, heads, d), float32; Np =
+    ``q8_long_keys(n)``."""
+    np_, d = q8_long_keys(n), c // heads
+    return b * heads * (2 * np_ * d + 4 * np_ + 4 * d)
 
 
 def _long_plan(b: int, n: int, heads: int, head_dim: int, warps: int,
@@ -404,19 +437,29 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     it takes, the grid and the CTAs that fit an SM. ``warps`` None: 2
     where one 16-query tile holds every token (n <= 16), else
     ``ATTN_WARPS``; ``samples`` None: as ``attention_plan``. Above
-    ``MAX_TOKENS`` (or with ``route="long"``) its long route: ints
-    (``ATTN_LONG_ROUTE``, ``ATTN_Q8_LONG_WARPS``, 1 sample, shared bytes),
-    grid (64-query blocks, heads, samples). Raises ``ValueError`` for a launch the kernels
-    do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
+    ``MAX_TOKENS`` (or with ``route="long"``) its long route: the bf16
+    route's ints (``ATTN_LONG_ROUTE``, ``ATTN_LONG_WARPS``,
+    ``ATTN_LONG_SAMPLES``, ``ATTN_LONG_SMEM``) of the width, grid
+    (128-query blocks, sample groups, heads), ``bias`` form, the
+    pre-pass's grid (``prepass_grid``, a CTA a sample and head) and the
+    ``scratch`` bytes both share. Raises ``ValueError`` for a launch the
+    kernels do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"the int8 attention core takes heads of width "
                          f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
     if _route(n, route) == "long":
-        return _long_plan(
-            b, n, heads, head_dim, ATTN_Q8_LONG_WARPS, 1,
-            attention_q8_long_smem(head_dim), ATTN_Q8_LONG_REGISTERS[head_dim],
-            (-(-n // ATTN_Q8_LONG_QUERIES), heads, b),
+        plan = _long_plan(
+            b, n, heads, head_dim, ATTN_LONG_WARPS[head_dim],
+            ATTN_LONG_SAMPLES[head_dim], ATTN_LONG_SMEM,
+            ATTN_Q8_LONG_REGISTERS[head_dim],
+            (-(-n // ATTN_LONG_QUERIES),
+             attention_long_groups(b, n, heads, head_dim, int8=True), heads),
             "the long int8 attention route")
+        plan.update(bias=attention_long_bias(n, head_dim, int8=True),
+                    prepass_grid=b * heads,
+                    scratch=attention_q8_long_scratch(b, n, heads * head_dim,
+                                                      heads))
+        return plan
     if warps is None:
         warps = 2 if n <= 16 else ATTN_WARPS
     if samples is None:
@@ -478,6 +521,9 @@ attention_short = CoreLaunches()
 attention_long = CoreLaunches()
 attention_q8_short = CoreLaunches()
 attention_q8_long = CoreLaunches()
+# the int8 long route's pre-pass (csrc/fused_block_q8.cu
+# attention_q8_prepass_kernel), one launch with each of its cores, counts
+# in its own wrapper's ``attention_q8_prepass.launches``
 
 
 # the wide LayerNorm kernels (C > MAX_WIDTH): csrc/fused_block.cu's (K2,
@@ -492,6 +538,8 @@ def count_core(plan_ints, int8: bool = False, blocks: int = 1) -> None:
     long = plan_ints[0] == ATTN_LONG_ROUTE
     if int8:
         (attention_q8_long if long else attention_q8_short).launches += blocks
+        if long:
+            attention_q8_prepass.launches += blocks
     else:
         (attention_long if long else attention_short).launches += blocks
 
@@ -987,6 +1035,97 @@ def attention_q8_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return _attention_q8s(qkv, bias, heads, *static)
 
 
+# K4a's long route as two plain twins: the pre-pass's operands in the
+# layouts the core reads, and the core's two passes over 64-key blocks on
+# them. v's transposed rows hold the keys of each 32-key half in the slot
+# order of the core's pq fragments: key 16h + 8u + 2t + e at slot 16h + 4t
+# + 2u + e (the short core's slot map).
+
+def q8_slot(j: int) -> int:
+    """The slot of key ``j`` in the pre-pass's transposed v rows (the C
+    side's ``q8_slot``)."""
+    return (j & ~15) | (((j >> 1) & 3) << 2) | (((j >> 3) & 1) << 1) | (j & 1)
+
+
+def attention_q8_prepass_ref(qkv: torch.Tensor, heads: int, static=None):
+    """Plain version of K4a's long-route pre-pass: ``(kc, ks, vs, vt)`` of
+    a (B, N, 3C) qkv, the operands of ``_q8_operands`` laid out as the core
+    reads them, keys padded to Np = ``q8_long_keys(N)``: k's codes (B, H,
+    Np, D) int8 (0 past N), k's row scales (B, H, Np) float32 (1 past N),
+    v's column scales (B, H, D) float32, v's codes transposed (B, H, D, Np)
+    int8 in the slot order (``q8_slot``; 0 past N). With ``static`` the
+    scales are None."""
+    b, n, _ = qkv.shape
+    np_ = q8_long_keys(n)
+    _, _, ki, sk, vi, sv = _q8_operands(qkv, heads, static)
+    d, dev = ki.shape[-1], qkv.device
+    kc = torch.zeros((b, heads, np_, d), dtype=torch.int8, device=dev)
+    kc[:, :, :n] = ki.permute(0, 2, 1, 3)
+    vt = torch.zeros((b, heads, d, np_), dtype=torch.int8, device=dev)
+    slots = torch.tensor([q8_slot(j) for j in range(n)], device=dev)
+    vt[..., slots] = vi.permute(0, 2, 3, 1)
+    if static is not None:
+        return kc, None, None, vt
+    ks = torch.ones((b, heads, np_), dtype=torch.float32, device=dev)
+    ks[:, :, :n] = sk[..., 0].permute(0, 2, 1)
+    return kc, ks, sv[:, 0], vt
+
+
+def attention_q8_long_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                          static=None) -> torch.Tensor:
+    """Plain version of K4a's long route: the pre-pass's operands
+    (``attention_q8_prepass_ref``) and q's codes as the core makes them,
+    then the core's two passes over 64-key blocks: pass 1 the row max of
+    the logits (dequantized in the JAX order, + bias, keys past N masked),
+    pass 2 pq = rint(127·exp(l − max)) against the final max, its exact sum
+    and pq·vi through v's slot order; out (B, N, C) in qkv's dtype. Every
+    rounding is ``attention_q8_ref``'s, so the two agree bit for bit."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    scale = d ** -0.5
+    kc, ks, vs, vt = attention_q8_prepass_ref(qkv, heads, static)
+    np_ = kc.shape[2]
+    q = qkv[..., :c].reshape(b, n, heads, d).to(torch.float32)
+    if static is not None:
+        s_q, s_k, s_v = static
+        qi = _codes(q * (1.0 / s_q))
+        cq = s_q * s_k * scale
+        sv = s_v
+    else:
+        sq = _scale_from_amax(q.abs().amax(-1, keepdim=True))
+        qi = _codes(q / sq)
+        cq = (sq * scale).permute(0, 2, 1, 3)  # (B, H, N, 1)
+        sv = vs[:, None]                       # (B, 1, H, D)
+    dev = qkv.device
+    key_slots = torch.tensor([q8_slot(j) for j in range(np_)], device=dev)
+    vk = vt[..., key_slots]  # v's codes back in key order, (B, H, D, Np)
+    bias_p = torch.zeros((heads, n, np_), dtype=torch.float32, device=dev)
+    bias_p[..., :n] = bias.to(torch.float32)
+    blocks = [slice(j, j + ATTN_LONG_KEYS)
+              for j in range(0, np_, ATTN_LONG_KEYS)]
+
+    def logits(sl):
+        acc = _int_einsum("bnhd,bhmd->bhnm", qi, kc[:, :, sl])
+        lg = acc * cq if static is not None \
+            else acc * cq * ks[:, :, None, sl]
+        lg = lg + bias_p[None, :, :, sl]
+        past = torch.arange(sl.start, sl.stop, device=dev) >= n
+        return lg.masked_fill(past, -math.inf)
+
+    m = torch.full((b, heads, n, 1), -math.inf, device=dev)
+    for sl in blocks:  # pass 1: the exact max
+        m = torch.maximum(m, logits(sl).amax(-1, keepdim=True))
+    av = torch.zeros((b, n, heads, d), device=dev)
+    total = torch.zeros((b, heads, n, 1), device=dev)
+    for sl in blocks:  # pass 2
+        pq = torch.round(torch.exp(logits(sl) - m) * 127.0)
+        av = av + _int_einsum("bhnm,bhdm->bnhd", pq, vk[..., sl])
+        total = total + pq.sum(-1, keepdim=True)
+    recip = (1.0 / total).permute(0, 2, 1, 3)
+    return (av * recip * sv).reshape(b, n, c).to(qkv.dtype)
+
+
 def block_ref_q8(x: torch.Tensor, qparams, heads: int,
                  exact_gelu: bool = False,
                  quant_attn: bool = False) -> torch.Tensor:
@@ -1414,12 +1553,17 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=dev)
     att = torch.empty((m, c), dtype=x.dtype, device=dev)
     r = torch.empty((m, c), dtype=x.dtype, device=dev)
-    h = torch.empty((m, hidden), dtype=torch.float32, device=dev)
+    ints = block_plan_q8(b, n, c, heads, hidden, quant_attn)
+    # h, free during the attention, is also K4a's long-route scratch
+    h_floats = m * hidden
+    if quant_attn and ints[0] == ATTN_LONG_ROUTE:
+        h_floats = max(h_floats,
+                       -(-attention_q8_long_scratch(b, n, c, heads) // 4))
+    h = torch.empty((h_floats,), dtype=torch.float32, device=dev)
     codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
     row_amax = torch.empty((m,), dtype=torch.float32, device=dev)
     ptrs = _pointers(qparams_list)
-    ints = block_plan_q8(b, n, c, heads, hidden, quant_attn)
     plan = _plan_arg(ints)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1612,31 +1756,23 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     """
     if not _on_cuda(qkv):
         return attention_q8_ref(qkv, bias, heads, static)
-    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3 or \
-            not qkv.is_contiguous():
-        raise TypeError(f"qkv must be a contiguous (B, N, 3C) bf16 tensor, "
-                        f"got {qkv.dtype} {tuple(qkv.shape)}")
-    b, n, c3 = qkv.shape
-    c = c3 // 3
-    if c3 % 3:
-        raise ValueError(f"the int8 attention needs a packed 3C, got {c3}")
-    d = check_head_dim(c, heads)
+    b, n, c, d = _check_q8_qkv(qkv, heads, static)
     if (bias.dtype != torch.float32 or tuple(bias.shape) != (heads, n, n)
             or bias.device != qkv.device or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous float32 ({heads}, {n}, "
                          f"{n}) on {qkv.device}")
-    if static is not None and (
-            static.dtype != torch.float32 or tuple(static.shape) != (3,)
-            or static.device != qkv.device or not static.is_contiguous()):
-        raise ValueError("static must be a contiguous float32 (3,) tensor "
-                         f"on {qkv.device}")
     plan = plan or attention_q8_plan(b, n, heads, head_dim=d)
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    scratch = None
+    if plan["route"] == "long":
+        scratch = torch.empty((plan["scratch"],), dtype=torch.uint8,
+                              device=qkv.device)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     err = lib.dm_attention_q8(
         qkv.data_ptr(), bias.data_ptr(),
         None if static is None else static.data_ptr(), out.data_ptr(), b, n,
         c, heads, _plan_arg(plan["ints"]),
+        None if scratch is None else scratch.data_ptr(),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8")
     count_core(plan["ints"], int8=True)
@@ -1644,8 +1780,68 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return out
 
 
+def _check_q8_qkv(qkv, heads, static):
+    """(B, N, C, d) of a packed qkv the int8 core's CUDA entries take."""
+    if qkv.dtype != torch.bfloat16 or qkv.dim() != 3 or \
+            not qkv.is_contiguous():
+        raise TypeError(f"qkv must be a contiguous (B, N, 3C) bf16 tensor, "
+                        f"got {qkv.dtype} {tuple(qkv.shape)}")
+    b, n, c3 = qkv.shape
+    if c3 % 3:
+        raise ValueError(f"the int8 attention needs a packed 3C, got {c3}")
+    c = c3 // 3
+    d = check_head_dim(c, heads)
+    if static is not None and (
+            static.dtype != torch.float32 or tuple(static.shape) != (3,)
+            or static.device != qkv.device or not static.is_contiguous()):
+        raise ValueError("static must be a contiguous float32 (3,) tensor "
+                         f"on {qkv.device}")
+    return b, n, c, d
+
+
+def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
+    """K4a's long-route pre-pass on its own: ``(kc, ks, vs, vt)`` as
+    ``attention_q8_prepass_ref`` gives them, from a (B, N, 3C) qkv with
+    dynamic scales or ``static`` (s_q, s_k, s_v) (a (3,) float32 tensor on
+    the CUDA path). The route launches it before each of its cores; this
+    entry serves its measurement and tests.
+
+    CPU tensors run ``attention_q8_prepass_ref``. CUDA tensors (bf16, d in
+    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``) launch
+    ``csrc/fused_block_q8.cu`` (``dm_attention_q8_prepass``, one CTA a
+    sample and head) into one scratch tensor, whose views it returns, and
+    count the launch in ``attention_q8_prepass``; anything else raises.
+    """
+    if not _on_cuda(qkv):
+        return attention_q8_prepass_ref(qkv, heads, static)
+    b, n, c, d = _check_q8_qkv(qkv, heads, static)
+    if not 1 <= n <= MAX_LONG_TOKENS:
+        raise ValueError(f"the pre-pass takes 1..{MAX_LONG_TOKENS} tokens, "
+                         f"got {n} (ROADMAP.md)")
+    np_ = q8_long_keys(n)
+    scratch = torch.empty((attention_q8_long_scratch(b, n, c, heads),),
+                          dtype=torch.uint8, device=qkv.device)
+    lib = build.load("fused_block_q8", _SIGNATURES_Q8)
+    err = lib.dm_attention_q8_prepass(
+        qkv.data_ptr(), None if static is None else static.data_ptr(),
+        scratch.data_ptr(), b, n, c, heads,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    build.check(lib, err, "dm_attention_q8_prepass")
+    attention_q8_prepass.launches += 1
+    codes = b * heads * np_ * d
+    kc = scratch[:codes].view(torch.int8).view(b, heads, np_, d)
+    vt = scratch[codes:2 * codes].view(torch.int8).view(b, heads, d, np_)
+    if static is not None:
+        return kc, None, None, vt
+    scales = scratch[2 * codes:].view(torch.float32)
+    ks = scales[:b * heads * np_].view(b, heads, np_)
+    vs = scales[b * heads * np_:].view(b, heads, d)
+    return kc, ks, vs, vt
+
+
 gemm_q8.launches = 0
 attention_q8.launches = 0
+attention_q8_prepass.launches = 0
 
 
 # ------------------------------------------- the blocks' LayerNorm alone

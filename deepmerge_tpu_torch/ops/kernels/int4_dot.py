@@ -3,17 +3,19 @@
 Counterpart of the TPU probe ``tools/int4_dot_probe.py`` (``_mk``'s kernel):
 int32 C (M, N) = A (M, K) · B (K, N) on integer operands, at the MLP's
 shape (M 4096, K 768, N 3072), to ask whether an int4 rate would make a
-w4a8 MLP worth having. No path of the package computes it. The variants,
-as Hopper offers them (``csrc/int4_dot.cuh``):
+w4a8 MLP worth having. No path of the package computes it. Hopper has no
+int4 tensor-core rate, so every variant runs on the s8 ``wgmma`` GEMM
+(``csrc/int4_dot.cuh``, on ``csrc/wgmma_gemm.cuh``):
 
-* ``"s8s8"``: A (M, K) int8, Bᵀ (N, K) int8; ``mma.sync`` m16n8k32 s8;
-* ``"s4s4"``: A and Bᵀ packed int4 (``pack_int4``: (M, K/2), (N, K/2)
-  uint8); ``mma.sync`` m16n8k64 s4 (``csrc/int4_dot_s4.cu``);
-* ``"s8s4"``: A (M, K) int8, Bᵀ packed int4 (N, K/2), widened to s8 on its
-  way into shared memory, then the s8 products: a w4a8 product. PTX has no
-  mixed-operand (s8 × s4) ``mma``, the TPU probe's third variant.
+* ``"s8s8"``: A (M, K) int8, Bᵀ (N, K) int8; the GEMM as K4 runs it, an
+  int32 epilogue;
+* ``"s8s4"``: A (M, K) int8, Bᵀ packed int4 (``pack_int4``: (N, K/2)
+  uint8), widened to s8 between global and shared memory by a converter
+  warpgroup: a w4a8 product. PTX has no mixed-operand (s8 × s4) product,
+  the TPU probe's third variant;
+* ``"s4s4"``: A and Bᵀ packed, (M, K/2) and (N, K/2), both widened.
 
-B travels as Bᵀ, K contiguous, as the ``mma`` instructions read it.
+B travels as Bᵀ, K contiguous, as ``wgmma`` reads an s8 operand.
 """
 
 from __future__ import annotations
@@ -25,12 +27,12 @@ import torch
 from deepmerge_tpu_torch.ops.kernels import build
 
 VARIANTS = ("s8s8", "s4s4", "s8s4")
-# (library, entry point) of each variant
-_ENTRY = {"s8s8": ("int4_dot", "dm_int_dot_s8s8"),
-          "s4s4": ("int4_dot_s4", "dm_int_dot_s4s4"),
-          "s8s4": ("int4_dot", "dm_int_dot_s8s4")}
-TILE_M = TILE_N = 128
-TILE_K_BYTES = 64
+# the entry point of each variant (csrc/int4_dot.cu)
+_ENTRY = {v: f"dm_int_dot_{v}" for v in VARIANTS}
+# the shapes the kernels take: K a whole number of the GEMM's 128-value K
+# slabs, N a multiple of 8 (the epilogue's column pairs), any M >= 1
+K_ALIGN = 128
+N_ALIGN = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # a, bt, c, m, n, k, stream
@@ -94,31 +96,38 @@ def _check(a, bt, variant) -> tuple[int, int, int]:
     return m, bt.shape[0], k
 
 
+def check_shape(m: int, n: int, k: int, variant: str) -> None:
+    """Raises ``ValueError`` for a shape the kernels do not take: K a
+    multiple of ``K_ALIGN`` (the GEMM's K slab; a packed row is then a
+    multiple of 16 bytes, as TMA needs), N of ``N_ALIGN``, M >= 1."""
+    if m < 1 or n < N_ALIGN or n % N_ALIGN or k < K_ALIGN or k % K_ALIGN:
+        raise ValueError(
+            f"{variant}: the kernels take K a multiple of {K_ALIGN}, N a "
+            f"multiple of {N_ALIGN} and M >= 1; got M={m}, N={n}, K={k}")
+
+
 def int4_dot(a: torch.Tensor, bt: torch.Tensor, variant: str
              ) -> torch.Tensor:
     """C (M, N) int32 = A · B for ``variant`` (module docstring).
 
-    CPU tensors run ``int4_dot_ref``. CUDA tensors (contiguous, M and N
-    multiples of 128, A's rows multiples of 64 bytes) launch the variant's
-    kernel and count the launch in ``int4_dot.launches``; anything else
-    raises.
+    CPU tensors run ``int4_dot_ref``. CUDA tensors (contiguous, 16-byte
+    aligned, K a multiple of ``K_ALIGN``, N of ``N_ALIGN``, any M) launch
+    the variant's kernel and count the launch in ``int4_dot.launches``;
+    anything else raises.
     """
     m, n, k = _check(a, bt, variant)
     if a.device.type == "cpu":
         return int4_dot_ref(a, bt, variant)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
+    check_shape(m, n, k, variant)
     if not (a.is_contiguous() and bt.is_contiguous()):
         raise ValueError("A and Bᵀ must be contiguous")
-    if m % TILE_M or n % TILE_N or a.shape[1] % TILE_K_BYTES or \
-            a.data_ptr() % 16 or bt.data_ptr() % 16:
-        raise ValueError(
-            f"{variant}: the kernel takes M, N multiples of {TILE_M}, A rows "
-            f"of a multiple of {TILE_K_BYTES} bytes, 16-byte aligned "
-            f"operands; got M={m}, N={n}, A rows {a.shape[1]} bytes")
+    if a.data_ptr() % 16 or bt.data_ptr() % 16:
+        raise ValueError("A and Bᵀ must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
-    name, entry = _ENTRY[variant]
-    lib = build.load(name, {entry: _ARGS})
+    entry = _ENTRY[variant]
+    lib = build.load("int4_dot", {entry: _ARGS})
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = getattr(lib, entry)(a.data_ptr(), bt.data_ptr(), out.data_ptr(),
                               m, n, k, stream)

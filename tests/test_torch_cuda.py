@@ -741,6 +741,36 @@ def test_attention_q8_plans_agree(cuda, warps, samples):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("n", [257, 301, 772])
+def test_attention_q8_long_route_matches_plain(cuda, n, static):
+    """K4a's long route (its bias as a slab, row copies and tiles): the
+    pre-pass bit-exact against its plain twin, the route against the plain
+    version by the core's bar, and bit-identical to the short core where
+    both run (N 192 forced long)."""
+    rs = np.random.default_rng(n + 7 * static)
+    qkv, bias = _attention_inputs(rs, 3, n, 3, cuda)
+    st = None
+    if static:
+        st = torch.stack([qkv[..., i * 192:(i + 1) * 192].float().abs().max()
+                          * 0.8 / 127 for i in range(3)]).contiguous()
+    got = fb.attention_q8_prepass(qkv, 3, st)
+    want = fb.attention_q8_prepass_ref(qkv, 3, None if st is None
+                                       else tuple(st))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    out = fb.attention_q8(qkv, bias, 3, static=st)
+    torch.cuda.synchronize()
+    assert _rel_err(out, fb.attention_q8_ref(qkv, bias, 3, st)) <= BLOCK_TOL
+    qkv, bias = _attention_inputs(rs, 5, 192, 3, cuda)
+    plan = fb.attention_q8_plan(5, 192, 3, route="long")
+    got = fb.attention_q8(qkv, bias, 3, static=st, plan=plan)
+    short = fb.attention_q8(qkv, bias, 3, static=st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, short, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("r,hw,offset", [(2048, (64, 61), 0),
                                          (8192, (128, 128), 1),
                                          (40000, (33, 17), 0)])
@@ -765,14 +795,17 @@ def test_label_lookup_matches_plain(cuda, r, hw, offset):
                                rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("variant", ["s8s8", "s8s4"])
+@pytest.mark.parametrize("variant", ["s8s8", "s8s4", "s4s4"])
 def test_int4_dot_matches_plain(cuda, variant):
-    """K10's s8 variants at M 256, K 192, N 384 (the s4 x s4 one is built
-    alone, and chip_smoke.py reports whether it assembles)."""
-    g = torch.Generator().manual_seed(len(variant))
-    a = torch.randint(-128, 128, (256, 192), dtype=torch.int8, generator=g)
-    bt = torch.randint(-8, 8, (384, 192), dtype=torch.int8, generator=g)
-    if variant == "s8s4":
+    """K10's variants, all on the s8 wgmma GEMM, at M 200 (a ragged row
+    tile), K 384 (three K slabs), N 392 (a ragged column tile)."""
+    g = torch.Generator().manual_seed(len(variant) + (variant == "s4s4"))
+    a = torch.randint(-128, 128, (200, 384), dtype=torch.int8, generator=g)
+    bt = torch.randint(-8, 8, (392, 384), dtype=torch.int8, generator=g)
+    if variant == "s4s4":
+        a = i4.pack_int4(torch.randint(-8, 8, (200, 384), dtype=torch.int8,
+                                       generator=g))
+    if variant != "s8s8":
         bt = i4.pack_int4(bt)
     before = i4.int4_dot.launches
     got = i4.int4_dot(a.to(cuda), bt.to(cuda), variant)

@@ -5,7 +5,8 @@ at M 64, K 128, N 96, in the TPU probe's operand ranges (int8 in
 CPU backend refuses an int4 x int4 dot, so the s4 x s4 variant is held to
 the dot of the same values as int8 (the widening is exact). Also the
 ``pack_int4`` round trip. The kernels are held to this plain version on
-the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3).
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 3); their
+shape rules are checked here.
 """
 
 import jax
@@ -15,7 +16,10 @@ import pytest
 import torch
 
 from deepmerge_tpu_torch.ops.kernels.int4_dot import (
+    K_ALIGN,
+    N_ALIGN,
     VARIANTS,
+    check_shape,
     int4_dot,
     int4_dot_ref,
     pack_int4,
@@ -74,6 +78,10 @@ def test_pack_int4_round_trip_and_nibble_order():
 
 
 def test_int4_dot_refuses_what_it_does_not_take():
+    """Unknown variants, operands of the wrong type or of disagreeing K,
+    and (the kernels' shape rules, ``check_shape``) K not a multiple of
+    ``K_ALIGN`` or N not of ``N_ALIGN``, each refusal naming the rule; the
+    probe's shape and a ragged M pass."""
     a = torch.zeros((128, 64), dtype=torch.int8)
     with pytest.raises(ValueError):
         int4_dot(a, a, "s4s8")
@@ -81,3 +89,13 @@ def test_int4_dot_refuses_what_it_does_not_take():
         int4_dot(a, a, "s4s4")
     with pytest.raises(ValueError):
         int4_dot(a, torch.zeros((128, 64), dtype=torch.uint8), "s8s4")
+    for m, n, k in ((4096, 3072, 192), (4096, 3068, 768), (0, 3072, 768),
+                    (8, 4, 128)):
+        with pytest.raises(ValueError, match=f"multiple of {K_ALIGN}"):
+            check_shape(m, n, k, "s8s4")
+    # accepted: the TPU probe's shape (M 4096, K 768, N 3072) and a ragged
+    # M with N at N_ALIGN, in every variant
+    for variant in VARIANTS:
+        for m, n, k in ((4096, 3072, 768), (200, N_ALIGN, K_ALIGN)):
+            check_shape(m, n, k, variant)
+
