@@ -120,7 +120,12 @@ kernel against its plain PyTorch version on the card:
      same way, in a w8a8 slice; each slice (v3 bf16, w8a8, w8a8+attn, v5
      w8a8) again with ``model.chain_stage0`` (three chain launches a
      chunk, no block launch), gated against the same plain outputs and
-     timed beside the unchained slice;
+     timed beside the unchained slice; 8b and 8c: the same bar for
+     v3-cube16 (both long routes) and v3-wide (both wide LayerNorms),
+     trained on the long-shapes scene under deterministic algorithms
+     (v3-cube16 while the last sources compile, v3-wide beside phase 9's
+     four ranks and phase 10's eval subprocess, which start right after
+     phase 8: nothing is timed there);
   9. scale-out, on those trained weights and that threshold, the flagship
      in w8a8: world size 1 on NCCL in this process
      (``extract_and_merge_sharded``, ``process_scene(mesh=...)``, and
@@ -176,8 +181,8 @@ kernel against its plain PyTorch version on the card:
 
 ``--only patches,kernels,widths,long,trained,scaleout,family,bench`` runs
 K1's fused patch check, phase 3, phase 3's head-width check, the long
-route and wide rows (phase 3's part and phase 5e), phase 8, phases 8 and
-9, phase 10 and/or phase 11 alone (after the card, the build and the
+route and wide rows (phase 3's part, phase 5e, phases 8b and 8c), phases
+8, 8b and 8c, phases 8 and 9, phase 10 and/or phase 11 alone (after the card, the build and the
 scene) and prints no result lines: a development run, not the smoke run.
 
 Phase 3 also holds the saved-probs training attention (K6) against its
@@ -208,6 +213,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -1859,10 +1865,10 @@ def width_summary(widths, name):
 #
 # The long attention route (N > 256: csrc/block_common.cuh
 # attention_long_kernel, csrc/fused_block_q8.cu attention_q8_long_kernel)
-# and the wide LayerNorm rows (C > 1024: csrc/fused_block.cu
-# layer_norm_kernel's wider forms, ln_quant_wide_kernel), held on two
-# full-width configurations of the shipped family: v3 with a 16x16 token
-# cube at the scales 32/64/128
+# and the wide LayerNorm rows (C > 1024: the wider forms of
+# csrc/fused_block.cu layer_norm_kernel and fused_block_q8.cu
+# ln_quant_kernel), held on two full-width configurations of the shipped
+# family: v3 with a 16x16 token cube at the scales 32/64/128
 # (patches of 2/4/8 pixels: 768 tokens at stage 0, 192 and 48 after the
 # per-scale pools) and v3 at embed 1536 (24 heads of 64, MLP 6144, cube 8).
 LONG_CUBE = 16
@@ -1889,6 +1895,9 @@ LONG_TRAIN_PAIRS = 60
 TOL_LN = 1e-2
 TOL_LN_SCALE = 1e-5
 LN_CODE_FLIPS_MAX = 1e-3
+# the w8a8 LayerNorm + quantize at 196,608 rows of 1536: the time its
+# redesign aims at, by scales (its bound is 0.2707 ms)
+LN_QUANT_TARGET_MS = {"dynamic": 0.45, "static": 0.40}
 
 
 def core_counters():
@@ -1992,8 +2001,9 @@ def check_long_kernels(dev):
     gradients; the long route forced at N 192 (K7 within its bar, K4a's
     core bit-identical to the short core, dynamic and static); the bf16
     route at every head width and bias form (``check_long_forms``); the
-    wide LayerNorm kernels alone (the bf16 one also at C 3072) and K2 and
-    K4 blocks at C 1536. Each by phase
+    wide LayerNorm kernels alone (the bf16 one also at C 3072, the w8a8
+    one at 1536, 3072 and 8192, dynamic and static) and K2 and K4 blocks at
+    C 1536. Each by phase
     3's bars, each launch on the route its N takes and no other. Returns
     the ``kernels`` line's entries of the four new kernels."""
     import torch
@@ -2275,31 +2285,51 @@ def check_long_kernels(dev):
           f"{fb.layer_norm_form(2 * cw)}): rel err {err:.3e}; {ms2:.4f} ms, "
           f"F.layer_norm {lib2:.4f} ms, bound {b2k['bound_ms']:.4f} ms")
     del got, x2, w2, b2
-    for static in (None, torch.tensor([0.031], device=dev)):
-        mode = "dynamic" if static is None else "static"
-        run = lambda: fb.ln_quant(x, w, bb, static)
-        codes, scale = routed(run, {"ln_quant_wide": 1},
-                              f"the wide LayerNorm + quantize ({mode})")
-        (want_c, want_s), plain_ms = cuda_once(
-            lambda: fb.ln_quant_ref(x, w, bb, static))
-        diff = (codes.int() - want_c.int()).abs()
-        flips = float((diff > 0).float().mean())
-        s_err = float(((scale - want_s).abs() / want_s).max())
-        require(int(diff.max()) <= 1 and flips <= LN_CODE_FLIPS_MAX
-                and s_err <= TOL_LN_SCALE,
-                f"wide LayerNorm + quantize ({mode}): codes |diff| "
-                f"{int(diff.max())} on {flips} of them, scales {s_err}")
-        ms = cuda_ms(run)
-        bq = bound(m * cw * 2 + 2 * cw * 4 + m * cw + m * 4)
-        print(f"wide LayerNorm + quantize (M={m}, C={cw}, {mode}): codes "
-              f"one step apart on {flips:.2e} of them, scales rel err "
-              f"{s_err:.2e}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bq['bound_ms']:.4f} ms ({bq['bound_by']})")
-        if static is None:
-            results["ln_quant_wide"] = dict(max_abs_err=float(diff.max()),
-                                            ms=ms, plain_ms=plain_ms,
-                                            library_ms=None, **bq)
-        del codes, scale, want_c, want_s, diff
+    # the w8a8 LayerNorm + quantize in each of its wide forms: one warp a
+    # row at C 1536 (v3-wide's stage-0 rows), two at 3072, four at 8192
+    # (as many bytes as at 3072), dynamic and static scales
+    static_scale = torch.tensor([0.031], device=dev)
+    for cq in (cw, 2 * cw, 8192):
+        mq = m if cq <= 2 * cw else m * 2 * cw // cq
+        if cq != cw:
+            x = draw(mq, cq).to(bf)
+            w, bb = 1.0 + draw(cq, s=0.1), draw(cq, s=0.1)
+        for static in (None, static_scale):
+            mode = "dynamic" if static is None else "static"
+            run = lambda: fb.ln_quant(x, w, bb, static)
+            codes, scale = routed(
+                run, {"ln_quant_wide": 1},
+                f"the w8a8 LayerNorm + quantize at C {cq} ({mode})")
+            (want_c, want_s), plain_ms = cuda_once(
+                lambda: fb.ln_quant_ref(x, w, bb, static))
+            diff = (codes.int() - want_c.int()).abs()
+            flips = float((diff > 0).float().mean())
+            s_err = float(((scale - want_s).abs() / want_s).max())
+            require(int(diff.max()) <= 1 and flips <= LN_CODE_FLIPS_MAX
+                    and s_err <= TOL_LN_SCALE,
+                    f"w8a8 LayerNorm + quantize (C={cq}, {mode}): codes "
+                    f"|diff| {int(diff.max())} on {flips} of them, scales "
+                    f"{s_err}")
+            ms = cuda_ms(run)
+            bq = bound(mq * cq * 2 + 2 * cq * 4 + mq * cq + mq * 4)
+            goal = ""
+            if cq == cw:
+                aim = LN_QUANT_TARGET_MS[mode]
+                goal = (f"; target <= {aim} ms: {target(ms <= aim)}, half "
+                        f"the bound {2 * bq['bound_ms']:.4f} ms: "
+                        f"{target(ms <= 2 * bq['bound_ms'])}")
+            print(f"w8a8 LayerNorm + quantize (M={mq}, C={cq}, form "
+                  f"{fb.layer_norm_form(cq)}, {mode}): codes one step apart "
+                  f"on {flips:.2e} of them, scales rel err {s_err:.2e} (max "
+                  f"{LN_CODE_FLIPS_MAX}, {TOL_LN_SCALE}); {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, bound {bq['bound_ms']:.4f} ms "
+                  f"({bq['bound_by']}, {bq['bound_ms'] / ms:.0%} of it)"
+                  f"{goal}")
+            if cq == cw and static is None:
+                results["ln_quant_wide"] = dict(
+                    max_abs_err=float(diff.max()), ms=ms, plain_ms=plain_ms,
+                    library_ms=None, **bq)
+            del codes, scale, want_c, want_s, diff
     del x
     torch.cuda.empty_cache()
     b, n = 256, 192
@@ -2324,8 +2354,9 @@ def check_long_kernels(dev):
 
 def long_configs_phase(dev, card):
     """Phase 5e: v3-cube16 (bf16, w8a8, w8a8+attn; N 768 on the long route,
-    192 and 48 on the short one) and v3-wide (bf16, w8a8; every LayerNorm
-    on the wide kernels) through ``segment_scene_device`` on
+    192 and 48 on the short one) and v3-wide (bf16, w8a8, w8a8-static
+    calibrated on the first chunk; every LayerNorm on the wide kernels)
+    through ``segment_scene_device`` on
     ``LONG_SCENE``, random weights from seed 0 through ``init_state_dict``:
     each run's launch counts (the wrappers' and the cores' by route), the
     median of three runs, and the plain versions' run by the slices' bars.
@@ -2380,6 +2411,9 @@ def long_configs_phase(dev, card):
                   layer_norm_wide=2 * sum(depth))),
             ("v3-wide w8a8", WIDE, "w8a8", 1024, blocks[2:4],
              dict(attention_short=sum(depth),
+                  ln_quant_wide=2 * sum(depth))),
+            ("v3-wide w8a8-static", WIDE, "w8a8-static", 1024, blocks[2:4],
+             dict(attention_short=sum(depth),
                   ln_quant_wide=2 * sum(depth)))):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # w8a8+attn's experiment note
@@ -2399,6 +2433,14 @@ def long_configs_phase(dev, card):
             torch.cuda.synchronize()
             return out
 
+        if ex.needs_calibration:
+            # w8a8-static: its scales from the first chunk, before the
+            # counted run
+            t = time.perf_counter()
+            ex.extract_scene_device(scene, dcfg, device_scene=ds)
+            require(not ex.needs_calibration, f"{label} did not calibrate")
+            print(f"slice ({label}): calibrated on the first chunk in "
+                  f"{time.perf_counter() - t:.3f} s")
         torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         out, launches, core = counted(run_slice, cores=True)
@@ -3111,6 +3153,7 @@ def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS, pairs=TRAIN_PAIRS,
             torch.use_deterministic_algorithms(True, warn_only=True)
             torch.utils.deterministic.fill_uninitialized_memory = False
         log = []
+        torch.cuda.reset_peak_memory_stats(dev)
         t = time.perf_counter()
         with warnings.catch_warnings():
             # cuBLAS on one stream is deterministic without a fixed
@@ -3129,7 +3172,8 @@ def train_trusted(dev, scene, mcfg, epochs=TRUSTED_EPOCHS, pairs=TRAIN_PAIRS,
     steps = int(state.step)
     print(f"trained weights ({mcfg.variant}, cube {mcfg.cube}): {steps} "
           f"steps ({epochs} epochs) of {pairs} pairs in "
-          f"{train_s:.1f} s ({train_s / steps * 1e3:.1f} ms/step); "
+          f"{train_s:.1f} s ({train_s / steps * 1e3:.1f} ms/step, peak "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB); "
           f"epoch-mean loss {losses[0]:.5f} -> {losses[-1]:.5f}")
     trained = {k: v.detach().clone() for k, v in
                state.model.state_dict().items()}
@@ -3468,16 +3512,49 @@ def trained_parity_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     return results, trained, thr, [walk_launches] + stage0_launches
 
 
-def long_trained_phase(dev, card):
-    """Phase 8b, the parity bar on trained weights for the long route's
-    configuration: v3-cube16 (N 768 on both cores' long routes, K4a's
-    included) trained ``LONG_TRUSTED_EPOCHS`` epochs of ``LONG_TRAIN_PAIRS``
-    pairs on ``LONG_SCENE``, an absolute threshold calibrated on that
-    scene's seed + 500, then its bf16, w8a8 and w8a8+attn slices on
-    ``LONG_SCENE`` at that threshold, kernels against the plain versions,
-    each gated by ``parity_gate`` (label disagreement <= 0.5%, the margin
-    printed) with its launches and core routes required. Returns the
-    disagreements and the core launches of the gated kernel runs."""
+# the trained-weight gates of the long shapes' configurations, phase 8b
+# (v3-cube16, both long routes) and 8c (v3-wide, the wide LayerNorms):
+# ModelConfig keywords, chunk of points, epochs and pairs a step of their
+# training on LONG_SCENE under deterministic algorithms. v3-wide trains
+# TRAIN_PAIRS a step; of the epoch counts tried (12 to 32 in fours,
+# PERF.md section 4) 24 is the one at which both slices read 0 label
+# disagreement, 0 first-round decisions that differ and margins of 0
+WIDE_TRUSTED_EPOCHS = 24
+TRAINED_CONFIGS = {
+    "v3-cube16": (dict(cube=LONG_CUBE), LONG_BATCH, LONG_TRUSTED_EPOCHS,
+                  LONG_TRAIN_PAIRS),
+    "v3-wide": (WIDE, 1024, WIDE_TRUSTED_EPOCHS, TRAIN_PAIRS),
+}
+
+
+def long_trained_weights(dev, config):
+    """The trained weights of phase 8b (``config`` ``"v3-cube16"``) or 8c
+    (``"v3-wide"``): ``train_trusted`` on ``LONG_SCENE`` with the epochs
+    and pairs of ``TRAINED_CONFIGS``, under deterministic algorithms (one
+    seed, the same weights every run), kept on the host until the phase
+    gates them."""
+    from deepmerge_tpu_torch.config import ModelConfig
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+
+    kw, _, epochs, pairs = TRAINED_CONFIGS[config]
+    trained = train_trusted(dev, generate_scene(**LONG_SCENE),
+                            ModelConfig(**kw), epochs, pairs=pairs,
+                            deterministic=True)
+    return {k: v.cpu() for k, v in trained.items()}
+
+
+def long_trained_phase(dev, card, config, trained):
+    """Phase 8b (``config`` ``"v3-cube16"``: N 768 on both cores' long
+    routes, K4a's included) or 8c (``"v3-wide"``: every LayerNorm on the
+    wide kernels, every core on the short route), the parity bar on
+    trained weights for a long shape: ``trained`` (its
+    ``long_trained_weights``), an absolute threshold calibrated on
+    ``LONG_SCENE``'s seed + 500, then the configuration's slices (v3-cube16
+    bf16, w8a8 and w8a8+attn; v3-wide bf16 and w8a8) on ``LONG_SCENE`` at
+    that threshold, kernels against the plain versions, each gated by
+    ``parity_gate`` (label disagreement <= 0.5%, the margin printed) with
+    its launches and core routes required. Returns the disagreements and
+    the core launches of the gated kernel runs."""
     import numpy as np
     import torch
 
@@ -3486,6 +3563,7 @@ def long_trained_phase(dev, card):
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
     t_phase = time.perf_counter()
+    kw, batch, _, _ = TRAINED_CONFIGS[config]
     scene = generate_scene(**LONG_SCENE)
     edges = scene.rag.edges.astype(np.int32)
     n_edges = len(edges)
@@ -3495,32 +3573,37 @@ def long_trained_phase(dev, card):
     edges_d = torch.from_numpy(edges).to(dev)
     valid_d = torch.from_numpy(valid).to(dev)
     region_map = torch.from_numpy(scene.labels).to(dev)
-    dcfg = DataConfig(max_window=512, eval_batch_size=LONG_BATCH)
+    dcfg = DataConfig(max_window=512, eval_batch_size=batch)
     ds = stage_scene(scene, dcfg, dev)
-    trained = train_trusted(dev, scene, ModelConfig(cube=LONG_CUBE),
-                            LONG_TRUSTED_EPOCHS, pairs=LONG_TRAIN_PAIRS,
-                            deterministic=True)
-    thr = calibrated_threshold(dev, trained, dcfg, scene_kw=LONG_SCENE,
-                               cube=LONG_CUBE)
+    thr = calibrated_threshold(dev, trained, dcfg, scene_kw=LONG_SCENE, **kw)
     depth = ModelConfig().depth
-    chunks = -(-scene.regions.num_points // LONG_BATCH)
-    short = sum(depth[1:]) * chunks
-    long_ = depth[0] * chunks
-    results, totals = {}, {}
-    for label, quantize, on, cores in (
-            ("bf16", "", ("patch_resize", "fused_block", "fused_block_chain"),
+    chunks = -(-scene.regions.num_points // batch)
+    bf16_path = ("patch_resize", "fused_block", "fused_block_chain")
+    q8a_path = ("patch_resize", "fused_block_q8_attn",
+                "fused_block_chain_q8_attn")
+    if config == "v3-cube16":
+        short = sum(depth[1:]) * chunks
+        long_ = depth[0] * chunks
+        slices = (
+            ("bf16", "", bf16_path,
              dict(attention_long=long_, attention_short=short)),
             ("w8a8", "w8a8", Q8_PATH,
              dict(attention_long=long_, attention_short=short)),
-            ("w8a8+attn", "w8a8+attn",
-             ("patch_resize", "fused_block_q8_attn",
-              "fused_block_chain_q8_attn"),
+            ("w8a8+attn", "w8a8+attn", q8a_path,
              dict(attention_q8_long=long_, attention_q8_prepass=long_,
-                  attention_q8_short=short))):
-        ex = trained_extractor(dev, trained, LONG_BATCH, quantize,
-                               cube=LONG_CUBE)
-        results[f"v3-cube16 {label}"], _ = trained_slice(
-            ex, f"v3-cube16 {label} slice", scene, ds, dcfg, edges_d,
+                  attention_q8_short=short)))
+    else:
+        short = sum(depth) * chunks
+        slices = (
+            ("bf16", "", bf16_path,
+             dict(attention_short=short, layer_norm_wide=2 * short)),
+            ("w8a8", "w8a8", Q8_PATH,
+             dict(attention_short=short, ln_quant_wide=2 * short)))
+    results, totals = {}, {}
+    for label, quantize, on, cores in slices:
+        ex = trained_extractor(dev, trained, batch, quantize, **kw)
+        results[f"{config} {label}"], _ = trained_slice(
+            ex, f"{config} {label} slice", scene, ds, dcfg, edges_d,
             valid_d, valid, region_map, thr, on=on, cores=cores)
         for k, n in cores.items():
             totals[k] = totals.get(k, 0) + n
@@ -3528,7 +3611,7 @@ def long_trained_phase(dev, card):
         torch.cuda.empty_cache()
     del trained
     torch.cuda.empty_cache()
-    print(f"trained-weight parity phase, v3-cube16: "
+    print(f"trained-weight parity phase, {config}: "
           f"{time.perf_counter() - t_phase:.1f} s on {card}; label "
           f"disagreements {results}")
     return results, totals
@@ -3541,6 +3624,70 @@ def free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+def start_ranks(target, world, spec, prefix, trained):
+    """``world`` processes of ``target(rank, world, root)`` started together
+    on the one card (spawned), ``root`` a new folder holding ``spec``
+    (``spec.pkl``) and the ``trained`` weights (``trained.pt``); each rank
+    writes its results there. Returns the handle ``join_ranks`` and
+    ``stop_ranks`` take."""
+    import multiprocessing
+    import pickle
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix=prefix)
+    spawn = dict(root=root, procs=[])
+    try:
+        torch.save(trained, os.path.join(root, "trained.pt"))
+        with open(os.path.join(root, "spec.pkl"), "wb") as f:
+            pickle.dump(spec, f)
+        ctx = multiprocessing.get_context("spawn")
+        spawn["procs"] = [ctx.Process(target=target, args=(k, world, root))
+                          for k in range(world)]
+        spawn["t"], spawn["t_wall"] = time.perf_counter(), time.time()
+        for p in spawn["procs"]:
+            p.start()
+    except BaseException:
+        stop_ranks(spawn)
+        raise
+    return spawn
+
+
+def stop_ranks(spawn):
+    """Kills the ranks of ``spawn`` still alive and removes its folder."""
+    for p in spawn["procs"]:
+        if p.is_alive():
+            p.kill()
+        if p.pid is not None:
+            p.join()
+    shutil.rmtree(spawn["root"], ignore_errors=True)
+
+
+def join_ranks(spawn, result, what):
+    """Waits for the ranks of ``spawn`` (600 s at most), requires that each
+    exited 0, and returns each rank's pickled results (``result`` formatted
+    with the rank), the seconds from their start to this join, and the
+    seconds from their start to the last rank's results (the files'
+    times); then stops them."""
+    import pickle
+
+    try:
+        for p in spawn["procs"]:
+            p.join(timeout=600)
+        wall = time.perf_counter() - spawn["t"]
+        require(all(p.exitcode == 0 for p in spawn["procs"]),
+                f"{what}: exit codes {[p.exitcode for p in spawn['procs']]}")
+        ranks, done = [], 0.0
+        for k in range(len(spawn["procs"])):
+            path = os.path.join(spawn["root"], result.format(k))
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+            done = max(done, os.path.getmtime(path) - spawn["t_wall"])
+    finally:
+        stop_ranks(spawn)
+    return ranks, wall, done
 
 
 def same_partition(a, b):
@@ -3711,8 +3858,51 @@ def scale_out_rank(rank, world, root):
         pickle.dump(out, f)
 
 
+def scale_out_start(dev, dcfg, trained, thr):
+    """Starts phase 9's four ranks on phase 8's weights and threshold, all
+    at once on the one card over gloo, each pair on its own port: the two
+    of the data-parallel check (``scale_out_rank``) and the two of the
+    tensor-parallel case (``tensor_parallel_rank``). They run on the host
+    mostly (gloo moves every collective through it), so the script trains
+    and gates phases 8b and 8c beside them, which time nothing; their own
+    times are printed as two processes on a shared card. Returns the
+    handles that ``scale_out_phase`` joins and ``scale_out_stop``
+    stops."""
+    import warnings
+
+    from deepmerge_tpu_torch.config import Config, DataConfig, ModelConfig
+
+    tcfg = Config(model=ModelConfig(),
+                  data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mcfg = ModelConfig(quantize="w8a8")
+    dp_port = free_port()
+    dp = start_ranks(scale_out_rank, 2, dict(
+        port=dp_port, dcfg=dcfg, thr=thr, epoch_seed=DP_EPOCH_SEED,
+        mcfg=mcfg, tcfg=tcfg, scene=SCENE, device=str(dev)),
+        "chip_smoke_ranks_", trained)
+    try:
+        tp_port = free_port()
+        while tp_port == dp_port:
+            tp_port = free_port()
+        tp = start_ranks(tensor_parallel_rank, TP_RANKS, dict(
+            port=tp_port, dcfg=dcfg, tcfg=tcfg, epoch_seed=TP_EPOCH_SEED,
+            scene=TP_SCENE, device=str(dev)), "chip_smoke_tp_", trained)
+    except BaseException:
+        stop_ranks(dp)
+        raise
+    return dp, tp
+
+
+def scale_out_stop(ranks):
+    """Stops the ranks ``scale_out_start`` started, where still alive."""
+    for spawn in ranks:
+        stop_ranks(spawn)
+
+
 def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
-                    region_map, trained, thr, walk):
+                    region_map, trained, thr, walk, ranks):
     """Phase 9, scale-out, on phase 8's trained weights and threshold, the
     flagship v3 in w8a8. World size 1 on NCCL, in this process:
     ``extract_and_merge_sharded``, ``process_scene(mesh=...)`` and
@@ -3720,17 +3910,16 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     held to the single-device one on the same kernels at the parity bar
     (0 expected), K1 and K4 launched and nothing else; times beside the
     single-device split path and the fused ``segment_scene_device``. Then
-    two ranks in two processes on the one card over gloo: the sharded
+    two ranks in two processes on the one card over gloo, started with the
+    tensor-parallel case's two by ``scale_out_start`` (``ranks``) and
+    joined first here, before anything is timed: the
+    sharded
     extract-and-merge on two strips and ``process_scene(mesh=...)`` held
     to the same partition, each rank's strip tile and peak memory, and four
     steps of the data-parallel trainer (60 pairs a rank) against four
     single-device steps from the same weights and batches, its parameters
     the same on both ranks. Returns the launch counts of its main-path
     runs."""
-    import multiprocessing
-    import pickle
-
-    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -3740,19 +3929,26 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
         MergeConfig,
         ModelConfig,
     )
-    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
     from deepmerge_tpu_torch.infer import driver
     from deepmerge_tpu_torch.infer.extract import HAS_H5PY, FeatureExtractor
     from deepmerge_tpu_torch.infer.merge import merge_scene_device
     from deepmerge_tpu_torch.parallel import distributed
     from deepmerge_tpu_torch.parallel.mesh import make_mesh
-    from deepmerge_tpu_torch.train import loop
-    from deepmerge_tpu_torch.train.sampler import PairSampler
 
     t_phase = time.perf_counter()
+    dp, tp = ranks
+    dp_ranks, dp_wall, dp_done = join_ranks(dp, "rank{}.pkl",
+                                            "two-rank check")
+    tp_ranks, tp_wall, tp_done = join_ranks(tp, "tp{}.pkl",
+                                            "tensor-parallel ranks")
+    print(f"phase 9's four ranks (two data-parallel, two tensor-parallel; "
+          f"gloo, one card), started together before phase 8b: joined "
+          f"{dp_wall:.1f} s and {tp_wall:.1f} s after their start, their "
+          f"results written {dp_done:.1f} s and {tp_done:.1f} s after it; "
+          f"the phase waited {time.perf_counter() - t_phase:.1f} s for "
+          f"them")
     r = scene.regions.num_regions
     model = trained_model(trained)
-    mcfg = model.cfg
     off = [k for k in counters() if k not in Q8_PATH]
     runs = []
 
@@ -3879,38 +4075,27 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     # across processes, not a scaling number
     tcfg = Config(model=ModelConfig(),
                   data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512))
-    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
-    procs = []
-    try:
-        torch.save(trained, os.path.join(root, "trained.pt"))
-        epoch_seed = 777
-        with open(os.path.join(root, "spec.pkl"), "wb") as f:
-            pickle.dump(dict(port=free_port(), dcfg=dcfg, thr=thr,
-                             epoch_seed=epoch_seed, mcfg=mcfg, tcfg=tcfg,
-                             scene=SCENE, device=str(dev)), f)
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=scale_out_rank, args=(k, 2, root))
-                 for k in range(2)]
-        t = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        wall = time.perf_counter() - t
-        require(all(p.exitcode == 0 for p in procs),
-                f"two-rank check: exit codes {[p.exitcode for p in procs]}")
-        ranks = []
-        for k in range(2):
-            with open(os.path.join(root, f"rank{k}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(root, ignore_errors=True)
-    print(f"two ranks on one card (two processes, gloo): {wall:.1f} s with "
-          "start-up")
+    scale_out_checks(dev, card, scene, ds, tcfg, DP_EPOCH_SEED, dp_ranks,
+                     want_map, off)
+    runs.extend(tensor_parallel_case(dev, card, dcfg, trained, thr,
+                                     tp_ranks))
+    print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return runs
+
+
+def scale_out_checks(dev, card, scene, ds, tcfg, epoch_seed, ranks,
+                     want_map, off):
+    """Phase 9's checks of the two data-parallel ranks' results: their
+    launches, partitions against the single device's ``want_map``, strip
+    bytes and peak memory, their parameters identical, and their four
+    training steps against the same four steps on one device."""
+    import numpy as np
+    import torch
+
+    from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
+    from deepmerge_tpu_torch.train import loop
+    from deepmerge_tpu_torch.train.sampler import PairSampler
+
     whole = ds.padded.numel() * ds.padded.element_size()
     for k, o in enumerate(ranks):
         print(f"  rank {k} launches: sharded {o['sharded_launches']}; "
@@ -3967,9 +4152,6 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
               f"ranks (checksum {o['checksum']:.6e})")
         require(rel[0] <= TOL_TRAIN_LOSS0 and rel.max() <= TOL_TRAIN_LOSS,
                 f"rank {k}: data-parallel losses differ: {rel}")
-    runs.extend(tensor_parallel_case(dev, card, dcfg, trained, thr))
-    print(f"scale-out phase: {time.perf_counter() - t_phase:.1f} s on {card}")
-    return runs
 
 
 TP_RANKS = 2
@@ -3978,6 +4160,8 @@ TP_STEPS = 2
 # points fill one chunk of the slice's batch (gloo moves each float32
 # partial product through the host, and the forward's time is that)
 TP_SCENE = dict(SCENE, n_regions=SCENE["n_regions"] // 2)
+TP_EPOCH_SEED = 778
+DP_EPOCH_SEED = 777
 
 
 def tensor_parallel_rank(rank, world, root):
@@ -4107,9 +4291,10 @@ def sign_noise(got, want):
             float((want.abs() < 1e-8).float().mean()))
 
 
-def tensor_parallel_case(dev, card, dcfg, trained, thr):
+def tensor_parallel_case(dev, card, dcfg, trained, thr, ranks):
     """Phase 9's tensor-parallel case: ``TP_RANKS`` ranks in as many
-    processes on the one card over gloo (``tensor_parallel_rank``), the
+    processes on the one card over gloo (``tensor_parallel_rank``, started
+    by ``scale_out_start``; ``ranks`` their results), the
     flagship v3 at full width (embed 768, 12 heads: 6 of width 64 a rank)
     on phase 8's weights. Each rank's embeddings of ``TP_SCENE``'s points
     (one chunk) against the single-device forward on the plain versions
@@ -4127,9 +4312,6 @@ def tensor_parallel_case(dev, card, dcfg, trained, thr):
     versions disagree on the sign of one element in seven (one in 285 from
     the initial weights; H100): a fresh Adam's first update is lr times
     those signs, so the loss after it follows rounding, not the split."""
-    import multiprocessing
-    import pickle
-
     import numpy as np
     import torch
 
@@ -4144,41 +4326,9 @@ def tensor_parallel_case(dev, card, dcfg, trained, thr):
 
     tcfg = Config(model=ModelConfig(),
                   data=DataConfig(batch_size=TRAIN_PAIRS, max_window=512))
-    epoch_seed = 778
-    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
-    procs = []
-    try:
-        torch.save(trained, os.path.join(root, "trained.pt"))
-        with open(os.path.join(root, "spec.pkl"), "wb") as f:
-            pickle.dump(dict(port=free_port(), dcfg=dcfg, tcfg=tcfg,
-                             epoch_seed=epoch_seed, scene=TP_SCENE,
-                             device=str(dev)), f)
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=tensor_parallel_rank,
-                             args=(k, TP_RANKS, root))
-                 for k in range(TP_RANKS)]
-        t = time.perf_counter()
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        wall = time.perf_counter() - t
-        require(all(p.exitcode == 0 for p in procs),
-                f"tensor-parallel ranks: exit codes "
-                f"{[p.exitcode for p in procs]}")
-        ranks = []
-        for k in range(TP_RANKS):
-            with open(os.path.join(root, f"tp{k}.pkl"), "rb") as f:
-                ranks.append(pickle.load(f))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        shutil.rmtree(root, ignore_errors=True)
+    epoch_seed = TP_EPOCH_SEED
     print(f"tensor parallelism, {TP_RANKS} ranks on one card (gloo, n_model "
-          f"{TP_RANKS}, {12 // TP_RANKS} heads of 64 a rank): {wall:.1f} s "
-          "with start-up")
+          f"{TP_RANKS}, {12 // TP_RANKS} heads of 64 a rank)")
 
     # the single-device references on the same scene: the forward on the
     # plain versions, then the same steps from the same weights and batches
@@ -4571,23 +4721,55 @@ EVAL_WITH_COUNTS = (
     "print(json.dumps({k: f.launches for k, f in fns.items()}))\n")
 
 
-def eval_run(repo):
-    """Phase 10, ``python -m deepmerge_tpu_torch.eval --calibrate`` at its
-    smoke defaults (the root eval.py's model: embed 128, 4 heads of 32) as
-    a subprocess on the card (its logs and checkpoints in a temporary
-    directory): exit 0, a JSON tail that parses, and its kernels' launch
-    counts, K6 at width 32 in training and K2 in serving among them."""
+def eval_start(repo):
+    """Starts phase 10's eval subprocess (``eval_run`` waits for it and
+    checks it), its logs and checkpoints in a temporary directory. Its
+    time is not a measurement, so the whole run starts it beside phase 9's
+    ranks."""
     root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
     try:
-        env = dict(os.environ, PYTHONPATH=repo)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-c", EVAL_WITH_COUNTS, "--calibrate",
-             "--checkpoint-dir", os.path.join(root, "ck")],
-            capture_output=True, text=True, timeout=600, cwd=root, env=env)
-        wall = time.perf_counter() - t
-    finally:
+        # its output goes to files: a pipe nobody reads until phase 10
+        # would stop it once full
+        with open(os.path.join(root, "stdout"), "w") as out, \
+                open(os.path.join(root, "stderr"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", EVAL_WITH_COUNTS, "--calibrate",
+                 "--checkpoint-dir", os.path.join(root, "ck")],
+                stdout=out, stderr=err, cwd=root,
+                env=dict(os.environ, PYTHONPATH=repo))
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    return dict(proc=proc, root=root, t=time.perf_counter())
+
+
+def eval_stop(run):
+    """Kills the eval subprocess of ``run`` if it still runs, and removes
+    its directory."""
+    if run["proc"].poll() is None:
+        run["proc"].kill()
+        run["proc"].wait()
+    shutil.rmtree(run["root"], ignore_errors=True)
+
+
+def eval_run(repo, started=None):
+    """Phase 10, ``python -m deepmerge_tpu_torch.eval --calibrate`` at its
+    smoke defaults (the root eval.py's model: embed 128, 4 heads of 32) as
+    a subprocess on the card (``started`` by ``eval_start``, else started
+    now): exit 0, a JSON tail that parses, and its kernels' launch counts,
+    K6 at width 32 in training and K2 in serving among them."""
+    run = started or eval_start(repo)
+    try:
+        returncode = run["proc"].wait(timeout=600)
+        wall = time.perf_counter() - run["t"]
+        with open(os.path.join(run["root"], "stdout")) as f:
+            stdout = f.read()
+        with open(os.path.join(run["root"], "stderr")) as f:
+            stderr = f.read()
+    finally:
+        eval_stop(run)
+    proc = subprocess.CompletedProcess(run["proc"].args, returncode, stdout,
+                                       stderr)
     require(proc.returncode == 0, f"eval exited {proc.returncode}: "
             f"{proc.stderr[-2000:]}")
     lines = proc.stdout.strip().splitlines()
@@ -4603,7 +4785,8 @@ def eval_run(repo):
     held = [(h["seed"], h["clusters"], h["pair_disagreement"])
             for h in tail["held_out"]]
     print(f"eval (python -m deepmerge_tpu_torch.eval --calibrate, smoke "
-          f"defaults, {tail['device']}): exit 0 in {wall:.1f} s, trained "
+          f"defaults, {tail['device']}): exit 0, {wall:.1f} s after its "
+          f"start, trained "
           f"{tail['epochs']} epochs in {tail['train_seconds']} s, threshold "
           f"{tail['threshold']} (validation disagreement "
           f"{tail['calibration']['val_disagreement']}); held out (seed, "
@@ -4628,8 +4811,9 @@ def profiling_helpers(dev):
 
 
 def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
-                 region_map):
-    """Phase 10 (see the module docstring). Returns the launch counts of
+                 region_map, eval_started=None):
+    """Phase 10 (see the module docstring; its eval subprocess
+    ``eval_started`` earlier, or started here). Returns the launch counts of
     each of its main-path runs: the vit slice, the vit float path, vit
     training, the triplet batch and the tiles export."""
     import warnings
@@ -4733,7 +4917,7 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
     del qex, qmodel, emb_bf16
 
     runs.extend(legacy_and_tiles(dev, scene))
-    eval_run(repo)
+    eval_run(repo, eval_started)
     profiling_helpers(dev)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
     return runs
@@ -5052,8 +5236,8 @@ def main() -> int:
     # phases alone (after the card, the build and the scene; patches: K1's
     # fused patch kernel, widths: the head-width check, both parts of phase
     # 3; long: the long route and wide rows, phase 3's check and phase 5e;
-    # long or trained: phase 8b; family: phase 10; bench: phase 11) and
-    # prints no result lines
+    # long or trained: phases 8b and 8c; family: phase 10; bench: phase
+    # 11) and prints no result lines
     only = None
     if "--only" in sys.argv[1:]:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
@@ -5102,21 +5286,25 @@ def main() -> int:
                      time.perf_counter() - t_walk))
         walk_pool.shutdown(wait=False)
 
-    # 2. the build, one nvcc per source, in parallel
+    # 2. the build, one nvcc per source, in parallel. The trained weights
+    # of phase 8b (and 8c in a development run; unfused blocks in bf16: K1
+    # and K6 only) train while the other sources compile, so those two are
+    # built first, alone
     sources = ("patch_resize", "window_gather", "fused_block",
                "fused_block_q8", "fused_attention", "label_lookup",
                "int4_dot")
+    # (in the whole run v3-wide trains later, beside phase 9's ranks)
+    early = (("v3-cube16",) if only is None
+             else tuple(TRAINED_CONFIGS) if only & {"trained", "long"}
+             else ())
+    train_first = bool(early)
+    first = ("patch_resize", "fused_attention") if train_first else sources
     t = time.perf_counter()
-    build.build_all(sources)
-    print(f"build: {', '.join(k + '.cu' for k in sources)} in "
-          f"{time.perf_counter() - t:.1f} s -> {build.BUILD_DIR}")
-    for k, log in build.build_logs.items():
-        for kernel, regs, spill in ptxas_summary(log):
-            print(f"  ptxas[{k}] {kernel}: {regs} registers, {spill}")
+    build.start(first)
 
     # the scene of the slices (also the gather check's input)
     dcfg = DataConfig(max_window=512, eval_batch_size=1024)
-    t = time.perf_counter()
+    t_scene = time.perf_counter()
     scene = generate_scene(**SCENE)
     r = scene.regions.num_regions
     edges = scene.rag.edges.astype(np.int32)
@@ -5130,11 +5318,58 @@ def main() -> int:
     region_map = torch.from_numpy(scene.labels).to(dev)
     print(f"scene: {SCENE['h']}x{SCENE['w']}, {scene.regions.num_points} "
           f"points, {n_edges} edges, caps {ds.caps}, set up in "
-          f"{time.perf_counter() - t:.1f} s")
+          f"{time.perf_counter() - t_scene:.1f} s (during the build)")
+
+    build.wait(first)
+    first_s = time.perf_counter() - t
+    long_weights = {}
+    if train_first:
+        rest = tuple(k for k in sources if k not in first)
+        build.start(rest)
+        built = {}
+
+        def wait_rest():
+            try:
+                build.wait(rest)
+            except BaseException as e:  # re-raised below, after training
+                built["error"] = e
+            built["s"] = time.perf_counter() - t
+
+        waiter = threading.Thread(target=wait_rest)
+        waiter.start()
+        t_train = time.perf_counter()
+        try:
+            for config in early:
+                long_weights[config] = long_trained_weights(dev, config)
+        finally:
+            waiter.join()
+        if "error" in built:
+            raise built["error"]
+        train_s = time.perf_counter() - t_train
+        rest_s = built["s"] - first_s
+        print(f"build: {', '.join(k + '.cu' for k in first)} in "
+              f"{first_s:.1f} s, then {', '.join(k + '.cu' for k in rest)} "
+              f"in {rest_s:.1f} s more, during which {' and '.join(early)} "
+              f"trained ({train_s:.1f} s of training): the card trained "
+              f"through {min(rest_s, train_s):.1f} s of the build that it "
+              f"sat idle through before -> {build.BUILD_DIR}")
+    else:
+        print(f"build: {', '.join(k + '.cu' for k in sources)} in "
+              f"{first_s:.1f} s -> {build.BUILD_DIR}")
+    for k, log in build.build_logs.items():
+        for kernel, regs, spill in ptxas_summary(log):
+            print(f"  ptxas[{k}] {kernel}: {regs} registers, {spill}")
 
     # 3. kernels against their plain versions
-    clock = lambda what: print(f"{what} at {time.perf_counter() - t_start:.1f}"
-                               " s by the script's clock")
+    last_clock = [("phase 2", t_start)]
+
+    def clock(what):
+        now = time.perf_counter()
+        before, t_before = last_clock[0]
+        print(f"{what} at {now - t_start:.1f} s by the script's clock "
+              f"({before} took {now - t_before:.1f} s)")
+        last_clock[0] = (what, now)
+
     clock("phase 3")
     if only is not None and "patches" in only:
         check_patch_resize(dev, ds, scene)
@@ -5172,16 +5407,29 @@ def main() -> int:
                 walk = export_folder(
                     walk_root, SERVE_SCENES if only & {"scaleout", "bench"}
                     else 1)
+            ranks = ()
             if only & {"trained", "scaleout"}:
+                clock("phase 8")
                 _, trained, thr, _ = trained_parity_phase(
                     dev, card, scene, ds, dcfg, edges_d, valid_d, valid,
                     region_map, walk)
-            if only & {"trained", "long"}:
-                clock("phase 8b")
-                long_trained_phase(dev, card)
-            if "scaleout" in only:
-                scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
-                                region_map, trained, thr, walk)
+            try:
+                if "scaleout" in only:
+                    ranks = scale_out_start(dev, dcfg, trained, thr)
+                if only & {"trained", "long"}:
+                    clock("phase 8b")
+                    long_trained_phase(dev, card, "v3-cube16",
+                                       long_weights.pop("v3-cube16"))
+                    clock("phase 8c")
+                    long_trained_phase(dev, card, "v3-wide",
+                                       long_weights.pop("v3-wide"))
+                if "scaleout" in only:
+                    clock("phase 9")
+                    scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
+                                    valid_d, region_map, trained, thr, walk,
+                                    ranks)
+            finally:
+                scale_out_stop(ranks)
             if "bench" in only:
                 bench_phase(dev, card, repo, walk)
         if "family" in only:
@@ -5191,13 +5439,18 @@ def main() -> int:
               f"{time.perf_counter() - t_start:.1f} s: no result lines")
         return 0
 
+    draws = {}  # the random weights by model_kw: quantize draws nothing
+
     def extractor_for(quantize, **model_kw):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # w8a8-static's experiment note
             # the flagship v3 unless model_kw says otherwise, bf16
             mcfg = ModelConfig(quantize=quantize, **model_kw)
+        key = tuple(sorted(model_kw.items()))
+        if key not in draws:
+            draws[key] = init_state_dict(mcfg, seed=0)
         model = s2former.S2Former(mcfg)
-        model.load_state_dict(init_state_dict(mcfg, seed=0), strict=True)
+        model.load_state_dict(draws[key], strict=True)
         return FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
                                 device=dev)
 
@@ -5259,6 +5512,7 @@ def main() -> int:
     path_runs = [launches]  # every main-path run's counts, for K8's
 
     # 5. the w8a8 slice, then one w8a8-static run
+    clock("phase 5")
     ex_q8 = extractor_for("w8a8")
     run_q8 = slice_runner(ex_q8)
     t = time.perf_counter()
@@ -5328,6 +5582,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. w8a8+attn: the w8a8 blocks and chains with K4a's int8 attention
+    clock("phase 5b")
     ex_q8a = extractor_for("w8a8+attn")
     run_q8a = slice_runner(ex_q8a)
     t = time.perf_counter()
@@ -5359,6 +5614,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5c. v5 (the designed-feature token in the sequence: N = 193/49/13)
+    clock("phase 5c")
     # served in w8a8 through K4, then at the reference's erf GELU, whose
     # blocks leave the block kernels: K7 in each, no block kernel
     v5_blocks = sum(ModelConfig().depth)
@@ -5422,6 +5678,8 @@ def main() -> int:
             del ex, run, out
             torch.cuda.empty_cache()
 
+    draws.clear()
+
     # 5e. the long route and the wide rows: v3-cube16 and v3-wide slices,
     # v3-cube16 training
     clock("phase 5e")
@@ -5480,22 +5738,45 @@ def main() -> int:
         for launches in runs[1:]:  # the chain_stage0 runs
             for k in block_kernels:
                 all_launches[k] += launches[k]
-        # 8b. the same bar for v3-cube16 (the long routes, K4a's included)
-        clock("phase 8b")
-        _, long_trained_cores = long_trained_phase(dev, card)
-        for k in ("attention_long", "attention_q8_long",
-                  "attention_q8_prepass"):
-            all_launches[k] += long_trained_cores[k]
-        # 9. scale-out: the sharded paths at world size 1 on NCCL, then two
-        # ranks on the one card over gloo
-        clock("phase 9")
-        path_runs.extend(scale_out_phase(dev, card, scene, ds, dcfg, edges_d,
-                                         valid_d, region_map, trained, thr,
-                                         walk))
-        # 10. vit, the legacy harness, tiles, eval, profiling
-        clock("phase 10")
-        family_runs = family_phase(dev, card, repo, scene, edges_d, valid_d,
-                                   valid, region_map)
+        # phase 9's ranks run on the host mostly: they start now, beside
+        # v3-wide's training and phases 8b and 8c, which time nothing
+        ranks = scale_out_start(dev, dcfg, trained, thr)
+        eval_started = None
+        try:
+            # phase 10's eval subprocess, whose time is no measurement,
+            # runs beside them too
+            eval_started = eval_start(repo)
+            clock("phase 8c's training")
+            long_weights["v3-wide"] = long_trained_weights(dev, "v3-wide")
+            # 8b. the same bar for v3-cube16 (the long routes, K4a's
+            # included)
+            clock("phase 8b")
+            _, long_trained_cores = long_trained_phase(
+                dev, card, "v3-cube16", long_weights.pop("v3-cube16"))
+            for k in ("attention_long", "attention_q8_long",
+                      "attention_q8_prepass"):
+                all_launches[k] += long_trained_cores[k]
+            # 8c. the same bar for v3-wide (both wide LayerNorms)
+            clock("phase 8c")
+            _, wide_trained_cores = long_trained_phase(
+                dev, card, "v3-wide", long_weights.pop("v3-wide"))
+            for k in ("layer_norm_wide", "ln_quant_wide"):
+                all_launches[k] += wide_trained_cores[k]
+            # 9. scale-out: the four ranks joined, then the sharded paths
+            # at world size 1 on NCCL
+            clock("phase 9")
+            path_runs.extend(scale_out_phase(
+                dev, card, scene, ds, dcfg, edges_d, valid_d, region_map,
+                trained, thr, walk, ranks))
+            # 10. vit, the legacy harness, tiles, eval, profiling
+            clock("phase 10")
+            family_runs = family_phase(dev, card, repo, scene, edges_d,
+                                       valid_d, valid, region_map,
+                                       eval_started)
+        finally:
+            scale_out_stop(ranks)
+            if eval_started is not None:
+                eval_stop(eval_started)
         path_runs.extend(family_runs)
         # 11. the benchmark's modes, over phase 6's scenes among others
         clock("phase 11")
@@ -5514,6 +5795,7 @@ def main() -> int:
     # no model path runs K8: each run above required its count to be 0
     all_launches["attention_bnhd"] = sum(l["attention_bnhd"]
                                          for l in path_runs)
+    clock("the result lines")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     sources = {

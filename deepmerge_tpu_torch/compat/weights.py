@@ -201,8 +201,12 @@ def init_state_dict(mcfg: ModelConfig, seed: int = 0
         else:
             rng = np.random.default_rng([seed, zlib.crc32(key.encode())])
             w = rng.standard_normal(tuple(t.shape), dtype=np.float32)
-            while (bad := np.abs(w) > 2.0).any():
-                w[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+            # redraw, in index order, every entry past the cut until none
+            # is: only the entries just redrawn can still lie past it
+            bad = np.flatnonzero(np.abs(w) > 2.0)
+            while bad.size:
+                w.flat[bad] = rng.standard_normal(bad.size, dtype=np.float32)
+                bad = bad[np.abs(w.flat[bad]) > 2.0]
             sd[key] = torch.from_numpy(w * np.float32(0.02))
     return sd
 

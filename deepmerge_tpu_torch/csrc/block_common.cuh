@@ -10,8 +10,8 @@
 // as K2 does, K8 with kNormFirst on separate q, k, v, and K5 with kProbs
 // and kNormFirst together (its probabilities are the normalized ones it
 // multiplies by v). Above 256 tokens each of them takes the core's long
-// route (attention_long_kernel, on hopper.cuh's TMA and wgmma), and the
-// w8a8 LayerNorm's rows wider than 1024 the wide helpers (ln_wide_stats).
+// route (attention_long_kernel, on hopper.cuh's TMA and wgmma). Both
+// LayerNorms share group_reduce, the reduction over a row's warps.
 
 #pragma once
 
@@ -75,57 +75,34 @@ __device__ __forceinline__ void cp_async_wait() {
 constexpr int kLnWarps = 8;
 constexpr int kLnMaxVec = 4;  // 8-element vectors per lane: C <= 1024
 
-// Wider rows, 1024 < C <= kLnMaxWide. The bf16 LayerNorm keeps them in
-// registers (fused_block.cu layer_norm_kernel). The w8a8 one
-// (fused_block_q8.cu ln_quant_wide_kernel) takes one CTA of kLnWideThreads
-// a row, the row staged in shared memory as f32 (32 KB at the widest) by
-// ln_wide_stats, the same two f32 passes for the statistics.
-constexpr int kLnWideThreads = 256;
+// Wider rows, 1024 < C <= kLnMaxWide: both LayerNorms (fused_block.cu
+// layer_norm_kernel, fused_block_q8.cu ln_quant_kernel) keep a row in
+// registers, one warp a row up to C 2048, two or four warps above.
 constexpr int kLnMaxWide = 8192;
 
-// The sum (kMax false) or the max of v over the CTA, in every thread; `red`
-// holds a float for each warp.
-template <bool kMax>
-__device__ __forceinline__ float block_reduce(float v, float* red) {
+// The sum (kMax false) or the max of v over the kGroup warps of the
+// thread's row, in each of them: a warp's reduction, then (kGroup > 1) one
+// float a warp through `red` (kLnWarps floats, one array for each
+// reduction of a row), the group's warps meeting at a named barrier of
+// their own (1 + group index).
+template <int kGroup, bool kMax = false>
+__device__ __forceinline__ float group_reduce(float v, float* red) {
   v = kMax ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // red may still be read by the previous reduction
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
-    r = kMax ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// ln_quant_wide_kernel's statistics (the bf16 LayerNorm keeps its rows in
-// registers): stages bf16 row xr (C % 8 == 0) as f32 into v, each thread
-// its own 8-element pieces (it alone reads them back), and returns the
-// row's mean and rsqrt(var + eps), two passes in f32 as the TPU kernel's
-// `_ln`.
-__device__ __forceinline__ float2 ln_wide_stats(const bf16* xr, float* v,
-                                                float* red, int C) {
-  float s = 0.f;
-  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + k);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+  if constexpr (kGroup == 1) {
+    return v;
+  } else {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / kGroup),
+                 "n"(32 * kGroup)
+                 : "memory");
+    const int first = warp - warp % kGroup;
+    float r = red[first];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      v[k + t] = __bfloat162float(e[t]);
-      s += v[k + t];
-    }
+    for (int i = 1; i < kGroup; ++i)
+      r = kMax ? fmaxf(r, red[first + i]) : r + red[first + i];
+    return r;
   }
-  const float mu = block_reduce<false>(s, red) / static_cast<float>(C);
-  float q = 0.f;
-  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const float d = v[k + t] - mu;
-      q += d * d;
-    }
-  }
-  const float rs =
-      rsqrtf(block_reduce<false>(q, red) / static_cast<float>(C) + kLnEps);
-  return make_float2(mu, rs);
 }
 
 // ------------------------------------------------------------- attention

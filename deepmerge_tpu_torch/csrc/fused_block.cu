@@ -71,28 +71,6 @@ namespace {
 
 // ------------------------------------------------------------- LayerNorm
 
-// The sum of v over the kGroup warps of the thread's row, in each of them:
-// a warp's sum, then (kGroup > 1) one float a warp through `red`, the
-// group's warps meeting at a named barrier of their own (1 + group index).
-template <int kGroup>
-__device__ __forceinline__ float group_sum(float v, float* red) {
-  v = warp_sum(v);
-  if constexpr (kGroup == 1) {
-    return v;
-  } else {
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) red[warp] = v;
-    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / kGroup),
-                 "n"(32 * kGroup)
-                 : "memory");
-    const int first = warp - warp % kGroup;
-    float r = red[first];
-#pragma unroll
-    for (int i = 1; i < kGroup; ++i) r += red[first + i];
-    return r;
-  }
-}
-
 // y = bf16((x - mean) * rsqrt(var + eps) * w + b) per row, statistics in
 // f32 (two passes, as the TPU kernel's `_ln`), the row in registers:
 // kGroup warps a row (kLnWarps / kGroup rows a CTA), kVec 8-element
@@ -131,7 +109,7 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  const float mu = group_sum<kGroup>(s, red[0]) / static_cast<float>(C);
+  const float mu = group_reduce<kGroup>(s, red[0]) / static_cast<float>(C);
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -143,8 +121,8 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  const float rs =
-      rsqrtf(group_sum<kGroup>(q, red[1]) / static_cast<float>(C) + kLnEps);
+  const float rs = rsqrtf(group_reduce<kGroup>(q, red[1]) /
+                              static_cast<float>(C) + kLnEps);
   if (!in) return;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {

@@ -93,54 +93,127 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 
 // ---------------------------------------------------- LayerNorm + quantize
 
+// The order in which ln_quant_kernel sums a row is fixed, not its forms'
+// natural one: up to C 1024 a warp's (each lane one accumulator over its
+// vectors, then the warp's sum), above a CTA's of kLnOrderWarps warps with
+// one 8-element piece a thread at a time (piece j in thread j % 256, each
+// thread one accumulator over its pieces in order, each warp's sum, then
+// the warps' sums in order). Those were the one-warp and the one-CTA-a-row
+// kernels this one replaced, so the w8a8 path's codes stay theirs bit for
+// bit at every width. A lane holds the pieces of ln_order_slots such
+// threads, one accumulator each: its vector i stands in for the thread of
+// slot i % slots, and group warp g's slot r is that CTA's warp
+// g + kGroup·r.
+constexpr int kLnOrderWarps = 8;
+
+__host__ __device__ constexpr int ln_order_slots(int vec, int group) {
+  return vec == kLnMaxVec && group == 1 ? 1
+         : (kLnOrderWarps / group < vec ? kLnOrderWarps / group : vec);
+}
+
+// The row's sum from each lane's kSlots accumulators `s`, in the order
+// above, in every thread of the row's kGroup warps; `red` holds
+// kLnWarps·kSlots floats (kGroup > 1), one array for each sum of a row.
+template <int kGroup, int kSlots>
+__device__ __forceinline__ float ordered_row_sum(const float (&s)[kSlots],
+                                                 float* red) {
+  float ws[kSlots];
+#pragma unroll
+  for (int r = 0; r < kSlots; ++r) ws[r] = warp_sum(s[r]);
+  if constexpr (kGroup == 1) {
+    float total = ws[0];
+#pragma unroll
+    for (int r = 1; r < kSlots; ++r) total += ws[r];
+    return total;
+  } else {
+    const int warp = threadIdx.x >> 5;
+    float* rr = red + (warp / kGroup) * (kGroup * kSlots);
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int r = 0; r < kSlots; ++r) rr[warp % kGroup + kGroup * r] = ws[r];
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + warp / kGroup),
+                 "n"(32 * kGroup)
+                 : "memory");
+    float total = rr[0];
+#pragma unroll
+    for (int i = 1; i < kGroup * kSlots; ++i) total += rr[i];
+    return total;
+  }
+}
+
 // codes = q(LN(x)) per row with the f32 LayerNorm output (two-pass
-// statistics, as the TPU kernel's `_ln`), its row scale in row_scale. One
-// warp per row, C <= 1024. `static_scale` null means dynamic scales;
-// `zero` (may be null) gets 0 at each row: the abs-max buffer that the next
-// GEMM's epilogue folds into.
+// statistics, as the TPU kernel's `_ln`, summed in the order above), its
+// row scale in row_scale.
+// layer_norm_kernel's form (fused_block.cu): the row in registers, kGroup
+// warps a row (kLnWarps / kGroup rows a CTA), kVec 8-element vectors a
+// lane, C <= 256·kVec·kGroup; x, w and b in 16-byte loads. The LayerNorm
+// output stays in the same registers: its abs-max over the row's warps
+// (group_reduce as a max) and its codes come from there, eight codes a
+// store. `static_scale` null means dynamic scales; `zero` (may be null)
+// gets 0 at each row: the abs-max buffer that the next GEMM's epilogue
+// folds into. Dispatch (ln_quant) as layer_norm's; the rows are
+// memory-bound (2·C bytes in, C out).
+template <int kVec, int kGroup>
 __global__ void __launch_bounds__(kLnWarps * 32)
 ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ b,
                 const float* __restrict__ static_scale,
                 signed char* __restrict__ codes, float* __restrict__ row_scale,
                 float* __restrict__ zero, int M, int C) {
+  constexpr int kSlots = ln_order_slots(kVec, kGroup);
+  // the two sums' floats and the abs-max's (kGroup > 1)
+  __shared__ float red[2][kLnWarps * kSlots];
+  __shared__ float red_max[kLnWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long row = static_cast<long long>(blockIdx.x) * kLnWarps + warp;
-  if (row >= M) return;
-  const bf16* xr = x + row * C;
-  float v[kLnMaxVec][8];
-  float s = 0.f;
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (kLnWarps / kGroup) + warp / kGroup;
+  if (kGroup == 1 && row >= M) return;
+  const bool in = row < M;  // a group past M still joins the reductions
+  const int first = (warp % kGroup) * 32 + lane;  // the thread's first vector
+  const bf16* xr = x + (in ? row : 0) * C;
+  float v[kVec][8];
+  float s[kSlots];
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    const int k = (lane + 32 * i) * 8;
+  for (int r = 0; r < kSlots; ++r) s[r] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    const int k = (first + 32 * kGroup * i) * 8;
     if (k < C) {
       load8(xr + k, v[i]);
 #pragma unroll
-      for (int t = 0; t < 8; ++t) s += v[i][t];
+      for (int t = 0; t < 8; ++t) s[i % kSlots] += v[i][t];
     }
   }
-  const float mu = warp_sum(s) / static_cast<float>(C);
-  float q = 0.f;
+  const float mu =
+      ordered_row_sum<kGroup>(s, red[0]) / static_cast<float>(C);
+  float q[kSlots];
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    if ((lane + 32 * i) * 8 < C) {
+  for (int r = 0; r < kSlots; ++r) q[r] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) {
+    if ((first + 32 * kGroup * i) * 8 < C) {
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const float d = v[i][t] - mu;
-        q += d * d;
+        q[i % kSlots] += d * d;
       }
     }
   }
-  const float rs = rsqrtf(warp_sum(q) / static_cast<float>(C) + kLnEps);
+  const float rs = rsqrtf(ordered_row_sum<kGroup>(q, red[1]) /
+                              static_cast<float>(C) + kLnEps);
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    const int k = (lane + 32 * i) * 8;
+  for (int i = 0; i < kVec; ++i) {
+    const int k = (first + 32 * kGroup * i) * 8;
     if (k < C) {
+      float ws[8], bs[8];
+      load8(w + k, ws);
+      load8(b + k, bs);
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        v[i][t] = (v[i][t] - mu) * rs * w[k + t] + b[k + t];
+        v[i][t] = (v[i][t] - mu) * rs * ws[t] + bs[t];
         amax = fmaxf(amax, fabsf(v[i][t]));
       }
     }
@@ -148,58 +221,19 @@ ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
   const bool dynamic = static_scale == nullptr;
   float sc, inv = 0.f;
   if (dynamic) {
-    amax = warp_max(amax);
+    amax = group_reduce<kGroup, true>(amax, red_max);
     sc = amax > 0.f ? amax * kInv127 : 1.0f;
   } else {
     sc = *static_scale;
     inv = 1.0f / sc;
   }
+  if (!in) return;
 #pragma unroll
-  for (int i = 0; i < kLnMaxVec; ++i) {
-    const int k = (lane + 32 * i) * 8;
+  for (int i = 0; i < kVec; ++i) {
+    const int k = (first + 32 * kGroup * i) * 8;
     if (k < C) store_codes8(v[i], dynamic, sc, inv, codes + row * C + k);
   }
-  if (lane == 0) {
-    row_scale[row] = sc;
-    if (zero != nullptr) zero[row] = 0.f;
-  }
-}
-
-// ln_quant_kernel for a row wider than 1024 (C <= kLnMaxWide, C % 8 ==
-// 0): one CTA of kLnWideThreads a row, the row staged in shared memory as
-// f32 (ln_wide_stats), then the LayerNorm output in place, its abs-max over
-// the CTA and the codes.
-__global__ void __launch_bounds__(kLnWideThreads)
-ln_quant_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b,
-                     const float* __restrict__ static_scale,
-                     signed char* __restrict__ codes,
-                     float* __restrict__ row_scale, float* __restrict__ zero,
-                     int C) {
-  __shared__ __align__(16) float v[kLnMaxWide];
-  __shared__ float red[kLnWideThreads / 32];
-  const long long row = blockIdx.x;
-  const float2 st = ln_wide_stats(x + row * C, v, red, C);
-  float amax = 0.f;
-  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8) {
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      v[k + t] = (v[k + t] - st.x) * st.y * w[k + t] + b[k + t];
-      amax = fmaxf(amax, fabsf(v[k + t]));
-    }
-  }
-  const bool dynamic = static_scale == nullptr;
-  float sc, inv = 0.f;
-  if (dynamic) {
-    amax = block_reduce<true>(amax, red);
-    sc = amax > 0.f ? amax * kInv127 : 1.0f;
-  } else {
-    sc = *static_scale;
-    inv = 1.0f / sc;
-  }
-  for (int k = threadIdx.x * 8; k < C; k += blockDim.x * 8)
-    store_codes8(v + k, dynamic, sc, inv, codes + row * C + k);
-  if (threadIdx.x == 0) {
+  if (first == 0) {
     row_scale[row] = sc;
     if (zero != nullptr) zero[row] = 0.f;
   }
@@ -445,19 +479,33 @@ cudaError_t gemm_s8(const signed char* A, const signed char* W,
                                       epi, M, N, K, stream);
 }
 
+// One warp a row up to C 2048, two up to 4096, four above (up to
+// kLnMaxWide), as layer_norm (fused_block.cu) dispatches.
 cudaError_t ln_quant(const bf16* x, const float* w, const float* b,
                      const float* static_scale, signed char* codes,
                      float* row_scale, float* zero, int M, int C,
                      cudaStream_t stream) {
-  if (C <= kLnMaxVec * 256)  // one warp a row
-    ln_quant_kernel<<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0,
-                      stream>>>(x, w, b, static_scale, codes, row_scale,
-                                zero, M, C);
-  else if (C <= kLnMaxWide && C % 8 == 0)  // one CTA a row
-    ln_quant_wide_kernel<<<M, kLnWideThreads, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, C);
-  else
+  const int rows = (M + kLnWarps - 1) / kLnWarps;
+  if (C <= kLnMaxVec * 256)
+    ln_quant_kernel<kLnMaxVec, 1><<<rows, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
+  else if (C > kLnMaxWide || C % 8 != 0)
     return cudaErrorInvalidValue;
+  else if (C <= 6 * 256)
+    ln_quant_kernel<6, 1><<<rows, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
+  else if (C <= 8 * 256)
+    ln_quant_kernel<8, 1><<<rows, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
+  else if (C <= 6 * 512)
+    ln_quant_kernel<6, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
+  else if (C <= 8 * 512)
+    ln_quant_kernel<8, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
+  else
+    ln_quant_kernel<8, 4><<<(M + 1) / 2, kLnWarps * 32, 0, stream>>>(
+        x, w, b, static_scale, codes, row_scale, zero, M, C);
   return cudaGetLastError();
 }
 
@@ -2095,8 +2143,8 @@ int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
 // The w8a8 blocks' LayerNorm + quantize alone (its measurement and tests):
 // codes (M, C) int8 and row_scale (M) f32 of q(LN(x)) from x (M, C) bf16
 // and the f32 scale w and bias b (C), with the static scale *static_scale
-// (not null) or dynamic row scales; one warp a row up to C 1024, one CTA a
-// row above. Requires C % 8 == 0, C <= 8192 and 16-byte aligned rows
+// (not null) or dynamic row scales; one warp a row up to C 2048, two or
+// four above. Requires C % 8 == 0, C <= 8192 and 16-byte aligned rows
 // (checked by the caller). Returns cudaGetLastError().
 int dm_ln_quant(const void* x, const void* w, const void* b,
                 const void* static_scale, void* codes, void* row_scale, int M,

@@ -1846,17 +1846,18 @@ attention_q8_prepass.launches = 0
 
 # ------------------------------------------- the blocks' LayerNorm alone
 
-# The bf16 LayerNorm kernel (csrc/fused_block.cu layer_norm_kernel) keeps
-# a row in registers; its forms as the C dispatch picks them by row width:
+# Both LayerNorm kernels (csrc/fused_block.cu layer_norm_kernel, and
+# csrc/fused_block_q8.cu ln_quant_kernel with the row quantize) keep a row
+# in registers; their forms as the C dispatch picks them by row width:
 # (widest row, 8-element vectors a lane, warps a row).
 LN_FORMS = ((MAX_WIDTH, 4, 1), (1536, 6, 1), (2048, 8, 1), (3072, 6, 2),
             (4096, 8, 2), (MAX_LONG_WIDTH, 8, 4))
 
 
 def layer_norm_form(c: int) -> tuple:
-    """(8-element vectors a lane, warps a row) of the bf16 LayerNorm kernel
-    at row width ``c``: one warp a row up to 2048, two up to 4096, four
-    above. Raises
+    """(8-element vectors a lane, warps a row) of the LayerNorm kernels
+    (bf16, and w8a8 with the quantize) at row width ``c``: one warp a row
+    up to 2048, two up to 4096, four above. Raises
     ``ValueError`` for a width no LayerNorm kernel takes (C % 8 != 0, or
     above ``MAX_LONG_WIDTH``)."""
     if c % 8 or not 8 <= c <= MAX_LONG_WIDTH:
@@ -1943,7 +1944,8 @@ def ln_quant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     CPU tensors run ``ln_quant_ref``. CUDA tensors (bf16, C % 8 == 0, C <=
     ``MAX_LONG_WIDTH``) launch ``csrc/fused_block_q8.cu`` (``dm_ln_quant``:
-    one warp a row up to ``MAX_WIDTH``, one CTA a row above, counted in
+    one warp a row up to 2048, two or four above, the row in registers, as
+    ``layer_norm_form`` says; C > ``MAX_WIDTH`` counted in
     ``ln_quant_wide``); anything else raises.
     """
     if not _on_cuda(x):

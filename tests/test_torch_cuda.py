@@ -771,6 +771,38 @@ def test_attention_q8_long_route_matches_plain(cuda, n, static):
     torch.testing.assert_close(got, short, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("static", [False, True], ids=["dynamic", "static"])
+@pytest.mark.parametrize("c", [768, 1024, 1536, 2048, 3072, 4096, 8192])
+def test_ln_quant_matches_plain(cuda, c, static):
+    """The w8a8 LayerNorm + quantize alone at the widest row of each form
+    (one warp and 4, 6 or 8 vectors a lane, two warps and 6 or 8, four
+    warps and 8; and K4's C 768), rows that fill no whole CTA: codes one
+    step apart on at most a thousandth of them (the row's sums run in
+    another order than the plain version's, so a LayerNorm output one ulp
+    apart can flip a code on a rounding boundary), row scales within 1e-5
+    relative (the abs-max of the same float32 outputs, divided by 127). A
+    launch above ``MAX_WIDTH`` counts in ``ln_quant_wide``, none below."""
+    rs = np.random.default_rng(c + static)
+    m = 37
+    x = torch.from_numpy(rs.standard_normal((m, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(1.0 + 0.1 * rs.standard_normal(c).astype(
+        np.float32))
+    b = torch.from_numpy(0.1 * rs.standard_normal(c).astype(np.float32))
+    st = torch.tensor([0.031]) if static else None
+    want_c, want_s = fb.ln_quant_ref(x, w, b, st)
+    before = fb.ln_quant_wide.launches
+    codes, scale = fb.ln_quant(x.to(cuda), w.to(cuda), b.to(cuda),
+                               None if st is None else st.to(cuda))
+    torch.cuda.synchronize()
+    assert fb.ln_quant_wide.launches == before + (c > fb.MAX_WIDTH)
+    diff = (codes.cpu().int() - want_c.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= 1e-3
+    want_s = want_s.expand(m) if static else want_s
+    assert float(((scale.cpu() - want_s).abs() / want_s).max()) <= 1e-5
+
+
 @pytest.mark.parametrize("r,hw,offset", [(2048, (64, 61), 0),
                                          (8192, (128, 128), 1),
                                          (40000, (33, 17), 0)])

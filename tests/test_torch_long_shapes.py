@@ -2,9 +2,8 @@
 
 The CUDA attention cores take N up to ``MAX_TOKENS`` (256) in registers and
 longer sequences on a second route that streams the keys in blocks of 64,
-twice; the LayerNorm kernels take a row in one warp up to ``MAX_WIDTH``
-(1024) and above it in one warp (bf16, up to 2048), four warps (bf16) or
-one CTA (w8a8). Here, against the JAX package as its own tests
+twice; the LayerNorm kernels, bf16 and w8a8 alike, take a row in one
+warp up to 2048 and in two or four warps above it. Here, against the JAX package as its own tests
 run it (Pallas in interpret mode), on the same seeded numpy inputs and
 weights:
 
@@ -31,7 +30,7 @@ weights:
 * the plans of the new routes and the new limits: the long routes' CTA
   (128 queries, two samples, 16 warps; one sample and 8 warps at width
   128) within the card's limits at every width, their grids and bias
-  forms, K4a's pre-pass and scratch, and the bf16 LayerNorm's form at
+  forms, K4a's pre-pass and scratch, and the LayerNorms' form at
   every width.
 """
 
@@ -535,7 +534,8 @@ def test_bf16_long_plan_fits_the_card(d, n):
     (3072, (6, 2)), (3080, (8, 2)), (4096, (8, 2)), (4104, (8, 4)),
     (8192, (8, 4)), (1540, None), (8200, None), (12, None)])
 def test_layer_norm_form_by_width(c, form):
-    """Which bf16 LayerNorm kernel each width takes (the row in registers):
+    """Which LayerNorm kernel form each width takes, bf16 and w8a8 (the row
+    in registers):
     one warp a row and 4 vectors of 8 a lane up to 1024, one warp and 6 or
     8 vectors up to 2048, two warps and 6 or 8 vectors up to 4096, four
     warps and 8 vectors up to ``MAX_LONG_WIDTH``; refused above that and at

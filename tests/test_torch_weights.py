@@ -2,6 +2,8 @@
 jax-free mapper equals the JAX package's exporter, the port's S2Former loads
 the result strictly, and its relative-position index equals the JAX one."""
 
+import zlib
+
 import jax
 import numpy as np
 import pytest
@@ -63,6 +65,27 @@ def test_init_state_dict_loads_strict_and_is_seeded():
     assert float(w.abs().max()) <= 0.04 and 0.015 < float(w.std()) < 0.025
     assert float(a["final_features.weight"].abs().max()) == 0.0  # never called
     assert float(a["norm.weight"].min()) == 1.0
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_init_state_dict_draws_the_truncated_normal(seed):
+    """Every random tensor of ``init_state_dict`` is, bit for bit, the
+    truncated normal drawn from its (seed, name) generator by redrawing
+    every entry past ±2 std over the whole tensor, pass after pass, in
+    index order, then scaled by 0.02."""
+    mcfg = ModelConfig(**TINY_V3)
+    sd = init_state_dict(mcfg, seed=seed)
+    drawn = 0
+    for key, t in sd.items():
+        if not t.is_floating_point() or float(t.std()) == 0.0:
+            continue  # zeros, ones and the position index
+        rng = np.random.default_rng([seed, zlib.crc32(key.encode())])
+        w = rng.standard_normal(tuple(t.shape), dtype=np.float32)
+        while (bad := np.abs(w) > 2.0).any():
+            w[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        assert torch.equal(t, torch.from_numpy(w * np.float32(0.02))), key
+        drawn += 1
+    assert drawn > 10
 
 
 @pytest.mark.parametrize("cube", [(3, 8, 8), (3, 4, 4), (3, 2, 2)])
