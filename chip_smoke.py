@@ -1846,19 +1846,252 @@ def check_head_widths(dev, c=768, batch=1024):
     return out
 
 
+# Heads the cores run padded, on the instance of width core_width(d) (32,
+# 64 or 128), lanes past d read as zeros: every kernel that holds an
+# attention core at d 48 and 96 on the flagship's C 768 (16 and 8 heads);
+# K7 and K4a's core also at d 16 (C 768, 48 heads) and d 112 (C 896, 8
+# heads); K2 and K4 at d 80 on C 480 (6 heads), both GEMMs' K tails (480 %
+# 64 = 32, 480 % 128 = 96)
+PADDED_WIDTHS = ((48, 768, "all"), (96, 768, "all"), (16, 768, "core"),
+                 (112, 896, "core"), (80, 480, "tail"))
+
+
+def check_padded_widths(dev, batch=1024):
+    """Phase 3 at the padded head widths of ``PADDED_WIDTHS``: each kernel
+    at the main path's shape (B ``batch``, N 192; K3 and K4's chains N 48 x
+    4; K5 and K6 at the training batch) against its plain version by the
+    width-64 checks' bars, timed beside the same kernel on the same input
+    with heads of 64 where 64 divides C (only the bias differs), K7 and K8
+    beside ``scaled_dot_product_attention`` at the same width; K4a's core
+    alone (``attention_q8``, dynamic and static) recorded under
+    ``fused_block_q8_attn``. Returns, by kernel name, ``{width: [{n, c,
+    ms, ms_64, max_abs_err, ...}, ...]}``, as ``check_head_widths``."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    bf = torch.bfloat16
+    out = {}
+    train_b = 2 * TRAIN_PAIRS
+
+    def record(name, d, **vals):
+        out.setdefault(name, {}).setdefault(d, []).append(vals)
+
+    def with_bias(p, bias, i=4):
+        return tuple(p[:i]) + (bias,) + tuple(p[i + 1:])
+
+    for d, c, which in PADDED_WIDTHS:
+        heads = c // d
+        h64 = c // 64 if c % 64 == 0 else None
+        tag = (f"{heads} heads of {d} on the {fb.core_width(d)}-wide core, "
+               f"C {c}")
+
+        def bias64(n, seed):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            return torch.randn((h64, n, n), generator=g, device=dev) * 0.5
+
+        def timed(run, run64):
+            return cuda_ms(run), (cuda_ms(run64) if h64 else None)
+
+        def vs64(ms64):
+            return f" ({h64} heads of 64: {ms64:.4f})" if ms64 else ""
+
+        if which in ("all", "tail"):
+            # K2, K3 (all) and K4, K4a blocks and chains, dynamic scales
+            shapes = ((192, 1),) if which == "tail" else ((192, 1), (48, 4))
+            for n, depth in shapes:
+                x, plist, _ = block_inputs(batch, n, depth, dev,
+                                           seed=d + n + 40, heads=heads, c=c)
+                p64 = ([with_bias(p, bias64(n, i))
+                        for i, p in enumerate(plist)] if h64 else None)
+                chain = depth > 1
+                tol, tol_rms = ((TOL_CHAIN, TOL_CHAIN_RMS) if chain
+                                else (TOL_BLOCK, TOL_BLOCK_RMS))
+                cases = [("fused_block_chain" if chain else "fused_block",
+                          "K3" if chain else "K2",
+                          (lambda ps, h: fb.fused_block_chain(x, ps, h))
+                          if chain else
+                          (lambda ps, h: fb.fused_block(x, ps[0], h)),
+                          (lambda: fb.chain_ref(x, plist, heads)) if chain
+                          else (lambda: fb.block_ref(x, plist[0], heads)),
+                          plist, p64, {})]
+                for quant_attn in ((False,) if which == "tail"
+                                   else (False, True)):
+                    qps, h = [], x
+                    for p in plist:
+                        qp = fb.quantize_block_params(p)
+                        h = fb.block_ref_q8(h, qp, heads,
+                                            quant_attn=quant_attn).to(x.dtype)
+                        qps.append(qp)
+                    q64 = ([with_bias(q, bias64(n, i), 5)
+                            for i, q in enumerate(qps)] if h64 else None)
+                    kw = dict(quant_attn=quant_attn)
+                    name = ("fused_block_chain_q8" if chain
+                            else "fused_block_q8")
+                    cases.append((
+                        name + ("_attn" if quant_attn else ""),
+                        "K4a" if quant_attn else "K4",
+                        (lambda ps, hh, kw=kw:
+                         fb.fused_block_chain_q8(x, ps, hh, **kw)) if chain
+                        else (lambda ps, hh, kw=kw:
+                              fb.fused_block_q8(x, ps[0], hh, **kw)),
+                        (lambda qps=qps, kw=kw:
+                         fb.chain_ref_q8(x, qps, heads, **kw)) if chain
+                        else (lambda qps=qps, kw=kw:
+                              fb.block_ref_q8(x, qps[0], heads, **kw)),
+                        qps, q64, dict(q8=True, q8_attn=quant_attn)))
+                for name, kn, run, plain, ps, ps64, work in cases:
+                    want, plain_ms = cuda_once(plain)
+                    aerr, errs = check_block(f"{name} ({tag}, N={n})",
+                                             run(ps, heads), want, x, tol,
+                                             tol_rms)
+                    ms, ms64 = timed(lambda: run(ps, heads),
+                                     lambda: run(ps64, h64))
+                    bk = bound(*block_work(batch, n, depth, c=c, heads=heads,
+                                           hidden=4 * c, **work))
+                    print(f"{kn} {name} {tag} B={batch} N={n} depth {depth}: "
+                          f"{errs}; {ms:.3f} ms{vs64(ms64)}, plain "
+                          f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+                    record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
+                           max_abs_err=aerr, plain_ms=plain_ms, **bk)
+                    del want
+                del x, plist, p64, cases
+                torch.cuda.empty_cache()
+
+        if which == "all":
+            # K5 and K6 at the training batch
+            n = 192
+            x, plist, _ = block_inputs(train_b, n, 1, dev, seed=d + 41,
+                                       heads=heads, c=c)
+            p = plist[0]
+            got_out, saved = fb.fused_block_train(x, p, heads)
+            (want_out, want), plain_ms = cuda_once(
+                lambda: fb.block_train_ref(x, p, heads))
+            aerr, errs = check_block(f"K5 out ({tag}, N={n})", got_out,
+                                     want_out, x, TOL_BLOCK, TOL_BLOCK_RMS)
+            probs_err = abs_err(saved[1], want[1])
+            saved_err = max(rel_err(saved[i], want[i]) for i in (0, 2, 3))
+            require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
+                    f"K5 ({tag}, N={n}): probs {probs_err}, saved "
+                    f"{saved_err}")
+            p64 = with_bias(p, bias64(n, 0))
+            ms, ms64 = timed(lambda: fb.fused_block_train(x, p, heads),
+                             lambda: fb.fused_block_train(x, p64, h64))
+            bk = bound(*train_block_work(train_b, n, c=c, heads=heads,
+                                         hidden=4 * c))
+            print(f"K5 fused_block_train {tag} B={train_b} N={n}: out {errs}; "
+                  f"probs max |err| {probs_err:.3e}, saved {saved_err:.3e}; "
+                  f"{ms:.3f} ms{vs64(ms64)}, plain {plain_ms:.3f} ms, bound "
+                  f"{bk['bound_ms']:.3f} ms")
+            record("fused_block_train", d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=aerr, plain_ms=plain_ms, **bk)
+            del x, plist, p, p64, got_out, saved, want_out, want
+
+            r = device_randn(dev, d + 42)
+            qkv, bias = r(train_b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+            got_o, got_p = fa.attention_probs(qkv, bias, heads)
+            (want_o, want_p), plain_ms = cuda_once(
+                lambda: fa.attention_probs_ref(qkv, bias, heads))
+            o_err, p_err = rel_err(got_o, want_o), abs_err(got_p, want_p)
+            require(o_err <= TOL_K6_OUT and p_err <= TOL_K6_PROBS,
+                    f"K6 ({tag}, N={n}): out {o_err}, probs {p_err}")
+            b64 = bias64(n, 1)
+            ms, ms64 = timed(lambda: fa.attention_probs(qkv, bias, heads),
+                             lambda: fa.attention_probs(qkv, b64, h64))
+            bk = bound(qkv.numel() * 2 + bias.numel() * 4
+                       + got_o.numel() * 2 + got_p.numel() * 2,
+                       bf16_flops=4 * train_b * n * n * c)
+            print(f"K6 attention_probs {tag} B={train_b} N={n}: out rel err "
+                  f"{o_err:.3e}, probs max |err| {p_err:.3e}; {ms:.4f} ms"
+                  f"{vs64(ms64)}, plain {plain_ms:.3f} ms, bound "
+                  f"{bk['bound_ms']:.4f} ms")
+            record("fused_attention_train", d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=abs_err(got_o, want_o), plain_ms=plain_ms,
+                   **bk)
+            del qkv, bias, b64, got_o, got_p, want_o, want_p
+            torch.cuda.empty_cache()
+
+        if which in ("all", "core"):
+            # K7 and K8 beside SDPA at the width, K4a's core alone
+            n = 192
+            r = device_randn(dev, d + 43)
+            qkv, bias = r(batch, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+            b64 = bias64(n, 2)
+            q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+            lib_ms = attention_library_ms(
+                *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
+                bias)
+            bk = bound(batch * n * 4 * c * 2 + heads * n * n * 4,
+                       bf16_flops=4 * batch * n * n * c)
+            cases = [("attention_qkv", "K7",
+                      lambda: fa.attention_qkv(qkv, bias, heads),
+                      lambda: fa.attention_qkv(qkv, b64, h64),
+                      lambda: fa.attention_qkv_ref(qkv, bias, heads))]
+            if which == "all":
+                q64, k64, v64 = (t.contiguous()
+                                 for t in fa.split_qkv(qkv, h64))
+                cases.append(("attention_bnhd", "K8",
+                              lambda: fa.attention_bnhd(q, k, v, bias),
+                              lambda: fa.attention_bnhd(q64, k64, v64, b64),
+                              lambda: fa.attention_bnhd_ref(q, k, v, bias)))
+            for name, kn, run, run64, plain in cases:
+                (want, plain_ms), got = cuda_once(plain), run()
+                err = rel_err(got, want)
+                require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from "
+                        f"plain: {err} > {TOL_K7}")
+                ms, ms64 = timed(run, run64)
+                print(f"{kn} {name} {tag} B={batch} N={n}: rel err "
+                      f"{err:.3e} (tol {TOL_K7}); {ms:.4f} ms{vs64(ms64)}, "
+                      f"plain {plain_ms:.3f} ms, SDPA at width {d} "
+                      f"{lib_ms:.4f} ms, bound {bk['bound_ms']:.4f} ms")
+                record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
+                       max_abs_err=abs_err(got, want), plain_ms=plain_ms,
+                       library_ms=lib_ms, **bk)
+                del got, want
+            static = torch.stack([
+                qkv[..., i * c:(i + 1) * c].float().abs().max() * 0.8 / 127
+                for i in range(3)]).contiguous()
+            qbk = bound(batch * n * 4 * c * 2 + heads * n * n * 4,
+                        int8_ops=4 * batch * n * n * c)
+            for mode, st in (("dynamic", None), ("static", static)):
+                (want, plain_ms), got = cuda_once(
+                    lambda: fb.attention_q8_ref(qkv, bias, heads, st)), \
+                    fb.attention_q8(qkv, bias, heads, static=st)
+                err = rel_err(got, want)
+                require(err <= TOL_K7, f"K4a core ({tag}, N={n}, {mode}) "
+                        f"differs from plain: {err} > {TOL_K7}")
+                ms, ms64 = timed(
+                    lambda: fb.attention_q8(qkv, bias, heads, static=st),
+                    lambda: fb.attention_q8(qkv, b64, h64, static=st))
+                print(f"K4a core attention_q8 {tag} B={batch} N={n} {mode}: "
+                      f"rel err {err:.3e} (tol {TOL_K7}); {ms:.4f} ms"
+                      f"{vs64(ms64)}, plain {plain_ms:.3f} ms, bound "
+                      f"{qbk['bound_ms']:.4f} ms")
+                if mode == "dynamic" and which == "core":
+                    record("fused_block_q8_attn", d, n=n, c=c, ms=ms,
+                           ms_64=ms64, max_abs_err=abs_err(got, want),
+                           plain_ms=plain_ms, what="core", **qbk)
+                del got, want
+            del qkv, bias, b64, q, k, v, cases
+            torch.cuda.empty_cache()
+    return out
+
+
 def width_summary(widths, name):
     """The ``kernels`` line's account of the head widths a kernel was held
-    to its plain version at: the widths, and for each of 32 and 128 its
-    worst error and its time at the main path's shape (the first case
-    checked) beside width 64's on the same input."""
+    to its plain version at: the widths, and for each but 64 its worst
+    error and its time at the main path's shape (the first case checked:
+    its N and C) beside width 64's on the same input (null where 64 does
+    not divide C)."""
     cases = widths.get(name, {})
     return dict(
-        head_widths=[32, 64, 128] if cases else [64],
+        head_widths=sorted({64, *cases}),
         width_max_abs_err={str(d): max(c["max_abs_err"] for c in cs)
-                           for d, cs in cases.items()},
-        width_ms={str(d): dict(n=cs[0]["n"], ms=cs[0]["ms"],
-                               ms_64=cs[0]["ms_64"])
-                  for d, cs in cases.items()})
+                           for d, cs in sorted(cases.items())},
+        width_ms={str(d): dict(n=cs[0]["n"], c=cs[0].get("c", 768),
+                               ms=cs[0]["ms"], ms_64=cs[0]["ms_64"])
+                  for d, cs in sorted(cases.items())})
 
 
 # ------------------------------------------------- long sequences, wide rows
@@ -1935,14 +2168,16 @@ def routed(run, want, what):
 
 def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
                                          (4, 401), (4, 772))):
-    """The long routes at every head width (C ``c``) and in each form of
+    """The long routes at every core width (C ``c``) and in each form of
     their bias at the default shapes (the CTA's rows once, a slab, at N
     257 and, at width 32, 300 and 301 (K4a's also at 300 and 301 at every
     width); TMA tiles at 300 and 772; row copies at 301 and 401; K6 at
     width 64 and N 257 in rows, its staging leaving the slab too little
     room): K7 and K6 against their plain versions by phase 3's bars, and
     K4a's int8 route (pre-pass and core; also at N 768), dynamic and
-    static, by its core's bar, each launch on the long route."""
+    static, by its core's bar, each launch on the long route; then K7, K6
+    and K4a at the padded head widths 48 and 96, B ``LONG_BATCH``, N 768,
+    timed. Returns the padded widths' K7 and K4a times by (route, d)."""
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
@@ -1950,7 +2185,8 @@ def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
 
     long1 = {"attention_long": 1}
     static = torch.tensor([0.021, 0.023, 0.019], device=dev)
-    for d in fb.HEAD_DIMS:
+    out_padded = {}
+    for d in fb.CORE_WIDTHS:
         h = c // d
         worst, worst_q8, forms, forms_q8 = 0.0, 0.0, [], []
         for b, n in shapes + ((4, 768),):
@@ -1990,7 +2226,86 @@ def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
               f"probs within {TOL_K6_PROBS}; K4a dynamic and static (bias "
               f"{', '.join(forms_q8)}) rel err <= {worst_q8:.3e} (tol "
               f"{TOL_BLOCK})")
+    # padded heads on the long routes (the bf16 route's 4-D K/V maps zero
+    # the lanes past d; K4a's pre-pass writes code 0 there): K7, K6 and
+    # K4a (its pre-pass bit-exact) at B LONG_BATCH, N 768, by the same
+    # bars, timed beside 12 heads of 64 on the same input (only the bias
+    # differs), K7 beside SDPA at the width
+    b, n = LONG_BATCH, 768
+    g = torch.Generator(device=dev).manual_seed(n + 64)
+    bias64 = torch.randn((c // 64, n, n), generator=g, device=dev) * 0.5
+    for d in (48, 96):
+        h = c // d
+        r = device_randn(dev, d + n)
+        qkv, bias = r(b, n, 3 * c).to(torch.bfloat16), r(h, n, n, s=0.5)
+        q, k, v = (t.permute(0, 2, 1, 3).contiguous()
+                   for t in fa.split_qkv(qkv, h))
+        lib_ms = attention_library_ms(q, k, v, bias)
+        del q, k, v
+        got = routed(lambda: fa.attention_qkv(qkv, bias, h), long1,
+                     f"K7 long (d={d}, N={n})")
+        out, probs = routed(lambda: fa.attention_probs(qkv, bias, h), long1,
+                            f"K6 long (d={d}, N={n})")
+        (want_out, want_probs), plain_ms = cuda_once(
+            lambda: fa.attention_probs_ref(qkv, bias, h))
+        errs = (rel_err(got, want_out), rel_err(out, want_out),
+                abs_err(probs, want_probs))
+        require(errs[0] <= TOL_K7 and errs[1] <= TOL_K6_OUT
+                and errs[2] <= TOL_K6_PROBS,
+                f"long route (d={d}, N={n}): K7 {errs[0]}, K6 out "
+                f"{errs[1]}, probs {errs[2]}")
+        k7 = (cuda_ms(lambda: fa.attention_qkv(qkv, bias, h)),
+              cuda_ms(lambda: fa.attention_qkv(qkv, bias64, c // 64)))
+        k6 = (cuda_ms(lambda: fa.attention_probs(qkv, bias, h)),
+              cuda_ms(lambda: fa.attention_probs(qkv, bias64, c // 64)))
+        bk = bound(b * n * 4 * c * 2 + h * n * n * 4,
+                   bf16_flops=4 * b * n * n * c)
+        bk6 = bound(b * n * 4 * c * 2 + h * n * n * 4 + probs.numel() * 2,
+                    bf16_flops=4 * b * n * n * c)
+        out_padded[("attention_long", d)] = dict(
+            n=n, b=b, ms=k7[0], ms_64=k7[1], plain_ms=plain_ms,
+            library_ms=lib_ms, max_abs_err=abs_err(got, want_out), **bk)
+        del got, out, probs, want_out, want_probs
+        q8 = []
+        for st in (None, static):
+            mode = "dynamic" if st is None else "static"
+            got = routed(lambda: fb.attention_q8(qkv, bias, h, st),
+                         Q8_LONG1, f"K4a long (d={d}, N={n}, {mode})")
+            want, q8_plain_ms = cuda_once(
+                lambda: fb.attention_q8_ref(qkv, bias, h, st))
+            err = rel_err(got, want)
+            require(err <= TOL_BLOCK, f"K4a long route (d={d}, N={n}, "
+                    f"{mode}): {err} > {TOL_BLOCK}")
+            pre = fb.attention_q8_prepass(qkv, h, st)
+            pre_ref = fb.attention_q8_prepass_ref(
+                qkv, h, None if st is None else tuple(st))
+            require(all((x is None and y is None) or torch.equal(x, y)
+                        for x, y in zip(pre, pre_ref)),
+                    f"K4a pre-pass (d={d}, {mode}) differs from its plain "
+                    "twin")
+            ms = (cuda_ms(lambda: fb.attention_q8(qkv, bias, h, st)),
+                  cuda_ms(lambda: fb.attention_q8(qkv, bias64, c // 64, st)))
+            q8.append((mode, err, ms))
+            if st is None:
+                out_padded[("attention_q8_long", d)] = dict(
+                    n=n, b=b, ms=ms[0], ms_64=ms[1], plain_ms=q8_plain_ms,
+                    max_abs_err=abs_err(got, want),
+                    **bound(b * n * 4 * c * 2 + h * n * n * 4,
+                            int8_ops=4 * b * n * n * c))
+            del got, want, pre, pre_ref
+        print(f"long route at padded head width {d} ({h} heads on the "
+              f"{fb.core_width(d)}-wide core, B {b}, N {n}): K7 out rel err "
+              f"{errs[0]:.3e}, {k7[0]:.4f} ms (12 heads of 64: "
+              f"{k7[1]:.4f}), SDPA at width {d} {lib_ms:.4f} ms, bound "
+              f"{bk['bound_ms']:.4f} ms; K6 out {errs[1]:.3e}, probs max "
+              f"|err| {errs[2]:.3e}, {k6[0]:.4f} ms ({k6[1]:.4f}), bound "
+              f"{bk6['bound_ms']:.4f} ms; plain {plain_ms:.3f} ms; K4a "
+              + "; ".join(f"{m} rel err {e:.3e}, {t[0]:.4f} ms ({t[1]:.4f})"
+                          for m, e, t in q8)
+              + f" (tol {TOL_BLOCK}), pre-pass bit-exact")
+        del qkv, bias
     torch.cuda.empty_cache()
+    return out_padded
 
 
 def check_long_kernels(dev):
@@ -2005,7 +2320,8 @@ def check_long_kernels(dev):
     one at 1536, 3072 and 8192, dynamic and static) and K2 and K4 blocks at
     C 1536. Each by phase
     3's bars, each launch on the route its N takes and no other. Returns
-    the ``kernels`` line's entries of the four new kernels."""
+    the ``kernels`` line's entries of the four new kernels (the long
+    routes' with their times at padded head widths, ``padded_widths``)."""
     import torch
 
     from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
@@ -2112,7 +2428,7 @@ def check_long_kernels(dev):
     del qkv, bias, got, short
     torch.cuda.empty_cache()
 
-    check_long_forms(dev)
+    padded = check_long_forms(dev)
 
     # K4a's long route alone at N 768: its pre-pass bit-exact against its
     # plain twin, the route (pre-pass and core) against the plain version,
@@ -2349,6 +2665,9 @@ def check_long_kernels(dev):
     print(f"K4 fused_block_q8 C={cw} B={b} N={n} dynamic: {errs}")
     del x, plist, p, qp, got
     torch.cuda.empty_cache()
+    # the long routes' times at padded head widths (check_long_forms)
+    for (name, d), entry in sorted(padded.items()):
+        results[name].setdefault("padded_widths", {})[str(d)] = entry
     return results
 
 
@@ -2765,20 +3084,41 @@ def first_round_flips(simi_k, simi_p, valid):
     return float((below(simi_k) != below(simi_p)).mean())
 
 
+@contextlib.contextmanager
+def slice_embeddings():
+    """A context in which every ``FeatureExtractor`` keeps, in the list it
+    yields, the embeddings each of its passes over a scene's chunks makes
+    (``_embed_chunks``, which ``segment_scene_device`` and
+    ``extract_scene_device`` both run): a slice's own embeddings, without a
+    second pass to get them."""
+    from deepmerge_tpu_torch.infer.extract import FeatureExtractor
+
+    kept, inner = [], FeatureExtractor._embed_chunks
+
+    def keep(self, *args, **kwargs):
+        kept.append(inner(self, *args, **kwargs))
+        return kept[-1]
+
+    with mock.patch.object(FeatureExtractor, "_embed_chunks", keep):
+        yield kept
+
+
 def against_plain(run_slice, embed, out_k, valid, label):
     """The same slice with the plain versions on the card: the embeddings'
     RMS error and the share of first-round merge decisions that differ are
     held to their bounds; the label disagreement of the merged maps is
     printed (see ``TOL_EMB_RMS``). ``embed()`` gives the scene's
-    embeddings, ``out_k`` is the kernels' run of the slice."""
+    embeddings on the kernels, ``out_k`` is the kernels' run of the slice;
+    the plain embeddings are those of the plain run of the slice
+    (``slice_embeddings``: the same pass ``embed()`` makes)."""
     from deepmerge_tpu_torch.utils.parity import label_disagreement
 
     emb_k = embed()
-    with plain_versions():
+    with plain_versions(), slice_embeddings() as kept:
         t = time.perf_counter()
         simi_p, _, rounds_p, map_p, n_p = run_slice()
         plain_s = time.perf_counter() - t
-        emb_p = embed()
+    emb_p = kept[-1][:emb_k.shape[0]].to(emb_k.dtype)
     emb_rms = rms_rel_err(emb_k, emb_p)
     flips = first_round_flips(out_k[0], simi_p, valid)
     dis = label_disagreement(out_k[3].cpu().numpy(), map_p.cpu().numpy())
@@ -5375,6 +5715,7 @@ def main() -> int:
         check_patch_resize(dev, ds, scene)
     if only is not None and "widths" in only:
         check_head_widths(dev)
+        check_padded_widths(dev)
     if only is not None and "long" in only:
         check_long_kernels(dev)
         clock("phase 5e")
@@ -5398,6 +5739,9 @@ def main() -> int:
         kernel_results.update(check_long_kernels(dev))
         clock("phase 3, head widths")
         widths = check_head_widths(dev)
+        clock("phase 3, padded head widths")
+        for k, per in check_padded_widths(dev).items():
+            widths.setdefault(k, {}).update(per)
         kernel_results.update(check_label_lookup(dev, scene))
         k10, probe_launches = check_int4_dot(dev)
         kernel_results.update(k10)
@@ -5648,23 +5992,49 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 5d. the flagship's width of 768 with heads of 32 and of 128 (24 and 6
-    # heads) in w8a8 and bf16: every block on the kernels at that width
+    # heads) in w8a8 and bf16: every block on the kernels at that width;
+    # then the slices the padded widths open, v3 at full width and depth:
+    # S1 8 heads of 96 and S2 16 of 48 (C 768) in bf16, w8a8 and w8a8+attn,
+    # S3 embed 480 with 6 heads of 80 (both GEMMs' K tails) in bf16 and
+    # w8a8, each with its cores' launches counted too
     clock("phase 5d")
     depth = ModelConfig().depth
-    for d in HEAD_WIDTHS:
-        for quantize, on in (("w8a8", q8_kernels), ("", bf16_kernels)):
-            label = f"{768 // d} heads of {d}, {quantize or 'bf16'}"
-            ex = extractor_for(quantize, num_heads=768 // d)
+    widths_5d = [(f"{768 // d} heads of {d}", dict(num_heads=768 // d),
+                  (("w8a8", q8_kernels), ("", bf16_kernels)), False)
+                 for d in HEAD_WIDTHS]
+    for tag, kw, modes in (
+            ("S1, 8 heads of 96", dict(num_heads=8), 3),
+            ("S2, 16 heads of 48", dict(num_heads=16), 3),
+            ("S3, embed 480, 6 heads of 80", dict(embed_dim=480,
+                                                  num_heads=6), 2)):
+        widths_5d.append((tag, kw, (("", bf16_kernels), ("w8a8", q8_kernels),
+                                    ("w8a8+attn", q8a_kernels))[:modes],
+                          True))
+    for tag, model_kw, modes, cores in widths_5d:
+        for quantize, on in modes:
+            label = f"{tag}, {quantize or 'bf16'}"
+            ex = extractor_for(quantize, **model_kw)
             run = slice_runner(ex)
             t = time.perf_counter()
-            out, launches = counted(run)
-            print(f"slice ({label}) launches: {launches} (first run "
+            out, launches, core = counted(run, cores=True)
+            print(f"slice ({label}) launches: {launches}"
+                  f"{f', cores {core}' if cores else ''} (first run "
                   f"{time.perf_counter() - t:.3f} s)")
+            require(core["attention_long"] == core["attention_q8_long"] == 0,
+                    f"{label}: the long attention route launched: {core}")
             require_launches(launches, on + tail,
                              tuple(k for k in block_kernels if k not in on)
                              + off_path, f"the {label} slice")
             require_patch_launches(launches, f"the {label} slice")
             want = {on[1]: depth[0] * n_chunks, on[2]: 2 * n_chunks}
+            if cores:  # every block's core, on the route its width takes
+                key = ("attention_q8_short" if quantize.endswith("+attn")
+                       else "attention_short")
+                want_core = {key: sum(depth) * n_chunks}
+                require(all(core[k] == want_core.get(k, 0)
+                            for k in ("attention_short",
+                                      "attention_q8_short")),
+                        f"{label}: core launches {core}, want {want_core}")
             require(all(launches[k] == v for k, v in want.items()),
                     f"{label}: launches {launches}, want {want}")
             for k in on[1:]:

@@ -107,12 +107,19 @@ __device__ __forceinline__ float group_reduce(float v, float* red) {
 
 // ------------------------------------------------------------- attention
 
-// The head widths both attention cores take (the template parameter kD of
-// attention_kernel here and of fused_block_q8.cu's attention_q8_kernel):
-// the widths the S2Former family's configurations use. The C entry points
+// The head widths the attention cores take: any d with 8 <= d <= 128 and
+// d % 8 == 0 (16-byte rows of bf16; TMA's strides). A head of width d runs
+// on the core instance of width core_width(d), the template parameter kD of
+// attention_kernel and attention_long_kernel here and of fused_block_q8.cu's
+// int8 cores: 32, 64 or 128. Lanes d..kD-1 of k and v are read as zeros
+// (the int8 cores' q, k and v codes there are 0), so they carry no value
+// into any output; only the d real lanes are written. The C entry points
 // derive the width as C / H and refuse any other.
 __host__ __device__ constexpr bool head_dim_ok(int d) {
-  return d == 32 || d == 64 || d == 128;
+  return d % 8 == 0 && d >= 8 && d <= 128;
+}
+__host__ __device__ constexpr int core_width(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
 // K/V shared row stride (bf16) at head width d: 80, 144 or 272 bytes, each
@@ -137,10 +144,20 @@ __host__ __device__ inline int attn_smem_bytes(int n, int d) {
 
 // d^-1/2 as the TPU kernel applies it to a bf16 q: a weakly typed Python
 // float takes the array's dtype in JAX, so the factor is d^-1/2 rounded to
-// bf16 (0.125 exactly at d 64; 0.1767578125 at 32, 0.08837890625 at 128).
+// bf16 (0.125 exactly at d 64; 0.1767578125 at 32, 0.08837890625 at 128),
+// at the head's true width d, not its core's.
 inline float bf16_q_scale(int d) {
   return __bfloat162float(
       __float2bfloat16(static_cast<float>(1.0 / sqrt(static_cast<double>(d)))));
+}
+
+// Column c of q's head, clamped into its d lanes where q is a tensor of its
+// own (K8's form, the only one normalized first without probabilities:
+// kNormFirst && !kProbs), else c itself (lanes past d are then the next
+// head's, or k's, in the same packed qkv row).
+template <bool kClamp>
+__device__ __forceinline__ int q_col(int c, int d) {
+  return kClamp ? min(c, d - 2) : c;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -253,19 +270,28 @@ __device__ __forceinline__ void store_pair(bf16* row, int j, int N, bool even,
 //    B fragments by ldmatrix.trans;
 //  * out = bf16(O · 1/Σe), or bf16(O) with kNormFirst, straight from the
 //    accumulators.
-// kD is the head width (32, 64 or 128): the q·kᵀ k-loop takes kD/16 steps
-// and the O accumulators are 16 x kD. kKT (a bucket of the 16-key tile
-// count ceil(N/16)) sizes the register arrays; tiles past ceil(N/16) are
-// skipped. q, k and v are the first rows of the three operands, each row
-// `ld` elements apart (3C within a packed (B·N, 3C) qkv, C for (B, N, H,
-// kD) tensors); the output rows are C apart. `scale` is bf16_q_scale(kD).
+// kD is the core's width (32, 64 or 128), d <= kD the head's (d % 8 == 0,
+// core_width(d) == kD): K's and V's lanes past d are zero-filled in shared
+// memory, so the kD-wide loops add 0 there whatever q holds, and of the
+// 16 x kD O accumulators the d real columns are stored. q's lanes past d
+// are the next head's (or, for the last head of a packed qkv, k's): in the
+// row, finite. Only K8's q, a (B, N, H, d) tensor of its own (q_col),
+// would read past its end there, so it clamps them to the head's own
+// lanes. A branch around a step of the unrolled loops cost the
+// full widths a quarter of their time, a predicate or a clamp of each q
+// load 3-23% (the register-bound buckets most): the width enters the
+// other cores' loops not at all. kKT (a bucket of the 16-key tile count ceil(N/16)) sizes
+// the register arrays; tiles past ceil(N/16) are skipped. q, k and v are
+// the first rows of the three operands, each row `ld` elements apart (3C
+// within a packed (B·N, 3C) qkv, C for (B, N, H, d) tensors), head h's
+// lanes d·h on; the output rows are C apart. `scale` is bf16_q_scale(d).
 template <int kD, int kKT, bool kProbs, bool kNormFirst>
 __global__ void __launch_bounds__(attn_max_warps(kD) * 32)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, long long ld,
                  const float* __restrict__ bias, bf16* __restrict__ out,
-                 bf16* __restrict__ probs, int B, int N, int C, int samples,
-                 float scale) {
+                 bf16* __restrict__ probs, int B, int N, int C, int d,
+                 int samples, float scale) {
   extern __shared__ __align__(16) unsigned char attn_smem[];
   const int key_tiles = (N + 15) >> 4;
   const int np = key_tiles * 16;
@@ -275,7 +301,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int h = blockIdx.x;
   const int H = gridDim.x;
-  const int head_off = h * kD;
+  const int head_off = h * d;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -292,7 +318,7 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int idx = threadIdx.x; idx < np * (kD / 8); idx += blockDim.x) {
       const int j = idx / (kD / 8);  // 16-byte pieces of a row
       const int c = (idx % (kD / 8)) * 8;
-      const bool in = j < N;
+      const bool in = j < N && c < d;
       const long long off = in ? (row0 + j) * ld + head_off + c : 0;
       cp_async16(ks + j * kKS + c, k + off, in);
       cp_async16(vs + j * kKS + c, v + off, in);
@@ -315,11 +341,13 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        const int c0 = kk * 16 + 2 * tig;
+        constexpr bool kClamp = kNormFirst && !kProbs;  // K8's own q
+        const int c0 = q_col<kClamp>(kk * 16 + 2 * tig, d);
+        const int c1 = q_col<kClamp>(kk * 16 + 2 * tig + 8, d);
         const uint32_t a[4] = {q_pair(q, qa, ra < N, c0, scale),
                                q_pair(q, qb, rb < N, c0, scale),
-                               q_pair(q, qa, ra < N, c0 + 8, scale),
-                               q_pair(q, qb, rb < N, c0 + 8, scale)};
+                               q_pair(q, qa, ra < N, c1, scale),
+                               q_pair(q, qb, rb < N, c1, scale)};
 #pragma unroll
         for (int jt = 0; jt < kKT; ++jt) {
           if (jt < key_tiles) {
@@ -421,6 +449,10 @@ attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float ob = kNormFirst ? 1.f : invb;
 #pragma unroll
       for (int dt = 0; dt < kD / 8; ++dt) {
+        // the d real columns (a branch, not a predicate of each store: the
+        // per-column predicates, hoisted out of the tile loop, spilled the
+        // register-bound buckets)
+        if (dt * 8 >= d) break;
         const int col = head_off + dt * 8 + 2 * tig;
         if (ra < N)
           *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
@@ -448,8 +480,9 @@ inline cudaError_t attention_run(const bf16* q, const bf16* k, const bf16* v,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   const dim3 grid(H, (B + samples - 1) / samples);
+  const int d = C / H;
   kern<<<grid, warps * 32, smem, stream>>>(q, k, v, ld, bias, out, probs, B,
-                                           N, C, samples, bf16_q_scale(kD));
+                                           N, C, d, samples, bf16_q_scale(d));
   return cudaGetLastError();
 }
 
@@ -518,10 +551,11 @@ inline cudaError_t attention_width(const bf16* q, const bf16* k,
 //    read one bias tile;
 //  * a ring of kStages stages in shared memory (three; two with kProbs),
 //    each a 64-key block of K (and, in pass 2, V) of each sample by TMA from
-//    3-D tensor maps over (C, N, B) (rows past N read as zeros) in the
-//    128-byte swizzle (64-byte at d 32) that wgmma reads, completing on the
-//    stage's `full` mbarrier; warp 0 refills the stage of step it + 1 at
-//    step it, once every warpgroup has released it (`empty`);
+//    4-D tensor maps over (d, H, N, B) (lanes past the head's d, rows past N
+//    read as zeros) in the 128-byte swizzle (64-byte at width 32) that wgmma
+//    reads, completing on the stage's `full` mbarrier; warp 0 refills the
+//    stage of step it + 1 at step it, once every warpgroup has released it
+//    (`empty`);
 //  * the bias in one of three forms (attn_long_bias_mode): where the CTA's
 //    128 bias rows fit the bias region, one bulk copy of them (a slab, read
 //    for every sample the CTA takes: the grid then holds fewer CTAs, each
@@ -773,25 +807,28 @@ __device__ __forceinline__ void long_pv(float (&o)[kD / 2],
   }
 }
 
-// The 3-D tensor map of k or v as (C, N, B): rows `ld` elements apart,
-// samples N rows apart, boxes of (min(d, 64), 64 keys, 1 sample) in the
-// swizzle of their row's bytes; rows past N and samples past B read as 0.
+// The 4-D tensor map of k or v as (d, H, N, B): a head's d lanes, heads d
+// lanes apart, rows `ld` elements apart, samples N rows apart, boxes of
+// (min(kD, 64) lanes, 1 head, 64 keys, 1 sample) in the swizzle of their
+// row's bytes, kD = core_width(d); lanes past d, rows past N and samples
+// past B read as 0 (d·2 bytes, the heads' stride, is a multiple of 16).
 inline cudaError_t attn_long_map(CUtensorMap* map, const bf16* base,
-                                 long long ld, int B, int N, int C, int d) {
+                                 long long ld, int B, int N, int H, int d) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
-  const int box = d < 64 ? d : 64;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C),
-                              static_cast<cuuint64_t>(N),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {
+  const int box = core_width(d) < 64 ? core_width(d) : 64;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(H),
+      static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(d) * sizeof(bf16),
       static_cast<cuuint64_t>(ld) * sizeof(bf16),
       static_cast<cuuint64_t>(ld) * N * sizeof(bf16)};
-  const cuuint32_t boxes[3] = {static_cast<cuuint32_t>(box),
+  const cuuint32_t boxes[4] = {static_cast<cuuint32_t>(box), 1,
                                static_cast<cuuint32_t>(kAttnLongKeys), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(base), dims,
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(base), dims,
       strides, boxes, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       box == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -821,12 +858,13 @@ inline cudaError_t attn_long_bias_map(CUtensorMap* map, const float* bias,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The long route (see above). map_k and map_v are 3-D tensor maps over k
-// and v as (C, N, B) with rows `ld` elements apart, boxes of (min(kD, 64),
-// 64, 1); kTiles: the bias in the tile form, map_b its map
-// (attn_long_bias_map); else `slab` picks the slab form or the row form.
-// q is read through its pointer (rows `ld` apart, as the short core reads
-// it); the output rows are C apart.
+// The long route (see above). map_k and map_v are 4-D tensor maps over k
+// and v as (d, H, N, B) (attn_long_map); kTiles: the bias in the tile
+// form, map_b its map (attn_long_bias_map); else `slab` picks the slab form
+// or the row form. q is read through its pointer (rows `ld` apart, as the
+// short core reads it, its lanes past d as the short core reads them: K's
+// are zero there); the output rows are C apart, of which head h's d lanes
+// d·h on are written. kD = core_width(d).
 template <int kD, bool kProbs, bool kNormFirst, bool kTiles>
 __global__ void __launch_bounds__(attn_long_warps(kD) * 32, 1)
 attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
@@ -834,7 +872,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_b,
                       const bf16* __restrict__ q, long long ld,
                       const float* __restrict__ bias, bf16* __restrict__ out,
-                      bf16* __restrict__ probs, int B, int N, int C,
+                      bf16* __restrict__ probs, int B, int N, int C, int d,
                       bool slab, float scale) {
   constexpr int kSamples = attn_long_samples(kD);
   constexpr int kStages = attn_long_stages(kProbs);
@@ -864,7 +902,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const int q0 = blockIdx.x * kAttnLongQueries;
   const int h = blockIdx.z;
   const int H = gridDim.z;
-  const int head_off = h * kD;
+  const int head_off = h * d;
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
   const float* bias_end = bias + static_cast<long long>(H) * N * N;
   const bool rows_form = !kTiles && !slab;
@@ -908,11 +946,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
 #pragma unroll
         for (int x = 0; x < kBoxes; ++x) {
           const int off = si * kKV + x * (kKV / kBoxes);
-          tma_load_3d(kv + off, &map_k, &full[st], head_off + x * kBox, j0,
-                      b0 + si);
+          tma_load_4d(kv + off, &map_k, &full[st], x * kBox, h, j0, b0 + si);
           if (with_v)
-            tma_load_3d(kv + kSamples * kKV + off, &map_v, &full[st],
-                        head_off + x * kBox, j0, b0 + si);
+            tma_load_4d(kv + kSamples * kKV + off, &map_v, &full[st],
+                        x * kBox, h, j0, b0 + si);
         }
       }
       if (kTiles) {
@@ -1022,11 +1059,14 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
       const long long qb = (row0 + rb) * ld + head_off;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        const int c0 = kk * 16 + 2 * tig;
+        // lanes past d: the next head's, or K8's clamped (K's are 0 there)
+        constexpr bool kClamp = kNormFirst && !kProbs;  // K8's own q
+        const int c0 = q_col<kClamp>(kk * 16 + 2 * tig, d);
+        const int c1 = q_col<kClamp>(kk * 16 + 2 * tig + 8, d);
         qf[kk][0] = q_pair(q, qa, live && ra < N, c0, scale);
         qf[kk][1] = q_pair(q, qb, live && rb < N, c0, scale);
-        qf[kk][2] = q_pair(q, qa, live && ra < N, c0 + 8, scale);
-        qf[kk][3] = q_pair(q, qb, live && rb < N, c0 + 8, scale);
+        qf[kk][2] = q_pair(q, qa, live && ra < N, c1, scale);
+        qf[kk][3] = q_pair(q, qb, live && rb < N, c1, scale);
       }
     }
     float mxa = -INFINITY, mxb = -INFINITY;  // the quad's row maxima
@@ -1045,8 +1085,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
       const unsigned char* kt = smem + st * kStage + si * kKV;
       const int j0 = (s % kblocks) * kAttnLongKeys;
 
-      // S = Q'·Kᵀ over the block's 64 keys: k step kk reads d values 16·kk
-      // on, in TMA box 16·kk / kBox, 32 bytes a step along its rows
+      // S = Q'·Kᵀ over the block's 64 keys: k step kk reads lanes 16·kk
+      // on, in TMA box 16·kk / kBox, 32 bytes a step along its rows (every
+      // step of the instance: K's lanes past d are 0, and a branch between
+      // the wgmmas could have ptxas serialize them at every width)
       float sc[32];  // the logits of the block, the accumulator layout
       // every register a wgmma reads is written before its fence: the
       // compiler may not sink those writes past it
@@ -1219,10 +1261,11 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       const int col = head_off + dt * 8 + 2 * tig;
-      if (live && ra < N)
+      const bool real = live && dt * 8 < d;
+      if (real && ra < N)
         *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
             __floats2bfloat162_rn(o[4 * dt] * oa, o[4 * dt + 1] * oa);
-      if (live && rb < N)
+      if (real && rb < N)
         *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
             __floats2bfloat162_rn(o[4 * dt + 2] * ob, o[4 * dt + 3] * ob);
     }
@@ -1244,9 +1287,10 @@ inline cudaError_t attention_long_launch(const CUtensorMap& map_k,
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
                   attn_long_sample_groups(B, N, H, kD, kProbs), H);
+  const int d = C / H;
   kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
-      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, slab,
-      bf16_q_scale(kD));
+      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, d, slab,
+      bf16_q_scale(d));
   return cudaGetLastError();
 }
 
@@ -1258,9 +1302,10 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
                                       cudaStream_t stream) {
   const int mode = attn_long_bias_mode(N, kD, kProbs);
   CUtensorMap map_k, map_v, map_b;
-  cudaError_t e = attn_long_map(&map_k, k, ld, B, N, C, kD);
+  cudaError_t e = attn_long_map(&map_k, k, ld, B, N, H, C / H);
   if (e != cudaSuccess) return e;
-  if ((e = attn_long_map(&map_v, v, ld, B, N, C, kD)) != cudaSuccess) return e;
+  if ((e = attn_long_map(&map_v, v, ld, B, N, H, C / H)) != cudaSuccess)
+    return e;
   if (mode == kBiasTiles) {
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_long_launch<kD, kProbs, kNormFirst, true>(
@@ -1286,13 +1331,14 @@ inline bool attn_long_plan_ok(const int* plan, int B, int N, int H, int d,
 
 // The attention core: out (B·N, C) bf16 from q, k, v rows `ld` apart (see
 // attention_kernel), and with kProbs the normalized probabilities
-// (B, H, N, N) bf16. The head width is C / H, one of 32, 64 and 128.
-// `plan` is the wrapper's launch plan (ops/kernels/fused_block.py
-// `attention_plan` at that width): the 16-key tile bucket, the warps of a
-// CTA, the samples of a CTA and the shared bytes of the short core, or
-// the long route's plan (attn_long_plan_ok), which launches
-// attention_long_kernel (its q, k, v and bias 16-byte aligned); a width or
-// plan the kernels do not take is refused with cudaErrorInvalidValue.
+// (B, H, N, N) bf16. The head width d is C / H (head_dim_ok), run on the
+// core instance of width core_width(d). `plan` is the wrapper's launch
+// plan (ops/kernels/fused_block.py `attention_plan` at that width): the
+// 16-key tile bucket, the warps of a CTA, the samples of a CTA and the
+// shared bytes of the short core (at the instance's width), or the long
+// route's plan (attn_long_plan_ok), which launches attention_long_kernel
+// (its q, k, v and bias 16-byte aligned); a width or plan the kernels do
+// not take is refused with cudaErrorInvalidValue.
 template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const bf16* v, long long ld,
@@ -1301,15 +1347,16 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const int* plan, cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
+  const int w = core_width(d);
   if (kt == kAttnLongRoute) {
     if (!head_dim_ok(d) ||
-        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(d),
-                           attn_long_samples(d), kAttnLongSmem) ||
+        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(w),
+                           attn_long_samples(w), kAttnLongSmem) ||
         ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(bias)) &
          15) != 0)
       return cudaErrorInvalidValue;
-    switch (d) {
+    switch (w) {
       case 32:
         return attention_long_run<32, kProbs, kNormFirst>(
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
@@ -1322,9 +1369,9 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
     }
   }
   if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 16 < N || warps < 1 ||
-      samples < 1 || smem != attn_smem_bytes(N, d))
+      samples < 1 || smem != attn_smem_bytes(N, w))
     return cudaErrorInvalidValue;
-  switch (d) {
+  switch (w) {
     case 32:
       return attention_width<32, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,

@@ -9,8 +9,8 @@
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the
 // forward of `fused_attention_qkv(..., save_probs=True)`, which every
 // training block runs). From the packed qkv projection (B, N, 3C), heads
-// interleaved as (H, d) within each C block, d = C / H (32, 64 or
-// 128), per head:
+// interleaved as (H, d) within each C block, d = C / H (any multiple of 8
+// up to 128, on the core of width 32, 64 or 128), per head:
 //   q'  = bf16(q · d^-½)                       scaled in the input dtype
 //   e   = exp(q'·kᵀ + bias[h] − max)           f32 logits and softmax
 //   out = bf16((bf16(e)·v) · (1/Σe))            f32 accumulation
@@ -61,9 +61,9 @@ const char* dm_error_string(int err) {
 }
 
 // K6: out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C)
-// bf16 and bias (H, N, N) f32. Requires C == H·d with d 32, 64 or 128,
-// 1 <= N <= 16384 and 16-byte aligned tensors (checked by the caller;
-// refused here too). Returns cudaGetLastError().
+// bf16 and bias (H, N, N) f32. Requires C == H·d with d % 8 == 0 and
+// 8 <= d <= 128, 1 <= N <= 16384 and 16-byte aligned tensors (checked by
+// the caller; refused here too). Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
                        const int* plan, cudaStream_t stream) {
@@ -74,8 +74,8 @@ int dm_attention_probs(const void* qkv, const void* bias, void* out,
 }
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
-// Requires C == H·d with d 32, 64 or 128, 1 <= N <= 16384 and 16-byte
-// aligned tensors. Returns cudaGetLastError().
+// Requires C == H·d with d % 8 == 0 and 8 <= d <= 128, 1 <= N <= 16384
+// and 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
                  int C, int H, const int* plan, cudaStream_t stream) {
   return static_cast<int>(attention(static_cast<const bf16*>(qkv),
@@ -85,8 +85,8 @@ int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
 }
 
 // K8: out (B, N, H, d) bf16 from q, k, v (B, N, H, d) bf16 and bias
-// (H, N, N) f32, C = H·d, d 32, 64 or 128. Requires 1 <= N <= 16384 and
-// 16-byte aligned tensors. Returns cudaGetLastError().
+// (H, N, N) f32, C = H·d, d % 8 == 0 and 8 <= d <= 128. Requires 1 <= N
+// <= 16384 and 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,
                       const int* plan, cudaStream_t stream) {

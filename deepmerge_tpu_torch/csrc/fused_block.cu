@@ -311,8 +311,9 @@ inline bool gemm_plan_ok(const int* p) {
 }
 
 // out[m, n] = epilogue(Σ_k A[m, k]·W[n, k]). A (M, K) and W (N, K) are
-// row-major bf16 (W is nn.Linear's weight); K % 64 == 0, N % 8 == 0 and
-// 16-byte aligned bases (checked by the caller).
+// row-major bf16 (W is nn.Linear's weight); K % 8 == 0 (a K tail past the
+// last 64-wide slab reads as zeros), N % 8 == 0 and 16-byte aligned bases
+// (checked by the caller).
 template <int kEpi>
 cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
                  const bf16* resid, bf16* out, int M, int N, int K,
@@ -451,8 +452,8 @@ const char* dm_error_string(int err) {
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
-// hidden), all bf16. Requires C == H·d with d 32, 64 or 128, C % 64 == 0,
-// C <= 8192, hidden % 64 == 0, N <= 16384 and 16-byte aligned tensors
+// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 128,
+// C <= 8192, hidden % 8 == 0, N <= 16384 and 16-byte aligned tensors
 // (checked by the caller); `plan` is the wrapper's launch plan
 // (`block_plan`: the short attention core up to N 256, the long route
 // above), and a plan the kernels do not take is refused. Returns cudaGetLastError().
@@ -519,7 +520,7 @@ int dm_layer_norm(const void* x, const void* w, const void* b, void* y, int M,
 // A (M, K) · W (N, K)ᵀ with bias (N), resid (M, N) for kBiasResidual and
 // aux (M, N) for kBiasGeluSave, all bf16. `plan` is the GEMM's
 // six ints (ops/kernels/fused_block.py `gemm_plan`). Requires
-// K % 64 == 0, N % 8 == 0 and 16-byte aligned tensors (checked by the
+// K % 8 == 0, N % 8 == 0 and 16-byte aligned tensors (checked by the
 // caller). Returns cudaGetLastError().
 int dm_gemm(const void* a, const void* w, const void* bias, const void* resid,
             void* out, void* aux, int M, int N, int K, int epi,

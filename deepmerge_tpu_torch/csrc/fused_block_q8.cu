@@ -65,15 +65,29 @@ __device__ __forceinline__ signed char code_of(float q) {
       __float2int_rn(fminf(fmaxf(rintf(q), -127.0f), 127.0f)));
 }
 
+// The code of x (x / s with dynamic scales, x·inv with static ones), or
+// 0 for a lane that is not `live` (past a head's width). Selects, not a
+// branch, and no zero dividend: a zero x takes the IEEE division's slow
+// path (the padded lanes' codes by division cost K4a's short core 1.3-1.4x
+// its time at padded widths on an H100).
+__device__ __forceinline__ int lane_code(float x, bool live, bool dynamic,
+                                         float s, float inv) {
+  const float xl = live ? x : 1.0f;
+  const int c = code_of(dynamic ? xl / s : xl * inv);
+  return live ? c : 0;
+}
+
 // Eight codes of one row: q(t) with the row scale s (dynamic) or 1/s
-// (static, `inv`), stored as one 8-byte word.
+// (static, `inv`), stored as one 8-byte word; zeros where not `live`.
 __device__ __forceinline__ void store_codes8(const float* v, bool dynamic,
                                              float s, float inv,
-                                             signed char* dst) {
+                                             signed char* dst,
+                                             bool live = true) {
   uint2 u;
   signed char* o = reinterpret_cast<signed char*>(&u);
 #pragma unroll
-  for (int t = 0; t < 8; ++t) o[t] = code_of(dynamic ? v[t] / s : v[t] * inv);
+  for (int t = 0; t < 8; ++t)
+    o[t] = static_cast<signed char>(lane_code(v[t], live, dynamic, s, inv));
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
@@ -467,7 +481,8 @@ struct EpiS8 {
 };
 
 // out = epilogue(dq(Σ_k A[m, k]·W[n, k])): A (M, K) and W (N, K) row-major
-// int8 codes (W in nn.Linear's layout), K % 128 == 0, N % 8 == 0 and
+// int8 codes (W in nn.Linear's layout), K % 16 == 0 (a K tail past the
+// last 128-wide slab reads as zeros), N % 8 == 0 and
 // 16-byte aligned bases (checked by the caller); `plan` is the GEMM's six
 // ints, refused unless they are gemm_q8_plan's.
 template <int kEpi>
@@ -568,10 +583,14 @@ cudaError_t amax_quant(const float* x, const float* row_amax,
 //    stored in the order that maps one onto the other (the slot map), and
 //    the s32 sums, exact, do not care about the order;
 //  * out = bf16((f32(O)·(1/Σpq))·s_v) from the accumulators.
-// kD is the head width (32, 64 or 128; m16n8k32 needs kD % 32 == 0).
-// kSteps (a bucket of the 32-key step count ceil(N/32)) sizes the register
-// arrays; steps past ceil(N/32) are skipped. Keys past N get code 0 in k
-// and v and pq 0; rows past N are computed on zero codes and not stored.
+// kD is the core's width (32, 64 or 128; m16n8k32 needs kD % 32 == 0),
+// d <= kD the head's (core_width(d) == kD): every scale (q's and k's rows,
+// v's columns) is taken over the d real lanes alone, the lanes past d get
+// code 0 (a padded v column scale 1, never read into an output), and only
+// the d real output lanes are stored. kSteps (a bucket of the 32-key step
+// count ceil(N/32)) sizes the register arrays; steps past ceil(N/32) are
+// skipped. Keys past N get code 0 in k and v and pq 0; rows past N are
+// computed on zero codes and not stored.
 
 // k codes' row stride at head width d: 48, 80 or 144 bytes, each an odd
 // multiple of 16 (conflict-free ldmatrix)
@@ -705,7 +724,7 @@ __global__ void __launch_bounds__(
 attention_q8_kernel(const bf16* __restrict__ qkv,
                     const float* __restrict__ bias,
                     const float* __restrict__ s_qkv, bf16* __restrict__ out,
-                    int B, int N, int C, int samples, float scale) {
+                    int B, int N, int C, int d, int samples, float scale) {
   constexpr int kTiles = 4 * kSteps;  // 8-key tiles
   constexpr int kOct = kD / 8;        // 16-byte pieces (8 lanes) of a row
   constexpr int kQ8Row = q8_row(kD);
@@ -719,7 +738,7 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 
   const int h = blockIdx.x;
   const long long ld = 3LL * C;
-  const int head_off = h * kD;
+  const int head_off = h * d;
   const bf16* qb = qkv + head_off;
   const bf16* kb = qb + C;
   const bf16* vb = qb + 2 * C;
@@ -753,7 +772,7 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
 
     // k codes: kOct threads a key (an octet of lanes each), the row's
     // abs-max over them, four keys' loads in flight at a time; keys past N
-    // code 0, scale 1
+    // code 0, scale 1; lanes past d code 0
     for (int base = threadIdx.x; base < L.np * kOct;
          base += 4 * blockDim.x) {
       float v[4][8];
@@ -762,7 +781,7 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
         const int idx = base + u * blockDim.x;
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-        if (idx < L.np * kOct && idx / kOct < N)
+        if (idx < L.np * kOct && idx / kOct < N && (idx % kOct) * 8 < d)
           load8(kb + (row0 + idx / kOct) * ld + (idx % kOct) * 8, v[u]);
       }
 #pragma unroll
@@ -780,7 +799,8 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
         }
         if (idx < L.np * kOct) {
           store_codes8(v[u], !kStatic, sc, inv_k,
-                       kq + (idx / kOct) * kQ8Row + (idx % kOct) * 8);
+                       kq + (idx / kOct) * kQ8Row + (idx % kOct) * 8,
+                       (idx % kOct) * 8 < d);
           if (idx % kOct == 0) sk[idx / kOct] = sc;
         }
       }
@@ -801,7 +821,8 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
           const int j = j0 + u * parts;
 #pragma unroll
           for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-          if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[u]);
+          if (j < N && oct * 8 < d)
+            load8(vb + (row0 + j) * ld + oct * 8, v[u]);
         }
 #pragma unroll
         for (int u = 0; u < 4; ++u)
@@ -834,15 +855,18 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
         const int j = j0 + (e & 1) + (e >> 1) * 8;
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[e][t] = 0.f;
-        if (j < N) load8(vb + (row0 + j) * ld + oct * 8, v[e]);
+        if (j < N && oct * 8 < d)
+          load8(vb + (row0 + j) * ld + oct * 8, v[e]);
       }
+      const bool live = oct * 8 < d;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int dd = oct * 8 + t;
         int c[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          c[e] = code_of(kStatic ? v[e][t] * inv_v : v[e][t] / sv[dd]);
+          c[e] = lane_code(v[e][t], live, !kStatic, kStatic ? 1.f : sv[dd],
+                           inv_v);
         *reinterpret_cast<uint32_t*>(vt + dd * L.v_ld + 4 * grp) =
             pack_s8(c[0], c[1], c[2], c[3]);
       }
@@ -855,13 +879,14 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
       const bf16* qa_row = qb + (row0 + ra) * ld + 4 * tig;
       const bf16* qb_row = qb + (row0 + rb) * ld + 4 * tig;
 
-      // q codes: lanes 16c + 4t..+3 of rows ra and rb
+      // q codes: lanes 16c + 4t..+3 of rows ra and rb (0 past d)
       float va[kD / 16][4], vbq[kD / 16][4];
       float ma = 0.f, mb = 0.f;
 #pragma unroll
       for (int c = 0; c < kD / 16; ++c) {
-        load4(qa_row + 16 * c, ra < N, va[c]);
-        load4(qb_row + 16 * c, rb < N, vbq[c]);
+        const bool in = 16 * c + 4 * tig < d;
+        load4(qa_row + 16 * c, ra < N && in, va[c]);
+        load4(qb_row + 16 * c, rb < N && in, vbq[c]);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           ma = fmaxf(ma, fabsf(va[c][t]));
@@ -881,11 +906,12 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
       uint32_t qa[kD / 32][4];  // A fragments of the 32-lane k steps
 #pragma unroll
       for (int c = 0; c < kD / 16; ++c) {
+        const bool in = 16 * c + 4 * tig < d;
         int ca[4], cb[4];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          ca[t] = code_of(kStatic ? va[c][t] * inv_q : va[c][t] / sqa);
-          cb[t] = code_of(kStatic ? vbq[c][t] * inv_q : vbq[c][t] / sqb);
+          ca[t] = lane_code(va[c][t], in, !kStatic, sqa, inv_q);
+          cb[t] = lane_code(vbq[c][t], in, !kStatic, sqb, inv_q);
         }
         qa[c >> 1][(c & 1) * 2] = pack_s8(ca[0], ca[1], ca[2], ca[3]);
         qa[c >> 1][(c & 1) * 2 + 1] = pack_s8(cb[0], cb[1], cb[2], cb[3]);
@@ -1008,19 +1034,20 @@ attention_q8_kernel(const bf16* __restrict__ qkv,
         }
       }
 
-      // out = bf16((O · 1/Σpq) · s_v)
+      // out = bf16((O · 1/Σpq) · s_v), the d real lanes
 #pragma unroll
       for (int dt = 0; dt < kD / 8; ++dt) {
         const int col = dt * 8 + 2 * tig;
+        const bool real = dt * 8 < d;
         const float v0 = kStatic ? s_v : sv[col];
         const float v1 = kStatic ? s_v : sv[col + 1];
-        if (ra < N)
+        if (ra < N && real)
           *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C +
                                              head_off + col) =
               __floats2bfloat162_rn(
                   __fmul_rn(__fmul_rn(static_cast<float>(o[dt][0]), inva), v0),
                   __fmul_rn(__fmul_rn(static_cast<float>(o[dt][1]), inva), v1));
-        if (rb < N)
+        if (rb < N && real)
           *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C +
                                              head_off + col) =
               __floats2bfloat162_rn(
@@ -1042,11 +1069,13 @@ inline cudaError_t attention_q8_run(const bf16* qkv, const float* bias,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  // d^-1/2 in float32, as the JAX package's f32 logits take a Python float
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
+  // d^-1/2 in float32, as the JAX package's f32 logits take a Python
+  // float, at the head's true width d
+  const int d = C / H;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   const dim3 grid(H, (B + samples - 1) / samples);
   kern<<<grid, warps * 32, smem, stream>>>(qkv, bias, s_qkv, out, B, N, C,
-                                           samples, scale);
+                                           d, samples, scale);
   return cudaGetLastError();
 }
 
@@ -1137,11 +1166,13 @@ __host__ __device__ inline long long q8_long_np(int N) {
          kAttnLongKeys;
 }
 
-// The route's scratch for B samples of N tokens, H heads of width d (the
-// wrapper's ops/kernels/fused_block.py attention_q8_long_scratch): k codes
-// (B, H, Np, d), v codes transposed (B, H, d, Np), k's row scales (B, H,
-// Np) f32, v's column scales (B, H, d) f32; the scales only with dynamic
-// scales.
+// The route's scratch for B samples of N tokens, H heads on the core of
+// width kD = core_width(d) (the wrapper's ops/kernels/fused_block.py
+// attention_q8_long_scratch): k codes (B, H, Np, kD), v codes transposed
+// (B, H, kD, Np), k's row scales (B, H, Np) f32, v's column scales (B, H,
+// kD) f32; the scales only with dynamic scales. The lanes past the head's
+// d hold code 0 (and v's column scale 1), so the core's TMA maps and
+// products run at the instance's width.
 struct Q8LongScratch {
   signed char* kc;
   signed char* vt;
@@ -1166,7 +1197,8 @@ __host__ __device__ constexpr int q8_slot(int jl) {
          (jl & 1);
 }
 
-// The pre-pass (see above) of (sample, head) blockIdx.x = b·H + h.
+// The pre-pass (see above) of (sample, head) blockIdx.x = b·H + h, a head
+// of width d on the scratch of width kD = core_width(d).
 template <int kD, bool kStatic>
 __global__ void __launch_bounds__(kQ8PrepassThreads)
 attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
@@ -1182,8 +1214,9 @@ attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
   const long long ld = 3LL * C;
   const long long np = q8_long_np(N);
   const long long row0 = static_cast<long long>(b) * N;
-  const bf16* kb = qkv + C + h * kD;
-  const bf16* vb = qkv + 2 * C + h * kD;
+  const int d = C / H;
+  const bf16* kb = qkv + C + h * d;
+  const bf16* vb = qkv + 2 * C + h * d;
   const unsigned full = 0xffffffffu;
   float inv_k = 0.f, inv_v = 0.f;
   if constexpr (kStatic) {
@@ -1199,7 +1232,7 @@ attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
     const long long j = idx / kOct;
     const int o = static_cast<int>(idx % kOct);
     float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (j < N) load8(kb + (row0 + j) * ld + o * 8, v);
+    if (j < N && o * 8 < d) load8(kb + (row0 + j) * ld + o * 8, v);
     float s = 1.0f;
     if constexpr (!kStatic) {
       float amax = 0.f;
@@ -1211,7 +1244,7 @@ attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
       s = amax > 0.f ? amax * kInv127 : 1.0f;
       if (o == 0) sc.ks[bh * np + j] = s;
     }
-    store_codes8(v, !kStatic, s, inv_k, kc + j * kD + o * 8);
+    store_codes8(v, !kStatic, s, inv_k, kc + j * kD + o * 8, o * 8 < d);
   }
 
   // v's column scales: a thread takes an octet of lanes over every
@@ -1227,7 +1260,7 @@ attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
         const int j = j0 + u * kParts;
 #pragma unroll
         for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
-        if (j < N) load8(vb + (row0 + j) * ld + o * 8, v[u]);
+        if (j < N && o * 8 < d) load8(vb + (row0 + j) * ld + o * 8, v[u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u)
@@ -1255,13 +1288,15 @@ attention_q8_prepass_kernel(const bf16* __restrict__ qkv,
          idx += blockDim.x) {
       const int jl = idx / kOct, o = idx % kOct;
       float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (j0 + jl < N) load8(vb + (row0 + j0 + jl) * ld + o * 8, v);
+      if (j0 + jl < N && o * 8 < d)
+        load8(vb + (row0 + j0 + jl) * ld + o * 8, v);
       const int slot = q8_slot(jl);
+      const bool live = o * 8 < d;
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const int dd = o * 8 + t;
-        vtile[dd * kAttnLongKeys + slot] =
-            code_of(kStatic ? v[t] * inv_v : v[t] / sv[dd]);
+        vtile[dd * kAttnLongKeys + slot] = static_cast<signed char>(
+            lane_code(v[t], live, !kStatic, kStatic ? 1.f : sv[dd], inv_v));
       }
     }
     __syncthreads();
@@ -1389,9 +1424,10 @@ __host__ __device__ constexpr int q8_long_region_bytes(int d) {
 // in boxes of 64 bytes x d rows; kTiles: the bias in the tile form, map_b
 // its map (attn_long_bias_map); else `slab` picks the slab form or the
 // row form.
-// q is read from the packed qkv (rows 3C apart), the output rows are C
-// apart; ks and vs are the pre-pass's scales (dynamic scales), s_qkv the
-// static (s_q, s_k, s_v).
+// q is read from the packed qkv (rows 3C apart; lanes past the head's
+// width d as 0), the output rows are C apart (head h's d lanes d·h on are
+// written); ks and vs are the pre-pass's scales (dynamic scales, kD wide),
+// s_qkv the static (s_q, s_k, s_v). kD = core_width(d).
 template <int kD, bool kStatic, bool kTiles>
 __global__ void __launch_bounds__(attn_long_warps(kD) * 32, 1)
 attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
@@ -1402,7 +1438,7 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
                          const float* __restrict__ vs,
                          const float* __restrict__ bias,
                          const float* __restrict__ s_qkv,
-                         bf16* __restrict__ out, int B, int N, int C,
+                         bf16* __restrict__ out, int B, int N, int C, int d,
                          bool slab, float scale) {
   constexpr int kSamples = attn_long_samples(kD);
   constexpr int kStages = kQ8LongStages;
@@ -1427,7 +1463,7 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const int q0 = blockIdx.x * kAttnLongQueries;
   const int h = blockIdx.z;
   const int H = gridDim.z;
-  const int head_off = h * kD;
+  const int head_off = h * d;
   const long long ld = 3LL * C;
   const long long np = q8_long_np(N);
   const float* bias_h = bias + static_cast<long long>(h) * N * N;
@@ -1597,7 +1633,8 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
     const long long row0 = static_cast<long long>(b) * N;
     const long long bh = static_cast<long long>(b) * H + h;
 
-    // q codes: lanes 16c + 4·tig..+3 of rows ra and rb, the short core's
+    // q codes: lanes 16c + 4·tig..+3 of rows ra and rb (0 past d), the
+    // short core's
     float cqa, cqb;
     {
       const bf16* qa_row = qkv + (row0 + ra) * ld + head_off + 4 * tig;
@@ -1606,8 +1643,9 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
       float ma = 0.f, mb = 0.f;
 #pragma unroll
       for (int c = 0; c < kD / 16; ++c) {
-        load4(qa_row + 16 * c, live && ra < N, va[c]);
-        load4(qb_row + 16 * c, live && rb < N, vb[c]);
+        const bool in = 16 * c + 4 * tig < d;
+        load4(qa_row + 16 * c, live && ra < N && in, va[c]);
+        load4(qb_row + 16 * c, live && rb < N && in, vb[c]);
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
           ma = fmaxf(ma, fabsf(va[c][t]));
@@ -1626,11 +1664,12 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
       }
 #pragma unroll
       for (int c = 0; c < kD / 16; ++c) {
+        const bool in = 16 * c + 4 * tig < d;
         int ca[4], cb[4];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
-          ca[t] = code_of(kStatic ? va[c][t] * inv_q : va[c][t] / sqa);
-          cb[t] = code_of(kStatic ? vb[c][t] * inv_q : vb[c][t] / sqb);
+          ca[t] = lane_code(va[c][t], in, !kStatic, sqa, inv_q);
+          cb[t] = lane_code(vb[c][t], in, !kStatic, sqb, inv_q);
         }
         qa[c >> 1][(c & 1) * 2] = pack_s8(ca[0], ca[1], ca[2], ca[3]);
         qa[c >> 1][(c & 1) * 2 + 1] = pack_s8(cb[0], cb[1], cb[2], cb[3]);
@@ -1797,6 +1836,7 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
 #pragma unroll
     for (int dt = 0; dt < kD / 8; ++dt) {
       const int col = dt * 8 + 2 * tig;
+      const bool real = live && dt * 8 < d;
       float v0 = s_v, v1 = s_v;
       if constexpr (!kStatic) {
         if (live) {
@@ -1806,14 +1846,14 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
           v1 = sv.y;
         }
       }
-      if (live && ra < N)
+      if (real && ra < N)
         *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + head_off +
                                            col) =
             __floats2bfloat162_rn(
                 __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt]), inva), v0),
                 __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 1]), inva),
                           v1));
-      if (live && rb < N)
+      if (real && rb < N)
         *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + head_off +
                                            col) =
             __floats2bfloat162_rn(
@@ -1850,10 +1890,12 @@ inline cudaError_t attention_q8_long_launch(
   const dim3 grid(
       (N + kAttnLongQueries - 1) / kAttnLongQueries,
       long_sample_groups(B, N, H, attn_long_samples(kD), mode), H);
-  // d^-1/2 in float32, as the JAX package's f32 logits take a Python float
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(kD)));
+  // d^-1/2 in float32, as the JAX package's f32 logits take a Python
+  // float, at the head's true width d
+  const int d = C / H;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
-      map_k, map_v, map_b, qkv, sc.ks, sc.vs, bias, s_qkv, out, B, N, C,
+      map_k, map_v, map_b, qkv, sc.ks, sc.vs, bias, s_qkv, out, B, N, C, d,
       mode == kBiasSlab, scale);
   return cudaGetLastError();
 }
@@ -1904,9 +1946,10 @@ inline cudaError_t attention_q8_long_width(const bf16* qkv, const float* bias,
 }
 
 // K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. The head
-// width is C / H, one of 32, 64 and 128. `plan` is the wrapper's
-// `attention_q8_plan` at that width: the 32-key step bucket, the warps of
-// a CTA (even, at most 8), the samples of a CTA and the shared bytes, or
+// width d is C / H (head_dim_ok), run on the instance of width
+// core_width(d). `plan` is the wrapper's `attention_q8_plan` at that
+// width: the 32-key step bucket, the warps of a CTA (even, at most 8), the
+// samples of a CTA and the shared bytes (at the instance's width), or
 // the long route's plan (block_common.cuh attn_long_plan_ok, with the bf16
 // route's CTA), which runs the pre-pass into `scratch` (not null, 16-byte
 // aligned, q8_long_scratch's bytes) and attention_q8_long_kernel; a width
@@ -1917,16 +1960,17 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
                          cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
+  const int w = core_width(d);
   if (kt == kAttnLongRoute) {
     if (!head_dim_ok(d) ||
-        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(d),
-                           attn_long_samples(d), kAttnLongSmem) ||
+        !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(w),
+                           attn_long_samples(w), kAttnLongSmem) ||
         scratch == nullptr ||
         ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(bias) |
           reinterpret_cast<uintptr_t>(scratch)) &
          15) != 0)
       return cudaErrorInvalidValue;
-    switch (d) {
+    switch (w) {
       case 32:
         return attention_q8_long_width<32>(qkv, bias, s_qkv, out, B, N, C, H,
                                            scratch, stream);
@@ -1940,9 +1984,9 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
   }
   if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 32 < N || warps < 2 ||
       warps % 2 || warps > kAttnQ8MaxWarps || samples < 1 ||
-      smem != attn_q8_layout(N, d).bytes)
+      smem != attn_q8_layout(N, w).bytes)
     return cudaErrorInvalidValue;
-  switch (d) {
+  switch (w) {
     case 32:
       return attention_q8_width<32>(qkv, bias, s_qkv, out, B, N, C, H, kt,
                                     warps, samples, smem, stream);
@@ -1955,7 +1999,8 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
   }
 }
 
-// The long route's pre-pass alone, at head width C / H.
+// The long route's pre-pass alone, at head width C / H (on the scratch of
+// its instance's width).
 cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
                                  void* scratch, int B, int N, int C, int H,
                                  cudaStream_t stream) {
@@ -1966,8 +2011,8 @@ cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
         reinterpret_cast<uintptr_t>(scratch)) &
        15) != 0)
     return cudaErrorInvalidValue;
-  const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, d);
-  switch (d) {
+  const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, core_width(d));
+  switch (core_width(d)) {
     case 32:
       return s_qkv != nullptr
                  ? attention_q8_prepass_run<32, true>(qkv, s_qkv, sc, B, N,
@@ -2099,8 +2144,9 @@ const char* dm_error_string(int err) {
 // quant_attn on the long route at least the route's scratch
 // (attention_q8_long_scratch's bytes); codes (B·N, max(C, hidden)) int8;
 // row_scale and row_amax (B·N) f32. Requires
-// C == H·d with d 32, 64 or 128, C % 128 == 0, C <= 8192, hidden % 128 ==
-// 0, N <= 16384 and 16-byte aligned tensors (checked by the caller). `plan` is the block's
+// C == H·d with d % 8 == 0 and 8 <= d <= 128, C % 16 == 0, C <= 8192,
+// hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors (checked by the
+// caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
 // plan the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
@@ -2166,7 +2212,7 @@ int dm_ln_quant(const void* x, const void* w, const void* b,
 // the row scales row_scale (M) or the static scale *static_scale (not
 // null), bias (N) bf16 and resid (M, N) bf16 for bias_residual. `plan` is
 // the GEMM's six ints (ops/kernels/fused_block.py `gemm_q8_plan`).
-// Requires K % 128 == 0, N % 8 == 0 and 16-byte aligned tensors (checked
+// Requires K % 16 == 0, N % 8 == 0 and 16-byte aligned tensors (checked
 // by the caller). Returns cudaGetLastError().
 int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
                const void* row_scale, const void* static_scale,
@@ -2229,8 +2275,9 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // static (s_q, s_k, s_v) (f32 [3]) or, if null, dynamic scales. `plan` is
 // the wrapper's `attention_q8_plan` (the short core up to N 256, the long
 // route above or when the plan forces it: its pre-pass writes `scratch`,
-// attention_q8_long_scratch's bytes). Requires C == H·d with d 32, 64 or
-// 128 and N <= 16384 (checked by the caller). Returns cudaGetLastError().
+// attention_q8_long_scratch's bytes). Requires C == H·d with d % 8 == 0
+// and 8 <= d <= 128, and N <= 16384 (checked by the caller). Returns
+// cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,
                     void* scratch, cudaStream_t stream) {

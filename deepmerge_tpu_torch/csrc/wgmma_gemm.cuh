@@ -20,6 +20,10 @@
 //   each warpgroup its own 64x256 tiles so that one's epilogue runs under
 //   the other's products, was slower on all four s8 shapes of a block on
 //   an H100: its 64-row tiles read each W slab twice as often.)
+// * Any K whose rows are a multiple of 16 bytes (TMA's stride): the last
+//   slab of a K that is not a multiple of the slab reads its lanes past K
+//   as zeros in A and in W (the tensor maps' true K extent), which add
+//   nothing to the sums; TMA counts the whole box in its transaction bytes.
 // The epilogue is the caller's functor: `epi.store(d, row, n0, tig, M, N)`
 // with the thread's accumulators, its first row (the second is row + 8),
 // the tile's first column and the thread's index in its quad.
@@ -126,7 +130,7 @@ __device__ __forceinline__ void gemm_consume(const unsigned char* smem,
   constexpr int kStageBytes = (kGemmBM + kGemmBN) * kSlabBytes;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k_tiles = K / Mma::kSlabK;
+  const int k_tiles = (K + Mma::kSlabK - 1) / Mma::kSlabK;
   const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
   const int tiles = tiles_n * ((M + kGemmBM - 1) / kGemmBM);
   auto tile_of = [&](int j) {
@@ -189,7 +193,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int k_tiles = K / Mma::kSlabK;
+  const int k_tiles = (K + Mma::kSlabK - 1) / Mma::kSlabK;
   const int tiles_n = (N + kGemmBN - 1) / kGemmBN;
   const int tiles = tiles_n * ((M + kGemmBM - 1) / kGemmBM);
   auto tile_of = [&](int j) {
@@ -254,12 +258,13 @@ inline cudaError_t tensor_map(
 }
 
 // Launches the GEMM with A (M, K) and W (N, K) of `type`, a persistent
-// grid of one CTA an SM (or one a tile, if fewer).
+// grid of one CTA an SM (or one a tile, if fewer). K·elem must be a
+// multiple of 16 bytes (K % 8 in bf16, K % 16 in int8), N % 8 == 0.
 template <class Mma, int kStages, class Epi>
 cudaError_t wgmma_gemm(const void* A, const void* W, CUtensorMapDataType type,
                        int elem, const Epi& epi, int M, int N, int K,
                        cudaStream_t stream) {
-  if (K % Mma::kSlabK != 0 || N % 8 != 0 || M < 1)
+  if (K < 1 || (K * elem) % 16 != 0 || N % 8 != 0 || M < 1)
     return cudaErrorInvalidValue;
   constexpr int kSmem = gemm_smem_bytes(kStages);
   CUtensorMap map_a, map_w;

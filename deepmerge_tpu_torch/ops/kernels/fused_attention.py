@@ -228,8 +228,8 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     """K6: ``(out, probs)`` — out (B, N, C) in qkv's dtype, probs (B, H, N,
     N) bf16.
 
-    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d % 8 == 0
+    up to 128, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
     256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
@@ -256,8 +256,8 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                   plan: dict | None = None) -> torch.Tensor:
     """K7: (B, N, C) in qkv's dtype.
 
-    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d % 8 == 0
+    up to 128, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
     256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention``) with ``plan`` (an ``attention_plan`` of these
     shapes, which the kernel checks; the default one if None) and count
@@ -282,8 +282,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """K8: (B, N, H, D) in q's dtype.
 
-    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D in
-    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D % 8 == 0
+    up to 128, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
     256, the long route above) launch ``csrc/fused_attention.cu``
     (``dm_attention_bnhd``) and count the launch in
     ``attention_bnhd.launches``; anything else raises.

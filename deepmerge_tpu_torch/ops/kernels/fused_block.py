@@ -41,7 +41,13 @@ from deepmerge_tpu_torch.ops.kernels import build
 
 LN_EPS = 1e-5
 N_PARAMS = 13
-HEAD_DIMS = (32, 64, 128)  # the attention cores' head widths
+# The attention cores' template instances: a head of width d (any multiple
+# of HEAD_DIM_STEP up to MAX_HEAD_DIM) runs on the instance of width
+# core_width(d), K's and V's lanes past d zero-filled (so they add 0) and
+# never written
+CORE_WIDTHS = (32, 64, 128)
+HEAD_DIM_STEP = 8    # 16-byte rows of bf16 (TMA's strides)
+MAX_HEAD_DIM = 128
 MAX_TOKENS = 256   # the short (register-resident) attention cores' longest
 MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
 MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
@@ -85,7 +91,11 @@ _SIGNATURES_Q8 = {
     # x, w, b, static_scale, codes, row_scale, M, C, stream
     "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
-Q8_K_ALIGN = 128   # the s8 GEMM's K slab: C and the MLP width divide by it
+Q8_K_SLAB = 128    # the s8 GEMM's K slab (128 bytes, as K2's 64 bf16)
+# the GEMMs' K: rows a multiple of 16 bytes (TMA's stride), a K tail past
+# the last whole slab read as zeros; C and the MLP width divide by it
+GEMM_K_ALIGN = 8   # bf16
+Q8_K_ALIGN = 16    # int8
 
 # ------------------------------------------------------------ launch plans
 #
@@ -102,34 +112,57 @@ SM_THREADS = 2_048
 SM_CTAS = 32
 MAX_GRID_Y = 65_535
 
-# The bf16 attention core (csrc/block_common.cuh), a template of the head
-# width d: a CTA of `warps` warps per head and `samples` samples, K and V of
-# a sample in shared memory at a row stride of d + 8 bf16, register arrays
-# sized by a bucket of the 16-key tile count; its launch bound is 12 warps
-# (168 registers a thread) at widths 32 and 64, and 8 warps (255
-# registers) at width 128, whose O accumulators double.
+# The bf16 attention core (csrc/block_common.cuh), a template of the core
+# width kD = core_width(d): a CTA of `warps` warps per head and `samples`
+# samples, K and V of a sample in shared memory at a row stride of kD + 8
+# bf16, register arrays sized by a bucket of the 16-key tile count; its
+# launch bound is 12 warps (168 registers a thread) at widths 32 and 64,
+# and 8 warps (255 registers) at width 128, whose O accumulators double.
+# Every table below is keyed by the core width.
 ATTN_KEY_TILE_BUCKETS = (1, 3, 4, 8, 12, 13, 16)
 ATTN_MAX_WARPS = {32: 12, 64: 12, 128: 8}
 ATTN_REGISTERS = {32: 168, 64: 168, 128: 255}
 ATTN_WARPS = 4
 
 
-def check_head_dim(c: int, heads: int) -> int:
-    """The head width ``c // heads`` if the attention cores take it (one of
-    ``HEAD_DIMS``); raises ``ValueError`` otherwise."""
-    d = c // heads if heads > 0 and c % heads == 0 else 0
-    if d not in HEAD_DIMS:
+def head_dim_ok(d: int) -> bool:
+    """Whether the attention cores take heads of width ``d`` (the C side's
+    ``head_dim_ok``): a multiple of ``HEAD_DIM_STEP`` up to
+    ``MAX_HEAD_DIM``."""
+    return d % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= d <= MAX_HEAD_DIM
+
+
+def core_width(d: int) -> int:
+    """The core instance a head of width ``d`` runs on (the C side's
+    ``core_width``): 32 up to 32, 64 up to 64, else 128."""
+    return next((w for w in CORE_WIDTHS if d <= w), CORE_WIDTHS[-1])
+
+
+def _refuse_head_dim(d: int, what: str) -> None:
+    if not head_dim_ok(d):
         raise ValueError(
-            f"the CUDA attention cores take heads of width {HEAD_DIMS}, got "
-            f"C={c} over {heads} heads; other widths are open work "
+            f"{what} takes heads of width d % {HEAD_DIM_STEP} == 0 up to "
+            f"{MAX_HEAD_DIM}, got {d}; other widths are open work "
             "(ROADMAP.md)")
+
+
+def check_head_dim(c: int, heads: int) -> int:
+    """The head width ``c // heads`` if the attention cores take it
+    (``head_dim_ok``); raises ``ValueError`` otherwise."""
+    d = c // heads if heads > 0 and c % heads == 0 else 0
+    if not head_dim_ok(d):
+        raise ValueError(
+            f"the CUDA attention cores take heads of width d % "
+            f"{HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM}, got C={c} over "
+            f"{heads} heads; other widths are open work (ROADMAP.md)")
     return d
 
 
 def attn_row_bytes(head_dim: int) -> int:
-    """The bf16 core's shared K/V row stride: d + 8 bf16, an odd multiple
-    of 16 bytes (conflict-free ldmatrix)."""
-    return (head_dim + 8) * 2
+    """The bf16 core's shared K/V row stride at head width ``head_dim``:
+    kD + 8 bf16 at its core width kD, an odd multiple of 16 bytes
+    (conflict-free ldmatrix)."""
+    return (core_width(head_dim) + 8) * 2
 # samples a CTA: 4 from a batch of 512 on (fewer, longer CTAs: 1.60 against
 # 1.80 ms at B 1024, N 192 on an H100), else 1 (enough CTAs to fill 132 SMs)
 ATTN_SAMPLES_FROM_BATCH = 512
@@ -220,14 +253,16 @@ def _long_bias_form(n: int, region: int) -> str:
 
 def _long_bias_region(head_dim: int, probs: bool) -> int:
     """Bytes of the bf16 long route's bias region (the C side's
-    ``attn_long_region_bytes``): the CTA's shared bytes less 1 KB of
-    alignment, the K/V ring (three stages, two with probabilities, each a
-    64-key block of K and of V of each sample), the probabilities' staging
-    (16 x 72 bf16 a warp) and the barriers (two a stage and the slab's)."""
+    ``attn_long_region_bytes`` at the core width): the CTA's shared bytes
+    less 1 KB of alignment, the K/V ring (three stages, two with
+    probabilities, each a 64-key block of K and of V of each sample), the
+    probabilities' staging (16 x 72 bf16 a warp) and the barriers (two a
+    stage and the slab's)."""
+    w = core_width(head_dim)
     stages = 2 if probs else 3
-    samples = ATTN_LONG_SAMPLES[head_dim]
-    ring = stages * 2 * samples * ATTN_LONG_KEYS * head_dim * 2
-    staging = ATTN_LONG_WARPS[head_dim] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
+    samples = ATTN_LONG_SAMPLES[w]
+    ring = stages * 2 * samples * ATTN_LONG_KEYS * w * 2
+    staging = ATTN_LONG_WARPS[w] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
         if probs else 0
     bars = -(-(2 * stages + 1) * 8 // 16) * 16
     return ATTN_LONG_SMEM - 1024 - ring - staging - bars
@@ -238,9 +273,11 @@ def _q8_long_region(head_dim: int) -> int:
     ``q8_long_region_bytes``): the CTA's shared bytes less 1 KB of
     alignment, the ring (three stages, each a 64-key block of k codes and
     of vᵀ codes of each sample and k's 64 row scales of each, rounded up
-    to 1 KB) and the barriers (two a stage and the slab's)."""
-    samples = ATTN_LONG_SAMPLES[head_dim]
-    stage = -(-(2 * samples * ATTN_LONG_KEYS * head_dim
+    to 1 KB) and the barriers (two a stage and the slab's), at the core
+    width."""
+    w = core_width(head_dim)
+    samples = ATTN_LONG_SAMPLES[w]
+    stage = -(-(2 * samples * ATTN_LONG_KEYS * w
                 + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
     bars = -(-(2 * ATTN_Q8_LONG_STAGES + 1) * 8 // 16) * 16
     return ATTN_LONG_SMEM - 1024 - ATTN_Q8_LONG_STAGES * stage - bars
@@ -262,7 +299,7 @@ def attention_long_groups(b: int, n: int, heads: int, head_dim: int,
     one CTA for each group of ``ATTN_LONG_SAMPLES`` samples, but in the
     slab form ceil(groups · (CTAs a group) / ``ATTN_LONG_SLAB_CTAS``)
     groups a CTA, the CTA of y taking groups y, y + grid y, ..."""
-    groups = -(-b // ATTN_LONG_SAMPLES[head_dim])
+    groups = -(-b // ATTN_LONG_SAMPLES[core_width(head_dim)])
     if attention_long_bias(n, head_dim, probs, int8) != "slab":
         return groups
     per = -(-groups * -(-n // ATTN_LONG_QUERIES) * heads
@@ -278,12 +315,13 @@ def q8_long_keys(n: int) -> int:
 
 def attention_q8_long_scratch(b: int, n: int, c: int, heads: int) -> int:
     """Bytes of K4a's long-route scratch (the C side's ``q8_long_scratch``)
-    for b samples of n tokens and C = heads x d: k codes (b, heads, Np, d)
-    and v codes transposed (b, heads, d, Np), int8; k's row scales (b,
-    heads, Np) and v's column scales (b, heads, d), float32; Np =
-    ``q8_long_keys(n)``."""
-    np_, d = q8_long_keys(n), c // heads
-    return b * heads * (2 * np_ * d + 4 * np_ + 4 * d)
+    for b samples of n tokens and C = heads x d, at the core width kD =
+    ``core_width(d)``: k codes (b, heads, Np, kD) and v codes transposed
+    (b, heads, kD, Np), int8; k's row scales (b, heads, Np) and v's column
+    scales (b, heads, kD), float32; Np = ``q8_long_keys(n)``. The lanes
+    past d hold code 0 (and v's scale 1)."""
+    np_, w = q8_long_keys(n), core_width(c // heads)
+    return b * heads * (2 * np_ * w + 4 * np_ + 4 * w)
 
 
 def _long_plan(b: int, n: int, heads: int, head_dim: int, warps: int,
@@ -296,7 +334,8 @@ def _long_plan(b: int, n: int, heads: int, head_dim: int, warps: int,
         raise ValueError(f"attention grid {grid} out of range")
     return dict(ints=(ATTN_LONG_ROUTE, warps, samples, smem), route="long",
                 warps=warps, samples=samples, smem=smem, grid=grid,
-                head_dim=head_dim, key_blocks=-(-n // ATTN_LONG_KEYS),
+                head_dim=head_dim, core_width=core_width(head_dim),
+                key_blocks=-(-n // ATTN_LONG_KEYS),
                 ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
@@ -304,25 +343,25 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
                    samples: int | None = None, head_dim: int = 64,
                    route: str | None = None, probs: bool = False) -> dict:
     """The attention core's launch for ``b`` samples of ``n`` tokens and
-    ``heads`` heads of width ``head_dim``: ``ints`` (key-tile bucket,
-    warps, samples, shared bytes) as the C entry points take them, the
-    ``route`` it takes, the grid (heads, samples per CTA) and the CTAs that
-    fit an SM. ``samples`` None: 4 from a batch of
+    ``heads`` heads of width ``head_dim`` (on the core instance of width
+    ``core_width(head_dim)``, the plan's ``core_width``): ``ints``
+    (key-tile bucket, warps, samples, shared bytes) as the C entry points
+    take them, the ``route`` it takes, the grid (heads, samples per CTA)
+    and the CTAs that fit an SM. ``samples`` None: 4 from a batch of
     ``ATTN_SAMPLES_FROM_BATCH`` on, else 1. Above ``MAX_TOKENS`` (or with
     ``route="long"``) the long route: ints (``ATTN_LONG_ROUTE``,
     ``ATTN_LONG_WARPS``, ``ATTN_LONG_SAMPLES``, ``ATTN_LONG_SMEM``) of the
-    width, grid (128-query blocks, sample groups, heads) and ``bias`` form
-    (both of the saved-probabilities variant with ``probs``); ``warps`` and
-    ``samples`` do not apply. Raises ``ValueError`` for a launch the
-    kernels do not take."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the attention core takes heads of width "
-                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
+    core width, grid (128-query blocks, sample groups, heads) and ``bias``
+    form (both of the saved-probabilities variant with ``probs``);
+    ``warps`` and ``samples`` do not apply. Raises ``ValueError`` for a
+    launch the kernels do not take."""
+    _refuse_head_dim(head_dim, "the attention core")
+    w = core_width(head_dim)
     if _route(n, route) == "long":
         plan = _long_plan(
-            b, n, heads, head_dim, ATTN_LONG_WARPS[head_dim],
-            ATTN_LONG_SAMPLES[head_dim], ATTN_LONG_SMEM,
-            ATTN_LONG_REGISTERS[head_dim],
+            b, n, heads, head_dim, ATTN_LONG_WARPS[w],
+            ATTN_LONG_SAMPLES[w], ATTN_LONG_SMEM,
+            ATTN_LONG_REGISTERS[w],
             (-(-n // ATTN_LONG_QUERIES),
              attention_long_groups(b, n, heads, head_dim, probs), heads),
             "the long attention route")
@@ -333,7 +372,7 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     if not 1 <= n <= MAX_TOKENS:
         raise ValueError(f"the attention core takes 1..{MAX_TOKENS} tokens, "
                          f"got {n}")
-    max_warps = ATTN_MAX_WARPS[head_dim]
+    max_warps = ATTN_MAX_WARPS[w]
     if not 1 <= warps <= max_warps or samples < 1:
         raise ValueError(f"the attention core takes 1..{max_warps} warps "
                          f"at width {head_dim} and >= 1 samples a CTA, got "
@@ -347,27 +386,29 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     return dict(ints=(bucket, warps, samples, smem), route="short",
                 key_tiles=key_tiles, bucket=bucket, warps=warps,
                 samples=samples, smem=smem, grid=grid, head_dim=head_dim,
+                core_width=w,
                 ctas_per_sm=ctas_per_sm(warps * 32, smem,
-                                        ATTN_REGISTERS[head_dim]))
+                                        ATTN_REGISTERS[w]))
 
 
 def gemm_plan(m: int, n: int, k: int) -> dict:
     """K2's GEMM launch for out (m, n) = A (m, k) · W (n, k)ᵀ: ``ints``
     (tile rows, tile columns, K slab, stages, threads, shared bytes) as
-    the C entry points take them, the grid (column tiles, row tiles) and
-    the CTAs that fit an SM. TMA reads both operands in 64-wide K slabs
-    with row strides of 2k bytes, which must be multiples of 16: raises
-    ``ValueError`` unless k % 64 == 0 and n % 8 == 0 (the epilogue's
-    column pairs and the bias's 16-byte rows)."""
-    if m < 1 or k < GEMM_BK or k % GEMM_BK or n < 8 or n % 8:
-        raise ValueError(f"the GEMM needs K % {GEMM_BK} == 0 and N % 8 == 0, "
-                         f"got M={m}, N={n}, K={k}")
+    the C entry points take them, the grid (column tiles, row tiles), the
+    K slabs a tile takes (``k_slabs``, ceil(k / 64): a K tail past the last
+    whole slab reads as zeros) and the CTAs that fit an SM. TMA reads both
+    operands in 64-wide K slabs with row strides of 2k bytes, which must be
+    multiples of 16: raises ``ValueError`` unless k % 8 == 0 and n % 8 == 0
+    (the epilogue's column pairs and the bias's 16-byte rows)."""
+    if m < 1 or k < GEMM_K_ALIGN or k % GEMM_K_ALIGN or n < 8 or n % 8:
+        raise ValueError(f"the GEMM needs K % {GEMM_K_ALIGN} == 0 and "
+                         f"N % 8 == 0, got M={m}, N={n}, K={k}")
     grid = (-(-n // GEMM_BN), -(-m // GEMM_BM))
     if grid[1] > MAX_GRID_Y:
         raise ValueError(f"GEMM grid {grid} out of range (M={m})")
     return dict(ints=(GEMM_BM, GEMM_BN, GEMM_BK, GEMM_STAGES, GEMM_THREADS,
                       GEMM_SMEM),
-                grid=grid, smem=GEMM_SMEM,
+                grid=grid, smem=GEMM_SMEM, k_slabs=-(-k // GEMM_BK),
                 ctas_per_sm=ctas_per_sm(GEMM_THREADS, GEMM_SMEM,
                                         GEMM_REGISTERS))
 
@@ -384,7 +425,7 @@ def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
 
 
 # K4's s8 GEMM (csrc/fused_block_q8.cu on csrc/wgmma_gemm.cuh): K2's plan
-# with 128-value K slabs (Q8_K_ALIGN: 128 bytes, as K2's 64 bf16).
+# with 128-value K slabs (Q8_K_SLAB: 128 bytes, as K2's 64 bf16).
 GEMM_Q8_EPILOGUES = ("bias_cast", "bias_residual", "bias_gelu",
                      "bias_gelu_codes", "acc")
 
@@ -392,23 +433,27 @@ GEMM_Q8_EPILOGUES = ("bias_cast", "bias_residual", "bias_gelu",
 def gemm_q8_plan(m: int, n: int, k: int) -> dict:
     """K4's s8 GEMM launch for out (m, n) = dq(A (m, k) · W (n, k)ᵀ):
     ``ints`` (tile rows, tile columns, K slab, stages, threads, shared
-    bytes) as the C entry points take them, the tiles and the CTAs that fit
-    an SM. TMA reads both operands in 128-byte K slabs: raises
-    ``ValueError`` unless k % 128 == 0 and n % 8 == 0."""
+    bytes) as the C entry points take them, the tiles, the K slabs a tile
+    takes (``k_slabs``, ceil(k / 128): a K tail reads as zeros) and the
+    CTAs that fit an SM. TMA reads both operands in 128-byte K slabs with
+    row strides of k bytes: raises ``ValueError`` unless k % 16 == 0 and
+    n % 8 == 0."""
     if m < 1 or k < Q8_K_ALIGN or k % Q8_K_ALIGN or n < 8 or n % 8:
         raise ValueError(f"the s8 GEMM needs K % {Q8_K_ALIGN} == 0 and "
                          f"N % 8 == 0, got M={m}, N={n}, K={k}")
-    return dict(ints=(GEMM_BM, GEMM_BN, Q8_K_ALIGN, GEMM_STAGES,
+    return dict(ints=(GEMM_BM, GEMM_BN, Q8_K_SLAB, GEMM_STAGES,
                       GEMM_THREADS, GEMM_SMEM),
-                tiles=-(-n // GEMM_BN) * -(-m // GEMM_BM), smem=GEMM_SMEM,
+                tiles=-(-n // GEMM_BN) * -(-m // GEMM_BM),
+                k_slabs=-(-k // Q8_K_SLAB), smem=GEMM_SMEM,
                 ctas_per_sm=ctas_per_sm(GEMM_THREADS, GEMM_SMEM,
                                         GEMM_REGISTERS))
 
 
-# K4a's int8 core (csrc/fused_block_q8.cu), a template of the head width
-# d: a CTA of `warps` warps (even, at most 8) per head and `samples`
-# samples, k codes in rows of d + 16 bytes and v codes transposed in shared
-# memory, register arrays sized by a bucket of the 32-key step count; at
+# K4a's int8 core (csrc/fused_block_q8.cu), a template of the core width
+# kD = core_width(d): a CTA of `warps` warps (even, at most 8) per head and
+# `samples` samples, k codes in rows of kD + 16 bytes and v codes
+# transposed in shared memory, register arrays sized by a bucket of the
+# 32-key step count; at
 # widths 32 and 64, 168 registers a thread at most (the bf16 core's launch
 # bound of 12 warps) and 85 up to two steps (a launch bound of two such
 # CTAs an SM); at width 128, 255 (a launch bound of 8 warps) and 128.
@@ -419,11 +464,12 @@ ATTN_Q8_SHORT_REGISTERS = {32: 85, 64: 85, 128: 128}
 
 def attention_q8_smem(n: int, head_dim: int = 64) -> int:
     """Shared bytes of one K4a CTA for ``n`` tokens (keys padded to 32)
-    at head width ``head_dim`` = d: k codes (np x (d + 16) B), v codes
-    transposed (d x (np + 16) B), k's row scales, v's column scales and a
-    d-lane partial abs-max for each d/8 threads of the largest CTA."""
+    at head width ``head_dim``, on its core width d = ``core_width``: k
+    codes (np x (d + 16) B), v codes transposed (d x (np + 16) B), k's row
+    scales, v's column scales and a d-lane partial abs-max for each d/8
+    threads of the largest CTA."""
     np_ = -(-n // 32) * 32
-    d = head_dim
+    d = core_width(head_dim)
     return np_ * (d + 16) + d * (np_ + 16) + np_ * 4 + d * 4 \
         + (ATTN_Q8_MAX_WARPS * 32 // (d // 8)) * d * 4
 
@@ -444,14 +490,13 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     pre-pass's grid (``prepass_grid``, a CTA a sample and head) and the
     ``scratch`` bytes both share. Raises ``ValueError`` for a launch the
     kernels do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the int8 attention core takes heads of width "
-                         f"{HEAD_DIMS}, got {head_dim} (ROADMAP.md)")
+    _refuse_head_dim(head_dim, "the int8 attention core")
+    w = core_width(head_dim)
     if _route(n, route) == "long":
         plan = _long_plan(
-            b, n, heads, head_dim, ATTN_LONG_WARPS[head_dim],
-            ATTN_LONG_SAMPLES[head_dim], ATTN_LONG_SMEM,
-            ATTN_Q8_LONG_REGISTERS[head_dim],
+            b, n, heads, head_dim, ATTN_LONG_WARPS[w],
+            ATTN_LONG_SAMPLES[w], ATTN_LONG_SMEM,
+            ATTN_Q8_LONG_REGISTERS[w],
             (-(-n // ATTN_LONG_QUERIES),
              attention_long_groups(b, n, heads, head_dim, int8=True), heads),
             "the long int8 attention route")
@@ -478,10 +523,10 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     if not 1 <= grid[1] <= MAX_GRID_Y or not 1 <= heads:
         raise ValueError(f"attention grid {grid} out of range")
     registers = (ATTN_Q8_SHORT_REGISTERS if bucket <= 2
-                 else ATTN_REGISTERS)[head_dim]
+                 else ATTN_REGISTERS)[w]
     return dict(ints=(bucket, warps, samples, smem), route="short",
                 steps=steps, bucket=bucket, warps=warps, samples=samples,
-                smem=smem, grid=grid, head_dim=head_dim,
+                smem=smem, grid=grid, head_dim=head_dim, core_width=w,
                 ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
@@ -1196,7 +1241,8 @@ def block_act_amax(x: torch.Tensor, params, heads: int,
 
 def _check_x(x, heads, align):
     """(B, N, C) of an activation the CUDA blocks take: bf16, contiguous,
-    heads of a width in ``HEAD_DIMS``, C <= ``MAX_LONG_WIDTH`` (the wide
+    heads of a width the cores take (``check_head_dim``), C <=
+    ``MAX_LONG_WIDTH`` (the wide
     LayerNorm kernels' row; one warp a row up to ``MAX_WIDTH``) and a
     multiple of ``align`` (the GEMMs' K slab), N <= ``MAX_LONG_TOKENS``
     (the long attention route above ``MAX_TOKENS``)."""
@@ -1237,10 +1283,11 @@ def _check_params(params_list, want, device, what):
 
 
 def _check_cuda(x, params_list, heads):
-    b, n, c = _check_x(x, heads, GEMM_BK)
+    b, n, c = _check_x(x, heads, GEMM_K_ALIGN)
     hidden = params_list[0][9].shape[0]
-    if hidden % 64:
-        raise ValueError(f"MLP width must be a multiple of 64, got {hidden}")
+    if hidden % GEMM_K_ALIGN:
+        raise ValueError(f"MLP width must be a multiple of {GEMM_K_ALIGN}, "
+                         f"got {hidden}")
     f32, bf = torch.float32, torch.bfloat16
     want = ((f32, (c,)), (f32, (c,)), (bf, (3 * c, c)), (bf, (3 * c,)),
             (f32, (heads, n, n)), (bf, (c, c)), (bf, (c,)),
@@ -1498,7 +1545,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``gemm_ref`` returns them. The blocks launch it from C; this entry
     serves its measurement and tests.
 
-    CPU tensors run ``gemm_ref``. CUDA tensors (bf16, K % 64 == 0, N % 8
+    CPU tensors run ``gemm_ref``. CUDA tensors (bf16, K % 8 == 0, N % 8
     == 0, 16-byte aligned) launch ``csrc/fused_block.cu`` (``dm_gemm``)
     and count the launch in ``gemm.launches``; anything else raises.
     """
@@ -1705,7 +1752,7 @@ def gemm_q8(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     (1,) tensors). The blocks launch it from C; this entry serves its
     measurement and tests.
 
-    CPU tensors run ``gemm_q8_ref``. CUDA tensors (K % 128 == 0, N % 8 ==
+    CPU tensors run ``gemm_q8_ref``. CUDA tensors (K % 16 == 0, N % 8 ==
     0, 16-byte aligned) launch ``csrc/fused_block_q8.cu`` (``dm_gemm_q8``;
     ``bias_gelu`` also runs the quantize pass of its codes) and count the
     launch in ``gemm_q8.launches``; anything else raises.
@@ -1747,8 +1794,8 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     3C) qkv and an (H, N, N) float32 bias, dynamic scales or ``static``
     (s_q, s_k, s_v) (a (3,) float32 tensor on the CUDA path).
 
-    CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``) launch
+    CPU tensors run ``attention_q8_ref``. CUDA tensors (bf16, d a width
+    ``head_dim_ok`` takes, 1 <= N <= ``MAX_LONG_TOKENS``) launch
     ``csrc/fused_block_q8.cu`` (``dm_attention_q8``) with ``plan`` (an
     ``attention_q8_plan`` of these shapes, either route; the default one if
     None) and count the launch in ``attention_q8.launches``; anything else
@@ -1806,11 +1853,13 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
     the CUDA path). The route launches it before each of its cores; this
     entry serves its measurement and tests.
 
-    CPU tensors run ``attention_q8_prepass_ref``. CUDA tensors (bf16, d in
-    ``HEAD_DIMS``, 1 <= N <= ``MAX_LONG_TOKENS``) launch
+    CPU tensors run ``attention_q8_prepass_ref``. CUDA tensors (bf16, d a
+    width ``head_dim_ok`` takes, 1 <= N <= ``MAX_LONG_TOKENS``) launch
     ``csrc/fused_block_q8.cu`` (``dm_attention_q8_prepass``, one CTA a
-    sample and head) into one scratch tensor, whose views it returns, and
-    count the launch in ``attention_q8_prepass``; anything else raises.
+    sample and head) into one scratch tensor, whose views of the d real
+    lanes it returns (the scratch is ``core_width(d)`` wide, its lanes past
+    d code 0), and count the launch in ``attention_q8_prepass``; anything
+    else raises.
     """
     if not _on_cuda(qkv):
         return attention_q8_prepass_ref(qkv, heads, static)
@@ -1828,14 +1877,16 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8_prepass")
     attention_q8_prepass.launches += 1
-    codes = b * heads * np_ * d
-    kc = scratch[:codes].view(torch.int8).view(b, heads, np_, d)
-    vt = scratch[codes:2 * codes].view(torch.int8).view(b, heads, d, np_)
+    w = core_width(d)
+    codes = b * heads * np_ * w
+    kc = scratch[:codes].view(torch.int8).view(b, heads, np_, w)[..., :d]
+    vt = scratch[codes:2 * codes].view(torch.int8).view(
+        b, heads, w, np_)[:, :, :d]
     if static is not None:
         return kc, None, None, vt
     scales = scratch[2 * codes:].view(torch.float32)
     ks = scales[:b * heads * np_].view(b, heads, np_)
-    vs = scales[b * heads * np_:].view(b, heads, d)
+    vs = scales[b * heads * np_:].view(b, heads, w)[..., :d]
     return kc, ks, vs, vt
 
 

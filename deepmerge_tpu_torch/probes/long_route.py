@@ -114,7 +114,7 @@ def check_variant(name: str) -> None:
 
     dev = torch.device("cuda", 0)
     static = torch.tensor([0.021, 0.023, 0.019], device=dev)
-    for d in fb.HEAD_DIMS:
+    for d in fb.CORE_WIDTHS:
         h = 768 // d
         for b, n in ((4, 768), (16, 300)):
             r = cs.device_randn(dev, d + n)

@@ -245,7 +245,7 @@ def test_block_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         fused_block(x, params, 2, exact_gelu=True)
     with pytest.raises(ValueError, match="heads"):
-        fused_block(x, params, 8)  # head width 16
+        fused_block(x, params, 32)  # head width 4
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block(x, params[:2] + (params[2].float(),) + params[3:], 2)
 
@@ -362,10 +362,12 @@ def test_q8_block_rejects_what_the_kernel_does_not_take(cuda):
         fused_block_q8(x, qp[:16], heads)
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block_q8(x, qp[:2] + (qp[2].float(),) + qp[3:], heads)
-    x64, (qp64,), h64 = _q8_inputs(rs, 2, 12, 1, False, cuda, c=64, heads=1,
-                                   hidden=256)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fused_block_q8(x64, qp64, h64)
+    # 5 heads of 8: a width the cores take, on a C the s8 GEMM's 16-byte
+    # rows refuse
+    x40, (qp40,), h40 = _q8_inputs(rs, 2, 12, 1, False, cuda, c=40, heads=5,
+                                   hidden=160)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_block_q8(x40, qp40, h40)
 
 
 def _attention_inputs(rs, b, n, heads, cuda, d=64):
@@ -420,7 +422,7 @@ def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         fa.attention_probs(qkv.float(), bias, 2)
     with pytest.raises(ValueError, match="heads"):
-        fa.attention_probs(qkv, bias, 8)  # head width 16
+        fa.attention_probs(qkv, bias, 32)  # head width 4
     with pytest.raises(ValueError, match="bias"):
         fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
     # past the long route's limit (257..MAX_LONG_TOKENS take the long
@@ -625,6 +627,53 @@ def test_attention_core_plans_agree(cuda, warps, samples):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n", [13, 193, 300])
+@pytest.mark.parametrize("d", [16, 48, 80, 96, 112])
+def test_padded_widths_match_plain(cuda, d, n):
+    """Heads of widths the cores run padded (on the instance of width 32,
+    64 or 128; C a multiple of 16) through the block kernel, the w8a8 block
+    with the bf16 and the int8 attention, the training block and the three
+    attention kernels, short route and long (N 300), each against its plain
+    version by the width-64 bars."""
+    rs = np.random.default_rng(d + n + 1)
+    heads, b = (6 if d == 80 else 4), 3
+    c = heads * d
+    params = _block_params(rs, n, c, heads, 4 * c, cuda)
+    x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    _assert_block_close(fused_block(x, params, heads),
+                        block_ref(x, params, heads), x, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
+    out, saved = fused_block_train(x, params, heads)
+    want_out, want = block_train_ref(x, params, heads)
+    _assert_block_close(out, want_out, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    assert float((saved[1].float() - want[1].float()).abs().max()) \
+        <= PROBS_TOL
+    qp = quantize_block_params(params)
+    for quant_attn in (False, True):
+        _assert_block_close(
+            fused_block_q8(x, qp, heads, quant_attn=quant_attn),
+            block_ref_q8(x, qp, heads, quant_attn=quant_attn), x,
+            BLOCK_TOL, BLOCK_RMS_TOL)
+    qkv, bias = _attention_inputs(rs, b, n, heads, cuda, d)
+    assert _rel_err(fa.attention_qkv(qkv, bias, heads),
+                    fa.attention_qkv_ref(qkv, bias, heads)) <= BLOCK_TOL
+    got_o, got_p = fa.attention_probs(qkv, bias, heads)
+    want_o, want_p = fa.attention_probs_ref(qkv, bias, heads)
+    assert _rel_err(got_o, want_o) <= BLOCK_TOL
+    assert float((got_p.float() - want_p.float()).abs().max()) <= PROBS_TOL
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+    assert _rel_err(fa.attention_bnhd(q, k, v, bias),
+                    fa.attention_bnhd_ref(q, k, v, bias)) <= BLOCK_TOL
+    assert _rel_err(fb.attention_q8(qkv, bias, heads),
+                    fb.attention_q8_ref(qkv, bias, heads)) <= BLOCK_TOL
+    if n > fb.MAX_TOKENS:  # the pre-pass's d real lanes, bit-exact
+        for g, w in zip(fb.attention_q8_prepass(qkv, heads),
+                        fb.attention_q8_prepass_ref(qkv, heads)):
+            assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------ K2's GEMM
 
 @pytest.mark.parametrize("epilogue", fb.GEMM_EPILOGUES)
@@ -652,10 +701,10 @@ def test_gemm_epilogues_match_plain(cuda, epilogue):
 
 
 def test_gemm_rejects_what_the_kernel_does_not_take(cuda):
-    a = torch.zeros((64, 96), dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros((128, 96), dtype=torch.bfloat16, device=cuda)
+    a = torch.zeros((64, 100), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((128, 100), dtype=torch.bfloat16, device=cuda)
     bias = torch.zeros((128,), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="K % 64"):
+    with pytest.raises(ValueError, match="K % 8"):
         fb.gemm(a, w, bias, "bias_cast")
     a = torch.zeros((64 * 128 + 1,), dtype=torch.bfloat16,
                     device=cuda)[1:].view(64, 128)  # 2 bytes off: no TMA base
@@ -666,7 +715,53 @@ def test_gemm_rejects_what_the_kernel_does_not_take(cuda):
         fb.gemm(a.clone(), w, bias, "bias_residual")
 
 
+@pytest.mark.parametrize("k", [480, 200, 40])
+def test_gemm_k_tail_matches_plain(cuda, k):
+    """K2's GEMM at a K past its last whole 64-wide slab (the tail's
+    lanes read as zeros in both operands), each epilogue against its plain
+    version."""
+    rs = np.random.default_rng(k)
+    m, n = 197, 480
+    r = lambda *shape, s=1.0: torch.from_numpy(
+        (rs.standard_normal(shape) * s).astype(np.float32)).to(
+            cuda, torch.bfloat16)
+    a, w, bias, resid = r(m, k), r(n, k, s=0.1), r(n, s=0.1), r(m, n)
+    for epilogue in fb.GEMM_EPILOGUES:
+        res = resid if epilogue == "bias_residual" else None
+        out, _ = fb.gemm(a, w, bias, epilogue, res)
+        want, _ = fb.gemm_ref(a, w, bias, epilogue, res)
+        torch.cuda.synchronize()
+        assert out.shape == (m, n) and _rel_err(out, want) <= BLOCK_TOL
+
+
 # ---------------------------------------------- K4's s8 GEMM, K4a's core
+
+@pytest.mark.parametrize("k", [480, 208, 16])
+def test_gemm_q8_k_tail_matches_plain(cuda, k):
+    """K4's s8 GEMM at a K past its last whole 128-wide slab: its s32
+    sums equal the plain ones exactly, and every epilogue but the float32
+    GELU is bit-identical."""
+    rs = np.random.default_rng(k + 1)
+    m, n = 197, 480
+    codes = lambda *shape: torch.from_numpy(
+        rs.integers(-127, 128, shape, dtype=np.int8)).to(cuda)
+    a, w = codes(m, k), codes(n, k)
+    ws = torch.from_numpy(rs.uniform(3e-4, 9e-4, n).astype(np.float32)).to(
+        cuda)
+    bias = torch.from_numpy(rs.standard_normal(n).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    rows = torch.from_numpy(rs.uniform(0.01, 0.05, m).astype(
+        np.float32)).to(cuda)
+    resid = torch.from_numpy(rs.standard_normal((m, n)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    for epilogue in ("acc", "bias_cast", "bias_residual"):
+        kw = dict(resid=resid) if epilogue == "bias_residual" else {}
+        got, _ = fb.gemm_q8(a, w, ws, bias, epilogue, row_scale=rows, **kw)
+        want, _ = fb.gemm_q8_ref(a, w, ws, bias, epilogue, row_scale=rows,
+                                 **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), epilogue
+
 
 @pytest.mark.parametrize("epilogue", fb.GEMM_Q8_EPILOGUES)
 def test_gemm_q8_epilogues_match_plain(cuda, epilogue):

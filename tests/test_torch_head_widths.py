@@ -1,8 +1,8 @@
 """Heads of width 32 and 128 through every kernel's plain version of the
 PyTorch port, against the JAX package's Pallas kernels in interpret mode
 (as its own tests run them), on the CPU, on the same numpy inputs; the
-launch plans of both attention cores at the three widths they take (32,
-64, 128), and the widths they refuse; and whole models of 4 heads of 32
+launch plans of both attention cores at their three instance widths
+(32, 64, 128), and the widths they refuse; and whole models of 4 heads of 32
 (the root ``eval.py``'s smoke model) and 2 heads of 128 against the JAX
 package's forward.
 
@@ -320,7 +320,7 @@ def test_attention_bnhd_matches_pallas(d, dtype):
 PLAN_BATCHES = (1, 240, 1024, 2048)
 
 
-@pytest.mark.parametrize("d", fb.HEAD_DIMS)
+@pytest.mark.parametrize("d", fb.CORE_WIDTHS)
 def test_attention_plans_fit_the_card(d):
     """Both cores' plans at every N of 1..256 and B up to 2048: the shared
     bytes the C side computes (``attn_smem_bytes``, ``attn_q8_layout``),
@@ -351,7 +351,7 @@ def test_attention_plans_fit_the_card(d):
             assert q8["grid"] == (6, -(-b // samples))
 
 
-@pytest.mark.parametrize("d", fb.HEAD_DIMS)
+@pytest.mark.parametrize("d", fb.CORE_WIDTHS)
 def test_block_plans_carry_the_head_width(d):
     """A block's plan holds its core's plan at the block's head width: the
     width comes from C and the heads, as the C entry points derive it."""
@@ -364,20 +364,20 @@ def test_block_plans_carry_the_head_width(d):
         assert ints[:4] == core(b, n, heads, head_dim=d)["ints"]
 
 
-@pytest.mark.parametrize("d", [16, 48, 96])
+@pytest.mark.parametrize("d", [136, 20, 4])
 def test_other_widths_raise(d):
-    """A width outside ``HEAD_DIMS`` raises ``ValueError`` naming the
-    widths taken and ROADMAP.md, from the plans and from the checks every
-    CUDA entry point runs; there is no fallback."""
+    """A width the cores do not take (above 128, or not a multiple of 8)
+    raises ``ValueError`` naming ROADMAP.md, from the plans and from the
+    checks every CUDA entry point runs; there is no fallback."""
     heads = 4
     c = heads * d
     with pytest.raises(ValueError, match="ROADMAP.md"):
         fb.check_head_dim(c, heads)
     for plan in (fb.attention_plan, fb.attention_q8_plan):
-        with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        with pytest.raises(ValueError, match="ROADMAP.md"):
             plan(1024, 192, heads, head_dim=d)
     x = torch.zeros((2, 12, c), dtype=torch.bfloat16)
-    for align in (64, 128):
+    for align in (fb.GEMM_K_ALIGN, fb.Q8_K_ALIGN):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             fb._check_x(x, heads, align)
     with pytest.raises(ValueError, match="ROADMAP.md"):
@@ -389,17 +389,17 @@ def test_other_widths_raise(d):
 
 
 def test_checks_separate_width_from_alignment():
-    """The head width and the GEMMs' K slab are separate conditions: 4
-    heads of 32 in C 128 pass both the bf16 (64) and the w8a8 (128)
-    alignment; 2 heads of 32 in C 64 pass the bf16 one and fail the w8a8
+    """The head width and the GEMMs' K rows are separate conditions: 4
+    heads of 32 in C 128 pass both the bf16 (C % 8) and the w8a8 (C % 16)
+    alignment; 5 heads of 8 in C 40 pass the bf16 one and fail the w8a8
     one on its alignment, not on its width."""
     x = torch.zeros((2, 12, 128), dtype=torch.bfloat16)
-    assert fb._check_x(x, 4, 64) == (2, 12, 128)
-    assert fb._check_x(x, 4, 128) == (2, 12, 128)
-    x64 = torch.zeros((2, 12, 64), dtype=torch.bfloat16)
-    assert fb._check_x(x64, 2, 64) == (2, 12, 64)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        fb._check_x(x64, 2, 128)
+    assert fb._check_x(x, 4, fb.GEMM_K_ALIGN) == (2, 12, 128)
+    assert fb._check_x(x, 4, fb.Q8_K_ALIGN) == (2, 12, 128)
+    x40 = torch.zeros((2, 12, 40), dtype=torch.bfloat16)
+    assert fb._check_x(x40, 5, fb.GEMM_K_ALIGN) == (2, 12, 40)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fb._check_x(x40, 5, fb.Q8_K_ALIGN)
 
 
 # ---------------------------------------------------------- whole models

@@ -72,10 +72,12 @@ def test_attention_plan_refuses(kwargs, match):
         fb.attention_plan(**kwargs)
 
 
-@pytest.mark.parametrize("m,n,k", [(256, 768, 96), (256, 12, 768),
+@pytest.mark.parametrize("m,n,k", [(256, 768, 100), (256, 12, 768),
                                    (0, 768, 768), (256, 768, 0)])
 def test_gemm_plan_refuses(m, n, k):
-    with pytest.raises(ValueError, match="K % 64"):
+    """K's rows must be a multiple of 16 bytes (K % 8 in bf16; a K tail
+    past the last 64-wide slab is taken) and N a multiple of 8."""
+    with pytest.raises(ValueError, match="K % 8"):
         fb.gemm_plan(m, n, k)
 
 
@@ -90,8 +92,8 @@ def test_gemm_wrapper_checks_refuse_what_the_kernel_does_not_take():
         fb._check_gemm(misaligned, w, bias, "bias_cast", None)
     with pytest.raises(TypeError):
         fb._check_gemm(a.float(), w, bias, "bias_cast", None)
-    with pytest.raises(ValueError, match="K % 64"):
-        fb._check_gemm(a[:, :96].contiguous(), w[:, :96].contiguous(), bias,
+    with pytest.raises(ValueError, match="K % 8"):
+        fb._check_gemm(a[:, :100].contiguous(), w[:, :100].contiguous(), bias,
                        "bias_cast", None)
     with pytest.raises(ValueError, match="residual"):
         fb._check_gemm(a, w, bias, "bias_residual", None)

@@ -92,11 +92,13 @@ def test_block_plan_q8_holds_each_gemm(n, quant_attn):
         assert got == fb.gemm_q8_plan(b * n, rows, depth)["ints"]
 
 
-@pytest.mark.parametrize("m,n,k", [(256, 768, 64), (256, 768, 192),
+@pytest.mark.parametrize("m,n,k", [(256, 768, 40), (256, 768, 200),
                                    (256, 12, 768), (0, 768, 768),
                                    (256, 768, 0)])
 def test_gemm_q8_plan_refuses(m, n, k):
-    with pytest.raises(ValueError, match="K % 128"):
+    """K's rows must be a multiple of 16 bytes (K % 16 in int8; a K tail
+    past the last 128-wide slab is taken) and N a multiple of 8."""
+    with pytest.raises(ValueError, match="K % 16"):
         fb.gemm_q8_plan(m, n, k)
 
 
@@ -150,8 +152,8 @@ def test_gemm_q8_checks_take_what_the_kernel_takes(epilogue):
      "bfloat16"),
     (dict(row_scale=torch.ones((63,), dtype=torch.float32)), TypeError,
      r"\(64,\)"),
-    (dict(a=torch.zeros((64, 96), dtype=torch.int8),
-          w=torch.zeros((256, 96), dtype=torch.int8)), ValueError, "K % 128"),
+    (dict(a=torch.zeros((64, 104), dtype=torch.int8),
+          w=torch.zeros((256, 104), dtype=torch.int8)), ValueError, "K % 16"),
     (dict(w=torch.zeros((12, 128), dtype=torch.int8),
           w_scale=torch.ones((12,)), bias=torch.zeros((12,), dtype=torch.bfloat16)),
      ValueError, "N % 8"),
