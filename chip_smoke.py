@@ -50,7 +50,10 @@ kernel against its plain PyTorch version on the card:
      core and block at 768, K5 at 768 with its gradients, the long route
      forced at N 192 (K7 within its bar, K4a bit-identical to the short
      core), the wide LayerNorm kernels alone and K2 and K4 at C 1536, each
-     launch counted on the route its N takes and on no other;
+     launch counted on the route its N takes and on no other; then heads
+     wider than 128 (``check_wide_heads``: 4 of 192 and 3 of 256 at C 768,
+     N 192, 48, 12 and 768, every core on the long route's 256-wide
+     instance, K4a's pre-pass bit-exact);
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -76,7 +79,10 @@ kernel against its plain PyTorch version on the card:
      profiled, held to the plain versions, its label disagreement with the
      w8a8 slice printed; and (5d) the v3 slice with 24 heads of 32 and
      with 6 of 128, each in w8a8 and bf16, its launches counted, timed
-     and held to the plain versions; and (5e, ``long_configs_phase``) two
+     and held to the plain versions, then S1-S5: 8 heads of 96, 16 of 48
+     and (embed 480) 6 of 80 on the padded short cores, 4 of 192 and 3 of
+     256 on the 256-wide long route at every stage, each core's launches
+     required on its route; and (5e, ``long_configs_phase``) two
      configurations past the short core and the one-warp LayerNorm, on a
      512² scene: v3 with a 16x16 token cube (N 768 on the long route, 192
      and 48 on the short one) in bf16, w8a8 and w8a8+attn, and v3 at embed
@@ -2092,6 +2098,310 @@ def width_summary(widths, name):
         width_ms={str(d): dict(n=cs[0]["n"], c=cs[0].get("c", 768),
                                ms=cs[0]["ms"], ms_64=cs[0]["ms_64"])
                   for d, cs in sorted(cases.items())})
+
+
+# Heads wider than 128, on the cores' instance of width 256, which only the
+# long route has (the short cores' O accumulators would not fit their
+# registers): at C 768, 4 heads of 192 (a quarter of the instance's lanes
+# padded) and 3 of 256, at the token counts of v3's three stages (192, 48,
+# 12) and past the short cores (768)
+WIDE_HEADS = (192, 256)
+WIDE_TOKENS = (192, 48, 12, 768)
+
+
+def check_wide_heads(dev, c=768, batch=1024):
+    """Phase 3 at the head widths of ``WIDE_HEADS``: every kernel that
+    holds an attention core at N ``WIDE_TOKENS`` (B ``batch``, the
+    serving chunk, and ``LONG_BATCH`` at 768; K5 and K6 at the training
+    batch, 16 and 32 samples at 768) against its plain version by phase
+    3's bars, each launch on the long route and none on a short core: K2,
+    K4 and K4a blocks (dynamic and static scales), K3 at N 48 x 4, K5 with
+    its gradients, K6's output and probabilities, K7 and K8, K4a's core
+    alone with its pre-pass bit-exact against its plain twin. Timed at N
+    192 and 768 (K7 at every N) beside 12 heads of 64 on the same input
+    (only the bias differs), K7 and K8 beside
+    ``scaled_dot_product_attention`` at the width. Returns (by kernel
+    name ``{width: [{n, c, ms, ms_64, max_abs_err, ...}, ...]}``, as
+    ``check_head_widths``; the long routes' ``kernels`` entries at these
+    widths by (route, d))."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    bf = torch.bfloat16
+    out, routes = {}, {}
+    long1 = {"attention_long": 1}
+    static3 = torch.tensor([0.021, 0.023, 0.019], device=dev)
+    h64 = c // 64
+
+    def record(name, d, **vals):
+        out.setdefault(name, {}).setdefault(d, []).append(vals)
+
+    def bias64(n, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((h64, n, n), generator=g, device=dev) * 0.5
+
+    def with_bias(p, bias, i=4):
+        return tuple(p[:i]) + (bias,) + tuple(p[i + 1:])
+
+    def timed(timing, run, run64):
+        return (cuda_ms(run), cuda_ms(run64)) if timing else (None, None)
+
+    def ms_text(ms, ms64):
+        return (f"; {ms:.4f} ms (12 heads of 64: {ms64:.4f})"
+                if ms is not None else "")
+
+    for d in WIDE_HEADS:
+        heads = c // d
+        tag = f"{heads} heads of {d} on the 256-wide long route"
+        for n in WIDE_TOKENS:
+            b = batch if n <= 192 else LONG_BATCH
+            timing = n in (192, 768)
+            # K2 and K4 / K4a blocks, dynamic and static scales
+            x, plist, _ = block_inputs(b, n, 1, dev, seed=d + n + 60,
+                                       heads=heads, c=c)
+            p = plist[0]
+            p64 = with_bias(p, bias64(n, 0))
+            got = routed(lambda: fb.fused_block(x, p, heads), long1,
+                         f"K2 ({tag}, N={n})")
+            want, plain_ms = cuda_once(lambda: fb.block_ref(x, p, heads))
+            aerr, errs = check_block(f"fused_block ({tag}, N={n})", got,
+                                     want, x, TOL_BLOCK, TOL_BLOCK_RMS)
+            ms, ms64 = timed(timing, lambda: fb.fused_block(x, p, heads),
+                             lambda: fb.fused_block(x, p64, h64))
+            bk = bound(*block_work(b, n, 1, c=c, heads=heads, hidden=4 * c))
+            print(f"K2 fused_block {tag} B={b} N={n}: {errs}"
+                  f"{ms_text(ms, ms64)}, plain {plain_ms:.3f} ms, bound "
+                  f"{bk['bound_ms']:.3f} ms")
+            record("fused_block", d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=aerr, plain_ms=plain_ms, **bk)
+            del got, want
+            for quant_attn in (False, True):
+                for static in (False, True):
+                    amax = (fb.block_act_amax(x, p, heads)[1] if static
+                            else None)
+                    qp = fb.quantize_block_params(p, amax)
+                    q64 = with_bias(qp, bias64(n, 1), 5)
+                    kw = dict(quant_attn=quant_attn)
+                    run = lambda: fb.fused_block_q8(x, qp, heads, **kw)
+                    kn = "K4a" if quant_attn else "K4"
+                    mode = "static" if static else "dynamic"
+                    got = routed(run, Q8_LONG1 if quant_attn else long1,
+                                 f"{kn} ({tag}, N={n}, {mode})")
+                    want, plain_ms = cuda_once(
+                        lambda: fb.block_ref_q8(x, qp, heads, **kw))
+                    name = "fused_block_q8" + ("_attn" if quant_attn else "")
+                    aerr, errs = check_block(f"{name} ({tag}, N={n}, "
+                                             f"{mode})", got, want, x,
+                                             TOL_BLOCK, TOL_BLOCK_RMS)
+                    ms, ms64 = timed(timing and not static, run,
+                                     lambda: fb.fused_block_q8(x, q64, h64,
+                                                               **kw))
+                    bq = bound(*block_work(b, n, 1, q8=True,
+                                           q8_attn=quant_attn, c=c,
+                                           heads=heads, hidden=4 * c))
+                    print(f"{kn} {name} {tag} B={b} N={n} {mode}: {errs}"
+                          f"{ms_text(ms, ms64)}, plain {plain_ms:.3f} ms, "
+                          f"bound {bq['bound_ms']:.3f} ms")
+                    if not static:
+                        record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
+                               max_abs_err=aerr, plain_ms=plain_ms, **bq)
+                    del got, want, qp, q64
+            del x, plist, p, p64
+            torch.cuda.empty_cache()
+
+            if n == 48:
+                # K3, a stage of four blocks
+                x, plist, _ = block_inputs(b, n, 4, dev, seed=d + 61,
+                                           heads=heads, c=c)
+                got = routed(lambda: fb.fused_block_chain(x, plist, heads),
+                             {"attention_long": 4}, f"K3 ({tag}, N={n})")
+                want, plain_ms = cuda_once(
+                    lambda: fb.chain_ref(x, plist, heads))
+                aerr, errs = check_block(f"fused_block_chain ({tag}, N={n})",
+                                         got, want, x, TOL_CHAIN,
+                                         TOL_CHAIN_RMS)
+                p64 = [with_bias(pp, bias64(n, i))
+                       for i, pp in enumerate(plist)]
+                ms, ms64 = timed(
+                    True, lambda: fb.fused_block_chain(x, plist, heads),
+                    lambda: fb.fused_block_chain(x, p64, h64))
+                bk = bound(*block_work(b, n, 4, c=c, heads=heads,
+                                       hidden=4 * c))
+                print(f"K3 fused_block_chain {tag} B={b} N={n} depth 4: "
+                      f"{errs}{ms_text(ms, ms64)}, plain {plain_ms:.3f} ms, "
+                      f"bound {bk['bound_ms']:.3f} ms")
+                record("fused_block_chain", d, n=n, c=c, ms=ms, ms_64=ms64,
+                       max_abs_err=aerr, plain_ms=plain_ms, **bk)
+                del x, plist, p64, got, want
+                torch.cuda.empty_cache()
+
+            # K5 at the training batch (16 samples at N 768): out, the
+            # residuals, every gradient through its autograd function
+            bt = 2 * TRAIN_PAIRS if n <= 192 else 16
+            x, plist, _ = block_inputs(bt, n, 1, dev, seed=d + n + 62,
+                                       heads=heads, c=c)
+            p = plist[0]
+            got_out, saved = routed(lambda: fb.fused_block_train(x, p, heads),
+                                    long1, f"K5 ({tag}, N={n})")
+            (want_out, want), plain_ms = cuda_once(
+                lambda: fb.block_train_ref(x, p, heads))
+            aerr, errs = check_block(f"K5 out ({tag}, N={n})", got_out,
+                                     want_out, x, TOL_BLOCK, TOL_BLOCK_RMS)
+            probs_err = abs_err(saved[1], want[1])
+            saved_err = max(rel_err(saved[i], want[i]) for i in (0, 2, 3))
+            require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
+                    f"K5 ({tag}, N={n}): probs {probs_err}, saved "
+                    f"{saved_err}")
+            del got_out, saved, want_out, want
+            g = device_randn(dev, d + n)(*x.shape).to(x.dtype)
+
+            def grads():
+                xs = x.clone().requires_grad_(True)
+                ps = [t.clone().requires_grad_(True) for t in p]
+                fb.fused_block(xs, ps, heads).backward(g)
+                return [xs.grad] + [t.grad for t in ps]
+
+            got_g = grads()
+            with mock.patch.object(fb, "fused_block_train",
+                                   fb.block_train_ref):
+                want_g = grads()
+            g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+            require(g_err <= TOL_K5_GRAD, f"K5 gradients ({tag}, N={n}): "
+                    f"{g_err}")
+            del got_g, want_g
+            p64 = with_bias(p, bias64(n, 0))
+            ms, ms64 = timed(timing,
+                             lambda: fb.fused_block_train(x, p, heads),
+                             lambda: fb.fused_block_train(x, p64, h64))
+            bk = bound(*train_block_work(bt, n, c=c, heads=heads,
+                                         hidden=4 * c))
+            print(f"K5 fused_block_train {tag} B={bt} N={n}: out {errs}; "
+                  f"probs max |err| {probs_err:.3e}, saved "
+                  f"{saved_err:.3e}, gradients {g_err:.3e} (tol "
+                  f"{TOL_K5_GRAD}){ms_text(ms, ms64)}, plain "
+                  f"{plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+            record("fused_block_train", d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=aerr, plain_ms=plain_ms, **bk)
+            del x, plist, p, p64, g
+            torch.cuda.empty_cache()
+
+            # K6 at the training batch (32 samples at N 768)
+            r = device_randn(dev, d + n + 63)
+            bt = 2 * TRAIN_PAIRS if n <= 192 else 32
+            qkv, bias = r(bt, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+            got_o, got_p = routed(lambda: fa.attention_probs(qkv, bias,
+                                                             heads),
+                                  long1, f"K6 ({tag}, N={n})")
+            (want_o, want_p), plain_ms = cuda_once(
+                lambda: fa.attention_probs_ref(qkv, bias, heads))
+            o_err, p_err = rel_err(got_o, want_o), abs_err(got_p, want_p)
+            require(o_err <= TOL_K6_OUT and p_err <= TOL_K6_PROBS,
+                    f"K6 ({tag}, N={n}): out {o_err}, probs {p_err}")
+            b64 = bias64(n, 2)
+            ms, ms64 = timed(timing,
+                             lambda: fa.attention_probs(qkv, bias, heads),
+                             lambda: fa.attention_probs(qkv, b64, h64))
+            bk = bound(qkv.numel() * 2 + bias.numel() * 4
+                       + got_o.numel() * 2 + got_p.numel() * 2,
+                       bf16_flops=4 * bt * n * n * c)
+            print(f"K6 attention_probs {tag} B={bt} N={n}: out rel err "
+                  f"{o_err:.3e}, probs max |err| {p_err:.3e}"
+                  f"{ms_text(ms, ms64)}, plain {plain_ms:.3f} ms, bound "
+                  f"{bk['bound_ms']:.4f} ms")
+            record("fused_attention_train", d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=abs_err(got_o, want_o), plain_ms=plain_ms,
+                   **bk)
+            del qkv, bias, b64, got_o, got_p, want_o, want_p
+            torch.cuda.empty_cache()
+
+            # K7 and K8 beside SDPA at the width, K4a's core alone with its
+            # pre-pass
+            r = device_randn(dev, d + n + 64)
+            qkv, bias = r(b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+            b64 = bias64(n, 3)
+            q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+            q64, k64, v64 = (t.contiguous() for t in fa.split_qkv(qkv, h64))
+            lib_ms = attention_library_ms(
+                *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
+                bias)
+            bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                       bf16_flops=4 * b * n * n * c)
+            for name, kn, run, run64, plain in (
+                    ("attention_qkv", "K7",
+                     lambda: fa.attention_qkv(qkv, bias, heads),
+                     lambda: fa.attention_qkv(qkv, b64, h64),
+                     lambda: fa.attention_qkv_ref(qkv, bias, heads)),
+                    ("attention_bnhd", "K8",
+                     lambda: fa.attention_bnhd(q, k, v, bias),
+                     lambda: fa.attention_bnhd(q64, k64, v64, b64),
+                     lambda: fa.attention_bnhd_ref(q, k, v, bias))):
+                got = routed(run, long1, f"{kn} ({tag}, N={n})")
+                want, plain_ms = cuda_once(plain)
+                err = rel_err(got, want)
+                require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from "
+                        f"plain: {err} > {TOL_K7}")
+                ms, ms64 = timed(timing or kn == "K7", run, run64)
+                print(f"{kn} {name} {tag} B={b} N={n}: rel err {err:.3e} "
+                      f"(tol {TOL_K7}){ms_text(ms, ms64)}, plain "
+                      f"{plain_ms:.3f} ms, SDPA at width {d} {lib_ms:.4f} "
+                      f"ms, bound {bk['bound_ms']:.4f} ms")
+                record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
+                       max_abs_err=abs_err(got, want), plain_ms=plain_ms,
+                       library_ms=lib_ms, **bk)
+                if kn == "K7" and timing:
+                    routes[("attention_long", d, n)] = dict(
+                        b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
+                        library_ms=lib_ms, max_abs_err=abs_err(got, want),
+                        **bk)
+                del got, want
+            qbk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                        int8_ops=4 * b * n * n * c)
+            for st in (None, static3):
+                mode = "dynamic" if st is None else "static"
+                pre = lambda: fb.attention_q8_prepass(qkv, heads, st)
+                got = routed(pre, {"attention_q8_prepass": 1},
+                             f"K4a pre-pass ({tag}, N={n}, {mode})")
+                want, pre_plain_ms = cuda_once(
+                    lambda: fb.attention_q8_prepass_ref(
+                        qkv, heads, None if st is None else tuple(st)))
+                require(all((x is None and y is None) or torch.equal(x, y)
+                            for x, y in zip(got, want)),
+                        f"K4a pre-pass ({tag}, N={n}, {mode}) differs from "
+                        "its plain twin")
+                del got, want
+                run = lambda: fb.attention_q8(qkv, bias, heads, st)
+                got = routed(run, Q8_LONG1, f"K4a core ({tag}, N={n}, "
+                             f"{mode})")
+                want, plain_ms = cuda_once(
+                    lambda: fb.attention_q8_ref(qkv, bias, heads, st))
+                err = rel_err(got, want)
+                require(err <= TOL_BLOCK, f"K4a core ({tag}, N={n}, {mode})"
+                        f": {err} > {TOL_BLOCK}")
+                ms, ms64 = timed(timing, run,
+                                 lambda: fb.attention_q8(qkv, b64, h64, st))
+                pre_ms = cuda_ms(pre) if timing else None
+                pre_text = (f" (pre-pass {pre_ms:.4f} ms)" if timing
+                            else "")
+                print(f"K4a core attention_q8 {tag} B={b} N={n} {mode}: rel "
+                      f"err {err:.3e} (tol {TOL_BLOCK}), pre-pass bit-exact"
+                      f"{ms_text(ms, ms64)}{pre_text}, plain "
+                      f"{plain_ms:.3f} ms, bound {qbk['bound_ms']:.4f} ms")
+                if timing and st is None:
+                    routes[("attention_q8_long", d, n)] = dict(
+                        b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
+                        max_abs_err=abs_err(got, want), **qbk)
+                    npad = fb.q8_long_keys(n)
+                    routes[("attention_q8_prepass", d, n)] = dict(
+                        b=b, ms=pre_ms, plain_ms=pre_plain_ms,
+                        max_abs_err=0.0,
+                        **bound(b * n * 2 * c * 2 + 2 * b * npad * c
+                                + 4 * b * heads * npad + 4 * b * c))
+                del got, want
+            del qkv, bias, b64, q, k, v, q64, k64, v64
+            torch.cuda.empty_cache()
+    return out, routes
 
 
 # ------------------------------------------------- long sequences, wide rows
@@ -5716,6 +6026,8 @@ def main() -> int:
     if only is not None and "widths" in only:
         check_head_widths(dev)
         check_padded_widths(dev)
+        clock("phase 3, wide heads")
+        check_wide_heads(dev)
     if only is not None and "long" in only:
         check_long_kernels(dev)
         clock("phase 5e")
@@ -5742,6 +6054,14 @@ def main() -> int:
         clock("phase 3, padded head widths")
         for k, per in check_padded_widths(dev).items():
             widths.setdefault(k, {}).update(per)
+        clock("phase 3, wide heads")
+        wide, wide_routes = check_wide_heads(dev)
+        for k, per in wide.items():
+            widths.setdefault(k, {}).update(per)
+        # the long routes' times at the wide heads, by width and N
+        for (k, d, n), entry in sorted(wide_routes.items()):
+            kernel_results[k].setdefault("wide_heads", {}).setdefault(
+                str(d), {})[str(n)] = entry
         kernel_results.update(check_label_lookup(dev, scene))
         k10, probe_launches = check_int4_dot(dev)
         kernel_results.update(k10)
@@ -5996,17 +6316,23 @@ def main() -> int:
     # then the slices the padded widths open, v3 at full width and depth:
     # S1 8 heads of 96 and S2 16 of 48 (C 768) in bf16, w8a8 and w8a8+attn,
     # S3 embed 480 with 6 heads of 80 (both GEMMs' K tails) in bf16 and
-    # w8a8, each with its cores' launches counted too
+    # w8a8, each with its cores' launches counted too; and those the wide
+    # heads open, every block's core on the long route (the 256-wide
+    # instance) at every stage: S4 4 heads of 192 in bf16, w8a8 and
+    # w8a8+attn, S5 3 heads of 256 in bf16 and w8a8
     clock("phase 5d")
     depth = ModelConfig().depth
     widths_5d = [(f"{768 // d} heads of {d}", dict(num_heads=768 // d),
                   (("w8a8", q8_kernels), ("", bf16_kernels)), False)
                  for d in HEAD_WIDTHS]
+    wide_launches = {}  # the long routes' launches of S4 and S5
     for tag, kw, modes in (
             ("S1, 8 heads of 96", dict(num_heads=8), 3),
             ("S2, 16 heads of 48", dict(num_heads=16), 3),
             ("S3, embed 480, 6 heads of 80", dict(embed_dim=480,
-                                                  num_heads=6), 2)):
+                                                  num_heads=6), 2),
+            ("S4, 4 heads of 192", dict(num_heads=4), 3),
+            ("S5, 3 heads of 256", dict(num_heads=3), 2)):
         widths_5d.append((tag, kw, (("", bf16_kernels), ("w8a8", q8_kernels),
                                     ("w8a8+attn", q8a_kernels))[:modes],
                           True))
@@ -6020,21 +6346,34 @@ def main() -> int:
             print(f"slice ({label}) launches: {launches}"
                   f"{f', cores {core}' if cores else ''} (first run "
                   f"{time.perf_counter() - t:.3f} s)")
-            require(core["attention_long"] == core["attention_q8_long"] == 0,
-                    f"{label}: the long attention route launched: {core}")
+            # heads wider than 128 take the long route at every N
+            head = (model_kw.get("embed_dim", 768)
+                    // model_kw.get("num_heads", 12))
+            route = "long" if head > 128 else "short"
+            if route == "short":
+                require(core["attention_long"] == core["attention_q8_long"]
+                        == 0, f"{label}: the long attention route launched: "
+                        f"{core}")
             require_launches(launches, on + tail,
                              tuple(k for k in block_kernels if k not in on)
                              + off_path, f"the {label} slice")
             require_patch_launches(launches, f"the {label} slice")
             want = {on[1]: depth[0] * n_chunks, on[2]: 2 * n_chunks}
             if cores:  # every block's core, on the route its width takes
-                key = ("attention_q8_short" if quantize.endswith("+attn")
-                       else "attention_short")
+                key = ("attention_q8_" if quantize.endswith("+attn")
+                       else "attention_") + route
                 want_core = {key: sum(depth) * n_chunks}
+                if key == "attention_q8_long":
+                    want_core["attention_q8_prepass"] = want_core[key]
                 require(all(core[k] == want_core.get(k, 0)
-                            for k in ("attention_short",
-                                      "attention_q8_short")),
+                            for k in ("attention_short", "attention_long",
+                                      "attention_q8_short",
+                                      "attention_q8_long",
+                                      "attention_q8_prepass")),
                         f"{label}: core launches {core}, want {want_core}")
+                if route == "long":
+                    for k, v in want_core.items():
+                        wide_launches[k] = wide_launches.get(k, 0) + v
             require(all(launches[k] == v for k, v in want.items()),
                     f"{label}: launches {launches}, want {want}")
             for k in on[1:]:
@@ -6056,7 +6395,11 @@ def main() -> int:
     long_cores = long_configs_phase(dev, card)
     for k in ("attention_long", "attention_q8_long", "attention_q8_prepass",
               "layer_norm_wide", "ln_quant_wide"):
-        all_launches[k] = long_cores[k]
+        all_launches[k] = long_cores[k] + wide_launches.get(k, 0)
+    # the kernels line's account of the 256-wide instance's launches on the
+    # main path (S4 and S5)
+    for k in ("attention_long", "attention_q8_long", "attention_q8_prepass"):
+        kernel_results[k]["width_256_launches"] = wide_launches.get(k, 0)
 
     try:
         # 6. the serving walk, on the scenes written during the build

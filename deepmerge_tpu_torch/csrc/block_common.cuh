@@ -107,19 +107,24 @@ __device__ __forceinline__ float group_reduce(float v, float* red) {
 
 // ------------------------------------------------------------- attention
 
-// The head widths the attention cores take: any d with 8 <= d <= 128 and
+// The head widths the attention cores take: any d with 8 <= d <= 256 and
 // d % 8 == 0 (16-byte rows of bf16; TMA's strides). A head of width d runs
 // on the core instance of width core_width(d), the template parameter kD of
 // attention_kernel and attention_long_kernel here and of fused_block_q8.cu's
-// int8 cores: 32, 64 or 128. Lanes d..kD-1 of k and v are read as zeros
-// (the int8 cores' q, k and v codes there are 0), so they carry no value
-// into any output; only the d real lanes are written. The C entry points
-// derive the width as C / H and refuse any other.
+// int8 cores: 32, 64, 128 or 256. Lanes d..kD-1 of k and v are read as
+// zeros (the int8 cores' q, k and v codes there are 0), so they carry no
+// value into any output; only the d real lanes are written. The short
+// cores have no instance of width 256 (their O accumulators, kD / 2 f32 a
+// thread, would come on top of up to 128 logits): above kShortMaxWidth
+// every N takes the long route. The C entry points derive the width as
+// C / H and refuse any other, and any plan of the wrong route.
+constexpr int kMaxHeadDim = 256;
+constexpr int kShortMaxWidth = 128;
 __host__ __device__ constexpr bool head_dim_ok(int d) {
-  return d % 8 == 0 && d >= 8 && d <= 128;
+  return d % 8 == 0 && d >= 8 && d <= kMaxHeadDim;
 }
 __host__ __device__ constexpr int core_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // K/V shared row stride (bf16) at head width d: 80, 144 or 272 bytes, each
@@ -547,15 +552,25 @@ inline cudaError_t attention_width(const bf16* q, const bf16* k,
 // is warps in flight. The design:
 //  * a CTA of kSamples x 2 warpgroups, each 64 query rows (the wgmma M) of
 //    one sample: two samples at d 32 and 64 (512 threads, 128 registers a
-//    thread), one at d 128 (its O accumulators double); the two samples
-//    read one bias tile;
-//  * a ring of kStages stages in shared memory (three; two with kProbs),
-//    each a 64-key block of K (and, in pass 2, V) of each sample by TMA from
+//    thread), one at d 128 and 256 (its O accumulators double); the two
+//    samples read one bias tile;
+//  * at d 256, pass 2 runs once for each half of the head's lanes
+//    (attn_long_parts): the same S products again (the same operands in
+//    the same wgmma order, so the same logits), O and V of 128 lanes a
+//    part, so that O stays 64 f32 a thread, the width-128 instance's
+//    budget beside Q''s 64 fragment registers; the probabilities are
+//    stored in the first part only. Splitting P·V by output lanes changes
+//    no sum (each lane's f32 sum runs over the keys in the same order).
+//    The cost is a third S product a key block;
+//  * a ring of kStages stages in shared memory (three; two with kProbs or
+//    at d 256), each a 64-key block of K (and, in pass 2, V or its part) of
+//    each sample by TMA from
 //    4-D tensor maps over (d, H, N, B) (lanes past the head's d, rows past N
 //    read as zeros) in the 128-byte swizzle (64-byte at width 32) that wgmma
-//    reads, completing on the stage's `full` mbarrier; warp 0 refills the
-//    stage of step it + 1 at step it, once every warpgroup has released it
-//    (`empty`);
+//    reads (at d 256 only K's boxes that hold lanes below d: the rest are
+//    zeroed once), completing on the stage's `full` mbarrier; warp 0
+//    refills the stage of step it + 1 at step it, once every warpgroup has
+//    released it (`empty`);
 //  * the bias in one of three forms (attn_long_bias_mode): where the CTA's
 //    128 bias rows fit the bias region, one bulk copy of them (a slab, read
 //    for every sample the CTA takes: the grid then holds fewer CTAs, each
@@ -569,9 +584,9 @@ inline cudaError_t attention_width(const bf16* q, const bf16* k,
 //  * S = Q'·Kᵀ by wgmma m64n64k16, K K-major from shared memory; the
 //    accumulators are in the short core's layout, so the bias add, the
 //    mask and the softmax are the short core's;
-//  * O += P·V by wgmma m64n{d}k16 (two n64 halves at d 128), P as register
-//    A fragments made from the accumulators, V MN-major from shared memory
-//    (transposed by the instruction);
+//  * O += P·V by wgmma m64n{d}k16 (two n64 halves at d 128 and in each
+//    part at d 256), P as register A fragments made from the accumulators,
+//    V MN-major from shared memory (transposed by the instruction);
 //  * with kProbs, each warp stages its 16 x 64 bf16 probabilities in
 //    shared memory and writes them in 16-byte pieces.
 // Shared memory: kAttnLongSmem, one CTA an SM.
@@ -590,19 +605,27 @@ constexpr int kAttnLongSlabCtas = 2048;
 constexpr int kAttnLongSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Samples a CTA takes at a time, its warps, the ring's stages
+// Samples a CTA takes at a time, its warps, pass 2's parts (the output
+// lanes split in kD / 128 parts above 128), the ring's stages (of width d,
+// the instance's)
 __host__ __device__ constexpr int attn_long_samples(int d) {
-  return d == 128 ? 1 : 2;
+  return d >= 128 ? 1 : 2;
 }
 __host__ __device__ constexpr int attn_long_warps(int d) {
   return 8 * attn_long_samples(d);
 }
-__host__ __device__ constexpr int attn_long_stages(bool probs) {
-  return probs ? 2 : 3;
+__host__ __device__ constexpr int attn_long_parts(int d) {
+  return d > kShortMaxWidth ? d / kShortMaxWidth : 1;
 }
-// Bytes of one sample's 64-key block of K (or V)
+__host__ __device__ constexpr int attn_long_stages(int d, bool probs) {
+  return probs || d > kShortMaxWidth ? 2 : 3;
+}
+// Bytes of one sample's 64-key block of K, and of V's part of it
 __host__ __device__ constexpr int attn_long_kv_bytes(int d) {
   return kAttnLongKeys * d * static_cast<int>(sizeof(bf16));
+}
+__host__ __device__ constexpr int attn_long_v_bytes(int d) {
+  return attn_long_kv_bytes(d) / attn_long_parts(d);
 }
 // A stage's bias area: the TMA tile (two 128 x 32 f32 boxes, 32 KB), or the
 // row copies' tile, 128 rows of 64 keys and the up to 3 floats before them
@@ -614,26 +637,26 @@ constexpr int kAttnLongProbsLd = kAttnLongKeys + 8;
 constexpr int kAttnLongProbsBytes = 16 * kAttnLongProbsLd * 2;
 
 // The CTA's shared memory from its 1024-aligned start: the K/V ring (stage
-// st holds K of each sample, then V of each), the bias region (the stages'
-// bias areas, or a slab), the warps' probability staging (kProbs), the
-// barriers (each stage's full and empty, then the slab's).
+// st holds K of each sample, then V (its part) of each), the bias region
+// (the stages' bias areas, or a slab), the warps' probability staging
+// (kProbs), the barriers (each stage's full and empty, then the slab's).
 __host__ __device__ constexpr int attn_long_stage_bytes(int d) {
-  return 2 * attn_long_samples(d) * attn_long_kv_bytes(d);
+  return attn_long_samples(d) * (attn_long_kv_bytes(d) + attn_long_v_bytes(d));
 }
-__host__ __device__ constexpr int attn_long_bar_bytes(bool probs) {
-  return ((2 * attn_long_stages(probs) + 1) * 8 + 15) / 16 * 16;
+__host__ __device__ constexpr int attn_long_bar_bytes(int d, bool probs) {
+  return ((2 * attn_long_stages(d, probs) + 1) * 8 + 15) / 16 * 16;
 }
 __host__ __device__ constexpr int attn_long_staging_bytes(int d, bool probs) {
   return probs ? attn_long_warps(d) * kAttnLongProbsBytes : 0;
 }
 __host__ __device__ constexpr int attn_long_region_off(int d, bool probs) {
-  return attn_long_stages(probs) * attn_long_stage_bytes(d);
+  return attn_long_stages(d, probs) * attn_long_stage_bytes(d);
 }
 // 133,056 B at d 64 (128,976 with kProbs), 182,208 at d 32 (161,744),
-// 133,056 at d 128 (147,408)
+// 133,056 at d 128 (147,408), 133,072 at d 256 (114,640)
 __host__ __device__ constexpr int attn_long_region_bytes(int d, bool probs) {
   return kAttnLongSmem - 1024 - attn_long_region_off(d, probs) -
-         attn_long_staging_bytes(d, probs) - attn_long_bar_bytes(probs);
+         attn_long_staging_bytes(d, probs) - attn_long_bar_bytes(d, probs);
 }
 
 enum AttnLongBias { kBiasSlab = 0, kBiasTiles = 1, kBiasRows = 2 };
@@ -641,7 +664,8 @@ enum AttnLongBias { kBiasSlab = 0, kBiasTiles = 1, kBiasRows = 2 };
 // The bias form of a long-route launch whose bias region holds
 // `region_bytes`: the slab where 128 rows of N floats and their first
 // piece's shift fit it, tiles where N % 4 == 0, rows otherwise. (The bf16
-// route: N <= 259 at d 64 and 128, 251 at d 64 with kProbs; K4a's, whose
+// route: N <= 259 at d 64, 128 and 256, 251 at d 64 and 223 at d 256 with
+// kProbs; K4a's, whose
 // stages are smaller, see fused_block_q8.cu.)
 __host__ __device__ inline int long_bias_mode(int N, int region_bytes) {
   if (static_cast<long long>(kAttnLongQueries) * N * 4 + 16 <= region_bytes)
@@ -864,7 +888,9 @@ inline cudaError_t attn_long_bias_map(CUtensorMap* map, const float* bias,
 // or the row form. q is read through its pointer (rows `ld` apart, as the
 // short core reads it, its lanes past d as the short core reads them: K's
 // are zero there); the output rows are C apart, of which head h's d lanes
-// d·h on are written. kD = core_width(d).
+// d·h on are written. kD = core_width(d). Steps of a sample group: pass 1
+// over the kblocks key blocks, then pass 2 over them once for each of its
+// kParts parts (part p: O's and V's lanes p·kOW on).
 template <int kD, bool kProbs, bool kNormFirst, bool kTiles>
 __global__ void __launch_bounds__(attn_long_warps(kD) * 32, 1)
 attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
@@ -875,13 +901,17 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
                       bf16* __restrict__ probs, int B, int N, int C, int d,
                       bool slab, float scale) {
   constexpr int kSamples = attn_long_samples(kD);
-  constexpr int kStages = attn_long_stages(kProbs);
+  constexpr int kStages = attn_long_stages(kD, kProbs);
+  constexpr int kParts = attn_long_parts(kD);
+  constexpr int kOW = kD / kParts;  // O's lanes of a part
   constexpr int kKV = attn_long_kv_bytes(kD);
+  constexpr int kVP = attn_long_v_bytes(kD);  // a sample's V of a part
   constexpr int kStage = attn_long_stage_bytes(kD);
   constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
   constexpr int kBox = kD < 64 ? kD : 64;  // values of a swizzled row
   constexpr int kRow = kBox * 2;
   constexpr int kBoxes = kD / kBox;        // TMA boxes of a row (2 at d 128)
+  constexpr int kBoxBytes = kKV / kBoxes;  // a box of one sample's block
   extern __shared__ unsigned char attn_long_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(attn_long_raw) + 1023) &
@@ -907,11 +937,15 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const float* bias_end = bias + static_cast<long long>(H) * N * N;
   const bool rows_form = !kTiles && !slab;
   const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
-  const int steps = 2 * kblocks;  // a sample group's: pass 1, then pass 2
+  // a sample group's: pass 1, then pass 2 (each of its parts)
+  const int steps = (1 + kParts) * kblocks;
   const int groups = (B + kSamples - 1) / kSamples;
   // the slab: the CTA's bias rows from the 16-byte piece that holds (q0, 0)
   const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
   const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+  // K's boxes that hold lanes below d (all of them at widths up to 128):
+  // those past them are never loaded and stay zero
+  const int kboxes = kParts == 1 ? kBoxes : (d + kBox - 1) / kBox;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -922,11 +956,26 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
     mbar_init(slab_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (kParts > 1) {
+    // K's boxes past kboxes of every stage and sample, zeroed once for the
+    // S products (wgmma reads them through the async proxy); V's lanes past
+    // d only reach O's lanes past d, which are never stored
+    const int zb = kKV - kboxes * kBoxBytes;  // bytes a stage and sample
+    for (int i = threadIdx.x * 16; i < kStages * kSamples * zb;
+         i += blockDim.x * 16) {
+      const int u = i / zb;
+      *reinterpret_cast<uint4*>(smem + (u / kSamples) * kStage +
+                                (u % kSamples) * kKV + kboxes * kBoxBytes +
+                                i % zb) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+  }
   __syncthreads();
 
   // Warp 0's loads for global step g (sample group blockIdx.y + (g / steps)
-  // · gridDim.y, block (g mod steps) mod kblocks, V too in pass 2) into
-  // stage g mod kStages, once the warpgroups have released its last use.
+  // · gridDim.y, block (g mod steps) mod kblocks, V (its part's lanes) too
+  // in pass 2) into stage g mod kStages, once the warpgroups have released
+  // its last use.
   auto produce = [&](int g) {
     const int grp = blockIdx.y + (g / steps) * gridDim.y;
     if (grp >= groups) return;
@@ -940,16 +989,36 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
     const int j0 = (s % kblocks) * kAttnLongKeys;
     const bool with_v = s >= kblocks;
     if (lane == 0) {
-      mbar_expect_tx(&full[st], live * kKV * (with_v ? 2 : 1) +
-                                    (kTiles ? 2 * kAttnLongQueries * 128 : 0));
-      for (int si = 0; si < live; ++si) {
+      if constexpr (kParts == 1) {
+        mbar_expect_tx(&full[st],
+                       live * kKV * (with_v ? 2 : 1) +
+                           (kTiles ? 2 * kAttnLongQueries * 128 : 0));
+        for (int si = 0; si < live; ++si) {
 #pragma unroll
-        for (int x = 0; x < kBoxes; ++x) {
-          const int off = si * kKV + x * (kKV / kBoxes);
-          tma_load_4d(kv + off, &map_k, &full[st], x * kBox, h, j0, b0 + si);
-          if (with_v)
-            tma_load_4d(kv + kSamples * kKV + off, &map_v, &full[st],
+          for (int x = 0; x < kBoxes; ++x) {
+            const int off = si * kKV + x * kBoxBytes;
+            tma_load_4d(kv + off, &map_k, &full[st], x * kBox, h, j0,
+                        b0 + si);
+            if (with_v)
+              tma_load_4d(kv + kSamples * kKV + off, &map_v, &full[st],
+                          x * kBox, h, j0, b0 + si);
+          }
+        }
+      } else {
+        // K's boxes below d; of the part's V boxes those below d
+        constexpr int kPartBoxes = kBoxes / kParts;
+        const int v0 = (s / kblocks - 1) * kPartBoxes;
+        const int vboxes = with_v ? min(kPartBoxes, kboxes - v0) : 0;
+        mbar_expect_tx(&full[st],
+                       live * (kboxes + vboxes) * kBoxBytes +
+                           (kTiles ? 2 * kAttnLongQueries * 128 : 0));
+        for (int si = 0; si < live; ++si) {
+          for (int x = 0; x < kboxes; ++x)
+            tma_load_4d(kv + si * kKV + x * kBoxBytes, &map_k, &full[st],
                         x * kBox, h, j0, b0 + si);
+          for (int x = 0; x < vboxes; ++x)
+            tma_load_4d(kv + kSamples * kKV + si * kVP + x * kBoxBytes,
+                        &map_v, &full[st], (v0 + x) * kBox, h, j0, b0 + si);
         }
       }
       if (kTiles) {
@@ -1048,7 +1117,8 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
   if (slab) mbar_wait(slab_full, 0);
 
   uint32_t qf[kD / 16][4];  // Q' of the thread's rows, A fragments
-  float o[kD / 2];  // wgmma's layout: o[4i..4i+3] columns 8i + 2·tig, + 1
+  // a part's O, wgmma's layout: o[4i..4i+3] its columns 8i + 2·tig, + 1
+  float o[kOW / 2];
   int it = 0;       // the global step
   for (int grp = blockIdx.y; grp < groups; grp += gridDim.y) {
     const int b = grp * kSamples + si;
@@ -1073,7 +1143,26 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
     float suma = 0.f, sumb = 0.f;            // this thread's part of Σe
     float inva = 0.f, invb = 0.f;
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kOW / 2; ++i) o[i] = 0.f;
+
+    // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized:
+    // part `part`'s lanes of the head, those below d
+    auto store = [&](int part) {
+      const float oa = kNormFirst ? 1.f : inva;
+      const float ob = kNormFirst ? 1.f : invb;
+#pragma unroll
+      for (int dt = 0; dt < kOW / 8; ++dt) {
+        const int lane0 = part * kOW + dt * 8;
+        const int col = head_off + lane0 + 2 * tig;
+        const bool real = live && lane0 < d;
+        if (real && ra < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
+              __floats2bfloat162_rn(o[4 * dt] * oa, o[4 * dt + 1] * oa);
+        if (real && rb < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
+              __floats2bfloat162_rn(o[4 * dt + 2] * ob, o[4 * dt + 3] * ob);
+      }
+    };
 
     for (int s = 0; s < steps; ++s, ++it) {
       if (warp == 0) {
@@ -1184,6 +1273,13 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
           inva = 1.0f / suma;
           invb = 1.0f / sumb;
         }
+        if constexpr (kParts > 1) {
+          if (s > kblocks && s % kblocks == 0) {  // the next part's first
+            store(s / kblocks - 2);
+#pragma unroll
+            for (int i = 0; i < kOW / 2; ++i) o[i] = 0.f;
+          }
+        }
         // pass 2: e against the final max
         const float la2 = mxa * kLog2e, lb2 = mxb * kLog2e;
 #pragma unroll
@@ -1193,10 +1289,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
           sc[4 * t + 2] = exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2));
           sc[4 * t + 3] = exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
         }
-        if (kProbs) {
-          // the TPU kernel's probs, (e · (1/Σe)) rounded to bf16: the
-          // warp's 16 x 64 tile staged in shared memory, then rows of
-          // 16-byte pieces
+        if (kProbs && (kParts == 1 || s < 2 * kblocks)) {
+          // the TPU kernel's probs, (e · (1/Σe)) rounded to bf16 (in the
+          // first part): the warp's 16 x 64 tile staged in shared memory,
+          // then rows of 16-byte pieces
           bf16* pw = pstage + warp * (16 * kAttnLongProbsLd);
 #pragma unroll
           for (int t = 0; t < 8; ++t) {
@@ -1239,13 +1335,14 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
           p[jt][2] = pack_bf16(sc[8 * jt + 4] * fa, sc[8 * jt + 5] * fa);
           p[jt][3] = pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb);
         }
-        const unsigned char* vt = smem + st * kStage + (kSamples + si) * kKV;
+        const unsigned char* vt =
+            smem + st * kStage + kSamples * kKV + si * kVP;
         fence_acc(o);
 #pragma unroll
         for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
         wgmma_fence();
 #pragma unroll
-        for (int jt = 0; jt < 4; ++jt) long_pv<kD>(o, p[jt], vt, jt);
+        for (int jt = 0; jt < 4; ++jt) long_pv<kOW>(o, p[jt], vt, jt);
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(o);
@@ -1254,21 +1351,7 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
       }
       mbar_arrive(&empty[st]);  // this thread is done with the stage
     }
-
-    // out = bf16(O · 1/Σe), or bf16(O) when the numerators were normalized
-    const float oa = kNormFirst ? 1.f : inva;
-    const float ob = kNormFirst ? 1.f : invb;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      const int col = head_off + dt * 8 + 2 * tig;
-      const bool real = live && dt * 8 < d;
-      if (real && ra < N)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
-            __floats2bfloat162_rn(o[4 * dt] * oa, o[4 * dt + 1] * oa);
-      if (real && rb < N)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
-            __floats2bfloat162_rn(o[4 * dt + 2] * ob, o[4 * dt + 3] * ob);
-    }
+    store(kParts - 1);
   }
 }
 
@@ -1363,13 +1446,21 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
       case 64:
         return attention_long_run<64, kProbs, kNormFirst>(
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
-      default:
+      case 128:
         return attention_long_run<128, kProbs, kNormFirst>(
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+      case 256:
+        return attention_long_run<256, kProbs, kNormFirst>(
+            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+      default:
+        return cudaErrorInvalidValue;
     }
   }
-  if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 16 < N || warps < 1 ||
-      samples < 1 || smem != attn_smem_bytes(N, w))
+  // the short core: widths up to kShortMaxWidth (wider heads take the long
+  // route at every N)
+  if (!head_dim_ok(d) || w > kShortMaxWidth || N < 1 || N > 256 ||
+      kt * 16 < N || warps < 1 || samples < 1 ||
+      smem != attn_smem_bytes(N, w))
     return cudaErrorInvalidValue;
   switch (w) {
     case 32:
@@ -1380,10 +1471,12 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
       return attention_width<64, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
           stream);
-    default:
+    case 128:
       return attention_width<128, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
           stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 

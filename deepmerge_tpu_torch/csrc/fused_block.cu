@@ -42,9 +42,10 @@
 //   per SM: those GEMMs ran at a third of the others' rate.
 // * The attention core (block_common.cuh): a CTA of four warps per head
 //   and one to four samples, K and V in shared memory, the logits, the
-//   softmax and P in mma.sync registers; above 256 tokens the long route,
-//   K and V streamed twice in 64-key blocks through a TMA ring, the
-//   products by wgmma, 128 queries of two samples a CTA.
+//   softmax and P in mma.sync registers; above 256 tokens (and at every N
+//   for heads wider than 128) the long route, K and V streamed twice in
+//   64-key blocks through a TMA ring, the products by wgmma, 128 queries of
+//   two samples a CTA.
 // The chain entry point runs `depth` blocks on one activation buffer;
 // keeping the activation on chip between blocks is later work.
 //
@@ -452,11 +453,12 @@ const char* dm_error_string(int err) {
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
-// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 128,
+// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 256,
 // C <= 8192, hidden % 8 == 0, N <= 16384 and 16-byte aligned tensors
 // (checked by the caller); `plan` is the wrapper's launch plan
 // (`block_plan`: the short attention core up to N 256, the long route
-// above), and a plan the kernels do not take is refused. Returns cudaGetLastError().
+// above and at every N for d > 128), and a plan the kernels do not take is
+// refused. Returns cudaGetLastError().
 int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
                      int hidden, const void* const* params, void* qkv,
                      void* att, void* r, void* h, const int* plan,

@@ -1121,13 +1121,13 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 //    scratch, keys padded to a multiple of 64 with code 0 and scale 1;
 //  * the core (attention_q8_long_kernel) on those codes, the bf16 long
 //    route's schedule (block_common.cuh): a CTA takes 128 queries of one
-//    head and attn_long_samples(d) samples at a time (two, one at width
-//    128; at width 64 one sample a CTA took 3.29 ms against two's 2.70 at
-//    B 128, N 768 on an H100), two warpgroups of 64 rows a sample; k codes
-//    (and in pass 2 vᵀ codes) of a 64-key block of each sample, with k's
-//    64 row scales, by TMA into a three-stage ring that warp 0 refills a
-//    step ahead; the bias as TMA tiles, a slab or row copies, as that
-//    route reads it;
+//    head and attn_long_samples(d) samples at a time (two, one at widths
+//    128 and 256; at width 64 one sample a CTA took 3.29 ms against two's
+//    2.70 at B 128, N 768 on an H100), two warpgroups of 64 rows a sample;
+//    k codes (and in pass 2 vᵀ codes) of a 64-key block of each sample,
+//    with k's 64 row scales, by TMA into a three-stage ring that warp 0
+//    refills a step ahead; the bias as TMA tiles, a slab or row copies, as
+//    that route reads it;
 //    - q's codes made in registers from the bf16 rows, as the short core
 //      makes them: they are wgmma's register A fragments (a warp's slice of
 //      m64k32 is mma.sync m16n8k32's A);
@@ -1141,7 +1141,12 @@ inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
 //      as register A fragments straight from the accumulator layout (the
 //      slot order of vᵀ maps one onto the other) and vᵀ K-major from
 //      shared memory (64-byte swizzle; q8_long_pv);
-//    - out = bf16((f32(O)·(1/Σpq))·s_v).
+//    - out = bf16((f32(O)·(1/Σpq))·s_v);
+//    - at width 256 pass 2 runs once for each half of the head's lanes
+//      (attn_long_parts, as the bf16 route): the same codes and S again,
+//      O and vᵀ of 128 lanes a part (O stays 64 s32 a thread beside q's
+//      32 fragment registers), Σpq summed in the first part; s32 sums are
+//      exact in any order.
 // Every value goes through the short core's arithmetic (code_of,
 // store_codes8, the same scales, __fmul_rn/__fadd_rn in the JAX order,
 // prob_code, exact maxima and integer sums), so the codes and the output
@@ -1395,17 +1400,21 @@ __device__ __forceinline__ void q8_long_pv(int (&o)[kD / 2],
 }
 
 // The core's shared memory from its 1024-aligned start: the ring (stage st
-// holds a 64-key block of k codes of each sample, then of vᵀ codes, then k's
-// 64 row scales of each; a stage rounded up to 1 KB), the bias region (the
-// stages' bias areas, or a slab, as the bf16 route's), the barriers (each
-// stage's full and empty, then the slab's). A stage: 9,216 B at d 32,
-// 17,408 at 64 and 128; the bias region 203,712 and 179,136 B (a slab up
-// to N 397 and 349).
+// holds a 64-key block of k codes of each sample, then of vᵀ codes (a
+// part's rows), then k's 64 row scales of each; a stage rounded up to 1
+// KB), the bias region (the stages' bias areas, or a slab, as the bf16
+// route's), the barriers (each stage's full and empty, then the slab's). A
+// stage: 9,216 B at d 32, 17,408 at 64 and 128, 25,600 at 256; the bias
+// region 203,712, 179,136 and 154,560 B (a slab up to N 397, 349 and 301).
 __host__ __device__ constexpr int q8_long_tile_bytes(int d) {
   return kAttnLongKeys * d;
 }
+__host__ __device__ constexpr int q8_long_vt_bytes(int d) {
+  return q8_long_tile_bytes(d) / attn_long_parts(d);
+}
 __host__ __device__ constexpr int q8_long_stage_bytes(int d) {
-  return (2 * attn_long_samples(d) * q8_long_tile_bytes(d) +
+  return (attn_long_samples(d) *
+              (q8_long_tile_bytes(d) + q8_long_vt_bytes(d)) +
           attn_long_samples(d) * kAttnLongKeys * 4 + 1023) /
          1024 * 1024;
 }
@@ -1421,9 +1430,9 @@ __host__ __device__ constexpr int q8_long_region_bytes(int d) {
 
 // The core (see above). map_k reads k codes as (d bytes, B·H·Np rows) in
 // boxes of 32 bytes x 64 rows; map_v vᵀ codes as (Np bytes, B·H·d rows)
-// in boxes of 64 bytes x d rows; kTiles: the bias in the tile form, map_b
-// its map (attn_long_bias_map); else `slab` picks the slab form or the
-// row form.
+// in boxes of 64 bytes x kOW rows (a part's); kTiles: the bias in the tile
+// form, map_b its map (attn_long_bias_map); else `slab` picks the slab form
+// or the row form.
 // q is read from the packed qkv (rows 3C apart; lanes past the head's
 // width d as 0), the output rows are C apart (head h's d lanes d·h on are
 // written); ks and vs are the pre-pass's scales (dynamic scales, kD wide),
@@ -1442,9 +1451,12 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
                          bool slab, float scale) {
   constexpr int kSamples = attn_long_samples(kD);
   constexpr int kStages = kQ8LongStages;
+  constexpr int kParts = attn_long_parts(kD);
+  constexpr int kOW = kD / kParts;  // O's lanes of a part
   constexpr int kTile = q8_long_tile_bytes(kD);
+  constexpr int kVT = q8_long_vt_bytes(kD);  // a part's vᵀ codes
   constexpr int kStage = q8_long_stage_bytes(kD);
-  constexpr int kScaleOff = 2 * kSamples * kTile;  // k's row scales
+  constexpr int kScaleOff = kSamples * (kTile + kVT);  // k's row scales
   constexpr int kScaleBytes = kAttnLongKeys * 4;
   constexpr int kKBox = kAttnLongKeys * 32;  // a 32-lane box of k codes
   constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
@@ -1470,7 +1482,8 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const float* bias_end = bias + static_cast<long long>(H) * N * N;
   const bool rows_form = !kTiles && !slab;
   const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
-  const int steps = 2 * kblocks;  // a sample group's: pass 1, then pass 2
+  // a sample group's: pass 1, then pass 2 (each of its parts)
+  const int steps = (1 + kParts) * kblocks;
   const int groups = (B + kSamples - 1) / kSamples;
   // the slab: the CTA's bias rows from the 16-byte piece that holds (q0, 0)
   const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
@@ -1488,8 +1501,9 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   __syncthreads();
 
   // Warp 0's loads for global step g (sample group blockIdx.y + (g / steps)
-  // · gridDim.y, block (g mod steps) mod kblocks, vᵀ too in pass 2) into
-  // stage g mod kStages, once the warpgroups have released its last use.
+  // · gridDim.y, block (g mod steps) mod kblocks, vᵀ (its part's rows) too
+  // in pass 2) into stage g mod kStages, once the warpgroups have released
+  // its last use.
   auto produce = [&](int g) {
     const int grp = blockIdx.y + (g / steps) * gridDim.y;
     if (grp >= groups) return;
@@ -1502,9 +1516,10 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
     float* bt = region + st * kArea;
     const int j0 = (s % kblocks) * kAttnLongKeys;
     const bool with_v = s >= kblocks;
+    const int part = kParts == 1 ? 0 : s / kblocks - 1;  // pass 2's
     if (lane == 0) {
       mbar_expect_tx(&full[st],
-                     live * (kTile * (with_v ? 2 : 1) +
+                     live * (kTile + (with_v ? kVT : 0) +
                              (kStatic ? 0 : kScaleBytes)) +
                          (kTiles ? 2 * kAttnLongQueries * 128 : 0));
       for (int si = 0; si < live; ++si) {
@@ -1514,8 +1529,8 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
           tma_load_2d(kv + si * kTile + x * kKBox, &map_k, &full[st], 32 * x,
                       static_cast<int>(bh * np + j0));
         if (with_v)
-          tma_load_2d(kv + (kSamples + si) * kTile, &map_v, &full[st], j0,
-                      static_cast<int>(bh * kD));
+          tma_load_2d(kv + kSamples * kTile + si * kVT, &map_v, &full[st],
+                      j0, static_cast<int>(bh * kD + part * kOW));
         if constexpr (!kStatic)
           bulk_load(kv + kScaleOff + si * kScaleBytes, ks + bh * np + j0,
                     kScaleBytes, &full[st]);
@@ -1625,7 +1640,8 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   }
 
   uint32_t qa[kD / 32][4];  // q codes of the thread's rows, A fragments
-  int o[kD / 2];  // wgmma's layout: o[4i..4i+3] columns 8i + 2·tig, + 1
+  // a part's O, wgmma's layout: o[4i..4i+3] its columns 8i + 2·tig, + 1
+  int o[kOW / 2];
   int it = 0;     // the global step
   for (int grp = blockIdx.y; grp < groups; grp += gridDim.y) {
     const int b = grp * kSamples + si;
@@ -1679,8 +1695,58 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
     }
     float mxa = -INFINITY, mxb = -INFINITY;  // the thread's, then the quad's
     int suma = 0, sumb = 0;                  // this thread's part of Σpq
+    float inva = 0.f, invb = 0.f;
 #pragma unroll
-    for (int i = 0; i < kD / 2; ++i) o[i] = 0;
+    for (int i = 0; i < kOW / 2; ++i) o[i] = 0;
+
+    // Σpq over the quad, once, and its reciprocals
+    auto sums = [&]() {
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        suma += __shfl_xor_sync(fullmask, suma, w);
+        sumb += __shfl_xor_sync(fullmask, sumb, w);
+      }
+      inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
+      invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
+    };
+    // out = bf16((O · 1/Σpq) · s_v): part `part`'s lanes of the head,
+    // those below d
+    auto store = [&](int part) {
+#pragma unroll
+      for (int dt = 0; dt < kOW / 8; ++dt) {
+        const int lane0 = part * kOW + dt * 8;
+        const int col = lane0 + 2 * tig;
+        const bool real = live && lane0 < d;
+        float v0 = s_v, v1 = s_v;
+        if constexpr (!kStatic) {
+          if (live) {
+            const float2 sv =
+                *reinterpret_cast<const float2*>(vs + bh * kD + col);
+            v0 = sv.x;
+            v1 = sv.y;
+          }
+        }
+        if (real && ra < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C +
+                                             head_off + col) =
+              __floats2bfloat162_rn(
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt]), inva),
+                            v0),
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 1]),
+                                      inva),
+                            v1));
+        if (real && rb < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C +
+                                             head_off + col) =
+              __floats2bfloat162_rn(
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 2]),
+                                      invb),
+                            v0),
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 3]),
+                                      invb),
+                            v1));
+      }
+    };
 
     for (int s = 0; s < steps; ++s, ++it) {
       if (warp == 0) {
@@ -1788,6 +1854,16 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
             mxb = fmaxf(mxb, __shfl_xor_sync(fullmask, mxb, w));
           }
         }
+        if constexpr (kParts > 1) {
+          if (s > kblocks && s % kblocks == 0) {  // the next part's first
+            if (s == 2 * kblocks) sums();
+            store(s / kblocks - 2);
+#pragma unroll
+            for (int i = 0; i < kOW / 2; ++i) o[i] = 0;
+          }
+        }
+        // Σpq in the first part only (the later parts' codes are the same)
+        const bool count = kParts == 1 || s < 2 * kblocks;
         // pass 2: pq in the A fragments of the block's two k steps (the
         // slot map) and its exact sum, then O += pq·vi
         uint32_t p[2][4];
@@ -1801,21 +1877,23 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
             ca[u][1] = prob_code(l[4 * t + 1], mxa);
             cb[u][0] = prob_code(l[4 * t + 2], mxb);
             cb[u][1] = prob_code(l[4 * t + 3], mxb);
-            suma += ca[u][0] + ca[u][1];
-            sumb += cb[u][0] + cb[u][1];
+            if (count) {
+              suma += ca[u][0] + ca[u][1];
+              sumb += cb[u][0] + cb[u][1];
+            }
           }
           p[k2][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
           p[k2][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
           p[k2][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
           p[k2][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
         }
-        const unsigned char* vt = stage + (kSamples + si) * kTile;
+        const unsigned char* vt = stage + kSamples * kTile + si * kVT;
         fence_acc(o);
         fence_acc(p[0]);
         fence_acc(p[1]);
         wgmma_fence();
-        q8_long_pv<kD>(o, p[0], vt, 0);
-        q8_long_pv<kD>(o, p[1], vt, 1);
+        q8_long_pv<kOW>(o, p[0], vt, 0);
+        q8_long_pv<kOW>(o, p[1], vt, 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_acc(o);
@@ -1824,44 +1902,8 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
       }
       mbar_arrive(&empty[st]);  // this thread is done with the stage
     }
-
-    // out = bf16((O · 1/Σpq) · s_v)
-#pragma unroll
-    for (int w = 1; w <= 2; w <<= 1) {
-      suma += __shfl_xor_sync(fullmask, suma, w);
-      sumb += __shfl_xor_sync(fullmask, sumb, w);
-    }
-    const float inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
-    const float invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      const int col = dt * 8 + 2 * tig;
-      const bool real = live && dt * 8 < d;
-      float v0 = s_v, v1 = s_v;
-      if constexpr (!kStatic) {
-        if (live) {
-          const float2 sv = *reinterpret_cast<const float2*>(vs + bh * kD +
-                                                             col);
-          v0 = sv.x;
-          v1 = sv.y;
-        }
-      }
-      if (real && ra < N)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + head_off +
-                                           col) =
-            __floats2bfloat162_rn(
-                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt]), inva), v0),
-                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 1]), inva),
-                          v1));
-      if (real && rb < N)
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + head_off +
-                                           col) =
-            __floats2bfloat162_rn(
-                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 2]), invb),
-                          v0),
-                __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 3]), invb),
-                          v1));
-    }
+    if constexpr (kParts == 1) sums();
+    store(kParts - 1);
   }
 }
 
@@ -1918,7 +1960,8 @@ inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
                  kAttnLongKeys, 32, CU_TENSOR_MAP_SWIZZLE_32B);
   if (e != cudaSuccess) return e;
   e = tensor_map(&map_v, sc.vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh * kD, np,
-                 kD, kAttnLongKeys, CU_TENSOR_MAP_SWIZZLE_64B);
+                 kD / attn_long_parts(kD), kAttnLongKeys,
+                 CU_TENSOR_MAP_SWIZZLE_64B);
   if (e != cudaSuccess) return e;
   const int mode = long_bias_mode(N, q8_long_region_bytes(kD));
   if (mode == kBiasTiles) {
@@ -1977,14 +2020,21 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
       case 64:
         return attention_q8_long_width<64>(qkv, bias, s_qkv, out, B, N, C, H,
                                            scratch, stream);
-      default:
+      case 128:
         return attention_q8_long_width<128>(qkv, bias, s_qkv, out, B, N, C,
                                             H, scratch, stream);
+      case 256:
+        return attention_q8_long_width<256>(qkv, bias, s_qkv, out, B, N, C,
+                                            H, scratch, stream);
+      default:
+        return cudaErrorInvalidValue;
     }
   }
-  if (!head_dim_ok(d) || N < 1 || N > 256 || kt * 32 < N || warps < 2 ||
-      warps % 2 || warps > kAttnQ8MaxWarps || samples < 1 ||
-      smem != attn_q8_layout(N, w).bytes)
+  // the short core: widths up to kShortMaxWidth (wider heads take the long
+  // route at every N)
+  if (!head_dim_ok(d) || w > kShortMaxWidth || N < 1 || N > 256 ||
+      kt * 32 < N || warps < 2 || warps % 2 || warps > kAttnQ8MaxWarps ||
+      samples < 1 || smem != attn_q8_layout(N, w).bytes)
     return cudaErrorInvalidValue;
   switch (w) {
     case 32:
@@ -1993,9 +2043,11 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
     case 64:
       return attention_q8_width<64>(qkv, bias, s_qkv, out, B, N, C, H, kt,
                                     warps, samples, smem, stream);
-    default:
+    case 128:
       return attention_q8_width<128>(qkv, bias, s_qkv, out, B, N, C, H, kt,
                                      warps, samples, smem, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -2013,24 +2065,20 @@ cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
     return cudaErrorInvalidValue;
   const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, core_width(d));
   switch (core_width(d)) {
-    case 32:
-      return s_qkv != nullptr
-                 ? attention_q8_prepass_run<32, true>(qkv, s_qkv, sc, B, N,
-                                                      C, H, stream)
-                 : attention_q8_prepass_run<32, false>(qkv, s_qkv, sc, B, N,
-                                                       C, H, stream);
-    case 64:
-      return s_qkv != nullptr
-                 ? attention_q8_prepass_run<64, true>(qkv, s_qkv, sc, B, N,
-                                                      C, H, stream)
-                 : attention_q8_prepass_run<64, false>(qkv, s_qkv, sc, B, N,
-                                                       C, H, stream);
+#define DM_PREPASS_CASE(W)                                                  \
+  case W:                                                                   \
+    return s_qkv != nullptr                                                 \
+               ? attention_q8_prepass_run<W, true>(qkv, s_qkv, sc, B, N, C, \
+                                                   H, stream)               \
+               : attention_q8_prepass_run<W, false>(qkv, s_qkv, sc, B, N,   \
+                                                    C, H, stream);
+    DM_PREPASS_CASE(32)
+    DM_PREPASS_CASE(64)
+    DM_PREPASS_CASE(128)
+    DM_PREPASS_CASE(256)
+#undef DM_PREPASS_CASE
     default:
-      return s_qkv != nullptr
-                 ? attention_q8_prepass_run<128, true>(qkv, s_qkv, sc, B, N,
-                                                       C, H, stream)
-                 : attention_q8_prepass_run<128, false>(qkv, s_qkv, sc, B, N,
-                                                        C, H, stream);
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -2144,7 +2192,7 @@ const char* dm_error_string(int err) {
 // quant_attn on the long route at least the route's scratch
 // (attention_q8_long_scratch's bytes); codes (B·N, max(C, hidden)) int8;
 // row_scale and row_amax (B·N) f32. Requires
-// C == H·d with d % 8 == 0 and 8 <= d <= 128, C % 16 == 0, C <= 8192,
+// C == H·d with d % 8 == 0 and 8 <= d <= 256, C % 16 == 0, C <= 8192,
 // hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors (checked by the
 // caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
@@ -2276,7 +2324,7 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // the wrapper's `attention_q8_plan` (the short core up to N 256, the long
 // route above or when the plan forces it: its pre-pass writes `scratch`,
 // attention_q8_long_scratch's bytes). Requires C == H·d with d % 8 == 0
-// and 8 <= d <= 128, and N <= 16384 (checked by the caller). Returns
+// and 8 <= d <= 256, and N <= 16384 (checked by the caller). Returns
 // cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,

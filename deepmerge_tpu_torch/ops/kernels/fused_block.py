@@ -44,10 +44,12 @@ N_PARAMS = 13
 # The attention cores' template instances: a head of width d (any multiple
 # of HEAD_DIM_STEP up to MAX_HEAD_DIM) runs on the instance of width
 # core_width(d), K's and V's lanes past d zero-filled (so they add 0) and
-# never written
-CORE_WIDTHS = (32, 64, 128)
+# never written. The short cores have the instances of SHORT_CORE_WIDTHS
+# only: a wider head takes the long route at every N
+CORE_WIDTHS = (32, 64, 128, 256)
+SHORT_CORE_WIDTHS = (32, 64, 128)
 HEAD_DIM_STEP = 8    # 16-byte rows of bf16 (TMA's strides)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_TOKENS = 256   # the short (register-resident) attention cores' longest
 MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
 MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
@@ -134,7 +136,7 @@ def head_dim_ok(d: int) -> bool:
 
 def core_width(d: int) -> int:
     """The core instance a head of width ``d`` runs on (the C side's
-    ``core_width``): 32 up to 32, 64 up to 64, else 128."""
+    ``core_width``): 32 up to 32, 64 up to 64, 128 up to 128, else 256."""
     return next((w for w in CORE_WIDTHS if d <= w), CORE_WIDTHS[-1])
 
 
@@ -197,7 +199,9 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
 # ATTN_LONG_SAMPLES samples at a time, two warpgroups a sample (64 query
 # rows each, the wgmma M); warp 0 streams K and V by TMA through a ring in
 # shared memory, in 64-key blocks, twice (the row max and Σe, then the
-# probabilities and P·V), and the f32 bias in one of three forms
+# probabilities and P·V; at width 256 pass 2 runs once for each of
+# ATTN_LONG_PARTS halves of the head's lanes, O and V of 128 lanes a part,
+# the S products recomputed), and the f32 bias in one of three forms
 # (``attention_long_bias``): the CTA's 128 bias rows once (a slab) where
 # they fit the bias region, its CTAs then taking several sample groups each
 # (``attention_long_groups``); else a 128 x 64 tile a stage by TMA where
@@ -207,37 +211,47 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
 # a bucket >= 1). Registers a thread: ptxas's most over the variants of each
 # width (nvcc 12.9, sm_90a; the launch bound of one CTA an SM allows 128 at
 # 16 warps, 255 at 8; 8-16 bytes spill in the slab/row forms at width 32
-# and with probabilities at 64).
+# and with probabilities at 64; none at 256, 234-254 over its variants).
 ROUTES = ("short", "long")
 ATTN_LONG_ROUTE = 0
 ATTN_LONG_QUERIES = 128
 ATTN_LONG_KEYS = 64
-ATTN_LONG_SAMPLES = {32: 2, 64: 2, 128: 1}
+ATTN_LONG_SAMPLES = {32: 2, 64: 2, 128: 1, 256: 1}
+ATTN_LONG_PARTS = {32: 1, 64: 1, 128: 1, 256: 2}
 ATTN_LONG_WARPS = {d: 8 * s for d, s in ATTN_LONG_SAMPLES.items()}
 ATTN_LONG_SMEM = CTA_SHARED_MAX
 ATTN_LONG_SLAB_CTAS = 2048
-ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223}
+ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254}
 # K4a's long route (csrc/fused_block_q8.cu): a pre-pass, one CTA of
 # ATTN_Q8_PREPASS_THREADS a (sample, head), quantizes k and v once into
 # scratch (``attention_q8_long_scratch``); then attention_q8_long_kernel
 # runs the bf16 route's CTA (128 queries, two warpgroups a sample, all of a
-# CTA's shared memory) on s8 wgmma, two samples a CTA (one at width 128),
-# with a ring of three stages of 64-key blocks of k and vᵀ codes and k's
-# scales. Registers a thread: ptxas's most over the variants of each width
-# (nvcc 12.9, sm_90a; 12 bytes spill at width 64 with dynamic scales and
-# bias rows or a slab).
+# CTA's shared memory) on s8 wgmma, two samples a CTA (one at widths 128
+# and 256; pass 2 in its parts at 256), with a ring of three stages of
+# 64-key blocks of k and vᵀ codes (a part's rows) and k's scales. Registers
+# a thread: ptxas's most over the variants of each width (nvcc 12.9,
+# sm_90a; 12 bytes spill at width 64 with dynamic scales and bias rows or
+# a slab; none at 256, 238-254 over its variants).
 ATTN_Q8_PREPASS_THREADS = 256
 ATTN_Q8_LONG_STAGES = 3
-ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226}
+ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226, 256: 254}
 
 
-def _route(n: int, route: str | None) -> str:
-    """The attention route of ``n`` tokens: the short core up to
-    ``MAX_TOKENS``, the long route above; ``route`` forces one."""
+def _route(n: int, route: str | None, head_dim: int) -> str:
+    """The attention route of ``n`` tokens at head width ``head_dim``:
+    the short core up to ``MAX_TOKENS``, the long route above, and at
+    every N for a head wider than the short cores' widest instance;
+    ``route`` forces one (the short route only where a short core has the
+    width)."""
+    short_ok = core_width(head_dim) in SHORT_CORE_WIDTHS
     if route is None:
-        return "short" if n <= MAX_TOKENS else "long"
+        return "short" if n <= MAX_TOKENS and short_ok else "long"
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route == "short" and not short_ok:
+        raise ValueError(f"the short attention cores take heads up to "
+                         f"{SHORT_CORE_WIDTHS[-1]} wide, got {head_dim}: "
+                         "wider heads take the long route")
     return route
 
 
@@ -255,13 +269,14 @@ def _long_bias_region(head_dim: int, probs: bool) -> int:
     """Bytes of the bf16 long route's bias region (the C side's
     ``attn_long_region_bytes`` at the core width): the CTA's shared bytes
     less 1 KB of alignment, the K/V ring (three stages, two with
-    probabilities, each a 64-key block of K and of V of each sample), the
-    probabilities' staging (16 x 72 bf16 a warp) and the barriers (two a
-    stage and the slab's)."""
+    probabilities or at width 256, each a 64-key block of K and of V's part
+    of each sample), the probabilities' staging (16 x 72 bf16 a warp) and
+    the barriers (two a stage and the slab's)."""
     w = core_width(head_dim)
-    stages = 2 if probs else 3
+    stages = 2 if probs or w > SHORT_CORE_WIDTHS[-1] else 3
     samples = ATTN_LONG_SAMPLES[w]
-    ring = stages * 2 * samples * ATTN_LONG_KEYS * w * 2
+    block = ATTN_LONG_KEYS * w * 2
+    ring = stages * samples * (block + block // ATTN_LONG_PARTS[w])
     staging = ATTN_LONG_WARPS[w] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
         if probs else 0
     bars = -(-(2 * stages + 1) * 8 // 16) * 16
@@ -272,12 +287,13 @@ def _q8_long_region(head_dim: int) -> int:
     """Bytes of K4a's long-route bias region (the C side's
     ``q8_long_region_bytes``): the CTA's shared bytes less 1 KB of
     alignment, the ring (three stages, each a 64-key block of k codes and
-    of vᵀ codes of each sample and k's 64 row scales of each, rounded up
-    to 1 KB) and the barriers (two a stage and the slab's), at the core
-    width."""
+    of vᵀ codes (a part's rows) of each sample and k's 64 row scales of
+    each, rounded up to 1 KB) and the barriers (two a stage and the
+    slab's), at the core width."""
     w = core_width(head_dim)
     samples = ATTN_LONG_SAMPLES[w]
-    stage = -(-(2 * samples * ATTN_LONG_KEYS * w
+    tile = ATTN_LONG_KEYS * w
+    stage = -(-(samples * (tile + tile // ATTN_LONG_PARTS[w])
                 + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
     bars = -(-(2 * ATTN_Q8_LONG_STAGES + 1) * 8 // 16) * 16
     return ATTN_LONG_SMEM - 1024 - ATTN_Q8_LONG_STAGES * stage - bars
@@ -353,11 +369,12 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     ``ATTN_LONG_WARPS``, ``ATTN_LONG_SAMPLES``, ``ATTN_LONG_SMEM``) of the
     core width, grid (128-query blocks, sample groups, heads) and ``bias``
     form (both of the saved-probabilities variant with ``probs``);
-    ``warps`` and ``samples`` do not apply. Raises ``ValueError`` for a
-    launch the kernels do not take."""
+    ``warps`` and ``samples`` do not apply. A head wider than 128 takes
+    the long route at every N. Raises ``ValueError`` for a launch the
+    kernels do not take."""
     _refuse_head_dim(head_dim, "the attention core")
     w = core_width(head_dim)
-    if _route(n, route) == "long":
+    if _route(n, route, head_dim) == "long":
         plan = _long_plan(
             b, n, heads, head_dim, ATTN_LONG_WARPS[w],
             ATTN_LONG_SAMPLES[w], ATTN_LONG_SMEM,
@@ -488,11 +505,12 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     ``ATTN_LONG_SAMPLES``, ``ATTN_LONG_SMEM``) of the width, grid
     (128-query blocks, sample groups, heads), ``bias`` form, the
     pre-pass's grid (``prepass_grid``, a CTA a sample and head) and the
-    ``scratch`` bytes both share. Raises ``ValueError`` for a launch the
-    kernels do not take (even warps, at most ``ATTN_Q8_MAX_WARPS``)."""
+    ``scratch`` bytes both share; a head wider than 128 takes it at every
+    N. Raises ``ValueError`` for a launch the kernels do not take (even
+    warps, at most ``ATTN_Q8_MAX_WARPS``)."""
     _refuse_head_dim(head_dim, "the int8 attention core")
     w = core_width(head_dim)
-    if _route(n, route) == "long":
+    if _route(n, route, head_dim) == "long":
         plan = _long_plan(
             b, n, heads, head_dim, ATTN_LONG_WARPS[w],
             ATTN_LONG_SAMPLES[w], ATTN_LONG_SMEM,

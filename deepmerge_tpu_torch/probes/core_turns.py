@@ -1,6 +1,6 @@
 """The attention cores and the blocks at head width 64 (12 heads, C 768),
-in one or two checkouts: what a change to the cores costs the widths that
-run unpadded.
+and the cores at widths 32 and 128 (24 and 6 heads), in one or two
+checkouts: what a change to the cores costs the widths that run unpadded.
 
 ``python -m deepmerge_tpu_torch.probes.core_turns [CHECKOUT [CHECKOUT]]``
 builds ``csrc/fused_block.cu``, ``fused_block_q8.cu`` and
@@ -10,8 +10,10 @@ order first, second, second, first, first, second), prints the mean time
 over 20 calls (10 for the long routes and the blocks; CUDA events) of K7
 at B 1024 and N 192, 193 and 48, K8, K4a's core (dynamic and static
 scales) and K6 (B 240) at N 192, K7 and K4a's long routes at B 128 and N
-768, and the K2, K4 and K4a blocks at B 1024 and N 192. The inputs come
-from seeds on the card (the blocks' from ``chip_smoke.block_inputs``).
+768, and the K2, K4 and K4a blocks at B 1024 and N 192; then, at widths
+32 and 128, K7 and K4a's core (dynamic scales) at B 1024 and N 192 and
+their long routes at B 128 and N 768. The inputs come from seeds on the
+card (the blocks' from ``chip_smoke.block_inputs``).
 
 Run from the repository root on a machine with the card and ``nvcc``.
 """
@@ -49,10 +51,10 @@ def _measure() -> None:
     bf = torch.bfloat16
     out = []
 
-    def inputs(b, n, seed):
+    def inputs(b, n, seed, heads=HEADS):
         g = torch.Generator(device=dev).manual_seed(seed)
         qkv = torch.randn((b, n, 3 * C), generator=g, device=dev).to(bf)
-        bias = torch.randn((HEADS, n, n), generator=g, device=dev) * 0.5
+        bias = torch.randn((heads, n, n), generator=g, device=dev) * 0.5
         return qkv, bias
 
     def timed(what, fn, reps=20):
@@ -81,6 +83,16 @@ def _measure() -> None:
     timed("K4 N192", lambda: fb.fused_block_q8(x, qp, HEADS), 10)
     timed("K4a blk N192",
           lambda: fb.fused_block_q8(x, qp, HEADS, quant_attn=True), 10)
+    del x, plist, qp
+    for d in (32, 128):
+        h = C // d
+        for b, n, reps, tag in ((1024, 192, 20, ""), (128, 768, 10, "long ")):
+            qkv, bias = inputs(b, n, n + d, h)
+            timed(f"d{d} K7 {tag}N{n}",
+                  lambda: fa.attention_qkv(qkv, bias, h), reps)
+            timed(f"d{d} K4a {tag}N{n}",
+                  lambda: fb.attention_q8(qkv, bias, h), reps)
+            del qkv, bias
     print(f"[{os.path.basename(os.getcwd())}] " + "; ".join(out), flush=True)
 
 

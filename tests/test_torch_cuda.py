@@ -40,7 +40,8 @@ int8 codes and row scales are bit-identical to those of its own output;
 K4a's core alone as K4a in the block, and bit-identical across its plans.
 The label-map lookup (K9) and the int4 dot probe's variants (K10) are
 integer functions: bit-exact. Heads of width 32 and 128 go through every
-kernel that holds an attention core, by the same bars.
+kernel that holds an attention core, by the same bars, and so do heads
+wider than 128 (136, 192, 256: the long route at every N).
 """
 
 import numpy as np
@@ -672,6 +673,65 @@ def test_padded_widths_match_plain(cuda, d, n):
                         fb.attention_q8_prepass_ref(qkv, heads)):
             assert torch.equal(g, w)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [12, 48, 192, 300])
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_wide_heads_match_plain(cuda, d, n):
+    """Heads wider than 128 (on the instance of width 256, the long route
+    at every N) through the block kernel, the w8a8 block with the bf16 and
+    the int8 attention, the training block and the three attention
+    kernels, each against its plain version by the width-64 bars, each
+    launch on the long route; the pre-pass's d real lanes bit-exact."""
+    rs = np.random.default_rng(d + n + 2)
+    heads, b = (3 if d == 256 else 4), 3  # C % 16 == 0 (w8a8)
+    c = heads * d
+    params = _block_params(rs, n, c, heads, 4 * c, cuda)
+    x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    before = (fb.attention_short.launches, fb.attention_q8_short.launches,
+              fb.attention_long.launches, fb.attention_q8_long.launches)
+    _assert_block_close(fused_block(x, params, heads),
+                        block_ref(x, params, heads), x, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
+    out, saved = fused_block_train(x, params, heads)
+    want_out, want = block_train_ref(x, params, heads)
+    _assert_block_close(out, want_out, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    assert float((saved[1].float() - want[1].float()).abs().max()) \
+        <= PROBS_TOL
+    qp = quantize_block_params(params)
+    for quant_attn in (False, True):
+        _assert_block_close(
+            fused_block_q8(x, qp, heads, quant_attn=quant_attn),
+            block_ref_q8(x, qp, heads, quant_attn=quant_attn), x,
+            BLOCK_TOL, BLOCK_RMS_TOL)
+    qkv, bias = _attention_inputs(rs, b, n, heads, cuda, d)
+    assert _rel_err(fa.attention_qkv(qkv, bias, heads),
+                    fa.attention_qkv_ref(qkv, bias, heads)) <= BLOCK_TOL
+    got_o, got_p = fa.attention_probs(qkv, bias, heads)
+    want_o, want_p = fa.attention_probs_ref(qkv, bias, heads)
+    assert _rel_err(got_o, want_o) <= BLOCK_TOL
+    assert float((got_p.float() - want_p.float()).abs().max()) <= PROBS_TOL
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+    assert _rel_err(fa.attention_bnhd(q, k, v, bias),
+                    fa.attention_bnhd_ref(q, k, v, bias)) <= BLOCK_TOL
+    for st in (None, torch.tensor([0.021, 0.023, 0.019], device=cuda)):
+        assert _rel_err(fb.attention_q8(qkv, bias, heads, st),
+                        fb.attention_q8_ref(qkv, bias, heads, st)) \
+            <= BLOCK_TOL
+        ref = fb.attention_q8_prepass_ref(
+            qkv, heads, None if st is None else tuple(st))
+        for g, w in zip(fb.attention_q8_prepass(qkv, heads, st), ref):
+            assert (g is None and w is None) or torch.equal(g, w)
+    torch.cuda.synchronize()
+    after = (fb.attention_short.launches, fb.attention_q8_short.launches,
+             fb.attention_long.launches, fb.attention_q8_long.launches)
+    # K2, K5, K4 (bf16 core), K7, K6, K8 on the bf16 long route; K4a's
+    # block and its core twice on the int8 one; no short core
+    assert [a - b for a, b in zip(after, before)] == [0, 0, 6, 3]
+    with pytest.raises(ValueError, match="long route"):
+        fa.attention_qkv(qkv, bias, heads, plan=fb.attention_plan(
+            b, n, heads, head_dim=d, route="short"))
 
 
 # ------------------------------------------------------------ K2's GEMM

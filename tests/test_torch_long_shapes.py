@@ -428,7 +428,7 @@ def _q8_long_grid(b, n, heads, d):
     return (qblocks, groups, heads)
 
 
-@pytest.mark.parametrize("d", fb.CORE_WIDTHS)
+@pytest.mark.parametrize("d", fb.SHORT_CORE_WIDTHS)
 def test_q8_long_layout_fits_the_card(d):
     """K4a's long route at each width: a stage of 9,216 (d 32) or 17,408
     bytes, a bias region that holds the tile and row forms' three stage
@@ -452,7 +452,7 @@ def test_q8_long_layout_fits_the_card(d):
     assert kparts * d * 4 + d * 4 + d * 64 <= 48 * 1024
 
 
-@pytest.mark.parametrize("d", fb.CORE_WIDTHS)
+@pytest.mark.parametrize("d", fb.SHORT_CORE_WIDTHS)
 def test_long_route_plans(d):
     """Above ``MAX_TOKENS`` both cores take the long route. The bf16 core:
     its marker, 16 warps and two samples a CTA (8 and one at width 128),

@@ -93,3 +93,29 @@ def test_rel_pos_index_matches_jax(cube):
     ours = rel_pos_index(cube)
     assert ours.dtype == np.int32
     np.testing.assert_array_equal(ours, jax_rel_pos_index(cube))
+
+
+@pytest.mark.parametrize("heads", [3, 4])
+def test_wide_heads_load_strict(heads):
+    """Flax parameters at the flagship's embed 768 with 3 or 4 heads (of
+    256 and 192, wider than 128) cross to the port as the JAX exporter
+    maps them and load strictly; each block's bias table keeps one column
+    a head, equal to flax's ``rel_pos_bias_table``."""
+    kw = dict(TINY_V3, embed_dim=768, depth=(1, 1, 1), num_heads=heads)
+    mcfg, jcfg = ModelConfig(**kw), JaxModelConfig(**kw)
+    params = jax.tree.map(np.asarray, init_params(
+        build_model(jcfg), jax.random.key(1))["params"])
+    ours = state_dict_from_flax(params, mcfg)
+    want = flax_to_torch_state_dict({"params": params}, jcfg)
+    assert sorted(ours) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
+    S2Former(mcfg).load_state_dict(ours, strict=True)
+    tables = [k for k in ours if k.endswith("relative_position_bias_table")]
+    assert len(tables) == 3
+    for k in tables:
+        stage, block = k.split(".")[:2]  # blocksS.J -> flax's blocksS_J
+        flax = params[f"{stage}_{block}"]["attn"]["rel_pos_bias_table"]
+        assert tuple(ours[k].shape) == flax.shape and flax.shape[1] == heads
+        for h in range(heads):
+            np.testing.assert_array_equal(ours[k][:, h].numpy(), flax[:, h])
