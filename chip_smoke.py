@@ -53,7 +53,9 @@ kernel against its plain PyTorch version on the card:
      launch counted on the route its N takes and on no other; then heads
      wider than 128 (``check_wide_heads``: 4 of 192 and 3 of 256 at C 768,
      N 192, 48, 12 and 768, every core on the long route's 256-wide
-     instance, K4a's pre-pass bit-exact);
+     instance, then 2 of 384 and 1 of 768 the same way on its wide form,
+     and K7, K8 and K4a's core at one head of 1536 (C 1536), K4a's
+     pre-pass bit-exact);
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -81,8 +83,11 @@ kernel against its plain PyTorch version on the card:
      with 6 of 128, each in w8a8 and bf16, its launches counted, timed
      and held to the plain versions, then S1-S5: 8 heads of 96, 16 of 48
      and (embed 480) 6 of 80 on the padded short cores, 4 of 192 and 3 of
-     256 on the 256-wide long route at every stage, each core's launches
-     required on its route; and (5e, ``long_configs_phase``) two
+     256 on the 256-wide long route at every stage (these and the 32/128
+     slices at two blocks a stage), then at v3's full depth S6 and S7: 2
+     heads of 384 (bf16, w8a8, w8a8+attn) and 1 of 768 (bf16, w8a8) on
+     the long route's wide form, each core's launches required on its
+     route; and (5e, ``long_configs_phase``) two
      configurations past the short core and the one-warp LayerNorm, on a
      512² scene: v3 with a 16x16 token cube (N 768 on the long route, 192
      and 48 on the short one) in bf16, w8a8 and w8a8+attn, and v3 at embed
@@ -2103,10 +2108,14 @@ def width_summary(widths, name):
 # Heads wider than 128, on the cores' instance of width 256, which only the
 # long route has (the short cores' O accumulators would not fit their
 # registers): at C 768, 4 heads of 192 (a quarter of the instance's lanes
-# padded) and 3 of 256, at the token counts of v3's three stages (192, 48,
-# 12) and past the short cores (768)
-WIDE_HEADS = (192, 256)
+# padded) and 3 of 256; wider than 256, on the long route's wide form (d in
+# 128-lane chunks): 2 heads of 384 and 1 of 768; at the token counts of
+# v3's three stages (192, 48, 12) and past the short cores (768). The wide
+# form also at d 1536 (one head at C 1536, v3-wide's embed): K7 and K4a's
+# core at N 192 and 768
+WIDE_HEADS = (192, 256, 384, 768)
 WIDE_TOKENS = (192, 48, 12, 768)
+WIDEST_HEAD = 1536
 
 
 def check_wide_heads(dev, c=768, batch=1024):
@@ -2118,9 +2127,11 @@ def check_wide_heads(dev, c=768, batch=1024):
     K4 and K4a blocks (dynamic and static scales), K3 at N 48 x 4, K5 with
     its gradients, K6's output and probabilities, K7 and K8, K4a's core
     alone with its pre-pass bit-exact against its plain twin. Timed at N
-    192 and 768 (K7 at every N) beside 12 heads of 64 on the same input
+    192 and 768 (K7 at every N) beside heads of 64 on the same input
     (only the bias differs), K7 and K8 beside
-    ``scaled_dot_product_attention`` at the width. Returns (by kernel
+    ``scaled_dot_product_attention`` at the width. Then K7 and K4a's core
+    (with its pre-pass) at ``WIDEST_HEAD`` (one head, C 1536) at N 192 and
+    768 the same way. Returns (by kernel
     name ``{width: [{n, c, ms, ms_64, max_abs_err, ...}, ...]}``, as
     ``check_head_widths``; the long routes' ``kernels`` entries at these
     widths by (route, d))."""
@@ -2138,9 +2149,9 @@ def check_wide_heads(dev, c=768, batch=1024):
     def record(name, d, **vals):
         out.setdefault(name, {}).setdefault(d, []).append(vals)
 
-    def bias64(n, seed):
+    def bias64(n, seed, heads=h64):
         g = torch.Generator(device=dev).manual_seed(seed)
-        return torch.randn((h64, n, n), generator=g, device=dev) * 0.5
+        return torch.randn((heads, n, n), generator=g, device=dev) * 0.5
 
     def with_bias(p, bias, i=4):
         return tuple(p[:i]) + (bias,) + tuple(p[i + 1:])
@@ -2148,13 +2159,109 @@ def check_wide_heads(dev, c=768, batch=1024):
     def timed(timing, run, run64):
         return (cuda_ms(run), cuda_ms(run64)) if timing else (None, None)
 
-    def ms_text(ms, ms64):
-        return (f"; {ms:.4f} ms (12 heads of 64: {ms64:.4f})"
+    def ms_text(ms, ms64, c=c):
+        return (f"; {ms:.4f} ms ({c // 64} heads of 64: {ms64:.4f})"
                 if ms is not None else "")
+
+    def form(d):
+        return ("256-wide long route" if fb.core_width(d) == 256
+                else "long route's wide form")
+
+    def attention_cases(d, c, heads, n, b, timing, tag):
+        # K7 and K8 beside SDPA at the width, K4a's core alone with its
+        # pre-pass
+        h64 = c // 64
+        r = device_randn(dev, d + n + 64)
+        qkv, bias = r(b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+        b64 = bias64(n, 3, h64)
+        q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+        q64, k64, v64 = (t.contiguous() for t in fa.split_qkv(qkv, h64))
+        lib_ms = attention_library_ms(
+            *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
+            bias)
+        bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                   bf16_flops=4 * b * n * n * c)
+        for name, kn, run, run64, plain in (
+                ("attention_qkv", "K7",
+                 lambda: fa.attention_qkv(qkv, bias, heads),
+                 lambda: fa.attention_qkv(qkv, b64, h64),
+                 lambda: fa.attention_qkv_ref(qkv, bias, heads)),
+                ("attention_bnhd", "K8",
+                 lambda: fa.attention_bnhd(q, k, v, bias),
+                 lambda: fa.attention_bnhd(q64, k64, v64, b64),
+                 lambda: fa.attention_bnhd_ref(q, k, v, bias))):
+            got = routed(run, long1, f"{kn} ({tag}, N={n})")
+            want, plain_ms = cuda_once(plain)
+            err = rel_err(got, want)
+            require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from "
+                    f"plain: {err} > {TOL_K7}")
+            ms, ms64 = timed(timing or kn == "K7", run, run64)
+            print(f"{kn} {name} {tag} B={b} N={n}: rel err {err:.3e} "
+                  f"(tol {TOL_K7}){ms_text(ms, ms64, c)}, plain "
+                  f"{plain_ms:.3f} ms, SDPA at width {d} {lib_ms:.4f} "
+                  f"ms, bound {bk['bound_ms']:.4f} ms")
+            record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
+                   max_abs_err=abs_err(got, want), plain_ms=plain_ms,
+                   library_ms=lib_ms, **bk)
+            if kn == "K7" and timing:
+                routes[("attention_long", d, n)] = dict(
+                    b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
+                    library_ms=lib_ms, max_abs_err=abs_err(got, want),
+                    **bk)
+            del got, want
+        qbk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                    int8_ops=4 * b * n * n * c)
+        for st in (None, static3):
+            mode = "dynamic" if st is None else "static"
+            pre = lambda: fb.attention_q8_prepass(qkv, heads, st)
+            got = routed(pre, {"attention_q8_prepass": 1},
+                         f"K4a pre-pass ({tag}, N={n}, {mode})")
+            want, pre_plain_ms = cuda_once(
+                lambda: fb.attention_q8_prepass_ref(
+                    qkv, heads, None if st is None else tuple(st)))
+            require(all((x is None and y is None) or torch.equal(x, y)
+                        for x, y in zip(got, want)),
+                    f"K4a pre-pass ({tag}, N={n}, {mode}) differs from "
+                    "its plain twin")
+            del got, want
+            run = lambda: fb.attention_q8(qkv, bias, heads, st)
+            got = routed(run, Q8_LONG1, f"K4a core ({tag}, N={n}, "
+                         f"{mode})")
+            want, plain_ms = cuda_once(
+                lambda: fb.attention_q8_ref(qkv, bias, heads, st))
+            err = rel_err(got, want)
+            require(err <= TOL_BLOCK, f"K4a core ({tag}, N={n}, {mode})"
+                    f": {err} > {TOL_BLOCK}")
+            ms, ms64 = timed(timing, run,
+                             lambda: fb.attention_q8(qkv, b64, h64, st))
+            pre_ms = cuda_ms(pre) if timing else None
+            pre_text = (f" (pre-pass {pre_ms:.4f} ms)" if timing
+                        else "")
+            print(f"K4a core attention_q8 {tag} B={b} N={n} {mode}: rel "
+                  f"err {err:.3e} (tol {TOL_BLOCK}), pre-pass bit-exact"
+                  f"{ms_text(ms, ms64, c)}{pre_text}, plain "
+                  f"{plain_ms:.3f} ms, bound {qbk['bound_ms']:.4f} ms")
+            if timing and st is None:
+                routes[("attention_q8_long", d, n)] = dict(
+                    b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
+                    max_abs_err=abs_err(got, want), **qbk)
+                # k and v in, their codes and scales out; on the wide
+                # form q's too
+                npad = fb.q8_long_keys(n)
+                ops = 3 if fb.core_width(d) == fb.WIDE_CORE else 2
+                routes[("attention_q8_prepass", d, n)] = dict(
+                    b=b, ms=pre_ms, plain_ms=pre_plain_ms,
+                    max_abs_err=0.0,
+                    **bound(b * n * ops * c * 2 + ops * b * npad * c
+                            + 4 * b * heads * npad * (ops - 1)
+                            + 4 * b * c))
+            del got, want
+        del qkv, bias, b64, q, k, v, q64, k64, v64
+        torch.cuda.empty_cache()
 
     for d in WIDE_HEADS:
         heads = c // d
-        tag = f"{heads} heads of {d} on the 256-wide long route"
+        tag = f"{heads} heads of {d} on the {form(d)}"
         for n in WIDE_TOKENS:
             b = batch if n <= 192 else LONG_BATCH
             timing = n in (192, 768)
@@ -2316,91 +2423,13 @@ def check_wide_heads(dev, c=768, batch=1024):
             del qkv, bias, b64, got_o, got_p, want_o, want_p
             torch.cuda.empty_cache()
 
-            # K7 and K8 beside SDPA at the width, K4a's core alone with its
-            # pre-pass
-            r = device_randn(dev, d + n + 64)
-            qkv, bias = r(b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
-            b64 = bias64(n, 3)
-            q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
-            q64, k64, v64 = (t.contiguous() for t in fa.split_qkv(qkv, h64))
-            lib_ms = attention_library_ms(
-                *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
-                bias)
-            bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
-                       bf16_flops=4 * b * n * n * c)
-            for name, kn, run, run64, plain in (
-                    ("attention_qkv", "K7",
-                     lambda: fa.attention_qkv(qkv, bias, heads),
-                     lambda: fa.attention_qkv(qkv, b64, h64),
-                     lambda: fa.attention_qkv_ref(qkv, bias, heads)),
-                    ("attention_bnhd", "K8",
-                     lambda: fa.attention_bnhd(q, k, v, bias),
-                     lambda: fa.attention_bnhd(q64, k64, v64, b64),
-                     lambda: fa.attention_bnhd_ref(q, k, v, bias))):
-                got = routed(run, long1, f"{kn} ({tag}, N={n})")
-                want, plain_ms = cuda_once(plain)
-                err = rel_err(got, want)
-                require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from "
-                        f"plain: {err} > {TOL_K7}")
-                ms, ms64 = timed(timing or kn == "K7", run, run64)
-                print(f"{kn} {name} {tag} B={b} N={n}: rel err {err:.3e} "
-                      f"(tol {TOL_K7}){ms_text(ms, ms64)}, plain "
-                      f"{plain_ms:.3f} ms, SDPA at width {d} {lib_ms:.4f} "
-                      f"ms, bound {bk['bound_ms']:.4f} ms")
-                record(name, d, n=n, c=c, ms=ms, ms_64=ms64,
-                       max_abs_err=abs_err(got, want), plain_ms=plain_ms,
-                       library_ms=lib_ms, **bk)
-                if kn == "K7" and timing:
-                    routes[("attention_long", d, n)] = dict(
-                        b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
-                        library_ms=lib_ms, max_abs_err=abs_err(got, want),
-                        **bk)
-                del got, want
-            qbk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
-                        int8_ops=4 * b * n * n * c)
-            for st in (None, static3):
-                mode = "dynamic" if st is None else "static"
-                pre = lambda: fb.attention_q8_prepass(qkv, heads, st)
-                got = routed(pre, {"attention_q8_prepass": 1},
-                             f"K4a pre-pass ({tag}, N={n}, {mode})")
-                want, pre_plain_ms = cuda_once(
-                    lambda: fb.attention_q8_prepass_ref(
-                        qkv, heads, None if st is None else tuple(st)))
-                require(all((x is None and y is None) or torch.equal(x, y)
-                            for x, y in zip(got, want)),
-                        f"K4a pre-pass ({tag}, N={n}, {mode}) differs from "
-                        "its plain twin")
-                del got, want
-                run = lambda: fb.attention_q8(qkv, bias, heads, st)
-                got = routed(run, Q8_LONG1, f"K4a core ({tag}, N={n}, "
-                             f"{mode})")
-                want, plain_ms = cuda_once(
-                    lambda: fb.attention_q8_ref(qkv, bias, heads, st))
-                err = rel_err(got, want)
-                require(err <= TOL_BLOCK, f"K4a core ({tag}, N={n}, {mode})"
-                        f": {err} > {TOL_BLOCK}")
-                ms, ms64 = timed(timing, run,
-                                 lambda: fb.attention_q8(qkv, b64, h64, st))
-                pre_ms = cuda_ms(pre) if timing else None
-                pre_text = (f" (pre-pass {pre_ms:.4f} ms)" if timing
-                            else "")
-                print(f"K4a core attention_q8 {tag} B={b} N={n} {mode}: rel "
-                      f"err {err:.3e} (tol {TOL_BLOCK}), pre-pass bit-exact"
-                      f"{ms_text(ms, ms64)}{pre_text}, plain "
-                      f"{plain_ms:.3f} ms, bound {qbk['bound_ms']:.4f} ms")
-                if timing and st is None:
-                    routes[("attention_q8_long", d, n)] = dict(
-                        b=b, ms=ms, ms_64=ms64, plain_ms=plain_ms,
-                        max_abs_err=abs_err(got, want), **qbk)
-                    npad = fb.q8_long_keys(n)
-                    routes[("attention_q8_prepass", d, n)] = dict(
-                        b=b, ms=pre_ms, plain_ms=pre_plain_ms,
-                        max_abs_err=0.0,
-                        **bound(b * n * 2 * c * 2 + 2 * b * npad * c
-                                + 4 * b * heads * npad + 4 * b * c))
-                del got, want
-            del qkv, bias, b64, q, k, v, q64, k64, v64
-            torch.cuda.empty_cache()
+            attention_cases(d, c, heads, n, b, timing, tag)
+    # the widest head: K7 (and K8) and K4a's core on the wide form, one
+    # head at C 1536
+    for n in (192, 768):
+        b = batch if n <= 192 else LONG_BATCH
+        attention_cases(WIDEST_HEAD, WIDEST_HEAD, 1, n, b, True,
+                        f"1 head of {WIDEST_HEAD} on the {form(WIDEST_HEAD)}")
     return out, routes
 
 
@@ -2478,7 +2507,8 @@ def routed(run, want, what):
 
 def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
                                          (4, 401), (4, 772))):
-    """The long routes at every core width (C ``c``) and in each form of
+    """The long routes at every core width and on the wide form at d 384
+    (C ``c``) and in each form of
     their bias at the default shapes (the CTA's rows once, a slab, at N
     257 and, at width 32, 300 and 301 (K4a's also at 300 and 301 at every
     width); TMA tiles at 300 and 772; row copies at 301 and 401; K6 at
@@ -2496,7 +2526,7 @@ def check_long_forms(dev, c=768, shapes=((64, 257), (16, 300), (16, 301),
     long1 = {"attention_long": 1}
     static = torch.tensor([0.021, 0.023, 0.019], device=dev)
     out_padded = {}
-    for d in fb.CORE_WIDTHS:
+    for d in fb.CORE_WIDTHS + (384,):
         h = c // d
         worst, worst_q8, forms, forms_q8 = 0.0, 0.0, [], []
         for b, n in shapes + ((4, 768),):
@@ -6319,20 +6349,30 @@ def main() -> int:
     # w8a8, each with its cores' launches counted too; and those the wide
     # heads open, every block's core on the long route (the 256-wide
     # instance) at every stage: S4 4 heads of 192 in bf16, w8a8 and
-    # w8a8+attn, S5 3 heads of 256 in bf16 and w8a8
+    # w8a8+attn, S5 3 heads of 256 in bf16 and w8a8; and those the wide
+    # form opens (d in 128-lane chunks): S6 2 heads of 384 in bf16, w8a8
+    # and w8a8+attn, S7 1 head of 768 in bf16 and w8a8, at v3's full depth.
+    # The earlier slices run at a cut depth of two blocks a stage (each
+    # stage's kernels as at the full depth: stage 0's blocks, the stage-1
+    # and stage-2 chains), which pays for S6 and S7
     clock("phase 5d")
     depth = ModelConfig().depth
-    widths_5d = [(f"{768 // d} heads of {d}", dict(num_heads=768 // d),
+    cut = dict(depth=(2, 2, 2))
+    widths_5d = [(f"{768 // d} heads of {d}", dict(num_heads=768 // d,
+                                                   **cut),
                   (("w8a8", q8_kernels), ("", bf16_kernels)), False)
                  for d in HEAD_WIDTHS]
-    wide_launches = {}  # the long routes' launches of S4 and S5
+    wide_launches = {}  # the long routes' launches of S4-S7
+    form_launches = {}  # the wide form's (S6, S7)
     for tag, kw, modes in (
-            ("S1, 8 heads of 96", dict(num_heads=8), 3),
-            ("S2, 16 heads of 48", dict(num_heads=16), 3),
+            ("S1, 8 heads of 96", dict(num_heads=8, **cut), 3),
+            ("S2, 16 heads of 48", dict(num_heads=16, **cut), 3),
             ("S3, embed 480, 6 heads of 80", dict(embed_dim=480,
-                                                  num_heads=6), 2),
-            ("S4, 4 heads of 192", dict(num_heads=4), 3),
-            ("S5, 3 heads of 256", dict(num_heads=3), 2)):
+                                                  num_heads=6, **cut), 2),
+            ("S4, 4 heads of 192", dict(num_heads=4, **cut), 3),
+            ("S5, 3 heads of 256", dict(num_heads=3, **cut), 2),
+            ("S6, 2 heads of 384", dict(num_heads=2), 3),
+            ("S7, 1 head of 768", dict(num_heads=1), 2)):
         widths_5d.append((tag, kw, (("", bf16_kernels), ("w8a8", q8_kernels),
                                     ("w8a8+attn", q8a_kernels))[:modes],
                           True))
@@ -6358,11 +6398,12 @@ def main() -> int:
                              tuple(k for k in block_kernels if k not in on)
                              + off_path, f"the {label} slice")
             require_patch_launches(launches, f"the {label} slice")
-            want = {on[1]: depth[0] * n_chunks, on[2]: 2 * n_chunks}
+            blocks = model_kw.get("depth", depth)
+            want = {on[1]: blocks[0] * n_chunks, on[2]: 2 * n_chunks}
             if cores:  # every block's core, on the route its width takes
                 key = ("attention_q8_" if quantize.endswith("+attn")
                        else "attention_") + route
-                want_core = {key: sum(depth) * n_chunks}
+                want_core = {key: sum(blocks) * n_chunks}
                 if key == "attention_q8_long":
                     want_core["attention_q8_prepass"] = want_core[key]
                 require(all(core[k] == want_core.get(k, 0)
@@ -6374,6 +6415,8 @@ def main() -> int:
                 if route == "long":
                     for k, v in want_core.items():
                         wide_launches[k] = wide_launches.get(k, 0) + v
+                        if head > 256:
+                            form_launches[k] = form_launches.get(k, 0) + v
             require(all(launches[k] == v for k, v in want.items()),
                     f"{label}: launches {launches}, want {want}")
             for k in on[1:]:
@@ -6397,9 +6440,11 @@ def main() -> int:
               "layer_norm_wide", "ln_quant_wide"):
         all_launches[k] = long_cores[k] + wide_launches.get(k, 0)
     # the kernels line's account of the 256-wide instance's launches on the
-    # main path (S4 and S5)
+    # main path (S4 and S5) and the wide form's (S6 and S7)
     for k in ("attention_long", "attention_q8_long", "attention_q8_prepass"):
-        kernel_results[k]["width_256_launches"] = wide_launches.get(k, 0)
+        kernel_results[k]["width_256_launches"] = (
+            wide_launches.get(k, 0) - form_launches.get(k, 0))
+        kernel_results[k]["wide_form_launches"] = form_launches.get(k, 0)
 
     try:
         # 6. the serving walk, on the scenes written during the build

@@ -107,24 +107,29 @@ __device__ __forceinline__ float group_reduce(float v, float* red) {
 
 // ------------------------------------------------------------- attention
 
-// The head widths the attention cores take: any d with 8 <= d <= 256 and
-// d % 8 == 0 (16-byte rows of bf16; TMA's strides). A head of width d runs
-// on the core instance of width core_width(d), the template parameter kD of
-// attention_kernel and attention_long_kernel here and of fused_block_q8.cu's
-// int8 cores: 32, 64, 128 or 256. Lanes d..kD-1 of k and v are read as
-// zeros (the int8 cores' q, k and v codes there are 0), so they carry no
-// value into any output; only the d real lanes are written. The short
-// cores have no instance of width 256 (their O accumulators, kD / 2 f32 a
-// thread, would come on top of up to 128 logits): above kShortMaxWidth
-// every N takes the long route. The C entry points derive the width as
+// The head widths the attention cores take: any d with 8 <= d <= 8192 and
+// d % 8 == 0 (16-byte rows of bf16; TMA's strides). A head of width d up to
+// 256 runs on the core instance of width core_width(d), the template
+// parameter kD of attention_kernel and attention_long_kernel here and of
+// fused_block_q8.cu's int8 cores: 32, 64, 128 or 256. Lanes d..kD-1 of k
+// and v are read as zeros (the int8 cores' q, k and v codes there are 0),
+// so they carry no value into any output; only the d real lanes are
+// written. The short cores have no instance of width 256 (their O
+// accumulators, kD / 2 f32 a thread, would come on top of up to 128
+// logits): above kShortMaxWidth every N takes the long route. A head wider
+// than 256 runs on the long route's wide form (core_width kWideCore:
+// attention_wide_kernel here, attention_q8_wide_kernel in fused_block_q8.cu),
+// which takes d in 128-lane chunks. The C entry points derive the width as
 // C / H and refuse any other, and any plan of the wrong route.
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxHeadDim = 8192;
 constexpr int kShortMaxWidth = 128;
+constexpr int kWideCore = kMaxHeadDim;  // core_width of every d above 256
 __host__ __device__ constexpr bool head_dim_ok(int d) {
   return d % 8 == 0 && d >= 8 && d <= kMaxHeadDim;
 }
 __host__ __device__ constexpr int core_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256
+                                                                  : kWideCore;
 }
 
 // K/V shared row stride (bf16) at head width d: 80, 144 or 272 bytes, each
@@ -704,6 +709,88 @@ __device__ __forceinline__ int bias_shift(const float* p) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
+// Warp 0's bias for a stage in the row form (a bias whose CTA rows fit no
+// slab and are not 16-byte multiples): the CTA's 128 rows for the keys
+// from j0 into the stage's area bt, row lane + 32·r (row N - 1 for rows
+// past N) from the 16-byte piece that holds its key j0, one bulk copy a
+// row at a stride of kAttnLongBiasLd floats; within the bias, a row's last
+// floats past a whole piece are copied by its lane before the lane arrives
+// on `bar` expecting its copies' bytes.
+__device__ __forceinline__ void long_bias_rows(float* bt, const float* bias_h,
+                                               const float* bias_end, int q0,
+                                               int j0, int N, int lane,
+                                               uint64_t* bar) {
+  const float* src[4];
+  int bytes[4], total = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = lane + 32 * r;
+    const float* a =
+        bias_h + static_cast<long long>(min(q0 + row, N - 1)) * N + j0;
+    src[r] = a - bias_shift(a);
+    const long long room = (bias_end - src[r]) * 4;
+    bytes[r] = room >= kAttnLongBiasLd * 4
+                   ? kAttnLongBiasLd * 4
+                   : static_cast<int>(room & ~15LL);
+    total += bytes[r];
+    float* dst = bt + row * kAttnLongBiasLd;
+    for (int t = bytes[r] / 4;
+         t < kAttnLongBiasLd && src[r] + t < bias_end; ++t)
+      dst[t] = src[r][t];
+  }
+  mbar_expect_tx(bar, total);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (bytes[r] > 0)
+      bulk_load(bt + (lane + 32 * r) * kAttnLongBiasLd, src[r], bytes[r],
+                bar);
+}
+
+// Lane 0 of warp 0, in the slab form: the CTA's 128 bias rows of N floats
+// from the 16-byte piece at slab_src (slab_shift floats before row q0's
+// first) into `region` by one bulk copy; within the bias, its last floats
+// past a whole piece copied here before the arrival on `bar`.
+__device__ __forceinline__ void long_bias_slab(float* region,
+                                               const float* slab_src,
+                                               const float* bias_end, int N,
+                                               int slab_shift,
+                                               uint64_t* bar) {
+  const long long want =
+      (static_cast<long long>(kAttnLongQueries) * N + slab_shift) * 4;
+  const long long room = (bias_end - slab_src) * 4;
+  const int bytes = static_cast<int>(
+      room >= ((want + 15) & ~15LL) ? (want + 15) & ~15LL : room & ~15LL);
+  for (long long t = bytes / 4; t * 4 < want && slab_src + t < bias_end; ++t)
+    region[t] = slab_src[t];
+  mbar_expect_tx(bar, bytes);
+  if (bytes > 0) bulk_load(region, slab_src, bytes, bar);
+}
+
+// Where the bias row of a thread's query row r (l within the CTA's 128)
+// starts: in the slab, or within a stage's row-form tile; plus the
+// quad's column 2·tig.
+__device__ __forceinline__ int long_bias_lin(bool slab, int slab_shift,
+                                             const float* bias_h, int l,
+                                             int r, int N, int tig) {
+  return (slab ? slab_shift + l * N
+               : l * kAttnLongBiasLd +
+                     bias_shift(bias_h +
+                                static_cast<long long>(min(r, N - 1)) * N)) +
+         2 * tig;
+}
+
+// In the tile form, the thread's pairs of row la in the first box, key
+// tile t: 16-byte piece c = 2t + tig / 2 of a 128-byte row at piece
+// c ^ (row mod 8), then 8·(tig mod 2) bytes; the second box 16 KB on,
+// row lb 8 rows on (the same row mod 8)
+__device__ __forceinline__ void long_tile_offsets(int (&toff)[4], int la,
+                                                  int tig) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    toff[t] = la * 32 + (((2 * t + (tig >> 1)) ^ (la & 7)) << 2) +
+              2 * (tig & 1);
+}
+
 // d[kOff..] (m64 x n64, f32, wgmma's accumulator layout) += a (m64 x k16,
 // bf16 register fragments) · b (n64 x k16 from the descriptor); kTransB 0
 // for a K-major b, 1 for an MN-major one; kAcc false sets d to the product
@@ -1027,53 +1114,13 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
                     q0, h);
       }
     }
-    if (rows_form) {
-      // rows lane + 32·r of the CTA's queries (rows past N read row N - 1),
-      // each from the 16-byte piece that holds its key j0; within the
-      // bias, its last floats past a whole piece copied by this lane
-      // before it arrives
-      const float* src[4];
-      int bytes[4], total = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = lane + 32 * r;
-        const float* a =
-            bias_h + static_cast<long long>(min(q0 + row, N - 1)) * N + j0;
-        src[r] = a - bias_shift(a);
-        const long long room = (bias_end - src[r]) * 4;
-        bytes[r] = room >= kAttnLongBiasLd * 4
-                       ? kAttnLongBiasLd * 4
-                       : static_cast<int>(room & ~15LL);
-        total += bytes[r];
-        float* dst = bt + row * kAttnLongBiasLd;
-        for (int t = bytes[r] / 4;
-             t < kAttnLongBiasLd && src[r] + t < bias_end; ++t)
-          dst[t] = src[r][t];
-      }
-      mbar_expect_tx(&full[st], total);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (bytes[r] > 0)
-          bulk_load(bt + (lane + 32 * r) * kAttnLongBiasLd, src[r], bytes[r],
-                    &full[st]);
-    }
+    if (rows_form)
+      long_bias_rows(bt, bias_h, bias_end, q0, j0, N, lane, &full[st]);
   };
 
   if (warp == 0) {
-    if (slab && lane == 0) {
-      // within the bias; its last floats past a whole piece copied here
-      // before the arrival
-      const long long want =
-          (static_cast<long long>(kAttnLongQueries) * N + slab_shift) * 4;
-      const long long room = (bias_end - slab_src) * 4;
-      const int bytes = static_cast<int>(
-          room >= ((want + 15) & ~15LL) ? (want + 15) & ~15LL : room & ~15LL);
-      for (long long t = bytes / 4; t * 4 < want && slab_src + t < bias_end;
-           ++t)
-        region[t] = slab_src[t];
-      mbar_expect_tx(slab_full, bytes);
-      if (bytes > 0) bulk_load(region, slab_src, bytes, slab_full);
-    }
+    if (slab && lane == 0)
+      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
     produce(0);
     __syncwarp();
   }
@@ -1091,29 +1138,10 @@ attention_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const int ra = q0 + la;
   const int rb = q0 + lb;
   const bool even = (N & 1) == 0;
-  // where the thread's bias rows start: in the slab, or within a stage's
-  // row-form tile
-  const int lin_a =
-      (slab ? slab_shift + la * N
-            : la * kAttnLongBiasLd +
-                  bias_shift(bias_h +
-                             static_cast<long long>(min(ra, N - 1)) * N)) +
-      2 * tig;
-  const int lin_b =
-      (slab ? slab_shift + lb * N
-            : lb * kAttnLongBiasLd +
-                  bias_shift(bias_h +
-                             static_cast<long long>(min(rb, N - 1)) * N)) +
-      2 * tig;
-  // in the tile form, the thread's pairs of row la in the first box, key
-  // tile t: 16-byte piece c = 2t + tig / 2 of a 128-byte row at piece
-  // c ^ (row mod 8), then 8·(tig mod 2) bytes; the second box 16 KB on,
-  // row lb 8 rows on (the same row mod 8)
+  const int lin_a = long_bias_lin(slab, slab_shift, bias_h, la, ra, N, tig);
+  const int lin_b = long_bias_lin(slab, slab_shift, bias_h, lb, rb, N, tig);
   int toff[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    toff[t] = la * 32 + (((2 * t + (tig >> 1)) ^ (la & 7)) << 2) +
-              2 * (tig & 1);
+  long_tile_offsets(toff, la, tig);
   if (slab) mbar_wait(slab_full, 0);
 
   uint32_t qf[kD / 16][4];  // Q' of the thread's rows, A fragments
@@ -1400,6 +1428,489 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
       mode == kBiasSlab, stream);
 }
 
+// ------------------------------------------ attention, long route, wide form
+//
+// Heads wider than 256 (core_width(d) == kWideCore; d % 8 == 0 up to
+// kMaxHeadDim): one head of any embed width the blocks take. The width-256
+// instance keeps Q' of a warpgroup's rows as wgmma A fragments for the
+// whole sample (64 registers a thread) and a 64-key block of K in a stage
+// (32 KB); neither grows past 256 lanes beside O and the bias. The wide
+// form keeps the long route's rounding contract (keys streamed twice, e
+// against the row's final max, P·V in f32 over the keys in order) and
+// takes d in 128-lane chunks (kWideLanes):
+//  * S = Σ_c Q'_c·K_cᵀ, chunk c's 8 k-steps of wgmma m64n64k16 into the
+//    same accumulators in chunk order (the same sums, in the same order, as
+//    one product over every lane); K_c, 64 keys x 128 lanes (two TMA boxes
+//    of 64 lanes, 16 KB), through a three-stage ring, one chunk a step;
+//  * Q'_c = bf16(q·d^-½) of the thread's rows made again at each step from
+//    q's rows in device memory (L2: a CTA's 128 rows are read once per
+//    chunk and key block), straight into the A fragments (q_pair, the
+//    rounding of every other instance); lanes past d give 0;
+//  * pass 1 as the long route's, at each block's last chunk;
+//  * pass 2 once for each 128-lane part of O (ceil(d / 128) parts, the
+//    width-256 instance's halves generalised): each part recomputes S over
+//    every chunk, O stays 64 f32 a thread, V's part (16 KB) comes with the
+//    block's last chunk; the probabilities are stored in the first part;
+//  * the bias (tiles or row copies) with each block's last chunk, or the
+//    slab once, as the long route reads it.
+// K's boxes wholly past d (the last chunk's second where d mod 128 is in
+// (0, 64]) are not loaded: warp 0 zeroes that box of the stage before the
+// stage's arrival, so no TMA box lies wholly outside the tensor. V's
+// boxes past d reach only O's lanes past d, which are never stored.
+// Work a key block: (1 + ceil(d/128)) · ceil(d/128) chunk products of S
+// against two for the unsplit route; pass 2's S is recomputed ceil(d/128)
+// times (three S products a key block at d 256, 12 at d 384, 42 at 768).
+// Shared memory: the ring (three stages of K's chunk and V's part, 96 KB),
+// the bias region (three tile or row areas, or a slab up to N 259; 223
+// with probabilities), the probabilities' staging, the barriers.
+constexpr int kWideLanes = 128;  // a chunk of d in S, a part of O in pass 2
+constexpr int kWideStages = 3;
+constexpr int kWideBox = kAttnLongKeys * 128;  // 64 lanes of 64 keys, bf16
+constexpr int kWideKV = 2 * kWideBox;          // a chunk of K, a part of V
+constexpr int kWideStage = 2 * kWideKV;
+__host__ __device__ constexpr int wide_chunks(int d) {
+  return (d + kWideLanes - 1) / kWideLanes;
+}
+__host__ __device__ constexpr int wide_staging_bytes(bool probs) {
+  return probs ? 8 * kAttnLongProbsBytes : 0;
+}
+__host__ __device__ constexpr int wide_bar_bytes() {
+  return ((2 * kWideStages + 1) * 8 + 15) / 16 * 16;
+}
+// 133,056 B (114,624 with probabilities)
+__host__ __device__ constexpr int wide_region_bytes(bool probs) {
+  return kAttnLongSmem - 1024 - kWideStages * kWideStage -
+         wide_staging_bytes(probs) - wide_bar_bytes();
+}
+
+// The wide form (see above); arguments as attention_long_kernel's, one
+// sample a CTA (blockIdx.y, + gridDim.y, ...). Steps of a sample: pass 1
+// over the key blocks' chunks, then pass 2 over them once for each part.
+template <bool kProbs, bool kNormFirst, bool kTiles>
+__global__ void __launch_bounds__(256, 1)
+attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const bf16* __restrict__ q, long long ld,
+                      const float* __restrict__ bias, bf16* __restrict__ out,
+                      bf16* __restrict__ probs, int B, int N, int C, int d,
+                      bool slab, float scale) {
+  constexpr int kStages = kWideStages;
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+  extern __shared__ unsigned char attn_wide_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(attn_wide_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  float* region = reinterpret_cast<float*>(smem + kStages * kWideStage);
+  bf16* pstage = reinterpret_cast<bf16*>(smem + kStages * kWideStage +
+                                         wide_region_bytes(kProbs));
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(pstage) + wide_staging_bytes(kProbs));
+  uint64_t* empty = full + kStages;
+  uint64_t* slab_full = empty + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kAttnLongQueries;
+  const int h = blockIdx.z;
+  const int H = gridDim.z;
+  const int head_off = h * d;
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  const float* bias_end = bias + static_cast<long long>(H) * N * N;
+  const bool rows_form = !kTiles && !slab;
+  const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
+  const int nc = wide_chunks(d);            // chunks of S, parts of pass 2
+  const int pass_steps = kblocks * nc;      // one pass over the key blocks
+  const int steps = (1 + nc) * pass_steps;  // a sample's
+  // K's boxes below d in the last chunk: 2, or 1
+  const int last_boxes = (d - (nc - 1) * kWideLanes + 63) / 64;
+  const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
+  const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // the TMA arrival, and in the row form one a lane of warp 0
+      mbar_init(&full[s], rows_form ? 1 + 32 : 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(slab_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0's loads for global step g (sample blockIdx.y + (g / steps) ·
+  // gridDim.y; step s = g mod steps: pass 1, then pass 2's parts, each
+  // over the key blocks' chunks) into stage g mod kStages, once every warp
+  // has released its last use: K's chunk, and at a block's last chunk the
+  // bias and in pass 2 V's part.
+  auto produce = [&](int g) {
+    const int b = blockIdx.y + (g / steps) * gridDim.y;
+    if (b >= B) return;
+    const int s = g % steps;
+    const int st = g % kStages;
+    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+    unsigned char* kv = smem + st * kWideStage;
+    float* bt = region + st * kArea;
+    const int pass = s / pass_steps;  // 0, then part pass - 1 of pass 2
+    const int r = s % pass_steps;
+    const int c = r % nc;
+    const int j0 = (r / nc) * kAttnLongKeys;
+    const bool last = c == nc - 1;
+    const int kb = last ? last_boxes : 2;
+    const int vb =
+        pass > 0 && last ? min(2, (d - (pass - 1) * kWideLanes + 63) / 64) : 0;
+    if (kb == 1) {
+      // K's second box lies wholly past d: zeros for the S product (wgmma
+      // reads them through the async proxy)
+      for (int i = lane; i < kWideBox / 16; i += 32)
+        reinterpret_cast<uint4*>(kv + kWideBox)[i] = make_uint4(0u, 0u, 0u, 0u);
+      fence_proxy_async();
+      __syncwarp();
+    }
+    if (lane == 0) {
+      mbar_expect_tx(&full[st],
+                     (kb + vb) * kWideBox +
+                         (kTiles && last ? 2 * kAttnLongQueries * 128 : 0));
+      for (int x = 0; x < kb; ++x)
+        tma_load_4d(kv + x * kWideBox, &map_k, &full[st],
+                    c * kWideLanes + x * 64, h, j0, b);
+      for (int x = 0; x < vb; ++x)
+        tma_load_4d(kv + kWideKV + x * kWideBox, &map_v, &full[st],
+                    (pass - 1) * kWideLanes + x * 64, h, j0, b);
+      if (kTiles && last) {
+        tma_load_3d(bt, &map_b, &full[st], j0, q0, h);
+        tma_load_3d(bt + kAttnLongQueries * 32, &map_b, &full[st], j0 + 32,
+                    q0, h);
+      }
+    }
+    if (rows_form) {
+      if (!last) {
+        mbar_expect_tx(&full[st], 0);
+        return;
+      }
+      long_bias_rows(bt, bias_h, bias_end, q0, j0, N, lane, &full[st]);
+    }
+  };
+
+  if (warp == 0) {
+    if (slab && lane == 0)
+      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
+    __syncwarp();
+    produce(0);  // two steps ahead
+    __syncwarp();
+    produce(1);
+    __syncwarp();
+  }
+
+  // Warpgroup wg takes rows 64·wg of the CTA's queries; warp wq of it 16
+  // of them, this thread rows ra and ra + 8 (g = lane / 4) and the quad's
+  // columns.
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int la = wg * 64 + wq * 16 + g;
+  const int lb = la + 8;
+  const int ra = q0 + la;
+  const int rb = q0 + lb;
+  const bool even = (N & 1) == 0;
+  const int lin_a = long_bias_lin(slab, slab_shift, bias_h, la, ra, N, tig);
+  const int lin_b = long_bias_lin(slab, slab_shift, bias_h, lb, rb, N, tig);
+  int toff[4];
+  long_tile_offsets(toff, la, tig);
+  if (slab) mbar_wait(slab_full, 0);
+
+  float o[kWideLanes / 2];  // a part's O, wgmma's layout
+  float sc[32];             // a key block's logits, summed over its chunks
+  int it = 0;               // the global step
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long row0 = static_cast<long long>(b) * N;
+    const long long qa = (row0 + ra) * ld + head_off;
+    const long long qb = (row0 + rb) * ld + head_off;
+    // Q' of chunk c: lanes 128c + 16kk + 2·tig (+ 8), 0 past d and for
+    // rows past N; loaded a step ahead (qn), so that the loads' latency
+    // passes under the step before
+    uint32_t qf[kWideLanes / 16][4], qn[kWideLanes / 16][4];
+    auto load_q = [&](int c) {
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 16; ++kk) {
+        const int c0 = c * kWideLanes + kk * 16 + 2 * tig;
+        const int c1 = c0 + 8;
+        qn[kk][0] = q_pair(q, qa, ra < N && c0 < d, c0, scale);
+        qn[kk][1] = q_pair(q, qb, rb < N && c0 < d, c0, scale);
+        qn[kk][2] = q_pair(q, qa, ra < N && c1 < d, c1, scale);
+        qn[kk][3] = q_pair(q, qb, rb < N && c1 < d, c1, scale);
+      }
+    };
+    load_q(0);
+    float mxa = -INFINITY, mxb = -INFINITY;  // the quad's row maxima
+    float suma = 0.f, sumb = 0.f;            // this thread's part of Σe
+    float inva = 0.f, invb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
+
+    // out = bf16(O · 1/Σe), or bf16(O) with kNormFirst: part `part`'s
+    // lanes of the head, those below d
+    auto store = [&](int part) {
+      const float oa = kNormFirst ? 1.f : inva;
+      const float ob = kNormFirst ? 1.f : invb;
+#pragma unroll
+      for (int dt = 0; dt < kWideLanes / 8; ++dt) {
+        const int lane0 = part * kWideLanes + dt * 8;
+        const int col = head_off + lane0 + 2 * tig;
+        const bool real = lane0 < d;
+        if (real && ra < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C + col) =
+              __floats2bfloat162_rn(o[4 * dt] * oa, o[4 * dt + 1] * oa);
+        if (real && rb < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C + col) =
+              __floats2bfloat162_rn(o[4 * dt + 2] * ob, o[4 * dt + 3] * ob);
+      }
+    };
+
+    for (int s = 0; s < steps; ++s, ++it) {
+      if (warp == 0) {
+        produce(it + 2);
+        __syncwarp();
+      }
+      const int pass = s / pass_steps;
+      const int r = s % pass_steps;
+      const int c = r % nc;
+      const int j0 = (r / nc) * kAttnLongKeys;
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qf[kk][i] = qn[kk][i];
+      if (s + 1 < steps) load_q(((s + 1) % pass_steps) % nc);
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const unsigned char* kt = smem + st * kWideStage;
+
+      // S += Q'_c·K_cᵀ: k step kk reads lanes 16·kk on of the chunk, in
+      // box kk / 4, 32 bytes a step along its rows
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      }
+      fence_acc(sc);
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 16; ++kk) fence_acc(qf[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 16; ++kk)
+        wgmma_m64n64k16_rs<0>(
+            sc, qf[kk],
+            wgmma_desc_sw<128>(kt + (kk >> 2) * kWideBox) + (kk & 3) * 2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 16; ++kk) fence_acc(qf[kk]);
+
+      if (c == nc - 1) {
+        // + bias; keys past N masked where the block reaches them
+        const float* ba;
+        int lbo;
+        if constexpr (kTiles) {
+          ba = region + st * kArea;
+          lbo = 8 * 32;
+        } else {
+          ba = (slab ? region + j0 : region + st * kArea) + lin_a;
+          lbo = lin_b - lin_a;
+        }
+        auto off = [&](int t) {
+          return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
+                        : 8 * t;
+        };
+        auto pair = [&](const float* p) {
+          return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                                : make_float2(p[0], p[1]);
+        };
+        if (j0 + kAttnLongKeys <= N) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
+            sc[4 * t] += pa.x;
+            sc[4 * t + 1] += pa.y;
+            sc[4 * t + 2] += pb.x;
+            sc[4 * t + 3] += pb.y;
+          }
+        } else {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int j = j0 + t * 8 + 2 * tig;
+            add_bias(sc[4 * t], sc[4 * t + 1], pair(ba + off(t)), ra, j, N);
+            add_bias(sc[4 * t + 2], sc[4 * t + 3], pair(ba + off(t) + lbo),
+                     rb, j, N);
+          }
+        }
+
+        if (pass == 0) {
+          // pass 1: the row max over the quad, Σe rescaled to it
+          float bma = -INFINITY, bmb = -INFINITY;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            bma = fmaxf(bma, fmaxf(sc[4 * t], sc[4 * t + 1]));
+            bmb = fmaxf(bmb, fmaxf(sc[4 * t + 2], sc[4 * t + 3]));
+          }
+#pragma unroll
+          for (int w = 1; w <= 2; w <<= 1) {
+            bma = fmaxf(bma, __shfl_xor_sync(0xffffffffu, bma, w));
+            bmb = fmaxf(bmb, __shfl_xor_sync(0xffffffffu, bmb, w));
+          }
+          const float na = fmaxf(mxa, bma), nb = fmaxf(mxb, bmb);
+          const float la2 = na * kLog2e, lb2 = nb * kLog2e;
+          float ea = 0.f, eb = 0.f;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            ea += exp2f(fmaf(sc[4 * t], kLog2e, -la2)) +
+                  exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
+            eb += exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2)) +
+                  exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
+          }
+          suma = suma * exp2f((mxa - na) * kLog2e) + ea;
+          sumb = sumb * exp2f((mxb - nb) * kLog2e) + eb;
+          mxa = na;
+          mxb = nb;
+        } else {
+          const int part = pass - 1;
+          if (r == nc - 1) {  // a part's first block
+            if (part == 0) {  // Σe over the quad, once
+#pragma unroll
+              for (int w = 1; w <= 2; w <<= 1) {
+                suma += __shfl_xor_sync(0xffffffffu, suma, w);
+                sumb += __shfl_xor_sync(0xffffffffu, sumb, w);
+              }
+              inva = 1.0f / suma;
+              invb = 1.0f / sumb;
+            } else {
+              store(part - 1);
+#pragma unroll
+              for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
+            }
+          }
+          // pass 2: e against the final max
+          const float la2 = mxa * kLog2e, lb2 = mxb * kLog2e;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            sc[4 * t] = exp2f(fmaf(sc[4 * t], kLog2e, -la2));
+            sc[4 * t + 1] = exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
+            sc[4 * t + 2] = exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2));
+            sc[4 * t + 3] = exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
+          }
+          if (kProbs && part == 0) {
+            // bf16(e · (1/Σe)), the warp's 16 x 64 tile staged in shared
+            // memory, then rows of 16-byte pieces
+            bf16* pw = pstage + warp * (16 * kAttnLongProbsLd);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+              const int cc = t * 8 + 2 * tig;
+              *reinterpret_cast<uint32_t*>(pw + g * kAttnLongProbsLd + cc) =
+                  pack_bf16(sc[4 * t] * inva, sc[4 * t + 1] * inva);
+              *reinterpret_cast<uint32_t*>(pw + (g + 8) * kAttnLongProbsLd +
+                                           cc) =
+                  pack_bf16(sc[4 * t + 2] * invb, sc[4 * t + 3] * invb);
+            }
+            __syncwarp();
+#pragma unroll
+            for (int i4 = 0; i4 < 4; ++i4) {
+              const int rw = i4 * 4 + (lane >> 3);  // the warp's row
+              const int cc = (lane & 7) * 8;        // its 8 keys
+              const int i = q0 + la - g + rw;
+              const int j = j0 + cc;
+              if (i < N && j < N) {
+                const bf16* from = pw + rw * kAttnLongProbsLd + cc;
+                bf16* to = probs +
+                           ((static_cast<long long>(b) * H + h) * N + i) * N +
+                           j;
+                if ((N & 7) == 0) {
+                  *reinterpret_cast<uint4*>(to) =
+                      *reinterpret_cast<const uint4*>(from);
+                } else {
+                  for (int e = 0; e < 8 && j + e < N; ++e) to[e] = from[e];
+                }
+              }
+            }
+            __syncwarp();
+          }
+          // P's A fragments: bf16(e), or bf16(e·(1/Σe)); O += P·V_part
+          const float fa = kNormFirst ? inva : 1.f;
+          const float fb = kNormFirst ? invb : 1.f;
+          uint32_t p[4][4];
+#pragma unroll
+          for (int jt = 0; jt < 4; ++jt) {
+            p[jt][0] = pack_bf16(sc[8 * jt] * fa, sc[8 * jt + 1] * fa);
+            p[jt][1] = pack_bf16(sc[8 * jt + 2] * fb, sc[8 * jt + 3] * fb);
+            p[jt][2] = pack_bf16(sc[8 * jt + 4] * fa, sc[8 * jt + 5] * fa);
+            p[jt][3] = pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb);
+          }
+          const unsigned char* vt = kt + kWideKV;
+          fence_acc(o);
+#pragma unroll
+          for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
+          wgmma_fence();
+#pragma unroll
+          for (int jt = 0; jt < 4; ++jt) long_pv<kWideLanes>(o, p[jt], vt, jt);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(o);
+#pragma unroll
+          for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
+        }
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+    store(nc - 1);
+  }
+}
+
+template <bool kProbs, bool kNormFirst, bool kTiles>
+inline cudaError_t attention_wide_launch(const CUtensorMap& map_k,
+                                         const CUtensorMap& map_v,
+                                         const CUtensorMap& map_b,
+                                         const bf16* q, long long ld,
+                                         const float* bias, bf16* out,
+                                         bf16* probs, int B, int N, int C,
+                                         int H, int mode,
+                                         cudaStream_t stream) {
+  auto* kern = attention_wide_kernel<kProbs, kNormFirst, kTiles>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
+                  long_sample_groups(B, N, H, 1, mode), H);
+  const int d = C / H;
+  kern<<<grid, 256, kAttnLongSmem, stream>>>(map_k, map_v, map_b, q, ld,
+                                             bias, out, probs, B, N, C, d,
+                                             mode == kBiasSlab,
+                                             bf16_q_scale(d));
+  return cudaGetLastError();
+}
+
+// The wide form at head width C / H: K and V by the long route's 4-D maps
+// (boxes of 64 lanes), the bias in the form its region takes.
+template <bool kProbs, bool kNormFirst>
+inline cudaError_t attention_wide_run(const bf16* q, const bf16* k,
+                                      const bf16* v, long long ld,
+                                      const float* bias, bf16* out,
+                                      bf16* probs, int B, int N, int C, int H,
+                                      cudaStream_t stream) {
+  const int mode = long_bias_mode(N, wide_region_bytes(kProbs));
+  CUtensorMap map_k, map_v, map_b;
+  cudaError_t e = attn_long_map(&map_k, k, ld, B, N, H, C / H);
+  if (e != cudaSuccess) return e;
+  if ((e = attn_long_map(&map_v, v, ld, B, N, H, C / H)) != cudaSuccess)
+    return e;
+  if (mode == kBiasTiles) {
+    if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
+    return attention_wide_launch<kProbs, kNormFirst, true>(
+        map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, H, mode,
+        stream);
+  }
+  return attention_wide_launch<kProbs, kNormFirst, false>(
+      map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H, mode, stream);
+}
+
 // A long-route plan (`attention_plan` with route "long", or K4a's
 // `attention_q8_plan`): the route's marker, the warps and samples of a CTA
 // and its shared bytes as the route's kernel has them; N, B and H within
@@ -1451,6 +1962,9 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
       case 256:
         return attention_long_run<256, kProbs, kNormFirst>(
+            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+      case kWideCore:
+        return attention_wide_run<kProbs, kNormFirst>(
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
       default:
         return cudaErrorInvalidValue;

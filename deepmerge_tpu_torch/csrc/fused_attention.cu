@@ -3,14 +3,16 @@
 // and on separate (B, N, H, D) q, k, v (K8). All three run the attention
 // core of block_common.cuh, one CTA per (head, sample), or above 256
 // tokens (and at every N for heads wider than 128) its long route, one CTA
-// per (128 queries, head, two samples; one at head widths 128 and 256).
+// per (128 queries, head, two samples; one at head widths 128 and 256, and
+// on the wide form that takes heads wider than 256 in 128-lane chunks).
 //
 // K6 replaces deepmerge_tpu/ops/pallas/fused_attention.py:311
 // `_attn_qkv_probs_kernel` (called through `_fused_qkv_probs_forward`, the
 // forward of `fused_attention_qkv(..., save_probs=True)`, which every
 // training block runs). From the packed qkv projection (B, N, 3C), heads
 // interleaved as (H, d) within each C block, d = C / H (any multiple of 8
-// up to 256, on the core of width 32, 64, 128 or 256), per head:
+// up to 8192: on the core of width 32, 64, 128 or 256, or the long route's
+// wide form above 256), per head:
 //   q'  = bf16(q · d^-½)                       scaled in the input dtype
 //   e   = exp(q'·kᵀ + bias[h] − max)           f32 logits and softmax
 //   out = bf16((bf16(e)·v) · (1/Σe))            f32 accumulation
@@ -62,7 +64,7 @@ const char* dm_error_string(int err) {
 
 // K6: out (B·N, C) and probs (B, H, N, N), both bf16, from qkv (B·N, 3C)
 // bf16 and bias (H, N, N) f32. Requires C == H·d with d % 8 == 0 and
-// 8 <= d <= 256, 1 <= N <= 16384 and 16-byte aligned tensors (checked by
+// 8 <= d <= 8192, 1 <= N <= 16384 and 16-byte aligned tensors (checked by
 // the caller; refused here too). Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
@@ -74,7 +76,7 @@ int dm_attention_probs(const void* qkv, const void* bias, void* out,
 }
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
-// Requires C == H·d with d % 8 == 0 and 8 <= d <= 256, 1 <= N <= 16384
+// Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192, 1 <= N <= 16384
 // and 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
                  int C, int H, const int* plan, cudaStream_t stream) {
@@ -85,7 +87,7 @@ int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
 }
 
 // K8: out (B, N, H, d) bf16 from q, k, v (B, N, H, d) bf16 and bias
-// (H, N, N) f32, C = H·d, d % 8 == 0 and 8 <= d <= 256. Requires 1 <= N
+// (H, N, N) f32, C = H·d, d % 8 == 0 and 8 <= d <= 8192. Requires 1 <= N
 // <= 16384 and 16-byte aligned tensors. Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,

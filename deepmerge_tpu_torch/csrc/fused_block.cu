@@ -453,7 +453,7 @@ const char* dm_error_string(int err) {
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
-// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 256,
+// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192,
 // C <= 8192, hidden % 8 == 0, N <= 16384 and 16-byte aligned tensors
 // (checked by the caller); `plan` is the wrapper's launch plan
 // (`block_plan`: the short attention core up to N 256, the long route

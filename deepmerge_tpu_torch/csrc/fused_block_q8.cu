@@ -1541,53 +1541,13 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
                     q0, h);
       }
     }
-    if (rows_form) {
-      // rows lane + 32·r of the CTA's queries (rows past N read row N - 1),
-      // each from the 16-byte piece that holds its key j0; within the
-      // bias, its last floats past a whole piece copied by this lane
-      // before it arrives
-      const float* src[4];
-      int bytes[4], total = 0;
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = lane + 32 * r;
-        const float* a =
-            bias_h + static_cast<long long>(min(q0 + row, N - 1)) * N + j0;
-        src[r] = a - bias_shift(a);
-        const long long room = (bias_end - src[r]) * 4;
-        bytes[r] = room >= kAttnLongBiasLd * 4
-                       ? kAttnLongBiasLd * 4
-                       : static_cast<int>(room & ~15LL);
-        total += bytes[r];
-        float* dst = bt + row * kAttnLongBiasLd;
-        for (int t = bytes[r] / 4;
-             t < kAttnLongBiasLd && src[r] + t < bias_end; ++t)
-          dst[t] = src[r][t];
-      }
-      mbar_expect_tx(&full[st], total);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (bytes[r] > 0)
-          bulk_load(bt + (lane + 32 * r) * kAttnLongBiasLd, src[r], bytes[r],
-                    &full[st]);
-    }
+    if (rows_form)
+      long_bias_rows(bt, bias_h, bias_end, q0, j0, N, lane, &full[st]);
   };
 
   if (warp == 0) {
-    if (slab && lane == 0) {
-      // within the bias; its last floats past a whole piece copied here
-      // before the arrival
-      const long long want =
-          (static_cast<long long>(kAttnLongQueries) * N + slab_shift) * 4;
-      const long long room = (bias_end - slab_src) * 4;
-      const int bytes = static_cast<int>(
-          room >= ((want + 15) & ~15LL) ? (want + 15) & ~15LL : room & ~15LL);
-      for (long long t = bytes / 4; t * 4 < want && slab_src + t < bias_end;
-           ++t)
-        region[t] = slab_src[t];
-      mbar_expect_tx(slab_full, bytes);
-      if (bytes > 0) bulk_load(region, slab_src, bytes, slab_full);
-    }
+    if (slab && lane == 0)
+      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
     produce(0);
     __syncwarp();
   }
@@ -1606,29 +1566,10 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   const int rb = q0 + lb;
   const bool even = (N & 1) == 0;
   const unsigned fullmask = 0xffffffffu;
-  // where the thread's bias rows start: in the slab, or within a stage's
-  // row-form tile
-  const int lin_a =
-      (slab ? slab_shift + la * N
-            : la * kAttnLongBiasLd +
-                  bias_shift(bias_h +
-                             static_cast<long long>(min(ra, N - 1)) * N)) +
-      2 * tig;
-  const int lin_b =
-      (slab ? slab_shift + lb * N
-            : lb * kAttnLongBiasLd +
-                  bias_shift(bias_h +
-                             static_cast<long long>(min(rb, N - 1)) * N)) +
-      2 * tig;
-  // in the tile form, the thread's pairs of row la in the first box, key
-  // tile t: 16-byte piece c = 2t + tig / 2 of a 128-byte row at piece
-  // c ^ (row mod 8), then 8·(tig mod 2) bytes; the second box 16 KB on,
-  // row lb 8 rows on (the same row mod 8)
+  const int lin_a = long_bias_lin(slab, slab_shift, bias_h, la, ra, N, tig);
+  const int lin_b = long_bias_lin(slab, slab_shift, bias_h, lb, rb, N, tig);
   int toff[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    toff[t] = la * 32 + (((2 * t + (tig >> 1)) ^ (la & 7)) << 2) +
-              2 * (tig & 1);
+  long_tile_offsets(toff, la, tig);
   if (slab) mbar_wait(slab_full, 0);
 
   float s_q = 0.f, s_v = 0.f, inv_q = 0.f, c_static = 0.f;
@@ -1907,6 +1848,661 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
   }
 }
 
+// ------------------------------------------- K4a, long route, wide form
+//
+// Heads wider than 256 (core_width kWideCore, d % 8 == 0 up to 8192): the
+// int8 long route in the bf16 wide form's schedule (block_common.cuh
+// attention_wide_kernel), two launches as at the narrower widths:
+//  * the pre-pass (attention_q8_prepass_wide_kernel), one CTA a (sample,
+//    head), writes the scratch at the wide width Dw = 128·ceil(d / 128)
+//    (lanes past d code 0, v's scale 1): k's codes and row scales, v's
+//    column scales and v's codes transposed in the slot order, as at the
+//    narrower widths, and here q's codes and row scales too: a row's
+//    dynamic scale is over all its d lanes, which the core no longer holds
+//    at once. A warp takes a q or k row (its abs-max over the row, then its
+//    codes from a second read, L1/L2); a thread an octet of v's lanes over
+//    every key (or every parts-th, where the octets are fewer than the
+//    CTA's threads), four loads in flight; vᵀ a 64-key block and 128 lanes
+//    at a time through shared memory;
+//  * the core (attention_q8_wide_kernel): S = Σ_c qi_c·ki_cᵀ by wgmma
+//    m64n64k32 s8 over 128-lane chunks (s32 sums, exact in any order), the
+//    chunk's q codes from the scratch into the A fragments at each step,
+//    k's chunk (four 32-byte boxes of 64 keys, 8 KB) and its 64 row scales
+//    through a three-stage ring, vᵀ's part (128 rows of 64 slots) and the
+//    bias with each block's last chunk; pass 1 the exact row max, pass 2
+//    once for each 128-lane part of O (Σpq in the first). The logits,
+//    codes and output are the short core's arithmetic (q8_logits' order,
+//    prob_code, __fmul_rn), so the output equals attention_q8_ref's bit for
+//    bit.
+// Scratch (attention_q8_long_scratch at d > 256): k, vᵀ and q codes
+// (3·B·H·Np·Dw bytes), k's row scales (B·H·Np f32), v's column scales
+// (B·H·Dw f32), q's row scales (B·H·Np f32).
+
+__host__ __device__ constexpr int q8_wide_width(int d) {
+  return wide_chunks(d) * kWideLanes;
+}
+
+struct Q8WideScratch {
+  signed char* kc;
+  signed char* vt;
+  signed char* qc;
+  float* ks;
+  float* vs;
+  float* qs;
+};
+
+inline Q8WideScratch q8_wide_scratch(void* base, int B, int N, int H,
+                                     int d) {
+  const long long np = q8_long_np(N), dw = q8_wide_width(d);
+  const long long bh = static_cast<long long>(B) * H;
+  Q8WideScratch s;
+  s.kc = static_cast<signed char*>(base);
+  s.vt = s.kc + bh * np * dw;
+  s.qc = s.vt + bh * np * dw;
+  s.ks = reinterpret_cast<float*>(s.qc + bh * np * dw);
+  s.vs = s.ks + bh * np;
+  s.qs = s.vs + bh * dw;
+  return s;
+}
+
+// The wide pre-pass (see above) of (sample, head) blockIdx.x = b·H + h.
+template <bool kStatic>
+__global__ void __launch_bounds__(kQ8PrepassThreads)
+attention_q8_prepass_wide_kernel(const bf16* __restrict__ qkv,
+                                 const float* __restrict__ s_qkv,
+                                 Q8WideScratch sc, int N, int C, int H) {
+  __shared__ float red[kQ8PrepassThreads * 8];
+  __shared__ __align__(16) signed char vtile[kWideLanes * kAttnLongKeys];
+  const long long bh = blockIdx.x;
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+  const long long ld = 3LL * C;
+  const long long np = q8_long_np(N);
+  const long long row0 = static_cast<long long>(b) * N;
+  const int d = C / H;
+  const int dw = q8_wide_width(d);
+  const int oct = dw / 8;  // 16-byte pieces (8 lanes) of a scratch row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float inv_q = 0.f, inv_k = 0.f, inv_v = 0.f;  // with static scales
+  if constexpr (kStatic) {
+    inv_q = 1.0f / s_qkv[0];
+    inv_k = 1.0f / s_qkv[1];
+    inv_v = 1.0f / s_qkv[2];
+  }
+
+  // q's and k's codes: a warp a row (rows past N: code 0, scale 1)
+  for (int which = 0; which < 2; ++which) {
+    const bf16* base = qkv + (which == 0 ? 0 : C) + h * d;
+    signed char* codes = which == 0 ? sc.qc : sc.kc;
+    float* scales = which == 0 ? sc.qs : sc.ks;
+    const float inv = which == 0 ? inv_q : inv_k;
+    for (long long j = warp; j < np; j += kQ8PrepassThreads / 32) {
+      const bf16* src = base + (row0 + j) * ld;
+      const bool in = j < N;
+      float s = 1.0f;
+      if constexpr (!kStatic) {
+        float amax = 0.f;
+        if (in) {
+          for (int o = lane; o * 8 < d; o += 32) {
+            float v[8];
+            load8(src + o * 8, v);
+#pragma unroll
+            for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[t]));
+          }
+        }
+        amax = warp_max(amax);
+        s = amax > 0.f ? amax * kInv127 : 1.0f;
+        if (lane == 0) scales[bh * np + j] = s;
+      }
+      signed char* dst = codes + (bh * np + j) * dw;
+      for (int o = lane; o < oct; o += 32) {
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        const bool live = o * 8 < d;
+        if (in && live) load8(src + o * 8, v);
+        store_codes8(v, !kStatic, s, inv, dst + o * 8, live);
+      }
+    }
+  }
+
+  // v's column scales over the N keys: thread t an octet t mod oct, over
+  // every parts-th key from t / oct (parts = 256 / oct where the octets
+  // are fewer than the threads; else each thread every 256th octet over
+  // every key), four keys' loads in flight; the parts' maxima meet in
+  // `red`
+  const bf16* vb = qkv + 2 * C + h * d;
+  if constexpr (!kStatic) {
+    const int parts = oct >= kQ8PrepassThreads ? 1 : kQ8PrepassThreads / oct;
+    const int part = oct >= kQ8PrepassThreads ? 0 : threadIdx.x / oct;
+    const int o0 = oct >= kQ8PrepassThreads ? threadIdx.x : threadIdx.x % oct;
+    for (int o = o0; o < oct && part < parts; o += kQ8PrepassThreads) {
+      float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (o * 8 < d) {
+        for (int j0 = part; j0 < N; j0 += 4 * parts) {
+          float v[4][8];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + u * parts;
+#pragma unroll
+            for (int t = 0; t < 8; ++t) v[u][t] = 0.f;
+            if (j < N) load8(vb + (row0 + j) * ld + o * 8, v[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int t = 0; t < 8; ++t) m[t] = fmaxf(m[t], fabsf(v[u][t]));
+        }
+      }
+      if (parts == 1) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          sc.vs[bh * dw + o * 8 + t] = m[t] > 0.f ? m[t] * kInv127 : 1.0f;
+      } else {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) red[part * dw + o * 8 + t] = m[t];
+      }
+    }
+    __syncthreads();
+    if (parts > 1) {
+      for (int dd = threadIdx.x; dd < dw; dd += kQ8PrepassThreads) {
+        float a = red[dd];
+        for (int p = 1; p < parts; ++p) a = fmaxf(a, red[p * dw + dd]);
+        sc.vs[bh * dw + dd] = a > 0.f ? a * kInv127 : 1.0f;
+      }
+    }
+    __syncthreads();  // the scales, in device memory, for the codes below
+  }
+
+  // v codes, transposed: 128 lanes of a 64-key block into vtile (128 rows
+  // of 64 slots), then the rows out in 16-byte pieces
+  signed char* vt = sc.vt + bh * dw * np;
+  for (long long j0 = 0; j0 < np; j0 += kAttnLongKeys) {
+    for (int c0 = 0; c0 < dw; c0 += kWideLanes) {
+      for (int idx = threadIdx.x; idx < kAttnLongKeys * kWideLanes / 8;
+           idx += kQ8PrepassThreads) {
+        const int jl = idx / (kWideLanes / 8), o = idx % (kWideLanes / 8);
+        const int lane0 = c0 + o * 8;
+        const bool live = lane0 < d;
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (j0 + jl < N && live) load8(vb + (row0 + j0 + jl) * ld + lane0, v);
+        const int slot = q8_slot(jl);
+#pragma unroll
+        for (int t = 0; t < 8; ++t)
+          vtile[(o * 8 + t) * kAttnLongKeys + slot] =
+              static_cast<signed char>(lane_code(
+                  v[t], live, !kStatic,
+                  kStatic ? 1.f : sc.vs[bh * dw + lane0 + t], inv_v));
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < kWideLanes * kAttnLongKeys / 16;
+           i += kQ8PrepassThreads) {
+        const int dd = i / (kAttnLongKeys / 16), cc = i % (kAttnLongKeys / 16);
+        *reinterpret_cast<uint4*>(vt + (c0 + dd) * np + j0 + cc * 16) =
+            *reinterpret_cast<const uint4*>(vtile + dd * kAttnLongKeys +
+                                            cc * 16);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The wide core's shared memory from its 1024-aligned start: the ring
+// (a stage: a 64-key block's 128-lane chunk of k codes, vᵀ's 128-row part
+// of it, k's 64 row scales; on 1 KB, 17,408 B), the bias region (179,136
+// B: three tile or row areas, or a slab up to N 349), the barriers.
+constexpr int kQ8WideTile = kAttnLongKeys * kWideLanes;  // 8 KB of codes
+constexpr int kQ8WideStage =
+    (2 * kQ8WideTile + kAttnLongKeys * 4 + 1023) / 1024 * 1024;
+__host__ __device__ constexpr int q8_wide_region_bytes() {
+  return kAttnLongSmem - 1024 - kQ8LongStages * kQ8WideStage -
+         q8_long_bar_bytes();
+}
+
+// The wide core (see above). map_k reads k codes as (Dw bytes, B·H·Np
+// rows) in boxes of 32 bytes x 64 rows, map_v vᵀ codes as (Np bytes,
+// B·H·Dw rows) in boxes of 64 bytes x 128 rows; q's codes and the scales
+// are read from the scratch `sc`; the bias and the output as
+// attention_q8_long_kernel's; one sample a CTA (blockIdx.y, + gridDim.y,
+// ...).
+template <bool kStatic, bool kTiles>
+__global__ void __launch_bounds__(256, 1)
+attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_b,
+                         Q8WideScratch sc, const float* __restrict__ bias,
+                         const float* __restrict__ s_qkv,
+                         bf16* __restrict__ out, int B, int N, int C, int d,
+                         bool slab, float scale) {
+  constexpr int kStages = kQ8LongStages;
+  constexpr int kScaleOff = 2 * kQ8WideTile;  // k's row scales
+  constexpr int kScaleBytes = kAttnLongKeys * 4;
+  constexpr int kKBox = kAttnLongKeys * 32;  // a 32-lane box of k codes
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+  extern __shared__ unsigned char q8_wide_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(q8_wide_raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  float* region = reinterpret_cast<float*>(smem + kStages * kQ8WideStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + kStages * kQ8WideStage + q8_wide_region_bytes());
+  uint64_t* empty = full + kStages;
+  uint64_t* slab_full = empty + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kAttnLongQueries;
+  const int h = blockIdx.z;
+  const int H = gridDim.z;
+  const int head_off = h * d;
+  const long long np = q8_long_np(N);
+  const int dw = q8_wide_width(d);
+  const float* bias_h = bias + static_cast<long long>(h) * N * N;
+  const float* bias_end = bias + static_cast<long long>(H) * N * N;
+  const bool rows_form = !kTiles && !slab;
+  const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
+  const int nc = dw / kWideLanes;           // chunks of S, parts of pass 2
+  const int pass_steps = kblocks * nc;      // one pass over the key blocks
+  const int steps = (1 + nc) * pass_steps;  // a sample's
+  const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
+  const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], rows_form ? 1 + 32 : 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(slab_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp 0's loads for global step g (as attention_wide_kernel's): k's
+  // chunk, and at a block's last chunk k's scales, the bias and in pass 2
+  // vᵀ's part.
+  auto produce = [&](int g) {
+    const int b = blockIdx.y + (g / steps) * gridDim.y;
+    if (b >= B) return;
+    const int s = g % steps;
+    const int st = g % kStages;
+    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
+    unsigned char* kv = smem + st * kQ8WideStage;
+    float* bt = region + st * kArea;
+    const int pass = s / pass_steps;
+    const int r = s % pass_steps;
+    const int c = r % nc;
+    const int j0 = (r / nc) * kAttnLongKeys;
+    const bool last = c == nc - 1;
+    const long long bh = static_cast<long long>(b) * H + h;
+    if (lane == 0) {
+      mbar_expect_tx(&full[st],
+                     kQ8WideTile + (pass > 0 && last ? kQ8WideTile : 0) +
+                         (!kStatic && last ? kScaleBytes : 0) +
+                         (kTiles && last ? 2 * kAttnLongQueries * 128 : 0));
+#pragma unroll
+      for (int x = 0; x < kWideLanes / 32; ++x)
+        tma_load_2d(kv + x * kKBox, &map_k, &full[st],
+                    c * kWideLanes + 32 * x, static_cast<int>(bh * np + j0));
+      if (pass > 0 && last)
+        tma_load_2d(kv + kQ8WideTile, &map_v, &full[st], j0,
+                    static_cast<int>(bh * dw + (pass - 1) * kWideLanes));
+      if (!kStatic && last)
+        bulk_load(kv + kScaleOff, sc.ks + bh * np + j0, kScaleBytes,
+                  &full[st]);
+      if (kTiles && last) {
+        tma_load_3d(bt, &map_b, &full[st], j0, q0, h);
+        tma_load_3d(bt + kAttnLongQueries * 32, &map_b, &full[st], j0 + 32,
+                    q0, h);
+      }
+    }
+    if (rows_form) {
+      if (!last) {
+        mbar_expect_tx(&full[st], 0);
+        return;
+      }
+      long_bias_rows(bt, bias_h, bias_end, q0, j0, N, lane, &full[st]);
+    }
+  };
+
+  if (warp == 0) {
+    if (slab && lane == 0)
+      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
+    __syncwarp();
+    produce(0);  // two steps ahead
+    __syncwarp();
+    produce(1);
+    __syncwarp();
+  }
+
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int la = wg * 64 + wq * 16 + g;
+  const int lb = la + 8;
+  const int ra = q0 + la;
+  const int rb = q0 + lb;
+  const bool even = (N & 1) == 0;
+  const unsigned fullmask = 0xffffffffu;
+  const int lin_a = long_bias_lin(slab, slab_shift, bias_h, la, ra, N, tig);
+  const int lin_b = long_bias_lin(slab, slab_shift, bias_h, lb, rb, N, tig);
+  int toff[4];
+  long_tile_offsets(toff, la, tig);
+  if (slab) mbar_wait(slab_full, 0);
+
+  float s_v = 0.f, c_static = 0.f;
+  if constexpr (kStatic) {
+    s_v = s_qkv[2];
+    c_static = __fmul_rn(__fmul_rn(s_qkv[0], s_qkv[1]), scale);
+  }
+
+  int o[kWideLanes / 2];  // a part's O, wgmma's layout
+  int sci[32];            // a key block's s32 sums over its chunks
+  int it = 0;             // the global step
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const long long row0 = static_cast<long long>(b) * N;
+    const long long bh = static_cast<long long>(b) * H + h;
+    // q's dequantizing factors of the thread's rows (s_q·d^-½, as the
+    // short core's), and its rows of codes in the scratch
+    const float cqa =
+        kStatic ? c_static
+                : __fmul_rn(ra < N ? sc.qs[bh * np + ra] : 1.0f, scale);
+    const float cqb =
+        kStatic ? c_static
+                : __fmul_rn(rb < N ? sc.qs[bh * np + rb] : 1.0f, scale);
+    const signed char* qra = sc.qc + (bh * np + (ra < N ? ra : 0)) * dw;
+    const signed char* qrb = sc.qc + (bh * np + (rb < N ? rb : 0)) * dw;
+    // q's codes of chunk c, the mma.sync m16n8k32 A layout of each k
+    // step: lanes 32kk + 4·tig..+3 and + 16 of rows ra, rb (0 past N);
+    // loaded a step ahead (qn)
+    uint32_t qa[kWideLanes / 32][4], qn[kWideLanes / 32][4];
+    auto load_q = [&](int c) {
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 32; ++kk) {
+        const int l0 = c * kWideLanes + kk * 32 + 4 * tig;
+        qn[kk][0] =
+            ra < N ? *reinterpret_cast<const uint32_t*>(qra + l0) : 0u;
+        qn[kk][1] =
+            rb < N ? *reinterpret_cast<const uint32_t*>(qrb + l0) : 0u;
+        qn[kk][2] =
+            ra < N ? *reinterpret_cast<const uint32_t*>(qra + l0 + 16) : 0u;
+        qn[kk][3] =
+            rb < N ? *reinterpret_cast<const uint32_t*>(qrb + l0 + 16) : 0u;
+      }
+    };
+    load_q(0);
+    float mxa = -INFINITY, mxb = -INFINITY;  // the thread's, then the quad's
+    int suma = 0, sumb = 0;                  // this thread's part of Σpq
+    float inva = 0.f, invb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
+
+    auto sums = [&]() {
+#pragma unroll
+      for (int w = 1; w <= 2; w <<= 1) {
+        suma += __shfl_xor_sync(fullmask, suma, w);
+        sumb += __shfl_xor_sync(fullmask, sumb, w);
+      }
+      inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
+      invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
+    };
+    // out = bf16((O · 1/Σpq) · s_v): part `part`'s lanes below d
+    auto store = [&](int part) {
+#pragma unroll
+      for (int dt = 0; dt < kWideLanes / 8; ++dt) {
+        const int lane0 = part * kWideLanes + dt * 8;
+        const int col = lane0 + 2 * tig;
+        const bool real = lane0 < d;
+        float v0 = s_v, v1 = s_v;
+        if constexpr (!kStatic) {
+          const float2 sv =
+              *reinterpret_cast<const float2*>(sc.vs + bh * dw + col);
+          v0 = sv.x;
+          v1 = sv.y;
+        }
+        if (real && ra < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + ra) * C +
+                                             head_off + col) =
+              __floats2bfloat162_rn(
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt]), inva),
+                            v0),
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 1]),
+                                      inva),
+                            v1));
+        if (real && rb < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (row0 + rb) * C +
+                                             head_off + col) =
+              __floats2bfloat162_rn(
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 2]),
+                                      invb),
+                            v0),
+                  __fmul_rn(__fmul_rn(static_cast<float>(o[4 * dt + 3]),
+                                      invb),
+                            v1));
+      }
+    };
+
+    for (int s = 0; s < steps; ++s, ++it) {
+      if (warp == 0) {
+        produce(it + 2);
+        __syncwarp();
+      }
+      const int pass = s / pass_steps;
+      const int r = s % pass_steps;
+      const int c = r % nc;
+      const int j0 = (r / nc) * kAttnLongKeys;
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 32; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[kk][i] = qn[kk][i];
+      if (s + 1 < steps) load_q(((s + 1) % pass_steps) % nc);
+      const int st = it % kStages;
+      mbar_wait(&full[st], (it / kStages) & 1);
+      const unsigned char* stage = smem + st * kQ8WideStage;
+
+      // S += qi_c·ki_cᵀ, 32 lanes a k step, each from its own 32-byte box
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sci[i] = 0;
+      }
+      fence_acc(sci);
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 32; ++kk)
+        wgmma_s8_m64n64k32_rs(sci, qa[kk],
+                              wgmma_desc_sw<32>(stage + kk * kKBox));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sci);
+#pragma unroll
+      for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qa[kk]);
+
+      if (c == nc - 1) {
+        // the logits, dequantized in the JAX order, + bias; keys past N
+        // masked where the block reaches them
+        const float* skp =
+            reinterpret_cast<const float*>(stage + kScaleOff);
+        const float* ba;
+        int lbo;
+        if constexpr (kTiles) {
+          ba = region + st * kArea;
+          lbo = 8 * 32;
+        } else {
+          ba = (slab ? region + j0 : region + st * kArea) + lin_a;
+          lbo = lin_b - lin_a;
+        }
+        auto off = [&](int t) {
+          return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
+                        : 8 * t;
+        };
+        auto pair = [&](const float* p) {
+          return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                                : make_float2(p[0], p[1]);
+        };
+        auto dq = [&](int acc, float cq, float kk) {
+          const float a = static_cast<float>(acc);
+          return kStatic ? __fmul_rn(a, cq) : __fmul_rn(__fmul_rn(a, cq), kk);
+        };
+        float l[32];
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int jl = t * 8 + 2 * tig;
+          float k0 = 1.f, k1 = 1.f;
+          if constexpr (!kStatic) {
+            const float2 kv = *reinterpret_cast<const float2*>(skp + jl);
+            k0 = kv.x;
+            k1 = kv.y;
+          }
+          const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
+          l[4 * t] = __fadd_rn(dq(sci[4 * t], cqa, k0), pa.x);
+          l[4 * t + 1] = __fadd_rn(dq(sci[4 * t + 1], cqa, k1), pa.y);
+          l[4 * t + 2] = __fadd_rn(dq(sci[4 * t + 2], cqb, k0), pb.x);
+          l[4 * t + 3] = __fadd_rn(dq(sci[4 * t + 3], cqb, k1), pb.y);
+        }
+        if (j0 + kAttnLongKeys > N) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int j = j0 + t * 8 + 2 * tig;
+            if (ra < N) {
+              if (j >= N) l[4 * t] = -INFINITY;
+              if (j + 1 >= N) l[4 * t + 1] = -INFINITY;
+            }
+            if (rb < N) {
+              if (j >= N) l[4 * t + 2] = -INFINITY;
+              if (j + 1 >= N) l[4 * t + 3] = -INFINITY;
+            }
+          }
+        }
+
+        if (pass == 0) {
+          // pass 1: the row max (exact, in any order)
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            mxa = fmaxf(mxa, fmaxf(l[4 * t], l[4 * t + 1]));
+            mxb = fmaxf(mxb, fmaxf(l[4 * t + 2], l[4 * t + 3]));
+          }
+        } else {
+          const int part = pass - 1;
+          if (r == nc - 1) {  // a part's first block
+            if (part == 0) {  // the max over the quad, once
+#pragma unroll
+              for (int w = 1; w <= 2; w <<= 1) {
+                mxa = fmaxf(mxa, __shfl_xor_sync(fullmask, mxa, w));
+                mxb = fmaxf(mxb, __shfl_xor_sync(fullmask, mxb, w));
+              }
+            } else {
+              if (part == 1) sums();
+              store(part - 1);
+#pragma unroll
+              for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
+            }
+          }
+          // pq in the A fragments of the block's two k steps (the slot
+          // map) and, in the first part, its exact sum; O += pq·vi
+          uint32_t p[2][4];
+#pragma unroll
+          for (int k2 = 0; k2 < 2; ++k2) {
+            int ca[4][2], cb[4][2];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const int t = 4 * k2 + u;
+              ca[u][0] = prob_code(l[4 * t], mxa);
+              ca[u][1] = prob_code(l[4 * t + 1], mxa);
+              cb[u][0] = prob_code(l[4 * t + 2], mxb);
+              cb[u][1] = prob_code(l[4 * t + 3], mxb);
+              if (part == 0) {
+                suma += ca[u][0] + ca[u][1];
+                sumb += cb[u][0] + cb[u][1];
+              }
+            }
+            p[k2][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
+            p[k2][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
+            p[k2][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
+            p[k2][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
+          }
+          const unsigned char* vt = stage + kQ8WideTile;
+          fence_acc(o);
+          fence_acc(p[0]);
+          fence_acc(p[1]);
+          wgmma_fence();
+          q8_long_pv<kWideLanes>(o, p[0], vt, 0);
+          q8_long_pv<kWideLanes>(o, p[1], vt, 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(o);
+          fence_acc(p[0]);
+          fence_acc(p[1]);
+        }
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the stage
+    }
+    // (d > 256: at least three parts, so Σpq was taken at the second's
+    // first block)
+    store(nc - 1);
+  }
+}
+
+template <bool kStatic>
+inline cudaError_t attention_q8_prepass_wide_run(const bf16* qkv,
+                                                 const float* s_qkv,
+                                                 const Q8WideScratch& sc,
+                                                 int B, int N, int C, int H,
+                                                 cudaStream_t stream) {
+  attention_q8_prepass_wide_kernel<kStatic>
+      <<<static_cast<unsigned>(static_cast<long long>(B) * H),
+         kQ8PrepassThreads, 0, stream>>>(qkv, s_qkv, sc, N, C, H);
+  return cudaGetLastError();
+}
+
+template <bool kStatic, bool kTiles>
+inline cudaError_t attention_q8_wide_launch(
+    const CUtensorMap& map_k, const CUtensorMap& map_v,
+    const CUtensorMap& map_b, const Q8WideScratch& sc, const float* bias,
+    const float* s_qkv, bf16* out, int B, int N, int C, int H, int mode,
+    cudaStream_t stream) {
+  auto* kern = attention_q8_wide_kernel<kStatic, kTiles>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
+                  long_sample_groups(B, N, H, 1, mode), H);
+  const int d = C / H;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  kern<<<grid, 256, kAttnLongSmem, stream>>>(map_k, map_v, map_b, sc, bias,
+                                             s_qkv, out, B, N, C, d,
+                                             mode == kBiasSlab, scale);
+  return cudaGetLastError();
+}
+
+// The wide form's route: the wide pre-pass into `scratch`, then the core.
+template <bool kStatic>
+inline cudaError_t attention_q8_wide_run(const bf16* qkv, const float* bias,
+                                         const float* s_qkv, bf16* out, int B,
+                                         int N, int C, int H, void* scratch,
+                                         cudaStream_t stream) {
+  const int d = C / H;
+  const Q8WideScratch sc = q8_wide_scratch(scratch, B, N, H, d);
+  cudaError_t e = attention_q8_prepass_wide_run<kStatic>(qkv, s_qkv, sc, B,
+                                                         N, C, H, stream);
+  if (e != cudaSuccess) return e;
+  const long long np = q8_long_np(N), dw = q8_wide_width(d);
+  const long long bh = static_cast<long long>(B) * H;
+  CUtensorMap map_k, map_v, map_b;
+  e = tensor_map(&map_k, sc.kc, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh * np, dw,
+                 kAttnLongKeys, 32, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e != cudaSuccess) return e;
+  e = tensor_map(&map_v, sc.vt, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, bh * dw, np,
+                 kWideLanes, kAttnLongKeys, CU_TENSOR_MAP_SWIZZLE_64B);
+  if (e != cudaSuccess) return e;
+  const int mode = long_bias_mode(N, q8_wide_region_bytes());
+  if (mode == kBiasTiles) {
+    if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
+    return attention_q8_wide_launch<kStatic, true>(
+        map_k, map_v, map_b, sc, bias, s_qkv, out, B, N, C, H, mode, stream);
+  }
+  return attention_q8_wide_launch<kStatic, false>(
+      map_k, map_v, map_k, sc, bias, s_qkv, out, B, N, C, H, mode, stream);
+}
+
 template <int kD, bool kStatic>
 inline cudaError_t attention_q8_prepass_run(const bf16* qkv,
                                             const float* s_qkv,
@@ -2026,6 +2622,12 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
       case 256:
         return attention_q8_long_width<256>(qkv, bias, s_qkv, out, B, N, C,
                                             H, scratch, stream);
+      case kWideCore:
+        return s_qkv != nullptr
+                   ? attention_q8_wide_run<true>(qkv, bias, s_qkv, out, B, N,
+                                                 C, H, scratch, stream)
+                   : attention_q8_wide_run<false>(qkv, bias, nullptr, out, B,
+                                                  N, C, H, scratch, stream);
       default:
         return cudaErrorInvalidValue;
     }
@@ -2063,6 +2665,14 @@ cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
         reinterpret_cast<uintptr_t>(scratch)) &
        15) != 0)
     return cudaErrorInvalidValue;
+  if (core_width(d) == kWideCore) {
+    const Q8WideScratch sc = q8_wide_scratch(scratch, B, N, H, d);
+    return s_qkv != nullptr
+               ? attention_q8_prepass_wide_run<true>(qkv, s_qkv, sc, B, N, C,
+                                                     H, stream)
+               : attention_q8_prepass_wide_run<false>(qkv, s_qkv, sc, B, N,
+                                                      C, H, stream);
+  }
   const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, core_width(d));
   switch (core_width(d)) {
 #define DM_PREPASS_CASE(W)                                                  \
@@ -2192,7 +2802,7 @@ const char* dm_error_string(int err) {
 // quant_attn on the long route at least the route's scratch
 // (attention_q8_long_scratch's bytes); codes (B·N, max(C, hidden)) int8;
 // row_scale and row_amax (B·N) f32. Requires
-// C == H·d with d % 8 == 0 and 8 <= d <= 256, C % 16 == 0, C <= 8192,
+// C == H·d with d % 8 == 0 and 8 <= d <= 8192, C % 16 == 0, C <= 8192,
 // hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors (checked by the
 // caller). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
@@ -2324,7 +2934,7 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // the wrapper's `attention_q8_plan` (the short core up to N 256, the long
 // route above or when the plan forces it: its pre-pass writes `scratch`,
 // attention_q8_long_scratch's bytes). Requires C == H·d with d % 8 == 0
-// and 8 <= d <= 256, and N <= 16384 (checked by the caller). Returns
+// and 8 <= d <= 8192, and N <= 16384 (checked by the caller). Returns
 // cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,

@@ -229,8 +229,9 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     N) bf16.
 
     CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d % 8 == 0
-    up to 256, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128) launch
+    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256 tokens at d <= 128, the long route above and at d > 128, its wide
+    form at d > 256) launch
     ``csrc/fused_attention.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
@@ -258,8 +259,9 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     """K7: (B, N, C) in qkv's dtype.
 
     CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d % 8 == 0
-    up to 256, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128) launch
+    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256 tokens at d <= 128, the long route above and at d > 128, its wide
+    form at d > 256) launch
     ``csrc/fused_attention.cu``
     (``dm_attention``) with ``plan`` (an ``attention_plan`` of these
     shapes, which the kernel checks; the default one if None) and count
@@ -285,8 +287,9 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K8: (B, N, H, D) in q's dtype.
 
     CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D % 8 == 0
-    up to 256, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128) launch
+    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
+    256 tokens at d <= 128, the long route above and at d > 128, its wide
+    form at d > 256) launch
     ``csrc/fused_attention.cu``
     (``dm_attention_bnhd``) and count the launch in
     ``attention_bnhd.launches``; anything else raises.

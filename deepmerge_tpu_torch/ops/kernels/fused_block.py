@@ -42,14 +42,18 @@ from deepmerge_tpu_torch.ops.kernels import build
 LN_EPS = 1e-5
 N_PARAMS = 13
 # The attention cores' template instances: a head of width d (any multiple
-# of HEAD_DIM_STEP up to MAX_HEAD_DIM) runs on the instance of width
-# core_width(d), K's and V's lanes past d zero-filled (so they add 0) and
-# never written. The short cores have the instances of SHORT_CORE_WIDTHS
-# only: a wider head takes the long route at every N
+# of HEAD_DIM_STEP up to 256) runs on the instance of width core_width(d),
+# K's and V's lanes past d zero-filled (so they add 0) and never written.
+# The short cores have the instances of SHORT_CORE_WIDTHS only: a wider
+# head takes the long route at every N. A head wider than 256 (up to
+# MAX_HEAD_DIM) takes the long route's wide form, WIDE_CORE, which runs d
+# in chunks of WIDE_LANES lanes
 CORE_WIDTHS = (32, 64, 128, 256)
 SHORT_CORE_WIDTHS = (32, 64, 128)
 HEAD_DIM_STEP = 8    # 16-byte rows of bf16 (TMA's strides)
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 8192
+WIDE_CORE = MAX_HEAD_DIM  # core_width of every head wider than 256
+WIDE_LANES = 128
 MAX_TOKENS = 256   # the short (register-resident) attention cores' longest
 MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
 MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
@@ -136,8 +140,22 @@ def head_dim_ok(d: int) -> bool:
 
 def core_width(d: int) -> int:
     """The core instance a head of width ``d`` runs on (the C side's
-    ``core_width``): 32 up to 32, 64 up to 64, 128 up to 128, else 256."""
-    return next((w for w in CORE_WIDTHS if d <= w), CORE_WIDTHS[-1])
+    ``core_width``): 32 up to 32, 64 up to 64, 128 up to 128, 256 up to
+    256, else the long route's wide form ``WIDE_CORE``."""
+    return next((w for w in CORE_WIDTHS if d <= w), WIDE_CORE)
+
+
+def wide_chunks(d: int) -> int:
+    """The wide form's 128-lane chunks of a head of width ``d`` (its S
+    products' chunks and its second pass's parts): ceil(d / 128)."""
+    return -(-d // WIDE_LANES)
+
+
+def attention_long_parts(d: int) -> int:
+    """The long route's second-pass parts at head width ``d``: 1 up to
+    128, 2 on the 256 instance, ``wide_chunks(d)`` on the wide form."""
+    w = core_width(d)
+    return wide_chunks(d) if w == WIDE_CORE else ATTN_LONG_PARTS[w]
 
 
 def _refuse_head_dim(d: int, what: str) -> None:
@@ -212,16 +230,25 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
 # width (nvcc 12.9, sm_90a; the launch bound of one CTA an SM allows 128 at
 # 16 warps, 255 at 8; 8-16 bytes spill in the slab/row forms at width 32
 # and with probabilities at 64; none at 256, 234-254 over its variants).
+#
+# Heads wider than 256 take the wide form (csrc/block_common.cuh
+# attention_wide_kernel, core width WIDE_CORE): one sample and 8 warps a
+# CTA, S summed over the head's 128-lane chunks (K's chunk a stage, a ring
+# of WIDE_STAGES), Q' made again from q's rows at each chunk, pass 2 once
+# for each of ``wide_chunks(d)`` 128-lane parts of O, the bias with each
+# key block's last chunk. Registers (ptxas, nvcc 12.9): 214-245 over its
+# variants, no spills.
 ROUTES = ("short", "long")
 ATTN_LONG_ROUTE = 0
 ATTN_LONG_QUERIES = 128
 ATTN_LONG_KEYS = 64
-ATTN_LONG_SAMPLES = {32: 2, 64: 2, 128: 1, 256: 1}
+ATTN_LONG_SAMPLES = {32: 2, 64: 2, 128: 1, 256: 1, WIDE_CORE: 1}
 ATTN_LONG_PARTS = {32: 1, 64: 1, 128: 1, 256: 2}
 ATTN_LONG_WARPS = {d: 8 * s for d, s in ATTN_LONG_SAMPLES.items()}
 ATTN_LONG_SMEM = CTA_SHARED_MAX
 ATTN_LONG_SLAB_CTAS = 2048
-ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254}
+ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254, WIDE_CORE: 245}
+WIDE_STAGES = 3
 # K4a's long route (csrc/fused_block_q8.cu): a pre-pass, one CTA of
 # ATTN_Q8_PREPASS_THREADS a (sample, head), quantizes k and v once into
 # scratch (``attention_q8_long_scratch``); then attention_q8_long_kernel
@@ -231,10 +258,16 @@ ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254}
 # 64-key blocks of k and vᵀ codes (a part's rows) and k's scales. Registers
 # a thread: ptxas's most over the variants of each width (nvcc 12.9,
 # sm_90a; 12 bytes spill at width 64 with dynamic scales and bias rows or
-# a slab; none at 256, 238-254 over its variants).
+# a slab; none at 256, 238-254 over its variants). Above 256 the wide form
+# (attention_q8_prepass_wide_kernel, attention_q8_wide_kernel): the
+# pre-pass also writes q's codes and row scales, the scratch at the wide
+# width 128·ceil(d/128); the core takes k's codes in 128-lane chunks
+# (247-255 registers over its variants, no spills; the dynamic pre-pass
+# 48 registers, 4 bytes spilled).
 ATTN_Q8_PREPASS_THREADS = 256
 ATTN_Q8_LONG_STAGES = 3
-ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226, 256: 254}
+ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226, 256: 254,
+                          WIDE_CORE: 255}
 
 
 def _route(n: int, route: str | None, head_dim: int) -> str:
@@ -267,33 +300,43 @@ def _long_bias_form(n: int, region: int) -> str:
 
 def _long_bias_region(head_dim: int, probs: bool) -> int:
     """Bytes of the bf16 long route's bias region (the C side's
-    ``attn_long_region_bytes`` at the core width): the CTA's shared bytes
-    less 1 KB of alignment, the K/V ring (three stages, two with
-    probabilities or at width 256, each a 64-key block of K and of V's part
-    of each sample), the probabilities' staging (16 x 72 bf16 a warp) and
-    the barriers (two a stage and the slab's)."""
+    ``attn_long_region_bytes`` at the core width, ``wide_region_bytes`` on
+    the wide form): the CTA's shared bytes less 1 KB of alignment, the K/V
+    ring (three stages, two with probabilities or at width 256, each a
+    64-key block of K and of V's part of each sample; on the wide form
+    three of K's 128-lane chunk and V's part), the probabilities' staging
+    (16 x 72 bf16 a warp) and the barriers (two a stage and the slab's)."""
     w = core_width(head_dim)
-    stages = 2 if probs or w > SHORT_CORE_WIDTHS[-1] else 3
-    samples = ATTN_LONG_SAMPLES[w]
-    block = ATTN_LONG_KEYS * w * 2
-    ring = stages * samples * (block + block // ATTN_LONG_PARTS[w])
     staging = ATTN_LONG_WARPS[w] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
         if probs else 0
+    if w == WIDE_CORE:  # stages of K's 128-lane chunk and V's part
+        stages = WIDE_STAGES
+        ring = stages * 2 * ATTN_LONG_KEYS * WIDE_LANES * 2
+    else:
+        stages = 2 if probs or w > SHORT_CORE_WIDTHS[-1] else 3
+        samples = ATTN_LONG_SAMPLES[w]
+        block = ATTN_LONG_KEYS * w * 2
+        ring = stages * samples * (block + block // ATTN_LONG_PARTS[w])
     bars = -(-(2 * stages + 1) * 8 // 16) * 16
     return ATTN_LONG_SMEM - 1024 - ring - staging - bars
 
 
 def _q8_long_region(head_dim: int) -> int:
     """Bytes of K4a's long-route bias region (the C side's
-    ``q8_long_region_bytes``): the CTA's shared bytes less 1 KB of
-    alignment, the ring (three stages, each a 64-key block of k codes and
-    of vᵀ codes (a part's rows) of each sample and k's 64 row scales of
-    each, rounded up to 1 KB) and the barriers (two a stage and the
-    slab's), at the core width."""
+    ``q8_long_region_bytes``, ``q8_wide_region_bytes`` on the wide form):
+    the CTA's shared bytes less 1 KB of alignment, the ring (three stages,
+    each a 64-key block of k codes and of vᵀ codes (a part's rows) of each
+    sample and k's 64 row scales of each, rounded up to 1 KB; on the wide
+    form k's 128-lane chunk and vᵀ's 128-row part) and the barriers (two a
+    stage and the slab's), at the core width."""
     w = core_width(head_dim)
     samples = ATTN_LONG_SAMPLES[w]
-    tile = ATTN_LONG_KEYS * w
-    stage = -(-(samples * (tile + tile // ATTN_LONG_PARTS[w])
+    if w == WIDE_CORE:  # k's 128-lane chunk and vᵀ's 128-row part
+        tile = part = ATTN_LONG_KEYS * WIDE_LANES
+    else:
+        tile = ATTN_LONG_KEYS * w
+        part = tile // ATTN_LONG_PARTS[w]
+    stage = -(-(samples * (tile + part)
                 + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
     bars = -(-(2 * ATTN_Q8_LONG_STAGES + 1) * 8 // 16) * 16
     return ATTN_LONG_SMEM - 1024 - ATTN_Q8_LONG_STAGES * stage - bars
@@ -329,14 +372,26 @@ def q8_long_keys(n: int) -> int:
     return -(-n // ATTN_LONG_KEYS) * ATTN_LONG_KEYS
 
 
+def q8_scratch_width(d: int) -> int:
+    """The lanes of a row of K4a's long-route scratch at head width ``d``:
+    the core width up to 256, 128·ceil(d / 128) on the wide form."""
+    w = core_width(d)
+    return wide_chunks(d) * WIDE_LANES if w == WIDE_CORE else w
+
+
 def attention_q8_long_scratch(b: int, n: int, c: int, heads: int) -> int:
-    """Bytes of K4a's long-route scratch (the C side's ``q8_long_scratch``)
-    for b samples of n tokens and C = heads x d, at the core width kD =
-    ``core_width(d)``: k codes (b, heads, Np, kD) and v codes transposed
-    (b, heads, kD, Np), int8; k's row scales (b, heads, Np) and v's column
-    scales (b, heads, kD), float32; Np = ``q8_long_keys(n)``. The lanes
-    past d hold code 0 (and v's scale 1)."""
-    np_, w = q8_long_keys(n), core_width(c // heads)
+    """Bytes of K4a's long-route scratch (the C side's ``q8_long_scratch``,
+    ``q8_wide_scratch`` above 256) for b samples of n tokens and C = heads
+    x d, at the width w = ``q8_scratch_width(d)``: k codes (b, heads, Np,
+    w) and v codes transposed (b, heads, w, Np), int8; k's row scales (b,
+    heads, Np) and v's column scales (b, heads, w), float32; Np =
+    ``q8_long_keys(n)``; on the wide form also q's codes (b, heads, Np, w)
+    and row scales (b, heads, Np). The lanes past d hold code 0 (and v's
+    scale 1)."""
+    d = c // heads
+    np_, w = q8_long_keys(n), q8_scratch_width(d)
+    if core_width(d) == WIDE_CORE:
+        return b * heads * (3 * np_ * w + 8 * np_ + 4 * w)
     return b * heads * (2 * np_ * w + 4 * np_ + 4 * w)
 
 
@@ -352,6 +407,7 @@ def _long_plan(b: int, n: int, heads: int, head_dim: int, warps: int,
                 warps=warps, samples=samples, smem=smem, grid=grid,
                 head_dim=head_dim, core_width=core_width(head_dim),
                 key_blocks=-(-n // ATTN_LONG_KEYS),
+                parts=attention_long_parts(head_dim),
                 ctas_per_sm=ctas_per_sm(warps * 32, smem, registers))
 
 
@@ -370,8 +426,10 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     core width, grid (128-query blocks, sample groups, heads) and ``bias``
     form (both of the saved-probabilities variant with ``probs``);
     ``warps`` and ``samples`` do not apply. A head wider than 128 takes
-    the long route at every N. Raises ``ValueError`` for a launch the
-    kernels do not take."""
+    the long route at every N; a head wider than 256 its wide form
+    (``core_width`` ``WIDE_CORE``), whose second pass runs in ``parts`` =
+    ceil(d / 128) parts. Raises ``ValueError`` for a launch the kernels do
+    not take."""
     _refuse_head_dim(head_dim, "the attention core")
     w = core_width(head_dim)
     if _route(n, route, head_dim) == "long":
@@ -506,7 +564,7 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
     (128-query blocks, sample groups, heads), ``bias`` form, the
     pre-pass's grid (``prepass_grid``, a CTA a sample and head) and the
     ``scratch`` bytes both share; a head wider than 128 takes it at every
-    N. Raises ``ValueError`` for a launch the kernels do not take (even
+    N (above 256 its wide form). Raises ``ValueError`` for a launch the kernels do not take (even
     warps, at most ``ATTN_Q8_MAX_WARPS``)."""
     _refuse_head_dim(head_dim, "the int8 attention core")
     w = core_width(head_dim)
@@ -646,28 +704,40 @@ def q_scale(d: int, dt: torch.dtype) -> float:
     return torch.tensor(d ** -0.5, dtype=dt).item()
 
 
-def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
+def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                    lanes: int | None = None):
     """The TPU kernels' attention (``_attn_inner``, and the saved-probs
     kernel's forward) on a (B, N, 3C) qkv in the activation dtype: per head
     softmax(q·d^-½·kᵀ + bias) · v in f32, q scaled in the activation dtype,
     the numerators rounded to it for the value product and 1/Σe applied
     after that. Returns the output (B, N, C) in qkv's dtype, and the f32
-    numerators e (B, H, N, N) and reciprocals 1/Σe (B, H, N, 1)."""
+    numerators e (B, H, N, N) and reciprocals 1/Σe (B, H, N, 1).
+
+    ``lanes`` (e.g. ``WIDE_LANES``) runs the long route's wide schedule:
+    q·kᵀ summed in f32 over chunks of ``lanes`` of the head's lanes in
+    chunk order, and the value product one part of ``lanes`` output lanes
+    at a time (each part's columns are the unsplit product's); the same
+    function, with the logits' f32 sums in another order."""
     dt = qkv.dtype
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)
-    k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
-    v = qkv[..., 2 * c :].reshape(b, n, heads, d)
-    logits = torch.einsum(
-        "bnhd,bmhd->bhnm", q.to(torch.float32), k.to(torch.float32)
-    ) + bias.to(torch.float32)[None]
+    q = (qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)).to(
+        torch.float32)
+    k = qkv[..., c : 2 * c].reshape(b, n, heads, d).to(torch.float32)
+    v = qkv[..., 2 * c :].reshape(b, n, heads, d).to(torch.float32)
+    cuts = [slice(0, d)] if lanes is None else \
+        [slice(i, min(i + lanes, d)) for i in range(0, d, lanes)]
+    logits = 0
+    for cut in cuts:
+        logits = logits + torch.einsum("bnhd,bmhd->bhnm", q[..., cut],
+                                       k[..., cut])
+    logits = logits + bias.to(torch.float32)[None]
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     recip = 1.0 / e.sum(-1, keepdim=True)
-    av = torch.einsum(
-        "bhnm,bmhd->bhnd", e.to(dt).to(torch.float32), v.to(torch.float32)
-    )
+    p = e.to(dt).to(torch.float32)
+    av = torch.cat([torch.einsum("bhnm,bmhd->bhnd", p, v[..., cut])
+                    for cut in cuts], -1)
     out = (av * recip).permute(0, 2, 1, 3).reshape(b, n, c).to(dt)
     return out, e, recip
 
@@ -1117,21 +1187,31 @@ def attention_q8_prepass_ref(qkv: torch.Tensor, heads: int, static=None):
     Np, D) int8 (0 past N), k's row scales (B, H, Np) float32 (1 past N),
     v's column scales (B, H, D) float32, v's codes transposed (B, H, D, Np)
     int8 in the slot order (``q8_slot``; 0 past N). With ``static`` the
-    scales are None."""
+    scales are None. Above d 256 (the wide form, whose pre-pass quantizes
+    q too) also ``(qc, qs)``: q's codes (B, H, Np, D) and row scales (B, H,
+    Np) in k's layout."""
     b, n, _ = qkv.shape
     np_ = q8_long_keys(n)
-    _, _, ki, sk, vi, sv = _q8_operands(qkv, heads, static)
+    qi, sq, ki, sk, vi, sv = _q8_operands(qkv, heads, static)
     d, dev = ki.shape[-1], qkv.device
-    kc = torch.zeros((b, heads, np_, d), dtype=torch.int8, device=dev)
-    kc[:, :, :n] = ki.permute(0, 2, 1, 3)
+
+    def rows(codes, scale):
+        rc = torch.zeros((b, heads, np_, d), dtype=torch.int8, device=dev)
+        rc[:, :, :n] = codes.permute(0, 2, 1, 3)
+        if static is not None:
+            return rc, None
+        rs = torch.ones((b, heads, np_), dtype=torch.float32, device=dev)
+        rs[:, :, :n] = scale[..., 0].permute(0, 2, 1)
+        return rc, rs
+
+    kc, ks = rows(ki, sk)
     vt = torch.zeros((b, heads, d, np_), dtype=torch.int8, device=dev)
     slots = torch.tensor([q8_slot(j) for j in range(n)], device=dev)
     vt[..., slots] = vi.permute(0, 2, 3, 1)
-    if static is not None:
-        return kc, None, None, vt
-    ks = torch.ones((b, heads, np_), dtype=torch.float32, device=dev)
-    ks[:, :, :n] = sk[..., 0].permute(0, 2, 1)
-    return kc, ks, sv[:, 0], vt
+    out = (kc, ks, None if static is not None else sv[:, 0], vt)
+    if core_width(d) == WIDE_CORE:
+        out += rows(qi, sq)
+    return out
 
 
 def attention_q8_long_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
@@ -1147,7 +1227,7 @@ def attention_q8_long_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     c = c3 // 3
     d = c // heads
     scale = d ** -0.5
-    kc, ks, vs, vt = attention_q8_prepass_ref(qkv, heads, static)
+    kc, ks, vs, vt = attention_q8_prepass_ref(qkv, heads, static)[:4]
     np_ = kc.shape[2]
     q = qkv[..., :c].reshape(b, n, heads, d).to(torch.float32)
     if static is not None:
@@ -1875,9 +1955,9 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
     width ``head_dim_ok`` takes, 1 <= N <= ``MAX_LONG_TOKENS``) launch
     ``csrc/fused_block_q8.cu`` (``dm_attention_q8_prepass``, one CTA a
     sample and head) into one scratch tensor, whose views of the d real
-    lanes it returns (the scratch is ``core_width(d)`` wide, its lanes past
-    d code 0), and count the launch in ``attention_q8_prepass``; anything
-    else raises.
+    lanes it returns (the scratch is ``q8_scratch_width(d)`` wide, its
+    lanes past d code 0; above d 256 with q's codes and row scales), and
+    count the launch in ``attention_q8_prepass``; anything else raises.
     """
     if not _on_cuda(qkv):
         return attention_q8_prepass_ref(qkv, heads, static)
@@ -1895,17 +1975,23 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8_prepass")
     attention_q8_prepass.launches += 1
-    w = core_width(d)
+    w = q8_scratch_width(d)
+    wide = core_width(d) == WIDE_CORE
     codes = b * heads * np_ * w
     kc = scratch[:codes].view(torch.int8).view(b, heads, np_, w)[..., :d]
     vt = scratch[codes:2 * codes].view(torch.int8).view(
         b, heads, w, np_)[:, :, :d]
-    if static is not None:
-        return kc, None, None, vt
-    scales = scratch[2 * codes:].view(torch.float32)
-    ks = scales[:b * heads * np_].view(b, heads, np_)
-    vs = scales[b * heads * np_:].view(b, heads, w)[..., :d]
-    return kc, ks, vs, vt
+    rows = b * heads * np_
+    scales = scratch[(3 if wide else 2) * codes:].view(torch.float32)
+    ks = scales[:rows].view(b, heads, np_)
+    vs = scales[rows:rows + b * heads * w].view(b, heads, w)[..., :d]
+    out = (kc, None, None, vt) if static is not None else (kc, ks, vs, vt)
+    if wide:  # q's codes and row scales, in k's layout
+        qc = scratch[2 * codes:3 * codes].view(torch.int8).view(
+            b, heads, np_, w)[..., :d]
+        qs = scales[rows + b * heads * w:].view(b, heads, np_)
+        out += (qc, None if static is not None else qs)
+    return out
 
 
 gemm_q8.launches = 0

@@ -683,8 +683,22 @@ def test_wide_heads_match_plain(cuda, d, n):
     the int8 attention, the training block and the three attention
     kernels, each against its plain version by the width-64 bars, each
     launch on the long route; the pre-pass's d real lanes bit-exact."""
+    _wide_heads_case(cuda, d, n, 3 if d == 256 else 4)  # C % 16 == 0
+
+
+@pytest.mark.parametrize("n", [12, 48, 192, 300])
+@pytest.mark.parametrize("d,heads", [(264, 4), (384, 2), (768, 1)])
+def test_widest_heads_match_plain(cuda, d, heads, n):
+    """Heads wider than 256 (the long route's wide form, d in 128-lane
+    chunks, 264's last chunk partial) through the same kernels by the same
+    bars, each launch on the long route; the pre-pass (q's codes too)
+    bit-exact."""
+    _wide_heads_case(cuda, d, n, heads)
+
+
+def _wide_heads_case(cuda, d, n, heads):
     rs = np.random.default_rng(d + n + 2)
-    heads, b = (3 if d == 256 else 4), 3  # C % 16 == 0 (w8a8)
+    b = 3
     c = heads * d
     params = _block_params(rs, n, c, heads, 4 * c, cuda)
     x = torch.from_numpy(rs.standard_normal((b, n, c)).astype(np.float32)).to(

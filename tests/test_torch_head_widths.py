@@ -364,9 +364,9 @@ def test_block_plans_carry_the_head_width(d):
         assert ints[:4] == core(b, n, heads, head_dim=d)["ints"]
 
 
-@pytest.mark.parametrize("d", [264, 20, 4])
+@pytest.mark.parametrize("d", [8200, 20, 4])
 def test_other_widths_raise(d):
-    """A width the cores do not take (above 256, or not a multiple of 8)
+    """A width the cores do not take (above 8192, or not a multiple of 8)
     raises ``ValueError`` naming ROADMAP.md, from the plans and from the
     checks every CUDA entry point runs; there is no fallback."""
     heads = 4

@@ -240,13 +240,13 @@ def test_gemm_plans_take_k_tails(k, bf16_slabs, s8_slabs):
 
 
 @pytest.mark.parametrize("c,heads,align,match", [
-    (4 * 264, 4, fb.GEMM_K_ALIGN, "ROADMAP.md"),   # d 264 > 256
+    (4 * 8200, 4, fb.GEMM_K_ALIGN, "ROADMAP.md"),  # d 8200 > 8192
     (4 * 20, 4, fb.GEMM_K_ALIGN, "ROADMAP.md"),    # d 20, not a multiple of 8
     (40, 5, fb.Q8_K_ALIGN, "multiple of 16"),      # w8a8 at C % 16 != 0
 ])
 def test_refusals_that_remain(c, heads, align, match):
     """What the cards' kernels still refuse, with ``ValueError`` and no
-    fallback: heads wider than 256 or not a multiple of 8, and a w8a8
+    fallback: heads wider than 8192 or not a multiple of 8, and a w8a8
     block whose C is not a multiple of 16 (5 heads of 8: a width the cores
     take)."""
     x = torch.zeros((2, 12, c), dtype=torch.bfloat16)
