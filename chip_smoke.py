@@ -5971,14 +5971,14 @@ def main() -> int:
     # and K6 only) train while the other sources compile, so those two are
     # built first, alone
     sources = ("patch_resize", "window_gather", "fused_block",
-               "fused_block_q8", "fused_attention", "label_lookup",
-               "int4_dot")
+               "fused_block_q8", "attention_probs", "fused_attention",
+               "label_lookup", "int4_dot")
     # (in the whole run v3-wide trains later, beside phase 9's ranks)
     early = (("v3-cube16",) if only is None
              else tuple(TRAINED_CONFIGS) if only & {"trained", "long"}
              else ())
     train_first = bool(early)
-    first = ("patch_resize", "fused_attention") if train_first else sources
+    first = ("patch_resize", "attention_probs") if train_first else sources
     t = time.perf_counter()
     build.start(first)
 
@@ -6579,7 +6579,7 @@ def main() -> int:
         "fused_block_train": ("deepmerge_tpu_torch/csrc/fused_block.cu",
                               "deepmerge_tpu/ops/pallas/fused_block.py:558"),
         "fused_attention_train": (
-            "deepmerge_tpu_torch/csrc/fused_attention.cu",
+            "deepmerge_tpu_torch/csrc/attention_probs.cu",
             "deepmerge_tpu/ops/pallas/fused_attention.py:311"),
         "attention_qkv": ("deepmerge_tpu_torch/csrc/fused_attention.cu",
                           "deepmerge_tpu/ops/pallas/fused_attention.py:143"),

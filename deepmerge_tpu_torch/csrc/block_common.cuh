@@ -1,7 +1,7 @@
 // Pieces shared by the bf16 block kernels (fused_block.cu, K2/K3 and the
 // training block K5), the w8a8 block kernels (fused_block_q8.cu, K4) and
-// the attention kernels (fused_attention.cu: K6 saved-probs, K7 packed qkv,
-// K8 (B, N, H, D)): warp reductions, bf16 rounding, the tanh GELU,
+// the attention kernels (attention_probs.cu: K6 saved-probs;
+// fused_attention.cu: K7 packed qkv, K8 (B, N, H, D)): warp reductions, bf16 rounding, the tanh GELU,
 // cp.async, ldmatrix and mma.sync, and the bf16 attention core, which K4
 // runs unchanged (the JAX
 // package keeps the attention of its w8a8 block in bf16 unless `quant_attn`
@@ -1441,33 +1441,69 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
 //  * S = Σ_c Q'_c·K_cᵀ, chunk c's 8 k-steps of wgmma m64n64k16 into the
 //    same accumulators in chunk order (the same sums, in the same order, as
 //    one product over every lane); K_c, 64 keys x 128 lanes (two TMA boxes
-//    of 64 lanes, 16 KB), through a three-stage ring, one chunk a step;
+//    of 64 lanes, 16 KB), one chunk a step;
 //  * Q'_c = bf16(q·d^-½) of the thread's rows made again at each step from
-//    q's rows in device memory (L2: a CTA's 128 rows are read once per
-//    chunk and key block), straight into the A fragments (q_pair, the
-//    rounding of every other instance); lanes past d give 0;
+//    q's rows in device memory (L2), straight into the A fragments (q_pair,
+//    the rounding of every other instance), a step ahead; lanes past d
+//    give 0;
 //  * pass 1 as the long route's, at each block's last chunk;
-//  * pass 2 once for each 128-lane part of O (ceil(d / 128) parts, the
-//    width-256 instance's halves generalised): each part recomputes S over
-//    every chunk, O stays 64 f32 a thread, V's part (16 KB) comes with the
-//    block's last chunk; the probabilities are stored in the first part;
-//  * the bias (tiles or row copies) with each block's last chunk, or the
-//    slab once, as the long route reads it.
+//  * pass 2 computes S once a key block: the same chunk products again (the
+//    same wgmma sequence, so the same logits), e against the final max at
+//    the block's last chunk, the probabilities stored (kProbs) and P =
+//    bf16(e), or bf16(e·1/Σe) with kNormFirst, written once: the thread's
+//    16 A-fragment registers of the block into the CTA's slot of a scratch
+//    in device memory. Then O += P·V_c over the key blocks once for each
+//    128-lane part c of O (O 64 f32 a thread), each thread reading back
+//    the P it wrote, a step ahead. A key block costs
+//    2·ceil(d/128) chunk products of S (pass 1 and pass 2) and ceil(d/128)
+//    of P·V; S is never recomputed for a part;
+//  * every step is one 16 KB tile (K's chunk, or V's part of a block)
+//    through a ring of kWideSlots slots that a producer warp of its own
+//    keeps filled (warp 8: a third warpgroup, which gives its registers
+//    to the two consumer warpgroups by setmaxnreg, 40 to 232 a thread;
+//    with one warp more and no such move, the four schedulers' register
+//    files capped every thread at 168, and ptxas spilled); a step's
+//    wgmma group is waited on at the next step (wait_group 1), so the
+//    tensor cores take the next chunk (or block) while it completes,
+//    except at a block's last chunk (the softmax reads its logits) and a
+//    part's last block (O is stored). No divergent code runs in a consumer
+//    warpgroup while a group is in flight (ptxas would serialize the
+//    wgmmas: C7518); Q''s (and P's) fragments alternate between two
+//    register sets, even and odd steps, Q' loaded a step ahead without a
+//    branch;
+//  * the bias (tiles or row copies) with each block's last chunk, in one of
+//    kWideAreas areas taken in turn by the block ends, or the slab once, as
+//    the long route reads it.
 // K's boxes wholly past d (the last chunk's second where d mod 128 is in
-// (0, 64]) are not loaded: warp 0 zeroes that box of the stage before the
-// stage's arrival, so no TMA box lies wholly outside the tensor. V's
+// (0, 64]) are not loaded: the producer zeroes that box of the slot before
+// the slot's arrival, so no TMA box lies wholly outside the tensor. V's
 // boxes past d reach only O's lanes past d, which are never stored.
-// Work a key block: (1 + ceil(d/128)) · ceil(d/128) chunk products of S
-// against two for the unsplit route; pass 2's S is recomputed ceil(d/128)
-// times (three S products a key block at d 256, 12 at d 384, 42 at 768).
-// Shared memory: the ring (three stages of K's chunk and V's part, 96 KB),
-// the bias region (three tile or row areas, or a slab up to N 259; 223
-// with probabilities), the probabilities' staging, the barriers.
+// The grid is persistent: (query blocks, wide_sample_groups, heads), about
+// kWideCtas CTAs in all (one an SM of the H100), CTA y taking samples y,
+// y + gridDim.y, ...; the scratch holds one slot of 128 x Np bf16 (Np = N
+// rounded up to 64) for each CTA of the grid, reused sample after sample,
+// so it stays in L2 (6.2 MB at N 192; the wrapper's
+// ops/kernels/fused_block.py `wide_scratch` bytes).
+// Shared memory: the ring (six slots, 96 KB), the bias region (three tile
+// or row areas, or a slab up to N 259; 223 with probabilities), the
+// probabilities' staging, the barriers.
 constexpr int kWideLanes = 128;  // a chunk of d in S, a part of O in pass 2
-constexpr int kWideStages = 3;
+constexpr int kWideSlots = 6;
+// two consumer warpgroups and the producer's
+constexpr int kWideCtaThreads = 3 * 128;
+// Registers a thread after setmaxnreg: 8 consumer warps at 232 and 4
+// producer warps at 40 take 64,512 of the SM's 65,536
+__device__ __forceinline__ void wide_producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+__device__ __forceinline__ void wide_consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+constexpr int kWideAreas = 3;  // bias areas of the tile and row forms
 constexpr int kWideBox = kAttnLongKeys * 128;  // 64 lanes of 64 keys, bf16
-constexpr int kWideKV = 2 * kWideBox;          // a chunk of K, a part of V
-constexpr int kWideStage = 2 * kWideKV;
+constexpr int kWideSlot = 2 * kWideBox;        // a chunk of K, a part of V
+// the persistent grid's CTAs: one for each SM of an H100 SXM
+constexpr int kWideCtas = 132;
 __host__ __device__ constexpr int wide_chunks(int d) {
   return (d + kWideLanes - 1) / kWideLanes;
 }
@@ -1475,39 +1511,59 @@ __host__ __device__ constexpr int wide_staging_bytes(bool probs) {
   return probs ? 8 * kAttnLongProbsBytes : 0;
 }
 __host__ __device__ constexpr int wide_bar_bytes() {
-  return ((2 * kWideStages + 1) * 8 + 15) / 16 * 16;
+  return ((2 * kWideSlots + 1) * 8 + 15) / 16 * 16;
 }
-// 133,056 B (114,624 with probabilities)
+// 133,008 B (114,576 with probabilities)
 __host__ __device__ constexpr int wide_region_bytes(bool probs) {
-  return kAttnLongSmem - 1024 - kWideStages * kWideStage -
+  return kAttnLongSmem - 1024 - kWideSlots * kWideSlot -
          wide_staging_bytes(probs) - wide_bar_bytes();
 }
+// gridDim.y of a wide-form launch (either core): enough sample rows that
+// the grid holds about kWideCtas CTAs, at most B
+__host__ __device__ inline int wide_sample_groups(int B, int N, int H) {
+  const long long per =
+      static_cast<long long>((N + kAttnLongQueries - 1) / kAttnLongQueries) *
+      H;
+  const long long want = (kWideCtas + per - 1) / per;
+  return static_cast<int>(want < B ? want : B);
+}
+// Bytes of the wide form's slots (either core): one a CTA of its grid,
+// `block_bytes` a 64-key block (kWidePBlock of the bf16 core's P; K4a's
+// codes half that). The launches refuse a smaller scratch.
+constexpr int kWidePBlock = kAttnLongQueries * kAttnLongKeys * 2;
+__host__ __device__ inline long long wide_slot_bytes(int B, int N, int H,
+                                                     int block_bytes) {
+  const long long ctas =
+      static_cast<long long>((N + kAttnLongQueries - 1) / kAttnLongQueries) *
+      wide_sample_groups(B, N, H) * H;
+  return ctas * ((N + kAttnLongKeys - 1) / kAttnLongKeys) * block_bytes;
+}
 
-// The wide form (see above); arguments as attention_long_kernel's, one
-// sample a CTA (blockIdx.y, + gridDim.y, ...). Steps of a sample: pass 1
-// over the key blocks' chunks, then pass 2 over them once for each part.
+// The wide form (see above); arguments as attention_long_kernel's, and the
+// scratch `pscr` (16-byte aligned, its slots 128 x Np bf16 each). Steps of
+// a sample: pass 1 over the key blocks' chunks, pass 2's S over them, then
+// its P·V over the parts' blocks.
 template <bool kProbs, bool kNormFirst, bool kTiles>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(kWideCtaThreads, 1)
 attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const __grid_constant__ CUtensorMap map_b,
                       const bf16* __restrict__ q, long long ld,
                       const float* __restrict__ bias, bf16* __restrict__ out,
                       bf16* __restrict__ probs, int B, int N, int C, int d,
-                      bool slab, float scale) {
-  constexpr int kStages = kWideStages;
-  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+                      bool slab, float scale, uint4* __restrict__ pscr) {
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a bias area, floats
   extern __shared__ unsigned char attn_wide_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(attn_wide_raw) + 1023) &
       ~static_cast<uintptr_t>(1023));
-  float* region = reinterpret_cast<float*>(smem + kStages * kWideStage);
-  bf16* pstage = reinterpret_cast<bf16*>(smem + kStages * kWideStage +
+  float* region = reinterpret_cast<float*>(smem + kWideSlots * kWideSlot);
+  bf16* pstage = reinterpret_cast<bf16*>(smem + kWideSlots * kWideSlot +
                                          wide_region_bytes(kProbs));
   uint64_t* full = reinterpret_cast<uint64_t*>(
       reinterpret_cast<unsigned char*>(pstage) + wide_staging_bytes(kProbs));
-  uint64_t* empty = full + kStages;
-  uint64_t* slab_full = empty + kStages;
+  uint64_t* empty = full + kWideSlots;
+  uint64_t* slab_full = empty + kWideSlots;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1519,17 +1575,24 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
   const float* bias_end = bias + static_cast<long long>(H) * N * N;
   const bool rows_form = !kTiles && !slab;
   const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
-  const int nc = wide_chunks(d);            // chunks of S, parts of pass 2
-  const int pass_steps = kblocks * nc;      // one pass over the key blocks
-  const int steps = (1 + nc) * pass_steps;  // a sample's
+  const int nc = wide_chunks(d);        // chunks of S, parts of P·V
+  const int pass_steps = kblocks * nc;  // a pass over the blocks' chunks
+  const int steps = 3 * pass_steps;     // a sample's: pass 1, S, P·V
   // K's boxes below d in the last chunk: 2, or 1
   const int last_boxes = (d - (nc - 1) * kWideLanes + 63) / 64;
   const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
   const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+  // the CTA's slot: thread t's 16-byte piece i of block kb's P at
+  // (kb·4 + i)·256 + t
+  uint4* slot =
+      pscr + (static_cast<long long>(blockIdx.z * gridDim.y + blockIdx.y) *
+                  gridDim.x +
+              blockIdx.x) *
+                 kblocks * 1024;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      // the TMA arrival, and in the row form one a lane of warp 0
+    for (int s = 0; s < kWideSlots; ++s) {
+      // the TMA arrival, and in the row form one a lane of the producer warp
       mbar_init(&full[s], rows_form ? 1 + 32 : 1);
       mbar_init(&empty[s], 256);
     }
@@ -1538,28 +1601,51 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
   }
   __syncthreads();
 
-  // Warp 0's loads for global step g (sample blockIdx.y + (g / steps) ·
-  // gridDim.y; step s = g mod steps: pass 1, then pass 2's parts, each
-  // over the key blocks' chunks) into stage g mod kStages, once every warp
-  // has released its last use: K's chunk, and at a block's last chunk the
-  // bias and in pass 2 V's part.
+  // The bias area of the block end at global step g (sample-local step s of
+  // pass `pass`, block kb): the CTA's block ends take the areas in turn. An
+  // area comes back kWideAreas block ends later, at least 2·kWideAreas =
+  // kWideSlots steps on (nc >= 2), so its producer waits for the slot of a
+  // step at or after the one that read it to be released.
+  auto area = [&](int g, int pass, int kb) {
+    return region +
+           ((g / steps) * 2 * kblocks + pass * kblocks + kb) % kWideAreas *
+               kArea;
+  };
+
+  // The producer warp's loads for global step g (sample blockIdx.y + (g /
+  // steps) · gridDim.y; step s = g mod steps: pass 1, pass 2's S, each over
+  // the key blocks' chunks, then its P·V over each part's blocks) into slot
+  // g mod kWideSlots, once every consumer has released its last use: K's
+  // chunk, at a block's last chunk with the bias; or V's part.
   auto produce = [&](int g) {
     const int b = blockIdx.y + (g / steps) * gridDim.y;
     if (b >= B) return;
     const int s = g % steps;
-    const int st = g % kStages;
-    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
-    unsigned char* kv = smem + st * kWideStage;
-    float* bt = region + st * kArea;
-    const int pass = s / pass_steps;  // 0, then part pass - 1 of pass 2
+    const int st = g % kWideSlots;
+    if (g >= kWideSlots) mbar_wait(&empty[st], ((g / kWideSlots) & 1) ^ 1);
+    unsigned char* kv = smem + st * kWideSlot;
+    const int pass = s / pass_steps;
     const int r = s % pass_steps;
+    if (pass == 2) {  // V's part r / kblocks of block r mod kblocks
+      const int part = r / kblocks;
+      const int j0 = (r % kblocks) * kAttnLongKeys;
+      const int vb = min(2, (d - part * kWideLanes + 63) / 64);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], vb * kWideBox);
+        for (int x = 0; x < vb; ++x)
+          tma_load_4d(kv + x * kWideBox, &map_v, &full[st],
+                      part * kWideLanes + x * 64, h, j0, b);
+      }
+      if (rows_form) mbar_expect_tx(&full[st], 0);
+      return;
+    }
     const int c = r % nc;
-    const int j0 = (r / nc) * kAttnLongKeys;
+    const int kb = r / nc;
+    const int j0 = kb * kAttnLongKeys;
     const bool last = c == nc - 1;
-    const int kb = last ? last_boxes : 2;
-    const int vb =
-        pass > 0 && last ? min(2, (d - (pass - 1) * kWideLanes + 63) / 64) : 0;
-    if (kb == 1) {
+    const int kbx = last ? last_boxes : 2;
+    float* bt = area(g, pass, kb);
+    if (kbx == 1) {
       // K's second box lies wholly past d: zeros for the S product (wgmma
       // reads them through the async proxy)
       for (int i = lane; i < kWideBox / 16; i += 32)
@@ -1569,14 +1655,11 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
     }
     if (lane == 0) {
       mbar_expect_tx(&full[st],
-                     (kb + vb) * kWideBox +
+                     kbx * kWideBox +
                          (kTiles && last ? 2 * kAttnLongQueries * 128 : 0));
-      for (int x = 0; x < kb; ++x)
+      for (int x = 0; x < kbx; ++x)
         tma_load_4d(kv + x * kWideBox, &map_k, &full[st],
                     c * kWideLanes + x * 64, h, j0, b);
-      for (int x = 0; x < vb; ++x)
-        tma_load_4d(kv + kWideKV + x * kWideBox, &map_v, &full[st],
-                    (pass - 1) * kWideLanes + x * 64, h, j0, b);
       if (kTiles && last) {
         tma_load_3d(bt, &map_b, &full[st], j0, q0, h);
         tma_load_3d(bt + kAttnLongQueries * 32, &map_b, &full[st], j0 + 32,
@@ -1592,15 +1675,20 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
     }
   };
 
-  if (warp == 0) {
-    if (slab && lane == 0)
-      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
-    __syncwarp();
-    produce(0);  // two steps ahead
-    __syncwarp();
-    produce(1);
-    __syncwarp();
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads, 9-11 idle
+    wide_producer_regs();
+    if (warp == 8) {
+      if (slab && lane == 0)
+        long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
+      __syncwarp();
+      for (int g = 0; blockIdx.y + (g / steps) * gridDim.y < B; ++g) {
+        produce(g);
+        __syncwarp();
+      }
+    }
+    return;
   }
+  wide_consumer_regs();
 
   // Warpgroup wg takes rows 64·wg of the CTA's queries; warp wq of it 16
   // of them, this thread rows ra and ra + 8 (g = lane / 4) and the quad's
@@ -1622,32 +1710,50 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
 
   float o[kWideLanes / 2];  // a part's O, wgmma's layout
   float sc[32];             // a key block's logits, summed over its chunks
-  int it = 0;               // the global step
+  // Q' of the even and the odd S steps and of the next step; P's A
+  // fragments of the even and the odd P·V steps and of the next step
+  uint32_t qe[kWideLanes / 16][4], qo[kWideLanes / 16][4],
+      qn[kWideLanes / 16][4];
+  uint32_t pe[4][4], po[4][4], pn[4][4];
+  int it = 0;  // the global step
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const long long row0 = static_cast<long long>(b) * N;
-    const long long qa = (row0 + ra) * ld + head_off;
-    const long long qb = (row0 + rb) * ld + head_off;
-    // Q' of chunk c: lanes 128c + 16kk + 2·tig (+ 8), 0 past d and for
-    // rows past N; loaded a step ahead (qn), so that the loads' latency
-    // passes under the step before
-    uint32_t qf[kWideLanes / 16][4], qn[kWideLanes / 16][4];
+    const long long qra = (row0 + ra) * ld + head_off;
+    const long long qrb = (row0 + rb) * ld + head_off;
+    // Q' of chunk c into qn: lanes 128c + 16kk + 2·tig (+ 8), 0 past d and
+    // for rows past N (q_pair's values, without its branch: the pair is
+    // read at q[0] there, always in bounds, and dropped)
+    auto pair_of = [&](long long row, bool in, int col) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(q + (in ? row + col : 0)));
+      return in ? pack_bf16(f.x * scale, f.y * scale) : 0u;
+    };
     auto load_q = [&](int c) {
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 16; ++kk) {
         const int c0 = c * kWideLanes + kk * 16 + 2 * tig;
         const int c1 = c0 + 8;
-        qn[kk][0] = q_pair(q, qa, ra < N && c0 < d, c0, scale);
-        qn[kk][1] = q_pair(q, qb, rb < N && c0 < d, c0, scale);
-        qn[kk][2] = q_pair(q, qa, ra < N && c1 < d, c1, scale);
-        qn[kk][3] = q_pair(q, qb, rb < N && c1 < d, c1, scale);
+        qn[kk][0] = pair_of(qra, ra < N && c0 < d, c0);
+        qn[kk][1] = pair_of(qrb, rb < N && c0 < d, c0);
+        qn[kk][2] = pair_of(qra, ra < N && c1 < d, c1);
+        qn[kk][3] = pair_of(qrb, rb < N && c1 < d, c1);
+      }
+    };
+    // P of block kb into pn, from the slot
+    auto load_p = [&](int kb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 v = slot[(kb * 4 + i) * 256 + threadIdx.x];
+        pn[i][0] = v.x;
+        pn[i][1] = v.y;
+        pn[i][2] = v.z;
+        pn[i][3] = v.w;
       }
     };
     load_q(0);
     float mxa = -INFINITY, mxb = -INFINITY;  // the quad's row maxima
     float suma = 0.f, sumb = 0.f;            // this thread's part of Σe
     float inva = 0.f, invb = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
 
     // out = bf16(O · 1/Σe), or bf16(O) with kNormFirst: part `part`'s
     // lanes of the head, those below d
@@ -1668,31 +1774,32 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
       }
     };
 
-    for (int s = 0; s < steps; ++s, ++it) {
-      if (warp == 0) {
-        produce(it + 2);
-        __syncwarp();
-      }
-      const int pass = s / pass_steps;
-      const int r = s % pass_steps;
+    // S step t of the sample's 2·pass_steps (pass 1, then pass 2's S):
+    // chunk t mod nc of block (t mod pass_steps) / nc, Q' in qf (made from
+    // qn here), the last step's in qp
+    auto s_step = [&](int t, uint32_t(&qf)[kWideLanes / 16][4],
+                      uint32_t(&qp)[kWideLanes / 16][4]) {
+      const int pass = t / pass_steps;
+      const int r = t % pass_steps;
       const int c = r % nc;
-      const int j0 = (r / nc) * kAttnLongKeys;
+      const int kb = r / nc;
+      const int j0 = kb * kAttnLongKeys;
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 16; ++kk)
 #pragma unroll
         for (int i = 0; i < 4; ++i) qf[kk][i] = qn[kk][i];
-      if (s + 1 < steps) load_q(((s + 1) % pass_steps) % nc);
-      const int st = it % kStages;
-      mbar_wait(&full[st], (it / kStages) & 1);
-      const unsigned char* kt = smem + st * kWideStage;
+      if (t + 1 < 2 * pass_steps) load_q((t + 1) % nc);
+      const int st = it % kWideSlots;
+      mbar_wait(&full[st], (it / kWideSlots) & 1);
+      const unsigned char* kt = smem + st * kWideSlot;
 
       // S += Q'_c·K_cᵀ: k step kk reads lanes 16·kk on of the chunk, in
       // box kk / 4, 32 bytes a step along its rows
       if (c == 0) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        fence_acc(sc);
       }
-      fence_acc(sc);
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 16; ++kk) fence_acc(qf[kk]);
       wgmma_fence();
@@ -1702,165 +1809,213 @@ attention_wide_kernel(const __grid_constant__ CUtensorMap map_k,
             sc, qf[kk],
             wgmma_desc_sw<128>(kt + (kk >> 2) * kWideBox) + (kk & 3) * 2);
       wgmma_commit();
+      // the last step's group has completed: within a block (c > 0) its
+      // slot is released here (a block's last step releases its own)
+      if (c < nc - 1) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int kk = 0; kk < kWideLanes / 16; ++kk) fence_acc(qp[kk]);
+        if (c > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+        ++it;
+        return;
+      }
       wgmma_wait<0>();
       fence_acc(sc);
 #pragma unroll
-      for (int kk = 0; kk < kWideLanes / 16; ++kk) fence_acc(qf[kk]);
+      for (int kk = 0; kk < kWideLanes / 16; ++kk) {
+        fence_acc(qf[kk]);
+        fence_acc(qp[kk]);
+      }
+      if (c > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
 
-      if (c == nc - 1) {
-        // + bias; keys past N masked where the block reaches them
-        const float* ba;
-        int lbo;
-        if constexpr (kTiles) {
-          ba = region + st * kArea;
-          lbo = 8 * 32;
-        } else {
-          ba = (slab ? region + j0 : region + st * kArea) + lin_a;
-          lbo = lin_b - lin_a;
+      // + bias; keys past N masked where the block reaches them
+      const float* ba;
+      int lbo;
+      if constexpr (kTiles) {
+        ba = area(it, pass, kb);
+        lbo = 8 * 32;
+      } else {
+        ba = (slab ? region + j0 : area(it, pass, kb)) + lin_a;
+        lbo = lin_b - lin_a;
+      }
+      auto off = [&](int t4) {
+        return kTiles ? toff[t4 & 3] + (t4 >> 2) * (kAttnLongQueries * 32)
+                      : 8 * t4;
+      };
+      auto pair = [&](const float* p) {
+        return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                              : make_float2(p[0], p[1]);
+      };
+      if (j0 + kAttnLongKeys <= N) {
+#pragma unroll
+        for (int t4 = 0; t4 < 8; ++t4) {
+          const float2 pa = pair(ba + off(t4)), pb = pair(ba + off(t4) + lbo);
+          sc[4 * t4] += pa.x;
+          sc[4 * t4 + 1] += pa.y;
+          sc[4 * t4 + 2] += pb.x;
+          sc[4 * t4 + 3] += pb.y;
         }
-        auto off = [&](int t) {
-          return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
-                        : 8 * t;
-        };
-        auto pair = [&](const float* p) {
-          return kTiles || even ? *reinterpret_cast<const float2*>(p)
-                                : make_float2(p[0], p[1]);
-        };
-        if (j0 + kAttnLongKeys <= N) {
+      } else {
 #pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
-            sc[4 * t] += pa.x;
-            sc[4 * t + 1] += pa.y;
-            sc[4 * t + 2] += pb.x;
-            sc[4 * t + 3] += pb.y;
-          }
-        } else {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const int j = j0 + t * 8 + 2 * tig;
-            add_bias(sc[4 * t], sc[4 * t + 1], pair(ba + off(t)), ra, j, N);
-            add_bias(sc[4 * t + 2], sc[4 * t + 3], pair(ba + off(t) + lbo),
-                     rb, j, N);
-          }
-        }
-
-        if (pass == 0) {
-          // pass 1: the row max over the quad, Σe rescaled to it
-          float bma = -INFINITY, bmb = -INFINITY;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            bma = fmaxf(bma, fmaxf(sc[4 * t], sc[4 * t + 1]));
-            bmb = fmaxf(bmb, fmaxf(sc[4 * t + 2], sc[4 * t + 3]));
-          }
-#pragma unroll
-          for (int w = 1; w <= 2; w <<= 1) {
-            bma = fmaxf(bma, __shfl_xor_sync(0xffffffffu, bma, w));
-            bmb = fmaxf(bmb, __shfl_xor_sync(0xffffffffu, bmb, w));
-          }
-          const float na = fmaxf(mxa, bma), nb = fmaxf(mxb, bmb);
-          const float la2 = na * kLog2e, lb2 = nb * kLog2e;
-          float ea = 0.f, eb = 0.f;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            ea += exp2f(fmaf(sc[4 * t], kLog2e, -la2)) +
-                  exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
-            eb += exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2)) +
-                  exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
-          }
-          suma = suma * exp2f((mxa - na) * kLog2e) + ea;
-          sumb = sumb * exp2f((mxb - nb) * kLog2e) + eb;
-          mxa = na;
-          mxb = nb;
-        } else {
-          const int part = pass - 1;
-          if (r == nc - 1) {  // a part's first block
-            if (part == 0) {  // Σe over the quad, once
-#pragma unroll
-              for (int w = 1; w <= 2; w <<= 1) {
-                suma += __shfl_xor_sync(0xffffffffu, suma, w);
-                sumb += __shfl_xor_sync(0xffffffffu, sumb, w);
-              }
-              inva = 1.0f / suma;
-              invb = 1.0f / sumb;
-            } else {
-              store(part - 1);
-#pragma unroll
-              for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
-            }
-          }
-          // pass 2: e against the final max
-          const float la2 = mxa * kLog2e, lb2 = mxb * kLog2e;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            sc[4 * t] = exp2f(fmaf(sc[4 * t], kLog2e, -la2));
-            sc[4 * t + 1] = exp2f(fmaf(sc[4 * t + 1], kLog2e, -la2));
-            sc[4 * t + 2] = exp2f(fmaf(sc[4 * t + 2], kLog2e, -lb2));
-            sc[4 * t + 3] = exp2f(fmaf(sc[4 * t + 3], kLog2e, -lb2));
-          }
-          if (kProbs && part == 0) {
-            // bf16(e · (1/Σe)), the warp's 16 x 64 tile staged in shared
-            // memory, then rows of 16-byte pieces
-            bf16* pw = pstage + warp * (16 * kAttnLongProbsLd);
-#pragma unroll
-            for (int t = 0; t < 8; ++t) {
-              const int cc = t * 8 + 2 * tig;
-              *reinterpret_cast<uint32_t*>(pw + g * kAttnLongProbsLd + cc) =
-                  pack_bf16(sc[4 * t] * inva, sc[4 * t + 1] * inva);
-              *reinterpret_cast<uint32_t*>(pw + (g + 8) * kAttnLongProbsLd +
-                                           cc) =
-                  pack_bf16(sc[4 * t + 2] * invb, sc[4 * t + 3] * invb);
-            }
-            __syncwarp();
-#pragma unroll
-            for (int i4 = 0; i4 < 4; ++i4) {
-              const int rw = i4 * 4 + (lane >> 3);  // the warp's row
-              const int cc = (lane & 7) * 8;        // its 8 keys
-              const int i = q0 + la - g + rw;
-              const int j = j0 + cc;
-              if (i < N && j < N) {
-                const bf16* from = pw + rw * kAttnLongProbsLd + cc;
-                bf16* to = probs +
-                           ((static_cast<long long>(b) * H + h) * N + i) * N +
-                           j;
-                if ((N & 7) == 0) {
-                  *reinterpret_cast<uint4*>(to) =
-                      *reinterpret_cast<const uint4*>(from);
-                } else {
-                  for (int e = 0; e < 8 && j + e < N; ++e) to[e] = from[e];
-                }
-              }
-            }
-            __syncwarp();
-          }
-          // P's A fragments: bf16(e), or bf16(e·(1/Σe)); O += P·V_part
-          const float fa = kNormFirst ? inva : 1.f;
-          const float fb = kNormFirst ? invb : 1.f;
-          uint32_t p[4][4];
-#pragma unroll
-          for (int jt = 0; jt < 4; ++jt) {
-            p[jt][0] = pack_bf16(sc[8 * jt] * fa, sc[8 * jt + 1] * fa);
-            p[jt][1] = pack_bf16(sc[8 * jt + 2] * fb, sc[8 * jt + 3] * fb);
-            p[jt][2] = pack_bf16(sc[8 * jt + 4] * fa, sc[8 * jt + 5] * fa);
-            p[jt][3] = pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb);
-          }
-          const unsigned char* vt = kt + kWideKV;
-          fence_acc(o);
-#pragma unroll
-          for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
-          wgmma_fence();
-#pragma unroll
-          for (int jt = 0; jt < 4; ++jt) long_pv<kWideLanes>(o, p[jt], vt, jt);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_acc(o);
-#pragma unroll
-          for (int jt = 0; jt < 4; ++jt) fence_acc(p[jt]);
+        for (int t4 = 0; t4 < 8; ++t4) {
+          const int j = j0 + t4 * 8 + 2 * tig;
+          add_bias(sc[4 * t4], sc[4 * t4 + 1], pair(ba + off(t4)), ra, j, N);
+          add_bias(sc[4 * t4 + 2], sc[4 * t4 + 3], pair(ba + off(t4) + lbo),
+                   rb, j, N);
         }
       }
-      mbar_arrive(&empty[st]);  // this thread is done with the stage
+
+      if (pass == 0) {
+        // pass 1: the row max over the quad, Σe rescaled to it
+        float bma = -INFINITY, bmb = -INFINITY;
+#pragma unroll
+        for (int t4 = 0; t4 < 8; ++t4) {
+          bma = fmaxf(bma, fmaxf(sc[4 * t4], sc[4 * t4 + 1]));
+          bmb = fmaxf(bmb, fmaxf(sc[4 * t4 + 2], sc[4 * t4 + 3]));
+        }
+#pragma unroll
+        for (int w = 1; w <= 2; w <<= 1) {
+          bma = fmaxf(bma, __shfl_xor_sync(0xffffffffu, bma, w));
+          bmb = fmaxf(bmb, __shfl_xor_sync(0xffffffffu, bmb, w));
+        }
+        const float na = fmaxf(mxa, bma), nb = fmaxf(mxb, bmb);
+        const float la2 = na * kLog2e, lb2 = nb * kLog2e;
+        float ea = 0.f, eb = 0.f;
+#pragma unroll
+        for (int t4 = 0; t4 < 8; ++t4) {
+          ea += exp2f(fmaf(sc[4 * t4], kLog2e, -la2)) +
+                exp2f(fmaf(sc[4 * t4 + 1], kLog2e, -la2));
+          eb += exp2f(fmaf(sc[4 * t4 + 2], kLog2e, -lb2)) +
+                exp2f(fmaf(sc[4 * t4 + 3], kLog2e, -lb2));
+        }
+        suma = suma * exp2f((mxa - na) * kLog2e) + ea;
+        sumb = sumb * exp2f((mxb - nb) * kLog2e) + eb;
+        mxa = na;
+        mxb = nb;
+      } else {
+        if (kb == 0) {  // Σe over the quad, once
+#pragma unroll
+          for (int w = 1; w <= 2; w <<= 1) {
+            suma += __shfl_xor_sync(0xffffffffu, suma, w);
+            sumb += __shfl_xor_sync(0xffffffffu, sumb, w);
+          }
+          inva = 1.0f / suma;
+          invb = 1.0f / sumb;
+        }
+        // pass 2: e against the final max
+        const float la2 = mxa * kLog2e, lb2 = mxb * kLog2e;
+#pragma unroll
+        for (int t4 = 0; t4 < 8; ++t4) {
+          sc[4 * t4] = exp2f(fmaf(sc[4 * t4], kLog2e, -la2));
+          sc[4 * t4 + 1] = exp2f(fmaf(sc[4 * t4 + 1], kLog2e, -la2));
+          sc[4 * t4 + 2] = exp2f(fmaf(sc[4 * t4 + 2], kLog2e, -lb2));
+          sc[4 * t4 + 3] = exp2f(fmaf(sc[4 * t4 + 3], kLog2e, -lb2));
+        }
+        if constexpr (kProbs) {
+          // bf16(e · (1/Σe)), the warp's 16 x 64 tile staged in shared
+          // memory, then rows of 16-byte pieces
+          bf16* pw = pstage + warp * (16 * kAttnLongProbsLd);
+#pragma unroll
+          for (int t4 = 0; t4 < 8; ++t4) {
+            const int cc = t4 * 8 + 2 * tig;
+            *reinterpret_cast<uint32_t*>(pw + g * kAttnLongProbsLd + cc) =
+                pack_bf16(sc[4 * t4] * inva, sc[4 * t4 + 1] * inva);
+            *reinterpret_cast<uint32_t*>(pw + (g + 8) * kAttnLongProbsLd +
+                                         cc) =
+                pack_bf16(sc[4 * t4 + 2] * invb, sc[4 * t4 + 3] * invb);
+          }
+          __syncwarp();
+#pragma unroll
+          for (int i4 = 0; i4 < 4; ++i4) {
+            const int rw = i4 * 4 + (lane >> 3);  // the warp's row
+            const int cc = (lane & 7) * 8;        // its 8 keys
+            const int i = q0 + la - g + rw;
+            const int j = j0 + cc;
+            if (i < N && j < N) {
+              const bf16* from = pw + rw * kAttnLongProbsLd + cc;
+              bf16* to = probs +
+                         ((static_cast<long long>(b) * H + h) * N + i) * N +
+                         j;
+              if ((N & 7) == 0) {
+                *reinterpret_cast<uint4*>(to) =
+                    *reinterpret_cast<const uint4*>(from);
+              } else {
+                for (int e = 0; e < 8 && j + e < N; ++e) to[e] = from[e];
+              }
+            }
+          }
+          __syncwarp();
+        }
+        // P's A fragments, bf16(e) or bf16(e·(1/Σe)), into the slot
+        const float fa = kNormFirst ? inva : 1.f;
+        const float fb = kNormFirst ? invb : 1.f;
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt)
+          slot[(kb * 4 + jt) * 256 + threadIdx.x] = make_uint4(
+              pack_bf16(sc[8 * jt] * fa, sc[8 * jt + 1] * fa),
+              pack_bf16(sc[8 * jt + 2] * fb, sc[8 * jt + 3] * fb),
+              pack_bf16(sc[8 * jt + 4] * fa, sc[8 * jt + 5] * fa),
+              pack_bf16(sc[8 * jt + 6] * fb, sc[8 * jt + 7] * fb));
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the slot
+      ++it;
+    };
+
+    // P·V step u of the sample's pass_steps: O += P·V_part over block kb
+    // (part u / kblocks, kb = u mod kblocks), P in pf (from pn), the last
+    // step's in pp
+    auto pv_step = [&](int u, uint32_t(&pf)[4][4], uint32_t(&pp)[4][4]) {
+      const int part = u / kblocks;
+      const int kb = u % kblocks;
+#pragma unroll
+      for (int jt = 0; jt < 4; ++jt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pf[jt][i] = pn[jt][i];
+      if (u + 1 < pass_steps) load_p((u + 1) % kblocks);
+      const int st = it % kWideSlots;
+      mbar_wait(&full[st], (it / kWideSlots) & 1);
+      const unsigned char* vt = smem + st * kWideSlot;
+      if (kb == 0) fence_acc(o);
+#pragma unroll
+      for (int jt = 0; jt < 4; ++jt) fence_acc(pf[jt]);
+      wgmma_fence();
+#pragma unroll
+      for (int jt = 0; jt < 4; ++jt) long_pv<kWideLanes>(o, pf[jt], vt, jt);
+      wgmma_commit();
+      // the last step's slot, within a part (kb > 0), as in s_step
+      if (kb < kblocks - 1) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) fence_acc(pp[jt]);
+        if (kb > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(o);
+#pragma unroll
+        for (int jt = 0; jt < 4; ++jt) {
+          fence_acc(pf[jt]);
+          fence_acc(pp[jt]);
+        }
+        if (kb > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+        mbar_arrive(&empty[st]);
+        store(part);
+#pragma unroll
+        for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
+      }
+      ++it;
+    };
+
+    for (int t = 0; t < 2 * pass_steps; t += 2) {
+      s_step(t, qe, qo);
+      s_step(t + 1, qo, qe);
     }
-    store(nc - 1);
+    load_p(0);
+#pragma unroll
+    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0.f;
+    for (int u = 0; u < pass_steps; u += 2) {
+      pv_step(u, pe, po);
+      if (u + 1 < pass_steps) pv_step(u + 1, po, pe);
+    }
   }
 }
 
@@ -1871,30 +2026,30 @@ inline cudaError_t attention_wide_launch(const CUtensorMap& map_k,
                                          const bf16* q, long long ld,
                                          const float* bias, bf16* out,
                                          bf16* probs, int B, int N, int C,
-                                         int H, int mode,
+                                         int H, int mode, void* scratch,
                                          cudaStream_t stream) {
   auto* kern = attention_wide_kernel<kProbs, kNormFirst, kTiles>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
-                  long_sample_groups(B, N, H, 1, mode), H);
+                  wide_sample_groups(B, N, H), H);
   const int d = C / H;
-  kern<<<grid, 256, kAttnLongSmem, stream>>>(map_k, map_v, map_b, q, ld,
-                                             bias, out, probs, B, N, C, d,
-                                             mode == kBiasSlab,
-                                             bf16_q_scale(d));
+  kern<<<grid, kWideCtaThreads, kAttnLongSmem, stream>>>(
+      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, d,
+      mode == kBiasSlab, bf16_q_scale(d), static_cast<uint4*>(scratch));
   return cudaGetLastError();
 }
 
 // The wide form at head width C / H: K and V by the long route's 4-D maps
-// (boxes of 64 lanes), the bias in the form its region takes.
+// (boxes of 64 lanes), the bias in the form its region takes, P through
+// `scratch`.
 template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_wide_run(const bf16* q, const bf16* k,
                                       const bf16* v, long long ld,
                                       const float* bias, bf16* out,
                                       bf16* probs, int B, int N, int C, int H,
-                                      cudaStream_t stream) {
+                                      void* scratch, cudaStream_t stream) {
   const int mode = long_bias_mode(N, wide_region_bytes(kProbs));
   CUtensorMap map_k, map_v, map_b;
   cudaError_t e = attn_long_map(&map_k, k, ld, B, N, H, C / H);
@@ -1905,10 +2060,11 @@ inline cudaError_t attention_wide_run(const bf16* q, const bf16* k,
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_wide_launch<kProbs, kNormFirst, true>(
         map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, H, mode,
-        stream);
+        scratch, stream);
   }
   return attention_wide_launch<kProbs, kNormFirst, false>(
-      map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H, mode, stream);
+      map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H, mode, scratch,
+      stream);
 }
 
 // A long-route plan (`attention_plan` with route "long", or K4a's
@@ -1931,14 +2087,19 @@ inline bool attn_long_plan_ok(const int* plan, int B, int N, int H, int d,
 // 16-key tile bucket, the warps of a CTA, the samples of a CTA and the
 // shared bytes of the short core (at the instance's width), or the long
 // route's plan (attn_long_plan_ok), which launches attention_long_kernel
-// (its q, k, v and bias 16-byte aligned); a width or plan the kernels do
-// not take is refused with cudaErrorInvalidValue.
+// (its q, k, v and bias 16-byte aligned), or on the wide form
+// attention_wide_kernel with `scratch` (not null, 16-byte aligned, and
+// `scratch_bytes` at least wide_slot_bytes's; unread elsewhere); a width,
+// plan or scratch the kernels do not take is refused with
+// cudaErrorInvalidValue.
 template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const bf16* v, long long ld,
                                     const float* bias, bf16* out, bf16* probs,
                                     int B, int N, int C, int H,
-                                    const int* plan, cudaStream_t stream) {
+                                    const int* plan, void* scratch,
+                                    long long scratch_bytes,
+                                    cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   const int w = core_width(d);
@@ -1964,8 +2125,12 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
         return attention_long_run<256, kProbs, kNormFirst>(
             q, k, v, ld, bias, out, probs, B, N, C, H, stream);
       case kWideCore:
+        if (scratch == nullptr ||
+            (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+            scratch_bytes < wide_slot_bytes(B, N, H, kWidePBlock))
+          return cudaErrorInvalidValue;
         return attention_wide_run<kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scratch, stream);
       default:
         return cudaErrorInvalidValue;
     }
@@ -1998,18 +2163,20 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
 template <bool kProbs>
 inline cudaError_t attention_qkv(const bf16* qkv, const float* bias,
                                  bf16* out, bf16* probs, int B, int N, int C,
-                                 int H, const int* plan,
+                                 int H, const int* plan, void* scratch,
+                                 long long scratch_bytes,
                                  cudaStream_t stream) {
   return attention_launch<kProbs, false>(qkv, qkv + C, qkv + 2 * C, 3LL * C,
                                          bias, out, probs, B, N, C, H, plan,
-                                         stream);
+                                         scratch, scratch_bytes, stream);
 }
 
 inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
                              int B, int N, int C, int H, const int* plan,
+                             void* scratch, long long scratch_bytes,
                              cudaStream_t stream) {
   return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, plan,
-                              stream);
+                              scratch, scratch_bytes, stream);
 }
 
 }  // namespace

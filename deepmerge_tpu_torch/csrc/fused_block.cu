@@ -366,8 +366,8 @@ constexpr int kParams = 13;
 // attention core's kAttnPlanInts, then the GEMM's six (gemm_plan_ok).
 cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
                           int H, int hidden, const void* const* p, bf16* qkv,
-                          bf16* att, bf16* r, bf16* hbuf, const int* plan,
-                          cudaStream_t stream) {
+                          bf16* att, bf16* r, bf16* hbuf, long long h_bytes,
+                          const int* plan, cudaStream_t stream) {
   if (!gemm_plan_ok(plan + kAttnPlanInts)) return cudaErrorInvalidValue;
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
@@ -391,9 +391,9 @@ cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
   e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * C, C, stream);
   if (e != cudaSuccess) return e;
 
-  if ((e = attention(qkv, bias, att, B, N, C, H, plan, stream)) !=
-      cudaSuccess)
-    return e;
+  // h, free until the up GEMM, is the wide form's scratch too
+  e = attention(qkv, bias, att, B, N, C, H, plan, hbuf, h_bytes, stream);
+  if (e != cudaSuccess) return e;
 
   e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, C, stream);
   if (e != cudaSuccess) return e;
@@ -409,7 +409,8 @@ cudaError_t block_train_forward(const bf16* x, bf16* out, int B, int N,
                                 int C, int H, int hidden,
                                 const void* const* p, bf16* qkv, bf16* probs,
                                 bf16* gin, bf16* r, bf16* att, bf16* hbuf,
-                                const int* plan, cudaStream_t stream) {
+                                long long h_bytes, const int* plan,
+                                cudaStream_t stream) {
   if (!gemm_plan_ok(plan + kAttnPlanInts)) return cudaErrorInvalidValue;
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
@@ -432,7 +433,8 @@ cudaError_t block_train_forward(const bf16* x, bf16* out, int B, int N,
   e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * C, C, stream);
   if (e != cudaSuccess) return e;
   e = attention_launch<true, true>(qkv, qkv + C, qkv + 2 * C, 3LL * C, bias,
-                                   att, probs, B, N, C, H, plan, stream);
+                                   att, probs, B, N, C, H, plan, hbuf,
+                                   h_bytes, stream);
   if (e != cudaSuccess) return e;
   e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, C, stream);
   if (e != cudaSuccess) return e;
@@ -453,20 +455,23 @@ const char* dm_error_string(int err) {
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
 // overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
-// hidden), all bf16. Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192,
-// C <= 8192, hidden % 8 == 0, N <= 16384 and 16-byte aligned tensors
-// (checked by the caller); `plan` is the wrapper's launch plan
+// hidden), all bf16, h of `h_bytes`; on the attention's wide form (d >
+// 256) h is also its scratch and holds at least the plan's `scratch` bytes
+// (ops/kernels/fused_block.py `wide_scratch`; a smaller h is refused).
+// Requires C == H·d with
+// d % 8 == 0 and 8 <= d <= 8192, C <= 8192, hidden % 8 == 0, N <= 16384
+// and 16-byte aligned tensors (checked by the caller); `plan` is the wrapper's launch plan
 // (`block_plan`: the short attention core up to N 256, the long route
 // above and at every N for d > 128), and a plan the kernels do not take is
 // refused. Returns cudaGetLastError().
 int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
                      int hidden, const void* const* params, void* qkv,
-                     void* att, void* r, void* h, const int* plan,
-                     cudaStream_t stream) {
+                     void* att, void* r, void* h, long long h_bytes,
+                     const int* plan, cudaStream_t stream) {
   return static_cast<int>(block_forward(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H, hidden,
       params, static_cast<bf16*>(qkv), static_cast<bf16*>(att),
-      static_cast<bf16*>(r), static_cast<bf16*>(h), plan, stream));
+      static_cast<bf16*>(r), static_cast<bf16*>(h), h_bytes, plan, stream));
 }
 
 // `depth` blocks back to back: block 0 reads x and writes out, every later
@@ -476,13 +481,14 @@ int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
 // dm_block_forward.
 int dm_chain_forward(const void* x, void* out, int B, int N, int C, int H,
                      int hidden, int depth, const void* const* params,
-                     void* qkv, void* att, void* r, void* h, const int* plan,
+                     void* qkv, void* att, void* r, void* h,
+                     long long h_bytes, const int* plan,
                      cudaStream_t stream) {
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
     const int err = dm_block_forward(in, out, B, N, C, H, hidden,
                                      params + kParams * i, qkv, att, r, h,
-                                     plan, stream);
+                                     h_bytes, plan, stream);
     if (err != 0) return err;
   }
   return 0;
@@ -491,18 +497,19 @@ int dm_chain_forward(const void* x, void* out, int B, int N, int C, int H,
 // K5, the training forward of one block: out = block(x) with the attention
 // normalized before its value product, and the backward's residuals: qkv
 // (B·N, 3C), probs (B, H, N, N), gin (B·N, hidden) and r (B·N, C), bf16.
-// Scratch: att (B·N, C), h (B·N, hidden), bf16. Same requirements and plan
-// as dm_block_forward; no two buffers overlap.
+// Scratch: att (B·N, C), h (B·N, hidden), bf16 (on the wide form as in
+// dm_block_forward). Same requirements and plan as dm_block_forward; no
+// two buffers overlap.
 int dm_block_train_forward(const void* x, void* out, int B, int N, int C,
                            int H, int hidden, const void* const* params,
                            void* qkv, void* probs, void* gin, void* r,
-                           void* att, void* h, const int* plan,
-                           cudaStream_t stream) {
+                           void* att, void* h, long long h_bytes,
+                           const int* plan, cudaStream_t stream) {
   return static_cast<int>(block_train_forward(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
       hidden, params, static_cast<bf16*>(qkv), static_cast<bf16*>(probs),
       static_cast<bf16*>(gin), static_cast<bf16*>(r), static_cast<bf16*>(att),
-      static_cast<bf16*>(h), plan, stream));
+      static_cast<bf16*>(h), h_bytes, plan, stream));
 }
 
 // The blocks' LayerNorm alone (its measurement and tests): y (M, C) bf16

@@ -1866,17 +1866,23 @@ attention_q8_long_kernel(const __grid_constant__ CUtensorMap map_k,
 //    at a time through shared memory;
 //  * the core (attention_q8_wide_kernel): S = Σ_c qi_c·ki_cᵀ by wgmma
 //    m64n64k32 s8 over 128-lane chunks (s32 sums, exact in any order), the
-//    chunk's q codes from the scratch into the A fragments at each step,
-//    k's chunk (four 32-byte boxes of 64 keys, 8 KB) and its 64 row scales
-//    through a three-stage ring, vᵀ's part (128 rows of 64 slots) and the
-//    bias with each block's last chunk; pass 1 the exact row max, pass 2
-//    once for each 128-lane part of O (Σpq in the first). The logits,
-//    codes and output are the short core's arithmetic (q8_logits' order,
-//    prob_code, __fmul_rn), so the output equals attention_q8_ref's bit for
-//    bit.
+//    chunk's q codes from the scratch into the A fragments a step ahead,
+//    k's chunk (four 32-byte boxes of 64 keys, 8 KB; at a block's last
+//    chunk its 64 row scales and the bias) or vᵀ's part of a block (128
+//    rows of 64 slots) one slot of a six-slot ring a step, filled by a
+//    producer warpgroup of its own, each step's wgmma group waited on at
+//    the next, as the bf16 wide form's; pass 1 the exact row max; pass 2
+//    the s32 logits once a key block, pq's codes and their exact sum Σpq
+//    from them, the codes written once (the thread's 8 A-fragment
+//    registers of the block, 32 bytes) into the CTA's slot of the
+//    scratch; then O += pq·vi over the blocks once for each 128-lane part
+//    of O, each thread reading back its codes a step ahead. The logits, codes and output are the short core's arithmetic
+//    (q8_logits' order, prob_code, __fmul_rn), so the output equals
+//    attention_q8_ref's bit for bit.
 // Scratch (attention_q8_long_scratch at d > 256): k, vᵀ and q codes
 // (3·B·H·Np·Dw bytes), k's row scales (B·H·Np f32), v's column scales
-// (B·H·Dw f32), q's row scales (B·H·Np f32).
+// (B·H·Dw f32), q's row scales (B·H·Np f32), then the core's slots, one
+// for each CTA of its persistent grid, 128 x Np bytes each.
 
 __host__ __device__ constexpr int q8_wide_width(int d) {
   return wide_chunks(d) * kWideLanes;
@@ -1889,6 +1895,7 @@ struct Q8WideScratch {
   float* ks;
   float* vs;
   float* qs;
+  uint4* pc;  // the core's slots (16-byte aligned: Np % 64, Dw % 128 == 0)
 };
 
 inline Q8WideScratch q8_wide_scratch(void* base, int B, int N, int H,
@@ -1902,7 +1909,24 @@ inline Q8WideScratch q8_wide_scratch(void* base, int B, int N, int H,
   s.ks = reinterpret_cast<float*>(s.qc + bh * np * dw);
   s.vs = s.ks + bh * np;
   s.qs = s.vs + bh * dw;
+  s.pc = reinterpret_cast<uint4*>(s.qs + bh * np);
   return s;
+}
+
+// Bytes of the long route's scratch at head width d (the wrapper's
+// attention_q8_long_scratch): the pre-pass's operands (q8_long_scratch's
+// at the core width, q8_wide_scratch's on the wide form), and with `slots`
+// the wide core's slots after them. The launches refuse a smaller one.
+inline long long q8_scratch_bytes(int B, int N, int H, int d, bool slots) {
+  const long long np = q8_long_np(N), bh = static_cast<long long>(B) * H;
+  if (core_width(d) != kWideCore) {
+    const long long w = core_width(d);
+    return bh * (2 * np * w + 4 * np + 4 * w);
+  }
+  const long long dw = q8_wide_width(d);
+  return bh * (3 * np * dw + 8 * np + 4 * dw) +
+         (slots ? wide_slot_bytes(B, N, H, kAttnLongQueries * kAttnLongKeys)
+                : 0);
 }
 
 // The wide pre-pass (see above) of (sample, head) blockIdx.x = b·H + h.
@@ -2044,26 +2068,26 @@ attention_q8_prepass_wide_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-// The wide core's shared memory from its 1024-aligned start: the ring
-// (a stage: a 64-key block's 128-lane chunk of k codes, vᵀ's 128-row part
-// of it, k's 64 row scales; on 1 KB, 17,408 B), the bias region (179,136
-// B: three tile or row areas, or a slab up to N 349), the barriers.
+// The wide core's shared memory from its 1024-aligned start: the ring of
+// kWideSlots slots (a slot: a 64-key block's 128-lane chunk of k codes and
+// k's 64 row scales, or vᵀ's 128-row part of the block; on 1 KB, 9,216 B),
+// the bias region (176,016 B: kWideAreas tile or row areas, or a slab up
+// to N 343), the barriers.
 constexpr int kQ8WideTile = kAttnLongKeys * kWideLanes;  // 8 KB of codes
-constexpr int kQ8WideStage =
-    (2 * kQ8WideTile + kAttnLongKeys * 4 + 1023) / 1024 * 1024;
+constexpr int kQ8WideSlot =
+    (kQ8WideTile + kAttnLongKeys * 4 + 1023) / 1024 * 1024;
 __host__ __device__ constexpr int q8_wide_region_bytes() {
-  return kAttnLongSmem - 1024 - kQ8LongStages * kQ8WideStage -
-         q8_long_bar_bytes();
+  return kAttnLongSmem - 1024 - kWideSlots * kQ8WideSlot - wide_bar_bytes();
 }
 
 // The wide core (see above). map_k reads k codes as (Dw bytes, B·H·Np
 // rows) in boxes of 32 bytes x 64 rows, map_v vᵀ codes as (Np bytes,
-// B·H·Dw rows) in boxes of 64 bytes x 128 rows; q's codes and the scales
-// are read from the scratch `sc`; the bias and the output as
-// attention_q8_long_kernel's; one sample a CTA (blockIdx.y, + gridDim.y,
-// ...).
+// B·H·Dw rows) in boxes of 64 bytes x 128 rows; q's codes, the scales and
+// the slots are the scratch `sc`'s; the bias and the output as
+// attention_q8_long_kernel's; the grid as attention_wide_kernel's
+// (persistent, one sample at a time).
 template <bool kStatic, bool kTiles>
-__global__ void __launch_bounds__(256, 1)
+__global__ void __launch_bounds__(kWideCtaThreads, 1)
 attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
                          const __grid_constant__ CUtensorMap map_b,
@@ -2071,20 +2095,19 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
                          const float* __restrict__ s_qkv,
                          bf16* __restrict__ out, int B, int N, int C, int d,
                          bool slab, float scale) {
-  constexpr int kStages = kQ8LongStages;
-  constexpr int kScaleOff = 2 * kQ8WideTile;  // k's row scales
+  constexpr int kScaleOff = kQ8WideTile;  // k's row scales in a k slot
   constexpr int kScaleBytes = kAttnLongKeys * 4;
   constexpr int kKBox = kAttnLongKeys * 32;  // a 32-lane box of k codes
-  constexpr int kArea = kAttnLongBiasBytes / 4;  // a stage's bias area, floats
+  constexpr int kArea = kAttnLongBiasBytes / 4;  // a bias area, floats
   extern __shared__ unsigned char q8_wide_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(q8_wide_raw) + 1023) &
       ~static_cast<uintptr_t>(1023));
-  float* region = reinterpret_cast<float*>(smem + kStages * kQ8WideStage);
+  float* region = reinterpret_cast<float*>(smem + kWideSlots * kQ8WideSlot);
   uint64_t* full = reinterpret_cast<uint64_t*>(
-      smem + kStages * kQ8WideStage + q8_wide_region_bytes());
-  uint64_t* empty = full + kStages;
-  uint64_t* slab_full = empty + kStages;
+      smem + kWideSlots * kQ8WideSlot + q8_wide_region_bytes());
+  uint64_t* empty = full + kWideSlots;
+  uint64_t* slab_full = empty + kWideSlots;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -2098,14 +2121,21 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
   const float* bias_end = bias + static_cast<long long>(H) * N * N;
   const bool rows_form = !kTiles && !slab;
   const int kblocks = (N + kAttnLongKeys - 1) / kAttnLongKeys;
-  const int nc = dw / kWideLanes;           // chunks of S, parts of pass 2
-  const int pass_steps = kblocks * nc;      // one pass over the key blocks
-  const int steps = (1 + nc) * pass_steps;  // a sample's
+  const int nc = dw / kWideLanes;       // chunks of S, parts of P·V
+  const int pass_steps = kblocks * nc;  // a pass over the blocks' chunks
+  const int steps = 3 * pass_steps;     // a sample's: pass 1, S, P·V
   const int slab_shift = bias_shift(bias_h + static_cast<long long>(q0) * N);
   const float* slab_src = bias_h + static_cast<long long>(q0) * N - slab_shift;
+  // the CTA's slot: thread t's 16-byte piece i of block kb's codes at
+  // (kb·2 + i)·256 + t
+  uint4* slot =
+      sc.pc + (static_cast<long long>(blockIdx.z * gridDim.y + blockIdx.y) *
+                   gridDim.x +
+               blockIdx.x) *
+                  kblocks * 512;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kWideSlots; ++s) {
       mbar_init(&full[s], rows_form ? 1 + 32 : 1);
       mbar_init(&empty[s], 256);
     }
@@ -2114,35 +2144,48 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
   }
   __syncthreads();
 
-  // Warp 0's loads for global step g (as attention_wide_kernel's): k's
-  // chunk, and at a block's last chunk k's scales, the bias and in pass 2
-  // vᵀ's part.
+  // the bias area of a block end, as attention_wide_kernel's
+  auto area = [&](int g, int pass, int kb) {
+    return region +
+           ((g / steps) * 2 * kblocks + pass * kblocks + kb) % kWideAreas *
+               kArea;
+  };
+
+  // The producer warp's loads for global step g (as
+  // attention_wide_kernel's): k's chunk, at a block's last chunk with k's
+  // scales and the bias; or vᵀ's part.
   auto produce = [&](int g) {
     const int b = blockIdx.y + (g / steps) * gridDim.y;
     if (b >= B) return;
     const int s = g % steps;
-    const int st = g % kStages;
-    if (g >= kStages) mbar_wait(&empty[st], ((g / kStages) & 1) ^ 1);
-    unsigned char* kv = smem + st * kQ8WideStage;
-    float* bt = region + st * kArea;
+    const int st = g % kWideSlots;
+    if (g >= kWideSlots) mbar_wait(&empty[st], ((g / kWideSlots) & 1) ^ 1);
+    unsigned char* kv = smem + st * kQ8WideSlot;
     const int pass = s / pass_steps;
     const int r = s % pass_steps;
-    const int c = r % nc;
-    const int j0 = (r / nc) * kAttnLongKeys;
-    const bool last = c == nc - 1;
     const long long bh = static_cast<long long>(b) * H + h;
+    if (pass == 2) {  // vᵀ's part r / kblocks of block r mod kblocks
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], kQ8WideTile);
+        tma_load_2d(kv, &map_v, &full[st], (r % kblocks) * kAttnLongKeys,
+                    static_cast<int>(bh * dw + (r / kblocks) * kWideLanes));
+      }
+      if (rows_form) mbar_expect_tx(&full[st], 0);
+      return;
+    }
+    const int c = r % nc;
+    const int kb = r / nc;
+    const int j0 = kb * kAttnLongKeys;
+    const bool last = c == nc - 1;
+    float* bt = area(g, pass, kb);
     if (lane == 0) {
       mbar_expect_tx(&full[st],
-                     kQ8WideTile + (pass > 0 && last ? kQ8WideTile : 0) +
-                         (!kStatic && last ? kScaleBytes : 0) +
+                     kQ8WideTile + (!kStatic && last ? kScaleBytes : 0) +
                          (kTiles && last ? 2 * kAttnLongQueries * 128 : 0));
 #pragma unroll
       for (int x = 0; x < kWideLanes / 32; ++x)
         tma_load_2d(kv + x * kKBox, &map_k, &full[st],
                     c * kWideLanes + 32 * x, static_cast<int>(bh * np + j0));
-      if (pass > 0 && last)
-        tma_load_2d(kv + kQ8WideTile, &map_v, &full[st], j0,
-                    static_cast<int>(bh * dw + (pass - 1) * kWideLanes));
       if (!kStatic && last)
         bulk_load(kv + kScaleOff, sc.ks + bh * np + j0, kScaleBytes,
                   &full[st]);
@@ -2161,15 +2204,20 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
     }
   };
 
-  if (warp == 0) {
-    if (slab && lane == 0)
-      long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
-    __syncwarp();
-    produce(0);  // two steps ahead
-    __syncwarp();
-    produce(1);
-    __syncwarp();
+  if (warp >= 8) {  // the producer warpgroup: warp 8 loads, 9-11 idle
+    wide_producer_regs();
+    if (warp == 8) {
+      if (slab && lane == 0)
+        long_bias_slab(region, slab_src, bias_end, N, slab_shift, slab_full);
+      __syncwarp();
+      for (int g = 0; blockIdx.y + (g / steps) * gridDim.y < B; ++g) {
+        produce(g);
+        __syncwarp();
+      }
+    }
+    return;
   }
+  wide_consumer_regs();
 
   const int wg = warp >> 2;
   const int wq = warp & 3;
@@ -2195,54 +2243,60 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
 
   int o[kWideLanes / 2];  // a part's O, wgmma's layout
   int sci[32];            // a key block's s32 sums over its chunks
-  int it = 0;             // the global step
+  // q's codes of the even and the odd S steps and of the next step; pq's
+  // A fragments of the even and the odd P·V steps and of the next step
+  uint32_t qe[kWideLanes / 32][4], qo[kWideLanes / 32][4],
+      qn[kWideLanes / 32][4];
+  uint32_t pe[2][4], po[2][4], pn[2][4];
+  int it = 0;  // the global step
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
     const long long row0 = static_cast<long long>(b) * N;
     const long long bh = static_cast<long long>(b) * H + h;
     // q's dequantizing factors of the thread's rows (s_q·d^-½, as the
     // short core's), and its rows of codes in the scratch
+    // (rows past N read row 0's and drop it, without a branch)
+    const int ia = ra < N ? ra : 0, ib = rb < N ? rb : 0;
+    const float qsa = kStatic ? 1.0f : sc.qs[bh * np + ia];
+    const float qsb = kStatic ? 1.0f : sc.qs[bh * np + ib];
     const float cqa =
-        kStatic ? c_static
-                : __fmul_rn(ra < N ? sc.qs[bh * np + ra] : 1.0f, scale);
+        kStatic ? c_static : __fmul_rn(ra < N ? qsa : 1.0f, scale);
     const float cqb =
-        kStatic ? c_static
-                : __fmul_rn(rb < N ? sc.qs[bh * np + rb] : 1.0f, scale);
-    const signed char* qra = sc.qc + (bh * np + (ra < N ? ra : 0)) * dw;
-    const signed char* qrb = sc.qc + (bh * np + (rb < N ? rb : 0)) * dw;
-    // q's codes of chunk c, the mma.sync m16n8k32 A layout of each k
-    // step: lanes 32kk + 4·tig..+3 and + 16 of rows ra, rb (0 past N);
-    // loaded a step ahead (qn)
-    uint32_t qa[kWideLanes / 32][4], qn[kWideLanes / 32][4];
+        kStatic ? c_static : __fmul_rn(rb < N ? qsb : 1.0f, scale);
+    const signed char* qra = sc.qc + (bh * np + ia) * dw;
+    const signed char* qrb = sc.qc + (bh * np + ib) * dw;
+    // q's codes of chunk c into qn, the mma.sync m16n8k32 A layout of each
+    // k step: lanes 32kk + 4·tig..+3 and + 16 of rows ra, rb (0 past N;
+    // read from row 0 there and dropped, without a branch)
     auto load_q = [&](int c) {
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 32; ++kk) {
         const int l0 = c * kWideLanes + kk * 32 + 4 * tig;
-        qn[kk][0] =
-            ra < N ? *reinterpret_cast<const uint32_t*>(qra + l0) : 0u;
-        qn[kk][1] =
-            rb < N ? *reinterpret_cast<const uint32_t*>(qrb + l0) : 0u;
-        qn[kk][2] =
-            ra < N ? *reinterpret_cast<const uint32_t*>(qra + l0 + 16) : 0u;
-        qn[kk][3] =
-            rb < N ? *reinterpret_cast<const uint32_t*>(qrb + l0 + 16) : 0u;
+        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qra + l0);
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qrb + l0);
+        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(qra + l0 + 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qrb + l0 + 16);
+        qn[kk][0] = ra < N ? a0 : 0u;
+        qn[kk][1] = rb < N ? b0 : 0u;
+        qn[kk][2] = ra < N ? a1 : 0u;
+        qn[kk][3] = rb < N ? b1 : 0u;
+      }
+    };
+    // pq's codes of block kb into pn, from the slot
+    auto load_p = [&](int kb) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 v = slot[(kb * 2 + i) * 256 + threadIdx.x];
+        pn[i][0] = v.x;
+        pn[i][1] = v.y;
+        pn[i][2] = v.z;
+        pn[i][3] = v.w;
       }
     };
     load_q(0);
     float mxa = -INFINITY, mxb = -INFINITY;  // the thread's, then the quad's
     int suma = 0, sumb = 0;                  // this thread's part of Σpq
     float inva = 0.f, invb = 0.f;
-#pragma unroll
-    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
 
-    auto sums = [&]() {
-#pragma unroll
-      for (int w = 1; w <= 2; w <<= 1) {
-        suma += __shfl_xor_sync(fullmask, suma, w);
-        sumb += __shfl_xor_sync(fullmask, sumb, w);
-      }
-      inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
-      invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
-    };
     // out = bf16((O · 1/Σpq) · s_v): part `part`'s lanes below d
     auto store = [&](int part) {
 #pragma unroll
@@ -2279,165 +2333,216 @@ attention_q8_wide_kernel(const __grid_constant__ CUtensorMap map_k,
       }
     };
 
-    for (int s = 0; s < steps; ++s, ++it) {
-      if (warp == 0) {
-        produce(it + 2);
-        __syncwarp();
-      }
-      const int pass = s / pass_steps;
-      const int r = s % pass_steps;
+    // S step t of the sample's 2·pass_steps (pass 1, then pass 2's S), as
+    // attention_wide_kernel's: q's codes in qf (from qn), the last step's
+    // in qp
+    auto s_step = [&](int t, uint32_t(&qf)[kWideLanes / 32][4],
+                      uint32_t(&qp)[kWideLanes / 32][4]) {
+      const int pass = t / pass_steps;
+      const int r = t % pass_steps;
       const int c = r % nc;
-      const int j0 = (r / nc) * kAttnLongKeys;
+      const int kb = r / nc;
+      const int j0 = kb * kAttnLongKeys;
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 32; ++kk)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qa[kk][i] = qn[kk][i];
-      if (s + 1 < steps) load_q(((s + 1) % pass_steps) % nc);
-      const int st = it % kStages;
-      mbar_wait(&full[st], (it / kStages) & 1);
-      const unsigned char* stage = smem + st * kQ8WideStage;
+        for (int i = 0; i < 4; ++i) qf[kk][i] = qn[kk][i];
+      if (t + 1 < 2 * pass_steps) load_q((t + 1) % nc);
+      const int st = it % kWideSlots;
+      mbar_wait(&full[st], (it / kWideSlots) & 1);
+      const unsigned char* stage = smem + st * kQ8WideSlot;
 
       // S += qi_c·ki_cᵀ, 32 lanes a k step, each from its own 32-byte box
       if (c == 0) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) sci[i] = 0;
+        fence_acc(sci);
       }
-      fence_acc(sci);
 #pragma unroll
-      for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qa[kk]);
+      for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qf[kk]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kWideLanes / 32; ++kk)
-        wgmma_s8_m64n64k32_rs(sci, qa[kk],
+        wgmma_s8_m64n64k32_rs(sci, qf[kk],
                               wgmma_desc_sw<32>(stage + kk * kKBox));
       wgmma_commit();
+      // the last step's group has completed: within a block (c > 0) its
+      // slot is released here (a block's last step releases its own)
+      if (c < nc - 1) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qp[kk]);
+        if (c > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+        ++it;
+        return;
+      }
       wgmma_wait<0>();
       fence_acc(sci);
 #pragma unroll
-      for (int kk = 0; kk < kWideLanes / 32; ++kk) fence_acc(qa[kk]);
+      for (int kk = 0; kk < kWideLanes / 32; ++kk) {
+        fence_acc(qf[kk]);
+        fence_acc(qp[kk]);
+      }
+      if (c > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
 
-      if (c == nc - 1) {
-        // the logits, dequantized in the JAX order, + bias; keys past N
-        // masked where the block reaches them
-        const float* skp =
-            reinterpret_cast<const float*>(stage + kScaleOff);
-        const float* ba;
-        int lbo;
-        if constexpr (kTiles) {
-          ba = region + st * kArea;
-          lbo = 8 * 32;
-        } else {
-          ba = (slab ? region + j0 : region + st * kArea) + lin_a;
-          lbo = lin_b - lin_a;
+      // the logits, dequantized in the JAX order, + bias; keys past N
+      // masked where the block reaches them
+      const float* skp = reinterpret_cast<const float*>(stage + kScaleOff);
+      const float* ba;
+      int lbo;
+      if constexpr (kTiles) {
+        ba = area(it, pass, kb);
+        lbo = 8 * 32;
+      } else {
+        ba = (slab ? region + j0 : area(it, pass, kb)) + lin_a;
+        lbo = lin_b - lin_a;
+      }
+      auto off = [&](int t4) {
+        return kTiles ? toff[t4 & 3] + (t4 >> 2) * (kAttnLongQueries * 32)
+                      : 8 * t4;
+      };
+      auto pair = [&](const float* p) {
+        return kTiles || even ? *reinterpret_cast<const float2*>(p)
+                              : make_float2(p[0], p[1]);
+      };
+      auto dq = [&](int acc, float cq, float kk) {
+        const float a = static_cast<float>(acc);
+        return kStatic ? __fmul_rn(a, cq) : __fmul_rn(__fmul_rn(a, cq), kk);
+      };
+      float l[32];
+#pragma unroll
+      for (int t4 = 0; t4 < 8; ++t4) {
+        const int jl = t4 * 8 + 2 * tig;
+        float k0 = 1.f, k1 = 1.f;
+        if constexpr (!kStatic) {
+          const float2 kv = *reinterpret_cast<const float2*>(skp + jl);
+          k0 = kv.x;
+          k1 = kv.y;
         }
-        auto off = [&](int t) {
-          return kTiles ? toff[t & 3] + (t >> 2) * (kAttnLongQueries * 32)
-                        : 8 * t;
-        };
-        auto pair = [&](const float* p) {
-          return kTiles || even ? *reinterpret_cast<const float2*>(p)
-                                : make_float2(p[0], p[1]);
-        };
-        auto dq = [&](int acc, float cq, float kk) {
-          const float a = static_cast<float>(acc);
-          return kStatic ? __fmul_rn(a, cq) : __fmul_rn(__fmul_rn(a, cq), kk);
-        };
-        float l[32];
+        const float2 pa = pair(ba + off(t4)), pb = pair(ba + off(t4) + lbo);
+        l[4 * t4] = __fadd_rn(dq(sci[4 * t4], cqa, k0), pa.x);
+        l[4 * t4 + 1] = __fadd_rn(dq(sci[4 * t4 + 1], cqa, k1), pa.y);
+        l[4 * t4 + 2] = __fadd_rn(dq(sci[4 * t4 + 2], cqb, k0), pb.x);
+        l[4 * t4 + 3] = __fadd_rn(dq(sci[4 * t4 + 3], cqb, k1), pb.y);
+      }
+      if (j0 + kAttnLongKeys > N) {
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int jl = t * 8 + 2 * tig;
-          float k0 = 1.f, k1 = 1.f;
-          if constexpr (!kStatic) {
-            const float2 kv = *reinterpret_cast<const float2*>(skp + jl);
-            k0 = kv.x;
-            k1 = kv.y;
+        for (int t4 = 0; t4 < 8; ++t4) {
+          const int j = j0 + t4 * 8 + 2 * tig;
+          if (ra < N) {
+            if (j >= N) l[4 * t4] = -INFINITY;
+            if (j + 1 >= N) l[4 * t4 + 1] = -INFINITY;
           }
-          const float2 pa = pair(ba + off(t)), pb = pair(ba + off(t) + lbo);
-          l[4 * t] = __fadd_rn(dq(sci[4 * t], cqa, k0), pa.x);
-          l[4 * t + 1] = __fadd_rn(dq(sci[4 * t + 1], cqa, k1), pa.y);
-          l[4 * t + 2] = __fadd_rn(dq(sci[4 * t + 2], cqb, k0), pb.x);
-          l[4 * t + 3] = __fadd_rn(dq(sci[4 * t + 3], cqb, k1), pb.y);
-        }
-        if (j0 + kAttnLongKeys > N) {
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const int j = j0 + t * 8 + 2 * tig;
-            if (ra < N) {
-              if (j >= N) l[4 * t] = -INFINITY;
-              if (j + 1 >= N) l[4 * t + 1] = -INFINITY;
-            }
-            if (rb < N) {
-              if (j >= N) l[4 * t + 2] = -INFINITY;
-              if (j + 1 >= N) l[4 * t + 3] = -INFINITY;
-            }
+          if (rb < N) {
+            if (j >= N) l[4 * t4 + 2] = -INFINITY;
+            if (j + 1 >= N) l[4 * t4 + 3] = -INFINITY;
           }
-        }
-
-        if (pass == 0) {
-          // pass 1: the row max (exact, in any order)
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            mxa = fmaxf(mxa, fmaxf(l[4 * t], l[4 * t + 1]));
-            mxb = fmaxf(mxb, fmaxf(l[4 * t + 2], l[4 * t + 3]));
-          }
-        } else {
-          const int part = pass - 1;
-          if (r == nc - 1) {  // a part's first block
-            if (part == 0) {  // the max over the quad, once
-#pragma unroll
-              for (int w = 1; w <= 2; w <<= 1) {
-                mxa = fmaxf(mxa, __shfl_xor_sync(fullmask, mxa, w));
-                mxb = fmaxf(mxb, __shfl_xor_sync(fullmask, mxb, w));
-              }
-            } else {
-              if (part == 1) sums();
-              store(part - 1);
-#pragma unroll
-              for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
-            }
-          }
-          // pq in the A fragments of the block's two k steps (the slot
-          // map) and, in the first part, its exact sum; O += pq·vi
-          uint32_t p[2][4];
-#pragma unroll
-          for (int k2 = 0; k2 < 2; ++k2) {
-            int ca[4][2], cb[4][2];
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const int t = 4 * k2 + u;
-              ca[u][0] = prob_code(l[4 * t], mxa);
-              ca[u][1] = prob_code(l[4 * t + 1], mxa);
-              cb[u][0] = prob_code(l[4 * t + 2], mxb);
-              cb[u][1] = prob_code(l[4 * t + 3], mxb);
-              if (part == 0) {
-                suma += ca[u][0] + ca[u][1];
-                sumb += cb[u][0] + cb[u][1];
-              }
-            }
-            p[k2][0] = pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]);
-            p[k2][1] = pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]);
-            p[k2][2] = pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]);
-            p[k2][3] = pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]);
-          }
-          const unsigned char* vt = stage + kQ8WideTile;
-          fence_acc(o);
-          fence_acc(p[0]);
-          fence_acc(p[1]);
-          wgmma_fence();
-          q8_long_pv<kWideLanes>(o, p[0], vt, 0);
-          q8_long_pv<kWideLanes>(o, p[1], vt, 1);
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_acc(o);
-          fence_acc(p[0]);
-          fence_acc(p[1]);
         }
       }
-      mbar_arrive(&empty[st]);  // this thread is done with the stage
+
+      if (pass == 0) {
+        // pass 1: the row max (exact, in any order)
+#pragma unroll
+        for (int t4 = 0; t4 < 8; ++t4) {
+          mxa = fmaxf(mxa, fmaxf(l[4 * t4], l[4 * t4 + 1]));
+          mxb = fmaxf(mxb, fmaxf(l[4 * t4 + 2], l[4 * t4 + 3]));
+        }
+      } else {
+        if (kb == 0) {  // the max over the quad, once
+#pragma unroll
+          for (int w = 1; w <= 2; w <<= 1) {
+            mxa = fmaxf(mxa, __shfl_xor_sync(fullmask, mxa, w));
+            mxb = fmaxf(mxb, __shfl_xor_sync(fullmask, mxb, w));
+          }
+        }
+        // pq in the A fragments of the block's two k steps (the slot
+        // map), its exact sum, the codes into the slot
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          int ca[4][2], cb[4][2];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int t4 = 4 * k2 + u;
+            ca[u][0] = prob_code(l[4 * t4], mxa);
+            ca[u][1] = prob_code(l[4 * t4 + 1], mxa);
+            cb[u][0] = prob_code(l[4 * t4 + 2], mxb);
+            cb[u][1] = prob_code(l[4 * t4 + 3], mxb);
+            suma += ca[u][0] + ca[u][1];
+            sumb += cb[u][0] + cb[u][1];
+          }
+          slot[(kb * 2 + k2) * 256 + threadIdx.x] =
+              make_uint4(pack_s8(ca[0][0], ca[0][1], ca[1][0], ca[1][1]),
+                         pack_s8(cb[0][0], cb[0][1], cb[1][0], cb[1][1]),
+                         pack_s8(ca[2][0], ca[2][1], ca[3][0], ca[3][1]),
+                         pack_s8(cb[2][0], cb[2][1], cb[3][0], cb[3][1]));
+        }
+      }
+      mbar_arrive(&empty[st]);  // this thread is done with the slot
+      ++it;
+    };
+
+    // P·V step u of the sample's pass_steps: O += pq·vi_part over block kb
+    // (part u / kblocks, kb = u mod kblocks), the codes in pf (from pn),
+    // the last step's in pp
+    auto pv_step = [&](int u, uint32_t(&pf)[2][4], uint32_t(&pp)[2][4]) {
+      const int part = u / kblocks;
+      const int kb = u % kblocks;
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pf[k2][i] = pn[k2][i];
+      if (u + 1 < pass_steps) load_p((u + 1) % kblocks);
+      const int st = it % kWideSlots;
+      mbar_wait(&full[st], (it / kWideSlots) & 1);
+      const unsigned char* vt = smem + st * kQ8WideSlot;
+      if (kb == 0) fence_acc(o);
+      fence_acc(pf[0]);
+      fence_acc(pf[1]);
+      wgmma_fence();
+      q8_long_pv<kWideLanes>(o, pf[0], vt, 0);
+      q8_long_pv<kWideLanes>(o, pf[1], vt, 1);
+      wgmma_commit();
+      // the last step's slot, within a part (kb > 0), as in s_step
+      if (kb < kblocks - 1) {
+        wgmma_wait<1>();
+        fence_acc(pp[0]);
+        fence_acc(pp[1]);
+        if (kb > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+      } else {
+        wgmma_wait<0>();
+        fence_acc(o);
+        fence_acc(pf[0]);
+        fence_acc(pf[1]);
+        fence_acc(pp[0]);
+        fence_acc(pp[1]);
+        if (kb > 0) mbar_arrive(&empty[(it - 1) % kWideSlots]);
+        mbar_arrive(&empty[st]);
+        store(part);
+#pragma unroll
+        for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
+      }
+      ++it;
+    };
+
+    for (int t = 0; t < 2 * pass_steps; t += 2) {
+      s_step(t, qe, qo);
+      s_step(t + 1, qo, qe);
     }
-    // (d > 256: at least three parts, so Σpq was taken at the second's
-    // first block)
-    store(nc - 1);
+    // Σpq over the quad, once, before the first part's output
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      suma += __shfl_xor_sync(fullmask, suma, w);
+      sumb += __shfl_xor_sync(fullmask, sumb, w);
+    }
+    inva = suma > 0 ? 1.0f / static_cast<float>(suma) : 0.f;
+    invb = sumb > 0 ? 1.0f / static_cast<float>(sumb) : 0.f;
+    load_p(0);
+#pragma unroll
+    for (int i = 0; i < kWideLanes / 2; ++i) o[i] = 0;
+    for (int u = 0; u < pass_steps; u += 2) {
+      pv_step(u, pe, po);
+      if (u + 1 < pass_steps) pv_step(u + 1, po, pe);
+    }
   }
 }
 
@@ -2464,12 +2569,12 @@ inline cudaError_t attention_q8_wide_launch(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
-                  long_sample_groups(B, N, H, 1, mode), H);
+                  wide_sample_groups(B, N, H), H);
   const int d = C / H;
   const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
-  kern<<<grid, 256, kAttnLongSmem, stream>>>(map_k, map_v, map_b, sc, bias,
-                                             s_qkv, out, B, N, C, d,
-                                             mode == kBiasSlab, scale);
+  kern<<<grid, kWideCtaThreads, kAttnLongSmem, stream>>>(
+      map_k, map_v, map_b, sc, bias, s_qkv, out, B, N, C, d,
+      mode == kBiasSlab, scale);
   return cudaGetLastError();
 }
 
@@ -2591,12 +2696,13 @@ inline cudaError_t attention_q8_long_width(const bf16* qkv, const float* bias,
 // samples of a CTA and the shared bytes (at the instance's width), or
 // the long route's plan (block_common.cuh attn_long_plan_ok, with the bf16
 // route's CTA), which runs the pre-pass into `scratch` (not null, 16-byte
-// aligned, q8_long_scratch's bytes) and attention_q8_long_kernel; a width
-// or plan the kernels do not take is refused with cudaErrorInvalidValue.
+// aligned, `scratch_bytes` at least q8_scratch_bytes's) and
+// attention_q8_long_kernel; a width, plan or scratch the kernels do not
+// take is refused with cudaErrorInvalidValue.
 cudaError_t attention_q8(const bf16* qkv, const float* bias,
                          const float* s_qkv, bf16* out, int B, int N, int C,
                          int H, const int* plan, void* scratch,
-                         cudaStream_t stream) {
+                         long long scratch_bytes, cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   const int w = core_width(d);
@@ -2607,7 +2713,8 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
         scratch == nullptr ||
         ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(bias) |
           reinterpret_cast<uintptr_t>(scratch)) &
-         15) != 0)
+         15) != 0 ||
+        scratch_bytes < q8_scratch_bytes(B, N, H, d, true))
       return cudaErrorInvalidValue;
     switch (w) {
       case 32:
@@ -2654,16 +2761,18 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
 }
 
 // The long route's pre-pass alone, at head width C / H (on the scratch of
-// its instance's width).
+// its instance's width, of at least q8_scratch_bytes's operands).
 cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
-                                 void* scratch, int B, int N, int C, int H,
+                                 void* scratch, long long scratch_bytes,
+                                 int B, int N, int C, int H,
                                  cudaStream_t stream) {
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   if (!head_dim_ok(d) || N < 1 || N > kAttnMaxLongTokens || B < 1 ||
-      scratch == nullptr ||
+      H < 1 || scratch == nullptr ||
       ((reinterpret_cast<uintptr_t>(qkv) |
         reinterpret_cast<uintptr_t>(scratch)) &
-       15) != 0)
+       15) != 0 ||
+      scratch_bytes < q8_scratch_bytes(B, N, H, d, false))
     return cudaErrorInvalidValue;
   if (core_width(d) == kWideCore) {
     const Q8WideScratch sc = q8_wide_scratch(scratch, B, N, H, d);
@@ -2710,9 +2819,9 @@ cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
 cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                              int H, int hidden, const void* const* p,
                              bool static_scales, bool quant_attn, bf16* qkv,
-                             bf16* att, bf16* r, float* h, signed char* codes,
-                             float* rs, float* row_amax, const int* plan,
-                             cudaStream_t stream) {
+                             bf16* att, bf16* r, float* h, long long h_bytes,
+                             signed char* codes, float* rs, float* row_amax,
+                             const int* plan, cudaStream_t stream) {
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
   const auto* wq = static_cast<const signed char*>(p[2]);
@@ -2746,10 +2855,12 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
                                 nullptr},
               M, 3 * C, C, gemm_plan(0), stream);
   if (e != cudaSuccess) return e;
-  // K4a's long route takes h, unused until the up GEMM, as its scratch
+  // K4a's long route and the bf16 core's wide form take h, unused until
+  // the up GEMM, as their scratch
   e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, plan, h,
-                                stream)
-                 : attention(qkv, bias, att, B, N, C, H, plan, stream);
+                                h_bytes, stream)
+                 : attention(qkv, bias, att, B, N, C, H, plan, h, h_bytes,
+                             stream);
   if (e != cudaSuccess) return e;
   if ((e = row_quant(att, stat(1), codes, rs, M, C, stream)) != cudaSuccess)
     return e;
@@ -2798,10 +2909,12 @@ const char* dm_error_string(int err) {
 // overlap. `static_scales` nonzero: each block has 18 parameters, the last
 // its static activation scales. `quant_attn` nonzero: the attention runs
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
-// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32, and with
-// quant_attn on the long route at least the route's scratch
-// (attention_q8_long_scratch's bytes); codes (B·N, max(C, hidden)) int8;
-// row_scale and row_amax (B·N) f32. Requires
+// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32 of
+// `h_bytes`, and with quant_attn on the long route at least the route's
+// scratch (attention_q8_long_scratch's bytes), without it on the bf16
+// core's wide form at least its scratch (`wide_scratch`'s bytes; a smaller
+// h is refused); codes (B·N, max(C,
+// hidden)) int8; row_scale and row_amax (B·N) f32. Requires
 // C == H·d with d % 8 == 0 and 8 <= d <= 8192, C % 16 == 0, C <= 8192,
 // hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors (checked by the
 // caller). `plan` is the block's
@@ -2810,14 +2923,14 @@ const char* dm_error_string(int err) {
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, const void* const* params,
                         int static_scales, int quant_attn, void* qkv,
-                        void* att, void* r, void* h, void* codes,
-                        void* row_scale, void* row_amax, const int* plan,
-                        cudaStream_t stream) {
+                        void* att, void* r, void* h, long long h_bytes,
+                        void* codes, void* row_scale, void* row_amax,
+                        const int* plan, cudaStream_t stream) {
   return static_cast<int>(block_forward_q8(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
       hidden, params, static_scales != 0, quant_attn != 0,
       static_cast<bf16*>(qkv), static_cast<bf16*>(att),
-      static_cast<bf16*>(r), static_cast<float*>(h),
+      static_cast<bf16*>(r), static_cast<float*>(h), h_bytes,
       static_cast<signed char*>(codes), static_cast<float*>(row_scale),
       static_cast<float*>(row_amax), plan, stream));
 }
@@ -2830,15 +2943,16 @@ int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
 int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
                         int hidden, int depth, const void* const* params,
                         int static_scales, int quant_attn, void* qkv,
-                        void* att, void* r, void* h, void* codes,
-                        void* row_scale, void* row_amax, const int* plan,
-                        cudaStream_t stream) {
+                        void* att, void* r, void* h, long long h_bytes,
+                        void* codes, void* row_scale, void* row_amax,
+                        const int* plan, cudaStream_t stream) {
   const int width = static_scales != 0 ? 18 : 17;
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
     const int err = dm_block_forward_q8(
         in, out, B, N, C, H, hidden, params + width * i, static_scales,
-        quant_attn, qkv, att, r, h, codes, row_scale, row_amax, plan, stream);
+        quant_attn, qkv, att, r, h, h_bytes, codes, row_scale, row_amax, plan,
+        stream);
     if (err != 0) return err;
   }
   return 0;
@@ -2933,29 +3047,32 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // static (s_q, s_k, s_v) (f32 [3]) or, if null, dynamic scales. `plan` is
 // the wrapper's `attention_q8_plan` (the short core up to N 256, the long
 // route above or when the plan forces it: its pre-pass writes `scratch`,
-// attention_q8_long_scratch's bytes). Requires C == H·d with d % 8 == 0
-// and 8 <= d <= 8192, and N <= 16384 (checked by the caller). Returns
-// cudaGetLastError().
+// of `scratch_bytes`, at least attention_q8_long_scratch's bytes).
+// Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192, and N <= 16384
+// (checked by the caller). Returns cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
                     void* out, int B, int N, int C, int H, const int* plan,
-                    void* scratch, cudaStream_t stream) {
+                    void* scratch, long long scratch_bytes,
+                    cudaStream_t stream) {
   return static_cast<int>(attention_q8(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(s_qkv), static_cast<bf16*>(out), B, N, C, H,
-      plan, scratch, stream));
+      plan, scratch, scratch_bytes, stream));
 }
 
 // The long route's pre-pass alone (its measurement and tests): from a
 // packed (B·N, 3C) bf16 qkv, with the static (s_q, s_k, s_v) or, if null,
-// dynamic scales, into `scratch` (attention_q8_long_scratch's bytes): k
-// codes (B, H, Np, d), v codes transposed (B, H, d, Np) in the slot order,
-// k's row scales (B, H, Np) and v's column scales (B, H, d), f32, Np = N
-// rounded up to 64. Returns cudaGetLastError().
+// dynamic scales, into `scratch` (of `scratch_bytes`, at least
+// attention_q8_long_scratch's operands): k codes (B, H, Np, d), v codes
+// transposed (B, H, d, Np) in the slot order, k's row scales (B, H, Np)
+// and v's column scales (B, H, d), f32, Np = N rounded up to 64. Returns
+// cudaGetLastError().
 int dm_attention_q8_prepass(const void* qkv, const void* s_qkv, void* scratch,
-                            int B, int N, int C, int H, cudaStream_t stream) {
+                            long long scratch_bytes, int B, int N, int C,
+                            int H, cudaStream_t stream) {
   return static_cast<int>(attention_q8_prepass(
       static_cast<const bf16*>(qkv), static_cast<const float*>(s_qkv),
-      scratch, B, N, C, H, stream));
+      scratch, scratch_bytes, B, N, C, H, stream));
 }
 
 }  // extern "C"

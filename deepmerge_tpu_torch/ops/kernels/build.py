@@ -27,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "deepmerge_tpu_torch"
 
 # --split-compile=0: nvcc optimizes a source's kernels in parallel threads
 # (as many as the machine has). The largest source (fused_block_q8.cu, 75
-# kernels) sets the pace of the seven built together: chip_smoke.py's
+# kernels) sets the pace of the sources built together: chip_smoke.py's
 # build took 49.9 s with it against 98.5 s without on an 8-core H100 host
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

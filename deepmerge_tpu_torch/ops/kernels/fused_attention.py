@@ -62,14 +62,20 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     q_scale,
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# K6 is a source of its own (csrc/attention_probs.cu): an unfused model
+# trains on it and K1 alone, so its build need not wait for K7's and K8's
+_SIGNATURES_PROBS = {
+    # qkv, bias, out, probs, B, N, C, H, plan, scratch, scratch bytes,
+    # stream
+    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
+}
 _SIGNATURES = {
-    # qkv, bias, out, probs, B, N, C, H, plan, stream
-    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # qkv, bias, out, B, N, C, H, plan, stream
-    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # q, k, v, bias, out, B, N, C, H, plan, stream
-    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # qkv, bias, out, B, N, C, H, plan, scratch, scratch bytes, stream
+    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
+    # q, k, v, bias, out, B, N, C, H, plan, scratch, scratch bytes, stream
+    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L,
+                          _P],
 }
 
 
@@ -224,6 +230,17 @@ def _lib():
     return build.load("fused_attention", _SIGNATURES)
 
 
+def _scratch(plan, device):
+    """The core's scratch for ``plan`` (its wide form's, ``wide_scratch``
+    bytes; None where the plan needs none) and the pointer and byte count
+    the C entry points take (which refuse too few bytes)."""
+    nbytes = plan.get("scratch", 0)
+    if not nbytes:
+        return None, (None, 0)
+    t = torch.empty((nbytes,), dtype=torch.uint8, device=device)
+    return t, (t.data_ptr(), nbytes)
+
+
 def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     """K6: ``(out, probs)`` — out (B, N, C) in qkv's dtype, probs (B, H, N,
     N) bf16.
@@ -232,7 +249,7 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
     256 tokens at d <= 128, the long route above and at d > 128, its wide
     form at d > 256) launch
-    ``csrc/fused_attention.cu``
+    ``csrc/attention_probs.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
     """
@@ -242,14 +259,16 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     probs = torch.empty((b, heads, n, n), dtype=torch.bfloat16,
                         device=qkv.device)
-    lib = _lib()
+    lib = build.load("attention_probs", _SIGNATURES_PROBS)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    ints = attention_plan(b, n, heads, head_dim=d, probs=True)["ints"]
+    plan = attention_plan(b, n, heads, head_dim=d, probs=True)
+    scratch, ptr = _scratch(plan, qkv.device)
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
                                  out.data_ptr(), probs.data_ptr(), b, n, c,
-                                 heads, _plan_arg(ints), stream)
+                                 heads, _plan_arg(plan["ints"]), *ptr,
+                                 stream)
     build.check(lib, err, "dm_attention_probs")
-    count_core(ints)
+    count_core(plan["ints"])
     attention_probs.launches += 1
     return out, probs
 
@@ -274,8 +293,10 @@ def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
+    scratch, ptr = _scratch(plan, qkv.device)
     err = lib.dm_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                           b, n, c, heads, _plan_arg(plan["ints"]), stream)
+                           b, n, c, heads, _plan_arg(plan["ints"]), *ptr,
+                           stream)
     build.check(lib, err, "dm_attention")
     count_core(plan["ints"])
     attention_qkv.launches += 1
@@ -301,10 +322,11 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     plan = attention_plan(b, n, heads, head_dim=d)
+    scratch, ptr = _scratch(plan, q.device)
     err = lib.dm_attention_bnhd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
                                 heads * d, heads, _plan_arg(plan["ints"]),
-                                stream)
+                                *ptr, stream)
     build.check(lib, err, "dm_attention_bnhd")
     count_core(plan["ints"])
     attention_bnhd.launches += 1

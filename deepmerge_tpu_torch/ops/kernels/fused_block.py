@@ -59,19 +59,20 @@ MAX_LONG_TOKENS = 16_384  # the long route's longest sequence
 MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
 MAX_LONG_WIDTH = 8192  # the wide LayerNorm kernels' widest row
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # x, out, B, N, C, H, hidden, params, qkv, att, r, h, plan, stream
-    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _P],
-    # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, plan,
+    # x, out, B, N, C, H, hidden, params, qkv, att, r, h, h bytes, plan,
     # stream
-    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L,
                          _P, _P],
-    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h, plan,
-    # stream
+    # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, h bytes,
+    # plan, stream
+    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                         _L, _P, _P],
+    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h,
+    # h bytes, plan, stream
     "dm_block_train_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P],
+                               _P, _P, _P, _L, _P, _P],
     # a, w, bias, resid, out, aux, M, N, K, epilogue, plan, stream
     "dm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # x, w, b, y, M, C, stream
@@ -79,21 +80,22 @@ _SIGNATURES = {
 }
 _SIGNATURES_Q8 = {
     # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
-    # h, codes, row_scale, row_amax, plan, stream
+    # h, h bytes, codes, row_scale, row_amax, plan, stream
     "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P],
+                            _P, _P, _L, _P, _P, _P, _P, _P],
     # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
-    # att, r, h, codes, row_scale, row_amax, plan, stream
+    # att, r, h, h bytes, codes, row_scale, row_amax, plan, stream
     "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P],
+                            _P, _P, _P, _L, _P, _P, _P, _P, _P],
     # a, w, w_scale, row_scale, static_scale, bias, resid, out, codes,
     # out_row_scale, row_amax, out_scale, M, N, K, epilogue, plan, stream
     "dm_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _P, _P],
-    # qkv, bias, s_qkv, out, B, N, C, H, plan, scratch, stream
-    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    # qkv, s_qkv, scratch, B, N, C, H, stream
-    "dm_attention_q8_prepass": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # qkv, bias, s_qkv, out, B, N, C, H, plan, scratch, scratch bytes,
+    # stream
+    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
+    # qkv, s_qkv, scratch, scratch bytes, B, N, C, H, stream
+    "dm_attention_q8_prepass": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     # x, w, b, static_scale, codes, row_scale, M, C, stream
     "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
@@ -233,11 +235,19 @@ def ctas_per_sm(threads: int, smem: int, registers: int) -> int:
 #
 # Heads wider than 256 take the wide form (csrc/block_common.cuh
 # attention_wide_kernel, core width WIDE_CORE): one sample and 8 warps a
-# CTA, S summed over the head's 128-lane chunks (K's chunk a stage, a ring
-# of WIDE_STAGES), Q' made again from q's rows at each chunk, pass 2 once
-# for each of ``wide_chunks(d)`` 128-lane parts of O, the bias with each
-# key block's last chunk. Registers (ptxas, nvcc 12.9): 214-245 over its
-# variants, no spills.
+# CTA, S summed over the head's 128-lane chunks, Q' made again from q's
+# rows at each chunk; pass 2 computes S once more a key block and writes P
+# = bf16(e) once into the CTA's slot of a scratch (``wide_scratch``: one
+# slot of 128 x Np bf16 for each CTA of its persistent grid of about
+# WIDE_CTAS CTAs, ``wide_sample_groups``), then runs P·V once for each of
+# ``wide_chunks(d)`` 128-lane parts of O. Each step one 16 KB tile (K's
+# chunk or V's part) through a ring of WIDE_SLOTS slots that a producer
+# warpgroup fills (the CTA's third; the plan's 8 warps are the two
+# consumer warpgroups), the bias with each key block's last chunk in one
+# of three areas. Registers: 168 a thread at launch (ptxas, the bound of
+# 384 threads), then setmaxnreg moves them to 232 in the consumers and 40
+# in the producer warpgroup (csrc/block_common.cuh); 4 bytes spill in one
+# variant (no probabilities, no tiles), and in two of the int8 core's.
 ROUTES = ("short", "long")
 ATTN_LONG_ROUTE = 0
 ATTN_LONG_QUERIES = 128
@@ -247,8 +257,11 @@ ATTN_LONG_PARTS = {32: 1, 64: 1, 128: 1, 256: 2}
 ATTN_LONG_WARPS = {d: 8 * s for d, s in ATTN_LONG_SAMPLES.items()}
 ATTN_LONG_SMEM = CTA_SHARED_MAX
 ATTN_LONG_SLAB_CTAS = 2048
-ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254, WIDE_CORE: 245}
-WIDE_STAGES = 3
+ATTN_LONG_REGISTERS = {32: 128, 64: 128, 128: 223, 256: 254, WIDE_CORE: 168}
+WIDE_SLOTS = 6
+WIDE_CTAS = 132  # the wide form's persistent grid: an H100 SXM's SMs
+WIDE_P_BLOCK = ATTN_LONG_QUERIES * ATTN_LONG_KEYS * 2  # bf16 P of a block
+WIDE_Q8_SLOT = 9216  # K4a's ring slot: 8 KB of codes and k's scales, on 1 KB
 # K4a's long route (csrc/fused_block_q8.cu): a pre-pass, one CTA of
 # ATTN_Q8_PREPASS_THREADS a (sample, head), quantizes k and v once into
 # scratch (``attention_q8_long_scratch``); then attention_q8_long_kernel
@@ -262,12 +275,14 @@ WIDE_STAGES = 3
 # (attention_q8_prepass_wide_kernel, attention_q8_wide_kernel): the
 # pre-pass also writes q's codes and row scales, the scratch at the wide
 # width 128·ceil(d/128); the core takes k's codes in 128-lane chunks
-# (247-255 registers over its variants, no spills; the dynamic pre-pass
-# 48 registers, 4 bytes spilled).
+# in the bf16 wide form's schedule and CTA (its registers too; the dynamic
+# pre-pass 48 registers, 4 bytes spilled): a ring of WIDE_SLOTS slots of
+# WIDE_Q8_SLOT bytes, pq's codes once a key block into slots of 128 x Np
+# bytes after the pre-pass's operands.
 ATTN_Q8_PREPASS_THREADS = 256
 ATTN_Q8_LONG_STAGES = 3
 ATTN_Q8_LONG_REGISTERS = {32: 128, 64: 128, 128: 226, 256: 254,
-                          WIDE_CORE: 255}
+                          WIDE_CORE: 168}
 
 
 def _route(n: int, route: str | None, head_dim: int) -> str:
@@ -304,14 +319,15 @@ def _long_bias_region(head_dim: int, probs: bool) -> int:
     the wide form): the CTA's shared bytes less 1 KB of alignment, the K/V
     ring (three stages, two with probabilities or at width 256, each a
     64-key block of K and of V's part of each sample; on the wide form
-    three of K's 128-lane chunk and V's part), the probabilities' staging
-    (16 x 72 bf16 a warp) and the barriers (two a stage and the slab's)."""
+    WIDE_SLOTS slots of 16 KB, each K's 128-lane chunk or V's part), the
+    probabilities' staging (16 x 72 bf16 a warp) and the barriers (two a
+    stage or slot and the slab's)."""
     w = core_width(head_dim)
     staging = ATTN_LONG_WARPS[w] * 16 * (ATTN_LONG_KEYS + 8) * 2 \
         if probs else 0
-    if w == WIDE_CORE:  # stages of K's 128-lane chunk and V's part
-        stages = WIDE_STAGES
-        ring = stages * 2 * ATTN_LONG_KEYS * WIDE_LANES * 2
+    if w == WIDE_CORE:  # slots of K's 128-lane chunk or V's part
+        stages = WIDE_SLOTS
+        ring = stages * ATTN_LONG_KEYS * WIDE_LANES * 2
     else:
         stages = 2 if probs or w > SHORT_CORE_WIDTHS[-1] else 3
         samples = ATTN_LONG_SAMPLES[w]
@@ -327,19 +343,21 @@ def _q8_long_region(head_dim: int) -> int:
     the CTA's shared bytes less 1 KB of alignment, the ring (three stages,
     each a 64-key block of k codes and of vᵀ codes (a part's rows) of each
     sample and k's 64 row scales of each, rounded up to 1 KB; on the wide
-    form k's 128-lane chunk and vᵀ's 128-row part) and the barriers (two a
-    stage and the slab's), at the core width."""
+    form WIDE_SLOTS slots of WIDE_Q8_SLOT bytes, each k's 128-lane chunk
+    with its scales or vᵀ's 128-row part) and the barriers (two a stage or
+    slot and the slab's), at the core width."""
     w = core_width(head_dim)
-    samples = ATTN_LONG_SAMPLES[w]
-    if w == WIDE_CORE:  # k's 128-lane chunk and vᵀ's 128-row part
-        tile = part = ATTN_LONG_KEYS * WIDE_LANES
+    if w == WIDE_CORE:
+        stages, stage = WIDE_SLOTS, WIDE_Q8_SLOT
     else:
+        samples = ATTN_LONG_SAMPLES[w]
         tile = ATTN_LONG_KEYS * w
         part = tile // ATTN_LONG_PARTS[w]
-    stage = -(-(samples * (tile + part)
-                + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
-    bars = -(-(2 * ATTN_Q8_LONG_STAGES + 1) * 8 // 16) * 16
-    return ATTN_LONG_SMEM - 1024 - ATTN_Q8_LONG_STAGES * stage - bars
+        stages = ATTN_Q8_LONG_STAGES
+        stage = -(-(samples * (tile + part)
+                    + samples * ATTN_LONG_KEYS * 4) // 1024) * 1024
+    bars = -(-(2 * stages + 1) * 8 // 16) * 16
+    return ATTN_LONG_SMEM - 1024 - stages * stage - bars
 
 
 def attention_long_bias(n: int, head_dim: int, probs: bool = False,
@@ -352,12 +370,41 @@ def attention_long_bias(n: int, head_dim: int, probs: bool = False,
     return _long_bias_form(n, region)
 
 
+def wide_sample_groups(b: int, n: int, heads: int) -> int:
+    """The wide form's grid in y (the C side's ``wide_sample_groups``):
+    enough sample rows that its persistent grid holds about ``WIDE_CTAS``
+    CTAs, at most ``b``; the CTA of y takes samples y, y + grid y, ..."""
+    per = -(-n // ATTN_LONG_QUERIES) * heads
+    return min(b, -(-WIDE_CTAS // per))
+
+
+def wide_slots(b: int, n: int, heads: int, block_bytes: int) -> int:
+    """Bytes of the wide form's slots: one for each CTA of its grid,
+    ``block_bytes`` for each 64-key block (``WIDE_P_BLOCK`` for the bf16
+    core's P, 128 x 64 bf16; 8,192 for K4a's codes)."""
+    ctas = -(-n // ATTN_LONG_QUERIES) * wide_sample_groups(b, n, heads) \
+        * heads
+    return ctas * -(-n // ATTN_LONG_KEYS) * block_bytes
+
+
+def wide_scratch(b: int, n: int, heads: int, head_dim: int) -> int:
+    """Bytes of the bf16 attention core's scratch at head width
+    ``head_dim``: the wide form's P slots, and 0 on every other instance
+    (which reads none)."""
+    if core_width(head_dim) != WIDE_CORE:
+        return 0
+    return wide_slots(b, n, heads, WIDE_P_BLOCK)
+
+
 def attention_long_groups(b: int, n: int, heads: int, head_dim: int,
                           probs: bool = False, int8: bool = False) -> int:
     """The long route's grid in y (the C side's ``long_sample_groups``):
     one CTA for each group of ``ATTN_LONG_SAMPLES`` samples, but in the
     slab form ceil(groups · (CTAs a group) / ``ATTN_LONG_SLAB_CTAS``)
-    groups a CTA, the CTA of y taking groups y, y + grid y, ..."""
+    groups a CTA, the CTA of y taking groups y, y + grid y, ...; on the
+    wide form ``wide_sample_groups``."""
+    if core_width(head_dim) == WIDE_CORE:
+        return wide_sample_groups(b, n, heads)
     groups = -(-b // ATTN_LONG_SAMPLES[core_width(head_dim)])
     if attention_long_bias(n, head_dim, probs, int8) != "slab":
         return groups
@@ -386,12 +433,14 @@ def attention_q8_long_scratch(b: int, n: int, c: int, heads: int) -> int:
     w) and v codes transposed (b, heads, w, Np), int8; k's row scales (b,
     heads, Np) and v's column scales (b, heads, w), float32; Np =
     ``q8_long_keys(n)``; on the wide form also q's codes (b, heads, Np, w)
-    and row scales (b, heads, Np). The lanes past d hold code 0 (and v's
-    scale 1)."""
+    and row scales (b, heads, Np), then the core's slots of pq's codes
+    (``wide_slots``, 128 x Np bytes a CTA). The lanes past d hold code 0
+    (and v's scale 1)."""
     d = c // heads
     np_, w = q8_long_keys(n), q8_scratch_width(d)
     if core_width(d) == WIDE_CORE:
-        return b * heads * (3 * np_ * w + 8 * np_ + 4 * w)
+        return b * heads * (3 * np_ * w + 8 * np_ + 4 * w) \
+            + wide_slots(b, n, heads, ATTN_LONG_QUERIES * ATTN_LONG_KEYS)
     return b * heads * (2 * np_ * w + 4 * np_ + 4 * w)
 
 
@@ -427,9 +476,10 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
     form (both of the saved-probabilities variant with ``probs``);
     ``warps`` and ``samples`` do not apply. A head wider than 128 takes
     the long route at every N; a head wider than 256 its wide form
-    (``core_width`` ``WIDE_CORE``), whose second pass runs in ``parts`` =
-    ceil(d / 128) parts. Raises ``ValueError`` for a launch the kernels do
-    not take."""
+    (``core_width`` ``WIDE_CORE``), whose P·V runs in ``parts`` =
+    ceil(d / 128) parts and whose ``scratch`` bytes (``wide_scratch``; 0
+    on the other long instances) the C entry points take. Raises
+    ``ValueError`` for a launch the kernels do not take."""
     _refuse_head_dim(head_dim, "the attention core")
     w = core_width(head_dim)
     if _route(n, route, head_dim) == "long":
@@ -440,7 +490,8 @@ def attention_plan(b: int, n: int, heads: int, warps: int = ATTN_WARPS,
             (-(-n // ATTN_LONG_QUERIES),
              attention_long_groups(b, n, heads, head_dim, probs), heads),
             "the long attention route")
-        plan["bias"] = attention_long_bias(n, head_dim, probs)
+        plan.update(bias=attention_long_bias(n, head_dim, probs),
+                    scratch=wide_scratch(b, n, heads, head_dim))
         return plan
     if samples is None:
         samples = 4 if b >= ATTN_SAMPLES_FROM_BATCH else 1
@@ -705,7 +756,8 @@ def q_scale(d: int, dt: torch.dtype) -> float:
 
 
 def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                    lanes: int | None = None):
+                    lanes: int | None = None, keys: int | None = None,
+                    recompute: bool = False):
     """The TPU kernels' attention (``_attn_inner``, and the saved-probs
     kernel's forward) on a (B, N, 3C) qkv in the activation dtype: per head
     softmax(q·d^-½·kᵀ + bias) · v in f32, q scaled in the activation dtype,
@@ -717,7 +769,16 @@ def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     q·kᵀ summed in f32 over chunks of ``lanes`` of the head's lanes in
     chunk order, and the value product one part of ``lanes`` output lanes
     at a time (each part's columns are the unsplit product's); the same
-    function, with the logits' f32 sums in another order."""
+    function, with the logits' f32 sums in another order.
+
+    ``keys`` (e.g. ``ATTN_LONG_KEYS``, with ``lanes``) takes the keys in
+    blocks of ``keys`` as the wide form's two passes do: the row max over
+    the blocks' logits, then the logits, e against that max and P = e in
+    the activation dtype made once for each block, and each part's value
+    product summed over the blocks in order (f32). With ``recompute`` the
+    blocks' logits, e and P are made again for each part instead (a second
+    pass that computes q·kᵀ once for each part); the two give the same
+    bits."""
     dt = qkv.dtype
     b, n, c3 = qkv.shape
     c = c3 // 3
@@ -728,16 +789,39 @@ def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     v = qkv[..., 2 * c :].reshape(b, n, heads, d).to(torch.float32)
     cuts = [slice(0, d)] if lanes is None else \
         [slice(i, min(i + lanes, d)) for i in range(0, d, lanes)]
-    logits = 0
-    for cut in cuts:
-        logits = logits + torch.einsum("bnhd,bmhd->bhnm", q[..., cut],
-                                       k[..., cut])
-    logits = logits + bias.to(torch.float32)[None]
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    recip = 1.0 / e.sum(-1, keepdim=True)
-    p = e.to(dt).to(torch.float32)
-    av = torch.cat([torch.einsum("bhnm,bmhd->bhnd", p, v[..., cut])
-                    for cut in cuts], -1)
+    f32_bias = bias.to(torch.float32)
+
+    def logits_of(s):  # the logits of keys s, summed over the chunks
+        acc = 0
+        for cut in cuts:
+            acc = acc + torch.einsum("bnhd,bmhd->bhnm", q[..., cut],
+                                     k[:, s][..., cut])
+        return acc + f32_bias[None, :, :, s]
+
+    if keys is not None:
+        blocks = [slice(j, min(j + keys, n)) for j in range(0, n, keys)]
+        m = torch.stack([logits_of(s).amax(-1) for s in blocks]).amax(0)
+        m = m[..., None]
+        e = torch.cat([torch.exp(logits_of(s) - m) for s in blocks], -1)
+        recip = 1.0 / e.sum(-1, keepdim=True)
+        p = [e[..., s].to(dt).to(torch.float32) for s in blocks]
+        av = []
+        for cut in cuts:
+            part = 0
+            for i, s in enumerate(blocks):
+                pb = p[i] if not recompute else \
+                    torch.exp(logits_of(s) - m).to(dt).to(torch.float32)
+                part = part + torch.einsum("bhnm,bmhd->bhnd", pb,
+                                           v[:, s][..., cut])
+            av.append(part)
+        av = torch.cat(av, -1)
+    else:
+        logits = logits_of(slice(0, n))
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        recip = 1.0 / e.sum(-1, keepdim=True)
+        p = e.to(dt).to(torch.float32)
+        av = torch.cat([torch.einsum("bhnm,bmhd->bhnd", p, v[..., cut])
+                        for cut in cuts], -1)
     out = (av * recip).permute(0, 2, 1, 3).reshape(b, n, c).to(dt)
     return out, e, recip
 
@@ -1410,9 +1494,25 @@ def _needs_grad(x: torch.Tensor, params_list) -> bool:
         or any(t.requires_grad for p in params_list for t in p))
 
 
+def _nbytes(t) -> int:
+    """Bytes of a scratch tensor (0 for None), which the C entry points
+    check against what their launch writes."""
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 def _pointers(params_list):
     flat = [t for p in params_list for t in p]
     return (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+
+
+def _mlp_scratch(b, n, c, heads, hidden, x):
+    """The bf16 blocks' h, (b·n, hidden) in x's dtype: the MLP's hidden
+    activation, and during the attention (before the up GEMM writes it)
+    the scratch of the core's wide form, so at least ``wide_scratch``
+    bytes."""
+    elems = max(b * n * hidden,
+                -(-wide_scratch(b, n, heads, c // heads) // x.element_size()))
+    return torch.empty((elems,), dtype=x.dtype, device=x.device)
 
 
 def _launch(fn_name, x, params_list, heads):
@@ -1422,7 +1522,7 @@ def _launch(fn_name, x, params_list, heads):
     qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
     att = torch.empty((m, c), dtype=x.dtype, device=x.device)
     r = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    h = torch.empty((m, hidden), dtype=x.dtype, device=x.device)
+    h = _mlp_scratch(b, n, c, heads, hidden, x)
     ptrs = _pointers(params_list)
     ints = block_plan(b, n, c, heads, hidden)
     plan = _plan_arg(ints)
@@ -1432,12 +1532,13 @@ def _launch(fn_name, x, params_list, heads):
     if fn_name == "dm_block_forward":
         err = lib.dm_block_forward(x.data_ptr(), out.data_ptr(), *shape, ptrs,
                                    qkv.data_ptr(), att.data_ptr(),
-                                   r.data_ptr(), h.data_ptr(), plan, stream)
+                                   r.data_ptr(), h.data_ptr(), _nbytes(h),
+                                   plan, stream)
     else:
         err = lib.dm_chain_forward(x.data_ptr(), out.data_ptr(), *shape,
                                    len(params_list), ptrs, qkv.data_ptr(),
                                    att.data_ptr(), r.data_ptr(), h.data_ptr(),
-                                   plan, stream)
+                                   _nbytes(h), plan, stream)
     build.check(lib, err, fn_name)
     count_core(ints, blocks=len(params_list))
     count_layer_norms(c, False, len(params_list))
@@ -1470,14 +1571,15 @@ def fused_block_train(x: torch.Tensor, params, heads: int,
     empty = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
     out, r, att = empty(b, n, c), empty(b, n, c), empty(b * n, c)
     qkv, probs = empty(b, n, 3 * c), empty(b, heads, n, n)
-    gin, h = empty(b, n, hidden), empty(b * n, hidden)
+    gin, h = empty(b, n, hidden), _mlp_scratch(b, n, c, heads, hidden, x)
     lib = build.load("fused_block", _SIGNATURES)
     ints = block_plan(b, n, c, heads, hidden)
     err = lib.dm_block_train_forward(
         x.data_ptr(), out.data_ptr(), b, n, c, heads, hidden,
         _pointers([params]), qkv.data_ptr(), probs.data_ptr(),
         gin.data_ptr(), r.data_ptr(), att.data_ptr(), h.data_ptr(),
-        _plan_arg(ints), torch.cuda.current_stream(x.device).cuda_stream)
+        _nbytes(h), _plan_arg(ints),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_block_train_forward")
     count_core(ints)
     count_layer_norms(c, False)
@@ -1699,11 +1801,15 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     att = torch.empty((m, c), dtype=x.dtype, device=dev)
     r = torch.empty((m, c), dtype=x.dtype, device=dev)
     ints = block_plan_q8(b, n, c, heads, hidden, quant_attn)
-    # h, free during the attention, is also K4a's long-route scratch
+    # h, free during the attention, is also K4a's long-route scratch, or
+    # the bf16 core's on its wide form
     h_floats = m * hidden
     if quant_attn and ints[0] == ATTN_LONG_ROUTE:
         h_floats = max(h_floats,
                        -(-attention_q8_long_scratch(b, n, c, heads) // 4))
+    elif not quant_attn:
+        h_floats = max(h_floats, -(-wide_scratch(b, n, heads, c // heads)
+                                   // 4))
     h = torch.empty((h_floats,), dtype=torch.float32, device=dev)
     codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
@@ -1715,7 +1821,8 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     shape = (b, n, c, heads, hidden)
     flags = (int(static), int(quant_attn))
     scratch = (qkv.data_ptr(), att.data_ptr(), r.data_ptr(), h.data_ptr(),
-               codes.data_ptr(), row_scale.data_ptr(), row_amax.data_ptr())
+               _nbytes(h), codes.data_ptr(), row_scale.data_ptr(),
+               row_amax.data_ptr())
     if fn_name == "dm_block_forward_q8":
         err = lib.dm_block_forward_q8(x.data_ptr(), out.data_ptr(), *shape,
                                       ptrs, *flags, *scratch, plan, stream)
@@ -1917,7 +2024,7 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
         qkv.data_ptr(), bias.data_ptr(),
         None if static is None else static.data_ptr(), out.data_ptr(), b, n,
         c, heads, _plan_arg(plan["ints"]),
-        None if scratch is None else scratch.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), _nbytes(scratch),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8")
     count_core(plan["ints"], int8=True)
@@ -1971,7 +2078,7 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     err = lib.dm_attention_q8_prepass(
         qkv.data_ptr(), None if static is None else static.data_ptr(),
-        scratch.data_ptr(), b, n, c, heads,
+        scratch.data_ptr(), _nbytes(scratch), b, n, c, heads,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8_prepass")
     attention_q8_prepass.launches += 1
@@ -1989,7 +2096,8 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
     if wide:  # q's codes and row scales, in k's layout
         qc = scratch[2 * codes:3 * codes].view(torch.int8).view(
             b, heads, np_, w)[..., :d]
-        qs = scales[rows + b * heads * w:].view(b, heads, np_)
+        qs = scales[rows + b * heads * w:2 * rows + b * heads * w].view(
+            b, heads, np_)
         out += (qc, None if static is not None else qs)
     return out
 

@@ -44,8 +44,8 @@ def main(argv) -> int:
 
     config, epochs, every = argv[0], int(argv[1]), int(argv[2])
     kw, _, _, pairs = cs.TRAINED_CONFIGS[config]
-    build.build_all(["patch_resize", "fused_attention", "fused_block",
-                     "fused_block_q8", "label_lookup"])
+    build.build_all(["patch_resize", "attention_probs", "fused_attention",
+                     "fused_block", "fused_block_q8", "label_lookup"])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = cs.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -748,6 +748,25 @@ def _wide_heads_case(cuda, d, n, heads):
             b, n, heads, head_dim=d, route="short"))
 
 
+@pytest.mark.parametrize("n", [12, 192])
+def test_wide_scratch_short_of_the_plan_is_refused(cuda, n):
+    """Both wide cores write their slots into the caller's scratch, whose
+    bytes the C entry points check against their own grid: 16 bytes fewer
+    than the plan's are refused (invalid argument), the plan's own run."""
+    rs = np.random.default_rng(n)
+    heads, d, b = 2, 384, 3
+    qkv, bias = _attention_inputs(rs, b, n, heads, cuda, d)
+    for run, plan in (
+            (lambda p: fa.attention_qkv(qkv, bias, heads, plan=p),
+             fb.attention_plan(b, n, heads, head_dim=d)),
+            (lambda p: fb.attention_q8(qkv, bias, heads, plan=p),
+             fb.attention_q8_plan(b, n, heads, head_dim=d))):
+        run(plan)
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            run(dict(plan, scratch=plan["scratch"] - 16))
+    torch.cuda.synchronize()
+
+
 # ------------------------------------------------------------ K2's GEMM
 
 @pytest.mark.parametrize("epilogue", fb.GEMM_EPILOGUES)

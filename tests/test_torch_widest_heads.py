@@ -273,12 +273,15 @@ def test_bf16_wide_schedule(d, n):
     assert torch.equal(same, want)
 
 
-def _split_q8(qkv, bias, heads):
+def _split_q8(qkv, bias, heads, once=False):
     """The int8 wide form's schedule on its operands (codes zero past d, at
     the scratch's 128·ceil(d/128) lanes): S summed over 128-lane chunks,
     pass 1 the exact row max over 64-key blocks, pass 2 once for each
     128-lane part of the output, pq recomputed each time and Σpq summed in
-    the first; the d real lanes of the output."""
+    the first; with ``once`` the kernel's pass 2 since S is computed once a
+    key block: pq's codes and Σpq made once for each block, then each
+    part's value product over the stored codes. The d real lanes of the
+    output."""
     b, n, c3 = qkv.shape
     d = c3 // 3 // heads
     w = fb.q8_scratch_width(d)
@@ -298,13 +301,21 @@ def _split_q8(qkv, bias, heads):
     m = torch.full((b, heads, n, 1), -math.inf)
     for s in blocks:
         m = torch.maximum(m, logits(s).amax(-1, keepdim=True))
+    codes = lambda s: torch.round(torch.exp(logits(s) - m) * 127.0)
     total, outs = 0, []
+    if once:
+        pqs = [codes(s) for s in blocks]
+        for pq in pqs:
+            total = total + pq.sum(-1, keepdim=True)
     for part, c in enumerate(chunks):
         av = 0
-        for s in blocks:
-            pq = torch.round(torch.exp(logits(s) - m) * 127.0)
-            if part == 0:
-                total = total + pq.sum(-1, keepdim=True)
+        for i, s in enumerate(blocks):
+            if once:
+                pq = pqs[i]
+            else:
+                pq = codes(s)
+                if part == 0:
+                    total = total + pq.sum(-1, keepdim=True)
             av = av + fb._int_einsum("bhnm,bmhd->bnhd", pq, vi[:, s][..., c])
         outs.append(av)
     recip = (1.0 / total).permute(0, 2, 1, 3)
@@ -361,21 +372,21 @@ def test_wide_refusals(d):
 
 def _region(probs=False, int8=False):
     """The wide form's bias region from the C side's layout: the CTA's
-    232,448 shared bytes less 1 KB of alignment, the ring and the
-    barriers (three stages, 64 B); the bf16 ring three stages of K's chunk
-    and V's part (16 KB each), the probabilities' staging 8 warps of
-    16 x 72 bf16; K4a's three stages of k's chunk and vᵀ's part of codes
-    (8 KB each) and k's 64 scales, on 1 KB."""
+    232,448 shared bytes less 1 KB of alignment, the ring of six slots and
+    the barriers (two a slot and the slab's, 112 B); the bf16 slots 16 KB
+    (K's chunk or V's part), the probabilities' staging 8 warps of 16 x 72
+    bf16; K4a's slots 9 KB (k's chunk of codes and its 64 scales, or vᵀ's
+    part, on 1 KB)."""
     if int8:
-        return 232_448 - 1024 - 3 * 17_408 - 64
-    return 232_448 - 1024 - 3 * 32_768 - (8 * 2304 if probs else 0) - 64
+        return 232_448 - 1024 - 6 * 9216 - 112
+    return 232_448 - 1024 - 6 * 16_384 - (8 * 2304 if probs else 0) - 112
 
 
 def test_wide_layout_fits_the_card():
     """The wide form's CTA: one sample and 8 warps, all of a CTA's shared
-    memory with a bias region that holds three tile- or row-form stage
-    areas (34,816 B each) and a slab up to N 259 (223 with probabilities,
-    349 for K4a), within the registers of one CTA an SM; the pre-pass's
+    memory with a bias region that holds three tile- or row-form areas
+    (34,816 B each) and a slab up to N 259 (223 with probabilities, 343
+    for K4a), within the registers of one CTA an SM; the pre-pass's
     static shared memory (8 KB of partial maxima, an 8 KB vᵀ tile)."""
     w = fb.WIDE_CORE
     assert (fb.ATTN_LONG_SAMPLES[w], fb.ATTN_LONG_WARPS[w]) == (1, 8)
@@ -389,7 +400,7 @@ def test_wide_layout_fits_the_card():
             "tiles" if (top + 1) % 4 == 0 else "rows")
     region = _region(int8=True)
     assert fb._q8_long_region(768) == region >= 3 * 128 * 68 * 4
-    assert (region - 16) // (128 * 4) == 349
+    assert (region - 16) // (128 * 4) == 343
     for regs in (fb.ATTN_LONG_REGISTERS[w], fb.ATTN_Q8_LONG_REGISTERS[w]):
         assert regs <= 255 and regs * 8 * 32 <= fb.SM_REGISTERS
     assert fb.ATTN_Q8_PREPASS_THREADS * 8 * 4 + 128 * 64 <= 48 * 1024
@@ -399,9 +410,11 @@ def test_wide_layout_fits_the_card():
 def test_wide_plans(d):
     """The wide form's plans at the N the model gives (stages 2 and 1:
     12, 48; 192; past the short cores: 257, 768): the route's ints, grid
-    (128-query blocks, sample groups, heads), the bias form of each N, the
-    pre-pass's grid and the scratch at 128·ceil(d/128) lanes (k, vᵀ and q
-    codes; k's and q's row scales, v's column scales)."""
+    (128-query blocks, sample rows of a persistent grid of about 132 CTAs,
+    heads), the bias form of each N, the bf16 core's scratch (a slot of
+    128 x Np bf16 for each CTA), the pre-pass's grid and K4a's scratch at
+    128·ceil(d/128) lanes (k, vᵀ and q codes; k's and q's row scales, v's
+    column scales; then a slot of 128 x Np codes for each CTA)."""
     heads = 2 if d <= 768 else 1
     wide = -(-d // 128) * 128
     for n in (12, 48, 192, 257, 768):
@@ -414,15 +427,18 @@ def test_wide_plans(d):
                 slab = 128 * n * 4 + 16 <= _region(probs)
                 assert plan["bias"] == ("slab" if slab else "tiles"
                                         if n % 4 == 0 else "rows")
-                per = -(-b * qblocks * heads // 2048) if slab else 1
-                assert groups == -(-b // per)
+                assert groups == min(b, -(-132 // (qblocks * heads)))
+                assert plan["scratch"] == qblocks * groups * heads \
+                    * 128 * np_ * 2
             q8 = fb.attention_q8_plan(b, n, heads, head_dim=d)
             assert q8["bias"] == (
                 "slab" if 128 * n * 4 + 16 <= _region(int8=True)
                 else "tiles" if n % 4 == 0 else "rows")
             assert q8["prepass_grid"] == b * heads
             assert q8["scratch"] == b * heads * (3 * np_ * wide + 8 * np_
-                                                 + 4 * wide)
+                                                 + 4 * wide) \
+                + qblocks * groups * heads * 128 * np_
+            assert q8["grid"] == plan["grid"]
             assert fb.q8_scratch_width(d) == wide
         if heads * d <= fb.MAX_LONG_WIDTH:
             c = heads * d
