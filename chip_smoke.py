@@ -55,7 +55,11 @@ kernel against its plain PyTorch version on the card:
      N 192, 48, 12 and 768, every core on the long route's 256-wide
      instance, then 2 of 384 and 1 of 768 the same way on its wide form,
      and K7, K8 and K4a's core at one head of 1536 (C 1536), K4a's
-     pre-pass bit-exact);
+     pre-pass bit-exact); then widths on zero-padded layouts
+     (``check_odd_widths``: 12 heads of 12, 12 of 65, 4 of 196 and 3 of
+     260 at N 192, 48, 12 and 768, every core against the layouts' plain
+     twins, each launch on its route, timed at N 192 beside the aligned
+     width below; K4 at 6 heads of 15, C 90, its w8a8 MLP padded);
   4. the bf16 slice: ``FeatureExtractor.segment_scene_device`` on a 1024²
      scene with 2043 sample points, every kernel's launch count over that
      run (K1's fused patch kernel 3 a chunk, its gather none), the median
@@ -83,11 +87,13 @@ kernel against its plain PyTorch version on the card:
      with 6 of 128, each in w8a8 and bf16, its launches counted, timed
      and held to the plain versions, then S1-S5: 8 heads of 96, 16 of 48
      and (embed 480) 6 of 80 on the padded short cores, 4 of 192 and 3 of
-     256 on the 256-wide long route at every stage (these and the 32/128
-     slices at two blocks a stage), then at v3's full depth S6 and S7: 2
-     heads of 384 (bf16, w8a8, w8a8+attn) and 1 of 768 (bf16, w8a8) on
-     the long route's wide form, each core's launches required on its
-     route; and (5e, ``long_configs_phase``) two
+     256 on the 256-wide long route at every stage, S6 and S7: 2 heads of
+     384 (bf16, w8a8, w8a8+attn) and 1 of 768 (bf16, w8a8) on the long
+     route's wide form, S9: embed 780, 3 heads of 260 (bf16, w8a8) on
+     zero-padded layouts (these and the 32/128 slices at two blocks a
+     stage), then at v3's full depth S8: embed 780, 12 heads of 65 (bf16,
+     w8a8, w8a8+attn) on zero-padded layouts, each core's launches
+     required on its route; and (5e, ``long_configs_phase``) two
      configurations past the short core and the one-warp LayerNorm, on a
      512² scene: v3 with a 16x16 token cube (N 768 on the long route, 192
      and 48 on the short one) in bf16, w8a8 and w8a8+attn, and v3 at embed
@@ -147,7 +153,9 @@ kernel against its plain PyTorch version on the card:
      (the sharded run on two strips and ``process_scene(mesh=...)`` gated
      the same way, each rank's strip tile and peak memory, four steps of
      the data-parallel trainer held to one device's losses, the parameters
-     equal on both ranks); then tensor parallelism, two ranks on the one
+     equal on both ranks; every rank's training waits until v3-wide's
+     training has returned, and its peak is printed beside the card's free
+     memory at its start); then tensor parallelism, two ranks on the one
      card over gloo (n_model 2: the flagship's 12 heads, 6 of width 64 a
      rank, through K7 and in training K6): the slice's embeddings held to
      the single-device plain forward (RMS error, first-round decisions at
@@ -190,6 +198,10 @@ kernel against its plain PyTorch version on the card:
      scenes (``BENCH_SERVE=4``'s workload); training for one timed epoch;
      the mesh at N = 1 on a world of one on NCCL.
 
+The random weights and scenes phases 4-11 ask for (``HostWork``) are made
+ahead by two worker processes on the host while the card runs the phases
+before, with the same functions, arguments and seeds as inline.
+
 ``--only patches,kernels,widths,long,trained,scaleout,family,bench`` runs
 K1's fused patch check, phase 3, phase 3's head-width check, the long
 route and wide rows (phase 3's part, phase 5e, phases 8b and 8c), phases
@@ -217,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -804,7 +817,7 @@ def check_patch_resize(dev, ds, scene):
     cases = {"slice": slot_args(ds.padded, ds.caps, ds.points_yx,
                                 ds.point_inner, ds.point_object, 1024,
                                 ds.channels, bf16)}
-    walk = generate_scene(**SERVE_SCENE, seed=1, name="scene1")
+    walk = HOST.call(generate_scene, **SERVE_SCENE, seed=1, name="scene1")
     wds = stage_scene(walk, DataConfig(max_window=512), dev)
     cases["walk scene 1"] = slot_args(wds.padded, wds.caps, wds.points_yx,
                                       wds.point_inner, wds.point_object,
@@ -2094,14 +2107,17 @@ def width_summary(widths, name):
     to its plain version at: the widths, and for each but 64 its worst
     error and its time at the main path's shape (the first case checked:
     its N and C) beside width 64's on the same input (null where 64 does
-    not divide C)."""
+    not divide C); at the widths of ``ODD_WIDTHS`` beside the aligned
+    width below (``ms_aligned``)."""
     cases = widths.get(name, {})
     return dict(
         head_widths=sorted({64, *cases}),
         width_max_abs_err={str(d): max(c["max_abs_err"] for c in cs)
                            for d, cs in sorted(cases.items())},
         width_ms={str(d): dict(n=cs[0]["n"], c=cs[0].get("c", 768),
-                               ms=cs[0]["ms"], ms_64=cs[0]["ms_64"])
+                               ms=cs[0]["ms"], ms_64=cs[0]["ms_64"],
+                               **({"ms_aligned": cs[0]["ms_aligned"]}
+                                  if "ms_aligned" in cs[0] else {}))
                   for d, cs in sorted(cases.items())})
 
 
@@ -2431,6 +2447,299 @@ def check_wide_heads(dev, c=768, batch=1024):
         attention_cases(WIDEST_HEAD, WIDEST_HEAD, 1, n, b, True,
                         f"1 head of {WIDEST_HEAD} on the {form(WIDEST_HEAD)}")
     return out, routes
+
+
+# Widths no kernel reads as they are, on the zero-padded layouts
+# (fused_block.PaddedWidths): heads whose width is no multiple of 8, and
+# w8a8 at C % 16 != 0. (d, C), heads C // d: 12 heads of 12, 12 of 65 (v3
+# at embed 780), 4 of 196 (the 256-wide long route) and 3 of 260 (the wide
+# form), at v3's stage lengths and past the short cores; then K4 at 6
+# heads of 15 (C 90, hidden 360, which w8a8 pads to 368). Each is timed at
+# N 192 beside the aligned width below it (d rounded down to 8, the same
+# heads)
+ODD_WIDTHS = ((12, 144), (65, 780), (196, 784), (260, 780))
+ODD_TOKENS = (192, 48, 12, 768)
+ODD_HIDDEN = (15, 90)
+ODD_BATCH = 256
+
+
+def check_odd_widths(dev, batch=ODD_BATCH):
+    """Phase 3 at ``ODD_WIDTHS`` and ``ODD_TOKENS`` (B ``batch``,
+    ``LONG_BATCH`` // 8 samples at 768; K5 and K6 at 64 and 8): every
+    kernel that holds an attention core against its plain twin on the
+    padded layout (``fused_block.block_twin``, ``attention_q8_twin``,
+    ``fused_attention.attention_twin``, ``attention_bnhd_twin``) by phase
+    3's bars, each launch on the route its N and width take and none on
+    another: K2, K4 and K4a blocks (dynamic and static scales), K3 and the
+    K4 and K4a chains (dynamic and static) at N 48 x 4, K5 with its
+    residuals and its gradients, K6's output and probabilities, K7, K8 and
+    K4a's core alone (dynamic and static) with its pre-pass bit-exact
+    against its plain version where the long route takes it. Then K4 at
+    ``ODD_HIDDEN`` (dynamic and static). At N 192 each kernel is timed
+    beside itself at the aligned width below (``ms_aligned``), K7 and K8
+    beside ``scaled_dot_product_attention`` at the true width. Returns, by
+    kernel name, ``{width: [{n, c, ms, ms_64, ms_aligned, max_abs_err,
+    ...}, ...]}`` as ``check_head_widths`` (ms_64 None)."""
+    import torch
+
+    from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
+    from deepmerge_tpu_torch.ops.kernels import fused_block as fb
+
+    bf = torch.bfloat16
+    out = {}
+    static3 = torch.tensor([0.021, 0.023, 0.019], device=dev)
+
+    def record(name, d, **vals):
+        out.setdefault(name, {}).setdefault(d, []).append(vals)
+
+    def cores(d, n, int8=False, blocks=1):
+        long = (n > fb.MAX_TOKENS
+                or fb.core_width(d) not in fb.SHORT_CORE_WIDTHS)
+        if int8 and long:
+            return {"attention_q8_long": blocks,
+                    "attention_q8_prepass": blocks}
+        return {("attention_q8_" if int8 else "attention_")
+                + ("long" if long else "short"): blocks}
+
+    def timed(timing, run, run_aligned):
+        return (cuda_ms(run), cuda_ms(run_aligned)) if timing \
+            else (None, None)
+
+    def ms_text(ms, ms_al, d_al):
+        return (f"; {ms:.4f} ms (aligned d {d_al}: {ms_al:.4f})"
+                if ms is not None else "")
+
+    def quantized(x, plist, heads, static):
+        return [fb.quantize_block_params(
+            p, fb.block_act_amax(x, p, heads)[1] if static else None)
+            for p in plist]
+
+    def blocks(d, c, heads, n, b, depth, timing, tag, q8_only=False):
+        # K2 / K3, then K4 and K4a, dynamic and static scales
+        d_al = d // 8 * 8
+        x, plist, _ = block_inputs(b, n, depth, dev, seed=d + n + depth,
+                                   heads=heads, c=c)
+        xa = pa = None
+        if timing:
+            xa, pa, _ = block_inputs(b, n, depth, dev, seed=d + n + depth,
+                                     heads=heads, c=heads * d_al)
+        chain = depth > 1
+        tol, tol_rms = ((TOL_CHAIN, TOL_CHAIN_RMS) if chain
+                        else (TOL_BLOCK, TOL_BLOCK_RMS))
+        cases = []
+        if not q8_only:
+            cases.append(("fused_block_chain" if chain else "fused_block",
+                          "K3" if chain else "K2", plist, pa, {}, {}))
+        for quant_attn in ((False,) if q8_only else (False, True)):
+            for static in (False, True):
+                cases.append((
+                    ("fused_block_chain_q8" if chain else "fused_block_q8")
+                    + ("_attn" if quant_attn else ""),
+                    ("K4a" if quant_attn else "K4")
+                    + (" static" if static else ""),
+                    quantized(x, plist, heads, static),
+                    quantized(xa, pa, heads, static) if timing else None,
+                    dict(quant_attn=quant_attn),
+                    dict(q8=True, q8_attn=quant_attn)))
+        for name, kn, ps, ps_al, kw, work in cases:
+            fn = ((fb.fused_block_chain_q8 if chain else fb.fused_block_q8)
+                  if work else
+                  (fb.fused_block_chain if chain else fb.fused_block))
+            arg = (lambda t: t) if chain else (lambda t: t[0])
+            run = lambda: fn(x, arg(ps), heads, **kw)
+            got = routed(run, cores(d, n, kw.get("quant_attn", False),
+                                    depth), f"{kn} {name} ({tag}, N={n})")
+            want, plain_ms = cuda_once(
+                lambda: fb.block_twin(x, ps if chain else ps[0], heads,
+                                      **kw))
+            aerr, errs = check_block(f"{name} ({tag}, N={n}, {kn})", got,
+                                     want, x, tol, tol_rms)
+            static = kn.endswith("static")
+            ms, ms_al = timed(timing and not static, run,
+                              lambda: fn(xa, arg(ps_al), heads, **kw))
+            bk = bound(*block_work(b, n, depth, c=c, heads=heads,
+                                   hidden=4 * c, **work))
+            print(f"{kn} {name} {tag} B={b} N={n} depth {depth}: {errs}"
+                  f"{ms_text(ms, ms_al, d_al)}, plain twin {plain_ms:.3f} "
+                  f"ms, bound {bk['bound_ms']:.3f} ms")
+            if not static:
+                record(name, d, n=n, c=c, ms=ms, ms_64=None,
+                       ms_aligned=ms_al, max_abs_err=aerr,
+                       plain_ms=plain_ms, **bk)
+            del got, want
+        del x, plist, xa, pa, cases
+        torch.cuda.empty_cache()
+
+    def training(d, c, heads, n, timing, tag):
+        # K5: out, the residuals, every gradient through its autograd
+        # function; K6: output and probabilities
+        d_al = d // 8 * 8
+        bt = 64 if n <= 192 else 8
+        x, plist, _ = block_inputs(bt, n, 1, dev, seed=d + n + 5,
+                                   heads=heads, c=c)
+        p = plist[0]
+        run = lambda: fb.fused_block_train(x, p, heads)
+        got_out, saved = routed(run, cores(d, n), f"K5 ({tag}, N={n})")
+        (want_out, want), plain_ms = cuda_once(
+            lambda: fb.block_twin(x, p, heads, train=True))
+        aerr, errs = check_block(f"K5 out ({tag}, N={n})", got_out,
+                                 want_out, x, TOL_BLOCK, TOL_BLOCK_RMS)
+        probs_err = abs_err(saved[1], want[1])
+        saved_err = max(rel_err(saved[i], want[i]) for i in (0, 2, 3))
+        require(probs_err <= TOL_K6_PROBS and saved_err <= TOL_K5_SAVED,
+                f"K5 ({tag}, N={n}): probs {probs_err}, saved {saved_err}")
+        del got_out, saved, want_out, want
+        g = device_randn(dev, d + n)(*x.shape).to(x.dtype)
+
+        def grads():
+            xs = x.clone().requires_grad_(True)
+            ps = [t.clone().requires_grad_(True) for t in p]
+            fb.fused_block(xs, ps, heads).backward(g)
+            return [xs.grad] + [t.grad for t in ps]
+
+        got_g = grads()
+        with mock.patch.object(fb, "fused_block_train",
+                               lambda xx, pp, hh, e=False:
+                               fb.block_twin(xx, pp, hh, e, train=True)):
+            want_g = grads()
+        g_err = max(rel_err(a, w) for a, w in zip(got_g, want_g))
+        require(g_err <= TOL_K5_GRAD, f"K5 gradients ({tag}, N={n}): "
+                f"{g_err}")
+        del got_g, want_g, g
+        pa = None
+        if timing:
+            xa, pa, _ = block_inputs(bt, n, 1, dev, seed=d + n + 5,
+                                     heads=heads, c=heads * d_al)
+        ms, ms_al = timed(timing, run,
+                          lambda: fb.fused_block_train(xa, pa[0], heads))
+        bk = bound(*train_block_work(bt, n, c=c, heads=heads, hidden=4 * c))
+        print(f"K5 fused_block_train {tag} B={bt} N={n}: out {errs}; probs "
+              f"max |err| {probs_err:.3e}, saved {saved_err:.3e}, gradients "
+              f"{g_err:.3e} (tol {TOL_K5_GRAD}){ms_text(ms, ms_al, d_al)}, "
+              f"plain twin {plain_ms:.3f} ms, bound {bk['bound_ms']:.3f} ms")
+        record("fused_block_train", d, n=n, c=c, ms=ms, ms_64=None,
+               ms_aligned=ms_al, max_abs_err=aerr, plain_ms=plain_ms, **bk)
+        del x, plist, p, pa
+        r = device_randn(dev, d + n + 6)
+        qkv, bias = r(bt, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+        run = lambda: fa.attention_probs(qkv, bias, heads)
+        got_o, got_p = routed(run, cores(d, n), f"K6 ({tag}, N={n})")
+        (want_o, want_p), plain_ms = cuda_once(
+            lambda: fa.attention_twin(qkv, bias, heads, probs=True))
+        o_err, p_err = rel_err(got_o, want_o), abs_err(got_p, want_p)
+        require(o_err <= TOL_K6_OUT and p_err <= TOL_K6_PROBS,
+                f"K6 ({tag}, N={n}): out {o_err}, probs {p_err}")
+        qa = r(bt, n, 3 * heads * d_al).to(bf) if timing else None
+        ms, ms_al = timed(timing, run,
+                          lambda: fa.attention_probs(qa, bias, heads))
+        bk = bound(qkv.numel() * 2 + bias.numel() * 4 + got_o.numel() * 2
+                   + got_p.numel() * 2, bf16_flops=4 * bt * n * n * c)
+        print(f"K6 attention_probs {tag} B={bt} N={n}: out rel err "
+              f"{o_err:.3e}, probs max |err| {p_err:.3e}"
+              f"{ms_text(ms, ms_al, d_al)}, plain twin {plain_ms:.3f} ms, "
+              f"bound {bk['bound_ms']:.4f} ms")
+        record("fused_attention_train", d, n=n, c=c, ms=ms, ms_64=None,
+               ms_aligned=ms_al, max_abs_err=abs_err(got_o, want_o),
+               plain_ms=plain_ms, **bk)
+        del qkv, bias, qa, got_o, got_p, want_o, want_p
+        torch.cuda.empty_cache()
+
+    def attention(d, c, heads, n, b, timing, tag):
+        # K7 and K8 beside SDPA at the true width, K4a's core alone with
+        # its pre-pass
+        d_al = d // 8 * 8
+        r = device_randn(dev, d + n + 7)
+        qkv, bias = r(b, n, 3 * c).to(bf), r(heads, n, n, s=0.5)
+        q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+        qkv_al = qa = ka = va = None
+        lib_ms = None
+        if timing:
+            qkv_al = r(b, n, 3 * heads * d_al).to(bf)
+            qa, ka, va = (t.contiguous()
+                          for t in fa.split_qkv(qkv_al, heads))
+            lib_ms = attention_library_ms(
+                *(t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v)),
+                bias)
+        bk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                   bf16_flops=4 * b * n * n * c)
+        for name, kn, run, run_al, plain in (
+                ("attention_qkv", "K7",
+                 lambda: fa.attention_qkv(qkv, bias, heads),
+                 lambda: fa.attention_qkv(qkv_al, bias, heads),
+                 lambda: fa.attention_twin(qkv, bias, heads)),
+                ("attention_bnhd", "K8",
+                 lambda: fa.attention_bnhd(q, k, v, bias),
+                 lambda: fa.attention_bnhd(qa, ka, va, bias),
+                 lambda: fa.attention_bnhd_twin(q, k, v, bias))):
+            got = routed(run, cores(d, n), f"{kn} ({tag}, N={n})")
+            want, plain_ms = cuda_once(plain)
+            err = rel_err(got, want)
+            require(err <= TOL_K7, f"{kn} ({tag}, N={n}) differs from its "
+                    f"plain twin: {err} > {TOL_K7}")
+            ms, ms_al = timed(timing, run, run_al)
+            lib = (f", SDPA at width {d} {lib_ms:.4f} ms" if timing
+                   else "")
+            print(f"{kn} {name} {tag} B={b} N={n}: rel err {err:.3e} (tol "
+                  f"{TOL_K7}){ms_text(ms, ms_al, d_al)}, plain twin "
+                  f"{plain_ms:.3f} ms{lib}, bound {bk['bound_ms']:.4f} ms")
+            record(name, d, n=n, c=c, ms=ms, ms_64=None, ms_aligned=ms_al,
+                   max_abs_err=abs_err(got, want), plain_ms=plain_ms,
+                   library_ms=lib_ms, **bk)
+            del got, want
+        qbk = bound(b * n * 4 * c * 2 + heads * n * n * 4,
+                    int8_ops=4 * b * n * n * c)
+        long = "attention_q8_long" in cores(d, n, True)
+        for st in (None, static3):
+            mode = "dynamic" if st is None else "static"
+            if long:
+                got = routed(lambda: fb.attention_q8_prepass(qkv, heads, st),
+                             {"attention_q8_prepass": 1},
+                             f"K4a pre-pass ({tag}, N={n}, {mode})")
+                want = fb.attention_q8_prepass_ref(
+                    qkv, heads, None if st is None else tuple(st))
+                require(all((x is None and y is None) or torch.equal(x, y)
+                            for x, y in zip(got, want)),
+                        f"K4a pre-pass ({tag}, N={n}, {mode}) differs from "
+                        "its plain version")
+                del got, want
+            run = lambda: fb.attention_q8(qkv, bias, heads, st)
+            got = routed(run, cores(d, n, True),
+                         f"K4a core ({tag}, N={n}, {mode})")
+            want, plain_ms = cuda_once(
+                lambda: fb.attention_q8_twin(qkv, bias, heads, st))
+            err = rel_err(got, want)
+            require(err <= TOL_BLOCK, f"K4a core ({tag}, N={n}, {mode}): "
+                    f"{err} > {TOL_BLOCK}")
+            ms, ms_al = timed(timing and st is None, run,
+                              lambda: fb.attention_q8(qkv_al, bias, heads))
+            print(f"K4a core attention_q8 {tag} B={b} N={n} {mode}: rel "
+                  f"err {err:.3e} (tol {TOL_BLOCK})"
+                  f"{', pre-pass bit-exact' if long else ''}"
+                  f"{ms_text(ms, ms_al, d_al)}, plain twin {plain_ms:.3f} "
+                  f"ms, bound {qbk['bound_ms']:.4f} ms")
+            del got, want
+        del qkv, bias, q, k, v, qkv_al, qa, ka, va
+        torch.cuda.empty_cache()
+
+    for d, c in ODD_WIDTHS:
+        heads = c // d
+        tag = (f"{heads} heads of {d} (C {c}, heads of "
+               f"{fb.padded_widths(c, heads).d_pad} lanes; w8a8 C' "
+               f"{fb.padded_widths(c, heads, 4 * c, True).c_pad})")
+        for n in ODD_TOKENS:
+            b = batch if n <= 192 else LONG_BATCH // 8
+            timing = n == 192
+            blocks(d, c, heads, n, b, 1, timing, tag)
+            if n == 48:
+                blocks(d, c, heads, n, b, 4, False, tag)
+            training(d, c, heads, n, timing, tag)
+            attention(d, c, heads, n, b, timing, tag)
+    d, c = ODD_HIDDEN
+    tag = (f"{c // d} heads of {d} (C {c}, hidden {4 * c}, w8a8 hidden' "
+           f"{fb.padded_widths(c, c // d, 4 * c, True).hidden_pad})")
+    for n in (192, 48):
+        blocks(d, c, c // d, n, batch, 1, n == 192, tag, q8_only=True)
+    return out
 
 
 # ------------------------------------------------- long sequences, wide rows
@@ -3026,13 +3335,12 @@ def long_configs_phase(dev, card):
     import warnings
 
     from deepmerge_tpu_torch import DataConfig, ModelConfig
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
     from deepmerge_tpu_torch.infer.extract import FeatureExtractor
     from deepmerge_tpu_torch.models import s2former
     from deepmerge_tpu_torch.train.sampler import stage_scene
 
-    scene = generate_scene(**LONG_SCENE)
+    scene = HOST.call(generate_scene, **LONG_SCENE)
     r = scene.regions.num_regions
     edges = scene.rag.edges.astype(np.int32)
     n_edges = len(edges)
@@ -3079,9 +3387,8 @@ def long_configs_phase(dev, card):
             mcfg = ModelConfig(quantize=quantize, **kw)
         key = tuple(sorted(kw.items()))
         if key not in weights:
-            weights = {key: init_state_dict(mcfg, seed=0)}
-        model = s2former.S2Former(mcfg)
-        model.load_state_dict(weights[key], strict=True)
+            weights = {key: HOST.weights(mcfg)}
+        model = loaded(lambda: s2former.S2Former(mcfg), weights[key])
         ex = FeatureExtractor(model, batch_size=batch, device=dev)
         chunks = -(-points // batch)
 
@@ -3151,7 +3458,6 @@ def long_training(dev, card, fused_block):
     import warnings
 
     from deepmerge_tpu_torch import ModelConfig
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
     from deepmerge_tpu_torch.geodata.synthetic import (
         generate_scene,
@@ -3168,11 +3474,11 @@ def long_training(dev, card, fused_block):
         cfg = Config(model=ModelConfig(cube=LONG_CUBE),
                      data=DataConfig(batch_size=pairs, max_window=512),
                      train=TrainConfig(fused_block=fused_block))
-    scene = generate_scene(**SCENE)
+    scene = HOST.call(generate_scene, **SCENE)
     pos, neg = make_training_pairs(scene)
     sampler = FusedPairSampler(scene, pos, neg, cfg.data, dev)
     spe = len(sampler) // pairs
-    start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+    start_sd = HOST.weights(training_model(cfg), seed=cfg.train.seed)
     epoch_fn = loop.make_scanned_epoch(cfg, sampler.device_scene)
     steps = LONG_TRAIN_STEPS
     arrays = tuple(a[:steps] for a in sampler.epoch_arrays(
@@ -3643,7 +3949,6 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
     import numpy as np
     import torch
 
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
     from deepmerge_tpu_torch.geodata.synthetic import (
         generate_scene,
@@ -3656,7 +3961,7 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
 
     import warnings
 
-    scene = generate_scene(**SCENE)
+    scene = HOST.call(generate_scene, **SCENE)
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # train.fused_block's experiment note
@@ -3702,7 +4007,7 @@ def training_phase(dev, card, mcfg, label, aux_weights=(0.0, 0.0),
         losses = np.asarray(history.train_losses)
         require(losses.shape == (TRAIN_EPOCHS,) and np.isfinite(losses).all(),
                 f"epoch losses {losses}")
-        start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+        start_sd = HOST.weights(training_model(cfg), seed=cfg.train.seed)
         trained = state.model.state_dict()
         for k in bn:  # flax's initial statistics are zeros and ones
             moved = float((trained[k].cpu() - start_sd[k]).abs().max())
@@ -3874,8 +4179,7 @@ def trained_extractor(dev, trained, batch, quantize="", **model_kw):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         mcfg = ModelConfig(quantize=quantize, **model_kw)
-    model = s2former.S2Former(mcfg)
-    model.load_state_dict(trained, strict=True)
+    model = loaded(lambda: s2former.S2Former(mcfg), trained)
     return FeatureExtractor(model, batch_size=batch, device=dev)
 
 
@@ -3888,7 +4192,8 @@ def calibrated_threshold(dev, trained, dcfg, scene_kw=SCENE, **model_kw):
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
     from deepmerge_tpu_torch.infer.calibrate import calibrate_threshold
 
-    val = generate_scene(**dict(scene_kw, seed=scene_kw["seed"] + 500))
+    val = HOST.call(generate_scene,
+                    **dict(scene_kw, seed=scene_kw["seed"] + 500))
     ex = trained_extractor(dev, trained, dcfg.eval_batch_size, **model_kw)
     val_emb = torch.from_numpy(ex.extract_scene(val, dcfg)).to(dev)
     cal = calibrate_threshold(val, val_emb, max_rounds=8)
@@ -4217,7 +4522,7 @@ def long_trained_weights(dev, config):
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
 
     kw, _, epochs, pairs = TRAINED_CONFIGS[config]
-    trained = train_trusted(dev, generate_scene(**LONG_SCENE),
+    trained = train_trusted(dev, HOST.call(generate_scene, **LONG_SCENE),
                             ModelConfig(**kw), epochs, pairs=pairs,
                             deterministic=True)
     return {k: v.cpu() for k, v in trained.items()}
@@ -4244,7 +4549,7 @@ def long_trained_phase(dev, card, config, trained):
 
     t_phase = time.perf_counter()
     kw, batch, _, _ = TRAINED_CONFIGS[config]
-    scene = generate_scene(**LONG_SCENE)
+    scene = HOST.call(generate_scene, **LONG_SCENE)
     edges = scene.rag.edges.astype(np.int32)
     n_edges = len(edges)
     edges = np.concatenate([edges, np.zeros(((-n_edges) % 2048, 2),
@@ -4389,9 +4694,8 @@ def trained_model(trained, quantize="w8a8"):
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        model = S2Former(ModelConfig(quantize=quantize))
-    model.load_state_dict(trained, strict=True)
-    return model
+        mcfg = ModelConfig(quantize=quantize)
+        return loaded(lambda: S2Former(mcfg), trained)
 
 
 def median_s(fn, reps=3):
@@ -4420,6 +4724,17 @@ def strip_capture(staged_and_emb):
 
 
 Q8_PATH = ("patch_resize", "fused_block_q8", "fused_block_chain_q8")
+
+
+def wait_gate(gate, timeout=900.0):
+    """Waits until the folder ``gate`` holds the marker
+    ``scale_out_release`` writes; returns the seconds waited."""
+    t = time.perf_counter()
+    while not os.path.exists(os.path.join(gate, "go")):
+        require(time.perf_counter() - t < timeout,
+                f"no marker in {gate} after {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t
 
 
 def scale_out_rank(rank, world, root):
@@ -4500,7 +4815,10 @@ def scale_out_rank(rank, world, root):
         torch.cuda.empty_cache()
 
         # four steps of the data-parallel trainer, this rank's half of
-        # each batch
+        # each batch, once v3-wide's training has left the card (its peak
+        # and the four ranks' do not fit the card together: ROADMAP C4)
+        out["gate_s"] = wait_gate(spec["gate"])
+        out["free_at_train"] = torch.cuda.mem_get_info(dev)[0]
         pairs = tcfg.data.batch_size
         pos, neg = make_training_pairs(scene)
         sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
@@ -4557,28 +4875,44 @@ def scale_out_start(dev, dcfg, trained, thr):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         mcfg = ModelConfig(quantize="w8a8")
-    dp_port = free_port()
-    dp = start_ranks(scale_out_rank, 2, dict(
-        port=dp_port, dcfg=dcfg, thr=thr, epoch_seed=DP_EPOCH_SEED,
-        mcfg=mcfg, tcfg=tcfg, scene=SCENE, device=str(dev)),
-        "chip_smoke_ranks_", trained)
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    dp = tp = None
     try:
+        dp_port = free_port()
+        dp = start_ranks(scale_out_rank, 2, dict(
+            port=dp_port, dcfg=dcfg, thr=thr, epoch_seed=DP_EPOCH_SEED,
+            mcfg=mcfg, tcfg=tcfg, scene=SCENE, device=str(dev), gate=gate),
+            "chip_smoke_ranks_", trained)
         tp_port = free_port()
         while tp_port == dp_port:
             tp_port = free_port()
         tp = start_ranks(tensor_parallel_rank, TP_RANKS, dict(
             port=tp_port, dcfg=dcfg, tcfg=tcfg, epoch_seed=TP_EPOCH_SEED,
-            scene=TP_SCENE, device=str(dev)), "chip_smoke_tp_", trained)
+            scene=TP_SCENE, device=str(dev), gate=gate), "chip_smoke_tp_",
+            trained)
     except BaseException:
-        stop_ranks(dp)
+        scale_out_stop((dp, tp, gate))
         raise
-    return dp, tp
+    return dp, tp, gate
+
+
+def scale_out_release(ranks):
+    """Lets phase 9's ranks train (``scale_out_rank`` and
+    ``tensor_parallel_rank`` wait for it before their training steps)."""
+    with open(os.path.join(ranks[2], "go"), "w"):
+        pass
 
 
 def scale_out_stop(ranks):
-    """Stops the ranks ``scale_out_start`` started, where still alive."""
-    for spawn in ranks:
-        stop_ranks(spawn)
+    """Stops the ranks ``scale_out_start`` started, where still alive, and
+    removes their gate."""
+    if not ranks:
+        return
+    dp, tp, gate = ranks
+    for spawn in (dp, tp):
+        if spawn is not None:
+            stop_ranks(spawn)
+    shutil.rmtree(gate, ignore_errors=True)
 
 
 def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
@@ -4616,17 +4950,25 @@ def scale_out_phase(dev, card, scene, ds, dcfg, edges_d, valid_d,
     from deepmerge_tpu_torch.parallel.mesh import make_mesh
 
     t_phase = time.perf_counter()
-    dp, tp = ranks
-    dp_ranks, dp_wall, dp_done = join_ranks(dp, "rank{}.pkl",
-                                            "two-rank check")
+    dp, tp, _ = ranks
+    scale_out_release(ranks)  # where no phase before did (a partial run)
     tp_ranks, tp_wall, tp_done = join_ranks(tp, "tp{}.pkl",
                                             "tensor-parallel ranks")
+    dp_ranks, dp_wall, dp_done = join_ranks(dp, "rank{}.pkl",
+                                            "two-rank check")
     print(f"phase 9's four ranks (two data-parallel, two tensor-parallel; "
           f"gloo, one card), started together before phase 8b: joined "
           f"{dp_wall:.1f} s and {tp_wall:.1f} s after their start, their "
           f"results written {dp_done:.1f} s and {tp_done:.1f} s after it; "
           f"the phase waited {time.perf_counter() - t_phase:.1f} s for "
           f"them")
+    for kind, rs in (("data-parallel", dp_ranks),
+                     ("tensor-parallel", tp_ranks)):
+        for k, o in enumerate(rs):
+            print(f"  {kind} rank {k}: training peak "
+                  f"{o['peak_train'] / 2**30:.2f} GiB, the card's free "
+                  f"memory at its start {o['free_at_train'] / 2**30:.2f} "
+                  f"GiB (it waited {o['gate_s']:.1f} s to train)")
     r = scene.regions.num_regions
     model = trained_model(trained)
     off = [k for k in counters() if k not in Q8_PATH]
@@ -4898,6 +5240,9 @@ def tensor_parallel_rank(rank, world, root):
         del ex, model, emb
         torch.cuda.empty_cache()
 
+        # the training steps once v3-wide's training has left the card
+        out["gate_s"] = wait_gate(spec["gate"])
+        out["free_at_train"] = torch.cuda.mem_get_info(dev)[0]
         tcfg = spec["tcfg"]
         pos, neg = make_training_pairs(scene)
         sampler = PairSampler(scene, pos, neg, tcfg.data, dev)
@@ -5012,7 +5357,7 @@ def tensor_parallel_case(dev, card, dcfg, trained, thr, ranks):
 
     # the single-device references on the same scene: the forward on the
     # plain versions, then the same steps from the same weights and batches
-    scene = generate_scene(**TP_SCENE)
+    scene = HOST.call(generate_scene, **TP_SCENE)
     ex = trained_extractor(dev, trained, dcfg.eval_batch_size)
     with plain_versions():
         emb_p = ex.extract_scene_device(scene, dcfg)
@@ -5217,7 +5562,6 @@ def vit_training(dev, card, mcfg, scene):
     import numpy as np
     import torch
 
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.config import Config, DataConfig, TrainConfig
     from deepmerge_tpu_torch.geodata.synthetic import make_training_pairs
     from deepmerge_tpu_torch.models.s2former import training_model
@@ -5274,7 +5618,7 @@ def vit_training(dev, card, mcfg, scene):
         del state
         torch.cuda.empty_cache()
 
-        start_sd = init_state_dict(training_model(cfg), seed=cfg.train.seed)
+        start_sd = HOST.weights(training_model(cfg), seed=cfg.train.seed)
         first = tuple(a[:4] for a in sampler.epoch_arrays(
             cfg.train.seed * 100003 % 2**32, TRAIN_PAIRS))
 
@@ -5420,7 +5764,8 @@ def eval_start(repo):
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
-    return dict(proc=proc, root=root, t=time.perf_counter())
+    return dict(proc=proc, root=root, t=time.perf_counter(),
+                t_wall=time.time())
 
 
 def eval_stop(run):
@@ -5442,6 +5787,10 @@ def eval_run(repo, started=None):
     try:
         returncode = run["proc"].wait(timeout=600)
         wall = time.perf_counter() - run["t"]
+        # when it ended: its output's last write (its last line, the launch
+        # counts), not when this phase came to wait for it
+        ended = (os.path.getmtime(os.path.join(run["root"], "stdout"))
+                 - run["t_wall"])
         with open(os.path.join(run["root"], "stdout")) as f:
             stdout = f.read()
         with open(os.path.join(run["root"], "stderr")) as f:
@@ -5465,8 +5814,8 @@ def eval_run(repo, started=None):
     held = [(h["seed"], h["clusters"], h["pair_disagreement"])
             for h in tail["held_out"]]
     print(f"eval (python -m deepmerge_tpu_torch.eval --calibrate, smoke "
-          f"defaults, {tail['device']}): exit 0, {wall:.1f} s after its "
-          f"start, trained "
+          f"defaults, {tail['device']}): exit 0, ended {ended:.1f} s after "
+          f"its start (read {wall:.1f} s after it), trained "
           f"{tail['epochs']} epochs in {tail['train_seconds']} s, threshold "
           f"{tail['threshold']} (validation disagreement "
           f"{tail['calibration']['val_disagreement']}); held out (seed, "
@@ -5501,7 +5850,6 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
     import torch
 
     from deepmerge_tpu_torch import DataConfig, ModelConfig
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.infer.extract import FeatureExtractor
     from deepmerge_tpu_torch.models.s2former import build_model
     from deepmerge_tpu_torch.models.vit import ATTENTION_RANGE
@@ -5520,8 +5868,7 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
     # 12 heads, out 100, bf16
     mcfg = ModelConfig(variant="vit", input_image_scales=VIT_SCALES)
     t = time.perf_counter()
-    model = build_model(mcfg)
-    model.load_state_dict(init_state_dict(mcfg, seed=0), strict=True)
+    model = loaded(lambda: build_model(mcfg), HOST.weights(mcfg))
     ex = FeatureExtractor(model, batch_size=dcfg.eval_batch_size, device=dev)
     print(f"vit: {sum(p.numel() for p in model.parameters())} parameters, "
           f"depth {len(model.blocks)}, built in "
@@ -5582,8 +5929,7 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
                            quantize="w8a8")
     require(any("quantize is a no-op" in str(w.message) for w in caught),
             "model.quantize=w8a8 with vit did not warn")
-    qmodel = build_model(qcfg)
-    qmodel.load_state_dict(init_state_dict(qcfg, seed=0), strict=True)
+    qmodel = loaded(lambda: build_model(qcfg), HOST.weights(qcfg))
     qex = FeatureExtractor(qmodel, batch_size=dcfg.eval_batch_size,
                            device=dev)
     emb_q, q_launches = counted(lambda: qex.extract_scene_device(
@@ -5605,7 +5951,7 @@ def family_phase(dev, card, repo, scene, edges_d, valid_d, valid,
 
 # ---------------------------------------------------------------- phase 11
 
-BENCH_RUNS = 2        # timed runs of each in-process headline route
+BENCH_RUNS = 1        # timed runs of each in-process headline route
 BENCH_VIT_RUNS = 1    # the vit route's (3.5 s a run at 8192 points)
 BENCH_TRAIN_EPOCHS = 1
 # the JSON keys of each bench mode: the root bench.py's without vs_baseline
@@ -5708,6 +6054,7 @@ def bench_phase(dev, card, repo, walk):
 
     from deepmerge_tpu_torch import bench
     from deepmerge_tpu_torch.infer import extract
+    from deepmerge_tpu_torch.models.s2former import build_model
     from deepmerge_tpu_torch.ops.patches import staging_caps
 
     t_phase = time.perf_counter()
@@ -5738,7 +6085,7 @@ def bench_phase(dev, card, repo, walk):
     # the headline's routes in this process, on the default scene
     t = time.perf_counter()
     side = SERVE_SCENE["h"]
-    scene = bench.make_scene(side, side, bench.n_regions_for(
+    scene = HOST.call(bench.make_scene, side, side, bench.n_regions_for(
         side, side, bench.DEFAULT_DENSITY))
     require(scene.regions.num_regions == SERVE_SCENE["n_regions"],
             f"default scene: {scene.regions.num_regions} regions")
@@ -5768,14 +6115,18 @@ def bench_phase(dev, card, repo, walk):
     # against their plain versions on the same model, scene and batch
     held = ("BENCH_QUANT=0", "BENCH_QUANT=w8a8+attn", "BENCH_CHAIN=2")
     results = {}
-    # one model (random weights from seed 0) for the three w8a8 routes
-    w8a8 = bench.fresh_model(bench.config_for("main", {}).model)
+
+    def fresh_model(mcfg):  # bench.fresh_model, its draw made ahead
+        return loaded(lambda: build_model(mcfg), HOST.weights(mcfg))
+
+    # one model (random weights from seed 0) for the three w8a8 routes,
+    # one of its own for each other route
+    w8a8 = fresh_model(bench.config_for("main", {}).model)
     for label, knobs, route, on, n_runs in cases:
         cfg = bench.config_for("main", knobs)
         dcfg = cfg.data
         caps = staging_caps(inner, obj, dcfg.patch_sizes, dcfg.max_window)
-        model = w8a8 if not knobs else (
-            bench.fresh_model(cfg.model) if label in held else None)
+        model = w8a8 if not knobs else fresh_model(cfg.model)
         t = time.perf_counter()
         (out, res), launches = counted(lambda: bench.segment_and_merge_bench(
             cfg, scene, device=dev, model=model, runs=n_runs, **route))
@@ -5825,7 +6176,7 @@ def bench_phase(dev, card, repo, walk):
                 f"fused route's in {diff} of the pixels")
     require(np.array_equal(dense[scene.labels], maps["w8a8"]),
             "bench: the fused map is not the host expansion of the labels")
-    del results, maps, w8a8
+    del results, maps, w8a8, model
     torch.cuda.empty_cache()
 
     # the serving walk over phase 6's scenes: BENCH_SERVE=4's workload
@@ -5854,7 +6205,7 @@ def bench_phase(dev, card, repo, walk):
     t = time.perf_counter()
     cfg = bench.config_for("train", {})
     (out, losses), launches = counted(lambda: bench.train_bench(
-        cfg, bench.train_scene(), BENCH_TRAIN_EPOCHS, device=dev))
+        cfg, HOST.call(bench.train_scene), BENCH_TRAIN_EPOCHS, device=dev))
     bench_line(out, "train", f"BENCH_TRAIN={BENCH_TRAIN_EPOCHS}")
     require(bool(np.isfinite(losses).all()), f"bench train: losses {losses}")
     train_on = ("patch_resize", "fused_attention_train")
@@ -5895,6 +6246,215 @@ def bench_phase(dev, card, repo, walk):
     return runs
 
 
+# ------------------------------------------------- host work made ahead
+
+def _host_job(fn, args, kwargs):
+    """``fn(*args, **kwargs)`` in a ``HostWork`` worker, serialized by
+    ``torch.save`` for the parent: plain bytes through the pipe, no shared
+    memory."""
+    import torch
+
+    buf = io.BytesIO()
+    torch.save(fn(*args, **kwargs), buf)
+    return buf.getvalue()
+
+
+def _host_worker_init():
+    # one thread each, at the lowest priority: the workers take only the
+    # cores the card's phases leave (set before numpy and torch load)
+    for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[k] = "1"
+    os.nice(19)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+class HostWork:
+    """The random weights and scenes of a whole run, made by two worker
+    processes while the card runs the phases before the ones that ask for
+    them (``start`` takes the plan, in the order of use), and handed out as
+    ``call`` and ``weights`` would make them inline: the same function,
+    arguments and seed, so the same values, a fresh copy each call. What is
+    not planned, asked for more often than planned, or lost with its worker
+    is made inline."""
+
+    def __init__(self):
+        self.pool = None
+        self.jobs = {}  # key -> [future, planned uses left]
+
+    @staticmethod
+    def _key(fn, args, kwargs):
+        return (fn.__module__, fn.__qualname__, repr(args),
+                repr(sorted(kwargs.items())))
+
+    @staticmethod
+    def weights_job(mcfg, seed=0):
+        """The plan's entry of ``init_state_dict(mcfg, seed)``:
+        ``model.quantize`` changes no name, shape or value of the draw (a
+        quantized model loads its bf16 draw strictly), so the key leaves it
+        out."""
+        import warnings
+
+        from deepmerge_tpu_torch.compat.weights import init_state_dict
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the experimental knobs' notes
+            mcfg = dataclasses.replace(mcfg, quantize="")
+        return init_state_dict, (mcfg, seed), {}
+
+    def start(self, plan):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        try:
+            self.pool = ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_host_worker_init)
+            for fn, args, kwargs in plan:
+                key = self._key(fn, args, kwargs)
+                if key in self.jobs:
+                    self.jobs[key][1] += 1
+                else:
+                    self.jobs[key] = [self.pool.submit(_host_job, fn, args,
+                                                       kwargs), 1]
+        except Exception as e:  # everything made inline instead
+            print(f"host work: no workers ({e!r}); made inline",
+                  file=sys.stderr)
+            self.close()
+
+    def call(self, fn, *args, **kwargs):
+        import torch
+
+        key = self._key(fn, args, kwargs)
+        job = self.jobs.get(key)
+        if job is None:
+            return fn(*args, **kwargs)
+        job[1] -= 1
+        if not job[1]:
+            del self.jobs[key]
+        try:
+            data = job[0].result(timeout=300)
+        except Exception as e:  # a lost or stuck worker: made here instead
+            print(f"host work {key[1]}: the worker failed ({e!r}); made "
+                  "inline", file=sys.stderr)
+            return fn(*args, **kwargs)
+        return torch.load(io.BytesIO(data), weights_only=False)
+
+    def weights(self, mcfg, seed=0):
+        """``init_state_dict(mcfg, seed)``."""
+        fn, args, kwargs = self.weights_job(mcfg, seed)
+        return self.call(fn, *args, **kwargs)
+
+    def close(self):
+        """Cancels the jobs not started and ends the workers."""
+        if self.pool is not None:
+            procs = list(getattr(self.pool, "_processes", {}).values())
+            self.pool.shutdown(wait=False, cancel_futures=True)
+            for p in procs:
+                p.terminate()
+            self.pool = None
+        self.jobs.clear()
+
+
+HOST = HostWork()
+
+
+def loaded(build, state_dict):
+    """``build()``'s model with ``state_dict`` loaded strictly. The load
+    overwrites every parameter, so ``nn.Linear`` skips its random
+    initialization while the model is built: that initialization is most of
+    a model's construction time on the host."""
+    import torch
+
+    with mock.patch.object(torch.nn.Linear, "reset_parameters",
+                           lambda self: None):
+        model = build()
+    model.load_state_dict(state_dict, strict=True)
+    return model
+
+
+# phase 5d's slices beyond the 32/128 widths: tag, ModelConfig keywords and
+# the number of modes (bf16, w8a8, w8a8+attn) each runs. All but S8 run at
+# a cut depth of two blocks a stage (each stage's kernels as at the full
+# depth: stage 0's blocks, the stage-1 and stage-2 chains), which pays for
+# S8 at v3's full depth
+CUT_DEPTH = dict(depth=(2, 2, 2))
+WIDTH_SLICES = (
+    ("S1, 8 heads of 96", dict(num_heads=8, **CUT_DEPTH), 3),
+    ("S2, 16 heads of 48", dict(num_heads=16, **CUT_DEPTH), 3),
+    ("S3, embed 480, 6 heads of 80", dict(embed_dim=480, num_heads=6,
+                                          **CUT_DEPTH), 2),
+    ("S4, 4 heads of 192", dict(num_heads=4, **CUT_DEPTH), 3),
+    ("S5, 3 heads of 256", dict(num_heads=3, **CUT_DEPTH), 2),
+    ("S6, 2 heads of 384", dict(num_heads=2, **CUT_DEPTH), 3),
+    ("S7, 1 head of 768", dict(num_heads=1, **CUT_DEPTH), 2),
+    ("S8, embed 780, 12 heads of 65", dict(embed_dim=780, num_heads=12), 3),
+    ("S9, embed 780, 3 heads of 260", dict(embed_dim=780, num_heads=3,
+                                           **CUT_DEPTH), 2))
+
+
+def host_plan():
+    """The whole run's ``HostWork``, in the order its phases ask for it."""
+    import warnings
+
+    from deepmerge_tpu_torch import bench
+    from deepmerge_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from deepmerge_tpu_torch.geodata.synthetic import generate_scene
+    from deepmerge_tpu_torch.models.s2former import training_model
+
+    def scene(**kw):
+        return generate_scene, (), kw
+
+    def weights(**kw):
+        return HostWork.weights_job(ModelConfig(**kw))
+
+    def start_weights(fused_block=False, **kw):
+        # a training run's seeded initial weights (``training_model``)
+        cfg = Config(model=ModelConfig(**kw),
+                     train=TrainConfig(fused_block=fused_block))
+        return HostWork.weights_job(training_model(cfg), cfg.train.seed)
+
+    cube = dict(cube=LONG_CUBE)
+    vit = dict(variant="vit", input_image_scales=VIT_SCALES)
+    side = SERVE_SCENE["h"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the experimental knobs' notes
+        return [
+            # phases 4-5d: the slices' draws
+            weights(), weights(variant="v5"),
+            weights(variant="v5", exact_gelu=True),
+            *(weights(num_heads=768 // d, **CUT_DEPTH) for d in HEAD_WIDTHS),
+            *(weights(**kw) for _, kw, _ in WIDTH_SLICES),
+            # phase 5e: its slices, then two training runs
+            scene(**LONG_SCENE), weights(**cube), weights(**WIDE),
+            scene(**SCENE), start_weights(**cube),
+            scene(**SCENE), start_weights(True, **cube),
+            # phase 7: v3, v5, v3 through K5
+            scene(**SCENE), start_weights(),
+            scene(**SCENE), start_weights(variant="v5"),
+            scene(**SCENE), start_weights(True),
+            # phase 8: v3's and v5's calibration scenes; 8c's training
+            scene(**dict(SCENE, seed=SCENE["seed"] + 500)),
+            scene(**dict(SCENE, seed=SCENE["seed"] + 500)),
+            scene(**LONG_SCENE),
+            # phases 8b and 8c: their scenes and calibration scenes
+            *[scene(**LONG_SCENE),
+              scene(**dict(LONG_SCENE, seed=LONG_SCENE["seed"] + 500))] * 2,
+            scene(**TP_SCENE),  # phase 9
+            # phase 10: the vit slice (and with model.quantize), training
+            weights(**vit), weights(**vit), start_weights(**vit),
+            # phase 11: the default scene, the routes' models, training
+            (bench.make_scene, (side, side, bench.n_regions_for(
+                side, side, bench.DEFAULT_DENSITY)), {}),
+            *(HostWork.weights_job(bench.config_for("main", knobs).model)
+              for knobs in ({}, {"BENCH_QUANT": "0"},
+                            {"BENCH_QUANT": "w8a8+attn"},
+                            {"BENCH_CHAIN": "2"}, {"BENCH_MODEL": "vit"})),
+            (bench.train_scene, (), {}),
+        ]
+
+
 def main() -> int:
     try:
         import torch
@@ -5932,7 +6492,6 @@ def main() -> int:
     from deepmerge_tpu_torch.geodata.synthetic import generate_scene
     from deepmerge_tpu_torch.utils.parity import label_disagreement
     from deepmerge_tpu_torch import DataConfig, ModelConfig
-    from deepmerge_tpu_torch.compat.weights import init_state_dict
     from deepmerge_tpu_torch.infer.extract import FeatureExtractor
     from deepmerge_tpu_torch.models import s2former
     from deepmerge_tpu_torch.ops.kernels import build
@@ -6026,6 +6585,12 @@ def main() -> int:
         if "error" in built:
             raise built["error"]
         train_s = time.perf_counter() - t_train
+        if only is None:
+            # the weights and scenes of the phases to come, made on the
+            # host while the card runs phase 3 and on (C3). Not beside
+            # v3-cube16's training: its steps took 729 ms against 471 with
+            # the workers beside it (NVIDIA H100 80GB HBM3, 700.00 W)
+            HOST.start(host_plan())
         rest_s = built["s"] - first_s
         print(f"build: {', '.join(k + '.cu' for k in first)} in "
               f"{first_s:.1f} s, then {', '.join(k + '.cu' for k in rest)} "
@@ -6058,6 +6623,8 @@ def main() -> int:
         check_padded_widths(dev)
         clock("phase 3, wide heads")
         check_wide_heads(dev)
+        clock("phase 3, odd widths")
+        check_odd_widths(dev)
     if only is not None and "long" in only:
         check_long_kernels(dev)
         clock("phase 5e")
@@ -6092,6 +6659,9 @@ def main() -> int:
         for (k, d, n), entry in sorted(wide_routes.items()):
             kernel_results[k].setdefault("wide_heads", {}).setdefault(
                 str(d), {})[str(n)] = entry
+        clock("phase 3, odd widths")
+        for k, per in check_odd_widths(dev).items():
+            widths.setdefault(k, {}).update(per)
         kernel_results.update(check_label_lookup(dev, scene))
         k10, probe_launches = check_int4_dot(dev)
         kernel_results.update(k10)
@@ -6142,9 +6712,8 @@ def main() -> int:
             mcfg = ModelConfig(quantize=quantize, **model_kw)
         key = tuple(sorted(model_kw.items()))
         if key not in draws:
-            draws[key] = init_state_dict(mcfg, seed=0)
-        model = s2former.S2Former(mcfg)
-        model.load_state_dict(draws[key], strict=True)
+            draws[key] = HOST.weights(mcfg)
+        model = loaded(lambda: s2former.S2Former(mcfg), draws[key])
         return FeatureExtractor(model, batch_size=dcfg.eval_batch_size,
                                 device=dev)
 
@@ -6343,36 +6912,29 @@ def main() -> int:
 
     # 5d. the flagship's width of 768 with heads of 32 and of 128 (24 and 6
     # heads) in w8a8 and bf16: every block on the kernels at that width;
-    # then the slices the padded widths open, v3 at full width and depth:
-    # S1 8 heads of 96 and S2 16 of 48 (C 768) in bf16, w8a8 and w8a8+attn,
-    # S3 embed 480 with 6 heads of 80 (both GEMMs' K tails) in bf16 and
-    # w8a8, each with its cores' launches counted too; and those the wide
-    # heads open, every block's core on the long route (the 256-wide
-    # instance) at every stage: S4 4 heads of 192 in bf16, w8a8 and
-    # w8a8+attn, S5 3 heads of 256 in bf16 and w8a8; and those the wide
-    # form opens (d in 128-lane chunks): S6 2 heads of 384 in bf16, w8a8
-    # and w8a8+attn, S7 1 head of 768 in bf16 and w8a8, at v3's full depth.
-    # The earlier slices run at a cut depth of two blocks a stage (each
-    # stage's kernels as at the full depth: stage 0's blocks, the stage-1
-    # and stage-2 chains), which pays for S6 and S7
+    # then the slices the padded widths open, v3 at full width: S1 8 heads
+    # of 96 and S2 16 of 48 (C 768) in bf16, w8a8 and w8a8+attn, S3 embed
+    # 480 with 6 heads of 80 (both GEMMs' K tails) in bf16 and w8a8, each
+    # with its cores' launches counted too; and those the wide heads open,
+    # every block's core on the long route (the 256-wide instance) at every
+    # stage: S4 4 heads of 192 in bf16, w8a8 and w8a8+attn, S5 3 heads of
+    # 256 in bf16 and w8a8; and those the wide form opens (d in 128-lane
+    # chunks): S6 2 heads of 384 in bf16, w8a8 and w8a8+attn, S7 1 head of
+    # 768 in bf16 and w8a8; and those the zero-padded layouts open: S8 v3
+    # at embed 780 with 12 heads of 65 (d % 8 = 1, C % 16 = 12; the
+    # flagship's shape at the nearest unaligned width) in bf16, w8a8 and
+    # w8a8+attn at v3's full depth, S9 embed 780 with 3 heads of 260 (the
+    # wide form at d % 8 = 4) in bf16 and w8a8. The others run at
+    # CUT_DEPTH (WIDTH_SLICES)
     clock("phase 5d")
     depth = ModelConfig().depth
-    cut = dict(depth=(2, 2, 2))
     widths_5d = [(f"{768 // d} heads of {d}", dict(num_heads=768 // d,
-                                                   **cut),
+                                                   **CUT_DEPTH),
                   (("w8a8", q8_kernels), ("", bf16_kernels)), False)
                  for d in HEAD_WIDTHS]
     wide_launches = {}  # the long routes' launches of S4-S7
     form_launches = {}  # the wide form's (S6, S7)
-    for tag, kw, modes in (
-            ("S1, 8 heads of 96", dict(num_heads=8, **cut), 3),
-            ("S2, 16 heads of 48", dict(num_heads=16, **cut), 3),
-            ("S3, embed 480, 6 heads of 80", dict(embed_dim=480,
-                                                  num_heads=6, **cut), 2),
-            ("S4, 4 heads of 192", dict(num_heads=4, **cut), 3),
-            ("S5, 3 heads of 256", dict(num_heads=3, **cut), 2),
-            ("S6, 2 heads of 384", dict(num_heads=2), 3),
-            ("S7, 1 head of 768", dict(num_heads=1), 2)):
+    for tag, kw, modes in WIDTH_SLICES:
         widths_5d.append((tag, kw, (("", bf16_kernels), ("w8a8", q8_kernels),
                                     ("w8a8+attn", q8a_kernels))[:modes],
                           True))
@@ -6506,6 +7068,9 @@ def main() -> int:
             eval_started = eval_start(repo)
             clock("phase 8c's training")
             long_weights["v3-wide"] = long_trained_weights(dev, "v3-wide")
+            # phase 9's ranks train only now (ROADMAP C4)
+            torch.cuda.empty_cache()
+            scale_out_release(ranks)
             # 8b. the same bar for v3-cube16 (the long routes, K4a's
             # included)
             clock("phase 8b")
@@ -6624,4 +7189,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        HOST.close()
+    sys.exit(rc)

@@ -45,15 +45,16 @@ const char* dm_error_string(int err) {
 // the caller; refused here too). `scratch` (16-byte aligned, of
 // `scratch_bytes`) holds at least the plan's `scratch` bytes on the wide
 // form (d > 256; a smaller one is refused) and is unread elsewhere (null
-// there). Returns cudaGetLastError().
+// there). q is scaled by the d^-1/2 of `d_scale`, as dm_attention's.
+// Returns cudaGetLastError().
 int dm_attention_probs(const void* qkv, const void* bias, void* out,
                        void* probs, int B, int N, int C, int H,
-                       const int* plan, void* scratch,
+                       int d_scale, const int* plan, void* scratch,
                        long long scratch_bytes, cudaStream_t stream) {
   return static_cast<int>(attention_qkv<true>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, C, H, plan,
-      scratch, scratch_bytes, stream));
+      static_cast<bf16*>(out), static_cast<bf16*>(probs), B, N, C, H,
+      d_scale, plan, scratch, scratch_bytes, stream));
 }
 
 }  // extern "C"

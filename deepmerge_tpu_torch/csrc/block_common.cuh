@@ -121,11 +121,29 @@ __device__ __forceinline__ float group_reduce(float v, float* red) {
 // attention_wide_kernel here, attention_q8_wide_kernel in fused_block_q8.cu),
 // which takes d in 128-lane chunks. The C entry points derive the width as
 // C / H and refuse any other, and any plan of the wrong route.
+// A head whose true width is not a multiple of 8 travels on a zero-padded
+// layout (ops/kernels/fused_block.py `PaddedWidths`): d is then the
+// layout's width C / H, its lanes past the true width hold zeros in q, k
+// and v, and the entry points take the true width `d_scale` for the
+// softmax scale alone (scale_width_ok).
 constexpr int kMaxHeadDim = 8192;
 constexpr int kShortMaxWidth = 128;
 constexpr int kWideCore = kMaxHeadDim;  // core_width of every d above 256
 __host__ __device__ constexpr bool head_dim_ok(int d) {
   return d % 8 == 0 && d >= 8 && d <= kMaxHeadDim;
+}
+// The true head width whose d^-1/2 scales q, on a layout of width d: within
+// the eight lanes below it (sixteen where an int8 block's GEMMs round the
+// attention's width to 16 bytes, a head of width d_scale then taking a
+// layout of round_up(d_scale, 16)).
+__host__ __device__ constexpr bool scale_width_ok(int d_scale, int d) {
+  return d_scale >= 1 && d_scale <= d && d_scale > d - 16;
+}
+// A block's widths: the residual stream's C (its LayerNorm statistics over
+// the first Cn lanes) within the attention's A, whose buffer also holds
+// the LayerNorm outputs.
+__host__ __device__ constexpr bool block_widths_ok(int C, int A, int Cn) {
+  return Cn >= 1 && Cn <= C && C <= A;
 }
 __host__ __device__ constexpr int core_width(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256
@@ -294,7 +312,8 @@ __device__ __forceinline__ void store_pair(bf16* row, int j, int N, bool even,
 // the register arrays; tiles past ceil(N/16) are skipped. q, k and v are
 // the first rows of the three operands, each row `ld` elements apart (3C
 // within a packed (B·N, 3C) qkv, C for (B, N, H, d) tensors), head h's
-// lanes d·h on; the output rows are C apart. `scale` is bf16_q_scale(d).
+// lanes d·h on; the output rows are C apart. `scale` is bf16_q_scale of the
+// head's true width (d, or d_scale on a padded layout).
 template <int kD, int kKT, bool kProbs, bool kNormFirst>
 __global__ void __launch_bounds__(attn_max_warps(kD) * 32)
 attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -481,7 +500,7 @@ inline cudaError_t attention_run(const bf16* q, const bf16* k, const bf16* v,
                                  long long ld, const float* bias, bf16* out,
                                  bf16* probs, int B, int N, int C, int H,
                                  int warps, int samples, int smem,
-                                 cudaStream_t stream) {
+                                 float scale, cudaStream_t stream) {
   auto* kern = attention_kernel<kD, kKT, kProbs, kNormFirst>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -492,7 +511,7 @@ inline cudaError_t attention_run(const bf16* q, const bf16* k, const bf16* v,
   const dim3 grid(H, (B + samples - 1) / samples);
   const int d = C / H;
   kern<<<grid, warps * 32, smem, stream>>>(q, k, v, ld, bias, out, probs, B,
-                                           N, C, d, samples, bf16_q_scale(d));
+                                           N, C, d, samples, scale);
   return cudaGetLastError();
 }
 
@@ -502,13 +521,13 @@ inline cudaError_t attention_width(const bf16* q, const bf16* k,
                                    const float* bias, bf16* out, bf16* probs,
                                    int B, int N, int C, int H, int kt,
                                    int warps, int samples, int smem,
-                                   cudaStream_t stream) {
+                                   float scale, cudaStream_t stream) {
   if (warps > attn_max_warps(kD)) return cudaErrorInvalidValue;
 #define DM_ATTN_CASE(KT)                                                     \
   case KT:                                                                   \
     return attention_run<kD, KT, kProbs, kNormFirst>(                        \
         q, k, v, ld, bias, out, probs, B, N, C, H, warps, samples, smem,     \
-        stream);
+        scale, stream);
   switch (kt) {
     DM_ATTN_CASE(1)
     DM_ATTN_CASE(3)
@@ -1390,7 +1409,7 @@ inline cudaError_t attention_long_launch(const CUtensorMap& map_k,
                                          const bf16* q, long long ld,
                                          const float* bias, bf16* out,
                                          bf16* probs, int B, int N, int C,
-                                         int H, bool slab,
+                                         int H, bool slab, float scale,
                                          cudaStream_t stream) {
   auto* kern = attention_long_kernel<kD, kProbs, kNormFirst, kTiles>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -1400,8 +1419,7 @@ inline cudaError_t attention_long_launch(const CUtensorMap& map_k,
                   attn_long_sample_groups(B, N, H, kD, kProbs), H);
   const int d = C / H;
   kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
-      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, d, slab,
-      bf16_q_scale(d));
+      map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, d, slab, scale);
   return cudaGetLastError();
 }
 
@@ -1410,7 +1428,7 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
                                       const bf16* v, long long ld,
                                       const float* bias, bf16* out,
                                       bf16* probs, int B, int N, int C, int H,
-                                      cudaStream_t stream) {
+                                      float scale, cudaStream_t stream) {
   const int mode = attn_long_bias_mode(N, kD, kProbs);
   CUtensorMap map_k, map_v, map_b;
   cudaError_t e = attn_long_map(&map_k, k, ld, B, N, H, C / H);
@@ -1421,11 +1439,11 @@ inline cudaError_t attention_long_run(const bf16* q, const bf16* k,
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_long_launch<kD, kProbs, kNormFirst, true>(
         map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, H, false,
-        stream);
+        scale, stream);
   }
   return attention_long_launch<kD, kProbs, kNormFirst, false>(
       map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H,
-      mode == kBiasSlab, stream);
+      mode == kBiasSlab, scale, stream);
 }
 
 // ------------------------------------------ attention, long route, wide form
@@ -2027,7 +2045,7 @@ inline cudaError_t attention_wide_launch(const CUtensorMap& map_k,
                                          const float* bias, bf16* out,
                                          bf16* probs, int B, int N, int C,
                                          int H, int mode, void* scratch,
-                                         cudaStream_t stream) {
+                                         float scale, cudaStream_t stream) {
   auto* kern = attention_wide_kernel<kProbs, kNormFirst, kTiles>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
@@ -2037,7 +2055,7 @@ inline cudaError_t attention_wide_launch(const CUtensorMap& map_k,
   const int d = C / H;
   kern<<<grid, kWideCtaThreads, kAttnLongSmem, stream>>>(
       map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, d,
-      mode == kBiasSlab, bf16_q_scale(d), static_cast<uint4*>(scratch));
+      mode == kBiasSlab, scale, static_cast<uint4*>(scratch));
   return cudaGetLastError();
 }
 
@@ -2049,7 +2067,8 @@ inline cudaError_t attention_wide_run(const bf16* q, const bf16* k,
                                       const bf16* v, long long ld,
                                       const float* bias, bf16* out,
                                       bf16* probs, int B, int N, int C, int H,
-                                      void* scratch, cudaStream_t stream) {
+                                      void* scratch, float scale,
+                                      cudaStream_t stream) {
   const int mode = long_bias_mode(N, wide_region_bytes(kProbs));
   CUtensorMap map_k, map_v, map_b;
   cudaError_t e = attn_long_map(&map_k, k, ld, B, N, H, C / H);
@@ -2060,11 +2079,11 @@ inline cudaError_t attention_wide_run(const bf16* q, const bf16* k,
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_wide_launch<kProbs, kNormFirst, true>(
         map_k, map_v, map_b, q, ld, bias, out, probs, B, N, C, H, mode,
-        scratch, stream);
+        scratch, scale, stream);
   }
   return attention_wide_launch<kProbs, kNormFirst, false>(
       map_k, map_v, map_k, q, ld, bias, out, probs, B, N, C, H, mode, scratch,
-      stream);
+      scale, stream);
 }
 
 // A long-route plan (`attention_plan` with route "long", or K4a's
@@ -2096,13 +2115,15 @@ template <bool kProbs, bool kNormFirst>
 inline cudaError_t attention_launch(const bf16* q, const bf16* k,
                                     const bf16* v, long long ld,
                                     const float* bias, bf16* out, bf16* probs,
-                                    int B, int N, int C, int H,
+                                    int B, int N, int C, int H, int d_scale,
                                     const int* plan, void* scratch,
                                     long long scratch_bytes,
                                     cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   const int w = core_width(d);
+  if (!scale_width_ok(d_scale, d)) return cudaErrorInvalidValue;
+  const float scale = bf16_q_scale(d_scale);
   if (kt == kAttnLongRoute) {
     if (!head_dim_ok(d) ||
         !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(w),
@@ -2114,23 +2135,24 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
     switch (w) {
       case 32:
         return attention_long_run<32, kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scale, stream);
       case 64:
         return attention_long_run<64, kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scale, stream);
       case 128:
         return attention_long_run<128, kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scale, stream);
       case 256:
         return attention_long_run<256, kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scale, stream);
       case kWideCore:
         if (scratch == nullptr ||
             (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
             scratch_bytes < wide_slot_bytes(B, N, H, kWidePBlock))
           return cudaErrorInvalidValue;
         return attention_wide_run<kProbs, kNormFirst>(
-            q, k, v, ld, bias, out, probs, B, N, C, H, scratch, stream);
+            q, k, v, ld, bias, out, probs, B, N, C, H, scratch, scale,
+            stream);
       default:
         return cudaErrorInvalidValue;
     }
@@ -2145,15 +2167,15 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
     case 32:
       return attention_width<32, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
-          stream);
+          scale, stream);
     case 64:
       return attention_width<64, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
-          stream);
+          scale, stream);
     case 128:
       return attention_width<128, kProbs, kNormFirst>(
           q, k, v, ld, bias, out, probs, B, N, C, H, kt, warps, samples, smem,
-          stream);
+          scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2163,20 +2185,21 @@ inline cudaError_t attention_launch(const bf16* q, const bf16* k,
 template <bool kProbs>
 inline cudaError_t attention_qkv(const bf16* qkv, const float* bias,
                                  bf16* out, bf16* probs, int B, int N, int C,
-                                 int H, const int* plan, void* scratch,
-                                 long long scratch_bytes,
+                                 int H, int d_scale, const int* plan,
+                                 void* scratch, long long scratch_bytes,
                                  cudaStream_t stream) {
   return attention_launch<kProbs, false>(qkv, qkv + C, qkv + 2 * C, 3LL * C,
-                                         bias, out, probs, B, N, C, H, plan,
-                                         scratch, scratch_bytes, stream);
+                                         bias, out, probs, B, N, C, H,
+                                         d_scale, plan, scratch,
+                                         scratch_bytes, stream);
 }
 
 inline cudaError_t attention(const bf16* qkv, const float* bias, bf16* out,
-                             int B, int N, int C, int H, const int* plan,
-                             void* scratch, long long scratch_bytes,
-                             cudaStream_t stream) {
-  return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, plan,
-                              scratch, scratch_bytes, stream);
+                             int B, int N, int C, int H, int d_scale,
+                             const int* plan, void* scratch,
+                             long long scratch_bytes, cudaStream_t stream) {
+  return attention_qkv<false>(qkv, bias, out, nullptr, B, N, C, H, d_scale,
+                              plan, scratch, scratch_bytes, stream);
 }
 
 }  // namespace

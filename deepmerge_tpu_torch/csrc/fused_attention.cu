@@ -54,32 +54,36 @@ const char* dm_error_string(int err) {
 
 // K7: out (B·N, C) bf16 from qkv (B·N, 3C) bf16 and bias (H, N, N) f32.
 // Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192, 1 <= N <= 16384
-// and 16-byte aligned tensors (checked by the caller; refused here too).
+// and 16-byte aligned tensors (checked by the caller; refused here too);
+// q is scaled by the d^-1/2 of `d_scale`, the head's true width (d, or
+// less on a zero-padded layout: block_common.cuh scale_width_ok).
 // `scratch` (16-byte aligned, of `scratch_bytes`) holds at least the
 // plan's `scratch` bytes on the wide form (d > 256; a smaller one is
 // refused) and is unread elsewhere (null there). Returns
 // cudaGetLastError().
 int dm_attention(const void* qkv, const void* bias, void* out, int B, int N,
-                 int C, int H, const int* plan, void* scratch,
+                 int C, int H, int d_scale, const int* plan, void* scratch,
                  long long scratch_bytes, cudaStream_t stream) {
   return static_cast<int>(attention(static_cast<const bf16*>(qkv),
                                     static_cast<const float*>(bias),
-                                    static_cast<bf16*>(out), B, N, C, H, plan,
-                                    scratch, scratch_bytes, stream));
+                                    static_cast<bf16*>(out), B, N, C, H,
+                                    d_scale, plan, scratch, scratch_bytes,
+                                    stream));
 }
 
 // K8: out (B, N, H, d) bf16 from q, k, v (B, N, H, d) bf16 and bias
 // (H, N, N) f32, C = H·d, d % 8 == 0 and 8 <= d <= 8192. Requires 1 <= N
-// <= 16384 and 16-byte aligned tensors; `scratch` as dm_attention's.
+// <= 16384 and 16-byte aligned tensors; `d_scale` and `scratch` as
+// dm_attention's.
 // Returns cudaGetLastError().
 int dm_attention_bnhd(const void* q, const void* k, const void* v,
                       const void* bias, void* out, int B, int N, int C, int H,
-                      const int* plan, void* scratch,
+                      int d_scale, const int* plan, void* scratch,
                       long long scratch_bytes, cudaStream_t stream) {
   return static_cast<int>(attention_launch<false, true>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), C, static_cast<const float*>(bias),
-      static_cast<bf16*>(out), nullptr, B, N, C, H, plan, scratch,
+      static_cast<bf16*>(out), nullptr, B, N, C, H, d_scale, plan, scratch,
       scratch_bytes, stream));
 }
 

@@ -81,11 +81,15 @@ namespace {
 // warps and 8 vectors up to kLnMaxWide.
 // The rows past 1024 are memory-bound: 2·C bf16 bytes a row; the design
 // keeps each row in registers (no staging) and every lane busy.
+// Rows C apart, the statistics over their first Cn lanes (Cn < C on a
+// zero-padded layout, whose lanes Cn..C-1 hold zeros in x, w and b and so
+// come out 0): the mean is their sum over Cn, and lanes past Cn add nothing
+// to the variance; at Cn == C each sum runs in the same order as without.
 template <int kVec, int kGroup>
 __global__ void __launch_bounds__(kLnWarps * 32)
 layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ b, bf16* __restrict__ y, int M,
-                  int C) {
+                  int C, int Cn) {
   __shared__ float red[2][kLnWarps];  // the two sums' floats (kGroup > 1)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -110,20 +114,21 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
     }
   }
-  const float mu = group_reduce<kGroup>(s, red[0]) / static_cast<float>(C);
+  const float mu = group_reduce<kGroup>(s, red[0]) / static_cast<float>(Cn);
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    if ((first + 32 * kGroup * i) * 8 < C) {
+    const int k = (first + 32 * kGroup * i) * 8;
+    if (k < C) {
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const float d = v[i][t] - mu;
+        const float d = k + t < Cn ? v[i][t] - mu : 0.f;
         q += d * d;
       }
     }
   }
   const float rs = rsqrtf(group_reduce<kGroup>(q, red[1]) /
-                              static_cast<float>(C) + kLnEps);
+                              static_cast<float>(Cn) + kLnEps);
   if (!in) return;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -326,30 +331,31 @@ cudaError_t gemm(const bf16* A, const bf16* W, const bf16* bias,
 }
 
 // One warp a row up to C 2048, two up to 4096, four above (up to
-// kLnMaxWide).
+// kLnMaxWide); the statistics over the first Cn lanes (1 <= Cn <= C).
 cudaError_t layer_norm(const bf16* x, const float* w, const float* b, bf16* y,
-                       int M, int C, cudaStream_t stream) {
+                       int M, int C, int Cn, cudaStream_t stream) {
   const int rows = (M + kLnWarps - 1) / kLnWarps;
+  if (Cn < 1 || Cn > C) return cudaErrorInvalidValue;
   if (C <= kLnMaxVec * 256)
     layer_norm_kernel<kLnMaxVec, 1><<<rows, kLnWarps * 32, 0, stream>>>(
-        x, w, b, y, M, C);
+        x, w, b, y, M, C, Cn);
   else if (C > kLnMaxWide || C % 8 != 0)
     return cudaErrorInvalidValue;
   else if (C <= 6 * 256)
     layer_norm_kernel<6, 1><<<rows, kLnWarps * 32, 0, stream>>>(x, w, b, y,
-                                                               M, C);
+                                                               M, C, Cn);
   else if (C <= 8 * 256)
     layer_norm_kernel<8, 1><<<rows, kLnWarps * 32, 0, stream>>>(x, w, b, y,
-                                                               M, C);
+                                                               M, C, Cn);
   else if (C <= 6 * 512)
     layer_norm_kernel<6, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
-        x, w, b, y, M, C);
+        x, w, b, y, M, C, Cn);
   else if (C <= 8 * 512)
     layer_norm_kernel<8, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
-        x, w, b, y, M, C);
+        x, w, b, y, M, C, Cn);
   else
     layer_norm_kernel<8, 4><<<(M + 1) / 2, kLnWarps * 32, 0, stream>>>(
-        x, w, b, y, M, C);
+        x, w, b, y, M, C, Cn);
   return cudaGetLastError();
 }
 
@@ -364,11 +370,17 @@ constexpr int kParams = 13;
 
 // A block's launch plan (ops/kernels/fused_block.py `block_plan`) holds the
 // attention core's kAttnPlanInts, then the GEMM's six (gemm_plan_ok).
+// Widths (block_widths_ok): the residual stream's C, the attention's A (H
+// heads of A / H lanes: qkv is 3A wide, the projection's input A), the
+// LayerNorms' statistics over the first Cn of C lanes and q's scale of the
+// head width d_scale. Without padding A == Cn == C and d_scale == C / H.
 cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
-                          int H, int hidden, const void* const* p, bf16* qkv,
-                          bf16* att, bf16* r, bf16* hbuf, long long h_bytes,
-                          const int* plan, cudaStream_t stream) {
-  if (!gemm_plan_ok(plan + kAttnPlanInts)) return cudaErrorInvalidValue;
+                          int H, int hidden, int A, int Cn, int d_scale,
+                          const void* const* p, bf16* qkv, bf16* att, bf16* r,
+                          bf16* hbuf, long long h_bytes, const int* plan,
+                          cudaStream_t stream) {
+  if (!gemm_plan_ok(plan + kAttnPlanInts) || !block_widths_ok(C, A, Cn))
+    return cudaErrorInvalidValue;
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
   const auto* wq = static_cast<const bf16*>(p[2]);
@@ -383,21 +395,25 @@ cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
   const auto* wd = static_cast<const bf16*>(p[11]);
   const auto* bd = static_cast<const bf16*>(p[12]);
   const int M = B * N;
-  bf16* y = att;  // the LN outputs live in the attention buffer: each is
-                  // consumed by its GEMM before the buffer is written again
+  bf16* y = att;  // the LN outputs live in the attention buffer (A >= C):
+                  // each is consumed by its GEMM before the buffer is
+                  // written again
   cudaError_t e;
 
-  if ((e = layer_norm(x, l1s, l1b, y, M, C, stream)) != cudaSuccess) return e;
-  e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * C, C, stream);
+  if ((e = layer_norm(x, l1s, l1b, y, M, C, Cn, stream)) != cudaSuccess)
+    return e;
+  e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * A, C, stream);
   if (e != cudaSuccess) return e;
 
   // h, free until the up GEMM, is the wide form's scratch too
-  e = attention(qkv, bias, att, B, N, C, H, plan, hbuf, h_bytes, stream);
+  e = attention(qkv, bias, att, B, N, A, H, d_scale, plan, hbuf, h_bytes,
+                stream);
   if (e != cudaSuccess) return e;
 
-  e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, C, stream);
+  e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, A, stream);
   if (e != cudaSuccess) return e;
-  if ((e = layer_norm(r, l2s, l2b, y, M, C, stream)) != cudaSuccess) return e;
+  if ((e = layer_norm(r, l2s, l2b, y, M, C, Cn, stream)) != cudaSuccess)
+    return e;
   e = gemm<kBiasGelu>(y, wu, bu, nullptr, hbuf, M, hidden, C, stream);
   if (e != cudaSuccess) return e;
   return gemm<kBiasResidual>(hbuf, wd, bd, r, out, M, C, hidden, stream);
@@ -406,12 +422,13 @@ cudaError_t block_forward(const bf16* x, bf16* out, int B, int N, int C,
 // K5: block_forward that keeps qkv, the normalized probabilities (B, H, N,
 // N), the pre-GELU gin (B·N, hidden) and r, all bf16, for the backward.
 cudaError_t block_train_forward(const bf16* x, bf16* out, int B, int N,
-                                int C, int H, int hidden,
-                                const void* const* p, bf16* qkv, bf16* probs,
-                                bf16* gin, bf16* r, bf16* att, bf16* hbuf,
-                                long long h_bytes, const int* plan,
-                                cudaStream_t stream) {
-  if (!gemm_plan_ok(plan + kAttnPlanInts)) return cudaErrorInvalidValue;
+                                int C, int H, int hidden, int A, int Cn,
+                                int d_scale, const void* const* p, bf16* qkv,
+                                bf16* probs, bf16* gin, bf16* r, bf16* att,
+                                bf16* hbuf, long long h_bytes,
+                                const int* plan, cudaStream_t stream) {
+  if (!gemm_plan_ok(plan + kAttnPlanInts) || !block_widths_ok(C, A, Cn))
+    return cudaErrorInvalidValue;
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
   const auto* wq = static_cast<const bf16*>(p[2]);
@@ -429,16 +446,18 @@ cudaError_t block_train_forward(const bf16* x, bf16* out, int B, int N,
   bf16* y = att;  // as in block_forward
   cudaError_t e;
 
-  if ((e = layer_norm(x, l1s, l1b, y, M, C, stream)) != cudaSuccess) return e;
-  e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * C, C, stream);
+  if ((e = layer_norm(x, l1s, l1b, y, M, C, Cn, stream)) != cudaSuccess)
+    return e;
+  e = gemm<kBiasCast>(y, wq, bq, nullptr, qkv, M, 3 * A, C, stream);
   if (e != cudaSuccess) return e;
-  e = attention_launch<true, true>(qkv, qkv + C, qkv + 2 * C, 3LL * C, bias,
-                                   att, probs, B, N, C, H, plan, hbuf,
-                                   h_bytes, stream);
+  e = attention_launch<true, true>(qkv, qkv + A, qkv + 2 * A, 3LL * A, bias,
+                                   att, probs, B, N, A, H, d_scale, plan,
+                                   hbuf, h_bytes, stream);
   if (e != cudaSuccess) return e;
-  e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, C, stream);
+  e = gemm<kBiasResidual>(att, wp, bp, x, r, M, C, A, stream);
   if (e != cudaSuccess) return e;
-  if ((e = layer_norm(r, l2s, l2b, y, M, C, stream)) != cudaSuccess) return e;
+  if ((e = layer_norm(r, l2s, l2b, y, M, C, Cn, stream)) != cudaSuccess)
+    return e;
   e = gemm<kBiasGeluSave>(y, wu, bu, nullptr, hbuf, M, hidden, C, stream,
                           gin);
   if (e != cudaSuccess) return e;
@@ -454,24 +473,28 @@ const char* dm_error_string(int err) {
 }
 
 // One block: out = block(x). x and out are (B, N, C) bf16 and must not
-// overlap. Scratch: qkv (B·N, 3C), att (B·N, C), r (B·N, C), h (B·N,
+// overlap. Scratch: qkv (B·N, 3A), att (B·N, A), r (B·N, C), h (B·N,
 // hidden), all bf16, h of `h_bytes`; on the attention's wide form (d >
 // 256) h is also its scratch and holds at least the plan's `scratch` bytes
 // (ops/kernels/fused_block.py `wide_scratch`; a smaller h is refused).
-// Requires C == H·d with
-// d % 8 == 0 and 8 <= d <= 8192, C <= 8192, hidden % 8 == 0, N <= 16384
-// and 16-byte aligned tensors (checked by the caller); `plan` is the wrapper's launch plan
+// Requires A == H·d with d % 8 == 0 and 8 <= d <= 8192, C <= A, C % 8 == 0,
+// C <= 8192, hidden % 8 == 0, N <= 16384 and 16-byte aligned tensors
+// (checked by the caller); the LayerNorms' statistics over the first
+// `c_norm` lanes and q's scale of the head width `d_scale` (block_forward;
+// a zero-padded layout's true widths). `plan` is the wrapper's launch plan
 // (`block_plan`: the short attention core up to N 256, the long route
 // above and at every N for d > 128), and a plan the kernels do not take is
 // refused. Returns cudaGetLastError().
 int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
-                     int hidden, const void* const* params, void* qkv,
-                     void* att, void* r, void* h, long long h_bytes,
-                     const int* plan, cudaStream_t stream) {
+                     int hidden, int A, int c_norm, int d_scale,
+                     const void* const* params, void* qkv, void* att, void* r,
+                     void* h, long long h_bytes, const int* plan,
+                     cudaStream_t stream) {
   return static_cast<int>(block_forward(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H, hidden,
-      params, static_cast<bf16*>(qkv), static_cast<bf16*>(att),
-      static_cast<bf16*>(r), static_cast<bf16*>(h), h_bytes, plan, stream));
+      A, c_norm, d_scale, params, static_cast<bf16*>(qkv),
+      static_cast<bf16*>(att), static_cast<bf16*>(r), static_cast<bf16*>(h),
+      h_bytes, plan, stream));
 }
 
 // `depth` blocks back to back: block 0 reads x and writes out, every later
@@ -480,15 +503,15 @@ int dm_block_forward(const void* x, void* out, int B, int N, int C, int H,
 // depth x 13 pointers, block after block. Same shapes, scratch and plan as
 // dm_block_forward.
 int dm_chain_forward(const void* x, void* out, int B, int N, int C, int H,
-                     int hidden, int depth, const void* const* params,
-                     void* qkv, void* att, void* r, void* h,
-                     long long h_bytes, const int* plan,
+                     int hidden, int A, int c_norm, int d_scale, int depth,
+                     const void* const* params, void* qkv, void* att, void* r,
+                     void* h, long long h_bytes, const int* plan,
                      cudaStream_t stream) {
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
-    const int err = dm_block_forward(in, out, B, N, C, H, hidden,
-                                     params + kParams * i, qkv, att, r, h,
-                                     h_bytes, plan, stream);
+    const int err = dm_block_forward(in, out, B, N, C, H, hidden, A, c_norm,
+                                     d_scale, params + kParams * i, qkv, att,
+                                     r, h, h_bytes, plan, stream);
     if (err != 0) return err;
   }
   return 0;
@@ -496,32 +519,36 @@ int dm_chain_forward(const void* x, void* out, int B, int N, int C, int H,
 
 // K5, the training forward of one block: out = block(x) with the attention
 // normalized before its value product, and the backward's residuals: qkv
-// (B·N, 3C), probs (B, H, N, N), gin (B·N, hidden) and r (B·N, C), bf16.
-// Scratch: att (B·N, C), h (B·N, hidden), bf16 (on the wide form as in
-// dm_block_forward). Same requirements and plan as dm_block_forward; no
-// two buffers overlap.
+// (B·N, 3A), probs (B, H, N, N), gin (B·N, hidden) and r (B·N, C), bf16.
+// Scratch: att (B·N, A), h (B·N, hidden), bf16 (on the wide form as in
+// dm_block_forward). Same widths, requirements and plan as
+// dm_block_forward; no two buffers overlap.
 int dm_block_train_forward(const void* x, void* out, int B, int N, int C,
-                           int H, int hidden, const void* const* params,
-                           void* qkv, void* probs, void* gin, void* r,
-                           void* att, void* h, long long h_bytes,
-                           const int* plan, cudaStream_t stream) {
+                           int H, int hidden, int A, int c_norm, int d_scale,
+                           const void* const* params, void* qkv, void* probs,
+                           void* gin, void* r, void* att, void* h,
+                           long long h_bytes, const int* plan,
+                           cudaStream_t stream) {
   return static_cast<int>(block_train_forward(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
-      hidden, params, static_cast<bf16*>(qkv), static_cast<bf16*>(probs),
+      hidden, A, c_norm, d_scale, params, static_cast<bf16*>(qkv),
+      static_cast<bf16*>(probs),
       static_cast<bf16*>(gin), static_cast<bf16*>(r), static_cast<bf16*>(att),
       static_cast<bf16*>(h), h_bytes, plan, stream));
 }
 
 // The blocks' LayerNorm alone (its measurement and tests): y (M, C) bf16
 // from x (M, C) bf16 and the f32 scale w and bias b (C), one warp a row up
-// to C 2048, two or four above. Requires C % 8 == 0, C <= 8192 and
-// 16-byte aligned rows, w and b (checked by the caller). Returns
-// cudaGetLastError().
+// to C 2048, two or four above, the statistics over the first `c_norm`
+// lanes (a zero-padded row's true width; C without padding). Requires C %
+// 8 == 0, C <= 8192, 1 <= c_norm <= C and 16-byte aligned rows, w and b
+// (checked by the caller). Returns cudaGetLastError().
 int dm_layer_norm(const void* x, const void* w, const void* b, void* y, int M,
-                  int C, cudaStream_t stream) {
+                  int C, int c_norm, cudaStream_t stream) {
   return static_cast<int>(layer_norm(
       static_cast<const bf16*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<bf16*>(y), M, C, stream));
+      static_cast<const float*>(b), static_cast<bf16*>(y), M, C, c_norm,
+      stream));
 }
 
 // K2's GEMM alone (its measurement and tests): out (M, N) = epilogue

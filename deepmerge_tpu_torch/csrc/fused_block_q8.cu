@@ -167,14 +167,16 @@ __device__ __forceinline__ float ordered_row_sum(const float (&s)[kSlots],
 // store. `static_scale` null means dynamic scales; `zero` (may be null)
 // gets 0 at each row: the abs-max buffer that the next GEMM's epilogue
 // folds into. Dispatch (ln_quant) as layer_norm's; the rows are
-// memory-bound (2·C bytes in, C out).
+// memory-bound (2·C bytes in, C out). The statistics over the first Cn
+// lanes, as layer_norm_kernel's (a zero-padded row's lanes past Cn come out
+// 0, code 0, and leave the abs-max as it is).
 template <int kVec, int kGroup>
 __global__ void __launch_bounds__(kLnWarps * 32)
 ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ b,
                 const float* __restrict__ static_scale,
                 signed char* __restrict__ codes, float* __restrict__ row_scale,
-                float* __restrict__ zero, int M, int C) {
+                float* __restrict__ zero, int M, int C, int Cn) {
   constexpr int kSlots = ln_order_slots(kVec, kGroup);
   // the two sums' floats and the abs-max's (kGroup > 1)
   __shared__ float red[2][kLnWarps * kSlots];
@@ -201,22 +203,23 @@ ln_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
     }
   }
   const float mu =
-      ordered_row_sum<kGroup>(s, red[0]) / static_cast<float>(C);
+      ordered_row_sum<kGroup>(s, red[0]) / static_cast<float>(Cn);
   float q[kSlots];
 #pragma unroll
   for (int r = 0; r < kSlots; ++r) q[r] = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
-    if ((first + 32 * kGroup * i) * 8 < C) {
+    const int k = (first + 32 * kGroup * i) * 8;
+    if (k < C) {
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const float d = v[i][t] - mu;
+        const float d = k + t < Cn ? v[i][t] - mu : 0.f;
         q[i % kSlots] += d * d;
       }
     }
   }
   const float rs = rsqrtf(ordered_row_sum<kGroup>(q, red[1]) /
-                              static_cast<float>(C) + kLnEps);
+                              static_cast<float>(Cn) + kLnEps);
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
@@ -495,32 +498,34 @@ cudaError_t gemm_s8(const signed char* A, const signed char* W,
 }
 
 // One warp a row up to C 2048, two up to 4096, four above (up to
-// kLnMaxWide), as layer_norm (fused_block.cu) dispatches.
+// kLnMaxWide), as layer_norm (fused_block.cu) dispatches; the statistics
+// over the first Cn lanes (1 <= Cn <= C).
 cudaError_t ln_quant(const bf16* x, const float* w, const float* b,
                      const float* static_scale, signed char* codes,
-                     float* row_scale, float* zero, int M, int C,
+                     float* row_scale, float* zero, int M, int C, int Cn,
                      cudaStream_t stream) {
   const int rows = (M + kLnWarps - 1) / kLnWarps;
+  if (Cn < 1 || Cn > C) return cudaErrorInvalidValue;
   if (C <= kLnMaxVec * 256)
     ln_quant_kernel<kLnMaxVec, 1><<<rows, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   else if (C > kLnMaxWide || C % 8 != 0)
     return cudaErrorInvalidValue;
   else if (C <= 6 * 256)
     ln_quant_kernel<6, 1><<<rows, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   else if (C <= 8 * 256)
     ln_quant_kernel<8, 1><<<rows, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   else if (C <= 6 * 512)
     ln_quant_kernel<6, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   else if (C <= 8 * 512)
     ln_quant_kernel<8, 2><<<(M + 3) / 4, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   else
     ln_quant_kernel<8, 4><<<(M + 1) / 2, kLnWarps * 32, 0, stream>>>(
-        x, w, b, static_scale, codes, row_scale, zero, M, C);
+        x, w, b, static_scale, codes, row_scale, zero, M, C, Cn);
   return cudaGetLastError();
 }
 
@@ -1063,16 +1068,13 @@ template <int kD, int kSteps, bool kStatic>
 inline cudaError_t attention_q8_run(const bf16* qkv, const float* bias,
                                     const float* s_qkv, bf16* out, int B,
                                     int N, int C, int H, int warps,
-                                    int samples, int smem,
+                                    int samples, int smem, float scale,
                                     cudaStream_t stream) {
   auto* kern = attention_q8_kernel<kD, kSteps, kStatic>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  // d^-1/2 in float32, as the JAX package's f32 logits take a Python
-  // float, at the head's true width d
   const int d = C / H;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   const dim3 grid(H, (B + samples - 1) / samples);
   kern<<<grid, warps * 32, smem, stream>>>(qkv, bias, s_qkv, out, B, N, C,
                                            d, samples, scale);
@@ -1083,17 +1085,17 @@ template <int kD>
 inline cudaError_t attention_q8_width(const bf16* qkv, const float* bias,
                                       const float* s_qkv, bf16* out, int B,
                                       int N, int C, int H, int kt, int warps,
-                                      int samples, int smem,
+                                      int samples, int smem, float scale,
                                       cudaStream_t stream) {
 #define DM_ATTN_Q8_CASE(KS)                                                  \
   case KS:                                                                   \
     return s_qkv != nullptr                                                  \
                ? attention_q8_run<kD, KS, true>(qkv, bias, s_qkv, out, B, N, \
                                                 C, H, warps, samples, smem,  \
-                                                stream)                      \
+                                                scale, stream)               \
                : attention_q8_run<kD, KS, false>(qkv, bias, nullptr, out, B, \
                                                  N, C, H, warps, samples,    \
-                                                 smem, stream);
+                                                 smem, scale, stream);
   switch (kt) {
     DM_ATTN_Q8_CASE(1)
     DM_ATTN_Q8_CASE(2)
@@ -2563,7 +2565,7 @@ inline cudaError_t attention_q8_wide_launch(
     const CUtensorMap& map_k, const CUtensorMap& map_v,
     const CUtensorMap& map_b, const Q8WideScratch& sc, const float* bias,
     const float* s_qkv, bf16* out, int B, int N, int C, int H, int mode,
-    cudaStream_t stream) {
+    float scale, cudaStream_t stream) {
   auto* kern = attention_q8_wide_kernel<kStatic, kTiles>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
@@ -2571,7 +2573,6 @@ inline cudaError_t attention_q8_wide_launch(
   const dim3 grid((N + kAttnLongQueries - 1) / kAttnLongQueries,
                   wide_sample_groups(B, N, H), H);
   const int d = C / H;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   kern<<<grid, kWideCtaThreads, kAttnLongSmem, stream>>>(
       map_k, map_v, map_b, sc, bias, s_qkv, out, B, N, C, d,
       mode == kBiasSlab, scale);
@@ -2583,7 +2584,7 @@ template <bool kStatic>
 inline cudaError_t attention_q8_wide_run(const bf16* qkv, const float* bias,
                                          const float* s_qkv, bf16* out, int B,
                                          int N, int C, int H, void* scratch,
-                                         cudaStream_t stream) {
+                                         float scale, cudaStream_t stream) {
   const int d = C / H;
   const Q8WideScratch sc = q8_wide_scratch(scratch, B, N, H, d);
   cudaError_t e = attention_q8_prepass_wide_run<kStatic>(qkv, s_qkv, sc, B,
@@ -2602,10 +2603,12 @@ inline cudaError_t attention_q8_wide_run(const bf16* qkv, const float* bias,
   if (mode == kBiasTiles) {
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_q8_wide_launch<kStatic, true>(
-        map_k, map_v, map_b, sc, bias, s_qkv, out, B, N, C, H, mode, stream);
+        map_k, map_v, map_b, sc, bias, s_qkv, out, B, N, C, H, mode, scale,
+        stream);
   }
   return attention_q8_wide_launch<kStatic, false>(
-      map_k, map_v, map_k, sc, bias, s_qkv, out, B, N, C, H, mode, stream);
+      map_k, map_v, map_k, sc, bias, s_qkv, out, B, N, C, H, mode, scale,
+      stream);
 }
 
 template <int kD, bool kStatic>
@@ -2625,7 +2628,7 @@ inline cudaError_t attention_q8_long_launch(
     const CUtensorMap& map_k, const CUtensorMap& map_v,
     const CUtensorMap& map_b, const bf16* qkv, const Q8LongScratch& sc,
     const float* bias, const float* s_qkv, bf16* out, int B, int N, int C,
-    int H, int mode, cudaStream_t stream) {
+    int H, int mode, float scale, cudaStream_t stream) {
   auto* kern = attention_q8_long_kernel<kD, kStatic, kTiles>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kAttnLongSmem);
@@ -2633,10 +2636,7 @@ inline cudaError_t attention_q8_long_launch(
   const dim3 grid(
       (N + kAttnLongQueries - 1) / kAttnLongQueries,
       long_sample_groups(B, N, H, attn_long_samples(kD), mode), H);
-  // d^-1/2 in float32, as the JAX package's f32 logits take a Python
-  // float, at the head's true width d
   const int d = C / H;
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
   kern<<<grid, attn_long_warps(kD) * 32, kAttnLongSmem, stream>>>(
       map_k, map_v, map_b, qkv, sc.ks, sc.vs, bias, s_qkv, out, B, N, C, d,
       mode == kBiasSlab, scale);
@@ -2648,7 +2648,7 @@ template <int kD, bool kStatic>
 inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
                                          const float* s_qkv, bf16* out, int B,
                                          int N, int C, int H, void* scratch,
-                                         cudaStream_t stream) {
+                                         float scale, cudaStream_t stream) {
   const Q8LongScratch sc = q8_long_scratch(scratch, B, N, H, kD);
   cudaError_t e =
       attention_q8_prepass_run<kD, kStatic>(qkv, s_qkv, sc, B, N, C, H,
@@ -2669,24 +2669,24 @@ inline cudaError_t attention_q8_long_run(const bf16* qkv, const float* bias,
     if ((e = attn_long_bias_map(&map_b, bias, N, H)) != cudaSuccess) return e;
     return attention_q8_long_launch<kD, kStatic, true>(
         map_k, map_v, map_b, qkv, sc, bias, s_qkv, out, B, N, C, H, mode,
-        stream);
+        scale, stream);
   }
   return attention_q8_long_launch<kD, kStatic, false>(
       map_k, map_v, map_k, qkv, sc, bias, s_qkv, out, B, N, C, H, mode,
-      stream);
+      scale, stream);
 }
 
 template <int kD>
 inline cudaError_t attention_q8_long_width(const bf16* qkv, const float* bias,
                                            const float* s_qkv, bf16* out,
                                            int B, int N, int C, int H,
-                                           void* scratch,
+                                           void* scratch, float scale,
                                            cudaStream_t stream) {
   return s_qkv != nullptr
              ? attention_q8_long_run<kD, true>(qkv, bias, s_qkv, out, B, N, C,
-                                               H, scratch, stream)
+                                               H, scratch, scale, stream)
              : attention_q8_long_run<kD, false>(qkv, bias, nullptr, out, B, N,
-                                                C, H, scratch, stream);
+                                                C, H, scratch, scale, stream);
 }
 
 // K4a over a packed (B·N, 3C) qkv; s_qkv null for dynamic scales. The head
@@ -2701,11 +2701,16 @@ inline cudaError_t attention_q8_long_width(const bf16* qkv, const float* bias,
 // take is refused with cudaErrorInvalidValue.
 cudaError_t attention_q8(const bf16* qkv, const float* bias,
                          const float* s_qkv, bf16* out, int B, int N, int C,
-                         int H, const int* plan, void* scratch,
+                         int H, int d_scale, const int* plan, void* scratch,
                          long long scratch_bytes, cudaStream_t stream) {
   const int kt = plan[0], warps = plan[1], samples = plan[2], smem = plan[3];
   const int d = H > 0 && C % H == 0 ? C / H : 0;
   const int w = core_width(d);
+  if (!scale_width_ok(d_scale, d)) return cudaErrorInvalidValue;
+  // d^-1/2 in float32, as the JAX package's f32 logits take a Python
+  // float, at the head's true width (d, or d_scale on a padded layout)
+  const float scale =
+      static_cast<float>(1.0 / sqrt(static_cast<double>(d_scale)));
   if (kt == kAttnLongRoute) {
     if (!head_dim_ok(d) ||
         !attn_long_plan_ok(plan, B, N, H, d, attn_long_warps(w),
@@ -2719,22 +2724,23 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
     switch (w) {
       case 32:
         return attention_q8_long_width<32>(qkv, bias, s_qkv, out, B, N, C, H,
-                                           scratch, stream);
+                                           scratch, scale, stream);
       case 64:
         return attention_q8_long_width<64>(qkv, bias, s_qkv, out, B, N, C, H,
-                                           scratch, stream);
+                                           scratch, scale, stream);
       case 128:
         return attention_q8_long_width<128>(qkv, bias, s_qkv, out, B, N, C,
-                                            H, scratch, stream);
+                                            H, scratch, scale, stream);
       case 256:
         return attention_q8_long_width<256>(qkv, bias, s_qkv, out, B, N, C,
-                                            H, scratch, stream);
+                                            H, scratch, scale, stream);
       case kWideCore:
         return s_qkv != nullptr
                    ? attention_q8_wide_run<true>(qkv, bias, s_qkv, out, B, N,
-                                                 C, H, scratch, stream)
+                                                 C, H, scratch, scale, stream)
                    : attention_q8_wide_run<false>(qkv, bias, nullptr, out, B,
-                                                  N, C, H, scratch, stream);
+                                                  N, C, H, scratch, scale,
+                                                  stream);
       default:
         return cudaErrorInvalidValue;
     }
@@ -2748,13 +2754,13 @@ cudaError_t attention_q8(const bf16* qkv, const float* bias,
   switch (w) {
     case 32:
       return attention_q8_width<32>(qkv, bias, s_qkv, out, B, N, C, H, kt,
-                                    warps, samples, smem, stream);
+                                    warps, samples, smem, scale, stream);
     case 64:
       return attention_q8_width<64>(qkv, bias, s_qkv, out, B, N, C, H, kt,
-                                    warps, samples, smem, stream);
+                                    warps, samples, smem, scale, stream);
     case 128:
       return attention_q8_width<128>(qkv, bias, s_qkv, out, B, N, C, H, kt,
-                                     warps, samples, smem, stream);
+                                     warps, samples, smem, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -2815,13 +2821,17 @@ cudaError_t attention_q8_prepass(const bf16* qkv, const float* s_qkv,
 // runs the attention on K4a's int8 core instead of the bf16 one.
 // A block's plan (`block_plan_q8`): the attention core's four ints (K2's
 // core, or K4a's with quant_attn), then the six of each GEMM: qkv, proj,
-// up, down.
+// up, down. Widths as fused_block.cu's block_forward: the residual
+// stream's C, the attention's A, the LayerNorms' statistics over Cn lanes
+// and q's scale of the head width d_scale.
 cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
-                             int H, int hidden, const void* const* p,
-                             bool static_scales, bool quant_attn, bf16* qkv,
-                             bf16* att, bf16* r, float* h, long long h_bytes,
-                             signed char* codes, float* rs, float* row_amax,
-                             const int* plan, cudaStream_t stream) {
+                             int H, int hidden, int A, int Cn, int d_scale,
+                             const void* const* p, bool static_scales,
+                             bool quant_attn, bf16* qkv, bf16* att, bf16* r,
+                             float* h, long long h_bytes, signed char* codes,
+                             float* rs, float* row_amax, const int* plan,
+                             cudaStream_t stream) {
+  if (!block_widths_ok(C, A, Cn)) return cudaErrorInvalidValue;
   const auto* l1s = static_cast<const float*>(p[0]);
   const auto* l1b = static_cast<const float*>(p[1]);
   const auto* wq = static_cast<const signed char*>(p[2]);
@@ -2847,30 +2857,30 @@ cudaError_t block_forward_q8(const bf16* x, bf16* out, int B, int N, int C,
   const int M = B * N;
   cudaError_t e;
 
-  if ((e = ln_quant(x, l1s, l1b, stat(0), codes, rs, nullptr, M, C,
+  if ((e = ln_quant(x, l1s, l1b, stat(0), codes, rs, nullptr, M, C, Cn,
                     stream)) != cudaSuccess)
     return e;
   e = gemm_s8(codes, wq,
               EpiS8<kQBiasCast>{sq, rs, stat(0), bq, nullptr, qkv, nullptr,
                                 nullptr},
-              M, 3 * C, C, gemm_plan(0), stream);
+              M, 3 * A, C, gemm_plan(0), stream);
   if (e != cudaSuccess) return e;
   // K4a's long route and the bf16 core's wide form take h, unused until
   // the up GEMM, as their scratch
-  e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, C, H, plan, h,
-                                h_bytes, stream)
-                 : attention(qkv, bias, att, B, N, C, H, plan, h, h_bytes,
-                             stream);
+  e = quant_attn ? attention_q8(qkv, bias, stat(4), att, B, N, A, H, d_scale,
+                                plan, h, h_bytes, stream)
+                 : attention(qkv, bias, att, B, N, A, H, d_scale, plan, h,
+                             h_bytes, stream);
   if (e != cudaSuccess) return e;
-  if ((e = row_quant(att, stat(1), codes, rs, M, C, stream)) != cudaSuccess)
+  if ((e = row_quant(att, stat(1), codes, rs, M, A, stream)) != cudaSuccess)
     return e;
   e = gemm_s8(codes, wp,
               EpiS8<kQBiasResidual>{sp, rs, stat(1), bp, x, r, nullptr,
                                     nullptr},
-              M, C, C, gemm_plan(1), stream);
+              M, C, A, gemm_plan(1), stream);
   if (e != cudaSuccess) return e;
   if ((e = ln_quant(r, l2s, l2b, stat(2), codes, rs,
-                    static_scales ? nullptr : row_amax, M, C, stream)) !=
+                    static_scales ? nullptr : row_amax, M, C, Cn, stream)) !=
       cudaSuccess)
     return e;
   const signed char* h_codes = codes;
@@ -2909,26 +2919,28 @@ const char* dm_error_string(int err) {
 // overlap. `static_scales` nonzero: each block has 18 parameters, the last
 // its static activation scales. `quant_attn` nonzero: the attention runs
 // int8 (K4a), with static scales too when `static_scales`. Scratch: qkv
-// (B·N, 3C), att (B·N, C), r (B·N, C) bf16; h (B·N, hidden) f32 of
+// (B·N, 3A), att (B·N, A), r (B·N, C) bf16; h (B·N, hidden) f32 of
 // `h_bytes`, and with quant_attn on the long route at least the route's
 // scratch (attention_q8_long_scratch's bytes), without it on the bf16
 // core's wide form at least its scratch (`wide_scratch`'s bytes; a smaller
-// h is refused); codes (B·N, max(C,
+// h is refused); codes (B·N, max(A,
 // hidden)) int8; row_scale and row_amax (B·N) f32. Requires
-// C == H·d with d % 8 == 0 and 8 <= d <= 8192, C % 16 == 0, C <= 8192,
-// hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors (checked by the
-// caller). `plan` is the block's
+// A == H·d with d % 8 == 0 and 8 <= d <= 8192, A % 16 == 0, C <= A, C % 16
+// == 0, C <= 8192, hidden % 16 == 0, N <= 16384 and 16-byte aligned tensors
+// (checked by the caller); `c_norm` and `d_scale` as dm_block_forward's
+// (fused_block.cu). `plan` is the block's
 // launch plan (ops/kernels/fused_block.py `block_plan_q8`, 28 ints); a
 // plan the kernels do not take is refused. Returns cudaGetLastError().
 int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
-                        int hidden, const void* const* params,
-                        int static_scales, int quant_attn, void* qkv,
-                        void* att, void* r, void* h, long long h_bytes,
-                        void* codes, void* row_scale, void* row_amax,
-                        const int* plan, cudaStream_t stream) {
+                        int hidden, int A, int c_norm, int d_scale,
+                        const void* const* params, int static_scales,
+                        int quant_attn, void* qkv, void* att, void* r, void* h,
+                        long long h_bytes, void* codes, void* row_scale,
+                        void* row_amax, const int* plan,
+                        cudaStream_t stream) {
   return static_cast<int>(block_forward_q8(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), B, N, C, H,
-      hidden, params, static_scales != 0, quant_attn != 0,
+      hidden, A, c_norm, d_scale, params, static_scales != 0, quant_attn != 0,
       static_cast<bf16*>(qkv), static_cast<bf16*>(att),
       static_cast<bf16*>(r), static_cast<float*>(h), h_bytes,
       static_cast<signed char*>(codes), static_cast<float*>(row_scale),
@@ -2941,16 +2953,18 @@ int dm_block_forward_q8(const void* x, void* out, int B, int N, int C, int H,
 // holds depth x 17 (or 18) pointers, block after block. Same shapes,
 // scratch and plan as dm_block_forward_q8.
 int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
-                        int hidden, int depth, const void* const* params,
-                        int static_scales, int quant_attn, void* qkv,
-                        void* att, void* r, void* h, long long h_bytes,
-                        void* codes, void* row_scale, void* row_amax,
-                        const int* plan, cudaStream_t stream) {
+                        int hidden, int A, int c_norm, int d_scale, int depth,
+                        const void* const* params, int static_scales,
+                        int quant_attn, void* qkv, void* att, void* r, void* h,
+                        long long h_bytes, void* codes, void* row_scale,
+                        void* row_amax, const int* plan,
+                        cudaStream_t stream) {
   const int width = static_scales != 0 ? 18 : 17;
   for (int i = 0; i < depth; ++i) {
     const void* in = i == 0 ? x : out;
     const int err = dm_block_forward_q8(
-        in, out, B, N, C, H, hidden, params + width * i, static_scales,
+        in, out, B, N, C, H, hidden, A, c_norm, d_scale, params + width * i,
+        static_scales,
         quant_attn, qkv, att, r, h, h_bytes, codes, row_scale, row_amax, plan,
         stream);
     if (err != 0) return err;
@@ -2962,16 +2976,18 @@ int dm_chain_forward_q8(const void* x, void* out, int B, int N, int C, int H,
 // codes (M, C) int8 and row_scale (M) f32 of q(LN(x)) from x (M, C) bf16
 // and the f32 scale w and bias b (C), with the static scale *static_scale
 // (not null) or dynamic row scales; one warp a row up to C 2048, two or
-// four above. Requires C % 8 == 0, C <= 8192 and 16-byte aligned rows
-// (checked by the caller). Returns cudaGetLastError().
+// four above, the statistics over the first `c_norm` lanes (a zero-padded
+// row's true width; C without padding). Requires C % 8 == 0, C <= 8192,
+// 1 <= c_norm <= C and 16-byte aligned rows (checked by the caller).
+// Returns cudaGetLastError().
 int dm_ln_quant(const void* x, const void* w, const void* b,
                 const void* static_scale, void* codes, void* row_scale, int M,
-                int C, cudaStream_t stream) {
+                int C, int c_norm, cudaStream_t stream) {
   return static_cast<int>(ln_quant(
       static_cast<const bf16*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<const float*>(static_scale),
       static_cast<signed char*>(codes), static_cast<float*>(row_scale),
-      nullptr, M, C, stream));
+      nullptr, M, C, c_norm, stream));
 }
 
 // K4's s8 GEMM alone (its measurement and tests): out (M, N) = epilogue
@@ -3049,15 +3065,17 @@ int dm_gemm_q8(const void* a, const void* w, const void* w_scale,
 // route above or when the plan forces it: its pre-pass writes `scratch`,
 // of `scratch_bytes`, at least attention_q8_long_scratch's bytes).
 // Requires C == H·d with d % 8 == 0 and 8 <= d <= 8192, and N <= 16384
-// (checked by the caller). Returns cudaGetLastError().
+// (checked by the caller); q's scale is the d^-1/2 of `d_scale`, the
+// head's true width (d, or less on a zero-padded layout: block_common.cuh
+// scale_width_ok). Returns cudaGetLastError().
 int dm_attention_q8(const void* qkv, const void* bias, const void* s_qkv,
-                    void* out, int B, int N, int C, int H, const int* plan,
-                    void* scratch, long long scratch_bytes,
+                    void* out, int B, int N, int C, int H, int d_scale,
+                    const int* plan, void* scratch, long long scratch_bytes,
                     cudaStream_t stream) {
   return static_cast<int>(attention_q8(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
       static_cast<const float*>(s_qkv), static_cast<bf16*>(out), B, N, C, H,
-      plan, scratch, scratch_bytes, stream));
+      d_scale, plan, scratch, scratch_bytes, stream));
 }
 
 // The long route's pre-pass alone (its measurement and tests): from a

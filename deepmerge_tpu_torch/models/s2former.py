@@ -82,6 +82,7 @@ from deepmerge_tpu_torch.ops.kernels.fused_attention import (
     split_qkv,
 )
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
+    HEAD_DIM_STEP,
     LN_EPS,
     block_act_amax,
     fused_block,
@@ -89,6 +90,7 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     fused_block_chain_q8,
     fused_block_q8,
     gelu,
+    padded_widths,
     quantize_block_params,
 )
 from deepmerge_tpu_torch.parallel.mesh import (
@@ -222,8 +224,14 @@ def _dense(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     """Linear layer in x's dtype, rounding the product before the bias add
     as the JAX package's ``nn.Dense`` does."""
     w = layer.weight.reshape(layer.weight.shape[0], -1)
-    y = torch.matmul(x, w.to(x.dtype).t())
-    return y if layer.bias is None else y + layer.bias.to(x.dtype)
+    return _dense_t(x, w.t(), layer.bias)
+
+
+def _dense_t(x: torch.Tensor, wt: torch.Tensor,
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``_dense`` of a weight given as (in, out)."""
+    y = torch.matmul(x, wt.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
 
 
 def _flax_layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -430,24 +438,45 @@ class CrossScaleBlock(nn.Module):
                  else (lambda t: t))
         x = x.to(dtype)
         bias, heads = self.attn.bias(), self.num_heads
-        qkv = _dense(self._into_shard(_flax_layer_norm(x, self.norm1)),
-                     self.attn.qkv)
+        y = self._into_shard(_flax_layer_norm(x, self.norm1))
         if not self.fused_attention or (train and self.attn_drop):
+            qkv = _dense(y, self.attn.qkv)
             a = attention_bnhd_ref(*split_qkv(qkv, heads), bias,
                                    self.attn_drop if train else 0.0,
                                    self._slice_draws(g, 1, heads))
             a = a.reshape(qkv.shape[0], qkv.shape[1], -1)
-        elif train:
-            a = fused_attention_train(qkv, bias, heads)
+            a = self._out_of_shard(a, self.attn.proj)
+        elif (lay := self._head_layout()) is not None:
+            # heads of d % 8 != 0: qkv made on the attention kernels'
+            # zero-padded layout by a padded weight, the projection's
+            # weight padded to take the output there
+            qkv = _dense_t(y, lay.pad_heads(self.attn.qkv.weight.t(), 3),
+                           lay.pad_heads(self.attn.qkv.bias, 3))
+            attend = fused_attention_train if train else fused_attention_qkv
+            a = attend(qkv, bias, heads, head_dim=lay.d)
+            a = _dense_t(a, lay.pad_heads(self.attn.proj.weight).t(),
+                         self.attn.proj.bias)
         else:
-            a = fused_attention_qkv(qkv, bias, heads)
-        x = x + dpath(drop(self._out_of_shard(a, self.attn.proj)))
+            qkv = _dense(y, self.attn.qkv)
+            attend = fused_attention_train if train else fused_attention_qkv
+            a = self._out_of_shard(attend(qkv, bias, heads), self.attn.proj)
+        x = x + dpath(drop(a))
         y = gelu(_dense(self._into_shard(_flax_layer_norm(x, self.norm2)),
                         self.mlp.fc1), exact=self.exact_gelu)
         if train:
             y = dropout(y, self.drop,
                         self._slice_draws(g, 2, self.mlp.fc1.out_features))
         return x + dpath(drop(self._out_of_shard(y, self.mlp.fc2)))
+
+    def _head_layout(self):
+        """The zero-padded layout the attention kernels take this block's
+        heads on where their width is not a multiple of 8 (None where it
+        is, and under tensor parallelism, whose kernel calls pad their
+        own)."""
+        d = self.attn.qkv.out_features // 3 // self.num_heads
+        if self.tp is not None or d % HEAD_DIM_STEP == 0:
+            return None
+        return padded_widths(self.num_heads * d, self.num_heads)
 
     def _into_shard(self, h: torch.Tensor) -> torch.Tensor:
         """The input of a sliced product: under TP through Megatron's f."""

@@ -59,6 +59,7 @@ from deepmerge_tpu_torch.ops.kernels.fused_block import (
     attention_plan,
     check_head_dim,
     count_core,
+    padded_widths,
     q_scale,
 )
 
@@ -66,47 +67,54 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # K6 is a source of its own (csrc/attention_probs.cu): an unfused model
 # trains on it and K1 alone, so its build need not wait for K7's and K8's
 _SIGNATURES_PROBS = {
-    # qkv, bias, out, probs, B, N, C, H, plan, scratch, scratch bytes,
-    # stream
-    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
+    # qkv, bias, out, probs, B, N, C, H, d_scale, plan, scratch, scratch
+    # bytes, stream
+    "dm_attention_probs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L,
+                           _P],
 }
 _SIGNATURES = {
-    # qkv, bias, out, B, N, C, H, plan, scratch, scratch bytes, stream
-    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
-    # q, k, v, bias, out, B, N, C, H, plan, scratch, scratch bytes, stream
-    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L,
+    # qkv, bias, out, B, N, C, H, d_scale, plan, scratch, scratch bytes,
+    # stream
+    "dm_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L, _P],
+    # q, k, v, bias, out, B, N, C, H, d_scale, plan, scratch, scratch
+    # bytes, stream
+    "dm_attention_bnhd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L,
                           _P],
 }
 
 
 # ----------------------------------------------------------- plain versions
 
-def attention_probs_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
+def attention_probs_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                        head_dim: int | None = None):
     """Plain version of K6: ``(out, probs)`` from a (B, N, 3C) qkv and an
     (H, N, N) bias; out (B, N, C) in qkv's dtype, probs (B, H, N, N) bf16,
-    with the TPU kernel's rounding points (module docstring)."""
-    out, e, recip = attention_parts(qkv, bias, heads)
+    with the TPU kernel's rounding points (module docstring). ``head_dim``:
+    the true head width of a qkv on a zero-padded layout (its lanes past it
+    zero), whose d^-½ scales q."""
+    out, e, recip = attention_parts(qkv, bias, heads, head_dim=head_dim)
     return out, (e * recip).to(torch.bfloat16)
 
 
-def attention_qkv_ref(qkv: torch.Tensor, bias: torch.Tensor,
-                      heads: int) -> torch.Tensor:
+def attention_qkv_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                      head_dim: int | None = None) -> torch.Tensor:
     """Plain version of K7: (B, N, C) in qkv's dtype from a (B, N, 3C) qkv
-    and an (H, N, N) bias."""
-    return attention_parts(qkv, bias, heads)[0]
+    and an (H, N, N) bias; ``head_dim`` as ``attention_probs_ref``'s."""
+    return attention_parts(qkv, bias, heads, head_dim=head_dim)[0]
 
 
 def attention_bnhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: torch.Tensor, attn_drop: float = 0.0,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
+                       generator: Optional[torch.Generator] = None,
+                       head_dim: int | None = None) -> torch.Tensor:
     """Plain version of K8: (B, N, H, D) in q's dtype from (B, N, H, D) q,
     k, v and an (H, N, N) bias; q scaled in its dtype, the float32 softmax
     e / Σe cast to v's dtype before the value product. With ``attn_drop``
     (training), dropout on the float32 probabilities before that cast, its
-    mask from ``generator``: the JAX package's attention off its kernels."""
+    mask from ``generator``: the JAX package's attention off its kernels.
+    ``head_dim`` as ``attention_probs_ref``'s (D zero-padded past it)."""
     f32 = torch.float32
-    qs = q * q_scale(q.shape[-1], q.dtype)
+    qs = q * q_scale(head_dim or q.shape[-1], q.dtype)
     logits = torch.einsum("bnhd,bmhd->bhnm", qs.to(f32), k.to(f32)) \
         + bias.to(f32)[None]
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
@@ -116,16 +124,18 @@ def attention_bnhd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_probs_bwd(qkv: torch.Tensor, probs: torch.Tensor,
-                        g: torch.Tensor, heads: int):
+                        g: torch.Tensor, heads: int,
+                        head_dim: int | None = None):
     """The JAX package's ``_fused_qkv_train_bwd`` in torch: ``(dqkv,
     dbias)`` from the saved qkv and bf16 probs and the output gradient
     ``g``; dqkv in qkv's dtype, dbias (H, N, N) float32. Every product takes
-    bf16-rounded operands and sums in float32 (TF32 off)."""
+    bf16-rounded operands and sums in float32 (TF32 off). ``head_dim`` as
+    ``attention_probs_ref``'s: the lanes past it get gradient 0."""
     f32, bf = torch.float32, torch.bfloat16
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    scale = d ** -0.5
+    scale = (head_dim or d) ** -0.5
     r16 = lambda t: t.to(bf).to(f32)
     q, k, v = split_qkv(qkv, heads)
     g4 = r16(g.reshape(b, n, heads, d))
@@ -144,13 +154,14 @@ def attention_probs_bwd(qkv: torch.Tensor, probs: torch.Tensor,
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  bias: torch.Tensor, g: torch.Tensor):
+                  bias: torch.Tensor, g: torch.Tensor,
+                  head_dim: int | None = None):
     """The JAX package's ``_fused_attention_bwd`` in torch: ``(dq, dk, dv,
     dbias)`` of softmax(q·kᵀ·d^-½ + bias)·v on (B, N, H, D) tensors, from
     the attention recomputed in float32 (TF32 off); the gradients in the
-    inputs' dtypes."""
+    inputs' dtypes. ``head_dim`` as ``attention_probs_ref``'s."""
     f32 = torch.float32
-    scale = q.shape[-1] ** -0.5
+    scale = (head_dim or q.shape[-1]) ** -0.5
     q32, k32, v32, g32 = (t.to(f32) for t in (q, k, v, g))
     with _products_for(torch.float32):
         logits = torch.einsum("bnhd,bmhd->bhnm", q32 * scale, k32) \
@@ -163,6 +174,32 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dk = torch.einsum("bhnm,bnhd->bmhd", dlogits, q32) * scale
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
             dlogits.sum(0).to(bias.dtype))
+
+
+def attention_twin(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                   probs: bool = False):
+    """K7 (with ``probs`` K6, returning ``(out, probs)``) on its zero-padded
+    layout, in plain PyTorch: qkv's heads padded to d'
+    (``PaddedWidths.pad_heads``), the plain version with q's scale of the
+    true d, the output's heads cut back to d."""
+    lay = padded_widths(qkv.shape[-1] // 3, heads)
+    qp = lay.pad_heads(qkv, 3)
+    if probs:
+        out, p = attention_probs_ref(qp, bias, heads, lay.d)
+        return lay.unpad_heads(out), p
+    return lay.unpad_heads(attention_qkv_ref(qp, bias, heads, lay.d))
+
+
+def attention_bnhd_twin(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """K8 on its zero-padded layout, in plain PyTorch: q, k and v padded to
+    D' = round_up(D, 8) lanes, ``attention_bnhd_ref`` with q's scale of
+    the true D, the output cut back to D."""
+    d = q.shape[-1]
+    dp = padded_widths(q.shape[2] * d, q.shape[2]).d_pad
+    pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+    out = attention_bnhd_ref(pad(q), pad(k), pad(v), bias, head_dim=d)
+    return out[..., :d]
 
 
 def split_qkv(qkv: torch.Tensor, heads: int):
@@ -195,7 +232,10 @@ def _check_bias(bias, heads, n, device):
                          f"{bias.dtype} {tuple(bias.shape)} on {bias.device}")
 
 
-def _check_cuda(qkv, bias, heads):
+def _check_cuda(qkv, bias, heads, head_dim=None):
+    """(B, N, C, d) of a packed qkv the CUDA attention takes: C its heads'
+    width, d their true one (``head_dim``, on a zero-padded layout whose
+    heads are ``round_up(head_dim, 8)`` wide, else C / H)."""
     if qkv.dtype != torch.bfloat16 or qkv.dim() != 3 or \
             not qkv.is_contiguous():
         raise TypeError(f"qkv must be a contiguous (B, N, 3C) bf16 tensor, "
@@ -205,9 +245,26 @@ def _check_cuda(qkv, bias, heads):
     if c3 % 3:
         raise ValueError(f"the CUDA attention needs a packed 3C, got {c3}")
     d = check_head_dim(c, heads)
+    if head_dim is not None:
+        if padded_widths(heads * head_dim, heads).a != c:
+            raise ValueError(f"a qkv of true head width {head_dim} lies on "
+                             f"heads of {-(-head_dim // 8) * 8} lanes, got "
+                             f"C={c} over {heads} heads")
+        d = head_dim
     _check_tokens(b, n)
     _check_bias(bias, heads, n, qkv.device)
     return b, n, c, d
+
+
+def _on_layout(qkv, heads, head_dim):
+    """(qkv on its heads' zero-padded layout, that layout, whether the
+    output is to be cut back): a qkv of true width is padded here (a copy
+    where d % 8 != 0); one given with ``head_dim`` lies on it already."""
+    c = qkv.shape[-1] // 3
+    lay = padded_widths(heads * (head_dim or c // heads), heads)
+    if head_dim is not None:
+        return qkv, lay, False
+    return lay.pad_heads(qkv, 3), lay, True
 
 
 def _check_cuda_bnhd(q, k, v, bias):
@@ -220,7 +277,7 @@ def _check_cuda_bnhd(q, k, v, bias):
                 f"of one shape on one device, 16-byte aligned; got "
                 f"{[(x.dtype, tuple(x.shape)) for x in (q, k, v)]}")
     b, n, heads, d = q.shape
-    check_head_dim(heads * d, heads)
+    check_head_dim(heads * d, heads)  # any width: padded to d' in the entry
     _check_tokens(b, n)
     _check_bias(bias, heads, n, q.device)
     return b, n, heads, d
@@ -241,22 +298,25 @@ def _scratch(plan, device):
     return t, (t.data_ptr(), nbytes)
 
 
-def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
+def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                    head_dim: int | None = None):
     """K6: ``(out, probs)`` — out (B, N, C) in qkv's dtype, probs (B, H, N,
-    N) bf16.
+    N) bf16. ``head_dim``: qkv lies on the zero-padded layout of heads of
+    true width ``head_dim`` (``PaddedWidths.pad_heads``), and out on it too.
 
-    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, d % 8 == 0
-    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128, its wide
-    form at d > 256) launch
-    ``csrc/attention_probs.cu``
+    CPU tensors run ``attention_probs_ref``. CUDA tensors (bf16, any d up
+    to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to 256
+    tokens at d <= 128, the long route above and at d > 128, its wide form
+    at d > 256; d % 8 != 0 on the heads' padded layout, q scaled by the
+    true d^-½) launch ``csrc/attention_probs.cu``
     (``dm_attention_probs``) and count the launch in
     ``attention_probs.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
-        return attention_probs_ref(qkv, bias, heads)
-    b, n, c, d = _check_cuda(qkv, bias, heads)
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+        return attention_probs_ref(qkv, bias, heads, head_dim)
+    b, n, _, d = _check_cuda(qkv, bias, heads, head_dim)
+    qkv, lay, cut = _on_layout(qkv, heads, head_dim)
+    out = torch.empty((b, n, lay.a), dtype=qkv.dtype, device=qkv.device)
     probs = torch.empty((b, heads, n, n), dtype=torch.bfloat16,
                         device=qkv.device)
     lib = build.load("attention_probs", _SIGNATURES_PROBS)
@@ -264,60 +324,63 @@ def attention_probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
     plan = attention_plan(b, n, heads, head_dim=d, probs=True)
     scratch, ptr = _scratch(plan, qkv.device)
     err = lib.dm_attention_probs(qkv.data_ptr(), bias.data_ptr(),
-                                 out.data_ptr(), probs.data_ptr(), b, n, c,
-                                 heads, _plan_arg(plan["ints"]), *ptr,
-                                 stream)
+                                 out.data_ptr(), probs.data_ptr(), b, n,
+                                 lay.a, heads, d, _plan_arg(plan["ints"]),
+                                 *ptr, stream)
     build.check(lib, err, "dm_attention_probs")
     count_core(plan["ints"])
     attention_probs.launches += 1
-    return out, probs
+    return (lay.unpad_heads(out) if cut else out), probs
 
 
 def attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                  plan: dict | None = None) -> torch.Tensor:
-    """K7: (B, N, C) in qkv's dtype.
+                  plan: dict | None = None,
+                  head_dim: int | None = None) -> torch.Tensor:
+    """K7: (B, N, C) in qkv's dtype; ``head_dim`` as ``attention_probs``'.
 
-    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, d % 8 == 0
-    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128, its wide
-    form at d > 256) launch
-    ``csrc/fused_attention.cu``
-    (``dm_attention``) with ``plan`` (an ``attention_plan`` of these
-    shapes, which the kernel checks; the default one if None) and count
-    the launch in ``attention_qkv.launches``; anything else raises.
+    CPU tensors run ``attention_qkv_ref``. CUDA tensors (bf16, any d up to
+    8192, 1 <= N <= ``MAX_LONG_TOKENS``, as ``attention_probs``) launch
+    ``csrc/fused_attention.cu`` (``dm_attention``) with ``plan`` (an
+    ``attention_plan`` of these shapes, which the kernel checks; the
+    default one if None) and count the launch in
+    ``attention_qkv.launches``; anything else raises.
     """
     if not _on_cuda(qkv):
-        return attention_qkv_ref(qkv, bias, heads)
-    b, n, c, d = _check_cuda(qkv, bias, heads)
+        return attention_qkv_ref(qkv, bias, heads, head_dim)
+    b, n, _, d = _check_cuda(qkv, bias, heads, head_dim)
+    qkv, lay, cut = _on_layout(qkv, heads, head_dim)
     plan = plan or attention_plan(b, n, heads, head_dim=d)
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, n, lay.a), dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     scratch, ptr = _scratch(plan, qkv.device)
     err = lib.dm_attention(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                           b, n, c, heads, _plan_arg(plan["ints"]), *ptr,
-                           stream)
+                           b, n, lay.a, heads, d, _plan_arg(plan["ints"]),
+                           *ptr, stream)
     build.check(lib, err, "dm_attention")
     count_core(plan["ints"])
     attention_qkv.launches += 1
-    return out
+    return lay.unpad_heads(out) if cut else out
 
 
 def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """K8: (B, N, H, D) in q's dtype.
 
-    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, D % 8 == 0
-    up to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to
-    256 tokens at d <= 128, the long route above and at d > 128, its wide
-    form at d > 256) launch
-    ``csrc/fused_attention.cu``
+    CPU tensors run ``attention_bnhd_ref``. CUDA tensors (bf16, any D up
+    to 8192, 1 <= N <= ``MAX_LONG_TOKENS``: the short core up to 256
+    tokens at d <= 128, the long route above and at d > 128, its wide form
+    at d > 256; D % 8 != 0 zero-padded to round_up(D, 8) here, q scaled by
+    the true D^-½) launch ``csrc/fused_attention.cu``
     (``dm_attention_bnhd``) and count the launch in
     ``attention_bnhd.launches``; anything else raises.
     """
     if not _on_cuda(q):
         return attention_bnhd_ref(q, k, v, bias)
     b, n, heads, d = _check_cuda_bnhd(q, k, v, bias)
+    dp = padded_widths(heads * d, heads).d_pad
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -325,12 +388,12 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scratch, ptr = _scratch(plan, q.device)
     err = lib.dm_attention_bnhd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 bias.data_ptr(), out.data_ptr(), b, n,
-                                heads * d, heads, _plan_arg(plan["ints"]),
+                                heads * dp, heads, d, _plan_arg(plan["ints"]),
                                 *ptr, stream)
     build.check(lib, err, "dm_attention_bnhd")
     count_core(plan["ints"])
     attention_bnhd.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 attention_probs.launches = 0
@@ -345,19 +408,20 @@ class _AttentionTrain(torch.autograd.Function):
     bf16 probs; backward ``attention_probs_bwd``."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, heads):
+    def forward(ctx, qkv, bias, heads, head_dim):
         out, probs = attention_probs(qkv.contiguous(),
                                      bias.to(torch.float32).contiguous(),
-                                     heads)
+                                     heads, head_dim)
         ctx.save_for_backward(qkv, probs)
-        ctx.heads = heads
+        ctx.heads, ctx.head_dim = heads, head_dim
         return out
 
     @staticmethod
     def backward(ctx, g):
         qkv, probs = ctx.saved_tensors
-        dqkv, dbias = attention_probs_bwd(qkv, probs, g, ctx.heads)
-        return dqkv, dbias, None
+        dqkv, dbias = attention_probs_bwd(qkv, probs, g, ctx.heads,
+                                          ctx.head_dim)
+        return dqkv, dbias, None, None
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -366,21 +430,23 @@ class _AttentionQKV(torch.autograd.Function):
     (``_fused_qkv_bwd``)."""
 
     @staticmethod
-    def forward(ctx, qkv, bias, heads):
+    def forward(ctx, qkv, bias, heads, head_dim):
         bias = bias.to(torch.float32).contiguous()
         ctx.save_for_backward(qkv, bias)
-        ctx.heads = heads
-        return attention_qkv(qkv.contiguous(), bias, heads)
+        ctx.heads, ctx.head_dim = heads, head_dim
+        return attention_qkv(qkv.contiguous(), bias, heads,
+                             head_dim=head_dim)
 
     @staticmethod
     def backward(ctx, g):
         qkv, bias = ctx.saved_tensors
         b, n, c3 = qkv.shape
         dq, dk, dv, dbias = attention_bwd(*split_qkv(qkv, ctx.heads), bias,
-                                          g.reshape(b, n, ctx.heads, -1))
+                                          g.reshape(b, n, ctx.heads, -1),
+                                          ctx.head_dim)
         dqkv = torch.cat([t.reshape(b, n, c3 // 3) for t in (dq, dk, dv)],
                          dim=2)
-        return dqkv.to(qkv.dtype), dbias, None
+        return dqkv.to(qkv.dtype), dbias, None, None
 
 
 class _AttentionBNHD(torch.autograd.Function):
@@ -400,24 +466,29 @@ class _AttentionBNHD(torch.autograd.Function):
 
 
 def fused_attention_train(qkv: torch.Tensor, bias: torch.Tensor,
-                          heads: int) -> torch.Tensor:
+                          heads: int,
+                          head_dim: int | None = None) -> torch.Tensor:
     """softmax(q·kᵀ·d^-½ + bias)·v from the packed qkv, differentiable in
     qkv and bias: the JAX package's ``fused_attention_qkv(qkv, bias, heads,
-    save_probs=True)``. Returns (B, N, C) in qkv's dtype."""
-    return _AttentionTrain.apply(qkv, bias, heads)
+    save_probs=True)``. Returns (B, N, C) in qkv's dtype. ``head_dim``: qkv
+    (and the output) on the zero-padded layout of heads of that true width
+    (``PaddedWidths.pad_heads``)."""
+    return _AttentionTrain.apply(qkv, bias, heads, head_dim)
 
 
 def fused_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                        packed_pv: bool = False) -> torch.Tensor:
+                        packed_pv: bool = False,
+                        head_dim: int | None = None) -> torch.Tensor:
     """softmax(q·kᵀ·d^-½ + bias)·v from the packed qkv, differentiable in
     qkv and bias: the JAX package's ``fused_attention_qkv(qkv, bias, heads,
     packed_pv=packed_pv)``. ``packed_pv`` is kept for that signature only
     and selects nothing: the TPU's head-pair packed kernel computes the same
     function (its packing fills 128-wide lanes), so both run K7; as there,
-    it needs an even head count. Returns (B, N, C) in qkv's dtype."""
+    it needs an even head count. Returns (B, N, C) in qkv's dtype;
+    ``head_dim`` as ``fused_attention_train``'s."""
     if packed_pv and heads % 2:
         raise ValueError(f"packed_pv needs an even head count, got {heads}")
-    return _AttentionQKV.apply(qkv, bias, heads)
+    return _AttentionQKV.apply(qkv, bias, heads, head_dim)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -34,8 +34,11 @@ import contextlib
 import ctypes
 import math
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from deepmerge_tpu_torch.ops.kernels import build
 
@@ -44,6 +47,8 @@ N_PARAMS = 13
 # The attention cores' template instances: a head of width d (any multiple
 # of HEAD_DIM_STEP up to 256) runs on the instance of width core_width(d),
 # K's and V's lanes past d zero-filled (so they add 0) and never written.
+# Any other width up to MAX_HEAD_DIM travels on a zero-padded layout of
+# width round_up(d, HEAD_DIM_STEP) (``PaddedWidths``).
 # The short cores have the instances of SHORT_CORE_WIDTHS only: a wider
 # head takes the long route at every N. A head wider than 256 (up to
 # MAX_HEAD_DIM) takes the long route's wide form, WIDE_CORE, which runs d
@@ -60,48 +65,52 @@ MAX_WIDTH = 1024   # the one-warp LayerNorm kernels' widest row
 MAX_LONG_WIDTH = 8192  # the wide LayerNorm kernels' widest row
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# "widths" below: A (the attention's layout width), c_norm and d_scale (the
+# true C of the LayerNorms' statistics and the true d of q's scale), as
+# ``PaddedWidths.launch_widths`` gives them
 _SIGNATURES = {
-    # x, out, B, N, C, H, hidden, params, qkv, att, r, h, h bytes, plan,
-    # stream
-    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _L,
-                         _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, qkv, att, r, h, h bytes,
+    # x, out, B, N, C, H, hidden, widths, params, qkv, att, r, h, h bytes,
     # plan, stream
-    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _L, _P, _P],
-    # x, out, B, N, C, H, hidden, params, qkv, probs, gin, r, att, h,
+    "dm_block_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _P, _L, _P, _P],
+    # x, out, B, N, C, H, hidden, widths, depth, params, qkv, att, r, h,
     # h bytes, plan, stream
-    "dm_block_train_forward": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                               _P, _P, _P, _L, _P, _P],
+    "dm_chain_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P, _P, _L, _P, _P],
+    # x, out, B, N, C, H, hidden, widths, params, qkv, probs, gin, r, att,
+    # h, h bytes, plan, stream
+    "dm_block_train_forward": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                               _P, _P, _P, _P, _P, _P, _L, _P, _P],
     # a, w, bias, resid, out, aux, M, N, K, epilogue, plan, stream
     "dm_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # x, w, b, y, M, C, stream
-    "dm_layer_norm": [_P, _P, _P, _P, _I, _I, _P],
+    # x, w, b, y, M, C, c_norm, stream
+    "dm_layer_norm": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 _SIGNATURES_Q8 = {
-    # x, out, B, N, C, H, hidden, params, static, quant_attn, qkv, att, r,
-    # h, h bytes, codes, row_scale, row_amax, plan, stream
-    "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P,
-                            _P, _P, _L, _P, _P, _P, _P, _P],
-    # x, out, B, N, C, H, hidden, depth, params, static, quant_attn, qkv,
+    # x, out, B, N, C, H, hidden, widths, params, static, quant_attn, qkv,
     # att, r, h, h bytes, codes, row_scale, row_amax, plan, stream
-    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
-                            _P, _P, _P, _L, _P, _P, _P, _P, _P],
+    "dm_block_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                            _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P],
+    # x, out, B, N, C, H, hidden, widths, depth, params, static, quant_attn,
+    # qkv, att, r, h, h bytes, codes, row_scale, row_amax, plan, stream
+    "dm_chain_forward_q8": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P],
     # a, w, w_scale, row_scale, static_scale, bias, resid, out, codes,
     # out_row_scale, row_amax, out_scale, M, N, K, epilogue, plan, stream
     "dm_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                    _I, _I, _P, _P],
-    # qkv, bias, s_qkv, out, B, N, C, H, plan, scratch, scratch bytes,
-    # stream
-    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _L, _P],
+    # qkv, bias, s_qkv, out, B, N, C, H, d_scale, plan, scratch, scratch
+    # bytes, stream
+    "dm_attention_q8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _L, _P],
     # qkv, s_qkv, scratch, scratch bytes, B, N, C, H, stream
     "dm_attention_q8_prepass": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
-    # x, w, b, static_scale, codes, row_scale, M, C, stream
-    "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x, w, b, static_scale, codes, row_scale, M, C, c_norm, stream
+    "dm_ln_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 Q8_K_SLAB = 128    # the s8 GEMM's K slab (128 bytes, as K2's 64 bf16)
 # the GEMMs' K: rows a multiple of 16 bytes (TMA's stride), a K tail past
-# the last whole slab read as zeros; C and the MLP width divide by it
+# the last whole slab read as zeros; the blocks' padded layouts round C,
+# the attention's width and the MLP width up to it (``PaddedWidths``)
 GEMM_K_ALIGN = 8   # bf16
 Q8_K_ALIGN = 16    # int8
 
@@ -134,10 +143,12 @@ ATTN_WARPS = 4
 
 
 def head_dim_ok(d: int) -> bool:
-    """Whether the attention cores take heads of width ``d`` (the C side's
-    ``head_dim_ok``): a multiple of ``HEAD_DIM_STEP`` up to
-    ``MAX_HEAD_DIM``."""
-    return d % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= d <= MAX_HEAD_DIM
+    """Whether the CUDA entry points take heads of width ``d``: any width
+    up to ``MAX_HEAD_DIM``, as the JAX package's kernels do. A width that
+    is not a multiple of ``HEAD_DIM_STEP`` (the only ones the C side's
+    ``head_dim_ok`` takes) runs on the zero-padded layout of width
+    ``round_up(d, HEAD_DIM_STEP)`` (``PaddedWidths``)."""
+    return 1 <= d <= MAX_HEAD_DIM
 
 
 def core_width(d: int) -> int:
@@ -163,20 +174,20 @@ def attention_long_parts(d: int) -> int:
 def _refuse_head_dim(d: int, what: str) -> None:
     if not head_dim_ok(d):
         raise ValueError(
-            f"{what} takes heads of width d % {HEAD_DIM_STEP} == 0 up to "
-            f"{MAX_HEAD_DIM}, got {d}; other widths are open work "
-            "(ROADMAP.md)")
+            f"{what} takes heads of width 1..{MAX_HEAD_DIM}, got {d}; wider "
+            "heads are open work (ROADMAP.md)")
 
 
 def check_head_dim(c: int, heads: int) -> int:
     """The head width ``c // heads`` if the attention cores take it
-    (``head_dim_ok``); raises ``ValueError`` otherwise."""
+    (``head_dim_ok``; ``heads`` must divide ``c``, as the JAX package's
+    reshape needs); raises ``ValueError`` otherwise."""
     d = c // heads if heads > 0 and c % heads == 0 else 0
     if not head_dim_ok(d):
         raise ValueError(
-            f"the CUDA attention cores take heads of width d % "
-            f"{HEAD_DIM_STEP} == 0 up to {MAX_HEAD_DIM}, got C={c} over "
-            f"{heads} heads; other widths are open work (ROADMAP.md)")
+            f"the CUDA attention cores take heads of width 1..{MAX_HEAD_DIM}"
+            f", got C={c} over {heads} heads; wider heads are open work "
+            "(ROADMAP.md)")
     return d
 
 
@@ -539,14 +550,17 @@ def gemm_plan(m: int, n: int, k: int) -> dict:
                                         GEMM_REGISTERS))
 
 
-def block_plan(b: int, n: int, c: int, heads: int, hidden: int) -> tuple:
+def block_plan(b: int, n: int, c: int, heads: int, hidden: int,
+               a: int | None = None) -> tuple:
     """A block's plan as its C entry points take it: the attention core's
     ints (the route ``n`` takes), then the GEMM's, checked against every
-    GEMM of the block (qkv, proj, up, down at M = b·n)."""
-    m = b * n
-    for rows, depth in ((3 * c, c), (c, c), (hidden, c), (c, hidden)):
+    GEMM of the block (qkv, proj, up, down at M = b·n). ``a`` is the
+    attention's width where a padded layout sets it apart from ``c``
+    (``PaddedWidths.a``)."""
+    m, a = b * n, a or c
+    for rows, depth in ((3 * a, c), (c, a), (hidden, c), (c, hidden)):
         gemm = gemm_plan(m, rows, depth)
-    return attention_plan(b, n, heads, head_dim=check_head_dim(c, heads)
+    return attention_plan(b, n, heads, head_dim=check_head_dim(a, heads)
                           )["ints"] + gemm["ints"]
 
 
@@ -658,15 +672,16 @@ def attention_q8_plan(b: int, n: int, heads: int, warps: int | None = None,
 
 
 def block_plan_q8(b: int, n: int, c: int, heads: int, hidden: int,
-                  quant_attn: bool = False) -> tuple:
+                  quant_attn: bool = False, a: int | None = None) -> tuple:
     """A w8a8 block's plan as its C entry points take it: the attention
     core's ints (K2's core, or K4a's with ``quant_attn``; the route ``n``
-    takes), then each GEMM's (qkv, proj, up, down at M = b·n)."""
-    m = b * n
+    takes), then each GEMM's (qkv, proj, up, down at M = b·n); ``a`` as
+    ``block_plan``'s."""
+    m, a = b * n, a or c
     attn = (attention_q8_plan if quant_attn else attention_plan)(
-        b, n, heads, head_dim=check_head_dim(c, heads))
+        b, n, heads, head_dim=check_head_dim(a, heads))
     gemms = (gemm_q8_plan(m, rows, depth)["ints"]
-             for rows, depth in ((3 * c, c), (c, c), (hidden, c),
+             for rows, depth in ((3 * a, c), (c, a), (hidden, c),
                                  (c, hidden)))
     return attn["ints"] + tuple(i for g in gemms for i in g)
 
@@ -723,12 +738,168 @@ def count_layer_norms(c: int, w8a8: bool, blocks: int = 1) -> None:
         (ln_quant_wide if w8a8 else layer_norm_wide).launches += 2 * blocks
 
 
+# ------------------------------------------------------- padded layouts
+#
+# The kernels read rows whose strides are multiples of 16 bytes (TMA): bf16
+# widths that divide by 8, int8 GEMM rows by 16. A block of any other width
+# runs on a zero-padded layout: the residual stream x at C' = round_up(C, 8)
+# (16 for w8a8), the MLP at hidden' likewise, and the attention at A = H·d',
+# d' = round_up(d, 8), each head's q, k and v rows at h·d' in qkv and the
+# projection's input at H·d' (w8a8 also needs A % 16 == 0: an odd head count
+# then takes d' = round_up(d, 16)). Every padded weight row and column,
+# bias, LayerNorm scale and bias is 0 (a quantized weight's padded channel
+# code 0 and scale 1, as ``_scale_from_amax`` gives a zero channel), so
+# once x's padded lanes are 0 every padded lane of every intermediate (the
+# residual, the LayerNorm outputs, qkv, the attention output, the GELU
+# output and their int8 codes) is exactly 0, and no abs-max sees one. Two
+# numbers would change: the kernels take the true C for the LayerNorms'
+# statistics and the true d for q's scale d^-½. A wrapper pads once a call
+# (a chain keeps the padded stream across its blocks) and unpads its
+# output; nothing is cached.
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class PaddedWidths(NamedTuple):
+    """A block's true widths and the zero-padded layout the kernels run
+    it on (``padded_widths``): ``c``, ``heads`` and ``hidden`` true,
+    ``c_pad``, ``d_pad`` and ``hidden_pad`` the layout's."""
+
+    c: int
+    heads: int
+    hidden: int
+    c_pad: int
+    d_pad: int
+    hidden_pad: int
+
+    @property
+    def d(self) -> int:
+        return self.c // self.heads
+
+    @property
+    def a(self) -> int:
+        """The attention's width on the layout, H·d'."""
+        return self.heads * self.d_pad
+
+    @property
+    def aligned(self) -> bool:
+        """Whether the layout is the true one (nothing to pad)."""
+        return (self.c_pad, self.d_pad, self.hidden_pad) == (
+            self.c, self.d, self.hidden)
+
+    @property
+    def launch_widths(self) -> tuple:
+        """(A, c_norm, d_scale) as the blocks' C entry points take them."""
+        return self.a, self.c, self.d
+
+    def pad_x(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., C) → (..., C'), zeros past C."""
+        return x if self.c_pad == self.c else F.pad(x, (0, self.c_pad - self.c))
+
+    def unpad_x(self, y: torch.Tensor) -> torch.Tensor:
+        """(..., C') → (..., C)."""
+        return y if self.c_pad == self.c else y[..., :self.c].contiguous()
+
+    def pad_heads(self, t: torch.Tensor, parts: int = 1,
+                  value: float = 0.0) -> torch.Tensor:
+        """(..., parts·H·d) → (..., parts·A): each head's d lanes at h·d'
+        of its part (q, k, v of a qkv), ``value`` past them."""
+        if self.d_pad == self.d:
+            return t
+        lead = t.shape[:-1]
+        u = F.pad(t.reshape(*lead, parts, self.heads, self.d),
+                  (0, self.d_pad - self.d), value=value)
+        return u.reshape(*lead, parts * self.a)
+
+    def unpad_heads(self, t: torch.Tensor, parts: int = 1) -> torch.Tensor:
+        """(..., parts·A) → (..., parts·H·d), the inverse of
+        ``pad_heads``."""
+        if self.d_pad == self.d:
+            return t
+        lead = t.shape[:-1]
+        u = t.reshape(*lead, parts, self.heads, self.d_pad)[..., :self.d]
+        return u.reshape(*lead, parts * self.c)
+
+    def pad_hidden(self, t: torch.Tensor, value: float = 0.0) -> torch.Tensor:
+        """(..., hidden) → (..., hidden'), ``value`` past hidden."""
+        n = self.hidden_pad - self.hidden
+        return F.pad(t, (0, n), value=value) if n else t
+
+    def unpad_hidden(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., hidden') → (..., hidden)."""
+        n = self.hidden_pad - self.hidden
+        return t[..., :self.hidden].contiguous() if n else t
+
+    def _weights(self, wq, wp, wu, wd) -> tuple:
+        """The four weights (nn.Linear's (out, in)) on the layout: qkv (3A,
+        C'), proj (C', A), up (hidden', C'), down (C', hidden')."""
+        h, d, c = self.heads, self.d, self.c
+        dc, dd = self.c_pad - c, self.d_pad - d
+        dh = self.hidden_pad - self.hidden
+        wq = F.pad(wq.reshape(3, h, d, c), (0, dc, 0, dd)).reshape(
+            3 * self.a, self.c_pad)
+        wp = F.pad(F.pad(wp.reshape(c, h, d), (0, dd)).reshape(c, self.a),
+                   (0, 0, 0, dc))
+        return wq, wp, F.pad(wu, (0, dc, 0, dh)), F.pad(wd, (0, dh, 0, dc))
+
+    def pad_params(self, params) -> tuple:
+        """A block's 13-tuple on the layout (zeros past every true
+        width)."""
+        if self.aligned:
+            return tuple(params)
+        (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
+        wq, wp, wu, wd = self._weights(wq, wp, wu, wd)
+        x = self.pad_x
+        return (x(l1s), x(l1b), wq, self.pad_heads(bq, 3), bias, wp, x(bp),
+                x(l2s), x(l2b), wu, self.pad_hidden(bu), wd, x(bd))
+
+    def pad_qparams(self, qparams) -> tuple:
+        """A w8a8 block's 17- or 18-tuple on the layout: the quantized
+        weights padded with code 0 and their scales with 1 (a zero
+        channel's, so equal to quantizing the padded weight), the rest
+        with zeros; the static scales as they are."""
+        if self.aligned:
+            return tuple(qparams)
+        (l1s, l1b, wq, sq, bq, bias, wp, sp, bp, l2s, l2b,
+         wu, su, bu, wd, sd, bd) = qparams[:17]
+        wq, wp, wu, wd = self._weights(wq, wp, wu, wd)
+        x = self.pad_x
+        one = lambda t: F.pad(t, (0, self.c_pad - self.c), value=1.0)
+        return (x(l1s), x(l1b), wq, self.pad_heads(sq, 3, 1.0),
+                self.pad_heads(bq, 3), bias, wp, one(sp), x(bp), x(l2s),
+                x(l2b), wu, self.pad_hidden(su, 1.0), self.pad_hidden(bu),
+                wd, one(sd), x(bd)) + tuple(qparams[17:])
+
+
+def padded_widths(c: int, heads: int, hidden: int = 0,
+                  int8: bool = False) -> PaddedWidths:
+    """The zero-padded layout of a block of width ``c``, ``heads`` heads
+    and MLP width ``hidden`` (0 for an attention alone): C' and hidden'
+    rounded up to ``GEMM_K_ALIGN`` (``Q8_K_ALIGN`` with ``int8``, the w8a8
+    GEMMs), d' to ``HEAD_DIM_STEP`` (with ``int8`` to 16 where H·d' would
+    not divide by 16). Raises ``ValueError`` for a head width the kernels
+    do not take (``check_head_dim``)."""
+    d = check_head_dim(c, heads)
+    align = Q8_K_ALIGN if int8 else GEMM_K_ALIGN
+    d_pad = _round_up(d, HEAD_DIM_STEP)
+    if heads * d_pad % align:
+        d_pad = _round_up(d, align)
+    return PaddedWidths(c, heads, hidden, _round_up(c, align), d_pad,
+                        _round_up(hidden, align))
+
+
 # ------------------------------------------------------------ plain version
 
-def _ln(x, scale, bias, eps=LN_EPS):
+def _ln(x, scale, bias, eps=LN_EPS, width=None):
+    """Two-pass float32 LayerNorm; with ``width`` (a zero-padded row's true
+    C) the statistics over its first ``width`` lanes, the lanes past it
+    (scale and bias 0) coming out 0."""
     m = x.to(torch.float32)
-    mu = m.mean(-1, keepdim=True)
-    v = ((m - mu) ** 2).mean(-1, keepdim=True)
+    t = m if width is None else m[..., :width]
+    mu = t.mean(-1, keepdim=True)
+    v = ((t - mu) ** 2).mean(-1, keepdim=True)
     return (m - mu) * torch.rsqrt(v + eps) * scale + bias
 
 
@@ -757,7 +928,7 @@ def q_scale(d: int, dt: torch.dtype) -> float:
 
 def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                     lanes: int | None = None, keys: int | None = None,
-                    recompute: bool = False):
+                    recompute: bool = False, head_dim: int | None = None):
     """The TPU kernels' attention (``_attn_inner``, and the saved-probs
     kernel's forward) on a (B, N, 3C) qkv in the activation dtype: per head
     softmax(q·d^-½·kᵀ + bias) · v in f32, q scaled in the activation dtype,
@@ -778,13 +949,17 @@ def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     product summed over the blocks in order (f32). With ``recompute`` the
     blocks' logits, e and P are made again for each part instead (a second
     pass that computes q·kᵀ once for each part); the two give the same
-    bits."""
+    bits.
+
+    ``head_dim`` is a zero-padded layout's true head width (its lanes past
+    it zero in q, k and v), whose d^-½ scales q; by default the width of
+    qkv's heads."""
     dt = qkv.dtype
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    q = (qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)).to(
-        torch.float32)
+    q = (qkv[..., :c].reshape(b, n, heads, d)
+         * q_scale(head_dim or d, dt)).to(torch.float32)
     k = qkv[..., c : 2 * c].reshape(b, n, heads, d).to(torch.float32)
     v = qkv[..., 2 * c :].reshape(b, n, heads, d).to(torch.float32)
     cuts = [slice(0, d)] if lanes is None else \
@@ -826,40 +1001,44 @@ def attention_parts(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return out, e, recip
 
 
-def _attention(qkv: torch.Tensor, bias: torch.Tensor,
-               heads: int) -> torch.Tensor:
-    return attention_parts(qkv, bias, heads)[0]
+def _attention(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+               head_dim: int | None = None) -> torch.Tensor:
+    return attention_parts(qkv, bias, heads, head_dim=head_dim)[0]
 
 
 def block_ref(x: torch.Tensor, params, heads: int,
-              exact_gelu: bool = False) -> torch.Tensor:
+              exact_gelu: bool = False, width: int | None = None,
+              head_dim: int | None = None) -> torch.Tensor:
     """Plain version of one block, with the TPU kernel's rounding points:
     f32 LayerNorm and accumulation, casts to x's dtype after each GEMM,
-    softmax in f32 with the 1/Σe applied after e·v."""
+    softmax in f32 with the 1/Σe applied after e·v. ``width`` and
+    ``head_dim``: the true C and d of a block on a zero-padded layout
+    (``block_twin``), for the LayerNorms' statistics and q's scale."""
     (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
     dt = x.dtype
-    y = _ln(x, l1s, l1b).to(dt)
+    y = _ln(x, l1s, l1b, width=width).to(dt)
     qkv = _mm(y, wq).to(dt) + bq
-    a = _attention(qkv, bias, heads)
+    a = _attention(qkv, bias, heads, head_dim)
     r = x + (_mm(a, wp).to(dt) + bp)
-    y2 = _ln(r, l2s, l2b).to(dt)
+    y2 = _ln(r, l2s, l2b, width=width).to(dt)
     h1 = gelu(_mm(y2, wu) + bu.to(torch.float32), exact_gelu)
     return r + (_mm(h1.to(dt), wd).to(dt) + bd)
 
 
 def chain_ref(x: torch.Tensor, params_list, heads: int,
-              exact_gelu: bool = False) -> torch.Tensor:
+              exact_gelu: bool = False, width: int | None = None,
+              head_dim: int | None = None) -> torch.Tensor:
     """Plain version of a stage: blocks back to back, cast to x's dtype
     between them."""
     for p in params_list:
-        x = block_ref(x, p, heads, exact_gelu).to(x.dtype)
+        x = block_ref(x, p, heads, exact_gelu, width, head_dim).to(x.dtype)
     return x
 
 
 # ------------------------------- saved-activation training block: plain
 
 def _attention_norm_first(qkv: torch.Tensor, bias: torch.Tensor,
-                          heads: int):
+                          heads: int, head_dim: int | None = None):
     """The training block's attention (``_block_math_train``): as
     ``attention_parts``, but the probabilities p = e·(1/Σe) are rounded to
     the activation dtype before the value product, whose float32 sum is the
@@ -869,7 +1048,7 @@ def _attention_norm_first(qkv: torch.Tensor, bias: torch.Tensor,
     b, n, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(d, dt)
+    q = qkv[..., :c].reshape(b, n, heads, d) * q_scale(head_dim or d, dt)
     k = qkv[..., c : 2 * c].reshape(b, n, heads, d)
     v = qkv[..., 2 * c :].reshape(b, n, heads, d)
     logits = torch.einsum("bnhd,bmhd->bhnm", q.to(f32), k.to(f32)) \
@@ -881,7 +1060,8 @@ def _attention_norm_first(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 def block_train_ref(x: torch.Tensor, params, heads: int,
-                    exact_gelu: bool = False):
+                    exact_gelu: bool = False, width: int | None = None,
+                    head_dim: int | None = None):
     """Plain version of K5 (``_block_math_train``): one block's output and
     the residuals its backward reads, ``(out, (qkv, probs, gin, r))``, all
     in x's dtype: qkv (B, N, 3C), the normalized probabilities (B, H, N, N)
@@ -889,14 +1069,15 @@ def block_train_ref(x: torch.Tensor, params, heads: int,
     row, (B, N, H·N)), the pre-GELU MLP activation gin = y2·W_up + b_up
     (B, N, hidden), kept in float32 for the GELU and saved rounded, and the
     post-attention residual r (B, N, C). The attention normalizes before
-    its value product (``_attention_norm_first``), unlike ``block_ref``."""
+    its value product (``_attention_norm_first``), unlike ``block_ref``.
+    ``width`` and ``head_dim`` as ``block_ref``'s."""
     (l1s, l1b, wq, bq, bias, wp, bp, l2s, l2b, wu, bu, wd, bd) = params
     dt = x.dtype
-    y = _ln(x, l1s, l1b).to(dt)
+    y = _ln(x, l1s, l1b, width=width).to(dt)
     qkv = _mm(y, wq).to(dt) + bq
-    a, probs = _attention_norm_first(qkv, bias, heads)
+    a, probs = _attention_norm_first(qkv, bias, heads, head_dim)
     r = x + (_mm(a, wp).to(dt) + bp)
-    y2 = _ln(r, l2s, l2b).to(dt)
+    y2 = _ln(r, l2s, l2b, width=width).to(dt)
     gin = _mm(y2, wu) + bu.to(torch.float32)
     out = r + (_mm(gelu(gin, exact_gelu).to(dt), wd).to(dt) + bd)
     return out, (qkv, probs, gin.to(dt), r)
@@ -1169,10 +1350,10 @@ def _q8_operands(qkv: torch.Tensor, heads: int, static=None):
     return _codes(q / sq), sq, _codes(k / sk), sk, _codes(v / sv), sv
 
 
-def _attention_q8_core(qkv, bias, heads, static=None):
+def _attention_q8_core(qkv, bias, heads, static=None, head_dim=None):
     b, n, c3 = qkv.shape
     d = c3 // 3 // heads
-    scale = d ** -0.5
+    scale = (head_dim or d) ** -0.5
     qi, sq, ki, sk, vi, sv = _q8_operands(qkv, heads, static)
     acc = _int_einsum("bnhd,bmhd->bhnm", qi, ki)
     if static is None:
@@ -1189,21 +1370,21 @@ def _attention_q8_core(qkv, bias, heads, static=None):
     return (av * recip * sv).reshape(b, n, -1).to(qkv.dtype)
 
 
-def _attention_q8(qkv: torch.Tensor, bias: torch.Tensor,
-                  heads: int) -> torch.Tensor:
+def _attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                  head_dim: int | None = None) -> torch.Tensor:
     """Plain version of K4a with dynamic scales (``_attn_inner_q8``): (B,
     N, C) in qkv's dtype from a (B, N, 3C) qkv and an (H, N, N) bias. The
     logits are (acc · (s_q·d^-½)) · s_k + bias, the output (Σ pq·vi ·
     (1/Σ pq)) · s_v."""
-    return _attention_q8_core(qkv, bias, heads)
+    return _attention_q8_core(qkv, bias, heads, head_dim=head_dim)
 
 
 def _attention_q8s(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                   s_q, s_k, s_v) -> torch.Tensor:
+                   s_q, s_k, s_v, head_dim: int | None = None) -> torch.Tensor:
     """Plain version of K4a with calibrated static scales
     (``_attn_inner_q8s``): codes rint(t · (1/s)) of the scalars, logits
     acc · (s_q·s_k·d^-½) + bias, output (Σ pq·vi · (1/Σ pq)) · s_v."""
-    return _attention_q8_core(qkv, bias, heads, (s_q, s_k, s_v))
+    return _attention_q8_core(qkv, bias, heads, (s_q, s_k, s_v), head_dim)
 
 
 def gemm_q8_ref(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
@@ -1243,13 +1424,14 @@ def gemm_q8_ref(a: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
 
 def attention_q8_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                     static=None) -> torch.Tensor:
+                     static=None, head_dim: int | None = None) -> torch.Tensor:
     """Plain version of K4a's core alone: ``_attention_q8`` on a (B, N, 3C)
     qkv, or with ``static`` (the calibrated (s_q, s_k, s_v), a (3,) float32
-    or three scalars) ``_attention_q8s``."""
+    or three scalars) ``_attention_q8s``; ``head_dim`` as
+    ``attention_parts``'."""
     if static is None:
-        return _attention_q8(qkv, bias, heads)
-    return _attention_q8s(qkv, bias, heads, *static)
+        return _attention_q8(qkv, bias, heads, head_dim)
+    return _attention_q8s(qkv, bias, heads, *static, head_dim=head_dim)
 
 
 # K4a's long route as two plain twins: the pre-pass's operands in the
@@ -1354,14 +1536,16 @@ def attention_q8_long_ref(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
 
 
 def block_ref_q8(x: torch.Tensor, qparams, heads: int,
-                 exact_gelu: bool = False,
-                 quant_attn: bool = False) -> torch.Tensor:
+                 exact_gelu: bool = False, quant_attn: bool = False,
+                 width: int | None = None,
+                 head_dim: int | None = None) -> torch.Tensor:
     """Plain version of one w8a8 block (``_block_math_q8``): the four GEMMs
     int8, their inputs quantized from float32 (the LayerNorm outputs and
     the GELU output are never cast to the activation dtype), attention as
     in ``block_ref`` or, with ``quant_attn``, int8 (``_attention_q8``; with
     the 18-tuple's static scales ``_attention_q8s`` on its entries 4–6).
-    ``qparams`` is the 17- or 18-tuple of ``quantize_block_params``."""
+    ``qparams`` is the 17- or 18-tuple of ``quantize_block_params``;
+    ``width`` and ``head_dim`` as ``block_ref``'s."""
     (l1s, l1b, wq, sq, bq, bias, wp, sp, bp, l2s, l2b,
      wu, su, bu, wd, sd, bd) = qparams[:17]
     s_act = qparams[17] if len(qparams) == 18 else None
@@ -1371,28 +1555,31 @@ def block_ref_q8(x: torch.Tensor, qparams, heads: int,
         qd = lambda t, w, s, i: _qdot(t, w, s)
     dt = x.dtype
     b, n, c = x.shape
-    y = _ln(x, l1s, l1b).reshape(b * n, c)
-    qkv = (qd(y, wq, sq, 0).to(dt) + bq).reshape(b, n, 3 * c)
+    y = _ln(x, l1s, l1b, width=width).reshape(b * n, c)
+    qkv = (qd(y, wq, sq, 0).to(dt) + bq).reshape(b, n, -1)
     if quant_attn and s_act is not None:
-        a = _attention_q8s(qkv, bias, heads, s_act[4], s_act[5], s_act[6])
+        a = _attention_q8s(qkv, bias, heads, s_act[4], s_act[5], s_act[6],
+                           head_dim)
     elif quant_attn:
-        a = _attention_q8(qkv, bias, heads)
+        a = _attention_q8(qkv, bias, heads, head_dim)
     else:
-        a = _attention(qkv, bias, heads)
-    p = qd(a.reshape(b * n, c).to(torch.float32), wp, sp, 1).to(dt) + bp
+        a = _attention(qkv, bias, heads, head_dim)
+    p = qd(a.reshape(b * n, -1).to(torch.float32), wp, sp, 1).to(dt) + bp
     r = x + p.reshape(b, n, c)
-    y2 = _ln(r, l2s, l2b).reshape(b * n, c)
+    y2 = _ln(r, l2s, l2b, width=width).reshape(b * n, c)
     h1 = gelu(qd(y2, wu, su, 2) + bu.to(torch.float32), exact_gelu)
     o = qd(h1, wd, sd, 3).to(dt) + bd
     return r + o.reshape(b, n, c)
 
 
 def chain_ref_q8(x: torch.Tensor, qparams_list, heads: int,
-                 exact_gelu: bool = False,
-                 quant_attn: bool = False) -> torch.Tensor:
+                 exact_gelu: bool = False, quant_attn: bool = False,
+                 width: int | None = None,
+                 head_dim: int | None = None) -> torch.Tensor:
     """Plain version of a w8a8 stage: ``block_ref_q8`` back to back."""
     for p in qparams_list:
-        x = block_ref_q8(x, p, heads, exact_gelu, quant_attn).to(x.dtype)
+        x = block_ref_q8(x, p, heads, exact_gelu, quant_attn, width,
+                         head_dim).to(x.dtype)
     return x
 
 
@@ -1419,24 +1606,63 @@ def block_act_amax(x: torch.Tensor, params, heads: int,
     return out, amax
 
 
+# --------------------------------- the plain twin of the padded layouts
+
+def block_twin(x: torch.Tensor, params, heads: int, exact_gelu: bool = False,
+               quant_attn: bool = False, train: bool = False):
+    """The CUDA blocks' plain twin on their zero-padded layout: what K2
+    (``params`` a 13-tuple), K3 (a list of them), K4 (17- or 18-tuples;
+    ``quant_attn``: K4a's core) and, with ``train``, K5 compute, in plain
+    PyTorch. x and the parameters are padded as the wrappers pad them
+    (``padded_widths``), the plain version runs on the layout with the
+    LayerNorms' statistics over the true C and q's scale of the true d, and
+    the output (with ``train`` also K5's residuals qkv, probs, gin, r) is
+    cut back to the true widths."""
+    chain = isinstance(params, list)
+    plist = params if chain else [params]
+    q8 = len(plist[0]) in (17, 18)
+    lay = padded_widths(x.shape[-1], heads, plist[0][11 if q8 else 9].shape[0],
+                        int8=q8)
+    xp, kw = lay.pad_x(x), dict(width=lay.c, head_dim=lay.d)
+    if q8:
+        out = chain_ref_q8(xp, [lay.pad_qparams(p) for p in plist], heads,
+                           exact_gelu, quant_attn, **kw)
+        return lay.unpad_x(out)
+    pp = [lay.pad_params(p) for p in plist]
+    if train:
+        out, (qkv, probs, gin, r) = block_train_ref(xp, pp[0], heads,
+                                                    exact_gelu, **kw)
+        return lay.unpad_x(out), (lay.unpad_heads(qkv, 3), probs,
+                                  lay.unpad_hidden(gin), lay.unpad_x(r))
+    return lay.unpad_x(chain_ref(xp, pp, heads, exact_gelu, **kw))
+
+
+def attention_q8_twin(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                      static=None) -> torch.Tensor:
+    """K4a's core alone on its zero-padded layout, in plain PyTorch: qkv's
+    heads padded to d' (``PaddedWidths.pad_heads``), ``attention_q8_ref``
+    with q's scale of the true d, the output's heads cut back."""
+    lay = padded_widths(qkv.shape[-1] // 3, heads)
+    out = attention_q8_ref(lay.pad_heads(qkv, 3), bias, heads, static, lay.d)
+    return lay.unpad_heads(out)
+
+
 # -------------------------------------------------------------- CUDA path
 
 def _check_x(x, heads, align):
     """(B, N, C) of an activation the CUDA blocks take: bf16, contiguous,
-    heads of a width the cores take (``check_head_dim``), C <=
-    ``MAX_LONG_WIDTH`` (the wide
-    LayerNorm kernels' row; one warp a row up to ``MAX_WIDTH``) and a
-    multiple of ``align`` (the GEMMs' K slab), N <= ``MAX_LONG_TOKENS``
-    (the long attention route above ``MAX_TOKENS``)."""
+    heads of a width the cores take (``check_head_dim``; widths that are
+    not multiples of 8 on a zero-padded layout), C rounded up to ``align``
+    (the padded layout's; the GEMMs' 16-byte rows) at most
+    ``MAX_LONG_WIDTH`` (the wide LayerNorm kernels' row; one warp a row up
+    to ``MAX_WIDTH``), N <= ``MAX_LONG_TOKENS`` (the long attention route
+    above ``MAX_TOKENS``)."""
     if x.dtype != torch.bfloat16 or x.dim() != 3 or not x.is_contiguous():
         raise TypeError(f"x must be a contiguous (B, N, C) bf16 tensor, got "
                         f"{x.dtype} {tuple(x.shape)}")
     b, n, c = x.shape
     check_head_dim(c, heads)
-    if c % align:
-        raise ValueError(f"the CUDA block needs C a multiple of {align}; got "
-                         f"C={c}")
-    if c > MAX_LONG_WIDTH:
+    if _round_up(c, align) > MAX_LONG_WIDTH:
         raise ValueError(f"the CUDA block takes C <= {MAX_LONG_WIDTH}, got "
                          f"C={c}; wider rows are open work (ROADMAP.md)")
     if not 1 <= n <= MAX_LONG_TOKENS or not 1 <= b <= 65535:
@@ -1464,19 +1690,30 @@ def _check_params(params_list, want, device, what):
                 )
 
 
+def _padded_inputs(x, params_list, heads, int8):
+    """A block's (or chain's) inputs on its zero-padded layout: ``(lay, x,
+    params_list)``, x and the parameters padded (as they are where the
+    layout is the true one), the parameters checked there (``want``: their
+    dtypes and shapes at C', A, hidden')."""
+    _check_x(x, heads, Q8_K_ALIGN if int8 else GEMM_K_ALIGN)
+    hidden = params_list[0][11 if int8 else 9].shape[0]
+    lay = padded_widths(x.shape[-1], heads, hidden, int8)
+    pad = lay.pad_qparams if int8 else lay.pad_params
+    return lay, lay.pad_x(x), [pad(p) for p in params_list]
+
+
 def _check_cuda(x, params_list, heads):
-    b, n, c = _check_x(x, heads, GEMM_K_ALIGN)
-    hidden = params_list[0][9].shape[0]
-    if hidden % GEMM_K_ALIGN:
-        raise ValueError(f"MLP width must be a multiple of {GEMM_K_ALIGN}, "
-                         f"got {hidden}")
+    """Pads a bf16 block's inputs (``_padded_inputs``) and checks its
+    parameters on the layout: ``(lay, x, params_list)``."""
+    lay, x, params_list = _padded_inputs(x, params_list, heads, False)
+    c, a, hidden, n = lay.c_pad, lay.a, lay.hidden_pad, x.shape[1]
     f32, bf = torch.float32, torch.bfloat16
-    want = ((f32, (c,)), (f32, (c,)), (bf, (3 * c, c)), (bf, (3 * c,)),
-            (f32, (heads, n, n)), (bf, (c, c)), (bf, (c,)),
+    want = ((f32, (c,)), (f32, (c,)), (bf, (3 * a, c)), (bf, (3 * a,)),
+            (f32, (heads, n, n)), (bf, (c, a)), (bf, (c,)),
             (f32, (c,)), (f32, (c,)), (bf, (hidden, c)), (bf, (hidden,)),
             (bf, (c, hidden)), (bf, (c,)))
     _check_params(params_list, want, x.device, "block")
-    return b, n, c, hidden
+    return lay, x, params_list
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -1509,26 +1746,29 @@ def _mlp_scratch(b, n, c, heads, hidden, x):
     """The bf16 blocks' h, (b·n, hidden) in x's dtype: the MLP's hidden
     activation, and during the attention (before the up GEMM writes it)
     the scratch of the core's wide form, so at least ``wide_scratch``
-    bytes."""
+    bytes (``c`` the attention's width)."""
     elems = max(b * n * hidden,
                 -(-wide_scratch(b, n, heads, c // heads) // x.element_size()))
     return torch.empty((elems,), dtype=x.dtype, device=x.device)
 
 
 def _launch(fn_name, x, params_list, heads):
-    b, n, c, hidden = _check_cuda(x, params_list, heads)
-    m = b * n
+    """A bf16 block or chain on the card, on its padded layout: x and the
+    parameters padded once, the output cut back to C."""
+    lay, x, params_list = _check_cuda(x, params_list, heads)
+    b, n, c = x.shape
+    m, a, hidden = b * n, lay.a, lay.hidden_pad
     out = torch.empty_like(x)
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=x.device)
-    att = torch.empty((m, c), dtype=x.dtype, device=x.device)
+    qkv = torch.empty((m, 3 * a), dtype=x.dtype, device=x.device)
+    att = torch.empty((m, a), dtype=x.dtype, device=x.device)
     r = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    h = _mlp_scratch(b, n, c, heads, hidden, x)
+    h = _mlp_scratch(b, n, a, heads, hidden, x)
     ptrs = _pointers(params_list)
-    ints = block_plan(b, n, c, heads, hidden)
+    ints = block_plan(b, n, c, heads, hidden, a)
     plan = _plan_arg(ints)
     lib = build.load("fused_block", _SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    shape = (b, n, c, heads, hidden)
+    shape = (b, n, c, heads, hidden, *lay.launch_widths)
     if fn_name == "dm_block_forward":
         err = lib.dm_block_forward(x.data_ptr(), out.data_ptr(), *shape, ptrs,
                                    qkv.data_ptr(), att.data_ptr(),
@@ -1542,7 +1782,7 @@ def _launch(fn_name, x, params_list, heads):
     build.check(lib, err, fn_name)
     count_core(ints, blocks=len(params_list))
     count_layer_norms(c, False, len(params_list))
-    return out
+    return lay.unpad_x(out)
 
 
 def _require_tanh_gelu(exact_gelu):
@@ -1560,31 +1800,34 @@ def fused_block_train(x: torch.Tensor, params, heads: int,
 
     CPU tensors run ``block_train_ref``. CUDA tensors (bf16) launch the
     CUDA training block (``csrc/fused_block.cu``,
-    ``dm_block_train_forward``) and count the launch in
-    ``fused_block_train.launches``.
+    ``dm_block_train_forward``) on the block's padded layout (its outputs
+    and residuals cut back to the true widths, which the backward takes)
+    and count the launch in ``fused_block_train.launches``.
     """
     if not _on_cuda(x):
         return block_train_ref(x, params, heads, exact_gelu)
     _require_tanh_gelu(exact_gelu)
-    params = tuple(params)
-    b, n, c, hidden = _check_cuda(x, [params], heads)
+    lay, x, (params,) = _check_cuda(x, [tuple(params)], heads)
+    b, n, c = x.shape
+    a, hidden = lay.a, lay.hidden_pad
     empty = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-    out, r, att = empty(b, n, c), empty(b, n, c), empty(b * n, c)
-    qkv, probs = empty(b, n, 3 * c), empty(b, heads, n, n)
-    gin, h = empty(b, n, hidden), _mlp_scratch(b, n, c, heads, hidden, x)
+    out, r, att = empty(b, n, c), empty(b, n, c), empty(b * n, a)
+    qkv, probs = empty(b, n, 3 * a), empty(b, heads, n, n)
+    gin, h = empty(b, n, hidden), _mlp_scratch(b, n, a, heads, hidden, x)
     lib = build.load("fused_block", _SIGNATURES)
-    ints = block_plan(b, n, c, heads, hidden)
+    ints = block_plan(b, n, c, heads, hidden, a)
     err = lib.dm_block_train_forward(
         x.data_ptr(), out.data_ptr(), b, n, c, heads, hidden,
-        _pointers([params]), qkv.data_ptr(), probs.data_ptr(),
-        gin.data_ptr(), r.data_ptr(), att.data_ptr(), h.data_ptr(),
-        _nbytes(h), _plan_arg(ints),
+        *lay.launch_widths, _pointers([params]), qkv.data_ptr(),
+        probs.data_ptr(), gin.data_ptr(), r.data_ptr(), att.data_ptr(),
+        h.data_ptr(), _nbytes(h), _plan_arg(ints),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_block_train_forward")
     count_core(ints)
     count_layer_norms(c, False)
     fused_block_train.launches += 1
-    return out, (qkv, probs, gin, r)
+    return lay.unpad_x(out), (lay.unpad_heads(qkv, 3), probs,
+                              lay.unpad_hidden(gin), lay.unpad_x(r))
 
 
 class _BlockTrain(torch.autograd.Function):
@@ -1773,52 +2016,54 @@ gemm.launches = 0
 # --------------------------------------------------------- w8a8 CUDA path
 
 def _check_cuda_q8(x, qparams_list, heads):
-    b, n, c = _check_x(x, heads, Q8_K_ALIGN)
+    """Pads a w8a8 block's inputs (``_padded_inputs``) and checks its
+    parameters on the layout: ``(lay, x, qparams_list, static)``."""
     width = len(qparams_list[0])
     if width not in (17, 18):
         raise ValueError(f"a w8a8 block takes 17 or 18 parameters, got "
                          f"{width}")
-    hidden = qparams_list[0][11].shape[0]
-    if hidden % Q8_K_ALIGN:
-        raise ValueError(f"MLP width must be a multiple of {Q8_K_ALIGN}, "
-                         f"got {hidden}")
+    lay, x, qparams_list = _padded_inputs(x, qparams_list, heads, True)
+    c, a, hidden, n = lay.c_pad, lay.a, lay.hidden_pad, x.shape[1]
     f32, bf, i8 = torch.float32, torch.bfloat16, torch.int8
-    want = ((f32, (c,)), (f32, (c,)), (i8, (3 * c, c)), (f32, (3 * c,)),
-            (bf, (3 * c,)), (f32, (heads, n, n)), (i8, (c, c)), (f32, (c,)),
+    want = ((f32, (c,)), (f32, (c,)), (i8, (3 * a, c)), (f32, (3 * a,)),
+            (bf, (3 * a,)), (f32, (heads, n, n)), (i8, (c, a)), (f32, (c,)),
             (bf, (c,)), (f32, (c,)), (f32, (c,)), (i8, (hidden, c)),
             (f32, (hidden,)), (bf, (hidden,)), (i8, (c, hidden)),
             (f32, (c,)), (bf, (c,)), (f32, (7,)))[:width]
     _check_params(qparams_list, want, x.device, "w8a8 block")
-    return b, n, c, hidden, width == 18
+    return lay, x, qparams_list, width == 18
 
 
 def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
-    b, n, c, hidden, static = _check_cuda_q8(x, qparams_list, heads)
-    m = b * n
+    """A w8a8 block or chain on the card, on its padded layout (as
+    ``_launch``)."""
+    lay, x, qparams_list, static = _check_cuda_q8(x, qparams_list, heads)
+    b, n, c = x.shape
+    m, a, hidden = b * n, lay.a, lay.hidden_pad
     dev = x.device
     out = torch.empty_like(x)
-    qkv = torch.empty((m, 3 * c), dtype=x.dtype, device=dev)
-    att = torch.empty((m, c), dtype=x.dtype, device=dev)
+    qkv = torch.empty((m, 3 * a), dtype=x.dtype, device=dev)
+    att = torch.empty((m, a), dtype=x.dtype, device=dev)
     r = torch.empty((m, c), dtype=x.dtype, device=dev)
-    ints = block_plan_q8(b, n, c, heads, hidden, quant_attn)
+    ints = block_plan_q8(b, n, c, heads, hidden, quant_attn, a)
     # h, free during the attention, is also K4a's long-route scratch, or
     # the bf16 core's on its wide form
     h_floats = m * hidden
     if quant_attn and ints[0] == ATTN_LONG_ROUTE:
         h_floats = max(h_floats,
-                       -(-attention_q8_long_scratch(b, n, c, heads) // 4))
+                       -(-attention_q8_long_scratch(b, n, a, heads) // 4))
     elif not quant_attn:
-        h_floats = max(h_floats, -(-wide_scratch(b, n, heads, c // heads)
+        h_floats = max(h_floats, -(-wide_scratch(b, n, heads, lay.d_pad)
                                    // 4))
     h = torch.empty((h_floats,), dtype=torch.float32, device=dev)
-    codes = torch.empty((m, max(c, hidden)), dtype=torch.int8, device=dev)
+    codes = torch.empty((m, max(a, hidden)), dtype=torch.int8, device=dev)
     row_scale = torch.empty((m,), dtype=torch.float32, device=dev)
     row_amax = torch.empty((m,), dtype=torch.float32, device=dev)
     ptrs = _pointers(qparams_list)
     plan = _plan_arg(ints)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    shape = (b, n, c, heads, hidden)
+    shape = (b, n, c, heads, hidden, *lay.launch_widths)
     flags = (int(static), int(quant_attn))
     scratch = (qkv.data_ptr(), att.data_ptr(), r.data_ptr(), h.data_ptr(),
                _nbytes(h), codes.data_ptr(), row_scale.data_ptr(),
@@ -1833,7 +2078,7 @@ def _launch_q8(fn_name, x, qparams_list, heads, quant_attn):
     build.check(lib, err, fn_name)
     count_core(ints, int8=quant_attn, blocks=len(qparams_list))
     count_layer_norms(c, True, len(qparams_list))
-    return out
+    return lay.unpad_x(out)
 
 
 def _refuse_grad(x, qparams_list):
@@ -2014,7 +2259,9 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
         raise ValueError(f"bias must be a contiguous float32 ({heads}, {n}, "
                          f"{n}) on {qkv.device}")
     plan = plan or attention_q8_plan(b, n, heads, head_dim=d)
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    lay = padded_widths(c, heads)  # heads of d' lanes, zeros past d
+    qkv = lay.pad_heads(qkv, 3)
+    out = torch.empty((b, n, lay.a), dtype=qkv.dtype, device=qkv.device)
     scratch = None
     if plan["route"] == "long":
         scratch = torch.empty((plan["scratch"],), dtype=torch.uint8,
@@ -2023,13 +2270,13 @@ def attention_q8(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     err = lib.dm_attention_q8(
         qkv.data_ptr(), bias.data_ptr(),
         None if static is None else static.data_ptr(), out.data_ptr(), b, n,
-        c, heads, _plan_arg(plan["ints"]),
+        lay.a, heads, d, _plan_arg(plan["ints"]),
         None if scratch is None else scratch.data_ptr(), _nbytes(scratch),
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8")
     count_core(plan["ints"], int8=True)
     attention_q8.launches += 1
-    return out
+    return lay.unpad_heads(out)
 
 
 def _check_q8_qkv(qkv, heads, static):
@@ -2073,12 +2320,14 @@ def attention_q8_prepass(qkv: torch.Tensor, heads: int, static=None):
         raise ValueError(f"the pre-pass takes 1..{MAX_LONG_TOKENS} tokens, "
                          f"got {n} (ROADMAP.md)")
     np_ = q8_long_keys(n)
-    scratch = torch.empty((attention_q8_long_scratch(b, n, c, heads),),
+    lay = padded_widths(c, heads)  # heads of d' lanes, zeros past d
+    qkv = lay.pad_heads(qkv, 3)
+    scratch = torch.empty((attention_q8_long_scratch(b, n, lay.a, heads),),
                           dtype=torch.uint8, device=qkv.device)
     lib = build.load("fused_block_q8", _SIGNATURES_Q8)
     err = lib.dm_attention_q8_prepass(
         qkv.data_ptr(), None if static is None else static.data_ptr(),
-        scratch.data_ptr(), _nbytes(scratch), b, n, c, heads,
+        scratch.data_ptr(), _nbytes(scratch), b, n, lay.a, heads,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     build.check(lib, err, "dm_attention_q8_prepass")
     attention_q8_prepass.launches += 1
@@ -2178,7 +2427,7 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty_like(x)
     lib = build.load("fused_block", _SIGNATURES)
     err = lib.dm_layer_norm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                            y.data_ptr(), m, c,
+                            y.data_ptr(), m, c, c,
                             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_layer_norm")
     if c > MAX_WIDTH:
@@ -2225,7 +2474,7 @@ def ln_quant(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     err = lib.dm_ln_quant(
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
         None if static_scale is None else static_scale.data_ptr(),
-        codes.data_ptr(), scale.data_ptr(), m, c,
+        codes.data_ptr(), scale.data_ptr(), m, c, c,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, err, "dm_ln_quant")
     if c > MAX_WIDTH:

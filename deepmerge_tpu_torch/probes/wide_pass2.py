@@ -214,10 +214,10 @@ def _variant_libs():
             raise RuntimeError(f"{name}: nvcc failed:\n{log}")
         libs[name] = ctypes.CDLL(str(so))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    libs["fused_attention"].dm_attention.argtypes = [P, P, P, I, I, I, I, P,
-                                                     P, L, P]
+    libs["fused_attention"].dm_attention.argtypes = [P, P, P, I, I, I, I, I,
+                                                     P, P, L, P]
     libs["fused_block_q8"].dm_attention_q8.argtypes = [P, P, P, P, I, I, I,
-                                                      I, P, P, L, P]
+                                                      I, I, P, P, L, P]
     return libs
 
 
@@ -253,7 +253,7 @@ def route256() -> int:
                                   device=dev)
                 err = libs["fused_attention"].dm_attention(
                     qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
-                    768, heads, ints, p_bf.data_ptr(), p_bf.numel(),
+                    768, heads, d, ints, p_bf.data_ptr(), p_bf.numel(),
                     stream())
                 assert err == 0, f"dm_attention: CUDA error {err}"
                 return out
@@ -263,7 +263,7 @@ def route256() -> int:
                                   device=dev)
                 err = libs["fused_block_q8"].dm_attention_q8(
                     qkv.data_ptr(), bias.data_ptr(), None, out.data_ptr(), b,
-                    n, 768, heads, ints, p_q8.data_ptr(), p_q8.numel(),
+                    n, 768, heads, d, ints, p_q8.data_ptr(), p_q8.numel(),
                     stream())
                 assert err == 0, f"dm_attention_q8: CUDA error {err}"
                 return out

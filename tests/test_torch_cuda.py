@@ -51,9 +51,12 @@ import torch
 from deepmerge_tpu_torch.ops.kernels import fused_attention as fa
 from deepmerge_tpu_torch.ops.kernels import fused_block as fb
 from deepmerge_tpu_torch.ops.kernels.fused_block import (
+    attention_q8,
+    attention_q8_twin,
     block_act_amax,
     block_ref,
     block_ref_q8,
+    block_twin,
     block_train_ref,
     chain_ref,
     chain_ref_q8,
@@ -246,7 +249,7 @@ def test_block_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         fused_block(x, params, 2, exact_gelu=True)
     with pytest.raises(ValueError, match="heads"):
-        fused_block(x, params, 32)  # head width 4
+        fused_block(x, params, 3)  # 3 heads do not divide C 128
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block(x, params[:2] + (params[2].float(),) + params[3:], 2)
 
@@ -363,12 +366,13 @@ def test_q8_block_rejects_what_the_kernel_does_not_take(cuda):
         fused_block_q8(x, qp[:16], heads)
     with pytest.raises(ValueError, match="parameter 2"):
         fused_block_q8(x, qp[:2] + (qp[2].float(),) + qp[3:], heads)
-    # 5 heads of 8: a width the cores take, on a C the s8 GEMM's 16-byte
-    # rows refuse
+    # 5 heads of 8 at C 40, which the s8 GEMM's 16-byte rows once refused,
+    # run on the zero-padded layout (C' 48, heads of 16) as its twin does
     x40, (qp40,), h40 = _q8_inputs(rs, 2, 12, 1, False, cuda, c=40, heads=5,
                                    hidden=160)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fused_block_q8(x40, qp40, h40)
+    _assert_block_close(fused_block_q8(x40, qp40, h40),
+                        block_twin(x40, qp40, h40), x40, BLOCK_TOL,
+                        BLOCK_RMS_TOL)
 
 
 def _attention_inputs(rs, b, n, heads, cuda, d=64):
@@ -423,7 +427,7 @@ def test_attention_probs_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         fa.attention_probs(qkv.float(), bias, 2)
     with pytest.raises(ValueError, match="heads"):
-        fa.attention_probs(qkv, bias, 32)  # head width 4
+        fa.attention_probs(qkv, bias, 3)  # 3 heads do not divide C 128
     with pytest.raises(ValueError, match="bias"):
         fa.attention_probs(qkv, bias.to(torch.bfloat16), 2)
     # past the long route's limit (257..MAX_LONG_TOKENS take the long
@@ -479,6 +483,43 @@ def test_attention_qkv_backward_matches_plain(cuda, monkeypatch):
     torch.cuda.synchronize()
     for gg, w in zip(got, want):
         assert _rel_err(gg, w) <= BLOCK_TOL
+
+
+@pytest.mark.parametrize("n", [12, 300])
+@pytest.mark.parametrize("heads,d", [(4, 13), (3, 20), (1, 260)])
+def test_odd_widths_match_their_twins(cuda, heads, d, n):
+    """Heads that are no multiple of 8 (and w8a8 at C % 16 != 0) on the
+    zero-padded layouts: each kernel against the layout's plain twin."""
+    rs = np.random.default_rng(d + n)
+    c = heads * d
+    x = torch.from_numpy(rs.standard_normal((2, n, c)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    p = _block_params(rs, n, c, heads, 4 * c, cuda)
+    _assert_block_close(fused_block(x, p, heads), block_twin(x, p, heads),
+                        x, BLOCK_TOL, BLOCK_RMS_TOL)
+    out, saved = fused_block_train(x, p, heads)
+    want, want_saved = block_twin(x, p, heads, train=True)
+    _assert_block_close(out, want, x, BLOCK_TOL, BLOCK_RMS_TOL)
+    assert [tuple(t.shape) for t in saved] == \
+        [tuple(t.shape) for t in want_saved]
+    qp = tuple(t.contiguous() for t in quantize_block_params(p))
+    for quant_attn in (False, True):
+        _assert_block_close(
+            fused_block_q8(x, qp, heads, quant_attn=quant_attn),
+            block_twin(x, qp, heads, quant_attn=quant_attn), x, BLOCK_TOL,
+            BLOCK_RMS_TOL)
+    qkv, bias = _attention_inputs(rs, 2, n, heads, cuda, d=d)
+    assert _rel_err(fa.attention_qkv(qkv, bias, heads),
+                    fa.attention_twin(qkv, bias, heads)) <= BLOCK_TOL
+    got, probs = fa.attention_probs(qkv, bias, heads)
+    want, want_p = fa.attention_twin(qkv, bias, heads, probs=True)
+    assert _rel_err(got, want) <= BLOCK_TOL
+    assert float((probs.float() - want_p.float()).abs().max()) <= 1e-2
+    q, k, v = (t.contiguous() for t in fa.split_qkv(qkv, heads))
+    assert _rel_err(fa.attention_bnhd(q, k, v, bias),
+                    fa.attention_bnhd_twin(q, k, v, bias)) <= BLOCK_TOL
+    assert _rel_err(attention_q8(qkv, bias, heads),
+                    attention_q8_twin(qkv, bias, heads)) <= BLOCK_TOL
 
 
 def test_attention_kernels_reject_what_they_do_not_take(cuda):

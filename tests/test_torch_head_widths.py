@@ -366,40 +366,59 @@ def test_block_plans_carry_the_head_width(d):
 
 @pytest.mark.parametrize("d", [8200, 20, 4])
 def test_other_widths_raise(d):
-    """A width the cores do not take (above 8192, or not a multiple of 8)
-    raises ``ValueError`` naming ROADMAP.md, from the plans and from the
-    checks every CUDA entry point runs; there is no fallback."""
+    """A width above 8192 raises ``ValueError`` naming ROADMAP.md, from
+    the plans and from the checks every CUDA entry point runs; there is no
+    fallback. Widths that are no multiple of 8 (20 and 4), refused before
+    the zero-padded layouts, pass every check now, and their plans are
+    those of the layout's width round_up(d, 8)."""
     heads = 4
     c = heads * d
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fb.check_head_dim(c, heads)
-    for plan in (fb.attention_plan, fb.attention_q8_plan):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            plan(1024, 192, heads, head_dim=d)
     x = torch.zeros((2, 12, c), dtype=torch.bfloat16)
-    for align in (fb.GEMM_K_ALIGN, fb.Q8_K_ALIGN):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            fb._check_x(x, heads, align)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fa._check_cuda(torch.zeros((2, 12, 3 * c), dtype=torch.bfloat16),
-                       torch.zeros((heads, 12, 12)), heads)
+    qkv = torch.zeros((2, 12, 3 * c), dtype=torch.bfloat16)
     q = torch.zeros((2, 12, heads, d), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fa._check_cuda_bnhd(q, q, q, torch.zeros((heads, 12, 12)))
+    bias = torch.zeros((heads, 12, 12))
+    if d > fb.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fb.check_head_dim(c, heads)
+        for plan in (fb.attention_plan, fb.attention_q8_plan):
+            with pytest.raises(ValueError, match="ROADMAP.md"):
+                plan(1024, 192, heads, head_dim=d)
+        for align in (fb.GEMM_K_ALIGN, fb.Q8_K_ALIGN):
+            with pytest.raises(ValueError, match="ROADMAP.md"):
+                fb._check_x(x, heads, align)
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fa._check_cuda(qkv, bias, heads)
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fa._check_cuda_bnhd(q, q, q, bias)
+        return
+    assert fb.check_head_dim(c, heads) == d
+    dp = -(-d // 8) * 8
+    for plan in (fb.attention_plan, fb.attention_q8_plan):
+        got = plan(1024, 192, heads, head_dim=d)
+        assert got["ints"] == plan(1024, 192, heads, head_dim=dp)["ints"]
+        assert (got["head_dim"], got["core_width"]) == (d, 32)
+    for align in (fb.GEMM_K_ALIGN, fb.Q8_K_ALIGN):
+        assert fb._check_x(x, heads, align) == (2, 12, c)
+    assert fa._check_cuda(qkv, bias, heads) == (2, 12, c, d)
+    assert fa._check_cuda_bnhd(q, q, q, bias) == (2, 12, heads, d)
 
 
 def test_checks_separate_width_from_alignment():
     """The head width and the GEMMs' K rows are separate conditions: 4
     heads of 32 in C 128 pass both the bf16 (C % 8) and the w8a8 (C % 16)
-    alignment; 5 heads of 8 in C 40 pass the bf16 one and fail the w8a8
-    one on its alignment, not on its width."""
+    alignment as they are; 5 heads of 8 in C 40 pass the bf16 one as they
+    are, and w8a8 runs them on the zero-padded layout of C' 48 with heads
+    of 16 lanes (A 80), which the w8a8 GEMMs read."""
     x = torch.zeros((2, 12, 128), dtype=torch.bfloat16)
     assert fb._check_x(x, 4, fb.GEMM_K_ALIGN) == (2, 12, 128)
     assert fb._check_x(x, 4, fb.Q8_K_ALIGN) == (2, 12, 128)
+    assert fb.padded_widths(128, 4, 512, int8=True).aligned
     x40 = torch.zeros((2, 12, 40), dtype=torch.bfloat16)
     assert fb._check_x(x40, 5, fb.GEMM_K_ALIGN) == (2, 12, 40)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fb._check_x(x40, 5, fb.Q8_K_ALIGN)
+    assert fb.padded_widths(40, 5, 160).aligned
+    assert fb._check_x(x40, 5, fb.Q8_K_ALIGN) == (2, 12, 40)
+    lay = fb.padded_widths(40, 5, 160, int8=True)
+    assert (lay.c_pad, lay.d_pad, lay.a, lay.hidden_pad) == (48, 16, 80, 160)
 
 
 # ---------------------------------------------------------- whole models

@@ -246,20 +246,35 @@ def test_gemm_plans_take_k_tails(k, bf16_slabs, s8_slabs):
 ])
 def test_refusals_that_remain(c, heads, align, match):
     """What the cards' kernels still refuse, with ``ValueError`` and no
-    fallback: heads wider than 8192 or not a multiple of 8, and a w8a8
-    block whose C is not a multiple of 16 (5 heads of 8: a width the cores
-    take)."""
+    fallback: heads wider than 8192. A head width that is no multiple of 8
+    (4 heads of 20) and a w8a8 block whose C is no multiple of 16 (5 heads
+    of 8), refused before the zero-padded layouts, now pass the checks and
+    the plans: their blocks run on a layout the kernels read (``padded_widths``),
+    while the GEMM alone still takes only 16-byte rows."""
     x = torch.zeros((2, 12, c), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=match):
-        fb._check_x(x, heads, align)
-    if align == fb.Q8_K_ALIGN:
-        assert fb._check_x(x, heads, fb.GEMM_K_ALIGN) == (2, 12, c)
-        with pytest.raises(ValueError, match="K % 16"):
-            fb.gemm_q8_plan(1024, 3 * c, c)
-    else:
+    d = c // heads
+    if d > fb.MAX_HEAD_DIM:
+        with pytest.raises(ValueError, match=match):
+            fb._check_x(x, heads, align)
         for plan in (fb.attention_plan, fb.attention_q8_plan):
             with pytest.raises(ValueError, match="ROADMAP.md"):
-                plan(1024, 192, heads, head_dim=c // heads)
+                plan(1024, 192, heads, head_dim=d)
+        return
+    assert fb._check_x(x, heads, align) == (2, 12, c)
+    lay = fb.padded_widths(c, heads, 4 * c, int8=align == fb.Q8_K_ALIGN)
+    assert lay.c_pad % align == 0 and lay.a % align == 0
+    assert lay.d_pad % fb.HEAD_DIM_STEP == 0 and lay.d_pad - d < align
+    if align == fb.Q8_K_ALIGN:
+        assert (lay.c_pad, lay.d_pad, lay.a) == (48, 16, 80)
+        with pytest.raises(ValueError, match="K % 16"):
+            fb.gemm_q8_plan(1024, 3 * c, c)
+        assert fb.block_plan_q8(1024, 192, lay.c_pad, heads, lay.hidden_pad,
+                                a=lay.a)
+    else:
+        assert (lay.c_pad, lay.d_pad) == (80, 24)
+        for plan in (fb.attention_plan, fb.attention_q8_plan):
+            assert plan(1024, 192, heads, head_dim=d)["ints"] == \
+                plan(1024, 192, heads, head_dim=lay.d_pad)["ints"]
 
 
 def test_bf16_q_scale_is_the_true_width():

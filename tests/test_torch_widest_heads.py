@@ -358,16 +358,30 @@ def test_every_width_past_256_takes_the_wide_form():
 
 @pytest.mark.parametrize("d", [8200, 8 * 1025, 388, 260])
 def test_wide_refusals(d):
-    """Above 8192, or not a multiple of 8, a width raises ``ValueError``
-    naming ROADMAP.md, from the plans and the CUDA entries' checks."""
-    for plan in (fb.attention_plan, fb.attention_q8_plan):
+    """Above 8192 a width raises ``ValueError`` naming ROADMAP.md, from
+    the plans and the CUDA entries' checks. Wide widths that are no
+    multiple of 8 (388 and 260), refused before the zero-padded layouts,
+    pass now on the wide form, with the plans of their layout's width
+    round_up(d, 8)."""
+    qkv = torch.zeros((2, 12, 3 * d), dtype=torch.bfloat16)
+    bias = torch.zeros((1, 12, 12))
+    if d > fb.MAX_HEAD_DIM:
+        for plan in (fb.attention_plan, fb.attention_q8_plan):
+            with pytest.raises(ValueError, match="ROADMAP.md"):
+                plan(1024, 192, 1, head_dim=d)
         with pytest.raises(ValueError, match="ROADMAP.md"):
-            plan(1024, 192, 1, head_dim=d)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fb.check_head_dim(2 * d, 2)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        fa._check_cuda(torch.zeros((2, 12, 3 * d), dtype=torch.bfloat16),
-                       torch.zeros((1, 12, 12)), 1)
+            fb.check_head_dim(2 * d, 2)
+        with pytest.raises(ValueError, match="ROADMAP.md"):
+            fa._check_cuda(qkv, bias, 1)
+        return
+    dp = -(-d // 8) * 8
+    for plan in (fb.attention_plan, fb.attention_q8_plan):
+        got, want = (plan(1024, 192, 1, head_dim=w) for w in (d, dp))
+        assert got["ints"] == want["ints"] and got["parts"] == want["parts"]
+        assert got["core_width"] == fb.WIDE_CORE
+        assert got.get("scratch") == want.get("scratch")
+    assert fb.check_head_dim(2 * d, 2) == d
+    assert fa._check_cuda(qkv, bias, 1) == (2, 12, d, d)
 
 
 def _region(probs=False, int8=False):
